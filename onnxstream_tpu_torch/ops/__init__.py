@@ -1,0 +1,93 @@
+"""Operator registry and evaluation context.
+
+Counterpart of ``onnxstream_tpu/ops/__init__.py``. Each op implementation is
+a function ``impl(ctx, op, ins) -> [outputs]`` where ``ins`` holds ``None``
+for absent optional inputs, numpy arrays for statically known values, and
+torch tensors for device values. The same bodies serve three callers:
+
+  * the planner's shape inference, on ``meta`` tensors (no data);
+  * host folding (``OpImpl.host``), on CPU tensors made from numpy;
+  * the executor, on tensors on ``SessionConfig.device``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from onnxstream_tpu_torch.dtypes import to_numpy
+
+
+class StaticRequired(Exception):
+    """Raised by Ctx.static when an op needs input i as a host value.
+
+    The planner catches this, loads the corresponding weight eagerly (pinning
+    it host-side) and retries the op.
+    """
+
+    def __init__(self, index: int, what: str = ""):
+        super().__init__(f"input {index} must be statically known ({what})")
+        self.index = index
+        self.what = what
+
+
+@dataclasses.dataclass
+class OpImpl:
+    fn: Callable
+    host: bool = False  # foldable on host when all inputs are static
+
+
+_REGISTRY: Dict[str, OpImpl] = {}
+
+
+def register(op_type: str, host: bool = False):
+    def deco(fn):
+        _REGISTRY[op_type] = OpImpl(fn=fn, host=host)
+        return fn
+
+    return deco
+
+
+def get_impl(op_type: str) -> OpImpl:
+    impl = _REGISTRY.get(op_type)
+    if impl is None:
+        raise NotImplementedError(f"operator {op_type!r} is not implemented in onnxstream_tpu_torch")
+    return impl
+
+
+def registered_ops() -> List[str]:
+    return sorted(_REGISTRY)
+
+
+class Ctx:
+    """Per-evaluation context handed to op impls."""
+
+    def __init__(self, mode: str, config=None, op_name: str = "",
+                 device: Optional[torch.device] = None):
+        self.mode = mode  # "host" | "device"
+        self.config = config
+        self.op_name = op_name
+        # where numpy operands of a device op are placed ("meta" while planning)
+        self.device = torch.device("cpu") if device is None else torch.device(device)
+
+    def static(self, ins, i: int, what: str = "") -> Optional[np.ndarray]:
+        """Return input i as a concrete numpy array, or raise StaticRequired
+        (a ``meta`` tensor has no value, as a JAX tracer has none)."""
+        v = ins[i] if i < len(ins) else None
+        if v is None:
+            return None
+        if isinstance(v, np.ndarray):
+            return v
+        if isinstance(v, (int, float, list, tuple)):
+            return np.asarray(v)
+        if isinstance(v, torch.Tensor) and v.device.type != "meta":
+            return to_numpy(v)
+        raise StaticRequired(i, what or self.op_name)
+
+
+# Importing the op modules installs all builtin ops into the registry.
+from onnxstream_tpu_torch.ops import standard as _standard  # noqa: E402,F401
+from onnxstream_tpu_torch.ops import attention as _attention  # noqa: E402,F401

@@ -1,0 +1,120 @@
+"""Session configuration.
+
+Counterpart of ``onnxstream_tpu/runtime/config.py``. It keeps the reference
+option flags the UNet slice reads and the ``set_option`` names that apply.
+The TPU-only knobs (AUTO weight layouts, meshes, pipeline stages, XLA
+compiler options, Pallas interpret mode) have no counterpart here.
+
+Options the port does not implement yet are kept as fields so that code
+written for the JAX package keeps its spelling, but setting one to a
+non-default value raises ``NotImplementedError``: nothing is ignored
+silently.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Set
+
+import torch
+
+# name -> default value of options that exist in the JAX package but are not
+# implemented in the port yet
+_NOT_IMPLEMENTED = {
+    "fuse_groupnorm": False,  # ostpu.gn_silu (TPU kernel gn_silu_pallas)
+    "fuse_gn_conv": False,  # ostpu.gn_silu_conv (TPU kernel gn_silu_conv_pallas)
+    "use_pallas_smallconv": False,  # im2col conv (TPU kernel matmul_pallas)
+    "flash_packed_nopad": False,  # head-major flash route (TPU kernel flash_attention)
+    "use_uint8_qdq": False,  # quantize pushed intermediates
+    "use_uint8_arithmetic": False,  # W8A8 (TPU kernels qmatmul / qconv)
+    "int8_symmetric_storage": False,  # s8 storage (TPU kernel w8a8_dyn_matmul)
+    "force_fp16_storage": False,
+    "use_nhwc_layout": False,  # channel-last graph rewrite
+}
+
+
+@dataclasses.dataclass
+class SessionConfig:
+    # --- reference-parity flags -------------------------------------------
+    support_dynamic_shapes: bool = False  # onnxstream.h:949
+    # use_fp16_arithmetic in the reference: "float16" | "bfloat16" | "float32"
+    compute_dtype: str = "float32"
+    fuse_ops_in_attention: bool = True  # AttentionFusedOps recognizer
+    use_scaled_dp_attn_op: bool = False  # LLM SDPA recognizers
+    ops_printf: bool = False  # per-op log (onnxstream.cpp:3759)
+    ops_times_printf: bool = False  # cumulative per-op-type ms (onnxstream.cpp:8199)
+    extra_outputs: List[str] = dataclasses.field(default_factory=list)
+    weights_exclusion_set: Set[str] = dataclasses.field(default_factory=set)
+    force_uint8_storage_set: Set[str] = dataclasses.field(default_factory=set)
+
+    # --- port knobs --------------------------------------------------------
+    # packed flash attention (kernels/flash_attention.py) at the sites the
+    # size predicate picks (ops/attention.py _use_flash_packed)
+    use_flash_attention: bool = True
+    # absorb the head-split Reshape+Transpose around recognized attention
+    # into ostpu.sdpa (packed Q/K/V), the layout the flash kernel reads
+    fuse_attention_heads: bool = True
+    # weights of consecutive device ops are grouped into segments whose
+    # upload bytes fit this budget (0 = one segment, weights stay resident)
+    hbm_budget_bytes: int = 0
+    strict_shapes: bool = True  # enforce model.txt declared shapes (check_output_shape)
+    # where device ops run; never chosen implicitly
+    device: Optional[torch.device] = None
+
+    # not implemented yet: must keep their defaults (see _NOT_IMPLEMENTED)
+    fuse_groupnorm: bool = False
+    fuse_gn_conv: bool = False
+    use_pallas_smallconv: bool = False
+    flash_packed_nopad: bool = False
+    use_uint8_qdq: bool = False
+    use_uint8_arithmetic: bool = False
+    int8_symmetric_storage: bool = False
+    force_fp16_storage: bool = False
+    use_nhwc_layout: bool = False
+
+    def __post_init__(self) -> None:
+        self.torch_compute_dtype  # validates compute_dtype
+        self.check_implemented()
+
+    def check_implemented(self) -> None:
+        """Raise NotImplementedError for any option the port lacks."""
+        for name, default in _NOT_IMPLEMENTED.items():
+            if getattr(self, name) != default:
+                raise NotImplementedError(
+                    f"SessionConfig.{name}={getattr(self, name)!r} is not implemented "
+                    "in onnxstream_tpu_torch yet")
+        if self.force_uint8_storage_set:
+            raise NotImplementedError(
+                "force_uint8_storage_set (uint8 weight storage) is not implemented "
+                "in onnxstream_tpu_torch yet")
+
+    @property
+    def torch_compute_dtype(self) -> torch.dtype:
+        dt = {"float32": torch.float32, "float16": torch.float16,
+              "bfloat16": torch.bfloat16}.get(self.compute_dtype)
+        if dt is None:
+            raise ValueError(f"unsupported compute_dtype {self.compute_dtype!r}")
+        return dt
+
+    # --- reference model_set_option surface (src/exports.cpp:276-301) -------
+    def set_option(self, name: str, value: bool) -> None:
+        mapping = {
+            "use_fp16_arithmetic": lambda v: setattr(self, "compute_dtype", "float16" if v else "float32"),
+            "use_bf16_arithmetic": lambda v: setattr(self, "compute_dtype", "bfloat16" if v else "float32"),
+            "fuse_ops_in_attention": lambda v: setattr(self, "fuse_ops_in_attention", v),
+            "support_dynamic_shapes": lambda v: setattr(self, "support_dynamic_shapes", v),
+            "use_scaled_dp_attn_op": lambda v: setattr(self, "use_scaled_dp_attn_op", v),
+            "ops_printf": lambda v: setattr(self, "ops_printf", v),
+            "ops_times_printf": lambda v: setattr(self, "ops_times_printf", v),
+            "use_flash_attention": lambda v: setattr(self, "use_flash_attention", v),
+            "fuse_attention_heads": lambda v: setattr(self, "fuse_attention_heads", v),
+        }
+        value = bool(value)
+        if name in _NOT_IMPLEMENTED:
+            if value != _NOT_IMPLEMENTED[name]:
+                raise NotImplementedError(
+                    f"option {name!r} is not implemented in onnxstream_tpu_torch yet")
+            return
+        if name not in mapping:
+            raise ValueError(f"unknown option {name!r}")
+        mapping[name](value)

@@ -1,0 +1,309 @@
+"""Segmented eager executor.
+
+Counterpart of ``onnxstream_tpu/runtime/executor.py``. The planned device ops
+run op by op on ``SessionConfig.device``:
+
+  * the device ops are partitioned into **segments**, contiguous runs whose
+    streamed weights fit ``config.hbm_budget_bytes`` (0 = one segment, weights
+    stay resident on the device after the first run);
+  * each segment's weights come through the WeightsProvider chain, are
+    converted once on the host to the upload dtype, pinned, and copied to the
+    device; segments run one after another (overlapping segment k+1's upload
+    with segment k is later work);
+  * intermediates are freed after their last use inside a segment.
+
+Both runs pin the backend's precision flags to the JAX package's numerics:
+float32 products and convolutions in full float32 (no TF32), and bf16/fp16
+GEMM reductions in float32.
+
+``run_eager`` is the per-op interpreter with ops_printf / ops_times_printf;
+it holds every weight at once and serves as the oracle for ``run``.
+
+The quantized paths of the JAX executor (``_qlinear_mode``, ``_w8_weight``,
+``_dyn_s8_weight``, ``_maybe_qdq``) are not ported: a graph with uint8
+weights raises at construction, and ``use_uint8_qdq`` is refused by
+SessionConfig.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import time
+from typing import Any, Dict, List, Sequence
+
+import numpy as np
+import torch
+
+from onnxstream_tpu_torch.dtypes import to_torch
+from onnxstream_tpu_torch.ir import OpNode
+from onnxstream_tpu_torch.ops import Ctx, get_impl
+from onnxstream_tpu_torch.runtime.planner import Plan, WeightArg
+from onnxstream_tpu_torch.runtime.weights import WeightsProvider
+
+
+def upload_bytes(w: WeightArg) -> int:
+    n = 1
+    for d in w.shape:
+        n *= d
+    return n * w.upload_dtype.itemsize
+
+
+@dataclasses.dataclass
+class Segment:
+    op_indices: List[int]
+    weight_args: List[WeightArg]
+    in_names: List[str]
+    out_names: List[str]
+    weight_bytes: int
+
+
+def build_segments(plan: Plan, fetch_names: Sequence[str]) -> List[Segment]:
+    graph, config = plan.graph, plan.config
+    budget = config.hbm_budget_bytes
+
+    device_ops = [i for i, m in enumerate(plan.op_modes) if m == "device"]
+    arg_by_name = {w.name: w for w in plan.arg_weights}
+
+    def op_weight_names(i):
+        return [t.name for t in graph.ops[i].inputs if t.is_weight and t.name in arg_by_name]
+
+    # a weight used by several ops is fetched once per segment that needs it
+    segments: List[Segment] = []
+    cur_ops: List[int] = []
+    cur_w: List[WeightArg] = []
+    cur_names: set = set()
+    cur_bytes = 0
+
+    def flush():
+        nonlocal cur_ops, cur_w, cur_names, cur_bytes
+        if cur_ops:
+            segments.append(Segment(cur_ops, cur_w, [], [], cur_bytes))
+        cur_ops, cur_w, cur_names, cur_bytes = [], [], set(), 0
+
+    for i in device_ops:
+        new_names = [n for n in op_weight_names(i) if n not in cur_names]
+        wbytes = sum(upload_bytes(arg_by_name[n]) for n in new_names)
+        if budget > 0 and cur_ops and cur_bytes + wbytes > budget:
+            flush()
+            new_names = op_weight_names(i)
+            wbytes = sum(upload_bytes(arg_by_name[n]) for n in new_names)
+        cur_ops.append(i)
+        for n in new_names:
+            if n not in cur_names:
+                cur_names.add(n)
+                cur_w.append(arg_by_name[n])
+        cur_bytes += wbytes
+    flush()
+
+    # boundary activations: producer segment of each device tensor
+    producer_seg: Dict[str, int] = {}
+    for si, seg in enumerate(segments):
+        for oi in seg.op_indices:
+            for t in graph.ops[oi].outputs:
+                if t.name:
+                    producer_seg[t.name] = si
+    needed_out: Dict[int, set] = {si: set() for si in range(len(segments))}
+    needed_in: Dict[int, set] = {si: set() for si in range(len(segments))}
+    for si, seg in enumerate(segments):
+        for oi in seg.op_indices:
+            for t in graph.ops[oi].inputs:
+                if t.is_weight or not t.name or t.name in plan.static_env:
+                    continue
+                p = producer_seg.get(t.name)
+                if p is None:  # graph input
+                    needed_in[si].add(t.name)
+                elif p != si:
+                    needed_out[p].add(t.name)
+                    needed_in[si].add(t.name)
+    for name in fetch_names:
+        p = producer_seg.get(name)
+        if p is not None:
+            needed_out[p].add(name)
+    for si, seg in enumerate(segments):
+        seg.in_names = sorted(needed_in[si])
+        seg.out_names = sorted(needed_out[si])
+    return segments
+
+
+@contextlib.contextmanager
+def reference_precision():
+    """Pin the backend precision flags to the JAX package's numerics for the
+    duration of a run, and restore the caller's settings afterwards."""
+    m, c = torch.backends.cuda.matmul, torch.backends.cudnn
+    saved = (m.allow_tf32, c.allow_tf32, m.allow_bf16_reduced_precision_reduction,
+             m.allow_fp16_reduced_precision_reduction)
+    m.allow_tf32 = c.allow_tf32 = False
+    m.allow_bf16_reduced_precision_reduction = False
+    m.allow_fp16_reduced_precision_reduction = False
+    try:
+        yield
+    finally:
+        (m.allow_tf32, c.allow_tf32, m.allow_bf16_reduced_precision_reduction,
+         m.allow_fp16_reduced_precision_reduction) = saved
+
+
+def _to_host(v) -> np.ndarray:
+    """Fetched output -> numpy: floats as float32 (converted on the device
+    first), signed integers as int64 (the wire integer dtype)."""
+    t = to_torch(v)
+    if t.is_floating_point():
+        t = t.float()
+    elif t.dtype in (torch.int8, torch.int16, torch.int32):
+        t = t.long()
+    return t.cpu().numpy()
+
+
+class Executor:
+    def __init__(self, plan: Plan, provider: WeightsProvider):
+        quant = [w.name for w in plan.arg_weights if w.quant is not None]
+        if quant:
+            raise NotImplementedError(
+                f"uint8 weights ({quant[0]!r} and {len(quant) - 1} more) need the quantized "
+                "paths (_qlinear_mode, _w8_weight, _dyn_s8_weight), which onnxstream_tpu_torch "
+                "does not implement yet")
+        self.plan = plan
+        self.graph = plan.graph
+        self.config = plan.config
+        self.device = torch.device(self.config.device)
+        self.provider = provider
+        self.segments = build_segments(plan, plan.fetch_names)
+        self._resident: Dict[str, torch.Tensor] = {}
+        self.ops_times: Dict[str, float] = {}
+        # last device op reading each activation: it is freed after that op
+        last_use: Dict[str, int] = {}
+        for i, op in enumerate(self.graph.ops):
+            for t in op.inputs:
+                if t.name and not t.is_weight:
+                    last_use[t.name] = i
+        self._last_use = last_use
+        provider.on_init(plan.stream_entries())
+        self._first_run_done = False
+
+    # ------------------------------------------------------------- weights
+    def _upload(self, w: WeightArg) -> torch.Tensor:
+        """Provider fetch -> upload dtype on the host -> pinned -> device."""
+        host = self.provider.get(w.name, w.file_dtype, w.shape)
+        conv = host.to(w.upload_dtype)
+        if self.device.type != "cuda":
+            return conv.to(self.device)
+        return conv.pin_memory().to(self.device, non_blocking=True)
+
+    def _fetch_segment_weights(self, seg: Segment) -> Dict[str, torch.Tensor]:
+        resident = self.config.hbm_budget_bytes == 0
+        out: Dict[str, torch.Tensor] = {}
+        for w in seg.weight_args:
+            dev = self._resident.get(w.name)
+            if dev is None:
+                dev = self._upload(w)
+                if resident:
+                    self._resident[w.name] = dev
+                    # the device copy owns the weight now (reference
+                    # WeightsProvider::remove); weights_exclusion_set opts out
+                    if w.name not in self.config.weights_exclusion_set:
+                        self.provider.remove(w.name)
+            out[w.name] = dev
+        return out
+
+    def weight_bytes(self) -> int:
+        return sum(upload_bytes(w) for w in self.plan.arg_weights)
+
+    # --------------------------------------------------------------- op eval
+    def _eval_op(self, op: OpNode, env: Dict[str, Any], weights_env: Dict[str, Any]):
+        ins: List[Any] = []
+        for t in op.inputs:
+            if not t.name:
+                ins.append(None)
+            elif t.is_weight:
+                ins.append(self.plan.static_weights.get(t.name, weights_env.get(t.name)))
+            elif t.name in self.plan.static_env:
+                ins.append(self.plan.static_env[t.name])
+            else:
+                ins.append(env[t.name])
+        ctx = Ctx("device", self.config, op.name, device=self.device)
+        return get_impl(op.op_type).fn(ctx, op, ins)
+
+    def _run_segment(self, seg: Segment, weights: Dict[str, torch.Tensor],
+                     env: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        keep = set(seg.out_names)
+        for oi in seg.op_indices:
+            op = self.graph.ops[oi]
+            for spec, val in zip(op.outputs, self._eval_op(op, env, weights)):
+                if spec.name:
+                    env[spec.name] = val
+            for t in op.inputs:
+                if t.name and not t.is_weight and self._last_use.get(t.name) == oi and t.name not in keep:
+                    env.pop(t.name, None)
+        return {n: env[n] for n in seg.out_names}
+
+    # ------------------------------------------------------------------ runs
+    def _prepare_inputs(self, inputs: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        prepared = {}
+        for k, aval in self.plan.input_avals.items():
+            if k not in inputs:
+                raise KeyError(f"missing graph input {k!r}")
+            prepared[k] = to_torch(inputs[k]).to(self.device, aval.dtype)
+        return prepared
+
+    def _outputs(self, results: Dict[str, Any]) -> Dict[str, np.ndarray]:
+        out: Dict[str, np.ndarray] = {}
+        for name in self.plan.fetch_names:
+            if name in results:
+                v = results[name]
+            elif name in self.plan.static_env:
+                v = self.plan.static_env[name]
+            else:
+                v = self.plan.static_weights[name]
+            out[name] = _to_host(v)
+        return out
+
+    def run(self, inputs: Dict[str, Any]) -> Dict[str, np.ndarray]:
+        """Segmented run. Returns float outputs as float32 numpy and integers
+        as int64 numpy."""
+        if self._first_run_done:
+            self.provider.on_restart()
+        with reference_precision():
+            acts = self._prepare_inputs(inputs)
+            results: Dict[str, torch.Tensor] = {}
+            for si, seg in enumerate(self.segments):
+                weights = self._fetch_segment_weights(seg)
+                env = {n: (acts[n] if n in acts else results[n]) for n in seg.in_names}
+                # all graph inputs flow through the first segment's env too
+                if si == 0:
+                    env = {**acts, **env}
+                results.update(self._run_segment(seg, weights, env))
+                del weights
+            out = self._outputs(results)
+        self._first_run_done = True
+        return out
+
+    def run_eager(self, inputs: Dict[str, Any]) -> Dict[str, np.ndarray]:
+        """Per-op interpreter over every device op with all weights fetched
+        up front: ops_printf / ops_times_printf, and the oracle for run()."""
+        if self._first_run_done:
+            self.provider.on_restart()
+        timed = self.config.ops_times_printf
+        with reference_precision():
+            env: Dict[str, Any] = self._prepare_inputs(inputs)
+            weights_env = {w.name: self._upload(w) for w in self.plan.arg_weights}
+            for oi, op in enumerate(self.graph.ops):
+                if self.plan.op_modes[oi] != "device":
+                    continue
+                if self.config.ops_printf:
+                    print(f"#{oi}) {op.op_type} ({op.name})")
+                t0 = time.perf_counter() if timed else 0.0
+                outs = self._eval_op(op, env, weights_env)
+                if timed:
+                    if self.device.type == "cuda":
+                        torch.cuda.synchronize(self.device)
+                    self.ops_times[op.op_type] = self.ops_times.get(op.op_type, 0.0) + (
+                        time.perf_counter() - t0) * 1e3
+                for spec, val in zip(op.outputs, outs):
+                    if spec.name:
+                        env[spec.name] = val
+            out = self._outputs(env)
+        self._first_run_done = True
+        if timed and self.ops_times:
+            for t, ms in sorted(self.ops_times.items(), key=lambda kv: -kv[1]):
+                print(f"{t}: {ms:.1f} ms")
+        return out

@@ -1,0 +1,283 @@
+"""Graph planner: host/device partial evaluation.
+
+Counterpart of ``onnxstream_tpu/runtime/planner.py``. The planner walks the
+parsed Graph once per input-shape bucket and decides, per op:
+
+  * ``host``  — every input is statically known and the op is foldable: run it
+    now on CPU tensors; the result lives in ``static_env`` as numpy (shape and
+    index math, int64 weights, ...);
+  * ``device`` — run by the executor on ``SessionConfig.device``. Its output
+    shapes and dtypes come from running the op impl on ``meta`` tensors, and
+    are verified against the shapes recorded in model.txt (the reference's
+    check_output_shape, executed at plan time).
+
+Ops that demand a static operand (Reshape shapes, Resize scales, ...) raise
+StaticRequired on a ``meta`` tensor; the planner reacts by loading that
+weight eagerly and pinning it host-side, then retries the op.
+
+Weights that stay dynamic become ordered streaming arguments, in first-use
+order (the order announced to ``WeightsProvider.on_init``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from onnxstream_tpu_torch.dtypes import DType, to_numpy, to_torch, torch_dtype
+from onnxstream_tpu_torch.ir import Graph, OpNode, TensorSpec
+from onnxstream_tpu_torch.ops import Ctx, StaticRequired, get_impl
+from onnxstream_tpu_torch.runtime.config import SessionConfig
+
+_META = torch.device("meta")
+
+
+class PlanError(Exception):
+    pass
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeDtype:
+    """Shape and dtype of a device tensor (the planner's abstract value)."""
+
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+
+    def meta(self) -> torch.Tensor:
+        return torch.empty(self.shape, dtype=self.dtype, device=_META)
+
+
+@dataclasses.dataclass
+class WeightArg:
+    name: str
+    file_dtype: DType
+    upload_dtype: torch.dtype  # dtype of the device copy
+    shape: Tuple[int, ...]
+    quant: Optional[Tuple[float, int]] = None  # (scale, zero_point) if uint8
+
+
+@dataclasses.dataclass
+class Plan:
+    graph: Graph
+    config: SessionConfig
+    input_avals: Dict[str, ShapeDtype]
+    static_env: Dict[str, np.ndarray]
+    static_weights: Dict[str, np.ndarray]
+    arg_weights: List[WeightArg]
+    op_modes: List[str]  # 'host' | 'device'
+    avals: Dict[str, ShapeDtype]  # device tensor shapes/dtypes (by name)
+    fetch_names: List[str]
+    # graph inputs pinned as host constants because an op demanded them
+    # statically; the session re-plans when their values change
+    pinned_inputs: Dict[str, np.ndarray] = dataclasses.field(default_factory=dict)
+
+    def stream_entries(self):
+        """(name, dtype, shape) in stream order, for WeightsProvider.on_init."""
+        return [(w.name, w.file_dtype, w.shape) for w in self.arg_weights]
+
+
+def _upload_dtype(spec: TensorSpec, config: SessionConfig) -> torch.dtype:
+    """The dtype a weight is uploaded in: float weights travel in the compute
+    dtype (converted once on the host), everything else in its file dtype."""
+    if spec.dtype.is_float:
+        return config.torch_compute_dtype
+    return spec.dtype.torch
+
+
+class _Planner:
+    def __init__(self, graph: Graph, config: SessionConfig, input_avals, weight_loader,
+                 input_values=None):
+        self.graph = graph
+        self.config = config
+        cdt = config.torch_compute_dtype
+
+        # float graph inputs are converted to the compute dtype at entry, and
+        # int64 inputs to int32 (device integers are 32-bit; the executor
+        # applies the same casts at run time)
+        def in_dtype(dt) -> torch.dtype:
+            dt = torch_dtype(dt)
+            if dt.is_floating_point:
+                return cdt
+            if dt == torch.int64:
+                return torch.int32
+            return dt
+
+        self.input_avals = {
+            k: ShapeDtype(tuple(v.shape), in_dtype(v.dtype)) for k, v in input_avals.items()
+        }
+        self.load_weight = weight_loader  # (name, DType, shape) -> host tensor
+        self.static_env: Dict[str, np.ndarray] = {}
+        self.static_weights: Dict[str, np.ndarray] = {}
+        self.arg_weights: List[WeightArg] = []
+        self._arg_set: Dict[str, WeightArg] = {}
+        self.avals: Dict[str, ShapeDtype] = {}
+        self.op_modes: List[str] = []
+        self.input_values = input_values or {}
+        self.pinned_inputs: Dict[str, np.ndarray] = {}
+
+    # -- value resolution ----------------------------------------------------
+    def _resolve(self, spec: TensorSpec):
+        """Return ('none',None) | ('static',np) | ('sym',ShapeDtype) | ('weight',spec)."""
+        if not spec.name:
+            return ("none", None)
+        if spec.is_weight:
+            if spec.name in self.static_weights:
+                return ("static", self.static_weights[spec.name])
+            if spec.name in self._arg_set:
+                w = self._arg_set[spec.name]
+                dt = self.config.torch_compute_dtype if w.quant else w.upload_dtype
+                return ("sym", ShapeDtype(w.shape, dt))
+            # undecided weight: int64 weights are shape math -> always static
+            if spec.dtype == DType.int64:
+                self._pin_static_weight(spec)
+                return ("static", self.static_weights[spec.name])
+            return ("weight", spec)
+        if spec.name in self.static_env:
+            return ("static", self.static_env[spec.name])
+        if spec.name in self.avals:
+            return ("sym", self.avals[spec.name])
+        if spec.name in self.input_avals:
+            return ("sym", self.input_avals[spec.name])
+        raise PlanError(f"tensor {spec.name!r} consumed before being produced")
+
+    def _pin_static_weight(self, spec: TensorSpec) -> None:
+        arr = to_numpy(self.load_weight(spec.name, spec.dtype, spec.shape))
+        if spec.dtype == DType.uint8:
+            arr = ((arr.astype(np.float32) - spec.zero_point) * spec.scale).astype(np.float32)
+        self.static_weights[spec.name] = arr
+
+    def _promote_weight_to_arg(self, spec: TensorSpec) -> WeightArg:
+        w = self._arg_set.get(spec.name)
+        if w is None:
+            w = WeightArg(
+                name=spec.name,
+                file_dtype=spec.dtype,
+                upload_dtype=_upload_dtype(spec, self.config),
+                shape=spec.shape,
+                quant=(spec.scale, spec.zero_point) if spec.dtype == DType.uint8 else None,
+            )
+            self._arg_set[spec.name] = w
+            self.arg_weights.append(w)
+        return w
+
+    # -- per-op planning -------------------------------------------------------
+    def plan_op(self, op: OpNode) -> None:
+        impl = get_impl(op.op_type)
+        resolved = [self._resolve(t) for t in op.inputs]
+
+        # Host folding: all inputs static (undecided weights block folding
+        # unless the op itself later demands them static).
+        if impl.host and all(k in ("static", "none") for k, _ in resolved):
+            ins = [None if v is None else to_torch(v) for _, v in resolved]
+            ctx = Ctx("host", self.config, op.name)
+            try:
+                outs = impl.fn(ctx, op, ins)
+            except StaticRequired as e:
+                raise PlanError(f"{op.name}: host fold failed: {e}") from e
+            self.op_modes.append("host")
+            self._check_and_store(op, [to_numpy(o) for o in outs], device=False)
+            return
+
+        # Device op: shapes from the impl run on meta tensors. Undecided
+        # weights default to args; StaticRequired demotes them to host
+        # constants and retries.
+        ctx = Ctx("device", self.config, op.name, device=_META)
+        for _attempt in range(len(op.inputs) + 1):
+            kinds = [self._resolve(t) for t in op.inputs]
+            ins: List[Any] = []
+            for i, (kind, val) in enumerate(kinds):
+                if kind == "none":
+                    ins.append(None)
+                elif kind == "static":
+                    ins.append(val)
+                elif kind == "sym":
+                    ins.append(val.meta())
+                else:  # undecided weight, as the device would hold it
+                    spec = op.inputs[i]
+                    dt = (self.config.torch_compute_dtype
+                          if spec.dtype.is_float or spec.dtype == DType.uint8 else spec.dtype.torch)
+                    ins.append(ShapeDtype(spec.shape, dt).meta())
+            try:
+                outs = impl.fn(ctx, op, ins)
+                break
+            except StaticRequired as e:
+                spec = op.inputs[e.index]
+                if spec.is_weight and spec.name not in self.static_weights:
+                    self._pin_static_weight(spec)
+                    continue
+                if (spec.name in self.input_avals and spec.name in self.input_values
+                        and spec.name not in self.static_env):
+                    # a pushed tensor used as a static op argument: pin its
+                    # current value; the session keys the executor on it
+                    val = np.asarray(self.input_values[spec.name])
+                    self.static_env[spec.name] = val
+                    self.pinned_inputs[spec.name] = val
+                    continue
+                raise PlanError(
+                    f"{op.name} ({op.op_type}): input {e.index} ({spec.name!r}) must be "
+                    f"statically known but is a runtime tensor — this graph needs "
+                    f"dynamic-shape bucketing"
+                ) from e
+        else:
+            raise PlanError(f"{op.name}: could not satisfy static input requirements")
+
+        # commit: promote undecided weights used dynamically to args
+        for i, (kind, _) in enumerate(kinds):
+            if kind == "weight":
+                self._promote_weight_to_arg(op.inputs[i])
+
+        self.op_modes.append("device")
+        self._check_and_store(op, outs, device=True)
+
+    def _check_and_store(self, op: OpNode, outs, device: bool) -> None:
+        if len(outs) != len(op.outputs):
+            raise PlanError(f"{op.name}: impl produced {len(outs)} outputs, expected {len(op.outputs)}")
+        for spec, out in zip(op.outputs, outs):
+            got = tuple(int(d) for d in out.shape)
+            want = spec.shape
+            if self.config.strict_shapes and want and not spec.has_dynamic_dims and got != want:
+                raise PlanError(
+                    f"{op.name} ({op.op_type}): output {spec.name!r} shape {got} != "
+                    f"declared {want} (check_output_shape)"
+                )
+            if device:
+                self.avals[spec.name] = ShapeDtype(got, out.dtype)
+            else:
+                self.static_env[spec.name] = out
+
+    def plan(self, fetch_names: Sequence[str]) -> Plan:
+        for op in self.graph.ops:
+            try:
+                self.plan_op(op)
+            except PlanError:
+                raise
+            except Exception as e:
+                raise PlanError(f"{op.name} ({op.op_type}): {type(e).__name__}: {e}") from e
+        return Plan(
+            graph=self.graph,
+            config=self.config,
+            input_avals=self.input_avals,
+            static_env=self.static_env,
+            static_weights=self.static_weights,
+            arg_weights=self.arg_weights,
+            op_modes=self.op_modes,
+            avals=self.avals,
+            fetch_names=list(fetch_names),
+            pinned_inputs=self.pinned_inputs,
+        )
+
+
+def plan_graph(
+    graph: Graph,
+    config: SessionConfig,
+    input_avals: Dict[str, ShapeDtype],
+    weight_loader,
+    fetch_names: Optional[Sequence[str]] = None,
+    input_values: Optional[Dict[str, np.ndarray]] = None,
+) -> Plan:
+    if fetch_names is None:
+        fetch_names = graph.output_names() + [n for n in config.extra_outputs if n not in graph.output_names()]
+    return _Planner(graph, config, input_avals, weight_loader, input_values).plan(list(fetch_names))

@@ -1,0 +1,253 @@
+"""Weight providers: the streaming I/O layer.
+
+Counterpart of ``onnxstream_tpu/runtime/weights.py``: the same provider
+contract as the reference WeightsProvider hierarchy (src/onnxstream.h:266-900)
+
+  * ``on_init(entries)``    announce the full load order before the first run
+  * ``on_restart()``        rewind for the next run
+  * ``get(name)``           blocking fetch of the next weight
+  * ``remove(name)``        drop a cached weight
+  * ``update(name, t)``     write a dtype-converted weight back into the cache
+
+but ``get`` returns a host (CPU) ``torch.Tensor``. The executor converts it
+to the upload dtype, pins it and copies it to the card.
+
+``params_from_numpy`` turns the JAX package's numpy parameters
+(``GraphBuilder.weights``) into the port's tensors.
+"""
+
+from __future__ import annotations
+
+import collections
+import threading
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from onnxstream_tpu_torch.dtypes import DType, to_torch
+
+
+class WeightsProvider:
+    """Abstract provider (reference src/onnxstream.h:266-291)."""
+
+    def on_init(self, entries: Sequence[Tuple[str, DType, Tuple[int, ...]]]) -> None:
+        """entries = (name, dtype, shape) in execution (stream) order."""
+
+    def on_restart(self) -> None:
+        pass
+
+    def get(self, name: str, dtype: DType, shape: Tuple[int, ...]) -> torch.Tensor:
+        raise NotImplementedError
+
+    def remove(self, name: str) -> None:
+        pass
+
+    def update(self, name: str, t: torch.Tensor) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
+def _read_bin(path: str, dtype: DType, shape: Tuple[int, ...]) -> torch.Tensor:
+    nelem = int(np.prod(shape)) if shape else 1
+    arr = np.fromfile(path, dtype=dtype.storage_np, count=nelem)
+    if arr.size != nelem:
+        raise IOError(f"{path}: expected {nelem} elements of {dtype.value}, got {arr.size}")
+    t = torch.from_numpy(arr.reshape(shape))
+    return t.view(torch.bfloat16) if dtype == DType.bfloat16 else t
+
+
+def params_from_numpy(weights: Dict[str, object]) -> Dict[str, torch.Tensor]:
+    """numpy parameters of the JAX package (``GraphBuilder.weights``) -> host
+    torch tensors with the same bits. ``LazyArray`` placeholders are
+    materialized; ``ml_dtypes.bfloat16`` arrays go through a uint16 view."""
+    out: Dict[str, torch.Tensor] = {}
+    for name, arr in weights.items():
+        if hasattr(arr, "materialize"):
+            arr = arr.materialize()
+        out[name] = to_torch(arr)
+    return out
+
+
+class DiskNoCacheWeightsProvider(WeightsProvider):
+    """Blocking read of {path}{name} per request; zero residency
+    (reference src/onnxstream.h:331-354)."""
+
+    def __init__(self, path_prefix: str) -> None:
+        self.prefix = path_prefix
+
+    def get(self, name, dtype, shape):
+        return _read_bin(self.prefix + name, dtype, shape)
+
+
+class DiskPrefetchWeightsProvider(WeightsProvider):
+    """Background-thread prefetcher with a bounded in-flight byte budget.
+
+    Same protocol as the reference (src/onnxstream.h:356-664): on_init fixes
+    the read order; a worker thread reads ahead until the buffered bytes would
+    exceed ``max_bytes`` (always allowing one file past the limit); ``get``
+    pops the front entry, blocking until ready; ``on_restart`` rewinds.
+    Out-of-order requests fall back to a direct read.
+    """
+
+    def __init__(self, path_prefix: str, max_bytes: int = 1 << 28) -> None:
+        self.prefix = path_prefix
+        self.max_bytes = max_bytes
+        self._entries: List[Tuple[str, DType, Tuple[int, ...]]] = []
+        self._lock = threading.Lock()
+        self._cv = threading.Condition(self._lock)
+        self._ready: "collections.OrderedDict[str, torch.Tensor]" = collections.OrderedDict()
+        self._buffered = 0
+        self._next_read = 0
+        self._next_serve = 0
+        self._stop = False
+        self._error: Optional[BaseException] = None
+        self._thread: Optional[threading.Thread] = None
+
+    def on_init(self, entries) -> None:
+        self.close()
+        self._entries = list(entries)
+        self._ready.clear()
+        self._buffered = 0
+        self._next_read = 0
+        self._next_serve = 0
+        self._stop = False
+        self._error = None
+        self._thread = threading.Thread(target=self._worker, daemon=True, name="ostt-prefetch")
+        self._thread.start()
+
+    def on_restart(self) -> None:
+        self.on_init(self._entries)
+
+    def _worker(self) -> None:
+        try:
+            while True:
+                with self._cv:
+                    while not self._stop and (
+                        self._next_read >= len(self._entries)
+                        or (self._buffered > self.max_bytes and self._ready)
+                    ):
+                        if self._next_read >= len(self._entries):
+                            return
+                        self._cv.wait()
+                    if self._stop:
+                        return
+                    name, dtype, shape = self._entries[self._next_read]
+                    self._next_read += 1
+                t = _read_bin(self.prefix + name, dtype, shape)
+                with self._cv:
+                    self._ready[name] = t
+                    self._buffered += t.numel() * t.element_size()
+                    self._cv.notify_all()
+        except BaseException as e:  # surfaced on the consumer (onnxstream.h:529-537)
+            with self._cv:
+                self._error = e
+                self._cv.notify_all()
+
+    def get(self, name, dtype, shape):
+        with self._cv:
+            in_order = (
+                self._next_serve < len(self._entries) and self._entries[self._next_serve][0] == name
+            )
+            if in_order or name in self._ready:
+                while name not in self._ready:
+                    if self._error is not None:
+                        raise self._error
+                    self._cv.wait()
+                t = self._ready.pop(name)
+                self._buffered -= t.numel() * t.element_size()
+                if in_order:
+                    self._next_serve += 1
+                self._cv.notify_all()
+                return t
+        # out-of-order request (e.g. a weight reused by a later segment)
+        return _read_bin(self.prefix + name, dtype, shape)
+
+    def close(self) -> None:
+        if self._thread is not None:
+            with self._cv:
+                self._stop = True
+                self._cv.notify_all()
+            self._thread.join(timeout=5)
+            self._thread = None
+
+
+class RamWeightsProvider(WeightsProvider):
+    """Decorator: the first run pulls from the inner provider and caches;
+    later runs serve from RAM (reference src/onnxstream.h:666-900)."""
+
+    def __init__(self, inner: WeightsProvider) -> None:
+        self.inner = inner
+        self._cache: Dict[str, torch.Tensor] = {}
+        self._warm = False
+
+    def on_init(self, entries) -> None:
+        if not self._warm:
+            self.inner.on_init(entries)
+
+    def on_restart(self) -> None:
+        if not self._warm:
+            self.inner.on_restart()
+
+    def get(self, name, dtype, shape):
+        if name in self._cache:
+            return self._cache[name]
+        t = self.inner.get(name, dtype, shape)
+        self._cache[name] = t
+        return t
+
+    def remove(self, name) -> None:
+        if not self._warm:
+            self._cache.pop(name, None)
+
+    def update(self, name, t) -> None:
+        self._cache[name] = t
+
+    def mark_warm(self) -> None:
+        self._warm = True
+
+    def close(self) -> None:
+        self.inner.close()
+
+
+class DictWeightsProvider(WeightsProvider):
+    """In-memory provider: host tensors supplied by the caller (for example
+    ``params_from_numpy(GraphBuilder.weights)``)."""
+
+    def __init__(self, weights: Optional[Dict[str, torch.Tensor]] = None) -> None:
+        self.weights: Dict[str, torch.Tensor] = dict(weights or {})
+
+    def get(self, name, dtype, shape):
+        t = self.weights[name]
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(
+                f"{name}: DictWeightsProvider holds torch tensors "
+                "(convert numpy parameters with params_from_numpy)")
+        nelem = int(np.prod(shape)) if shape else 1
+        if t.numel() != nelem:
+            raise ValueError(f"{name}: expected {nelem} elements, got {t.numel()}")
+        return t.reshape(shape) if tuple(t.shape) != tuple(shape) else t
+
+    def update(self, name, t) -> None:
+        self.weights[name] = t
+
+    def remove(self, name) -> None:
+        # the dict is the source of truth: a re-plan must find it again
+        pass
+
+
+def make_provider(name: str, path_prefix: str, **kw) -> WeightsProvider:
+    """Provider registry matching model_new_2's names (reference
+    src/exports.cpp:62-85). ``collect`` and the native C++ prefetcher of the
+    JAX package are not ported yet."""
+    if name == "nocache":
+        return DiskNoCacheWeightsProvider(path_prefix)
+    if name == "prefetch":
+        return DiskPrefetchWeightsProvider(path_prefix, **kw)
+    if name == "ram":
+        return RamWeightsProvider(DiskNoCacheWeightsProvider(path_prefix))
+    if name == "ram+prefetch":
+        return RamWeightsProvider(make_provider("prefetch", path_prefix, **kw))
+    raise ValueError(f"unknown weights provider {name!r}")

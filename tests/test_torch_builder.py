@@ -1,0 +1,68 @@
+"""The port's JAX-free copies of the graph builder and parameter conversion.
+
+The card has no JAX, so the port carries its own GraphBuilder and SD UNet
+graph; they must produce what the JAX package's produce. Parameters cross
+from the JAX package as numpy arrays (ml_dtypes.bfloat16 included) and must
+arrive bit for bit.
+"""
+
+import dataclasses
+import os
+import subprocess
+import sys
+
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+
+from onnxstream_tpu.convert.builder import GraphBuilder as JaxBuilder
+from onnxstream_tpu.models.sd.unet import TINY as JAX_TINY
+from onnxstream_tpu.models.sd.unet import build_unet as jax_build_unet
+from onnxstream_tpu_torch.models.sd.unet import TINY, build_unet, param_count
+from onnxstream_tpu_torch.runtime.weights import params_from_numpy
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_build_unet_tiny_matches_jax_builder():
+    assert dataclasses.asdict(TINY) == dataclasses.asdict(JAX_TINY)
+    g, jg = build_unet(TINY, seed=3), jax_build_unet(JAX_TINY, seed=3)
+    assert g.to_text() == jg.to_text()
+    assert list(g.weights) == list(jg.weights)
+    for name, arr in jg.weights.items():
+        assert g.weights[name].dtype == arr.dtype
+        np.testing.assert_array_equal(g.weights[name], arr)
+    assert param_count(g) == sum(a.size for a in jg.weights.values())
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float16, ml_dtypes.bfloat16, np.int64])
+def test_params_from_numpy_is_bit_exact(dtype):
+    a = (np.random.default_rng(0).standard_normal((3, 5)) * 100).astype(dtype)
+    t = params_from_numpy({"w": a})["w"]
+    assert tuple(t.shape) == a.shape and t.dtype == {
+        np.float32: torch.float32, np.float16: torch.float16,
+        ml_dtypes.bfloat16: torch.bfloat16, np.int64: torch.int64}[dtype]
+    bits = torch.int16 if t.element_size() == 2 else t.dtype
+    np.testing.assert_array_equal(t.view(bits).numpy().view(np.uint8), a.view(np.uint8))
+
+
+def test_params_from_numpy_materializes_lazy_weights():
+    jb = JaxBuilder(seed=1, lazy_weights=True)
+    jb.gen_weight("w", lambda: jb.randn(4, 6), shape=(4, 6))
+    lazy = jb.weights["w.bin"]
+    assert not isinstance(lazy, np.ndarray)
+    t = params_from_numpy(jb.weights)["w.bin"]
+    np.testing.assert_array_equal(t.numpy(), lazy.materialize())
+
+
+def test_import_pulls_in_neither_jax_nor_ml_dtypes():
+    """In a fresh interpreter (this test process has JAX loaded already)."""
+    code = (
+        "import sys, onnxstream_tpu_torch\n"
+        "import onnxstream_tpu_torch.models.sd.unet, onnxstream_tpu_torch.kernels.flash_attention\n"
+        "bad = [m for m in ('jax', 'ml_dtypes', 'onnxstream_tpu') if m in sys.modules]\n"
+        "assert not bad, bad\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, check=True, timeout=120)
