@@ -1,18 +1,27 @@
-// Flash attention over packed heads, for Hopper (sm_90a), with a plain C ABI.
+// Flash attention for Hopper (sm_90a), with a plain C ABI.
 //
-// Replaces the TPU kernel onnxstream_tpu/kernels/flash_attention.py
-// (flash_attention_packed -> _flash_call_packed -> _fa_kernel). It computes
-// what _fa_kernel computes:
-//   out[b, m, h*Dv:(h+1)*Dv] = softmax(scale * q_h k_hk^T) v_hk,  hk = h / (H / Hkv)
-// with an online softmax in the log2 domain (scale*log2(e) folded into Q),
-// float32 running max, sum and accumulator, the probabilities cast to V's
-// dtype before the PV product, causal masking with offset N - M, and rows
-// that see no valid key written as exactly 0.
+// Replaces both TPU flash kernels of onnxstream_tpu/kernels/flash_attention.py:
+//   * flash_attention_packed -> _flash_call_packed -> _fa_kernel (packed heads,
+//     no mask), and
+//   * flash_attention -> _flash_call -> _fa_kernel (head-major, additive mask
+//     in groups, K optionally given transposed).
+// One kernel family serves both: every operand is read through explicit batch,
+// head and row strides, so the packed (B, L, heads*D) form is the special case
+// head stride = D. It computes what _fa_kernel computes:
+//   out[b, h, m, :] = softmax(scale * q_bh k_bhk^T + mask[b, h]) v_bhk,  hk = h / (H / Hkv)
+// with an online softmax in the log2 domain, float32 running max, sum and
+// accumulator, the probabilities cast to V's dtype before the PV product,
+// causal masking with offset N - M, and rows that see no valid key (causal
+// with M > N, or a mask of -inf) written as exactly 0. A row masked only by a
+// finite additive mask (-1e9) is not zeroed: it is the softmax of the masked
+// scores, as in the TPU kernel.
 //
-// Layout. Q, K, V and O are the packed (B, L, heads*D) projections, read and
-// written in place through their batch and row strides; the last dim must be
-// contiguous. Nothing is padded in device memory: head dims that are not a
-// power of two (the SD1.5 UNet's d = 40 and d = 80) are zero-filled in shared
+// Layout. Q, V and O need a unit column stride; K may have any strides (a K
+// given as (B, Hkv, D, N) is read in place). The additive mask is read in its
+// own dtype (float32, float16 or bfloat16) through batch, head, row and column
+// strides, 0 where it broadcasts, and added as mask*log2(e) in float32: no
+// broadcast or float32 copy of it is ever made. Nothing is padded in device
+// memory: head dims that are not a power of two are zero-filled in shared
 // memory, and the QK^T loop runs over the real D only.
 //
 // Grid. One CTA of 128 threads per (q-tile, head, batch); the CTA walks the KV
@@ -21,14 +30,13 @@
 // registers. Two variants, chosen by dtype, head dim and alignment in
 // dispatch():
 //
-//  * fa_packed_mma_kernel (bf16 / fp16, head dims <= 128, 16-byte aligned
+//  * fa_mma_kernel (bf16 / fp16, head dims <= 128, 16-byte aligned Q/V/O
 //    rows): tensor-core products with mma.sync m16n8k16, f32 accumulate. Each
 //    warp owns 16 query rows; the score tile stays in registers and is reused
 //    as the A operand of the PV product (the FlashAttention-2 layout), so P
 //    never touches shared memory. The softmax scale is applied in float32
-//    inside the exp2 argument (one FMA per score) instead of rounding a scaled
-//    Q to bf16.
-//  * fa_packed_kernel (fp32, any head dim up to 256, any alignment): CUDA-core
+//    (one FMA per score) instead of rounding a scaled Q to bf16.
+//  * fa_fma_kernel (fp32, any head dim up to 256, any alignment): CUDA-core
 //    FMAs on float32 tiles; each thread owns an RM x (BN/8) score tile and an
 //    RM x (KD/8) accumulator, the 8 threads sharing rows reduce with shuffles.
 //    float32 inputs keep full float32 products, the parity path.
@@ -37,7 +45,8 @@
 // the kernel saves over the plain version. The mma variant is bound by
 // mma.sync issue and the unpipelined K/V staging (no cp.async / TMA double
 // buffering yet); the FMA variant by FMA issue and shared-memory loads (about
-// 2.7 FMAs per shared load). wgmma, TMA and tile tuning are later work.
+// 2.7 FMAs per shared load). The mask costs one scalar load per score (L2
+// serves the re-reads across heads). wgmma, TMA and tile tuning are later work.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -63,16 +72,32 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16_rn(x);
 }
 
+constexpr float kLog2e = 1.4426950408889634f;
+
 struct Params {
   const void* q;
   const void* k;
   const void* v;
   void* o;
+  const void* mask;  // nullptr: no mask
   int B, M, N, H, Hkv, D, Dv;
-  long long sqb, sqm, skb, skn, svb, svn, sob, som;  // batch and row strides, in elements
-  float scale_log2;                                   // scale * log2(e)
+  long long sqb, sqh, sqm;       // Q batch, head and row strides, in elements
+  long long skb, skh, skn, skd;  // K batch, head, key and column strides
+  long long svb, svh, svn;       // V
+  long long sob, soh, som;       // O
+  long long smb, smh, smm, smn;  // mask; 0 on the dims it broadcasts over
+  int mask_dtype;                // 0 = float32, 1 = float16, 2 = bfloat16
+  float scale_log2;              // scale * log2(e)
   int causal;
 };
+
+__device__ __forceinline__ float load_mask(const Params& p, long long i) {
+  switch (p.mask_dtype) {
+    case 1: return __half2float(static_cast<const __half*>(p.mask)[i]);
+    case 2: return __bfloat162float(static_cast<const __nv_bfloat16*>(p.mask)[i]);
+    default: return static_cast<const float*>(p.mask)[i];
+  }
+}
 
 constexpr int kThreads = 128;
 constexpr int kTX = 8;                  // threads sharing one row group
@@ -92,8 +117,8 @@ constexpr size_t smem_bytes() {
   return sizeof(float) * (BM * (KD + 1) + 2 * BN * (KD + 1) + BM * p_pitch(BM / kTY, BN));
 }
 
-template <typename T, int KD, int BM, int BN>
-__global__ void __launch_bounds__(kThreads) fa_packed_kernel(const Params p) {
+template <typename T, int KD, int BM, int BN, bool MASK>
+__global__ void __launch_bounds__(kThreads) fa_fma_kernel(const Params p) {
   constexpr int RM = BM / kTY;  // query rows per thread
   constexpr int CN = BN / kTX;  // score columns per thread
   constexpr int CD = KD / kTX;  // output columns per thread
@@ -116,10 +141,11 @@ __global__ void __launch_bounds__(kThreads) fa_packed_kernel(const Params p) {
   const int offset = p.N - p.M;
   const int cdv = p.Dv / kTX;  // output columns in use per thread (Dv % 8 == 0)
 
-  const T* q = static_cast<const T*>(p.q) + b * p.sqb + static_cast<long long>(h) * p.D;
-  const T* k = static_cast<const T*>(p.k) + b * p.skb + static_cast<long long>(hk) * p.D;
-  const T* v = static_cast<const T*>(p.v) + b * p.svb + static_cast<long long>(hk) * p.Dv;
-  T* o = static_cast<T*>(p.o) + b * p.sob + static_cast<long long>(h) * p.Dv;
+  const T* q = static_cast<const T*>(p.q) + b * p.sqb + h * p.sqh;
+  const T* k = static_cast<const T*>(p.k) + b * p.skb + hk * p.skh;
+  const T* v = static_cast<const T*>(p.v) + b * p.svb + hk * p.svh;
+  T* o = static_cast<T*>(p.o) + b * p.sob + h * p.soh;
+  const long long mbase = b * p.smb + h * p.smh;
 
   for (int i = tid; i < BM * KD; i += kThreads) {
     const int r = i / KD, c = i % KD;
@@ -148,7 +174,7 @@ __global__ void __launch_bounds__(kThreads) fa_packed_kernel(const Params p) {
       const int n = n0 + r;
       float kx = 0.f, vx = 0.f;
       if (n < p.N) {
-        if (c < p.D) kx = to_f32(k[n * p.skn + c]);
+        if (c < p.D) kx = to_f32(k[n * p.skn + c * p.skd]);
         if (c < p.Dv) vx = to_f32(v[n * p.svn + c]);
       }
       sK[r * LD + c] = kx;
@@ -188,6 +214,9 @@ __global__ void __launch_bounds__(kThreads) fa_packed_kernel(const Params p) {
         const int col = n0 + tx + j * kTX;
         const bool ok = col < p.N && (!p.causal || col <= row + offset);
         if (!ok) s[i][j] = -INFINITY;
+        if constexpr (MASK) {
+          if (ok && row < p.M) s[i][j] += kLog2e * load_mask(p, mbase + row * p.smm + col * p.smn);
+        }
         mx = fmaxf(mx, s[i][j]);
       }
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
@@ -296,8 +325,8 @@ constexpr size_t mma_smem_bytes() {
 //   B (16x8):  b0 = (k 2t..2t+1, n g), b1 = (k 2t+8..2t+9, n g)
 //   C (16x8):  c0, c1 = (g, 2t..2t+1), c2, c3 = (g+8, 2t..2t+1)
 // Two neighbouring C tiles of the scores are exactly one A fragment of P.
-template <typename T, int KD>
-__global__ void __launch_bounds__(kThreads) fa_packed_mma_kernel(const Params p) {
+template <typename T, int KD, bool MASK>
+__global__ void __launch_bounds__(kThreads) fa_mma_kernel(const Params p) {
   constexpr int BM = kMmaBM, BN = kMmaBN;
   constexpr int LQ = KD + 8;  // shared row pitch (halfs) of Q and K
   constexpr int LV = BN + 8;  // shared row pitch of V^T
@@ -320,11 +349,15 @@ __global__ void __launch_bounds__(kThreads) fa_packed_mma_kernel(const Params p)
   const int q8 = dq / 8;                // 16-byte chunks per staged Q/K row
   const int ntiles = p.Dv / 8;          // output column tiles in use
   const float c = p.scale_log2;
+  // with a mask the scores are moved to the log2 domain before the softmax;
+  // without one the scale is folded into the exp2 argument
+  const float cs = MASK ? 1.f : c;
 
-  const T* q = static_cast<const T*>(p.q) + b * p.sqb + static_cast<long long>(h) * p.D;
-  const T* k = static_cast<const T*>(p.k) + b * p.skb + static_cast<long long>(hk) * p.D;
-  const T* v = static_cast<const T*>(p.v) + b * p.svb + static_cast<long long>(hk) * p.Dv;
-  T* o = static_cast<T*>(p.o) + b * p.sob + static_cast<long long>(h) * p.Dv;
+  const T* q = static_cast<const T*>(p.q) + b * p.sqb + h * p.sqh;
+  const T* k = static_cast<const T*>(p.k) + b * p.skb + hk * p.skh;
+  const T* v = static_cast<const T*>(p.v) + b * p.svb + hk * p.svh;
+  T* o = static_cast<T*>(p.o) + b * p.sob + h * p.soh;
+  const long long mbase = b * p.smb + h * p.smh;
 
   for (int i = tid; i < BM * q8; i += kThreads) {
     const int r = i / q8, c8 = i % q8 * 8;
@@ -345,12 +378,23 @@ __global__ void __launch_bounds__(kThreads) fa_packed_mma_kernel(const Params p)
 
   for (int n0 = 0; n0 < n_end; n0 += BN) {
     __syncthreads();  // Q is staged; the previous tile's K and V^T are consumed
-    for (int i = tid; i < BN * q8; i += kThreads) {
-      const int r = i / q8, c8 = i % q8 * 8;
-      const int n = n0 + r;
-      uint4 x = make_uint4(0, 0, 0, 0);
-      if (n < p.N && c8 < p.D) x = *reinterpret_cast<const uint4*>(k + n * p.skn + c8);
-      *reinterpret_cast<uint4*>(sK + r * LQ + c8) = x;
+    if (p.skd == 1) {
+      for (int i = tid; i < BN * q8; i += kThreads) {
+        const int r = i / q8, c8 = i % q8 * 8;
+        const int n = n0 + r;
+        uint4 x = make_uint4(0, 0, 0, 0);
+        if (n < p.N && c8 < p.D) x = *reinterpret_cast<const uint4*>(k + n * p.skn + c8);
+        *reinterpret_cast<uint4*>(sK + r * LQ + c8) = x;
+      }
+    } else {
+      // K given transposed: element loads, neighbouring threads on neighbouring keys
+      for (int i = tid; i < BN * dq; i += kThreads) {
+        const int r = i % BN, cc = i / BN;
+        const int n = n0 + r;
+        T x = from_f32<T>(0.f);
+        if (n < p.N && cc < p.D) x = k[n * p.skn + cc * p.skd];
+        sK[r * LQ + cc] = x;
+      }
     }
     for (int i = tid; i < BN * ntiles; i += kThreads) {
       const int r = i / ntiles, c8 = i % ntiles * 8;
@@ -377,7 +421,20 @@ __global__ void __launch_bounds__(kThreads) fa_packed_mma_kernel(const Params p)
       }
     }
 
-    if (p.causal || n0 + BN > p.N) {
+    if constexpr (MASK) {
+      // log2-domain scores: scale*log2e * s + log2e * mask; -inf where masked
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = row0 + (e / 2) * 8;
+          const int col = n0 + j * 8 + 2 * t + (e % 2);
+          const bool ok = col < p.N && (!p.causal || col <= row + offset);
+          float mv = 0.f;
+          if (ok && row < p.M) mv = load_mask(p, mbase + row * p.smm + col * p.smn);
+          s[j][e] = ok ? fmaf(s[j][e], c, kLog2e * mv) : -INFINITY;
+        }
+    } else if (p.causal || n0 + BN > p.N) {
 #pragma unroll
       for (int j = 0; j < BN / 8; ++j)
 #pragma unroll
@@ -399,13 +456,13 @@ __global__ void __launch_bounds__(kThreads) fa_packed_mma_kernel(const Params p)
       const float m_new = fmaxf(m_r[r], mx);
       // a row with no valid key so far keeps p = 0, corr = 0 and l = 0
       const float m_use = (m_new == -INFINITY) ? 0.f : m_new;
-      const float corr = exp2f((m_r[r] - m_use) * c);
-      const float mc = m_use * c;
+      const float corr = exp2f((m_r[r] - m_use) * cs);
+      const float mc = m_use * cs;
       float rs = 0.f;
 #pragma unroll
       for (int j = 0; j < BN / 8; ++j) {
-        s[j][2 * r] = exp2f(fmaf(s[j][2 * r], c, -mc));
-        s[j][2 * r + 1] = exp2f(fmaf(s[j][2 * r + 1], c, -mc));
+        s[j][2 * r] = exp2f(fmaf(s[j][2 * r], cs, -mc));
+        s[j][2 * r + 1] = exp2f(fmaf(s[j][2 * r + 1], cs, -mc));
         rs += s[j][2 * r] + s[j][2 * r + 1];
       }
       l_r[r] = l_r[r] * corr + rs;
@@ -452,10 +509,10 @@ __global__ void __launch_bounds__(kThreads) fa_packed_mma_kernel(const Params p)
   }
 }
 
-template <typename T, int KD>
+template <typename T, int KD, bool MASK>
 cudaError_t launch_mma(const Params& p, cudaStream_t stream) {
   constexpr size_t smem = mma_smem_bytes<KD>();
-  auto kernel = fa_packed_mma_kernel<T, KD>;
+  auto kernel = fa_mma_kernel<T, KD, MASK>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -465,20 +522,24 @@ cudaError_t launch_mma(const Params& p, cudaStream_t stream) {
 }
 
 // 16-byte vector loads and 4-byte stores of whole head rows need every row
-// start aligned: base pointers to 16 bytes and strides to 8 elements.
+// start aligned: base pointers to 16 bytes and strides to 8 elements. K only
+// when it is read by rows (unit column stride).
 bool rows_aligned16(const Params& p) {
-  const unsigned long long ptrs = reinterpret_cast<unsigned long long>(p.q) |
-                                  reinterpret_cast<unsigned long long>(p.k) |
-                                  reinterpret_cast<unsigned long long>(p.v) |
-                                  reinterpret_cast<unsigned long long>(p.o);
-  const long long strides = p.sqb | p.sqm | p.skb | p.skn | p.svb | p.svn | p.sob | p.som;
+  unsigned long long ptrs = reinterpret_cast<unsigned long long>(p.q) |
+                            reinterpret_cast<unsigned long long>(p.v) |
+                            reinterpret_cast<unsigned long long>(p.o);
+  long long strides = p.sqb | p.sqh | p.sqm | p.svb | p.svh | p.svn | p.sob | p.soh | p.som;
+  if (p.skd == 1) {
+    ptrs |= reinterpret_cast<unsigned long long>(p.k);
+    strides |= p.skb | p.skh | p.skn;
+  }
   return ptrs % 16 == 0 && strides % 8 == 0;
 }
 
-template <typename T, int KD, int BM, int BN>
-cudaError_t launch(const Params& p, cudaStream_t stream) {
+template <typename T, int KD, int BM, int BN, bool MASK>
+cudaError_t launch_fma(const Params& p, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<KD, BM, BN>();
-  auto kernel = fa_packed_kernel<T, KD, BM, BN>;
+  auto kernel = fa_fma_kernel<T, KD, BM, BN, MASK>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -491,41 +552,52 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
 // dims fit its 128-wide tiles. Otherwise the FMA kernel, with tile shapes by
 // padded head dim: its float32 accumulator (RM x KD/8 per thread) stays at or
 // under 64 registers, and shared memory at or under 103 KB.
-template <typename T>
+template <typename T, bool MASK>
 cudaError_t dispatch(const Params& p, cudaStream_t stream) {
   const int kd = p.D > p.Dv ? p.D : p.Dv;
   if constexpr (!std::is_same<T, float>::value) {
     if (kd <= 128 && rows_aligned16(p)) {
-      if (kd <= 64) return launch_mma<T, 64>(p, stream);
-      return launch_mma<T, 128>(p, stream);
+      if (kd <= 64) return launch_mma<T, 64, MASK>(p, stream);
+      return launch_mma<T, 128, MASK>(p, stream);
     }
   }
-  if (kd <= 32) return launch<T, 32, 64, 64>(p, stream);
-  if (kd <= 64) return launch<T, 64, 64, 64>(p, stream);
-  if (kd <= 128) return launch<T, 128, 64, 32>(p, stream);
-  if (kd <= 256) return launch<T, 256, 32, 32>(p, stream);
+  if (kd <= 32) return launch_fma<T, 32, 64, 64, MASK>(p, stream);
+  if (kd <= 64) return launch_fma<T, 64, 64, 64, MASK>(p, stream);
+  if (kd <= 128) return launch_fma<T, 128, 64, 32, MASK>(p, stream);
+  if (kd <= 256) return launch_fma<T, 256, 32, 32, MASK>(p, stream);
   return cudaErrorInvalidValue;
+}
+
+template <typename T>
+cudaError_t dispatch_mask(const Params& p, cudaStream_t stream) {
+  return p.mask ? dispatch<T, true>(p, stream) : dispatch<T, false>(p, stream);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = float16, 2 = bfloat16 (q, k, v and o share it).
+// dtype: 0 = float32, 1 = float16, 2 = bfloat16 (q, k, v and o share it);
+// mask_dtype likewise, read only when mask is not null. strides holds 17
+// element strides: q (batch, head, row), k (batch, head, key, column),
+// v (batch, head, row), o (batch, head, row), mask (batch, head, row, column).
 // Returns a cudaError_t: 0 when the launch was accepted.
-extern "C" int ostt_flash_attention_packed(int dtype, const void* q, const void* k, const void* v,
-                                           void* o, int B, int M, int N, int H, int Hkv, int D,
-                                           int Dv, long long sqb, long long sqm, long long skb,
-                                           long long skn, long long svb, long long svn,
-                                           long long sob, long long som, float scale_log2,
-                                           int causal, void* stream) {
-  if (B <= 0 || M <= 0 || H <= 0 || Hkv <= 0 || H % Hkv || D % 8 || Dv % 8 || D <= 0 || Dv <= 0)
+extern "C" int ostt_flash_attention(int dtype, const void* q, const void* k, const void* v,
+                                    void* o, const void* mask, int mask_dtype, int B, int M,
+                                    int N, int H, int Hkv, int D, int Dv,
+                                    const long long* strides, float scale_log2, int causal,
+                                    void* stream) {
+  if (B <= 0 || M <= 0 || H <= 0 || Hkv <= 0 || H % Hkv || D % 8 || Dv % 8 || D <= 0 || Dv <= 0 ||
+      mask_dtype < 0 || mask_dtype > 2)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Params p{q, k, v, o, B, M, N, H, Hkv, D, Dv, sqb, sqm, skb, skn, svb, svn, sob, som,
+  const long long* s = strides;
+  const Params p{q,     k,     v,     o,     mask,  B,     M,     N,     H,         Hkv,
+                 D,     Dv,    s[0],  s[1],  s[2],  s[3],  s[4],  s[5],  s[6],      s[7],
+                 s[8],  s[9],  s[10], s[11], s[12], s[13], s[14], s[15], s[16],     mask_dtype,
                  scale_log2, causal};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return static_cast<int>(dispatch<float>(p, s));
-    case 1: return static_cast<int>(dispatch<__half>(p, s));
-    case 2: return static_cast<int>(dispatch<__nv_bfloat16>(p, s));
+    case 0: return static_cast<int>(dispatch_mask<float>(p, st));
+    case 1: return static_cast<int>(dispatch_mask<__half>(p, st));
+    case 2: return static_cast<int>(dispatch_mask<__nv_bfloat16>(p, st));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

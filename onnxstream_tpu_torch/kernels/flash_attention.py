@@ -1,22 +1,31 @@
-"""Flash attention over packed heads: the hand-written CUDA kernel and its twin.
+"""Flash attention: the hand-written CUDA kernel, its two wrappers and its twin.
 
-``flash_attention_packed`` replaces the TPU kernel
-``onnxstream_tpu/kernels/flash_attention.py`` ``flash_attention_packed``
-(``_flash_call_packed`` -> ``_fa_kernel``). The kernel, ``csrc/flash_attention.cu``,
-reads each head straight from the packed ``(B, L, H*D)`` projections through
-strides, so unlike the TPU wrapper it makes no padded copy of Q, K or V. See
-the source for its design and what bounds it.
+One kernel, ``csrc/flash_attention.cu``, replaces both TPU flash kernels of
+``onnxstream_tpu/kernels/flash_attention.py``:
 
-``flash_attention_packed_reference`` is its plain PyTorch twin: the same
-function computed in float32 with materialized scores, with the same
-convention that a row with no valid key (causal, M > N) is exactly 0.
+  * ``flash_attention_packed`` (``_flash_call_packed`` -> ``_fa_kernel``):
+    heads packed in the last dim, ``(B, L, H*D)``, no mask;
+  * ``flash_attention`` (``_flash_call`` -> ``_fa_kernel``): head-major
+    ``(B, H, M, D)`` with an additive mask that broadcasts over batch and
+    heads, K optionally given transposed.
+
+The kernel reads every operand in place through strides, so unlike the TPU
+wrappers it makes no padded copy of Q, K, V or the mask (the TPU wrapper's
+lane padding and VMEM clamp have no meaning here). See the source for its
+design and what bounds it.
+
+``flash_attention_reference`` is the plain PyTorch twin: the same function
+computed in float32 with materialized scores, in the kernel's order of
+operations (log2-domain scores, unnormalized probabilities cast to V's dtype
+before the PV product, row sums in float32), and with the same convention
+that a row with no valid key is exactly 0.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
@@ -28,35 +37,76 @@ MAX_HEAD_DIM = 256  # largest head dim the kernel's tile shapes cover
 _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 
 
+def _lift_mask(mask: torch.Tensor) -> torch.Tensor:
+    """(M, N) -> (1, 1, M, N); (B, M, N) -> (B, 1, M, N), the batch mask of
+    ONNX models, as the TPU wrapper lifts them."""
+    if mask.ndim == 2:
+        return mask[None, None]
+    if mask.ndim == 3:
+        return mask[:, None]
+    return mask
+
+
+def mask_fits(mask: torch.Tensor, shape: Sequence[int]) -> bool:
+    """Whether the (lifted) additive mask broadcasts to (B, H, M, N)."""
+    m = _lift_mask(mask)
+    return m.ndim == 4 and all(a in (1, b) for a, b in zip(m.shape, shape))
+
+
+def flash_attention_reference(q, k, v, mask=None, scale: Optional[float] = None,
+                              k_transposed: bool = False, causal: bool = False) -> torch.Tensor:
+    """Plain twin of the kernel: q (B, H, M, D), k (B, Hkv, N, D) (or
+    (B, Hkv, D, N) with ``k_transposed``), v (B, Hkv, N, Dv), an optional
+    additive mask -> (B, H, M, Dv) in q's dtype, computed in float32. Rank-3
+    inputs are lifted to batch 1."""
+    if k_transposed:
+        k = k.transpose(-1, -2)
+    if q.ndim == 3:
+        return flash_attention_reference(q[None], k[None], v[None], mask=mask, scale=scale,
+                                         causal=causal)[0]
+    b, h, m, d = q.shape
+    hkv, n = k.shape[1], k.shape[2]
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    kf = k.float().repeat_interleave(h // hkv, dim=1)
+    vf = v.float().repeat_interleave(h // hkv, dim=1)
+    s = torch.matmul(q.float(), kf.transpose(-1, -2)) * (scale * LOG2_E)
+    if mask is not None:
+        s = s + _lift_mask(mask).float() * LOG2_E
+    if causal:
+        row = torch.arange(m, device=q.device)[:, None]
+        col = torch.arange(n, device=q.device)[None, :]
+        s = s.masked_fill(col > row + (n - m), float("-inf"))
+    mx = s.amax(dim=-1, keepdim=True)
+    mx = torch.where(mx == float("-inf"), torch.zeros((), device=q.device), mx)
+    p = torch.exp2(s - mx)
+    l = p.sum(dim=-1, keepdim=True)
+    out = torch.matmul(p.to(v.dtype).float(), vf) / torch.where(l == 0, torch.ones((), device=q.device), l)
+    return out.to(q.dtype)
+
+
 def flash_attention_packed_reference(q, k, v, heads: int, scale: Optional[float] = None,
                                      causal: bool = False) -> torch.Tensor:
-    """Plain twin of the kernel: q (B, M, H*D), k (B, N, Hkv*D), v (B, N,
+    """Plain twin of the packed form: q (B, M, H*D), k (B, N, Hkv*D), v (B, N,
     Hkv*Dv) -> (B, M, H*Dv) in q's dtype, computed in float32."""
     b, m, hd = q.shape
     d = hd // heads
     n = k.shape[1]
     hkv = k.shape[-1] // d
     dv = v.shape[-1] // hkv
-    if scale is None:
-        scale = 1.0 / math.sqrt(d)
-    qh = q.float().reshape(b, m, heads, d).transpose(1, 2)
-    kh = k.float().reshape(b, n, hkv, d).transpose(1, 2).repeat_interleave(heads // hkv, dim=1)
-    vh = v.float().reshape(b, n, hkv, dv).transpose(1, 2).repeat_interleave(heads // hkv, dim=1)
-    s = torch.matmul(qh, kh.transpose(-1, -2)) * scale
-    if causal:
-        row = torch.arange(m, device=q.device)[:, None]
-        col = torch.arange(n, device=q.device)[None, :]
-        keep = col <= row + (n - m)
-    else:
-        keep = torch.ones(m, n, dtype=torch.bool, device=q.device)
-    p = torch.softmax(s.masked_fill(~keep, float("-inf")), dim=-1)
-    p = torch.where(keep.any(dim=-1, keepdim=True), p, torch.zeros((), device=q.device))
-    out = torch.matmul(p, vh)
-    return out.transpose(1, 2).reshape(b, m, heads * dv).to(q.dtype)
+    out = flash_attention_reference(
+        q.reshape(b, m, heads, d).transpose(1, 2), k.reshape(b, n, hkv, d).transpose(1, 2),
+        v.reshape(b, n, hkv, dv).transpose(1, 2), scale=scale, causal=causal)
+    return out.transpose(1, 2).reshape(b, m, heads * dv)
 
 
-def _check(q, k, v, heads: int):
-    """Shapes the kernel takes; raises on anything else. Returns (d, hkv, dv)."""
+def _head_dims_ok(d: int, dv: int) -> bool:
+    return d % 8 == 0 and dv % 8 == 0 and 0 < d <= MAX_HEAD_DIM and 0 < dv <= MAX_HEAD_DIM
+
+
+def _check_packed(q, k, v, heads: int):
+    """Shapes the kernel takes in the packed form; raises on anything else.
+    Returns (d, hkv, dv)."""
     if q.ndim != 3 or k.ndim != 3 or v.ndim != 3:
         raise ValueError("flash_attention_packed: q, k, v must be (B, L, heads*D)")
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPE_CODE:
@@ -75,19 +125,61 @@ def _check(q, k, v, heads: int):
     if hkv == 0 or heads % hkv or v.shape[-1] % hkv:
         raise ValueError("GQA requires q_heads % kv_heads == 0 and v divisible by kv_heads")
     dv = v.shape[-1] // hkv
-    if d % 8 or dv % 8 or d > MAX_HEAD_DIM or dv > MAX_HEAD_DIM:
+    if not _head_dims_ok(d, dv):
         raise ValueError(f"head dims must be multiples of 8 up to {MAX_HEAD_DIM}, got {d}, {dv}")
     return d, hkv, dv
 
 
-def _bind(lib: ctypes.CDLL):
-    fn = lib.ostt_flash_attention_packed
+def head_major_problem(q, k, v, mask=None, k_transposed: bool = False) -> Optional[str]:
+    """Why the kernel cannot take these (B, H, M, D) operands, or None when
+    it can. The one statement of the kernel's limits: ``flash_attention``
+    raises with this reason and ``ops/attention.py _use_flash`` routes such
+    shapes to the reference."""
+    if not (q.ndim == k.ndim == v.ndim == 4):
+        return f"q, k, v must be rank 4 (B, H, L, D), got ranks {q.ndim}, {k.ndim}, {v.ndim}"
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPE_CODE:
+        return f"unsupported dtypes {q.dtype}, {k.dtype}, {v.dtype}"
+    if not (q.device == k.device == v.device):
+        return "q, k, v on different devices"
+    b, h, m, d = q.shape
+    hkv = k.shape[1]
+    kd, n = (k.shape[2], k.shape[3]) if k_transposed else (k.shape[3], k.shape[2])
+    dv = v.shape[-1]
+    if k.shape[0] != b or v.shape[0] != b or v.shape[1] != hkv or v.shape[2] != n or kd != d:
+        return f"inconsistent shapes q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}"
+    if hkv == 0 or h % hkv:
+        return "GQA requires q_heads % kv_heads == 0"
+    if not _head_dims_ok(d, dv):
+        return f"head dims must be multiples of 8 up to {MAX_HEAD_DIM}, got {d}, {dv}"
+    if q.stride(-1) != 1 or v.stride(-1) != 1:
+        return "the last dim of q and v must be contiguous"
+    if mask is not None:
+        if mask.dtype not in _DTYPE_CODE:
+            return f"unsupported mask dtype {mask.dtype}"
+        if mask.device != q.device:
+            return "mask on another device"
+        if not mask_fits(mask, (b, h, m, n)):
+            return f"mask {tuple(mask.shape)} does not broadcast to {(b, h, m, n)}"
+    return None
+
+
+def _launch(q, k, v, out, mask, dims, strides, scale: float, causal: bool) -> None:
+    """One launch on the current stream; raises when CUDA refuses it."""
+    lib = build.load("flash_attention")
+    fn = lib.ostt_flash_attention
     fn.restype = ctypes.c_int
-    fn.argtypes = (
-        [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
-        + [ctypes.c_longlong] * 8 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    )
-    return fn
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
+                   + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_int,
+                      ctypes.c_void_p])
+    arr = (ctypes.c_longlong * 17)(*[int(s) for s in strides])
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(_DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                None if mask is None else mask.data_ptr(),
+                0 if mask is None else _DTYPE_CODE[mask.dtype], *dims, arr,
+                float(scale) * LOG2_E, int(bool(causal)), stream)
+    if rc != 0:
+        raise RuntimeError(f"flash attention: kernel launch failed with CUDA error {rc}")
 
 
 def flash_attention_packed(q, k, v, heads: int, scale: Optional[float] = None,
@@ -100,7 +192,7 @@ def flash_attention_packed(q, k, v, heads: int, scale: Optional[float] = None,
     ``flash_attention_packed.launches``."""
     if q.ndim == 2:
         return flash_attention_packed(q[None], k[None], v[None], heads, scale=scale, causal=causal)[0]
-    d, hkv, dv = _check(q, k, v, heads)
+    d, hkv, dv = _check_packed(q, k, v, heads)
     if scale is None:
         scale = 1.0 / math.sqrt(d)
     if q.device.type == "cpu":
@@ -114,20 +206,54 @@ def flash_attention_packed(q, k, v, heads: int, scale: Optional[float] = None,
     out = torch.empty((b, m, heads * dv), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    fn = _bind(build.load("flash_attention"))
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(
-            _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            b, m, n, heads, hkv, d, dv,
-            q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-            v.stride(0), v.stride(1), out.stride(0), out.stride(1),
-            float(scale) * LOG2_E, int(bool(causal)), stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"flash_attention_packed: kernel launch failed with CUDA error {rc}")
+    # head h starts h*D columns into its row: head stride D, unit column stride
+    strides = (q.stride(0), d, q.stride(1), k.stride(0), d, k.stride(1), 1,
+               v.stride(0), dv, v.stride(1), out.stride(0), dv, out.stride(1), 0, 0, 0, 0)
+    _launch(q, k, v, out, None, (b, m, n, heads, hkv, d, dv), strides, scale, causal)
     flash_attention_packed.launches += 1
     return out
 
 
+def flash_attention(q, k, v, mask=None, scale: Optional[float] = None,
+                    k_transposed: bool = False, causal: bool = False) -> torch.Tensor:
+    """Flash SDPA, head-major: q (B, H, M, D), k (B, Hkv, N, D) (or
+    (B, Hkv, D, N) with ``k_transposed``), v (B, Hkv, N, Dv) -> (B, H, M, Dv)
+    in q's dtype. Rank-3 (H, L, D) inputs are lifted to batch 1. ``mask`` is
+    an additive mask that broadcasts to (B, H, M, N) after lifting: (M, N),
+    (B, M, N) as (B, 1, M, N), (1|B, 1|H, M, N), ...; GQA when H != Hkv.
+
+    On CUDA tensors it launches the kernel on the current stream, or raises;
+    on CPU tensors it computes the plain twin. Every launch adds one to
+    ``flash_attention.launches``."""
+    if q.ndim == 3:
+        return flash_attention(q[None], k[None], v[None], mask=mask, scale=scale,
+                               k_transposed=k_transposed, causal=causal)[0]
+    problem = head_major_problem(q, k, v, mask, k_transposed)
+    if problem is not None:
+        raise ValueError(f"flash_attention: {problem}")
+    b, h, m, d = q.shape
+    hkv, dv = k.shape[1], v.shape[-1]
+    n = k.shape[3] if k_transposed else k.shape[2]
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v, mask=mask, scale=scale,
+                                         k_transposed=k_transposed, causal=causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on CUDA or CPU tensors, not {q.device}")
+    out = torch.empty((b, h, m, dv), dtype=q.dtype, device=q.device)
+    if out.numel() == 0:
+        return out
+    skn, skd = (k.stride(3), k.stride(2)) if k_transposed else (k.stride(2), k.stride(3))
+    # a broadcast view has stride 0 on the dims the mask does not have
+    m4 = None if mask is None else _lift_mask(mask).expand(b, h, m, n)
+    strides = (q.stride(0), q.stride(1), q.stride(2), k.stride(0), k.stride(1), skn, skd,
+               v.stride(0), v.stride(1), v.stride(2), out.stride(0), out.stride(1), out.stride(2),
+               *((0, 0, 0, 0) if m4 is None else m4.stride()))
+    _launch(q, k, v, out, m4, (b, m, n, h, hkv, d, dv), strides, scale, causal)
+    flash_attention.launches += 1
+    return out
+
+
 flash_attention_packed.launches = 0
+flash_attention.launches = 0

@@ -18,7 +18,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from onnxstream_tpu_torch.dtypes import to_numpy
+from onnxstream_tpu_torch.dtypes import to_numpy, to_torch
 
 
 class StaticRequired(Exception):
@@ -66,12 +66,29 @@ class Ctx:
     """Per-evaluation context handed to op impls."""
 
     def __init__(self, mode: str, config=None, op_name: str = "",
-                 device: Optional[torch.device] = None):
+                 device: Optional[torch.device] = None, consts: Optional[Dict[int, list]] = None):
         self.mode = mode  # "host" | "device"
         self.config = config
         self.op_name = op_name
         # where numpy operands of a device op are placed ("meta" while planning)
         self.device = torch.device("cpu") if device is None else torch.device(device)
+        # id(plan constant) -> [array, device copy or None]: the executor's
+        # cache, so a constant crosses to the device once and not per run
+        self.consts = consts
+
+    def tensor(self, x) -> torch.Tensor:
+        """An operand as a tensor on the op's device: tensors as they are,
+        static numpy operands copied over (once per executor for plan
+        constants; an uncached host-to-device copy waits for the stream)."""
+        if isinstance(x, torch.Tensor):
+            return x
+        # the entry holds its array, so no other object can share that id
+        entry = self.consts.get(id(x)) if self.consts is not None else None
+        if entry is None:
+            return to_torch(x, self.device)
+        if entry[1] is None:
+            entry[1] = to_torch(x, self.device)
+        return entry[1]
 
     def static(self, ins, i: int, what: str = "") -> Optional[np.ndarray]:
         """Return input i as a concrete numpy array, or raise StaticRequired

@@ -2,9 +2,11 @@
 
 Counterpart of ``onnxstream_tpu/ops/attention.py``. The graph fusion pass
 (``runtime/fusion.py``) rewrites the recognized attention patterns into
-``ostpu.sdpa``; this impl runs the packed-heads form through the hand-written
-CUDA flash kernel (``kernels/flash_attention.py``) at the sites the size
-predicate picks, and through the torch reference paths everywhere else.
+``ostpu.sdpa``; this impl runs both forms, packed heads (mask-free, the SD
+UNet) and head-major with an additive mask (the llama graphs), through the
+hand-written CUDA flash kernel (``kernels/flash_attention.py``) at the sites
+the size predicates pick, and through the torch reference paths everywhere
+else.
 
 Canonical signature:
     inputs:  Q (..., H, M, D), K (..., Hkv, N, D), V (..., Hkv, N, Dv), mask?
@@ -20,8 +22,12 @@ import math
 
 import torch
 
-from onnxstream_tpu_torch.dtypes import to_torch
-from onnxstream_tpu_torch.kernels.flash_attention import MAX_HEAD_DIM, flash_attention_packed
+from onnxstream_tpu_torch.kernels.flash_attention import (
+    MAX_HEAD_DIM,
+    flash_attention,
+    flash_attention_packed,
+    head_major_problem,
+)
 from onnxstream_tpu_torch.ops import Ctx, register
 
 
@@ -34,8 +40,9 @@ def _causal_keep(m: int, n: int, device) -> torch.Tensor:
 
 def _scaled(q: torch.Tensor, scale: float) -> torch.Tensor:
     # the scale is rounded to q's dtype and folded into q BEFORE the product,
-    # so raw fp16 dot products cannot overflow
-    return q * torch.tensor(scale, dtype=q.dtype, device=q.device)
+    # so raw fp16 dot products cannot overflow; it travels as a Python number,
+    # since a scalar tensor made on the card is a host copy that waits
+    return q * float(torch.tensor(scale, dtype=q.dtype))
 
 
 def sdpa_reference(q, k, v, mask=None, scale=None, k_transposed=False, causal=False):
@@ -120,10 +127,28 @@ def _use_flash_packed(config, heads, q, k, v) -> bool:
     return kv_len >= 512 and score_bytes >= (8 << 20)
 
 
+def _use_flash(config, q, k, v, mask=None, k_transposed=False) -> bool:
+    """The head-major flash kernel runs on CUDA tensors that it can take
+    (``head_major_problem``: ranks, dtypes, head dims, strides, a mask that
+    broadcasts), with the JAX package's size gates: KV >= 512 and scores of
+    at least 8 MB. Everything else, the planner's meta tensors included,
+    takes ``sdpa_reference``."""
+    if config is not None and not config.use_flash_attention:
+        return False
+    if not q.is_cuda or q.ndim not in (3, 4) or q.shape[-2] < 8 or not (q.ndim == k.ndim == v.ndim):
+        return False
+    if q.ndim == 3:  # lifted to batch 1, as flash_attention does
+        q, k, v = q[None], k[None], v[None]
+    if head_major_problem(q, k, v, mask, k_transposed) is not None:
+        return False
+    batch, heads, m, _ = q.shape
+    kv_len = k.shape[-1] if k_transposed else k.shape[-2]
+    return kv_len >= 512 and 2 * batch * heads * m * kv_len >= (8 << 20)
+
+
 @register("ostpu.sdpa")
 def _sdpa(ctx: Ctx, op, ins):
-    q, k, v, mask = [None if x is None else to_torch(x, ctx.device)
-                     for x in (list(ins) + [None])[:4]]
+    q, k, v, mask = [None if x is None else ctx.tensor(x) for x in (list(ins) + [None])[:4]]
     scale = op.attr_float("scale", 0.0) or None
     k_transposed = bool(op.attr_int("k_transposed", 0))
     causal = bool(op.attr_int("causal", 0))
@@ -136,4 +161,7 @@ def _sdpa(ctx: Ctx, op, ins):
         if mask is None and _use_flash_packed(ctx.config, heads, q, k, v):
             return [flash_attention_packed(q, k, v, heads, scale=scale, causal=causal)]
         return [sdpa_reference_packed(q, k, v, heads, mask=mask, scale=scale, causal=causal)]
+    if _use_flash(ctx.config, q, k, v, mask, k_transposed):
+        return [flash_attention(q, k, v, mask=mask, scale=scale, k_transposed=k_transposed,
+                                causal=causal)]
     return [sdpa_reference(q, k, v, mask=mask, scale=scale, k_transposed=k_transposed, causal=causal)]

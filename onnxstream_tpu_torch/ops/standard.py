@@ -1,10 +1,17 @@
-"""The standard operator library (the UNet slice).
+"""The standard operator library (the UNet and TinyLlama slices).
 
-Counterpart of ``onnxstream_tpu/ops/standard.py`` for the 21 op types of the
+Counterpart of ``onnxstream_tpu/ops/standard.py`` for the op types of the
 fused SD UNet graph: Add, Concat, Conv, Cos, Div, Erf, InstanceNormalization,
 MatMul, Mul, Pow, ReduceMean, Reshape, Resize, Sigmoid, Sin, Split, Sqrt, Sub,
-Transpose, Unsqueeze (this file) and ``ostpu.sdpa`` (``ops/attention.py``).
-Any other op type raises ``NotImplementedError`` from the registry.
+Transpose, Unsqueeze; of the fused llama graph beyond those: ArgMax, Expand,
+Gather, Identity, Less, Neg, ScatterND, Where (this file); and ``ostpu.sdpa``
+(``ops/attention.py``). Any other op type raises ``NotImplementedError`` from
+the registry.
+
+Device integers are 32-bit, as in the JAX package: int64 graph inputs arrive
+as int32 and ``_align_binary`` narrows int64 in device ops. torch's indexing
+(Gather, ScatterND) takes int64 indices, so those two widen their index
+operand on the device right where they index, and nothing else changes.
 
 The bodies are written once in torch and serve three callers: the planner's
 shape inference on ``meta`` tensors, host folding on CPU tensors, and the
@@ -48,7 +55,7 @@ def _is_static(x) -> bool:
 
 def _tensor(ctx: Ctx, x) -> torch.Tensor:
     """A static numpy operand becomes a tensor on the op's device."""
-    return x if isinstance(x, torch.Tensor) else to_torch(x, ctx.device)
+    return ctx.tensor(x)
 
 
 def _astype(ctx: Ctx, x, dtype) -> torch.Tensor:
@@ -122,6 +129,7 @@ register("Mul", host=True)(_binary(lambda a, b: a * b))
 register("Add", host=True)(_binary(lambda a, b: a + b))
 register("Sub", host=True)(_binary(lambda a, b: a - b))
 register("Div", host=True)(_binary(_div))
+register("Less", host=True)(_binary(lambda a, b: a < b))
 
 
 @register("Pow", host=True)
@@ -145,6 +153,8 @@ def _unary(fn):
     return impl
 
 
+register("Neg", host=True)(_unary(torch.neg))
+register("Identity", host=True)(_unary(lambda x: x))
 register("Sqrt", host=True)(_unary(torch.sqrt))
 register("Cos", host=True)(_unary(torch.cos))
 register("Sin", host=True)(_unary(torch.sin))
@@ -194,6 +204,18 @@ def _transpose(ctx: Ctx, op, ins):
     return [x.permute(*perm)]
 
 
+@register("Expand", host=True)
+def _expand(ctx: Ctx, op, ins):
+    x = _tensor(ctx, ins[0])
+    shape = [int(v) for v in ctx.static(ins, 1, "Expand.shape").reshape(-1)]
+    # ONNX Expand uses bidirectional broadcast: out dim = max(in, requested)
+    rank = max(x.ndim, len(shape))
+    in_shape = (1,) * (rank - x.ndim) + tuple(x.shape)
+    shape = [1] * (rank - len(shape)) + shape
+    target = tuple(max(a, b) for a, b in zip(in_shape, shape))
+    return [x.reshape(in_shape).expand(target)]
+
+
 @register("Concat", host=True)
 def _concat(ctx: Ctx, op, ins):
     axis = op.attr_int("axis")
@@ -234,6 +256,43 @@ def _split(ctx: Ctx, op, ins):
 
 
 # ---------------------------------------------------------------------------
+# data movement / indexing
+# ---------------------------------------------------------------------------
+
+
+@register("Gather", host=True)
+def _gather(ctx: Ctx, op, ins):
+    x, idx = _tensor(ctx, ins[0]), _tensor(ctx, ins[1])
+    axis = op.attr_int("axis", 0) % x.ndim
+    dim = x.shape[axis]
+    idx = idx.long()  # torch indexes with int64; device ids arrive as int32
+    idx = torch.where(idx < 0, idx + dim, idx)
+    out = torch.index_select(x, axis, idx.reshape(-1))
+    return [out.reshape(tuple(x.shape[:axis]) + tuple(idx.shape) + tuple(x.shape[axis + 1:]))]
+
+
+@register("Where", host=True)
+def _where(ctx: Ctx, op, ins):
+    cond, a, b = ins
+    cond = _tensor(ctx, cond)
+    if cond.dtype != torch.bool:
+        cond = cond != 0
+    a, b = _align_binary(ctx, a, b)
+    return [torch.where(cond, a, b)]
+
+
+@register("ScatterND")
+def _scatternd(ctx: Ctx, op, ins):
+    """Out of place, as ``.at[].set`` in the JAX package: the data operand
+    (a KV cache fed back by the caller) is not written."""
+    data, indices, updates = (_tensor(ctx, v) for v in ins)
+    depth = indices.shape[-1]
+    idx = indices.reshape(-1, depth).long()
+    upd = updates.reshape((-1,) + tuple(data.shape[depth:])).to(data.dtype)
+    return [data.index_put(tuple(idx[:, j] for j in range(depth)), upd)]
+
+
+# ---------------------------------------------------------------------------
 # reductions & normalization
 # ---------------------------------------------------------------------------
 
@@ -245,6 +304,20 @@ def _reduce_mean(ctx: Ctx, op, ins):
     keepdims = bool(op.attr_int("keepdims", 1))
     ax = tuple(a % x.ndim for a in axes) if axes else tuple(range(x.ndim))
     return [_f32_island(x, lambda v: v.mean(dim=ax, keepdim=keepdims))]
+
+
+@register("ArgMax", host=True)
+def _argmax(ctx: Ctx, op, ins):
+    """The first maximum, as ``jnp.argmax`` (the last with
+    ``select_last_index``); int64 on the host, int32 on the device."""
+    x = _tensor(ctx, ins[0])
+    axis = op.attr_int("axis", 0) % x.ndim
+    keepdims = bool(op.attr_int("keepdims", 1))
+    if op.attr_int("select_last_index", 0):
+        idx = x.shape[axis] - 1 - torch.argmax(torch.flip(x, dims=(axis,)), dim=axis, keepdim=keepdims)
+    else:
+        idx = torch.argmax(x, dim=axis, keepdim=keepdims)
+    return [idx.to(torch.int64 if ctx.mode == "host" else torch.int32)]
 
 
 @register("InstanceNormalization")

@@ -1,7 +1,8 @@
 """Session configuration.
 
 Counterpart of ``onnxstream_tpu/runtime/config.py``. It keeps the reference
-option flags the UNet slice reads and the ``set_option`` names that apply.
+option flags the UNet and TinyLlama slices read and the ``set_option`` names
+that apply.
 The TPU-only knobs (AUTO weight layouts, meshes, pipeline stages, XLA
 compiler options, Pallas interpret mode) have no counterpart here.
 
@@ -14,7 +15,7 @@ silently.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Set
+from typing import Callable, List, Optional, Set
 
 import torch
 
@@ -30,6 +31,7 @@ _NOT_IMPLEMENTED = {
     "int8_symmetric_storage": False,  # s8 storage (TPU kernel w8a8_dyn_matmul)
     "force_fp16_storage": False,
     "use_nhwc_layout": False,  # channel-last graph rewrite
+    "synthetic_device_weights": False,  # weights generated on the device
 }
 
 
@@ -46,6 +48,10 @@ class SessionConfig:
     extra_outputs: List[str] = dataclasses.field(default_factory=list)
     weights_exclusion_set: Set[str] = dataclasses.field(default_factory=set)
     force_uint8_storage_set: Set[str] = dataclasses.field(default_factory=set)
+    # (op_type, op_name) -> bool: run that op in float32 and cast its float
+    # outputs back to the compute dtype (the reference's m_requires_upcast;
+    # the llama pipeline's RMSNorms)
+    requires_upcast: Optional[Callable[[str, str], bool]] = None
 
     # --- port knobs --------------------------------------------------------
     # packed flash attention (kernels/flash_attention.py) at the sites the
@@ -60,6 +66,10 @@ class SessionConfig:
     strict_shapes: bool = True  # enforce model.txt declared shapes (check_output_shape)
     # where device ops run; never chosen implicitly
     device: Optional[torch.device] = None
+    # share resident device weights across Sessions/executors (the LLM
+    # prefill and decode-bucket graphs reuse one upload); see
+    # executor.SHARED_CACHE_MIN_BYTES for which weights it holds
+    shared_device_weight_cache: Optional[dict] = None
 
     # not implemented yet: must keep their defaults (see _NOT_IMPLEMENTED)
     fuse_groupnorm: bool = False
@@ -71,6 +81,7 @@ class SessionConfig:
     int8_symmetric_storage: bool = False
     force_fp16_storage: bool = False
     use_nhwc_layout: bool = False
+    synthetic_device_weights: bool = False
 
     def __post_init__(self) -> None:
         self.torch_compute_dtype  # validates compute_dtype

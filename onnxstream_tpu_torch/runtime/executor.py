@@ -19,6 +19,14 @@ GEMM reductions in float32.
 ``run_eager`` is the per-op interpreter with ops_printf / ops_times_printf;
 it holds every weight at once and serves as the oracle for ``run``.
 
+``run(device_outputs=True)`` returns the fetched tensors as they are, on the
+device and in their compute dtypes, so a caller can feed them back as inputs
+(the LLM KV cache). Inputs that are already device tensors are used in place,
+and plan constants cross to the device once per executor (``Ctx.consts``):
+a decode step then makes no host copy and no host sync. Resident weights of
+at least ``SHARED_CACHE_MIN_BYTES`` live in ``shared_device_weight_cache``
+when the config gives one, so sessions that share it upload them once.
+
 The quantized paths of the JAX executor (``_qlinear_mode``, ``_w8_weight``,
 ``_dyn_s8_weight``, ``_maybe_qdq``) are not ported: a graph with uint8
 weights raises at construction, and ``use_uint8_qdq`` is refused by
@@ -40,6 +48,12 @@ from onnxstream_tpu_torch.ir import OpNode
 from onnxstream_tpu_torch.ops import Ctx, get_impl
 from onnxstream_tpu_torch.runtime.planner import Plan, WeightArg
 from onnxstream_tpu_torch.runtime.weights import WeightsProvider
+
+
+# Only weights this big go to the shared cache, keyed by (name, shape, dtype):
+# builder constants (shape vectors) may reuse a name with other contents
+# across bucket graphs, model weights never do.
+SHARED_CACHE_MIN_BYTES = 1 << 20
 
 
 def upload_bytes(w: WeightArg) -> int:
@@ -169,6 +183,10 @@ class Executor:
         self.provider = provider
         self.segments = build_segments(plan, plan.fetch_names)
         self._resident: Dict[str, torch.Tensor] = {}
+        # id(plan constant) -> [array, device copy]: see Ctx.tensor
+        self._consts: Dict[int, list] = {
+            id(v): [v, None] for v in (*plan.static_env.values(), *plan.static_weights.values())
+            if isinstance(v, np.ndarray)}
         self.ops_times: Dict[str, float] = {}
         # last device op reading each activation: it is freed after that op
         last_use: Dict[str, int] = {}
@@ -177,6 +195,11 @@ class Executor:
                 if t.name and not t.is_weight:
                     last_use[t.name] = i
         self._last_use = last_use
+        # ops run with fp32 inputs and outputs: the predicate is asked once
+        # per op here, not on every run
+        upcast = self.config.requires_upcast
+        self._upcast = frozenset() if upcast is None else frozenset(
+            i for i, op in enumerate(self.graph.ops) if upcast(op.op_type, op.name))
         provider.on_init(plan.stream_entries())
         self._first_run_done = False
 
@@ -189,15 +212,24 @@ class Executor:
             return conv.to(self.device)
         return conv.pin_memory().to(self.device, non_blocking=True)
 
+    def _cache_slot(self, w: WeightArg):
+        """(cache, key) holding w's resident device copy: the shared cache
+        for big weights when the config gives one, else this executor's."""
+        shared = self.config.shared_device_weight_cache
+        if shared is not None and upload_bytes(w) >= SHARED_CACHE_MIN_BYTES:
+            return shared, (w.name, w.shape, str(w.upload_dtype))
+        return self._resident, w.name
+
     def _fetch_segment_weights(self, seg: Segment) -> Dict[str, torch.Tensor]:
         resident = self.config.hbm_budget_bytes == 0
         out: Dict[str, torch.Tensor] = {}
         for w in seg.weight_args:
-            dev = self._resident.get(w.name)
+            cache, key = self._cache_slot(w)
+            dev = cache.get(key)
             if dev is None:
                 dev = self._upload(w)
                 if resident:
-                    self._resident[w.name] = dev
+                    cache[key] = dev
                     # the device copy owns the weight now (reference
                     # WeightsProvider::remove); weights_exclusion_set opts out
                     if w.name not in self.config.weights_exclusion_set:
@@ -208,8 +240,18 @@ class Executor:
     def weight_bytes(self) -> int:
         return sum(upload_bytes(w) for w in self.plan.arg_weights)
 
+    def device_weights(self) -> List[torch.Tensor]:
+        """The resident device weights this executor uses (shared ones
+        included), for counting device memory across sessions."""
+        out = []
+        for w in self.plan.arg_weights:
+            cache, key = self._cache_slot(w)
+            if key in cache:
+                out.append(cache[key])
+        return out
+
     # --------------------------------------------------------------- op eval
-    def _eval_op(self, op: OpNode, env: Dict[str, Any], weights_env: Dict[str, Any]):
+    def _eval_op(self, oi: int, op: OpNode, env: Dict[str, Any], weights_env: Dict[str, Any]):
         ins: List[Any] = []
         for t in op.inputs:
             if not t.name:
@@ -220,15 +262,25 @@ class Executor:
                 ins.append(self.plan.static_env[t.name])
             else:
                 ins.append(env[t.name])
-        ctx = Ctx("device", self.config, op.name, device=self.device)
-        return get_impl(op.op_type).fn(ctx, op, ins)
+        upcast = oi in self._upcast
+        if upcast:
+            # device values only: static numpy operands keep their dtype
+            ins = [v.float() if isinstance(v, torch.Tensor) and v.is_floating_point() else v
+                   for v in ins]
+        ctx = Ctx("device", self.config, op.name, device=self.device, consts=self._consts)
+        outs = get_impl(op.op_type).fn(ctx, op, ins)
+        if upcast:
+            cdt = self.config.torch_compute_dtype
+            outs = [o.to(cdt) if isinstance(o, torch.Tensor) and o.is_floating_point() else o
+                    for o in outs]
+        return outs
 
     def _run_segment(self, seg: Segment, weights: Dict[str, torch.Tensor],
                      env: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         keep = set(seg.out_names)
         for oi in seg.op_indices:
             op = self.graph.ops[oi]
-            for spec, val in zip(op.outputs, self._eval_op(op, env, weights)):
+            for spec, val in zip(op.outputs, self._eval_op(oi, op, env, weights)):
                 if spec.name:
                     env[spec.name] = val
             for t in op.inputs:
@@ -245,8 +297,8 @@ class Executor:
             prepared[k] = to_torch(inputs[k]).to(self.device, aval.dtype)
         return prepared
 
-    def _outputs(self, results: Dict[str, Any]) -> Dict[str, np.ndarray]:
-        out: Dict[str, np.ndarray] = {}
+    def _outputs(self, results: Dict[str, Any], device_outputs: bool = False) -> Dict[str, Any]:
+        out: Dict[str, Any] = {}
         for name in self.plan.fetch_names:
             if name in results:
                 v = results[name]
@@ -254,12 +306,13 @@ class Executor:
                 v = self.plan.static_env[name]
             else:
                 v = self.plan.static_weights[name]
-            out[name] = _to_host(v)
+            out[name] = v if device_outputs else _to_host(v)
         return out
 
-    def run(self, inputs: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    def run(self, inputs: Dict[str, Any], device_outputs: bool = False) -> Dict[str, Any]:
         """Segmented run. Returns float outputs as float32 numpy and integers
-        as int64 numpy."""
+        as int64 numpy; with ``device_outputs`` the device tensors as they
+        are (outputs folded on the host stay numpy)."""
         if self._first_run_done:
             self.provider.on_restart()
         with reference_precision():
@@ -273,7 +326,7 @@ class Executor:
                     env = {**acts, **env}
                 results.update(self._run_segment(seg, weights, env))
                 del weights
-            out = self._outputs(results)
+            out = self._outputs(results, device_outputs)
         self._first_run_done = True
         return out
 
@@ -292,7 +345,7 @@ class Executor:
                 if self.config.ops_printf:
                     print(f"#{oi}) {op.op_type} ({op.name})")
                 t0 = time.perf_counter() if timed else 0.0
-                outs = self._eval_op(op, env, weights_env)
+                outs = self._eval_op(oi, op, env, weights_env)
                 if timed:
                     if self.device.type == "cuda":
                         torch.cuda.synchronize(self.device)

@@ -85,6 +85,9 @@ class Session:
         e.g. a device tensor fed back from an earlier run)."""
         self.tensors[name] = data if isinstance(data, torch.Tensor) else np.asarray(data)
 
+    def clear_tensors(self) -> None:
+        self.tensors.clear()
+
     def set_option(self, name: str, value: bool) -> None:
         """String-keyed option setter (the bindings' model_set_option surface).
         Fusion-gating options apply at graph-rewrite time, so the graph is
@@ -139,15 +142,17 @@ class Session:
         self._executors[(skey, pins)] = ex
         return ex
 
-    def run(self, eager: bool = False) -> Dict[str, np.ndarray]:
+    def run(self, eager: bool = False, device_outputs: bool = False) -> Dict[str, Any]:
         """Run the graph on the pushed tensors; float outputs come back as
-        float32 numpy arrays, integers as int64."""
+        float32 numpy arrays, integers as int64. With ``device_outputs`` (not
+        in eager runs) they stay device tensors in their compute dtypes, to be
+        fed back with add_tensor (the LLM KV cache)."""
         ex = self._executor()
         inputs = {name: self.tensors[name] for name in self.graph.inputs}
         if eager or self.config.ops_printf or self.config.ops_times_printf:
             outs = ex.run_eager(inputs)
         else:
-            outs = ex.run(inputs)
+            outs = ex.run(inputs, device_outputs=device_outputs)
         self._last_outputs = outs
         return outs
 

@@ -61,6 +61,8 @@ def test_import_pulls_in_neither_jax_nor_ml_dtypes():
     code = (
         "import sys, onnxstream_tpu_torch\n"
         "import onnxstream_tpu_torch.models.sd.unet, onnxstream_tpu_torch.kernels.flash_attention\n"
+        "import onnxstream_tpu_torch.models.llm.pipeline, onnxstream_tpu_torch.cli.llm_main\n"
+        "import onnxstream_tpu_torch.models.llm.hf\n"
         "bad = [m for m in ('jax', 'ml_dtypes', 'onnxstream_tpu') if m in sys.modules]\n"
         "assert not bad, bad\n"
     )

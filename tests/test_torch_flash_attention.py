@@ -1,10 +1,11 @@
 """Port flash attention against the JAX package.
 
-The CUDA kernel cannot run here, so its plain twin
-(flash_attention_packed_reference) is held against the JAX Pallas kernel in
-interpret mode, and the port's reference SDPA paths against the JAX ones, all
-in float32 at rtol = atol = 1e-4 (the bar of tests/test_flash_attention.py).
-The kernel itself is compared with the twin on the card (marker ``gpu``).
+The CUDA kernel cannot run here, so its plain twins
+(flash_attention_packed_reference, flash_attention_reference) are held
+against the JAX Pallas kernels in interpret mode, and the port's reference
+SDPA paths against the JAX ones, all in float32 at rtol = atol = 1e-4 (the bar
+of tests/test_flash_attention.py). The kernel itself is compared with the
+twins on the card (marker ``gpu``).
 """
 
 import numpy as np
@@ -12,14 +13,19 @@ import pytest
 import torch
 import jax.numpy as jnp
 
+from onnxstream_tpu.kernels.flash_attention import flash_attention as jax_flash
 from onnxstream_tpu.kernels.flash_attention import flash_attention_packed as jax_flash_packed
 from onnxstream_tpu.ops.attention import sdpa_reference as jax_sdpa
 from onnxstream_tpu.ops.attention import sdpa_reference_packed as jax_sdpa_packed
 from onnxstream_tpu_torch.kernels.flash_attention import (
+    flash_attention,
     flash_attention_packed,
     flash_attention_packed_reference,
+    flash_attention_reference,
+    head_major_problem,
 )
 from onnxstream_tpu_torch.ops.attention import (
+    _use_flash,
     _use_flash_packed,
     sdpa_reference,
     sdpa_reference_packed,
@@ -188,3 +194,164 @@ def test_kernel_matches_twin_on_card(dtype, tol):
         torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
         if causal and m > n:
             assert out[:, : m - n].abs().max().item() == 0.0
+
+
+# ---------------------------------------------------------------- head-major
+# name, b, h, hkv, m, n, d, mask shape (None: no mask), causal, k_transposed
+HM_CASES = [
+    ("mask_mn", 1, 2, 2, 40, 150, 64, "mn", False, False),
+    ("mask_bmn", 2, 2, 2, 40, 150, 32, "bmn", False, False),
+    ("mask_11mn", 1, 4, 4, 24, 140, 64, "11mn", False, False),
+    ("mask_b1mn", 2, 2, 2, 24, 140, 64, "b1mn", False, False),
+    ("mask_bhmn", 2, 2, 2, 24, 140, 64, "bhmn", False, False),
+    ("mask_1hmn", 2, 4, 4, 24, 140, 16, "1hmn", False, False),
+    ("k_transposed", 1, 2, 2, 40, 150, 64, "11mn", False, True),
+    ("causal_m_gt_n", 1, 2, 2, 24, 10, 32, None, True, False),
+    ("causal_masked_prefill", 1, 4, 4, 32, 32, 64, "11mn", True, False),
+    ("gqa_b2", 2, 8, 2, 24, 140, 32, "b1mn", False, False),
+    ("d128", 1, 2, 2, 16, 130, 128, "mn", False, False),
+]
+
+
+def _mask_shape(kind, b, h, m, n):
+    return {"mn": (m, n), "bmn": (b, m, n), "11mn": (1, 1, m, n), "b1mn": (b, 1, m, n),
+            "bhmn": (b, h, m, n), "1hmn": (1, h, m, n)}[kind]
+
+
+def _mk_hm(case):
+    """Head-major float32 inputs; the additive mask is 0 / -1e9 (the llama
+    graph's values), with row 1 masked entirely by the finite -1e9."""
+    name, b, h, hkv, m, n, d, kind, causal, kt = case
+    rng = np.random.default_rng(7)
+    q = rng.standard_normal((b, h, m, d), dtype=np.float32)
+    k = rng.standard_normal((b, hkv, n, d), dtype=np.float32)
+    v = rng.standard_normal((b, hkv, n, d), dtype=np.float32)
+    mask = None
+    if kind is not None:
+        mask = np.where(rng.random(_mask_shape(kind, b, h, m, n)) > 0.3, 0.0, -1e9).astype(np.float32)
+        mask[..., 0] = 0.0
+        mask[..., 1, :] = -1e9
+    if kt:
+        k = np.ascontiguousarray(k.transpose(0, 1, 3, 2))
+    return q, k, v, mask, causal, kt
+
+
+@pytest.mark.parametrize("case", HM_CASES, ids=[c[0] for c in HM_CASES])
+def test_head_major_twin_matches_jax_interpret_kernel(case):
+    q, k, v, mask, causal, kt = _mk_hm(case)
+    want = np.asarray(jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                mask=None if mask is None else jnp.asarray(mask),
+                                k_transposed=kt, causal=causal, block_m=64, block_n=128,
+                                interpret=True))
+    got = flash_attention_reference(_t(q), _t(k), _t(v), mask=_t(mask), k_transposed=kt,
+                                    causal=causal).numpy()
+    np.testing.assert_allclose(got, want, **TOL)
+    if causal and q.shape[2] > v.shape[2]:
+        # rows with no valid key: exactly 0 in both
+        assert np.abs(want[:, :, : q.shape[2] - v.shape[2]]).max() == 0.0
+        assert np.abs(got[:, :, : q.shape[2] - v.shape[2]]).max() == 0.0
+    if mask is not None and not causal:
+        # a row masked only by the finite -1e9 is the softmax of the masked
+        # scores (not zeroed): here all equal, so the mean of V
+        hk = np.repeat(np.arange(v.shape[1]), q.shape[1] // v.shape[1])
+        np.testing.assert_allclose(got[:, :, 1], v[:, hk].mean(axis=2), **TOL)
+
+
+def test_head_major_rank3_is_lifted_like_jax():
+    rng = np.random.default_rng(8)
+    q = rng.standard_normal((2, 16, 32), dtype=np.float32)
+    k = rng.standard_normal((2, 40, 32), dtype=np.float32)
+    mask = np.where(rng.random((16, 40)) > 0.2, 0.0, -1e9).astype(np.float32)
+    want = np.asarray(jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(k), mask=jnp.asarray(mask),
+                                block_m=64, block_n=128, interpret=True))
+    got = flash_attention(_t(q), _t(k), _t(k), mask=_t(mask)).numpy()
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+def test_packed_twin_is_the_head_major_twin():
+    rng = np.random.default_rng(9)
+    q = torch.from_numpy(rng.standard_normal((2, 24, 4 * 16), dtype=np.float32))
+    k = torch.from_numpy(rng.standard_normal((2, 30, 2 * 16), dtype=np.float32))
+    got = flash_attention_packed_reference(q, k, k, 4, causal=True)
+    hm = flash_attention_reference(q.reshape(2, 24, 4, 16).transpose(1, 2),
+                                   k.reshape(2, 30, 2, 16).transpose(1, 2),
+                                   k.reshape(2, 30, 2, 16).transpose(1, 2), causal=True)
+    torch.testing.assert_close(got, hm.transpose(1, 2).reshape(2, 24, 64))
+
+
+def test_head_major_wrapper_on_cpu_is_the_twin_and_counts_nothing():
+    q, k, v, mask, _, _ = _mk_hm(HM_CASES[4])
+    before = flash_attention.launches
+    got = flash_attention(_t(q), _t(k), _t(v), mask=_t(mask))
+    torch.testing.assert_close(got, flash_attention_reference(_t(q), _t(k), _t(v), mask=_t(mask)))
+    assert flash_attention.launches == before
+
+
+def _llama_site(L=1024, T=1024, d=64, device="meta", mask_shape=None, dtype=torch.bfloat16):
+    q = torch.empty(1, 32, L, d, device=device, dtype=dtype)
+    k = torch.empty(1, 32, T, d, device=device, dtype=dtype)
+    mask = torch.empty(*(mask_shape or (1, 1, L, T)), device=device, dtype=dtype)
+    return q, k, mask
+
+
+@pytest.mark.parametrize("bad", ["head_dim_12", "head_dim_512", "float64", "mask_shape", "mask_int",
+                                 "q_strided", "gqa_ratio"])
+def test_head_major_limits_raise_and_are_excluded_by_the_predicate(bad, monkeypatch):
+    """What the kernel cannot take: the wrapper raises (on the CPU too), and
+    _use_flash routes it to the reference even on a CUDA tensor (faked here:
+    the predicate reads only shapes, dtypes, strides and is_cuda)."""
+    q, k, mask = _llama_site()
+    v = k
+    if bad == "head_dim_12":
+        q, k, mask = _llama_site(d=12)
+        v = k
+    elif bad == "head_dim_512":
+        q, k, mask = _llama_site(d=512)
+        v = k
+    elif bad == "float64":
+        q, k, mask = _llama_site(dtype=torch.float64)
+        v = k
+    elif bad == "mask_shape":
+        mask = torch.empty(1, 1, 1024, 512, device="meta", dtype=torch.bfloat16)
+    elif bad == "mask_int":
+        mask = torch.empty(1, 1, 1024, 1024, device="meta", dtype=torch.int32)
+    elif bad == "q_strided":
+        q = torch.empty(1, 32, 1024, 128, device="meta", dtype=torch.bfloat16)[..., ::2]
+    else:
+        k = torch.empty(1, 5, 1024, 64, device="meta", dtype=torch.bfloat16)
+        v = k
+    assert head_major_problem(q, k, v, mask) is not None
+    with pytest.raises(ValueError):
+        flash_attention(q, k, v, mask=mask)
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    assert not _use_flash(None, q, k, v, mask)
+
+
+@pytest.mark.parametrize("site,want", [
+    ("prefill_1024", True), ("prefill_512", True), ("continuation_128x1024", True),
+    ("decode_1x1024", False), ("prefill_256", False), ("flash_off", False)])
+def test_use_flash_gates_follow_the_jax_predicate(site, want, monkeypatch):
+    """KV >= 512 and scores >= 8 MB, as ops/attention.py of the JAX package,
+    at the TinyLlama sites (32 heads, d = 64, a (1, 1, L, T) mask)."""
+    L, T = {"prefill_1024": (1024, 1024), "prefill_512": (512, 512), "continuation_128x1024": (128, 1024),
+            "decode_1x1024": (1, 1024), "prefill_256": (256, 256), "flash_off": (1024, 1024)}[site]
+    q, k, mask = _llama_site(L, T)
+    cfg = SessionConfig(device=torch.device("cpu"), use_flash_attention=site != "flash_off")
+    assert not _use_flash(cfg, q, k, k, mask)  # meta tensors: never the kernel
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    assert _use_flash(cfg, q, k, k, mask) is want
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+def test_head_major_kernel_matches_twin_on_card(dtype, tol):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for case in HM_CASES:
+        q, k, v, mask, causal, kt = (torch.from_numpy(x).cuda().to(dtype) if isinstance(x, np.ndarray) else x
+                                     for x in _mk_hm(case))
+        out = flash_attention(q, k, v, mask=mask, k_transposed=kt, causal=causal)
+        torch.cuda.synchronize()
+        ref = flash_attention_reference(q, k, v, mask=mask, k_transposed=kt, causal=causal)
+        torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)

@@ -1,0 +1,316 @@
+"""The TinyLlama chat slice: the port's LLM modules against the JAX package.
+
+On LLAMA_TINY with the same seeded weights and buckets [8, 16, 32], both
+pipelines run on the CPU: greedy tokens must be equal; prefill and decode
+logits agree within 1e-4 * max|logits| in float32 and 5e-2 * max|logits| in
+bfloat16 (the two frameworks round bf16 at different points). The builder,
+tokenizer and HF converter copies must give the JAX package's output exactly.
+"""
+
+import dataclasses
+import types
+
+import numpy as np
+import pytest
+import torch
+
+from onnxstream_tpu.cli.llm_main import main as jax_cli
+from onnxstream_tpu.models.llm import llama as jax_llama
+from onnxstream_tpu.models.llm.hf import config_from_hf as jax_config_from_hf
+from onnxstream_tpu.models.llm.hf import weights_from_hf_state_dict as jax_from_hf
+from onnxstream_tpu.models.llm.pipeline import LlamaPipeline as JaxPipeline
+from onnxstream_tpu.models.llm.tokenizer import SentencePieceBPE as JaxBPE
+from onnxstream_tpu.models.llm.tokenizer import chat_template as jax_chat_template
+from onnxstream_tpu.runtime.config import SessionConfig as JaxConfig
+from onnxstream_tpu.runtime.session import Session as JaxSession
+from onnxstream_tpu.runtime.weights import DictWeightsProvider as JaxDict
+from onnxstream_tpu_torch import Session, SessionConfig
+from onnxstream_tpu_torch.cli.llm_main import main as port_cli
+from onnxstream_tpu_torch.models.llm import llama
+from onnxstream_tpu_torch.models.llm.hf import config_from_hf, weights_from_hf_state_dict
+from onnxstream_tpu_torch.models.llm.llama import LLAMA_TINY, TINYLLAMA, build_llama
+from onnxstream_tpu_torch.models.llm.pipeline import LlamaPipeline
+from onnxstream_tpu_torch.models.llm.tokenizer import SentencePieceBPE, chat_template
+from onnxstream_tpu_torch.runtime.weights import DictWeightsProvider, params_from_numpy
+
+CPU = torch.device("cpu")
+BUCKETS = [8, 16, 32]
+PROMPT = [3, 17, 99, 5]
+SEQ = [1, 5, 7, 9, 2, 3]
+
+
+def _port(dtype="float32", **kw):
+    return LlamaPipeline(LLAMA_TINY, compute_dtype=dtype, buckets=list(BUCKETS), device=CPU, **kw)
+
+
+def _logit_trace(pipe):
+    """Logits of a prefill (6 tokens, bucket 8), two decode steps (the second
+    crosses into bucket 16 with a continuation of 3 tokens, padded to 4)."""
+    pipe.reset()
+    out = [pipe.forward(SEQ)[1]]
+    out.append(pipe.forward([4])[1])
+    out.append(pipe.forward([8, 2, 7])[1])
+    out.append(pipe.forward([11])[1])
+    return out
+
+
+@pytest.fixture(scope="module")
+def jax_ref():
+    """Everything the port is compared with, from the JAX pipeline (one per
+    dtype, so each bucket graph compiles once)."""
+    ref = {}
+    j = JaxPipeline(jax_llama.LLAMA_TINY, buckets=list(BUCKETS))
+    ref["tokens"] = j.generate(PROMPT, max_new_tokens=8)
+    ref["logits_float32"] = _logit_trace(j)
+    j.reset()
+    ref["turn1"] = j.generate([3, 17], max_new_tokens=4)
+    ref["turn2"] = j.generate([5, 9], max_new_tokens=4)
+    ref["multiturn_cache_len"] = j.cache_len
+    j.reset()
+    ref["stopped"] = j.generate(PROMPT, max_new_tokens=8, stop_ids=[ref["tokens"][2]])
+    jb = JaxPipeline(jax_llama.LLAMA_TINY, compute_dtype="bfloat16", buckets=list(BUCKETS))
+    ref["logits_bfloat16"] = _logit_trace(jb)
+    return ref
+
+
+# ------------------------------------------------------------------ modules
+@pytest.mark.parametrize("name", ["TINYLLAMA", "MISTRAL", "LLAMA_TINY"])
+def test_configs_and_param_counts_match_jax(name):
+    cfg, jcfg = getattr(llama, name), getattr(jax_llama, name)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+    assert llama.param_count(cfg) == jax_llama.param_count(jcfg)
+
+
+@pytest.mark.parametrize("L,P", [(8, 0), (1, 16), (4, 16)])
+def test_build_llama_matches_jax_builder(L, P):
+    g = build_llama(LLAMA_TINY, new_len=L, past=P, seed=2)
+    jg = jax_llama.build_llama(jax_llama.LLAMA_TINY, new_len=L, past=P, seed=2)
+    assert g.to_text() == jg.to_text()
+    assert list(g.weights) == list(jg.weights)
+    for name, arr in jg.weights.items():
+        assert g.weights[name].dtype == arr.dtype
+        np.testing.assert_array_equal(g.weights[name], arr)
+
+
+def test_tokenizer_matches_jax():
+    tokens = [(0, "<unk>")] + [(0, bytes([b])) for b in range(256)] + [(-1, "hi"), (-2, "he"), (-3, "hel")]
+    special = ["<s>", "</s>", "[PAD]", "<|im_start|>", "<|im_end|>"]
+    tok, jtok = SentencePieceBPE(tokens, special), JaxBPE(tokens, special)
+    for text in ["hello hi", "<s>héllo ☃</s>", chat_template("hi there", True, True)]:
+        assert tok.encode(text) == jtok.encode(text)
+    for args in [("hi", True, False), ("hi", True, True), ("hi", False, False), ("hi", False, True)]:
+        assert chat_template(*args) == jax_chat_template(*args)
+
+
+def test_hf_converter_matches_jax():
+    cfg = LLAMA_TINY
+    rng = np.random.default_rng(0)
+    d, hd = cfg.dim, cfg.head_dim
+    shapes = {"model.embed_tokens.weight": (cfg.vocab_size, d), "model.norm.weight": (d,)}
+    for i in range(cfg.layers):
+        p = f"model.layers.{i}."
+        shapes.update({p + "self_attn.q_proj.weight": (cfg.heads * hd, d),
+                       p + "self_attn.k_proj.weight": (cfg.kv_heads * hd, d),
+                       p + "self_attn.v_proj.weight": (cfg.kv_heads * hd, d),
+                       p + "self_attn.o_proj.weight": (d, cfg.heads * hd),
+                       p + "mlp.gate_proj.weight": (cfg.intermediate, d),
+                       p + "mlp.up_proj.weight": (cfg.intermediate, d),
+                       p + "mlp.down_proj.weight": (d, cfg.intermediate),
+                       p + "input_layernorm.weight": (d,), p + "post_attention_layernorm.weight": (d,)})
+    sd = {k: torch.from_numpy(rng.standard_normal(s, dtype=np.float32)) for k, s in shapes.items()}
+    got, want = weights_from_hf_state_dict(sd, cfg), jax_from_hf(sd, jax_llama.LLAMA_TINY)
+    assert sorted(got) == sorted(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k])
+    hf = types.SimpleNamespace(vocab_size=100, hidden_size=64, num_hidden_layers=2, num_attention_heads=4,
+                               num_key_value_heads=2, intermediate_size=128, max_position_embeddings=256,
+                               rope_theta=500000.0, rms_norm_eps=1e-6)
+    assert dataclasses.asdict(config_from_hf(hf)) == dataclasses.asdict(jax_config_from_hf(hf))
+
+
+@pytest.mark.parametrize("L,P", [(16, 0), (1, 64)])
+def test_tinyllama_attention_all_fuse(L, P):
+    """use_scaled_dp_attn_op turns all 22 TinyLlama attentions into
+    ostpu.sdpa: head-major (no heads attr, since masked attention is not
+    packed), the K transpose peeled (k_transposed 0), the (1, 1, L, T) mask as
+    the 4th input, and the GQA expand left in the graph (32 heads reach the
+    kernel). The big weights stay lazy: fusion reads only scalars."""
+    g = build_llama(TINYLLAMA, new_len=L, past=P, lazy_weights=True)
+    small = {n: a for n, a in g.weights.items() if isinstance(a, np.ndarray)}
+    s = Session(LlamaPipeline(TINYLLAMA, device=CPU)._session_config(),
+                weights_provider=DictWeightsProvider(params_from_numpy(small)))
+    s.read_string(g.to_text())
+    sdpa = [op for op in s.graph.ops if op.op_type == "ostpu.sdpa"]
+    assert len(sdpa) == TINYLLAMA.layers == 22
+    assert not any(op.op_type == "Softmax" for op in s.graph.ops)
+    T = P or L
+    for op in sdpa:
+        assert op.attr_int("k_transposed", -1) == 0 and op.attr_int("heads", 0) == 0
+        assert len(op.inputs) == 4 and op.inputs[3].shape == (1, 1, L, T)
+        assert op.inputs[1].shape == (1, TINYLLAMA.heads, T, TINYLLAMA.head_dim)
+
+
+# ----------------------------------------------------------------- pipeline
+def test_greedy_tokens_match_jax(jax_ref):
+    """8 new tokens from a 4-token prompt: the cache crosses from bucket 8
+    into bucket 16 on the way (JAX tests/test_llm.py:64-85)."""
+    p = _port()
+    assert p.generate(PROMPT, max_new_tokens=8) == jax_ref["tokens"]
+    assert p.cache_len == len(PROMPT) + 8
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_prefill_and_decode_logits_match_jax(jax_ref, dtype):
+    got, want = _logit_trace(_port(dtype)), jax_ref[f"logits_{dtype}"]
+    bound = 1e-4 if dtype == "float32" else 5e-2
+    for g, w in zip(got, want):
+        assert g.shape == w.shape == (LLAMA_TINY.vocab_size,)
+        err = float(np.abs(g - w).max())
+        assert err <= bound * float(np.abs(w).max()), (dtype, err, float(np.abs(w).max()))
+
+
+def test_generate_on_device_equals_generate(jax_ref):
+    p = _port()
+    assert p.generate_on_device(PROMPT, max_new_tokens=8) == jax_ref["tokens"]
+    # the decode chunk runs on past the request; cache_len rewinds to the kept tokens
+    assert p.cache_len == len(PROMPT) + 8
+
+
+def test_generate_on_device_stop_token_matches_jax(jax_ref):
+    stop = jax_ref["tokens"][2]
+    assert _port().generate_on_device(PROMPT, max_new_tokens=8, stop_ids=[stop]) == jax_ref["stopped"]
+    assert _port().generate(PROMPT, max_new_tokens=8, stop_ids=[stop]) == jax_ref["stopped"]
+
+
+def test_multiturn_on_device_matches_jax_host_loop(jax_ref):
+    """After an on-device turn the KV cache holds exactly the returned
+    tokens, so turn 2 matches the host loop (JAX tests/test_llm.py:154-171)."""
+    p = _port()
+    assert p.generate_on_device([3, 17], max_new_tokens=4) == jax_ref["turn1"]
+    assert p.generate_on_device([5, 9], max_new_tokens=4) == jax_ref["turn2"]
+    assert p.cache_len == jax_ref["multiturn_cache_len"]
+
+
+def test_one_executor_per_bucket():
+    """Decode inputs fed back as device tensors (int64 ids from the in-graph
+    argmax, the device position counter) hit the executor that the host
+    loop's numpy inputs planned: cache_len is never pinned."""
+    p = _port()
+    p.forward(PROMPT)
+    p.decode_on_device(7, 8)
+    p.forward([9])
+    p.decode_on_device(3, 2)
+    assert sorted(p._sessions) == [(1, 16), (8, 0)]
+    for key, s in p._sessions.items():
+        assert len(s._executors) == 1, key
+        ex = next(iter(s._executors.values()))
+        assert not ex.plan.pinned_inputs
+    assert p.cache_len == len(PROMPT) + 8 + 1 + 2
+
+
+def test_device_weights_uploaded_once_across_sessions():
+    """The prefill and decode sessions share one device copy of every weight
+    of at least executor.SHARED_CACHE_MIN_BYTES (1 MiB): here the embedding and the LM
+    head, at vocab 4096 x dim 64 in float32."""
+    cfg = dataclasses.replace(LLAMA_TINY, vocab_size=4096)
+    p = LlamaPipeline(cfg, buckets=list(BUCKETS), device=CPU)
+    p.forward(PROMPT)
+    p.decode_on_device(7, 8)
+    assert len(p._sessions) == 2
+    assert sorted(k[0] for k in p._shared_dev_weights) == ["lm_head.weight.bin",
+                                                            "model.embed_tokens.weight.bin"]
+    per_session = [next(iter(s._executors.values())).device_weights() for s in p._sessions.values()]
+    ptrs = [{t.data_ptr() for t in ws if t.numel() * t.element_size() >= 1 << 20} for ws in per_session]
+    assert len(ptrs[0]) == 2 and ptrs[0] == ptrs[1]
+    big = 2 * 4096 * 64 * 4
+    counted_per_session = sum(sum(t.numel() * t.element_size() for t in ws) for ws in per_session)
+    # (on the CPU a float32 upload may alias the host tensor, which the
+    # per-pointer count also merges)
+    assert big <= p.device_weight_bytes() <= counted_per_session - big
+
+
+@pytest.mark.parametrize("option", ["int8_weights", "synthetic_on_device", "mesh", "device"])
+def test_unported_options_raise(option):
+    if option == "device":
+        with pytest.raises(ValueError, match="device"):
+            LlamaPipeline(LLAMA_TINY)
+        return
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        LlamaPipeline(LLAMA_TINY, device=CPU, **{option: object() if option == "mesh" else True})
+
+
+def test_out_of_vocab_ids_raise_before_reaching_the_device():
+    p = _port()
+    with pytest.raises(ValueError, match="outside the vocab"):
+        p.forward([3, LLAMA_TINY.vocab_size])
+    assert p.kv is None and p.cache_len == 0
+
+
+def test_device_outputs_stay_tensors_in_the_compute_dtype():
+    p = _port("bfloat16")
+    s = p._session(8, 0)
+    s.add_tensor("input_5F_ids", np.arange(8, dtype=np.int64)[None])
+    s.add_tensor("position_5F_ids", np.arange(8, dtype=np.int64)[None])
+    s.add_tensor("last_5F_pos", np.array([7], np.int64))
+    dev = s.run(device_outputs=True)
+    host = s.run()
+    assert dev["logits"].dtype == torch.bfloat16 and dev["next_token"].dtype == torch.int32
+    assert host["logits"].dtype == np.float32 and host["next_token"].dtype == np.int64
+    np.testing.assert_array_equal(dev["logits"].float().numpy(), host["logits"])
+    assert len(s._executors) == 1
+
+
+def test_requires_upcast_matches_jax():
+    """An op named for upcasting runs in float32 and casts back, in both
+    packages (here a bf16 RMSNorm-style Pow + ReduceMean chain)."""
+    from onnxstream_tpu_torch.convert.builder import GraphBuilder
+
+    g = GraphBuilder()
+    x_in = g.input("x", (2, 8))
+    sq = g.binary("Pow", x_in, g.scalar(2.0, name="two"), name="n.input_layernorm/pow")
+    g.emit("ReduceMean", [sq], [(2, 1)], {"axes": "-1", "keepdims": 1}, name="n.input_layernorm/mean",
+           out_names=["m"])
+    text, two = g.to_text(), g.weights
+    x = np.random.default_rng(0).standard_normal((2, 8), dtype=np.float32) * 3
+    upcast = lambda t, n: "input_layernorm" in n  # noqa: E731
+    js = JaxSession(JaxConfig(compute_dtype="bfloat16", requires_upcast=upcast), weights_provider=JaxDict(two))
+    ps = Session(SessionConfig(compute_dtype="bfloat16", requires_upcast=upcast, device=CPU),
+                 weights_provider=DictWeightsProvider(params_from_numpy(two)))
+    for s in (js, ps):
+        s.read_string(text)
+        s.add_tensor("x", x)
+    np.testing.assert_allclose(ps.run()["m"], js.run()["m"], rtol=1e-2, atol=1e-2)
+
+
+def test_cli_synthetic_tiny_prints_what_the_jax_cli_prints(capsys):
+    argv = ["--synthetic", "tiny", "--prompt", "hello", "--max-new-tokens", "6"]
+    assert jax_cli(argv + ["--device", "cpu"]) == 0
+    want = capsys.readouterr().out
+    assert port_cli(argv + ["--device", "cpu"]) == 0
+    got = capsys.readouterr().out
+    assert "done!" in got and got == want
+
+
+def test_requires_upcast_is_asked_once_per_op_not_per_run():
+    calls = []
+
+    def upcast(op_type, op_name):
+        calls.append(op_name)
+        return "input_layernorm" in op_name
+
+    p = LlamaPipeline(LLAMA_TINY, buckets=[8, 16, 32], device=CPU)
+    p._session_config = lambda: SessionConfig(requires_upcast=upcast, device=CPU)
+    s = p._session(8, 0)
+    for _ in range(3):
+        s.add_tensor("input_5F_ids", np.arange(8, dtype=np.int64)[None])
+        s.add_tensor("position_5F_ids", np.arange(8, dtype=np.int64)[None])
+        s.add_tensor("last_5F_pos", np.array([7], np.int64))
+        s.run()
+    assert len(s._executors) == 1
+    assert len(calls) == len(s.graph.ops) and any("input_layernorm" in n for n in calls)
+
+
+@pytest.mark.parametrize("source", [["--synthetic", "tiny"], ["--hf-path", "no-such-checkpoint"]])
+def test_cli_refuses_download_whatever_the_source(source):
+    with pytest.raises(NotImplementedError, match="--download"):
+        port_cli(source + ["--download", "--device", "cpu", "--prompt", "hi"])

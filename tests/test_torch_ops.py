@@ -82,6 +82,24 @@ def _cases():
         [(1, 2, 8, 8)],
         {"coordinate_transformation_mode": "asymmetric", "mode": "nearest", "nearest_mode": "floor"},
         order=["x", "", "scales"])
+    # the op types the llama graphs add (models/llm/llama.py)
+    c["Less"] = _case("Less", {"a": x}, {"w": _rand(4, seed=20)}, [(2, 3, 4)])
+    c["Neg"] = _case("Neg", {"a": x}, {}, [(2, 3, 4)])
+    c["Identity"] = _case("Identity", {"a": x}, {}, [(2, 3, 4)])
+    c["Expand"] = _case("Expand", {"a": _rand(3, 1, seed=21)}, {"shape": np.array([2, 1, 4], np.int64)},
+                        [(2, 3, 4)])
+    # int64 ids (one negative) into a float table, as the embedding and rope lookups
+    c["Gather"] = _case("Gather", {"ids": np.array([[0, 9, 3], [-1, 2, 2]], np.int64)},
+                        {"table": _rand(10, 4, seed=22)}, [(2, 3, 4)], {"axis": 0},
+                        order=["table", "ids"])
+    c["Where"] = _case("Where", {"c": _rng(23).random((2, 3, 4)) > 0.5, "a": x},
+                       {"w": np.full(1, -1e9, np.float32)}, [(2, 3, 4)])
+    # KV-cache write: depth-2 int64 indices (head, position) into (heads, P, hd)
+    c["ScatterND"] = _case(
+        "ScatterND", {"data": _rand(4, 5, 3, seed=24), "idx": np.array([[0, 1], [3, 4], [2, 0]], np.int64),
+                      "upd": _rand(3, 3, seed=25)}, {}, [(4, 5, 3)])
+    # ties (rounded values): the first maximum wins, as jnp.argmax
+    c["ArgMax"] = _case("ArgMax", {"a": np.round(x)}, {}, [(2, 3)], {"axis": -1, "keepdims": 0})
     h, d = 2, 8
     c["ostpu.sdpa"] = _case(
         "ostpu.sdpa", {"q": _rand(1, 16, h * d, seed=15), "k": _rand(1, 12, h * d, seed=16),
