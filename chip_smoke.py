@@ -1,25 +1,37 @@
-"""Drive the PyTorch/CUDA port's main path once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's main paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero and prints no result line):
   1. device: require CUDA; print the card, its power limit, the CUDA and nvcc
      versions and the precision flags in effect;
-  2. build: compile the flash-attention kernels from the checkout's source;
-  3. kernel vs twin: both wrappers of the CUDA kernel against their plain
-     PyTorch twins, fp32 (TF32 off) and bf16: the packed form at the two
-     SD1.5 site shapes and at GQA / causal edge cases, the head-major form at
-     the three TinyLlama prefill sites (1024 x 1024, 128 x 1024, 512 x 512)
-     and at every mask group, k_transposed, GQA,
-     causal M > N (exactly 0) and D = 128 / 256; with the kernels' and twins'
-     times at the SD1.5 and TinyLlama sites;
+  2. build: compile every kernel source of the checkout (flash_attention.cu,
+     qmatmul.cu), one nvcc each, all started together;
+  3. kernel vs twin: every wrapper of a CUDA kernel against its plain PyTorch
+     twin, fp32 (TF32 off) and bf16:
+       - flash_attention_packed at the two SD1.5 site shapes and at GQA /
+         causal edge cases; flash_attention at the three TinyLlama prefill
+         sites (1024 x 1024, 128 x 1024, 512 x 512) and at every mask group,
+         k_transposed, GQA, causal M > N (exactly 0) and D = 128 / 256;
+       - w8a8_dyn_matmul at every TinyLlama MatMul shape (M 1 / 128 / 512 /
+         1024) and w8_matmul at ragged shapes, per-tensor and per-channel;
+     with each kernel's time beside its twin's, its bound and one PyTorch
+     call computing the same function where there is one
+     (scaled_dot_product_attention, torch._int_mm, a bf16 matmul);
   4. SD slice: the SD1.5 UNet at full width (random weights from seed 0) in
      bf16 through the port's Session answers three requests; each must be
      finite, (1, 4, 64, 64), and launch the packed kernel exactly 10 times;
      the first request is rerun with the flash kernel off and must agree; the
      TINY UNet in fp32 on the card must agree with the same graph run on the
      CPU;
-  5. LLM slice: LLAMA_TINY in fp32 on the card against the CPU (tokens equal,
+  5. SD slice, uint8 weights: the same UNet through the port's
+     quantize_graph_weights (per-tensor uint8[scale,zp], the converter's
+     exclusions): TINY in fp32 on the card against the CPU, then SD1.5 in
+     bf16 answers the three requests with w8_matmul on every MatMul whose
+     weight is 2-D uint8 and 10 packed flash launches each, the first
+     w8_matmul launch of each held against the twin on the graph's operands;
+     w8_matmul against its twin at every shape the graph gave it;
+  6. LLM slice: LLAMA_TINY in fp32 on the card against the CPU (tokens equal,
      logits within 1e-4 * max), then TinyLlama 1.1B at full width (random
      weights from seed 0) in bf16 through LlamaPipeline answers three chat
      requests (a 700-token prompt, a 100-token follow-up, a 300-token prompt
@@ -29,25 +41,48 @@ Phases (any failure exits non-zero and prints no result line):
      held against the twin on the operands the graph passed it (bf16,
      rtol = atol = 2e-2); flash on and off agree on the
      prompt's last logits; on-device decode equals the host loop; prefill and
-     decode times, peak memory and weight bytes are printed.
+     decode times, peak memory and weight bytes are printed;
+  7. LLM slice, int8 weights: LLAMA_TINY int8 in fp32 on the card against the
+     CPU (tokens equal, logits within 1e-3 * max), then TinyLlama with
+     int8_weights=True on the same host weights answers the same three
+     requests with w8a8_dyn_matmul on all 155 weight MatMuls of every graph
+     run and 22 flash_attention launches per request, the first
+     w8a8_dyn_matmul launch of each held against the twin on the graph's
+     operands; int8 against bf16 last logits (nrms < 0.15 on TinyLlama cut
+     to the 2 layers the bound was set on; printed at full depth, beside both
+     against the float32 model); on-device decode
+     equals the host loop; host syncs do not grow with the tokens; prefill,
+     decode, device busy time, peak memory, device weight bytes and the host
+     quantization time are printed.
 
-The second-to-last line is {"kernels": [...]}, the last line
+Each path's launch counts are set to 0 just before it and read just after;
+launches made to compare a kernel with its twin come after the read. The
+second-to-last line is {"kernels": [...]}, the last line
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import gc
 import json
 import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 SD15_SITES = [(4096, 40), (1024, 80)]  # (tokens, head dim) of the flash sites, 8 heads, 5 each
+KERNEL_SOURCES = {"flash_attention": "flash_attention_packed, flash_attention",
+                  "qmatmul": "w8a8_dyn_matmul, w8_matmul"}
+# NVIDIA H100 SXM, dense rates (NVIDIA's data sheet), for the bounds
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 
 
 def card() -> str:
@@ -56,17 +91,51 @@ def card() -> str:
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+def _device_rows(prof, steps: int):
+    """(ms per step, launches per step, name) of every kernel and copy in a
+    profile: device events only, since the CPU ops that launched them would
+    count their time a second time."""
+    rows = []
+    for e in prof.key_averages():
+        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+            continue
+        us = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+        if us > 0:
+            rows.append((us / 1e3 / steps, e.count // steps, e.key))
+    return rows
+
+
+def device_ms(fn, iters: int = 10, warmup: int = 2) -> float:
+    """Device time of one call of fn: the summed durations of the kernels
+    and copies it launches, from torch.profiler over `iters` calls. Host gaps
+    between launches are left out, so a small kernel is not timed at the
+    rate at which the host can enqueue it."""
+    from torch.profiler import ProfilerActivity, profile
+
     for _ in range(warmup):
         fn()
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    e0.record()
-    for _ in range(iters):
-        fn()
-    e1.record()
     torch.cuda.synchronize()
-    return e0.elapsed_time(e1) / iters
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    ms = sum(r[0] for r in _device_rows(prof, iters))
+    if not ms > 0:
+        raise SystemExit("the profiler recorded no device time")
+    return ms
+
+
+def bound(nbytes: float, ops: float, peak: str) -> dict:
+    """The least time the card could take for the work: the bytes it must
+    move over the memory rate, or its operations over the peak rate of
+    their type, whichever is larger."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[peak] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if isinstance(t, torch.Tensor))
 
 
 def phase_device() -> str:
@@ -91,11 +160,20 @@ def phase_build():
     from onnxstream_tpu_torch.kernels import build
 
     t0 = time.perf_counter()
-    path = build.build("flash_attention")
-    print(f"build: flash_attention.cu (flash_attention_packed, flash_attention) in "
-          f"{time.perf_counter() - t0:.1f} s -> {path}")
-    print("\n".join(l for l in (path.parent / "build.log").read_text().splitlines()
-                    if "registers" in l or "spill" in l))
+    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+        paths = dict(zip(KERNEL_SOURCES, pool.map(build.build, KERNEL_SOURCES)))
+    print(f"build: {len(paths)} sources in parallel in {time.perf_counter() - t0:.1f} s")
+    for src, path in paths.items():
+        print(f"  {src}.cu ({KERNEL_SOURCES[src]}) -> {path}")
+        print("\n".join(l for l in (path.parent / "build.log").read_text().splitlines()
+                        if "registers" in l or "spill" in l))
+
+
+def _sdpa_packed(q, k, v, heads):
+    """scaled_dot_product_attention on the packed (B, L, H*D) layout, as views."""
+    b, d = q.shape[0], q.shape[-1] // heads
+    split = lambda t: t.view(b, t.shape[1], heads, d).transpose(1, 2)
+    return F.scaled_dot_product_attention(split(q), split(k), split(v))
 
 
 def phase_kernel(name: str) -> dict:
@@ -134,28 +212,37 @@ def phase_kernel(name: str) -> dict:
                 zero_rows = out[:, : m - n]
                 if zero_rows.abs().max().item() != 0.0:
                     raise SystemExit(f"{label}: rows with no valid key are not exactly 0")
-    times = {}
+    times, nbytes, ops = {}, 0, 0
     for m, d in SD15_SITES:
         q = torch.randn(1, m, 8 * d, device="cuda", generator=gen, dtype=torch.bfloat16)
         k = torch.randn(1, m, 8 * d, device="cuda", generator=gen, dtype=torch.bfloat16)
         v = torch.randn(1, m, 8 * d, device="cuda", generator=gen, dtype=torch.bfloat16)
-        t_k = cuda_ms(lambda: flash_attention_packed(q, k, v, 8))
-        t_p = cuda_ms(lambda: flash_attention_packed_reference(q, k, v, 8))
-        times[f"{m}x{d}"] = (t_k, t_p)
-        print(f"time bf16 (1, {m}, {8 * d}) h8 d{d}: kernel {t_k:.4f} ms, twin {t_p:.4f} ms  [{name}]")
-    per_step = [sum(5 * t[i] for t in times.values()) for i in (0, 1)]
+        t_k = device_ms(lambda: flash_attention_packed(q, k, v, 8))
+        t_p = device_ms(lambda: flash_attention_packed_reference(q, k, v, 8))
+        t_l = device_ms(lambda: _sdpa_packed(q, k, v, 8))
+        # per step: 5 sites of each shape; q, k, v read and o written once,
+        # QK^T and PV at 2 operations per multiply-add
+        site = bound(4 * _nbytes(q), 4 * m * m * 8 * d, "bf16")
+        nbytes += 5 * 4 * _nbytes(q)
+        ops += 5 * 4 * m * m * 8 * d
+        times[f"{m}x{d}"] = (t_k, t_p, t_l)
+        print(f"time bf16 (1, {m}, {8 * d}) h8 d{d}: kernel {t_k:.4f} ms, twin {t_p:.4f} ms, "
+              f"scaled_dot_product_attention {t_l:.4f} ms, bound {site['bound_ms']:.4f} ms "
+              f"({site['bound_by']})  [{name}]")
+    per_step = [sum(5 * t[i] for t in times.values()) for i in (0, 1, 2)]
     return {"max_abs_err": worst_bf16, "ms": per_step[0], "plain_ms": per_step[1],
-            "ms_by_shape": {k: {"ms": v[0], "plain_ms": v[1]} for k, v in times.items()}}
+            **bound(nbytes, ops, "bf16"), "library_ms": per_step[2],
+            "ms_by_shape": {k: {"ms": v[0], "plain_ms": v[1], "library_ms": v[2]} for k, v in times.items()}}
 
 
-def _session(g, compute_dtype: str, device: str):
+def _session(text: str, weights, compute_dtype: str, device: str):
     from onnxstream_tpu_torch import Session, SessionConfig
     from onnxstream_tpu_torch.runtime.weights import DictWeightsProvider, params_from_numpy
 
     cfg = SessionConfig(compute_dtype=compute_dtype, device=torch.device(device),
                         fuse_attention_heads=True)
-    s = Session(cfg, weights_provider=DictWeightsProvider(params_from_numpy(g.weights)))
-    s.read_string(g.to_text())
+    s = Session(cfg, weights_provider=DictWeightsProvider(params_from_numpy(weights)))
+    s.read_string(text)
     return s
 
 
@@ -182,15 +269,7 @@ def profile_steps(step, name: str, label: str, steps: int = 2) -> None:
             step()
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    rows = []
-    for e in prof.key_averages():
-        # kernel and copy events carry the device time; the CPU ops that
-        # launched them would count it a second time
-        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
-            continue
-        us = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
-        if us > 0:
-            rows.append((us / 1e3 / steps, e.count // steps, e.key))
+    rows = _device_rows(prof, steps)
     dev_ms = sum(r[0] for r in rows)
     if not rows:
         print("profile: the profiler recorded no device time (not measured)")
@@ -201,30 +280,33 @@ def profile_steps(step, name: str, label: str, steps: int = 2) -> None:
         print(f"  {ms:8.3f} ms/step  {n:5d}x  {key[:90]}")
 
 
-def phase_slice(name: str) -> int:
+def _tiny_unet_card_vs_cpu(label: str, text: str, weights, req) -> None:
+    outs = []
+    for dev in ("cuda:0", "cpu"):
+        s = _session(text, weights, "float32", dev)
+        for k, v in req.items():
+            s.add_tensor(k, v)
+        outs.append(s.run()["out_sample"])
+    dev_err = float(np.abs(outs[0] - outs[1]).max())
+    bound_ = 1e-4 * float(np.abs(outs[1]).max())
+    print(f"{label} fp32 card vs CPU: max|diff| {dev_err:.3e} (bound {bound_:.3e})")
+    if not dev_err <= bound_:
+        raise SystemExit(f"{label} on the card disagrees with the CPU run")
+
+
+def phase_slice(name: str) -> dict:
     from onnxstream_tpu_torch.kernels.flash_attention import flash_attention_packed
     from onnxstream_tpu_torch.models.sd.unet import SD15, TINY, build_unet, param_count
 
     # small input first: the op library on the card against the CPU
     gt = build_unet(TINY)
-    req = _requests(TINY, 1)[1]
-    outs = []
-    for dev in ("cuda:0", "cpu"):
-        s = _session(gt, "float32", dev)
-        for k, v in req.items():
-            s.add_tensor(k, v)
-        outs.append(s.run()["out_sample"])
-    dev_err = float(np.abs(outs[0] - outs[1]).max())
-    bound = 1e-4 * float(np.abs(outs[1]).max())
-    print(f"TINY UNet fp32 card vs CPU: max|diff| {dev_err:.3e} (bound {bound:.3e})")
-    if not dev_err <= bound:
-        raise SystemExit("TINY UNet on the card disagrees with the CPU run")
+    _tiny_unet_card_vs_cpu("TINY UNet", gt.to_text(), gt.weights, _requests(TINY, 1)[1])
 
     t0 = time.perf_counter()
     g = build_unet(SD15, seed=0)
     print(f"SD15 UNet: {param_count(g) / 1e6:.1f} M params, built in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    s = _session(g, "bfloat16", "cuda:0")
+    s = _session(g.to_text(), g.weights, "bfloat16", "cuda:0")
     n_sdpa = sum(op.op_type == "ostpu.sdpa" for op in s.graph.ops)
     print(f"fused graph: {len(s.graph.ops)} ops, {n_sdpa} ostpu.sdpa sites")
     reqs = _requests(SD15, 0)
@@ -278,7 +360,7 @@ def phase_slice(name: str) -> int:
         s.run()
         t_off.append((time.perf_counter() - t1) * 1e3)
     print(f"SD15 UNet step bf16 with flash off: median {np.median(t_off):.2f} ms over 3 runs [{name}]")
-    return launches
+    return {"launches": launches, "graph": g, "out0": results[0]}
 
 
 TINYLLAMA_SITE = (1024, 64)  # prefill bucket and head dim of the head-major sites: 32 heads, 22 per run
@@ -354,11 +436,302 @@ def phase_kernel_head_major(name: str) -> dict:
                 raise SystemExit(f"{label}: rows with no valid key are not exactly 0")
     q, k, v, mask = (None if t is None else t.to(torch.bfloat16)
                      for t in _hm_inputs(gen, 1, 32, 32, L, L, D, "causal", False, None))
-    t_k = cuda_ms(lambda: flash_attention(q, k, v, mask=mask))
-    t_p = cuda_ms(lambda: flash_attention_reference(q, k, v, mask=mask))
+    t_k = device_ms(lambda: flash_attention(q, k, v, mask=mask))
+    t_p = device_ms(lambda: flash_attention_reference(q, k, v, mask=mask))
+    t_l = device_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask))
+    b = bound(_nbytes(q, k, v, q, mask), 4 * 32 * L * L * D, "bf16")
     print(f"time bf16 (1, 32, {L}, {D}) with a (1, 1, {L}, {L}) bf16 mask: kernel {t_k:.4f} ms, "
-          f"twin {t_p:.4f} ms  [{name}]")
-    return {"max_abs_err": site_err, "ms": t_k, "plain_ms": t_p}
+          f"twin {t_p:.4f} ms, scaled_dot_product_attention {t_l:.4f} ms, bound {b['bound_ms']:.4f} ms "
+          f"({b['bound_by']})  [{name}]")
+    return {"max_abs_err": site_err, "ms": t_k, "plain_ms": t_p, **b, "library_ms": t_l}
+
+
+# ------------------------------------------------------ the quantized matmuls
+# (K, N) of the TinyLlama weight MatMuls: q / o, k / v, gate / up, down, LM head
+LLAMA_KN = [(2048, 2048), (2048, 256), (2048, 5632), (5632, 2048), (2048, 32003)]
+
+
+def _dyn_case(gen, m, k, n, dt, per_channel):
+    a = torch.randn(m, k, device="cuda", generator=gen).to(dt)
+    w = torch.randint(-127, 128, (k, n), device="cuda", generator=gen, dtype=torch.int8)
+    ws = torch.rand(n, device="cuda", generator=gen) * 0.02 + 1e-3 if per_channel else 0.013
+    return a, w, ws
+
+
+def _w8_case(gen, m, k, n, dt, per_channel):
+    a = torch.randn(m, k, device="cuda", generator=gen).to(dt)
+    w = torch.randint(0, 256, (k, n), device="cuda", generator=gen, dtype=torch.uint8)
+    if per_channel:
+        sw = torch.rand(n, device="cuda", generator=gen) * 0.02 + 1e-3
+        zw = torch.randint(0, 256, (n,), device="cuda", generator=gen).float()
+        return a, w, sw, zw
+    return a, w, 0.013, 117.0
+
+
+def _agree(out, ref, f32_rel: float, tol16: float):
+    """(ok, max|diff|): float32 within f32_rel of max|twin|; 16-bit outputs
+    elementwise within rtol = atol = tol16."""
+    err = (out.float() - ref.float()).abs().max().item()
+    if out.dtype == torch.float32:
+        return err <= f32_rel * ref.abs().max().item(), err
+    return torch.allclose(out.float(), ref.float(), rtol=tol16, atol=tol16), err
+
+
+def check_qkernel(label, kernel, twin, make, shapes, f32_rel: float, tol16: float) -> None:
+    """A quantized-matmul kernel against its twin at every (M, K, N), f32 and
+    bf16 activations, per-tensor and per-channel scales, random operands."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    for m, k, n in shapes:
+        for dt in (torch.float32, torch.bfloat16):
+            for per_channel in (False, True):
+                args = make(gen, m, k, n, dt, per_channel)
+                out = kernel(*args)
+                torch.cuda.synchronize()
+                ok, err = _agree(out, twin(*args), f32_rel, tol16)
+                print(f"{label} vs twin ({m}, {k}) x ({k}, {n}) {str(dt)[6:]} "
+                      f"{'per-channel' if per_channel else 'per-tensor'}: max|diff| {err:.3e} "
+                      f"(f32 rel {f32_rel:g}, bf16 rtol=atol={tol16:g}) {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise SystemExit(f"{label} disagrees with its twin at ({m}, {k}, {n}) {dt}")
+
+
+def _quantize_rows(a: torch.Tensor) -> torch.Tensor:
+    """A's per-row symmetric s8 form, as w8a8_dyn_matmul computes it."""
+    x = a.reshape(-1, a.shape[-1]).float()
+    sa = x.abs().amax(dim=1, keepdim=True).clamp_min(1e-12) * (1.0 / 127.0)
+    return torch.round(x / sa).clamp_(-127, 127).to(torch.int8)
+
+
+def _int_mm_or_none(aq: torch.Tensor, w: torch.Tensor):
+    """torch._int_mm on the quantized operands (the yardstick of
+    w8a8_dyn_matmul's integer product), or None where it refuses the shape."""
+    try:
+        torch._int_mm(aq, w)
+        torch.cuda.synchronize()
+    except RuntimeError:
+        return None
+    return lambda: torch._int_mm(aq, w)
+
+
+def phase_kernel_q(name: str) -> None:
+    from onnxstream_tpu_torch.kernels.qmatmul import (
+        w8_matmul, w8_matmul_reference, w8a8_dyn_matmul, w8a8_dyn_matmul_reference)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dyn_shapes = [(m, k, n) for m in (1, 128, 512, 1024) for k, n in LLAMA_KN]
+    # ragged edges: M = 77, K off the 64-deep tile, odd N, M on both sides of the GEMV limit
+    dyn_shapes += [(77, 2048, 32003), (5, 100, 300), (16, 2048, 256), (17, 100, 300), (33, 130, 33)]
+    check_qkernel("w8a8_dyn_matmul", w8a8_dyn_matmul, w8a8_dyn_matmul_reference, _dyn_case,
+                  dyn_shapes, 1e-5, 1e-2)
+    # the SD15 graph's own shapes are checked in its phase; here the ragged ones
+    w8_shapes = [(100, 130, 33), (77, 768, 320), (1, 320, 1280), (64, 2048, 32003), (17, 100, 300)]
+    check_qkernel("w8_matmul", w8_matmul, w8_matmul_reference, _w8_case, w8_shapes, 1e-4, 2e-2)
+
+    # times at the TinyLlama shapes, bf16 activations, per-channel scales as the route has them;
+    # the weight stays in L2 between launches here (the path's replays below read it cold)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for m in (1, 1024):
+        for k, n in LLAMA_KN:
+            a, w, ws = _dyn_case(gen, m, k, n, torch.bfloat16, True)
+            t_k = device_ms(lambda: w8a8_dyn_matmul(a, w, ws))
+            t_p = device_ms(lambda: w8a8_dyn_matmul_reference(a, w, ws), iters=3)
+            lib = _int_mm_or_none(_quantize_rows(a), w)
+            t_l = device_ms(lib) if lib else None
+            wb = w.to(torch.bfloat16)
+            t_b = device_ms(lambda: a @ wb)
+            b = bound(_nbytes(a, w, ws) + m * n * 2, 2 * m * k * n, "int8")
+            print(f"time w8a8_dyn_matmul bf16 ({m}, {k}) x ({k}, {n}): kernel {t_k:.4f} ms, twin {t_p:.4f} ms, "
+                  f"torch._int_mm " + (f"{t_l:.4f} ms" if t_l is not None else "none at this shape")
+                  + f", bf16 matmul on a bf16 weight {t_b:.4f} ms, bound {b['bound_ms']:.4f} ms "
+                  f"({b['bound_by']})  [{name}]")
+
+
+class _GraphSiteCheck:
+    """Stands in for a kernel wrapper that the port's code calls. After
+    arm(), the next call's kernel output is held against the twin on the very
+    operands the graph passed (with the strides the graph gave them). The
+    kernel's launch count is the wrapper's own; the twin launches nothing.
+    The twin's scratch is kept out of the device memory peak: ``peak`` is
+    the peak before each check, and the allocator's peak is reset after it.
+    While ``calls`` is a list, every call's operands are appended to it."""
+
+    def __init__(self, kernel, twin, tol: float, describe):
+        self.kernel, self.twin, self.tol, self.describe = kernel, twin, tol, describe
+        self.armed, self.result, self.peak, self.worst = False, None, 0, 0.0
+        self.calls = None
+
+    def arm(self):
+        self.armed, self.result = True, None
+
+    def __call__(self, *args, **kw):
+        out = self.kernel(*args, **kw)
+        if self.calls is not None:
+            self.calls.append((args, kw))
+        if self.armed:
+            self.armed = False
+            self.peak = max(self.peak, torch.cuda.max_memory_allocated())
+            ref = self.twin(*args, **kw)
+            err = (out.float() - ref.float()).abs().max().item()
+            ok = torch.allclose(out.float(), ref.float(), rtol=self.tol, atol=self.tol)
+            self.result = (ok, err, f"max|twin| {ref.float().abs().max().item():.4f}; "
+                           + self.describe(*args, **kw))
+            self.worst = max(self.worst, err)
+            del ref
+            torch.cuda.reset_peak_memory_stats()
+        return out
+
+    def check(self, label: str) -> None:
+        if self.result is None:
+            raise SystemExit(f"{label}: no call reached the graph-site check")
+        ok, err, about = self.result
+        print(f"  first launch vs twin on the graph's operands: max|diff| {err:.3e} "
+              f"(rtol=atol={self.tol}) {'ok' if ok else 'FAIL'}; {about}")
+        if not ok:
+            raise SystemExit(f"{label}: the kernel disagrees with its twin on the graph's operands")
+
+
+def _about_flash(q, k, v, mask=None, scale=None, k_transposed=False, causal=False) -> str:
+    return (f"q {tuple(q.shape)} strides {q.stride()}, k {tuple(k.shape)} strides {k.stride()} "
+            f"k_transposed={k_transposed}, v strides {v.stride()}, mask "
+            + ("none" if mask is None else f"{tuple(mask.shape)} {str(mask.dtype)[6:]} strides {mask.stride()}")
+            + f", causal={causal}")
+
+
+def _about_qmm(a, w, scale, *rest, **kw) -> str:
+    return (f"a {tuple(a.shape)} {str(a.dtype)[6:]} strides {a.stride()}, w {tuple(w.shape)} "
+            f"{str(w.dtype)[6:]}, scale {'(N,) vector' if isinstance(scale, torch.Tensor) else scale}"
+            + (f", zero point {'(N,) vector' if isinstance(rest[0], torch.Tensor) else rest[0]}" if rest else ""))
+
+
+def _qmm_cost(a, w, *scales, out_dtype=None):
+    """(bytes, operations) of one quantized matmul: A, W and the scale
+    vectors read once, the output written once; 2 M K N operations."""
+    m = a.numel() // a.shape[-1]
+    k, n = w.shape
+    out_elt = torch.empty(0, dtype=out_dtype or a.dtype).element_size()
+    return _nbytes(a, w, *scales) + m * n * out_elt, 2 * m * k * n
+
+
+def replay_times(label: str, calls, kernel, twin, library, peak: str, name: str) -> dict:
+    """The recorded calls of one graph run replayed in order: the kernel,
+    its twin and, where every call has one, the PyTorch yardstick (library
+    maps a call to a no-argument function or None). The weights are the
+    graph's resident ones, so they come from device memory as on the path."""
+    nbytes = ops = 0
+    for args, kw in calls:
+        b, o = _qmm_cost(*args, **kw)
+        nbytes, ops = nbytes + b, ops + o
+    run_all = lambda fn: [fn(*args, **kw) for args, kw in calls]
+    t_k = device_ms(lambda: run_all(kernel), iters=5)
+    t_p = device_ms(lambda: run_all(twin), iters=2, warmup=1)
+    libs = [library(*args, **kw) for args, kw in calls]
+    t_l = None
+    if all(libs):
+        t_l = device_ms(lambda: [f() for f in libs], iters=5)
+    b = bound(nbytes, ops, peak)
+    print(f"replay of {label}: {len(calls)} calls, kernel {t_k:.4f} ms, twin {t_p:.4f} ms, library "
+          + (f"{t_l:.4f} ms" if t_l is not None else f"none ({sum(map(bool, libs))} of {len(calls)} calls have one)")
+          + f", bound {b['bound_ms']:.4f} ms ({b['bound_by']}; {nbytes / 1e9:.4f} GB, {ops / 1e9:.2f} G ops) [{name}]")
+    return {"ms": t_k, "plain_ms": t_p, "library_ms": t_l, **b}
+
+
+def phase_sd_u8(name: str, sd: dict) -> dict:
+    import onnxstream_tpu_torch.runtime.executor as executor_mod
+    from onnxstream_tpu_torch.convert.quantize import quantize_graph_weights
+    from onnxstream_tpu_torch.dtypes import DType
+    from onnxstream_tpu_torch.kernels.flash_attention import flash_attention_packed
+    from onnxstream_tpu_torch.kernels.qmatmul import w8_matmul, w8_matmul_reference
+    from onnxstream_tpu_torch.models.sd.unet import SD15, TINY, build_unet
+
+    gt = build_unet(TINY)
+    text, weights = quantize_graph_weights(gt.to_text(), gt.weights)
+    _tiny_unet_card_vs_cpu("TINY UNet, uint8 weights,", text, weights, _requests(TINY, 1)[1])
+
+    g = sd["graph"]
+    t0 = time.perf_counter()
+    text, weights = quantize_graph_weights(g.to_text(), g.weights)
+    print(f"SD15 quantize_graph_weights on the host: {time.perf_counter() - t0:.1f} s, "
+          f"{sum(np.asarray(v).dtype == np.uint8 for v in weights.values())} uint8 weights")
+    del sd["graph"], g
+    s = _session(text, weights, "bfloat16", "cuda:0")
+    del weights
+    u8_mm = [op for op in s.graph.ops if op.op_type == "MatMul" and len(op.inputs) == 2
+             and op.inputs[1].dtype == DType.uint8 and len(op.inputs[1].shape) == 2]
+    print(f"fused uint8 graph: {len(s.graph.ops)} ops, {len(u8_mm)} MatMuls with a 2-D uint8 weight")
+    if not u8_mm:
+        raise SystemExit("the quantized SD15 graph has no uint8 MatMul weight")
+
+    reqs = _requests(SD15, 0)
+    site = _GraphSiteCheck(w8_matmul, w8_matmul_reference, 2e-2, _about_qmm)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    results = []
+    # the path: three requests; the counts are zeroed just before it
+    w8_matmul.launches = 0
+    flash_attention_packed.launches = 0
+    executor_mod.w8_matmul = site
+    try:
+        for i, req in enumerate(reqs):
+            for k, v in req.items():
+                s.add_tensor(k, v)
+            b5, b1 = w8_matmul.launches, flash_attention_packed.launches
+            site.arm()
+            t1 = time.perf_counter()
+            out = s.run()["out_sample"]
+            ms = (time.perf_counter() - t1) * 1e3
+            n5, n1 = w8_matmul.launches - b5, flash_attention_packed.launches - b1
+            results.append(out)
+            print(f"uint8 request {i} (t={req['timestep'][0]:g}): {out.shape} finite={np.isfinite(out).all()} "
+                  f"max|out|={np.abs(out).max():.4f} {ms:.1f} ms, w8_matmul launches {n5} (want {len(u8_mm)}), "
+                  f"flash_attention_packed launches {n1} (want 10)")
+            if out.shape != (1, 4, 64, 64) or not np.isfinite(out).all():
+                raise SystemExit(f"uint8 request {i}: bad output")
+            if n5 != len(u8_mm) or n1 != 10:
+                raise SystemExit(f"uint8 request {i}: {n5} w8_matmul / {n1} flash launches")
+            site.check(f"uint8 request {i}")
+    finally:
+        executor_mod.w8_matmul = w8_matmul
+    launches = w8_matmul.launches
+    peak = max(site.peak, torch.cuda.max_memory_allocated())
+    stats = s.hbm_stats()
+    if np.allclose(results[0], results[1]):
+        raise SystemExit("uint8 requests did not give distinct outputs")
+    diff = float(np.abs(results[0] - sd["out0"]).max())
+    ref = float(np.abs(sd["out0"]).max())
+    print(f"uint8 weights vs the float UNet (bf16), request 0: max|diff| {diff:.4e}, max|out| {ref:.4f}, "
+          f"ratio {diff / ref:.4e}")
+    for k, v in reqs[0].items():
+        s.add_tensor(k, v)
+    times = []
+    for _ in range(5):
+        t1 = time.perf_counter()
+        s.run()
+        times.append((time.perf_counter() - t1) * 1e3)
+    print(f"SD15 UNet step bf16, uint8 weights, warm: median {np.median(times):.2f} ms over 5 runs "
+          f"(min {min(times):.2f}) [{name}]")
+    print(f"peak device memory {peak / 2**20:.1f} MB, weights {stats['weight_bytes'] / 2**20:.1f} MB [{name}]")
+    profile_steps(s.run, name, "SD15 step, uint8 weights")
+
+    # one step's calls recorded, then the kernel at each of the graph's shapes
+    # against its twin, and the step's calls replayed
+    site.calls = []
+    executor_mod.w8_matmul = site
+    try:
+        s.run()
+    finally:
+        executor_mod.w8_matmul = w8_matmul
+    calls, site.calls = site.calls, None
+    shapes = sorted({(a.numel() // a.shape[-1], *w.shape) for (a, w, *_), _ in calls})
+    print(f"w8_matmul shapes of the SD15 step (M, K, N): {shapes}")
+    check_qkernel("w8_matmul", w8_matmul, w8_matmul_reference, _w8_case, shapes, 1e-4, 2e-2)
+
+    def dequantized_matmul(a, w, sw, zw, out_dtype=None):
+        wd = ((w.float() - zw) * sw).to(a.dtype)
+        return lambda: torch.matmul(a, wd)
+
+    times = replay_times("w8_matmul over one SD15 step (bf16)", calls, w8_matmul, w8_matmul_reference,
+                         dequantized_matmul, "bf16", name)
+    return {"launches": launches, "max_abs_err": site.worst, **times}
 
 
 def _logit_trace(pipe, seq):
@@ -392,51 +765,12 @@ def _syncs_in(fn) -> int:
     return sum("synchroniz" in str(w.message) for w in caught)
 
 
-class _GraphSiteCheck:
-    """Stands in for the flash_attention that ops/attention.py calls. After
-    arm(), the next call's kernel output is held against the twin on the very
-    operands the graph passed: q, k, v with the strides the graph gave them
-    and the mask as the graph built it. The kernel's launch count is the
-    wrapper's own; the twin launches nothing. The twin's float32 scores are
-    kept out of the device memory peak: ``peak`` is the peak before each
-    check, and the allocator's peak is reset after it."""
-
-    def __init__(self, kernel, twin, tol: float):
-        self.kernel, self.twin, self.tol = kernel, twin, tol
-        self.armed, self.result, self.peak = False, None, 0
-
-    def arm(self):
-        self.armed, self.result = True, None
-
-    def __call__(self, q, k, v, mask=None, scale=None, k_transposed=False, causal=False):
-        out = self.kernel(q, k, v, mask=mask, scale=scale, k_transposed=k_transposed, causal=causal)
-        if self.armed:
-            self.armed = False
-            self.peak = max(self.peak, torch.cuda.max_memory_allocated())
-            ref = self.twin(q, k, v, mask=mask, scale=scale, k_transposed=k_transposed, causal=causal)
-            err = (out.float() - ref.float()).abs().max().item()
-            ok = torch.allclose(out.float(), ref.float(), rtol=self.tol, atol=self.tol)
-            about = (f"max|twin| {ref.float().abs().max().item():.4f}; "
-                     f"q {tuple(q.shape)} strides {q.stride()}, k {tuple(k.shape)} strides {k.stride()} "
-                     f"k_transposed={k_transposed}, v strides {v.stride()}, mask "
-                     + ("none" if mask is None else
-                        f"{tuple(mask.shape)} {str(mask.dtype)[6:]} strides {mask.stride()}")
-                     + f", causal={causal}")
-            self.result = (ok, err, about)
-            del ref
-            torch.cuda.reset_peak_memory_stats()
-        return out
-
-
-def phase_llm(name: str) -> int:
-    import onnxstream_tpu_torch.ops.attention as attention_op
-    from onnxstream_tpu_torch.kernels.flash_attention import flash_attention, flash_attention_reference
-    from onnxstream_tpu_torch.models.llm.llama import LLAMA_TINY, TINYLLAMA, param_count
+def _tiny_llama_card_vs_cpu(label: str, rel: float, **kw) -> None:
+    from onnxstream_tpu_torch.models.llm.llama import LLAMA_TINY
     from onnxstream_tpu_torch.models.llm.pipeline import LlamaPipeline
 
-    # small model first: the LLM path on the card against the CPU, fp32
     seq, prompt = [1, 5, 7, 9, 2, 3], [3, 17, 99, 5]
-    runs = {dev: LlamaPipeline(LLAMA_TINY, buckets=[8, 16, 32], device=torch.device(dev))
+    runs = {dev: LlamaPipeline(LLAMA_TINY, buckets=[8, 16, 32], device=torch.device(dev), **kw)
             for dev in ("cuda:0", "cpu")}
     traces = {dev: _logit_trace(p, seq) for dev, p in runs.items()}
     for dev, p in runs.items():
@@ -445,28 +779,64 @@ def phase_llm(name: str) -> int:
     runs["cuda:0"].reset()
     dev_toks = runs["cuda:0"].generate_on_device(prompt, 8)
     errs = [float(np.abs(a - b).max() / np.abs(b).max()) for a, b in zip(traces["cuda:0"], traces["cpu"])]
-    print(f"LLAMA_TINY fp32 card vs CPU: logits max|diff|/max|logits| {max(errs):.3e} (bound 1e-4); "
+    print(f"{label} fp32 card vs CPU: logits max|diff|/max|logits| {max(errs):.3e} (bound {rel:g}); "
           f"tokens card {toks['cuda:0']} cpu {toks['cpu']} on-device {dev_toks}")
-    if not max(errs) <= 1e-4 or toks["cuda:0"] != toks["cpu"] or dev_toks != toks["cpu"]:
-        raise SystemExit("LLAMA_TINY on the card disagrees with the CPU run")
+    if not max(errs) <= rel or toks["cuda:0"] != toks["cpu"] or dev_toks != toks["cpu"]:
+        raise SystemExit(f"{label} on the card disagrees with the CPU run")
+
+
+LLM_REQUESTS = [("request 1: 700-token prompt (bucket 1024)", None),
+                ("request 2: 100-token follow-up (L 128, P 1024)", None),
+                ("request 3: 300-token prompt after reset (bucket 512)", "reset")]
+
+
+def _decode_measurements(pipe, name: str, label: str, p1) -> None:
+    """Warm prefill of p1, decode ms/token on both loops at P 1024, host
+    syncs per decode_on_device call, profiles of decode and prefill."""
+    pipe.reset()
+    (_, _), ms_pf = _timed(lambda: pipe.forward(p1, want_logits=False))
+    print(f"{label} prefill of 700 tokens (bucket 1024), warm: {ms_pf:.2f} ms = {700 / ms_pf * 1e3:.0f} tok/s [{name}]")
+    first = pipe.forward([5], want_logits=False)[0]
+    pipe.decode_on_device(first, 8)  # warm
+    _, ms_dev = _timed(lambda: pipe.decode_on_device(first, 32))
+    _, ms_host = _timed(lambda: [pipe.forward([first], want_logits=False) for _ in range(8)])
+    print(f"{label} decode at P 1024: on-device loop {ms_dev / 32:.2f} ms/token, host loop "
+          f"{ms_host / 8:.2f} ms/token [{name}]")
+    s8 = _syncs_in(lambda: pipe.decode_on_device(first, 8))
+    s32 = _syncs_in(lambda: pipe.decode_on_device(first, 32))
+    print(f"{label} host syncs reported in decode_on_device: {s8} for 8 tokens, {s32} for 32 tokens")
+    if s32 > s8:
+        raise SystemExit(f"{label}: host syncs grow with the decoded tokens ({s8} for 8, {s32} for 32)")
+    profile_steps(lambda: pipe.decode_on_device(first, 4), name, f"{label} decode_on_device(4 tokens)")
+    pipe.reset()
+    profile_steps(lambda: (pipe.reset(), pipe.forward(p1, want_logits=False)), name,
+                  f"{label} prefill 700 (bucket 1024)")
+
+
+def phase_llm(name: str) -> dict:
+    import onnxstream_tpu_torch.ops.attention as attention_op
+    from onnxstream_tpu_torch.kernels.flash_attention import flash_attention, flash_attention_reference
+    from onnxstream_tpu_torch.models.llm.llama import TINYLLAMA, param_count
+    from onnxstream_tpu_torch.models.llm.pipeline import LlamaPipeline
+
+    # small model first: the LLM path on the card against the CPU, fp32
+    _tiny_llama_card_vs_cpu("LLAMA_TINY", 1e-4)
 
     t0 = time.perf_counter()
     pipe = LlamaPipeline(TINYLLAMA, compute_dtype="bfloat16", device=torch.device("cuda:0"))
     rng = np.random.default_rng(0)
-    p1, p2, p3 = (rng.integers(3, TINYLLAMA.vocab_size, n).tolist() for n in (700, 100, 300))
+    prompts = [rng.integers(3, TINYLLAMA.vocab_size, n).tolist() for n in (700, 100, 300)]
+    p1, p3 = prompts[0], prompts[2]
     torch.cuda.reset_peak_memory_stats()
     # the main path: three chat requests; the counts are zeroed just before it
     flash_attention.launches = 0
-    requests = [("request 1: 700-token prompt (bucket 1024)", None, p1),
-                ("request 2: 100-token follow-up (L 128, P 1024)", None, p2),
-                ("request 3: 300-token prompt after reset (bucket 512)", "reset", p3)]
     outs = []
     # each request's first launch is checked against the twin on the graph's
     # own operands (its time, one twin call, is inside the request's time)
-    site = _GraphSiteCheck(flash_attention, flash_attention_reference, 2e-2)
+    site = _GraphSiteCheck(flash_attention, flash_attention_reference, 2e-2, _about_flash)
     attention_op.flash_attention = site
     try:
-        for label, pre, ids in requests:
+        for (label, pre), ids in zip(LLM_REQUESTS, prompts):
             if pre == "reset":
                 pipe.reset()
             before = flash_attention.launches
@@ -480,13 +850,7 @@ def phase_llm(name: str) -> int:
                 raise SystemExit(f"{label}: bad tokens {toks_i}")
             if n_launch != 22:
                 raise SystemExit(f"{label}: {n_launch} flash_attention launches, want 22")
-            if site.result is None:
-                raise SystemExit(f"{label}: no flash_attention call reached the graph-site check")
-            ok, err, about = site.result
-            print(f"  first launch vs twin on the graph's operands: max|diff| {err:.3e} "
-                  f"(rtol=atol={site.tol}) {'ok' if ok else 'FAIL'}; {about}")
-            if not ok:
-                raise SystemExit(f"{label}: the kernel disagrees with its twin on the graph's operands")
+            site.check(label)
     finally:
         attention_op.flash_attention = flash_attention
     launches = flash_attention.launches
@@ -507,7 +871,7 @@ def phase_llm(name: str) -> int:
     if host != outs[2]:
         raise SystemExit(f"on-device decode {outs[2]} != host loop {host}")
 
-    # flash on vs off on request 1's last-position logits; warm prefill times
+    # flash on vs off on request 1's last-position logits
     sess = pipe._session(1024, 0)
     pipe.reset()
     (_, on), ms_on = _timed(lambda: pipe.forward(p1))
@@ -530,27 +894,137 @@ def phase_llm(name: str) -> int:
     torch.cuda.empty_cache()
     scale = float(np.abs(l32).max())
     print(f"bf16 last logits vs the float32 model: flash on {np.abs(on - l32).max() / scale:.4e}, "
-          f"flash off {np.abs(off - l32).max() / scale:.4e} (max|diff| / max|logits|)")
-    pipe.reset()
-    (_, _), ms_pf = _timed(lambda: pipe.forward(p1, want_logits=False))
-    print(f"prefill of 700 tokens (bucket 1024), warm: {ms_pf:.2f} ms = {700 / ms_pf * 1e3:.0f} tok/s "
-          f"with flash; with the (1024, 32003) logits copied to the host: flash on {ms_on:.2f} ms, "
-          f"flash off {ms_off:.2f} ms (plan included) [{name}]")
+          f"flash off {np.abs(off - l32).max() / scale:.4e} (max|diff| / max|logits|); "
+          f"with the (1024, 32003) logits copied to the host: flash on {ms_on:.2f} ms, "
+          f"flash off {ms_off:.2f} ms (plan included)")
+    _decode_measurements(pipe, name, "bf16", p1)
+    return {"launches": launches, "bank": pipe._weight_bank, "logits_p1": on, "logits_p1_f32": l32,
+            "prompts": prompts}
 
-    # decode: on-device loop and host loop, ms per token (P = 1024)
-    first = pipe.forward([5], want_logits=False)[0]
-    pipe.decode_on_device(first, 8)  # warm
-    _, ms_dev = _timed(lambda: pipe.decode_on_device(first, 32))
-    _, ms_host = _timed(lambda: [pipe.forward([first], want_logits=False) for _ in range(8)])
-    print(f"decode bf16 at P 1024: on-device loop {ms_dev / 32:.2f} ms/token, host loop "
-          f"{ms_host / 8:.2f} ms/token [{name}]")
-    s8 = _syncs_in(lambda: pipe.decode_on_device(first, 8))
-    s32 = _syncs_in(lambda: pipe.decode_on_device(first, 32))
-    print(f"host syncs reported in decode_on_device: {s8} for 8 tokens, {s32} for 32 tokens")
-    profile_steps(lambda: pipe.decode_on_device(first, 4), name, "decode_on_device(4 tokens)")
+
+def _nrms(x: np.ndarray, ref: np.ndarray) -> float:
+    return float(np.linalg.norm(x - ref) / max(np.linalg.norm(ref), 1e-9))
+
+
+def _int8_vs_bf16_two_layers(prompt) -> float:
+    """nrms of int8 against bf16 last logits of TinyLlama at full width, cut
+    to the depth of the model its bound was set on (tests/test_llm.py,
+    LLAMA_TINY, 2 layers): the weights' and activations' rounding adds up
+    over the layers, so at full depth the same quantization drifts further."""
+    from onnxstream_tpu_torch.models.llm.llama import TINYLLAMA
+    from onnxstream_tpu_torch.models.llm.pipeline import LlamaPipeline
+
+    cfg = dataclasses.replace(TINYLLAMA, layers=2)
+    bank, logits = {}, []
+    for int8 in (False, True):
+        p = LlamaPipeline(cfg, compute_dtype="bfloat16", device=torch.device("cuda:0"), int8_weights=int8)
+        p._weight_bank = bank  # one set of host weights for both
+        logits.append(p.forward(prompt)[1])
+        del p
+    gc.collect()
+    torch.cuda.empty_cache()
+    return _nrms(logits[1], logits[0])
+
+
+def phase_llm_int8(name: str, llm: dict) -> dict:
+    import onnxstream_tpu_torch.runtime.executor as executor_mod
+    from onnxstream_tpu_torch.kernels.flash_attention import flash_attention
+    from onnxstream_tpu_torch.kernels.qmatmul import w8a8_dyn_matmul, w8a8_dyn_matmul_reference
+    from onnxstream_tpu_torch.models.llm.llama import TINYLLAMA
+    from onnxstream_tpu_torch.models.llm.pipeline import LlamaPipeline
+    from onnxstream_tpu_torch.runtime.session import Session
+
+    _tiny_llama_card_vs_cpu("LLAMA_TINY int8", 1e-3, int8_weights=True)
+
+    prompts = llm["prompts"]
+    p1, p3 = prompts[0], prompts[2]
+    per_run = 7 * TINYLLAMA.layers + 1  # q k v o gate up down per layer + the LM head
+    pipe = LlamaPipeline(TINYLLAMA, compute_dtype="bfloat16", device=torch.device("cuda:0"), int8_weights=True)
+    pipe._weight_bank = llm["bank"]  # the bf16 phase's host weights, not generated again
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    site = _GraphSiteCheck(w8a8_dyn_matmul, w8a8_dyn_matmul_reference, 1e-2, _about_qmm)
+    graph_runs = [0]
+    session_run = Session.run
+
+    def counted_run(self, *args, **kw):
+        graph_runs[0] += 1
+        return session_run(self, *args, **kw)
+
+    t0 = time.perf_counter()
+    outs = []
+    # the path: three chat requests; the counts are zeroed just before it
+    w8a8_dyn_matmul.launches = 0
+    flash_attention.launches = 0
+    Session.run = counted_run
+    executor_mod.w8a8_dyn_matmul = site
+    try:
+        for (label, pre), ids in zip(LLM_REQUESTS, prompts):
+            if pre == "reset":
+                pipe.reset()
+            b6, b2, r0 = w8a8_dyn_matmul.launches, flash_attention.launches, graph_runs[0]
+            site.arm()
+            toks_i, ms = _timed(lambda: pipe.generate_on_device(ids, max_new_tokens=32))
+            n6, n2, runs = w8a8_dyn_matmul.launches - b6, flash_attention.launches - b2, graph_runs[0] - r0
+            outs.append(toks_i)
+            print(f"int8 {label}: {len(toks_i)} tokens in {ms:.1f} ms, {runs} graph runs, w8a8_dyn_matmul "
+                  f"launches {n6} (want {per_run} x {runs} = {per_run * runs}), flash_attention launches {n2} "
+                  f"(want 22) [{name}]")
+            if len(toks_i) != 32 or not all(0 <= t < TINYLLAMA.vocab_size for t in toks_i):
+                raise SystemExit(f"int8 {label}: bad tokens {toks_i}")
+            if n6 != per_run * runs or n2 != 22:
+                raise SystemExit(f"int8 {label}: {n6} w8a8_dyn_matmul / {n2} flash launches over {runs} runs")
+            site.check(f"int8 {label}")
+    finally:
+        Session.run = session_run
+        executor_mod.w8a8_dyn_matmul = w8a8_dyn_matmul
+    launches = w8a8_dyn_matmul.launches
+    peak = max(site.peak, torch.cuda.max_memory_allocated())
+    wbytes = pipe.device_weight_bytes()
+    print(f"TinyLlama int8: three requests done {time.perf_counter() - t0:.1f} s after the pipeline was made "
+          f"(host quantization at first fetch {pipe.quantize_seconds():.1f} s, {len(pipe._sessions)} bucket "
+          f"sessions) [{name}]")
+    print(f"int8 peak device memory {peak / 2**20:.1f} MB over {base / 2**20:.1f} MB held before the phase, "
+          f"device weights {wbytes / 2**20:.1f} MB (scales included) [{name}]")
+
     pipe.reset()
-    profile_steps(lambda: (pipe.reset(), pipe.forward(p1, want_logits=False)), name, "prefill 700 (bucket 1024)")
-    return launches
+    host = pipe.generate(p3, max_new_tokens=32)
+    print(f"int8 request 3 host loop == on-device decode: {host == outs[2]}")
+    if host != outs[2]:
+        raise SystemExit(f"int8 on-device decode {outs[2]} != host loop {host}")
+    pipe.reset()
+    _, l8 = pipe.forward(p1)
+    lf, l32 = llm["logits_p1"], llm["logits_p1_f32"]
+    print(f"TinyLlama ({TINYLLAMA.layers} layers) last logits of request 1, nrms: int8 vs bf16 {_nrms(l8, lf):.4e}, "
+          f"int8 vs the float32 model {_nrms(l8, l32):.4e}, bf16 vs the float32 model {_nrms(lf, l32):.4e}")
+    two = _int8_vs_bf16_two_layers(p1)
+    print(f"TinyLlama at full width cut to 2 layers, last logits of request 1: int8 vs bf16 nrms {two:.4e} "
+          f"(bound 0.15, set on 2 layers)")
+    if not two < 0.15:
+        raise SystemExit("int8 logits drifted from the bf16 pipeline's")
+    _decode_measurements(pipe, name, "int8", p1)
+
+    # one decode step's and one prefill's calls recorded and replayed
+    recorded = {}
+    executor_mod.w8a8_dyn_matmul = site
+    try:
+        site.calls = []
+        pipe.reset()
+        first = pipe.forward(p1, want_logits=False)[0]
+        recorded["prefill"], site.calls = site.calls, []
+        pipe.decode_on_device(first, 1)
+        recorded["decode"], site.calls = site.calls, None
+    finally:
+        executor_mod.w8a8_dyn_matmul = w8a8_dyn_matmul
+
+    def int_mm(a, w, ws, out_dtype=None):
+        return _int_mm_or_none(_quantize_rows(a), w)
+
+    times = {k: replay_times(f"w8a8_dyn_matmul over one TinyLlama {k} run (bf16)", calls, w8a8_dyn_matmul,
+                             w8a8_dyn_matmul_reference, int_mm, "int8", name)
+             for k, calls in recorded.items()}
+    return {"launches": launches, "max_abs_err": site.worst, **times["decode"]}
 
 
 def main() -> int:
@@ -559,16 +1033,29 @@ def main() -> int:
     phase_build()
     kernel = phase_kernel(name)
     kernel_hm = phase_kernel_head_major(name)
-    launches = phase_slice(name)
-    launches_hm = phase_llm(name)
+    phase_kernel_q(name)
+    sd = phase_slice(name)
+    launches_sd = sd["launches"]
+    sd_u8 = phase_sd_u8(name, sd)
+    del sd
+    gc.collect()
+    torch.cuda.empty_cache()
+    llm = phase_llm(name)
+    launches_llm = llm["launches"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    llm_int8 = phase_llm_int8(name, llm)
     print(f"card: {name}")
-    src = "onnxstream_tpu_torch/kernels/csrc/flash_attention.cu"
+    fa_src = "onnxstream_tpu_torch/kernels/csrc/flash_attention.cu"
+    q_src = "onnxstream_tpu_torch/kernels/csrc/qmatmul.cu"
+    q_py = "onnxstream_tpu/kernels/qmatmul.py"
     print(json.dumps({"kernels": [
-        {"name": "flash_attention_packed", "route": "cuda", "source": src,
-         "replaces": "onnxstream_tpu/kernels/flash_attention.py:260", "launches": launches, **kernel},
-        {"name": "flash_attention", "route": "cuda", "source": src,
-         "replaces": "onnxstream_tpu/kernels/flash_attention.py:366", "launches": launches_hm,
-         **kernel_hm},
+        {"name": "flash_attention_packed", "route": "cuda", "source": fa_src,
+         "replaces": "onnxstream_tpu/kernels/flash_attention.py:260", **kernel, "launches": launches_sd},
+        {"name": "flash_attention", "route": "cuda", "source": fa_src,
+         "replaces": "onnxstream_tpu/kernels/flash_attention.py:366", **kernel_hm, "launches": launches_llm},
+        {"name": "w8a8_dyn_matmul", "route": "cuda", "source": q_src, "replaces": f"{q_py}:332", **llm_int8},
+        {"name": "w8_matmul", "route": "cuda", "source": q_src, "replaces": f"{q_py}:186", **sd_u8},
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -1,9 +1,9 @@
 """`llm` CLI of the port — chat with llama-family models (reference src/llm.cpp:39-508).
 
-Counterpart of ``onnxstream_tpu/cli/llm_main.py`` with the same flags, except
-that ``--device`` is required and names a torch device type (``cuda`` or
-``cpu``). REPL with chatml (TinyLlama) / [INST] (Mistral) templating, greedy
-decoding, streamed tokens, and a device-resident bucketed KV cache.
+Counterpart of ``onnxstream_tpu/cli/llm_main.py`` with the same flags, and
+``--device`` (``cuda``, the default: the first card, or ``cpu``). REPL with
+chatml (TinyLlama) / [INST] (Mistral) templating, greedy decoding, streamed
+tokens, and a device-resident bucketed KV cache.
 `--synthetic tiny` runs a small random-weight model for smoke testing.
 
     python -m onnxstream_tpu_torch.cli.llm_main --synthetic tiny --device cuda --prompt hello
@@ -25,7 +25,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--prompt", default="", help="single-shot prompt (otherwise REPL)")
     p.add_argument("--max-new-tokens", type=int, default=128)
     p.add_argument("--compute-dtype", default="bfloat16", choices=["float32", "bfloat16", "float16"])
-    p.add_argument("--device", required=True, choices=["cuda", "cpu"])
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="cuda: the first NVIDIA card (an error without one); cpu only when asked")
     p.add_argument("--ops-printf", action="store_true",
                    help="accepted for parity with the JAX CLI, which does not read it either; no effect")
     p.add_argument("--download", action="store_true",
@@ -43,8 +44,9 @@ def main(argv=None) -> int:
     from onnxstream_tpu_torch.models.llm.llama import LLAMA_TINY, MISTRAL, TINYLLAMA
     from onnxstream_tpu_torch.models.llm.pipeline import LlamaPipeline
     from onnxstream_tpu_torch.models.llm.tokenizer import SentencePieceBPE
+    from onnxstream_tpu_torch.runtime.config import default_device
 
-    device = torch.device(args.device)
+    device = default_device() if args.device == "cuda" else torch.device("cpu")
     is_tiny = args.model == "tinyllama"
     if args.synthetic:
         cfg = LLAMA_TINY

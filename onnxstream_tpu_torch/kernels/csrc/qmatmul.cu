@@ -1,0 +1,850 @@
+// Weight-quantized matrix products for Hopper (sm_90a), with a plain C ABI.
+//
+// Replaces two TPU kernels of onnxstream_tpu/kernels/qmatmul.py:
+//
+//  * w8a8_dyn_matmul (pallas_call of _w8a8_dyn_kernel, and its stock-XLA twin
+//    w8a8_dyn_matmul_xla that the JAX executor dispatches to): float A (M, K)
+//    x symmetric int8 W (K, N) -> (M, N) in A's dtype. A is quantized per row
+//    inside the launch, sa = max(amax, 1e-12) * (1/127), aq = clip(rint(a / sa),
+//    -127, 127); the dot runs s8 x s8 -> s32 (exact); the epilogue is
+//    float(acc) * sa * ws with ws a scalar or an (N,) vector. The division is
+//    IEEE (__fdiv_rn), rintf rounds half to even and no FMA is contracted into
+//    the epilogue, so the result equals the plain version bit for bit.
+//  * w8_matmul (pallas_call of _w8mm_kernel): float A (M, K) x uint8 W (K, N)
+//    -> (M, N) in A's dtype, sw * (A @ W - zw * rowsum(A)), the uint8 weight
+//    converted to A's dtype in shared memory (exact for 0..255) and never
+//    materialized as a float copy in device memory; products accumulate in
+//    float32 (tensor cores for bf16 / fp16, full float32 FMAs for float32:
+//    no TF32, as JAX's Precision.HIGHEST); sw, zw scalars or (N,) vectors.
+//
+// What bounds them on an H100, and what the design does about it:
+//
+//  * Decode (M <= 16) is a GEMV bound by the weight's bytes: 1 byte per weight
+//    at 3.35 TB/s. dyn_gemv_kernel gives each lane 4 neighbouring columns
+//    (a warp reads 128 contiguous bytes of a weight row) and splits K over
+//    the 8 warps of a block and, where the columns alone give too few blocks
+//    (N = 256), over blocks: the partial int32 sums of a K split meet in an
+//    int32 workspace through atomics (exact, so the order does not matter) and
+//    the last block of a column tile writes the output and zeroes the
+//    workspace again, so one launch serves one MatMul. Every block reads its
+//    rows of A whole for the row scales; at M = 1 that is a few KB from L2.
+//    Four rows of a lane's four columns are transposed in registers
+//    (byte_perm) so that one dp4a does four multiply-adds.
+//  * Larger M is a product bound by int8 (bf16) tensor-core throughput: 2 M N K
+//    operations at 1979 TOP/s (989 TFLOP/s). The tiled kernels use
+//    mma.sync (m16n8k32 s8, m16n8k16 bf16 / fp16) on 64 x 128 tiles with the
+//    next tile prefetched into registers while the current one is multiplied.
+//    The weight is N-contiguous and ldmatrix cannot transpose 8-bit elements,
+//    so each tile is transposed while it is staged: 4 x 4 byte blocks in
+//    registers for s8, pairs of rows for the u8 -> bf16 conversion. Shared
+//    rows are padded so that fragment loads are free of bank conflicts.
+//    Without wgmma, TMA and a deeper pipeline these reach a fraction of the
+//    peak; that is later work.
+//  * A weight row with an odd length (the LM head, N = 32003) is not 4-byte
+//    aligned: the dispatcher picks a variant that loads weight bytes one by one
+//    from the shape and the pointer. Ragged M, N and K edges are masked in the
+//    kernels; nothing is padded in device memory.
+
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+namespace {
+
+template <typename T> __device__ __forceinline__ float to_f32(T x);
+template <> __device__ __forceinline__ float to_f32<float>(float x) { return x; }
+template <> __device__ __forceinline__ float to_f32<__half>(__half x) { return __half2float(x); }
+template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T> __device__ __forceinline__ T from_f32(float x);
+template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <> __device__ __forceinline__ __half from_f32<__half>(float x) { return __float2half_rn(x); }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+constexpr float kInv127 = 1.0f / 127.0f;
+constexpr int kThreads = 256;
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// four consecutive elements of a row of A as floats; zero past K. VEC: the
+// row is 16-byte aligned and K % 4 == 0, so one vector load serves.
+template <typename T, bool VEC>
+__device__ __forceinline__ float4 load4(const T* row, int k, int K) {
+  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (VEC) {
+    if (k < K) {
+      if constexpr (std::is_same<T, float>::value) {
+        v = *reinterpret_cast<const float4*>(row + k);
+      } else {
+        const uint2 u = *reinterpret_cast<const uint2*>(row + k);
+        const T* e = reinterpret_cast<const T*>(&u);
+        v = make_float4(to_f32(e[0]), to_f32(e[1]), to_f32(e[2]), to_f32(e[3]));
+      }
+    }
+  } else {
+    if (k < K) v.x = to_f32(row[k]);
+    if (k + 1 < K) v.y = to_f32(row[k + 1]);
+    if (k + 2 < K) v.z = to_f32(row[k + 2]);
+    if (k + 3 < K) v.w = to_f32(row[k + 3]);
+  }
+  return v;
+}
+
+// four bytes W[k][n .. n+3] of a (K, N) byte matrix as one word, byte j =
+// column n + j; zero past K and N. VEC: N % 4 == 0 and W 4-byte aligned.
+template <bool VEC>
+__device__ __forceinline__ uint32_t load_w4(const uint8_t* w, int k, int n, int K, int N) {
+  if (k >= K) return 0u;
+  const uint8_t* row = w + static_cast<size_t>(k) * N;
+  if (VEC) return n < N ? __ldg(reinterpret_cast<const unsigned int*>(row + n)) : 0u;
+  uint32_t v = 0u;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    if (n + j < N) v |= static_cast<uint32_t>(__ldg(row + n + j)) << (8 * j);
+  return v;
+}
+
+// 4 x 4 byte transpose: r[i] holds row i's bytes (columns 0..3); c[j] gets
+// column j's bytes (rows 0..3)
+__device__ __forceinline__ void transpose4(const uint32_t (&r)[4], uint32_t (&c)[4]) {
+  const uint32_t t0 = __byte_perm(r[0], r[1], 0x5140);
+  const uint32_t t1 = __byte_perm(r[0], r[1], 0x7362);
+  const uint32_t t2 = __byte_perm(r[2], r[3], 0x5140);
+  const uint32_t t3 = __byte_perm(r[2], r[3], 0x7362);
+  c[0] = __byte_perm(t0, t2, 0x5410);
+  c[1] = __byte_perm(t0, t2, 0x7632);
+  c[2] = __byte_perm(t1, t3, 0x5410);
+  c[3] = __byte_perm(t1, t3, 0x7632);
+}
+
+// the symmetric s8 quantization of w8a8_dyn_matmul_xla, as one byte
+__device__ __forceinline__ uint32_t quant_s8(float x, float sa) {
+  const float q = fminf(fmaxf(rintf(__fdiv_rn(x, sa)), -127.f), 127.f);
+  return static_cast<uint32_t>(static_cast<int>(q)) & 0xffu;
+}
+
+__device__ __forceinline__ uint32_t pack_s8(float4 v, float sa) {
+  return quant_s8(v.x, sa) | (quant_s8(v.y, sa) << 8) | (quant_s8(v.z, sa) << 16) |
+         (quant_s8(v.w, sa) << 24);
+}
+
+__device__ __forceinline__ uint32_t ld32(const void* p) { return *reinterpret_cast<const uint32_t*>(p); }
+
+// ---------------------------------------------------------------------------
+// Kernel 6, w8a8_dyn_matmul
+// ---------------------------------------------------------------------------
+
+struct DynParams {
+  const void* a;       // (M, K), row-major
+  const uint8_t* w;    // (K, N) int8, row-major
+  const float* ws;     // (N,) weight scales, or nullptr: ws_scalar
+  float ws_scalar;
+  void* out;           // (M, N) in A's dtype
+  int* acc;            // M <= 16: (M, N) int32 K-split workspace, zero on entry and on exit
+  unsigned* count;     // M <= 16: per column tile arrival counts, zero on entry and on exit
+  uint8_t* aq;         // M > 16: (M, K) int8 scratch, the quantized A
+  float* sa;           // M > 16: (M,) scratch, the row scales
+  int M, K, N;
+};
+
+__device__ __forceinline__ float col_scale(const float* v, float s, int n) { return v ? v[n] : s; }
+
+constexpr int kGemvCols = 128;    // 32 lanes x 4 columns
+constexpr int kGemvMaxM = 16;
+constexpr int kGemvMaxChunk = 2048;
+
+// M <= MR rows; block (x, y) owns columns [128 x, 128 x + 128) and K rows
+// [y kchunk, (y + 1) kchunk)
+template <typename T, int MR, bool WVEC>
+__global__ void __launch_bounds__(kThreads) dyn_gemv_kernel(const DynParams p, int kchunk) {
+  extern __shared__ int gemv_smem[];
+  const int kc4 = kchunk / 4;
+  uint32_t* s_aq = reinterpret_cast<uint32_t*>(gemv_smem);  // MR x kc4 words of 4 s8
+  int* s_red = gemv_smem + MR * kc4;                          // MR x 128 block sums
+  float* s_sa = reinterpret_cast<float*>(s_red + MR * kGemvCols);
+  float* s_max = s_sa + MR;                                   // 8 warps x MR
+  __shared__ int s_last;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int M = p.M, K = p.K, N = p.N;
+  const T* a = static_cast<const T*>(p.a);
+
+  // the first batch of weight rows is requested before the work on A, so
+  // its latency overlaps the row scales and the quantization: warp w takes
+  // k-quads w, w + 8, ... of this block's chunk, U quads (4 rows each) per
+  // batch, the next batch in flight while one is multiplied
+  constexpr int U = 4;
+  const int kb = blockIdx.y * kchunk;
+  const int n0 = blockIdx.x * kGemvCols + 4 * lane;
+  const int nq = (min(K, kb + kchunk) - kb + 3) / 4;
+  uint32_t cur[U][4], nxt[U][4];
+  auto load_batch = [&](uint32_t (&rw)[U][4], int q0) {
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int k = kb + 4 * (q0 + 8 * u);
+      const bool in = q0 + 8 * u < nq;
+#pragma unroll
+      for (int r = 0; r < 4; ++r) rw[u][r] = in ? load_w4<WVEC>(p.w, k + r, n0, K, N) : 0u;
+    }
+  };
+  load_batch(cur, warp);
+
+  // 1. row scales from the whole rows
+  float mx[MR];
+#pragma unroll
+  for (int m = 0; m < MR; ++m) mx[m] = 0.f;
+#pragma unroll 4
+  for (int k = tid; k < K; k += kThreads) {
+#pragma unroll
+    for (int m = 0; m < MR; ++m)
+      if (m < M) mx[m] = fmaxf(mx[m], fabsf(to_f32(a[static_cast<size_t>(m) * K + k])));
+  }
+#pragma unroll
+  for (int m = 0; m < MR; ++m) {
+    const float v = warp_max(mx[m]);
+    if (lane == 0) s_max[warp * MR + m] = v;
+  }
+  for (int i = tid; i < MR * kGemvCols; i += kThreads) s_red[i] = 0;
+  __syncthreads();
+  if (tid < MR) {
+    float v = 0.f;
+    for (int w = 0; w < kThreads / 32; ++w) v = fmaxf(v, s_max[w * MR + tid]);
+    s_sa[tid] = fmaxf(v, 1e-12f) * kInv127;
+  }
+  __syncthreads();
+
+  // 2. this block's K chunk of A, quantized (rows past M are zero)
+  for (int i = tid; i < MR * kc4; i += kThreads) {
+    const int m = i / kc4, k = kb + 4 * (i % kc4);
+    uint32_t q = 0u;
+    if (m < M) q = pack_s8(load4<T, false>(a + static_cast<size_t>(m) * K, k, K), s_sa[m]);
+    s_aq[i] = q;
+  }
+  __syncthreads();
+
+  // 3. dot products: four weight rows of a lane's four columns transposed in
+  // registers, one dp4a per row of A and column
+  int acc[MR][4];
+#pragma unroll
+  for (int m = 0; m < MR; ++m) acc[m][0] = acc[m][1] = acc[m][2] = acc[m][3] = 0;
+  for (int q0 = warp; q0 < nq; q0 += 8 * U) {
+    const bool more = q0 + 8 * U < nq;
+    if (more) load_batch(nxt, q0 + 8 * U);
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int q = q0 + 8 * u;
+      if (q < nq) {
+        uint32_t wt[4];
+        transpose4(cur[u], wt);
+#pragma unroll
+        for (int m = 0; m < MR; ++m) {
+          const int av = static_cast<int>(s_aq[m * kc4 + q]);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[m][j] = __dp4a(av, static_cast<int>(wt[j]), acc[m][j]);
+        }
+      }
+    }
+    if (more) {
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) cur[u][r] = nxt[u][r];
+    }
+  }
+
+  // 4. the 8 warps' sums meet in shared memory (exact integer atomics)
+#pragma unroll
+  for (int m = 0; m < MR; ++m)
+    if (m < M)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) atomicAdd(&s_red[m * kGemvCols + 4 * lane + j], acc[m][j]);
+  __syncthreads();
+
+  // 5. epilogue, directly or by the last block of a K split
+  T* out = static_cast<T*>(p.out);
+  const int nb = blockIdx.x * kGemvCols;
+  if (gridDim.y == 1) {
+    for (int i = tid; i < M * kGemvCols; i += kThreads) {
+      const int m = i / kGemvCols, n = nb + i % kGemvCols;
+      if (n < N)
+        out[static_cast<size_t>(m) * N + n] =
+            from_f32<T>(static_cast<float>(s_red[i]) * s_sa[m] * col_scale(p.ws, p.ws_scalar, n));
+    }
+    return;
+  }
+  for (int i = tid; i < M * kGemvCols; i += kThreads) {
+    const int m = i / kGemvCols, n = nb + i % kGemvCols;
+    if (n < N) atomicAdd(&p.acc[static_cast<size_t>(m) * N + n], s_red[i]);
+  }
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) s_last = atomicAdd(&p.count[blockIdx.x], 1u) == gridDim.y - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  for (int i = tid; i < M * kGemvCols; i += kThreads) {
+    const int m = i / kGemvCols, n = nb + i % kGemvCols;
+    if (n < N) {
+      const int v = atomicExch(&p.acc[static_cast<size_t>(m) * N + n], 0);
+      out[static_cast<size_t>(m) * N + n] =
+          from_f32<T>(static_cast<float>(v) * s_sa[m] * col_scale(p.ws, p.ws_scalar, n));
+    }
+  }
+  if (tid == 0) atomicExch(&p.count[blockIdx.x], 0u);
+}
+
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
+      "{%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// M > 16: the rows of A are quantized once, by one block each, into a
+// scratch of M x K int8 and M row scales; the tiled product then reads 1 byte
+// per element of A and divides nothing
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(kThreads) dyn_quant_rows_kernel(const DynParams p) {
+  __shared__ float s_max[kThreads / 32];
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int K = p.K, m = blockIdx.x;
+  const T* row = static_cast<const T*>(p.a) + static_cast<size_t>(m) * K;
+  float mx = 0.f;
+  for (int k = 4 * tid; k < K; k += 4 * kThreads) {
+    const float4 v = load4<T, VEC>(row, k, K);
+    mx = fmaxf(mx, fmaxf(fmaxf(fabsf(v.x), fabsf(v.y)), fmaxf(fabsf(v.z), fabsf(v.w))));
+  }
+  mx = warp_max(mx);
+  if (lane == 0) s_max[warp] = mx;
+  __syncthreads();
+  mx = 0.f;
+#pragma unroll
+  for (int w = 0; w < kThreads / 32; ++w) mx = fmaxf(mx, s_max[w]);
+  const float sa = fmaxf(mx, 1e-12f) * kInv127;
+  if (tid == 0) p.sa[m] = sa;
+  uint8_t* q = p.aq + static_cast<size_t>(m) * K;
+  for (int k = 4 * tid; k < K; k += 4 * kThreads) {
+    const uint32_t v = pack_s8(load4<T, VEC>(row, k, K), sa);
+    if (VEC) {
+      *reinterpret_cast<uint32_t*>(q + k) = v;
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (k + e < K) q[k + e] = static_cast<uint8_t>(v >> (8 * e));
+    }
+  }
+}
+
+constexpr int kDynBM = 64, kDynBN = 128, kDynBK = 64;
+constexpr int kDynPitch = kDynBK + 16;  // bytes: rows 20 words apart, fragment loads conflict-free
+
+// Fragment layouts of mma.m16n8k32 .s8 (PTX ISA), g = lane / 4, t = lane % 4,
+// each register four consecutive k:
+//   A (16x32): a0 = (g, 4t..), a1 = (g+8, 4t..), a2 = (g, 16+4t..), a3 = (g+8, 16+4t..)
+//   B (32x8):  b0 = (k 4t.., n g), b1 = (k 16+4t.., n g)
+//   C (16x8):  c0, c1 = (g, 2t..2t+1), c2, c3 = (g+8, 2t..2t+1)
+// 8 warps as 2 (M) x 4 (N), each a 32 x 32 tile: 2 x 4 mma per k32 step.
+// AVEC: K % 16 == 0, so a row of the int8 A tile is 4 vector loads.
+template <typename T, bool AVEC, bool WVEC>
+__global__ void __launch_bounds__(kThreads) dyn_mma_kernel(const DynParams p) {
+  __shared__ __align__(16) uint8_t sA[kDynBM * kDynPitch];  // quantized A, [m][k]
+  __shared__ __align__(16) uint8_t sW[kDynBN * kDynPitch];  // W transposed, [n][k]
+  __shared__ float s_sa[kDynBM];
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int wm = warp / 4, wn = warp % 4;
+  const int M = p.M, K = p.K, N = p.N;
+  const int m0 = blockIdx.x * kDynBM, n0 = blockIdx.y * kDynBN;
+  if (tid < kDynBM) s_sa[tid] = m0 + tid < M ? p.sa[m0 + tid] : 0.f;
+
+  // staging: A row tid / 4, sixteen bytes from 16 (tid % 4); W 4 x 4 blocks
+  // u = tid + 256 v (k-quad u % 16, column quad u / 16)
+  uint4 ra;
+  uint32_t rw[2][4];
+  const int ar = tid / 4, ac = 16 * (tid % 4);
+  auto load_tile = [&](int k0) {
+    const int m = m0 + ar, k = k0 + ac;
+    const uint8_t* src = p.aq + static_cast<size_t>(m) * K + k;
+    if (AVEC) {
+      ra = (m < M && k < K) ? *reinterpret_cast<const uint4*>(src) : make_uint4(0, 0, 0, 0);
+    } else {
+      uint32_t wd[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+      for (int e = 0; e < 16; ++e)
+        if (m < M && k + e < K) wd[e / 4] |= static_cast<uint32_t>(src[e]) << (8 * (e % 4));
+      ra = make_uint4(wd[0], wd[1], wd[2], wd[3]);
+    }
+#pragma unroll
+    for (int v = 0; v < 2; ++v) {
+      const int u = tid + kThreads * v;
+      const int kk = k0 + 4 * (u % 16), n = n0 + 4 * (u / 16);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) rw[v][r] = load_w4<WVEC>(p.w, kk + r, n, K, N);
+    }
+  };
+  auto store_tile = [&]() {
+    *reinterpret_cast<uint4*>(sA + ar * kDynPitch + ac) = ra;
+#pragma unroll
+    for (int v = 0; v < 2; ++v) {
+      const int u = tid + kThreads * v;
+      uint32_t c[4];
+      transpose4(rw[v], c);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        *reinterpret_cast<uint32_t*>(sW + (4 * (u / 16) + j) * kDynPitch + 4 * (u % 16)) = c[j];
+    }
+  };
+
+  int acc[2][4][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0;
+
+  const int nkt = (K + kDynBK - 1) / kDynBK;
+  load_tile(0);
+  for (int kt = 0; kt < nkt; ++kt) {
+    __syncthreads();  // the previous tile is consumed
+    store_tile();
+    __syncthreads();
+    if (kt + 1 < nkt) load_tile((kt + 1) * kDynBK);
+#pragma unroll
+    for (int ks = 0; ks < kDynBK / 32; ++ks) {
+      uint32_t af[2][4], bf[4][2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const uint8_t* pa = sA + (wm * 32 + i * 16 + g) * kDynPitch + ks * 32 + 4 * t;
+        af[i][0] = ld32(pa);
+        af[i][1] = ld32(pa + 8 * kDynPitch);
+        af[i][2] = ld32(pa + 16);
+        af[i][3] = ld32(pa + 8 * kDynPitch + 16);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const uint8_t* pb = sW + (wn * 32 + j * 8 + g) * kDynPitch + ks * 32 + 4 * t;
+        bf[j][0] = ld32(pb);
+        bf[j][1] = ld32(pb + 16);
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) mma_s8(acc[i][j], af[i], bf[j][0], bf[j][1]);
+    }
+  }
+
+  T* out = static_cast<T*>(p.out);
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = wm * 32 + i * 16 + g + (e / 2) * 8;
+        const int n = n0 + wn * 32 + j * 8 + 2 * t + (e % 2);
+        if (m0 + r < M && n < N)
+          out[static_cast<size_t>(m0 + r) * N + n] = from_f32<T>(
+              static_cast<float>(acc[i][j][e]) * s_sa[r] * col_scale(p.ws, p.ws_scalar, n));
+      }
+}
+
+// K split of the GEMV: enough blocks for ~4 per SM, chunks of at least 128
+// and at most kGemvMaxChunk rows (a multiple of 32: 8 warps x 4 rows)
+void gemv_geometry(int K, int N, int* ksplit, int* kchunk) {
+  const int col_tiles = (N + kGemvCols - 1) / kGemvCols;
+  int split = (4 * 132 + col_tiles - 1) / col_tiles;
+  const int most = (K + 127) / 128;
+  if (split > most) split = most;
+  if (split < 1) split = 1;
+  int chunk = (K + split - 1) / split;
+  chunk = (chunk + 31) / 32 * 32;
+  if (chunk > kGemvMaxChunk) chunk = kGemvMaxChunk;
+  *kchunk = chunk;
+  *ksplit = (K + chunk - 1) / chunk;
+}
+
+template <typename T, int MR, bool WVEC>
+cudaError_t launch_gemv(const DynParams& p, cudaStream_t stream) {
+  int ksplit, kchunk;
+  gemv_geometry(p.K, p.N, &ksplit, &kchunk);
+  const size_t smem = sizeof(int) * (MR * kchunk / 4 + MR * kGemvCols + MR + 8 * MR);
+  const dim3 grid((p.N + kGemvCols - 1) / kGemvCols, ksplit);
+  dyn_gemv_kernel<T, MR, WVEC><<<grid, kThreads, smem, stream>>>(p, kchunk);
+  return cudaGetLastError();
+}
+
+bool aligned(const void* ptr, unsigned long long bytes) {
+  return reinterpret_cast<unsigned long long>(ptr) % bytes == 0;
+}
+
+template <typename T, bool WVEC>
+cudaError_t launch_dyn_mma(const DynParams& p, cudaStream_t stream) {
+  if (p.K % 4 == 0 && aligned(p.a, 16) && aligned(p.aq, 16))
+    dyn_quant_rows_kernel<T, true><<<p.M, kThreads, 0, stream>>>(p);
+  else
+    dyn_quant_rows_kernel<T, false><<<p.M, kThreads, 0, stream>>>(p);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.M + kDynBM - 1) / kDynBM, (p.N + kDynBN - 1) / kDynBN);
+  if (p.K % 16 == 0 && aligned(p.aq, 16))
+    dyn_mma_kernel<T, true, WVEC><<<grid, kThreads, 0, stream>>>(p);
+  else
+    dyn_mma_kernel<T, false, WVEC><<<grid, kThreads, 0, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dyn_dispatch(const DynParams& p, cudaStream_t stream) {
+  const bool wvec = p.N % 4 == 0 && aligned(p.w, 4);
+  if (p.M <= kGemvMaxM) {
+    if (p.M == 1) return wvec ? launch_gemv<T, 1, true>(p, stream) : launch_gemv<T, 1, false>(p, stream);
+    return wvec ? launch_gemv<T, kGemvMaxM, true>(p, stream) : launch_gemv<T, kGemvMaxM, false>(p, stream);
+  }
+  return wvec ? launch_dyn_mma<T, true>(p, stream) : launch_dyn_mma<T, false>(p, stream);
+}
+
+// ---------------------------------------------------------------------------
+// Kernel 5, w8_matmul
+// ---------------------------------------------------------------------------
+
+struct W8Params {
+  const void* a;     // (M, K), row-major
+  const uint8_t* w;  // (K, N) uint8, row-major
+  const float* sw;   // (N,) scales, or nullptr: sw_scalar
+  const float* zw;   // (N,) zero points, or nullptr: zw_scalar
+  float sw_scalar, zw_scalar;
+  void* out;         // (M, N) in A's dtype
+  int M, K, N;
+};
+
+// sw * (acc - zw * rowsum) in the twin's order: the product rounds before the
+// difference (no FMA contraction)
+__device__ __forceinline__ float w8_epilogue(const W8Params& p, float acc, float rs, int n) {
+  const float zw = col_scale(p.zw, p.zw_scalar, n);
+  const float sw = col_scale(p.sw, p.sw_scalar, n);
+  return __fmul_rn(__fsub_rn(acc, __fmul_rn(zw, rs)), sw);
+}
+
+__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1, __nv_bfloat16) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1, __half) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two bytes -> one register of two 16-bit values (exact for 0..255), `lo` low
+__device__ __forceinline__ uint32_t pack2_u8(uint32_t lo, uint32_t hi, __nv_bfloat16) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(static_cast<float>(lo), static_cast<float>(hi));
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+__device__ __forceinline__ uint32_t pack2_u8(uint32_t lo, uint32_t hi, __half) {
+  __half2 v = __floats2half2_rn(static_cast<float>(lo), static_cast<float>(hi));
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+constexpr int kW8BM = 64, kW8BN = 128, kW8BK = 64;
+constexpr int kW8Pitch = kW8BK + 8;  // halfs: rows 36 words apart, fragment loads conflict-free
+
+// bf16 / fp16 A on the tensor cores (mma.m16n8k16, f32 accumulate), the
+// fragment layouts of csrc/flash_attention.cu. 8 warps as 2 (M) x 4 (N), each
+// a 32 x 32 tile. The u8 tile is converted and transposed to [n][k] while it
+// is staged: a thread takes two weight rows of four columns and writes four
+// (k, k+1) pairs. rowsum(A) for the zero-point term is summed in float32 from
+// the staging registers: 8 values per thread, then over the 8 threads of a
+// row with shuffles.
+template <typename T, bool AVEC, bool WVEC>
+__global__ void __launch_bounds__(kThreads) w8_mma_kernel(const W8Params p) {
+  __shared__ __align__(16) T sA[kW8BM * kW8Pitch];
+  __shared__ __align__(16) T sW[kW8BN * kW8Pitch];
+  __shared__ float s_rs[kW8BM];
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int wm = warp / 4, wn = warp % 4;
+  const int M = p.M, K = p.K, N = p.N;
+  const int m0 = blockIdx.x * kW8BM, n0 = blockIdx.y * kW8BN;
+  const T* a = static_cast<const T*>(p.a);
+
+  // staging: A chunks i = tid + 256 v, row i / 8, eight columns from
+  // 8 (i % 8); W units u = tid + 256 v: k pair u % 32, column quad u / 32
+  uint4 ra[2];
+  uint32_t rw[4][2];
+  auto load_tile = [&](int k0) {
+#pragma unroll
+    for (int v = 0; v < 2; ++v) {
+      const int i = tid + kThreads * v;
+      const int m = m0 + i / 8, k = k0 + 8 * (i % 8);
+      if (AVEC) {
+        ra[v] = (m < M && k < K) ? *reinterpret_cast<const uint4*>(a + static_cast<size_t>(m) * K + k)
+                                 : make_uint4(0, 0, 0, 0);
+      } else {
+        alignas(16) T e[8];
+#pragma unroll
+        for (int x = 0; x < 8; ++x)
+          e[x] = (m < M && k + x < K) ? a[static_cast<size_t>(m) * K + k + x] : from_f32<T>(0.f);
+        ra[v] = *reinterpret_cast<const uint4*>(e);
+      }
+    }
+#pragma unroll
+    for (int v = 0; v < 4; ++v) {
+      const int u = tid + kThreads * v;
+      const int kk = k0 + 2 * (u % 32), n = n0 + 4 * (u / 32);
+      rw[v][0] = load_w4<WVEC>(p.w, kk, n, K, N);
+      rw[v][1] = load_w4<WVEC>(p.w, kk + 1, n, K, N);
+    }
+  };
+  float rs[2] = {0.f, 0.f};  // partial row sums of rows tid / 8 and 32 + tid / 8
+  auto store_tile = [&]() {
+#pragma unroll
+    for (int v = 0; v < 2; ++v) {
+      const int i = tid + kThreads * v;
+      *reinterpret_cast<uint4*>(sA + (i / 8) * kW8Pitch + 8 * (i % 8)) = ra[v];
+      const T* e = reinterpret_cast<const T*>(&ra[v]);
+#pragma unroll
+      for (int x = 0; x < 8; ++x) rs[v] += to_f32(e[x]);
+    }
+#pragma unroll
+    for (int v = 0; v < 4; ++v) {
+      const int u = tid + kThreads * v;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        *reinterpret_cast<uint32_t*>(sW + (4 * (u / 32) + j) * kW8Pitch + 2 * (u % 32)) =
+            pack2_u8((rw[v][0] >> (8 * j)) & 0xffu, (rw[v][1] >> (8 * j)) & 0xffu, T());
+    }
+  };
+
+  float acc[2][4][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
+
+  const int nkt = (K + kW8BK - 1) / kW8BK;
+  load_tile(0);
+  for (int kt = 0; kt < nkt; ++kt) {
+    __syncthreads();
+    store_tile();
+    __syncthreads();
+    if (kt + 1 < nkt) load_tile((kt + 1) * kW8BK);
+#pragma unroll
+    for (int ks = 0; ks < kW8BK / 16; ++ks) {
+      uint32_t af[2][4], bf[4][2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const T* pa = sA + (wm * 32 + i * 16 + g) * kW8Pitch + ks * 16 + 2 * t;
+        af[i][0] = ld32(pa);
+        af[i][1] = ld32(pa + 8 * kW8Pitch);
+        af[i][2] = ld32(pa + 8);
+        af[i][3] = ld32(pa + 8 * kW8Pitch + 8);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const T* pb = sW + (wn * 32 + j * 8 + g) * kW8Pitch + ks * 16 + 2 * t;
+        bf[j][0] = ld32(pb);
+        bf[j][1] = ld32(pb + 8);
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) mma16816(acc[i][j], af[i], bf[j][0], bf[j][1], T());
+    }
+  }
+#pragma unroll
+  for (int v = 0; v < 2; ++v) {
+    float r = rs[v];
+    r += __shfl_xor_sync(0xffffffffu, r, 1);
+    r += __shfl_xor_sync(0xffffffffu, r, 2);
+    r += __shfl_xor_sync(0xffffffffu, r, 4);
+    if (tid % 8 == 0) s_rs[(tid + kThreads * v) / 8] = r;
+  }
+  __syncthreads();
+
+  T* out = static_cast<T*>(p.out);
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = wm * 32 + i * 16 + g + (e / 2) * 8;
+        const int n = n0 + wn * 32 + j * 8 + 2 * t + (e % 2);
+        if (m0 + r < M && n < N)
+          out[static_cast<size_t>(m0 + r) * N + n] = from_f32<T>(w8_epilogue(p, acc[i][j][e], s_rs[r], n));
+      }
+}
+
+constexpr int kF32BM = 64, kF32BN = 64, kF32BK = 16;
+constexpr int kF32Pitch = kF32BM + 4;  // floats; 16-byte aligned rows
+
+// float32 A: CUDA-core FMAs in full float32. A is staged transposed ([k][m])
+// so that a thread's four rows are one vector load; each thread owns a 4 x 4
+// output tile. Threads 0..63 keep the row sums, in k order.
+template <bool AVEC, bool WVEC>
+__global__ void __launch_bounds__(kThreads) w8_fma_kernel(const W8Params p) {
+  __shared__ __align__(16) float sA[kF32BK * kF32Pitch];
+  __shared__ __align__(16) float sW[kF32BK * kF32Pitch];
+  __shared__ float s_rs[kF32BM];
+
+  const int tid = threadIdx.x;
+  const int ty = tid / 16, tx = tid % 16;
+  const int M = p.M, K = p.K, N = p.N;
+  const int m0 = blockIdx.x * kF32BM, n0 = blockIdx.y * kF32BN;
+  const float* a = static_cast<const float*>(p.a);
+
+  const int ar = tid / 4, ak = 4 * (tid % 4);    // A: row, first of four k
+  const int wk = tid / 16, wn = 4 * (tid % 16);  // W: k row, first of four columns
+  float4 ra;
+  uint32_t rw;
+  auto load_tile = [&](int k0) {
+    ra = m0 + ar < M ? load4<float, AVEC>(a + static_cast<size_t>(m0 + ar) * K, k0 + ak, K)
+                     : make_float4(0.f, 0.f, 0.f, 0.f);
+    rw = load_w4<WVEC>(p.w, k0 + wk, n0 + wn, K, N);
+  };
+
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  float rs = 0.f;
+
+  const int nkt = (K + kF32BK - 1) / kF32BK;
+  load_tile(0);
+  for (int kt = 0; kt < nkt; ++kt) {
+    __syncthreads();
+    sA[(ak + 0) * kF32Pitch + ar] = ra.x;
+    sA[(ak + 1) * kF32Pitch + ar] = ra.y;
+    sA[(ak + 2) * kF32Pitch + ar] = ra.z;
+    sA[(ak + 3) * kF32Pitch + ar] = ra.w;
+    *reinterpret_cast<float4*>(sW + wk * kF32Pitch + wn) =
+        make_float4(static_cast<float>(rw & 0xffu), static_cast<float>((rw >> 8) & 0xffu),
+                    static_cast<float>((rw >> 16) & 0xffu), static_cast<float>(rw >> 24));
+    __syncthreads();
+    if (kt + 1 < nkt) load_tile((kt + 1) * kF32BK);
+    if (tid < kF32BM) {
+#pragma unroll
+      for (int k = 0; k < kF32BK; ++k) rs += sA[k * kF32Pitch + tid];
+    }
+#pragma unroll
+    for (int k = 0; k < kF32BK; ++k) {
+      const float4 av = *reinterpret_cast<const float4*>(sA + k * kF32Pitch + 4 * ty);
+      const float4 wv = *reinterpret_cast<const float4*>(sW + k * kF32Pitch + 4 * tx);
+      const float ai[4] = {av.x, av.y, av.z, av.w};
+      const float wj[4] = {wv.x, wv.y, wv.z, wv.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(ai[i], wj[j], acc[i][j]);
+    }
+  }
+  if (tid < kF32BM) s_rs[tid] = rs;
+  __syncthreads();
+
+  float* out = static_cast<float*>(p.out);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = 4 * ty + i;
+    if (m0 + r >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = n0 + 4 * tx + j;
+      if (n < N) out[static_cast<size_t>(m0 + r) * N + n] = w8_epilogue(p, acc[i][j], s_rs[r], n);
+    }
+  }
+}
+
+template <typename T, bool AVEC, bool WVEC>
+cudaError_t launch_w8_mma(const W8Params& p, cudaStream_t stream) {
+  const dim3 grid((p.M + kW8BM - 1) / kW8BM, (p.N + kW8BN - 1) / kW8BN);
+  w8_mma_kernel<T, AVEC, WVEC><<<grid, kThreads, 0, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <bool AVEC, bool WVEC>
+cudaError_t launch_w8_fma(const W8Params& p, cudaStream_t stream) {
+  const dim3 grid((p.M + kF32BM - 1) / kF32BM, (p.N + kF32BN - 1) / kF32BN);
+  w8_fma_kernel<AVEC, WVEC><<<grid, kThreads, 0, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t w8_dispatch(const W8Params& p, cudaStream_t stream) {
+  const bool wvec = p.N % 4 == 0 && aligned(p.w, 4);
+  if constexpr (std::is_same<T, float>::value) {
+    const bool avec = p.K % 4 == 0 && aligned(p.a, 16);
+    if (avec) return wvec ? launch_w8_fma<true, true>(p, stream) : launch_w8_fma<true, false>(p, stream);
+    return wvec ? launch_w8_fma<false, true>(p, stream) : launch_w8_fma<false, false>(p, stream);
+  } else {
+    const bool avec = p.K % 8 == 0 && aligned(p.a, 16);
+    if (avec) return wvec ? launch_w8_mma<T, true, true>(p, stream) : launch_w8_mma<T, true, false>(p, stream);
+    return wvec ? launch_w8_mma<T, false, true>(p, stream) : launch_w8_mma<T, false, false>(p, stream);
+  }
+}
+
+}  // namespace
+
+// dtype of A and of the output: 0 = float32, 1 = float16, 2 = bfloat16.
+// A is (M, K) and W (K, N), both row-major and contiguous. ws: (N,) float32
+// scales or null (then ws_scalar). workspace, for M <= 16: ceil(N / 128)
+// zeroed counters followed by M * N zeroed int32, left zeroed; for M > 16: a
+// scratch of M * K bytes (16-byte aligned) followed by M floats.
+// Returns a cudaError_t: 0 when the launches were accepted.
+extern "C" int ostt_w8a8_dyn_matmul(int dtype, const void* a, const void* w, const void* ws,
+                                    float ws_scalar, void* out, void* workspace, int M, int K,
+                                    int N, void* stream) {
+  if (M <= 0 || K <= 0 || N <= 0 || workspace == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  DynParams p{a, static_cast<const uint8_t*>(w), static_cast<const float*>(ws), ws_scalar, out,
+              nullptr, nullptr, nullptr, nullptr, M, K, N};
+  if (M <= kGemvMaxM) {
+    p.count = static_cast<unsigned*>(workspace);
+    p.acc = reinterpret_cast<int*>(p.count + (N + kGemvCols - 1) / kGemvCols);
+  } else {
+    p.aq = static_cast<uint8_t*>(workspace);
+    p.sa = reinterpret_cast<float*>(p.aq + (static_cast<size_t>(M) * K + 15) / 16 * 16);
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0: return static_cast<int>(dyn_dispatch<float>(p, st));
+    case 1: return static_cast<int>(dyn_dispatch<__half>(p, st));
+    case 2: return static_cast<int>(dyn_dispatch<__nv_bfloat16>(p, st));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// dtype as above; W (K, N) uint8; sw / zw: (N,) float32 or null (then the
+// scalars).
+extern "C" int ostt_w8_matmul(int dtype, const void* a, const void* w, const void* sw,
+                              const void* zw, float sw_scalar, float zw_scalar, void* out, int M,
+                              int K, int N, void* stream) {
+  if (M <= 0 || K <= 0 || N <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const W8Params p{a, static_cast<const uint8_t*>(w), static_cast<const float*>(sw),
+                   static_cast<const float*>(zw), sw_scalar, zw_scalar, out, M, K, N};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0: return static_cast<int>(w8_dispatch<float>(p, st));
+    case 1: return static_cast<int>(w8_dispatch<__half>(p, st));
+    case 2: return static_cast<int>(w8_dispatch<__nv_bfloat16>(p, st));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}

@@ -1,0 +1,223 @@
+"""Weight-quantized matrix products: the hand-written CUDA kernels, their wrappers and twins.
+
+One source, ``csrc/qmatmul.cu``, replaces two TPU kernels of
+``onnxstream_tpu/kernels/qmatmul.py``:
+
+  * ``w8a8_dyn_matmul`` (the ``_w8a8_dyn_kernel`` pallas_call and its XLA
+    form ``w8a8_dyn_matmul_xla``): float (..., M, K) x symmetric int8 (K, N).
+    A is quantized per row inside the launch (``sa = max(amax, 1e-12) / 127``,
+    round half to even, clip to +-127), the dot runs s8 x s8 -> s32 and the
+    epilogue is ``acc * sa * w_scale``. The int8 TinyLlama route runs every
+    weight MatMul through it;
+  * ``w8_matmul`` (the ``_w8mm_kernel`` pallas_call): float (..., M, K) x
+    uint8 (K, N) -> ``w_scale * (a @ w - w_zero * rowsum(a))``, the uint8
+    weight converted in shared memory and never copied to a float tensor in
+    device memory. MatMuls whose weight is 2-D uint8 (``--quantize-uint8``
+    graphs, forced asymmetric storage) run through it.
+
+Scales and zero points are Python numbers (per tensor) or (N,) float32
+tensors (per output channel), which live on the device beside the weight.
+See the source for the kernels' design and what bounds them.
+
+The plain PyTorch twins (``w8a8_dyn_matmul_reference``,
+``w8_matmul_reference``) follow the kernels' order of operations: the
+dynamic twin's integer dot is exact (``aq.double() @ w.double()``:
+|acc| <= 127^2 K < 2^53), so kernel and twin agree bit for bit; the
+weight-only twin accumulates in float32 in another order.
+
+On CUDA tensors a wrapper launches its kernel on the current stream or
+raises; on CPU tensors it computes the twin. Every launch adds one to the
+wrapper's ``launches``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from onnxstream_tpu_torch.kernels import build
+
+_DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+GEMV_MAX_M = 16  # rows up to which w8a8_dyn_matmul runs as a GEMV (csrc kGemvMaxM)
+GEMV_COLS = 128  # columns per GEMV block (csrc kGemvCols)
+
+Scale = Union[float, torch.Tensor, np.ndarray]
+
+# device -> zeroed int32 workspace of the dynamic GEMV's K split (M <= 16);
+# every launch leaves it zeroed again. Launches are ordered on one stream.
+_WORKSPACE: Dict[torch.device, torch.Tensor] = {}
+_FUNCS: Dict[str, object] = {}
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_ARGTYPES = {
+    # dtype, a, w, ws, ws_scalar, out, workspace, M, K, N, stream
+    "ostt_w8a8_dyn_matmul": [_I, _P, _P, _P, _F, _P, _P, _I, _I, _I, _P],
+    # dtype, a, w, sw, zw, sw_scalar, zw_scalar, out, M, K, N, stream
+    "ostt_w8_matmul": [_I, _P, _P, _P, _P, _F, _F, _P, _I, _I, _I, _P],
+}
+
+
+def _per_channel(s: Scale, n: int, device: torch.device) -> Union[float, torch.Tensor]:
+    """A scale or zero point as a Python float, or as an (N,) float32 tensor
+    on ``device`` (a host array costs a copy per call: keep them on the
+    device)."""
+    if isinstance(s, torch.Tensor):
+        if s.ndim == 0:
+            raise ValueError("pass a per-tensor scale as a Python number, not a 0-d tensor")
+        t = s.reshape(-1)
+    elif np.ndim(s) > 0:
+        t = torch.as_tensor(np.asarray(s, np.float32).reshape(-1))
+    else:
+        return float(s)
+    if t.numel() != n:
+        raise ValueError(f"per-channel vector of {t.numel()} values for {n} columns")
+    return t.to(device=device, dtype=torch.float32)
+
+
+def _flatten(a: torch.Tensor, w: torch.Tensor, wdtype: torch.dtype, name: str) -> Tuple[torch.Tensor, int, int]:
+    if w.dtype != wdtype or w.ndim != 2:
+        raise TypeError(f"{name}: the weight must be a 2-D {wdtype} tensor, got {w.dtype} {tuple(w.shape)}")
+    if a.dtype not in _DTYPE_CODE:
+        raise TypeError(f"{name}: unsupported activation dtype {a.dtype}")
+    k, n = w.shape
+    if a.ndim < 1 or a.shape[-1] != k:
+        raise ValueError(f"{name}: shapes {tuple(a.shape)} x {tuple(w.shape)} do not chain")
+    return a.reshape(-1, k), k, n
+
+
+# --------------------------------------------------------------------- twins
+def w8a8_dyn_matmul_reference(a: torch.Tensor, w_s8: torch.Tensor, w_scale: Scale,
+                              out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Plain twin of the dynamic int8 kernel: per-row symmetric s8 quant of
+    A, exact integer dot, ``acc * sa * w_scale`` in float32."""
+    a2, k, n = _flatten(a, w_s8, torch.int8, "w8a8_dyn_matmul")
+    x = a2.float()
+    sa = x.abs().amax(dim=1, keepdim=True).clamp_min(1e-12) * (1.0 / 127.0)
+    aq = torch.round(x / sa).clamp_(-127, 127)
+    acc = (aq.double() @ w_s8.double()).float()
+    out = acc * sa * _per_channel(w_scale, n, a.device)
+    return out.to(out_dtype or a.dtype).reshape(*a.shape[:-1], n)
+
+
+def w8_matmul_reference(a: torch.Tensor, w_q: torch.Tensor, w_scale: Scale, w_zero: Scale,
+                        out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Plain twin of the weight-only kernel: float32 products of A with the
+    uint8 weight, float32 row sums, ``(acc - w_zero * rowsum) * w_scale``."""
+    a2, k, n = _flatten(a, w_q, torch.uint8, "w8_matmul")
+    x = a2.float()
+    acc = x @ w_q.float()
+    rs = x.sum(dim=1, keepdim=True)
+    out = (acc - _per_channel(w_zero, n, a.device) * rs) * _per_channel(w_scale, n, a.device)
+    return out.to(out_dtype or a.dtype).reshape(*a.shape[:-1], n)
+
+
+# ------------------------------------------------------------------ launches
+def _func(name: str):
+    """The C entry point, built and loaded at first use."""
+    fn = _FUNCS.get(name)
+    if fn is None:
+        fn = getattr(build.load("qmatmul"), name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = _ARGTYPES[name]
+        _FUNCS[name] = fn
+    return fn
+
+
+def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
+    dev = tensors[0].device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError(f"{name}: every operand must be on one CUDA device, got "
+                         f"{[str(t.device) for t in tensors]}")
+
+
+def _ptr_or_scalar(s) -> Tuple[Optional[int], float]:
+    return (s.data_ptr(), 0.0) if isinstance(s, torch.Tensor) else (None, s)
+
+
+def _workspace(device: torch.device, ints: int) -> torch.Tensor:
+    ws = _WORKSPACE.get(device)
+    if ws is None or ws.numel() < ints:
+        ws = torch.zeros(max(ints, 2 * (0 if ws is None else ws.numel())), dtype=torch.int32, device=device)
+        _WORKSPACE[device] = ws
+    return ws
+
+
+def w8a8_dyn_matmul(a: torch.Tensor, w_s8: torch.Tensor, w_scale: Scale,
+                    out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """float (..., M, K) x int8 (K, N) -> (..., M, N), per-row dynamic s8
+    activations; ``w_scale`` a number or an (N,) vector. Output in
+    ``out_dtype`` (default A's dtype).
+
+    On CUDA tensors it launches the kernel on the current stream, or raises;
+    on CPU tensors it computes the plain twin. Every launch adds one to
+    ``w8a8_dyn_matmul.launches``."""
+    if not a.is_cuda:
+        if a.device.type == "cpu":
+            return w8a8_dyn_matmul_reference(a, w_s8, w_scale, out_dtype)
+        raise ValueError(f"w8a8_dyn_matmul runs on CUDA or CPU tensors, not {a.device}")
+    a2, k, n = _flatten(a, w_s8, torch.int8, "w8a8_dyn_matmul")
+    ws = _per_channel(w_scale, n, a.device)
+    _check_cuda("w8a8_dyn_matmul", a2, w_s8, *([ws] if isinstance(ws, torch.Tensor) else []))
+    a2 = a2.contiguous()
+    w_s8 = w_s8.contiguous()
+    m = a2.shape[0]
+    out = torch.empty((m, n), dtype=a.dtype, device=a.device)
+    if out.numel():
+        if m <= GEMV_MAX_M:
+            work = _workspace(a.device, -(-n // GEMV_COLS) + m * n)
+        else:
+            # the quantized A and its row scales
+            work = torch.empty(-(-m * k // 16) * 16 + 4 * m, dtype=torch.uint8, device=a.device)
+        ws_ptr, ws_scalar = _ptr_or_scalar(ws)
+        fn = _func("ostt_w8a8_dyn_matmul")
+        with torch.cuda.device(a.device):
+            stream = torch.cuda.current_stream(a.device).cuda_stream
+            rc = fn(_DTYPE_CODE[a.dtype], a2.data_ptr(), w_s8.data_ptr(), ws_ptr, ws_scalar,
+                    out.data_ptr(), work.data_ptr(), m, k, n, stream)
+        if rc != 0:
+            raise RuntimeError(f"w8a8_dyn_matmul: kernel launch failed with CUDA error {rc}")
+        w8a8_dyn_matmul.launches += 1
+    out = out.reshape(*a.shape[:-1], n)
+    return out if out_dtype in (None, a.dtype) else out.to(out_dtype)
+
+
+def w8_matmul(a: torch.Tensor, w_q: torch.Tensor, w_scale: Scale, w_zero: Scale,
+              out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """float (..., M, K) x uint8 (K, N) -> (..., M, N) = ``w_scale * (a @ w -
+    w_zero * rowsum(a))``; scale and zero point numbers or (N,) vectors.
+    Output in ``out_dtype`` (default A's dtype).
+
+    On CUDA tensors it launches the kernel on the current stream, or raises;
+    on CPU tensors it computes the plain twin. Every launch adds one to
+    ``w8_matmul.launches``."""
+    if not a.is_cuda:
+        if a.device.type == "cpu":
+            return w8_matmul_reference(a, w_q, w_scale, w_zero, out_dtype)
+        raise ValueError(f"w8_matmul runs on CUDA or CPU tensors, not {a.device}")
+    a2, k, n = _flatten(a, w_q, torch.uint8, "w8_matmul")
+    sw = _per_channel(w_scale, n, a.device)
+    zw = _per_channel(w_zero, n, a.device)
+    _check_cuda("w8_matmul", a2, w_q, *[v for v in (sw, zw) if isinstance(v, torch.Tensor)])
+    a2 = a2.contiguous()
+    w_q = w_q.contiguous()
+    m = a2.shape[0]
+    out = torch.empty((m, n), dtype=a.dtype, device=a.device)
+    if out.numel():
+        sw_ptr, sw_scalar = _ptr_or_scalar(sw)
+        zw_ptr, zw_scalar = _ptr_or_scalar(zw)
+        fn = _func("ostt_w8_matmul")
+        with torch.cuda.device(a.device):
+            stream = torch.cuda.current_stream(a.device).cuda_stream
+            rc = fn(_DTYPE_CODE[a.dtype], a2.data_ptr(), w_q.data_ptr(), sw_ptr, zw_ptr, sw_scalar,
+                    zw_scalar, out.data_ptr(), m, k, n, stream)
+        if rc != 0:
+            raise RuntimeError(f"w8_matmul: kernel launch failed with CUDA error {rc}")
+        w8_matmul.launches += 1
+    out = out.reshape(*a.shape[:-1], n)
+    return out if out_dtype in (None, a.dtype) else out.to(out_dtype)
+
+
+w8a8_dyn_matmul.launches = 0
+w8_matmul.launches = 0

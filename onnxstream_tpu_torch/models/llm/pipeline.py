@@ -34,7 +34,7 @@ import torch.nn.functional as F
 from onnxstream_tpu_torch.dtypes import dtype_name, to_torch
 from onnxstream_tpu_torch.models.llm.llama import LlamaConfig, build_llama
 from onnxstream_tpu_torch.models.llm.tokenizer import SentencePieceBPE, chat_template
-from onnxstream_tpu_torch.runtime.config import SessionConfig
+from onnxstream_tpu_torch.runtime.config import SessionConfig, default_device
 from onnxstream_tpu_torch.runtime.session import Session
 from onnxstream_tpu_torch.runtime.weights import DictWeightsProvider
 
@@ -75,10 +75,6 @@ class LlamaPipeline:
         mesh=None,
         device: Optional[torch.device] = None,
     ):
-        if int8_weights:
-            raise NotImplementedError(
-                "int8_weights needs the quantized executor paths and the w8a8_dyn_matmul / "
-                "w8_matmul kernels (ROADMAP Queue 1 item 2, Queue 2 items 3-4)")
         if synthetic_on_device:
             raise NotImplementedError(
                 "synthetic_on_device needs device-side weight synthesis "
@@ -87,11 +83,14 @@ class LlamaPipeline:
             raise NotImplementedError(
                 "a mesh (tensor-parallel decode) needs torch.distributed sharding "
                 "(ROADMAP Queue 1 item 10)")
-        if device is None:
-            raise ValueError("LlamaPipeline needs a device, e.g. torch.device('cuda:0') or 'cpu'")
         self.cfg = cfg
         self.compute_dtype = compute_dtype
-        self.device = torch.device(device)
+        # None: the first CUDA card (raises without one); the CPU only when asked
+        self.device = default_device() if device is None else torch.device(device)
+        # int8 weights: every 2-D floating MatMul weight is quantized at first
+        # fetch to symmetric per-channel s8 (force_uint8_storage_set) and its
+        # MatMuls run through kernels/qmatmul.w8a8_dyn_matmul: decode reads 1
+        # byte per weight instead of 2
         self.int8_weights = int8_weights
         self.synthetic_on_device = synthetic_on_device
         self.mesh = mesh
@@ -117,6 +116,8 @@ class LlamaPipeline:
             compute_dtype=self.compute_dtype,
             fuse_ops_in_attention=True,
             use_scaled_dp_attn_op=True,
+            uint8_per_channel=True,
+            int8_symmetric_storage=True,
             shared_device_weight_cache=self._shared_dev_weights,
             requires_upcast=_upcast_rmsnorm,
             device=self.device,
@@ -148,6 +149,21 @@ class LlamaPipeline:
                         f"provided names look like "
                         f"{sorted(self._ext_weights)[:3]} — refusing to run "
                         f"on random builder weights")
+            force_u8 = set()
+            if self.int8_weights:
+                # every 2-D floating MatMul weight, classified on the arrays
+                force_u8 = {
+                    op.inputs[1].name
+                    for op in g.ops
+                    if op.op_type == "MatMul"
+                    and len(op.inputs) == 2
+                    and op.inputs[1].name in weights
+                    and np.ndim(weights[op.inputs[1].name]) == 2
+                    and np.issubdtype(
+                        getattr(weights[op.inputs[1].name], "dtype", np.dtype(np.int64)),
+                        np.floating,
+                    )
+                }
             model = set(self._weight_bank) | set(self._ext_weights or ())
             params = {}
             for name, arr in weights.items():
@@ -157,7 +173,9 @@ class LlamaPipeline:
                     params[name] = self._host_params[name]
                 else:  # this graph's own constants
                     params[name] = _host_tensor(arr)
-            s = Session(config=self._session_config(), weights_provider=DictWeightsProvider(params))
+            cfg = self._session_config()
+            cfg.force_uint8_storage_set = force_u8
+            s = Session(config=cfg, weights_provider=DictWeightsProvider(params))
             s.read_string(g.to_text())
             self._sessions[key] = s
         return s
@@ -174,6 +192,10 @@ class LlamaPipeline:
             self.kv = [F.pad(a, (0, 0, 0, P - curP)) for a in self.kv]
             return P
         return curP
+
+    def quantize_seconds(self) -> float:
+        """Host seconds spent quantizing weights at first fetch (int8_weights)."""
+        return sum(ex.quantize_seconds for s in self._sessions.values() for ex in s._executors.values())
 
     def device_weight_bytes(self) -> int:
         """Bytes of the distinct device weight tensors over all sessions."""

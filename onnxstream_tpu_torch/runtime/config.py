@@ -10,6 +10,9 @@ Options the port does not implement yet are kept as fields so that code
 written for the JAX package keeps its spelling, but setting one to a
 non-default value raises ``NotImplementedError``: nothing is ignored
 silently.
+
+``device=None`` means the first CUDA card (``default_device``); with no card
+that raises, so nothing runs on the CPU unless the caller asks for it.
 """
 
 from __future__ import annotations
@@ -19,6 +22,18 @@ from typing import Callable, List, Optional, Set
 
 import torch
 
+
+def default_device() -> torch.device:
+    """The device an entry point runs on when the caller names none: the
+    first CUDA card. Raises when there is none; the CPU is used only when
+    asked for (``torch.device("cpu")``)."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: onnxstream_tpu_torch runs on an NVIDIA GPU card unless the caller "
+            "asks for the CPU (device=torch.device('cpu'), or --device cpu)")
+    return torch.device("cuda", 0)
+
+
 # name -> default value of options that exist in the JAX package but are not
 # implemented in the port yet
 _NOT_IMPLEMENTED = {
@@ -26,9 +41,8 @@ _NOT_IMPLEMENTED = {
     "fuse_gn_conv": False,  # ostpu.gn_silu_conv (TPU kernel gn_silu_conv_pallas)
     "use_pallas_smallconv": False,  # im2col conv (TPU kernel matmul_pallas)
     "flash_packed_nopad": False,  # head-major flash route (TPU kernel flash_attention)
-    "use_uint8_qdq": False,  # quantize pushed intermediates
-    "use_uint8_arithmetic": False,  # W8A8 (TPU kernels qmatmul / qconv)
-    "int8_symmetric_storage": False,  # s8 storage (TPU kernel w8a8_dyn_matmul)
+    "use_uint8_qdq": False,  # quantize pushed intermediates (executor _maybe_qdq)
+    "use_uint8_arithmetic": False,  # W8A8 _qlinear_mode (TPU kernels qmatmul / qconv)
     "force_fp16_storage": False,
     "use_nhwc_layout": False,  # channel-last graph rewrite
     "synthetic_device_weights": False,  # weights generated on the device
@@ -47,7 +61,13 @@ class SessionConfig:
     ops_times_printf: bool = False  # cumulative per-op-type ms (onnxstream.cpp:8199)
     extra_outputs: List[str] = dataclasses.field(default_factory=list)
     weights_exclusion_set: Set[str] = dataclasses.field(default_factory=set)
+    # float weights quantized at first fetch and stored as uint8 (int8 with
+    # int8_symmetric_storage), dequantized on read or run by the kernels of
+    # kernels/qmatmul.py (reference force_uint8_storage, onnxstream.cpp:3764)
     force_uint8_storage_set: Set[str] = dataclasses.field(default_factory=set)
+    # per-output-channel (scale, zp) when force-quantizing 2-D weights (the
+    # reference quantizes per tensor); consumed by w8_matmul's epilogue
+    uint8_per_channel: bool = False
     # (op_type, op_name) -> bool: run that op in float32 and cast its float
     # outputs back to the compute dtype (the reference's m_requires_upcast;
     # the llama pipeline's RMSNorms)
@@ -64,12 +84,23 @@ class SessionConfig:
     # upload bytes fit this budget (0 = one segment, weights stay resident)
     hbm_budget_bytes: int = 0
     strict_shapes: bool = True  # enforce model.txt declared shapes (check_output_shape)
-    # where device ops run; never chosen implicitly
+    # where device ops run; None = the first CUDA card (default_device)
     device: Optional[torch.device] = None
     # share resident device weights across Sessions/executors (the LLM
     # prefill and decode-bucket graphs reuse one upload); see
     # executor.SHARED_CACHE_MIN_BYTES for which weights it holds
     shared_device_weight_cache: Optional[dict] = None
+    # MatMuls whose weight is 2-D uint8 (from the file or forced) run through
+    # the weight-only kernel (kernels/qmatmul.w8_matmul): the weight stays 1
+    # byte per element on the device and is dequantized inside the product
+    use_w8_matmul: bool = True
+    # store force-quantized 2-D weights as symmetric per-channel int8 (zero
+    # point 0) instead of asymmetric uint8 ...
+    int8_symmetric_storage: bool = False
+    # ... and run their MatMuls through the dynamic-activation int8 kernel
+    # (kernels/qmatmul.w8a8_dyn_matmul): activations quantize per row to s8
+    # inside the launch and the dot runs s8 x s8 -> s32
+    use_w8a8_dyn_matmul: bool = True
 
     # not implemented yet: must keep their defaults (see _NOT_IMPLEMENTED)
     fuse_groupnorm: bool = False
@@ -78,7 +109,6 @@ class SessionConfig:
     flash_packed_nopad: bool = False
     use_uint8_qdq: bool = False
     use_uint8_arithmetic: bool = False
-    int8_symmetric_storage: bool = False
     force_fp16_storage: bool = False
     use_nhwc_layout: bool = False
     synthetic_device_weights: bool = False
@@ -94,10 +124,6 @@ class SessionConfig:
                 raise NotImplementedError(
                     f"SessionConfig.{name}={getattr(self, name)!r} is not implemented "
                     "in onnxstream_tpu_torch yet")
-        if self.force_uint8_storage_set:
-            raise NotImplementedError(
-                "force_uint8_storage_set (uint8 weight storage) is not implemented "
-                "in onnxstream_tpu_torch yet")
 
     @property
     def torch_compute_dtype(self) -> torch.dtype:
@@ -119,6 +145,9 @@ class SessionConfig:
             "ops_times_printf": lambda v: setattr(self, "ops_times_printf", v),
             "use_flash_attention": lambda v: setattr(self, "use_flash_attention", v),
             "fuse_attention_heads": lambda v: setattr(self, "fuse_attention_heads", v),
+            "use_w8_matmul": lambda v: setattr(self, "use_w8_matmul", v),
+            "int8_symmetric_storage": lambda v: setattr(self, "int8_symmetric_storage", v),
+            "use_w8a8_dyn_matmul": lambda v: setattr(self, "use_w8a8_dyn_matmul", v),
         }
         value = bool(value)
         if name in _NOT_IMPLEMENTED:

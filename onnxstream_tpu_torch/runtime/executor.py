@@ -27,10 +27,20 @@ a decode step then makes no host copy and no host sync. Resident weights of
 at least ``SHARED_CACHE_MIN_BYTES`` live in ``shared_device_weight_cache``
 when the config gives one, so sessions that share it upload them once.
 
-The quantized paths of the JAX executor (``_qlinear_mode``, ``_w8_weight``,
-``_dyn_s8_weight``, ``_maybe_qdq``) are not ported: a graph with uint8
-weights raises at construction, and ``use_uint8_qdq`` is refused by
-SessionConfig.
+Quantized weights (JAX ``_maybe_force_quant``, ``_w8_weight``,
+``_dyn_s8_weight``): a weight in ``force_uint8_storage_set`` is quantized on
+the host at first fetch (symmetric per-channel int8 with
+``int8_symmetric_storage``, else percentile uint8, per channel with
+``uint8_per_channel``) and uploaded at 1 byte per element; its per-channel
+scales and zero points go to the device with it, once. A MatMul whose weight
+is 2-D and quantized runs through a hand-written kernel of
+``kernels/qmatmul.py``: ``w8a8_dyn_matmul`` for symmetric int8 weights
+(``use_w8a8_dyn_matmul``), ``w8_matmul`` for uint8 weights, from the file
+(``uint8[scale,zp]``) or forced (``use_w8_matmul``); the activation is cast
+to the compute dtype first. Every other quantized weight is dequantized on
+read, per-channel scales broadcasting on the last axis. The W8A8 paths with
+calibrated ranges (``_qlinear_mode``, ``_maybe_qdq``) are not ported:
+SessionConfig refuses ``use_uint8_arithmetic`` and ``use_uint8_qdq``.
 """
 
 from __future__ import annotations
@@ -38,15 +48,21 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import time
-from typing import Any, Dict, List, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from onnxstream_tpu_torch.dtypes import to_torch
 from onnxstream_tpu_torch.ir import OpNode
+from onnxstream_tpu_torch.kernels.qmatmul import w8_matmul, w8a8_dyn_matmul
 from onnxstream_tpu_torch.ops import Ctx, get_impl
 from onnxstream_tpu_torch.runtime.planner import Plan, WeightArg
+from onnxstream_tpu_torch.runtime.quantization import (
+    quantize_weight_percentile,
+    quantize_weight_percentile_per_channel,
+    quantize_weight_symmetric_per_channel,
+)
 from onnxstream_tpu_torch.runtime.weights import WeightsProvider
 
 
@@ -170,12 +186,6 @@ def _to_host(v) -> np.ndarray:
 
 class Executor:
     def __init__(self, plan: Plan, provider: WeightsProvider):
-        quant = [w.name for w in plan.arg_weights if w.quant is not None]
-        if quant:
-            raise NotImplementedError(
-                f"uint8 weights ({quant[0]!r} and {len(quant) - 1} more) need the quantized "
-                "paths (_qlinear_mode, _w8_weight, _dyn_s8_weight), which onnxstream_tpu_torch "
-                "does not implement yet")
         self.plan = plan
         self.graph = plan.graph
         self.config = plan.config
@@ -200,14 +210,49 @@ class Executor:
         upcast = self.config.requires_upcast
         self._upcast = frozenset() if upcast is None else frozenset(
             i for i, op in enumerate(self.graph.ops) if upcast(op.op_type, op.name))
+        self._arg_by_name = {w.name: w for w in plan.arg_weights}
+        # op index -> the quantized kernel its MatMul runs through
+        self._qroute = {i: r for i, op in enumerate(self.graph.ops)
+                        if plan.op_modes[i] == "device" and (r := self._quant_route(i, op))}
+        # host seconds spent quantizing force_uint8_storage_set weights
+        self.quantize_seconds = 0.0
         provider.on_init(plan.stream_entries())
         self._first_run_done = False
 
     # ------------------------------------------------------------- weights
+    def _maybe_force_quant(self, w: WeightArg, host: torch.Tensor) -> Optional[torch.Tensor]:
+        """force_uint8_storage_set: quantize a float weight on the host at
+        fetch time and return it (None for any other weight); its (scale,
+        zero point) land on the WeightArg, vectors on the device (reference
+        storage demotion, src/onnxstream.cpp:3764-3808; JAX
+        ``Executor._maybe_force_quant``)."""
+        if (w.name not in self.config.force_uint8_storage_set or not w.file_dtype.is_float
+                or host.dtype in (torch.uint8, torch.int8)):
+            return None
+        t0 = time.perf_counter()
+        a32 = host.float().numpy()
+        if w.symmetric:
+            # symmetric per-channel s8, the storage form of w8a8_dyn_matmul
+            q, scale = quantize_weight_symmetric_per_channel(a32)
+            quant = (scale, 0.0)
+        elif self.config.uint8_per_channel and a32.ndim == 2:
+            q, scale, zero = quantize_weight_percentile_per_channel(a32)
+            quant = (scale, zero)
+        else:
+            q, scale, zero = quantize_weight_percentile(a32)
+            quant = (scale, zero)
+        self.quantize_seconds += time.perf_counter() - t0
+        w.quant = tuple(torch.from_numpy(v).to(self.device) if isinstance(v, np.ndarray) else v
+                        for v in quant)
+        return torch.from_numpy(q)
+
     def _upload(self, w: WeightArg) -> torch.Tensor:
-        """Provider fetch -> upload dtype on the host -> pinned -> device."""
+        """Provider fetch -> upload dtype on the host (quantized for
+        force_uint8_storage_set) -> pinned -> device."""
         host = self.provider.get(w.name, w.file_dtype, w.shape)
-        conv = host.to(w.upload_dtype)
+        conv = self._maybe_force_quant(w, host)
+        if conv is None:
+            conv = host.to(w.upload_dtype)
         if self.device.type != "cuda":
             return conv.to(self.device)
         return conv.pin_memory().to(self.device, non_blocking=True)
@@ -225,15 +270,22 @@ class Executor:
         out: Dict[str, torch.Tensor] = {}
         for w in seg.weight_args:
             cache, key = self._cache_slot(w)
-            dev = cache.get(key)
-            if dev is None:
+            hit = cache.get(key)
+            if hit is None:
                 dev = self._upload(w)
                 if resident:
-                    cache[key] = dev
+                    cache[key] = (dev, w.quant, w.symmetric)
                     # the device copy owns the weight now (reference
                     # WeightsProvider::remove); weights_exclusion_set opts out
                     if w.name not in self.config.weights_exclusion_set:
                         self.provider.remove(w.name)
+            else:
+                # a hit uploaded by another executor carries the quantization
+                # parameters to this executor's WeightArg, whose forced
+                # weights still hold the planner's placeholder
+                dev, quant, symmetric = hit
+                if quant is not None:
+                    w.quant, w.symmetric = quant, symmetric
             out[w.name] = dev
         return out
 
@@ -242,22 +294,73 @@ class Executor:
 
     def device_weights(self) -> List[torch.Tensor]:
         """The resident device weights this executor uses (shared ones
-        included), for counting device memory across sessions."""
+        included) and their per-channel scales and zero points, for counting
+        device memory across sessions."""
         out = []
         for w in self.plan.arg_weights:
             cache, key = self._cache_slot(w)
             if key in cache:
-                out.append(cache[key])
+                dev, quant, _ = cache[key]
+                out.append(dev)
+                out.extend(v for v in quant or () if isinstance(v, torch.Tensor))
         return out
 
+    @property
+    def quant_routes(self) -> Dict[str, str]:
+        """MatMul op name -> the quantized kernel it runs through."""
+        return {self.graph.ops[i].name: r for i, r in self._qroute.items()}
+
+    def _quant_route(self, oi: int, op: OpNode) -> Optional[str]:
+        """The kernel of a MatMul whose weight is 2-D and quantized (JAX
+        ``_dyn_s8_weight`` and ``_w8_weight``): ``w8a8_dyn_matmul`` for
+        symmetric int8 storage, ``w8_matmul`` for uint8; None otherwise, and
+        for ops run in float32 (requires_upcast)."""
+        if op.op_type != "MatMul" or len(op.inputs) != 2 or oi in self._upcast:
+            return None
+        t = op.inputs[1]
+        if not (t.is_weight and t.name) or t.name in self.plan.static_weights:
+            return None
+        w = self._arg_by_name.get(t.name)
+        if w is None or w.quant is None or len(w.shape) != 2:
+            return None
+        if w.symmetric:
+            return "w8a8_dyn_matmul" if self.config.use_w8a8_dyn_matmul else None
+        return "w8_matmul" if self.config.use_w8_matmul else None
+
     # --------------------------------------------------------------- op eval
+    def _eval_qmatmul(self, route: str, op: OpNode, env: Dict[str, Any],
+                      weights_env: Dict[str, Any]) -> torch.Tensor:
+        w = self._arg_by_name[op.inputs[1].name]
+        aname = op.inputs[0].name
+        a = self.plan.static_env.get(aname, env.get(aname))
+        if not isinstance(a, torch.Tensor):
+            a = Ctx("device", self.config, op.name, device=self.device, consts=self._consts).tensor(a)
+        cdt = self.config.torch_compute_dtype
+        if a.is_floating_point() and a.dtype != cdt:
+            a = a.to(cdt)
+        scale, zero = w.quant
+        if route == "w8a8_dyn_matmul":
+            return w8a8_dyn_matmul(a, weights_env[w.name], scale, out_dtype=cdt)
+        return w8_matmul(a, weights_env[w.name], scale, zero, out_dtype=cdt)
+
     def _eval_op(self, oi: int, op: OpNode, env: Dict[str, Any], weights_env: Dict[str, Any]):
+        route = self._qroute.get(oi)
+        if route is not None:
+            return [self._eval_qmatmul(route, op, env, weights_env)]
         ins: List[Any] = []
         for t in op.inputs:
             if not t.name:
                 ins.append(None)
             elif t.is_weight:
-                ins.append(self.plan.static_weights.get(t.name, weights_env.get(t.name)))
+                v = self.plan.static_weights.get(t.name)
+                if v is None:
+                    v = weights_env[t.name]
+                    quant = self._arg_by_name[t.name].quant
+                    if quant is not None:
+                        # dequantize on read (reference src/onnxstream.cpp:2885-2909)
+                        scale, zero = quant
+                        v = ((v.float() - zero) * scale).to(self.config.torch_compute_dtype)
+                ins.append(v)
             elif t.name in self.plan.static_env:
                 ins.append(self.plan.static_env[t.name])
             else:

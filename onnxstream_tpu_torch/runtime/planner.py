@@ -56,7 +56,12 @@ class WeightArg:
     file_dtype: DType
     upload_dtype: torch.dtype  # dtype of the device copy
     shape: Tuple[int, ...]
-    quant: Optional[Tuple[float, int]] = None  # (scale, zero_point) if uint8
+    # (scale, zero_point) of a quantized weight: floats per tensor, or (N,)
+    # float32 device tensors per output channel (force_uint8_storage_set
+    # fills them in at first fetch; (0.0, 0) until then)
+    quant: Optional[Tuple[Any, Any]] = None
+    # symmetric per-channel int8 storage (int8_symmetric_storage, 2-D only)
+    symmetric: bool = False
 
 
 @dataclasses.dataclass
@@ -81,7 +86,14 @@ class Plan:
 
 def _upload_dtype(spec: TensorSpec, config: SessionConfig) -> torch.dtype:
     """The dtype a weight is uploaded in: float weights travel in the compute
-    dtype (converted once on the host), everything else in its file dtype."""
+    dtype (converted once on the host), uint8 weights stay uint8, weights in
+    ``force_uint8_storage_set`` are quantized at first fetch to int8 (2-D,
+    ``int8_symmetric_storage``) or uint8, everything else keeps its file
+    dtype (JAX ``planner._upload_dtype``)."""
+    if spec.name in config.force_uint8_storage_set and spec.dtype.is_float:
+        if config.int8_symmetric_storage and len(spec.shape) == 2:
+            return torch.int8
+        return torch.uint8
     if spec.dtype.is_float:
         return config.torch_compute_dtype
     return spec.dtype.torch
@@ -152,12 +164,18 @@ class _Planner:
     def _promote_weight_to_arg(self, spec: TensorSpec) -> WeightArg:
         w = self._arg_set.get(spec.name)
         if w is None:
+            quant = (spec.scale, spec.zero_point) if spec.dtype == DType.uint8 else None
+            symmetric = False
+            if quant is None and spec.name in self.config.force_uint8_storage_set and spec.dtype.is_float:
+                quant = (0.0, 0)  # placeholder; the executor sets the real ones at first fetch
+                symmetric = self.config.int8_symmetric_storage and len(spec.shape) == 2
             w = WeightArg(
                 name=spec.name,
                 file_dtype=spec.dtype,
                 upload_dtype=_upload_dtype(spec, self.config),
                 shape=spec.shape,
-                quant=(spec.scale, spec.zero_point) if spec.dtype == DType.uint8 else None,
+                quant=quant,
+                symmetric=symmetric,
             )
             self._arg_set[spec.name] = w
             self.arg_weights.append(w)

@@ -6,7 +6,9 @@ add_extra_output. One Session owns one parsed Graph and builds one Plan +
 Executor per input-shape bucket; repeated shapes reuse the cached executor
 (and its resident device weights).
 
-The device is explicit: ``SessionConfig.device`` must be set.
+``SessionConfig.device`` names the device; left at None it is the first CUDA
+card, and with no card the Session raises: it runs on the CPU only when
+asked to (``torch.device("cpu")``).
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ import torch
 
 from onnxstream_tpu_torch.dtypes import DType, dtype_name
 from onnxstream_tpu_torch.ir import Graph, parse_model_txt
-from onnxstream_tpu_torch.runtime.config import SessionConfig
+from onnxstream_tpu_torch.runtime.config import SessionConfig, default_device
 from onnxstream_tpu_torch.runtime.executor import Executor
 from onnxstream_tpu_torch.runtime.fusion import fuse_attention
 from onnxstream_tpu_torch.runtime.planner import ShapeDtype, plan_graph
@@ -35,8 +37,7 @@ class Session:
     ):
         self.config = config or SessionConfig()
         if self.config.device is None:
-            raise ValueError(
-                "SessionConfig.device must be set, e.g. torch.device('cuda:0') or torch.device('cpu')")
+            self.config.device = default_device()
         self._provider = weights_provider
         self._provider_name = weights_provider_name
         self.graph: Optional[Graph] = None

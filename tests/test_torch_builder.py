@@ -62,7 +62,8 @@ def test_import_pulls_in_neither_jax_nor_ml_dtypes():
         "import sys, onnxstream_tpu_torch\n"
         "import onnxstream_tpu_torch.models.sd.unet, onnxstream_tpu_torch.kernels.flash_attention\n"
         "import onnxstream_tpu_torch.models.llm.pipeline, onnxstream_tpu_torch.cli.llm_main\n"
-        "import onnxstream_tpu_torch.models.llm.hf\n"
+        "import onnxstream_tpu_torch.models.llm.hf, onnxstream_tpu_torch.kernels.qmatmul\n"
+        "import onnxstream_tpu_torch.runtime.quantization, onnxstream_tpu_torch.convert.quantize\n"
         "bad = [m for m in ('jax', 'ml_dtypes', 'onnxstream_tpu') if m in sys.modules]\n"
         "assert not bad, bad\n"
     )

@@ -232,8 +232,17 @@ def test_device_weights_uploaded_once_across_sessions():
 @pytest.mark.parametrize("option", ["int8_weights", "synthetic_on_device", "mesh", "device"])
 def test_unported_options_raise(option):
     if option == "device":
-        with pytest.raises(ValueError, match="device"):
-            LlamaPipeline(LLAMA_TINY)
+        # None means the first CUDA card; without one it names the missing card
+        if torch.cuda.is_available():
+            assert LlamaPipeline(LLAMA_TINY).device == torch.device("cuda", 0)
+        else:
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                LlamaPipeline(LLAMA_TINY)
+        return
+    if option == "int8_weights":
+        # ported: the int8 route runs (test_int8_pipeline_matches_jax holds it against JAX)
+        p = LlamaPipeline(LLAMA_TINY, buckets=list(BUCKETS), device=CPU, int8_weights=True)
+        assert 0 <= p.forward(PROMPT)[0] < LLAMA_TINY.vocab_size
         return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         LlamaPipeline(LLAMA_TINY, device=CPU, **{option: object() if option == "mesh" else True})
@@ -314,3 +323,51 @@ def test_requires_upcast_is_asked_once_per_op_not_per_run():
 def test_cli_refuses_download_whatever_the_source(source):
     with pytest.raises(NotImplementedError, match="--download"):
         port_cli(source + ["--download", "--device", "cpu", "--prompt", "hi"])
+
+
+@pytest.fixture(scope="module")
+def jax_int8_ref():
+    j = JaxPipeline(jax_llama.LLAMA_TINY, buckets=list(BUCKETS), int8_weights=True)
+    ref = {"logits": _logit_trace(j)}
+    j.reset()
+    ref["tokens"] = j.generate(PROMPT, max_new_tokens=8)
+    return ref
+
+
+def test_int8_pipeline_matches_jax(jax_int8_ref):
+    """int8_weights, float32: every 2-D MatMul weight stored as symmetric
+    per-channel s8 and run through w8a8_dyn_matmul in prefill and decode (the
+    JAX executor: w8a8_dyn_matmul_xla). Logits within 1e-3 * max, greedy
+    tokens equal."""
+    p = _port(int8_weights=True)
+    for g, w in zip(_logit_trace(p), jax_int8_ref["logits"]):
+        assert float(np.abs(g - w).max()) <= 1e-3 * float(np.abs(w).max())
+    p.reset()
+    assert p.generate(PROMPT, max_new_tokens=8) == jax_int8_ref["tokens"]
+    assert p.quantize_seconds() > 0
+    routes = 7 * LLAMA_TINY.layers + 1
+    for key, s in p._sessions.items():
+        ex = next(iter(s._executors.values()))
+        assert len(ex.quant_routes) == routes and set(ex.quant_routes.values()) == {"w8a8_dyn_matmul"}, key
+
+
+def test_int8_bucket_sessions_share_weights_with_their_scales():
+    """The bucket sessions share one upload of every weight of at least 1 MiB
+    (here the embedding and the 64 x 16384 int8 LM head); a session that
+    finds a weight in the shared cache takes its (N,) scales too, never the
+    planner's placeholder (its MatMul would read as zeros). Smaller weights
+    are quantized per executor, to the same scales."""
+    cfg = dataclasses.replace(LLAMA_TINY, vocab_size=16384)
+    p = LlamaPipeline(cfg, buckets=list(BUCKETS), device=CPU, int8_weights=True)
+    p.forward(PROMPT)
+    p.decode_on_device(7, 4)
+    assert len(p._sessions) == 2
+    assert sorted(k[0] for k in p._shared_dev_weights) == ["lm_head.weight.bin", "model.embed_tokens.weight.bin"]
+    args = [{w.name: w for w in next(iter(s._executors.values())).plan.arg_weights} for s in p._sessions.values()]
+    forced = [n for n, w in args[0].items() if w.symmetric]
+    assert len(forced) == 7 * cfg.layers + 1 and "lm_head.weight.bin" in forced
+    for n in forced:
+        w0, w1 = args[0][n], args[1][n]
+        assert isinstance(w1.quant[0], torch.Tensor) and tuple(w1.quant[0].shape) == (w1.shape[1],)
+        assert w1.quant[1] == 0.0 and torch.equal(w0.quant[0], w1.quant[0])
+    assert args[1]["lm_head.weight.bin"].quant[0] is args[0]["lm_head.weight.bin"].quant[0]

@@ -107,23 +107,56 @@ def test_unimplemented_options_raise(name):
 
 
 def test_session_requires_a_device_and_known_options():
-    with pytest.raises(ValueError, match="device"):
-        Session(SessionConfig())
+    """device=None means the first CUDA card: without one the Session names
+    the missing card instead of running on the CPU."""
+    if torch.cuda.is_available():
+        assert Session(SessionConfig()).config.device == torch.device("cuda", 0)
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            Session(SessionConfig())
     with pytest.raises(ValueError, match="unknown option"):
         Session(SessionConfig(device=CPU)).set_option("no_such_option", True)
 
 
 def test_quantized_weights_and_unported_ops_raise():
-    """uint8 weights need the quantized executor paths, and ops outside the
-    slice have no impl: both refuse instead of computing something else."""
-    s = Session(SessionConfig(device=CPU),
-                weights_provider=DictWeightsProvider({"w": torch.zeros(3, 2, dtype=torch.uint8)}))
+    """uint8 weights run through the weight-only route (w8_matmul), and ops
+    outside the slice have no impl: they refuse instead of computing
+    something else."""
+    w = torch.tensor([[0, 255], [3, 7], [128, 1]], dtype=torch.uint8)
+    s = Session(SessionConfig(device=CPU), weights_provider=DictWeightsProvider({"w": w}))
     s.read_string("t/mm:MatMul*input:a(2,3);w(uint8[0.5,3]:3,2)*output:y(2,2)")
-    s.add_tensor("a", np.ones((2, 3), np.float32))
-    with pytest.raises(NotImplementedError, match="_w8_weight"):
-        s.run()
+    a = np.array([[1.0, 2.0, -1.0], [0.5, 0.0, 4.0]], np.float32)
+    s.add_tensor("a", a)
+    np.testing.assert_allclose(s.run()["y"], a @ ((w.numpy().astype(np.float32) - 3) * 0.5), rtol=1e-6)
+    assert s._executor().quant_routes == {"t/mm": "w8_matmul"}
     s = Session(SessionConfig(device=CPU))
     s.read_string("t/sm:Softmax*input:a(2,3)*output:y(2,3)*axis:-1")
     s.add_tensor("a", np.ones((2, 3), np.float32))
     with pytest.raises(PlanError, match="Softmax"):
         s.run()
+
+
+def test_tiny_unet_from_quantize_graph_weights_matches_jax(tiny):
+    """A ``--quantize-uint8`` graph (per-tensor uint8[scale,zp] weights, the
+    converter's exclusions, no range data): every 2-D uint8 MatMul weight runs
+    through w8_matmul (the JAX executor: its Pallas kernel in interpret mode),
+    Conv and other uint8 weights dequantize on read. float32, within
+    1e-4 * max|jax|."""
+    from onnxstream_tpu_torch.convert.quantize import quantize_graph_weights
+
+    g, inputs = tiny
+    text, weights = quantize_graph_weights(g.to_text(), g.weights)
+    ps = Session(SessionConfig(device=CPU), weights_provider=DictWeightsProvider(params_from_numpy(weights)))
+    js = JaxSession(JaxConfig(), weights_provider=JaxDict(weights))
+    for s in (ps, js):
+        s.read_string(text)
+        for k, v in inputs.items():
+            s.add_tensor(k, v)
+    got, want = ps.run()["out_sample"], js.run()["out_sample"]
+    assert float(np.abs(got - want).max()) <= 1e-4 * float(np.abs(want).max())
+    ex = ps._executor()
+    u8_matmuls = [op.name for op in ps.graph.ops if op.op_type == "MatMul" and len(op.inputs) == 2
+                  and op.inputs[1].is_weight and ex._arg_by_name.get(op.inputs[1].name) is not None
+                  and ex._arg_by_name[op.inputs[1].name].quant is not None]
+    assert u8_matmuls and ex.quant_routes == {n: "w8_matmul" for n in u8_matmuls}
+    assert any(w.quant is not None and len(w.shape) == 4 for w in ex.plan.arg_weights)  # u8 convs
