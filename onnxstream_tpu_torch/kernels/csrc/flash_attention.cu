@@ -24,11 +24,10 @@
 // memory: head dims that are not a power of two are zero-filled in shared
 // memory, and the QK^T loop runs over the real D only.
 //
-// Grid. One CTA of 128 threads per (q-tile, head, batch); the CTA walks the KV
-// axis in a loop (the sequential grid axis of the TPU kernel), with K/V tiles
-// staged in shared memory and the running max, sum and output accumulator in
-// registers. Two variants, chosen by dtype, head dim and alignment in
-// dispatch():
+// Grid. One CTA per (q-tile, head, batch); the CTA walks the KV axis in a loop
+// (the sequential grid axis of the TPU kernel), with K/V tiles staged in
+// shared memory and the running max, sum and output accumulator in registers.
+// Three variants, chosen by dtype, head dim and alignment in dispatch():
 //
 //  * fa_mma_kernel (bf16 / fp16, head dims <= 128, 16-byte aligned Q/V/O
 //    rows): tensor-core products with mma.sync m16n8k16, f32 accumulate. Each
@@ -36,17 +35,23 @@
 //    as the A operand of the PV product (the FlashAttention-2 layout), so P
 //    never touches shared memory. The softmax scale is applied in float32
 //    (one FMA per score) instead of rounding a scaled Q to bf16.
-//  * fa_fma_kernel (fp32, any head dim up to 256, any alignment): CUDA-core
-//    FMAs on float32 tiles; each thread owns an RM x (BN/8) score tile and an
-//    RM x (KD/8) accumulator, the 8 threads sharing rows reduce with shuffles.
+//  * fa_mma_wide_kernel (bf16 / fp16, head dims 257..512, aligned rows, no
+//    mask): the same instructions with D split across 8 warps (below);
+//  * fa_fma_kernel (fp32, any head dim up to 512, up to 256 with a mask, any
+//    alignment): CUDA-core FMAs on float32 tiles; each thread owns an
+//    RM x (BN/8) score tile and an RM x (KD/8) accumulator, the 8 threads
+//    sharing rows reduce with shuffles.
 //    float32 inputs keep full float32 products, the parity path.
 //
 // What bounds it. The score matrix never reaches device memory, which is what
 // the kernel saves over the plain version. The mma variant is bound by
 // mma.sync issue and the unpipelined K/V staging (no cp.async / TMA double
 // buffering yet); the FMA variant by FMA issue and shared-memory loads (about
-// 2.7 FMAs per shared load). The mask costs one scalar load per score (L2
-// serves the re-reads across heads). wgmma, TMA and tile tuning are later work.
+// 2.7 FMAs per shared load). The wide variant runs one 183 KB CTA per SM, and
+// at the VAE's 4096 tokens only 128 of them, each walking all keys with four
+// barriers per tile: it is latency-bound (splitting the keys over CTAs is the
+// next step). The mask costs one scalar load per score (L2 serves the re-reads
+// across heads). wgmma, TMA and tile tuning are later work.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -310,6 +315,30 @@ __device__ __forceinline__ uint32_t ld32(const T* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
+// V^T staging of the tensor-core variants: keys n0 .. n0 + BN - 1 of V
+// (ntiles 8-column chunks a row) into sVt[column][key] (row pitch LV), zero
+// past N. A warp takes two neighbouring chunks of 16 keys, so its loads are
+// whole 32-byte sectors and its transposed stores meet at most two to a bank;
+// a warp of one key's chunks would meet up to 32 to a bank (chunks are 8 V^T
+// rows, a multiple of 32 words, apart).
+template <typename T, int BN, int NTHREADS>
+__device__ __forceinline__ void stage_vt(T* sVt, int LV, const T* v, long long svn, int n0, int N, int ntiles,
+                                         int tid) {
+  const int npair = (ntiles + 1) / 2;
+  for (int i = tid; i < BN * 2 * npair; i += NTHREADS) {
+    const int li = i % 32, blk = i / 32;
+    const int r = blk % (BN / 16) * 16 + li % 16;
+    const int c = blk / (BN / 16) * 2 + li / 16;
+    if (c >= ntiles) continue;
+    const int c8 = 8 * c;
+    uint4 x = make_uint4(0, 0, 0, 0);
+    if (n0 + r < N) x = *reinterpret_cast<const uint4*>(v + (n0 + r) * svn + c8);
+    const T* e = reinterpret_cast<const T*>(&x);
+#pragma unroll
+    for (int u = 0; u < 8; ++u) sVt[(c8 + u) * LV + r] = e[u];
+  }
+}
+
 constexpr int kMmaBM = 64;  // 4 warps x 16 query rows
 constexpr int kMmaBN = 64;  // keys per staged tile
 
@@ -396,15 +425,7 @@ __global__ void __launch_bounds__(kThreads) fa_mma_kernel(const Params p) {
         sK[r * LQ + cc] = x;
       }
     }
-    for (int i = tid; i < BN * ntiles; i += kThreads) {
-      const int r = i / ntiles, c8 = i % ntiles * 8;
-      const int n = n0 + r;
-      uint4 x = make_uint4(0, 0, 0, 0);
-      if (n < p.N) x = *reinterpret_cast<const uint4*>(v + n * p.svn + c8);
-      const T* e = reinterpret_cast<const T*>(&x);
-#pragma unroll
-      for (int u = 0; u < 8; ++u) sVt[(c8 + u) * LV + r] = e[u];
-    }
+    stage_vt<T, BN, kThreads>(sVt, LV, v, p.svn, n0, p.N, ntiles, tid);
     __syncthreads();
 
     // raw scores q . k of this warp's 16 rows x BN keys
@@ -509,6 +530,240 @@ __global__ void __launch_bounds__(kThreads) fa_mma_kernel(const Params p) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// Tensor-core variant for wide heads (bf16 / fp16, head dims 257..512: the SD
+// VAE's mid-block attention, 1 head of 512)
+// ---------------------------------------------------------------------------
+//
+// A 64 x 512 float32 output tile would need 256 accumulator registers per
+// thread in fa_mma_kernel's layout, where a warp owns its rows' whole D. Here
+// the block takes 32 query rows and its 8 warps split D instead: each warp owns
+// a 64-column slice of O for all 32 rows (64 registers). The scores of a key
+// tile (32 x 64) are computed by the 8 warps as 16 x 16 tiles over the full
+// head dim and meet in shared memory, where 8 threads per row run the online
+// softmax and write P in V's dtype (the A operand of every warp's PV product)
+// and the row's rescale factor. Q, K, V^T, S and P live in about 183 KB of
+// shared memory.
+
+constexpr int kWideBM = 32;
+constexpr int kWideBN = 64;
+constexpr int kWideThreads = 256;
+
+template <int KD>
+constexpr size_t wide_smem_bytes() {
+  return 2 * ((kWideBM + kWideBN) * (KD + 8) + KD * (kWideBN + 8) + kWideBM * (kWideBN + 8)) +
+         4 * (kWideBM * (kWideBN + 4) + 3 * kWideBM);
+}
+
+template <typename T, int KD>
+__global__ void __launch_bounds__(kWideThreads) fa_mma_wide_kernel(const Params p) {
+  constexpr int BM = kWideBM, BN = kWideBN;
+  constexpr int LQ = KD + 8;  // shared row pitch (halfs) of Q and K
+  constexpr int LV = BN + 8;  // shared row pitch of V^T and P
+  constexpr int LS = BN + 4;  // shared row pitch (floats) of S
+  constexpr int CW = KD / 8;  // output columns per warp
+  constexpr int NT = CW / 8;  // output column tiles per warp
+
+  extern __shared__ uint4 smem_w[];
+  T* sQ = reinterpret_cast<T*>(smem_w);  // BM x LQ
+  T* sK = sQ + BM * LQ;                  // BN x LQ
+  T* sVt = sK + BN * LQ;                 // KD x LV, V transposed: [column][key]
+  T* sP = sVt + KD * LV;                 // BM x LV, probabilities in V's dtype
+  float* sS = reinterpret_cast<float*>(sP + BM * LV);  // BM x LS, log2-domain scores
+  float* s_m = sS + BM * LS;             // running row max
+  float* s_l = s_m + BM;                 // running row sum
+  float* s_c = s_l + BM;                 // this tile's rescale factor
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int m0 = blockIdx.x * BM;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int hk = h / (p.H / p.Hkv);
+  const int offset = p.N - p.M;
+  const int dq = (p.D + 15) / 16 * 16;
+  const int q8 = dq / 8;
+  const int ntiles = p.Dv / 8;
+  const float c = p.scale_log2;
+
+  const T* q = static_cast<const T*>(p.q) + b * p.sqb + h * p.sqh;
+  const T* k = static_cast<const T*>(p.k) + b * p.skb + hk * p.skh;
+  const T* v = static_cast<const T*>(p.v) + b * p.svb + hk * p.svh;
+  T* o = static_cast<T*>(p.o) + b * p.sob + h * p.soh;
+
+  for (int i = tid; i < BM * q8; i += kWideThreads) {
+    const int r = i / q8, c8 = i % q8 * 8;
+    uint4 x = make_uint4(0, 0, 0, 0);
+    if (m0 + r < p.M && c8 < p.D) x = *reinterpret_cast<const uint4*>(q + (m0 + r) * p.sqm + c8);
+    *reinterpret_cast<uint4*>(sQ + r * LQ + c8) = x;
+  }
+  if (tid < BM) {
+    s_m[tid] = -INFINITY;
+    s_l[tid] = 0.f;
+  }
+
+  int n_end = p.N;
+  if (p.causal) n_end = min(p.N, m0 + BM + offset);
+
+  // scores: warp (rt, ct) owns rows 16 rt.. and keys 16 ct..; output: warp w
+  // owns columns CW w .. CW w + CW - 1 of all BM rows
+  const int rt = warp / 4, ct = warp % 4;
+  float acc[2][NT][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
+
+  for (int n0 = 0; n0 < n_end; n0 += BN) {
+    __syncthreads();  // Q is staged; the previous tile's K, V^T and P are consumed
+    if (p.skd == 1) {
+      for (int i = tid; i < BN * q8; i += kWideThreads) {
+        const int r = i / q8, c8 = i % q8 * 8;
+        const int n = n0 + r;
+        uint4 x = make_uint4(0, 0, 0, 0);
+        if (n < p.N && c8 < p.D) x = *reinterpret_cast<const uint4*>(k + n * p.skn + c8);
+        *reinterpret_cast<uint4*>(sK + r * LQ + c8) = x;
+      }
+    } else {
+      for (int i = tid; i < BN * dq; i += kWideThreads) {
+        const int r = i % BN, cc = i / BN;
+        const int n = n0 + r;
+        T x = from_f32<T>(0.f);
+        if (n < p.N && cc < p.D) x = k[n * p.skn + cc * p.skd];
+        sK[r * LQ + cc] = x;
+      }
+    }
+    stage_vt<T, BN, kWideThreads>(sVt, LV, v, p.svn, n0, p.N, ntiles, tid);
+    __syncthreads();
+
+    // raw scores of this warp's 16 rows x 16 keys over the whole head dim
+    float s[2][4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    for (int kc = 0; kc < dq / 16; ++kc) {
+      const T* qa = sQ + (rt * 16 + g) * LQ + kc * 16 + 2 * t;
+      const uint32_t a[4] = {ld32(qa), ld32(qa + 8 * LQ), ld32(qa + 8), ld32(qa + 8 * LQ + 8)};
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const T* kb = sK + (ct * 16 + j * 8 + g) * LQ + kc * 16 + 2 * t;
+        mma16816(s[j], a, ld32(kb), ld32(kb + 8), T());
+      }
+    }
+    // to the log2 domain, -inf past the keys and the causal diagonal
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = rt * 16 + g + (e / 2) * 8;
+        const int cl = ct * 16 + j * 8 + 2 * t + (e % 2);
+        const int row = m0 + r, col = n0 + cl;
+        const bool ok = col < p.N && (!p.causal || col <= row + offset);
+        sS[r * LS + cl] = ok ? s[j][e] * c : -INFINITY;
+      }
+    __syncthreads();
+
+    // online softmax: 8 neighbouring threads per row, 8 keys each
+    {
+      const int r = tid / 8, part = tid % 8;
+      float x[BN / 8];
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        x[j] = sS[r * LS + part + 8 * j];
+        mx = fmaxf(mx, x[j]);
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+      const float m_old = s_m[r];
+      const float m_new = fmaxf(m_old, mx);
+      // a row with no valid key so far keeps p = 0, corr = 0 and l = 0
+      const float m_use = (m_new == -INFINITY) ? 0.f : m_new;
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const float pj = exp2f(x[j] - m_use);
+        rs += pj;
+        sP[r * LV + part + 8 * j] = from_f32<T>(pj);
+      }
+      rs += __shfl_xor_sync(0xffffffffu, rs, 1);
+      rs += __shfl_xor_sync(0xffffffffu, rs, 2);
+      rs += __shfl_xor_sync(0xffffffffu, rs, 4);
+      __syncwarp();
+      if (part == 0) {
+        const float corr = exp2f(m_old - m_use);
+        s_c[r] = corr;
+        s_l[r] = s_l[r] * corr + rs;
+        s_m[r] = m_new;
+      }
+    }
+    __syncthreads();
+
+    // acc = corr * acc + P V over this warp's column slice
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float c0 = s_c[i * 16 + g], c1 = s_c[i * 16 + g + 8];
+#pragma unroll
+      for (int jt = 0; jt < NT; ++jt) {
+        acc[i][jt][0] *= c0;
+        acc[i][jt][1] *= c0;
+        acc[i][jt][2] *= c1;
+        acc[i][jt][3] *= c1;
+      }
+    }
+    const int nk = min(BN, n_end - n0);
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) {
+      if (kk * 16 >= nk) break;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const T* pa = sP + (i * 16 + g) * LV + kk * 16 + 2 * t;
+        const uint32_t a[4] = {ld32(pa), ld32(pa + 8 * LV), ld32(pa + 8), ld32(pa + 8 * LV + 8)};
+#pragma unroll
+        for (int jt = 0; jt < NT; ++jt) {
+          const int col = warp * CW + jt * 8;
+          if (col < p.Dv) {
+            const T* vb = sVt + (col + g) * LV + kk * 16 + 2 * t;
+            mma16816(acc[i][jt], a, ld32(vb), ld32(vb + 8), T());
+          }
+        }
+      }
+    }
+  }
+  __syncthreads();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = i * 16 + g + 8 * hh;
+      const int row = m0 + r;
+      if (row >= p.M) continue;
+      const float l = s_l[r];
+      const float denom = l == 0.f ? 1.f : l;
+#pragma unroll
+      for (int jt = 0; jt < NT; ++jt) {
+        const int col = warp * CW + jt * 8 + 2 * t;
+        if (col < p.Dv)
+          *reinterpret_cast<uint32_t*>(o + row * p.som + col) =
+              pack2(acc[i][jt][2 * hh] / denom, acc[i][jt][2 * hh + 1] / denom, T());
+      }
+    }
+}
+
+template <typename T, int KD>
+cudaError_t launch_mma_wide(const Params& p, cudaStream_t stream) {
+  constexpr size_t smem = wide_smem_bytes<KD>();
+  auto kernel = fa_mma_wide_kernel<T, KD>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.M + kWideBM - 1) / kWideBM, p.H, p.B);
+  kernel<<<grid, kWideThreads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
 template <typename T, int KD, bool MASK>
 cudaError_t launch_mma(const Params& p, cudaStream_t stream) {
   constexpr size_t smem = mma_smem_bytes<KD>();
@@ -549,22 +804,30 @@ cudaError_t launch_fma(const Params& p, cudaStream_t stream) {
 }
 
 // bf16 / fp16 take the tensor cores where the rows are aligned and the head
-// dims fit its 128-wide tiles. Otherwise the FMA kernel, with tile shapes by
-// padded head dim: its float32 accumulator (RM x KD/8 per thread) stays at or
-// under 64 registers, and shared memory at or under 103 KB.
+// dims fit the 128-wide tiles, or the wide variant for head dims above 256.
+// Otherwise the FMA kernel, with tile shapes by padded head dim: its float32
+// accumulator (RM x KD/8 per thread) stays at or under 64 registers, and
+// shared memory at or under 103 KB. Head dims above 256 only without a mask:
+// the SD VAE's 1 x 512 head is the one such site, and it has none.
 template <typename T, bool MASK>
 cudaError_t dispatch(const Params& p, cudaStream_t stream) {
   const int kd = p.D > p.Dv ? p.D : p.Dv;
   if constexpr (!std::is_same<T, float>::value) {
-    if (kd <= 128 && rows_aligned16(p)) {
+    if (rows_aligned16(p)) {
       if (kd <= 64) return launch_mma<T, 64, MASK>(p, stream);
-      return launch_mma<T, 128, MASK>(p, stream);
+      if (kd <= 128) return launch_mma<T, 128, MASK>(p, stream);
+      if constexpr (!MASK) {
+        if (kd > 256 && kd <= 512) return launch_mma_wide<T, 512>(p, stream);
+      }
     }
   }
   if (kd <= 32) return launch_fma<T, 32, 64, 64, MASK>(p, stream);
   if (kd <= 64) return launch_fma<T, 64, 64, 64, MASK>(p, stream);
   if (kd <= 128) return launch_fma<T, 128, 64, 32, MASK>(p, stream);
   if (kd <= 256) return launch_fma<T, 256, 32, 32, MASK>(p, stream);
+  if constexpr (!MASK) {
+    if (kd <= 512) return launch_fma<T, 512, 16, 16, false>(p, stream);
+  }
   return cudaErrorInvalidValue;
 }
 

@@ -1,0 +1,416 @@
+// Calibrated W8A8 uint8 products for Hopper (sm_90a), with a plain C ABI.
+//
+// Replaces two TPU kernels:
+//
+//  * qmatmul (onnxstream_tpu/kernels/qmatmul.py, the pallas_call of
+//    _qmm_kernel): u8 A (M, K) x u8 W -> float or requantized u8 (M, N),
+//      acc[m, n] = sum_k (A[m, k] - za) (W[k, n] - zw)
+//                = dot(A, W) - za colsum(W)[n] - zw rowsum(A)[m] + K za zw,
+//    plus an int32 bias, then out = float(acc) * alpha (alpha = sa sw), or
+//    clamp(rint(float(acc) * alpha + beta), 0, 255) with alpha = sa sw / so and
+//    beta = zo for a requantized output;
+//  * qconv (onnxstream_tpu/kernels/qconv.py: an im2col padded with the input
+//    zero point, run by XLA, then qmatmul): the same product as an implicit
+//    GEMM. A is never materialized: each A tile is gathered straight from the
+//    NCHW u8 input (row m = (batch, oh, ow), column k = (c, i, j) of the OIHW
+//    weight), with za where the window falls into the padding. The OIHW
+//    weight viewed as (O, C kh kw) is W^T, row-major, which is the .col B
+//    operand of the tensor-core instruction as it is: nothing is transposed
+//    at upload. The output is written in NCHW directly.
+//
+// Exact integer arithmetic. The products run on the tensor cores as
+// mma.sync.m16n8k32.row.col.s32.u8.u8.s32 (u8 operands need no shift by 128),
+// accumulating in int32. |acc| <= 255^2 K < 2^31 while K <= kMaxK = 33025;
+// a larger K is refused. At K <= 4608 (the SD VAE's largest) each of
+// dot(A, W), za colsum(W), zw rowsum(A) and K za zw stays under 3.0e8, so
+// the corrections and the bias are subtracted and added in int32 without
+// rounding. The one rounding is float(acc) * alpha (__fmul_rn), then the cast
+// to the output dtype; the plain twin in kernels/qmatmul.py does the same, so
+// the two agree bit for bit. The TPU kernel accumulates in float32 instead and
+// differs by about 2^-24 relative above |acc| = 2^24.
+//
+// Row and column sums. Every block walks the whole K of its 64 rows and 128
+// columns, so it sums its own rows of A and columns of W from the staged
+// tiles (one dp4a per 4 bytes) and needs no separate pass or cached vector.
+//
+// What bounds it on an H100, and what the design does about it: a VAE conv is
+// bound by int8 tensor-core throughput (2 M N K operations at 1979 TOP/s; the
+// whole 512 x 512 decode is 2.48 T operations, about 1.25 ms). This first
+// kernel is the simple mma.sync tile of kernel 6 (qmatmul.cu): 64 x 128 x 64
+// tiles, 8 warps of 32 x 32, the next tile loaded into registers while the
+// current one is multiplied. The conv gather loads bytes (neighbouring threads
+// take neighbouring output pixels, so a warp's loads of one k are contiguous)
+// and the (K, N) MatMul weight is transposed in registers while it is staged
+// (ldmatrix cannot transpose 8-bit elements). Without wgmma, TMA and a deeper
+// pipeline it reaches a small fraction of the peak; that is later work.
+// Ragged M, N and K (conv_in's K = 36, conv_out's N = 3) are masked in the
+// loads: nothing is padded in device memory.
+
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kBM = 64, kBN = 128, kBK = 64;
+constexpr int kPitch = kBK + 16;  // bytes: rows 20 words apart, fragment loads conflict-free
+constexpr uint32_t kOnes = 0x01010101u;
+constexpr int kMaxK = 33025;  // the largest K with 255^2 K < 2^31
+
+struct QParams {
+  const uint8_t* a;  // dense: (M, K) row-major; conv: x (B, C, H, W)
+  const uint8_t* w;  // dense: (K, N) row-major; conv: the OIHW weight as (N, K) row-major
+  const int* bias;   // (N,) in accumulator units, or nullptr
+  void* out;         // dense: (M, N) row-major; conv: (B, N, Ho, Wo)
+  int M, K, N;
+  int za, zw;
+  float alpha, beta;
+  // conv geometry: M = B Ho Wo, K = C kh kw
+  int C, H, W, kh, kw, sh, sw, ph, pw, dh, dw, Ho, Wo;
+};
+
+template <typename T> __device__ __forceinline__ T from_f32(float x);
+template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <> __device__ __forceinline__ __half from_f32<__half>(float x) { return __float2half_rn(x); }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+template <> __device__ __forceinline__ uint8_t from_f32<uint8_t>(float x) {
+  return static_cast<uint8_t>(static_cast<int>(x));
+}
+
+// four bytes W[k][n .. n+3] of a (K, N) byte matrix as one word, byte j =
+// column n + j; zero past K and N. VEC: N % 4 == 0 and W 4-byte aligned.
+template <bool VEC>
+__device__ __forceinline__ uint32_t load_w4(const uint8_t* w, int k, int n, int K, int N) {
+  if (k >= K) return 0u;
+  const uint8_t* row = w + static_cast<size_t>(k) * N;
+  if (VEC) return n < N ? __ldg(reinterpret_cast<const unsigned int*>(row + n)) : 0u;
+  uint32_t v = 0u;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    if (n + j < N) v |= static_cast<uint32_t>(__ldg(row + n + j)) << (8 * j);
+  return v;
+}
+
+// sixteen bytes row[k .. k+15] of a row of K bytes; zero past K. VEC: the row
+// is 16-byte aligned and K % 16 == 0.
+template <bool VEC>
+__device__ __forceinline__ uint4 load16(const uint8_t* row, int k, int K) {
+  if (VEC) return k < K ? __ldg(reinterpret_cast<const uint4*>(row + k)) : make_uint4(0, 0, 0, 0);
+  uint32_t wd[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int e = 0; e < 16; ++e)
+    if (k + e < K) wd[e / 4] |= static_cast<uint32_t>(__ldg(row + k + e)) << (8 * (e % 4));
+  return make_uint4(wd[0], wd[1], wd[2], wd[3]);
+}
+
+// 4 x 4 byte transpose: r[i] holds row i's bytes (columns 0..3); c[j] gets
+// column j's bytes (rows 0..3)
+__device__ __forceinline__ void transpose4(const uint32_t (&r)[4], uint32_t (&c)[4]) {
+  const uint32_t t0 = __byte_perm(r[0], r[1], 0x5140);
+  const uint32_t t1 = __byte_perm(r[0], r[1], 0x7362);
+  const uint32_t t2 = __byte_perm(r[2], r[3], 0x5140);
+  const uint32_t t3 = __byte_perm(r[2], r[3], 0x7362);
+  c[0] = __byte_perm(t0, t2, 0x5410);
+  c[1] = __byte_perm(t0, t2, 0x7632);
+  c[2] = __byte_perm(t1, t3, 0x5410);
+  c[3] = __byte_perm(t1, t3, 0x7632);
+}
+
+__device__ __forceinline__ uint32_t ld32(const void* p) { return *reinterpret_cast<const uint32_t*>(p); }
+
+__device__ __forceinline__ uint32_t sum4(const uint4& v, uint32_t acc) {
+  acc = __dp4a(v.x, kOnes, acc);
+  acc = __dp4a(v.y, kOnes, acc);
+  acc = __dp4a(v.z, kOnes, acc);
+  return __dp4a(v.w, kOnes, acc);
+}
+
+__device__ __forceinline__ void mma_u8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.u8.u8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
+      "{%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Fragment layouts of mma.m16n8k32 (PTX ISA), g = lane / 4, t = lane % 4,
+// each register four consecutive k:
+//   A (16x32): a0 = (g, 4t..), a1 = (g+8, 4t..), a2 = (g, 16+4t..), a3 = (g+8, 16+4t..)
+//   B (32x8):  b0 = (k 4t.., n g), b1 = (k 16+4t.., n g)
+//   C (16x8):  c0, c1 = (g, 2t..2t+1), c2, c3 = (g+8, 2t..2t+1)
+// 8 warps as 2 (M) x 4 (N), each a 32 x 32 tile: 2 x 4 mma per k32 step.
+//
+// A staging: dense A, thread tid takes row tid / 4, sixteen bytes from
+// 16 (tid % 4); conv A, row tid % 64 and sixteen k from 16 (tid / 64), so that
+// the 32 lanes of a warp gather one k for 32 neighbouring output pixels. A
+// per-k table (input offset, i dh, j dw) of the next tile is built in shared
+// memory, double buffered, by threads 0..63.
+// W staging: the conv's (N, K) rows like dense A, two sixteen-byte chunks per
+// thread; the dense (K, N) weight as 4 x 4 byte blocks u = tid + 256 v (k-quad
+// u % 16, column quad u / 16), transposed in registers.
+template <typename TO, bool CONV, bool AVEC, bool WVEC>
+__global__ void __launch_bounds__(kThreads) qgemm_kernel(const QParams p) {
+  __shared__ __align__(16) uint8_t sA[kBM * kPitch];  // A, [m][k]
+  __shared__ __align__(16) uint8_t sW[kBN * kPitch];  // W transposed, [n][k]
+  __shared__ int s_koff[2][kBK], s_di[2][kBK], s_dj[2][kBK];
+  __shared__ int s_rs[kBM], s_cs[kBN];
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int wm = warp / 4, wn = warp % 4;
+  const int M = p.M, K = p.K, N = p.N;
+  const int m0 = blockIdx.x * kBM, n0 = blockIdx.y * kBN;
+  if (tid < kBM) s_rs[tid] = 0;
+  if (tid < kBN) s_cs[tid] = 0;
+
+  const int ar = CONV ? tid % kBM : tid / 4;
+  const int ac = CONV ? 16 * (tid / kBM) : 16 * (tid % 4);
+  const int am = m0 + ar;
+  // conv: this thread's output pixel, as the input offset and the top-left
+  // corner of its window
+  long long abase = 0;
+  int ih0 = 0, iw0 = 0;
+  if (CONV && am < M) {
+    const int hw = p.Ho * p.Wo;
+    const int b = am / hw, r = am - b * hw;
+    const int oh = r / p.Wo, ow = r - oh * p.Wo;
+    ih0 = oh * p.sh - p.ph;
+    iw0 = ow * p.sw - p.pw;
+    abase = static_cast<long long>(b) * p.C * p.H * p.W + static_cast<long long>(ih0) * p.W + iw0;
+  }
+  auto build_table = [&](int buf, int k0) {
+    if (tid < kBK) {
+      const int k = k0 + tid;
+      int koff = -1, di = 0, dj = 0;
+      if (k < K) {
+        const int khw = p.kh * p.kw;
+        const int c = k / khw, rem = k - c * khw;
+        const int i = rem / p.kw, j = rem - i * p.kw;
+        di = i * p.dh;
+        dj = j * p.dw;
+        koff = c * p.H * p.W + di * p.W + dj;
+      }
+      s_koff[buf][tid] = koff;
+      s_di[buf][tid] = di;
+      s_dj[buf][tid] = dj;
+    }
+  };
+
+  uint4 ra, rwv[2];
+  uint32_t rw[2][4];
+  auto load_tile = [&](int k0, int buf) {
+    if (CONV) {
+      uint32_t wd[4] = {0u, 0u, 0u, 0u};
+      if (am < M) {
+#pragma unroll
+        for (int e = 0; e < 16; ++e) {
+          const int kk = ac + e;
+          const int koff = s_koff[buf][kk];
+          uint32_t v = 0u;
+          if (koff >= 0) {
+            const int ih = ih0 + s_di[buf][kk], iw = iw0 + s_dj[buf][kk];
+            v = (static_cast<unsigned>(ih) < static_cast<unsigned>(p.H) &&
+                 static_cast<unsigned>(iw) < static_cast<unsigned>(p.W))
+                    ? static_cast<uint32_t>(__ldg(p.a + abase + koff))
+                    : static_cast<uint32_t>(p.za);
+          }
+          wd[e / 4] |= v << (8 * (e % 4));
+        }
+      }
+      ra = make_uint4(wd[0], wd[1], wd[2], wd[3]);
+    } else {
+      ra = am < M ? load16<AVEC>(p.a + static_cast<size_t>(am) * K, k0 + ac, K) : make_uint4(0, 0, 0, 0);
+    }
+    if (CONV) {
+#pragma unroll
+      for (int v = 0; v < 2; ++v) {
+        const int i = tid + kThreads * v;
+        const int n = n0 + i / 4;
+        rwv[v] = n < N ? load16<WVEC>(p.w + static_cast<size_t>(n) * K, k0 + 16 * (i % 4), K)
+                       : make_uint4(0, 0, 0, 0);
+      }
+    } else {
+#pragma unroll
+      for (int v = 0; v < 2; ++v) {
+        const int u = tid + kThreads * v;
+        const int kk = k0 + 4 * (u % 16), n = n0 + 4 * (u / 16);
+#pragma unroll
+        for (int r = 0; r < 4; ++r) rw[v][r] = load_w4<WVEC>(p.w, kk + r, n, K, N);
+      }
+    }
+  };
+  // partial row sums of A (row ar) and column sums of W, over this thread's bytes
+  uint32_t rs = 0u, cs[2][4] = {{0u, 0u, 0u, 0u}, {0u, 0u, 0u, 0u}};
+  auto store_tile = [&]() {
+    *reinterpret_cast<uint4*>(sA + ar * kPitch + ac) = ra;
+    rs = sum4(ra, rs);
+    if (CONV) {
+#pragma unroll
+      for (int v = 0; v < 2; ++v) {
+        const int i = tid + kThreads * v;
+        *reinterpret_cast<uint4*>(sW + (i / 4) * kPitch + 16 * (i % 4)) = rwv[v];
+        cs[v][0] = sum4(rwv[v], cs[v][0]);
+      }
+    } else {
+#pragma unroll
+      for (int v = 0; v < 2; ++v) {
+        const int u = tid + kThreads * v;
+        uint32_t c[4];
+        transpose4(rw[v], c);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          *reinterpret_cast<uint32_t*>(sW + (4 * (u / 16) + j) * kPitch + 4 * (u % 16)) = c[j];
+          cs[v][j] = __dp4a(c[j], kOnes, cs[v][j]);
+        }
+      }
+    }
+  };
+
+  int acc[2][4][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0;
+
+  const int nkt = (K + kBK - 1) / kBK;
+  if (CONV) {
+    build_table(0, 0);
+    __syncthreads();
+  }
+  load_tile(0, 0);
+  for (int kt = 0; kt < nkt; ++kt) {
+    __syncthreads();  // the previous tile and the table buffer of tile kt + 1 are consumed
+    if (CONV && kt + 1 < nkt) build_table((kt + 1) & 1, (kt + 1) * kBK);
+    store_tile();
+    __syncthreads();
+    if (kt + 1 < nkt) load_tile((kt + 1) * kBK, (kt + 1) & 1);
+#pragma unroll
+    for (int ks = 0; ks < kBK / 32; ++ks) {
+      uint32_t af[2][4], bf[4][2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const uint8_t* pa = sA + (wm * 32 + i * 16 + g) * kPitch + ks * 32 + 4 * t;
+        af[i][0] = ld32(pa);
+        af[i][1] = ld32(pa + 8 * kPitch);
+        af[i][2] = ld32(pa + 16);
+        af[i][3] = ld32(pa + 8 * kPitch + 16);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const uint8_t* pb = sW + (wn * 32 + j * 8 + g) * kPitch + ks * 32 + 4 * t;
+        bf[j][0] = ld32(pb);
+        bf[j][1] = ld32(pb + 16);
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) mma_u8(acc[i][j], af[i], bf[j][0], bf[j][1]);
+    }
+  }
+
+  // the block's row and column sums meet in shared memory (exact integer atomics)
+  atomicAdd(&s_rs[ar], static_cast<int>(rs));
+  if (CONV) {
+#pragma unroll
+    for (int v = 0; v < 2; ++v) atomicAdd(&s_cs[(tid + kThreads * v) / 4], static_cast<int>(cs[v][0]));
+  } else {
+#pragma unroll
+    for (int v = 0; v < 2; ++v)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        atomicAdd(&s_cs[4 * ((tid + kThreads * v) / 16) + j], static_cast<int>(cs[v][j]));
+  }
+  __syncthreads();
+
+  const int kzz = K * p.za * p.zw;
+  TO* out = static_cast<TO*>(p.out);
+  const int hw = p.Ho * p.Wo;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = wm * 32 + i * 16 + g + (e / 2) * 8;
+        const int c = wn * 32 + j * 8 + 2 * t + (e % 2);
+        const int m = m0 + r, n = n0 + c;
+        if (m >= M || n >= N) continue;
+        int v = acc[i][j][e] - p.za * s_cs[c] - p.zw * s_rs[r] + kzz;
+        if (p.bias) v += p.bias[n];
+        float y = __fmul_rn(__int2float_rn(v), p.alpha);
+        if constexpr (std::is_same<TO, uint8_t>::value)
+          y = fminf(fmaxf(rintf(__fadd_rn(y, p.beta)), 0.f), 255.f);
+        size_t idx;
+        if (CONV) {
+          const int b = m / hw;
+          idx = (static_cast<size_t>(b) * N + n) * hw + (m - b * hw);
+        } else {
+          idx = static_cast<size_t>(m) * N + n;
+        }
+        out[idx] = from_f32<TO>(y);
+      }
+}
+
+bool aligned(const void* ptr, unsigned long long bytes) {
+  return reinterpret_cast<unsigned long long>(ptr) % bytes == 0;
+}
+
+template <typename TO, bool CONV, bool AVEC, bool WVEC>
+cudaError_t launch(const QParams& p, cudaStream_t stream) {
+  const dim3 grid((p.M + kBM - 1) / kBM, (p.N + kBN - 1) / kBN);
+  qgemm_kernel<TO, CONV, AVEC, WVEC><<<grid, kThreads, 0, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// vector loads where the rows allow them: the conv's (N, K) weight rows by
+// sixteen bytes; the dense A rows by sixteen bytes and (K, N) weight rows by four
+template <typename TO>
+cudaError_t dispatch(const QParams& p, bool conv, cudaStream_t stream) {
+  if (conv) {
+    if (p.K % 16 == 0 && aligned(p.w, 16)) return launch<TO, true, false, true>(p, stream);
+    return launch<TO, true, false, false>(p, stream);
+  }
+  const bool wvec = p.N % 4 == 0 && aligned(p.w, 4);
+  if (p.K % 16 == 0 && aligned(p.a, 16))
+    return wvec ? launch<TO, false, true, true>(p, stream) : launch<TO, false, true, false>(p, stream);
+  return wvec ? launch<TO, false, false, true>(p, stream) : launch<TO, false, false, false>(p, stream);
+}
+
+}  // namespace
+
+// conv: null for a MatMul, A u8 (M, K) and W u8 (K, N), both row-major, out
+// (M, N); or 13 ints C, H, W, kh, kw, stride h, w, pad top, left, dilation
+// h, w, Ho, Wo for a convolution, A the u8 (B, C, H, W) input, W the u8 OIHW
+// weight as (N, K) row-major (M = B Ho Wo, K = C kh kw), out (B, N, Ho, Wo).
+// bias: (N,) int32 in accumulator units, or null. out_kind: 0 = float32, 1 =
+// float16, 2 = bfloat16, 3 = uint8. K above kMaxK is refused. Returns a
+// cudaError_t: 0 when the launch was accepted.
+extern "C" int ostt_qgemm(const void* a, const void* w, const void* bias, void* out, int out_kind,
+                          int M, int K, int N, int za, int zw, float alpha, float beta,
+                          const int* conv, void* stream) {
+  if (M <= 0 || K <= 0 || K > kMaxK || N <= 0 || za < 0 || za > 255 || zw < 0 || zw > 255)
+    return static_cast<int>(cudaErrorInvalidValue);
+  QParams p{static_cast<const uint8_t*>(a), static_cast<const uint8_t*>(w), static_cast<const int*>(bias),
+            out, M, K, N, za, zw, alpha, beta};
+  if (conv) {
+    p.C = conv[0], p.H = conv[1], p.W = conv[2], p.kh = conv[3], p.kw = conv[4];
+    p.sh = conv[5], p.sw = conv[6], p.ph = conv[7], p.pw = conv[8], p.dh = conv[9], p.dw = conv[10];
+    p.Ho = conv[11], p.Wo = conv[12];
+    if (K != p.C * p.kh * p.kw || M % (p.Ho * p.Wo)) return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool c = conv != nullptr;
+  switch (out_kind) {
+    case 0: return static_cast<int>(dispatch<float>(p, c, st));
+    case 1: return static_cast<int>(dispatch<__half>(p, c, st));
+    case 2: return static_cast<int>(dispatch<__nv_bfloat16>(p, c, st));
+    case 3: return static_cast<int>(dispatch<uint8_t>(p, c, st));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}

@@ -32,7 +32,10 @@ import torch
 from onnxstream_tpu_torch.kernels import build
 
 LOG2_E = 1.4426950408889634
-MAX_HEAD_DIM = 256  # largest head dim the kernel's tile shapes cover
+MAX_HEAD_DIM = 512  # largest head dim of the packed form (the SD VAE's 1 x 512)
+# largest head dim of the head-major form (masks): the kernel's d > 256 variants
+# are built and checked without a mask only
+HEAD_MAJOR_MAX_HEAD_DIM = 256
 
 _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 
@@ -100,8 +103,8 @@ def flash_attention_packed_reference(q, k, v, heads: int, scale: Optional[float]
     return out.transpose(1, 2).reshape(b, m, heads * dv)
 
 
-def _head_dims_ok(d: int, dv: int) -> bool:
-    return d % 8 == 0 and dv % 8 == 0 and 0 < d <= MAX_HEAD_DIM and 0 < dv <= MAX_HEAD_DIM
+def _head_dims_ok(d: int, dv: int, limit: int = MAX_HEAD_DIM) -> bool:
+    return d % 8 == 0 and dv % 8 == 0 and 0 < d <= limit and 0 < dv <= limit
 
 
 def _check_packed(q, k, v, heads: int):
@@ -149,8 +152,8 @@ def head_major_problem(q, k, v, mask=None, k_transposed: bool = False) -> Option
         return f"inconsistent shapes q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}"
     if hkv == 0 or h % hkv:
         return "GQA requires q_heads % kv_heads == 0"
-    if not _head_dims_ok(d, dv):
-        return f"head dims must be multiples of 8 up to {MAX_HEAD_DIM}, got {d}, {dv}"
+    if not _head_dims_ok(d, dv, HEAD_MAJOR_MAX_HEAD_DIM):
+        return f"head dims must be multiples of 8 up to {HEAD_MAJOR_MAX_HEAD_DIM}, got {d}, {dv}"
     if q.stride(-1) != 1 or v.stride(-1) != 1:
         return "the last dim of q and v must be contiguous"
     if mask is not None:

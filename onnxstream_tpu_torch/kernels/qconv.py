@@ -1,0 +1,118 @@
+"""Calibrated W8A8 uint8 convolution: the wrapper of the hand-written CUDA kernel and its twin.
+
+Replaces the TPU kernel ``qconv`` of ``onnxstream_tpu/kernels/qconv.py``: u8
+NCHW x u8 OIHW with per-tensor (scale, zero point), group 1, the window
+padded with the input zero point, the model's float bias rescaled to
+accumulator units by ``1 / (a_scale * w_scale)`` and truncated toward zero
+(the reference's int32 bias, onnxstream.cpp:4645-4660), then a float output
+or a requantized uint8 one (onnxstream.cpp:4664-4689).
+
+The TPU version extracts the patches in XLA and hands them to ``qmatmul``.
+Here the launch is kernel 3's own (``csrc/qlinear.cu``) as an implicit GEMM:
+each A tile is gathered from the NCHW input inside the kernel, the OIHW
+weight is read in place as the (O, C kh kw) B operand, and the output is
+written in NCHW, so neither the patch matrix (604 MB of uint8 at the SD VAE's
+largest conv) nor a transposed output ever exists in device memory.
+
+``qconv_reference`` is the plain twin: the zero-point-shifted convolution in
+float64 (exact: the sums stay below 2^53), the int32 bias and the kernel's
+epilogue, so kernel and twin agree bit for bit.
+
+On CUDA tensors ``qconv`` launches the kernel, or raises; on CPU tensors it
+computes the twin. Every launch adds one to ``qconv.launches`` and, as the
+launch is kernel 3's, to ``kernels.qmatmul.qmatmul.launches``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from onnxstream_tpu_torch.kernels.qmatmul import _acc_bias, _check_k, _qepilogue, _qgemm, _scales
+
+
+def _geometry(x_q: torch.Tensor, w_q: torch.Tensor, strides, pads, dilations) -> Tuple[int, ...]:
+    """(ho, wo) of the output; raises on what the kernel does not take."""
+    if x_q.dtype != torch.uint8 or w_q.dtype != torch.uint8:
+        raise TypeError(f"qconv: uint8 input and weight, got {x_q.dtype} and {w_q.dtype}")
+    if x_q.ndim != 4 or w_q.ndim != 4:
+        raise ValueError(f"qconv: NCHW input and OIHW weight, got {tuple(x_q.shape)} and {tuple(w_q.shape)}")
+    if x_q.shape[1] != w_q.shape[1]:
+        raise ValueError(f"qconv: group 1 only ({x_q.shape[1]} input channels, weight {tuple(w_q.shape)})")
+    if len(strides) != 2 or len(dilations) != 2 or len(pads) != 4:
+        raise ValueError("qconv: two strides, two dilations and four pads")
+    _, c, h, w = x_q.shape
+    _, _, kh, kw = w_q.shape
+    _check_k(c * kh * kw, "qconv")
+    pt, pl, pb, pr = pads  # ONNX order: top, left, bottom, right
+    ho = (h + pt + pb - ((kh - 1) * dilations[0] + 1)) // strides[0] + 1
+    wo = (w + pl + pr - ((kw - 1) * dilations[1] + 1)) // strides[1] + 1
+    if ho <= 0 or wo <= 0:
+        raise ValueError(f"qconv: empty output {ho} x {wo}")
+    return ho, wo
+
+
+def _conv_bias(bias, a_scale: float, w_scale: float, n: int, device) -> Optional[torch.Tensor]:
+    """The model's float bias in accumulator units as int32: JAX's float32
+    division by ``a_scale * w_scale``, truncated toward zero
+    (``qconv.py:96-98``)."""
+    if bias is None:
+        return None
+    b = torch.as_tensor(bias, device=device).float().reshape(-1)
+    d = torch.full((), float(a_scale) * float(w_scale), dtype=torch.float32, device=device)
+    return _acc_bias(b / d, n, device)
+
+
+def qconv_reference(x_q: torch.Tensor, w_q: torch.Tensor, a_scale: float, a_zero: int, w_scale: float,
+                    w_zero: int, bias=None, strides: Sequence[int] = (1, 1),
+                    pads: Sequence[int] = (0, 0, 0, 0), dilations: Sequence[int] = (1, 1),
+                    out_scale: Optional[float] = None, out_zero: Optional[int] = None,
+                    out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Plain twin of the conv form of kernel 3, computed in float64."""
+    o = w_q.shape[0]
+    _geometry(x_q, w_q, strides, pads, dilations)
+    za, zw, alpha, beta = _scales(a_scale, a_zero, w_scale, w_zero, out_scale, out_zero)
+    pt, pl, pb, pr = pads
+    # shifted by the zero point first, so the padding is 0 = za - za
+    x = F.pad(x_q.double() - za, (pl, pr, pt, pb))
+    acc = F.conv2d(x, w_q.double() - zw, stride=tuple(strides), dilation=tuple(dilations))
+    b = _conv_bias(bias, a_scale, w_scale, o, x_q.device)
+    if b is not None:
+        acc += b.double()[None, :, None, None]
+    return _qepilogue(acc, alpha, beta, out_scale is not None, out_dtype)
+
+
+def qconv(x_q: torch.Tensor, w_q: torch.Tensor, a_scale: float, a_zero: int, w_scale: float,
+          w_zero: int, bias=None, strides: Sequence[int] = (1, 1), pads: Sequence[int] = (0, 0, 0, 0),
+          dilations: Sequence[int] = (1, 1), out_scale: Optional[float] = None,
+          out_zero: Optional[int] = None, out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """u8 NCHW (B, C, H, W) x u8 OIHW (O, C, kh, kw) -> NCHW (B, O, Ho, Wo),
+    C kh kw at most ``kernels.qmatmul.QGEMM_MAX_K``: float in ``out_dtype``, or requantized
+    uint8 with ``out_scale`` / ``out_zero``. ``bias`` is the model's float (O,) vector.
+
+    On CUDA tensors it launches the kernel on the current stream, or raises;
+    on CPU tensors it computes the plain twin. Every launch adds one to
+    ``qconv.launches`` (and to ``qmatmul.launches``)."""
+    if not x_q.is_cuda:
+        if x_q.device.type == "cpu":
+            return qconv_reference(x_q, w_q, a_scale, a_zero, w_scale, w_zero, bias, strides, pads,
+                                   dilations, out_scale, out_zero, out_dtype)
+        raise ValueError(f"qconv runs on CUDA or CPU tensors, not {x_q.device}")
+    ho, wo = _geometry(x_q, w_q, strides, pads, dilations)
+    bsz, c, h, w = x_q.shape
+    o, _, kh, kw = w_q.shape
+    za, zw, alpha, beta = _scales(a_scale, a_zero, w_scale, w_zero, out_scale, out_zero)
+    out = torch.empty((bsz, o, ho, wo), dtype=torch.uint8 if out_scale is not None else out_dtype,
+                      device=x_q.device)
+    if out.numel():
+        geo = (c, h, w, kh, kw, strides[0], strides[1], pads[0], pads[1], dilations[0], dilations[1], ho, wo)
+        # the OIHW weight viewed as (O, C kh kw) is the (N, K) B operand
+        _qgemm(x_q.contiguous(), w_q.contiguous().reshape(o, c * kh * kw), _conv_bias(bias, a_scale, w_scale, o, x_q.device), out,
+               bsz * ho * wo, c * kh * kw, o, za, zw, alpha, beta, geo)
+        qconv.launches += 1
+    return out
+
+
+qconv.launches = 0

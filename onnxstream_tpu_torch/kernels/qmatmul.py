@@ -1,7 +1,19 @@
-"""Weight-quantized matrix products: the hand-written CUDA kernels, their wrappers and twins.
+"""Quantized matrix products: the hand-written CUDA kernels, their wrappers and twins.
 
-One source, ``csrc/qmatmul.cu``, replaces two TPU kernels of
-``onnxstream_tpu/kernels/qmatmul.py``:
+``csrc/qlinear.cu`` replaces the TPU kernel ``qmatmul`` of
+``onnxstream_tpu/kernels/qmatmul.py`` (the ``_qmm_kernel`` pallas_call):
+
+  * ``qmatmul``: calibrated W8A8, uint8 (..., M, K) x uint8 (K, N) with
+    per-tensor (scale, zero point) on both sides, rank-1 zero-point
+    corrections and an optional bias in exact int32, then a float output
+    (``float(acc) * a_scale * w_scale``) or a requantized uint8 one. The
+    calibrated VAE decoder runs its attention projections through it, and
+    ``kernels/qconv.py qconv`` runs every group-1 Conv through the same
+    launch as an implicit GEMM. ``quantize_activation`` is the runtime's
+    float -> uint8 step in front of it (plain torch ops, as JAX keeps it
+    outside Pallas).
+
+``csrc/qmatmul.cu`` replaces two more TPU kernels of the same file:
 
   * ``w8a8_dyn_matmul`` (the ``_w8a8_dyn_kernel`` pallas_call and its XLA
     form ``w8a8_dyn_matmul_xla``): float (..., M, K) x symmetric int8 (K, N).
@@ -19,11 +31,12 @@ Scales and zero points are Python numbers (per tensor) or (N,) float32
 tensors (per output channel), which live on the device beside the weight.
 See the source for the kernels' design and what bounds them.
 
-The plain PyTorch twins (``w8a8_dyn_matmul_reference``,
+The plain PyTorch twins (``qmatmul_reference``, ``w8a8_dyn_matmul_reference``,
 ``w8_matmul_reference``) follow the kernels' order of operations: the
-dynamic twin's integer dot is exact (``aq.double() @ w.double()``:
-|acc| <= 127^2 K < 2^53), so kernel and twin agree bit for bit; the
-weight-only twin accumulates in float32 in another order.
+integer dots of the 8-bit twins are exact in float64 (|acc| <= 255^2 K
+< 2^53; integer ``torch.matmul`` does not run on CUDA), so ``qmatmul`` and
+``w8a8_dyn_matmul`` agree with their twins bit for bit; the weight-only twin
+accumulates in float32 in another order.
 
 On CUDA tensors a wrapper launches its kernel on the current stream or
 raises; on CPU tensors it computes the twin. Every launch adds one to the
@@ -52,6 +65,8 @@ _WORKSPACE: Dict[torch.device, torch.Tensor] = {}
 _FUNCS: Dict[str, object] = {}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
+    # a, w, bias, out, out_kind, M, K, N, za, zw, alpha, beta, conv, stream
+    "ostt_qgemm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P, _P],
     # dtype, a, w, ws, ws_scalar, out, workspace, M, K, N, stream
     "ostt_w8a8_dyn_matmul": [_I, _P, _P, _P, _F, _P, _P, _I, _I, _I, _P],
     # dtype, a, w, sw, zw, sw_scalar, zw_scalar, out, M, K, N, stream
@@ -118,7 +133,7 @@ def _func(name: str):
     """The C entry point, built and loaded at first use."""
     fn = _FUNCS.get(name)
     if fn is None:
-        fn = getattr(build.load("qmatmul"), name)
+        fn = getattr(build.load("qlinear" if name == "ostt_qgemm" else "qmatmul"), name)
         fn.restype = ctypes.c_int
         fn.argtypes = _ARGTYPES[name]
         _FUNCS[name] = fn
@@ -221,3 +236,143 @@ def w8_matmul(a: torch.Tensor, w_q: torch.Tensor, w_scale: Scale, w_zero: Scale,
 
 w8a8_dyn_matmul.launches = 0
 w8_matmul.launches = 0
+
+
+# ------------------------------------------------------ calibrated W8A8 (kernel 3)
+_OUT_KIND = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2, torch.uint8: 3}
+QGEMM_MAX_K = 33025  # the int32 accumulator is exact while 255^2 K < 2^31 (csrc kMaxK)
+
+
+def quantize_activation(x: torch.Tensor, scale: float, zero: int) -> torch.Tensor:
+    """float -> uint8 with the runtime's quantize math (onnxstream.cpp:3247),
+    as JAX ``quantize_activation``: round half to even of ``x / scale`` in
+    float32, plus the zero point, clipped to 0..255. The divisor is a tensor
+    on x's device, so the division is IEEE on the card too (PyTorch's CUDA
+    kernel turns a CPU-scalar divisor into a multiply by its reciprocal)."""
+    s = torch.full((), float(scale), dtype=torch.float32, device=x.device)
+    q = torch.round(x.float() / s).add_(float(zero))
+    return q.clamp_(0, 255).to(torch.uint8)
+
+
+def _zero_point(z, what: str) -> int:
+    zi = int(round(float(z)))
+    if zi != float(z) or not 0 <= zi <= 255:
+        raise ValueError(f"{what} must be a whole number in 0..255, got {z}")
+    return zi
+
+
+def _scales(a_scale, a_zero, w_scale, w_zero, out_scale, out_zero) -> Tuple[int, int, float, float]:
+    """(za, zw, alpha, beta) of a W8A8 product. ``alpha`` is the JAX
+    kernel's ``sa * sw (/ out_scale)``, computed in double on the host."""
+    for v, what in ((a_scale, "a_scale"), (w_scale, "w_scale")):
+        if np.ndim(v) or isinstance(v, torch.Tensor):
+            raise TypeError(f"qmatmul: {what} is per tensor (a Python number), got {type(v).__name__}")
+    out_u8 = out_scale is not None
+    alpha = float(a_scale * w_scale) * (1.0 / float(out_scale) if out_u8 else 1.0)
+    beta = float(_zero_point(out_zero, "out_zero")) if out_u8 else 0.0
+    return _zero_point(a_zero, "a_zero"), _zero_point(w_zero, "w_zero"), alpha, beta
+
+
+def _check_k(k: int, name: str) -> None:
+    if k > QGEMM_MAX_K:
+        raise ValueError(f"{name}: K = {k} above {QGEMM_MAX_K}, where the int32 accumulator could overflow")
+
+
+def _qparams(a_q, w_q, a_scale, a_zero, w_scale, w_zero, out_scale, out_zero):
+    """(K, N, za, zw, alpha, beta) of a W8A8 product; raises on what the
+    kernel does not take."""
+    if a_q.dtype != torch.uint8 or w_q.dtype != torch.uint8 or w_q.ndim != 2:
+        raise TypeError(f"qmatmul: uint8 (..., M, K) x 2-D uint8 weight, got {a_q.dtype} "
+                        f"{tuple(a_q.shape)} x {w_q.dtype} {tuple(w_q.shape)}")
+    k, n = w_q.shape
+    if a_q.ndim < 1 or a_q.shape[-1] != k:
+        raise ValueError(f"qmatmul: shapes {tuple(a_q.shape)} x {tuple(w_q.shape)} do not chain")
+    _check_k(k, "qmatmul")
+    return (k, n, *_scales(a_scale, a_zero, w_scale, w_zero, out_scale, out_zero))
+
+
+def _acc_bias(bias, n: int, device: torch.device) -> Optional[torch.Tensor]:
+    """A bias given in accumulator units as an (N,) int32 tensor on
+    ``device``, truncated toward zero."""
+    if bias is None:
+        return None
+    b = torch.as_tensor(bias, device=device).reshape(-1)
+    if b.numel() != n:
+        raise ValueError(f"bias of {b.numel()} values for {n} columns")
+    return b if b.dtype == torch.int32 else b.float().to(torch.int32)
+
+
+def _qepilogue(acc: torch.Tensor, alpha: float, beta: float, out_u8: bool,
+               out_dtype: torch.dtype) -> torch.Tensor:
+    """The kernel's epilogue on an exact float64 accumulator: one rounding to
+    float32, ``* alpha`` in float32, then the cast (or ``+ beta``, round half
+    to even and clip for a uint8 output)."""
+    y = acc.float() * alpha
+    if out_u8:
+        return torch.round(y + beta).clamp_(0, 255).to(torch.uint8)
+    return y.to(out_dtype)
+
+
+def qmatmul_reference(a_q: torch.Tensor, w_q: torch.Tensor, a_scale: float, a_zero: int,
+                      w_scale: float, w_zero: int, out_scale: Optional[float] = None,
+                      out_zero: Optional[int] = None, bias=None,
+                      out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Plain twin of kernel 3: the zero-point-shifted integer product in
+    float64 (exact), the int32 bias, then the kernel's epilogue."""
+    k, n, za, zw, alpha, beta = _qparams(a_q, w_q, a_scale, a_zero, w_scale, w_zero, out_scale, out_zero)
+    acc = (a_q.reshape(-1, k).double() - za) @ (w_q.double() - zw)
+    b = _acc_bias(bias, n, a_q.device)
+    if b is not None:
+        acc += b.double()
+    out = _qepilogue(acc, alpha, beta, out_scale is not None, out_dtype)
+    return out.reshape(*a_q.shape[:-1], n)
+
+
+def _qgemm(a: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor], out: torch.Tensor,
+           m: int, k: int, n: int, za: int, zw: int, alpha: float, beta: float,
+           conv: Optional[Tuple[int, ...]] = None) -> None:
+    """One launch of ``csrc/qlinear.cu`` on the current stream: a MatMul of
+    a (K, N) weight, or with ``conv`` (the geometry) a convolution of the
+    OIHW weight as (N, K) that writes NCHW. Raises when CUDA refuses it. Adds
+    one to ``qmatmul.launches``."""
+    _check_cuda("qmatmul", a, w, out, *([bias] if bias is not None else []))
+    geo = None if conv is None else (ctypes.c_int * 13)(*conv)
+    fn = _func("ostt_qgemm")
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        rc = fn(a.data_ptr(), w.data_ptr(), None if bias is None else bias.data_ptr(), out.data_ptr(),
+                _OUT_KIND[out.dtype], m, k, n, za, zw, alpha, beta,
+                None if geo is None else ctypes.addressof(geo), stream)
+    if rc != 0:
+        raise RuntimeError(f"qmatmul: kernel launch failed with CUDA error {rc}")
+    qmatmul.launches += 1
+
+
+def qmatmul(a_q: torch.Tensor, w_q: torch.Tensor, a_scale: float, a_zero: int, w_scale: float,
+            w_zero: int, out_scale: Optional[float] = None, out_zero: Optional[int] = None, bias=None,
+            out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Calibrated W8A8: uint8 (..., M, K) x uint8 (K, N) -> (..., M, N), K
+    at most ``QGEMM_MAX_K``. Scales and zero points are per tensor (numbers). ``bias`` is an (N,) vector in
+    accumulator units (``b / (a_scale * w_scale)``), truncated toward zero to
+    int32 as ``qconv`` passes it. With ``out_scale``/``out_zero`` the output
+    is requantized uint8, else float in ``out_dtype``.
+
+    On CUDA tensors it launches the kernel on the current stream, or raises;
+    on CPU tensors it computes the plain twin. Every launch adds one to
+    ``qmatmul.launches``."""
+    if not a_q.is_cuda:
+        if a_q.device.type == "cpu":
+            return qmatmul_reference(a_q, w_q, a_scale, a_zero, w_scale, w_zero, out_scale,
+                                     out_zero, bias, out_dtype)
+        raise ValueError(f"qmatmul runs on CUDA or CPU tensors, not {a_q.device}")
+    k, n, za, zw, alpha, beta = _qparams(a_q, w_q, a_scale, a_zero, w_scale, w_zero, out_scale, out_zero)
+    a2 = a_q.reshape(-1, k).contiguous()
+    m = a2.shape[0]
+    out = torch.empty((m, n), dtype=torch.uint8 if out_scale is not None else out_dtype,
+                      device=a_q.device)
+    if out.numel():
+        _qgemm(a2, w_q.contiguous(), _acc_bias(bias, n, a_q.device), out, m, k, n, za, zw, alpha, beta)
+    return out.reshape(*a_q.shape[:-1], n)
+
+
+qmatmul.launches = 0

@@ -1,0 +1,542 @@
+"""Stable Diffusion 1.5 pipeline: prompt -> latents -> image.
+
+Counterpart of ``onnxstream_tpu/models/sd/pipeline.py`` for SD1.5, building
+the port's ``Session`` (reference src/sd.cpp):
+
+  * prompt_solve: per-77-token-chunk CLIP runs with A1111 weighting and mean
+    renormalization (sd.cpp:2035-2230);
+  * the diffusion loop: the CompVis CFG denoiser (c_in / c_out scalings,
+    sigma_to_t, eps -> denoised, uncond + scale * (cond - uncond);
+    sd.cpp:1397-1558) with any of the 22 samplers on the host (``generate``),
+    or, for euler and euler_a, a loop over device tensors
+    (``generate_on_device``): two UNet runs per step with
+    ``device_outputs=True``, CFG and the euler update in torch, the ancestral
+    noise computed on the host up front as the JAX package does. No step
+    waits for the host;
+  * the VAE decode: plain (1 / 0.18215 scaling) or tiled with linear blend
+    ramps (sd.cpp:1258-1346), the tile grid and the blend on the device; a
+    ``vae_decoder_qu8`` folder with its ``range_data.txt`` runs the
+    calibrated W8A8 decoder (``decoder_solver``, sd.cpp:1214-1241);
+  * latents save / load (--save-latents / --decode-latents) and the 4x3
+    latent -> RGB previews (sd.cpp:910-1029).
+
+SDXL, SDXL Turbo and ``generate_batch`` are later slices of the port: asking
+for them raises ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Dict, List, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from onnxstream_tpu_torch.models.sd import samplers as S
+from onnxstream_tpu_torch.models.sd import scheduler as sched
+from onnxstream_tpu_torch.models.sd.rng import randn_4_w_h
+from onnxstream_tpu_torch.models.sd.tokenizer import ClipTokenizer, apply_multipliers
+from onnxstream_tpu_torch.runtime.config import SessionConfig
+from onnxstream_tpu_torch.runtime.quantization import RangeData
+from onnxstream_tpu_torch.runtime.session import Session
+from onnxstream_tpu_torch.runtime.weights import DictWeightsProvider, params_from_numpy
+
+SD_LATENT_RGB_PROJ = np.array(
+    [
+        [0.3512, 0.2297, 0.3227],
+        [0.3250, 0.4974, 0.2350],
+        [-0.2829, 0.1762, 0.2721],
+        [-0.2120, -0.2616, -0.7177],
+    ],
+    np.float32,
+)
+VAE_SCALE = 0.18215  # 1/5.48998 (reference src/sd.cpp:2359)
+_LATER = "is not ported yet (SDXL, SDXL Turbo and generate_batch are a later slice of the port)"
+
+Latents = Union[np.ndarray, torch.Tensor]
+
+
+@dataclasses.dataclass
+class GenerationResult:
+    image: Optional[np.ndarray]  # (H, W, 3) uint8
+    latents: np.ndarray  # (4, h, w) float32
+    previews: List[np.ndarray]
+    # full per-step VAE decodes (--decode-steps, reference src/sd.cpp:1745-1768)
+    step_images: List[np.ndarray] = dataclasses.field(default_factory=list)
+
+
+def latent_to_rgb(sample: np.ndarray, proj: np.ndarray = SD_LATENT_RGB_PROJ) -> np.ndarray:
+    """(4,h,w) latents -> (h,w,3) uint8 preview (reference sd_preview,
+    src/sd.cpp:910-1029)."""
+    rgb = np.einsum("chw,ck->hwk", sample.astype(np.float32), proj)
+    rgb = (rgb + 1.0) * 127.5
+    return np.clip(rgb, 0, 255).astype(np.uint8)
+
+
+def upscale8x(img: np.ndarray) -> np.ndarray:
+    return np.repeat(np.repeat(img, 8, axis=0), 8, axis=1)
+
+
+def image_to_uint8(img: torch.Tensor) -> np.ndarray:
+    """(3, H, W) float32 decoder output in [-1, 1] -> (H, W, 3) uint8, as the
+    JAX pipeline maps it: ``(x + 1) * 127.5``, clipped, truncated."""
+    x = (img.float().permute(1, 2, 0) + 1.0) * 127.5
+    return x.clamp_(0, 255).to(torch.uint8).cpu().numpy()
+
+
+def _first4d(out: Dict[str, object]):
+    return next(v for v in out.values() if v.ndim == 4)
+
+
+def _run_device(sess: Session, device: torch.device) -> torch.Tensor:
+    """The session's 4-D output as a float32 tensor on ``device``: a device
+    output as it is, or the host array of an eager run (ops_printf,
+    ops_times_printf and calibration run eagerly) moved there."""
+    out = _first4d(sess.run(device_outputs=True))
+    return torch.as_tensor(out).to(device).float()
+
+
+class StableDiffusionPipeline:
+    def __init__(
+        self,
+        text_encoder: Session,
+        unet: Session,
+        vae_decoder: Optional[Session],
+        tokenizer: ClipTokenizer,
+        latent_hw: Tuple[int, int] = (64, 64),
+        context_dim: int = 768,
+        vae_tile_session: Optional[Session] = None,
+        device: Optional[torch.device] = None,
+    ):
+        self.text_encoder = text_encoder
+        self.unet = unet
+        self.vae_decoder = vae_decoder
+        self.vae_tile_session = vae_tile_session
+        self.tokenizer = tokenizer
+        self.lath, self.latw = latent_hw
+        self.context_dim = context_dim
+        self.vae_scale = VAE_SCALE
+        self.device = torch.device(unet.config.device) if device is None else torch.device(device)
+
+    # ----------------------------------------------------------- constructors
+    @classmethod
+    def from_synthetic(cls, tiny: bool = True, seed: int = 0, compute_dtype: str = "float32",
+                       device: Optional[torch.device] = None, xl: bool = False, turbo: bool = False,
+                       batch: int = 1):
+        """Architecture-faithful graphs with random weights from ``seed``:
+        CLIP-L, the SD15 UNet and VAE_SD (``tiny``: their TINY configs), the
+        same graphs and weights as the JAX package's ``from_synthetic``.
+        ``device=None`` is the first CUDA card."""
+        if xl or turbo or batch != 1:
+            raise NotImplementedError(f"from_synthetic(xl, turbo, batch > 1) {_LATER}")
+        from onnxstream_tpu_torch.models.sd.clip import CLIP_L, CLIP_TINY, build_text_encoder
+        from onnxstream_tpu_torch.models.sd.unet import SD15, TINY, build_unet
+        from onnxstream_tpu_torch.models.sd.vae import VAE_SD, VAE_TINY, build_vae_decoder
+
+        ccfg = CLIP_TINY if tiny else CLIP_L
+        ucfg = TINY if tiny else SD15
+        vcfg = VAE_TINY if tiny else VAE_SD
+
+        def mk(builder):
+            s = Session(
+                config=SessionConfig(compute_dtype=compute_dtype, fuse_ops_in_attention=True, device=device),
+                weights_provider=DictWeightsProvider(params_from_numpy(builder.weights)),
+            )
+            s.read_string(builder.to_text())
+            return s
+
+        te = mk(build_text_encoder(ccfg, seed=seed))
+        un = mk(build_unet(ucfg, seed=seed + 1))
+        lat = ucfg.sample_size
+        vd = mk(build_vae_decoder(dataclasses.replace(vcfg, sample=lat), seed=seed + 2))
+        # tile decoder: same weights (identical builder stream), tile-sized
+        # input: the synthetic analog of the reference's *_l32 model
+        tile_sz = max(lat // 2, 4)
+        vt = mk(build_vae_decoder(dataclasses.replace(vcfg, sample=tile_sz), seed=seed + 2))
+        # tiny test vocab: a-z single letters plus common words (ids < 1000)
+        vocab = {chr(ord("a") + i) + "</w>": 10 + i for i in range(26)}
+        for i, w in enumerate(["cat", "dog", "photo", "of", "fluffy", "horse", "astronaut", "riding", "mars",
+                               "on", "the", "an"]):
+            vocab[w + "</w>"] = 40 + i
+        vocab[",</w>"] = 267
+        tok = ClipTokenizer(vocab, merges=None)
+        pipe = cls(te, un, vd, tok, latent_hw=(lat, lat), context_dim=ucfg.cross_attention_dim,
+                   vae_tile_session=vt)
+        pipe._tile_size = tile_sz
+        pipe._clip_seq = ccfg.seq
+        return pipe
+
+    @classmethod
+    def from_dir(
+        cls,
+        path: str,
+        xl: bool = False,
+        turbo: bool = False,
+        compute_dtype: str = "bfloat16",
+        res: Tuple[int, int] = (512, 512),
+        provider: str = "ram+prefetch",
+        hbm_budget_bytes: int = 0,
+        device: Optional[torch.device] = None,
+    ):
+        """The reference's SD1.5 model folder: text_encoder_fp32/,
+        unet_fp16/ (or unet_fp32/), vae_decoder_fp16/ (or vae_decoder_qu8/
+        with its range_data.txt, or vae_decoder_fp32/), vae_decoder_fp16_l32/
+        for the tiles, and the tokenizer files."""
+        if xl or turbo:
+            raise NotImplementedError(f"from_dir(xl / turbo) {_LATER}")
+
+        def mk(sub):
+            p = os.path.join(path, sub, "model.txt")
+            if not os.path.exists(p):
+                return None
+            cfg = SessionConfig(compute_dtype=compute_dtype, fuse_ops_in_attention=True,
+                                hbm_budget_bytes=hbm_budget_bytes, device=device)
+            # calibrated quantized decoder: load ranges and enable W8A8
+            # (reference decoder_solver, src/sd.cpp:1214-1241)
+            ranges = os.path.join(path, sub, "range_data.txt")
+            if sub.endswith("_qu8") and os.path.exists(ranges):
+                cfg.range_data = RangeData.read(ranges).data
+                cfg.use_uint8_arithmetic = True
+            s = Session(config=cfg, weights_provider_name=provider)
+            s.read_file(p)
+            return s
+
+        te = mk("text_encoder_fp32")
+        un = mk("unet_fp16") or mk("unet_fp32")
+        vd = mk("vae_decoder_fp16") or mk("vae_decoder_qu8") or mk("vae_decoder_fp32")
+        tile = mk("vae_decoder_fp16_l32")
+        if un is None:
+            raise FileNotFoundError(f"no unet_fp16/ or unet_fp32/ model.txt under {path}")
+        tok_dir = os.path.join(path, "tokenizer")
+        tok = ClipTokenizer.from_dir(tok_dir) if os.path.exists(tok_dir) else ClipTokenizer.from_dir(path)
+        lat = (res[1] // 8, res[0] // 8)
+        return cls(te, un, vd, tok, latent_hw=lat, context_dim=768, vae_tile_session=tile)
+
+    # -------------------------------------------------------------- prompts
+    _clip_seq = 77
+
+    def encode_prompt(self, prompt: str) -> np.ndarray:
+        """(77, d) conditioning for one prompt (last chunk on multi-chunk
+        prompts, matching reference behavior sd.cpp:2216-2218)."""
+        chunks = self.tokenizer.encode_with_weights(prompt)
+        cond = None
+        for toks, mults in chunks:
+            toks = toks.copy()
+            toks[76] = 49407  # reference sd.cpp:2175 ("todo")
+            L = self._clip_seq
+            if L != 77:  # tiny test configs use a shorter context
+                toks = np.remainder(toks[:L], 999)
+                mults = mults[:L]
+            if self.text_encoder is None:
+                raise RuntimeError("no text encoder loaded")
+            self.text_encoder.clear_tensors()
+            name = next(iter(self.text_encoder.graph.inputs))
+            self.text_encoder.add_tensor(name, toks.reshape(1, L))
+            hidden = next(v for v in self.text_encoder.run().values() if v.ndim == 3)
+            cond = apply_multipliers(hidden.reshape(L, -1), np.asarray(mults, np.float32))
+        return cond
+
+    # -------------------------------------------------------------- denoiser
+    def _unet_input_names(self) -> Dict[str, str]:
+        names = {}
+        for n in self.unet.graph.inputs:
+            key = n.replace("_5F_", "_").lower()
+            if "sample" in key and "latent" not in key:
+                names["sample"] = n
+            elif "timestep" in key or key == "t":
+                names["timestep"] = n
+            elif "hidden" in key or key == "cc":
+                names["context"] = n
+            elif "time_ids" in key or "text_embeds" in key or "add_embeds" in key:
+                raise NotImplementedError(f"an SDXL UNet (input {n!r}) {_LATER}")
+        return names
+
+    def _context(self, branch) -> torch.Tensor:
+        """A (77, d) conditioning as a (1, 77, d) float32 tensor on the
+        device: moved once per generation, not once per step."""
+        return torch.as_tensor(np.asarray(branch, np.float32)).to(self.device)[None]
+
+    def denoise(self, x: np.ndarray, sigma: float, cond, uncond, cfg_scale: float = 7.0) -> np.ndarray:
+        """CompVis CFG denoiser (reference src/sd.cpp:1397-1558) on host
+        latents; cond / uncond are (1, 77, d) device tensors or (77, d)
+        arrays."""
+        c_in, c_out = sched.get_scalings(sigma)
+        t = sched.sigma_to_t(sigma)
+        names = self._unet_input_names()
+
+        def run(branch) -> np.ndarray:
+            ctx = branch if isinstance(branch, torch.Tensor) else self._context(branch)
+            self.unet.clear_tensors()
+            self.unet.add_tensor(names["sample"], (x * np.float32(c_in))[None])
+            self.unet.add_tensor(names["timestep"], np.array([t], np.float32))
+            self.unet.add_tensor(names["context"], ctx)
+            eps = _first4d(self.unet.run())[0]
+            return eps * np.float32(c_out) + x
+
+        den_c = run(cond)
+        if uncond is None:
+            return den_c
+        den_u = run(uncond)
+        return den_u + np.float32(cfg_scale) * (den_c - den_u)
+
+    # -------------------------------------------------------------- generate
+    def generate(
+        self,
+        prompt: str,
+        neg_prompt: str = "",
+        steps: int = 10,
+        seed: int = 42,
+        sampler: str = "euler_a",
+        cfg_scale: float = 7.0,
+        decode: bool = True,
+        tiled_decode: bool = False,
+        preview_steps: bool = False,
+        decode_steps: bool = False,
+        init_latents: Optional[np.ndarray] = None,
+    ) -> GenerationResult:
+        """The host loop: any of the 22 samplers, latents on the host between
+        steps (JAX ``generate``)."""
+        cond = self._context(self.encode_prompt(prompt))
+        uncond = self._context(self.encode_prompt(neg_prompt))
+        sigma = sched.sigma_schedule(steps)
+        x = init_latents if init_latents is not None else randn_4_w_h(seed % 1000, self.latw, self.lath) * sigma[0]
+        x = np.asarray(x, np.float32)
+        state = S.SamplerState(sampler, steps, seed=seed)
+        previews: List[np.ndarray] = []
+        step_images: List[np.ndarray] = []
+
+        def denoise_fn(xx, s):
+            return self.denoise(xx, float(s), cond, uncond, cfg_scale)
+
+        for i in range(steps):
+            x = S.prescale_sample(x, sampler, steps, i, sigma, False)
+            den = denoise_fn(x, float(sigma[i]))
+            x = S.sampler_step(state, x, den, sigma, i, denoise_fn)
+            if preview_steps:
+                previews.append(latent_to_rgb(x))
+            if decode_steps and i < steps - 1 and self.vae_decoder is not None:
+                # full decode of the in-progress latent; the last step's decode
+                # is the normal output image (reference src/sd.cpp:1745-1746)
+                step_images.append(self.decode(x, tiled=tiled_decode))
+
+        image = self.decode(x, tiled=tiled_decode) if decode and self.vae_decoder is not None else None
+        return GenerationResult(image=image, latents=x, previews=previews, step_images=step_images)
+
+    def generate_on_device(
+        self,
+        prompt: str,
+        neg_prompt: str = "",
+        steps: int = 10,
+        seed: int = 42,
+        sampler: str = "euler_a",
+        cfg_scale: float = 7.0,
+        decode: bool = True,
+        tiled_decode: bool = False,
+    ) -> GenerationResult:
+        """The euler / euler_a loop over device tensors (JAX
+        ``generate_on_device``, which runs it as one lax.scan): per step two
+        UNet runs with ``device_outputs=True``, CFG and the update
+        ``x + (x - den) * slope + noise * up`` in float32 torch ops. The
+        per-step scalars and the ancestral noise stream are computed on the
+        host first, exactly as the host sampler consumes them, and the noise
+        crosses to the device once. The latents come back to the host once,
+        after the last step."""
+        if sampler not in ("euler", "euler_a"):
+            raise ValueError(f"generate_on_device supports euler/euler_a, not {sampler!r}")
+        ctx_c = self._context(self.encode_prompt(prompt))
+        ctx_u = self._context(self.encode_prompt(neg_prompt))
+        sigma = sched.sigma_schedule(steps)
+        x0 = np.asarray(randn_4_w_h(seed % 1000, self.latw, self.lath) * sigma[0], np.float32)
+        state = S.SamplerState(sampler, steps, seed=seed)
+        per_step, noises = [], []
+        for i in range(steps):
+            s_cur = float(sigma[i])
+            c_in, c_out = sched.get_scalings(s_cur)
+            if sampler == "euler_a":
+                up, down = S._ancestral_sigmas(s_cur, float(sigma[i + 1]))
+                noises.append(state.noise(self.latw, self.lath))
+                slope = (down - s_cur) / s_cur
+            else:
+                si1 = S._reshaper(float(sigma[i + 1]), i, steps, False)
+                noises.append(np.zeros_like(x0))
+                slope, up = (si1 - s_cur) / s_cur, 0.0
+            # the JAX scan carries these as float32 scalars
+            per_step.append(tuple(float(np.float32(v)) for v in (c_in, c_out, slope, up)))
+        ts = torch.as_tensor(np.asarray([sched.sigma_to_t(float(sigma[i])) for i in range(steps)],
+                                        np.float32)).to(self.device)
+        noise = torch.as_tensor(np.stack(noises).astype(np.float32)).to(self.device)
+        names = self._unet_input_names()
+        cfg = float(np.float32(cfg_scale))
+
+        def eps(x_in: torch.Tensor, i: int, ctx: torch.Tensor) -> torch.Tensor:
+            self.unet.clear_tensors()
+            self.unet.add_tensor(names["sample"], x_in)
+            self.unet.add_tensor(names["timestep"], ts[i:i + 1])
+            self.unet.add_tensor(names["context"], ctx)
+            return _run_device(self.unet, self.device)[0]
+
+        x = torch.as_tensor(x0).to(self.device)
+        for i, (c_in, c_out, slope, up) in enumerate(per_step):
+            # float32 input: the executor casts it to the compute dtype at
+            # entry, and the UNet keeps one shape bucket with the host loop
+            x_in = (x * c_in)[None]
+            den_c = eps(x_in, i, ctx_c) * c_out + x
+            den_u = eps(x_in, i, ctx_u) * c_out + x
+            den = den_u + cfg * (den_c - den_u)
+            x = x + (x - den) * slope + noise[i] * up
+        image = self.decode(x, tiled=tiled_decode) if decode and self.vae_decoder is not None else None
+        return GenerationResult(image=image, latents=x.cpu().numpy(), previews=[])
+
+    def generate_batch(self, *args, **kw):
+        raise NotImplementedError(f"generate_batch {_LATER}")
+
+    # ------------------------------------------------------------ calibration
+    def _decoder_sessions(self) -> List[Session]:
+        return [s for s in (self.vae_decoder, self.vae_tile_session) if s is not None]
+
+    def calibrate_decoder(self, on: bool = True) -> None:
+        """--decoder-calibrate: the decoder sessions (full and tile) run
+        eagerly and record every op's activation range while ``on``; turning
+        it on drops the ranges recorded before."""
+        for s in self._decoder_sessions():
+            s.config.range_data_calibrate = on
+            if on:
+                for ex in s._executors.values():
+                    ex.range_data = RangeData()
+
+    def calibration_ranges(self) -> RangeData:
+        """The ranges recorded by the decodes since ``calibrate_decoder``,
+        merged over the decoder sessions (what ``range_data.txt`` holds)."""
+        rd = RangeData()
+        for s in self._decoder_sessions():
+            for ex in s._executors.values():
+                for name, (lo, hi) in ex.range_data.data.items():
+                    rd.update(name, lo, hi)
+        return rd
+
+    # ----------------------------------------------------------------- decode
+    def decode(self, latents: Latents, tiled: bool = False) -> np.ndarray:
+        """(4,h,w) latents (host or device) -> (8h,8w,3) uint8 image."""
+        return image_to_uint8(self.decode_to_float(latents, tiled=tiled))
+
+    def decode_to_float(self, latents: Latents, tiled: bool = False) -> torch.Tensor:
+        """(4,h,w) latents -> the decoder's (3, 8h, 8w) float32 output on the
+        device, before the uint8 mapping."""
+        z = torch.as_tensor(latents).to(self.device).float() / np.float32(self.vae_scale)
+        if tiled:
+            return self._decode_tiled_float(z)
+        self.vae_decoder.clear_tensors()
+        self.vae_decoder.add_tensor(next(iter(self.vae_decoder.graph.inputs)), z[None])
+        return _run_device(self.vae_decoder, self.device)[0]
+
+    _tile_size = 32
+
+    @staticmethod
+    def _tile_grid(lh: int, lw: int, tile: int, stride: int) -> Tuple[List[int], List[int]]:
+        # max(0, ...): a latent smaller than the tile gets ONE tile at origin 0
+        def axis(n):
+            out, y = [], 0
+            while True:
+                out.append(max(0, min(y, n - tile)))
+                if y >= n - tile:
+                    return out
+                y += stride
+
+        return axis(lh), axis(lw)
+
+    @staticmethod
+    def _blend_factor(dy: int, dx: int, th: int, tw: int, ramp: int) -> np.ndarray:
+        """Linear 25%-overlap blend ramp (reference blend, src/sd.cpp:1300-1326)."""
+        fy = np.ones((th, 1), np.float32)
+        if dy:
+            fy[: min(ramp, th), 0] = np.arange(min(ramp, th), dtype=np.float32) / ramp
+        fx = np.ones((1, tw), np.float32)
+        if dx:
+            fx[0, : min(ramp, tw)] = np.arange(min(ramp, tw), dtype=np.float32) / ramp
+        return fy * fx
+
+    def _decode_tiled(self, latents: Latents, tile: Optional[int] = None, stride: Optional[int] = None,
+                      ramp: Optional[int] = None) -> np.ndarray:
+        """Tiled decode of (4, h, w) latents -> (8h, 8w, 3) uint8 (JAX
+        ``_decode_tiled``)."""
+        z = torch.as_tensor(latents).to(self.device).float() / np.float32(self.vae_scale)
+        return image_to_uint8(self._decode_tiled_float(z, tile, stride, ramp))
+
+    def _decode_tiled_float(self, z: torch.Tensor, tile: Optional[int] = None, stride: Optional[int] = None,
+                            ramp: Optional[int] = None) -> torch.Tensor:
+        """Tiled decode with linear overlap blending (reference
+        sd_tiled_decoder src/sd.cpp:1258-1346) of a scaled (4, h, w) latent
+        on the device: each tile is a slice of it, run through the tile
+        decoder with ``device_outputs=True`` and blended into a (3, H, W)
+        float32 image on the device."""
+        tile = min(tile or self._tile_size, z.shape[1], z.shape[2])
+        sess = self.vae_tile_session or self.vae_decoder
+        # upscale factor from the tile model's declared output shape
+        out_spec = sess.graph.produced[sess.graph.output_names()[0]]
+        in_spec = next(iter(sess.graph.inputs.values()))
+        scale = out_spec.shape[-1] // in_spec.shape[-1] if out_spec.shape and in_spec.shape[-1] else 8
+        stride = min(stride if stride is not None else max(tile * 3 // 4, 1), tile)  # 25% overlap (sd.cpp:1330)
+        ramp = ramp if ramp is not None else (tile - stride) * scale
+        lh, lw = z.shape[1], z.shape[2]
+        ys, xs = self._tile_grid(lh, lw, tile, stride)
+        name = next(iter(sess.graph.inputs))
+        th = tw = tile * scale
+        factors = torch.as_tensor(np.stack(
+            [self._blend_factor(sy * scale, sx * scale, th, tw, ramp) for sy in ys for sx in xs])).to(z.device)
+        res = torch.zeros((3, lh * scale, lw * scale), dtype=torch.float32, device=z.device)
+        t = 0
+        for sy in ys:
+            for sx in xs:
+                sess.clear_tensors()
+                sess.add_tensor(name, z[None, :, sy:sy + tile, sx:sx + tile].contiguous())
+                img = _run_device(sess, z.device)[0]
+                dy, dx = sy * scale, sx * scale
+                f = factors[t]
+                region = res[:, dy:dy + th, dx:dx + tw]
+                res[:, dy:dy + th, dx:dx + tw] = img * f + region * (1.0 - f)
+                t += 1
+        return res
+
+    # ------------------------------------------------------------- latents IO
+    @staticmethod
+    def save_latents(path: str, latents: np.ndarray) -> None:
+        np.asarray(latents, np.float32).tofile(path)
+
+    @staticmethod
+    def load_latents(path: str, lath: int, latw: int) -> np.ndarray:
+        return np.fromfile(path, np.float32).reshape(4, lath, latw)
+
+
+def qu8_decoder(text: str, weights: Dict[str, np.ndarray], range_data: Dict[str, tuple],
+                compute_dtype: str = "float32", device: Optional[torch.device] = None) -> Session:
+    """The calibrated W8A8 decoder made from a float decoder graph, as a
+    ``vae_decoder_qu8`` folder holds it: weights through the converter's
+    ``quantize_graph_weights`` (per-tensor ``uint8[scale,zp]``, its
+    exclusions), ``range_data`` and ``use_uint8_arithmetic`` as ``from_dir``
+    sets them."""
+    from onnxstream_tpu_torch.convert.quantize import quantize_graph_weights
+
+    qtext, qweights = quantize_graph_weights(text, weights)
+    cfg = SessionConfig(compute_dtype=compute_dtype, fuse_ops_in_attention=True, device=device,
+                        use_uint8_arithmetic=True, range_data=dict(range_data))
+    s = Session(config=cfg, weights_provider=DictWeightsProvider(params_from_numpy(qweights)))
+    s.read_string(qtext)
+    return s
+
+
+def save_image(img: np.ndarray, path: str, parameters: Optional[str] = None) -> None:
+    """PNG/JPEG writer with optional embedded generation parameters
+    (reference --embed-parameters, src/sd.cpp:447-509)."""
+    from PIL import Image
+    from PIL.PngImagePlugin import PngInfo
+
+    im = Image.fromarray(img)
+    if path.lower().endswith(".png") and parameters:
+        info = PngInfo()
+        info.add_text("parameters", parameters)
+        im.save(path, pnginfo=info)
+    elif parameters:
+        im.save(path, comment=parameters.encode())
+    else:
+        im.save(path)

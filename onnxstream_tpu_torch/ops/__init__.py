@@ -90,6 +90,18 @@ class Ctx:
             entry[1] = to_torch(x, self.device)
         return entry[1]
 
+    def derived(self, a: np.ndarray) -> torch.Tensor:
+        """A small array an op computed on the host from shapes and
+        attributes (a Resize index), on the op's device: copied once per
+        executor and value, so a run inside a device loop waits for no copy."""
+        if self.consts is None:
+            return to_torch(a, self.device)
+        key = (a.dtype.str, a.shape, a.tobytes())  # plan constants are keyed by id, an int
+        entry = self.consts.get(key)
+        if entry is None:
+            entry = self.consts[key] = [a, to_torch(a, self.device)]
+        return entry[1]
+
     def static(self, ins, i: int, what: str = "") -> Optional[np.ndarray]:
         """Return input i as a concrete numpy array, or raise StaticRequired
         (a ``meta`` tensor has no value, as a JAX tracer has none)."""

@@ -418,7 +418,7 @@ def _resize(ctx: Ctx, op, ins):
         out_shape = [int(math.floor(i * s)) for i, s in zip(in_shape, scales)]
 
     def index(idx: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(idx.astype(np.int64)).to(x.device)
+        return ctx.derived(idx.astype(np.int64))
 
     out = x
     for axis in range(x.ndim):
@@ -442,7 +442,7 @@ def _resize(ctx: Ctx, op, ins):
             frac = np.clip(coords - lo, 0.0, 1.0).astype(np.float32)
             shape = [1] * out.ndim
             shape[axis] = out_shape[axis]
-            w = torch.from_numpy(frac.reshape(shape)).to(x.device)
+            w = ctx.derived(frac.reshape(shape))
             g_lo = torch.index_select(out, axis, index(lo)).float()
             g_hi = torch.index_select(out, axis, index(hi)).float()
             out = (g_lo * (1.0 - w) + g_hi * w).to(out.dtype)

@@ -1,8 +1,8 @@
 """Session configuration.
 
 Counterpart of ``onnxstream_tpu/runtime/config.py``. It keeps the reference
-option flags the UNet and TinyLlama slices read and the ``set_option`` names
-that apply.
+option flags the UNet, TinyLlama and SD1.5 image slices read (the calibrated
+W8A8 options among them) and the ``set_option`` names that apply.
 The TPU-only knobs (AUTO weight layouts, meshes, pipeline stages, XLA
 compiler options, Pallas interpret mode) have no counterpart here.
 
@@ -18,7 +18,7 @@ that raises, so nothing runs on the CPU unless the caller asks for it.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, List, Optional, Set
+from typing import Callable, Dict, List, Optional, Set
 
 import torch
 
@@ -41,8 +41,6 @@ _NOT_IMPLEMENTED = {
     "fuse_gn_conv": False,  # ostpu.gn_silu_conv (TPU kernel gn_silu_conv_pallas)
     "use_pallas_smallconv": False,  # im2col conv (TPU kernel matmul_pallas)
     "flash_packed_nopad": False,  # head-major flash route (TPU kernel flash_attention)
-    "use_uint8_qdq": False,  # quantize pushed intermediates (executor _maybe_qdq)
-    "use_uint8_arithmetic": False,  # W8A8 _qlinear_mode (TPU kernels qmatmul / qconv)
     "force_fp16_storage": False,
     "use_nhwc_layout": False,  # channel-last graph rewrite
     "synthetic_device_weights": False,  # weights generated on the device
@@ -72,6 +70,19 @@ class SessionConfig:
     # outputs back to the compute dtype (the reference's m_requires_upcast;
     # the llama pipeline's RMSNorms)
     requires_upcast: Optional[Callable[[str, str], bool]] = None
+    # W8A8: a Conv (group 1) or MatMul with a uint8 weight from the file and a
+    # calibrated range runs with uint8 activations through kernels/qmatmul.py
+    # qmatmul and kernels/qconv.py qconv (reference static-W8A8 MatMul and qu8
+    # Conv, onnxstream.cpp:5790-5795, 4631-4689)
+    use_uint8_arithmetic: bool = False
+    # quantize-dequantize every pushed float intermediate to uint8 precision
+    # (reference push_tensor, onnxstream.cpp:3022-3034)
+    use_uint8_qdq: bool = False
+    # record per-op activation ranges in run_eager (onnxstream.cpp:2983);
+    # Session.run goes eager while it is set
+    range_data_calibrate: bool = False
+    # calibration data: op or tensor name -> (min, max) (range_data.txt)
+    range_data: Dict[str, tuple] = dataclasses.field(default_factory=dict)
 
     # --- port knobs --------------------------------------------------------
     # packed flash attention (kernels/flash_attention.py) at the sites the
@@ -107,8 +118,6 @@ class SessionConfig:
     fuse_gn_conv: bool = False
     use_pallas_smallconv: bool = False
     flash_packed_nopad: bool = False
-    use_uint8_qdq: bool = False
-    use_uint8_arithmetic: bool = False
     force_fp16_storage: bool = False
     use_nhwc_layout: bool = False
     synthetic_device_weights: bool = False
@@ -138,6 +147,8 @@ class SessionConfig:
         mapping = {
             "use_fp16_arithmetic": lambda v: setattr(self, "compute_dtype", "float16" if v else "float32"),
             "use_bf16_arithmetic": lambda v: setattr(self, "compute_dtype", "bfloat16" if v else "float32"),
+            "use_uint8_qdq": lambda v: setattr(self, "use_uint8_qdq", v),
+            "use_uint8_arithmetic": lambda v: setattr(self, "use_uint8_arithmetic", v),
             "fuse_ops_in_attention": lambda v: setattr(self, "fuse_ops_in_attention", v),
             "support_dynamic_shapes": lambda v: setattr(self, "support_dynamic_shapes", v),
             "use_scaled_dp_attn_op": lambda v: setattr(self, "use_scaled_dp_attn_op", v),

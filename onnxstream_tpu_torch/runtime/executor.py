@@ -38,9 +38,21 @@ is 2-D and quantized runs through a hand-written kernel of
 (``use_w8a8_dyn_matmul``), ``w8_matmul`` for uint8 weights, from the file
 (``uint8[scale,zp]``) or forced (``use_w8_matmul``); the activation is cast
 to the compute dtype first. Every other quantized weight is dequantized on
-read, per-channel scales broadcasting on the last axis. The W8A8 paths with
-calibrated ranges (``_qlinear_mode``, ``_maybe_qdq``) are not ported:
-SessionConfig refuses ``use_uint8_arithmetic`` and ``use_uint8_qdq``.
+read, per-channel scales broadcasting on the last axis.
+
+Calibrated W8A8 (JAX ``_qlinear_mode``, ``_eval_qlinear``): with
+``use_uint8_arithmetic``, a MatMul or group-1 Conv whose weight is uint8 in the
+file and whose op has a range in ``config.range_data`` quantizes its input
+activation with the producer op's calibrated range and runs through kernel 3
+(``kernels/qmatmul.py qmatmul``; a Conv through ``kernels/qconv.py qconv``,
+kernel 3 as an implicit GEMM), with a float output in the compute dtype.
+This route comes first; then the int8 and uint8 weight routes above, then
+dequantize-on-read. ``use_uint8_qdq`` quantize-dequantizes every pushed float
+intermediate (``_maybe_qdq``), single-use tensors consumed by the next op
+excepted, as the reference does. ``run_eager`` with ``range_data_calibrate``
+records per-op ranges (graph inputs under their tensor names, op outputs
+before QDQ) into ``Executor.range_data``; the percentiles are taken on the
+device.
 """
 
 from __future__ import annotations
@@ -53,15 +65,18 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from onnxstream_tpu_torch.dtypes import to_torch
+from onnxstream_tpu_torch.dtypes import DType, to_torch
 from onnxstream_tpu_torch.ir import OpNode
-from onnxstream_tpu_torch.kernels.qmatmul import w8_matmul, w8a8_dyn_matmul
+from onnxstream_tpu_torch.kernels.qconv import qconv
+from onnxstream_tpu_torch.kernels.qmatmul import qmatmul, quantize_activation, w8_matmul, w8a8_dyn_matmul
 from onnxstream_tpu_torch.ops import Ctx, get_impl
 from onnxstream_tpu_torch.runtime.planner import Plan, WeightArg
 from onnxstream_tpu_torch.runtime.quantization import (
+    RangeData,
     quantize_weight_percentile,
     quantize_weight_percentile_per_channel,
     quantize_weight_symmetric_per_channel,
+    range_to_scale,
 )
 from onnxstream_tpu_torch.runtime.weights import WeightsProvider
 
@@ -173,6 +188,23 @@ def reference_precision():
          m.allow_fp16_reduced_precision_reduction) = saved
 
 
+def percentiles(t: torch.Tensor) -> tuple:
+    """``quantization.get_percentiles`` of a tensor, computed where it lies:
+    the same order statistics of its finite values, from a sort."""
+    flat = t.detach().float().reshape(-1)
+    finite = flat[torch.isfinite(flat)]
+    n = finite.numel()
+    if n == 0:
+        return 0.0, 0.0
+    if n == 1:
+        v = float(finite[0])
+        return v, v
+    k_lo = int(n * 0.001)
+    k_hi = max(n - 1 - int(n * 0.001), k_lo)
+    ends = torch.sort(finite).values[[k_lo, k_hi]].tolist()
+    return min(ends), max(ends)
+
+
 def _to_host(v) -> np.ndarray:
     """Fetched output -> numpy: floats as float32 (converted on the device
     first), signed integers as int64 (the wire integer dtype)."""
@@ -211,9 +243,29 @@ class Executor:
         self._upcast = frozenset() if upcast is None else frozenset(
             i for i, op in enumerate(self.graph.ops) if upcast(op.op_type, op.name))
         self._arg_by_name = {w.name: w for w in plan.arg_weights}
-        # op index -> the quantized kernel its MatMul runs through
+        # calibration ranges recorded by run_eager (range_data_calibrate)
+        self.range_data = RangeData()
+        # tensor name -> producing op name: a W8A8 op quantizes its input with
+        # the producer's calibrated output range (JAX Executor._producer_op)
+        self._producer_op = {t.name: op.name for op in self.graph.ops for t in op.outputs if t.name}
+        # reference QDQ skip rule (src/onnxstream.cpp:3009-3020): a pushed
+        # tensor consumed only by the immediately next op is not quantized
+        refs: Dict[str, int] = {}
+        for op in self.graph.ops:
+            for t in op.inputs:
+                if t.name and not t.is_weight:
+                    refs[t.name] = refs.get(t.name, 0) + 1
+        self._qdq_skip = {
+            op.outputs[0].name for op, nxt in zip(self.graph.ops, self.graph.ops[1:])
+            if len(op.outputs) == 1 and op.outputs[0].name and refs.get(op.outputs[0].name, 0) == 1
+            and any(t.name == op.outputs[0].name for t in nxt.inputs if not t.is_weight)}
+        # op index -> "matmul" | "conv": the calibrated W8A8 route (first in
+        # precedence), then op index -> the 8-bit weight kernel of a MatMul
+        self._qlinear = {i: m for i, op in enumerate(self.graph.ops)
+                         if plan.op_modes[i] == "device" and (m := self._qlinear_mode(op))}
         self._qroute = {i: r for i, op in enumerate(self.graph.ops)
-                        if plan.op_modes[i] == "device" and (r := self._quant_route(i, op))}
+                        if plan.op_modes[i] == "device" and i not in self._qlinear
+                        and (r := self._quant_route(i, op))}
         # host seconds spent quantizing force_uint8_storage_set weights
         self.quantize_seconds = 0.0
         provider.on_init(plan.stream_entries())
@@ -307,8 +359,38 @@ class Executor:
 
     @property
     def quant_routes(self) -> Dict[str, str]:
-        """MatMul op name -> the quantized kernel it runs through."""
-        return {self.graph.ops[i].name: r for i, r in self._qroute.items()}
+        """Op name -> the quantized kernel it runs through: ``qmatmul`` /
+        ``qconv`` (calibrated W8A8), ``w8a8_dyn_matmul``, ``w8_matmul``."""
+        routes = {self.graph.ops[i].name: r for i, r in self._qroute.items()}
+        routes.update({self.graph.ops[i].name: "qconv" if m == "conv" else "qmatmul"
+                       for i, m in self._qlinear.items()})
+        return routes
+
+    def _qlinear_mode(self, op: OpNode) -> Optional[str]:
+        """The calibrated W8A8 route: a uint8 weight from the file and a range
+        for this op (reference static-W8A8 MatMul src/onnxstream.cpp:5790-5795
+        and qu8 Conv 4631-4689; JAX ``_qlinear_mode``)."""
+        if not (self.config.use_uint8_arithmetic and len(op.inputs) >= 2 and op.inputs[1].is_weight
+                and op.inputs[1].dtype == DType.uint8 and op.name in self.config.range_data
+                and op.inputs[1].name in self._arg_by_name):
+            return None
+        if op.op_type == "MatMul":
+            return "matmul"
+        if op.op_type == "Conv" and op.attr_int("group", 1) == 1:
+            return "conv"
+        return None
+
+    def _activation_qparams(self, op: OpNode):
+        """(scale, zero) to quantize op's input activation: the producer op's
+        calibrated range when known (the statistic the reference computes at
+        push time), else a range recorded under the tensor's own name (graph
+        inputs, observed during calibration), else this op's own range."""
+        rd = self.config.range_data
+        tname = op.inputs[0].name
+        name = self._producer_op.get(tname)
+        if name is None or name not in rd:
+            name = tname if tname in rd else op.name
+        return range_to_scale(*rd[name])
 
     def _quant_route(self, oi: int, op: OpNode) -> Optional[str]:
         """The kernel of a MatMul whose weight is 2-D and quantized (JAX
@@ -343,7 +425,94 @@ class Executor:
             return w8a8_dyn_matmul(a, weights_env[w.name], scale, out_dtype=cdt)
         return w8_matmul(a, weights_env[w.name], scale, zero, out_dtype=cdt)
 
+    def _eval_qlinear(self, mode: str, op: OpNode, env: Dict[str, Any],
+                      weights_env: Dict[str, Any]) -> torch.Tensor:
+        """Quantize the input activation, run kernel 3 (integer products,
+        zero-point corrections and dequantization in one launch) and return
+        the float result in the compute dtype. Requantizing the output to the
+        op's range is left to the QDQ stage (JAX ``_eval_qlinear``)."""
+        cdt = self.config.torch_compute_dtype
+        ctx = Ctx("device", self.config, op.name, device=self.device, consts=self._consts)
+        aname = op.inputs[0].name
+        a = ctx.tensor(self.plan.static_env.get(aname, env.get(aname)))
+        w = self._arg_by_name[op.inputs[1].name]
+        w_scale, w_zero = w.quant
+        a_scale, a_zero = self._activation_qparams(op)
+        if mode == "matmul":
+            a_q = quantize_activation(a, a_scale, a_zero)
+            return qmatmul(a_q, weights_env[w.name], a_scale, a_zero, w_scale, w_zero, out_dtype=cdt)
+        bias = None
+        if len(op.inputs) > 2 and op.inputs[2].name:
+            bname = op.inputs[2].name
+            bias = ctx.tensor(self.plan.static_weights[bname] if bname in self.plan.static_weights
+                              else weights_env[bname])
+        conv1d = a.ndim == 3
+        if conv1d:
+            a = a[..., None]
+        strides = list(op.attr_ints("strides", [1, 1]))
+        dilations = list(op.attr_ints("dilations", [1, 1]))
+        pads = list(op.attr_ints("pads", [0, 0, 0, 0]))
+        if conv1d:
+            strides += [1] * (2 - len(strides))
+            dilations += [1] * (2 - len(dilations))
+            if len(pads) == 2:
+                pads = [pads[0], 0, pads[1], 0]
+        w_raw = weights_env[w.name]
+        if w_raw.ndim == 3:
+            w_raw = w_raw[..., None]
+        out = qconv(quantize_activation(a, a_scale, a_zero), w_raw, a_scale, a_zero, w_scale, w_zero,
+                    bias=bias, strides=strides, pads=pads, dilations=dilations, out_dtype=cdt)
+        return out[..., 0] if conv1d else out
+
+    def _qdq_range(self, op: OpNode, x: torch.Tensor):
+        """(scale, zero) for the QDQ of a pushed tensor: XNNPACK's fixed qu8
+        softmax quantization (1/256, 0; reference src/onnxstream.cpp:5862), a
+        calibrated range, or the reference's 0.1% percentiles estimated on
+        the device from a strided subsample of at most 2^20 values (JAX
+        ``_qdq_range``)."""
+        if op.op_type == "Softmax":
+            return 1.0 / 256.0, 0.0
+        if op.name in self.config.range_data:
+            return range_to_scale(*self.config.range_data[op.name])
+        xf = x.float().reshape(-1)
+        n = xf.numel()
+        if n > (1 << 20):
+            xf = xf[:: n // (1 << 20)]
+            n = xf.numel()
+        xs = torch.sort(xf).values
+        k = int(n * 0.001)
+        lo = xs[k].clamp(max=0.0)  # range_to_scale forces 0 into the range
+        hi = xs[n - 1 - k].clamp(min=0.0)
+        scale = (hi - lo) / 255.0
+        scale = torch.where(scale <= 0, torch.ones_like(scale), scale)
+        zero = torch.round(-lo / scale).clamp(0, 255)
+        return scale, zero
+
+    def _maybe_qdq(self, op: OpNode, outs: List[Any]) -> List[Any]:
+        """use_uint8_qdq: quantize-dequantize each pushed float intermediate
+        (reference push_tensor, src/onnxstream.cpp:3022-3034). Single-use
+        tensors consumed by the immediately following op are skipped, as in
+        the reference (3009-3020); fetched outputs are never degraded."""
+        if not self.config.use_uint8_qdq:
+            return outs
+        fetched = set(self.plan.fetch_names)
+        res = []
+        for spec, o in zip(op.outputs, outs):
+            if (spec.name and spec.name not in self._qdq_skip and spec.name not in fetched
+                    and isinstance(o, torch.Tensor) and o.is_floating_point()):
+                scale, zero = self._qdq_range(op, o)
+                # a tensor divisor keeps the division IEEE on the card
+                s = scale if isinstance(scale, torch.Tensor) else torch.full(
+                    (), scale, dtype=torch.float32, device=o.device)
+                q = (torch.round(o.float() / s) + zero).clamp_(0, 255).to(torch.uint8)
+                o = ((q.float() - zero) * s).to(o.dtype)
+            res.append(o)
+        return res
+
     def _eval_op(self, oi: int, op: OpNode, env: Dict[str, Any], weights_env: Dict[str, Any]):
+        qmode = self._qlinear.get(oi)
+        if qmode is not None:
+            return [self._eval_qlinear(qmode, op, env, weights_env)]
         route = self._qroute.get(oi)
         if route is not None:
             return [self._eval_qmatmul(route, op, env, weights_env)]
@@ -383,7 +552,7 @@ class Executor:
         keep = set(seg.out_names)
         for oi in seg.op_indices:
             op = self.graph.ops[oi]
-            for spec, val in zip(op.outputs, self._eval_op(oi, op, env, weights)):
+            for spec, val in zip(op.outputs, self._maybe_qdq(op, self._eval_op(oi, op, env, weights))):
                 if spec.name:
                     env[spec.name] = val
             for t in op.inputs:
@@ -435,12 +604,21 @@ class Executor:
 
     def run_eager(self, inputs: Dict[str, Any]) -> Dict[str, np.ndarray]:
         """Per-op interpreter over every device op with all weights fetched
-        up front: ops_printf / ops_times_printf, and the oracle for run()."""
+        up front: ops_printf / ops_times_printf, range calibration
+        (reference src/onnxstream.cpp:2983-3004), and the oracle for run()."""
         if self._first_run_done:
             self.provider.on_restart()
         timed = self.config.ops_times_printf
+        calibrate = self.config.range_data_calibrate
+        fetched = set(self.plan.fetch_names)
         with reference_precision():
             env: Dict[str, Any] = self._prepare_inputs(inputs)
+            if calibrate:
+                # graph-input ranges under the tensor name: W8A8 ops whose
+                # input has no producer quantize with this range
+                for k, v in env.items():
+                    if v.is_floating_point():
+                        self.range_data.update(k, *percentiles(v))
             weights_env = {w.name: self._upload(w) for w in self.plan.arg_weights}
             for oi, op in enumerate(self.graph.ops):
                 if self.plan.op_modes[oi] != "device":
@@ -449,6 +627,13 @@ class Executor:
                     print(f"#{oi}) {op.op_type} ({op.name})")
                 t0 = time.perf_counter() if timed else 0.0
                 outs = self._eval_op(oi, op, env, weights_env)
+                if calibrate:
+                    # calibration observes pre-QDQ values (reference
+                    # push_tensor records ranges before conversion)
+                    for o in outs:
+                        if isinstance(o, torch.Tensor) and o.is_floating_point():
+                            self.range_data.update(op.name, *percentiles(o))
+                outs = self._maybe_qdq(op, outs)
                 if timed:
                     if self.device.type == "cuda":
                         torch.cuda.synchronize(self.device)
@@ -457,6 +642,10 @@ class Executor:
                 for spec, val in zip(op.outputs, outs):
                     if spec.name:
                         env[spec.name] = val
+                # an activation is freed after its last reader, as in run()
+                for t in op.inputs:
+                    if t.name and not t.is_weight and self._last_use.get(t.name) == oi and t.name not in fetched:
+                        env.pop(t.name, None)
             out = self._outputs(env)
         self._first_run_done = True
         if timed and self.ops_times:

@@ -157,7 +157,10 @@ class RangeData:
         self.data: Dict[str, Tuple[float, float]] = {}
 
     def observe(self, op_name: str, arr) -> None:
-        lo, hi = get_percentiles(np.asarray(arr))
+        self.update(op_name, *get_percentiles(np.asarray(arr)))
+
+    def update(self, op_name: str, lo: float, hi: float) -> None:
+        """Widen op_name's range to include (lo, hi)."""
         if op_name in self.data:
             plo, phi = self.data[op_name]
             lo, hi = min(lo, plo), max(hi, phi)

@@ -147,10 +147,13 @@ class Session:
         """Run the graph on the pushed tensors; float outputs come back as
         float32 numpy arrays, integers as int64. With ``device_outputs`` (not
         in eager runs) they stay device tensors in their compute dtypes, to be
-        fed back with add_tensor (the LLM KV cache)."""
+        fed back with add_tensor (the LLM KV cache). With
+        ``range_data_calibrate`` the run is eager and records the activation
+        ranges into the executor's ``range_data``."""
         ex = self._executor()
         inputs = {name: self.tensors[name] for name in self.graph.inputs}
-        if eager or self.config.ops_printf or self.config.ops_times_printf:
+        if (eager or self.config.ops_printf or self.config.ops_times_printf
+                or self.config.range_data_calibrate):
             outs = ex.run_eager(inputs)
         else:
             outs = ex.run(inputs, device_outputs=device_outputs)

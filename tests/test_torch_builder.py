@@ -36,6 +36,32 @@ def test_build_unet_tiny_matches_jax_builder():
     assert param_count(g) == sum(a.size for a in jg.weights.values())
 
 
+@pytest.mark.parametrize("which", ["clip", "vae"])
+def test_clip_and_vae_builders_match_jax(which):
+    """The copied CLIP and VAE builders: the same text and the same arrays
+    as the JAX builders for the same seed (TINY), and the same text at full
+    width (CLIP-L, VAE_SD; weights left lazy)."""
+    from onnxstream_tpu.models.sd import clip as jax_clip
+    from onnxstream_tpu.models.sd import vae as jax_vae
+    from onnxstream_tpu_torch.models.sd import clip, vae
+
+    if which == "clip":
+        pairs = [(clip.CLIP_TINY, jax_clip.CLIP_TINY), (clip.CLIP_L, jax_clip.CLIP_L)]
+        build, jax_build = clip.build_text_encoder, jax_clip.build_text_encoder
+    else:
+        pairs = [(vae.VAE_TINY, jax_vae.VAE_TINY), (vae.VAE_SD, jax_vae.VAE_SD)]
+        build, jax_build = vae.build_vae_decoder, jax_vae.build_vae_decoder
+    for (cfg, jcfg), lazy in zip(pairs, (False, True)):
+        assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+        g, jg = build(cfg, seed=3, lazy_weights=lazy), jax_build(jcfg, seed=3, lazy_weights=lazy)
+        assert g.to_text() == jg.to_text()
+        assert list(g.weights) == list(jg.weights)
+        if not lazy:
+            for name, arr in jg.weights.items():
+                assert g.weights[name].dtype == arr.dtype
+                np.testing.assert_array_equal(g.weights[name], arr)
+
+
 @pytest.mark.parametrize("dtype", [np.float32, np.float16, ml_dtypes.bfloat16, np.int64])
 def test_params_from_numpy_is_bit_exact(dtype):
     a = (np.random.default_rng(0).standard_normal((3, 5)) * 100).astype(dtype)
@@ -64,6 +90,9 @@ def test_import_pulls_in_neither_jax_nor_ml_dtypes():
         "import onnxstream_tpu_torch.models.llm.pipeline, onnxstream_tpu_torch.cli.llm_main\n"
         "import onnxstream_tpu_torch.models.llm.hf, onnxstream_tpu_torch.kernels.qmatmul\n"
         "import onnxstream_tpu_torch.runtime.quantization, onnxstream_tpu_torch.convert.quantize\n"
+        "import onnxstream_tpu_torch.models.sd.pipeline, onnxstream_tpu_torch.cli.sd_main\n"
+        "import onnxstream_tpu_torch.kernels.qconv, onnxstream_tpu_torch.models.sd.clip\n"
+        "import onnxstream_tpu_torch.models.sd.vae, onnxstream_tpu_torch.models.sd.samplers\n"
         "bad = [m for m in ('jax', 'ml_dtypes', 'onnxstream_tpu') if m in sys.modules]\n"
         "assert not bad, bad\n"
     )

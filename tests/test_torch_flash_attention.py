@@ -176,6 +176,48 @@ def test_wrapper_rejects_what_the_kernel_cannot_take(bad):
             flash_attention_packed(m, m, m, 2)
 
 
+# the SD VAE mid-block attention: 1 head of d = 512 (4096 tokens at 512 x 512)
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("m,n", [(256, 256), (77, 300)])
+def test_d512_twin_matches_jax_reference(m, n, dtype, tol):
+    rng = np.random.default_rng(5)
+    q, k, v = (rng.standard_normal((1, L, 512), dtype=np.float32) for L in (m, n, n))
+    jdt, tdt = (jnp.float32, torch.float32) if dtype == "float32" else (jnp.bfloat16, torch.bfloat16)
+    want = np.asarray(jax_sdpa_packed(*(jnp.asarray(x, jdt) for x in (q, k, v)), 1).astype(jnp.float32))
+    got = flash_attention_packed_reference(*(_t(x).to(tdt) for x in (q, k, v)), 1)
+    assert got.dtype == tdt and got.shape == (1, m, 512)
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=tol, atol=tol)
+    # the wrapper takes d = 512 (the CPU computes the twin)
+    torch.testing.assert_close(flash_attention_packed(*(_t(x).to(tdt) for x in (q, k, v)), 1), got)
+
+
+@pytest.mark.parametrize("site,want", [("vae_mid_4096", True), ("vae_tile_1024", False), ("d520", False)])
+def test_use_flash_packed_at_the_vae_site(site, want, monkeypatch):
+    """The VAE mid-block site passes the JAX size gates (KV 4096 >= 512,
+    scores 32 MB >= 8 MB) and now the head-dim limit; the tiled decode's
+    32 x 32 tiles (1024 tokens, 2 MB of scores) fall below the gate, as in
+    JAX."""
+    L, d = {"vae_mid_4096": (4096, 512), "vae_tile_1024": (1024, 512), "d520": (4096, 520)}[site]
+    q = torch.empty(1, L, d, device="meta", dtype=torch.bfloat16)
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    assert _use_flash_packed(None, 1, q, q, q) is want
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+def test_d512_kernel_matches_twin_on_card(dtype, tol):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for b, m, n, causal in [(1, 4096, 4096, False), (2, 77, 300, False), (1, 100, 40, True)]:
+        q, k, v = (torch.randn(b, L, 512, device="cuda", generator=g).to(dtype) for L in (m, n, n))
+        out = flash_attention_packed(q, k, v, 1, causal=causal)
+        torch.cuda.synchronize()
+        ref = flash_attention_packed_reference(q, k, v, 1, causal=causal)
+        torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
 def test_kernel_matches_twin_on_card(dtype, tol):
@@ -305,7 +347,7 @@ def test_head_major_limits_raise_and_are_excluded_by_the_predicate(bad, monkeypa
     if bad == "head_dim_12":
         q, k, mask = _llama_site(d=12)
         v = k
-    elif bad == "head_dim_512":
+    elif bad == "head_dim_512":  # above HEAD_MAJOR_MAX_HEAD_DIM = 256: d = 512 only in the packed form
         q, k, mask = _llama_site(d=512)
         v = k
     elif bad == "float64":
