@@ -6,7 +6,8 @@ Phases (any failure exits non-zero and prints no result line):
   1. device: require CUDA; print the card, its power limit, the CUDA and nvcc
      versions and the precision flags in effect;
   2. build: compile every kernel source of the checkout (flash_attention.cu,
-     qmatmul.cu, qlinear.cu), one nvcc each, all started together;
+     qmatmul.cu, qlinear.cu, gn_conv.cu, matmul.cu), one nvcc each, all
+     started together;
   3. kernel vs twin: every wrapper of a CUDA kernel against its plain PyTorch
      twin, fp32 (TF32 off) and bf16:
        - flash_attention_packed at the two SD1.5 UNet site shapes, the VAE
@@ -19,15 +20,33 @@ Phases (any failure exits non-zero and prints no result line):
        - qmatmul and qconv (the calibrated W8A8 kernels) at ragged shapes,
          both weight layouts, strides / dilations / pads, float32, bf16 and
          requantized uint8 outputs, bit for bit;
+       - gn_silu, gn_silu_conv and matmul (with conv3x3_im2col) at the JAX
+         suite's ragged cases (C/G = 5 and 10, H W = 35, 5 x 7 borders, no
+         bias, O != C, batch 2) in float32 / bfloat16 / float16, and at the
+         sites of the GroupNorm and small-conv routes;
      with each kernel's time beside its twin's, its bound and one PyTorch
      call computing the same function where there is one
-     (scaled_dot_product_attention, torch._int_mm, a bf16 matmul);
+     (scaled_dot_product_attention, torch._int_mm, a bf16 matmul,
+     F.group_norm + F.silu [+ F.conv2d], torch.addmm);
   4. SD slice: the SD1.5 UNet at full width (random weights from seed 0) in
      bf16 through the port's Session answers three requests; each must be
      finite, (1, 4, 64, 64), and launch the packed kernel exactly 10 times;
      the first request is rerun with the flash kernel off and must agree; the
      TINY UNet in fp32 on the card must agree with the same graph run on the
      CPU;
+  4b. SD slice under the optional routes, bf16, batch 1: the TINY UNet in
+     fp32 under config A (fuse_gn_conv + fuse_groupnorm) and config B
+     (use_pallas_smallconv + fuse_groupnorm) on the card against the CPU;
+     the SD15 UNet at full width answers the three requests under A and
+     under B, each output within 5e-2 * max|out| of the default config's, the
+     launch counts equal to the fused graph's op counts (B: 61 gn_silu and
+     34 matmul launches per run), each kernel's first launch of a request
+     held against its twin on the graph's operands; the VAE_SD decoder
+     decodes one 64 x 64 latent to 512 x 512 under fuse_groupnorm (30 gn_silu
+     launches) and under config A, each image within one level on average of
+     the default decode; device busy and wall time of a UNet run (also under
+     fuse_groupnorm alone) and a decode under every config, in turns; one run's kernel calls replayed against the twins
+     and the library calls;
   5. SD slice, uint8 weights: the same UNet through the port's
      quantize_graph_weights (per-tensor uint8[scale,zp], the converter's
      exclusions): TINY in fp32 on the card against the CPU, then SD1.5 in
@@ -101,7 +120,9 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 SD15_SITES = [(4096, 40), (1024, 80)]  # (tokens, head dim) of the flash sites, 8 heads, 5 each
 KERNEL_SOURCES = {"flash_attention": "flash_attention_packed, flash_attention",
                   "qmatmul": "w8a8_dyn_matmul, w8_matmul",
-                  "qlinear": "qmatmul, qconv"}
+                  "qlinear": "qmatmul, qconv",
+                  "gn_conv": "gn_silu, gn_silu_conv",
+                  "matmul": "matmul"}
 VAE_SITE = (4096, 512)  # (tokens, head dim) of the SD VAE mid-block attention at 512 x 512, 1 head
 # NVIDIA H100 SXM, dense rates (NVIDIA's data sheet), for the bounds
 HBM_BYTES_PER_S = 3.35e12
@@ -280,12 +301,12 @@ def phase_kernel(name: str) -> dict:
             **bound(nbytes, ops, "bf16"), "library_ms": per_step[2], "ms_by_shape": by_shape}
 
 
-def _session(text: str, weights, compute_dtype: str, device: str):
+def _session(text: str, weights, compute_dtype: str, device: str, **options):
     from onnxstream_tpu_torch import Session, SessionConfig
     from onnxstream_tpu_torch.runtime.weights import DictWeightsProvider, params_from_numpy
 
     cfg = SessionConfig(compute_dtype=compute_dtype, device=torch.device(device),
-                        fuse_attention_heads=True)
+                        fuse_attention_heads=True, **options)
     s = Session(cfg, weights_provider=DictWeightsProvider(params_from_numpy(weights)))
     s.read_string(text)
     return s
@@ -325,10 +346,10 @@ def profile_steps(step, name: str, label: str, steps: int = 2) -> None:
         print(f"  {ms:8.3f} ms/step  {n:5d}x  {key[:90]}")
 
 
-def _tiny_unet_card_vs_cpu(label: str, text: str, weights, req) -> None:
+def _tiny_unet_card_vs_cpu(label: str, text: str, weights, req, **options) -> None:
     outs = []
     for dev in ("cuda:0", "cpu"):
-        s = _session(text, weights, "float32", dev)
+        s = _session(text, weights, "float32", dev, **options)
         for k, v in req.items():
             s.add_tensor(k, v)
         outs.append(s.run()["out_sample"])
@@ -405,7 +426,7 @@ def phase_slice(name: str) -> dict:
         s.run()
         t_off.append((time.perf_counter() - t1) * 1e3)
     print(f"SD15 UNet step bf16 with flash off: median {np.median(t_off):.2f} ms over 3 runs [{name}]")
-    return {"launches": launches, "graph": g, "out0": results[0]}
+    return {"launches": launches, "graph": g, "out0": results[0], "outs": results}
 
 
 TINYLLAMA_SITE = (1024, 64)  # prefill bucket and head dim of the head-major sites: 32 heads, 22 per run
@@ -680,6 +701,375 @@ def replay_times(label: str, calls, kernel, twin, library, peak: str, name: str,
           + (f"{t_l:.4f} ms" if t_l is not None else f"none ({sum(map(bool, libs))} of {len(calls)} calls have one)")
           + f", bound {b['bound_ms']:.4f} ms ({b['bound_by']}; {nbytes / 1e9:.4f} GB, {ops / 1e9:.2f} G ops) [{name}]")
     return {"ms": t_k, "plain_ms": t_p, "library_ms": t_l, **b}
+
+
+# --------------------------------- the GroupNorm and small-conv routes: kernels 7, 8 and 9
+GN_SITES = [(1, 320, 64, 64), (1, 960, 64, 64), (1, 128, 512, 512)]          # x of gn_silu
+GN_CONV_SITES = [(320, 64, 320), (2560, 16, 1280), (1280, 8, 1280)]          # (C, H = W, O) of gn_silu_conv
+MATMUL_SITES = [(64, 11520, 1280), (256, 23040, 1280), (1024, 5760, 640)]    # (M, K, N) of matmul
+CONFIG_A = dict(fuse_gn_conv=True, fuse_groupnorm=True)
+CONFIG_B = dict(use_pallas_smallconv=True, fuse_groupnorm=True)
+
+
+def _gn_operands(gen, n, c, h, w, groups, dt, plain_inorm=False):
+    """x and the four GroupNorm parameter vectors, gamma / beta shaped (C, 1, 1)
+    as the converter stores them; ``plain_inorm``: sg = 1, sb = 0, as the
+    converter emits them (then F.group_norm computes the same function)."""
+    r = lambda *sh: torch.randn(*sh, device="cuda", generator=gen)
+    x = (r(n, c, h, w) * 2 + 0.5).to(dt)
+    sg = torch.ones(groups, device="cuda") if plain_inorm else r(groups) * 0.1 + 1
+    sb = torch.zeros(groups, device="cuda") if plain_inorm else r(groups) * 0.05
+    return x, sg.to(dt), sb.to(dt), (r(c, 1, 1) * 0.2 + 1).to(dt), (r(c, 1, 1) * 0.1).to(dt)
+
+
+def _w9_operands(gen, c, o, dt, bias=True):
+    wt = torch.randn(o, c, 3, 3, device="cuda", generator=gen) / (9 * c) ** 0.5
+    w9 = wt.permute(2, 3, 0, 1).reshape(9, o, c).contiguous().to(dt)
+    return w9, (torch.randn(o, device="cuda", generator=gen).to(dt) if bias else None)
+
+
+def _held(label: str, out, ref, tol: float) -> float:
+    """max|out - ref| <= tol * max(1, max|ref|), or the run fails."""
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    top = ref.float().abs().max().item()
+    ok = bool(torch.isfinite(out.float()).all()) and err <= tol * max(1.0, top)
+    print(f"kernel vs twin {label}: max|diff| {err:.3e}, max|twin| {top:.3f} (tol {tol:g} * max(1, max|twin|)) "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"{label}: the kernel disagrees with its twin")
+    return err
+
+
+def _gn_library(x, sg, sb, gamma, beta, groups, eps, silu):
+    """F.group_norm (+ F.silu): the same function in PyTorch's own calls where
+    sg = 1 and sb = 0, as the converter emits them (the yardstick, not used by
+    the port)."""
+    g, b = gamma.reshape(-1), beta.reshape(-1)
+    if silu:
+        return lambda: F.silu(F.group_norm(x, groups, g, b, eps))
+    return lambda: F.group_norm(x, groups, g, b, eps)
+
+
+def _gn_conv_library(x, sg, sb, gamma, beta, w9, bias=None, *, groups, eps):
+    from onnxstream_tpu_torch.kernels.gn_conv import w9_to_oihw
+
+    w = w9_to_oihw(w9).contiguous()
+    g, b = gamma.reshape(-1), beta.reshape(-1)
+    return lambda: F.conv2d(F.silu(F.group_norm(x, groups, g, b, eps)), w, bias, padding=1)
+
+
+def _matmul_library_call(a, b, bias=None, *, out_dtype=None):
+    if bias is None:
+        return lambda: torch.matmul(a, b)
+    bb = bias.to(a.dtype)
+    return lambda: torch.addmm(bb, a, b)
+
+
+def _gn_cost(x, sg, sb, gamma, beta, groups, eps, silu):
+    """x read once, y written once, the parameters read once; per element two
+    multiply-adds for the moments, one for the affine, a handful for SiLU."""
+    return 2 * _nbytes(x) + _nbytes(sg, sb, gamma, beta), (12 if silu else 6) * x.numel()
+
+
+def _gn_conv_cost(x, sg, sb, gamma, beta, w9, bias=None, *, groups, eps):
+    n, c, h, w = x.shape
+    o = w9.shape[1]
+    out_bytes = n * o * h * w * x.element_size()
+    return _nbytes(x, sg, sb, gamma, beta, w9, bias) + out_bytes, 2 * 9 * c * o * n * h * w + 12 * x.numel()
+
+
+def _matmul_cost(a, b, bias=None, *, out_dtype=None):
+    (m, k), n = a.shape, b.shape[1]
+    out_elt = torch.empty(0, dtype=out_dtype or a.dtype).element_size()
+    return _nbytes(a, b, bias) + m * n * out_elt, 2 * m * k * n
+
+
+def _site_times(label, name, kernel, twin, library, cost, peak="bf16"):
+    t_k, t_p, t_l = device_ms(kernel), device_ms(twin, iters=3, warmup=1), device_ms(library)
+    b = bound(*cost, peak)
+    print(f"time bf16 {label}: kernel {t_k:.4f} ms, twin {t_p:.4f} ms, library {t_l:.4f} ms, "
+          f"bound {b['bound_ms']:.4f} ms ({b['bound_by']})  [{name}]")
+    return {"ms": t_k, "plain_ms": t_p, "library_ms": t_l, **b}
+
+
+def phase_kernel_gn(name: str) -> dict:
+    """Kernels 7, 8 and 9 against their twins at the JAX suite's ragged cases
+    in three dtypes, then at the sites of the routes in bf16 with their
+    times. Tolerances: gn_silu 2e-5 (f32) / 2e-2 (16-bit); gn_silu_conv 1e-4 /
+    2e-2; matmul 1e-4 (f32), 1e-3 (bf16 operands, f32 output), 2e-2 (16-bit
+    output); each times max(1, max|twin|)."""
+    from onnxstream_tpu_torch.kernels.gn_conv import gn_silu_conv, gn_silu_conv_reference
+    from onnxstream_tpu_torch.kernels.gn_silu import gn_silu, gn_silu_reference
+    from onnxstream_tpu_torch.kernels.matmul import conv3x3_im2col, matmul, matmul_reference
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    tols = lambda f32: ((torch.float32, f32), (torch.bfloat16, 2e-2), (torch.float16, 2e-2))
+    # (n, c, h, w, groups, silu): C/G = 2, 10, 5, 6 with H W = 35; batch 2; the route's sites
+    gn_cases = [(1, 64, 8, 8, 32, True), (1, 320, 16, 16, 32, True), (2, 40, 4, 4, 8, False),
+                (1, 24, 5, 7, 4, True)] + [(*site, 32, i != 1) for i, site in enumerate(GN_SITES)]
+    for n, c, h, w, g, silu in gn_cases:
+        for dt, tol in tols(2e-5):
+            args = _gn_operands(gen, n, c, h, w, g, dt)
+            _held(f"gn_silu {(n, c, h, w)} G{g} silu={silu} {str(dt)[6:]}", gn_silu(*args, g, 1e-5, silu),
+                  gn_silu_reference(*args, g, 1e-5, silu), tol)
+    # (n, c, groups, h, w, o, bias): 5 x 7 borders, no bias and O != C, C/G = 5, ragged everything, O = 4
+    conv_cases = [(2, 16, 4, 5, 7, 16, True), (1, 32, 8, 8, 8, 24, False), (1, 20, 4, 4, 4, 8, True),
+                  (2, 64, 8, 33, 17, 70, True), (1, 320, 32, 64, 64, 4, True)]
+    conv_cases += [(1, c, 32, hw, hw, o, True) for c, hw, o in GN_CONV_SITES]
+    for n, c, g, h, w, o, bias in conv_cases:
+        for dt, tol in tols(1e-4):
+            args = _gn_operands(gen, n, c, h, w, g, dt)
+            w9, bv = _w9_operands(gen, c, o, dt, bias)
+            _held(f"gn_silu_conv {(n, c, h, w)} G{g} -> {o} bias={bias} {str(dt)[6:]}",
+                  gn_silu_conv(*args, w9, bv, groups=g, eps=1e-5),
+                  gn_silu_conv_reference(*args, w9, bv, g, 1e-5), tol)
+    mm_cases = [(64, 1152, 128, False), (128, 2560, 256, True), (512, 1280, 640, True), (35, 100, 33, True)]
+    mm_cases += [(m, k, n, True) for m, k, n in MATMUL_SITES]
+    for m, k, n, bias in mm_cases:
+        for dt, odt, tol in ((torch.float32, torch.float32, 1e-4), (torch.bfloat16, torch.float32, 1e-3),
+                             (torch.bfloat16, torch.bfloat16, 2e-2), (torch.float16, torch.float16, 2e-2)):
+            a = torch.randn(m, k, device="cuda", generator=gen).to(dt)
+            b = (torch.randn(k, n, device="cuda", generator=gen) * 0.02).to(dt)
+            bv = torch.randn(n, device="cuda", generator=gen) if bias else None
+            _held(f"matmul ({m}, {k}) x ({k}, {n}) bias={bias} {str(dt)[6:]} -> {str(odt)[6:]}",
+                  matmul(a, b, bv, out_dtype=odt), matmul_reference(a, b, bv, out_dtype=odt), tol)
+    for cin, cout, h, w, batch in [(128, 128, 8, 8, 2), (256, 128, 5, 7, 1)]:
+        x = torch.randn(batch, h, w, cin, device="cuda", generator=gen)
+        wt = torch.randn(cout, cin, 3, 3, device="cuda", generator=gen) * 0.05
+        bv = torch.randn(cout, device="cuda", generator=gen)
+        ref = F.conv2d(x.permute(0, 3, 1, 2), wt, bv, padding=1).permute(0, 2, 3, 1)
+        _held(f"conv3x3_im2col NHWC {(batch, h, w, cin)} -> {cout} float32 against F.conv2d",
+              conv3x3_im2col(x, wt, bv), ref, 1e-4)
+
+    # times at the sites, bf16
+    dt, out = torch.bfloat16, {"gn_silu": {}, "gn_silu_conv": {}, "matmul": {}}
+    for i, (n, c, h, w) in enumerate(GN_SITES):
+        args = (*_gn_operands(gen, n, c, h, w, 32, dt, plain_inorm=True), 32, 1e-5, i != 1)
+        out["gn_silu"][f"{c}x{h}x{w}"] = _site_times(
+            f"gn_silu {(n, c, h, w)} silu={i != 1}", name, lambda: gn_silu(*args),
+            lambda: gn_silu_reference(*args), _gn_library(*args), _gn_cost(*args))
+    for c, hw, o in GN_CONV_SITES:
+        args = _gn_operands(gen, 1, c, hw, hw, 32, dt, plain_inorm=True)
+        w9, bv = _w9_operands(gen, c, o, dt)
+        kw = dict(groups=32, eps=1e-5)
+        out["gn_silu_conv"][f"{c}x{hw}x{hw}->{o}"] = _site_times(
+            f"gn_silu_conv (1, {c}, {hw}, {hw}) -> {o}", name, lambda: gn_silu_conv(*args, w9, bv, **kw),
+            lambda: gn_silu_conv_reference(*args, w9, bv, 32, 1e-5), _gn_conv_library(*args, w9, bv, **kw),
+            _gn_conv_cost(*args, w9, bv, **kw))
+    for m, k, n in MATMUL_SITES:
+        a = torch.randn(m, k, device="cuda", generator=gen).to(dt)
+        b = (torch.randn(k, n, device="cuda", generator=gen) * 0.02).to(dt)
+        bv = torch.randn(n, device="cuda", generator=gen).to(dt)
+        out["matmul"][f"{m}x{k}x{n}"] = _site_times(
+            f"matmul ({m}, {k}) x ({k}, {n}) + bias", name, lambda: matmul(a, b, bv),
+            lambda: matmul_reference(a, b, bv), _matmul_library_call(a, b, bv), _matmul_cost(a, b, bv))
+    return out
+
+
+def _smallconv_sites(graph) -> int:
+    """Conv ops of a fused graph that pass the use_pallas_smallconv gate of
+    ops/standard.py (their shapes are static in these graphs)."""
+    n = 0
+    for op in graph.ops:
+        if op.op_type != "Conv" or op.attr_int("group", 1) != 1:
+            continue
+        x, w = op.inputs[0].shape, op.inputs[1].shape
+        n += (len(x) == 4 and tuple(w[2:]) == (3, 3) and list(op.attr_ints("strides", [1, 1])) == [1, 1]
+              and list(op.attr_ints("dilations", [1, 1])) == [1, 1]
+              and list(op.attr_ints("pads", [0, 0, 0, 0])) == [1, 1, 1, 1] and x[1] % 128 == 0 and w[0] % 128 == 0
+              and x[2] * x[3] <= 1024 and (x[0] * x[2] * x[3]) % 8 == 0)
+    return n
+
+
+class _LaunchForwardingSite(_GraphSiteCheck):
+    """A site check that stands in for a wrapper inside the wrapper's own
+    module: the wrapper counts through its module's name for itself
+    (``matmul.launches += 1``), so the count is passed on to the kernel."""
+
+    @property
+    def launches(self) -> int:
+        return self.kernel.launches
+
+    @launches.setter
+    def launches(self, value: int) -> None:
+        self.kernel.launches = value
+
+
+def busy_and_wall(step, label: str, name: str, steps: int = 3) -> dict:
+    """Warm wall ms (median of `steps` runs ended by a synchronize) and device
+    busy ms (the kernels' summed durations) of one call of step."""
+    step()
+    walls = []
+    for _ in range(steps):
+        _, ms = _timed(step)
+        walls.append(ms)
+    dev = device_ms(step, iters=steps, warmup=0)
+    print(f"{label}: wall median {np.median(walls):.2f} ms (min {min(walls):.2f}, {steps} runs), "
+          f"device busy {dev:.3f} ms [{name}]")
+    return {"wall_ms": float(np.median(walls)), "device_ms": dev}
+
+
+def phase_gn_routes(name: str, sd: dict) -> dict:
+    """The SD15 UNet and the VAE_SD decoder at full width under the optional
+    GroupNorm and small-conv routes (see the module docstring, phase 4b)."""
+    import onnxstream_tpu_torch.kernels.matmul as matmul_mod
+    import onnxstream_tpu_torch.ops.standard as standard
+    from onnxstream_tpu_torch.kernels.flash_attention import flash_attention_packed
+    from onnxstream_tpu_torch.kernels.gn_conv import gn_silu_conv, gn_silu_conv_reference
+    from onnxstream_tpu_torch.kernels.gn_silu import gn_silu, gn_silu_reference
+    from onnxstream_tpu_torch.kernels.matmul import matmul, matmul_reference
+    from onnxstream_tpu_torch.models.sd.pipeline import image_to_uint8
+    from onnxstream_tpu_torch.models.sd.unet import SD15, TINY, build_unet
+    from onnxstream_tpu_torch.models.sd.vae import VAE_SD, build_vae_decoder
+
+    gt = build_unet(TINY)
+    for label, cfg in (("A", CONFIG_A), ("B", CONFIG_B)):
+        _tiny_unet_card_vs_cpu(f"TINY UNet, config {label},", gt.to_text(), gt.weights, _requests(TINY, 1)[1], **cfg)
+
+    about = lambda x, *rest, **kw: f"x {tuple(x.shape)} {str(x.dtype)[6:]} strides {x.stride()}"
+    sites = {"gn_silu": _GraphSiteCheck(gn_silu, gn_silu_reference, 2e-2, about),
+             "gn_silu_conv": _GraphSiteCheck(gn_silu_conv, gn_silu_conv_reference, 2e-2, about),
+             "matmul": _LaunchForwardingSite(matmul, matmul_reference, 2e-2,
+                                             lambda a, b, *r, **kw: f"a {tuple(a.shape)} x b {tuple(b.shape)}")}
+    kernels = {"gn_silu": gn_silu, "gn_silu_conv": gn_silu_conv, "matmul": matmul}
+
+    def patched(on: bool) -> None:
+        standard.gn_silu = sites["gn_silu"] if on else gn_silu
+        standard.gn_silu_conv = sites["gn_silu_conv"] if on else gn_silu_conv
+        matmul_mod.matmul = sites["matmul"] if on else matmul
+
+    g, reqs, text = sd["graph"], _requests(SD15, 0), sd["graph"].to_text()
+    sessions, want, times, replays = {}, {}, {}, {}
+    # the path: three requests under A, three under B, the VAE decodes; the counts are zeroed just before it
+    for k in kernels.values():
+        k.launches = 0
+    patched(True)
+    try:
+        for label, cfg in (("A", CONFIG_A), ("B", CONFIG_B)):
+            s = sessions[label] = _session(text, g.weights, "bfloat16", "cuda:0", **cfg)
+            kinds = [op.op_type for op in s.graph.ops]
+            want[label] = {"gn_silu": kinds.count("ostpu.gn_silu"), "gn_silu_conv": kinds.count("ostpu.gn_silu_conv"),
+                           "matmul": _smallconv_sites(s.graph) if "use_pallas_smallconv" in cfg else 0}
+            print(f"SD15 UNet, config {label} {cfg}: fused graph {len(s.graph.ops)} ops, "
+                  f"{kinds.count('InstanceNormalization')} GroupNorm chains left decomposed, expected launches per run {want[label]}")
+            for i, req in enumerate(reqs):
+                for k, v in req.items():
+                    s.add_tensor(k, v)
+                before = {k: f.launches for k, f in kernels.items()}
+                f0 = flash_attention_packed.launches
+                for k, n in want[label].items():
+                    if n:
+                        sites[k].arm()
+                out, ms = _timed(lambda: s.run()["out_sample"])
+                got = {k: f.launches - before[k] for k, f in kernels.items()}
+                diff = float(np.abs(out - sd["outs"][i]).max())
+                top = float(np.abs(sd["outs"][i]).max())
+                print(f"config {label} request {i} (t={req['timestep'][0]:g}): {out.shape} finite={np.isfinite(out).all()} "
+                      f"{ms:.1f} ms, launches {got}, flash {flash_attention_packed.launches - f0}; against the default "
+                      f"config: max|diff| {diff:.4e}, max|out| {top:.4f}, ratio {diff / top:.4e} (bound 5e-2) [{name}]")
+                if out.shape != (1, 4, 64, 64) or not np.isfinite(out).all() or not diff <= 5e-2 * top:
+                    raise SystemExit(f"config {label} request {i}: bad output or far from the default config's")
+                if got != want[label] or flash_attention_packed.launches - f0 != 10:
+                    raise SystemExit(f"config {label} request {i}: launches {got}, want {want[label]}")
+                for k, n in want[label].items():
+                    if n:
+                        sites[k].check(f"config {label} request {i}, {k}")
+        if want["B"] != {"gn_silu": 61, "gn_silu_conv": 0, "matmul": 34}:
+            raise SystemExit(f"config B: the fused graph predicts {want['B']}, not 61 gn_silu / 34 matmul launches")
+
+        # the VAE_SD decoder, one 64 x 64 latent -> 512 x 512
+        vae = build_vae_decoder(dataclasses.replace(VAE_SD, sample=64), seed=2)
+        z = np.random.default_rng(3).standard_normal((1, 4, 64, 64)).astype(np.float32)
+        images = {}
+        for label, cfg in (("default", {}), ("fuse_groupnorm", dict(fuse_groupnorm=True)), ("A", CONFIG_A)):
+            s = sessions[f"vae_{label}"] = _session(vae.to_text(), vae.weights, "bfloat16", "cuda:0", **cfg)
+            kinds = [op.op_type for op in s.graph.ops]
+            wantv = {"gn_silu": kinds.count("ostpu.gn_silu"), "gn_silu_conv": kinds.count("ostpu.gn_silu_conv"), "matmul": 0}
+            s.add_tensor("latent", z)
+            before = {k: f.launches for k, f in kernels.items()}
+            for k, n in wantv.items():
+                if n:
+                    sites[k].arm()
+            img_f, ms = _timed(lambda: s.run(device_outputs=True))
+            img_f = next(iter(img_f.values()))
+            got = {k: f.launches - before[k] for k, f in kernels.items()}
+            if img_f.shape != (1, 3, 512, 512) or not bool(torch.isfinite(img_f).all()):
+                raise SystemExit(f"VAE decode, {label}: bad image {tuple(img_f.shape)}")
+            images[label] = image_to_uint8(img_f[0]).astype(np.int32)
+            print(f"VAE_SD decode, {label}: {len(s.graph.ops)} ops, {ms:.1f} ms, launches {got} (want {wantv}) [{name}]")
+            if got != wantv or (label == "fuse_groupnorm" and wantv["gn_silu"] != 30):
+                raise SystemExit(f"VAE decode, {label}: launches {got}, want {wantv} (30 gn_silu under fuse_groupnorm)")
+            for k, n in wantv.items():
+                if n:
+                    sites[k].check(f"VAE decode, {label}, {k}")
+            if label != "default":
+                d = np.abs(images[label] - images["default"])
+                print(f"VAE_SD decode, {label} against the default: mean |diff| {d.mean():.4f}, max {d.max()} levels "
+                      f"(bound: mean < 1)")
+                if not d.mean() < 1.0:
+                    raise SystemExit(f"VAE decode, {label}: the image drifted from the default decode")
+        launches = {k: f.launches for k, f in kernels.items()}
+        print(f"GroupNorm / small-conv route launches on the path: {launches}")
+        # which bf16 decode lies nearer the float32 one (printed, not gated)
+        s32 = _session(vae.to_text(), vae.weights, "float32", "cuda:0")
+        s32.add_tensor("latent", z)
+        img32 = image_to_uint8(next(iter(s32.run(device_outputs=True).values()))[0]).astype(np.int32)
+        del s32
+        print("VAE_SD decode against the float32 decode, mean |diff| in levels: "
+              + ", ".join(f"{label} {np.abs(img - img32).mean():.4f}" for label, img in images.items()))
+
+        # one run's calls recorded under each config (after the read of the counts)
+        recorded = {}
+        for label in ("A", "B", "vae_fuse_groupnorm"):
+            for site in sites.values():
+                site.calls = []
+            sessions[label].run(device_outputs=True)
+            recorded[label] = {k: site.calls for k, site in sites.items()}
+            for site in sites.values():
+                site.calls = None
+    finally:
+        patched(False)
+
+    # device busy and wall time of a run under every config, in turns within this process
+    # (fuse_groupnorm alone joins here, after the read of the counts, held to the default like A and B)
+    for label, cfg in (("default", {}), ("fuse_groupnorm", dict(fuse_groupnorm=True))):
+        sessions[label] = _session(text, g.weights, "bfloat16", "cuda:0", **cfg)
+    for label in ("default", "fuse_groupnorm", "A", "B"):
+        for k, v in reqs[0].items():
+            sessions[label].add_tensor(k, v)
+    out = sessions["fuse_groupnorm"].run()["out_sample"]
+    diff, top = float(np.abs(out - sd["outs"][0]).max()), float(np.abs(sd["outs"][0]).max())
+    print(f"config fuse_groupnorm request 0 against the default config: max|diff| {diff:.4e}, ratio {diff / top:.4e} "
+          f"(bound 5e-2); fused graph {len(sessions['fuse_groupnorm'].graph.ops)} ops")
+    if not diff <= 5e-2 * top:
+        raise SystemExit("config fuse_groupnorm: far from the default config's output")
+    for label in ("default", "fuse_groupnorm", "A", "B", "B", "A", "fuse_groupnorm", "default"):
+        times.setdefault(label, []).append(
+            busy_and_wall(sessions[label].run, f"SD15 UNet run, config {label}", name, steps=5))
+    for label in ("default", "fuse_groupnorm", "A", "A", "fuse_groupnorm", "default"):
+        step = lambda s=sessions[f"vae_{label}"]: s.run(device_outputs=True)
+        times.setdefault(f"vae_{label}", []).append(busy_and_wall(step, f"VAE_SD decode, config {label}", name))
+    profile_steps(sessions["A"].run, name, "SD15 step, config A")
+    profile_steps(sessions["B"].run, name, "SD15 step, config B")
+
+    specs = {"gn_silu": (gn_silu, gn_silu_reference, _gn_library, _gn_cost),
+             "gn_silu_conv": (gn_silu_conv, gn_silu_conv_reference, _gn_conv_library, _gn_conv_cost),
+             "matmul": (matmul, matmul_reference, _matmul_library_call, _matmul_cost)}
+    for label, k in (("B", "gn_silu"), ("A", "gn_silu"), ("vae_fuse_groupnorm", "gn_silu"), ("A", "gn_silu_conv"),
+                     ("B", "matmul")):
+        kernel, twin, library, cost = specs[k]
+        replays[(label, k)] = replay_times(f"{k} over one run under config {label} (bf16)", recorded[label][k],
+                                           kernel, twin, library, "bf16", name, cost=cost)
+    out = {}
+    for k, main in (("gn_silu", "B"), ("gn_silu_conv", "A"), ("matmul", "B")):
+        out[k] = {"launches": launches[k], "max_abs_err": sites[k].worst, **replays[(main, k)],
+                  "launches_per_run": {label: want[label][k] for label in ("A", "B")}}
+    out["gn_silu"]["ms_by_path"] = {label: replays[(label, "gn_silu")] for label in ("A", "vae_fuse_groupnorm")}
+    out["times"] = times
+    return out
 
 
 def phase_sd_u8(name: str, sd: dict) -> dict:
@@ -1404,8 +1794,12 @@ def main() -> int:
     kernel_hm = phase_kernel_head_major(name)
     phase_kernel_q(name)
     phase_kernel_qlinear(name)
+    gn_sites = phase_kernel_gn(name)
     sd = phase_slice(name)
     launches_sd = sd["launches"]
+    gn = phase_gn_routes(name, sd)
+    gc.collect()
+    torch.cuda.empty_cache()
     sd_u8 = phase_sd_u8(name, sd)
     del sd
     gc.collect()
@@ -1422,6 +1816,7 @@ def main() -> int:
     fa_src = "onnxstream_tpu_torch/kernels/csrc/flash_attention.cu"
     q_src = "onnxstream_tpu_torch/kernels/csrc/qmatmul.cu"
     ql_src = "onnxstream_tpu_torch/kernels/csrc/qlinear.cu"
+    gn_src = "onnxstream_tpu_torch/kernels/csrc/gn_conv.cu"
     q_py = "onnxstream_tpu/kernels/qmatmul.py"
     print(json.dumps({"kernels": [
         {"name": "flash_attention_packed", "route": "cuda", "source": fa_src,
@@ -1435,6 +1830,13 @@ def main() -> int:
         {"name": "qmatmul", "route": "cuda", "source": ql_src, "replaces": f"{q_py}:73", **sd_image["qmatmul"]},
         {"name": "qconv", "route": "cuda", "source": ql_src, "replaces": "onnxstream_tpu/kernels/qconv.py:68",
          **sd_image["qconv"]},
+        {"name": "gn_silu", "route": "cuda", "source": gn_src, "replaces": "onnxstream_tpu/kernels/gn_silu.py:121",
+         **gn["gn_silu"], "ms_by_shape": gn_sites["gn_silu"]},
+        {"name": "gn_silu_conv", "route": "cuda", "source": gn_src,
+         "replaces": "onnxstream_tpu/kernels/gn_conv.py:178", **gn["gn_silu_conv"],
+         "ms_by_shape": gn_sites["gn_silu_conv"]},
+        {"name": "matmul", "route": "cuda", "source": "onnxstream_tpu_torch/kernels/csrc/matmul.cu",
+         "replaces": "onnxstream_tpu/kernels/matmul.py:74", **gn["matmul"], "ms_by_shape": gn_sites["matmul"]},
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -4,9 +4,11 @@ Counterpart of ``onnxstream_tpu/ops/standard.py`` for the op types of the
 fused SD UNet graph: Add, Concat, Conv, Cos, Div, Erf, InstanceNormalization,
 MatMul, Mul, Pow, ReduceMean, Reshape, Resize, Sigmoid, Sin, Split, Sqrt, Sub,
 Transpose, Unsqueeze; of the fused llama graph beyond those: ArgMax, Expand,
-Gather, Identity, Less, Neg, ScatterND, Where (this file); and ``ostpu.sdpa``
-(``ops/attention.py``). Any other op type raises ``NotImplementedError`` from
-the registry.
+Gather, Identity, Less, Neg, ScatterND, Where (this file); the fused
+GroupNorm ops ``ostpu.gn_silu`` and ``ostpu.gn_silu_conv`` (this file, through
+the kernels of ``kernels/gn_silu.py`` and ``kernels/gn_conv.py``); and
+``ostpu.sdpa`` (``ops/attention.py``). Any other op type raises
+``NotImplementedError`` from the registry.
 
 Device integers are 32-bit, as in the JAX package: int64 graph inputs arrive
 as int32 and ``_align_binary`` narrows int64 in device ops. torch's indexing
@@ -32,6 +34,9 @@ import torch
 import torch.nn.functional as F
 
 from onnxstream_tpu_torch.dtypes import dtype_name, to_torch, torch_dtype
+from onnxstream_tpu_torch.kernels.gn_conv import gn_silu_conv, gn_silu_conv_reference
+from onnxstream_tpu_torch.kernels.gn_silu import gn_silu, gn_silu_reference
+from onnxstream_tpu_torch.kernels.matmul import conv3x3_im2col
 from onnxstream_tpu_torch.ops import Ctx, register
 
 # ---------------------------------------------------------------------------
@@ -337,6 +342,38 @@ def _instance_norm(ctx: Ctx, op, ins):
     return [out.to(x.dtype)]
 
 
+@register("ostpu.gn_silu")
+def _gn_silu_op(ctx: Ctx, op, ins):
+    """Fused GroupNorm + per-channel affine + optional SiLU (NCHW), produced
+    by runtime/fusion.fuse_groupnorm from the converter's Reshape ->
+    InstanceNormalization -> Reshape -> Mul -> Add [-> Sigmoid + Mul] chain.
+    The CUDA kernel of kernels/gn_silu.py on the card, its plain twin on the
+    CPU and for the planner's meta tensors."""
+    x, sg, sb, gamma, beta = (_tensor(ctx, v) for v in ins[:5])
+    groups = op.attr_int("groups")
+    eps = op.attr_float("epsilon", 1e-5)
+    silu = bool(op.attr_int("silu", 0))
+    fn = gn_silu_reference if x.device.type == "meta" else gn_silu
+    return [fn(x, sg, sb, gamma, beta, groups, eps, silu)]
+
+
+@register("ostpu.gn_silu_conv")
+def _gn_silu_conv_op(ctx: Ctx, op, ins):
+    """Fused GroupNorm + affine + SiLU + Conv3x3 (s1 p1 g1), produced by
+    runtime/fusion.fuse_gn_conv; the weight arrives in the (9, O, C) upload
+    transform and the optional 7th input is the bias. The CUDA kernel of
+    kernels/gn_conv.py on the card, its plain twin on the CPU and for the
+    planner's meta tensors."""
+    x, sg, sb, gamma, beta, w9 = (_tensor(ctx, v) for v in ins[:6])
+    bias = _tensor(ctx, ins[6]) if len(ins) > 6 and ins[6] is not None else None
+    groups = op.attr_int("groups")
+    eps = op.attr_float("epsilon", 1e-5)
+    x, w9 = _align_binary(ctx, x, w9)
+    if x.device.type == "meta":
+        return [gn_silu_conv_reference(x, sg, sb, gamma, beta, w9, bias, groups, eps)]
+    return [gn_silu_conv(x, sg, sb, gamma, beta, w9, bias, groups=groups, eps=eps)]
+
+
 # ---------------------------------------------------------------------------
 # matmul & convolution
 # ---------------------------------------------------------------------------
@@ -362,6 +399,27 @@ def _conv(ctx: Ctx, op, ins):
     dilations = list(op.attr_ints("dilations", [1, 1]))
     pt, pl, pb, pr = op.attr_ints("pads", [0, 0, 0, 0])
     x, w = _align_binary(ctx, x, w)
+    if (
+        group == 1
+        and ctx.mode == "device"
+        and x.device.type != "meta"
+        and _is_float(x)
+        and getattr(ctx.config, "use_pallas_smallconv", False)
+        and tuple(w.shape[2:]) == (3, 3)
+        and strides == [1, 1]
+        and dilations == [1, 1]
+        and (pt, pl, pb, pr) == (1, 1, 1, 1)
+        and x.shape[1] % 128 == 0
+        and w.shape[0] % 128 == 0
+        and x.shape[2] * x.shape[3] <= 1024
+        and (x.shape[0] * x.shape[2] * x.shape[3]) % 8 == 0
+    ):
+        # small-spatial 3x3 convs as im2col + the tiled matmul kernel
+        # (kernels/matmul.py); the planner's meta tensors take the plain
+        # convolution below, whose output has the same shape and dtype
+        bb = None if b is None else _astype(ctx, b, x.dtype)
+        y = conv3x3_im2col(x.permute(0, 2, 3, 1), w, bb)
+        return [y.permute(0, 3, 1, 2)]
     if (pt, pl) == (pb, pr):
         padding = (pt, pl)
     else:

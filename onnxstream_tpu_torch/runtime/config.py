@@ -2,7 +2,8 @@
 
 Counterpart of ``onnxstream_tpu/runtime/config.py``. It keeps the reference
 option flags the UNet, TinyLlama and SD1.5 image slices read (the calibrated
-W8A8 options among them) and the ``set_option`` names that apply.
+W8A8 options and the GroupNorm / small-conv kernel routes among them) and the
+``set_option`` names that apply.
 The TPU-only knobs (AUTO weight layouts, meshes, pipeline stages, XLA
 compiler options, Pallas interpret mode) have no counterpart here.
 
@@ -37,9 +38,6 @@ def default_device() -> torch.device:
 # name -> default value of options that exist in the JAX package but are not
 # implemented in the port yet
 _NOT_IMPLEMENTED = {
-    "fuse_groupnorm": False,  # ostpu.gn_silu (TPU kernel gn_silu_pallas)
-    "fuse_gn_conv": False,  # ostpu.gn_silu_conv (TPU kernel gn_silu_conv_pallas)
-    "use_pallas_smallconv": False,  # im2col conv (TPU kernel matmul_pallas)
     "flash_packed_nopad": False,  # head-major flash route (TPU kernel flash_attention)
     "force_fp16_storage": False,
     "use_nhwc_layout": False,  # channel-last graph rewrite
@@ -113,10 +111,19 @@ class SessionConfig:
     # inside the launch and the dot runs s8 x s8 -> s32
     use_w8a8_dyn_matmul: bool = True
 
-    # not implemented yet: must keep their defaults (see _NOT_IMPLEMENTED)
+    # --- optional kernel routes, off until an A/B on the card says otherwise --
+    # collapse each GroupNorm (+ SiLU) chain into one ostpu.gn_silu op
+    # (kernels/gn_silu.py)
     fuse_groupnorm: bool = False
+    # GroupNorm -> SiLU -> Conv3x3(s1 p1 g1) chains as one ostpu.gn_silu_conv
+    # op (kernels/gn_conv.py); runs before fuse_groupnorm, which takes the rest
     fuse_gn_conv: bool = False
+    # small-spatial 3x3 convs (C and O multiples of 128, H*W <= 1024) as
+    # im2col + the tiled matmul kernel (kernels/matmul.py); the JAX package's
+    # option name is kept
     use_pallas_smallconv: bool = False
+
+    # not implemented yet: must keep their defaults (see _NOT_IMPLEMENTED)
     flash_packed_nopad: bool = False
     force_fp16_storage: bool = False
     use_nhwc_layout: bool = False
@@ -159,6 +166,9 @@ class SessionConfig:
             "use_w8_matmul": lambda v: setattr(self, "use_w8_matmul", v),
             "int8_symmetric_storage": lambda v: setattr(self, "int8_symmetric_storage", v),
             "use_w8a8_dyn_matmul": lambda v: setattr(self, "use_w8a8_dyn_matmul", v),
+            "fuse_groupnorm": lambda v: setattr(self, "fuse_groupnorm", v),
+            "fuse_gn_conv": lambda v: setattr(self, "fuse_gn_conv", v),
+            "use_pallas_smallconv": lambda v: setattr(self, "use_pallas_smallconv", v),
         }
         value = bool(value)
         if name in _NOT_IMPLEMENTED:

@@ -70,7 +70,7 @@ from onnxstream_tpu_torch.ir import OpNode
 from onnxstream_tpu_torch.kernels.qconv import qconv
 from onnxstream_tpu_torch.kernels.qmatmul import qmatmul, quantize_activation, w8_matmul, w8a8_dyn_matmul
 from onnxstream_tpu_torch.ops import Ctx, get_impl
-from onnxstream_tpu_torch.runtime.planner import Plan, WeightArg
+from onnxstream_tpu_torch.runtime.planner import WEIGHT_TRANSFORMS, Plan, WeightArg
 from onnxstream_tpu_torch.runtime.quantization import (
     RangeData,
     quantize_weight_percentile,
@@ -299,12 +299,19 @@ class Executor:
         return torch.from_numpy(q)
 
     def _upload(self, w: WeightArg) -> torch.Tensor:
-        """Provider fetch -> upload dtype on the host (quantized for
-        force_uint8_storage_set) -> pinned -> device."""
-        host = self.provider.get(w.name, w.file_dtype, w.shape)
-        conv = self._maybe_force_quant(w, host)
-        if conv is None:
-            conv = host.to(w.upload_dtype)
+        """Provider fetch in file layout -> the WeightArg's relayout
+        (WEIGHT_TRANSFORMS, e.g. (O, C, 3, 3) -> (9, O, C) for the fused
+        GroupNorm + SiLU + conv kernel) -> upload dtype on the host (quantized
+        for force_uint8_storage_set) -> pinned -> device."""
+        host = self.provider.get(w.name, w.file_dtype, w.file_shape or w.shape)
+        if w.transform:
+            # the fusion pass leaves forced-quantized weights alone, so a
+            # transformed weight is a float one and skips _maybe_force_quant
+            conv = WEIGHT_TRANSFORMS[w.transform](host).to(w.upload_dtype)
+        else:
+            conv = self._maybe_force_quant(w, host)
+            if conv is None:
+                conv = host.to(w.upload_dtype)
         if self.device.type != "cuda":
             return conv.to(self.device)
         return conv.pin_memory().to(self.device, non_blocking=True)

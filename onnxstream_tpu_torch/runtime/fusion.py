@@ -1,7 +1,7 @@
-"""Attention fusion: graph-level pattern recognizers.
+"""Graph-level pattern recognizers: attention and GroupNorm fusion.
 
-Counterpart of ``fuse_attention`` in ``onnxstream_tpu/runtime/fusion.py``,
-with the packed-heads extension (``fuse_attention_heads``). It rewrites the
+Counterpart of ``onnxstream_tpu/runtime/fusion.py``. ``fuse_attention``, with
+the packed-heads extension (``fuse_attention_heads``), rewrites the
 reference's fused-attention patterns into the internal ``ostpu.sdpa`` op
 (see onnxstream_tpu_torch/ops/attention.py):
 
@@ -12,17 +12,22 @@ reference's fused-attention patterns into the internal ``ostpu.sdpa`` op
     MatMul and Transpose + Mul + Mul + MatMul + Add + Softmax + MatMul
     (src/onnxstream.cpp:3643-3755), enabled by ``use_scaled_dp_attn_op``.
 
-The GroupNorm fusions of the JAX package (``fuse_groupnorm``,
-``fuse_gn_conv``) are not ported yet; SessionConfig refuses them.
+``fuse_gn_conv`` and ``fuse_groupnorm`` collapse the converter's GroupNorm
+decomposition (Reshape -> InstanceNormalization -> Reshape -> Mul -> Add
+[-> Sigmoid + Mul]) into ``ostpu.gn_silu_conv`` (with the 3x3 convolution
+that consumes it) and ``ostpu.gn_silu`` (ops/standard.py; the CUDA kernels of
+kernels/gn_conv.py and kernels/gn_silu.py). Both are off by default.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, List, Optional, Tuple
 
 import torch
 
 from onnxstream_tpu_torch.ir import Graph, OpNode, TensorSpec
+from onnxstream_tpu_torch.kernels.gn_conv import gn_conv_problem
 from onnxstream_tpu_torch.runtime.config import SessionConfig
 
 
@@ -302,6 +307,246 @@ class _Rewriter:
         return q[0], k[0], v[0], list(r.outputs), q[1], removed
 
 
+def _match_gn_chain(ops, rw, keep, i, op):
+    """Match the converter's GroupNorm decomposition rooted at
+    InstanceNormalization op ``i`` (see fuse_groupnorm's docstring for the op
+    pattern). Returns None or a dict with the chain's pieces; shared by
+    fuse_groupnorm and fuse_gn_conv."""
+
+    def only_consumer(name):
+        if name in keep:
+            return None
+        c = rw.consumers.get(name, [])
+        return c[0] if len(c) == 1 else None
+
+    if op.op_type != "InstanceNormalization" or len(op.inputs) != 3:
+        return None
+    r_spec, sg_spec, sb_spec = op.inputs
+    if not (sg_spec.is_weight and sb_spec.is_weight):
+        return None
+    if len(r_spec.shape) != 3:
+        return None
+    groups = r_spec.shape[1]
+    if sg_spec.nelem != groups or sb_spec.nelem != groups:
+        return None
+    # pre-reshape from 4D NCHW
+    ri = rw.producer.get(r_spec.name)
+    if ri is None or ops[ri].op_type != "Reshape":
+        return None
+    if only_consumer(r_spec.name) != i:
+        return None
+    x_spec = ops[ri].inputs[0]
+    if len(x_spec.shape) != 4 or x_spec.shape[0] != r_spec.shape[0]:
+        return None
+    c = x_spec.shape[1]
+    if c % groups:
+        return None
+    # post-reshape back to x.shape
+    pi = only_consumer(op.outputs[0].name)
+    if pi is None or ops[pi].op_type != "Reshape":
+        return None
+    if tuple(ops[pi].outputs[0].shape) != tuple(x_spec.shape):
+        return None
+    # per-channel affine: Mul(gamma) -> Add(beta)
+    mi = only_consumer(ops[pi].outputs[0].name)
+    if mi is None or ops[mi].op_type != "Mul":
+        return None
+    g_spec = next((t for t in ops[mi].inputs if t.is_weight), None)
+    if g_spec is None or g_spec.nelem != c:
+        return None
+    ai = only_consumer(ops[mi].outputs[0].name)
+    if ai is None or ops[ai].op_type != "Add":
+        return None
+    b_spec = next((t for t in ops[ai].inputs if t.is_weight), None)
+    if b_spec is None or b_spec.nelem != c:
+        return None
+    removed = [ri, i, pi, mi, ai]
+    out_op = ops[ai]
+    silu = 0
+    # optional SiLU: Add output feeds exactly Sigmoid + Mul(of both)
+    head = out_op.outputs[0].name
+    cons = rw.consumers.get(head, [])
+    if head not in keep and len(cons) == 2:
+        sig = next((j for j in cons if ops[j].op_type == "Sigmoid"), None)
+        mul = next((j for j in cons if ops[j].op_type == "Mul"), None)
+        if sig is not None and mul is not None:
+            sig_out = ops[sig].outputs[0].name
+            mul_ins = {t.name for t in ops[mul].inputs}
+            if only_consumer(sig_out) == mul and mul_ins == {head, sig_out}:
+                removed.extend([sig, mul])
+                out_op = ops[mul]
+                silu = 1
+    return {
+        "removed": removed,
+        "x": x_spec,
+        "sg": sg_spec,
+        "sb": sb_spec,
+        "gamma": g_spec,
+        "beta": b_spec,
+        "out_op": out_op,
+        "silu": silu,
+        "groups": groups,
+        "eps": op.attr_float("epsilon", 1e-5),
+        "in_name": op.name,
+    }
+
+
+def _replace_fused(graph: Graph, plans) -> Graph:
+    """Apply (removed_indices, fused_op) rewrite plans to a graph: the fused
+    op takes the place of the chain's last op."""
+    if not plans:
+        return graph
+    replace_at = {max(removed): fused for removed, fused in plans}
+    drop = set()
+    for removed, _ in plans:
+        drop.update(removed)
+    new_ops: List[OpNode] = []
+    for i, op in enumerate(graph.ops):
+        if i in replace_at:
+            new_ops.append(replace_at[i])
+        elif i not in drop:
+            new_ops.append(op)
+    return Graph(ops=new_ops)
+
+
+def fuse_gn_conv(graph: Graph, config: SessionConfig, weight_loader=None) -> Graph:
+    """Absorb GroupNorm -> affine -> SiLU -> Conv3x3(s1 p1 g1) chains into one
+    ``ostpu.gn_silu_conv`` op (kernels/gn_conv.py).
+
+    Runs before fuse_groupnorm, which takes the chains left over. The conv
+    weight's TensorSpec is rewritten to the kernel's (9, O, C) tap-major
+    upload form through WeightArg.transform 't9oc' (runtime/planner.py): a
+    host-side relayout at upload, not a per-run transpose. A chain fuses only
+    where the kernel takes its shape (``gn_conv_problem``)."""
+    if not getattr(config, "fuse_gn_conv", False):
+        return graph
+    keep = set(getattr(config, "extra_outputs", ()) or ())
+    rw = _Rewriter(graph, config, weight_loader)
+    ops = graph.ops
+
+    # weight-name use counts across all ops: a tied conv weight cannot be
+    # relayouted for one consumer (WeightArgs are keyed by name)
+    wuse: Dict[str, int] = {}
+    for o in ops:
+        for t in o.inputs:
+            if t.is_weight:
+                wuse[t.name] = wuse.get(t.name, 0) + 1
+
+    plans = []
+    claimed = set()
+    for i, op in enumerate(ops):
+        m = _match_gn_chain(ops, rw, keep, i, op)
+        if m is None or not m["silu"]:
+            continue
+        head = m["out_op"].outputs[0].name
+        if head in keep:
+            continue
+        cons = rw.consumers.get(head, [])
+        if len(cons) != 1:
+            continue
+        ci = cons[0]
+        conv = ops[ci]
+        if conv.op_type != "Conv":
+            continue
+        x_spec = m["x"]
+        n, c, h, w = x_spec.shape
+        if conv.attr_int("group", 1) != 1:
+            continue
+        if list(conv.attr_ints("strides", [1, 1])) != [1, 1]:
+            continue
+        if list(conv.attr_ints("dilations", [1, 1])) != [1, 1]:
+            continue
+        if list(conv.attr_ints("pads", [0, 0, 0, 0])) != [1, 1, 1, 1]:
+            continue
+        if len(conv.inputs) < 2:
+            continue
+        w_spec = conv.inputs[1]
+        if not w_spec.is_weight or not w_spec.dtype.is_float or w_spec.transform:
+            continue
+        if tuple(w_spec.shape[1:]) != (c, 3, 3):
+            continue
+        if wuse.get(w_spec.name, 0) != 1:
+            continue
+        if w_spec.name in getattr(config, "force_uint8_storage_set", ()):
+            continue
+        o_ch = w_spec.shape[0]
+        b_spec = conv.inputs[2] if len(conv.inputs) > 2 else None
+        if b_spec is not None and (not b_spec.is_weight or b_spec.nelem != o_ch):
+            continue
+        if gn_conv_problem(c, o_ch, h, w, config.torch_compute_dtype, m["groups"], n) is not None:
+            continue
+        removed = m["removed"] + [ci]
+        if claimed & set(removed):
+            continue
+        claimed.update(removed)
+        w_new = dataclasses.replace(
+            w_spec, shape=(9, o_ch, c), transform="t9oc", file_shape=w_spec.shape
+        )
+        inputs = [x_spec, m["sg"], m["sb"], m["gamma"], m["beta"], w_new]
+        if b_spec is not None:
+            inputs.append(b_spec)
+        fused = OpNode(
+            name=m["in_name"] + "_gn_silu_conv",
+            op_type="ostpu.gn_silu_conv",
+            inputs=inputs,
+            outputs=list(conv.outputs),
+            attrs={
+                "groups": str(m["groups"]),
+                "epsilon": f"{m['eps']:.17g}",
+            },
+        )
+        plans.append((removed, fused))
+    return _replace_fused(graph, plans)
+
+
+def fuse_groupnorm(graph: Graph, config: SessionConfig, weight_loader=None) -> Graph:
+    """Collapse the converter's GroupNorm decomposition (+ optional SiLU)
+    into one ``ostpu.gn_silu`` op.
+
+    Pattern (the converter's group_norm: the shape ONNX exporters emit
+    and the reference executes op by op via InstanceNormalization,
+    src/onnxstream.cpp:4788):
+
+        Reshape(N,C,H,W -> N,G,-1)
+          -> InstanceNormalization(sg(G), sb(G), eps)
+          -> Reshape(back) -> Mul(gamma, C elems) -> Add(beta, C elems)
+          [-> Sigmoid + Mul  (SiLU)]
+
+    All interior tensors must have exactly one consumer (two for the SiLU
+    head tensor feeding both Sigmoid and the product Mul) and must not be
+    requested as extra outputs. The fused op runs the CUDA kernel of
+    kernels/gn_silu.py on the card."""
+    if not getattr(config, "fuse_groupnorm", False):
+        return graph
+    keep = set(getattr(config, "extra_outputs", ()) or ())
+    rw = _Rewriter(graph, config, weight_loader)
+    ops = graph.ops
+
+    plans = []
+    claimed = set()
+    for i, op in enumerate(ops):
+        m = _match_gn_chain(ops, rw, keep, i, op)
+        if m is None:
+            continue
+        removed = m["removed"]
+        if claimed & set(removed):
+            continue
+        claimed.update(removed)
+        fused = OpNode(
+            name=m["in_name"] + "_gn_silu",
+            op_type="ostpu.gn_silu",
+            inputs=[m["x"], m["sg"], m["sb"], m["gamma"], m["beta"]],
+            outputs=list(m["out_op"].outputs),
+            attrs={
+                "groups": str(m["groups"]),
+                "epsilon": f"{m['eps']:.17g}",
+                "silu": str(m["silu"]),
+            },
+        )
+        plans.append((removed, fused))
+    return _replace_fused(graph, plans)
+
+
 def fuse_attention(graph: Graph, config: SessionConfig, weight_loader=None) -> Graph:
     """Apply the SDPA recognizers. Returns a new Graph (or the original if no
     pattern matched)."""
@@ -321,19 +566,4 @@ def fuse_attention(graph: Graph, config: SessionConfig, weight_loader=None) -> G
             continue
         claimed.update(removed)
         plans.append((removed, fused))
-    if not plans:
-        return graph
-
-    replace_at = {removed[-1]: fused for removed, fused in plans}
-    drop = set()
-    for removed, _ in plans:
-        drop.update(removed)
-    new_ops: List[OpNode] = []
-    for i, op in enumerate(graph.ops):
-        if i in replace_at:
-            new_ops.append(replace_at[i])
-        elif i in drop:
-            continue
-        else:
-            new_ops.append(op)
-    return Graph(ops=new_ops)
+    return _replace_fused(graph, plans)

@@ -62,6 +62,27 @@ class WeightArg:
     quant: Optional[Tuple[Any, Any]] = None
     # symmetric per-channel int8 storage (int8_symmetric_storage, 2-D only)
     symmetric: bool = False
+    # host-side relayout at upload (the fusion recognizers set these through
+    # the TensorSpec): ``shape`` above is the transformed device shape,
+    # ``file_shape`` what the provider stores, ``transform`` the name of the
+    # WEIGHT_TRANSFORMS entry applied in between
+    transform: Optional[str] = None
+    file_shape: Optional[Tuple[int, ...]] = None
+
+
+def _t9oc(a: torch.Tensor) -> torch.Tensor:
+    """(O, C, kh, kw) ONNX conv weight -> (kh*kw, O, C), the tap-major form of
+    the fused GroupNorm + SiLU + conv kernel (kernels/gn_conv.py): each tap's
+    (O, C) slice is then a row-major matrix operand as it lies. The relayout
+    happens once on the host at upload."""
+    o, c, kh, kw = a.shape
+    return a.permute(2, 3, 0, 1).reshape(kh * kw, o, c).contiguous()
+
+
+# name -> host relayout of a fetched weight (a CPU tensor in file layout);
+# the executor applies it between provider.get and the upload. The provider
+# keeps the file layout.
+WEIGHT_TRANSFORMS = {"t9oc": _t9oc}
 
 
 @dataclasses.dataclass
@@ -81,7 +102,7 @@ class Plan:
 
     def stream_entries(self):
         """(name, dtype, shape) in stream order, for WeightsProvider.on_init."""
-        return [(w.name, w.file_dtype, w.shape) for w in self.arg_weights]
+        return [(w.name, w.file_dtype, w.file_shape or w.shape) for w in self.arg_weights]
 
 
 def _upload_dtype(spec: TensorSpec, config: SessionConfig) -> torch.dtype:
@@ -176,6 +197,8 @@ class _Planner:
                 shape=spec.shape,
                 quant=quant,
                 symmetric=symmetric,
+                transform=spec.transform,
+                file_shape=spec.file_shape,
             )
             self._arg_set[spec.name] = w
             self.arg_weights.append(w)

@@ -105,6 +105,17 @@ def _cases():
         "ostpu.sdpa", {"q": _rand(1, 16, h * d, seed=15), "k": _rand(1, 12, h * d, seed=16),
                        "v": _rand(1, 12, h * d, seed=17)}, {}, [(1, 16, h * d)],
         {"scale": 1 / math.sqrt(d), "k_transposed": 0, "causal": 0, "heads": h})
+    # the fused GroupNorm ops (runtime/fusion.py): 2 groups of 4 channels, the
+    # affine shaped (C, 1, 1) as the converter stores it, the conv weight tap-major
+    gn = {"sg": 1 + 0.1 * _rand(2, seed=31), "sb": 0.1 * _rand(2, seed=32),
+          "gamma": 1 + 0.2 * _rand(8, 1, 1, seed=33), "beta": 0.1 * _rand(8, 1, 1, seed=34)}
+    xg = _rand(2, 8, 4, 4, seed=30) * 2 + 0.5
+    c["ostpu.gn_silu"] = _case("ostpu.gn_silu", {"x": xg}, gn, [(2, 8, 4, 4)],
+                               {"groups": 2, "epsilon": 1e-5, "silu": 1})
+    c["ostpu.gn_silu_conv"] = _case(
+        "ostpu.gn_silu_conv", {"x": xg},
+        {**gn, "w9": _rand(9, 6, 8, seed=35) / math.sqrt(72), "bias": _rand(6, seed=36)}, [(2, 6, 4, 4)],
+        {"groups": 2, "epsilon": 1e-5})
     return c
 
 

@@ -335,12 +335,16 @@ def test_vae_calibration_matches_jax():
 
 
 def test_config_options():
-    """The calibrated options are taken; the unported fusions still raise."""
+    """The calibrated options are taken, and so are the GroupNorm and
+    small-conv routes; the options still unported raise."""
     cfg = SessionConfig(device=CPU, use_uint8_arithmetic=True, use_uint8_qdq=True)
     cfg.set_option("use_uint8_arithmetic", False)
     cfg.set_option("use_uint8_qdq", False)
     assert not cfg.use_uint8_arithmetic and not cfg.use_uint8_qdq
     for opt in ("fuse_groupnorm", "fuse_gn_conv", "use_pallas_smallconv"):
+        cfg.set_option(opt, True)
+        assert getattr(cfg, opt) is True
+    for opt in ("flash_packed_nopad", "force_fp16_storage", "use_nhwc_layout", "synthetic_device_weights"):
         with pytest.raises(NotImplementedError):
             SessionConfig(device=CPU, **{opt: True})
 

@@ -290,3 +290,82 @@ def test_sampler_copy_matches_jax(sampler):
             x = mod.sampler_step(st, x, den(x, float(sigma[i])), sigma, i, den)
         outs.append(np.asarray(x))
     np.testing.assert_array_equal(outs[0], outs[1])
+
+
+# --------------------------------------------- the GroupNorm routes, end to end
+def _set_routes(pipe, **options):
+    """Turn the options on in every Session of a pipeline (``set_option``
+    re-fuses the loaded graphs)."""
+    for s in (pipe.text_encoder, pipe.unet, pipe.vae_decoder, pipe.vae_tile_session):
+        if s is not None:
+            for name, value in options.items():
+                s.set_option(name, value)
+
+
+def test_pipeline_under_gn_routes_matches_jax():
+    """The TINY SD1.5 pipeline with every Session under config A
+    (``fuse_gn_conv`` + ``fuse_groupnorm``): the device loop's latents against
+    the JAX pipeline under the same options (its fused ops through their jnp
+    references on the CPU) at the loop's bar, against the port's default
+    pipeline at the fused-vs-decomposed bar, and the decoded image to one level."""
+    port, jax = StableDiffusionPipeline.from_synthetic(tiny=True, device=CPU), JaxPipeline.from_synthetic(tiny=True)
+    base = port.generate_on_device(PROMPT, "dog", steps=3, seed=7, decode=False).latents
+    for pipe in (port, jax):
+        _set_routes(pipe, fuse_gn_conv=True, fuse_groupnorm=True)
+    for s in (port.unet, port.vae_decoder):
+        kinds = [op.op_type for op in s.graph.ops]
+        assert "ostpu.gn_silu_conv" in kinds and "InstanceNormalization" not in kinds
+    got = port.generate_on_device(PROMPT, "dog", steps=3, seed=7, decode=False).latents
+    want = jax.generate(PROMPT, "dog", steps=3, seed=7, sampler="euler_a", decode=False).latents
+    np.testing.assert_allclose(got, want, rtol=3e-4, atol=3e-4)
+    np.testing.assert_allclose(got, base, rtol=5e-4, atol=5e-4)
+    assert _levels(port.decode(got), jax.decode(got)) <= 1
+    assert _levels(port.decode(got, tiled=True), jax.decode(got, tiled=True)) <= 1
+
+
+@pytest.mark.parametrize("calibrated_fused", [True, False])
+def test_qu8_decode_under_fuse_groupnorm_matches_jax(calibrated_fused):
+    """The calibrated W8A8 decoder with its GroupNorm chains fused. Ranges are
+    keyed by op name: calibrated under the fusion, a conv quantizes its input
+    with the fused op's range; calibrated without it, that name is missing and
+    both packages fall back to the conv's own range. Either way every W8A8 op
+    picks the (scale, zero point) the JAX executor picks and the convs stay on
+    qconv. With the matching calibration the image is the JAX session's to one
+    level; with the fallback ranges (a coarser step, so one activation that
+    rounds the other way moves the image by a few levels) on average."""
+    from onnxstream_tpu.convert.quantize import quantize_graph_weights as jax_quantize
+
+    g = build_vae_decoder(VAE_TINY, seed=7)
+    z = np.random.RandomState(42).randn(1, 4, 8, 8).astype(np.float32)
+    jcal = JaxSession(JaxConfig(fuse_ops_in_attention=True, range_data_calibrate=True,
+                                fuse_groupnorm=calibrated_fused), weights_provider=JaxDict(dict(g.weights)))
+    jcal.read_string(g.to_text())
+    jcal.add_tensor("latent", z)
+    jcal.run(eager=True)
+    ranges = dict(jcal._executor().range_data.data)
+    assert any(k.endswith("_gn_silu") for k in ranges) == calibrated_fused
+
+    qs = qu8_decoder(g.to_text(), g.weights, ranges, device=CPU)
+    qs.set_option("fuse_groupnorm", True)
+    jtext, jweights = jax_quantize(g.to_text(), g.weights)
+    jq = JaxSession(JaxConfig(fuse_ops_in_attention=True, use_uint8_arithmetic=True, range_data=ranges,
+                              fuse_groupnorm=True), weights_provider=JaxDict(jweights))
+    jq.read_string(jtext)
+    assert [op.name for op in qs.graph.ops] == [op.name for op in jq.graph.ops]
+    assert "InstanceNormalization" not in [op.op_type for op in qs.graph.ops]
+    imgs = []
+    for pipe, sess in ((StableDiffusionPipeline.from_synthetic(tiny=True, device=CPU), qs),
+                       (JaxPipeline.from_synthetic(tiny=True), jq)):
+        pipe.vae_decoder = sess
+        imgs.append(pipe.decode(z[0] * np.float32(pipe.vae_scale)))
+    pe, je = qs._executor(), jq._executor()
+    assert len(pe._qlinear) == 16
+    for i in pe._qlinear:
+        got, want = pe._activation_qparams(qs.graph.ops[i]), je._activation_qparams(jq.graph.ops[i])
+        assert tuple(map(float, got)) == tuple(map(float, want))
+    routes = list(pe.quant_routes.values())
+    assert routes.count("qconv") >= sum(op.op_type == "Conv" for op in qs.graph.ops) - 1
+    if calibrated_fused:
+        assert _levels(*imgs) <= 1
+    else:
+        assert np.abs(imgs[0].astype(np.int32) - imgs[1].astype(np.int32)).mean() < 1.0
