@@ -6,8 +6,9 @@ Phases (any failure exits non-zero and prints no result line):
   1. device: require CUDA; print the card, its power limit, the CUDA and nvcc
      versions and the precision flags in effect;
   2. build: compile every kernel source of the checkout (flash_attention.cu,
-     qmatmul.cu, qlinear.cu, gn_conv.cu, matmul.cu), one nvcc each, all
-     started together;
+     qmatmul.cu, qlinear.cu, gn_conv.cu, matmul.cu; the last two of the list's
+     wgmma pipelines share gemm_sm90.cuh), one nvcc each, all started
+     together;
   3. kernel vs twin: every wrapper of a CUDA kernel against its plain PyTorch
      twin, fp32 (TF32 off) and bf16:
        - flash_attention_packed at the two SD1.5 UNet site shapes, the VAE
@@ -23,7 +24,10 @@ Phases (any failure exits non-zero and prints no result line):
        - gn_silu, gn_silu_conv and matmul (with conv3x3_im2col) at the JAX
          suite's ragged cases (C/G = 5 and 10, H W = 35, 5 x 7 borders, no
          bias, O != C, batch 2) in float32 / bfloat16 / float16, and at the
-         sites of the GroupNorm and small-conv routes;
+         sites of the GroupNorm and small-conv routes; matmul also at the
+         edges of its wgmma pipeline (a ragged last K split, M off the tile,
+         K off the k-tile, one 8-column strip, a misaligned view that must
+         take the masked kernel), every call twice for equal bits;
      with each kernel's time beside its twin's, its bound and one PyTorch
      call computing the same function where there is one
      (scaled_dot_product_attention, torch._int_mm, a bf16 matmul,
@@ -40,20 +44,25 @@ Phases (any failure exits non-zero and prints no result line):
      the SD15 UNet at full width answers the three requests under A and
      under B, each output within 5e-2 * max|out| of the default config's, the
      launch counts equal to the fused graph's op counts (B: 61 gn_silu and
-     34 matmul launches per run), each kernel's first launch of a request
+     34 matmul launches per run, the B operand of each the resident (9 C, O)
+     weight as uploaded), each kernel's first launch of a request
      held against its twin on the graph's operands; the VAE_SD decoder
      decodes one 64 x 64 latent to 512 x 512 under fuse_groupnorm (30 gn_silu
      launches) and under config A, each image within one level on average of
      the default decode; device busy and wall time of a UNet run (also under
-     fuse_groupnorm alone) and a decode under every config, in turns; one run's kernel calls replayed against the twins
-     and the library calls;
+     fuse_groupnorm alone) and a decode under every config, in turns; one
+     run's kernel calls replayed against the twins and the library calls,
+     and matmul at every shape of the run on the graph's operands: the
+     variant and plan taken, the twin, a second call's bits, the times;
   5. SD slice, uint8 weights: the same UNet through the port's
      quantize_graph_weights (per-tensor uint8[scale,zp], the converter's
      exclusions): TINY in fp32 on the card against the CPU, then SD1.5 in
      bf16 answers the three requests with w8_matmul on every MatMul whose
      weight is 2-D uint8 and 10 packed flash launches each, the first
      w8_matmul launch of each held against the twin on the graph's operands;
-     w8_matmul against its twin at every shape the graph gave it;
+     w8_matmul against its twin at every shape the graph gave it, and on the
+     graph's own operands at each shape: the variant and plan taken, the
+     twin, a second call's bits, the times beside the library's and the bound;
   6. SD image path: the TINY SD1.5 pipeline in fp32 on the card against the
      CPU (device-loop latents within 1e-4 * max, calibrated W8A8 image
      within one level), then the SD1.5 text-to-image path at full width
@@ -176,6 +185,36 @@ def device_ms(fn, iters: int = 10, warmup: int = 2) -> float:
             return ms
         print("device_ms: the profiler window holds no device events; profiling again")
     raise SystemExit("device_ms: five profiler windows held no device events")
+
+
+def device_ms_per_call(fn, iters: int = 10, windows: int = 3) -> float:
+    """Device time of one call of fn where a call is one or two small
+    kernels: each kernel's mean duration times its launches per call (its
+    count over `iters`, rounded up), so that a launch the tracer misses at the
+    start of its window does not lower the time, as it would in device_ms;
+    the median of `windows` profiler windows, since a window now and then
+    comes back without one of the call's kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(windows + 4):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+                torch.cuda.synchronize()
+        ms = 0.0
+        for e in prof.key_averages():
+            us = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+            if str(getattr(e, "device_type", "")).endswith("CUDA") and us > 0:
+                ms += us / 1e3 / e.count * -(-e.count // iters)
+        if ms > 0:
+            times.append(ms)
+        if len(times) == windows:
+            return float(np.median(times))
+    raise SystemExit("device_ms_per_call: the profiler windows held no device events")
 
 
 def bound(nbytes: float, ops: float, peak: str) -> dict:
@@ -323,9 +362,10 @@ def _requests(cfg, seed: int):
     ]
 
 
-def profile_steps(step, name: str, label: str, steps: int = 2) -> None:
+def profile_steps(step, name: str, label: str, steps: int = 2) -> list:
     """Device time per step by kernel, and the device's busy share of the
-    wall time, from a torch.profiler window over warm steps."""
+    wall time, from a torch.profiler window over warm steps. Returns the
+    (ms per step, launches per step, kernel name) rows."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -339,11 +379,12 @@ def profile_steps(step, name: str, label: str, steps: int = 2) -> None:
     dev_ms = sum(r[0] for r in rows)
     if not rows:
         print("profile: the profiler recorded no device time (not measured)")
-        return
+        return rows
     print(f"profile of {label} over {steps} warm steps [{name}]: wall {wall_ms:.2f} ms/step (profiler on), "
           f"device busy {dev_ms:.2f} ms/step = {100 * dev_ms / wall_ms:.1f}% of wall")
     for ms, n, key in sorted(rows, reverse=True)[:12]:
         print(f"  {ms:8.3f} ms/step  {n:5d}x  {key[:90]}")
+    return rows
 
 
 def _tiny_unet_card_vs_cpu(label: str, text: str, weights, req, **options) -> None:
@@ -703,6 +744,40 @@ def replay_times(label: str, calls, kernel, twin, library, peak: str, name: str,
     return {"ms": t_k, "plain_ms": t_p, "library_ms": t_l, **b}
 
 
+def site_report(label: str, calls, kernel, twin, library, cost, plan_of, tol: float, name: str) -> dict:
+    """Every distinct shape among the recorded calls of one graph run, on the
+    graph's own operands: the variant and plan the dispatcher takes
+    (``plan_of`` maps a call to that text), the kernel against its twin
+    (max|diff| <= tol * max(1, max|twin|)), the same bits on a second call
+    (the K split adds its partials in a fixed order), and the device time of
+    kernel, twin and library call beside the bound."""
+    by_shape = {}
+    for args, kw in calls:
+        a, b = args[0], args[1]
+        by_shape.setdefault((a.numel() // a.shape[-1], *b.shape), []).append((args, kw))
+    out = {}
+    for shape, group in sorted(by_shape.items()):
+        args, kw = group[0]
+        got, ref = kernel(*args, **kw), twin(*args, **kw)
+        again = kernel(*args, **kw)
+        torch.cuda.synchronize()
+        err, top = (got.float() - ref.float()).abs().max().item(), ref.float().abs().max().item()
+        ok = bool(torch.isfinite(got.float()).all()) and err <= tol * max(1.0, top)
+        same = torch.equal(got, again)
+        t_k = device_ms_per_call(lambda: kernel(*args, **kw))
+        t_p = device_ms(lambda: twin(*args, **kw), iters=2, warmup=1)
+        t_l = device_ms_per_call(library(*args, **kw))
+        b = bound(*cost(*args, **kw), "bf16")
+        key = "x".join(map(str, shape))
+        print(f"site {label} {key} ({len(group)} calls a run): {plan_of(*args, **kw)}; max|diff| {err:.3e} of "
+              f"max|twin| {top:.3f} (tol {tol:g}) {'ok' if ok else 'FAIL'}, second call bit-equal: {same}; kernel "
+              f"{t_k:.4f} ms, twin {t_p:.4f} ms, library {t_l:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}) [{name}]")
+        if not ok or not same:
+            raise SystemExit(f"{label} at {key}: the kernel disagrees with its twin, or with itself on a second call")
+        out[key] = {"calls": len(group), "ms": t_k, "plain_ms": t_p, "library_ms": t_l, "variant": plan_of(*args, **kw), **b}
+    return out
+
+
 # --------------------------------- the GroupNorm and small-conv routes: kernels 7, 8 and 9
 GN_SITES = [(1, 320, 64, 64), (1, 960, 64, 64), (1, 128, 512, 512)]          # x of gn_silu
 GN_CONV_SITES = [(320, 64, 320), (2560, 16, 1280), (1280, 8, 1280)]          # (C, H = W, O) of gn_silu_conv
@@ -786,7 +861,7 @@ def _matmul_cost(a, b, bias=None, *, out_dtype=None):
 
 
 def _site_times(label, name, kernel, twin, library, cost, peak="bf16"):
-    t_k, t_p, t_l = device_ms(kernel), device_ms(twin, iters=3, warmup=1), device_ms(library)
+    t_k, t_p, t_l = device_ms_per_call(kernel), device_ms(twin, iters=3, warmup=1), device_ms_per_call(library)
     b = bound(*cost, peak)
     print(f"time bf16 {label}: kernel {t_k:.4f} ms, twin {t_p:.4f} ms, library {t_l:.4f} ms, "
           f"bound {b['bound_ms']:.4f} ms ({b['bound_by']})  [{name}]")
@@ -801,7 +876,7 @@ def phase_kernel_gn(name: str) -> dict:
     output); each times max(1, max|twin|)."""
     from onnxstream_tpu_torch.kernels.gn_conv import gn_silu_conv, gn_silu_conv_reference
     from onnxstream_tpu_torch.kernels.gn_silu import gn_silu, gn_silu_reference
-    from onnxstream_tpu_torch.kernels.matmul import conv3x3_im2col, matmul, matmul_reference
+    from onnxstream_tpu_torch.kernels.matmul import conv3x3_im2col, matmul, matmul_reference, oihw_to_w9co
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -826,7 +901,11 @@ def phase_kernel_gn(name: str) -> dict:
             _held(f"gn_silu_conv {(n, c, h, w)} G{g} -> {o} bias={bias} {str(dt)[6:]}",
                   gn_silu_conv(*args, w9, bv, groups=g, eps=1e-5),
                   gn_silu_conv_reference(*args, w9, bv, g, 1e-5), tol)
-    mm_cases = [(64, 1152, 128, False), (128, 2560, 256, True), (512, 1280, 640, True), (35, 100, 33, True)]
+    # the JAX suite's cases and a ragged one (the masked kernels), then the edges of the wgmma pipeline: a
+    # ragged last K split (65 k-tiles in 13 splits of 5), M off the tile with N = 320, K % 64 != 0 with
+    # N % 8 == 0 only, one short k-tile with one 8-column strip and 129 rows in 64-row tiles
+    mm_cases = [(64, 1152, 128, False), (128, 2560, 256, True), (512, 1280, 640, True), (35, 100, 33, True),
+                (64, 4160, 1280, True), (77, 768, 320, False), (200, 1000, 328, True), (129, 16, 8, True)]
     mm_cases += [(m, k, n, True) for m, k, n in MATMUL_SITES]
     for m, k, n, bias in mm_cases:
         for dt, odt, tol in ((torch.float32, torch.float32, 1e-4), (torch.bfloat16, torch.float32, 1e-3),
@@ -834,15 +913,25 @@ def phase_kernel_gn(name: str) -> dict:
             a = torch.randn(m, k, device="cuda", generator=gen).to(dt)
             b = (torch.randn(k, n, device="cuda", generator=gen) * 0.02).to(dt)
             bv = torch.randn(n, device="cuda", generator=gen) if bias else None
-            _held(f"matmul ({m}, {k}) x ({k}, {n}) bias={bias} {str(dt)[6:]} -> {str(odt)[6:]}",
-                  matmul(a, b, bv, out_dtype=odt), matmul_reference(a, b, bv, out_dtype=odt), tol)
+            got = matmul(a, b, bv, out_dtype=odt)
+            _held(f"matmul ({m}, {k}) x ({k}, {n}) bias={bias} {str(dt)[6:]} -> {str(odt)[6:]} "
+                  f"[{_matmul_plan_text(a, b)}]", got, matmul_reference(a, b, bv, out_dtype=odt), tol)
+            if not torch.equal(got, matmul(a, b, bv, out_dtype=odt)):
+                raise SystemExit(f"matmul ({m}, {k}, {n}) {dt}: two calls gave different bits")
+    # a view that starts 2 bytes off a 16-byte boundary: the dispatcher takes the masked kernel from the pointer
+    flat = torch.randn(64 * 256 + 8, device="cuda", generator=gen).to(torch.bfloat16)
+    a, b = flat[1:1 + 64 * 256].view(64, 256), (torch.randn(256, 128, device="cuda", generator=gen) * 0.02).to(torch.bfloat16)
+    if "mma.sync" not in _matmul_plan_text(a, b) or "wgmma" not in _matmul_plan_text(flat[:64 * 256].view(64, 256), b):
+        raise SystemExit("matmul: the variant predicate does not follow the pointer's alignment")
+    _held(f"matmul (64, 256) x (256, 128) bfloat16, A misaligned [{_matmul_plan_text(a, b)}]", matmul(a, b),
+          matmul_reference(a, b), 2e-2)
     for cin, cout, h, w, batch in [(128, 128, 8, 8, 2), (256, 128, 5, 7, 1)]:
         x = torch.randn(batch, h, w, cin, device="cuda", generator=gen)
         wt = torch.randn(cout, cin, 3, 3, device="cuda", generator=gen) * 0.05
         bv = torch.randn(cout, device="cuda", generator=gen)
         ref = F.conv2d(x.permute(0, 3, 1, 2), wt, bv, padding=1).permute(0, 2, 3, 1)
         _held(f"conv3x3_im2col NHWC {(batch, h, w, cin)} -> {cout} float32 against F.conv2d",
-              conv3x3_im2col(x, wt, bv), ref, 1e-4)
+              conv3x3_im2col(x, oihw_to_w9co(wt), bv), ref, 1e-4)
 
     # times at the sites, bf16
     dt, out = torch.bfloat16, {"gn_silu": {}, "gn_silu_conv": {}, "matmul": {}}
@@ -869,18 +958,47 @@ def phase_kernel_gn(name: str) -> dict:
     return out
 
 
-def _smallconv_sites(graph) -> int:
-    """Conv ops of a fused graph that pass the use_pallas_smallconv gate of
-    ops/standard.py (their shapes are static in these graphs)."""
-    n = 0
-    for op in graph.ops:
-        if op.op_type != "Conv" or op.attr_int("group", 1) != 1:
-            continue
-        x, w = op.inputs[0].shape, op.inputs[1].shape
-        n += (len(x) == 4 and tuple(w[2:]) == (3, 3) and list(op.attr_ints("strides", [1, 1])) == [1, 1]
-              and list(op.attr_ints("dilations", [1, 1])) == [1, 1]
-              and list(op.attr_ints("pads", [0, 0, 0, 0])) == [1, 1, 1, 1] and x[1] % 128 == 0 and w[0] % 128 == 0
-              and x[2] * x[3] <= 1024 and (x[0] * x[2] * x[3]) % 8 == 0)
+def _matmul_plan_text(a, b, *rest, **kw) -> str:
+    """The variant of csrc/matmul.cu the dispatcher takes for this call and,
+    for the wgmma pipeline, its tile and K split."""
+    from onnxstream_tpu_torch.kernels.matmul import matmul_plan, matmul_variant
+
+    (m, k), n = a.shape, b.shape[1]
+    variant = matmul_variant(a.dtype, m, k, n, a.data_ptr(), b.data_ptr())
+    if variant != "wgmma":
+        return {"mma": "mma.sync 64 x 128 tiles, masked", "fma": "float32 FMA tiles"}[variant]
+    bm, bn, splits = matmul_plan(m, k, n)
+    return f"wgmma {bm} x {bn} tiles, {-(-m // bm) * -(-n // bn)} tiles x {splits} K splits"
+
+
+def _w8_plan_text(a, w, *rest, **kw) -> str:
+    """The same for csrc/qmatmul.cu's w8_matmul."""
+    from onnxstream_tpu_torch.kernels.qmatmul import w8_plan, w8_variant
+
+    m, (k, n) = a.numel() // a.shape[-1], w.shape
+    variant = w8_variant(a.dtype, m, k, n, a.data_ptr(), w.data_ptr())
+    if variant != "wgmma":
+        return {"mma": "mma.sync 64 x 128 tiles, masked", "fma": "float32 FMA tiles"}[variant]
+    bm, bn, splits = w8_plan(m, k, n)
+    return f"wgmma {bm} x {bn} tiles, {-(-m // bm) * -(-n // bn)} tiles x {splits} K splits"
+
+
+def _smallconv_sites(graph, raw_text: str) -> int:
+    """The ops of a fused graph that the small-conv rewrite produced
+    (ostpu.conv3x3_im2col, weight under the t9co upload transform). The pass
+    must have taken exactly the Convs of the raw graph that pass the route's
+    gate (``smallconv_eligible``; their shapes are static in these graphs)."""
+    from onnxstream_tpu_torch.ir import parse_model_txt
+    from onnxstream_tpu_torch.kernels.matmul import smallconv_eligible
+
+    n = sum(op.op_type == "ostpu.conv3x3_im2col" and op.inputs[1].transform == "t9co"
+            and tuple(op.inputs[1].shape) == (9 * op.inputs[1].file_shape[1], op.inputs[1].file_shape[0])
+            for op in graph.ops)
+    eligible = sum(op.op_type == "Conv" and smallconv_eligible(
+        op.inputs[0].shape, op.inputs[1].shape, op.attr_int("group", 1), op.attr_ints("strides", [1, 1]),
+        op.attr_ints("dilations", [1, 1]), op.attr_ints("pads", [0, 0, 0, 0])) for op in parse_model_txt(raw_text).ops)
+    if n != eligible:
+        raise SystemExit(f"small-conv rewrite: {n} ops rewritten, {eligible} Convs of the raw graph pass the gate")
     return n
 
 
@@ -952,7 +1070,7 @@ def phase_gn_routes(name: str, sd: dict) -> dict:
             s = sessions[label] = _session(text, g.weights, "bfloat16", "cuda:0", **cfg)
             kinds = [op.op_type for op in s.graph.ops]
             want[label] = {"gn_silu": kinds.count("ostpu.gn_silu"), "gn_silu_conv": kinds.count("ostpu.gn_silu_conv"),
-                           "matmul": _smallconv_sites(s.graph) if "use_pallas_smallconv" in cfg else 0}
+                           "matmul": _smallconv_sites(s.graph, text) if "use_pallas_smallconv" in cfg else 0}
             print(f"SD15 UNet, config {label} {cfg}: fused graph {len(s.graph.ops)} ops, "
                   f"{kinds.count('InstanceNormalization')} GroupNorm chains left decomposed, expected launches per run {want[label]}")
             for i, req in enumerate(reqs):
@@ -1030,6 +1148,16 @@ def phase_gn_routes(name: str, sd: dict) -> dict:
             recorded[label] = {k: site.calls for k, site in sites.items()}
             for site in sites.values():
                 site.calls = None
+        # no per-run weight relayout on the small-conv route: the B operand of every matmul call of a run
+        # is the resident device copy of an uploaded (9 C, O) weight itself, not a tensor made during the run
+        ex = next(iter(sessions["B"]._executors.values()))
+        resident = {t[0].data_ptr() for t in ex._resident.values()}
+        moved = [tuple(b.shape) for (a, b, *_), _ in recorded["B"]["matmul"]
+                 if b.data_ptr() not in resident or not b.is_contiguous() or b.shape[0] != a.shape[1]]
+        print(f"config B: {len(recorded['B']['matmul'])} matmul calls a run, B operands that are not a resident "
+              f"uploaded weight: {len(moved)} {moved[:3]}")
+        if moved:
+            raise SystemExit("config B: a conv weight was relayouted during the run")
     finally:
         patched(False)
 
@@ -1053,7 +1181,14 @@ def phase_gn_routes(name: str, sd: dict) -> dict:
         step = lambda s=sessions[f"vae_{label}"]: s.run(device_outputs=True)
         times.setdefault(f"vae_{label}", []).append(busy_and_wall(step, f"VAE_SD decode, config {label}", name))
     profile_steps(sessions["A"].run, name, "SD15 step, config A")
-    profile_steps(sessions["B"].run, name, "SD15 step, config B")
+    around = {}
+    for label in ("fuse_groupnorm", "B"):
+        rows = profile_steps(sessions[label].run, name, f"SD15 step, config {label}")
+        around[label] = sum(ms for ms, _, key in rows if "elementwise" in key or "Copy" in key or "copy" in key)
+    # config B's graph is fuse_groupnorm's but for the 34 rerouted convs: the difference in elementwise and
+    # copy kernels is what the route's torch ops (the im2col concats; no weight relayout) cost a run
+    print(f"elementwise and copy kernels per UNet run: config B {around['B']:.3f} ms, fuse_groupnorm "
+          f"{around['fuse_groupnorm']:.3f} ms, the small-conv route's own {around['B'] - around['fuse_groupnorm']:.3f} ms [{name}]")
 
     specs = {"gn_silu": (gn_silu, gn_silu_reference, _gn_library, _gn_cost),
              "gn_silu_conv": (gn_silu_conv, gn_silu_conv_reference, _gn_conv_library, _gn_conv_cost),
@@ -1063,11 +1198,15 @@ def phase_gn_routes(name: str, sd: dict) -> dict:
         kernel, twin, library, cost = specs[k]
         replays[(label, k)] = replay_times(f"{k} over one run under config {label} (bf16)", recorded[label][k],
                                            kernel, twin, library, "bf16", name, cost=cost)
+    mm_sites = site_report("matmul, config B", recorded["B"]["matmul"], matmul, matmul_reference, _matmul_library_call,
+                           _matmul_cost, _matmul_plan_text, 2e-2, name)
     out = {}
     for k, main in (("gn_silu", "B"), ("gn_silu_conv", "A"), ("matmul", "B")):
         out[k] = {"launches": launches[k], "max_abs_err": sites[k].worst, **replays[(main, k)],
                   "launches_per_run": {label: want[label][k] for label in ("A", "B")}}
     out["gn_silu"]["ms_by_path"] = {label: replays[(label, "gn_silu")] for label in ("A", "vae_fuse_groupnorm")}
+    out["matmul"]["sites_of_run"] = mm_sites
+    out["matmul"]["around_ms"] = around["B"] - around["fuse_groupnorm"]
     out["times"] = times
     return out
 
@@ -1168,7 +1307,9 @@ def phase_sd_u8(name: str, sd: dict) -> dict:
 
     times = replay_times("w8_matmul over one SD15 step (bf16)", calls, w8_matmul, w8_matmul_reference,
                          dequantized_matmul, "bf16", name)
-    return {"launches": launches, "max_abs_err": site.worst, **times}
+    sites = site_report("w8_matmul, uint8 step", calls, w8_matmul, w8_matmul_reference, dequantized_matmul,
+                        _qmm_cost, _w8_plan_text, 2e-2, name)
+    return {"launches": launches, "max_abs_err": site.worst, **times, "sites_of_step": sites}
 
 
 # ------------------------------------------------ calibrated W8A8: kernels 3 and 4

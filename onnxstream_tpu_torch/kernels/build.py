@@ -3,8 +3,9 @@
 Each kernel source ``csrc/<name>.cu`` exports a plain C interface. It is
 compiled at first use with one ``nvcc -shared`` call for Hopper (``sm_90a``)
 into ``.cache/onnxstream_tpu_torch/<name>-<hash>/lib<name>.so`` at the root of
-the checkout (a directory ``.gitignore`` lists), keyed by a hash of the source
-and the flags, and loaded with ``ctypes``. No PyTorch headers are involved, so
+the checkout (a directory ``.gitignore`` lists), keyed by a hash of the source,
+the headers of ``csrc/`` (``*.cuh``, found through ``-I``) and the flags, and
+loaded with ``ctypes``. No PyTorch headers are involved, so
 a build takes seconds. Nothing here runs when a module is imported.
 """
 
@@ -47,6 +48,8 @@ def nvcc() -> str:
 def library_path(name: str) -> Path:
     """Where the build of ``csrc/<name>.cu`` lands (whether built or not)."""
     src = (CSRC / f"{name}.cu").read_bytes()
+    for header in sorted(CSRC.glob("*.cuh")):  # shared by several sources: an edit rebuilds them all
+        src += header.read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return CACHE_DIR / f"{name}-{digest}" / f"lib{name}.so"
 
@@ -60,7 +63,7 @@ def build(name: str) -> Path:
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [nvcc(), *NVCC_FLAGS, f"-I{CSRC}", "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     (out.parent / "build.log").write_text(proc.stdout + proc.stderr)
     if proc.returncode != 0:

@@ -1,0 +1,486 @@
+// Building blocks of the Hopper (sm_90a) matrix-product pipeline shared by
+// csrc/matmul.cu (kernel 9) and csrc/qmatmul.cu (kernel 5, w8_matmul).
+//
+// Both kernels are a 16-bit product A (M, K) x B (K, N) with B contiguous
+// along N, summed in float32. One block is a loading warpgroup, for kernel 5 a
+// converting warpgroup, and one or two consumer warpgroups around a ring of
+// stages in dynamic shared memory:
+//
+//  * Staging. The loading threads fill a stage with 16-byte cp.async copies
+//    (zero-filled past the edges of A and B) as soon as it is free; the
+//    hardware arrives on the stage's `full` mbarrier when a thread's copies
+//    have landed, so as many tiles are in flight as the ring has free stages.
+//    Consumers arrive on the stage's `empty` mbarrier once the wgmma group
+//    that read it has retired. Kernel 5 puts a converting warpgroup between
+//    the two: it turns the landed uint8 tile into a 16-bit B tile in a ring
+//    of its own (plain shared-memory stores, then fence.proxy.async; the
+//    converters have no copies in flight for the fence to wait on). cp.async
+//    was taken rather than TMA: it needs no tensor map (no
+//    cuTensorMapEncodeTiled to resolve at run time, no per-call encode on
+//    host-bound paths), every shape the predicates admit is 16-byte
+//    granular, and kernel 5 has to touch its weight bytes anyway to convert
+//    them.
+//  * Layout. An A tile is K-major, 64 k (128 bytes) per row, under the
+//    128-byte swizzle: 16-byte piece c of row r lies at r * 128 +
+//    ((c ^ (r & 7)) << 4). A B tile stays MN-major as it lies in device
+//    memory: per chunk of SWZ / 2 columns, 64 k rows of SWZ bytes, piece i of
+//    row k at k * SWZ + ((i ^ x) << 4) with x = k & 7 (SWZ = 128) or
+//    (k >> 1) & 3 (SWZ = 64). wgmma reads it through the transpose bit of
+//    the instruction, so nothing is transposed while it is staged.
+//  * Product. wgmma.mma_async m64nNk16 from shared memory on both sides, f32
+//    accumulators in registers, one group per k-tile, one group in flight
+//    while the next tile's barrier is awaited.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+namespace gemm90 {
+
+#define G90_DEV __device__ __forceinline__
+
+constexpr int kBK = 64;                 // k-tile: 64 16-bit values, one 128-byte row of A
+constexpr int kWG = 128;                // threads of a warpgroup
+constexpr int kATileBytes = 64 * 128;   // the A tile of one consumer warpgroup
+
+G90_DEV uint32_t smem_u32(const void* p) { return static_cast<uint32_t>(__cvta_generic_to_shared(p)); }
+
+// ---- mbarrier -------------------------------------------------------------
+G90_DEV void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+G90_DEV void mbar_init_fence() { asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory"); }
+G90_DEV void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// spins until the phase of the given parity has completed (parity 1 passes at
+// once on a barrier that was just initialised)
+G90_DEV void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// ---- cp.async -------------------------------------------------------------
+// 16 bytes global -> shared, or 16 zero bytes when !valid (src is not read)
+G90_DEV void cp_async16(uint32_t dst, const void* src, bool valid) {
+  const int bytes = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(bytes) : "memory");
+}
+// the mbarrier at `bar` gets one arrival for this thread once all the cp.async
+// copies it has started so far have landed; the thread does not wait
+G90_DEV void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
+}
+G90_DEV void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
+// this thread's st.shared writes become visible to the async proxy that wgmma
+// reads through
+G90_DEV void fence_proxy_async() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
+
+G90_DEV uint4 ld_shared16(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n" : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "r"(addr));
+  return v;
+}
+G90_DEV void st_shared4(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+G90_DEV void st_shared16(uint32_t addr, uint4 v) {
+  asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
+               : "memory");
+}
+
+// ---- wgmma ----------------------------------------------------------------
+G90_DEV void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+G90_DEV void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+template <int N>
+G90_DEV void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keeps the compiler from moving accumulator registers across the async ops
+template <int N>
+G90_DEV void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// shared-memory matrix descriptor: start address, leading and stride byte
+// offsets in 16-byte units, swizzle mode (1 = 128 B, 2 = 64 B, 0 = none)
+G90_DEV uint64_t make_desc(uint32_t addr, uint32_t lbo_bytes, uint32_t sbo_bytes, uint32_t layout) {
+  return static_cast<uint64_t>((addr & 0x3FFFFu) >> 4) | (static_cast<uint64_t>(lbo_bytes >> 4) << 16) |
+         (static_cast<uint64_t>(sbo_bytes >> 4) << 32) | (static_cast<uint64_t>(layout) << 62);
+}
+
+// A tile, K-major under the 128-byte swizzle: rows of 128 bytes, groups of 8
+// rows 1024 bytes apart; k16 step ks starts 32 bytes further into the row
+G90_DEV uint32_t a_offset(int r, int c) { return r * 128 + ((c ^ (r & 7)) << 4); }
+G90_DEV uint64_t a_desc(uint32_t tile, int ks) { return make_desc(tile + ks * 32, 16, 1024, 1); }
+
+// B tile, MN-major: chunks of SWZ / 2 columns, each 64 k rows of SWZ bytes.
+// The descriptor's leading offset steps from chunk to chunk along N, its
+// stride offset from one group of 8 k rows to the next; k16 step ks starts 16
+// rows further down.
+template <int SWZ>
+struct BTile {
+  static_assert(SWZ == 128 || SWZ == 64, "swizzle width");
+  static constexpr int kChunkCols = SWZ / 2;
+  static constexpr int kChunkBytes = kBK * SWZ;
+  // byte offset of the 16-byte piece holding columns n .. n + 7 of row k
+  G90_DEV static uint32_t offset(int k, int n) {
+    const int chunk = n / kChunkCols, i = (n % kChunkCols) / 8;
+    const int x = SWZ == 128 ? (k & 7) : ((k >> 1) & 3);
+    return chunk * kChunkBytes + k * SWZ + ((i ^ x) << 4);
+  }
+  G90_DEV static uint64_t desc(uint32_t tile, int ks) {
+    return make_desc(tile + ks * 16 * SWZ, kChunkBytes, 8 * SWZ, SWZ == 128 ? 1 : 2);
+  }
+};
+
+// D (64 x N, f32, in registers) += A (64 x 16, shared, K-major) x B (16 x N,
+// shared; MN-major for the wide forms, K-major for n8). Thread t of the
+// warpgroup holds, for j = 0 .. N / 8 - 1, d[4 j + 0 .. 1] = row 16 (t / 32) +
+// (t % 32) / 4, columns 8 j + 2 (t % 4) and + 1, and d[4 j + 2 .. 3] the same
+// columns of the row 8 below.
+template <typename T>
+G90_DEV void wgmma_m64n8k16(float (&d)[4], uint64_t da, uint64_t db) {
+  if constexpr (std::is_same<T, __half>::value) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %6, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k16.f32.f16.f16 "
+        "{%0, %1, %2, %3}, "
+        "%4, %5, p, 1, 1, 0, 0;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "l"(da), "l"(db), "r"(1));
+  } else {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %6, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3}, "
+        "%4, %5, p, 1, 1, 0, 0;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "l"(da), "l"(db), "r"(1));
+  }
+}
+
+template <typename T>
+G90_DEV void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db) {
+  if constexpr (std::is_same<T, __half>::value) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        " %8, %9, %10, %11, %12, %13, %14, %15, "
+        " %16, %17, %18, %19, %20, %21, %22, %23, "
+        " %24, %25, %26, %27, %28, %29, %30, %31, "
+        " %32, %33, %34, %35, %36, %37, %38, %39, "
+        " %40, %41, %42, %43, %44, %45, %46, %47, "
+        " %48, %49, %50, %51, %52, %53, %54, %55, "
+        " %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1, 0, 1;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(da), "l"(db), "r"(1));
+  } else {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        " %8, %9, %10, %11, %12, %13, %14, %15, "
+        " %16, %17, %18, %19, %20, %21, %22, %23, "
+        " %24, %25, %26, %27, %28, %29, %30, %31, "
+        " %32, %33, %34, %35, %36, %37, %38, %39, "
+        " %40, %41, %42, %43, %44, %45, %46, %47, "
+        " %48, %49, %50, %51, %52, %53, %54, %55, "
+        " %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1, 0, 1;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(da), "l"(db), "r"(1));
+  }
+}
+
+template <typename T>
+G90_DEV void wgmma_m64n160k16(float (&d)[80], uint64_t da, uint64_t db) {
+  if constexpr (std::is_same<T, __half>::value) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %82, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n160k16.f32.f16.f16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        " %8, %9, %10, %11, %12, %13, %14, %15, "
+        " %16, %17, %18, %19, %20, %21, %22, %23, "
+        " %24, %25, %26, %27, %28, %29, %30, %31, "
+        " %32, %33, %34, %35, %36, %37, %38, %39, "
+        " %40, %41, %42, %43, %44, %45, %46, %47, "
+        " %48, %49, %50, %51, %52, %53, %54, %55, "
+        " %56, %57, %58, %59, %60, %61, %62, %63, "
+        " %64, %65, %66, %67, %68, %69, %70, %71, "
+        " %72, %73, %74, %75, %76, %77, %78, %79}, "
+        "%80, %81, p, 1, 1, 0, 1;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+          "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+          "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+          "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
+        : "l"(da), "l"(db), "r"(1));
+  } else {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %82, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        " %8, %9, %10, %11, %12, %13, %14, %15, "
+        " %16, %17, %18, %19, %20, %21, %22, %23, "
+        " %24, %25, %26, %27, %28, %29, %30, %31, "
+        " %32, %33, %34, %35, %36, %37, %38, %39, "
+        " %40, %41, %42, %43, %44, %45, %46, %47, "
+        " %48, %49, %50, %51, %52, %53, %54, %55, "
+        " %56, %57, %58, %59, %60, %61, %62, %63, "
+        " %64, %65, %66, %67, %68, %69, %70, %71, "
+        " %72, %73, %74, %75, %76, %77, %78, %79}, "
+        "%80, %81, p, 1, 1, 0, 1;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+          "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+          "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+          "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
+        : "l"(da), "l"(db), "r"(1));
+  }
+}
+
+template <typename T, int BN>
+G90_DEV void wgmma_tile(float (&d)[BN / 2], uint64_t da, uint64_t db) {
+  static_assert(BN == 128 || BN == 160, "tile width");
+  if constexpr (BN == 128) wgmma_m64n128k16<T>(d, da, db);
+  else wgmma_m64n160k16<T>(d, da, db);
+}
+
+// ---- the pipeline ---------------------------------------------------------
+// Barriers of stage s: full0 + 8 s and empty0 + 8 s (shared-memory addresses).
+// `full` counts the threads that hand a stage over, `empty` those that
+// release it.
+template <int STAGES>
+G90_DEV void init_barriers(uint32_t full0, uint32_t empty0, int full_count, int empty_count) {
+#pragma unroll
+  for (int s = 0; s < STAGES; ++s) {
+    mbar_init(full0 + 8 * s, full_count);
+    mbar_init(empty0 + 8 * s, empty_count);
+  }
+}
+
+// The loading threads' sweep over `nkt` k-tiles. start(it, s) starts the
+// cp.async copies of k-tile `it` into stage s as soon as the stage is free;
+// the hardware arrives on the stage's `full` barrier for this thread when its
+// copies have landed (cp.async.mbarrier.arrive.noinc), so handing a tile over
+// never waits for the loader to get a later tile started, and up to STAGES
+// tiles of copies are in flight. No proxy fence stands between a landed
+// cp.async and the wgmma that reads it: the mbarrier orders them. Every
+// loading thread calls it.
+template <int STAGES, typename Start>
+G90_DEV void produce(int nkt, uint32_t full0, uint32_t empty0, Start start) {
+  for (int it = 0; it < nkt; ++it) {
+    const int s = it % STAGES;
+    mbar_wait(empty0 + 8 * s, ((it / STAGES) & 1) ^ 1);
+    start(it, s);
+    cp_async_arrive(full0 + 8 * s);
+  }
+  cp_async_wait_all();  // nothing of this thread is in flight when it leaves
+}
+
+// One consumer warpgroup's sweep: acc += A tile x B tile over `nkt` k-tiles.
+// The A tile of k-tile i lies at a0 + (i % STAGES) * a_stride and is handed
+// over and released through full0 / empty0. BSTAGES == 0: its B tile lies in
+// the same stage, at b0 + (i % STAGES) * b_stride. BSTAGES > 0 (kernel 5):
+// the converted B tiles have a ring of their own, b0 + (i % BSTAGES) *
+// b_stride, with barriers bfull0 / bempty0. ROWSUM: rs += A tile x ones (an
+// n8 wgmma on a 16 x 8 tile of ones at `ones`), so rs[0] / rs[2] end as the
+// row sums of A for the thread's two rows.
+template <typename T, int BN, int SWZ, int STAGES, int BSTAGES, bool ROWSUM>
+G90_DEV void consume(float (&acc)[BN / 2], float (&rs)[4], int nkt, uint32_t a0, uint32_t a_stride, uint32_t b0,
+                     uint32_t b_stride, uint32_t ones, uint32_t full0, uint32_t empty0, uint32_t bfull0,
+                     uint32_t bempty0) {
+  constexpr int kBRing = BSTAGES > 0 ? BSTAGES : STAGES;
+  const uint64_t ones_desc = make_desc(ones, 128, 256, 0);
+  fence_regs(acc);
+  fence_regs(rs);
+  for (int it = 0; it < nkt; ++it) {
+    const int s = it % STAGES, sb = it % kBRing;
+    mbar_wait(full0 + 8 * s, (it / STAGES) & 1);
+    if constexpr (BSTAGES > 0) mbar_wait(bfull0 + 8 * sb, (it / BSTAGES) & 1);
+    const uint32_t a = a0 + s * a_stride, b = b0 + sb * b_stride;
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < kBK / 16; ++ks) {
+      wgmma_tile<T, BN>(acc, a_desc(a, ks), BTile<SWZ>::desc(b, ks));
+      if constexpr (ROWSUM) wgmma_m64n8k16<T>(rs, a_desc(a, ks), ones_desc);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();  // the previous tile's group has retired: its stages are free
+    if (it > 0) {
+      mbar_arrive(empty0 + 8 * ((it - 1) % STAGES));
+      if constexpr (BSTAGES > 0) mbar_arrive(bempty0 + 8 * ((it - 1) % BSTAGES));
+    }
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+  fence_regs(rs);
+}
+
+// cp.async copies of the A tile of CWG consumer warpgroups (64 CWG rows x 64
+// k) by thread t of the loading warpgroup: rows m0.., columns k0.., zero past
+// M and K
+template <typename T, int CWG>
+G90_DEV void load_a_tile(uint32_t dst, const T* a, int m0, int k0, int M, int K, int t) {
+#pragma unroll
+  for (int i = 0; i < 64 * CWG * 8 / kWG; ++i) {
+    const int r = t / 8 + (kWG / 8) * i, c = t % 8;
+    const int m = m0 + r, k = k0 + 8 * c;
+    const bool ok = m < M && k < K;
+    cp_async16(dst + a_offset(r, c), ok ? a + static_cast<size_t>(m) * K + k : a, ok);
+  }
+}
+
+// cp.async copies of a 64 x BN tile of `B` (K, N), ELT bytes per element, by
+// thread t of the loading warpgroup, zero past K and N. ELT = 2: into the
+// swizzled MN-major B tile. ELT = 1: into a plain 64 x BN byte tile, piece i
+// at 16 i (thread t copies the pieces i = t + 128 j).
+template <int ELT, int BN, int SWZ>
+G90_DEV void load_b_tile(uint32_t dst, const void* b, int k0, int n0, int K, int N, int t) {
+  constexpr int kCols = 16 / ELT;  // columns per 16-byte piece
+  constexpr int kPerRow = BN / kCols;
+  static_assert(kBK * kPerRow % kWG == 0, "16-byte pieces divide over the warpgroup");
+#pragma unroll
+  for (int j = 0; j < kBK * kPerRow / kWG; ++j) {
+    const int i = t + kWG * j;
+    const int r = i / kPerRow, n = kCols * (i % kPerRow);
+    const bool ok = k0 + r < K && n0 + n < N;
+    const char* src = static_cast<const char*>(b);
+    if (ok) src += (static_cast<size_t>(k0 + r) * N + n0 + n) * ELT;
+    cp_async16(dst + (ELT == 2 ? BTile<SWZ>::offset(r, n) : 16u * i), src, ok);
+  }
+}
+
+// ---- the epilogue ---------------------------------------------------------
+// A consumer warpgroup's 64 x BN output tile goes through shared memory so
+// that it leaves as whole 16-byte pieces of a row (a thread's own accumulator
+// pairs would leave as 4-byte stores, 8 rows a warp instruction). Rows are
+// 16 bytes longer than the tile so that the pair stores of a warp (8 rows x 4
+// pairs) hit 32 banks.
+template <int BN, int ELT>  // ELT: bytes per output element
+struct OutTile {
+  static constexpr int kPitch = BN * ELT + 16;
+  static constexpr int kBytes = 64 * kPitch;
+  G90_DEV static uint32_t at(uint32_t tile, int r, int c) { return tile + r * kPitch + c * ELT; }
+  // the tile's rows m0.., columns n0.. to `out` (M, N) row-major, by thread t
+  // of the warpgroup; N a multiple of 16 / ELT, out 16-byte aligned
+  G90_DEV static void flush(uint32_t tile, void* out, int m0, int n0, int M, int N, int t) {
+    constexpr int kPerRow = BN * ELT / 16;
+#pragma unroll
+    for (int j = 0; j < 64 * kPerRow / kWG; ++j) {
+      const int i = t + kWG * j;
+      const int r = i / kPerRow, c = (i % kPerRow) * (16 / ELT);
+      if (m0 + r < M && n0 + c < N)
+        *reinterpret_cast<uint4*>(static_cast<char*>(out) + (static_cast<size_t>(m0 + r) * N + n0 + c) * ELT) =
+            ld_shared16(at(tile, r, c));
+    }
+  }
+};
+// barrier `id` (1 .. 15) over `threads` threads: the consumer warpgroups among
+// themselves, without the producers
+G90_DEV void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// the first address at or above `addr` that is a multiple of 1024 (the swizzle
+// patterns repeat every 1024 bytes of shared-memory address)
+G90_DEV uint32_t align1024(uint32_t addr) { return (addr + 1023u) & ~1023u; }
+
+}  // namespace gemm90

@@ -12,17 +12,32 @@
 //
 // What bounds it on an H100, and what the design does about it: at the UNet's
 // sites (M = 64 .. 1024 pixels, N = 640 / 1280) the product is bound by the
-// bytes of B at M = 64 (a GEMV-like sweep of a 59 MB weight) and by bf16
-// tensor-core throughput at M = 1024 (2 M N K operations at 989 TFLOP/s). The
-// 16-bit kernel uses mma.sync.m16n8k16 on 64 x 128 tiles, 8 warps as 2 x 4,
-// the next k-tile prefetched into registers while the current one is
-// multiplied. B is N-contiguous, so each tile is transposed to [n][k] while it
-// is staged (a thread takes two rows of four columns and writes four (k, k+1)
-// pairs); shared rows are padded so that fragment loads are free of bank
-// conflicts. float32 operands run on the CUDA cores in full float32 (no TF32).
-// M = 64 gives one row of 64 x 128 tiles: N / 128 = 10 blocks for 132 SMs. A
-// K split, wgmma and TMA are later work. Ragged M, N and K edges are masked in
-// the kernels; nothing is padded in device memory.
+// bytes of B at M = 64 (a GEMV-like sweep of a 59 MB weight: 17.6 us at 3.35
+// TB/s) and sits near the ridge at M = 1024 (2 M N K operations at 989
+// TFLOP/s against 19 MB). Two things decide its time: how many SMs pull on
+// memory at once, and how many bytes each keeps in flight.
+//
+//  * mm_wgmma_kernel (16-bit operands whose rows are 16-byte granular: K and
+//    N multiples of 8, A and B 16-byte aligned) is the pipeline of
+//    gemm_sm90.cuh: a loading warpgroup keeps a ring of 6 swizzled stages
+//    full of cp.async loads (144-192 KB in flight an SM), one or two consumer
+//    warpgroups run wgmma m64n128k16 on 64 or 128 x 128 output tiles. B lands
+//    MN-major as it lies in device memory and is read through wgmma's
+//    transpose bit: no transposing store.
+//  * Split K. The grid is (M tiles, N tiles, splits), the split chosen by the
+//    caller from the shape alone (kernels/matmul.py matmul_plan: M = 64, N =
+//    1280 gives 10 tiles x 13 splits for 132 SMs). With splits > 1 every
+//    block writes its float32 partial tile to a workspace and
+//    mm_splitk_reduce adds the partials in split order, then the bias, then
+//    rounds once: the same bits on every run, no float atomics.
+//  * Every other shape (ragged K or N, unaligned views) takes mm_mma_kernel:
+//    mma.sync.m16n8k16 on 64 x 128 tiles, 8 warps as 2 x 4, one k-tile
+//    prefetched into registers, B transposed to [n][k] while it is staged,
+//    all edges masked. float32 operands run on the CUDA cores in full float32
+//    (no TF32). The choice is a function of dtype, shape and alignment only
+//    (use_wgmma below, mirrored by matmul_variant in kernels/matmul.py).
+//
+// Nothing is padded in device memory.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -30,6 +45,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "gemm_sm90.cuh"
 
 namespace {
 
@@ -319,6 +336,133 @@ bool aligned(const void* ptr, unsigned long long bytes) {
   return reinterpret_cast<unsigned long long>(ptr) % bytes == 0;
 }
 
+// ---------------------------------------------------------------------------
+// wgmma pipeline (gemm_sm90.cuh): 64 CWG x 128 output tiles, split K
+// ---------------------------------------------------------------------------
+
+template <int CWG>
+struct WgCfg {
+  static constexpr int kBN = 128, kSwz = 128;
+  static constexpr int kStages = 6;
+  static constexpr int kABytes = CWG * gemm90::kATileBytes;
+  static constexpr int kStageBytes = kABytes + gemm90::kBK * kBN * 2;
+  // stages, 2 x kStages barriers, and the slack to reach a 1024-byte boundary
+  static constexpr int kSmemBytes = kStages * kStageBytes + 16 * kStages + 1024;
+  static constexpr int kThreadsWg = (CWG + 1) * gemm90::kWG;
+};
+
+// two neighbouring columns of one output row: + bias in float32, one rounding
+__device__ __forceinline__ void epilogue2(const MMParams& p, int m, int n, float v0, float v1) {
+  if (p.bias != nullptr) {
+    v0 += load_any(p.bias, p.bias_dtype, n);
+    v1 += load_any(p.bias, p.bias_dtype, n + 1);
+  }
+  const size_t i = static_cast<size_t>(m) * p.N + n;
+  if (p.out_dtype == 0) *reinterpret_cast<float2*>(static_cast<float*>(p.out) + i) = make_float2(v0, v1);
+  else if (p.out_dtype == 1) *reinterpret_cast<__half2*>(static_cast<__half*>(p.out) + i) = __floats2half2_rn(v0, v1);
+  else *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(p.out) + i) = __floats2bfloat162_rn(v0, v1);
+}
+
+// blockIdx = (M tile, N tile, K split). ws: (splits, M, N) float32 partials
+// when gridDim.z > 1. kt_per_split k-tiles per split; the last may be short.
+template <typename T, int CWG>
+__global__ void __launch_bounds__(WgCfg<CWG>::kThreadsWg, 1)
+    mm_wgmma_kernel(const MMParams p, float* __restrict__ ws, int kt_per_split) {
+  using namespace gemm90;
+  using C = WgCfg<CWG>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t stage0 = align1024(smem_u32(smem_raw));
+  const uint32_t full0 = stage0 + C::kStages * C::kStageBytes, empty0 = full0 + 8 * C::kStages;
+
+  const int tid = threadIdx.x, wg = tid / kWG, t = tid % kWG;
+  if (tid == 0) {
+    init_barriers<C::kStages>(full0, empty0, kWG, CWG * kWG);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int M = p.M, K = p.K, N = p.N;
+  const int m0 = blockIdx.x * 64 * CWG, n0 = blockIdx.y * C::kBN;
+  const int kt0 = blockIdx.z * kt_per_split;
+  const int nkt = min(kt_per_split, (K + kBK - 1) / kBK - kt0);
+
+  if (wg == CWG) {
+    const T* a = static_cast<const T*>(p.a);
+    produce<C::kStages>(
+        nkt, full0, empty0,
+        [&](int it, int s) {
+          const uint32_t sb = stage0 + s * C::kStageBytes;
+          const int k0 = (kt0 + it) * kBK;
+          load_a_tile<T, CWG>(sb, a, m0, k0, M, K, t);
+          load_b_tile<2, C::kBN, C::kSwz>(sb + C::kABytes, p.b, k0, n0, K, N, t);
+        });
+    return;
+  }
+
+  float acc[C::kBN / 2], rs[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < C::kBN / 2; ++i) acc[i] = 0.f;
+  consume<T, C::kBN, C::kSwz, C::kStages, 0, false>(acc, rs, nkt, stage0 + wg * kATileBytes, C::kStageBytes,
+                                                    stage0 + C::kABytes, C::kStageBytes, 0u, full0, empty0, 0u, 0u);
+
+  const int row = m0 + wg * 64 + (t / 32) * 16 + (t % 32) / 4;
+  const int col = n0 + 2 * (t % 4);
+  float* part = ws + static_cast<size_t>(blockIdx.z) * M * N;
+#pragma unroll
+  for (int j = 0; j < C::kBN / 8; ++j) {
+    const int n = col + 8 * j;
+    if (n >= N) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = row + 8 * h;
+      if (m >= M) continue;
+      if (gridDim.z == 1) epilogue2(p, m, n, acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      else *reinterpret_cast<float2*>(part + static_cast<size_t>(m) * N + n) = make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+    }
+  }
+}
+
+// out = round(sum over splits, in split order, of ws + bias); a thread takes
+// four neighbouring columns (N % 4 == 0)
+__global__ void __launch_bounds__(kThreads) mm_splitk_reduce(const MMParams p, const float* __restrict__ ws, int splits) {
+  const size_t quads = static_cast<size_t>(p.M) * p.N / 4;
+  const size_t i = static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i >= quads) return;
+  const float4* w4 = reinterpret_cast<const float4*>(ws);
+  float4 s = w4[i];
+  for (int z = 1; z < splits; ++z) {
+    const float4 v = w4[z * quads + i];
+    s.x += v.x, s.y += v.y, s.z += v.z, s.w += v.w;
+  }
+  const int m = static_cast<int>(i * 4 / p.N), n = static_cast<int>(i * 4 % p.N);
+  epilogue2(p, m, n, s.x, s.y);
+  epilogue2(p, m, n + 2, s.z, s.w);
+}
+
+template <typename T, int CWG>
+cudaError_t launch_wgmma(const MMParams& p, int splits, float* ws, cudaStream_t stream) {
+  using C = WgCfg<CWG>;
+  static cudaError_t attr = cudaFuncSetAttribute(mm_wgmma_kernel<T, CWG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 C::kSmemBytes);
+  if (attr != cudaSuccess) return attr;
+  const int nkt = (p.K + gemm90::kBK - 1) / gemm90::kBK;
+  const int per = (nkt + splits - 1) / splits;
+  if (splits < 1 || (splits - 1) * per >= nkt || (splits > 1 && ws == nullptr)) return cudaErrorInvalidValue;
+  const dim3 grid((p.M + 64 * CWG - 1) / (64 * CWG), (p.N + C::kBN - 1) / C::kBN, splits);
+  mm_wgmma_kernel<T, CWG><<<grid, C::kThreadsWg, C::kSmemBytes, stream>>>(p, ws, per);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  const size_t quads = static_cast<size_t>(p.M) * p.N / 4;
+  mm_splitk_reduce<<<static_cast<unsigned>((quads + kThreads - 1) / kThreads), kThreads, 0, stream>>>(p, ws, splits);
+  return cudaGetLastError();
+}
+
+// the wgmma pipeline takes 16-bit operands whose rows are whole 16-byte
+// pieces; mirrored by matmul_variant in kernels/matmul.py
+bool use_wgmma(int dtype, const MMParams& p) {
+  return dtype != 0 && p.K % 8 == 0 && p.N % 8 == 0 && aligned(p.a, 16) && aligned(p.b, 16);
+}
+
 template <typename T, bool AVEC, bool BVEC>
 cudaError_t launch_mma(const MMParams& p, cudaStream_t stream) {
   const dim3 grid((p.M + kBM - 1) / kBM, (p.N + kBN - 1) / kBN);
@@ -352,14 +496,28 @@ cudaError_t dispatch(const MMParams& p, cudaStream_t stream) {
 
 // dtype of A and B, bias_dtype and out_dtype: 0 = float32, 1 = float16,
 // 2 = bfloat16. A is (M, K) and B (K, N), both row-major and contiguous; bias
-// (N,) or null; out (M, N). Returns a cudaError_t: 0 when the launch was
+// (N,) or null; out (M, N). bm (64 or 128 rows per tile) and splits (K split)
+// are the caller's plan for the wgmma pipeline, workspace its (splits, M, N)
+// float32 scratch (null when splits == 1); shapes that take the masked
+// kernels ignore all three. Returns a cudaError_t: 0 when the launches were
 // accepted.
 extern "C" int ostt_matmul(int dtype, const void* a, const void* b, const void* bias, int bias_dtype,
-                           void* out, int out_dtype, int M, int K, int N, void* stream) {
+                           void* out, int out_dtype, int M, int K, int N, int bm, int splits,
+                           void* workspace, void* stream) {
   if (M <= 0 || K <= 0 || N <= 0 || bias_dtype < 0 || bias_dtype > 2 || out_dtype < 0 || out_dtype > 2)
     return static_cast<int>(cudaErrorInvalidValue);
   const MMParams p{a, b, bias, bias_dtype, out, out_dtype, M, K, N};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (use_wgmma(dtype, p)) {
+    if (bm != 64 && bm != 128) return static_cast<int>(cudaErrorInvalidValue);
+    float* ws = static_cast<float*>(workspace);
+    if (dtype == 1)
+      return static_cast<int>(bm == 64 ? launch_wgmma<__half, 1>(p, splits, ws, st) : launch_wgmma<__half, 2>(p, splits, ws, st));
+    if (dtype == 2)
+      return static_cast<int>(bm == 64 ? launch_wgmma<__nv_bfloat16, 1>(p, splits, ws, st)
+                                       : launch_wgmma<__nv_bfloat16, 2>(p, splits, ws, st));
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   switch (dtype) {
     case 0: return static_cast<int>(dispatch<float>(p, st));
     case 1: return static_cast<int>(dispatch<__half>(p, st));

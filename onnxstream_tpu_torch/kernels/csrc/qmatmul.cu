@@ -30,16 +30,37 @@
 //    rows of A whole for the row scales; at M = 1 that is a few KB from L2.
 //    Four rows of a lane's four columns are transposed in registers
 //    (byte_perm) so that one dp4a does four multiply-adds.
-//  * Larger M is a product bound by int8 (bf16) tensor-core throughput: 2 M N K
-//    operations at 1979 TOP/s (989 TFLOP/s). The tiled kernels use
-//    mma.sync (m16n8k32 s8, m16n8k16 bf16 / fp16) on 64 x 128 tiles with the
-//    next tile prefetched into registers while the current one is multiplied.
-//    The weight is N-contiguous and ldmatrix cannot transpose 8-bit elements,
-//    so each tile is transposed while it is staged: 4 x 4 byte blocks in
-//    registers for s8, pairs of rows for the u8 -> bf16 conversion. Shared
-//    rows are padded so that fragment loads are free of bank conflicts.
-//    Without wgmma, TMA and a deeper pipeline these reach a fraction of the
-//    peak; that is later work.
+//  * Larger M of w8a8_dyn_matmul is a product bound by int8 tensor-core
+//    throughput (2 M N K operations at 1979 TOP/s): mma.sync.m16n8k32 on
+//    64 x 128 tiles with the next tile prefetched into registers. The weight
+//    is N-contiguous and ldmatrix cannot transpose 8-bit elements, so each
+//    tile is transposed in 4 x 4 byte blocks while it is staged.
+//  * w8_matmul with 16-bit A is bound by bf16 tensor-core throughput at the
+//    UNet's sites (2 M N K operations at 989 TFLOP/s; the weight is 1 byte
+//    per value), by how often a weight tile is converted, and, at its 130
+//    short calls a step (K = 320 .. 1280: 5 to 20 k-tiles), by the latency
+//    of one k-tile's way through the block. w8_wgmma_kernel is the pipeline
+//    of gemm_sm90.cuh with three roles: a loading warpgroup keeps a ring of
+//    six stages (A tile + the uint8 tile as it lies) full of cp.async
+//    copies; a converting warpgroup turns each landed uint8 tile into A's
+//    dtype without an int-to-float conversion (bf16: a byte permute into
+//    0x4B0000xx = 8388608 + x, one subtraction, a packed cvt; fp16: 0x64xx =
+//    1024 + x, one packed subtraction) and writes it straight into a
+//    swizzled MN-major B tile of a ring of three, then fences it for the async
+//    proxy; one or two consumer warpgroups run wgmma m64n160k16 on 64 or
+//    128 x 160 output tiles (160 divides N = 320, 640, 1280, 2560; a
+//    converted tile serves 128 rows). rowsum(A) is one more n8 wgmma against
+//    a tile of ones. The output tile leaves through shared memory as whole
+//    16-byte pieces of a row, the scales and zero points of its columns
+//    staged once. Where the tiles alone leave SMs idle the caller splits K
+//    (kernels/qmatmul.py w8_plan): float32 partial sums and partial row sums
+//    go to a workspace and w8_splitk_reduce adds them in split order before
+//    the one epilogue: the same bits on every run. It takes K a multiple of
+//    8, N a multiple of 16 and 16-byte aligned operands; every other shape
+//    takes w8_mma_kernel (mma.sync on 64 x 128 tiles, edges masked), float32
+//    A the full-float32 FMA kernel. The choice is a function of dtype, shape
+//    and alignment only (w8_use_wgmma, mirrored by w8_variant in
+//    kernels/qmatmul.py).
 //  * A weight row with an odd length (the LM head, N = 32003) is not 4-byte
 //    aligned: the dispatcher picks a variant that loads weight bytes one by one
 //    from the shape and the pointer. Ragged M, N and K edges are masked in the
@@ -51,6 +72,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "gemm_sm90.cuh"
 
 namespace {
 
@@ -696,6 +719,195 @@ __global__ void __launch_bounds__(kThreads) w8_mma_kernel(const W8Params p) {
       }
 }
 
+// ---- kernel 5 on the wgmma pipeline (gemm_sm90.cuh) -----------------------
+
+template <int CWG>
+struct W8Cfg {
+  static constexpr int kBN = 160, kSwz = 64;
+  static constexpr int kStages = 6;                           // landing ring: A tile + raw uint8 tile
+  static constexpr int kBStages = 3;                          // ring of converted B tiles
+  static constexpr int kABytes = CWG * gemm90::kATileBytes;
+  static constexpr int kRawBytes = gemm90::kBK * kBN;         // the uint8 tile as it lies
+  static constexpr int kBBytes = gemm90::kBK * kBN * 2;       // converted, swizzled MN-major
+  static constexpr int kStageBytes = kABytes + kRawBytes;
+  static constexpr int kOnesBytes = 512;
+  static constexpr int kScaleBytes = 2 * kBN * 4;             // the tile's scales and zero points
+  // both rings, the tile of ones, the scales, the barriers of both rings, slack to reach a 1024-byte boundary
+  static constexpr int kSmemBytes =
+      kStages * kStageBytes + kBStages * kBBytes + kOnesBytes + kScaleBytes + 16 * (kStages + kBStages) + 1024;
+  static_assert(CWG * gemm90::OutTile<kBN, 2>::kBytes <= kStages * kStageBytes, "the output tiles reuse the landing ring");
+  static constexpr int kThreadsWg = (CWG + 2) * gemm90::kWG;  // consumers, loaders, converters
+  static_assert(kStageBytes % 1024 == 0 && kABytes % 1024 == 0 && kBBytes % 1024 == 0, "swizzle alignment");
+  static_assert(kSmemBytes <= 232448, "shared memory of a block");
+};
+
+// four bytes -> four 16-bit values as two words, byte 0 lowest (exact)
+__device__ __forceinline__ void cvt4_u8(uint32_t w, uint32_t& lo, uint32_t& hi, __nv_bfloat16) {
+  const float f0 = __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7540)) - 8388608.f;
+  const float f1 = __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7541)) - 8388608.f;
+  const float f2 = __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7542)) - 8388608.f;
+  const float f3 = __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7543)) - 8388608.f;
+  __nv_bfloat162 a = __floats2bfloat162_rn(f0, f1), b = __floats2bfloat162_rn(f2, f3);
+  lo = *reinterpret_cast<uint32_t*>(&a);
+  hi = *reinterpret_cast<uint32_t*>(&b);
+}
+__device__ __forceinline__ void cvt4_u8(uint32_t w, uint32_t& lo, uint32_t& hi, __half) {
+  const uint32_t bias = 0x64006400u;  // (1024, 1024)
+  uint32_t a = __byte_perm(w, bias, 0x7150), b = __byte_perm(w, bias, 0x7352);
+  __half2 ha = __hsub2(*reinterpret_cast<__half2*>(&a), *reinterpret_cast<const __half2*>(&bias));
+  __half2 hb = __hsub2(*reinterpret_cast<__half2*>(&b), *reinterpret_cast<const __half2*>(&bias));
+  lo = *reinterpret_cast<uint32_t*>(&ha);
+  hi = *reinterpret_cast<uint32_t*>(&hb);
+}
+
+// blockIdx = (M tile, N tile, K split). With gridDim.z > 1 the float32
+// partials go to ws (splits, M, N) and the partial row sums to wsr (splits,
+// M); w8_splitk_reduce finishes. kt_per_split k-tiles per split. Warpgroups
+// 0 .. CWG - 1 consume, the next one loads, the last one converts.
+template <typename T, int CWG>
+__global__ void __launch_bounds__(W8Cfg<CWG>::kThreadsWg, 1)
+    w8_wgmma_kernel(const W8Params p, float* __restrict__ ws, float* __restrict__ wsr, int kt_per_split) {
+  using namespace gemm90;
+  using C = W8Cfg<CWG>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t stage0 = align1024(smem_u32(smem_raw));
+  const uint32_t bt0 = stage0 + C::kStages * C::kStageBytes;
+  const uint32_t ones = bt0 + C::kBStages * C::kBBytes;
+  const uint32_t scales = ones + C::kOnesBytes;
+  // landing ring: `landed` by the loaders, `empty` by consumers and converters;
+  // converted ring: `bfull` by the converters, `bempty` by the consumers
+  const uint32_t landed0 = scales + C::kScaleBytes, empty0 = landed0 + 8 * C::kStages;
+  const uint32_t bfull0 = empty0 + 8 * C::kStages, bempty0 = bfull0 + 8 * C::kBStages;
+
+  const int tid = threadIdx.x, wg = tid / kWG, t = tid % kWG;
+  if (tid == 0) {
+    init_barriers<C::kStages>(landed0, empty0, kWG, (CWG + 1) * kWG);
+    init_barriers<C::kBStages>(bfull0, bempty0, kWG, CWG * kWG);
+    mbar_init_fence();
+  }
+  if (tid < C::kBN) {  // this tile's (scale, zero point) pairs, read by the epilogue
+    const int n = min(static_cast<int>(blockIdx.y) * C::kBN + tid, p.N - 1);
+    st_shared4(scales + 8 * tid, __float_as_uint(col_scale(p.sw, p.sw_scalar, n)));
+    st_shared4(scales + 8 * tid + 4, __float_as_uint(col_scale(p.zw, p.zw_scalar, n)));
+  }
+  if (tid < C::kOnesBytes / 16) {
+    const T one = from_f32<T>(1.f);
+    const uint32_t w = static_cast<uint32_t>(*reinterpret_cast<const uint16_t*>(&one)) * 0x10001u;
+    st_shared16(ones + 16 * tid, make_uint4(w, w, w, w));
+    fence_proxy_async();
+  }
+  __syncthreads();
+
+  const int M = p.M, K = p.K, N = p.N;
+  const int m0 = blockIdx.x * 64 * CWG, n0 = blockIdx.y * C::kBN;
+  const int kt0 = blockIdx.z * kt_per_split;
+  const int nkt = min(kt_per_split, (K + kBK - 1) / kBK - kt0);
+
+  if (wg == CWG) {  // loaders
+    const T* a = static_cast<const T*>(p.a);
+    produce<C::kStages>(nkt, landed0, empty0, [&](int it, int s) {
+      const uint32_t sb = stage0 + s * C::kStageBytes;
+      const int k0 = (kt0 + it) * kBK;
+      load_a_tile<T, CWG>(sb, a, m0, k0, M, K, t);
+      load_b_tile<1, C::kBN, C::kSwz>(sb + C::kABytes, p.w, k0, n0, K, N, t);
+    });
+    return;
+  }
+  if (wg == CWG + 1) {  // converters: the raw tile of stage s -> the B tile of slot it % kBStages
+    constexpr int kPerRow = C::kBN / 16;
+    static_assert(kBK * kPerRow % kWG == 0, "16-byte pieces divide over the warpgroup");
+    for (int it = 0; it < nkt; ++it) {
+      const int s = it % C::kStages, sb = it % C::kBStages;
+      mbar_wait(landed0 + 8 * s, (it / C::kStages) & 1);
+      mbar_wait(bempty0 + 8 * sb, ((it / C::kBStages) & 1) ^ 1);
+      const uint32_t raw = stage0 + s * C::kStageBytes + C::kABytes, bt = bt0 + sb * C::kBBytes;
+#pragma unroll
+      for (int j = 0; j < kBK * kPerRow / kWG; ++j) {
+        const int i = t + kWG * j;  // piece i: 16 columns of k row i / kPerRow
+        const int r = i / kPerRow, n = 16 * (i % kPerRow);
+        const uint4 v = ld_shared16(raw + 16 * i);
+        uint4 lo, hi;
+        cvt4_u8(v.x, lo.x, lo.y, T());
+        cvt4_u8(v.y, lo.z, lo.w, T());
+        cvt4_u8(v.z, hi.x, hi.y, T());
+        cvt4_u8(v.w, hi.z, hi.w, T());
+        st_shared16(bt + BTile<C::kSwz>::offset(r, n), lo);
+        st_shared16(bt + BTile<C::kSwz>::offset(r, n + 8), hi);
+      }
+      fence_proxy_async();  // the stores above, for the wgmma that reads them
+      mbar_arrive(bfull0 + 8 * sb);
+      mbar_arrive(empty0 + 8 * s);
+    }
+    return;
+  }
+
+  float acc[C::kBN / 2], rs[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < C::kBN / 2; ++i) acc[i] = 0.f;
+  consume<T, C::kBN, C::kSwz, C::kStages, C::kBStages, true>(acc, rs, nkt, stage0 + wg * kATileBytes, C::kStageBytes,
+                                                             bt0, C::kBBytes, ones, landed0, empty0, bfull0, bempty0);
+
+  const int lrow = (t / 32) * 16 + (t % 32) / 4, lcol = 2 * (t % 4);  // within the warpgroup's tile
+  if (gridDim.z > 1) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + wg * 64 + lrow + 8 * h;
+      if (m >= M) continue;
+      if (blockIdx.y == 0 && t % 4 == 0) wsr[static_cast<size_t>(blockIdx.z) * M + m] = rs[2 * h];
+      float* part = ws + (static_cast<size_t>(blockIdx.z) * M + m) * N;
+#pragma unroll
+      for (int j = 0; j < C::kBN / 8; ++j) {
+        const int n = n0 + lcol + 8 * j;
+        if (n < N) *reinterpret_cast<float2*>(part + n) = make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      }
+    }
+    return;
+  }
+  // every consumer is past its last wgmma: the landing ring is free for the output tiles
+  using Out = OutTile<C::kBN, 2>;
+  named_barrier(1, CWG * kWG);
+  const uint32_t tile = stage0 + wg * Out::kBytes;
+#pragma unroll
+  for (int j = 0; j < C::kBN / 8; ++j) {
+    const int c = lcol + 8 * j;
+    float sw0, zw0, sw1, zw1;
+    asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+                 : "=f"(sw0), "=f"(zw0), "=f"(sw1), "=f"(zw1)
+                 : "r"(scales + 8 * c));
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      // sw * (acc - zw * rowsum) in the twin's order, no FMA contraction
+      const float v0 = __fmul_rn(__fsub_rn(acc[4 * j + 2 * h], __fmul_rn(zw0, rs[2 * h])), sw0);
+      const float v1 = __fmul_rn(__fsub_rn(acc[4 * j + 2 * h + 1], __fmul_rn(zw1, rs[2 * h])), sw1);
+      alignas(4) T pair[2] = {from_f32<T>(v0), from_f32<T>(v1)};
+      st_shared4(Out::at(tile, lrow + 8 * h, c), *reinterpret_cast<const uint32_t*>(pair));
+    }
+  }
+  named_barrier(2 + wg, kWG);
+  Out::flush(tile, p.out, m0 + wg * 64, n0, M, N, t);
+}
+
+// out = epilogue(sum of the partials, sum of the partial row sums), both in
+// split order; a thread takes two neighbouring columns (N % 2 == 0)
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    w8_splitk_reduce(const W8Params p, const float* __restrict__ ws, const float* __restrict__ wsr, int splits) {
+  const size_t pairs = static_cast<size_t>(p.M) * p.N / 2;
+  const size_t i = static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i >= pairs) return;
+  const int m = static_cast<int>(i * 2 / p.N), n = static_cast<int>(i * 2 % p.N);
+  const float2* w2 = reinterpret_cast<const float2*>(ws);
+  float2 s = w2[i];
+  float rs = wsr[m];
+  for (int z = 1; z < splits; ++z) {
+    const float2 v = w2[z * pairs + i];
+    s.x += v.x, s.y += v.y;
+    rs += wsr[static_cast<size_t>(z) * p.M + m];
+  }
+  alignas(4) T pair[2] = {from_f32<T>(w8_epilogue(p, s.x, rs, n)), from_f32<T>(w8_epilogue(p, s.y, rs, n + 1))};
+  *reinterpret_cast<uint32_t*>(static_cast<T*>(p.out) + i * 2) = *reinterpret_cast<const uint32_t*>(pair);
+}
+
 constexpr int kF32BM = 64, kF32BN = 64, kF32BK = 16;
 constexpr int kF32Pitch = kF32BM + 4;  // floats; 16-byte aligned rows
 
@@ -788,6 +1000,31 @@ cudaError_t launch_w8_fma(const W8Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+template <typename T, int CWG>
+cudaError_t launch_w8_wgmma(const W8Params& p, int splits, float* ws, cudaStream_t stream) {
+  using C = W8Cfg<CWG>;
+  static cudaError_t attr = cudaFuncSetAttribute(w8_wgmma_kernel<T, CWG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 C::kSmemBytes);
+  if (attr != cudaSuccess) return attr;
+  const int nkt = (p.K + gemm90::kBK - 1) / gemm90::kBK;
+  const int per = (nkt + splits - 1) / splits;
+  if (splits < 1 || (splits - 1) * per >= nkt || (splits > 1 && ws == nullptr)) return cudaErrorInvalidValue;
+  float* wsr = ws == nullptr ? nullptr : ws + static_cast<size_t>(splits) * p.M * p.N;
+  const dim3 grid((p.M + 64 * CWG - 1) / (64 * CWG), (p.N + C::kBN - 1) / C::kBN, splits);
+  w8_wgmma_kernel<T, CWG><<<grid, C::kThreadsWg, C::kSmemBytes, stream>>>(p, ws, wsr, per);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  const size_t pairs = static_cast<size_t>(p.M) * p.N / 2;
+  w8_splitk_reduce<T><<<static_cast<unsigned>((pairs + kThreads - 1) / kThreads), kThreads, 0, stream>>>(p, ws, wsr, splits);
+  return cudaGetLastError();
+}
+
+// the wgmma pipeline takes 16-bit A whose rows, and weight rows, are whole
+// 16-byte pieces; mirrored by w8_variant in kernels/qmatmul.py
+bool w8_use_wgmma(int dtype, const W8Params& p) {
+  return dtype != 0 && p.K % 8 == 0 && p.N % 16 == 0 && aligned(p.a, 16) && aligned(p.w, 16);
+}
+
 template <typename T>
 cudaError_t w8_dispatch(const W8Params& p, cudaStream_t stream) {
   const bool wvec = p.N % 4 == 0 && aligned(p.w, 4);
@@ -833,14 +1070,28 @@ extern "C" int ostt_w8a8_dyn_matmul(int dtype, const void* a, const void* w, con
 }
 
 // dtype as above; W (K, N) uint8; sw / zw: (N,) float32 or null (then the
-// scalars).
+// scalars). bm (64 or 128 rows per tile) and splits (K split) are the caller's
+// plan for the wgmma pipeline, workspace its float32 scratch of splits *
+// (M * N + M) values (null when splits == 1); shapes that take the masked
+// kernels ignore all three.
 extern "C" int ostt_w8_matmul(int dtype, const void* a, const void* w, const void* sw,
                               const void* zw, float sw_scalar, float zw_scalar, void* out, int M,
-                              int K, int N, void* stream) {
+                              int K, int N, int bm, int splits, void* workspace, void* stream) {
   if (M <= 0 || K <= 0 || N <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const W8Params p{a, static_cast<const uint8_t*>(w), static_cast<const float*>(sw),
                    static_cast<const float*>(zw), sw_scalar, zw_scalar, out, M, K, N};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (w8_use_wgmma(dtype, p)) {
+    if (bm != 64 && bm != 128) return static_cast<int>(cudaErrorInvalidValue);
+    float* ws = static_cast<float*>(workspace);
+    if (dtype == 1)
+      return static_cast<int>(bm == 64 ? launch_w8_wgmma<__half, 1>(p, splits, ws, st)
+                                       : launch_w8_wgmma<__half, 2>(p, splits, ws, st));
+    if (dtype == 2)
+      return static_cast<int>(bm == 64 ? launch_w8_wgmma<__nv_bfloat16, 1>(p, splits, ws, st)
+                                       : launch_w8_wgmma<__nv_bfloat16, 2>(p, splits, ws, st));
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   switch (dtype) {
     case 0: return static_cast<int>(w8_dispatch<float>(p, st));
     case 1: return static_cast<int>(w8_dispatch<__half>(p, st));

@@ -25,7 +25,11 @@
     uint8 (K, N) -> ``w_scale * (a @ w - w_zero * rowsum(a))``, the uint8
     weight converted in shared memory and never copied to a float tensor in
     device memory. MatMuls whose weight is 2-D uint8 (``--quantize-uint8``
-    graphs, forced asymmetric storage) run through it.
+    graphs, forced asymmetric storage) run through it. Which variant runs is
+    a function of dtype, shape and alignment only (``w8_variant``): 16-bit A
+    with 16-byte granular rows takes the ``wgmma`` pipeline shared with
+    ``kernels/matmul.py``, tiled and split along K by ``w8_plan``; the
+    split's partial sums meet in a workspace in a fixed order.
 
 Scales and zero points are Python numbers (per tensor) or (N,) float32
 tensors (per output channel), which live on the device beside the weight.
@@ -52,10 +56,12 @@ import numpy as np
 import torch
 
 from onnxstream_tpu_torch.kernels import build
+from onnxstream_tpu_torch.kernels.matmul import split_plan
 
 _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 GEMV_MAX_M = 16  # rows up to which w8a8_dyn_matmul runs as a GEMV (csrc kGemvMaxM)
 GEMV_COLS = 128  # columns per GEMV block (csrc kGemvCols)
+W8_TILE_N = 160  # output tile width of w8_matmul's wgmma pipeline (csrc W8Cfg::kBN)
 
 Scale = Union[float, torch.Tensor, np.ndarray]
 
@@ -69,8 +75,8 @@ _ARGTYPES = {
     "ostt_qgemm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P, _P],
     # dtype, a, w, ws, ws_scalar, out, workspace, M, K, N, stream
     "ostt_w8a8_dyn_matmul": [_I, _P, _P, _P, _F, _P, _P, _I, _I, _I, _P],
-    # dtype, a, w, sw, zw, sw_scalar, zw_scalar, out, M, K, N, stream
-    "ostt_w8_matmul": [_I, _P, _P, _P, _P, _F, _F, _P, _I, _I, _I, _P],
+    # dtype, a, w, sw, zw, sw_scalar, zw_scalar, out, M, K, N, bm, splits, workspace, stream
+    "ostt_w8_matmul": [_I, _P, _P, _P, _P, _F, _F, _P, _I, _I, _I, _I, _I, _P, _P],
 }
 
 
@@ -198,6 +204,27 @@ def w8a8_dyn_matmul(a: torch.Tensor, w_s8: torch.Tensor, w_scale: Scale,
     return out if out_dtype in (None, a.dtype) else out.to(out_dtype)
 
 
+def w8_plan(m: int, k: int, n: int) -> Tuple[int, int, int]:
+    """(bm, bn, splits): the output tile and the K split ``w8_matmul`` gives
+    the wgmma pipeline for this shape. The split's workspace is splits *
+    (M * N + M) float32 values (partial sums and partial row sums)."""
+    bm, splits = split_plan(m, k, n, W8_TILE_N)
+    return bm, W8_TILE_N, splits
+
+
+def w8_variant(dtype: torch.dtype, m: int, k: int, n: int, a_ptr: int = 0, w_ptr: int = 0) -> str:
+    """Which kernel of ``csrc/qmatmul.cu`` a weight-only product runs on, as
+    its dispatcher decides from dtype, shape and pointer alignment
+    (``w8_use_wgmma`` there): ``"wgmma"`` for 16-bit A with K a multiple of 8,
+    N a multiple of 16 and 16-byte aligned A and W, else ``"mma"`` (16-bit,
+    masked) or ``"fma"`` (float32)."""
+    if dtype == torch.float32:
+        return "fma"
+    if k % 8 == 0 and n % 16 == 0 and a_ptr % 16 == 0 and w_ptr % 16 == 0:
+        return "wgmma"
+    return "mma"
+
+
 def w8_matmul(a: torch.Tensor, w_q: torch.Tensor, w_scale: Scale, w_zero: Scale,
               out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """float (..., M, K) x uint8 (K, N) -> (..., M, N) = ``w_scale * (a @ w -
@@ -223,10 +250,16 @@ def w8_matmul(a: torch.Tensor, w_q: torch.Tensor, w_scale: Scale, w_zero: Scale,
         sw_ptr, sw_scalar = _ptr_or_scalar(sw)
         zw_ptr, zw_scalar = _ptr_or_scalar(zw)
         fn = _func("ostt_w8_matmul")
+        bm, splits, work = 64, 1, None
+        if w8_variant(a.dtype, m, k, n, a2.data_ptr(), w_q.data_ptr()) == "wgmma":
+            bm, _, splits = w8_plan(m, k, n)
+            if splits > 1:
+                work = torch.empty(splits * (m * n + m), dtype=torch.float32, device=a.device)
         with torch.cuda.device(a.device):
             stream = torch.cuda.current_stream(a.device).cuda_stream
             rc = fn(_DTYPE_CODE[a.dtype], a2.data_ptr(), w_q.data_ptr(), sw_ptr, zw_ptr, sw_scalar,
-                    zw_scalar, out.data_ptr(), m, k, n, stream)
+                    zw_scalar, out.data_ptr(), m, k, n, bm, splits,
+                    None if work is None else work.data_ptr(), stream)
         if rc != 0:
             raise RuntimeError(f"w8_matmul: kernel launch failed with CUDA error {rc}")
         w8_matmul.launches += 1

@@ -374,6 +374,23 @@ def _gn_silu_conv_op(ctx: Ctx, op, ins):
     return [gn_silu_conv(x, sg, sb, gamma, beta, w9, bias, groups=groups, eps=eps)]
 
 
+@register("ostpu.conv3x3_im2col")
+def _conv3x3_im2col_op(ctx: Ctx, op, ins):
+    """A small-spatial 3x3 Conv (s1 p1 g1) as im2col + the tiled matmul kernel
+    (kernels/matmul.py), produced by runtime/fusion.rewrite_smallconv under
+    use_pallas_smallconv; the weight arrives in the (9 C, O) upload transform
+    and the optional 3rd input is the bias. The CUDA kernel on the card, its
+    plain twin on the CPU; the planner's meta tensors get the output's shape."""
+    x = _tensor(ctx, ins[0])
+    b = ins[2] if len(ins) > 2 and ins[2] is not None else None
+    x, w = _align_binary(ctx, x, ins[1])
+    if x.device.type == "meta":
+        return [x.new_empty((x.shape[0], w.shape[1], x.shape[2], x.shape[3]))]
+    bb = None if b is None else _astype(ctx, b, x.dtype)
+    y = conv3x3_im2col(x.permute(0, 2, 3, 1), w, bb)
+    return [y.permute(0, 3, 1, 2)]
+
+
 # ---------------------------------------------------------------------------
 # matmul & convolution
 # ---------------------------------------------------------------------------
@@ -399,27 +416,6 @@ def _conv(ctx: Ctx, op, ins):
     dilations = list(op.attr_ints("dilations", [1, 1]))
     pt, pl, pb, pr = op.attr_ints("pads", [0, 0, 0, 0])
     x, w = _align_binary(ctx, x, w)
-    if (
-        group == 1
-        and ctx.mode == "device"
-        and x.device.type != "meta"
-        and _is_float(x)
-        and getattr(ctx.config, "use_pallas_smallconv", False)
-        and tuple(w.shape[2:]) == (3, 3)
-        and strides == [1, 1]
-        and dilations == [1, 1]
-        and (pt, pl, pb, pr) == (1, 1, 1, 1)
-        and x.shape[1] % 128 == 0
-        and w.shape[0] % 128 == 0
-        and x.shape[2] * x.shape[3] <= 1024
-        and (x.shape[0] * x.shape[2] * x.shape[3]) % 8 == 0
-    ):
-        # small-spatial 3x3 convs as im2col + the tiled matmul kernel
-        # (kernels/matmul.py); the planner's meta tensors take the plain
-        # convolution below, whose output has the same shape and dtype
-        bb = None if b is None else _astype(ctx, b, x.dtype)
-        y = conv3x3_im2col(x.permute(0, 2, 3, 1), w, bb)
-        return [y.permute(0, 3, 1, 2)]
     if (pt, pl) == (pb, pr):
         padding = (pt, pl)
     else:

@@ -28,6 +28,7 @@ import torch
 
 from onnxstream_tpu_torch.ir import Graph, OpNode, TensorSpec
 from onnxstream_tpu_torch.kernels.gn_conv import gn_conv_problem
+from onnxstream_tpu_torch.kernels.matmul import smallconv_eligible
 from onnxstream_tpu_torch.runtime.config import SessionConfig
 
 
@@ -409,6 +410,26 @@ def _replace_fused(graph: Graph, plans) -> Graph:
     return Graph(ops=new_ops)
 
 
+def _weight_uses(ops) -> Dict[str, int]:
+    """Weight-name use counts across all ops: a tied conv weight cannot be
+    relayouted for one consumer (WeightArgs are keyed by name)."""
+    wuse: Dict[str, int] = {}
+    for o in ops:
+        for t in o.inputs:
+            if t.is_weight:
+                wuse[t.name] = wuse.get(t.name, 0) + 1
+    return wuse
+
+
+def _relayout_ok(w_spec, wuse: Dict[str, int], config: SessionConfig) -> bool:
+    """Whether a conv weight may take an upload transform: a float weight from
+    the file with one consumer, not transformed already and not forced into
+    quantized storage (the quantizer wants the file layout)."""
+    return (w_spec.is_weight and w_spec.dtype.is_float and not w_spec.transform
+            and wuse.get(w_spec.name, 0) == 1
+            and w_spec.name not in getattr(config, "force_uint8_storage_set", ()))
+
+
 def fuse_gn_conv(graph: Graph, config: SessionConfig, weight_loader=None) -> Graph:
     """Absorb GroupNorm -> affine -> SiLU -> Conv3x3(s1 p1 g1) chains into one
     ``ostpu.gn_silu_conv`` op (kernels/gn_conv.py).
@@ -424,13 +445,7 @@ def fuse_gn_conv(graph: Graph, config: SessionConfig, weight_loader=None) -> Gra
     rw = _Rewriter(graph, config, weight_loader)
     ops = graph.ops
 
-    # weight-name use counts across all ops: a tied conv weight cannot be
-    # relayouted for one consumer (WeightArgs are keyed by name)
-    wuse: Dict[str, int] = {}
-    for o in ops:
-        for t in o.inputs:
-            if t.is_weight:
-                wuse[t.name] = wuse.get(t.name, 0) + 1
+    wuse = _weight_uses(ops)
 
     plans = []
     claimed = set()
@@ -461,13 +476,7 @@ def fuse_gn_conv(graph: Graph, config: SessionConfig, weight_loader=None) -> Gra
         if len(conv.inputs) < 2:
             continue
         w_spec = conv.inputs[1]
-        if not w_spec.is_weight or not w_spec.dtype.is_float or w_spec.transform:
-            continue
-        if tuple(w_spec.shape[1:]) != (c, 3, 3):
-            continue
-        if wuse.get(w_spec.name, 0) != 1:
-            continue
-        if w_spec.name in getattr(config, "force_uint8_storage_set", ()):
+        if not _relayout_ok(w_spec, wuse, config) or tuple(w_spec.shape[1:]) != (c, 3, 3):
             continue
         o_ch = w_spec.shape[0]
         b_spec = conv.inputs[2] if len(conv.inputs) > 2 else None
@@ -496,6 +505,45 @@ def fuse_gn_conv(graph: Graph, config: SessionConfig, weight_loader=None) -> Gra
             },
         )
         plans.append((removed, fused))
+    return _replace_fused(graph, plans)
+
+
+def rewrite_smallconv(graph: Graph, config: SessionConfig, weight_loader=None) -> Graph:
+    """Under ``use_pallas_smallconv``, turn every small-spatial 3x3 Conv
+    (``kernels/matmul.smallconv_eligible``, read from the graph's static
+    shapes) into one ``ostpu.conv3x3_im2col`` op whose weight is uploaded as
+    (9 C, O) through WeightArg.transform 't9co' (runtime/planner.py): the
+    relayout the im2col product needs happens once on the host at upload, not
+    as a permute and copy of the weight on every run. Tied weights, weights
+    forced into quantized storage, non-float and already transformed weights
+    stay plain Convs. Runs after fuse_gn_conv, which absorbs its convs first."""
+    if not getattr(config, "use_pallas_smallconv", False):
+        return graph
+    wuse = _weight_uses(graph.ops)
+    plans = []
+    for i, conv in enumerate(graph.ops):
+        if conv.op_type != "Conv" or len(conv.inputs) < 2:
+            continue
+        x_spec, w_spec = conv.inputs[0], conv.inputs[1]
+        if x_spec.is_weight or not _relayout_ok(w_spec, wuse, config):
+            continue
+        if not smallconv_eligible(x_spec.shape, w_spec.shape, conv.attr_int("group", 1),
+                                  conv.attr_ints("strides", [1, 1]), conv.attr_ints("dilations", [1, 1]),
+                                  conv.attr_ints("pads", [0, 0, 0, 0])):
+            continue
+        o_ch, c = w_spec.shape[:2]
+        b_spec = conv.inputs[2] if len(conv.inputs) > 2 and conv.inputs[2].name else None
+        if b_spec is not None and (not b_spec.is_weight or b_spec.nelem != o_ch):
+            continue
+        w_new = dataclasses.replace(w_spec, shape=(9 * c, o_ch), transform="t9co", file_shape=w_spec.shape)
+        rewritten = OpNode(
+            name=conv.name,
+            op_type="ostpu.conv3x3_im2col",
+            inputs=[x_spec, w_new] + ([b_spec] if b_spec is not None else []),
+            outputs=list(conv.outputs),
+            attrs={},
+        )
+        plans.append(([i], rewritten))
     return _replace_fused(graph, plans)
 
 

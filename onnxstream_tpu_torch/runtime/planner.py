@@ -29,6 +29,7 @@ import torch
 
 from onnxstream_tpu_torch.dtypes import DType, to_numpy, to_torch, torch_dtype
 from onnxstream_tpu_torch.ir import Graph, OpNode, TensorSpec
+from onnxstream_tpu_torch.kernels.matmul import oihw_to_w9co
 from onnxstream_tpu_torch.ops import Ctx, StaticRequired, get_impl
 from onnxstream_tpu_torch.runtime.config import SessionConfig
 
@@ -79,10 +80,17 @@ def _t9oc(a: torch.Tensor) -> torch.Tensor:
     return a.permute(2, 3, 0, 1).reshape(kh * kw, o, c).contiguous()
 
 
+def _t9co(a: torch.Tensor) -> torch.Tensor:
+    """(O, C, 3, 3) ONNX conv weight -> (9 C, O), rows tap-major: the B operand
+    of the im2col product (kernels/matmul.py conv3x3_im2col) as it lies. The
+    relayout happens once on the host at upload."""
+    return oihw_to_w9co(a)
+
+
 # name -> host relayout of a fetched weight (a CPU tensor in file layout);
 # the executor applies it between provider.get and the upload. The provider
 # keeps the file layout.
-WEIGHT_TRANSFORMS = {"t9oc": _t9oc}
+WEIGHT_TRANSFORMS = {"t9oc": _t9oc, "t9co": _t9co}
 
 
 @dataclasses.dataclass

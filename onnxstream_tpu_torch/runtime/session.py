@@ -23,7 +23,7 @@ from onnxstream_tpu_torch.dtypes import DType, dtype_name
 from onnxstream_tpu_torch.ir import Graph, parse_model_txt
 from onnxstream_tpu_torch.runtime.config import SessionConfig, default_device
 from onnxstream_tpu_torch.runtime.executor import Executor
-from onnxstream_tpu_torch.runtime.fusion import fuse_attention, fuse_gn_conv, fuse_groupnorm
+from onnxstream_tpu_torch.runtime.fusion import fuse_attention, fuse_gn_conv, fuse_groupnorm, rewrite_smallconv
 from onnxstream_tpu_torch.runtime.planner import ShapeDtype, plan_graph
 from onnxstream_tpu_torch.runtime.weights import WeightsProvider, make_provider
 
@@ -65,11 +65,12 @@ class Session:
 
     def _rebuild_graph(self) -> None:
         """Graph-level rewrites from the raw parse: attention fusion, then the
-        GroupNorm fusions. Re-run whenever options or extra outputs change:
+        GroupNorm fusions and the small-conv rewrite. Re-run whenever options or extra outputs change:
         the passes read the config."""
         self.graph = fuse_attention(self._raw_graph, self.config, self._loader)
         # the conv-absorbing fusion first: fuse_groupnorm takes what it leaves
         self.graph = fuse_gn_conv(self.graph, self.config, self._loader)
+        self.graph = rewrite_smallconv(self.graph, self.config, self._loader)
         self.graph = fuse_groupnorm(self.graph, self.config, self._loader)
         self._executors.clear()
 

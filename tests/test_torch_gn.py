@@ -199,7 +199,8 @@ def test_w9_transforms_match_jax():
     got = WEIGHT_TRANSFORMS["t9oc"](T(wt))
     assert got.is_contiguous() and tuple(got.shape) == (9, 24, 16)
     np.testing.assert_array_equal(got.numpy(), jax_planner.WEIGHT_TRANSFORMS["t9oc"](wt))
-    assert sorted(WEIGHT_TRANSFORMS) == sorted(jax_planner.WEIGHT_TRANSFORMS)
+    # the port adds upload forms of its own ("t9co", tests/test_torch_matmul.py)
+    assert set(jax_planner.WEIGHT_TRANSFORMS) <= set(WEIGHT_TRANSFORMS)
 
 
 # ------------------------------------------------------------------ the passes

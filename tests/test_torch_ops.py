@@ -116,6 +116,16 @@ def _cases():
         "ostpu.gn_silu_conv", {"x": xg},
         {**gn, "w9": _rand(9, 6, 8, seed=35) / math.sqrt(72), "bias": _rand(6, seed=36)}, [(2, 6, 4, 4)],
         {"groups": 2, "epsilon": 1e-5})
+    # the small-conv rewrite's op (runtime/fusion.rewrite_smallconv): the weight in its (9 C, O) upload
+    # form. The JAX package keeps such a conv a Conv op, so its side of the case is the plain Conv of
+    # the same OIHW weight.
+    wc, bc, xc = _rand(6, 8, 3, 3, seed=37) / math.sqrt(72), _rand(6, seed=38), _rand(2, 8, 4, 4, seed=39)
+    conv_attrs = {"dilations": "1,1", "group": 1, "kernel_shape": "3,3", "pads": "1,1,1,1", "strides": "1,1"}
+    jax_text, _, jax_weights = _case("Conv", {"x": xc}, {"w": wc, "bias": bc}, [(2, 6, 4, 4)], conv_attrs)
+    c["ostpu.conv3x3_im2col"] = (*_case(
+        "ostpu.conv3x3_im2col", {"x": xc},
+        {"w9co": np.ascontiguousarray(wc.transpose(2, 3, 1, 0).reshape(72, 6)), "bias": bc}, [(2, 6, 4, 4)]),
+        jax_text, jax_weights)
     return c
 
 
@@ -129,9 +139,10 @@ def test_cases_cover_exactly_the_ported_ops():
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("op_type", sorted(CASES))
 def test_op_matches_jax(op_type, dtype):
-    text, inputs, weights = CASES[op_type]
-    js =JaxSession(JaxConfig(compute_dtype=dtype), weights_provider=JaxDict(dict(weights)))
-    js.read_string(text)
+    text, inputs, weights, *jax_side = CASES[op_type]
+    jax_text, jax_weights = jax_side or (text, weights)  # an op only the port has names its JAX graph
+    js = JaxSession(JaxConfig(compute_dtype=dtype), weights_provider=JaxDict(dict(jax_weights)))
+    js.read_string(jax_text)
     ps = Session(SessionConfig(compute_dtype=dtype, device=torch.device("cpu")),
                  weights_provider=DictWeightsProvider(params_from_numpy(weights)))
     ps.read_string(text)

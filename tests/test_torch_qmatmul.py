@@ -5,7 +5,8 @@ tensors) are held against the JAX kernels run as the JAX tests run them on the
 CPU (``interpret=True``) and against ``w8a8_dyn_matmul_xla``, the form the JAX
 executor dispatches to; the quantization copies must give the JAX package's
 arrays bit for bit; single-MatMul sessions with int8 and uint8 weights must
-agree with the JAX sessions and take the quantized route. The CUDA kernels
+agree with the JAX sessions and take the quantized route; ``w8_plan`` and
+``w8_variant`` at the uint8 UNet step's shapes. The CUDA kernels
 themselves are held against the twins by the ``gpu``-marked tests (skipped
 without a card) and by ``chip_smoke.py``.
 """
@@ -26,9 +27,12 @@ from onnxstream_tpu.runtime.weights import DictWeightsProvider as JaxDict
 from onnxstream_tpu_torch import Session, SessionConfig
 from onnxstream_tpu_torch.convert import quantize as convert_quantize
 from onnxstream_tpu_torch.kernels import qmatmul
+from onnxstream_tpu_torch.kernels.matmul import SMS, TILE_K
 from onnxstream_tpu_torch.kernels.qmatmul import (
     w8_matmul,
     w8_matmul_reference,
+    w8_plan,
+    w8_variant,
     w8a8_dyn_matmul,
     w8a8_dyn_matmul_reference,
 )
@@ -36,7 +40,7 @@ from onnxstream_tpu_torch.runtime import quantization
 from onnxstream_tpu_torch.runtime.weights import DictWeightsProvider
 
 CPU = torch.device("cpu")
-TORCH_DTYPE = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+TORCH_DTYPE = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 JAX_DTYPE = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 
 
@@ -327,6 +331,63 @@ def test_quantized_weights_outside_matmul_dequantize_on_read():
     np.testing.assert_allclose(got, x + (wq.astype(np.float32) - zero) * scale, rtol=1e-6, atol=1e-6)
 
 
+# ------------------------------------------- kernel 5: the plan and the predicate
+# the six families of the 184 w8_matmul calls of one uint8 SD1.5 UNet step: (M, K, N)
+W8_FAMILIES = [
+    (4096, 320, 320), (4096, 320, 2560), (4096, 1280, 320),        # 64 x 64 level
+    (1024, 640, 640), (1024, 640, 5120), (1024, 2560, 640),        # 32 x 32
+    (256, 1280, 1280), (256, 1280, 10240), (256, 5120, 1280),      # 16 x 16
+    (64, 1280, 1280), (64, 1280, 10240), (64, 5120, 1280),         # 8 x 8
+    (77, 768, 320), (77, 768, 640), (77, 768, 1280),               # cross-attention k / v
+    (1, 320, 1280), (1, 1280, 1280), (1, 1280, 320), (1, 1280, 640),  # time projections
+]
+
+
+@pytest.mark.parametrize("m,k,n", W8_FAMILIES)
+def test_w8_plan_at_the_unet_step_s_shapes(m, k, n):
+    bm, bn, splits = w8_plan(m, k, n)
+    assert bm in (64, 128) and bn == 160 and n % bn == 0 and splits >= 1
+    assert bm == 64 or m >= 128          # a 128-row tile only where there are rows for it
+    nkt = -(-k // TILE_K)
+    tiles = -(-m // bm) * (n // bn)
+    per = -(-nkt // splits)
+    assert (splits - 1) * per < nkt      # no empty split
+    if splits > 1:
+        assert tiles * splits <= SMS and per >= 4
+    else:
+        # no split: the tiles occupy more than half the SMs, or K is too short to split
+        assert 2 * tiles > SMS or nkt // 4 <= 1
+
+
+@pytest.mark.parametrize("m,k,n,want", [
+    (4096, 320, 2560, (128, 160, 1)),    # 512 tiles: a converted weight tile serves 128 rows
+    (4096, 320, 320, (64, 160, 1)),      # 128 tiles of 64 rows rather than 64 of 128
+    (256, 1280, 1280, (64, 160, 4)),     # 32 tiles x 4 splits of 5 k-tiles
+    (256, 1280, 10240, (128, 160, 1)),
+    (1, 1280, 1280, (64, 160, 5)),
+    (100, 130, 33, (64, 160, 1)),
+])
+def test_w8_plan_cases(m, k, n, want):
+    assert w8_plan(m, k, n) == want
+    if (m, k, n) == (256, 1280, 1280):
+        assert want[2] * (m * n + m) * 4 == 5_246_976  # workspace bytes: partial sums and row sums
+
+
+@pytest.mark.parametrize("dtype,m,k,n,a_ptr,w_ptr,want", [
+    (torch.bfloat16, 4096, 320, 320, 0, 0, "wgmma"),
+    (torch.float16, 77, 768, 320, 256, 1024, "wgmma"),
+    (torch.bfloat16, 1, 16, 16, 0, 0, "wgmma"),
+    (torch.bfloat16, 100, 130, 33, 0, 0, "mma"),      # ragged K and N
+    (torch.bfloat16, 64, 320, 328, 0, 0, "mma"),      # N % 16 != 0: weight rows are not whole 16-byte pieces
+    (torch.bfloat16, 64, 324, 320, 0, 0, "mma"),      # K % 8 != 0
+    (torch.bfloat16, 64, 320, 320, 2, 0, "mma"),      # misaligned A
+    (torch.float16, 64, 320, 320, 0, 4, "mma"),       # misaligned W
+    (torch.float32, 64, 320, 320, 0, 0, "fma"),       # float32 stays full float32
+])
+def test_w8_variant_is_a_function_of_dtype_shape_and_alignment(dtype, m, k, n, a_ptr, w_ptr, want):
+    assert w8_variant(dtype, m, k, n, a_ptr, w_ptr) == want
+
+
 # ------------------------------------------------------- the kernels on a card
 def _card():
     if not torch.cuda.is_available():
@@ -355,8 +416,16 @@ def test_dyn_kernel_matches_twin_on_card(m, k, n, dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("m,k,n", [(64, 320, 320), (77, 768, 320), (100, 130, 33), (1024, 1280, 10240)])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,k,n", [
+    (64, 320, 320), (77, 768, 320), (100, 130, 33), (1024, 1280, 10240),
+    (4096, 320, 2560),     # 128-row tiles, 160-wide, no split
+    (256, 1280, 1280),     # 4 splits of 5 k-tiles
+    (256, 1344, 1280),     # 21 k-tiles in 4 splits of 6: a ragged last split
+    (1, 1280, 1280),       # one row in a 64-row tile, split K
+    (200, 1000, 336),      # M not a multiple of the tile, K % 64 != 0, N % 160 != 0
+    (130, 16, 16),         # one short k-tile, one 16-column strip
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_w8_kernel_matches_twin_on_card(m, k, n, dtype):
     dev = _card()
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -367,3 +436,35 @@ def test_w8_kernel_matches_twin_on_card(m, k, n, dtype):
     ref = w8_matmul_reference(a, w, 0.013, 117)
     tol = 1e-4 if dtype == "float32" else 2e-2
     assert (out.float() - ref.float()).abs().max().item() <= tol * ref.float().abs().max().item()
+
+
+@pytest.mark.gpu
+def test_w8_misaligned_view_takes_the_masked_kernel_on_card():
+    """A weight view that starts 4 bytes off a 16-byte boundary cannot feed
+    cp.async: the dispatcher picks the masked mma.sync kernel from the
+    pointer, and the result still agrees with the twin."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(1)
+    m, k, n = 64, 320, 320
+    a = torch.randn(m, k, device=dev, generator=gen).to(torch.bfloat16)
+    flat = torch.randint(0, 256, (k * n + 16,), device=dev, generator=gen, dtype=torch.uint8)
+    w = flat[4:4 + k * n].view(k, n)
+    assert w.is_contiguous() and w.data_ptr() % 16 != 0
+    assert w8_variant(torch.bfloat16, m, k, n, a.data_ptr(), w.data_ptr()) == "mma"
+    out = w8_matmul(a, w, 0.013, 117)
+    torch.cuda.synchronize()
+    ref = w8_matmul_reference(a, w, 0.013, 117)
+    assert (out.float() - ref.float()).abs().max().item() <= 2e-2 * ref.float().abs().max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", [(256, 1280, 1280), (1, 1280, 1280)])
+def test_w8_split_k_sum_gives_the_same_bits_twice_on_card(m, k, n):
+    dev = _card()
+    assert w8_plan(m, k, n)[2] > 1
+    gen = torch.Generator(device=dev).manual_seed(2)
+    a = torch.randn(m, k, device=dev, generator=gen).to(torch.bfloat16)
+    w = torch.randint(0, 256, (k, n), device=dev, generator=gen, dtype=torch.uint8)
+    first, second = w8_matmul(a, w, 0.013, 117), w8_matmul(a, w, 0.013, 117)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
