@@ -15,12 +15,15 @@ Phases (any failure exits non-zero and prints no result line):
          mid-block site (1 head, d = 512, 4096 tokens) and at GQA / causal /
          d = 512 edge cases; flash_attention at the three TinyLlama prefill
          sites (1024 x 1024, 128 x 1024, 512 x 512) and at every mask group,
-         k_transposed, GQA, causal M > N (exactly 0) and D = 128 / 256;
+         k_transposed, GQA (Hkv < H on the wgmma variant too), causal M > N
+         (exactly 0) and D = 128 / 256, each case's variant printed, the
+         site's time beside the mma variant's;
        - w8a8_dyn_matmul at every TinyLlama MatMul shape (M 1 / 128 / 512 /
          1024) and w8_matmul at ragged shapes, per-tensor and per-channel;
        - qmatmul and qconv (the calibrated W8A8 kernels) at ragged shapes,
-         both weight layouts, strides / dilations / pads, float32, bf16 and
-         requantized uint8 outputs, bit for bit;
+         both weight layouts ((K, N) on the mma.sync kernel, (N, K) on the
+         wgmma pipeline, a second call's bits), strides / dilations / pads,
+         float32, bf16 and requantized uint8 outputs, bit for bit;
        - gn_silu, gn_silu_conv and matmul (with conv3x3_im2col) at the JAX
          suite's ragged cases (C/G = 5 and 10, H W = 35, 5 x 7 borders, no
          bias, O != C, batch 2) in float32 / bfloat16 / float16, and at the
@@ -79,7 +82,10 @@ Phases (any failure exits non-zero and prints no result line):
      the cast; W8A8 against bf16 image within W8A8_IMAGE_BOUND; CLIP, UNet,
      loop, decode and calibration times, peak memory, device profiles of
      both decoders, and one decode's kernel calls checked bit for bit and
-     replayed against the twins and cuDNN / matmul on dequantized operands;
+     replayed against the twins and cuDNN / matmul on dequantized operands,
+     qmatmul at every shape of them on the graph's operands (the (N, K)
+     weights as uploaded): the wgmma variant, a second call's bits, the times
+     beside the (K, N) weight on the mma.sync kernel;
   7. LLM slice: LLAMA_TINY in fp32 on the card against the CPU (tokens equal,
      logits within 1e-4 * max), then TinyLlama 1.1B at full width (random
      weights from seed 0) in bf16 through LlamaPipeline answers three chat
@@ -90,7 +96,10 @@ Phases (any failure exits non-zero and prints no result line):
      held against the twin on the operands the graph passed it (bf16,
      rtol = atol = 2e-2); flash on and off agree on the
      prompt's last logits; on-device decode equals the host loop; prefill and
-     decode times, peak memory and weight bytes are printed;
+     decode times, peak memory and weight bytes are printed; one prefill's 22
+     flash calls are recorded: all on the wgmma variant, held against the
+     twin on the graph's operands with a second call's bits, timed beside the
+     mma variant, SDPA and the twin, and replayed;
   8. LLM slice, int8 weights: LLAMA_TINY int8 in fp32 on the card against the
      CPU (tokens equal, logits within 1e-3 * max), then TinyLlama with
      int8_weights=True on the same host weights answers the same three
@@ -102,7 +111,9 @@ Phases (any failure exits non-zero and prints no result line):
      against the float32 model); on-device decode
      equals the host loop; host syncs do not grow with the tokens; prefill,
      decode, device busy time, peak memory, device weight bytes and the host
-     quantization time are printed.
+     quantization time are printed; one prefill's and one decode step's calls
+     are replayed, the prefill's beside torch._int_mm over the calls it takes
+     and cuBLAS bf16 on bf16 copies of the weights.
 
 Each path's launch counts are set to 0 just before it and read just after;
 launches made to compare a kernel with its twin come after the read. The
@@ -498,8 +509,53 @@ def _hm_inputs(gen, b, h, hkv, m, n, d, mask_kind, kt, mask_dtype):
     return q, k, v, mask
 
 
+def _flash_variant_text(q, k, v, mask=None, scale=None, k_transposed=False, causal=False) -> str:
+    from onnxstream_tpu_torch.kernels.flash_attention import flash_variant
+
+    return f"variant {flash_variant(q, k, v, mask, k_transposed=k_transposed)}"
+
+
+def _flash_earlier(q, k, v, mask=None, scale=None, k_transposed=False, causal=False):
+    """The same head-major call on fa_mma_kernel, the mma.sync variant the
+    head-major entry took before its wgmma variant, launched through the
+    packed entry's form (which never takes the wgmma variant); the output is
+    allocated here, outside the timed call."""
+    from onnxstream_tpu_torch.kernels import flash_attention as fa
+
+    dims, strides, m4 = fa._head_major_launch(q, k, v, mask, k_transposed)
+    b, m, n, h, hkv, d, dv = dims
+    out = torch.empty((b, h, m, dv), dtype=q.dtype, device=q.device)
+    sc = 1.0 / float(np.sqrt(d)) if scale is None else scale
+    return lambda: fa._launch("packed", q, k, v, out, m4, dims, strides, sc, causal)
+
+
+def _flash_cost(q, k, v, mask=None, scale=None, k_transposed=False, causal=False):
+    """(bytes, operations) of one head-major call: q, k, v and the mask as
+    given read once, the output written once; QK^T and PV at 2 operations a
+    multiply-add."""
+    b, h, m, d = q.shape
+    n, dv = (k.shape[-1] if k_transposed else k.shape[-2]), v.shape[-1]
+    return _nbytes(q, k, v, mask) + b * h * m * dv * q.element_size(), 2 * b * h * m * n * (d + dv)
+
+
+def _sdpa_library(q, k, v, mask=None, scale=None, k_transposed=False, causal=False):
+    """scaled_dot_product_attention on the same operands (the yardstick):
+    the mask cast to q's dtype and K transposed back outside the timed call,
+    GQA through enable_gqa."""
+    kk = k.transpose(-1, -2) if k_transposed else k
+    am = None if mask is None else mask.to(q.dtype)
+    gqa = q.shape[1] != kk.shape[1]
+    return lambda: F.scaled_dot_product_attention(q, kk, v, attn_mask=am, scale=scale,
+                                                  is_causal=causal and am is None, enable_gqa=gqa)
+
+
+def _flash_close(got, ref) -> bool:
+    return torch.allclose(got.float(), ref.float(), rtol=2e-2, atol=2e-2)
+
+
 def phase_kernel_head_major(name: str) -> dict:
-    from onnxstream_tpu_torch.kernels.flash_attention import flash_attention, flash_attention_reference
+    from onnxstream_tpu_torch.kernels.flash_attention import (flash_attention, flash_attention_reference,
+                                                              flash_variant)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -517,6 +573,12 @@ def phase_kernel_head_major(name: str) -> dict:
         ("mask_1hmn_f16_mask", 2, 4, 4, 200, 600, 64, "1hmn", False, False, torch.float16),
         ("k_transposed", 1, 8, 8, 256, 700, 64, "11mn", False, True, None),
         ("gqa_b2", 2, 8, 2, 300, 700, 64, "b1mn", False, False, None),
+        # the wgmma variant with Hkv < H: TinyLlama's 32 query / 4 KV heads with
+        # its (1, 1, L, L) mask staged, a batched mask, a causal one, d = 128
+        ("gqa_32_4_prefill", 1, 32, 4, L, L, D, "causal", False, False, None),
+        ("gqa_8_2_bmn_520", 2, 8, 2, 300, 520, 64, "bmn", False, False, None),
+        ("gqa_8_2_causal_f32_mask", 2, 8, 2, 300, 520, 64, "11mn", True, False, torch.float32),
+        ("gqa_8_2_d128", 1, 8, 2, 256, 512, 128, "b1mn", False, False, None),
         ("causal_m_gt_n", 1, 4, 4, 80, 24, 32, None, True, False, None),
         ("causal_and_mask", 1, 4, 4, 256, 256, 64, "11mn", True, False, None),
         ("d128", 1, 8, 8, 256, 512, 128, "mn", False, False, None),
@@ -533,8 +595,8 @@ def phase_kernel_head_major(name: str) -> dict:
             ref = flash_attention_reference(q, k, v, mask=mask, k_transposed=kt, causal=causal)
             err = (out.float() - ref.float()).abs().max().item()
             ok = torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol)
-            print(f"head-major kernel vs twin {label} {str(dt)[6:]}: max|diff| {err:.3e} "
-                  f"(rtol=atol={tol}) {'ok' if ok else 'FAIL'}")
+            print(f"head-major kernel vs twin {label} {str(dt)[6:]} ({flash_variant(q, k, v, mask, kt)}): "
+                  f"max|diff| {err:.3e} (rtol=atol={tol}) {'ok' if ok else 'FAIL'}")
             if not ok:
                 raise SystemExit(f"head-major flash kernel disagrees with its twin on {label} {dt}")
             if label == "tinyllama_prefill" and dt == torch.bfloat16:
@@ -544,13 +606,14 @@ def phase_kernel_head_major(name: str) -> dict:
     q, k, v, mask = (None if t is None else t.to(torch.bfloat16)
                      for t in _hm_inputs(gen, 1, 32, 32, L, L, D, "causal", False, None))
     t_k = device_ms(lambda: flash_attention(q, k, v, mask=mask))
+    t_e = device_ms(_flash_earlier(q, k, v, mask=mask))
     t_p = device_ms(lambda: flash_attention_reference(q, k, v, mask=mask))
     t_l = device_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask))
     b = bound(_nbytes(q, k, v, q, mask), 4 * 32 * L * L * D, "bf16")
-    print(f"time bf16 (1, 32, {L}, {D}) with a (1, 1, {L}, {L}) bf16 mask: kernel {t_k:.4f} ms, "
-          f"twin {t_p:.4f} ms, scaled_dot_product_attention {t_l:.4f} ms, bound {b['bound_ms']:.4f} ms "
-          f"({b['bound_by']})  [{name}]")
-    return {"max_abs_err": site_err, "ms": t_k, "plain_ms": t_p, **b, "library_ms": t_l}
+    print(f"time bf16 (1, 32, {L}, {D}) with a (1, 1, {L}, {L}) bf16 mask: kernel {t_k:.4f} ms "
+          f"({flash_variant(q, k, v, mask)}; the mma variant {t_e:.4f} ms), twin {t_p:.4f} ms, "
+          f"scaled_dot_product_attention {t_l:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']})  [{name}]")
+    return {"max_abs_err": site_err, "ms": t_k, "earlier_variant_ms": t_e, "plain_ms": t_p, **b, "library_ms": t_l}
 
 
 # ------------------------------------------------------ the quantized matmuls
@@ -744,13 +807,17 @@ def replay_times(label: str, calls, kernel, twin, library, peak: str, name: str,
     return {"ms": t_k, "plain_ms": t_p, "library_ms": t_l, **b}
 
 
-def site_report(label: str, calls, kernel, twin, library, cost, plan_of, tol: float, name: str) -> dict:
+def site_report(label: str, calls, kernel, twin, library, cost, plan_of, tol: float, name: str,
+                peak: str = "bf16", close=None, earlier=None) -> dict:
     """Every distinct shape among the recorded calls of one graph run, on the
     graph's own operands: the variant and plan the dispatcher takes
     (``plan_of`` maps a call to that text), the kernel against its twin
-    (max|diff| <= tol * max(1, max|twin|)), the same bits on a second call
-    (the K split adds its partials in a fixed order), and the device time of
-    kernel, twin and library call beside the bound."""
+    (max|diff| <= tol * max(1, max|twin|), or ``close(got, twin)`` where
+    given), the same bits on a second call (the K split adds its partials in
+    a fixed order), and the device time of kernel, twin and library call
+    beside the bound. ``earlier`` maps a call to a no-argument function that
+    runs the same call on the variant the kernel took before its wgmma
+    variant, timed beside it."""
     by_shape = {}
     for args, kw in calls:
         a, b = args[0], args[1]
@@ -762,19 +829,24 @@ def site_report(label: str, calls, kernel, twin, library, cost, plan_of, tol: fl
         again = kernel(*args, **kw)
         torch.cuda.synchronize()
         err, top = (got.float() - ref.float()).abs().max().item(), ref.float().abs().max().item()
-        ok = bool(torch.isfinite(got.float()).all()) and err <= tol * max(1.0, top)
+        agree = close(got, ref) if close else err <= tol * max(1.0, top)
+        ok = bool(torch.isfinite(got.float()).all()) and agree
         same = torch.equal(got, again)
         t_k = device_ms_per_call(lambda: kernel(*args, **kw))
         t_p = device_ms(lambda: twin(*args, **kw), iters=2, warmup=1)
         t_l = device_ms_per_call(library(*args, **kw))
-        b = bound(*cost(*args, **kw), "bf16")
+        t_e = device_ms_per_call(earlier(*args, **kw)) if earlier else None
+        b = bound(*cost(*args, **kw), peak)
         key = "x".join(map(str, shape))
         print(f"site {label} {key} ({len(group)} calls a run): {plan_of(*args, **kw)}; max|diff| {err:.3e} of "
-              f"max|twin| {top:.3f} (tol {tol:g}) {'ok' if ok else 'FAIL'}, second call bit-equal: {same}; kernel "
-              f"{t_k:.4f} ms, twin {t_p:.4f} ms, library {t_l:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}) [{name}]")
+              f"max|twin| {top:.3f} ({'rtol=atol' if close else 'tol'} {tol:g}) {'ok' if ok else 'FAIL'}, second call "
+              f"bit-equal: {same}; kernel {t_k:.4f} ms"
+              + (f" (earlier variant {t_e:.4f} ms)" if t_e is not None else "")
+              + f", twin {t_p:.4f} ms, library {t_l:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}) [{name}]")
         if not ok or not same:
             raise SystemExit(f"{label} at {key}: the kernel disagrees with its twin, or with itself on a second call")
-        out[key] = {"calls": len(group), "ms": t_k, "plain_ms": t_p, "library_ms": t_l, "variant": plan_of(*args, **kw), **b}
+        out[key] = {"calls": len(group), "ms": t_k, "plain_ms": t_p, "library_ms": t_l, "variant": plan_of(*args, **kw),
+                    **({"earlier_variant_ms": t_e} if t_e is not None else {}), **b}
     return out
 
 
@@ -1352,9 +1424,30 @@ def _conv_library(x, w, a_scale, a_zero, w_scale, w_zero, bias=None, strides=(1,
     return lambda: F.conv2d(xd, wd, b, stride=tuple(strides), dilation=tuple(dilations))
 
 
-def _matmul_library(a, w, a_scale, a_zero, w_scale, w_zero, **kw):
+def _matmul_library(a, w, a_scale, a_zero, w_scale, w_zero, weight_nk=False, **kw):
     ad, wd = _dequantized(a, a_scale, a_zero, torch.bfloat16), _dequantized(w, w_scale, w_zero, torch.bfloat16)
+    if weight_nk:  # an (N, K) weight as cuBLAS takes it, a transposed view
+        wd = wd.t()
     return lambda: torch.matmul(ad, wd)
+
+
+def _qgemm_variant_text(a, w, *args, weight_nk=False, **kw) -> str:
+    from onnxstream_tpu_torch.kernels.qmatmul import qgemm_variant
+
+    k = a.shape[-1]
+    m, n = a.numel() // k, w.numel() // k
+    return (f"variant {qgemm_variant(m, k, n, weight_nk, a.data_ptr(), w.data_ptr())}, weight "
+            + ("(N, K)" if weight_nk else "(K, N)"))
+
+
+def _qmatmul_earlier(a, w, *args, weight_nk=False, **kw):
+    """The same call on qgemm_kernel, the variant a calibrated MatMul took
+    before its weight was uploaded K-major: the (K, N) weight, copied once
+    here, outside the timed call."""
+    from onnxstream_tpu_torch.kernels.qmatmul import qmatmul
+
+    w_kn = w.t().contiguous() if weight_nk else w
+    return lambda: qmatmul(a, w_kn, *args, **kw)
 
 
 def check_qlinear_calls(label, kernel, twin, calls, what: str) -> float:
@@ -1391,6 +1484,21 @@ def phase_kernel_qlinear(name: str) -> None:
         bias = torch.randint(-5000, 5000, (n,), device="cuda", generator=gen, dtype=torch.int32)
         calls += [((a, w, 0.03, 120, 0.02, 128), dict(bias=bias, **o)) for o in outs]
     check_qlinear_calls("qmatmul", qmatmul, qmatmul_reference, calls, "ragged shapes, 3 outputs")
+    # the wgmma variant: the weight as (N, K); M under and off the 128-row
+    # tile, ragged N, K off the 128-byte k-tile and over many k-tiles; each
+    # call twice for equal bits
+    calls = []
+    for m, k, n in [(4096, 512, 512), (1, 64, 8), (63, 48, 3), (77, 112, 257), (300, 4608, 130), (129, 16, 1000)]:
+        a, w = u8(m, k), u8(n, k)
+        bias = torch.randint(-5000, 5000, (n,), device="cuda", generator=gen, dtype=torch.int32)
+        calls += [((a, w, 0.03, 120, 0.02, 128), dict(bias=bias, weight_nk=True, **o)) for o in outs]
+    for args, kw in calls:
+        if not _qgemm_variant_text(*args, **kw).startswith("variant wgmma"):
+            raise SystemExit(f"qmatmul did not take the wgmma variant on {_about_qlinear(*args, **kw)}")
+        if not torch.equal(qmatmul(*args, **kw), qmatmul(*args, **kw)):
+            raise SystemExit(f"qmatmul's wgmma variant gave other bits on a second call: {_about_qlinear(*args, **kw)}")
+    check_qlinear_calls("qmatmul", qmatmul, qmatmul_reference, calls,
+                        "the wgmma variant, (N, K) weights at ragged shapes, 3 outputs, second calls bit-equal")
     calls = []
     for x, w, st, pd, dl in [((1, 4, 9, 11), (8, 4, 3, 3), (1, 1), (1, 1, 1, 1), (1, 1)),
                              ((1, 16, 12, 12), (3, 16, 3, 3), (1, 1), (1, 1, 1, 1), (1, 1)),
@@ -1628,8 +1736,17 @@ def phase_sd_image(name: str) -> dict:
                                 qmatmul_reference, _matmul_library, "int8", name, cost=_qmatmul_cost),
         "qconv": replay_times("qconv over one W8A8 decode's convs (bf16 out)", calls["qconv"], qconv,
                               qconv_reference, _conv_library, "int8", name, cost=_qconv_cost)}
+    # kernel 3 at every shape of the decode's MatMuls, on the graph's operands
+    # (the weights as uploaded, (N, K)): the variant, bit for bit, a second
+    # call's bits, and the times beside the (K, N) weight on qgemm_kernel
+    if not all(k.get("weight_nk") and _qgemm_variant_text(*a, **k).startswith("variant wgmma")
+               for a, k in calls["qmatmul"]):
+        raise SystemExit("a W8A8 decode MatMul did not take kernel 3's wgmma variant")
+    sites = site_report("qmatmul, W8A8 decode", calls["qmatmul"], qmatmul, qmatmul_reference, _matmul_library,
+                        _qmatmul_cost, _qgemm_variant_text, 0.0, name, peak="int8", earlier=_qmatmul_earlier)
     out = {k: {"launches": launches[k], "max_abs_err": max(errs[k], (qmm if k == "qmatmul" else qcv).worst),
                **times[k]} for k in ("qmatmul", "qconv")}
+    out["qmatmul"]["sites_of_decode"] = sites
     out["flash_launches"] = launches["flash_attention_packed"]
     return out
 
@@ -1798,8 +1915,28 @@ def phase_llm(name: str) -> dict:
           f"with the (1024, 32003) logits copied to the host: flash on {ms_on:.2f} ms, "
           f"flash off {ms_off:.2f} ms (plan included)")
     _decode_measurements(pipe, name, "bf16", p1)
+
+    # kernel 2 over one prefill's calls, on the graph's operands: the variant,
+    # the kernel against its twin, a second call's bits, the times beside the
+    # mma variant's, SDPA's and the twin's
+    site.calls = []
+    attention_op.flash_attention = site
+    try:
+        pipe.reset()
+        pipe.forward(p1, want_logits=False)
+    finally:
+        attention_op.flash_attention = flash_attention
+    calls, site.calls = site.calls, None
+    if len(calls) != 22 or any(_flash_variant_text(*a, **k) != "variant wgmma" for a, k in calls):
+        raise SystemExit(f"the prefill made {len(calls)} flash calls, or not all took the wgmma variant")
+    sites = site_report("flash_attention, TinyLlama prefill", calls, flash_attention, flash_attention_reference,
+                        _sdpa_library, _flash_cost, _flash_variant_text, 2e-2, name, close=_flash_close,
+                        earlier=_flash_earlier)
+    replay = replay_times("flash_attention over one TinyLlama prefill's 22 calls (bf16)", calls, flash_attention,
+                          flash_attention_reference, _sdpa_library, "bf16", name, cost=_flash_cost)
+    del calls
     return {"launches": launches, "bank": pipe._weight_bank, "logits_p1": on, "logits_p1_f32": l32,
-            "prompts": prompts}
+            "prompts": prompts, "flash": {"sites_of_prefill": sites, "prefill_replay": replay}}
 
 
 def _nrms(x: np.ndarray, ref: np.ndarray) -> float:
@@ -1924,7 +2061,25 @@ def phase_llm_int8(name: str, llm: dict) -> dict:
     times = {k: replay_times(f"w8a8_dyn_matmul over one TinyLlama {k} run (bf16)", calls, w8a8_dyn_matmul,
                              w8a8_dyn_matmul_reference, int_mm, "int8", name)
              for k, calls in recorded.items()}
-    return {"launches": launches, "max_abs_err": site.worst, **times["decode"]}
+
+    # the prefill's library yardsticks: torch._int_mm on the quantized
+    # operands over the calls it takes (the kernel timed over the same calls
+    # beside it), and cuBLAS bf16 on bf16 copies of the weights over all calls
+    pre = recorded["prefill"]
+    libs = [int_mm(*a, **k) for a, k in pre]
+    sub = [(c, f) for c, f in zip(pre, libs) if f is not None]
+    t_sub = device_ms(lambda: [w8a8_dyn_matmul(*a, **k) for (a, k), _ in sub], iters=5)
+    t_int = device_ms(lambda: [f() for _, f in sub], iters=5)
+    copies = {}
+    bf16 = [(a[0], copies.setdefault(a[1].data_ptr(), a[1].to(torch.bfloat16))) for a, _ in pre]
+    t_bf = device_ms(lambda: [torch.matmul(x, w) for x, w in bf16], iters=5)
+    del copies, bf16
+    print(f"w8a8_dyn_matmul, one TinyLlama prefill: torch._int_mm takes {len(sub)} of {len(pre)} calls: kernel "
+          f"{t_sub:.4f} ms, torch._int_mm {t_int:.4f} ms over those; over all {len(pre)}: kernel "
+          f"{times['prefill']['ms']:.4f} ms, cuBLAS bf16 on bf16 copies of the weights {t_bf:.4f} ms [{name}]")
+    prefill = {**times["prefill"], "int_mm_calls": len(sub), "kernel_ms_on_int_mm_calls": t_sub, "int_mm_ms": t_int,
+               "bf16_matmul_ms": t_bf}
+    return {"launches": launches, "max_abs_err": site.worst, **times["decode"], "prefill": prefill}
 
 
 def main() -> int:
@@ -1965,7 +2120,8 @@ def main() -> int:
          "launches": sd_image["flash_launches"],
          "launches_by_path": {"sd15_step": launches_sd, "sd15_image": sd_image["flash_launches"]}},
         {"name": "flash_attention", "route": "cuda", "source": fa_src,
-         "replaces": "onnxstream_tpu/kernels/flash_attention.py:366", **kernel_hm, "launches": launches_llm},
+         "replaces": "onnxstream_tpu/kernels/flash_attention.py:366", **kernel_hm, "launches": launches_llm,
+         **llm["flash"]},
         {"name": "w8a8_dyn_matmul", "route": "cuda", "source": q_src, "replaces": f"{q_py}:332", **llm_int8},
         {"name": "w8_matmul", "route": "cuda", "source": q_src, "replaces": f"{q_py}:186", **sd_u8},
         {"name": "qmatmul", "route": "cuda", "source": ql_src, "replaces": f"{q_py}:73", **sd_image["qmatmul"]},

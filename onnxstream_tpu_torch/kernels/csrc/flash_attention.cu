@@ -27,8 +27,27 @@
 // Grid. One CTA per (q-tile, head, batch); the CTA walks the KV axis in a loop
 // (the sequential grid axis of the TPU kernel), with K/V tiles staged in
 // shared memory and the running max, sum and output accumulator in registers.
-// Three variants, chosen by dtype, head dim and alignment in dispatch():
+// The C entry takes the form explicitly (0 = packed, 1 = head-major): the
+// variant is never inferred from the strides. Four variants, chosen by form,
+// dtype, head dim and alignment in dispatch_head_major() / dispatch():
 //
+//  * fa_wgmma_kernel (the head-major entry only, kernel 2: bf16 / fp16, head
+//    dims <= 128, 16-byte aligned Q/K/V/O rows, K read by rows), the shape of
+//    Hopper's fast attention kernels: a loading warpgroup keeps Q and a ring
+//    of two stages of K, V and mask tiles in flight with cp.async under
+//    mbarriers (gemm_sm90.cuh), two consumer warpgroups of 64 query rows run
+//    S = Q K^T and O += P V as wgmma, P in registers as the A operand and V
+//    read MN-major through the transpose bit (described at the kernel). At
+//    the TinyLlama prefill site (32 heads x 1024 x 64, a (1, 1, 1024, 1024)
+//    mask) the work is 8.6 GFLOP against 12.7 MB: bound by the tensor cores
+//    (8.7 us at 989 TFLOP/s). The design keeps the tensor cores fed from
+//    shared memory that the loaders fill ahead of the consumers, and stages
+//    the mask tile by 16-byte copies (one (1, 1, L, L) mask serves all heads
+//    from L2). What holds it at about 8x that bound: the softmax between the
+//    two products of a warpgroup, which nothing overlaps yet, and the mask
+//    step, whose copies and 4-byte shared loads cost about as much as the
+//    rest (ptxas also serializes the wgmma issue of the masked d <= 64
+//    variants, note C7515: it packs P into the registers of S);
 //  * fa_mma_kernel (bf16 / fp16, head dims <= 128, 16-byte aligned Q/V/O
 //    rows): tensor-core products with mma.sync m16n8k16, f32 accumulate. Each
 //    warp owns 16 query rows; the score tile stays in registers and is reused
@@ -43,15 +62,16 @@
 //    sharing rows reduce with shuffles.
 //    float32 inputs keep full float32 products, the parity path.
 //
-// What bounds it. The score matrix never reaches device memory, which is what
-// the kernel saves over the plain version. The mma variant is bound by
-// mma.sync issue and the unpipelined K/V staging (no cp.async / TMA double
-// buffering yet); the FMA variant by FMA issue and shared-memory loads (about
-// 2.7 FMAs per shared load). The wide variant runs one 183 KB CTA per SM, and
-// at the VAE's 4096 tokens only 128 of them, each walking all keys with four
-// barriers per tile: it is latency-bound (splitting the keys over CTAs is the
-// next step). The mask costs one scalar load per score (L2 serves the re-reads
-// across heads). wgmma, TMA and tile tuning are later work.
+// What bounds the others. The score matrix never reaches device memory, which
+// is what every variant saves over the plain version. The mma variant (kernel
+// 1 at the SD UNet sites, and what the head-major entry takes for K given
+// transposed) is bound by mma.sync issue and its unpipelined K / V^T staging
+// (two barriers a tile, V transposed element by element); its mask costs one
+// scalar load per score. The FMA variant is bound by FMA issue and
+// shared-memory loads (about 2.7 FMAs per shared load). The wide variant runs
+// one 183 KB CTA per SM, and at the VAE's 4096 tokens only 128 of them, each
+// walking all keys with four barriers per tile: it is latency-bound (splitting
+// the keys over CTAs is the next step for kernel 1).
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -60,6 +80,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "gemm_sm90.cuh"
 
 namespace {
 
@@ -752,6 +774,258 @@ __global__ void __launch_bounds__(kWideThreads) fa_mma_wide_kernel(const Params 
     }
 }
 
+// ---------------------------------------------------------------------------
+// wgmma variant (bf16 / fp16, head dims <= 128, the head-major entry only)
+// ---------------------------------------------------------------------------
+//
+// A block takes 128 query rows of one (batch, head): two consumer warpgroups
+// of 64 rows and a loading warpgroup. The loaders put Q into shared memory
+// once and keep a ring of two stages full with cp.async copies: the key tile
+// K (BN keys x KD, K-major), the value tile V (the same rows, read MN-major by
+// wgmma's transpose bit: V is never transposed) and, where the mask's rows are
+// whole 16-byte pieces, the mask tile (128 rows x BN keys in the mask's own
+// dtype); the hardware arrives on the stage's mbarrier when they land. Per key
+// tile a consumer warpgroup runs S = Q K^T as wgmma m64nBNk16 from shared
+// memory, the online softmax on S in float32 registers (scores in the log2
+// domain, mask * log2(e) added in float32), then O += P V as wgmma m64nKDk16
+// with P, rounded to V's dtype, as the register A operand: the accumulator
+// layout of S is the register layout of A. The stage goes back to the
+// loaders when the next tile's S product has retired, so the next tile's
+// copies and the PV product overlap the softmax. Head dims below KD are zero
+// in the tiles. A mask whose rows are not 16-byte granular is read element by
+// element from global memory, as fa_mma_kernel reads it.
+
+__device__ __forceinline__ float2 mask_pair(const uint8_t* at, int dtype) {
+  if (dtype == 0) return *reinterpret_cast<const float2*>(at);
+  if (dtype == 1) return __half22float2(*reinterpret_cast<const __half2*>(at));
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(at));
+}
+
+template <int KD>
+struct FaWgCfg {
+  static constexpr int kBM = 128;                  // query rows: two consumer warpgroups
+  static constexpr int kBN = KD == 64 ? 128 : 64;  // keys per staged tile
+  static constexpr int kStages = 2;
+  static constexpr int kQBytes = kBM * KD * 2;
+  static constexpr int kKBytes = kBN * KD * 2;     // the K tile; the V tile the same
+  static constexpr int kThreads = 3 * gemm90::kWG;
+  // the mask tile: kBM rows of kBN keys, 16 bytes of padding a row (the
+  // consumers' pair loads of 8 rows then meet no bank twice), rounded up to
+  // 1024 bytes
+  static constexpr int mask_bytes(int elt) { return elt ? (kBM * (kBN * elt + 16) + 1023) / 1024 * 1024 : 0; }
+  static constexpr int stage_bytes(int elt) { return 2 * kKBytes + mask_bytes(elt); }
+  // Q, the ring, the barriers, slack to reach a 1024-byte boundary
+  static constexpr int smem_bytes(int elt) { return 1024 + kQBytes + kStages * stage_bytes(elt) + 8 * (2 * kStages + 1); }
+};
+static_assert(FaWgCfg<64>::smem_bytes(4) <= 232448 && FaWgCfg<128>::smem_bytes(4) <= 232448,
+              "shared memory of a block");
+
+// MASK: 0 = none, 1 = staged tiles, 2 = element loads from global memory
+template <typename T, int KD, int MASK>
+__global__ void __launch_bounds__(FaWgCfg<KD>::kThreads, 1)
+    fa_wgmma_kernel(const Params p, int stage_bytes, int mask_pitch) {
+  using C = FaWgCfg<KD>;
+  constexpr int BM = C::kBM, BN = C::kBN, kWG = gemm90::kWG;
+  extern __shared__ __align__(16) uint8_t fa_smem[];
+  const uint32_t smem_base = gemm90::smem_u32(fa_smem);
+  const uint32_t q_s = gemm90::align1024(smem_base);
+  const uint32_t stage0 = q_s + C::kQBytes;
+  const uint32_t full0 = stage0 + C::kStages * stage_bytes, empty0 = full0 + 8 * C::kStages;
+  const uint32_t q_full = empty0 + 8 * C::kStages;
+
+  const int tid = threadIdx.x, wg = tid / kWG, t = tid % kWG;
+  const int m0 = blockIdx.x * BM;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int hk = h / (p.H / p.Hkv);
+  const int offset = p.N - p.M;
+  // keys past the tile's last row + offset are masked for every row: skipped
+  const int n_end = p.causal ? max(0, min(p.N, m0 + BM + offset)) : p.N;
+  const int ntiles = (n_end + BN - 1) / BN;
+  const int elt = p.mask_dtype == 0 ? 4 : 2;
+  const long long mbase = b * p.smb + h * p.smh;
+  if (tid == 0) {
+    gemm90::init_barriers<C::kStages>(full0, empty0, kWG, 2 * kWG);
+    gemm90::mbar_init(q_full, kWG);
+    gemm90::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // loaders
+    const T* q = static_cast<const T*>(p.q) + b * p.sqb + h * p.sqh;
+    const T* k = static_cast<const T*>(p.k) + b * p.skb + hk * p.skh;
+    const T* v = static_cast<const T*>(p.v) + b * p.svb + hk * p.svh;
+    const uint8_t* mask = MASK == 1 ? static_cast<const uint8_t*>(p.mask) + mbase * elt : nullptr;
+#pragma unroll
+    for (int kc = 0; kc < KD / 64; ++kc)
+      gemm90::load_kmajor_tile<BM>(q_s + kc * BM * 128, q, 2 * p.sqm, m0, p.M, 128 * kc, 2 * p.D, t);
+    gemm90::cp_async_arrive(q_full);
+    gemm90::produce<C::kStages>(ntiles, full0, empty0, [&](int it, int s) {
+      const uint32_t sb = stage0 + s * stage_bytes;
+      const int n0 = it * BN;
+#pragma unroll
+      for (int kc = 0; kc < KD / 64; ++kc) {
+        gemm90::load_kmajor_tile<BN>(sb + kc * BN * 128, k, 2 * p.skn, n0, p.N, 128 * kc, 2 * p.D, t);
+        gemm90::load_kmajor_tile<BN>(sb + C::kKBytes + kc * BN * 128, v, 2 * p.svn, n0, p.N, 128 * kc, 2 * p.Dv, t);
+      }
+      if constexpr (MASK == 1) {
+        const int per_row = BN * elt / 16;  // 16-byte pieces of a mask row
+        const uint32_t mt = sb + 2 * C::kKBytes;
+        for (int i = t; i < BM * per_row; i += kWG) {
+          const int r = i / per_row, c = i % per_row;
+          const int row = m0 + r, col = n0 + c * (16 / elt);
+          const bool ok = row < p.M && col < p.N;
+          const uint8_t* src = ok ? mask + (row * p.smm + col) * elt : mask;
+          gemm90::cp_async16(mt + r * mask_pitch + 16 * c, src, ok);
+        }
+      }
+    });
+    return;
+  }
+
+  const int warp = t / 32, lane = t % 32, g = lane / 4, tq = lane % 4;
+  const int lrow = 64 * wg + 16 * warp + g;  // this thread's rows of the block's tile: lrow and lrow + 8
+  const int row0 = m0 + lrow;
+  const float c = p.scale_log2;
+  // with a mask the scores are moved to the log2 domain before the softmax;
+  // without one the scale is folded into the exp2 argument
+  const float cs = MASK ? 1.f : c;
+
+  float o[KD / 2], s[BN / 2];
+#pragma unroll
+  for (int i = 0; i < KD / 2; ++i) o[i] = 0.f;
+  float m_r[2] = {-INFINITY, -INFINITY};
+  float l_r[2] = {0.f, 0.f};  // per-thread partial row sums, reduced over the quad at the end
+  uint32_t pa[BN / 16][4];  // P in V's dtype, the register A operand of the PV product
+
+  if (ntiles > 0) gemm90::mbar_wait(q_full, 0);
+  for (int it = 0; it < ntiles; ++it) {
+    const int st = it % C::kStages;
+    const uint32_t sb = stage0 + st * stage_bytes;
+    gemm90::mbar_wait(full0 + 8 * st, (it / C::kStages) & 1);
+
+    // raw scores q . k of this warpgroup's 64 rows x BN keys (the register
+    // fences keep the softmax's writes of S, and below the rescale of O and
+    // the packing of P, ahead of wgmma.fence)
+    gemm90::fence_regs(s);
+    gemm90::wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < KD / 16; ++ks) {
+      const uint32_t qt = q_s + (ks / 4) * BM * 128 + wg * 64 * 128;
+      const uint32_t kt = sb + (ks / 4) * BN * 128;
+      gemm90::wgmma_ss<T, BN, 0>(s, gemm90::a_desc(qt, ks % 4), gemm90::kmajor_desc(kt, ks % 4), ks > 0);
+    }
+    gemm90::wgmma_commit();
+    gemm90::wgmma_wait<0>();  // S, and the previous tile's PV product, are done
+    gemm90::fence_regs(s);
+    gemm90::fence_regs(o);
+    if (it > 0) gemm90::mbar_arrive(empty0 + 8 * ((it - 1) % C::kStages));
+
+    const int n0 = it * BN;
+    const uint8_t* mt = fa_smem + (sb + 2 * C::kKBytes - smem_base);
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int row = row0 + 8 * hh, cl = 8 * j + 2 * tq;
+        float2 mv = make_float2(0.f, 0.f);
+        if constexpr (MASK == 1) mv = mask_pair(mt + (lrow + 8 * hh) * mask_pitch + cl * elt, p.mask_dtype);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = n0 + cl + e;
+          const bool ok = col < p.N && (!p.causal || col <= row + offset);
+          float& x = s[4 * j + 2 * hh + e];
+          if constexpr (MASK != 0) {
+            float m = e ? mv.y : mv.x;
+            if constexpr (MASK == 2) m = ok && row < p.M ? load_mask(p, mbase + row * p.smm + col * p.smn) : 0.f;
+            // log2-domain scores: scale*log2e * s + log2e * mask; -inf where masked
+            x = ok ? fmaf(x, c, kLog2e * m) : -INFINITY;
+          } else if (!ok) {
+            x = -INFINITY;
+          }
+        }
+      }
+
+    // online softmax on rows row0 (elements 0, 1 of each n8 block) and row0 + 8 (2, 3)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) mx = fmaxf(mx, fmaxf(s[4 * j + 2 * r], s[4 * j + 2 * r + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m_r[r], mx);
+      // a row with no valid key so far keeps p = 0, corr = 0 and l = 0
+      const float m_use = (m_new == -INFINITY) ? 0.f : m_new;
+      const float corr = exp2f((m_r[r] - m_use) * cs);
+      const float mc = m_use * cs;
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        s[4 * j + 2 * r] = exp2f(fmaf(s[4 * j + 2 * r], cs, -mc));
+        s[4 * j + 2 * r + 1] = exp2f(fmaf(s[4 * j + 2 * r + 1], cs, -mc));
+        rs += s[4 * j + 2 * r] + s[4 * j + 2 * r + 1];
+      }
+      l_r[r] = l_r[r] * corr + rs;
+      m_r[r] = m_new;
+#pragma unroll
+      for (int jt = 0; jt < KD / 8; ++jt) {
+        o[4 * jt + 2 * r] *= corr;
+        o[4 * jt + 2 * r + 1] *= corr;
+      }
+    }
+
+    // O += P V: P rounded to V's dtype straight from the score registers
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) {
+      pa[kk][0] = pack2(s[8 * kk + 0], s[8 * kk + 1], T());
+      pa[kk][1] = pack2(s[8 * kk + 2], s[8 * kk + 3], T());
+      pa[kk][2] = pack2(s[8 * kk + 4], s[8 * kk + 5], T());
+      pa[kk][3] = pack2(s[8 * kk + 6], s[8 * kk + 7], T());
+    }
+    gemm90::fence_regs(o);
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) gemm90::fence_regs(pa[kk]);
+    gemm90::wgmma_fence();
+    const uint32_t vt = sb + C::kKBytes;
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) gemm90::wgmma_rs<T, KD>(o, pa[kk], gemm90::BTile<128, BN>::desc(vt, kk));
+    gemm90::wgmma_commit();
+  }
+  gemm90::wgmma_wait<0>();
+  gemm90::fence_regs(o);
+
+  T* out = static_cast<T*>(p.o) + b * p.sob + h * p.soh;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float l = l_r[r];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const float denom = l == 0.f ? 1.f : l;
+    const int row = row0 + 8 * r;
+    if (row >= p.M) continue;
+#pragma unroll
+    for (int jt = 0; jt < KD / 8; ++jt) {
+      const int col = 8 * jt + 2 * tq;
+      if (col < p.Dv)
+        *reinterpret_cast<uint32_t*>(out + row * p.som + col) = pack2(o[4 * jt + 2 * r] / denom, o[4 * jt + 2 * r + 1] / denom, T());
+    }
+  }
+}
+
+template <typename T, int KD, int MASK>
+cudaError_t launch_wgmma(const Params& p, cudaStream_t stream) {
+  using C = FaWgCfg<KD>;
+  auto kernel = fa_wgmma_kernel<T, KD, MASK>;
+  static cudaError_t attr = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 C::smem_bytes(MASK == 1 ? 4 : 0));
+  if (attr != cudaSuccess) return attr;
+  const int elt = MASK == 1 ? (p.mask_dtype == 0 ? 4 : 2) : 0;
+  const dim3 grid((p.M + C::kBM - 1) / C::kBM, p.H, p.B);
+  kernel<<<grid, C::kThreads, C::smem_bytes(elt), stream>>>(p, C::stage_bytes(elt), C::kBN * elt + 16);
+  return cudaGetLastError();
+}
+
 template <typename T, int KD>
 cudaError_t launch_mma_wide(const Params& p, cudaStream_t stream) {
   constexpr size_t smem = wide_smem_bytes<KD>();
@@ -836,20 +1110,50 @@ cudaError_t dispatch_mask(const Params& p, cudaStream_t stream) {
   return p.mask ? dispatch<T, true>(p, stream) : dispatch<T, false>(p, stream);
 }
 
+// the wgmma variant: 16-bit head-major operands whose rows are whole 16-byte
+// pieces, K read by rows, head dims up to 128; its mask is staged where the
+// mask's rows are 16-byte granular. Mirrored by flash_variant in
+// kernels/flash_attention.py.
+bool use_wgmma(const Params& p) { return p.skd == 1 && rows_aligned16(p) && p.D <= 128 && p.Dv <= 128; }
+bool mask_staged(const Params& p) {
+  const long long elt = p.mask_dtype == 0 ? 4 : 2;
+  return p.smn == 1 && reinterpret_cast<unsigned long long>(p.mask) % 16 == 0 && (p.smb * elt) % 16 == 0 &&
+         (p.smh * elt) % 16 == 0 && (p.smm * elt) % 16 == 0 && (p.N * elt) % 16 == 0;
+}
+
+template <typename T, int KD>
+cudaError_t launch_wgmma_mask(const Params& p, cudaStream_t stream) {
+  if (p.mask == nullptr) return launch_wgmma<T, KD, 0>(p, stream);
+  return mask_staged(p) ? launch_wgmma<T, KD, 1>(p, stream) : launch_wgmma<T, KD, 2>(p, stream);
+}
+
+// the head-major entry: the wgmma variant where it takes the operands, else
+// the variants the packed entry has
+template <typename T>
+cudaError_t dispatch_head_major(const Params& p, cudaStream_t stream) {
+  if constexpr (!std::is_same<T, float>::value) {
+    if (use_wgmma(p))
+      return p.D <= 64 && p.Dv <= 64 ? launch_wgmma_mask<T, 64>(p, stream) : launch_wgmma_mask<T, 128>(p, stream);
+  }
+  return dispatch_mask<T>(p, stream);
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = float16, 2 = bfloat16 (q, k, v and o share it);
-// mask_dtype likewise, read only when mask is not null. strides holds 17
-// element strides: q (batch, head, row), k (batch, head, key, column),
-// v (batch, head, row), o (batch, head, row), mask (batch, head, row, column).
-// Returns a cudaError_t: 0 when the launch was accepted.
-extern "C" int ostt_flash_attention(int dtype, const void* q, const void* k, const void* v,
+// form: 0 = the packed entry (flash_attention_packed), 1 = the head-major
+// entry (flash_attention), which alone may take the wgmma variant. dtype: 0 =
+// float32, 1 = float16, 2 = bfloat16 (q, k, v and o share it); mask_dtype
+// likewise, read only when mask is not null. strides holds 17 element
+// strides: q (batch, head, row), k (batch, head, key, column), v (batch,
+// head, row), o (batch, head, row), mask (batch, head, row, column). Returns
+// a cudaError_t: 0 when the launch was accepted.
+extern "C" int ostt_flash_attention(int form, int dtype, const void* q, const void* k, const void* v,
                                     void* o, const void* mask, int mask_dtype, int B, int M,
                                     int N, int H, int Hkv, int D, int Dv,
                                     const long long* strides, float scale_log2, int causal,
                                     void* stream) {
-  if (B <= 0 || M <= 0 || H <= 0 || Hkv <= 0 || H % Hkv || D % 8 || Dv % 8 || D <= 0 || Dv <= 0 ||
-      mask_dtype < 0 || mask_dtype > 2)
+  if (form < 0 || form > 1 || B <= 0 || M <= 0 || H <= 0 || Hkv <= 0 || H % Hkv || D % 8 || Dv % 8 ||
+      D <= 0 || Dv <= 0 || mask_dtype < 0 || mask_dtype > 2)
     return static_cast<int>(cudaErrorInvalidValue);
   const long long* s = strides;
   const Params p{q,     k,     v,     o,     mask,  B,     M,     N,     H,         Hkv,
@@ -859,8 +1163,8 @@ extern "C" int ostt_flash_attention(int dtype, const void* q, const void* k, con
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0: return static_cast<int>(dispatch_mask<float>(p, st));
-    case 1: return static_cast<int>(dispatch_mask<__half>(p, st));
-    case 2: return static_cast<int>(dispatch_mask<__nv_bfloat16>(p, st));
+    case 1: return static_cast<int>(form ? dispatch_head_major<__half>(p, st) : dispatch_mask<__half>(p, st));
+    case 2: return static_cast<int>(form ? dispatch_head_major<__nv_bfloat16>(p, st) : dispatch_mask<__nv_bfloat16>(p, st));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

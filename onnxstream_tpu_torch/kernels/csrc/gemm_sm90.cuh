@@ -1,7 +1,10 @@
 // Building blocks of the Hopper (sm_90a) matrix-product pipeline shared by
-// csrc/matmul.cu (kernel 9) and csrc/qmatmul.cu (kernel 5, w8_matmul).
+// csrc/matmul.cu (kernel 9), csrc/qmatmul.cu (kernel 5, w8_matmul),
+// csrc/qlinear.cu (kernel 3, the u8 x u8 -> s32 form at the end of this file)
+// and csrc/flash_attention.cu (kernel 2's wgmma variant: the ring, barriers,
+// K-major tiles and the 16-bit wgmma forms with a K-major B or A in registers).
 //
-// Both kernels are a 16-bit product A (M, K) x B (K, N) with B contiguous
+// Kernels 9 and 5 are a 16-bit product A (M, K) x B (K, N) with B contiguous
 // along N, summed in float32. One block is a loading warpgroup, for kernel 5 a
 // converting warpgroup, and one or two consumer warpgroups around a ring of
 // stages in dynamic shared memory:
@@ -117,6 +120,16 @@ G90_DEV void fence_regs(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
+template <int N>
+G90_DEV void fence_regs(int (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+template <int N>
+G90_DEV void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
 
 // shared-memory matrix descriptor: start address, leading and stride byte
 // offsets in 16-byte units, swizzle mode (1 = 128 B, 2 = 64 B, 0 = none)
@@ -130,15 +143,16 @@ G90_DEV uint64_t make_desc(uint32_t addr, uint32_t lbo_bytes, uint32_t sbo_bytes
 G90_DEV uint32_t a_offset(int r, int c) { return r * 128 + ((c ^ (r & 7)) << 4); }
 G90_DEV uint64_t a_desc(uint32_t tile, int ks) { return make_desc(tile + ks * 32, 16, 1024, 1); }
 
-// B tile, MN-major: chunks of SWZ / 2 columns, each 64 k rows of SWZ bytes.
-// The descriptor's leading offset steps from chunk to chunk along N, its
-// stride offset from one group of 8 k rows to the next; k16 step ks starts 16
-// rows further down.
-template <int SWZ>
+// B tile, MN-major: chunks of SWZ / 2 columns, each DEPTH k rows of SWZ bytes
+// (DEPTH = 64 for the k-tiles of kernels 9 and 5; kernel 2's V tile is as deep
+// as its key tile). The descriptor's leading offset steps from chunk to chunk
+// along N, its stride offset from one group of 8 k rows to the next; k16 step
+// ks starts 16 rows further down.
+template <int SWZ, int DEPTH = kBK>
 struct BTile {
   static_assert(SWZ == 128 || SWZ == 64, "swizzle width");
   static constexpr int kChunkCols = SWZ / 2;
-  static constexpr int kChunkBytes = kBK * SWZ;
+  static constexpr int kChunkBytes = DEPTH * SWZ;
   // byte offset of the 16-byte piece holding columns n .. n + 7 of row k
   G90_DEV static uint32_t offset(int k, int n) {
     const int chunk = n / kChunkCols, i = (n % kChunkCols) / 8;
@@ -482,5 +496,161 @@ G90_DEV void named_barrier(int id, int threads) {
 // the first address at or above `addr` that is a multiple of 1024 (the swizzle
 // patterns repeat every 1024 bytes of shared-memory address)
 G90_DEV uint32_t align1024(uint32_t addr) { return (addr + 1023u) & ~1023u; }
+
+// ---- K-major tiles ----------------------------------------------------------
+// A K-major B tile (N rows of 128 bytes under the 128-byte swizzle) has the A
+// tile's form, so its descriptor is a_desc's: 8-row groups 1024 bytes apart,
+// step ks (k16 of a 16-bit type, k32 of an 8-bit one) 32 bytes into the rows.
+// It is the only B layout the 8-bit wgmma reads (no transpose bit for 8-bit
+// types), and the layout of kernel 2's K tile.
+G90_DEV uint64_t kmajor_desc(uint32_t tile, int ks) { return a_desc(tile, ks); }
+
+// cp.async copies of a ROWS x 128-byte K-major tile by thread t of the
+// loading warpgroup: bytes kb0 .. kb0 + 127 of rows r0 .. r0 + ROWS - 1 of a
+// row-major byte matrix (`ld` bytes from row to row, `rows` rows, the first
+// `kb` bytes of each row valid) into the 128-byte-swizzled layout of
+// a_offset, zero past `rows` and `kb`. kb0, kb, ld and `base` are multiples
+// of 16.
+template <int ROWS>
+G90_DEV void load_kmajor_tile(uint32_t dst, const void* base, long long ld, int r0, int rows, int kb0, int kb, int t) {
+  static_assert(ROWS * 8 % kWG == 0, "16-byte pieces divide over the warpgroup");
+#pragma unroll
+  for (int i = 0; i < ROWS * 8 / kWG; ++i) {
+    const int r = t / 8 + (kWG / 8) * i, c = t % 8;
+    const int row = r0 + r, k = kb0 + 16 * c;
+    const bool ok = row < rows && k < kb;
+    const char* src = static_cast<const char*>(base);
+    if (ok) src += row * ld + k;
+    cp_async16(dst + a_offset(r, c), src, ok);
+  }
+}
+
+// ---- 16-bit wgmma with a K-major B, or with A in registers ----------------
+// Register lists of the accumulator forms below (d[0..N / 2 - 1]).
+#define G90_F(x) "+f"(x)
+#define G90_R(x) "+r"(x)
+#define G90_ACC8(c, i) \
+  c(d[(i)]), c(d[(i) + 1]), c(d[(i) + 2]), c(d[(i) + 3]), c(d[(i) + 4]), c(d[(i) + 5]), c(d[(i) + 6]), c(d[(i) + 7])
+#define G90_ACC32(c, i) G90_ACC8(c, i), G90_ACC8(c, (i) + 8), G90_ACC8(c, (i) + 16), G90_ACC8(c, (i) + 24)
+#define G90_ACC64(c) G90_ACC32(c, 0), G90_ACC32(c, 32)
+#define G90_D32                                                                                 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, " \
+  "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define G90_D64                                                                                       \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "       \
+  "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, "   \
+  "%39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "   \
+  "%58, %59, %60, %61, %62, %63}"
+
+// D (64 x N, f32) (+)= A (64 x 16, shared, K-major) x B (16 x N, shared): TB =
+// 0 reads B K-major (N rows), 1 MN-major through the transpose bit. acc = 0
+// overwrites D. Accumulator layout as wgmma_m64n8k16's.
+template <typename T, int N, int TB>
+G90_DEV void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db, int acc) {
+  static_assert(N == 64 || N == 128, "tile width");
+  constexpr bool kHalf = std::is_same<T, __half>::value;
+  if constexpr (N == 64 && kHalf) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 " G90_D32 ", %32, %33, p, 1, 1, 0, %35;\n}\n"
+                 : G90_ACC32(G90_F, 0) : "l"(da), "l"(db), "r"(acc), "n"(TB));
+  } else if constexpr (N == 64) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " G90_D32 ", %32, %33, p, 1, 1, 0, %35;\n}\n"
+                 : G90_ACC32(G90_F, 0) : "l"(da), "l"(db), "r"(acc), "n"(TB));
+  } else if constexpr (kHalf) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 " G90_D64 ", %64, %65, p, 1, 1, 0, %67;\n}\n"
+                 : G90_ACC64(G90_F) : "l"(da), "l"(db), "r"(acc), "n"(TB));
+  } else {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " G90_D64 ", %64, %65, p, 1, 1, 0, %67;\n}\n"
+                 : G90_ACC64(G90_F) : "l"(da), "l"(db), "r"(acc), "n"(TB));
+  }
+}
+
+// D (64 x N, f32) += A (64 x 16, registers) x B (16 x N, shared, MN-major
+// through the transpose bit). Warp w of the warpgroup holds rows 16 w .. 16 w
+// + 15 of A as mma.m16n8k16 holds its A: a[0] = (row g, columns 2 t, 2 t + 1),
+// a[1] = (g + 8, the same), a[2] = (g, 2 t + 8 ..), a[3] = (g + 8, 2 t + 8 ..),
+// g = lane / 4, t = lane % 4: two neighbouring n8 blocks of an accumulator
+// are one k16 slice of A.
+template <typename T, int N>
+G90_DEV void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db) {
+  static_assert(N == 64 || N == 128, "tile width");
+  constexpr bool kHalf = std::is_same<T, __half>::value;
+  if constexpr (N == 64 && kHalf) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 " G90_D32 ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+                 : G90_ACC32(G90_F, 0) : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  } else if constexpr (N == 64) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " G90_D32 ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+                 : G90_ACC32(G90_F, 0) : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  } else if constexpr (kHalf) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 " G90_D64 ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+                 : G90_ACC64(G90_F) : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  } else {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " G90_D64 ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+                 : G90_ACC64(G90_F) : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+}
+
+// ---- the u8 x u8 -> s32 product (kernel 3; kernel 4's gather next) --------
+// Both operands K-major (the 8-bit wgmma has no transpose bit): a k-tile is
+// 128 u8 values, one 128-byte row, so the A tile is byte for byte the 16-bit
+// A tile above and B is N rows of that form. The sums are exact in int32.
+constexpr int kBK8 = 128;
+
+// D (64 x 8, s32) += A (64 x 32 u8, shared, K-major) x B (32 x 8 u8, shared,
+// K-major); D as wgmma_m64n8k16's
+G90_DEV void wgmma_m64n8k32_u8(int (&d)[4], uint64_t da, uint64_t db) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n8k32.s32.u8.u8 {%0, %1, %2, %3}, %4, %5, p;\n}\n"
+               : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+               : "l"(da), "l"(db), "r"(1));
+}
+// the same, 64 x 128
+G90_DEV void wgmma_m64n128k32_u8(int (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n128k32.s32.u8.u8 " G90_D64 ", %64, %65, p;\n}\n"
+               : G90_ACC64(G90_R) : "l"(da), "l"(db), "r"(1));
+}
+
+// One consumer warpgroup's u8 sweep over `nkt` k-tiles of 128 bytes handed
+// over through full0 / empty0 (stage s at + s * stage_bytes of each address):
+// acc (64 x 128) += A tile (64 rows at a0) x B tile (128 rows at b0); rs +=
+// A tile x ones, the row sums of A (rs[0] / rs[2] for the thread's two rows);
+// cs += C tile x ones, where the C tile is 64 rows of the K-major B tile (at
+// c0): the column sums of W for those 64 columns, laid out as rs is. `ones`
+// holds 512 bytes of 0x01.
+template <int STAGES>
+G90_DEV void consume_u8(int (&acc)[64], int (&rs)[4], int (&cs)[4], int nkt, uint32_t a0, uint32_t b0, uint32_t c0,
+                        uint32_t stage_bytes, uint32_t ones, uint32_t full0, uint32_t empty0) {
+  const uint64_t ones_desc = make_desc(ones, 128, 256, 0);
+  fence_regs(acc);
+  fence_regs(rs);
+  fence_regs(cs);
+  for (int it = 0; it < nkt; ++it) {
+    const int s = it % STAGES;
+    mbar_wait(full0 + 8 * s, (it / STAGES) & 1);
+    const uint32_t off = s * stage_bytes;
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < kBK8 / 32; ++ks) {
+      wgmma_m64n128k32_u8(acc, a_desc(a0 + off, ks), kmajor_desc(b0 + off, ks));
+      wgmma_m64n8k32_u8(rs, a_desc(a0 + off, ks), ones_desc);
+      wgmma_m64n8k32_u8(cs, a_desc(c0 + off, ks), ones_desc);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();  // the previous tile's group has retired: its stage is free
+    if (it > 0) mbar_arrive(empty0 + 8 * ((it - 1) % STAGES));
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+  fence_regs(rs);
+  fence_regs(cs);
+}
 
 }  // namespace gemm90

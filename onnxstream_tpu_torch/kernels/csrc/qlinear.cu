@@ -19,8 +19,8 @@
 //    at upload. The output is written in NCHW directly.
 //
 // Exact integer arithmetic. The products run on the tensor cores as
-// mma.sync.m16n8k32.row.col.s32.u8.u8.s32 (u8 operands need no shift by 128),
-// accumulating in int32. |acc| <= 255^2 K < 2^31 while K <= kMaxK = 33025;
+// wgmma.m64nNk32.s32.u8.u8 or mma.sync.m16n8k32.row.col.s32.u8.u8.s32 (u8
+// operands need no shift by 128), accumulating in int32. |acc| <= 255^2 K < 2^31 while K <= kMaxK = 33025;
 // a larger K is refused. At K <= 4608 (the SD VAE's largest) each of
 // dot(A, W), za colsum(W), zw rowsum(A) and K za zw stays under 3.0e8, so
 // the corrections and the bias are subtracted and added in int32 without
@@ -29,22 +29,47 @@
 // the two agree bit for bit. The TPU kernel accumulates in float32 instead and
 // differs by about 2^-24 relative above |acc| = 2^24.
 //
-// Row and column sums. Every block walks the whole K of its 64 rows and 128
-// columns, so it sums its own rows of A and columns of W from the staged
-// tiles (one dp4a per 4 bytes) and needs no separate pass or cached vector.
+// Row and column sums. Every block walks the whole K of its rows and columns,
+// so it sums its own rows of A and columns of W from the staged tiles and
+// needs no separate pass or cached vector.
 //
-// What bounds it on an H100, and what the design does about it: a VAE conv is
-// bound by int8 tensor-core throughput (2 M N K operations at 1979 TOP/s; the
-// whole 512 x 512 decode is 2.48 T operations, about 1.25 ms). This first
-// kernel is the simple mma.sync tile of kernel 6 (qmatmul.cu): 64 x 128 x 64
-// tiles, 8 warps of 32 x 32, the next tile loaded into registers while the
-// current one is multiplied. The conv gather loads bytes (neighbouring threads
-// take neighbouring output pixels, so a warp's loads of one k are contiguous)
-// and the (K, N) MatMul weight is transposed in registers while it is staged
-// (ldmatrix cannot transpose 8-bit elements). Without wgmma, TMA and a deeper
-// pipeline it reaches a small fraction of the peak; that is later work.
-// Ragged M, N and K (conv_in's K = 36, conv_out's N = 3) are masked in the
-// loads: nothing is padded in device memory.
+// What bounds it on an H100: a VAE conv is bound by int8 tensor-core
+// throughput (2 M N K operations at 1979 TOP/s; the whole 512 x 512 decode is
+// 2.48 T operations, about 1.25 ms); the decode's four attention projections
+// (4096 x 512 x 512) by their bytes (A, W and the bf16 output, 6.3 MB: about
+// 2 us a call at 3.35 TB/s), so at that size launch, the first tile's latency
+// and the epilogue's stores decide the time. Two variants, chosen from the
+// weight's layout, K and alignment alone (use_wgmma below, mirrored by
+// qgemm_variant in kernels/qmatmul.py):
+//
+//  * qgemm_wgmma_kernel, the dense MatMul whose weight is given K-major as
+//    (N, K) (the executor uploads the calibrated MatMul weights so, through
+//    WEIGHT_TRANSFORMS["tnk"]), K % 16 == 0 and A and W 16-byte aligned: the
+//    pipeline of gemm_sm90.cuh. A loading warpgroup keeps a ring of four
+//    stages (128 x 128-byte A and W tiles under the 128-byte swizzle, 32 KB a
+//    stage: all four k-tiles of K = 512 in flight at once) full of 16-byte
+//    cp.async copies, zero past M, N and K, and the hardware arrives on each
+//    stage's mbarrier; two consumer warpgroups run
+//    wgmma.m64n128k32.s32.u8.u8 on 128 x 128 output tiles. The 8-bit wgmma
+//    reads only K-major operands, which A already is and the uploaded weight
+//    is, so nothing is transposed at run time. rowsum(A) is an n8 wgmma of
+//    the A tile against a tile of ones, colsum(W) one of the W tile (a valid
+//    K-major A operand) against the same ones: exact in s32, in the same
+//    commit group as the product. The tile leaves through shared memory in
+//    16-byte pieces (OutTile), the bias read once per column. The loader is a
+//    template parameter: kernel 4's gather goes there next.
+//  * qgemm_kernel, every other MatMul (a (K, N) weight, ragged K, unaligned
+//    views) and every conv: the mma.sync tile of kernel 6 (qmatmul.cu), 64 x
+//    128 x 64 tiles, 8 warps of 32 x 32, the next tile loaded into registers
+//    while the current one is multiplied, row and column sums by dp4a. The
+//    conv gather loads bytes (neighbouring threads take neighbouring output
+//    pixels, so a warp's loads of one k are contiguous) and the (K, N) MatMul
+//    weight is transposed in registers while it is staged (mma.sync cannot
+//    transpose 8-bit elements). Ragged M, N and K (conv_in's K = 36,
+//    conv_out's N = 3) are masked in the loads.
+//
+// Both variants add the same int32 terms and round once in the same way, so
+// they give the same bits. Nothing is padded in device memory.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -52,6 +77,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "gemm_sm90.cuh"
 
 namespace {
 
@@ -63,7 +90,7 @@ constexpr int kMaxK = 33025;  // the largest K with 255^2 K < 2^31
 
 struct QParams {
   const uint8_t* a;  // dense: (M, K) row-major; conv: x (B, C, H, W)
-  const uint8_t* w;  // dense: (K, N) row-major; conv: the OIHW weight as (N, K) row-major
+  const uint8_t* w;  // dense: (K, N), or (N, K) on the wgmma pipeline, row-major; conv: the OIHW weight as (N, K)
   const int* bias;   // (N,) in accumulator units, or nullptr
   void* out;         // dense: (M, N) row-major; conv: (B, N, Ho, Wo)
   int M, K, N;
@@ -357,8 +384,166 @@ __global__ void __launch_bounds__(kThreads) qgemm_kernel(const QParams p) {
       }
 }
 
+// ---------------------------------------------------------------------------
+// The dense MatMul on the u8 wgmma pipeline (gemm_sm90.cuh)
+// ---------------------------------------------------------------------------
+
+struct Q8Cfg {
+  static constexpr int kCWG = 2;                              // consumer warpgroups of 64 rows
+  static constexpr int kBM = 64 * kCWG, kBN = 128;
+  static constexpr int kStages = 4;
+  static constexpr int kABytes = kBM * gemm90::kBK8;          // 128 rows of one 128-byte k-tile
+  static constexpr int kStageBytes = kABytes + kBN * gemm90::kBK8;
+  static constexpr int kOnesBytes = 512;
+  static constexpr int kColBytes = 2 * 4 * kBN;               // the tile's column sums and bias
+  // the ring, the tile of ones, the column vectors, the barriers, slack to reach a 1024-byte boundary
+  static constexpr int kSmemBytes = kStages * kStageBytes + kOnesBytes + kColBytes + 16 * kStages + 1024;
+  static constexpr int kThreadsWg = (kCWG + 1) * gemm90::kWG;
+  static_assert(kCWG * gemm90::OutTile<kBN, 4>::kBytes <= kStages * kStageBytes, "the output tiles reuse the ring");
+  static_assert(kSmemBytes <= 232448, "shared memory of a block");
+};
+
+// The loader of the dense MatMul: A (M, K) and the weight as (N, K), both
+// row-major with K bytes a row, into the A and W tiles of a stage.
+struct DenseLoader {
+  __device__ __forceinline__ static void start(const QParams& p, uint32_t stage, int kt, int m0, int n0, int t) {
+    const int k0 = kt * gemm90::kBK8;
+    gemm90::load_kmajor_tile<Q8Cfg::kBM>(stage, p.a, p.K, m0, p.M, k0, p.K, t);
+    gemm90::load_kmajor_tile<Q8Cfg::kBN>(stage + Q8Cfg::kABytes, p.w, p.K, n0, p.N, k0, p.K, t);
+  }
+};
+
+template <typename TO> __device__ __forceinline__ void st_pair(uint32_t addr, TO y0, TO y1);
+template <> __device__ __forceinline__ void st_pair<float>(uint32_t addr, float y0, float y1) {
+  asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" ::"r"(addr), "f"(y0), "f"(y1) : "memory");
+}
+template <> __device__ __forceinline__ void st_pair<uint8_t>(uint32_t addr, uint8_t y0, uint8_t y1) {
+  const unsigned short v = static_cast<unsigned short>(y0 | (y1 << 8));
+  asm volatile("st.shared.u16 [%0], %1;\n" ::"r"(addr), "h"(v) : "memory");
+}
+template <typename TO> __device__ __forceinline__ void st_pair(uint32_t addr, TO y0, TO y1) {
+  alignas(4) TO pair[2] = {y0, y1};
+  gemm90::st_shared4(addr, *reinterpret_cast<const uint32_t*>(pair));
+}
+
+__device__ __forceinline__ int ld_shared_s32(uint32_t addr) {
+  int v;
+  asm volatile("ld.shared.s32 %0, [%1];\n" : "=r"(v) : "r"(addr));
+  return v;
+}
+
+// the exact accumulator, rounded once: float(v) * alpha, then the cast (or
+// + beta, round half to even and clip for a uint8 output)
+template <typename TO>
+__device__ __forceinline__ TO q8_out(int v, const QParams& p) {
+  float y = __fmul_rn(__int2float_rn(v), p.alpha);
+  if constexpr (std::is_same<TO, uint8_t>::value) y = fminf(fmaxf(rintf(__fadd_rn(y, p.beta)), 0.f), 255.f);
+  return from_f32<TO>(y);
+}
+
+// blockIdx = (M tile, N tile). Warpgroups 0 and 1 consume (rows 64 wg ..),
+// warpgroup 2 loads through LOADER.
+template <typename TO, typename LOADER>
+__global__ void __launch_bounds__(Q8Cfg::kThreadsWg, 1) qgemm_wgmma_kernel(const QParams p) {
+  using C = Q8Cfg;
+  using Out = gemm90::OutTile<C::kBN, sizeof(TO)>;
+  constexpr int kWG = gemm90::kWG;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  const uint32_t stage0 = gemm90::align1024(gemm90::smem_u32(smem_raw));
+  const uint32_t ones = stage0 + C::kStages * C::kStageBytes;
+  const uint32_t s_cs = ones + C::kOnesBytes, s_bias = s_cs + 4 * C::kBN;
+  const uint32_t full0 = s_bias + 4 * C::kBN, empty0 = full0 + 8 * C::kStages;
+
+  const int tid = threadIdx.x, wg = tid / kWG, t = tid % kWG;
+  const int M = p.M, N = p.N;
+  const int m0 = blockIdx.x * C::kBM, n0 = blockIdx.y * C::kBN;
+  if (tid == 0) {
+    gemm90::init_barriers<C::kStages>(full0, empty0, kWG, C::kCWG * kWG);
+    gemm90::mbar_init_fence();
+  }
+  if (tid < C::kOnesBytes / 16) {
+    gemm90::st_shared16(ones + 16 * tid, make_uint4(0x01010101u, 0x01010101u, 0x01010101u, 0x01010101u));
+    gemm90::fence_proxy_async();
+  }
+  if (tid < C::kBN) {  // the bias, read once per column
+    const int n = n0 + tid;
+    gemm90::st_shared4(s_bias + 4 * tid, static_cast<uint32_t>(p.bias != nullptr && n < N ? p.bias[n] : 0));
+  }
+  __syncthreads();
+
+  const int nkt = (p.K + gemm90::kBK8 - 1) / gemm90::kBK8;
+  if (wg == C::kCWG) {
+    gemm90::produce<C::kStages>(nkt, full0, empty0, [&](int it, int s) {
+      LOADER::start(p, stage0 + s * C::kStageBytes, it, m0, n0, t);
+    });
+    return;
+  }
+
+  int acc[C::kBN / 2], rs[4] = {0, 0, 0, 0}, cs[4] = {0, 0, 0, 0};
+#pragma unroll
+  for (int i = 0; i < C::kBN / 2; ++i) acc[i] = 0;
+  const uint32_t wtile = stage0 + C::kABytes;
+  gemm90::consume_u8<C::kStages>(acc, rs, cs, nkt, stage0 + wg * 64 * gemm90::kBK8, wtile,
+                                 wtile + wg * 64 * gemm90::kBK8, C::kStageBytes, ones, full0, empty0);
+
+  const int lrow = (t / 32) * 16 + (t % 32) / 4, lcol = 2 * (t % 4);  // within the warpgroup's tile
+  // this warpgroup's column sums are those of columns 64 wg + lrow and + 8
+  if (t % 4 == 0) {
+    gemm90::st_shared4(s_cs + 4 * (64 * wg + lrow), static_cast<uint32_t>(cs[0]));
+    gemm90::st_shared4(s_cs + 4 * (64 * wg + lrow + 8), static_cast<uint32_t>(cs[2]));
+  }
+  // the column sums are in, and every consumer is past its last wgmma: the
+  // ring is free for the output tiles
+  gemm90::named_barrier(1, C::kCWG * kWG);
+  const uint32_t tile = stage0 + wg * Out::kBytes;
+  const int kzz = p.K * p.za * p.zw;
+#pragma unroll
+  for (int j = 0; j < C::kBN / 8; ++j) {
+    const int c = lcol + 8 * j;
+    // bias - za colsum(W) + K za zw of the two columns
+    const int c0 = ld_shared_s32(s_bias + 4 * c) - p.za * ld_shared_s32(s_cs + 4 * c) + kzz;
+    const int c1 = ld_shared_s32(s_bias + 4 * c + 4) - p.za * ld_shared_s32(s_cs + 4 * c + 4) + kzz;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = p.zw * rs[2 * h];
+      st_pair<TO>(Out::at(tile, lrow + 8 * h, c), q8_out<TO>(acc[4 * j + 2 * h] - r + c0, p),
+                  q8_out<TO>(acc[4 * j + 2 * h + 1] - r + c1, p));
+    }
+  }
+  gemm90::named_barrier(2 + wg, kWG);
+  const int mt = m0 + 64 * wg;
+  if ((static_cast<long long>(N) * sizeof(TO)) % 16 == 0) {
+    Out::flush(tile, p.out, mt, n0, M, N, t);
+  } else {  // rows that are not whole 16-byte pieces: element by element
+    const uint8_t* src = smem_raw + (tile - gemm90::smem_u32(smem_raw));
+    TO* out = static_cast<TO*>(p.out);
+    for (int i = t; i < 64 * C::kBN; i += kWG) {
+      const int r = i / C::kBN, c = i % C::kBN;
+      if (mt + r < M && n0 + c < N)
+        out[static_cast<size_t>(mt + r) * N + n0 + c] = *reinterpret_cast<const TO*>(src + r * Out::kPitch + c * sizeof(TO));
+    }
+  }
+}
+
 bool aligned(const void* ptr, unsigned long long bytes) {
   return reinterpret_cast<unsigned long long>(ptr) % bytes == 0;
+}
+
+// the wgmma pipeline takes a MatMul whose weight is K-major (N, K), with
+// rows that are whole 16-byte pieces; mirrored by qgemm_variant in
+// kernels/qmatmul.py
+bool use_wgmma(const QParams& p, bool conv, bool w_nk) {
+  return !conv && w_nk && p.K % 16 == 0 && aligned(p.a, 16) && aligned(p.w, 16);
+}
+
+template <typename TO>
+cudaError_t launch_wgmma(const QParams& p, cudaStream_t stream) {
+  auto kernel = qgemm_wgmma_kernel<TO, DenseLoader>;
+  static cudaError_t attr = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Q8Cfg::kSmemBytes);
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid((p.M + Q8Cfg::kBM - 1) / Q8Cfg::kBM, (p.N + Q8Cfg::kBN - 1) / Q8Cfg::kBN);
+  kernel<<<grid, Q8Cfg::kThreadsWg, Q8Cfg::kSmemBytes, stream>>>(p);
+  return cudaGetLastError();
 }
 
 template <typename TO, bool CONV, bool AVEC, bool WVEC>
@@ -371,7 +556,9 @@ cudaError_t launch(const QParams& p, cudaStream_t stream) {
 // vector loads where the rows allow them: the conv's (N, K) weight rows by
 // sixteen bytes; the dense A rows by sixteen bytes and (K, N) weight rows by four
 template <typename TO>
-cudaError_t dispatch(const QParams& p, bool conv, cudaStream_t stream) {
+cudaError_t dispatch(const QParams& p, bool conv, bool w_nk, cudaStream_t stream) {
+  if (use_wgmma(p, conv, w_nk)) return launch_wgmma<TO>(p, stream);
+  if (w_nk) return cudaErrorInvalidValue;  // a K-major dense weight only on the wgmma pipeline
   if (conv) {
     if (p.K % 16 == 0 && aligned(p.w, 16)) return launch<TO, true, false, true>(p, stream);
     return launch<TO, true, false, false>(p, stream);
@@ -384,16 +571,17 @@ cudaError_t dispatch(const QParams& p, bool conv, cudaStream_t stream) {
 
 }  // namespace
 
-// conv: null for a MatMul, A u8 (M, K) and W u8 (K, N), both row-major, out
-// (M, N); or 13 ints C, H, W, kh, kw, stride h, w, pad top, left, dilation
-// h, w, Ho, Wo for a convolution, A the u8 (B, C, H, W) input, W the u8 OIHW
-// weight as (N, K) row-major (M = B Ho Wo, K = C kh kw), out (B, N, Ho, Wo).
-// bias: (N,) int32 in accumulator units, or null. out_kind: 0 = float32, 1 =
-// float16, 2 = bfloat16, 3 = uint8. K above kMaxK is refused. Returns a
-// cudaError_t: 0 when the launch was accepted.
+// conv: null for a MatMul, A u8 (M, K) and W u8 (K, N), or with w_nk != 0
+// W as (N, K) (K % 16 == 0, A and W 16-byte aligned: refused otherwise), all
+// row-major, out (M, N); or 13 ints C, H, W, kh, kw, stride h, w, pad top,
+// left, dilation h, w, Ho, Wo for a convolution, A the u8 (B, C, H, W) input,
+// W the u8 OIHW weight as (N, K) row-major (M = B Ho Wo, K = C kh kw), out
+// (B, N, Ho, Wo), w_nk 0. bias: (N,) int32 in accumulator units, or null.
+// out_kind: 0 = float32, 1 = float16, 2 = bfloat16, 3 = uint8. K above kMaxK
+// is refused. Returns a cudaError_t: 0 when the launch was accepted.
 extern "C" int ostt_qgemm(const void* a, const void* w, const void* bias, void* out, int out_kind,
                           int M, int K, int N, int za, int zw, float alpha, float beta,
-                          const int* conv, void* stream) {
+                          const int* conv, int w_nk, void* stream) {
   if (M <= 0 || K <= 0 || K > kMaxK || N <= 0 || za < 0 || za > 255 || zw < 0 || zw > 255)
     return static_cast<int>(cudaErrorInvalidValue);
   QParams p{static_cast<const uint8_t*>(a), static_cast<const uint8_t*>(w), static_cast<const int*>(bias),
@@ -407,10 +595,10 @@ extern "C" int ostt_qgemm(const void* a, const void* w, const void* bias, void* 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool c = conv != nullptr;
   switch (out_kind) {
-    case 0: return static_cast<int>(dispatch<float>(p, c, st));
-    case 1: return static_cast<int>(dispatch<__half>(p, c, st));
-    case 2: return static_cast<int>(dispatch<__nv_bfloat16>(p, c, st));
-    case 3: return static_cast<int>(dispatch<uint8_t>(p, c, st));
+    case 0: return static_cast<int>(dispatch<float>(p, c, w_nk != 0, st));
+    case 1: return static_cast<int>(dispatch<__half>(p, c, w_nk != 0, st));
+    case 2: return static_cast<int>(dispatch<__nv_bfloat16>(p, c, w_nk != 0, st));
+    case 3: return static_cast<int>(dispatch<uint8_t>(p, c, w_nk != 0, st));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

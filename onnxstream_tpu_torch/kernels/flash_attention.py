@@ -11,8 +11,11 @@ One kernel, ``csrc/flash_attention.cu``, replaces both TPU flash kernels of
 
 The kernel reads every operand in place through strides, so unlike the TPU
 wrappers it makes no padded copy of Q, K, V or the mask (the TPU wrapper's
-lane padding and VMEM clamp have no meaning here). See the source for its
-design and what bounds it.
+lane padding and VMEM clamp have no meaning here). Each wrapper names its
+form to the C entry; only the head-major one may take the ``wgmma`` pipeline
+(bf16 / fp16, head dims up to 128, 16-byte aligned rows, K by rows), which
+``flash_variant`` mirrors. See the source for the variants' design and what
+bounds them.
 
 ``flash_attention_reference`` is the plain PyTorch twin: the same function
 computed in float32 with materialized scores, in the kernel's order of
@@ -166,18 +169,53 @@ def head_major_problem(q, k, v, mask=None, k_transposed: bool = False) -> Option
     return None
 
 
-def _launch(q, k, v, out, mask, dims, strides, scale: float, causal: bool) -> None:
+_FORM = {"packed": 0, "head_major": 1}
+
+
+def _rows_aligned16(ptrs, strides, k_by_rows: bool) -> bool:
+    """csrc rows_aligned16: q, v, o (and k when read by rows) start at 16-byte
+    boundaries and every batch, head and row stride is a multiple of 8
+    elements. ``ptrs`` are q, k, v, o; ``strides`` the 17 of the launch."""
+    q, k, v, o = ptrs
+    rows = [strides[i] for i in (0, 1, 2, 7, 8, 9, 10, 11, 12)] + (list(strides[3:6]) if k_by_rows else [])
+    return all(p % 16 == 0 for p in (q, v, o, *((k,) if k_by_rows else ()))) and all(x % 8 == 0 for x in rows)
+
+
+def _variant(form: str, dtype: torch.dtype, d: int, dv: int, ptrs, strides, mask_ptr: Optional[int],
+             mask_dtype: Optional[torch.dtype], n: int) -> str:
+    """The kernel of ``csrc/flash_attention.cu`` that a launch takes, as its
+    dispatchers (``dispatch_head_major``, ``dispatch``) decide from the form,
+    dtype, head dims, strides and pointers."""
+    k_by_rows = strides[6] == 1
+    aligned = _rows_aligned16(ptrs, strides, k_by_rows)
+    kd = max(d, dv)
+    if dtype != torch.float32 and aligned:
+        if form == "head_major" and k_by_rows and kd <= 128:
+            if mask_ptr is None:
+                return "wgmma"
+            elt = mask_dtype.itemsize
+            smb, smh, smm, smn = strides[13:]
+            staged = (smn == 1 and mask_ptr % 16 == 0 and all(x * elt % 16 == 0 for x in (smb, smh, smm, n)))
+            return "wgmma" if staged else "wgmma_gmask"
+        if kd <= 128:
+            return "mma"
+        if mask_ptr is None and 256 < kd <= 512:
+            return "mma_wide"
+    return "fma"
+
+
+def _launch(form: str, q, k, v, out, mask, dims, strides, scale: float, causal: bool) -> None:
     """One launch on the current stream; raises when CUDA refuses it."""
     lib = build.load("flash_attention")
     fn = lib.ostt_flash_attention
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
+    fn.argtypes = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
                    + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_int,
                       ctypes.c_void_p])
     arr = (ctypes.c_longlong * 17)(*[int(s) for s in strides])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(_DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        rc = fn(_FORM[form], _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 None if mask is None else mask.data_ptr(),
                 0 if mask is None else _DTYPE_CODE[mask.dtype], *dims, arr,
                 float(scale) * LOG2_E, int(bool(causal)), stream)
@@ -212,9 +250,46 @@ def flash_attention_packed(q, k, v, heads: int, scale: Optional[float] = None,
     # head h starts h*D columns into its row: head stride D, unit column stride
     strides = (q.stride(0), d, q.stride(1), k.stride(0), d, k.stride(1), 1,
                v.stride(0), dv, v.stride(1), out.stride(0), dv, out.stride(1), 0, 0, 0, 0)
-    _launch(q, k, v, out, None, (b, m, n, heads, hkv, d, dv), strides, scale, causal)
+    _launch("packed", q, k, v, out, None, (b, m, n, heads, hkv, d, dv), strides, scale, causal)
     flash_attention_packed.launches += 1
     return out
+
+
+def _head_major_launch(q, k, v, mask, k_transposed: bool):
+    """(dims, strides, the mask as a (B, H, M, N) view) of a head-major launch
+    whose output is a fresh contiguous (B, H, M, Dv) tensor."""
+    b, h, m, d = q.shape
+    hkv, dv = k.shape[1], v.shape[-1]
+    n = k.shape[3] if k_transposed else k.shape[2]
+    skn, skd = (k.stride(3), k.stride(2)) if k_transposed else (k.stride(2), k.stride(3))
+    # a broadcast view has stride 0 on the dims the mask does not have
+    m4 = None if mask is None else _lift_mask(mask).expand(b, h, m, n)
+    strides = (q.stride(0), q.stride(1), q.stride(2), k.stride(0), k.stride(1), skn, skd,
+               v.stride(0), v.stride(1), v.stride(2), h * m * dv, m * dv, dv,
+               *((0, 0, 0, 0) if m4 is None else m4.stride()))
+    return (b, m, n, h, hkv, d, dv), strides, m4
+
+
+def flash_variant(q, k, v, mask=None, k_transposed: bool = False, form: str = "head_major") -> str:
+    """Which kernel of ``csrc/flash_attention.cu`` a call of ``flash_attention``
+    (``form="head_major"``) or ``flash_attention_packed`` (``"packed"``, the
+    operands then head-major views of the packed tensors) takes, from dtype,
+    head dims, strides and pointers as the C dispatchers decide:
+
+      * ``"wgmma"``: the head-major entry only; bf16 / fp16, head dims up to
+        128, K read by rows, 16-byte aligned Q / K / V / O rows; the mask
+        (if any) staged as 16-byte pieces; ``"wgmma_gmask"`` the same with a
+        mask whose rows are not 16-byte granular, read element by element;
+      * ``"mma"``: bf16 / fp16, head dims up to 128, aligned rows (a K given
+        transposed, or the packed entry);
+      * ``"mma_wide"``: bf16 / fp16 head dims 257..512 without a mask;
+      * ``"fma"``: everything else (float32, misaligned rows)."""
+    if q.ndim == 3:
+        q, k, v = q[None], k[None], v[None]
+    dims, strides, m4 = _head_major_launch(q, k, v, mask, k_transposed)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), 0)  # the output is a fresh, aligned tensor
+    return _variant(form, q.dtype, dims[5], dims[6], ptrs, strides,
+                    None if m4 is None else m4.data_ptr(), None if m4 is None else m4.dtype, dims[2])
 
 
 def flash_attention(q, k, v, mask=None, scale: Optional[float] = None,
@@ -224,6 +299,7 @@ def flash_attention(q, k, v, mask=None, scale: Optional[float] = None,
     in q's dtype. Rank-3 (H, L, D) inputs are lifted to batch 1. ``mask`` is
     an additive mask that broadcasts to (B, H, M, N) after lifting: (M, N),
     (B, M, N) as (B, 1, M, N), (1|B, 1|H, M, N), ...; GQA when H != Hkv.
+    Which kernel variant runs is ``flash_variant``'s answer.
 
     On CUDA tensors it launches the kernel on the current stream, or raises;
     on CPU tensors it computes the plain twin. Every launch adds one to
@@ -234,26 +310,19 @@ def flash_attention(q, k, v, mask=None, scale: Optional[float] = None,
     problem = head_major_problem(q, k, v, mask, k_transposed)
     if problem is not None:
         raise ValueError(f"flash_attention: {problem}")
-    b, h, m, d = q.shape
-    hkv, dv = k.shape[1], v.shape[-1]
-    n = k.shape[3] if k_transposed else k.shape[2]
     if scale is None:
-        scale = 1.0 / math.sqrt(d)
+        scale = 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, mask=mask, scale=scale,
                                          k_transposed=k_transposed, causal=causal)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on CUDA or CPU tensors, not {q.device}")
+    dims, strides, m4 = _head_major_launch(q, k, v, mask, k_transposed)
+    b, m, _, h, _, _, dv = dims
     out = torch.empty((b, h, m, dv), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    skn, skd = (k.stride(3), k.stride(2)) if k_transposed else (k.stride(2), k.stride(3))
-    # a broadcast view has stride 0 on the dims the mask does not have
-    m4 = None if mask is None else _lift_mask(mask).expand(b, h, m, n)
-    strides = (q.stride(0), q.stride(1), q.stride(2), k.stride(0), k.stride(1), skn, skd,
-               v.stride(0), v.stride(1), v.stride(2), out.stride(0), out.stride(1), out.stride(2),
-               *((0, 0, 0, 0) if m4 is None else m4.stride()))
-    _launch(q, k, v, out, m4, (b, m, n, h, hkv, d, dv), strides, scale, causal)
+    _launch("head_major", q, k, v, out, m4, dims, strides, scale, causal)
     flash_attention.launches += 1
     return out
 

@@ -11,7 +11,10 @@
     ``kernels/qconv.py qconv`` runs every group-1 Conv through the same
     launch as an implicit GEMM. ``quantize_activation`` is the runtime's
     float -> uint8 step in front of it (plain torch ops, as JAX keeps it
-    outside Pallas).
+    outside Pallas). A MatMul whose weight comes K-major as (N, K)
+    (``weight_nk``; the executor uploads the calibrated MatMul weights so)
+    runs on the u8 ``wgmma`` pipeline of ``csrc/gemm_sm90.cuh``; every other
+    call on the ``mma.sync`` kernel (``qgemm_variant``).
 
 ``csrc/qmatmul.cu`` replaces two more TPU kernels of the same file:
 
@@ -71,8 +74,8 @@ _WORKSPACE: Dict[torch.device, torch.Tensor] = {}
 _FUNCS: Dict[str, object] = {}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
-    # a, w, bias, out, out_kind, M, K, N, za, zw, alpha, beta, conv, stream
-    "ostt_qgemm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P, _P],
+    # a, w, bias, out, out_kind, M, K, N, za, zw, alpha, beta, conv, w_nk, stream
+    "ostt_qgemm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P, _I, _P],
     # dtype, a, w, ws, ws_scalar, out, workspace, M, K, N, stream
     "ostt_w8a8_dyn_matmul": [_I, _P, _P, _P, _F, _P, _P, _I, _I, _I, _P],
     # dtype, a, w, sw, zw, sw_scalar, zw_scalar, out, M, K, N, bm, splits, workspace, stream
@@ -281,9 +284,14 @@ def quantize_activation(x: torch.Tensor, scale: float, zero: int) -> torch.Tenso
     as JAX ``quantize_activation``: round half to even of ``x / scale`` in
     float32, plus the zero point, clipped to 0..255. The divisor is a tensor
     on x's device, so the division is IEEE on the card too (PyTorch's CUDA
-    kernel turns a CPU-scalar divisor into a multiply by its reciprocal)."""
+    kernel turns a CPU-scalar divisor into a multiply by its reciprocal).
+    The result is contiguous: an activation that arrives M-major (the VAE's
+    attention projections get a transposed view) is laid out row-major by the
+    float32 conversion the step makes anyway, not by a copy of the uint8
+    tensor in front of every kernel 3 launch."""
     s = torch.full((), float(scale), dtype=torch.float32, device=x.device)
-    q = torch.round(x.float() / s).add_(float(zero))
+    xf = x.to(torch.float32, memory_format=torch.contiguous_format).contiguous()  # no copy when it already is
+    q = torch.round(xf / s).add_(float(zero))
     return q.clamp_(0, 255).to(torch.uint8)
 
 
@@ -311,13 +319,13 @@ def _check_k(k: int, name: str) -> None:
         raise ValueError(f"{name}: K = {k} above {QGEMM_MAX_K}, where the int32 accumulator could overflow")
 
 
-def _qparams(a_q, w_q, a_scale, a_zero, w_scale, w_zero, out_scale, out_zero):
+def _qparams(a_q, w_q, a_scale, a_zero, w_scale, w_zero, out_scale, out_zero, weight_nk=False):
     """(K, N, za, zw, alpha, beta) of a W8A8 product; raises on what the
     kernel does not take."""
     if a_q.dtype != torch.uint8 or w_q.dtype != torch.uint8 or w_q.ndim != 2:
         raise TypeError(f"qmatmul: uint8 (..., M, K) x 2-D uint8 weight, got {a_q.dtype} "
                         f"{tuple(a_q.shape)} x {w_q.dtype} {tuple(w_q.shape)}")
-    k, n = w_q.shape
+    n, k = w_q.shape if weight_nk else w_q.shape[::-1]
     if a_q.ndim < 1 or a_q.shape[-1] != k:
         raise ValueError(f"qmatmul: shapes {tuple(a_q.shape)} x {tuple(w_q.shape)} do not chain")
     _check_k(k, "qmatmul")
@@ -349,11 +357,14 @@ def _qepilogue(acc: torch.Tensor, alpha: float, beta: float, out_u8: bool,
 def qmatmul_reference(a_q: torch.Tensor, w_q: torch.Tensor, a_scale: float, a_zero: int,
                       w_scale: float, w_zero: int, out_scale: Optional[float] = None,
                       out_zero: Optional[int] = None, bias=None,
-                      out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                      out_dtype: torch.dtype = torch.float32, weight_nk: bool = False) -> torch.Tensor:
     """Plain twin of kernel 3: the zero-point-shifted integer product in
-    float64 (exact), the int32 bias, then the kernel's epilogue."""
-    k, n, za, zw, alpha, beta = _qparams(a_q, w_q, a_scale, a_zero, w_scale, w_zero, out_scale, out_zero)
-    acc = (a_q.reshape(-1, k).double() - za) @ (w_q.double() - zw)
+    float64 (exact), the int32 bias, then the kernel's epilogue. The weight
+    is (K, N), or (N, K) with ``weight_nk``: the same bits either way."""
+    k, n, za, zw, alpha, beta = _qparams(a_q, w_q, a_scale, a_zero, w_scale, w_zero, out_scale, out_zero,
+                                         weight_nk)
+    wk = w_q.t() if weight_nk else w_q
+    acc = (a_q.reshape(-1, k).double() - za) @ (wk.double() - zw)
     b = _acc_bias(bias, n, a_q.device)
     if b is not None:
         acc += b.double()
@@ -361,13 +372,28 @@ def qmatmul_reference(a_q: torch.Tensor, w_q: torch.Tensor, a_scale: float, a_ze
     return out.reshape(*a_q.shape[:-1], n)
 
 
+def qgemm_variant(m: int, k: int, n: int, weight_nk: bool, a_ptr: int = 0, w_ptr: int = 0,
+                  conv: bool = False) -> str:
+    """Which kernel of ``csrc/qlinear.cu`` a W8A8 product runs on, as its
+    dispatcher decides from the weight's layout, K and pointer alignment
+    (``use_wgmma`` there): ``"wgmma"`` for a MatMul whose weight is given
+    K-major as (N, K), with K a multiple of 16 and 16-byte aligned A and W
+    (ragged M and N are zero-filled by the copies), else ``"mma"`` (every
+    conv, every (K, N) weight). An (N, K) weight that misses the wgmma
+    predicate is refused."""
+    if not conv and weight_nk and k % 16 == 0 and a_ptr % 16 == 0 and w_ptr % 16 == 0:
+        return "wgmma"
+    return "mma"
+
+
 def _qgemm(a: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor], out: torch.Tensor,
            m: int, k: int, n: int, za: int, zw: int, alpha: float, beta: float,
-           conv: Optional[Tuple[int, ...]] = None) -> None:
+           conv: Optional[Tuple[int, ...]] = None, weight_nk: bool = False) -> None:
     """One launch of ``csrc/qlinear.cu`` on the current stream: a MatMul of
-    a (K, N) weight, or with ``conv`` (the geometry) a convolution of the
-    OIHW weight as (N, K) that writes NCHW. Raises when CUDA refuses it. Adds
-    one to ``qmatmul.launches``."""
+    a (K, N) weight (or of an (N, K) one with ``weight_nk``), or with
+    ``conv`` (the geometry) a convolution of the OIHW weight as (N, K) that
+    writes NCHW. Raises when CUDA refuses it. Adds one to
+    ``qmatmul.launches``."""
     _check_cuda("qmatmul", a, w, out, *([bias] if bias is not None else []))
     geo = None if conv is None else (ctypes.c_int * 13)(*conv)
     fn = _func("ostt_qgemm")
@@ -375,7 +401,7 @@ def _qgemm(a: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor], out: 
         stream = torch.cuda.current_stream(a.device).cuda_stream
         rc = fn(a.data_ptr(), w.data_ptr(), None if bias is None else bias.data_ptr(), out.data_ptr(),
                 _OUT_KIND[out.dtype], m, k, n, za, zw, alpha, beta,
-                None if geo is None else ctypes.addressof(geo), stream)
+                None if geo is None else ctypes.addressof(geo), int(weight_nk), stream)
     if rc != 0:
         raise RuntimeError(f"qmatmul: kernel launch failed with CUDA error {rc}")
     qmatmul.launches += 1
@@ -383,12 +409,17 @@ def _qgemm(a: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor], out: 
 
 def qmatmul(a_q: torch.Tensor, w_q: torch.Tensor, a_scale: float, a_zero: int, w_scale: float,
             w_zero: int, out_scale: Optional[float] = None, out_zero: Optional[int] = None, bias=None,
-            out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+            out_dtype: torch.dtype = torch.float32, weight_nk: bool = False) -> torch.Tensor:
     """Calibrated W8A8: uint8 (..., M, K) x uint8 (K, N) -> (..., M, N), K
-    at most ``QGEMM_MAX_K``. Scales and zero points are per tensor (numbers). ``bias`` is an (N,) vector in
-    accumulator units (``b / (a_scale * w_scale)``), truncated toward zero to
-    int32 as ``qconv`` passes it. With ``out_scale``/``out_zero`` the output
-    is requantized uint8, else float in ``out_dtype``.
+    at most ``QGEMM_MAX_K``. With ``weight_nk`` the weight is given K-major
+    as (N, K), the form the executor uploads for calibrated MatMuls
+    (``WEIGHT_TRANSFORMS["tnk"]``), and runs on the wgmma pipeline; it then
+    needs K a multiple of 16 and 16-byte aligned rows (``qgemm_variant``).
+    Scales and zero points are per tensor (numbers). ``bias`` is an (N,)
+    vector in accumulator units (``b / (a_scale * w_scale)``), truncated
+    toward zero to int32 as ``qconv`` passes it. With ``out_scale``/
+    ``out_zero`` the output is requantized uint8, else float in
+    ``out_dtype``.
 
     On CUDA tensors it launches the kernel on the current stream, or raises;
     on CPU tensors it computes the plain twin. Every launch adds one to
@@ -396,15 +427,21 @@ def qmatmul(a_q: torch.Tensor, w_q: torch.Tensor, a_scale: float, a_zero: int, w
     if not a_q.is_cuda:
         if a_q.device.type == "cpu":
             return qmatmul_reference(a_q, w_q, a_scale, a_zero, w_scale, w_zero, out_scale,
-                                     out_zero, bias, out_dtype)
+                                     out_zero, bias, out_dtype, weight_nk)
         raise ValueError(f"qmatmul runs on CUDA or CPU tensors, not {a_q.device}")
-    k, n, za, zw, alpha, beta = _qparams(a_q, w_q, a_scale, a_zero, w_scale, w_zero, out_scale, out_zero)
+    k, n, za, zw, alpha, beta = _qparams(a_q, w_q, a_scale, a_zero, w_scale, w_zero, out_scale, out_zero,
+                                         weight_nk)
     a2 = a_q.reshape(-1, k).contiguous()
+    w2 = w_q.contiguous()
     m = a2.shape[0]
+    if weight_nk and qgemm_variant(m, k, n, True, a2.data_ptr(), w2.data_ptr()) != "wgmma":
+        raise ValueError(f"qmatmul: an (N, K) weight needs K % 16 == 0 and 16-byte aligned rows "
+                         f"(K = {k}, A at {a2.data_ptr() % 16}, W at {w2.data_ptr() % 16} mod 16)")
     out = torch.empty((m, n), dtype=torch.uint8 if out_scale is not None else out_dtype,
                       device=a_q.device)
     if out.numel():
-        _qgemm(a2, w_q.contiguous(), _acc_bias(bias, n, a_q.device), out, m, k, n, za, zw, alpha, beta)
+        _qgemm(a2, w2, _acc_bias(bias, n, a_q.device), out, m, k, n, za, zw, alpha, beta,
+               weight_nk=weight_nk)
     return out.reshape(*a_q.shape[:-1], n)
 
 

@@ -87,10 +87,35 @@ def _t9co(a: torch.Tensor) -> torch.Tensor:
     return oihw_to_w9co(a)
 
 
+def _tnk(a: torch.Tensor) -> torch.Tensor:
+    """(K, N) MatMul weight -> (N, K): the K-major B operand of kernel 3's u8
+    wgmma pipeline (kernels/qmatmul.py qmatmul with ``weight_nk``), which has
+    no transpose for 8-bit operands. The relayout happens once on the host at
+    upload."""
+    return a.t().contiguous()
+
+
 # name -> host relayout of a fetched weight (a CPU tensor in file layout);
 # the executor applies it between provider.get and the upload. The provider
 # keeps the file layout.
-WEIGHT_TRANSFORMS = {"t9oc": _t9oc, "t9co": _t9co}
+WEIGHT_TRANSFORMS = {"t9oc": _t9oc, "t9co": _t9co, "tnk": _tnk}
+
+
+def qlinear_mode(op: OpNode, config: SessionConfig) -> Optional[str]:
+    """The calibrated W8A8 route of an op, ``"matmul"`` or ``"conv"``, or None:
+    ``use_uint8_arithmetic``, a uint8 weight from the file and a range for
+    the op (reference static-W8A8 MatMul src/onnxstream.cpp:5790-5795 and qu8
+    Conv 4631-4689; JAX ``_qlinear_mode``). The executor takes the route when
+    the weight is also a streamed argument; the planner uploads such MatMul
+    weights K-major (``_tnk``)."""
+    if not (config.use_uint8_arithmetic and len(op.inputs) >= 2 and op.inputs[1].is_weight
+            and op.inputs[1].dtype == DType.uint8 and op.name in config.range_data):
+        return None
+    if op.op_type == "MatMul":
+        return "matmul"
+    if op.op_type == "Conv" and op.attr_int("group", 1) == 1:
+        return "conv"
+    return None
 
 
 @dataclasses.dataclass
@@ -158,6 +183,12 @@ class _Planner:
         self.op_modes: List[str] = []
         self.input_values = input_values or {}
         self.pinned_inputs: Dict[str, np.ndarray] = {}
+        # weight name -> ops reading it: a tied weight keeps the file layout
+        self._wuse: Dict[str, int] = {}
+        for op in graph.ops:
+            for t in op.inputs:
+                if t.is_weight:
+                    self._wuse[t.name] = self._wuse.get(t.name, 0) + 1
 
     # -- value resolution ----------------------------------------------------
     def _resolve(self, spec: TensorSpec):
@@ -190,7 +221,17 @@ class _Planner:
             arr = ((arr.astype(np.float32) - spec.zero_point) * spec.scale).astype(np.float32)
         self.static_weights[spec.name] = arr
 
-    def _promote_weight_to_arg(self, spec: TensorSpec) -> WeightArg:
+    def _kmajor(self, op: OpNode, i: int) -> bool:
+        """Whether input i of op is the weight of a calibrated W8A8 MatMul that
+        uploads K-major, as (N, K) through WEIGHT_TRANSFORMS["tnk"], for kernel
+        3's wgmma pipeline: 2-D, K a multiple of 16 (the pipeline's
+        predicate), read by this op alone (a tied weight keeps the file
+        layout, as rewrite_smallconv leaves tied convs alone)."""
+        spec = op.inputs[i]
+        return (i == 1 and qlinear_mode(op, self.config) == "matmul" and len(spec.shape) == 2
+                and spec.shape[0] % 16 == 0 and not spec.transform and self._wuse.get(spec.name, 0) == 1)
+
+    def _promote_weight_to_arg(self, spec: TensorSpec, kmajor: bool = False) -> WeightArg:
         w = self._arg_set.get(spec.name)
         if w is None:
             quant = (spec.scale, spec.zero_point) if spec.dtype == DType.uint8 else None
@@ -208,6 +249,8 @@ class _Planner:
                 transform=spec.transform,
                 file_shape=spec.file_shape,
             )
+            if kmajor:
+                w.shape, w.transform, w.file_shape = (spec.shape[1], spec.shape[0]), "tnk", spec.shape
             self._arg_set[spec.name] = w
             self.arg_weights.append(w)
         return w
@@ -276,7 +319,7 @@ class _Planner:
         # commit: promote undecided weights used dynamically to args
         for i, (kind, _) in enumerate(kinds):
             if kind == "weight":
-                self._promote_weight_to_arg(op.inputs[i])
+                self._promote_weight_to_arg(op.inputs[i], self._kmajor(op, i))
 
         self.op_modes.append("device")
         self._check_and_store(op, outs, device=True)

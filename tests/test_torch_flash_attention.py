@@ -22,6 +22,7 @@ from onnxstream_tpu_torch.kernels.flash_attention import (
     flash_attention_packed,
     flash_attention_packed_reference,
     flash_attention_reference,
+    flash_variant,
     head_major_problem,
 )
 from onnxstream_tpu_torch.ops.attention import (
@@ -397,3 +398,106 @@ def test_head_major_kernel_matches_twin_on_card(dtype, tol):
         torch.cuda.synchronize()
         ref = flash_attention_reference(q, k, v, mask=mask, k_transposed=kt, causal=causal)
         torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+
+
+# ------------------------------------------------------------- the wgmma variant
+def _variant_site(case):
+    """(q, k, v, mask, k_transposed, form) of a flash_variant case: CPU tensors
+    (the choice reads dtypes, shapes, strides and pointers only), bf16, the
+    TinyLlama prefill site unless the case says otherwise."""
+    b, h, hkv, m, n, d = 1, 32, 32, 1024, 1024, 64
+    dt, mdt, kt, form, mask_shape = torch.bfloat16, None, False, "head_major", (1, 1, m, n)
+    if case == "gqa_4_kv_heads":
+        hkv = 4
+    elif case == "float32":
+        dt = torch.float32
+    elif case == "float16_f32_mask":
+        dt, mdt = torch.float16, torch.float32
+    elif case == "d128_no_mask":
+        d, mask_shape = 128, None
+    elif case == "d256":
+        d = 256
+    elif case == "ragged_mask_rows":  # 700 bf16 keys: mask rows of 1400 bytes
+        n, mask_shape = 700, (1, 1, m, 700)
+    elif case == "mask_broadcast_over_keys":
+        mask_shape = (1, 1, m, 1)
+    elif case == "k_transposed":
+        kt = True
+    elif case.startswith("packed"):
+        form = "packed"
+        mask_shape = None
+        d = 512 if case == "packed_d512" else 40
+        h = hkv = 1 if d == 512 else 8
+        m = n = 4096
+    q = torch.zeros(b, h, m, d, dtype=dt)
+    if case == "q_rows_off_16_bytes":
+        q = torch.zeros(b, h, m, d + 8, dtype=dt)[..., 4:4 + d]
+    k = torch.zeros(b, hkv, d, n, dtype=dt) if kt else torch.zeros(b, hkv, n, d, dtype=dt)
+    v = torch.zeros(b, hkv, n, d, dtype=dt)
+    mask = None if mask_shape is None else torch.zeros(mask_shape, dtype=mdt or dt)
+    return q, k, v, mask, kt, form
+
+
+@pytest.mark.parametrize("case,want", [
+    ("tinyllama_prefill", "wgmma"),          # (1, 32, 1024, 64) + a (1, 1, 1024, 1024) bf16 mask
+    ("gqa_4_kv_heads", "wgmma"),             # Hkv < H through the head stride
+    ("float16_f32_mask", "wgmma"),           # the mask is read in its own dtype
+    ("d128_no_mask", "wgmma"),
+    ("ragged_mask_rows", "wgmma_gmask"),     # mask rows not 16-byte granular: element loads
+    ("mask_broadcast_over_keys", "wgmma_gmask"),
+    ("k_transposed", "mma"),                 # K read by columns
+    ("d256", "fma"),                         # head dims above 128
+    ("float32", "fma"),
+    ("q_rows_off_16_bytes", "fma"),
+    ("packed_d40", "mma"),                   # the packed entry never takes the wgmma variant
+    ("packed_d512", "mma_wide"),
+])
+def test_flash_variant(case, want):
+    q, k, v, mask, kt, form = _variant_site(case)
+    assert head_major_problem(q, k, v, mask, kt) is None or form == "packed"
+    assert flash_variant(q, k, v, mask, k_transposed=kt, form=form) == want
+    if form == "head_major" and want.startswith("wgmma"):
+        assert flash_variant(q, k, v, mask, k_transposed=kt, form="packed") == "mma"
+
+
+# edges of the wgmma variant: M under and off the 128-row tile, GQA with Hkv <
+# H, every mask broadcast kind, a mask in float32 / float16, rows that are and
+# are not 16-byte granular, causal with M > N (rows of exact zeros), head dims
+# 32 / 96 / 128, several key tiles through the ring
+WGMMA_CASES = [
+    # name, b, h, hkv, m, n, d, mask shape, causal, mask dtype (None: q's)
+    ("gqa_32_4_11mn", 1, 32, 4, 300, 1024, 64, "11mn", False, None),
+    ("mask_mn_m5", 1, 4, 4, 5, 512, 64, "mn", False, None),
+    ("mask_bmn", 2, 4, 2, 130, 520, 64, "bmn", False, None),
+    ("mask_b1mn_f32", 2, 4, 4, 200, 600, 64, "b1mn", False, torch.float32),
+    ("mask_bhmn_f16", 2, 4, 4, 200, 600, 64, "bhmn", False, torch.float16),
+    ("mask_1hmn_ragged_rows", 2, 4, 4, 200, 700, 64, "1hmn", False, None),
+    ("causal_m_gt_n", 1, 4, 4, 80, 24, 32, None, True, None),
+    ("causal_gqa_mask", 2, 8, 2, 300, 520, 64, "11mn", True, None),
+    ("d96_no_mask", 1, 4, 2, 70, 130, 96, None, False, None),
+    ("d128_gqa", 1, 8, 2, 256, 512, 128, "b1mn", False, None),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("case", WGMMA_CASES, ids=[c[0] for c in WGMMA_CASES])
+def test_wgmma_variant_matches_twin_on_card(case, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    name, b, h, hkv, m, n, d, kind, causal, mdt = case
+    rng = np.random.default_rng(3)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s, dtype=np.float32)).cuda().to(dtype)
+               for s in ((b, h, m, d), (b, hkv, n, d), (b, hkv, n, d)))
+    mask = None
+    if kind is not None:
+        mk = np.where(rng.random(_mask_shape(kind, b, h, m, n)) > 0.3, 0.0, -1e9).astype(np.float32)
+        mk[..., 0] = 0.0
+        mask = torch.from_numpy(mk).cuda().to(mdt or dtype)
+    assert flash_variant(q, k, v, mask).startswith("wgmma")
+    out = flash_attention(q, k, v, mask=mask, causal=causal)
+    torch.cuda.synchronize()
+    ref = flash_attention_reference(q, k, v, mask=mask, causal=causal)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2, atol=2e-2)
+    if causal and m > n:
+        assert out[:, :, : m - n].abs().max().item() == 0.0

@@ -30,8 +30,9 @@ from onnxstream_tpu_torch import Session, SessionConfig
 from onnxstream_tpu_torch.kernels import qconv as qconv_mod
 from onnxstream_tpu_torch.kernels import qmatmul as qmatmul_mod
 from onnxstream_tpu_torch.kernels.qconv import qconv, qconv_reference
-from onnxstream_tpu_torch.kernels.qmatmul import qmatmul, qmatmul_reference, quantize_activation
+from onnxstream_tpu_torch.kernels.qmatmul import qgemm_variant, qmatmul, qmatmul_reference, quantize_activation
 from onnxstream_tpu_torch.models.sd.vae import VAE_TINY, build_vae_decoder
+from onnxstream_tpu_torch.runtime.planner import WEIGHT_TRANSFORMS
 from onnxstream_tpu_torch.runtime.quantization import quantize_weight_percentile
 from onnxstream_tpu_torch.runtime.weights import DictWeightsProvider, params_from_numpy
 
@@ -170,6 +171,11 @@ def test_quantize_activation_is_bit_equal_to_jax():
     xb = torch.from_numpy(x).to(torch.bfloat16)
     np.testing.assert_array_equal(quantize_activation(xb, 0.05, 7).numpy(),
                                   np.asarray(jax_quantize_activation(jnp.asarray(xb.float().numpy()), 0.05, 7)))
+    # an M-major activation (the VAE's attention projections) comes out
+    # row-major, so kernel 3 reads it in place
+    for xt in (torch.from_numpy(x).reshape(64, 64).t(), xb.reshape(64, 64).t()):
+        q = quantize_activation(xt, 0.05, 7)
+        assert q.is_contiguous() and torch.equal(q, quantize_activation(xt.contiguous(), 0.05, 7))
 
 
 # ------------------------------------------------------------ wrappers' routing
@@ -310,7 +316,11 @@ def test_w8a8_matmul_session_matches_jax():
     model = f"mm:MatMul*input:x(2,6,48);w.bin(uint8[{scale},{zero}]:48,40)*output:y(2,6,40)\n"
     ranges = {"x": (float(x.min()), float(x.max())), "mm": (-5.0, 5.0)}
     ps, got, _, want = _run_both(model, {"w.bin": wq}, {"x": x}, use_uint8_arithmetic=True, range_data=ranges)
-    assert ps._executor().quant_routes == {"mm": "qmatmul"}
+    ex = ps._executor()
+    assert ex.quant_routes == {"mm": "qmatmul"}
+    # the weight uploads K-major for kernel 3's wgmma pipeline
+    (w,) = ex.plan.arg_weights
+    assert (w.transform, w.shape, w.file_shape) == ("tnk", (40, 48), (48, 40))
     assert got["y"].shape == (2, 6, 40)
     assert _rel(got["y"], want["y"]) <= 1e-5
     assert _rel(got["y"], x @ ((wq.astype(np.float32) - zero) * scale)) < 0.05
@@ -332,6 +342,81 @@ def test_vae_calibration_matches_jax():
     assert sorted(pr) == sorted(jr) and "latent" in pr and len(pr) > 20
     for k, (lo, hi) in jr.items():
         np.testing.assert_allclose(pr[k], (lo, hi), rtol=1e-6, atol=1e-6 * max(abs(lo), abs(hi), 1.0))
+
+
+# ------------------------------------------- the K-major upload of the W8A8 MatMuls
+@pytest.mark.parametrize("out", ["float32", "bfloat16", "uint8"])
+@pytest.mark.parametrize("shape", QMM_CASES)
+def test_twin_gives_the_same_bits_on_both_weight_forms(shape, out):
+    """qmatmul on the (K, N) weight and on its (N, K) upload form: the same
+    bits, through the twin and through the CPU wrapper."""
+    *lead, k, n = shape
+    rng = np.random.RandomState(5)
+    a, w = torch.from_numpy(_u8(rng, *lead, k)), torch.from_numpy(_u8(rng, k, n))
+    bias = torch.from_numpy(np.trunc(rng.randn(n) * 3000).astype(np.float32))
+    kw = dict(out_scale=0.7, out_zero=110) if out == "uint8" else dict(out_dtype=getattr(torch, out))
+    want = qmatmul_reference(a, w, SA, ZA, SW, ZW, bias=bias, **kw)
+    w_nk = WEIGHT_TRANSFORMS["tnk"](w)
+    assert tuple(w_nk.shape) == (n, k) and w_nk.is_contiguous()
+    assert torch.equal(qmatmul_reference(a, w_nk, SA, ZA, SW, ZW, bias=bias, weight_nk=True, **kw), want)
+    assert torch.equal(qmatmul(a, w_nk, SA, ZA, SW, ZW, bias=bias, weight_nk=True, **kw), want)
+
+
+@pytest.mark.parametrize("case,want", [
+    (dict(m=4096, k=512, n=512), "wgmma"),             # the VAE decode's attention projections
+    (dict(m=1, k=64, n=8), "wgmma"),                   # M under one warpgroup's 64 rows
+    (dict(m=77, k=48, n=3), "wgmma"),                  # ragged M and N, K under one 128-byte k-tile
+    (dict(m=4096, k=512, n=512, weight_nk=False), "mma"),   # a (K, N) weight: no K-major B
+    (dict(m=77, k=36, n=3), "mma"),                    # K % 16 != 0
+    (dict(m=64, k=512, n=512, a_ptr=8), "mma"),        # A rows off 16-byte boundaries
+    (dict(m=64, k=512, n=512, w_ptr=4), "mma"),        # W rows off 16-byte boundaries
+    (dict(m=4096, k=512, n=512, conv=True), "mma"),    # every conv keeps qgemm_kernel
+])
+def test_qgemm_variant(case, want):
+    case = dict(case)
+    assert qgemm_variant(case.pop("m"), case.pop("k"), case.pop("n"), case.pop("weight_nk", True), **case) == want
+
+
+def _two_matmul_net(k1=48, k3=48):
+    """x -> mm1 (w1) -> mm2 (w2) -> mm3 (w2 again: tied), the weights uint8
+    from the file, every op with a range; K of mm1 given by k1."""
+    rng = np.random.RandomState(11)
+    w1, scale1, zero1 = quantize_weight_percentile(rng.randn(k1, 32).astype(np.float32))
+    w2, scale2, zero2 = quantize_weight_percentile(rng.randn(32, 32).astype(np.float32))
+    x = rng.randn(1, 5, k1).astype(np.float32)
+    model = (f"mm1:MatMul*input:x(1,5,{k1});w1.bin(uint8[{scale1},{zero1}]:{k1},32)*output:h(1,5,32)\n"
+             f"mm2:MatMul*input:h(1,5,32);w2.bin(uint8[{scale2},{zero2}]:32,32)*output:g(1,5,32)\n"
+             f"mm3:MatMul*input:g(1,5,32);w2.bin(uint8[{scale2},{zero2}]:32,32)*output:y(1,5,32)\n")
+    ranges = {"x": (float(x.min()), float(x.max())), "mm1": (-9.0, 9.0), "mm2": (-30.0, 30.0),
+              "mm3": (-99.0, 99.0)}
+    return model, {"w1.bin": w1, "w2.bin": w2}, x, ranges
+
+
+@pytest.mark.parametrize("k1,tagged", [(48, True), (36, False)])
+def test_planner_tags_the_w8a8_matmul_weights(k1, tagged):
+    """The calibrated W8A8 MatMul weights upload as (N, K) ('tnk') where K %
+    16 == 0; a tied weight (w2, read by two MatMuls) keeps the file layout;
+    the session still equals the JAX package's."""
+    model, weights, x, ranges = _two_matmul_net(k1)
+    ps, got, _, want = _run_both(model, weights, {"x": x}, use_uint8_arithmetic=True, range_data=ranges)
+    ex = ps._executor()
+    assert ex.quant_routes == {"mm1": "qmatmul", "mm2": "qmatmul", "mm3": "qmatmul"}
+    args = {w.name: w for w in ex.plan.arg_weights}
+    assert (args["w1.bin"].transform, args["w1.bin"].shape) == (("tnk", (32, k1)) if tagged else (None, (k1, 32)))
+    assert (args["w2.bin"].transform, args["w2.bin"].shape) == (None, (32, 32))
+    assert _rel(got["y"], want["y"]) <= 1e-5
+
+
+def test_planner_leaves_the_weights_alone_without_the_w8a8_route():
+    """Without use_uint8_arithmetic (or without a range for the op) the
+    MatMul weight keeps the file layout and runs through w8_matmul."""
+    model, weights, x, ranges = _two_matmul_net()
+    for cfg in (dict(range_data=ranges), dict(use_uint8_arithmetic=True, range_data={"x": ranges["x"]})):
+        ps, got, _, want = _run_both(model, weights, {"x": x}, **cfg)
+        ex = ps._executor()
+        assert set(ex.quant_routes.values()) == {"w8_matmul"}
+        assert all(w.transform is None for w in ex.plan.arg_weights)
+        assert _rel(got["y"], want["y"]) <= 1e-5
 
 
 def test_config_options():
@@ -370,6 +455,31 @@ def test_qmatmul_kernel_matches_twin_on_card(m, k, n, out):
     torch.cuda.synchronize()
     want = qmatmul_reference(a, w, SA, ZA, SW, ZW, **kw)
     torch.testing.assert_close(got, want, rtol=0, atol=0)  # the same arithmetic, bit for bit
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", [(4096, 512, 512), (1, 64, 8), (63, 48, 3), (77, 112, 257), (129, 16, 1000),
+                                   (300, 4608, 130), (200, 96, 136)])
+@pytest.mark.parametrize("out", ["float32", "bfloat16", "uint8"])
+def test_qmatmul_wgmma_variant_matches_twin_on_card(m, k, n, out):
+    """The (N, K) weight on the wgmma pipeline at its edges (M under 64 rows
+    and off the 128-row tile, ragged N, K off the 128-byte k-tile, several
+    k-tiles through the ring): bit for bit with the twin, a second call the
+    same bits."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(1)
+    a = torch.randint(0, 256, (m, k), device=dev, generator=gen, dtype=torch.uint8)
+    w = torch.randint(0, 256, (k, n), device=dev, generator=gen, dtype=torch.uint8)
+    w_nk = w.t().contiguous()
+    bias = torch.randint(-5000, 5000, (n,), device=dev, generator=gen, dtype=torch.int32)
+    kw = dict(out_scale=40.0, out_zero=100) if out == "uint8" else dict(out_dtype=getattr(torch, out))
+    assert qgemm_variant(m, k, n, True, a.data_ptr(), w_nk.data_ptr()) == "wgmma"
+    got = qmatmul(a, w_nk, SA, ZA, SW, ZW, bias=bias, weight_nk=True, **kw)
+    again = qmatmul(a, w_nk, SA, ZA, SW, ZW, bias=bias, weight_nk=True, **kw)
+    torch.cuda.synchronize()
+    want = qmatmul_reference(a, w, SA, ZA, SW, ZW, bias=bias, **kw)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert torch.equal(got, again)
 
 
 @pytest.mark.gpu
