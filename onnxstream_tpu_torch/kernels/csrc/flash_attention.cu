@@ -65,9 +65,10 @@
 // What bounds the others. The score matrix never reaches device memory, which
 // is what every variant saves over the plain version. The mma variant (kernel
 // 1 at the SD UNet sites, and what the head-major entry takes for K given
-// transposed) is bound by mma.sync issue and its unpipelined K / V^T staging
-// (two barriers a tile, V transposed element by element); its mask costs one
-// scalar load per score. The FMA variant is bound by FMA issue and
+// transposed or a mask whose rows are not 16-byte granular) is bound by the
+// rate of mma.sync and its unpipelined K / V^T staging (two barriers a tile,
+// V transposed element by element); its mask costs one scalar load per
+// score. The FMA variant is bound by the FMA rate and
 // shared-memory loads (about 2.7 FMAs per shared load). The wide variant runs
 // one 183 KB CTA per SM, and at the VAE's 4096 tokens only 128 of them, each
 // walking all keys with four barriers per tile: it is latency-bound (splitting
@@ -792,8 +793,8 @@ __global__ void __launch_bounds__(kWideThreads) fa_mma_wide_kernel(const Params 
 // layout of S is the register layout of A. The stage goes back to the
 // loaders when the next tile's S product has retired, so the next tile's
 // copies and the PV product overlap the softmax. Head dims below KD are zero
-// in the tiles. A mask whose rows are not 16-byte granular is read element by
-// element from global memory, as fa_mma_kernel reads it.
+// in the tiles. A mask whose rows are not 16-byte granular is not taken here:
+// fa_mma_kernel reads such a mask element by element.
 
 __device__ __forceinline__ float2 mask_pair(const uint8_t* at, int dtype) {
   if (dtype == 0) return *reinterpret_cast<const float2*>(at);
@@ -820,8 +821,7 @@ struct FaWgCfg {
 static_assert(FaWgCfg<64>::smem_bytes(4) <= 232448 && FaWgCfg<128>::smem_bytes(4) <= 232448,
               "shared memory of a block");
 
-// MASK: 0 = none, 1 = staged tiles, 2 = element loads from global memory
-template <typename T, int KD, int MASK>
+template <typename T, int KD, bool MASK>
 __global__ void __launch_bounds__(FaWgCfg<KD>::kThreads, 1)
     fa_wgmma_kernel(const Params p, int stage_bytes, int mask_pitch) {
   using C = FaWgCfg<KD>;
@@ -855,7 +855,7 @@ __global__ void __launch_bounds__(FaWgCfg<KD>::kThreads, 1)
     const T* q = static_cast<const T*>(p.q) + b * p.sqb + h * p.sqh;
     const T* k = static_cast<const T*>(p.k) + b * p.skb + hk * p.skh;
     const T* v = static_cast<const T*>(p.v) + b * p.svb + hk * p.svh;
-    const uint8_t* mask = MASK == 1 ? static_cast<const uint8_t*>(p.mask) + mbase * elt : nullptr;
+    const uint8_t* mask = MASK ? static_cast<const uint8_t*>(p.mask) + mbase * elt : nullptr;
 #pragma unroll
     for (int kc = 0; kc < KD / 64; ++kc)
       gemm90::load_kmajor_tile<BM>(q_s + kc * BM * 128, q, 2 * p.sqm, m0, p.M, 128 * kc, 2 * p.D, t);
@@ -868,7 +868,7 @@ __global__ void __launch_bounds__(FaWgCfg<KD>::kThreads, 1)
         gemm90::load_kmajor_tile<BN>(sb + kc * BN * 128, k, 2 * p.skn, n0, p.N, 128 * kc, 2 * p.D, t);
         gemm90::load_kmajor_tile<BN>(sb + C::kKBytes + kc * BN * 128, v, 2 * p.svn, n0, p.N, 128 * kc, 2 * p.Dv, t);
       }
-      if constexpr (MASK == 1) {
+      if constexpr (MASK) {
         const int per_row = BN * elt / 16;  // 16-byte pieces of a mask row
         const uint32_t mt = sb + 2 * C::kKBytes;
         for (int i = t; i < BM * per_row; i += kWG) {
@@ -929,15 +929,14 @@ __global__ void __launch_bounds__(FaWgCfg<KD>::kThreads, 1)
       for (int hh = 0; hh < 2; ++hh) {
         const int row = row0 + 8 * hh, cl = 8 * j + 2 * tq;
         float2 mv = make_float2(0.f, 0.f);
-        if constexpr (MASK == 1) mv = mask_pair(mt + (lrow + 8 * hh) * mask_pitch + cl * elt, p.mask_dtype);
+        if constexpr (MASK) mv = mask_pair(mt + (lrow + 8 * hh) * mask_pitch + cl * elt, p.mask_dtype);
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int col = n0 + cl + e;
           const bool ok = col < p.N && (!p.causal || col <= row + offset);
           float& x = s[4 * j + 2 * hh + e];
-          if constexpr (MASK != 0) {
-            float m = e ? mv.y : mv.x;
-            if constexpr (MASK == 2) m = ok && row < p.M ? load_mask(p, mbase + row * p.smm + col * p.smn) : 0.f;
+          if constexpr (MASK) {
+            const float m = e ? mv.y : mv.x;
             // log2-domain scores: scale*log2e * s + log2e * mask; -inf where masked
             x = ok ? fmaf(x, c, kLog2e * m) : -INFINITY;
           } else if (!ok) {
@@ -1013,14 +1012,14 @@ __global__ void __launch_bounds__(FaWgCfg<KD>::kThreads, 1)
   }
 }
 
-template <typename T, int KD, int MASK>
+template <typename T, int KD, bool MASK>
 cudaError_t launch_wgmma(const Params& p, cudaStream_t stream) {
   using C = FaWgCfg<KD>;
   auto kernel = fa_wgmma_kernel<T, KD, MASK>;
   static cudaError_t attr = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                                 C::smem_bytes(MASK == 1 ? 4 : 0));
+                                                 C::smem_bytes(MASK ? 4 : 0));
   if (attr != cudaSuccess) return attr;
-  const int elt = MASK == 1 ? (p.mask_dtype == 0 ? 4 : 2) : 0;
+  const int elt = MASK ? (p.mask_dtype == 0 ? 4 : 2) : 0;
   const dim3 grid((p.M + C::kBM - 1) / C::kBM, p.H, p.B);
   kernel<<<grid, C::kThreads, C::smem_bytes(elt), stream>>>(p, C::stage_bytes(elt), C::kBN * elt + 16);
   return cudaGetLastError();
@@ -1111,20 +1110,21 @@ cudaError_t dispatch_mask(const Params& p, cudaStream_t stream) {
 }
 
 // the wgmma variant: 16-bit head-major operands whose rows are whole 16-byte
-// pieces, K read by rows, head dims up to 128; its mask is staged where the
-// mask's rows are 16-byte granular. Mirrored by flash_variant in
-// kernels/flash_attention.py.
-bool use_wgmma(const Params& p) { return p.skd == 1 && rows_aligned16(p) && p.D <= 128 && p.Dv <= 128; }
+// pieces, K read by rows, head dims up to 128, and no mask or one whose rows
+// are 16-byte granular (staged by 16-byte copies). Mirrored by flash_variant
+// in kernels/flash_attention.py.
 bool mask_staged(const Params& p) {
   const long long elt = p.mask_dtype == 0 ? 4 : 2;
   return p.smn == 1 && reinterpret_cast<unsigned long long>(p.mask) % 16 == 0 && (p.smb * elt) % 16 == 0 &&
          (p.smh * elt) % 16 == 0 && (p.smm * elt) % 16 == 0 && (p.N * elt) % 16 == 0;
 }
+bool use_wgmma(const Params& p) {
+  return p.skd == 1 && rows_aligned16(p) && p.D <= 128 && p.Dv <= 128 && (p.mask == nullptr || mask_staged(p));
+}
 
 template <typename T, int KD>
 cudaError_t launch_wgmma_mask(const Params& p, cudaStream_t stream) {
-  if (p.mask == nullptr) return launch_wgmma<T, KD, 0>(p, stream);
-  return mask_staged(p) ? launch_wgmma<T, KD, 1>(p, stream) : launch_wgmma<T, KD, 2>(p, stream);
+  return p.mask ? launch_wgmma<T, KD, true>(p, stream) : launch_wgmma<T, KD, false>(p, stream);
 }
 
 // the head-major entry: the wgmma variant where it takes the operands, else

@@ -181,6 +181,15 @@ def _rows_aligned16(ptrs, strides, k_by_rows: bool) -> bool:
     return all(p % 16 == 0 for p in (q, v, o, *((k,) if k_by_rows else ()))) and all(x % 8 == 0 for x in rows)
 
 
+def _mask_staged(mask_ptr: int, mask_dtype: torch.dtype, mask_strides, n: int) -> bool:
+    """csrc mask_staged: the mask's rows are whole 16-byte pieces (unit
+    column stride, 16-byte aligned start, batch / head / row strides and the
+    key count multiples of 16 bytes), so the wgmma variant stages its tiles."""
+    elt = mask_dtype.itemsize
+    smb, smh, smm, smn = mask_strides
+    return smn == 1 and mask_ptr % 16 == 0 and all(x * elt % 16 == 0 for x in (smb, smh, smm, n))
+
+
 def _variant(form: str, dtype: torch.dtype, d: int, dv: int, ptrs, strides, mask_ptr: Optional[int],
              mask_dtype: Optional[torch.dtype], n: int) -> str:
     """The kernel of ``csrc/flash_attention.cu`` that a launch takes, as its
@@ -190,13 +199,9 @@ def _variant(form: str, dtype: torch.dtype, d: int, dv: int, ptrs, strides, mask
     aligned = _rows_aligned16(ptrs, strides, k_by_rows)
     kd = max(d, dv)
     if dtype != torch.float32 and aligned:
-        if form == "head_major" and k_by_rows and kd <= 128:
-            if mask_ptr is None:
-                return "wgmma"
-            elt = mask_dtype.itemsize
-            smb, smh, smm, smn = strides[13:]
-            staged = (smn == 1 and mask_ptr % 16 == 0 and all(x * elt % 16 == 0 for x in (smb, smh, smm, n)))
-            return "wgmma" if staged else "wgmma_gmask"
+        if form == "head_major" and k_by_rows and kd <= 128 and (mask_ptr is None or _mask_staged(
+                mask_ptr, mask_dtype, strides[13:], n)):
+            return "wgmma"
         if kd <= 128:
             return "mma"
         if mask_ptr is None and 256 < kd <= 512:
@@ -277,11 +282,11 @@ def flash_variant(q, k, v, mask=None, k_transposed: bool = False, form: str = "h
     head dims, strides and pointers as the C dispatchers decide:
 
       * ``"wgmma"``: the head-major entry only; bf16 / fp16, head dims up to
-        128, K read by rows, 16-byte aligned Q / K / V / O rows; the mask
-        (if any) staged as 16-byte pieces; ``"wgmma_gmask"`` the same with a
-        mask whose rows are not 16-byte granular, read element by element;
+        128, K read by rows, 16-byte aligned Q / K / V / O rows, and no mask
+        or one whose rows are whole 16-byte pieces (staged by 16-byte copies);
       * ``"mma"``: bf16 / fp16, head dims up to 128, aligned rows (a K given
-        transposed, or the packed entry);
+        transposed, a mask whose rows are not 16-byte granular, or the packed
+        entry);
       * ``"mma_wide"``: bf16 / fp16 head dims 257..512 without a mask;
       * ``"fma"``: everything else (float32, misaligned rows)."""
     if q.ndim == 3:

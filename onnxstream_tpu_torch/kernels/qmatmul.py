@@ -290,7 +290,9 @@ def quantize_activation(x: torch.Tensor, scale: float, zero: int) -> torch.Tenso
     float32 conversion the step makes anyway, not by a copy of the uint8
     tensor in front of every kernel 3 launch."""
     s = torch.full((), float(scale), dtype=torch.float32, device=x.device)
-    xf = x.to(torch.float32, memory_format=torch.contiguous_format).contiguous()  # no copy when it already is
+    # one pass for a 16-bit input; .to returns a float32 input as it is,
+    # whatever its strides, so .contiguous() lays that one out
+    xf = x.to(torch.float32, memory_format=torch.contiguous_format).contiguous()
     q = torch.round(xf / s).add_(float(zero))
     return q.clamp_(0, 255).to(torch.uint8)
 
@@ -372,16 +374,24 @@ def qmatmul_reference(a_q: torch.Tensor, w_q: torch.Tensor, a_scale: float, a_ze
     return out.reshape(*a_q.shape[:-1], n)
 
 
+def qgemm_takes_kmajor(k: int) -> bool:
+    """Whether a MatMul weight of K rows may be given K-major, as (N, K): the
+    wgmma pipeline reads 16-byte pieces of its rows and of A's, so K must be
+    a multiple of 16. The planner uploads the calibrated MatMul weights so
+    where this holds."""
+    return k % 16 == 0
+
+
 def qgemm_variant(m: int, k: int, n: int, weight_nk: bool, a_ptr: int = 0, w_ptr: int = 0,
                   conv: bool = False) -> str:
     """Which kernel of ``csrc/qlinear.cu`` a W8A8 product runs on, as its
     dispatcher decides from the weight's layout, K and pointer alignment
     (``use_wgmma`` there): ``"wgmma"`` for a MatMul whose weight is given
-    K-major as (N, K), with K a multiple of 16 and 16-byte aligned A and W
-    (ragged M and N are zero-filled by the copies), else ``"mma"`` (every
-    conv, every (K, N) weight). An (N, K) weight that misses the wgmma
+    K-major as (N, K), with ``qgemm_takes_kmajor(k)`` and 16-byte aligned A
+    and W (ragged M and N are zero-filled by the copies), else ``"mma"``
+    (every conv, every (K, N) weight). An (N, K) weight that misses the wgmma
     predicate is refused."""
-    if not conv and weight_nk and k % 16 == 0 and a_ptr % 16 == 0 and w_ptr % 16 == 0:
+    if not conv and weight_nk and qgemm_takes_kmajor(k) and a_ptr % 16 == 0 and w_ptr % 16 == 0:
         return "wgmma"
     return "mma"
 
@@ -414,7 +424,8 @@ def qmatmul(a_q: torch.Tensor, w_q: torch.Tensor, a_scale: float, a_zero: int, w
     at most ``QGEMM_MAX_K``. With ``weight_nk`` the weight is given K-major
     as (N, K), the form the executor uploads for calibrated MatMuls
     (``WEIGHT_TRANSFORMS["tnk"]``), and runs on the wgmma pipeline; it then
-    needs K a multiple of 16 and 16-byte aligned rows (``qgemm_variant``).
+    needs K a multiple of 16 on either device (``qgemm_takes_kmajor``), and
+    on the card 16-byte aligned rows (``qgemm_variant``).
     Scales and zero points are per tensor (numbers). ``bias`` is an (N,)
     vector in accumulator units (``b / (a_scale * w_scale)``), truncated
     toward zero to int32 as ``qconv`` passes it. With ``out_scale``/
@@ -424,19 +435,21 @@ def qmatmul(a_q: torch.Tensor, w_q: torch.Tensor, a_scale: float, a_zero: int, w
     On CUDA tensors it launches the kernel on the current stream, or raises;
     on CPU tensors it computes the plain twin. Every launch adds one to
     ``qmatmul.launches``."""
+    k, n, za, zw, alpha, beta = _qparams(a_q, w_q, a_scale, a_zero, w_scale, w_zero, out_scale, out_zero,
+                                         weight_nk)
+    if weight_nk and not qgemm_takes_kmajor(k):
+        raise ValueError(f"qmatmul: an (N, K) weight needs K % 16 == 0, got K = {k}")
     if not a_q.is_cuda:
         if a_q.device.type == "cpu":
             return qmatmul_reference(a_q, w_q, a_scale, a_zero, w_scale, w_zero, out_scale,
                                      out_zero, bias, out_dtype, weight_nk)
         raise ValueError(f"qmatmul runs on CUDA or CPU tensors, not {a_q.device}")
-    k, n, za, zw, alpha, beta = _qparams(a_q, w_q, a_scale, a_zero, w_scale, w_zero, out_scale, out_zero,
-                                         weight_nk)
     a2 = a_q.reshape(-1, k).contiguous()
     w2 = w_q.contiguous()
     m = a2.shape[0]
     if weight_nk and qgemm_variant(m, k, n, True, a2.data_ptr(), w2.data_ptr()) != "wgmma":
-        raise ValueError(f"qmatmul: an (N, K) weight needs K % 16 == 0 and 16-byte aligned rows "
-                         f"(K = {k}, A at {a2.data_ptr() % 16}, W at {w2.data_ptr() % 16} mod 16)")
+        raise ValueError(f"qmatmul: an (N, K) weight needs 16-byte aligned rows "
+                         f"(A at {a2.data_ptr() % 16}, W at {w2.data_ptr() % 16} mod 16)")
     out = torch.empty((m, n), dtype=torch.uint8 if out_scale is not None else out_dtype,
                       device=a_q.device)
     if out.numel():

@@ -30,6 +30,7 @@ import torch
 from onnxstream_tpu_torch.dtypes import DType, to_numpy, to_torch, torch_dtype
 from onnxstream_tpu_torch.ir import Graph, OpNode, TensorSpec
 from onnxstream_tpu_torch.kernels.matmul import oihw_to_w9co
+from onnxstream_tpu_torch.kernels.qmatmul import qgemm_takes_kmajor
 from onnxstream_tpu_torch.ops import Ctx, StaticRequired, get_impl
 from onnxstream_tpu_torch.runtime.config import SessionConfig
 
@@ -224,16 +225,22 @@ class _Planner:
     def _kmajor(self, op: OpNode, i: int) -> bool:
         """Whether input i of op is the weight of a calibrated W8A8 MatMul that
         uploads K-major, as (N, K) through WEIGHT_TRANSFORMS["tnk"], for kernel
-        3's wgmma pipeline: 2-D, K a multiple of 16 (the pipeline's
-        predicate), read by this op alone (a tied weight keeps the file
-        layout, as rewrite_smallconv leaves tied convs alone)."""
+        3's wgmma pipeline: 2-D, K as the pipeline takes it
+        (``qgemm_takes_kmajor``), read by this op alone (a tied weight keeps
+        the file layout, as rewrite_smallconv leaves tied convs alone). The
+        MatMul keeps its op and its plan-time shapes in the file layout, so
+        the tag goes on the WeightArg, not on a rewritten TensorSpec."""
         spec = op.inputs[i]
         return (i == 1 and qlinear_mode(op, self.config) == "matmul" and len(spec.shape) == 2
-                and spec.shape[0] % 16 == 0 and not spec.transform and self._wuse.get(spec.name, 0) == 1)
+                and qgemm_takes_kmajor(spec.shape[0]) and not spec.transform
+                and self._wuse.get(spec.name, 0) == 1)
 
     def _promote_weight_to_arg(self, spec: TensorSpec, kmajor: bool = False) -> WeightArg:
         w = self._arg_set.get(spec.name)
         if w is None:
+            shape, transform, file_shape = spec.shape, spec.transform, spec.file_shape
+            if kmajor:
+                shape, transform, file_shape = (spec.shape[1], spec.shape[0]), "tnk", spec.shape
             quant = (spec.scale, spec.zero_point) if spec.dtype == DType.uint8 else None
             symmetric = False
             if quant is None and spec.name in self.config.force_uint8_storage_set and spec.dtype.is_float:
@@ -243,14 +250,12 @@ class _Planner:
                 name=spec.name,
                 file_dtype=spec.dtype,
                 upload_dtype=_upload_dtype(spec, self.config),
-                shape=spec.shape,
+                shape=shape,
                 quant=quant,
                 symmetric=symmetric,
-                transform=spec.transform,
-                file_shape=spec.file_shape,
+                transform=transform,
+                file_shape=file_shape,
             )
-            if kmajor:
-                w.shape, w.transform, w.file_shape = (spec.shape[1], spec.shape[0]), "tnk", spec.shape
             self._arg_set[spec.name] = w
             self.arg_weights.append(w)
         return w

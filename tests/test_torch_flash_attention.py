@@ -5,7 +5,8 @@ The CUDA kernel cannot run here, so its plain twins
 against the JAX Pallas kernels in interpret mode, and the port's reference
 SDPA paths against the JAX ones, all in float32 at rtol = atol = 1e-4 (the bar
 of tests/test_flash_attention.py). The kernel itself is compared with the
-twins on the card (marker ``gpu``).
+twins on the card in tests/test_torch_flash_attention_card.py, which imports
+no JAX.
 """
 
 import numpy as np
@@ -32,6 +33,7 @@ from onnxstream_tpu_torch.ops.attention import (
     sdpa_reference_packed,
 )
 from onnxstream_tpu_torch.runtime.config import SessionConfig
+from test_torch_flash_attention_card import HM_CASES, _mk_hm
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 
@@ -204,81 +206,7 @@ def test_use_flash_packed_at_the_vae_site(site, want, monkeypatch):
     assert _use_flash_packed(None, 1, q, q, q) is want
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
-def test_d512_kernel_matches_twin_on_card(dtype, tol):
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    g = torch.Generator(device="cuda").manual_seed(0)
-    for b, m, n, causal in [(1, 4096, 4096, False), (2, 77, 300, False), (1, 100, 40, True)]:
-        q, k, v = (torch.randn(b, L, 512, device="cuda", generator=g).to(dtype) for L in (m, n, n))
-        out = flash_attention_packed(q, k, v, 1, causal=causal)
-        torch.cuda.synchronize()
-        ref = flash_attention_packed_reference(q, k, v, 1, causal=causal)
-        torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
-def test_kernel_matches_twin_on_card(dtype, tol):
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    g = torch.Generator(device="cuda").manual_seed(0)
-    for b, m, n, h, hkv, d, causal in [(1, 77, 391, 3, 3, 40, False), (1, 256, 512, 8, 8, 80, False),
-                                       (2, 64, 256, 8, 2, 32, True), (1, 16, 8, 2, 2, 16, True)]:
-        q = torch.randn(b, m, h * d, device="cuda", generator=g).to(dtype)
-        k = torch.randn(b, n, hkv * d, device="cuda", generator=g).to(dtype)
-        v = torch.randn(b, n, hkv * d, device="cuda", generator=g).to(dtype)
-        out = flash_attention_packed(q, k, v, h, causal=causal)
-        torch.cuda.synchronize()
-        ref = flash_attention_packed_reference(q, k, v, h, causal=causal)
-        torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
-        if causal and m > n:
-            assert out[:, : m - n].abs().max().item() == 0.0
-
-
 # ---------------------------------------------------------------- head-major
-# name, b, h, hkv, m, n, d, mask shape (None: no mask), causal, k_transposed
-HM_CASES = [
-    ("mask_mn", 1, 2, 2, 40, 150, 64, "mn", False, False),
-    ("mask_bmn", 2, 2, 2, 40, 150, 32, "bmn", False, False),
-    ("mask_11mn", 1, 4, 4, 24, 140, 64, "11mn", False, False),
-    ("mask_b1mn", 2, 2, 2, 24, 140, 64, "b1mn", False, False),
-    ("mask_bhmn", 2, 2, 2, 24, 140, 64, "bhmn", False, False),
-    ("mask_1hmn", 2, 4, 4, 24, 140, 16, "1hmn", False, False),
-    ("k_transposed", 1, 2, 2, 40, 150, 64, "11mn", False, True),
-    ("causal_m_gt_n", 1, 2, 2, 24, 10, 32, None, True, False),
-    ("causal_masked_prefill", 1, 4, 4, 32, 32, 64, "11mn", True, False),
-    ("gqa_b2", 2, 8, 2, 24, 140, 32, "b1mn", False, False),
-    ("d128", 1, 2, 2, 16, 130, 128, "mn", False, False),
-]
-
-
-def _mask_shape(kind, b, h, m, n):
-    return {"mn": (m, n), "bmn": (b, m, n), "11mn": (1, 1, m, n), "b1mn": (b, 1, m, n),
-            "bhmn": (b, h, m, n), "1hmn": (1, h, m, n)}[kind]
-
-
-def _mk_hm(case):
-    """Head-major float32 inputs; the additive mask is 0 / -1e9 (the llama
-    graph's values), with row 1 masked entirely by the finite -1e9."""
-    name, b, h, hkv, m, n, d, kind, causal, kt = case
-    rng = np.random.default_rng(7)
-    q = rng.standard_normal((b, h, m, d), dtype=np.float32)
-    k = rng.standard_normal((b, hkv, n, d), dtype=np.float32)
-    v = rng.standard_normal((b, hkv, n, d), dtype=np.float32)
-    mask = None
-    if kind is not None:
-        mask = np.where(rng.random(_mask_shape(kind, b, h, m, n)) > 0.3, 0.0, -1e9).astype(np.float32)
-        mask[..., 0] = 0.0
-        mask[..., 1, :] = -1e9
-    if kt:
-        k = np.ascontiguousarray(k.transpose(0, 1, 3, 2))
-    return q, k, v, mask, causal, kt
-
-
 @pytest.mark.parametrize("case", HM_CASES, ids=[c[0] for c in HM_CASES])
 def test_head_major_twin_matches_jax_interpret_kernel(case):
     q, k, v, mask, causal, kt = _mk_hm(case)
@@ -385,21 +313,6 @@ def test_use_flash_gates_follow_the_jax_predicate(site, want, monkeypatch):
     assert _use_flash(cfg, q, k, k, mask) is want
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
-def test_head_major_kernel_matches_twin_on_card(dtype, tol):
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    for case in HM_CASES:
-        q, k, v, mask, causal, kt = (torch.from_numpy(x).cuda().to(dtype) if isinstance(x, np.ndarray) else x
-                                     for x in _mk_hm(case))
-        out = flash_attention(q, k, v, mask=mask, k_transposed=kt, causal=causal)
-        torch.cuda.synchronize()
-        ref = flash_attention_reference(q, k, v, mask=mask, k_transposed=kt, causal=causal)
-        torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
-
-
 # ------------------------------------------------------------- the wgmma variant
 def _variant_site(case):
     """(q, k, v, mask, k_transposed, form) of a flash_variant case: CPU tensors
@@ -443,8 +356,8 @@ def _variant_site(case):
     ("gqa_4_kv_heads", "wgmma"),             # Hkv < H through the head stride
     ("float16_f32_mask", "wgmma"),           # the mask is read in its own dtype
     ("d128_no_mask", "wgmma"),
-    ("ragged_mask_rows", "wgmma_gmask"),     # mask rows not 16-byte granular: element loads
-    ("mask_broadcast_over_keys", "wgmma_gmask"),
+    ("ragged_mask_rows", "mma"),             # mask rows not 16-byte granular: not staged
+    ("mask_broadcast_over_keys", "mma"),
     ("k_transposed", "mma"),                 # K read by columns
     ("d256", "fma"),                         # head dims above 128
     ("float32", "fma"),
@@ -456,48 +369,7 @@ def test_flash_variant(case, want):
     q, k, v, mask, kt, form = _variant_site(case)
     assert head_major_problem(q, k, v, mask, kt) is None or form == "packed"
     assert flash_variant(q, k, v, mask, k_transposed=kt, form=form) == want
-    if form == "head_major" and want.startswith("wgmma"):
+    if form == "head_major" and want == "wgmma":
         assert flash_variant(q, k, v, mask, k_transposed=kt, form="packed") == "mma"
 
 
-# edges of the wgmma variant: M under and off the 128-row tile, GQA with Hkv <
-# H, every mask broadcast kind, a mask in float32 / float16, rows that are and
-# are not 16-byte granular, causal with M > N (rows of exact zeros), head dims
-# 32 / 96 / 128, several key tiles through the ring
-WGMMA_CASES = [
-    # name, b, h, hkv, m, n, d, mask shape, causal, mask dtype (None: q's)
-    ("gqa_32_4_11mn", 1, 32, 4, 300, 1024, 64, "11mn", False, None),
-    ("mask_mn_m5", 1, 4, 4, 5, 512, 64, "mn", False, None),
-    ("mask_bmn", 2, 4, 2, 130, 520, 64, "bmn", False, None),
-    ("mask_b1mn_f32", 2, 4, 4, 200, 600, 64, "b1mn", False, torch.float32),
-    ("mask_bhmn_f16", 2, 4, 4, 200, 600, 64, "bhmn", False, torch.float16),
-    ("mask_1hmn_ragged_rows", 2, 4, 4, 200, 700, 64, "1hmn", False, None),
-    ("causal_m_gt_n", 1, 4, 4, 80, 24, 32, None, True, None),
-    ("causal_gqa_mask", 2, 8, 2, 300, 520, 64, "11mn", True, None),
-    ("d96_no_mask", 1, 4, 2, 70, 130, 96, None, False, None),
-    ("d128_gqa", 1, 8, 2, 256, 512, 128, "b1mn", False, None),
-]
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
-@pytest.mark.parametrize("case", WGMMA_CASES, ids=[c[0] for c in WGMMA_CASES])
-def test_wgmma_variant_matches_twin_on_card(case, dtype):
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
-    name, b, h, hkv, m, n, d, kind, causal, mdt = case
-    rng = np.random.default_rng(3)
-    q, k, v = (torch.from_numpy(rng.standard_normal(s, dtype=np.float32)).cuda().to(dtype)
-               for s in ((b, h, m, d), (b, hkv, n, d), (b, hkv, n, d)))
-    mask = None
-    if kind is not None:
-        mk = np.where(rng.random(_mask_shape(kind, b, h, m, n)) > 0.3, 0.0, -1e9).astype(np.float32)
-        mk[..., 0] = 0.0
-        mask = torch.from_numpy(mk).cuda().to(mdt or dtype)
-    assert flash_variant(q, k, v, mask).startswith("wgmma")
-    out = flash_attention(q, k, v, mask=mask, causal=causal)
-    torch.cuda.synchronize()
-    ref = flash_attention_reference(q, k, v, mask=mask, causal=causal)
-    torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2, atol=2e-2)
-    if causal and m > n:
-        assert out[:, :, : m - n].abs().max().item() == 0.0
