@@ -11,9 +11,12 @@ Phases (any failure exits non-zero and prints no result line):
      together;
   3. kernel vs twin: every wrapper of a CUDA kernel against its plain PyTorch
      twin, fp32 (TF32 off) and bf16:
-       - flash_attention_packed at the two SD1.5 UNet site shapes, the VAE
-         mid-block site (1 head, d = 512, 4096 tokens) and at GQA / causal /
-         d = 512 edge cases; flash_attention at the three TinyLlama prefill
+       - flash_attention_packed at the two SD1.5 UNet site shapes and the
+         VAE mid-block site (1 head, d = 512, 4096 tokens), which must take a
+         wgmma variant, and at ragged / GQA / causal / d = 512 edge cases,
+         each with its variant printed, a second call's bits, and the sites'
+         times beside the variants they replaced, SDPA and a bound that
+         counts the exponentials; flash_attention at the three TinyLlama prefill
          sites (1024 x 1024, 128 x 1024, 512 x 512) and at every mask group,
          k_transposed, GQA (Hkv < H on the wgmma variant too), causal M > N
          (exactly 0) and D = 128 / 256, each case's variant printed, the
@@ -23,7 +26,10 @@ Phases (any failure exits non-zero and prints no result line):
        - qmatmul and qconv (the calibrated W8A8 kernels) at ragged shapes,
          both weight layouts ((K, N) on the mma.sync kernel, (N, K) on the
          wgmma pipeline, a second call's bits), strides / dilations / pads,
-         float32, bf16 and requantized uint8 outputs, bit for bit;
+         NCHW convs on the mma.sync kernel and channels-last ones on the
+         wgmma pipeline (a second call's bits, and the mma.sync kernel's on
+         NCHW copies), float32, bf16 and requantized uint8 outputs, bit for
+         bit;
        - gn_silu, gn_silu_conv and matmul (with conv3x3_im2col) at the JAX
          suite's ragged cases (C/G = 5 and 10, H W = 35, 5 x 7 borders, no
          bias, O != C, batch 2) in float32 / bfloat16 / float16, and at the
@@ -37,7 +43,9 @@ Phases (any failure exits non-zero and prints no result line):
      F.group_norm + F.silu [+ F.conv2d], torch.addmm);
   4. SD slice: the SD1.5 UNet at full width (random weights from seed 0) in
      bf16 through the port's Session answers three requests; each must be
-     finite, (1, 4, 64, 64), and launch the packed kernel exactly 10 times;
+     finite, (1, 4, 64, 64), and launch the packed kernel exactly 10 times,
+     every launch on a wgmma variant, the first held against the twin on the
+     graph's operands;
      the first request is rerun with the flash kernel off and must agree; the
      TINY UNet in fp32 on the card must agree with the same graph run on the
      CPU;
@@ -76,8 +84,9 @@ Phases (any failure exits non-zero and prints no result line):
      the decoder is calibrated on the first request's latents (range_data.txt
      written and read back) and the calibrated W8A8 decoder decodes all
      three: 39 qmatmul launches each (4 MatMuls + 35 convs through qconv)
-     and one flash launch at d = 512, the first launch of each kernel held
-     against its twin on the graph's operands; the bf16 decoder decodes the
+     and one flash launch at d = 512 (every flash launch of the path on a
+     wgmma variant), the first launch of each kernel held against its twin
+     on the graph's operands; the bf16 decoder decodes the
      first whole and tiled; images are (512, 512, 3) uint8, finite before
      the cast; W8A8 against bf16 image within W8A8_IMAGE_BOUND; CLIP, UNet,
      loop, decode and calibration times, peak memory, device profiles of
@@ -85,7 +94,11 @@ Phases (any failure exits non-zero and prints no result line):
      replayed against the twins and cuDNN / matmul on dequantized operands,
      qmatmul at every shape of them on the graph's operands (the (N, K)
      weights as uploaded): the wgmma variant, a second call's bits, the times
-     beside the (K, N) weight on the mma.sync kernel;
+     beside the (K, N) weight on the mma.sync kernel; qconv the same (the
+     channels-last operands as the graph passed them, beside NCHW copies on
+     the mma.sync kernel), which of the 35 convs take which variant, and the
+     decoder rebuilt with every conv on the NCHW route: the same bits, and
+     both decodes' device profiles (the channels-last quantization's cost);
   7. LLM slice: LLAMA_TINY in fp32 on the card against the CPU (tokens equal,
      logits within 1e-4 * max), then TinyLlama 1.1B at full width (random
      weights from seed 0) in bf16 through LlamaPipeline answers three chat
@@ -147,6 +160,7 @@ VAE_SITE = (4096, 512)  # (tokens, head dim) of the SD VAE mid-block attention a
 # NVIDIA H100 SXM, dense rates (NVIDIA's data sheet), for the bounds
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+EX2_PER_CLOCK_PER_SM = 16  # exp2 on Hopper's special-function units: 4 a clock per SM sub-partition
 
 
 def card() -> str:
@@ -228,13 +242,32 @@ def device_ms_per_call(fn, iters: int = 10, windows: int = 3) -> float:
     raise SystemExit("device_ms_per_call: the profiler windows held no device events")
 
 
-def bound(nbytes: float, ops: float, peak: str) -> dict:
+_EX2_RATE = []
+
+
+def ex2_rate() -> float:
+    """exp2 a second of the card's special-function units: 16 a clock per
+    SM (Hopper's MUFU.EX2 rate), times the SMs and the maximum SM clock that
+    the card reports (nvidia-smi clocks.max.sm)."""
+    if not _EX2_RATE:
+        mhz = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                                   capture_output=True, text=True, check=True).stdout.split()[0])
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        _EX2_RATE.append(EX2_PER_CLOCK_PER_SM * sms * mhz * 1e6)
+        print(f"exp2 rate for the bounds: {EX2_PER_CLOCK_PER_SM} a clock per SM x {sms} SMs x {mhz:g} MHz "
+              f"= {_EX2_RATE[0] / 1e12:.3f} T/s")
+    return _EX2_RATE[0]
+
+
+def bound(nbytes: float, ops: float, peak: str, exps: float = 0) -> dict:
     """The least time the card could take for the work: the bytes it must
-    move over the memory rate, or its operations over the peak rate of
-    their type, whichever is larger."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS_PER_S[peak] * 1e3
-    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    move over the memory rate, its operations over the peak rate of their
+    type, or (attention) its `exps` exponentials over the card's exp2 rate,
+    whichever is largest."""
+    t = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3, "operations": ops / PEAK_OPS_PER_S[peak] * 1e3,
+         "exp": exps / ex2_rate() * 1e3 if exps else 0.0}
+    by = max(t, key=t.get)
+    return {"bound_ms": t[by], "bound_by": by}
 
 
 def _nbytes(*tensors) -> int:
@@ -269,7 +302,7 @@ def phase_build():
     for src, path in paths.items():
         print(f"  {src}.cu ({KERNEL_SOURCES[src]}) -> {path}")
         print("\n".join(l for l in (path.parent / "build.log").read_text().splitlines()
-                        if "registers" in l or "spill" in l))
+                        if "registers" in l or "spill" in l or "C7515" in l))
 
 
 def _sdpa_packed(q, k, v, heads):
@@ -279,6 +312,31 @@ def _sdpa_packed(q, k, v, heads):
     return F.scaled_dot_product_attention(split(q), split(k), split(v))
 
 
+def _packed_variant(q, k, v, heads, **kw) -> str:
+    """flash_variant's answer for a flash_attention_packed call: the packed
+    (B, L, H*D) operands as the head-major views the kernel reads."""
+    from onnxstream_tpu_torch.kernels.flash_attention import flash_variant
+
+    if q.ndim == 2:
+        q, k, v = q[None], k[None], v[None]
+    d = q.shape[-1] // heads
+    split = lambda t: t.unflatten(-1, (t.shape[-1] // d, d)).transpose(1, 2)
+    return flash_variant(split(q), split(k), split(v), form="packed")
+
+
+def _packed_earlier(q, k, v, heads, scale=None, causal=False):
+    """The same flash_attention_packed call on the variant it took before the
+    wgmma ones (fa_mma_kernel, fa_mma_wide_kernel), into an output allocated
+    here, outside the timed call."""
+    from onnxstream_tpu_torch.kernels import flash_attention as fa
+
+    d, _, dv = fa._check_packed(q, k, v, heads)
+    dims, strides = fa._packed_launch(q, k, v, heads, d, dv)
+    out = torch.empty((q.shape[0], q.shape[1], heads * dv), dtype=q.dtype, device=q.device)
+    sc = 1.0 / float(np.sqrt(d)) if scale is None else scale
+    return lambda: fa._launch(q, k, v, out, None, dims, strides, sc, causal, wgmma=False)
+
+
 def phase_kernel(name: str) -> dict:
     from onnxstream_tpu_torch.kernels.flash_attention import (
         flash_attention_packed, flash_attention_packed_reference)
@@ -286,14 +344,17 @@ def phase_kernel(name: str) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
-    # (label, b, m, n, heads, kv_heads, d, causal)
+    # (label, b, m, n, heads, kv_heads, d, causal); the sd15 and vae sites
+    # must take a wgmma variant in bf16
     cases = [
         ("sd15_d40", 1, 4096, 4096, 8, 8, 40, False),
         ("sd15_d80", 1, 1024, 1024, 8, 8, 80, False),
+        ("d40_ragged_gqa", 2, 77, 300, 8, 4, 40, False),
+        ("d80_causal_m_gt_n", 1, 200, 150, 2, 2, 80, True),
         ("gqa_causal", 2, 300, 700, 8, 2, 64, True),
         ("causal_m_gt_n", 1, 80, 24, 4, 4, 32, True),
-        ("d160_fma_path", 1, 256, 512, 8, 8, 160, False),  # head dims > 128: CUDA-core variant
-        ("vae_d512", 1, 4096, 4096, 1, 1, 512, False),  # the VAE mid-block: wide mma / FMA d = 512
+        ("d160_fma_path", 1, 256, 512, 8, 8, 160, False),  # head dims 129..256: CUDA-core variant
+        ("vae_d512", 1, 4096, 4096, 1, 1, 512, False),  # the VAE mid-block: wide wgmma, keys split
         ("d512_ragged", 2, 77, 300, 1, 1, 512, False),
         ("d512_causal_m_gt_n", 1, 100, 40, 2, 1, 512, True),
     ]
@@ -304,51 +365,63 @@ def phase_kernel(name: str) -> dict:
         v32 = torch.randn(b, n, hkv * d, device="cuda", generator=gen)
         for dt, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
             q, k, v = q32.to(dt), k32.to(dt), v32.to(dt)
+            variant = _packed_variant(q, k, v, h)
             out = flash_attention_packed(q, k, v, h, causal=causal)
+            again = flash_attention_packed(q, k, v, h, causal=causal)
             torch.cuda.synchronize()
             ref = flash_attention_packed_reference(q, k, v, h, causal=causal)
             err = (out.float() - ref.float()).abs().max().item()
             ok = torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol)
-            print(f"kernel vs twin {label} {str(dt)[6:]}: max|diff| {err:.3e} (rtol=atol={tol}) {'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise SystemExit(f"flash kernel disagrees with its twin on {label} {dt}")
-            if label.startswith("sd15") and dt == torch.bfloat16:
+            same = torch.equal(out, again)
+            print(f"kernel vs twin {label} {str(dt)[6:]} ({variant}): max|diff| {err:.3e} (rtol=atol={tol}), "
+                  f"second call bit-equal: {same} {'ok' if ok and same else 'FAIL'}")
+            if not ok or not same:
+                raise SystemExit(f"flash kernel disagrees with its twin, or with itself, on {label} {dt}")
+            if label.startswith(("sd15", "vae")) and dt == torch.bfloat16:
                 worst_bf16 = max(worst_bf16, err)
+                if not variant.startswith("wgmma"):
+                    raise SystemExit(f"{label}: the packed entry took the {variant} variant, not a wgmma one")
             if m > n and causal:
                 zero_rows = out[:, : m - n]
                 if zero_rows.abs().max().item() != 0.0:
                     raise SystemExit(f"{label}: rows with no valid key are not exactly 0")
-    times, nbytes, ops = {}, 0, 0
+
+    def timed(q, k, v, h):
+        """(kernel, earlier variant, twin, SDPA) device ms of one call."""
+        return (device_ms(lambda: flash_attention_packed(q, k, v, h)), device_ms(_packed_earlier(q, k, v, h)),
+                device_ms(lambda: flash_attention_packed_reference(q, k, v, h)),
+                device_ms(lambda: _sdpa_packed(q, k, v, h)))
+
+    times, nbytes, ops, exps, by_shape = {}, 0, 0, 0, {}
     for m, d in SD15_SITES:
-        q = torch.randn(1, m, 8 * d, device="cuda", generator=gen, dtype=torch.bfloat16)
-        k = torch.randn(1, m, 8 * d, device="cuda", generator=gen, dtype=torch.bfloat16)
-        v = torch.randn(1, m, 8 * d, device="cuda", generator=gen, dtype=torch.bfloat16)
-        t_k = device_ms(lambda: flash_attention_packed(q, k, v, 8))
-        t_p = device_ms(lambda: flash_attention_packed_reference(q, k, v, 8))
-        t_l = device_ms(lambda: _sdpa_packed(q, k, v, 8))
-        # per step: 5 sites of each shape; q, k, v read and o written once,
-        # QK^T and PV at 2 operations per multiply-add
-        site = bound(4 * _nbytes(q), 4 * m * m * 8 * d, "bf16")
-        nbytes += 5 * 4 * _nbytes(q)
-        ops += 5 * 4 * m * m * 8 * d
-        times[f"{m}x{d}"] = (t_k, t_p, t_l)
-        print(f"time bf16 (1, {m}, {8 * d}) h8 d{d}: kernel {t_k:.4f} ms, twin {t_p:.4f} ms, "
-              f"scaled_dot_product_attention {t_l:.4f} ms, bound {site['bound_ms']:.4f} ms "
-              f"({site['bound_by']})  [{name}]")
-    per_step = [sum(5 * t[i] for t in times.values()) for i in (0, 1, 2)]
+        q, k, v = (torch.randn(1, m, 8 * d, device="cuda", generator=gen, dtype=torch.bfloat16) for _ in range(3))
+        times[f"{m}x{d}"] = t = timed(q, k, v, 8)
+        # per UNet run: 5 sites of each shape; q, k, v read and o written
+        # once, QK^T and PV at 2 operations per multiply-add, one exp2 a score
+        site = bound(4 * _nbytes(q), 4 * m * m * 8 * d, "bf16", exps=8 * m * m)
+        nbytes, ops, exps = nbytes + 5 * 4 * _nbytes(q), ops + 5 * 4 * m * m * 8 * d, exps + 5 * 8 * m * m
+        by_shape[f"{m}x{d}"] = {"ms": t[0], "earlier_variant_ms": t[1], "plain_ms": t[2], "library_ms": t[3],
+                                "variant": _packed_variant(q, k, v, 8), **site}
+        print(f"time bf16 (1, {m}, {8 * d}) h8 d{d}: kernel {t[0]:.4f} ms ({_packed_variant(q, k, v, 8)}; the "
+              f"earlier variant {t[1]:.4f} ms), twin {t[2]:.4f} ms, scaled_dot_product_attention {t[3]:.4f} ms, "
+              f"bound {site['bound_ms']:.4f} ms ({site['bound_by']})  [{name}]")
+    per_run = [sum(5 * t[i] for t in times.values()) for i in range(4)]
+    run_bound = bound(nbytes, ops, "bf16", exps=exps)
+    print(f"one UNet run's 10 sites: kernel {per_run[0]:.4f} ms, earlier variant {per_run[1]:.4f} ms, "
+          f"scaled_dot_product_attention {per_run[3]:.4f} ms, bound {run_bound['bound_ms']:.4f} ms "
+          f"({run_bound['bound_by']})  [{name}]")
     # the VAE mid-block site: one launch per full decode, d = 512
     m, d = VAE_SITE
     q, k, v = (torch.randn(1, m, d, device="cuda", generator=gen, dtype=torch.bfloat16) for _ in range(3))
-    vae = (device_ms(lambda: flash_attention_packed(q, k, v, 1)),
-           device_ms(lambda: flash_attention_packed_reference(q, k, v, 1)),
-           device_ms(lambda: _sdpa_packed(q, k, v, 1)))
-    site = bound(4 * _nbytes(q), 4 * m * m * d, "bf16")
-    print(f"time bf16 (1, {m}, {d}) h1 d{d} (VAE mid-block): kernel {vae[0]:.4f} ms, twin {vae[1]:.4f} ms, "
-          f"scaled_dot_product_attention {vae[2]:.4f} ms, bound {site['bound_ms']:.4f} ms ({site['bound_by']})  [{name}]")
-    by_shape = {k: {"ms": v[0], "plain_ms": v[1], "library_ms": v[2]} for k, v in times.items()}
-    by_shape[f"{m}x{d}_h1"] = {"ms": vae[0], "plain_ms": vae[1], "library_ms": vae[2], **site}
-    return {"max_abs_err": worst_bf16, "ms": per_step[0], "plain_ms": per_step[1],
-            **bound(nbytes, ops, "bf16"), "library_ms": per_step[2], "ms_by_shape": by_shape}
+    vae = timed(q, k, v, 1)
+    site = bound(4 * _nbytes(q), 4 * m * m * d, "bf16", exps=m * m)
+    print(f"time bf16 (1, {m}, {d}) h1 d{d} (VAE mid-block): kernel {vae[0]:.4f} ms ({_packed_variant(q, k, v, 1)}; "
+          f"the earlier variant {vae[1]:.4f} ms), twin {vae[2]:.4f} ms, scaled_dot_product_attention {vae[3]:.4f} ms, "
+          f"bound {site['bound_ms']:.4f} ms ({site['bound_by']})  [{name}]")
+    by_shape[f"{m}x{d}_h1"] = {"ms": vae[0], "earlier_variant_ms": vae[1], "plain_ms": vae[2], "library_ms": vae[3],
+                               "variant": _packed_variant(q, k, v, 1), **site}
+    return {"max_abs_err": worst_bf16, "ms": per_run[0], "earlier_variant_ms": per_run[1], "plain_ms": per_run[2],
+            **run_bound, "library_ms": per_run[3], "ms_by_shape": by_shape}
 
 
 def _session(text: str, weights, compute_dtype: str, device: str, **options):
@@ -413,7 +486,9 @@ def _tiny_unet_card_vs_cpu(label: str, text: str, weights, req, **options) -> No
 
 
 def phase_slice(name: str) -> dict:
-    from onnxstream_tpu_torch.kernels.flash_attention import flash_attention_packed
+    import onnxstream_tpu_torch.ops.attention as attention_op
+    from onnxstream_tpu_torch.kernels.flash_attention import (flash_attention_packed,
+                                                              flash_attention_packed_reference)
     from onnxstream_tpu_torch.models.sd.unet import SD15, TINY, build_unet, param_count
 
     # small input first: the op library on the card against the CPU
@@ -429,24 +504,32 @@ def phase_slice(name: str) -> dict:
     print(f"fused graph: {len(s.graph.ops)} ops, {n_sdpa} ostpu.sdpa sites")
     reqs = _requests(SD15, 0)
     torch.cuda.reset_peak_memory_stats()
+    flash = _FlashSites(flash_attention_packed, flash_attention_packed_reference, 2e-2)
     flash_attention_packed.launches = 0
+    attention_op.flash_attention_packed = flash
     results = []
-    for i, req in enumerate(reqs):
-        for k, v in req.items():
-            s.add_tensor(k, v)
-        t1 = time.perf_counter()
-        out = s.run()["out_sample"]
-        ms = (time.perf_counter() - t1) * 1e3
-        results.append(out)
-        want = 10 * (i + 1)
-        print(f"request {i} (t={req['timestep'][0]:g}): {out.shape} finite={np.isfinite(out).all()} "
-              f"max|out|={np.abs(out).max():.4f} {ms:.1f} ms, flash launches so far "
-              f"{flash_attention_packed.launches}")
-        if out.shape != (1, 4, 64, 64) or not np.isfinite(out).all():
-            raise SystemExit(f"request {i}: bad output")
-        if flash_attention_packed.launches != want:
-            raise SystemExit(f"request {i}: {flash_attention_packed.launches} flash launches, want {want}")
+    try:
+        for i, req in enumerate(reqs):
+            for k, v in req.items():
+                s.add_tensor(k, v)
+            flash.arm()
+            t1 = time.perf_counter()
+            out = s.run()["out_sample"]
+            ms = (time.perf_counter() - t1) * 1e3
+            results.append(out)
+            want = 10 * (i + 1)
+            print(f"request {i} (t={req['timestep'][0]:g}): {out.shape} finite={np.isfinite(out).all()} "
+                  f"max|out|={np.abs(out).max():.4f} {ms:.1f} ms (the twin's check included), flash launches "
+                  f"so far {flash_attention_packed.launches}")
+            if out.shape != (1, 4, 64, 64) or not np.isfinite(out).all():
+                raise SystemExit(f"request {i}: bad output")
+            if flash_attention_packed.launches != want:
+                raise SystemExit(f"request {i}: {flash_attention_packed.launches} flash launches, want {want}")
+            flash.check(f"request {i}")
+    finally:
+        attention_op.flash_attention_packed = flash_attention_packed
     launches = flash_attention_packed.launches
+    flash.check_variants("SD15 UNet path")
     print(f"first request incl. plan + weight upload: {(time.perf_counter() - t0):.1f} s since session build")
     stats = s.hbm_stats()
     times = []
@@ -517,25 +600,26 @@ def _flash_variant_text(q, k, v, mask=None, scale=None, k_transposed=False, caus
 
 def _flash_earlier(q, k, v, mask=None, scale=None, k_transposed=False, causal=False):
     """The same head-major call on fa_mma_kernel, the mma.sync variant the
-    head-major entry took before its wgmma variant, launched through the
-    packed entry's form (which never takes the wgmma variant); the output is
-    allocated here, outside the timed call."""
+    head-major entry took before its wgmma variant (the wgmma variants kept
+    out of the dispatch); the output is allocated here, outside the timed
+    call."""
     from onnxstream_tpu_torch.kernels import flash_attention as fa
 
     dims, strides, m4 = fa._head_major_launch(q, k, v, mask, k_transposed)
     b, m, n, h, hkv, d, dv = dims
     out = torch.empty((b, h, m, dv), dtype=q.dtype, device=q.device)
     sc = 1.0 / float(np.sqrt(d)) if scale is None else scale
-    return lambda: fa._launch("packed", q, k, v, out, m4, dims, strides, sc, causal)
+    return lambda: fa._launch(q, k, v, out, m4, dims, strides, sc, causal, wgmma=False)
 
 
 def _flash_cost(q, k, v, mask=None, scale=None, k_transposed=False, causal=False):
-    """(bytes, operations) of one head-major call: q, k, v and the mask as
-    given read once, the output written once; QK^T and PV at 2 operations a
-    multiply-add."""
+    """(bytes, operations, exponentials) of one head-major call: q, k, v and
+    the mask as given read once, the output written once; QK^T and PV at 2
+    operations a multiply-add; one exp2 a score."""
     b, h, m, d = q.shape
     n, dv = (k.shape[-1] if k_transposed else k.shape[-2]), v.shape[-1]
-    return _nbytes(q, k, v, mask) + b * h * m * dv * q.element_size(), 2 * b * h * m * n * (d + dv)
+    return (_nbytes(q, k, v, mask) + b * h * m * dv * q.element_size(), 2 * b * h * m * n * (d + dv),
+            b * h * m * n)
 
 
 def _sdpa_library(q, k, v, mask=None, scale=None, k_transposed=False, causal=False):
@@ -609,7 +693,7 @@ def phase_kernel_head_major(name: str) -> dict:
     t_e = device_ms(_flash_earlier(q, k, v, mask=mask))
     t_p = device_ms(lambda: flash_attention_reference(q, k, v, mask=mask))
     t_l = device_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask))
-    b = bound(_nbytes(q, k, v, q, mask), 4 * 32 * L * L * D, "bf16")
+    b = bound(_nbytes(q, k, v, q, mask), 4 * 32 * L * L * D, "bf16", exps=32 * L * L)
     print(f"time bf16 (1, 32, {L}, {D}) with a (1, 1, {L}, {L}) bf16 mask: kernel {t_k:.4f} ms "
           f"({flash_variant(q, k, v, mask)}; the mma variant {t_e:.4f} ms), twin {t_p:.4f} ms, "
           f"scaled_dot_product_attention {t_l:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']})  [{name}]")
@@ -789,10 +873,10 @@ def replay_times(label: str, calls, kernel, twin, library, peak: str, name: str,
     graph's resident ones, so they come from device memory as on the path.
     ``cost`` maps a call to its (bytes, operations); a quantized matmul's
     by default."""
-    nbytes = ops = 0
+    nbytes = ops = exps = 0
     for args, kw in calls:
-        b, o = (cost or _qmm_cost)(*args, **kw)
-        nbytes, ops = nbytes + b, ops + o
+        b, o, *e = (cost or _qmm_cost)(*args, **kw)
+        nbytes, ops, exps = nbytes + b, ops + o, exps + sum(e)
     run_all = lambda fn: [fn(*args, **kw) for args, kw in calls]
     t_k = device_ms(lambda: run_all(kernel), iters=5)
     t_p = device_ms(lambda: run_all(twin), iters=2, warmup=1)
@@ -800,7 +884,7 @@ def replay_times(label: str, calls, kernel, twin, library, peak: str, name: str,
     t_l = None
     if all(libs):
         t_l = device_ms(lambda: [f() for f in libs], iters=5)
-    b = bound(nbytes, ops, peak)
+    b = bound(nbytes, ops, peak, exps)
     print(f"replay of {label}: {len(calls)} calls, kernel {t_k:.4f} ms, twin {t_p:.4f} ms, library "
           + (f"{t_l:.4f} ms" if t_l is not None else f"none ({sum(map(bool, libs))} of {len(calls)} calls have one)")
           + f", bound {b['bound_ms']:.4f} ms ({b['bound_by']}; {nbytes / 1e9:.4f} GB, {ops / 1e9:.2f} G ops) [{name}]")
@@ -808,7 +892,7 @@ def replay_times(label: str, calls, kernel, twin, library, peak: str, name: str,
 
 
 def site_report(label: str, calls, kernel, twin, library, cost, plan_of, tol: float, name: str,
-                peak: str = "bf16", close=None, earlier=None) -> dict:
+                peak: str = "bf16", close=None, earlier=None, key=None) -> dict:
     """Every distinct shape among the recorded calls of one graph run, on the
     graph's own operands: the variant and plan the dispatcher takes
     (``plan_of`` maps a call to that text), the kernel against its twin
@@ -817,11 +901,13 @@ def site_report(label: str, calls, kernel, twin, library, cost, plan_of, tol: fl
     a fixed order), and the device time of kernel, twin and library call
     beside the bound. ``earlier`` maps a call to a no-argument function that
     runs the same call on the variant the kernel took before its wgmma
-    variant, timed beside it."""
+    variant, timed beside it. ``key`` maps a call to its shape (default:
+    the rows of A and the shape of B)."""
     by_shape = {}
     for args, kw in calls:
         a, b = args[0], args[1]
-        by_shape.setdefault((a.numel() // a.shape[-1], *b.shape), []).append((args, kw))
+        shape = key(args, kw) if key else (a.numel() // a.shape[-1], *b.shape)
+        by_shape.setdefault(shape, []).append((args, kw))
     out = {}
     for shape, group in sorted(by_shape.items()):
         args, kw = group[0]
@@ -836,7 +922,8 @@ def site_report(label: str, calls, kernel, twin, library, cost, plan_of, tol: fl
         t_p = device_ms(lambda: twin(*args, **kw), iters=2, warmup=1)
         t_l = device_ms_per_call(library(*args, **kw))
         t_e = device_ms_per_call(earlier(*args, **kw)) if earlier else None
-        b = bound(*cost(*args, **kw), peak)
+        nb, no, *ne = cost(*args, **kw)
+        b = bound(nb, no, peak, sum(ne))
         key = "x".join(map(str, shape))
         print(f"site {label} {key} ({len(group)} calls a run): {plan_of(*args, **kw)}; max|diff| {err:.3e} of "
               f"max|twin| {top:.3f} ({'rtol=atol' if close else 'tol'} {tol:g}) {'ok' if ok else 'FAIL'}, second call "
@@ -1450,6 +1537,42 @@ def _qmatmul_earlier(a, w, *args, weight_nk=False, **kw):
     return lambda: qmatmul(a, w_kn, *args, **kw)
 
 
+def _qconv_variant_text(x, w, *args, **kw) -> str:
+    from onnxstream_tpu_torch.kernels.qconv import qconv_variant
+
+    return f"variant {qconv_variant(x, w)}, " + ("channels-last" if x.is_contiguous(
+        memory_format=torch.channels_last) and x.shape[2] * x.shape[3] > 1 else "NCHW")
+
+
+def _qconv_earlier(x, w, *args, **kw):
+    """The same conv on qgemm_kernel, the variant every conv took before the
+    wgmma one: NCHW / OIHW copies of the operands, made once here, outside
+    the timed call."""
+    from onnxstream_tpu_torch.kernels.qconv import qconv
+
+    xn, wn = x.contiguous(), w.contiguous()
+    return lambda: qconv(xn, wn, *args, **kw)
+
+
+def _w8a8_decoder_nchw(vae, ranges, z):
+    """The W8A8 decoder built as before kernel 4's wgmma variant: the
+    planner's channels-last test (qconv_takes_nhwc) answers no while the
+    session plans, so no conv weight uploads channels-last and every conv
+    input is quantized NCHW."""
+    import onnxstream_tpu_torch.runtime.planner as planner_mod
+    from onnxstream_tpu_torch.models.sd.pipeline import qu8_decoder
+
+    keep = planner_mod.qconv_takes_nhwc
+    planner_mod.qconv_takes_nhwc = lambda c: False
+    try:
+        sess = qu8_decoder(vae.to_text(), vae.weights, ranges, "bfloat16", torch.device("cuda:0"))
+        sess.add_tensor("latent", z[None])
+        sess.run(device_outputs=True)  # plans and uploads here
+    finally:
+        planner_mod.qconv_takes_nhwc = keep
+    return sess
+
+
 def check_qlinear_calls(label, kernel, twin, calls, what: str) -> float:
     """The kernel against its twin on every call's operands: the same
     integer arithmetic, so bit for bit. Returns max|diff|."""
@@ -1512,6 +1635,34 @@ def phase_kernel_qlinear(name: str) -> None:
         calls += [((u8(*x), u8(*w), 0.03, 120, 0.02, 128),
                    dict(bias=bias, strides=st, pads=pd, dilations=dl, **o)) for o in outs]
     check_qlinear_calls("qconv", qconv, qconv_reference, calls, "strides, dilations, pads, 1 x 1, 3 outputs")
+    # kernel 4's wgmma variant: channels-last operands (C % 16 == 0), padded
+    # borders (za in the window), 1 x 1, stride 2, dilation, conv_out's O = 3,
+    # output channels off the 128-row tile, pixel counts off and on the
+    # 128-pixel tile; each call twice for equal bits, and against qgemm_kernel
+    # on NCHW copies
+    cl = lambda t: t.contiguous(memory_format=torch.channels_last)
+    calls = []
+    for x, w, st, pd, dl in [((1, 512, 16, 16), (512, 512, 3, 3), (1, 1), (1, 1, 1, 1), (1, 1)),
+                             ((2, 32, 9, 11), (64, 32, 3, 3), (2, 2), (0, 1, 2, 1), (1, 1)),
+                             ((1, 48, 10, 13), (128, 48, 1, 1), (1, 1), (0, 0, 0, 0), (1, 1)),
+                             ((1, 16, 14, 14), (64, 16, 3, 3), (1, 1), (2, 2, 2, 2), (2, 2)),
+                             ((1, 128, 16, 16), (192, 128, 3, 3), (1, 1), (1, 1, 1, 1), (1, 1)),
+                             ((1, 256, 32, 32), (128, 256, 1, 1), (1, 1), (0, 0, 0, 0), (1, 1)),
+                             ((1, 128, 7, 9), (64, 128, 3, 3), (2, 1), (1, 0, 0, 1), (1, 1)),
+                             ((1, 128, 20, 20), (3, 128, 3, 3), (1, 1), (1, 1, 1, 1), (1, 1))]:
+        bias = torch.randn(w[0], device="cuda", generator=gen) * 30
+        calls += [((cl(u8(*x)), cl(u8(*w)), 0.03, 120, 0.02, 128),
+                   dict(bias=bias, strides=st, pads=pd, dilations=dl, **o)) for o in outs]
+    for args, kw in calls:
+        if not _qconv_variant_text(*args, **kw).startswith("variant wgmma"):
+            raise SystemExit(f"qconv did not take the wgmma variant on {_about_qlinear(*args, **kw)}")
+        got = qconv(*args, **kw)
+        if not torch.equal(got, qconv(*args, **kw)) or not torch.equal(got, _qconv_earlier(*args, **kw)()):
+            raise SystemExit(f"qconv's wgmma variant gave other bits on a second call or than qgemm_kernel: "
+                             f"{_about_qlinear(*args, **kw)}")
+    check_qlinear_calls("qconv", qconv, qconv_reference, calls,
+                        "the wgmma variant, channels-last operands, 3 outputs, second calls and qgemm_kernel "
+                        "bit-equal")
 
 
 def _decode_image(pipe, lat, tiled: bool = False):
@@ -1530,15 +1681,27 @@ def _decode_image(pipe, lat, tiled: bool = False):
 
 class _FlashSites(_GraphSiteCheck):
     """The packed flash wrapper as ops/attention.py calls it: each call's
-    head dim is recorded, and the armed call is held against the twin."""
+    head dim and variant are recorded, and the armed call is held against
+    the twin."""
 
     def __init__(self, kernel, twin, tol):
-        super().__init__(kernel, twin, tol, lambda q, k, v, heads, **kw: f"q {tuple(q.shape)} heads {heads}")
-        self.head_dims = []
+        super().__init__(kernel, twin, tol,
+                         lambda q, k, v, heads, **kw: f"q {tuple(q.shape)} heads {heads}, {_packed_variant(q, k, v, heads)}")
+        self.head_dims, self.variants = [], []
 
     def __call__(self, q, k, v, heads, **kw):
         self.head_dims.append(q.shape[-1] // heads)
+        self.variants.append(_packed_variant(q, k, v, heads))
         return super().__call__(q, k, v, heads, **kw)
+
+    def check_variants(self, label: str) -> None:
+        """Every recorded call took a wgmma variant."""
+        seen = {}
+        for d, var in zip(self.head_dims, self.variants):
+            seen[(d, var)] = seen.get((d, var), 0) + 1
+        print(f"{label}: flash_attention_packed variants by head dim {seen}")
+        if any(not var.startswith("wgmma") for _, var in seen):
+            raise SystemExit(f"{label}: a flash site took a variant other than a wgmma one")
 
 
 def _tiny_pipeline_card_vs_cpu() -> None:
@@ -1678,6 +1841,7 @@ def phase_sd_image(name: str) -> dict:
                 "qconv": qconv.launches}
     peak = max(flash.peak, qmm.peak, qcv.peak, torch.cuda.max_memory_allocated())
     print(f"SD image path launches: {launches}; peak device memory {peak / 2**20:.1f} MB [{name}]")
+    flash.check_variants("SD image path")
     if len({images[k].tobytes() for k in images}) != 3:
         raise SystemExit("the three requests gave the same image")
     d = np.abs(images["a"].astype(np.int32) - img_bf16.astype(np.int32))
@@ -1708,10 +1872,31 @@ def phase_sd_image(name: str) -> dict:
           f"{ms['step']:.2f} ms, euler_a loop of 10 steps {ms['loop']:.1f} ms, decode bf16 {ms['bf16_warm']:.1f} ms, "
           f"W8A8 {ms['w8a8']:.1f} ms, tiled bf16 {ms['tiled_warm']:.1f} ms; calibration {cal_s:.2f} s")
     z = torch.as_tensor(res["a"].latents).cuda() / np.float32(pipe.vae_scale)
-    for label, sess in (("W8A8 decode", w8a8), ("bf16 decode", float_decoder)):
+    # the same W8A8 decoder with every conv on the NCHW route (qgemm_kernel,
+    # the input quantized NCHW): the same bits, and the channels-last
+    # quantization's cost in the profile beside it
+    w8a8_nchw = _w8a8_decoder_nchw(vae, ranges, z)
+    imgs = []
+    for sess in (w8a8, w8a8_nchw):
         sess.clear_tensors()
         sess.add_tensor("latent", z[None])
-        profile_steps(lambda: sess.run(device_outputs=True), name, label, steps=1)
+        imgs.append(next(iter(sess.run(device_outputs=True).values())))
+    same = torch.equal(imgs[0], imgs[1])
+    print(f"W8A8 decode, channels-last convs (wgmma) vs NCHW convs (qgemm_kernel): bit-equal outputs: {same}")
+    if not same:
+        raise SystemExit("the W8A8 decode differs between its two conv routes")
+    del imgs
+    busy = {}
+    for label, sess in (("W8A8 decode", w8a8), ("W8A8 decode, NCHW convs (qgemm_kernel)", w8a8_nchw),
+                        ("bf16 decode", float_decoder)):
+        sess.clear_tensors()
+        sess.add_tensor("latent", z[None])
+        rows = profile_steps(lambda: sess.run(device_outputs=True), name, label, steps=2)
+        elementwise = sum(ms_ for ms_, _, key in rows if "elementwise" in key or "copy" in key.lower())
+        busy[label] = sum(r[0] for r in rows)
+        print(f"  {label}: device busy {busy[label]:.3f} ms, of which torch elementwise / copy kernels "
+              f"{elementwise:.3f} ms (the activation quantization, its layout conversion included) [{name}]")
+    del w8a8_nchw
 
     # one W8A8 decode's calls recorded: every call against the twin, then replayed
     qmm.calls, qcv.calls = [], []
@@ -1736,6 +1921,30 @@ def phase_sd_image(name: str) -> dict:
                                 qmatmul_reference, _matmul_library, "int8", name, cost=_qmatmul_cost),
         "qconv": replay_times("qconv over one W8A8 decode's convs (bf16 out)", calls["qconv"], qconv,
                               qconv_reference, _conv_library, "int8", name, cost=_qconv_cost)}
+    # kernel 4: which variant each of the decode's convs takes; every conv
+    # that the wgmma variant takes by its predicate must have taken it
+    from onnxstream_tpu_torch.kernels.qconv import qconv_variant
+    from onnxstream_tpu_torch.kernels.qmatmul import qconv_takes_nhwc
+
+    by_variant = {}
+    for a, _ in calls["qconv"]:
+        by_variant.setdefault(qconv_variant(a[0], a[1]), []).append(f"{tuple(a[0].shape)} * {tuple(a[1].shape)}")
+    for var, shapes in sorted(by_variant.items()):
+        print(f"qconv variant {var}: {len(shapes)} of the decode's {len(calls['qconv'])} convs: "
+              + ", ".join(f"{sh} x{shapes.count(sh)}" for sh in sorted(set(shapes))))
+    if any(qconv_takes_nhwc(a[0].shape[1]) != (qconv_variant(a[0], a[1]) == "wgmma")
+           for a, _ in calls["qconv"]):
+        raise SystemExit("a W8A8 decode conv did not take the variant its predicate names")
+    nchw_calls = [((a[0].contiguous(), a[1].contiguous(), *a[2:]), k) for a, k in calls["qconv"]]
+    t_e = device_ms(lambda: [qconv(*a, **k) for a, k in nchw_calls], iters=5)
+    del nchw_calls
+    times["qconv"]["earlier_variant_ms"] = t_e
+    print(f"replay of qconv over one W8A8 decode's convs on qgemm_kernel (NCHW copies of the operands, made "
+          f"outside the timed calls): {t_e:.4f} ms; the wgmma variant where it applies {times['qconv']['ms']:.4f} ms "
+          f"[{name}]")
+    conv_sites = site_report("qconv, W8A8 decode", calls["qconv"], qconv, qconv_reference, _conv_library,
+                             _qconv_cost, _qconv_variant_text, 0.0, name, peak="int8", earlier=_qconv_earlier,
+                             key=lambda a, k: (*a[0].shape, *a[1].shape))
     # kernel 3 at every shape of the decode's MatMuls, on the graph's operands
     # (the weights as uploaded, (N, K)): the variant, bit for bit, a second
     # call's bits, and the times beside the (K, N) weight on qgemm_kernel
@@ -1747,6 +1956,9 @@ def phase_sd_image(name: str) -> dict:
     out = {k: {"launches": launches[k], "max_abs_err": max(errs[k], (qmm if k == "qmatmul" else qcv).worst),
                **times[k]} for k in ("qmatmul", "qconv")}
     out["qmatmul"]["sites_of_decode"] = sites
+    out["qconv"]["sites_of_decode"] = conv_sites
+    out["qconv"]["variants"] = {k: len(v) for k, v in by_variant.items()}
+    out["w8a8_decode_busy_ms"] = busy
     out["flash_launches"] = launches["flash_attention_packed"]
     return out
 

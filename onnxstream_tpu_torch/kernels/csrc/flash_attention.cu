@@ -26,53 +26,56 @@
 //
 // Grid. One CTA per (q-tile, head, batch); the CTA walks the KV axis in a loop
 // (the sequential grid axis of the TPU kernel), with K/V tiles staged in
-// shared memory and the running max, sum and output accumulator in registers.
-// The C entry takes the form explicitly (0 = packed, 1 = head-major): the
-// variant is never inferred from the strides. Four variants, chosen by form,
-// dtype, head dim and alignment in dispatch_head_major() / dispatch():
+// shared memory and the running max, sum and output accumulator in registers
+// (the wide wgmma variant also splits the keys over CTAs). Both entries share
+// one dispatcher: the variant follows from dtype, head dims, mask and
+// alignment in dispatch_all(), never from the entry or from the strides'
+// meaning. Five variants:
 //
-//  * fa_wgmma_kernel (the head-major entry only, kernel 2: bf16 / fp16, head
-//    dims <= 128, 16-byte aligned Q/K/V/O rows, K read by rows), the shape of
-//    Hopper's fast attention kernels: a loading warpgroup keeps Q and a ring
-//    of two stages of K, V and mask tiles in flight with cp.async under
-//    mbarriers (gemm_sm90.cuh), two consumer warpgroups of 64 query rows run
-//    S = Q K^T and O += P V as wgmma, P in registers as the A operand and V
-//    read MN-major through the transpose bit (described at the kernel). At
-//    the TinyLlama prefill site (32 heads x 1024 x 64, a (1, 1, 1024, 1024)
-//    mask) the work is 8.6 GFLOP against 12.7 MB: bound by the tensor cores
-//    (8.7 us at 989 TFLOP/s). The design keeps the tensor cores fed from
-//    shared memory that the loaders fill ahead of the consumers, and stages
-//    the mask tile by 16-byte copies (one (1, 1, L, L) mask serves all heads
-//    from L2). What holds it at about 8x that bound: the softmax between the
-//    two products of a warpgroup, which nothing overlaps yet, and the mask
-//    step, whose copies and 4-byte shared loads cost about as much as the
-//    rest (ptxas also serializes the wgmma issue of the masked d <= 64
-//    variants, note C7515: it packs P into the registers of S);
+//  * fa_wgmma_kernel (bf16 / fp16, head dims <= 128, 16-byte aligned Q/K/V/O
+//    rows, K read by rows, no mask or one whose rows are 16-byte granular):
+//    the shape of Hopper's fast attention kernels, described at the kernel.
+//    Kernel 1 takes it at the SD1.5 UNet sites (8 heads of 40 and of 80,
+//    packed, no mask) with tile widths of their own, the two consumer
+//    warpgroups taking turns on the tensor cores so that one's softmax runs
+//    beside the other's products; kernel 2 at the TinyLlama prefill (32
+//    heads x 1024 x 64, a (1, 1, 1024, 1024) mask tile staged by 16-byte
+//    copies), where the softmax between the two products and the mask step
+//    hold it at about 8x its tensor bound;
+//  * fa_wgmma_wide_kernel (bf16 / fp16, head dims 257..512, aligned rows, no
+//    mask): kernel 1 at the SD VAE's mid-block site (1 head of 512 x 4096
+//    tokens), O split by columns over two warpgroups, the keys over CTAs and
+//    a fixed-order combine;
 //  * fa_mma_kernel (bf16 / fp16, head dims <= 128, 16-byte aligned Q/V/O
 //    rows): tensor-core products with mma.sync m16n8k16, f32 accumulate. Each
 //    warp owns 16 query rows; the score tile stays in registers and is reused
 //    as the A operand of the PV product (the FlashAttention-2 layout), so P
 //    never touches shared memory. The softmax scale is applied in float32
-//    (one FMA per score) instead of rounding a scaled Q to bf16.
+//    (one FMA per score) instead of rounding a scaled Q to bf16. Taken for K
+//    given transposed or a mask whose rows are not 16-byte granular;
 //  * fa_mma_wide_kernel (bf16 / fp16, head dims 257..512, aligned rows, no
-//    mask): the same instructions with D split across 8 warps (below);
+//    mask, K given transposed): the same instructions with D split across 8
+//    warps (below);
 //  * fa_fma_kernel (fp32, any head dim up to 512, up to 256 with a mask, any
 //    alignment): CUDA-core FMAs on float32 tiles; each thread owns an
 //    RM x (BN/8) score tile and an RM x (KD/8) accumulator, the 8 threads
 //    sharing rows reduce with shuffles.
 //    float32 inputs keep full float32 products, the parity path.
+// The C entry's `wgmma` argument set to 0 keeps the wgmma variants out, so
+// that a caller can time the variants they replaced on the same operands.
 //
-// What bounds the others. The score matrix never reaches device memory, which
-// is what every variant saves over the plain version. The mma variant (kernel
-// 1 at the SD UNet sites, and what the head-major entry takes for K given
-// transposed or a mask whose rows are not 16-byte granular) is bound by the
-// rate of mma.sync and its unpipelined K / V^T staging (two barriers a tile,
-// V transposed element by element); its mask costs one scalar load per
-// score. The FMA variant is bound by the FMA rate and
-// shared-memory loads (about 2.7 FMAs per shared load). The wide variant runs
-// one 183 KB CTA per SM, and at the VAE's 4096 tokens only 128 of them, each
-// walking all keys with four barriers per tile: it is latency-bound (splitting
-// the keys over CTAs is the next step for kernel 1).
+// What bounds them. The score matrix never reaches device memory, which is
+// what every variant saves over the plain version. At head dim 40 a score
+// costs 160 tensor operations and one exp2: the special-function units (16
+// exp2 a clock per SM) take longer than the tensor cores, so the SD1.5 UNet
+// sites are bound by the softmax's exponentials, which the wgmma variant
+// overlaps with the products. The mma variant is bound by the rate of
+// mma.sync and its unpipelined K / V^T staging (two barriers a tile, V
+// transposed element by element); its mask costs one scalar load per score.
+// The FMA variant is bound by the FMA rate and shared-memory loads (about 2.7
+// FMAs per shared load). The mma wide variant runs one 183 KB CTA per SM, and
+// at the VAE's 4096 tokens only 128 of them, each walking all keys with four
+// barriers per tile: it is latency-bound.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -776,25 +779,110 @@ __global__ void __launch_bounds__(kWideThreads) fa_mma_wide_kernel(const Params 
 }
 
 // ---------------------------------------------------------------------------
-// wgmma variant (bf16 / fp16, head dims <= 128, the head-major entry only)
+// wgmma variants (bf16 / fp16: head dims <= 128 with or without a mask, head
+// dims 257..512 without one)
 // ---------------------------------------------------------------------------
 //
-// A block takes 128 query rows of one (batch, head): two consumer warpgroups
-// of 64 rows and a loading warpgroup. The loaders put Q into shared memory
-// once and keep a ring of two stages full with cp.async copies: the key tile
-// K (BN keys x KD, K-major), the value tile V (the same rows, read MN-major by
-// wgmma's transpose bit: V is never transposed) and, where the mask's rows are
-// whole 16-byte pieces, the mask tile (128 rows x BN keys in the mask's own
-// dtype); the hardware arrives on the stage's mbarrier when they land. Per key
-// tile a consumer warpgroup runs S = Q K^T as wgmma m64nBNk16 from shared
-// memory, the online softmax on S in float32 registers (scores in the log2
-// domain, mask * log2(e) added in float32), then O += P V as wgmma m64nKDk16
-// with P, rounded to V's dtype, as the register A operand: the accumulator
-// layout of S is the register layout of A. The stage goes back to the
-// loaders when the next tile's S product has retired, so the next tile's
-// copies and the PV product overlap the softmax. Head dims below KD are zero
-// in the tiles. A mask whose rows are not 16-byte granular is not taken here:
-// fa_mma_kernel reads such a mask element by element.
+// fa_wgmma_kernel: a block takes 128 query rows of one (batch, head): two
+// consumer warpgroups of 64 rows and a loading warpgroup. The loaders put Q
+// into shared memory once and keep a ring of stages full with cp.async
+// copies: the key tile K (BN keys x KD, K-major), the value tile V (the same
+// rows, read MN-major by wgmma's transpose bit: V is never transposed) and,
+// where the mask's rows are whole 16-byte pieces, the mask tile (128 rows x
+// BN keys in the mask's own dtype); the hardware arrives on the stage's
+// mbarrier when they land. Per key tile a consumer warpgroup runs S = Q K^T as
+// wgmma m64nBNk16 from shared memory over DQ (the head dim rounded up to 16:
+// 48 for d = 40, 80 for d = 80), the online softmax on S in float32 registers
+// (scores in the log2 domain, mask * log2(e) added in float32), then O += P V
+// as wgmma m64nDVk16 (DV = the head dim: 40 and 80 are wgmma widths) with P,
+// rounded to V's dtype, as the register A operand: the accumulator layout of
+// S is the register layout of A. The tiles keep 128-byte rows under the
+// 128-byte swizzle; the products read only the columns of the real head dim
+// (the loads zero-fill a row past it without reading memory).
+//
+// The softmax costs one exp2 per score on the special-function units (16 a
+// clock per SM): at d = 40 that takes longer than both products on the
+// tensor cores, so the unmasked forms overlap the two. The consumer
+// warpgroups take turns on the tensor cores through named barriers: in its
+// turn a warpgroup issues the S product of tile j + 1 and the PV product of
+// tile j (P of tile j already packed), and it runs tile j + 1's softmax while
+// those and the other warpgroup's products run. The ring has three stages,
+// so that tile j + 1's K lands while tile j's V is still read; where the
+// query tiles leave SMs idle (the d = 80 site: 64 blocks) the keys are split
+// over blocks as in the wide form below. The masked forms (kernel 2's
+// prefill) run S, softmax and PV in turn within each warpgroup, with two
+// stages (their mask tiles fill shared memory). A mask whose rows are not
+// 16-byte granular is not taken here: fa_mma_kernel reads such a mask element
+// by element.
+//
+// fa_wgmma_wide_kernel (the SD VAE's mid-block attention, 1 head of 512): a
+// 64 x 512 float32 O accumulator would need 256 registers a thread, so the
+// two consumer warpgroups share 64 query rows and split O by columns: each
+// owns 64 rows x 256 (128 registers, setmaxnreg gives them 232 and the
+// loaders 40). Each warpgroup computes the whole score tile itself rather
+// than sharing S or P through shared memory: the duplicate S product costs
+// half again the tensor work, where sharing would cost two block-wide
+// barriers a tile and a 64 x 32 P round trip through shared memory. Key
+// tiles are 32 keys (two stages of K and V, 64 KB each, beside 64 KB of Q).
+// 4096 query rows give only 64 blocks of 64 rows, so the keys are split over
+// `splits` blocks (the wrapper picks them to fill the SMs once): each writes
+// its unnormalized float32 O and its row max and sum, and a second small
+// kernel combines the splits in a fixed order, so a call gives the same bits
+// every time.
+
+// exp2 on the special-function unit with subnormal results flushed to 0:
+// the online softmax's probabilities (exp2f wraps the same instruction in a
+// subnormal fix-up)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// One row of a wgmma accumulator O (r: the thread's first or second row;
+// columns col0 + 8 jt + 2 tq, + 1) out: normalized in T, or as a key split's
+// unnormalized float32 partial at part[split][b][h][row][:Dv], with (the row
+// max in the log2 domain, the row sum) after all the partials, written by
+// the threads with tq == 0 where `stats`.
+template <typename T, int NO>
+__device__ __forceinline__ void store_row(const Params& p, const float (&o)[NO], int r, int b, int h, int row,
+                                          int col0, int tq, float l, float m_log2, int splits, int split,
+                                          float* part, bool stats) {
+  if (splits == 1) {
+    T* out = static_cast<T*>(p.o) + b * p.sob + h * p.soh + row * p.som;
+    const float denom = l == 0.f ? 1.f : l;
+#pragma unroll
+    for (int jt = 0; jt < NO / 4; ++jt) {
+      const int col = col0 + 8 * jt + 2 * tq;
+      if (col < p.Dv)
+        *reinterpret_cast<uint32_t*>(out + col) = pack2(o[4 * jt + 2 * r] / denom, o[4 * jt + 2 * r + 1] / denom, T());
+    }
+    return;
+  }
+  const long long rows = static_cast<long long>(p.B) * p.H * p.M;
+  const long long ri = (static_cast<long long>(b) * p.H + h) * p.M + row;
+  float* po = part + (split * rows + ri) * p.Dv;
+#pragma unroll
+  for (int jt = 0; jt < NO / 4; ++jt) {
+    const int col = col0 + 8 * jt + 2 * tq;
+    if (col < p.Dv) *reinterpret_cast<float2*>(po + col) = make_float2(o[4 * jt + 2 * r], o[4 * jt + 2 * r + 1]);
+  }
+  if (stats && tq == 0) {
+    float* ml = part + static_cast<long long>(splits) * rows * p.Dv + 2 * (split * rows + ri);
+    ml[0] = m_log2;  // -inf: no key of this split
+    ml[1] = l;
+  }
+}
+
+// setmaxnreg of the unmasked wgmma forms and the wide one: the loading
+// warpgroup gives registers to the two consumer warpgroups, which hold a
+// score tile, P and O (up to 64 + 32 + 64 registers, 128 + 8 + 16 in the
+// wide form)
+constexpr int kLoaderRegs = 56, kConsumerRegs = 224;
+constexpr int kMaxSplits = 256;  // key splits of one query tile (fa_combine_kernel's weights)
+__device__ __forceinline__ void loader_regs() { asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n"); }
+__device__ __forceinline__ void consumer_regs() { asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n"); }
+static_assert(gemm90::kWG * kLoaderRegs + 2 * gemm90::kWG * kConsumerRegs <= 65536, "the register file");
 
 __device__ __forceinline__ float2 mask_pair(const uint8_t* at, int dtype) {
   if (dtype == 0) return *reinterpret_cast<const float2*>(at);
@@ -802,13 +890,13 @@ __device__ __forceinline__ float2 mask_pair(const uint8_t* at, int dtype) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(at));
 }
 
-template <int KD>
+template <int KD, bool MASK>
 struct FaWgCfg {
-  static constexpr int kBM = 128;                  // query rows: two consumer warpgroups
+  static constexpr int kBM = 128;  // query rows: two consumer warpgroups
   static constexpr int kBN = KD == 64 ? 128 : 64;  // keys per staged tile
-  static constexpr int kStages = 2;
+  static constexpr int kStages = MASK ? 2 : 3;
   static constexpr int kQBytes = kBM * KD * 2;
-  static constexpr int kKBytes = kBN * KD * 2;     // the K tile; the V tile the same
+  static constexpr int kKBytes = kBN * KD * 2;  // the K tile; the V tile the same
   static constexpr int kThreads = 3 * gemm90::kWG;
   // the mask tile: kBM rows of kBN keys, 16 bytes of padding a row (the
   // consumers' pair loads of 8 rows then meet no bank twice), rounded up to
@@ -818,56 +906,65 @@ struct FaWgCfg {
   // Q, the ring, the barriers, slack to reach a 1024-byte boundary
   static constexpr int smem_bytes(int elt) { return 1024 + kQBytes + kStages * stage_bytes(elt) + 8 * (2 * kStages + 1); }
 };
-static_assert(FaWgCfg<64>::smem_bytes(4) <= 232448 && FaWgCfg<128>::smem_bytes(4) <= 232448,
+static_assert(FaWgCfg<64, true>::smem_bytes(4) <= 232448 && FaWgCfg<128, true>::smem_bytes(4) <= 232448 &&
+                  FaWgCfg<64, false>::smem_bytes(0) <= 232448 && FaWgCfg<128, false>::smem_bytes(0) <= 232448,
               "shared memory of a block");
 
-template <typename T, int KD, bool MASK>
-__global__ void __launch_bounds__(FaWgCfg<KD>::kThreads, 1)
-    fa_wgmma_kernel(const Params p, int stage_bytes, int mask_pitch) {
-  using C = FaWgCfg<KD>;
-  constexpr int BM = C::kBM, BN = C::kBN, kWG = gemm90::kWG;
+template <typename T, int KD, int DQ, int DV, bool MASK>
+__global__ void __launch_bounds__(FaWgCfg<KD, MASK>::kThreads, 1)
+    fa_wgmma_kernel(const Params p, int stage_bytes, int mask_pitch, int splits, float* part) {
+  using C = FaWgCfg<KD, MASK>;
+  constexpr int BM = C::kBM, BN = C::kBN, S = C::kStages, kWG = gemm90::kWG;
+  static_assert(DQ % 16 == 0 && DQ <= KD && DV % 8 == 0 && DV <= KD, "tile widths");
+  constexpr int kQC = (DQ + 63) / 64;  // 128-byte chunks of a Q / K row that the S product reads
+  constexpr int kVC = (DV + 63) / 64;  // and of a V row that the PV product reads
   extern __shared__ __align__(16) uint8_t fa_smem[];
   const uint32_t smem_base = gemm90::smem_u32(fa_smem);
   const uint32_t q_s = gemm90::align1024(smem_base);
   const uint32_t stage0 = q_s + C::kQBytes;
-  const uint32_t full0 = stage0 + C::kStages * stage_bytes, empty0 = full0 + 8 * C::kStages;
-  const uint32_t q_full = empty0 + 8 * C::kStages;
+  const uint32_t full0 = stage0 + S * stage_bytes, empty0 = full0 + 8 * S;
+  const uint32_t q_full = empty0 + 8 * S;
 
   const int tid = threadIdx.x, wg = tid / kWG, t = tid % kWG;
   const int m0 = blockIdx.x * BM;
   const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  const int b = blockIdx.z / splits, split = blockIdx.z % splits;
   const int hk = h / (p.H / p.Hkv);
   const int offset = p.N - p.M;
   // keys past the tile's last row + offset are masked for every row: skipped
   const int n_end = p.causal ? max(0, min(p.N, m0 + BM + offset)) : p.N;
-  const int ntiles = (n_end + BN - 1) / BN;
+  // this split's key tiles: an equal share of all N keys, cut at n_end
+  const int tiles = (p.N + BN - 1) / BN, per = (tiles + splits - 1) / splits;
+  const int it0 = split * per;
+  const int ntiles = max(0, min(min(tiles, it0 + per), (n_end + BN - 1) / BN) - it0);
   const int elt = p.mask_dtype == 0 ? 4 : 2;
   const long long mbase = b * p.smb + h * p.smh;
   if (tid == 0) {
-    gemm90::init_barriers<C::kStages>(full0, empty0, kWG, 2 * kWG);
+    gemm90::init_barriers<S>(full0, empty0, kWG, 2 * kWG / 32);  // empty: one arrival a consumer warp
     gemm90::mbar_init(q_full, kWG);
     gemm90::mbar_init_fence();
   }
   __syncthreads();
 
   if (wg == 2) {  // loaders
+    if constexpr (!MASK) loader_regs();
     const T* q = static_cast<const T*>(p.q) + b * p.sqb + h * p.sqh;
     const T* k = static_cast<const T*>(p.k) + b * p.skb + hk * p.skh;
     const T* v = static_cast<const T*>(p.v) + b * p.svb + hk * p.svh;
     const uint8_t* mask = MASK ? static_cast<const uint8_t*>(p.mask) + mbase * elt : nullptr;
 #pragma unroll
-    for (int kc = 0; kc < KD / 64; ++kc)
+    for (int kc = 0; kc < kQC; ++kc)
       gemm90::load_kmajor_tile<BM>(q_s + kc * BM * 128, q, 2 * p.sqm, m0, p.M, 128 * kc, 2 * p.D, t);
     gemm90::cp_async_arrive(q_full);
-    gemm90::produce<C::kStages>(ntiles, full0, empty0, [&](int it, int s) {
+    gemm90::produce<S>(ntiles, full0, empty0, [&](int it, int s) {
       const uint32_t sb = stage0 + s * stage_bytes;
-      const int n0 = it * BN;
+      const int n0 = (it0 + it) * BN;
 #pragma unroll
-      for (int kc = 0; kc < KD / 64; ++kc) {
+      for (int kc = 0; kc < kQC; ++kc)
         gemm90::load_kmajor_tile<BN>(sb + kc * BN * 128, k, 2 * p.skn, n0, p.N, 128 * kc, 2 * p.D, t);
+#pragma unroll
+      for (int kc = 0; kc < kVC; ++kc)
         gemm90::load_kmajor_tile<BN>(sb + C::kKBytes + kc * BN * 128, v, 2 * p.svn, n0, p.N, 128 * kc, 2 * p.Dv, t);
-      }
       if constexpr (MASK) {
         const int per_row = BN * elt / 16;  // 16-byte pieces of a mask row
         const uint32_t mt = sb + 2 * C::kKBytes;
@@ -883,6 +980,7 @@ __global__ void __launch_bounds__(FaWgCfg<KD>::kThreads, 1)
     return;
   }
 
+  if constexpr (!MASK) consumer_regs();
   const int warp = t / 32, lane = t % 32, g = lane / 4, tq = lane % 4;
   const int lrow = 64 * wg + 16 * warp + g;  // this thread's rows of the block's tile: lrow and lrow + 8
   const int row0 = m0 + lrow;
@@ -890,39 +988,38 @@ __global__ void __launch_bounds__(FaWgCfg<KD>::kThreads, 1)
   // with a mask the scores are moved to the log2 domain before the softmax;
   // without one the scale is folded into the exp2 argument
   const float cs = MASK ? 1.f : c;
+  // a warp's reads of a stage are done: one arrival on its empty barrier
+  auto release = [&](int it) {
+    if (lane == 0) gemm90::mbar_arrive(empty0 + 8 * (it % S));
+  };
 
-  float o[KD / 2], s[BN / 2];
+  float o[DV / 2];
 #pragma unroll
-  for (int i = 0; i < KD / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < DV / 2; ++i) o[i] = 0.f;
   float m_r[2] = {-INFINITY, -INFINITY};
   float l_r[2] = {0.f, 0.f};  // per-thread partial row sums, reduced over the quad at the end
-  uint32_t pa[BN / 16][4];  // P in V's dtype, the register A operand of the PV product
+  uint32_t pa[BN / 16][4];    // P in V's dtype, the register A operand of the PV product
 
-  if (ntiles > 0) gemm90::mbar_wait(q_full, 0);
-  for (int it = 0; it < ntiles; ++it) {
-    const int st = it % C::kStages;
-    const uint32_t sb = stage0 + st * stage_bytes;
-    gemm90::mbar_wait(full0 + 8 * st, (it / C::kStages) & 1);
-
-    // raw scores q . k of this warpgroup's 64 rows x BN keys (the register
-    // fences keep the softmax's writes of S, and below the rescale of O and
-    // the packing of P, ahead of wgmma.fence)
+  // S = Q K^T of key tile `it` into s: one commit group (the register fences
+  // keep the softmax's writes of S, and below the rescale of O and the
+  // packing of P, ahead of wgmma.fence)
+  auto issue_s = [&](float (&s)[BN / 2], int it) {
+    const uint32_t kt = stage0 + (it % S) * stage_bytes;
     gemm90::fence_regs(s);
     gemm90::wgmma_fence();
 #pragma unroll
-    for (int ks = 0; ks < KD / 16; ++ks) {
-      const uint32_t qt = q_s + (ks / 4) * BM * 128 + wg * 64 * 128;
-      const uint32_t kt = sb + (ks / 4) * BN * 128;
-      gemm90::wgmma_ss<T, BN, 0>(s, gemm90::a_desc(qt, ks % 4), gemm90::kmajor_desc(kt, ks % 4), ks > 0);
-    }
+    for (int ks = 0; ks < DQ / 16; ++ks)
+      gemm90::wgmma_ss<T, BN, 0>(s, gemm90::a_desc(q_s + (ks / 4) * BM * 128 + wg * 64 * 128, ks % 4),
+                                 gemm90::kmajor_desc(kt + (ks / 4) * BN * 128, ks % 4), ks > 0);
     gemm90::wgmma_commit();
-    gemm90::wgmma_wait<0>();  // S, and the previous tile's PV product, are done
-    gemm90::fence_regs(s);
-    gemm90::fence_regs(o);
-    if (it > 0) gemm90::mbar_arrive(empty0 + 8 * ((it - 1) % C::kStages));
-
-    const int n0 = it * BN;
-    const uint8_t* mt = fa_smem + (sb + 2 * C::kKBytes - smem_base);
+  };
+  // the mask and the online softmax of key tile `it`: S in s becomes the
+  // unnormalized P (float32); corr gets the rescale factor of O's two rows
+  auto softmax = [&](float (&s)[BN / 2], int it, float (&corr)[2]) {
+    const int n0 = (it0 + it) * BN;
+    const uint8_t* mt = fa_smem + (stage0 + (it % S) * stage_bytes + 2 * C::kKBytes - smem_base);
+    // without a mask only the tiles past N or across the diagonal need it
+    if (MASK || p.causal || n0 + BN > p.N)
 #pragma unroll
     for (int j = 0; j < BN / 8; ++j)
 #pragma unroll
@@ -944,8 +1041,7 @@ __global__ void __launch_bounds__(FaWgCfg<KD>::kThreads, 1)
           }
         }
       }
-
-    // online softmax on rows row0 (elements 0, 1 of each n8 block) and row0 + 8 (2, 3)
+    // rows row0 (elements 0, 1 of each n8 block) and row0 + 8 (2, 3)
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       float mx = -INFINITY;
@@ -956,25 +1052,264 @@ __global__ void __launch_bounds__(FaWgCfg<KD>::kThreads, 1)
       const float m_new = fmaxf(m_r[r], mx);
       // a row with no valid key so far keeps p = 0, corr = 0 and l = 0
       const float m_use = (m_new == -INFINITY) ? 0.f : m_new;
-      const float corr = exp2f((m_r[r] - m_use) * cs);
+      corr[r] = fast_exp2((m_r[r] - m_use) * cs);
       const float mc = m_use * cs;
       float rs = 0.f;
 #pragma unroll
       for (int j = 0; j < BN / 8; ++j) {
-        s[4 * j + 2 * r] = exp2f(fmaf(s[4 * j + 2 * r], cs, -mc));
-        s[4 * j + 2 * r + 1] = exp2f(fmaf(s[4 * j + 2 * r + 1], cs, -mc));
+        s[4 * j + 2 * r] = fast_exp2(fmaf(s[4 * j + 2 * r], cs, -mc));
+        s[4 * j + 2 * r + 1] = fast_exp2(fmaf(s[4 * j + 2 * r + 1], cs, -mc));
+        rs += s[4 * j + 2 * r] + s[4 * j + 2 * r + 1];
+      }
+      l_r[r] = l_r[r] * corr[r] + rs;
+      m_r[r] = m_new;
+    }
+  };
+  // P rounded to V's dtype straight from the score registers
+  auto pack = [&](const float (&s)[BN / 2]) {
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) {
+      pa[kk][0] = pack2(s[8 * kk + 0], s[8 * kk + 1], T());
+      pa[kk][1] = pack2(s[8 * kk + 2], s[8 * kk + 3], T());
+      pa[kk][2] = pack2(s[8 * kk + 4], s[8 * kk + 5], T());
+      pa[kk][3] = pack2(s[8 * kk + 6], s[8 * kk + 7], T());
+    }
+  };
+  // O = corr O + P V of key tile `it`: one commit group
+  auto issue_pv = [&](int it, const float (&corr)[2]) {
+#pragma unroll
+    for (int jt = 0; jt < DV / 8; ++jt)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        o[4 * jt + 2 * r] *= corr[r];
+        o[4 * jt + 2 * r + 1] *= corr[r];
+      }
+    gemm90::fence_regs(o);
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) gemm90::fence_regs(pa[kk]);
+    gemm90::wgmma_fence();
+    const uint32_t vt = stage0 + (it % S) * stage_bytes + C::kKBytes;
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) gemm90::wgmma_rs<T, DV>(o, pa[kk], gemm90::BTile<128, BN>::desc(vt, kk));
+    gemm90::wgmma_commit();
+  };
+
+  if (ntiles > 0) {
+    gemm90::mbar_wait(q_full, 0);
+    float s[BN / 2], corr[2];
+    if constexpr (MASK) {
+      for (int it = 0; it < ntiles; ++it) {
+        gemm90::mbar_wait(full0 + 8 * (it % S), (it / S) & 1);
+        issue_s(s, it);
+        gemm90::wgmma_wait<0>();  // S, and the previous tile's PV product, are done
+        gemm90::fence_regs(s);
+        gemm90::fence_regs(o);
+        if (it > 0) release(it - 1);
+        softmax(s, it, corr);
+        pack(s);
+        issue_pv(it, corr);
+      }
+      gemm90::wgmma_wait<0>();
+    } else {
+      // The two consumer warpgroups take turns on the tensor cores (named
+      // barriers 1 and 2, warpgroup 0 first): in its turn a warpgroup issues
+      // the S product of tile it + 1 and the PV product of tile it, then runs
+      // tile it + 1's softmax while those and the other warpgroup's products
+      // run.
+      gemm90::mbar_wait(full0, 0);
+      issue_s(s, 0);
+      gemm90::wgmma_wait<0>();
+      gemm90::fence_regs(s);
+      softmax(s, 0, corr);
+      pack(s);
+      if (wg == 1) gemm90::named_barrier_arrive(1, 2 * kWG);
+      for (int it = 0; it < ntiles; ++it) {
+        const bool next = it + 1 < ntiles;
+        if (next) gemm90::mbar_wait(full0 + 8 * ((it + 1) % S), ((it + 1) / S) & 1);
+        gemm90::named_barrier(1 + wg, 2 * kWG);  // this warpgroup's turn
+        if (next) issue_s(s, it + 1);
+        issue_pv(it, corr);
+        gemm90::named_barrier_arrive(2 - wg, 2 * kWG);  // the other's turn
+        if (next) {
+          gemm90::wgmma_wait<1>();  // tile it + 1's S product is done
+          gemm90::fence_regs(s);
+          softmax(s, it + 1, corr);
+        }
+        gemm90::wgmma_wait<0>();  // tile it's PV product is done: its stage and P are free
+        gemm90::fence_regs(o);
+        release(it);
+        if (next) pack(s);
+      }
+    }
+    gemm90::fence_regs(o);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float l = l_r[r];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const int row = row0 + 8 * r;
+    if (row < p.M) store_row<T>(p, o, r, b, h, row, 0, tq, l, m_r[r] * cs, splits, split, part, true);
+  }
+}
+
+template <typename T>
+__global__ void fa_combine_kernel(const Params p, int splits, const float* part);
+
+// splits > 1 (unmasked forms only): the keys split over splits blocks per
+// query tile, partials in `part`, then fa_combine_kernel
+template <typename T, int KD, int DQ, int DV, bool MASK>
+cudaError_t launch_wgmma(const Params& p, int splits, float* part, cudaStream_t stream) {
+  using C = FaWgCfg<KD, MASK>;
+  if (splits < 1 || splits > kMaxSplits || (splits > 1 && (MASK || part == nullptr)) ||
+      static_cast<long long>(p.B) * splits > 65535)
+    return cudaErrorInvalidValue;
+  auto kernel = fa_wgmma_kernel<T, KD, DQ, DV, MASK>;
+  static cudaError_t attr = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 C::smem_bytes(MASK ? 4 : 0));
+  if (attr != cudaSuccess) return attr;
+  const int elt = MASK ? (p.mask_dtype == 0 ? 4 : 2) : 0;
+  const dim3 grid((p.M + C::kBM - 1) / C::kBM, p.H, p.B * splits);
+  kernel<<<grid, C::kThreads, C::smem_bytes(elt), stream>>>(p, C::stage_bytes(elt), C::kBN * elt + 16, splits, part);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  fa_combine_kernel<T><<<dim3(p.M, p.H, p.B), 128, 0, stream>>>(p, splits, part);
+  return cudaGetLastError();
+}
+
+struct FaWideCfg {
+  static constexpr int kKD = 512;
+  static constexpr int kBM = 64;  // query rows, shared by the two consumer warpgroups
+  static constexpr int kBN = 32;  // keys per staged tile
+  static constexpr int kStages = 2;
+  static constexpr int kQBytes = kBM * kKD * 2;
+  static constexpr int kKBytes = kBN * kKD * 2;  // the K tile; the V tile the same
+  static constexpr int kStageBytes = 2 * kKBytes;
+  static constexpr int kThreads = 3 * gemm90::kWG;
+  static constexpr int kSmemBytes = 1024 + kQBytes + kStages * kStageBytes + 8 * (2 * kStages + 1);
+};
+static_assert(FaWideCfg::kSmemBytes <= 232448, "shared memory of a block");
+
+// blockIdx = (64-row query tile, head, batch * splits + split). With one
+// split the block writes O; with more it writes its unnormalized float32 O
+// to part[split][b][h][row][:Dv] and (row max in the log2 domain, row sum)
+// after all of those, for fa_combine_kernel.
+template <typename T>
+__global__ void __launch_bounds__(FaWideCfg::kThreads, 1)
+    fa_wgmma_wide_kernel(const Params p, int splits, float* part) {
+  using C = FaWideCfg;
+  constexpr int BM = C::kBM, BN = C::kBN, S = C::kStages, KD = C::kKD, kWG = gemm90::kWG;
+  constexpr int DVW = KD / 2;  // output columns per consumer warpgroup
+  extern __shared__ __align__(16) uint8_t fa_smem[];
+  const uint32_t q_s = gemm90::align1024(gemm90::smem_u32(fa_smem));
+  const uint32_t stage0 = q_s + C::kQBytes;
+  const uint32_t full0 = stage0 + S * C::kStageBytes, empty0 = full0 + 8 * S;
+  const uint32_t q_full = empty0 + 8 * S;
+
+  const int tid = threadIdx.x, wg = tid / kWG, t = tid % kWG;
+  const int m0 = blockIdx.x * BM;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z / splits, split = blockIdx.z % splits;
+  const int hk = h / (p.H / p.Hkv);
+  const int offset = p.N - p.M;
+  const int n_end = p.causal ? max(0, min(p.N, m0 + BM + offset)) : p.N;
+  // this split's key tiles: an equal share of all N keys, cut at n_end
+  const int tiles = (p.N + BN - 1) / BN, per = (tiles + splits - 1) / splits;
+  const int it0 = split * per;
+  const int ntiles = max(0, min(min(tiles, it0 + per), (n_end + BN - 1) / BN) - it0);
+  if (tid == 0) {
+    gemm90::init_barriers<S>(full0, empty0, kWG, 2 * kWG / 32);  // empty: one arrival a consumer warp
+    gemm90::mbar_init(q_full, kWG);
+    gemm90::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // loaders
+    loader_regs();
+    const T* q = static_cast<const T*>(p.q) + b * p.sqb + h * p.sqh;
+    const T* k = static_cast<const T*>(p.k) + b * p.skb + hk * p.skh;
+    const T* v = static_cast<const T*>(p.v) + b * p.svb + hk * p.svh;
+#pragma unroll
+    for (int kc = 0; kc < KD / 64; ++kc)
+      gemm90::load_kmajor_tile<BM>(q_s + kc * BM * 128, q, 2 * p.sqm, m0, p.M, 128 * kc, 2 * p.D, t);
+    gemm90::cp_async_arrive(q_full);
+    gemm90::produce<S>(ntiles, full0, empty0, [&](int it, int s) {
+      const uint32_t sb = stage0 + s * C::kStageBytes;
+      const int n0 = (it0 + it) * BN;
+#pragma unroll
+      for (int kc = 0; kc < KD / 64; ++kc) {
+        gemm90::load_kmajor_tile<BN>(sb + kc * BN * 128, k, 2 * p.skn, n0, p.N, 128 * kc, 2 * p.D, t);
+        gemm90::load_kmajor_tile<BN>(sb + C::kKBytes + kc * BN * 128, v, 2 * p.svn, n0, p.N, 128 * kc, 2 * p.Dv, t);
+      }
+    });
+    return;
+  }
+  consumer_regs();
+
+  const int warp = t / 32, lane = t % 32, g = lane / 4, tq = lane % 4;
+  const int lrow = 16 * warp + g;  // this thread's rows of the block's 64: lrow and lrow + 8
+  const int row0 = m0 + lrow;
+  const float c = p.scale_log2;
+  float o[DVW / 2], s[BN / 2];
+#pragma unroll
+  for (int i = 0; i < DVW / 2; ++i) o[i] = 0.f;
+  float m_r[2] = {-INFINITY, -INFINITY};
+  float l_r[2] = {0.f, 0.f};
+  uint32_t pa[BN / 16][4];
+
+  if (ntiles > 0) gemm90::mbar_wait(q_full, 0);
+  for (int it = 0; it < ntiles; ++it) {
+    const int st = it % S;
+    const uint32_t sb = stage0 + st * C::kStageBytes;
+    gemm90::mbar_wait(full0 + 8 * st, (it / S) & 1);
+    gemm90::fence_regs(s);
+    gemm90::wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < KD / 16; ++ks)
+      gemm90::wgmma_ss<T, BN, 0>(s, gemm90::a_desc(q_s + (ks / 4) * BM * 128, ks % 4),
+                                 gemm90::kmajor_desc(sb + (ks / 4) * BN * 128, ks % 4), ks > 0);
+    gemm90::wgmma_commit();
+    gemm90::wgmma_wait<0>();  // S, and the previous tile's PV product, are done
+    gemm90::fence_regs(s);
+    gemm90::fence_regs(o);
+    if (it > 0 && lane == 0) gemm90::mbar_arrive(empty0 + 8 * ((it - 1) % S));
+
+    const int n0 = (it0 + it) * BN;
+    if (p.causal || n0 + BN > p.N)
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = row0 + 8 * (e / 2), col = n0 + 8 * j + 2 * tq + (e % 2);
+        if (col >= p.N || (p.causal && col > row + offset)) s[4 * j + e] = -INFINITY;
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) mx = fmaxf(mx, fmaxf(s[4 * j + 2 * r], s[4 * j + 2 * r + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m_r[r], mx);
+      const float m_use = (m_new == -INFINITY) ? 0.f : m_new;
+      const float corr = fast_exp2((m_r[r] - m_use) * c);
+      const float mc = m_use * c;
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        s[4 * j + 2 * r] = fast_exp2(fmaf(s[4 * j + 2 * r], c, -mc));
+        s[4 * j + 2 * r + 1] = fast_exp2(fmaf(s[4 * j + 2 * r + 1], c, -mc));
         rs += s[4 * j + 2 * r] + s[4 * j + 2 * r + 1];
       }
       l_r[r] = l_r[r] * corr + rs;
       m_r[r] = m_new;
 #pragma unroll
-      for (int jt = 0; jt < KD / 8; ++jt) {
+      for (int jt = 0; jt < DVW / 8; ++jt) {
         o[4 * jt + 2 * r] *= corr;
         o[4 * jt + 2 * r + 1] *= corr;
       }
     }
-
-    // O += P V: P rounded to V's dtype straight from the score registers
 #pragma unroll
     for (int kk = 0; kk < BN / 16; ++kk) {
       pa[kk][0] = pack2(s[8 * kk + 0], s[8 * kk + 1], T());
@@ -986,42 +1321,74 @@ __global__ void __launch_bounds__(FaWgCfg<KD>::kThreads, 1)
 #pragma unroll
     for (int kk = 0; kk < BN / 16; ++kk) gemm90::fence_regs(pa[kk]);
     gemm90::wgmma_fence();
-    const uint32_t vt = sb + C::kKBytes;
+    // this warpgroup's columns: chunks 4 wg .. 4 wg + 3 of the V tile
+    const uint32_t vt = sb + C::kKBytes + wg * (DVW / 64) * BN * 128;
 #pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk) gemm90::wgmma_rs<T, KD>(o, pa[kk], gemm90::BTile<128, BN>::desc(vt, kk));
+    for (int kk = 0; kk < BN / 16; ++kk) gemm90::wgmma_rs<T, DVW>(o, pa[kk], gemm90::BTile<128, BN>::desc(vt, kk));
     gemm90::wgmma_commit();
   }
   gemm90::wgmma_wait<0>();
   gemm90::fence_regs(o);
 
-  T* out = static_cast<T*>(p.o) + b * p.sob + h * p.soh;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     float l = l_r[r];
     l += __shfl_xor_sync(0xffffffffu, l, 1);
     l += __shfl_xor_sync(0xffffffffu, l, 2);
-    const float denom = l == 0.f ? 1.f : l;
     const int row = row0 + 8 * r;
-    if (row >= p.M) continue;
-#pragma unroll
-    for (int jt = 0; jt < KD / 8; ++jt) {
-      const int col = 8 * jt + 2 * tq;
-      if (col < p.Dv)
-        *reinterpret_cast<uint32_t*>(out + row * p.som + col) = pack2(o[4 * jt + 2 * r] / denom, o[4 * jt + 2 * r + 1] / denom, T());
-    }
+    if (row < p.M) store_row<T>(p, o, r, b, h, row, DVW * wg, tq, l, m_r[r] * c, splits, split, part, wg == 0);
   }
 }
 
-template <typename T, int KD, bool MASK>
-cudaError_t launch_wgmma(const Params& p, cudaStream_t stream) {
-  using C = FaWgCfg<KD>;
-  auto kernel = fa_wgmma_kernel<T, KD, MASK>;
-  static cudaError_t attr = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                                 C::smem_bytes(MASK ? 4 : 0));
+// one block per (row, head, batch): O = sum_s w_s O_s / sum_s w_s l_s with
+// w_s = exp2(m_s - max_s m_s), the splits taken in order; a row that no split
+// saw a key of is 0
+template <typename T>
+__global__ void fa_combine_kernel(const Params p, int splits, const float* part) {
+  __shared__ float s_w[kMaxSplits];
+  __shared__ float s_den;
+  const int row = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const long long rows = static_cast<long long>(p.B) * p.H * p.M;
+  const long long ri = (static_cast<long long>(b) * p.H + h) * p.M + row;
+  const float* ml = part + static_cast<long long>(splits) * rows * p.Dv;
+  if (threadIdx.x == 0) {
+    float mx = -INFINITY;
+    for (int s = 0; s < splits; ++s) mx = fmaxf(mx, ml[2 * (s * rows + ri)]);
+    float den = 0.f;
+    for (int s = 0; s < splits; ++s) {
+      const float w = mx == -INFINITY ? 0.f : exp2f(ml[2 * (s * rows + ri)] - mx);
+      s_w[s] = w;
+      den += w * ml[2 * (s * rows + ri) + 1];
+    }
+    s_den = den == 0.f ? 1.f : den;
+  }
+  __syncthreads();
+  T* out = static_cast<T*>(p.o) + b * p.sob + h * p.soh + row * p.som;
+  for (int col = 2 * threadIdx.x; col < p.Dv; col += 2 * blockDim.x) {
+    float a0 = 0.f, a1 = 0.f;
+    for (int s = 0; s < splits; ++s) {
+      const float2 x = *reinterpret_cast<const float2*>(part + (s * rows + ri) * p.Dv + col);
+      a0 = fmaf(s_w[s], x.x, a0);
+      a1 = fmaf(s_w[s], x.y, a1);
+    }
+    *reinterpret_cast<uint32_t*>(out + col) = pack2(a0 / s_den, a1 / s_den, T());
+  }
+}
+
+template <typename T>
+cudaError_t launch_wgmma_wide(const Params& p, int splits, float* part, cudaStream_t stream) {
+  using C = FaWideCfg;
+  if (splits < 1 || splits > kMaxSplits || (splits > 1 && part == nullptr) ||
+      static_cast<long long>(p.B) * splits > 65535)
+    return cudaErrorInvalidValue;
+  auto kernel = fa_wgmma_wide_kernel<T>;
+  static cudaError_t attr = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmemBytes);
   if (attr != cudaSuccess) return attr;
-  const int elt = MASK ? (p.mask_dtype == 0 ? 4 : 2) : 0;
-  const dim3 grid((p.M + C::kBM - 1) / C::kBM, p.H, p.B);
-  kernel<<<grid, C::kThreads, C::smem_bytes(elt), stream>>>(p, C::stage_bytes(elt), C::kBN * elt + 16);
+  const dim3 grid((p.M + C::kBM - 1) / C::kBM, p.H, p.B * splits);
+  kernel<<<grid, C::kThreads, C::kSmemBytes, stream>>>(p, splits, part);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  fa_combine_kernel<T><<<dim3(p.M, p.H, p.B), 128, 0, stream>>>(p, splits, part);
   return cudaGetLastError();
 }
 
@@ -1109,10 +1476,11 @@ cudaError_t dispatch_mask(const Params& p, cudaStream_t stream) {
   return p.mask ? dispatch<T, true>(p, stream) : dispatch<T, false>(p, stream);
 }
 
-// the wgmma variant: 16-bit head-major operands whose rows are whole 16-byte
-// pieces, K read by rows, head dims up to 128, and no mask or one whose rows
-// are 16-byte granular (staged by 16-byte copies). Mirrored by flash_variant
-// in kernels/flash_attention.py.
+// the wgmma variants, for both entries: 16-bit operands whose rows are whole
+// 16-byte pieces, K read by rows, and head dims up to 128 with no mask or one
+// whose rows are 16-byte granular (staged by 16-byte copies), or head dims
+// 257..512 with no mask. Mirrored by flash_variant in
+// kernels/flash_attention.py.
 bool mask_staged(const Params& p) {
   const long long elt = p.mask_dtype == 0 ? 4 : 2;
   return p.smn == 1 && reinterpret_cast<unsigned long long>(p.mask) % 16 == 0 && (p.smb * elt) % 16 == 0 &&
@@ -1121,39 +1489,55 @@ bool mask_staged(const Params& p) {
 bool use_wgmma(const Params& p) {
   return p.skd == 1 && rows_aligned16(p) && p.D <= 128 && p.Dv <= 128 && (p.mask == nullptr || mask_staged(p));
 }
-
-template <typename T, int KD>
-cudaError_t launch_wgmma_mask(const Params& p, cudaStream_t stream) {
-  return p.mask ? launch_wgmma<T, KD, true>(p, stream) : launch_wgmma<T, KD, false>(p, stream);
+bool use_wgmma_wide(const Params& p) {
+  const int kd = p.D > p.Dv ? p.D : p.Dv;
+  return p.skd == 1 && rows_aligned16(p) && p.mask == nullptr && kd > 256 && kd <= 512;
 }
 
-// the head-major entry: the wgmma variant where it takes the operands, else
-// the variants the packed entry has
+// the tile widths of a wgmma launch: the SD1.5 UNet's head dims 40 and 80
+// have their own (S over 48 and 80 columns, PV 40 and 80 wide); other head
+// dims run over 64 or 128, zero past the real ones
 template <typename T>
-cudaError_t dispatch_head_major(const Params& p, cudaStream_t stream) {
+cudaError_t launch_wgmma_for(const Params& p, int splits, float* part, cudaStream_t stream) {
+  const bool small = p.D <= 64 && p.Dv <= 64;
+  if (p.mask)
+    return small ? launch_wgmma<T, 64, 64, 64, true>(p, splits, part, stream)
+                 : launch_wgmma<T, 128, 128, 128, true>(p, splits, part, stream);
+  if (p.D == 40 && p.Dv == 40) return launch_wgmma<T, 64, 48, 40, false>(p, splits, part, stream);
+  if (p.D == 80 && p.Dv == 80) return launch_wgmma<T, 128, 80, 80, false>(p, splits, part, stream);
+  return small ? launch_wgmma<T, 64, 64, 64, false>(p, splits, part, stream)
+               : launch_wgmma<T, 128, 128, 128, false>(p, splits, part, stream);
+}
+
+// the wgmma variants where they take the operands (wgmma != 0), else the
+// variants that came before them
+template <typename T>
+cudaError_t dispatch_all(const Params& p, int wgmma, int splits, float* part, cudaStream_t stream) {
   if constexpr (!std::is_same<T, float>::value) {
-    if (use_wgmma(p))
-      return p.D <= 64 && p.Dv <= 64 ? launch_wgmma_mask<T, 64>(p, stream) : launch_wgmma_mask<T, 128>(p, stream);
+    if (wgmma && use_wgmma(p)) return launch_wgmma_for<T>(p, splits, part, stream);
+    if (wgmma && use_wgmma_wide(p)) return launch_wgmma_wide<T>(p, splits, part, stream);
   }
   return dispatch_mask<T>(p, stream);
 }
 
 }  // namespace
 
-// form: 0 = the packed entry (flash_attention_packed), 1 = the head-major
-// entry (flash_attention), which alone may take the wgmma variant. dtype: 0 =
+// wgmma: 1 = every variant (both wrappers), 0 = none of the wgmma ones (the
+// variants that came before them, for timing side by side). dtype: 0 =
 // float32, 1 = float16, 2 = bfloat16 (q, k, v and o share it); mask_dtype
 // likewise, read only when mask is not null. strides holds 17 element
 // strides: q (batch, head, row), k (batch, head, key, column), v (batch,
-// head, row), o (batch, head, row), mask (batch, head, row, column). Returns
-// a cudaError_t: 0 when the launch was accepted.
-extern "C" int ostt_flash_attention(int form, int dtype, const void* q, const void* k, const void* v,
+// head, row), o (batch, head, row), mask (batch, head, row, column). splits
+// and part: the key split of an unmasked wgmma launch and its float32
+// workspace of splits * B * H * M * (Dv + 2) values (null for one split).
+// Returns a cudaError_t: 0 when the launch was accepted.
+extern "C" int ostt_flash_attention(int wgmma, int dtype, const void* q, const void* k, const void* v,
                                     void* o, const void* mask, int mask_dtype, int B, int M,
                                     int N, int H, int Hkv, int D, int Dv,
                                     const long long* strides, float scale_log2, int causal,
-                                    void* stream) {
-  if (form < 0 || form > 1 || B <= 0 || M <= 0 || H <= 0 || Hkv <= 0 || H % Hkv || D % 8 || Dv % 8 ||
-      D <= 0 || Dv <= 0 || mask_dtype < 0 || mask_dtype > 2)
+                                    int splits, void* part, void* stream) {
+  if (wgmma < 0 || wgmma > 1 || B <= 0 || M <= 0 || H <= 0 || Hkv <= 0 || H % Hkv || D % 8 || Dv % 8 ||
+      D <= 0 || Dv <= 0 || mask_dtype < 0 || mask_dtype > 2 || splits < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const long long* s = strides;
   const Params p{q,     k,     v,     o,     mask,  B,     M,     N,     H,         Hkv,
@@ -1161,10 +1545,11 @@ extern "C" int ostt_flash_attention(int form, int dtype, const void* q, const vo
                  s[8],  s[9],  s[10], s[11], s[12], s[13], s[14], s[15], s[16],     mask_dtype,
                  scale_log2, causal};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* ws = static_cast<float*>(part);
   switch (dtype) {
     case 0: return static_cast<int>(dispatch_mask<float>(p, st));
-    case 1: return static_cast<int>(form ? dispatch_head_major<__half>(p, st) : dispatch_mask<__half>(p, st));
-    case 2: return static_cast<int>(form ? dispatch_head_major<__nv_bfloat16>(p, st) : dispatch_mask<__nv_bfloat16>(p, st));
+    case 1: return static_cast<int>(dispatch_all<__half>(p, wgmma, splits, ws, st));
+    case 2: return static_cast<int>(dispatch_all<__nv_bfloat16>(p, wgmma, splits, ws, st));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

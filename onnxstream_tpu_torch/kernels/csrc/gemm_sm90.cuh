@@ -492,6 +492,11 @@ struct OutTile {
 G90_DEV void named_barrier(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
+// arrive on barrier `id` without waiting (the other side waits in
+// named_barrier with the same thread count)
+G90_DEV void named_barrier_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
 
 // the first address at or above `addr` that is a multiple of 1024 (the swizzle
 // patterns repeat every 1024 bytes of shared-memory address)
@@ -529,43 +534,63 @@ G90_DEV void load_kmajor_tile(uint32_t dst, const void* base, long long ld, int 
 // Register lists of the accumulator forms below (d[0..N / 2 - 1]).
 #define G90_F(x) "+f"(x)
 #define G90_R(x) "+r"(x)
-#define G90_ACC8(c, i) \
-  c(d[(i)]), c(d[(i) + 1]), c(d[(i) + 2]), c(d[(i) + 3]), c(d[(i) + 4]), c(d[(i) + 5]), c(d[(i) + 6]), c(d[(i) + 7])
+#define G90_ACC4(c, i) c(d[(i)]), c(d[(i) + 1]), c(d[(i) + 2]), c(d[(i) + 3])
+#define G90_ACC8(c, i) G90_ACC4(c, i), G90_ACC4(c, (i) + 4)
 #define G90_ACC32(c, i) G90_ACC8(c, i), G90_ACC8(c, (i) + 8), G90_ACC8(c, (i) + 16), G90_ACC8(c, (i) + 24)
+#define G90_ACC16(c) G90_ACC8(c, 0), G90_ACC8(c, 8)
+#define G90_ACC32N(c) G90_ACC32(c, 0)
+#define G90_ACC20(c) G90_ACC16(c), G90_ACC4(c, 16)
+#define G90_ACC40(c) G90_ACC32(c, 0), G90_ACC8(c, 32)
 #define G90_ACC64(c) G90_ACC32(c, 0), G90_ACC32(c, 32)
+#define G90_ACC128(c) G90_ACC64(c), G90_ACC32(c, 64), G90_ACC32(c, 96)
+#define G90_D16 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+#define G90_D20 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19}"
 #define G90_D32                                                                                 \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, " \
   "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define G90_D40                                                                                 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, " \
+  "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39}"
 #define G90_D64                                                                                       \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "       \
   "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, "   \
   "%39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "   \
   "%58, %59, %60, %61, %62, %63}"
+#define G90_D128                                                                                                 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "                  \
+  "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, "          \
+  "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "          \
+  "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "          \
+  "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, "          \
+  "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, " \
+  "%118, %119, %120, %121, %122, %123, %124, %125, %126, %127}"
+
+// one m64nNk16 wgmma of the given type pair ("f16.f16" or "bf16.bf16"); the
+// operand numbers after the R accumulators are given as strings
+#define G90_WG_SS(N, DL, ACC, IA, IB, IP, IT, TY)                                                     \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" IP ", 0;\n"                                       \
+               "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32." TY " " DL ", %" IA ", %" IB            \
+               ", p, 1, 1, 0, %" IT ";\n}\n"                                                           \
+               : ACC(G90_F) : "l"(da), "l"(db), "r"(acc), "n"(TB))
+#define G90_WG_RS(N, DL, ACC, I0, I1, I2, I3, IB, IP, TY)                                             \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" IP ", 0;\n"                                       \
+               "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32." TY " " DL ", {%" I0 ", %" I1 ", %" I2 \
+               ", %" I3 "}, %" IB ", p, 1, 1, 1;\n}\n"                                                 \
+               : ACC(G90_F) : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
 
 // D (64 x N, f32) (+)= A (64 x 16, shared, K-major) x B (16 x N, shared): TB =
 // 0 reads B K-major (N rows), 1 MN-major through the transpose bit. acc = 0
 // overwrites D. Accumulator layout as wgmma_m64n8k16's.
 template <typename T, int N, int TB>
 G90_DEV void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db, int acc) {
-  static_assert(N == 64 || N == 128, "tile width");
+  static_assert(N == 32 || N == 64 || N == 128, "tile width");
   constexpr bool kHalf = std::is_same<T, __half>::value;
-  if constexpr (N == 64 && kHalf) {
-    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-                 "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 " G90_D32 ", %32, %33, p, 1, 1, 0, %35;\n}\n"
-                 : G90_ACC32(G90_F, 0) : "l"(da), "l"(db), "r"(acc), "n"(TB));
-  } else if constexpr (N == 64) {
-    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-                 "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " G90_D32 ", %32, %33, p, 1, 1, 0, %35;\n}\n"
-                 : G90_ACC32(G90_F, 0) : "l"(da), "l"(db), "r"(acc), "n"(TB));
-  } else if constexpr (kHalf) {
-    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-                 "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 " G90_D64 ", %64, %65, p, 1, 1, 0, %67;\n}\n"
-                 : G90_ACC64(G90_F) : "l"(da), "l"(db), "r"(acc), "n"(TB));
-  } else {
-    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-                 "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " G90_D64 ", %64, %65, p, 1, 1, 0, %67;\n}\n"
-                 : G90_ACC64(G90_F) : "l"(da), "l"(db), "r"(acc), "n"(TB));
-  }
+  if constexpr (N == 32 && kHalf) G90_WG_SS(32, G90_D16, G90_ACC16, "16", "17", "18", "19", "f16.f16");
+  else if constexpr (N == 32) G90_WG_SS(32, G90_D16, G90_ACC16, "16", "17", "18", "19", "bf16.bf16");
+  else if constexpr (N == 64 && kHalf) G90_WG_SS(64, G90_D32, G90_ACC32N, "32", "33", "34", "35", "f16.f16");
+  else if constexpr (N == 64) G90_WG_SS(64, G90_D32, G90_ACC32N, "32", "33", "34", "35", "bf16.bf16");
+  else if constexpr (kHalf) G90_WG_SS(128, G90_D64, G90_ACC64, "64", "65", "66", "67", "f16.f16");
+  else G90_WG_SS(128, G90_D64, G90_ACC64, "64", "65", "66", "67", "bf16.bf16");
 }
 
 // D (64 x N, f32) += A (64 x 16, registers) x B (16 x N, shared, MN-major
@@ -573,28 +598,22 @@ G90_DEV void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db, int acc) {
 // + 15 of A as mma.m16n8k16 holds its A: a[0] = (row g, columns 2 t, 2 t + 1),
 // a[1] = (g + 8, the same), a[2] = (g, 2 t + 8 ..), a[3] = (g + 8, 2 t + 8 ..),
 // g = lane / 4, t = lane % 4: two neighbouring n8 blocks of an accumulator
-// are one k16 slice of A.
+// are one k16 slice of A. N need not fill the B tile's swizzle atom: N = 40
+// and 80 read the first 5 and 10 of its 8-column blocks.
 template <typename T, int N>
 G90_DEV void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db) {
-  static_assert(N == 64 || N == 128, "tile width");
+  static_assert(N == 40 || N == 64 || N == 80 || N == 128 || N == 256, "tile width");
   constexpr bool kHalf = std::is_same<T, __half>::value;
-  if constexpr (N == 64 && kHalf) {
-    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-                 "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 " G90_D32 ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-                 : G90_ACC32(G90_F, 0) : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-  } else if constexpr (N == 64) {
-    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-                 "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " G90_D32 ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-                 : G90_ACC32(G90_F, 0) : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-  } else if constexpr (kHalf) {
-    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-                 "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 " G90_D64 ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-                 : G90_ACC64(G90_F) : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-  } else {
-    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-                 "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " G90_D64 ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-                 : G90_ACC64(G90_F) : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-  }
+  if constexpr (N == 40 && kHalf) G90_WG_RS(40, G90_D20, G90_ACC20, "20", "21", "22", "23", "24", "25", "f16.f16");
+  else if constexpr (N == 40) G90_WG_RS(40, G90_D20, G90_ACC20, "20", "21", "22", "23", "24", "25", "bf16.bf16");
+  else if constexpr (N == 64 && kHalf) G90_WG_RS(64, G90_D32, G90_ACC32N, "32", "33", "34", "35", "36", "37", "f16.f16");
+  else if constexpr (N == 64) G90_WG_RS(64, G90_D32, G90_ACC32N, "32", "33", "34", "35", "36", "37", "bf16.bf16");
+  else if constexpr (N == 80 && kHalf) G90_WG_RS(80, G90_D40, G90_ACC40, "40", "41", "42", "43", "44", "45", "f16.f16");
+  else if constexpr (N == 80) G90_WG_RS(80, G90_D40, G90_ACC40, "40", "41", "42", "43", "44", "45", "bf16.bf16");
+  else if constexpr (N == 128 && kHalf) G90_WG_RS(128, G90_D64, G90_ACC64, "64", "65", "66", "67", "68", "69", "f16.f16");
+  else if constexpr (N == 128) G90_WG_RS(128, G90_D64, G90_ACC64, "64", "65", "66", "67", "68", "69", "bf16.bf16");
+  else if constexpr (kHalf) G90_WG_RS(256, G90_D128, G90_ACC128, "128", "129", "130", "131", "132", "133", "f16.f16");
+  else G90_WG_RS(256, G90_D128, G90_ACC128, "128", "129", "130", "131", "132", "133", "bf16.bf16");
 }
 
 // ---- the u8 x u8 -> s32 product (kernel 3; kernel 4's gather next) --------

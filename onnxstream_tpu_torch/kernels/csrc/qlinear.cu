@@ -11,12 +11,11 @@
 //    beta = zo for a requantized output;
 //  * qconv (onnxstream_tpu/kernels/qconv.py: an im2col padded with the input
 //    zero point, run by XLA, then qmatmul): the same product as an implicit
-//    GEMM. A is never materialized: each A tile is gathered straight from the
-//    NCHW u8 input (row m = (batch, oh, ow), column k = (c, i, j) of the OIHW
-//    weight), with za where the window falls into the padding. The OIHW
-//    weight viewed as (O, C kh kw) is W^T, row-major, which is the .col B
-//    operand of the tensor-core instruction as it is: nothing is transposed
-//    at upload. The output is written in NCHW directly.
+//    GEMM. A is never materialized: each tile of it is gathered straight
+//    from the u8 input, with za where the window falls into the padding, and
+//    the output is written in NCHW directly. Channels-last operands (the
+//    executor's layout for convs with C % 16 == 0) take the wgmma pipeline
+//    below, NCHW / OIHW ones the mma.sync kernel.
 //
 // Exact integer arithmetic. The products run on the tensor cores as
 // wgmma.m64nNk32.s32.u8.u8 or mma.sync.m16n8k32.row.col.s32.u8.u8.s32 (u8
@@ -39,33 +38,47 @@
 // (4096 x 512 x 512) by their bytes (A, W and the bf16 output, 6.3 MB: about
 // 2 us a call at 3.35 TB/s), so at that size launch, the first tile's latency
 // and the epilogue's stores decide the time. Two variants, chosen from the
-// weight's layout, K and alignment alone (use_wgmma below, mirrored by
+// operands' layouts, K, C and alignment alone (use_wgmma below, mirrored by
 // qgemm_variant in kernels/qmatmul.py):
 //
-//  * qgemm_wgmma_kernel, the dense MatMul whose weight is given K-major as
-//    (N, K) (the executor uploads the calibrated MatMul weights so, through
-//    WEIGHT_TRANSFORMS["tnk"]), K % 16 == 0 and A and W 16-byte aligned: the
-//    pipeline of gemm_sm90.cuh. A loading warpgroup keeps a ring of four
-//    stages (128 x 128-byte A and W tiles under the 128-byte swizzle, 32 KB a
-//    stage: all four k-tiles of K = 512 in flight at once) full of 16-byte
-//    cp.async copies, zero past M, N and K, and the hardware arrives on each
-//    stage's mbarrier; two consumer warpgroups run
-//    wgmma.m64n128k32.s32.u8.u8 on 128 x 128 output tiles. The 8-bit wgmma
-//    reads only K-major operands, which A already is and the uploaded weight
-//    is, so nothing is transposed at run time. rowsum(A) is an n8 wgmma of
-//    the A tile against a tile of ones, colsum(W) one of the W tile (a valid
-//    K-major A operand) against the same ones: exact in s32, in the same
-//    commit group as the product. The tile leaves through shared memory in
-//    16-byte pieces (OutTile), the bias read once per column. The loader is a
-//    template parameter: kernel 4's gather goes there next.
+//  * qgemm_wgmma_kernel, the pipeline of gemm_sm90.cuh. A loading warpgroup
+//    keeps a ring of four stages (two 128 x 128-byte tiles under the 128-byte
+//    swizzle, 32 KB a stage) full of 16-byte cp.async copies, zero past the
+//    edges, and the hardware arrives on each stage's mbarrier; two consumer
+//    warpgroups run wgmma.m64n128k32.s32.u8.u8 on 128 x 128 output tiles.
+//    The 8-bit wgmma reads only K-major operands, so both tiles are K-major
+//    rows. The sums of the A tile's and of the B tile's rows are n8 wgmmas
+//    of each against a tile of ones: exact in s32, in the same commit group
+//    as the product. The tile leaves through shared memory in 16-byte pieces,
+//    the bias read once per output channel. The loader is a template
+//    parameter:
+//      - DenseLoader, the MatMul whose weight is given K-major as (N, K) (the
+//        executor uploads the calibrated MatMul weights so, through
+//        WEIGHT_TRANSFORMS["tnk"]), K % 16 == 0, A and W 16-byte aligned: A
+//        is the activation, B the weight;
+//      - ConvLoader (kernel 4), the conv with a channels-last input (B, H, W,
+//        C) and weight (O, kh, kw, C) (WEIGHT_TRANSFORMS["ohwi"]), C % 16 ==
+//        0: K runs over (i, j, c), so a 16-byte piece of a k-tile is 16
+//        channels of one tap of one output pixel, one cp.async from the
+//        input, or from 16 bytes of za where the tap lies in the padding (no
+//        shared-memory store, so no proxy fence), or zero past M and K. The
+//        product is computed transposed: A is the weight's rows (output
+//        channels), B the 128 output pixels, so the accumulator's rows are
+//        output channels and its columns neighbouring pixels, as NCHW lays
+//        them out. Where Ho Wo is a multiple of 128 a tile's pixels lie in
+//        one image and each channel's row leaves in 16-byte pieces; elsewhere
+//        element by element. The row sums are then the weight's (times za),
+//        the column sums the pixels' (times zw), and the bias goes with the
+//        rows.
 //  * qgemm_kernel, every other MatMul (a (K, N) weight, ragged K, unaligned
-//    views) and every conv: the mma.sync tile of kernel 6 (qmatmul.cu), 64 x
-//    128 x 64 tiles, 8 warps of 32 x 32, the next tile loaded into registers
-//    while the current one is multiplied, row and column sums by dp4a. The
-//    conv gather loads bytes (neighbouring threads take neighbouring output
-//    pixels, so a warp's loads of one k are contiguous) and the (K, N) MatMul
-//    weight is transposed in registers while it is staged (mma.sync cannot
-//    transpose 8-bit elements). Ragged M, N and K (conv_in's K = 36,
+//    views) and every NCHW conv (conv_in's C = 4, and what a caller passes
+//    NCHW): the mma.sync tile of kernel 6 (qmatmul.cu), 64 x 128 x 64 tiles,
+//    8 warps of 32 x 32, the next tile loaded into registers while the
+//    current one is multiplied, row and column sums by dp4a. The conv gather
+//    loads bytes (neighbouring threads take neighbouring output pixels, so a
+//    warp's loads of one k are contiguous), which bounds it, and the (K, N)
+//    MatMul weight is transposed in registers while it is staged (mma.sync
+//    cannot transpose 8-bit elements). Ragged M, N and K (conv_in's K = 36,
 //    conv_out's N = 3) are masked in the loads.
 //
 // Both variants add the same int32 terms and round once in the same way, so
@@ -98,6 +111,11 @@ struct QParams {
   float alpha, beta;
   // conv geometry: M = B Ho Wo, K = C kh kw
   int C, H, W, kh, kw, sh, sw, ph, pw, dh, dw, Ho, Wo;
+  // conv operands channels-last: x as (B, H, W, C), the weight as (O, kh, kw,
+  // C), so K runs over (i, j, c); za16 points at 16 bytes of za (the
+  // padding's value, copied where a window leaves the input)
+  int nhwc;
+  const uint8_t* za16;
 };
 
 template <typename T> __device__ __forceinline__ T from_f32(float x);
@@ -404,12 +422,63 @@ struct Q8Cfg {
 };
 
 // The loader of the dense MatMul: A (M, K) and the weight as (N, K), both
-// row-major with K bytes a row, into the A and W tiles of a stage.
+// row-major with K bytes a row, into the A and W tiles of a stage. Output
+// tile: rows m0.. of A, columns n0.. of W.
 struct DenseLoader {
-  __device__ __forceinline__ static void start(const QParams& p, uint32_t stage, int kt, int m0, int n0, int t) {
+  static constexpr bool kConv = false;
+  int m0, n0;
+  __device__ __forceinline__ DenseLoader(const QParams&, int m0_, int n0_, int) : m0(m0_), n0(n0_) {}
+  __device__ __forceinline__ void start(const QParams& p, uint32_t stage, int kt, int t) const {
     const int k0 = kt * gemm90::kBK8;
     gemm90::load_kmajor_tile<Q8Cfg::kBM>(stage, p.a, p.K, m0, p.M, k0, p.K, t);
     gemm90::load_kmajor_tile<Q8Cfg::kBN>(stage + Q8Cfg::kABytes, p.w, p.K, n0, p.N, k0, p.K, t);
+  }
+};
+
+// The gather loader of the conv (kernel 4), channels-last operands. The
+// product is computed transposed: the weight rows (O, kh kw C), K-major as
+// uploaded, are the A tile (output channels m0..), and the B tile is 128
+// output pixels (n0..) x 128 bytes of their windows, K ordered (i, j, c). A
+// 16-byte piece of a k-tile holds 16 channels of one tap (C % 16 == 0), so
+// each piece is one cp.async from the input, or from za16 where the tap falls
+// into the padding, or zero past M and K. Thread t copies piece t % 8 of
+// pixel rows t / 8 + 16 r: their window corners are computed once.
+struct ConvLoader {
+  static constexpr bool kConv = true;
+  static constexpr int kRows = Q8Cfg::kBN * 8 / gemm90::kWG;  // pixel rows per loading thread
+  int m0;
+  unsigned valid;  // bit r: pixel row t / 8 + 16 r lies below M
+  long long base[kRows];
+  int ih0[kRows], iw0[kRows];
+  __device__ __forceinline__ ConvLoader(const QParams& p, int m0_, int n0, int t) : m0(m0_), valid(0u) {
+    const int hw = p.Ho * p.Wo;
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const int pix = n0 + t / 8 + 16 * r;
+      const int b = pix / hw, rem = pix - b * hw;
+      const int oh = rem / p.Wo, ow = rem - oh * p.Wo;
+      ih0[r] = oh * p.sh - p.ph;
+      iw0[r] = ow * p.sw - p.pw;
+      base[r] = static_cast<long long>(b) * p.H * p.W * p.C;
+      if (pix < p.M) valid |= 1u << r;
+    }
+  }
+  __device__ __forceinline__ void start(const QParams& p, uint32_t stage, int kt, int t) const {
+    const int k0 = kt * gemm90::kBK8;
+    gemm90::load_kmajor_tile<Q8Cfg::kBM>(stage, p.w, p.K, m0, p.N, k0, p.K, t);
+    const int k = k0 + 16 * (t % 8);
+    const int tap = k / p.C, ch = k - tap * p.C;
+    const int i = tap / p.kw, j = tap - i * p.kw;
+    const int di = i * p.dh, dj = j * p.dw;
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const int ih = ih0[r] + di, iw = iw0[r] + dj;
+      const bool inside = static_cast<unsigned>(ih) < static_cast<unsigned>(p.H) &&
+                          static_cast<unsigned>(iw) < static_cast<unsigned>(p.W);
+      const uint8_t* src = inside ? p.a + base[r] + (static_cast<long long>(ih) * p.W + iw) * p.C + ch : p.za16;
+      gemm90::cp_async16(stage + Q8Cfg::kABytes + gemm90::a_offset(t / 8 + 16 * r, t % 8), src,
+                         k < p.K && ((valid >> r) & 1u));
+    }
   }
 };
 
@@ -441,13 +510,51 @@ __device__ __forceinline__ TO q8_out(int v, const QParams& p) {
   return from_f32<TO>(y);
 }
 
-// blockIdx = (M tile, N tile). Warpgroups 0 and 1 consume (rows 64 wg ..),
-// warpgroup 2 loads through LOADER.
+// The conv's output tile leaves for NCHW: its rows are output channels
+// ch0.., its columns 128 pixels from n0, a pixel's plane (b, channel) at
+// ((b N + channel) Ho Wo). Where Ho Wo is a multiple of the tile's 128 pixels
+// a tile lies in one image and each row leaves in 16-byte pieces; elsewhere
+// element by element, neighbouring threads on neighbouring pixels.
+template <typename TO, int ROWS, int COLS, int PITCH>
+__device__ __forceinline__ void flush_nchw(const uint8_t* tile, const QParams& p, int ch0, int n0, int t) {
+  const int hw = p.Ho * p.Wo;
+  TO* out = static_cast<TO*>(p.out);
+  if (hw % COLS == 0) {
+    constexpr int kPerRow = COLS * sizeof(TO) / 16;
+    const int b = n0 / hw, p0 = n0 - b * hw;
+#pragma unroll
+    for (int j = 0; j < ROWS * kPerRow / gemm90::kWG; ++j) {
+      const int i = t + gemm90::kWG * j;
+      const int r = i / kPerRow, c = (i % kPerRow) * (16 / static_cast<int>(sizeof(TO)));
+      if (ch0 + r < p.N && n0 + c < p.M)
+        *reinterpret_cast<uint4*>(out + (static_cast<size_t>(b) * p.N + ch0 + r) * hw + p0 + c) =
+            *reinterpret_cast<const uint4*>(tile + r * PITCH + c * sizeof(TO));
+    }
+  } else {
+    for (int i = t; i < ROWS * COLS; i += gemm90::kWG) {
+      const int r = i / COLS, c = i % COLS, pix = n0 + c;
+      if (ch0 + r < p.N && pix < p.M) {
+        const int b = pix / hw;
+        out[(static_cast<size_t>(b) * p.N + ch0 + r) * hw + pix - b * hw] =
+            *reinterpret_cast<const TO*>(tile + r * PITCH + c * sizeof(TO));
+      }
+    }
+  }
+}
+
+// Warpgroups 0 and 1 consume (rows 64 wg .. of the A tile), warpgroup 2
+// loads through LOADER. The dense MatMul: blockIdx = (M tile, N tile), A the
+// activation, B the weight. The conv (LOADER::kConv): blockIdx = (pixel tile,
+// channel tile), A the weight, B the pixels, so the accumulator's rows are
+// output channels and its columns pixels, as NCHW lays them out; the row
+// sums are then the weight's (times za) and the column sums the pixels'
+// (times zw), and the bias goes with the rows.
 template <typename TO, typename LOADER>
 __global__ void __launch_bounds__(Q8Cfg::kThreadsWg, 1) qgemm_wgmma_kernel(const QParams p) {
   using C = Q8Cfg;
   using Out = gemm90::OutTile<C::kBN, sizeof(TO)>;
   constexpr int kWG = gemm90::kWG;
+  constexpr bool kConv = LOADER::kConv;
   extern __shared__ __align__(16) uint8_t smem_raw[];
   const uint32_t stage0 = gemm90::align1024(gemm90::smem_u32(smem_raw));
   const uint32_t ones = stage0 + C::kStages * C::kStageBytes;
@@ -456,7 +563,7 @@ __global__ void __launch_bounds__(Q8Cfg::kThreadsWg, 1) qgemm_wgmma_kernel(const
 
   const int tid = threadIdx.x, wg = tid / kWG, t = tid % kWG;
   const int M = p.M, N = p.N;
-  const int m0 = blockIdx.x * C::kBM, n0 = blockIdx.y * C::kBN;
+  const int m0 = (kConv ? blockIdx.y : blockIdx.x) * C::kBM, n0 = (kConv ? blockIdx.x : blockIdx.y) * C::kBN;
   if (tid == 0) {
     gemm90::init_barriers<C::kStages>(full0, empty0, kWG, C::kCWG * kWG);
     gemm90::mbar_init_fence();
@@ -465,16 +572,18 @@ __global__ void __launch_bounds__(Q8Cfg::kThreadsWg, 1) qgemm_wgmma_kernel(const
     gemm90::st_shared16(ones + 16 * tid, make_uint4(0x01010101u, 0x01010101u, 0x01010101u, 0x01010101u));
     gemm90::fence_proxy_async();
   }
-  if (tid < C::kBN) {  // the bias, read once per column
-    const int n = n0 + tid;
+  static_assert(C::kBM == C::kBN, "the bias vector serves rows (conv) or columns (MatMul)");
+  if (tid < C::kBN) {  // the bias, read once per output channel
+    const int n = (kConv ? m0 : n0) + tid;
     gemm90::st_shared4(s_bias + 4 * tid, static_cast<uint32_t>(p.bias != nullptr && n < N ? p.bias[n] : 0));
   }
   __syncthreads();
 
   const int nkt = (p.K + gemm90::kBK8 - 1) / gemm90::kBK8;
   if (wg == C::kCWG) {
+    const LOADER loader(p, m0, n0, t);
     gemm90::produce<C::kStages>(nkt, full0, empty0, [&](int it, int s) {
-      LOADER::start(p, stage0 + s * C::kStageBytes, it, m0, n0, t);
+      loader.start(p, stage0 + s * C::kStageBytes, it, t);
     });
     return;
   }
@@ -487,7 +596,7 @@ __global__ void __launch_bounds__(Q8Cfg::kThreadsWg, 1) qgemm_wgmma_kernel(const
                                  wtile + wg * 64 * gemm90::kBK8, C::kStageBytes, ones, full0, empty0);
 
   const int lrow = (t / 32) * 16 + (t % 32) / 4, lcol = 2 * (t % 4);  // within the warpgroup's tile
-  // this warpgroup's column sums are those of columns 64 wg + lrow and + 8
+  // this warpgroup's sums of B rows are those of columns 64 wg + lrow and + 8
   if (t % 4 == 0) {
     gemm90::st_shared4(s_cs + 4 * (64 * wg + lrow), static_cast<uint32_t>(cs[0]));
     gemm90::st_shared4(s_cs + 4 * (64 * wg + lrow + 8), static_cast<uint32_t>(cs[2]));
@@ -497,25 +606,36 @@ __global__ void __launch_bounds__(Q8Cfg::kThreadsWg, 1) qgemm_wgmma_kernel(const
   gemm90::named_barrier(1, C::kCWG * kWG);
   const uint32_t tile = stage0 + wg * Out::kBytes;
   const int kzz = p.K * p.za * p.zw;
+  // the zero points of the A and the B operand
+  const int z_a = kConv ? p.zw : p.za, z_b = kConv ? p.za : p.zw;
+  int row_term[2];  // - z_b rowsum(A) of the thread's two rows, plus the conv's bias
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    row_term[h] = -z_b * rs[2 * h];
+    if constexpr (kConv) row_term[h] += ld_shared_s32(s_bias + 4 * (64 * wg + lrow + 8 * h));
+  }
 #pragma unroll
   for (int j = 0; j < C::kBN / 8; ++j) {
     const int c = lcol + 8 * j;
-    // bias - za colsum(W) + K za zw of the two columns
-    const int c0 = ld_shared_s32(s_bias + 4 * c) - p.za * ld_shared_s32(s_cs + 4 * c) + kzz;
-    const int c1 = ld_shared_s32(s_bias + 4 * c + 4) - p.za * ld_shared_s32(s_cs + 4 * c + 4) + kzz;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = p.zw * rs[2 * h];
-      st_pair<TO>(Out::at(tile, lrow + 8 * h, c), q8_out<TO>(acc[4 * j + 2 * h] - r + c0, p),
-                  q8_out<TO>(acc[4 * j + 2 * h + 1] - r + c1, p));
+    // - z_a rowsum(B) + K za zw of the two columns, plus the MatMul's bias
+    int c0 = kzz - z_a * ld_shared_s32(s_cs + 4 * c), c1 = kzz - z_a * ld_shared_s32(s_cs + 4 * c + 4);
+    if constexpr (!kConv) {
+      c0 += ld_shared_s32(s_bias + 4 * c);
+      c1 += ld_shared_s32(s_bias + 4 * c + 4);
     }
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      st_pair<TO>(Out::at(tile, lrow + 8 * h, c), q8_out<TO>(acc[4 * j + 2 * h] + row_term[h] + c0, p),
+                  q8_out<TO>(acc[4 * j + 2 * h + 1] + row_term[h] + c1, p));
   }
   gemm90::named_barrier(2 + wg, kWG);
   const int mt = m0 + 64 * wg;
-  if ((static_cast<long long>(N) * sizeof(TO)) % 16 == 0) {
+  const uint8_t* src = smem_raw + (tile - gemm90::smem_u32(smem_raw));
+  if constexpr (kConv) {
+    flush_nchw<TO, 64, C::kBN, Out::kPitch>(src, p, mt, n0, t);
+  } else if ((static_cast<long long>(N) * sizeof(TO)) % 16 == 0) {
     Out::flush(tile, p.out, mt, n0, M, N, t);
   } else {  // rows that are not whole 16-byte pieces: element by element
-    const uint8_t* src = smem_raw + (tile - gemm90::smem_u32(smem_raw));
     TO* out = static_cast<TO*>(p.out);
     for (int i = t; i < 64 * C::kBN; i += kWG) {
       const int r = i / C::kBN, c = i % C::kBN;
@@ -530,18 +650,27 @@ bool aligned(const void* ptr, unsigned long long bytes) {
 }
 
 // the wgmma pipeline takes a MatMul whose weight is K-major (N, K), with
-// rows that are whole 16-byte pieces; mirrored by qgemm_variant in
+// rows that are whole 16-byte pieces, and a conv with channels-last operands
+// whose channels are whole 16-byte pieces; mirrored by qgemm_variant in
 // kernels/qmatmul.py
 bool use_wgmma(const QParams& p, bool conv, bool w_nk) {
-  return !conv && w_nk && p.K % 16 == 0 && aligned(p.a, 16) && aligned(p.w, 16);
+  if (conv)
+    return p.nhwc && p.C % 16 == 0 && p.za16 != nullptr && aligned(p.a, 16) && aligned(p.w, 16) && aligned(p.za16, 16);
+  return w_nk && p.K % 16 == 0 && aligned(p.a, 16) && aligned(p.w, 16);
 }
 
 template <typename TO>
-cudaError_t launch_wgmma(const QParams& p, cudaStream_t stream) {
-  auto kernel = qgemm_wgmma_kernel<TO, DenseLoader>;
-  static cudaError_t attr = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Q8Cfg::kSmemBytes);
+cudaError_t launch_wgmma(const QParams& p, bool conv, cudaStream_t stream) {
+  auto kernel = conv ? qgemm_wgmma_kernel<TO, ConvLoader> : qgemm_wgmma_kernel<TO, DenseLoader>;
+  static cudaError_t attr = cudaFuncSetAttribute(qgemm_wgmma_kernel<TO, DenseLoader>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize, Q8Cfg::kSmemBytes);
+  static cudaError_t attr_conv = cudaFuncSetAttribute(qgemm_wgmma_kernel<TO, ConvLoader>,
+                                                      cudaFuncAttributeMaxDynamicSharedMemorySize, Q8Cfg::kSmemBytes);
   if (attr != cudaSuccess) return attr;
+  if (attr_conv != cudaSuccess) return attr_conv;
+  // x: tiles of M (the MatMul's rows, the conv's B Ho Wo pixels), y: of N
   const dim3 grid((p.M + Q8Cfg::kBM - 1) / Q8Cfg::kBM, (p.N + Q8Cfg::kBN - 1) / Q8Cfg::kBN);
+  if (grid.y > 65535) return cudaErrorInvalidValue;
   kernel<<<grid, Q8Cfg::kThreadsWg, Q8Cfg::kSmemBytes, stream>>>(p);
   return cudaGetLastError();
 }
@@ -557,8 +686,9 @@ cudaError_t launch(const QParams& p, cudaStream_t stream) {
 // sixteen bytes; the dense A rows by sixteen bytes and (K, N) weight rows by four
 template <typename TO>
 cudaError_t dispatch(const QParams& p, bool conv, bool w_nk, cudaStream_t stream) {
-  if (use_wgmma(p, conv, w_nk)) return launch_wgmma<TO>(p, stream);
-  if (w_nk) return cudaErrorInvalidValue;  // a K-major dense weight only on the wgmma pipeline
+  if (use_wgmma(p, conv, w_nk)) return launch_wgmma<TO>(p, conv, stream);
+  // a K-major dense weight, and channels-last conv operands, only on the wgmma pipeline
+  if (w_nk || p.nhwc) return cudaErrorInvalidValue;
   if (conv) {
     if (p.K % 16 == 0 && aligned(p.w, 16)) return launch<TO, true, false, true>(p, stream);
     return launch<TO, true, false, false>(p, stream);
@@ -573,15 +703,17 @@ cudaError_t dispatch(const QParams& p, bool conv, bool w_nk, cudaStream_t stream
 
 // conv: null for a MatMul, A u8 (M, K) and W u8 (K, N), or with w_nk != 0
 // W as (N, K) (K % 16 == 0, A and W 16-byte aligned: refused otherwise), all
-// row-major, out (M, N); or 13 ints C, H, W, kh, kw, stride h, w, pad top,
-// left, dilation h, w, Ho, Wo for a convolution, A the u8 (B, C, H, W) input,
-// W the u8 OIHW weight as (N, K) row-major (M = B Ho Wo, K = C kh kw), out
-// (B, N, Ho, Wo), w_nk 0. bias: (N,) int32 in accumulator units, or null.
-// out_kind: 0 = float32, 1 = float16, 2 = bfloat16, 3 = uint8. K above kMaxK
-// is refused. Returns a cudaError_t: 0 when the launch was accepted.
+// row-major, out (M, N); or 14 ints C, H, W, kh, kw, stride h, w, pad top,
+// left, dilation h, w, Ho, Wo, nhwc for a convolution (M = B Ho Wo, K = C kh
+// kw, out (B, N, Ho, Wo), w_nk 0): with nhwc 0, A the u8 (B, C, H, W) input
+// and W the u8 OIHW weight as (N, K) row-major; with nhwc 1 both
+// channels-last, A as (B, H, W, C) and W as (N, kh, kw, C), and za16 16
+// bytes of za (C % 16 == 0, 16-byte aligned: refused otherwise). bias: (N,) int32 in accumulator units, or null. out_kind: 0 =
+// float32, 1 = float16, 2 = bfloat16, 3 = uint8. K above kMaxK is refused.
+// Returns a cudaError_t: 0 when the launch was accepted.
 extern "C" int ostt_qgemm(const void* a, const void* w, const void* bias, void* out, int out_kind,
                           int M, int K, int N, int za, int zw, float alpha, float beta,
-                          const int* conv, int w_nk, void* stream) {
+                          const int* conv, int w_nk, const void* za16, void* stream) {
   if (M <= 0 || K <= 0 || K > kMaxK || N <= 0 || za < 0 || za > 255 || zw < 0 || zw > 255)
     return static_cast<int>(cudaErrorInvalidValue);
   QParams p{static_cast<const uint8_t*>(a), static_cast<const uint8_t*>(w), static_cast<const int*>(bias),
@@ -589,7 +721,8 @@ extern "C" int ostt_qgemm(const void* a, const void* w, const void* bias, void* 
   if (conv) {
     p.C = conv[0], p.H = conv[1], p.W = conv[2], p.kh = conv[3], p.kw = conv[4];
     p.sh = conv[5], p.sw = conv[6], p.ph = conv[7], p.pw = conv[8], p.dh = conv[9], p.dw = conv[10];
-    p.Ho = conv[11], p.Wo = conv[12];
+    p.Ho = conv[11], p.Wo = conv[12], p.nhwc = conv[13];
+    p.za16 = static_cast<const uint8_t*>(za16);
     if (K != p.C * p.kh * p.kw || M % (p.Ho * p.Wo)) return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -11,11 +11,16 @@ One kernel, ``csrc/flash_attention.cu``, replaces both TPU flash kernels of
 
 The kernel reads every operand in place through strides, so unlike the TPU
 wrappers it makes no padded copy of Q, K, V or the mask (the TPU wrapper's
-lane padding and VMEM clamp have no meaning here). Each wrapper names its
-form to the C entry; only the head-major one may take the ``wgmma`` pipeline
-(bf16 / fp16, head dims up to 128, 16-byte aligned rows, K by rows), which
-``flash_variant`` mirrors. See the source for the variants' design and what
-bounds them.
+lane padding and VMEM clamp have no meaning here). Both wrappers share one
+dispatcher, which picks the variant from dtype, head dims, mask, strides and
+alignment (``flash_variant`` mirrors it): 16-bit operands with 16-byte
+aligned rows and K read by rows take the ``wgmma`` pipeline at head dims up
+to 128 (the SD1.5 UNet's packed 8 x 40 and 8 x 80 sites, the TinyLlama
+prefill) and the ``wgmma_wide`` one at 257..512 without a mask (the SD VAE's
+1 x 512 site); where a packed call's query tiles leave SMs idle, its keys
+are split over blocks (``flash_splits``) and the partials combined in a
+fixed order.
+See the source for the variants' design and what bounds them.
 
 ``flash_attention_reference`` is the plain PyTorch twin: the same function
 computed in float32 with materialized scores, in the kernel's order of
@@ -169,7 +174,10 @@ def head_major_problem(q, k, v, mask=None, k_transposed: bool = False) -> Option
     return None
 
 
-_FORM = {"packed": 0, "head_major": 1}
+# (query rows, keys) of a block's tiles: the wgmma variant by its widths
+# (csrc FaWgCfg: 64 keys above head dim 64), the wide one (FaWideCfg)
+WGMMA_TILES = {"wgmma": (128, 128), "wgmma_wide": (64, 32)}
+MAX_SPLITS = 256  # csrc kMaxSplits
 
 
 def _rows_aligned16(ptrs, strides, k_by_rows: bool) -> bool:
@@ -190,18 +198,21 @@ def _mask_staged(mask_ptr: int, mask_dtype: torch.dtype, mask_strides, n: int) -
     return smn == 1 and mask_ptr % 16 == 0 and all(x * elt % 16 == 0 for x in (smb, smh, smm, n))
 
 
-def _variant(form: str, dtype: torch.dtype, d: int, dv: int, ptrs, strides, mask_ptr: Optional[int],
-             mask_dtype: Optional[torch.dtype], n: int) -> str:
+def _variant(dtype: torch.dtype, d: int, dv: int, ptrs, strides, mask_ptr: Optional[int],
+             mask_dtype: Optional[torch.dtype], n: int, wgmma: bool = True) -> str:
     """The kernel of ``csrc/flash_attention.cu`` that a launch takes, as its
-    dispatchers (``dispatch_head_major``, ``dispatch``) decide from the form,
-    dtype, head dims, strides and pointers."""
+    dispatcher (``dispatch_all``) decides from the dtype, head dims, mask,
+    strides and pointers; ``wgmma=False`` leaves the wgmma variants out, as
+    the C entry's argument of that name does."""
     k_by_rows = strides[6] == 1
     aligned = _rows_aligned16(ptrs, strides, k_by_rows)
     kd = max(d, dv)
     if dtype != torch.float32 and aligned:
-        if form == "head_major" and k_by_rows and kd <= 128 and (mask_ptr is None or _mask_staged(
+        if wgmma and k_by_rows and kd <= 128 and (mask_ptr is None or _mask_staged(
                 mask_ptr, mask_dtype, strides[13:], n)):
             return "wgmma"
+        if wgmma and k_by_rows and mask_ptr is None and 256 < kd <= 512:
+            return "wgmma_wide"
         if kd <= 128:
             return "mma"
         if mask_ptr is None and 256 < kd <= 512:
@@ -209,23 +220,65 @@ def _variant(form: str, dtype: torch.dtype, d: int, dv: int, ptrs, strides, mask
     return "fma"
 
 
-def _launch(form: str, q, k, v, out, mask, dims, strides, scale: float, causal: bool) -> None:
-    """One launch on the current stream; raises when CUDA refuses it."""
+def flash_splits(variant: str, b: int, m: int, h: int, n: int, kd: int, sms: int) -> int:
+    """The key split of an unmasked ``wgmma`` or ``wgmma_wide`` launch: as
+    many splits as fill the card's ``sms`` SMs once with the variant's blocks
+    of query rows (one block an SM), at most one a key tile; 1 when the query
+    tiles fill the card alone, and for every other variant. ``kd`` is the
+    larger head dim."""
+    if variant not in WGMMA_TILES:
+        return 1
+    bm, bn = WGMMA_TILES[variant]
+    if variant == "wgmma" and kd > 64:
+        bn = 64
+    q_tiles = -(-m // bm) * h * b
+    return max(1, min(sms // q_tiles, -(-n // bn), MAX_SPLITS, 65535 // b))
+
+
+def _launch(q, k, v, out, mask, dims, strides, scale: float, causal: bool, wgmma: bool = True,
+            splits: int = 1, part: Optional[torch.Tensor] = None) -> None:
+    """One launch on the current stream; raises when CUDA refuses it.
+    ``wgmma=False`` keeps the wgmma variants out (timing side by side)."""
     lib = build.load("flash_attention")
     fn = lib.ostt_flash_attention
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
-                   + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_int,
-                      ctypes.c_void_p])
+                   + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_void_p, ctypes.c_void_p])
     arr = (ctypes.c_longlong * 17)(*[int(s) for s in strides])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(_FORM[form], _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        rc = fn(int(wgmma), _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 None if mask is None else mask.data_ptr(),
                 0 if mask is None else _DTYPE_CODE[mask.dtype], *dims, arr,
-                float(scale) * LOG2_E, int(bool(causal)), stream)
+                float(scale) * LOG2_E, int(bool(causal)), splits, None if part is None else part.data_ptr(),
+                stream)
     if rc != 0:
         raise RuntimeError(f"flash attention: kernel launch failed with CUDA error {rc}")
+
+
+def _packed_launch(q, k, v, heads: int, d: int, dv: int):
+    """(dims, strides) of a packed launch whose output is a fresh contiguous
+    (B, M, heads * Dv) tensor: head h starts h * D columns into its row (head
+    stride D, unit column stride)."""
+    b, m, _ = q.shape
+    n, hkv = k.shape[1], k.shape[-1] // d
+    strides = (q.stride(0), d, q.stride(1), k.stride(0), d, k.stride(1), 1,
+               v.stride(0), dv, v.stride(1), m * heads * dv, dv, heads * dv, 0, 0, 0, 0)
+    return (b, m, n, heads, hkv, d, dv), strides
+
+
+def _split_workspace(variant: str, dims, device: torch.device):
+    """(splits, float32 workspace or None) of an unmasked launch: the key
+    split over the card's SMs (``flash_splits``) and its partials."""
+    if variant not in WGMMA_TILES:
+        return 1, None
+    b, m, n, h, _, d, dv = dims
+    splits = flash_splits(variant, b, m, h, n, max(d, dv),
+                          torch.cuda.get_device_properties(device).multi_processor_count)
+    if splits == 1:
+        return 1, None
+    return splits, torch.empty(splits * b * h * m * (dv + 2), dtype=torch.float32, device=device)
 
 
 def flash_attention_packed(q, k, v, heads: int, scale: Optional[float] = None,
@@ -247,15 +300,14 @@ def flash_attention_packed(q, k, v, heads: int, scale: Optional[float] = None,
         raise ValueError(f"flash_attention_packed runs on CUDA or CPU tensors, not {q.device}")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("flash_attention_packed: the last dim of q, k, v must be contiguous")
-    b, m, _ = q.shape
-    n = k.shape[1]
-    out = torch.empty((b, m, heads * dv), dtype=q.dtype, device=q.device)
+    dims, strides = _packed_launch(q, k, v, heads, d, dv)
+    out = torch.empty((dims[0], dims[1], heads * dv), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    # head h starts h*D columns into its row: head stride D, unit column stride
-    strides = (q.stride(0), d, q.stride(1), k.stride(0), d, k.stride(1), 1,
-               v.stride(0), dv, v.stride(1), out.stride(0), dv, out.stride(1), 0, 0, 0, 0)
-    _launch("packed", q, k, v, out, None, (b, m, n, heads, hkv, d, dv), strides, scale, causal)
+    variant = _variant(q.dtype, d, dv, (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr()), strides,
+                       None, None, dims[2])
+    splits, part = _split_workspace(variant, dims, q.device)
+    _launch(q, k, v, out, None, dims, strides, scale, causal, splits=splits, part=part)
     flash_attention_packed.launches += 1
     return out
 
@@ -277,23 +329,30 @@ def _head_major_launch(q, k, v, mask, k_transposed: bool):
 
 def flash_variant(q, k, v, mask=None, k_transposed: bool = False, form: str = "head_major") -> str:
     """Which kernel of ``csrc/flash_attention.cu`` a call of ``flash_attention``
-    (``form="head_major"``) or ``flash_attention_packed`` (``"packed"``, the
-    operands then head-major views of the packed tensors) takes, from dtype,
-    head dims, strides and pointers as the C dispatchers decide:
+    (``form="head_major"``) or ``flash_attention_packed`` (``"packed"``: the
+    operands then head-major views of the packed tensors, no mask, K by rows)
+    takes. Both wrappers share one dispatcher, which decides from dtype, head
+    dims, mask, strides and pointers:
 
-      * ``"wgmma"``: the head-major entry only; bf16 / fp16, head dims up to
-        128, K read by rows, 16-byte aligned Q / K / V / O rows, and no mask
-        or one whose rows are whole 16-byte pieces (staged by 16-byte copies);
+      * ``"wgmma"``: bf16 / fp16, head dims up to 128, K read by rows,
+        16-byte aligned Q / K / V / O rows, and no mask or one whose rows are
+        whole 16-byte pieces (staged by 16-byte copies);
+      * ``"wgmma_wide"``: bf16 / fp16 head dims 257..512 with those rows and
+        no mask;
       * ``"mma"``: bf16 / fp16, head dims up to 128, aligned rows (a K given
-        transposed, a mask whose rows are not 16-byte granular, or the packed
-        entry);
-      * ``"mma_wide"``: bf16 / fp16 head dims 257..512 without a mask;
+        transposed, a mask whose rows are not 16-byte granular);
+      * ``"mma_wide"``: bf16 / fp16 head dims 257..512 without a mask, K
+        given transposed;
       * ``"fma"``: everything else (float32, misaligned rows)."""
+    if form not in ("head_major", "packed"):
+        raise ValueError(f"flash_variant: form is 'head_major' or 'packed', not {form!r}")
+    if form == "packed" and (mask is not None or k_transposed):
+        raise ValueError("flash_variant: the packed entry takes no mask and K by rows")
     if q.ndim == 3:
         q, k, v = q[None], k[None], v[None]
     dims, strides, m4 = _head_major_launch(q, k, v, mask, k_transposed)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), 0)  # the output is a fresh, aligned tensor
-    return _variant(form, q.dtype, dims[5], dims[6], ptrs, strides,
+    return _variant(q.dtype, dims[5], dims[6], ptrs, strides,
                     None if m4 is None else m4.data_ptr(), None if m4 is None else m4.dtype, dims[2])
 
 
@@ -327,7 +386,7 @@ def flash_attention(q, k, v, mask=None, scale: Optional[float] = None,
     out = torch.empty((b, h, m, dv), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    _launch("head_major", q, k, v, out, m4, dims, strides, scale, causal)
+    _launch(q, k, v, out, m4, dims, strides, scale, causal)
     flash_attention.launches += 1
     return out
 

@@ -9,10 +9,15 @@ or a requantized uint8 one (onnxstream.cpp:4664-4689).
 
 The TPU version extracts the patches in XLA and hands them to ``qmatmul``.
 Here the launch is kernel 3's own (``csrc/qlinear.cu``) as an implicit GEMM:
-each A tile is gathered from the NCHW input inside the kernel, the OIHW
-weight is read in place as the (O, C kh kw) B operand, and the output is
-written in NCHW, so neither the patch matrix (604 MB of uint8 at the SD VAE's
-largest conv) nor a transposed output ever exists in device memory.
+each tile of the patch matrix is gathered from the input inside the kernel
+and the output is written in NCHW, so neither the patch matrix (604 MB of
+uint8 at the SD VAE's largest conv) nor a transposed output ever exists in
+device memory. Which variant runs follows from the operands' layouts
+(``qconv_variant``): a channels-last input and weight (``quantize_activation``
+with ``channels_last``, the ``ohwi`` upload; C a multiple of 16) take the u8
+``wgmma`` pipeline, whose gather copies 16 channels of a tap at a time;
+NCHW / OIHW operands take the ``mma.sync`` kernel, which gathers bytes. The
+shapes keep their NCHW / OIHW meaning either way.
 
 ``qconv_reference`` is the plain twin: the zero-point-shifted convolution in
 float64 (exact: the sums stay below 2^53), the int32 bias and the kernel's
@@ -30,7 +35,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from onnxstream_tpu_torch.kernels.qmatmul import _acc_bias, _check_k, _qepilogue, _qgemm, _scales
+from onnxstream_tpu_torch.kernels.qmatmul import _acc_bias, _check_k, _qepilogue, _qgemm, _scales, qgemm_variant
 
 
 def _geometry(x_q: torch.Tensor, w_q: torch.Tensor, strides, pads, dilations) -> Tuple[int, ...]:
@@ -107,12 +112,31 @@ def qconv(x_q: torch.Tensor, w_q: torch.Tensor, a_scale: float, a_zero: int, w_s
     out = torch.empty((bsz, o, ho, wo), dtype=torch.uint8 if out_scale is not None else out_dtype,
                       device=x_q.device)
     if out.numel():
-        geo = (c, h, w, kh, kw, strides[0], strides[1], pads[0], pads[1], dilations[0], dilations[1], ho, wo)
-        # the OIHW weight viewed as (O, C kh kw) is the (N, K) B operand
-        _qgemm(x_q.contiguous(), w_q.contiguous().reshape(o, c * kh * kw), _conv_bias(bias, a_scale, w_scale, o, x_q.device), out,
+        nhwc = qconv_variant(x_q, w_q) == "wgmma"
+        if not nhwc:  # the mma.sync kernel reads NCHW and OIHW
+            x_q, w_q = x_q.contiguous(), w_q.contiguous()
+        geo = (c, h, w, kh, kw, strides[0], strides[1], pads[0], pads[1], dilations[0], dilations[1], ho, wo,
+               int(nhwc))
+        # the weight's memory is the (N, K) B operand: (O, C kh kw), or
+        # (O, kh kw C) channels-last
+        _qgemm(x_q, w_q, _conv_bias(bias, a_scale, w_scale, o, x_q.device), out,
                bsz * ho * wo, c * kh * kw, o, za, zw, alpha, beta, geo)
         qconv.launches += 1
     return out
+
+
+def _channels_last(t: torch.Tensor) -> bool:
+    return t.ndim == 4 and t.is_contiguous(memory_format=torch.channels_last)
+
+
+def qconv_variant(x_q: torch.Tensor, w_q: torch.Tensor) -> str:
+    """Which kernel of ``csrc/qlinear.cu`` ``qconv`` takes for this u8 input
+    and weight (``qgemm_variant``'s answer for a conv): ``"wgmma"`` where both
+    are channels-last (``quantize_activation(..., channels_last=True)``, the
+    ``ohwi`` upload), ``qconv_takes_nhwc`` and 16-byte aligned, else
+    ``"mma"``, which reads NCHW / OIHW (copying a tensor laid out otherwise)."""
+    return qgemm_variant(0, 0, w_q.shape[0], False, x_q.data_ptr(), w_q.data_ptr(), conv=True,
+                         nhwc=_channels_last(x_q) and _channels_last(w_q), c=x_q.shape[1])
 
 
 qconv.launches = 0

@@ -74,8 +74,8 @@ _WORKSPACE: Dict[torch.device, torch.Tensor] = {}
 _FUNCS: Dict[str, object] = {}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
-    # a, w, bias, out, out_kind, M, K, N, za, zw, alpha, beta, conv, w_nk, stream
-    "ostt_qgemm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P, _I, _P],
+    # a, w, bias, out, out_kind, M, K, N, za, zw, alpha, beta, conv, w_nk, za16, stream
+    "ostt_qgemm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P, _I, _P, _P],
     # dtype, a, w, ws, ws_scalar, out, workspace, M, K, N, stream
     "ostt_w8a8_dyn_matmul": [_I, _P, _P, _P, _F, _P, _P, _I, _I, _I, _P],
     # dtype, a, w, sw, zw, sw_scalar, zw_scalar, out, M, K, N, bm, splits, workspace, stream
@@ -279,7 +279,7 @@ _OUT_KIND = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2, torch.uint8:
 QGEMM_MAX_K = 33025  # the int32 accumulator is exact while 255^2 K < 2^31 (csrc kMaxK)
 
 
-def quantize_activation(x: torch.Tensor, scale: float, zero: int) -> torch.Tensor:
+def quantize_activation(x: torch.Tensor, scale: float, zero: int, channels_last: bool = False) -> torch.Tensor:
     """float -> uint8 with the runtime's quantize math (onnxstream.cpp:3247),
     as JAX ``quantize_activation``: round half to even of ``x / scale`` in
     float32, plus the zero point, clipped to 0..255. The divisor is a tensor
@@ -288,11 +288,15 @@ def quantize_activation(x: torch.Tensor, scale: float, zero: int) -> torch.Tenso
     The result is contiguous: an activation that arrives M-major (the VAE's
     attention projections get a transposed view) is laid out row-major by the
     float32 conversion the step makes anyway, not by a copy of the uint8
-    tensor in front of every kernel 3 launch."""
+    tensor in front of every kernel 3 launch. With ``channels_last`` a 4-D
+    (B, C, H, W) input comes out in ``torch.channels_last`` (the shape and
+    the values unchanged), the layout of kernel 4's wgmma variant, laid out
+    by the same conversion."""
+    fmt = torch.channels_last if channels_last else torch.contiguous_format
     s = torch.full((), float(scale), dtype=torch.float32, device=x.device)
     # one pass for a 16-bit input; .to returns a float32 input as it is,
     # whatever its strides, so .contiguous() lays that one out
-    xf = x.to(torch.float32, memory_format=torch.contiguous_format).contiguous()
+    xf = x.to(torch.float32, memory_format=fmt).contiguous(memory_format=fmt)
     q = torch.round(xf / s).add_(float(zero))
     return q.clamp_(0, 255).to(torch.uint8)
 
@@ -382,18 +386,48 @@ def qgemm_takes_kmajor(k: int) -> bool:
     return k % 16 == 0
 
 
+def qconv_takes_nhwc(c: int) -> bool:
+    """Whether a W8A8 conv of ``c`` input channels runs on the u8 wgmma
+    pipeline, its input quantized channels-last and its weight uploaded so
+    (``WEIGHT_TRANSFORMS["ohwi"]``): the gather copies 16 channels of one tap
+    at a time (C % 16 == 0). Every SD VAE decoder conv qualifies but conv_in
+    (C = 4), conv_out (O = 3) included: its 128-row channel tile is mostly
+    zeros, and still it runs several times faster than on the mma.sync
+    kernel (PERF.md)."""
+    return c % 16 == 0
+
+
 def qgemm_variant(m: int, k: int, n: int, weight_nk: bool, a_ptr: int = 0, w_ptr: int = 0,
-                  conv: bool = False) -> str:
+                  conv: bool = False, nhwc: bool = False, c: int = 0) -> str:
     """Which kernel of ``csrc/qlinear.cu`` a W8A8 product runs on, as its
-    dispatcher decides from the weight's layout, K and pointer alignment
+    dispatcher decides from the operands' layouts, K and pointer alignment
     (``use_wgmma`` there): ``"wgmma"`` for a MatMul whose weight is given
     K-major as (N, K), with ``qgemm_takes_kmajor(k)`` and 16-byte aligned A
-    and W (ragged M and N are zero-filled by the copies), else ``"mma"``
-    (every conv, every (K, N) weight). An (N, K) weight that misses the wgmma
-    predicate is refused."""
-    if not conv and weight_nk and qgemm_takes_kmajor(k) and a_ptr % 16 == 0 and w_ptr % 16 == 0:
+    and W (ragged M and N are zero-filled by the copies), and for a conv
+    (``conv``, ``c`` input channels) whose input and weight are both
+    channels-last (``nhwc``), C a multiple of 16 and 16-byte aligned starts;
+    else ``"mma"`` (NCHW convs, every (K, N) weight). An
+    (N, K) weight or a channels-last conv that misses the wgmma predicate is
+    refused."""
+    aligned = a_ptr % 16 == 0 and w_ptr % 16 == 0
+    if conv:
+        return "wgmma" if nhwc and c % 16 == 0 and aligned else "mma"
+    if weight_nk and qgemm_takes_kmajor(k) and aligned:
         return "wgmma"
     return "mma"
+
+
+def _za_pieces(device: torch.device) -> torch.Tensor:
+    """256 pieces of 16 bytes on ``device``, piece z holding the byte z: the
+    conv gather copies piece za where a window leaves the input. Made once
+    per device."""
+    t = _ZA_PIECES.get(device)
+    if t is None:
+        t = _ZA_PIECES[device] = torch.arange(256, dtype=torch.uint8, device=device).repeat_interleave(16)
+    return t
+
+
+_ZA_PIECES: Dict[torch.device, torch.Tensor] = {}
 
 
 def _qgemm(a: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor], out: torch.Tensor,
@@ -401,17 +435,19 @@ def _qgemm(a: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor], out: 
            conv: Optional[Tuple[int, ...]] = None, weight_nk: bool = False) -> None:
     """One launch of ``csrc/qlinear.cu`` on the current stream: a MatMul of
     a (K, N) weight (or of an (N, K) one with ``weight_nk``), or with
-    ``conv`` (the geometry) a convolution of the OIHW weight as (N, K) that
-    writes NCHW. Raises when CUDA refuses it. Adds one to
+    ``conv`` (the geometry and the layout flag, 14 ints) a convolution that
+    writes NCHW, of the NCHW input and the OIHW weight as (N, K), or of both
+    channels-last. Raises when CUDA refuses it. Adds one to
     ``qmatmul.launches``."""
     _check_cuda("qmatmul", a, w, out, *([bias] if bias is not None else []))
-    geo = None if conv is None else (ctypes.c_int * 13)(*conv)
+    geo = None if conv is None else (ctypes.c_int * 14)(*conv)
+    za16 = _za_pieces(a.device).data_ptr() + 16 * za if conv is not None and conv[13] else None
     fn = _func("ostt_qgemm")
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         rc = fn(a.data_ptr(), w.data_ptr(), None if bias is None else bias.data_ptr(), out.data_ptr(),
                 _OUT_KIND[out.dtype], m, k, n, za, zw, alpha, beta,
-                None if geo is None else ctypes.addressof(geo), int(weight_nk), stream)
+                None if geo is None else ctypes.addressof(geo), int(weight_nk), za16, stream)
     if rc != 0:
         raise RuntimeError(f"qmatmul: kernel launch failed with CUDA error {rc}")
     qmatmul.launches += 1

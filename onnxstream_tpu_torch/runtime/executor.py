@@ -47,7 +47,9 @@ activation with the producer op's calibrated range and runs through kernel 3
 (``kernels/qmatmul.py qmatmul``; a Conv through ``kernels/qconv.py qconv``,
 kernel 3 as an implicit GEMM), with a float output in the compute dtype. The
 planner uploads such a MatMul's weight K-major, as (N, K)
-(``WEIGHT_TRANSFORMS["tnk"]``), for kernel 3's wgmma pipeline.
+(``WEIGHT_TRANSFORMS["tnk"]``), for kernel 3's wgmma pipeline, and such a
+Conv's weight channels-last (``"ohwi"``) where kernel 4's wgmma variant takes
+it, whose input is then quantized channels-last.
 This route comes first; then the int8 and uint8 weight routes above, then
 dequantize-on-read. ``use_uint8_qdq`` quantize-dequantizes every pushed float
 intermediate (``_maybe_qdq``), single-use tensors consumed by the next op
@@ -464,7 +466,10 @@ class Executor:
         w_raw = weights_env[w.name]
         if w_raw.ndim == 3:
             w_raw = w_raw[..., None]
-        out = qconv(quantize_activation(a, a_scale, a_zero), w_raw, a_scale, a_zero, w_scale, w_zero,
+        # a weight uploaded channels-last (ohwi) runs on kernel 4's wgmma
+        # variant, which reads the input channels-last too
+        a_q = quantize_activation(a, a_scale, a_zero, channels_last=w.transform == "ohwi")
+        out = qconv(a_q, w_raw, a_scale, a_zero, w_scale, w_zero,
                     bias=bias, strides=strides, pads=pads, dilations=dilations, out_dtype=cdt)
         return out[..., 0] if conv1d else out
 

@@ -30,7 +30,7 @@ import torch
 from onnxstream_tpu_torch.dtypes import DType, to_numpy, to_torch, torch_dtype
 from onnxstream_tpu_torch.ir import Graph, OpNode, TensorSpec
 from onnxstream_tpu_torch.kernels.matmul import oihw_to_w9co
-from onnxstream_tpu_torch.kernels.qmatmul import qgemm_takes_kmajor
+from onnxstream_tpu_torch.kernels.qmatmul import qconv_takes_nhwc, qgemm_takes_kmajor
 from onnxstream_tpu_torch.ops import Ctx, StaticRequired, get_impl
 from onnxstream_tpu_torch.runtime.config import SessionConfig
 
@@ -96,10 +96,19 @@ def _tnk(a: torch.Tensor) -> torch.Tensor:
     return a.t().contiguous()
 
 
+def _ohwi(a: torch.Tensor) -> torch.Tensor:
+    """(O, C, kh, kw) conv weight -> the same shape in ``torch.channels_last``,
+    i.e. laid out (O, kh, kw, C): the K-major A operand of kernel 4's u8
+    wgmma pipeline (kernels/qconv.py qconv), K ordered (i, j, c) as its
+    channels-last input gather reads it. The shape keeps its OIHW meaning;
+    the relayout happens once on the host at upload."""
+    return a.contiguous(memory_format=torch.channels_last)
+
+
 # name -> host relayout of a fetched weight (a CPU tensor in file layout);
 # the executor applies it between provider.get and the upload. The provider
 # keeps the file layout.
-WEIGHT_TRANSFORMS = {"t9oc": _t9oc, "t9co": _t9co, "tnk": _tnk}
+WEIGHT_TRANSFORMS = {"t9oc": _t9oc, "t9co": _t9co, "tnk": _tnk, "ohwi": _ohwi}
 
 
 def qlinear_mode(op: OpNode, config: SessionConfig) -> Optional[str]:
@@ -108,7 +117,8 @@ def qlinear_mode(op: OpNode, config: SessionConfig) -> Optional[str]:
     the op (reference static-W8A8 MatMul src/onnxstream.cpp:5790-5795 and qu8
     Conv 4631-4689; JAX ``_qlinear_mode``). The executor takes the route when
     the weight is also a streamed argument; the planner uploads such MatMul
-    weights K-major (``_tnk``)."""
+    weights K-major (``_tnk``) and the Conv weights kernel 4's wgmma variant
+    takes channels-last (``_ohwi``)."""
     if not (config.use_uint8_arithmetic and len(op.inputs) >= 2 and op.inputs[1].is_weight
             and op.inputs[1].dtype == DType.uint8 and op.name in config.range_data):
         return None
@@ -235,12 +245,29 @@ class _Planner:
                 and qgemm_takes_kmajor(spec.shape[0]) and not spec.transform
                 and self._wuse.get(spec.name, 0) == 1)
 
-    def _promote_weight_to_arg(self, spec: TensorSpec, kmajor: bool = False) -> WeightArg:
+    def _relayout(self, op: OpNode, i: int) -> Optional[str]:
+        """The upload transform that input i of op gets for kernel 3 or 4's
+        wgmma pipeline, or None: ``"tnk"`` for a calibrated W8A8 MatMul's
+        weight (``_kmajor``); ``"ohwi"`` for a calibrated W8A8 Conv's 4-D
+        weight that the pipeline takes (``qconv_takes_nhwc``), read by this op
+        alone. The executor then quantizes that conv's input channels-last."""
+        if self._kmajor(op, i):
+            return "tnk"
+        spec = op.inputs[i]
+        if (i == 1 and qlinear_mode(op, self.config) == "conv" and len(spec.shape) == 4
+                and qconv_takes_nhwc(spec.shape[1]) and not spec.transform
+                and self._wuse.get(spec.name, 0) == 1):
+            return "ohwi"
+        return None
+
+    def _promote_weight_to_arg(self, spec: TensorSpec, relayout: Optional[str] = None) -> WeightArg:
         w = self._arg_set.get(spec.name)
         if w is None:
             shape, transform, file_shape = spec.shape, spec.transform, spec.file_shape
-            if kmajor:
+            if relayout == "tnk":
                 shape, transform, file_shape = (spec.shape[1], spec.shape[0]), "tnk", spec.shape
+            elif relayout == "ohwi":
+                transform, file_shape = "ohwi", spec.shape
             quant = (spec.scale, spec.zero_point) if spec.dtype == DType.uint8 else None
             symmetric = False
             if quant is None and spec.name in self.config.force_uint8_storage_set and spec.dtype.is_float:
@@ -324,7 +351,7 @@ class _Planner:
         # commit: promote undecided weights used dynamically to args
         for i, (kind, _) in enumerate(kinds):
             if kind == "weight":
-                self._promote_weight_to_arg(op.inputs[i], self._kmajor(op, i))
+                self._promote_weight_to_arg(op.inputs[i], self._relayout(op, i))
 
         self.op_modes.append("device")
         self._check_and_store(op, outs, device=True)

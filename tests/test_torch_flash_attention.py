@@ -23,6 +23,7 @@ from onnxstream_tpu_torch.kernels.flash_attention import (
     flash_attention_packed,
     flash_attention_packed_reference,
     flash_attention_reference,
+    flash_splits,
     flash_variant,
     head_major_problem,
 )
@@ -337,11 +338,19 @@ def _variant_site(case):
     elif case == "k_transposed":
         kt = True
     elif case.startswith("packed"):
+        # head-major views of packed (B, L, H * D) tensors, as the packed
+        # entry reads them: head stride D, row stride H * D
         form = "packed"
         mask_shape = None
-        d = 512 if case == "packed_d512" else 40
+        d = {"packed_d512": 512, "packed_d80": 80}.get(case, 40)
         h = hkv = 1 if d == 512 else 8
-        m = n = 4096
+        m = n = 4096 if d != 80 else 1024
+        dt = torch.float32 if case == "packed_d40_float32" else dt
+        off = 4 if case == "packed_d40_rows_off_16_bytes" else 0
+        packed = [torch.zeros(b, m, h * d + off, dtype=dt)[..., off:] for _ in range(3)]
+        q, k, v = (t.view(b, m, h, d).transpose(1, 2) if off == 0 else t.unflatten(-1, (h, d)).transpose(1, 2)
+                   for t in packed)
+        return q, k, v, None, False, form
     q = torch.zeros(b, h, m, d, dtype=dt)
     if case == "q_rows_off_16_bytes":
         q = torch.zeros(b, h, m, d + 8, dtype=dt)[..., 4:4 + d]
@@ -362,14 +371,40 @@ def _variant_site(case):
     ("d256", "fma"),                         # head dims above 128
     ("float32", "fma"),
     ("q_rows_off_16_bytes", "fma"),
-    ("packed_d40", "mma"),                   # the packed entry never takes the wgmma variant
-    ("packed_d512", "mma_wide"),
+    ("packed_d40", "wgmma"),                 # the SD1.5 UNet's 8 x 40 site, strided views of (1, 4096, 320)
+    ("packed_d80", "wgmma"),                 # its 8 x 80 site, (1, 1024, 640)
+    ("packed_d512", "wgmma_wide"),           # the SD VAE's 1 x 512 site, keys split over blocks
+    ("packed_d40_float32", "fma"),
+    ("packed_d40_rows_off_16_bytes", "fma"),
 ])
 def test_flash_variant(case, want):
     q, k, v, mask, kt, form = _variant_site(case)
     assert head_major_problem(q, k, v, mask, kt) is None or form == "packed"
     assert flash_variant(q, k, v, mask, k_transposed=kt, form=form) == want
-    if form == "head_major" and want == "wgmma":
-        assert flash_variant(q, k, v, mask, k_transposed=kt, form="packed") == "mma"
+    if mask is None and not kt:  # one dispatcher: the packed entry answers the same
+        assert flash_variant(q, k, v, k_transposed=kt, form="packed") == want
+
+
+@pytest.mark.parametrize("variant,b,m,h,n,kd,sms,want", [
+    ("wgmma_wide", 1, 4096, 1, 4096, 512, 132, 2),   # the SD VAE site: 64 query tiles, two splits fill 128 of 132 SMs
+    ("wgmma_wide", 2, 77, 1, 300, 512, 132, 10),     # 4 query tiles; at most one split a key tile of 32
+    ("wgmma_wide", 1, 100, 2, 40, 512, 132, 2),
+    ("wgmma_wide", 1, 16384, 1, 16384, 512, 132, 1),  # 256 query tiles fill the card alone
+    ("wgmma_wide", 1, 4096, 1, 4096, 512, 64, 1),
+    ("wgmma", 1, 1024, 8, 1024, 80, 132, 2),          # the SD1.5 UNet's d = 80 site: 64 blocks of 128 rows
+    ("wgmma", 1, 4096, 8, 4096, 40, 132, 1),          # its d = 40 site: 256 blocks
+    ("wgmma", 1, 80, 4, 24, 32, 132, 1),              # 4 blocks, one key tile of 128
+    ("mma", 1, 1024, 8, 1024, 80, 132, 1),
+])
+def test_flash_splits(variant, b, m, h, n, kd, sms, want):
+    assert flash_splits(variant, b, m, h, n, kd, sms) == want
+
+
+def test_flash_variant_packed_form_takes_no_mask():
+    q, k, v, mask, kt, _ = _variant_site("tinyllama_prefill")
+    with pytest.raises(ValueError, match="packed entry"):
+        flash_variant(q, k, v, mask, form="packed")
+    with pytest.raises(ValueError, match="form"):
+        flash_variant(q, k, v, mask, form="packed_heads")
 
 

@@ -156,3 +156,43 @@ def test_wgmma_variant_matches_twin_on_card(case, dtype):
     torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2, atol=2e-2)
     if causal and m > n:
         assert out[:, :, : m - n].abs().max().item() == 0.0
+
+
+# the packed entry on the wgmma variants: the SD1.5 UNet's head dims 40 and 80
+# (the 4096-token site cut to 1024 tokens), ragged M and N, GQA, causal with M
+# > N (rows of exact zeros), d = 64 / 32 on the generic widths, and the VAE's d
+# = 512 on the wide variant with its keys split over blocks (the split's
+# partials meet in a fixed order: a second call gives the same bits)
+PACKED_WGMMA_CASES = [
+    # name, b, m, n, heads, kv heads, d, causal, variant
+    ("d40_sd15", 1, 1024, 1024, 8, 8, 40, False, "wgmma"),
+    ("d40_ragged_gqa", 2, 77, 300, 8, 4, 40, False, "wgmma"),
+    ("d80_sd15", 1, 1024, 1024, 8, 8, 80, False, "wgmma"),
+    ("d80_causal_m_gt_n", 1, 200, 150, 2, 2, 80, True, "wgmma"),
+    ("d64_gqa_causal", 2, 300, 700, 8, 2, 64, True, "wgmma"),
+    ("d32_causal_m_gt_n", 1, 80, 24, 4, 4, 32, True, "wgmma"),
+    ("d512_vae", 1, 4096, 4096, 1, 1, 512, False, "wgmma_wide"),
+    ("d512_ragged", 2, 77, 300, 1, 1, 512, False, "wgmma_wide"),
+    ("d512_causal_m_gt_n_gqa", 1, 100, 40, 2, 1, 512, True, "wgmma_wide"),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("case", PACKED_WGMMA_CASES, ids=[c[0] for c in PACKED_WGMMA_CASES])
+def test_packed_wgmma_variants_match_twin_on_card(case, dtype):
+    _card()
+    name, b, m, n, h, hkv, d, causal, want = case
+    rng = np.random.default_rng(5)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s, dtype=np.float32)).cuda().to(dtype)
+               for s in ((b, m, h * d), (b, n, hkv * d), (b, n, hkv * d)))
+    heads = lambda t, hh: t.view(b, t.shape[1], hh, d).transpose(1, 2)
+    assert flash_variant(heads(q, h), heads(k, hkv), heads(v, hkv), form="packed") == want
+    out = flash_attention_packed(q, k, v, h, causal=causal)
+    again = flash_attention_packed(q, k, v, h, causal=causal)
+    torch.cuda.synchronize()
+    ref = flash_attention_packed_reference(q, k, v, h, causal=causal)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2, atol=2e-2)
+    assert torch.equal(out, again)
+    if causal and m > n:
+        assert out[:, : m - n].abs().max().item() == 0.0

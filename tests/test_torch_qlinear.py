@@ -21,7 +21,9 @@ from onnxstream_tpu.kernels.qconv import qconv_reference as jax_qconv_reference
 from onnxstream_tpu.kernels.qmatmul import qmatmul as jax_qmatmul
 from onnxstream_tpu.kernels.qmatmul import qmatmul_reference as jax_qmatmul_reference
 from onnxstream_tpu.kernels.qmatmul import quantize_activation as jax_quantize_activation
+from onnxstream_tpu.convert.quantize import quantize_graph_weights as jax_quantize_graph_weights
 from onnxstream_tpu.models.sd.vae import VAE_TINY as JAX_VAE_TINY
+from onnxstream_tpu.models.sd.vae import VaeConfig as JaxVaeConfig
 from onnxstream_tpu.models.sd.vae import build_vae_decoder as jax_build_vae_decoder
 from onnxstream_tpu.runtime.config import SessionConfig as JaxConfig
 from onnxstream_tpu.runtime.session import Session as JaxSession
@@ -29,10 +31,10 @@ from onnxstream_tpu.runtime.weights import DictWeightsProvider as JaxDict
 from onnxstream_tpu_torch import Session, SessionConfig
 from onnxstream_tpu_torch.kernels import qconv as qconv_mod
 from onnxstream_tpu_torch.kernels import qmatmul as qmatmul_mod
-from onnxstream_tpu_torch.kernels.qconv import qconv
-from onnxstream_tpu_torch.kernels.qmatmul import (qgemm_takes_kmajor, qgemm_variant, qmatmul, qmatmul_reference,
-                                                  quantize_activation)
-from onnxstream_tpu_torch.models.sd.vae import VAE_TINY, build_vae_decoder
+from onnxstream_tpu_torch.kernels.qconv import qconv, qconv_variant
+from onnxstream_tpu_torch.kernels.qmatmul import (qconv_takes_nhwc, qgemm_takes_kmajor, qgemm_variant, qmatmul,
+                                                  qmatmul_reference, quantize_activation)
+from onnxstream_tpu_torch.models.sd.vae import VAE_TINY, VaeConfig, build_vae_decoder
 from onnxstream_tpu_torch.runtime.planner import WEIGHT_TRANSFORMS
 from onnxstream_tpu_torch.runtime.quantization import quantize_weight_percentile
 from onnxstream_tpu_torch.runtime.weights import DictWeightsProvider, params_from_numpy
@@ -352,7 +354,13 @@ def test_twin_gives_the_same_bits_on_both_weight_forms(shape, out):
     (dict(m=77, k=36, n=3), "mma"),                    # K % 16 != 0
     (dict(m=64, k=512, n=512, a_ptr=8), "mma"),        # A rows off 16-byte boundaries
     (dict(m=64, k=512, n=512, w_ptr=4), "mma"),        # W rows off 16-byte boundaries
-    (dict(m=4096, k=512, n=512, conv=True), "mma"),    # every conv keeps qgemm_kernel
+    (dict(m=4096, k=512, n=512, conv=True), "mma"),    # an NCHW conv keeps qgemm_kernel
+    # a channels-last conv (nhwc): the VAE decoder's 512 / 256 / 128 channels
+    (dict(m=4096, k=4608, n=512, weight_nk=False, conv=True, nhwc=True, c=512), "wgmma"),
+    (dict(m=65536, k=256, n=128, weight_nk=False, conv=True, nhwc=True, c=256), "wgmma"),
+    (dict(m=4096, k=36, n=512, weight_nk=False, conv=True, nhwc=True, c=4), "mma"),        # conv_in: C % 16
+    (dict(m=262144, k=1152, n=3, weight_nk=False, conv=True, nhwc=True, c=128), "wgmma"),  # conv_out: O = 3
+    (dict(m=4096, k=4608, n=512, weight_nk=False, conv=True, nhwc=True, c=512, a_ptr=8), "mma"),
 ])
 def test_qgemm_variant(case, want):
     case = dict(case)
@@ -414,3 +422,115 @@ def test_config_options():
     for opt in ("flash_packed_nopad", "force_fp16_storage", "use_nhwc_layout", "synthetic_device_weights"):
         with pytest.raises(NotImplementedError):
             SessionConfig(device=CPU, **{opt: True})
+
+
+# ------------------------------------- kernel 4's channels-last wgmma route
+def test_quantize_activation_channels_last_is_bit_equal_to_jax():
+    """With channels_last the uint8 activation keeps its (B, C, H, W) shape
+    and JAX's values, laid out channels-last by the float32 conversion, from
+    an NCHW input, a bf16 one and a strided view alike."""
+    rng = np.random.RandomState(8)
+    x = (rng.randn(2, 32, 5, 7) * 4).astype(np.float32)
+    want = np.asarray(jax_quantize_activation(jnp.asarray(x), 0.037, 128))
+    xt = torch.from_numpy(x)
+    views = [xt, xt.contiguous(memory_format=torch.channels_last),
+             torch.from_numpy(np.ascontiguousarray(x.transpose(0, 1, 3, 2))).transpose(2, 3)]
+    for v in views:
+        q = quantize_activation(v, 0.037, 128, channels_last=True)
+        assert q.dtype == torch.uint8 and tuple(q.shape) == x.shape
+        assert q.is_contiguous(memory_format=torch.channels_last)
+        np.testing.assert_array_equal(q.numpy(), want)
+    xb = xt.to(torch.bfloat16)
+    np.testing.assert_array_equal(quantize_activation(xb, 0.05, 7, channels_last=True).numpy(),
+                                  np.asarray(jax_quantize_activation(jnp.asarray(xb.float().numpy()), 0.05, 7)))
+
+
+def test_ohwi_upload_transform_is_the_channels_last_permutation():
+    """WEIGHT_TRANSFORMS["ohwi"]: the OIHW shape kept, the memory that of
+    numpy's (O, kh, kw, C) transpose: the K-major rows kernel 4 reads."""
+    w = _u8(np.random.RandomState(6), 64, 32, 3, 3)
+    t = WEIGHT_TRANSFORMS["ohwi"](torch.from_numpy(w))
+    assert tuple(t.shape) == w.shape and t.is_contiguous(memory_format=torch.channels_last)
+    np.testing.assert_array_equal(t.numpy(), w)
+    flat = torch.as_strided(t, (t.numel(),), (1,)).numpy()
+    np.testing.assert_array_equal(flat, np.ascontiguousarray(w.transpose(0, 2, 3, 1)).reshape(-1))
+
+
+@pytest.mark.parametrize("case,want", [
+    ("both_channels_last", "wgmma"),
+    ("nchw_input", "mma"),
+    ("oihw_weight", "mma"),
+    ("conv_in_c4", "mma"),
+    ("conv_out_o3", "wgmma"),
+    ("input_view_off_16_bytes", "mma"),
+])
+def test_qconv_variant(case, want):
+    """The conv's variant from the layouts and starts of CPU tensors, as the
+    C dispatcher decides it on the card."""
+    c, o, h = (4, 64, 8) if case == "conv_in_c4" else (32, 3 if case == "conv_out_o3" else 64, 8)
+    x = torch.zeros(1, c, h, h, dtype=torch.uint8)
+    w = torch.zeros(o, c, 3, 3, dtype=torch.uint8)
+    if case != "nchw_input":
+        x = x.contiguous(memory_format=torch.channels_last)
+    if case != "oihw_weight":
+        w = WEIGHT_TRANSFORMS["ohwi"](w)
+    if case == "input_view_off_16_bytes":
+        x = torch.zeros(1 * c * h * h + 8, dtype=torch.uint8)[8:].view(1, h, h, c).permute(0, 3, 1, 2)
+        assert x.is_contiguous(memory_format=torch.channels_last) and x.data_ptr() % 16 == 8
+    assert qconv_variant(x, w) == want
+    assert qconv_takes_nhwc(c) == (case != "conv_in_c4")
+
+
+@pytest.mark.parametrize("case", QCONV_CASES)
+def test_qconv_channels_last_operands_give_the_same_bits(case):
+    """qconv on channels-last operands (the layout of the wgmma variant) is
+    the same function: on CPU tensors the twin gives the same bits as on the
+    NCHW / OIHW ones."""
+    x, w, bias, kw = _qconv_case(case, seed=5)
+    xt, wt, bt = torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(bias)
+    for out in (dict(out_dtype=torch.float32), dict(out_scale=0.7, out_zero=110)):
+        want = qconv(xt, wt, SA, ZA, SW, ZW, bias=bt, **out, **kw)
+        got = qconv(xt.contiguous(memory_format=torch.channels_last), WEIGHT_TRANSFORMS["ohwi"](wt), SA, ZA, SW, ZW,
+                    bias=bt, **out, **kw)
+        assert torch.equal(got, want)
+
+
+# the TINY decoder's layout with 64 / 128 channels
+VAE_W64 = dict(base=64, mult=(1, 2), blocks=1, norm_groups=4, sample=8)
+
+
+def test_w8a8_vae_session_on_the_channels_last_route_matches_jax():
+    """A calibrated W8A8 VAE decoder whose convs upload channels-last
+    ("ohwi") and quantize their input so: the same output as the JAX W8A8
+    session to one image level, every conv with C % 16 == 0 tagged (conv_out
+    too), conv_in (C = 4) in the file layout."""
+    g = build_vae_decoder(VaeConfig(**VAE_W64), seed=3)
+    jg = jax_build_vae_decoder(JaxVaeConfig(**VAE_W64), seed=3)
+    assert g.to_text() == jg.to_text()
+    z = np.random.RandomState(12).randn(1, 4, 8, 8).astype(np.float32)
+    jcal = JaxSession(JaxConfig(fuse_ops_in_attention=True, range_data_calibrate=True),
+                      weights_provider=JaxDict(dict(jg.weights)))
+    jcal.read_string(jg.to_text())
+    jcal.add_tensor("latent", z)
+    jcal.run(eager=True)
+    ranges = dict(jcal._executor().range_data.data)
+    text, weights = jax_quantize_graph_weights(jg.to_text(), jg.weights)
+    ps = Session(SessionConfig(device=CPU, fuse_ops_in_attention=True, use_uint8_arithmetic=True, range_data=ranges),
+                 weights_provider=DictWeightsProvider(params_from_numpy(weights)))
+    js = JaxSession(JaxConfig(fuse_ops_in_attention=True, use_uint8_arithmetic=True, range_data=ranges),
+                    weights_provider=JaxDict(dict(weights)))
+    outs = []
+    for sess in (ps, js):
+        sess.read_string(text)
+        sess.add_tensor("latent", z)
+        outs.append(np.asarray(next(iter(sess.run().values())), np.float32))
+    levels = lambda y: np.clip(np.round((y / 2 + 0.5) * 255), 0, 255).astype(int)
+    assert np.abs(levels(outs[0]) - levels(outs[1])).max() <= 1
+    ex = ps._executor()
+    convs = {op.inputs[1].name: op for op in ps.graph.ops
+             if op.op_type == "Conv" and ex.quant_routes.get(op.name) == "qconv"}
+    args = {w.name: w for w in ex.plan.arg_weights}
+    tagged = {n for n in convs if args[n].transform == "ohwi"}
+    assert tagged == {n for n, op in convs.items() if qconv_takes_nhwc(op.inputs[1].shape[1])}
+    assert len(tagged) >= 5 and len(tagged) < len(convs)
+    assert all(args[n].shape == convs[n].inputs[1].shape for n in tagged)

@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from onnxstream_tpu_torch.kernels.qconv import qconv, qconv_reference
+from onnxstream_tpu_torch.kernels.qconv import qconv, qconv_reference, qconv_variant
 from onnxstream_tpu_torch.kernels.qmatmul import qgemm_variant, qmatmul, qmatmul_reference
 
 SA, ZA, SW, ZW = 0.03, 120, 0.02, 128
@@ -105,3 +105,42 @@ def test_qconv_kernel_matches_twin_on_card(case):
         torch.cuda.synchronize()
         want = qconv_reference(*args, bias=torch.from_numpy(bias).to(dev), out_dtype=dt, **kw)
         torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+# kernel 4's wgmma variant: channels-last input and weight (the executor's
+# layout for convs with C % 16 == 0); padded borders (a
+# window's taps in the padding read za), 1 x 1, stride 2, dilation, ragged
+# output channels (off the 128-row tile), pixel counts off the 128-pixel tile
+# (the element-wise NCHW store) and on it (16-byte pieces), several k-tiles
+QCONV_WGMMA_CASES = [
+    dict(x=(1, 512, 16, 16), w=(512, 512, 3, 3), strides=(1, 1), pads=(1, 1, 1, 1), dil=(1, 1)),
+    dict(x=(2, 32, 9, 11), w=(64, 32, 3, 3), strides=(2, 2), pads=(0, 1, 2, 1), dil=(1, 1)),
+    dict(x=(1, 48, 10, 13), w=(128, 48, 1, 1), strides=(1, 1), pads=(0, 0, 0, 0), dil=(1, 1)),
+    dict(x=(1, 16, 14, 14), w=(64, 16, 3, 3), strides=(1, 1), pads=(2, 2, 2, 2), dil=(2, 2)),
+    dict(x=(1, 128, 16, 16), w=(192, 128, 3, 3), strides=(1, 1), pads=(1, 1, 1, 1), dil=(1, 1)),
+    dict(x=(1, 256, 32, 32), w=(128, 256, 1, 1), strides=(1, 1), pads=(0, 0, 0, 0), dil=(1, 1)),
+    dict(x=(1, 128, 7, 9), w=(64, 128, 3, 3), strides=(2, 1), pads=(1, 0, 0, 1), dil=(1, 1)),
+    dict(x=(1, 128, 20, 20), w=(3, 128, 3, 3), strides=(1, 1), pads=(1, 1, 1, 1), dil=(1, 1)),  # conv_out's O = 3
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", QCONV_WGMMA_CASES)
+@pytest.mark.parametrize("out", ["float32", "bfloat16", "uint8"])
+def test_qconv_wgmma_variant_matches_twin_on_card(case, out):
+    """Bit for bit with the float64 twin and with qgemm_kernel on the NCHW
+    copies of the same operands; a second call gives the same bits."""
+    dev = _card()
+    x, w, bias, kw = _qconv_case(case, seed=6)
+    x = torch.from_numpy(x).to(dev).contiguous(memory_format=torch.channels_last)
+    w = torch.from_numpy(w).to(dev).contiguous(memory_format=torch.channels_last)
+    kw.update(bias=torch.from_numpy(bias).to(dev),
+              **(dict(out_scale=40.0, out_zero=100) if out == "uint8" else dict(out_dtype=getattr(torch, out))))
+    assert qconv_variant(x, w) == "wgmma" and qconv_variant(x.contiguous(), w.contiguous()) == "mma"
+    got = qconv(x, w, SA, ZA, SW, ZW, **kw)
+    again = qconv(x, w, SA, ZA, SW, ZW, **kw)
+    mma = qconv(x.contiguous(), w.contiguous(), SA, ZA, SW, ZW, **kw)
+    torch.cuda.synchronize()
+    want = qconv_reference(x, w, SA, ZA, SW, ZW, **kw)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert torch.equal(got, again) and torch.equal(got, mma)
