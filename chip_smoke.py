@@ -14,9 +14,12 @@ Phases (any failure exits non-zero and prints no result line):
        - flash_attention_packed at the two SD1.5 UNet site shapes and the
          VAE mid-block site (1 head, d = 512, 4096 tokens), which must take a
          wgmma variant, and at ragged / GQA / causal / d = 512 edge cases,
-         each with its variant printed, a second call's bits, and the sites'
-         times beside the variants they replaced, SDPA and a bound that
-         counts the exponentials; flash_attention at the three TinyLlama prefill
+         each with its variant printed and a second call's bits; 16-bit
+         outputs are held both elementwise (rtol = atol = 2e-2) and by the
+         relative L2 distance ||out - twin|| / ||twin|| <= FLASH_REL_L2, since
+         the outputs' own size is near 2e-2; the UNet sites' times beside
+         fa_mma_kernel's (held against the twin too), SDPA and a bound that
+         counts the exponentials on the MUFU; flash_attention at the three TinyLlama prefill
          sites (1024 x 1024, 128 x 1024, 512 x 512) and at every mask group,
          k_transposed, GQA (Hkv < H on the wgmma variant too), causal M > N
          (exactly 0) and D = 128 / 256, each case's variant printed, the
@@ -45,7 +48,7 @@ Phases (any failure exits non-zero and prints no result line):
      bf16 through the port's Session answers three requests; each must be
      finite, (1, 4, 64, 64), and launch the packed kernel exactly 10 times,
      every launch on a wgmma variant, the first held against the twin on the
-     graph's operands;
+     graph's operands (elementwise and by FLASH_REL_L2);
      the first request is rerun with the flash kernel off and must agree; the
      TINY UNet in fp32 on the card must agree with the same graph run on the
      CPU;
@@ -161,6 +164,10 @@ VAE_SITE = (4096, 512)  # (tokens, head dim) of the SD VAE mid-block attention a
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 EX2_PER_CLOCK_PER_SM = 16  # exp2 on Hopper's special-function units: 4 a clock per SM sub-partition
+# 16-bit flash outputs: ||out - twin||2 / ||twin||2 at most this. With randn
+# operands an output's rms is about sqrt(e / keys) (0.026 at 4096 keys), so
+# rtol = atol = 2e-2 alone passes a key tile dropped or counted twice.
+FLASH_REL_L2 = 1e-2
 
 
 def card() -> str:
@@ -262,12 +269,31 @@ def ex2_rate() -> float:
 def bound(nbytes: float, ops: float, peak: str, exps: float = 0) -> dict:
     """The least time the card could take for the work: the bytes it must
     move over the memory rate, its operations over the peak rate of their
-    type, or (attention) its `exps` exponentials over the card's exp2 rate,
-    whichever is largest."""
-    t = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3, "operations": ops / PEAK_OPS_PER_S[peak] * 1e3,
-         "exp": exps / ex2_rate() * 1e3 if exps else 0.0}
-    by = max(t, key=t.get)
-    return {"bound_ms": t[by], "bound_by": by}
+    type, or (attention) its `exps` exponentials over the MUFU's exp2 rate,
+    whichever is largest. `bound_by` says bytes or operations, `bound_op`
+    which rate: "HBM", the peak's type, or "MUFU exp2". The last is a floor
+    for exp2 on the special-function units only: exp2 computed on the FMA
+    pipes (range reduction and a polynomial) is not counted, so it is not a
+    hard floor for a kernel that does that."""
+    t = {"HBM": nbytes / HBM_BYTES_PER_S * 1e3, peak: ops / PEAK_OPS_PER_S[peak] * 1e3,
+         "MUFU exp2": exps / ex2_rate() * 1e3 if exps else 0.0}
+    op = max(t, key=t.get)
+    return {"bound_ms": t[op], "bound_by": "bytes" if op == "HBM" else "operations", "bound_op": op}
+
+
+def _rel_l2(out, ref) -> float:
+    """||out - ref||2 / ||ref||2 in float32."""
+    r = ref.float()
+    return ((out.float() - r).norm() / r.norm().clamp_min(1e-30)).item()
+
+
+def _flash_agrees(out, ref, tol: float):
+    """(ok, max|diff|, relative L2) of a flash output against its twin:
+    elementwise within rtol = atol = tol, and for 16-bit outputs also the
+    relative L2 distance within FLASH_REL_L2."""
+    err, rel = (out.float() - ref.float()).abs().max().item(), _rel_l2(out, ref)
+    ok = torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol)
+    return ok and (out.dtype == torch.float32 or rel <= FLASH_REL_L2), err, rel
 
 
 def _nbytes(*tensors) -> int:
@@ -302,7 +328,7 @@ def phase_build():
     for src, path in paths.items():
         print(f"  {src}.cu ({KERNEL_SOURCES[src]}) -> {path}")
         print("\n".join(l for l in (path.parent / "build.log").read_text().splitlines()
-                        if "registers" in l or "spill" in l or "C7515" in l))
+                        if "registers" in l or "spill" in l or "C751" in l))
 
 
 def _sdpa_packed(q, k, v, heads):
@@ -325,16 +351,16 @@ def _packed_variant(q, k, v, heads, **kw) -> str:
 
 
 def _packed_earlier(q, k, v, heads, scale=None, causal=False):
-    """The same flash_attention_packed call on the variant it took before the
-    wgmma ones (fa_mma_kernel, fa_mma_wide_kernel), into an output allocated
-    here, outside the timed call."""
+    """The same flash_attention_packed call (head dims up to 128) on
+    fa_mma_kernel, the variant it took before the wgmma one: (the launch,
+    its output, allocated here outside the timed call)."""
     from onnxstream_tpu_torch.kernels import flash_attention as fa
 
     d, _, dv = fa._check_packed(q, k, v, heads)
     dims, strides = fa._packed_launch(q, k, v, heads, d, dv)
     out = torch.empty((q.shape[0], q.shape[1], heads * dv), dtype=q.dtype, device=q.device)
     sc = 1.0 / float(np.sqrt(d)) if scale is None else scale
-    return lambda: fa._launch(q, k, v, out, None, dims, strides, sc, causal, wgmma=False)
+    return lambda: fa._launch(q, k, v, out, None, dims, strides, sc, causal, wgmma=False), out
 
 
 def phase_kernel(name: str) -> dict:
@@ -358,7 +384,7 @@ def phase_kernel(name: str) -> dict:
         ("d512_ragged", 2, 77, 300, 1, 1, 512, False),
         ("d512_causal_m_gt_n", 1, 100, 40, 2, 1, 512, True),
     ]
-    worst_bf16 = 0.0
+    worst_bf16, bad = 0.0, []
     for label, b, m, n, h, hkv, d, causal in cases:
         q32 = torch.randn(b, m, h * d, device="cuda", generator=gen)
         k32 = torch.randn(b, n, hkv * d, device="cuda", generator=gen)
@@ -370,13 +396,16 @@ def phase_kernel(name: str) -> dict:
             again = flash_attention_packed(q, k, v, h, causal=causal)
             torch.cuda.synchronize()
             ref = flash_attention_packed_reference(q, k, v, h, causal=causal)
-            err = (out.float() - ref.float()).abs().max().item()
-            ok = torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol)
+            ok, err, rel = _flash_agrees(out, ref, tol)
+            elementwise = torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol)
             same = torch.equal(out, again)
-            print(f"kernel vs twin {label} {str(dt)[6:]} ({variant}): max|diff| {err:.3e} (rtol=atol={tol}), "
-                  f"second call bit-equal: {same} {'ok' if ok and same else 'FAIL'}")
+            print(f"kernel vs twin {label} {str(dt)[6:]} ({variant}): max|diff| {err:.3e} (rtol=atol={tol}: "
+                  f"{'ok' if elementwise else 'FAIL'}), relative L2 {rel:.3e}"
+                  + ("" if dt == torch.float32 else f" (limit {FLASH_REL_L2:g})")
+                  + f", max|twin| {ref.float().abs().max().item():.4f}, second call bit-equal: {same} "
+                  f"{'ok' if ok and same else 'FAIL'}")
             if not ok or not same:
-                raise SystemExit(f"flash kernel disagrees with its twin, or with itself, on {label} {dt}")
+                bad.append(f"{label} {str(dt)[6:]}")
             if label.startswith(("sd15", "vae")) and dt == torch.bfloat16:
                 worst_bf16 = max(worst_bf16, err)
                 if not variant.startswith("wgmma"):
@@ -385,17 +414,27 @@ def phase_kernel(name: str) -> dict:
                 zero_rows = out[:, : m - n]
                 if zero_rows.abs().max().item() != 0.0:
                     raise SystemExit(f"{label}: rows with no valid key are not exactly 0")
+    if bad:  # every case printed first
+        raise SystemExit(f"flash kernel disagrees with its twin, or with itself, on {', '.join(bad)}")
 
-    def timed(q, k, v, h):
-        """(kernel, earlier variant, twin, SDPA) device ms of one call."""
-        return (device_ms(lambda: flash_attention_packed(q, k, v, h)), device_ms(_packed_earlier(q, k, v, h)),
+    def timed(q, k, v, h, label):
+        """(kernel, earlier variant, twin, SDPA) device ms of one call; the
+        earlier variant's output is held against the twin first."""
+        earlier, out = _packed_earlier(q, k, v, h)
+        earlier()
+        ok, err, rel = _flash_agrees(out, flash_attention_packed_reference(q, k, v, h), 2e-2)
+        print(f"fa_mma_kernel vs twin {label} bf16: max|diff| {err:.3e}, relative L2 {rel:.3e} "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"{label}: fa_mma_kernel disagrees with the twin")
+        return (device_ms(lambda: flash_attention_packed(q, k, v, h)), device_ms(earlier),
                 device_ms(lambda: flash_attention_packed_reference(q, k, v, h)),
                 device_ms(lambda: _sdpa_packed(q, k, v, h)))
 
     times, nbytes, ops, exps, by_shape = {}, 0, 0, 0, {}
     for m, d in SD15_SITES:
         q, k, v = (torch.randn(1, m, 8 * d, device="cuda", generator=gen, dtype=torch.bfloat16) for _ in range(3))
-        times[f"{m}x{d}"] = t = timed(q, k, v, 8)
+        times[f"{m}x{d}"] = t = timed(q, k, v, 8, f"sd15 {m}x{d}")
         # per UNet run: 5 sites of each shape; q, k, v read and o written
         # once, QK^T and PV at 2 operations per multiply-add, one exp2 a score
         site = bound(4 * _nbytes(q), 4 * m * m * 8 * d, "bf16", exps=8 * m * m)
@@ -404,21 +443,22 @@ def phase_kernel(name: str) -> dict:
                                 "variant": _packed_variant(q, k, v, 8), **site}
         print(f"time bf16 (1, {m}, {8 * d}) h8 d{d}: kernel {t[0]:.4f} ms ({_packed_variant(q, k, v, 8)}; the "
               f"earlier variant {t[1]:.4f} ms), twin {t[2]:.4f} ms, scaled_dot_product_attention {t[3]:.4f} ms, "
-              f"bound {site['bound_ms']:.4f} ms ({site['bound_by']})  [{name}]")
+              f"bound {site['bound_ms']:.4f} ms ({site['bound_op']})  [{name}]")
     per_run = [sum(5 * t[i] for t in times.values()) for i in range(4)]
     run_bound = bound(nbytes, ops, "bf16", exps=exps)
     print(f"one UNet run's 10 sites: kernel {per_run[0]:.4f} ms, earlier variant {per_run[1]:.4f} ms, "
           f"scaled_dot_product_attention {per_run[3]:.4f} ms, bound {run_bound['bound_ms']:.4f} ms "
-          f"({run_bound['bound_by']})  [{name}]")
+          f"({run_bound['bound_op']})  [{name}]")
     # the VAE mid-block site: one launch per full decode, d = 512
     m, d = VAE_SITE
     q, k, v = (torch.randn(1, m, d, device="cuda", generator=gen, dtype=torch.bfloat16) for _ in range(3))
-    vae = timed(q, k, v, 1)
+    vae = (device_ms(lambda: flash_attention_packed(q, k, v, 1)),
+           device_ms(lambda: flash_attention_packed_reference(q, k, v, 1)), device_ms(lambda: _sdpa_packed(q, k, v, 1)))
     site = bound(4 * _nbytes(q), 4 * m * m * d, "bf16", exps=m * m)
-    print(f"time bf16 (1, {m}, {d}) h1 d{d} (VAE mid-block): kernel {vae[0]:.4f} ms ({_packed_variant(q, k, v, 1)}; "
-          f"the earlier variant {vae[1]:.4f} ms), twin {vae[2]:.4f} ms, scaled_dot_product_attention {vae[3]:.4f} ms, "
-          f"bound {site['bound_ms']:.4f} ms ({site['bound_by']})  [{name}]")
-    by_shape[f"{m}x{d}_h1"] = {"ms": vae[0], "earlier_variant_ms": vae[1], "plain_ms": vae[2], "library_ms": vae[3],
+    print(f"time bf16 (1, {m}, {d}) h1 d{d} (VAE mid-block): kernel {vae[0]:.4f} ms ({_packed_variant(q, k, v, 1)}), "
+          f"twin {vae[1]:.4f} ms, scaled_dot_product_attention {vae[2]:.4f} ms, "
+          f"bound {site['bound_ms']:.4f} ms ({site['bound_op']})  [{name}]")
+    by_shape[f"{m}x{d}_h1"] = {"ms": vae[0], "plain_ms": vae[1], "library_ms": vae[2],
                                "variant": _packed_variant(q, k, v, 1), **site}
     return {"max_abs_err": worst_bf16, "ms": per_run[0], "earlier_variant_ms": per_run[1], "plain_ms": per_run[2],
             **run_bound, "library_ms": per_run[3], "ms_by_shape": by_shape}
@@ -539,7 +579,10 @@ def phase_slice(name: str) -> dict:
         times.append((time.perf_counter() - t1) * 1e3)
     print(f"SD15 UNet step bf16, warm: median {np.median(times):.2f} ms over 5 runs "
           f"(min {min(times):.2f}) [{name}]")
-    print(f"peak device memory {stats['peak_bytes_in_use'] / 2**20:.1f} MB, weights "
+    # the armed checks reset the allocator's peak after each twin: the peak
+    # before them is flash.peak
+    peak = max(flash.peak, stats["peak_bytes_in_use"])
+    print(f"peak device memory {peak / 2**20:.1f} MB (plan, upload and requests), weights "
           f"{stats['weight_bytes'] / 2**20:.1f} MB [{name}]")
     profile_steps(s.run, name, "SD15 step")
     if len(results) != 3 or np.allclose(results[0], results[1]):
@@ -696,7 +739,7 @@ def phase_kernel_head_major(name: str) -> dict:
     b = bound(_nbytes(q, k, v, q, mask), 4 * 32 * L * L * D, "bf16", exps=32 * L * L)
     print(f"time bf16 (1, 32, {L}, {D}) with a (1, 1, {L}, {L}) bf16 mask: kernel {t_k:.4f} ms "
           f"({flash_variant(q, k, v, mask)}; the mma variant {t_e:.4f} ms), twin {t_p:.4f} ms, "
-          f"scaled_dot_product_attention {t_l:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']})  [{name}]")
+          f"scaled_dot_product_attention {t_l:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_op']})  [{name}]")
     return {"max_abs_err": site_err, "ms": t_k, "earlier_variant_ms": t_e, "plain_ms": t_p, **b, "library_ms": t_l}
 
 
@@ -797,7 +840,7 @@ def phase_kernel_q(name: str) -> None:
             print(f"time w8a8_dyn_matmul bf16 ({m}, {k}) x ({k}, {n}): kernel {t_k:.4f} ms, twin {t_p:.4f} ms, "
                   f"torch._int_mm " + (f"{t_l:.4f} ms" if t_l is not None else "none at this shape")
                   + f", bf16 matmul on a bf16 weight {t_b:.4f} ms, bound {b['bound_ms']:.4f} ms "
-                  f"({b['bound_by']})  [{name}]")
+                  f"({b['bound_op']})  [{name}]")
 
 
 class _GraphSiteCheck:
@@ -807,10 +850,12 @@ class _GraphSiteCheck:
     kernel's launch count is the wrapper's own; the twin launches nothing.
     The twin's scratch is kept out of the device memory peak: ``peak`` is
     the peak before each check, and the allocator's peak is reset after it.
-    While ``calls`` is a list, every call's operands are appended to it."""
+    While ``calls`` is a list, every call's operands are appended to it.
+    ``rel``, where given, also bounds a 16-bit output's relative L2 distance
+    from the twin."""
 
-    def __init__(self, kernel, twin, tol: float, describe):
-        self.kernel, self.twin, self.tol, self.describe = kernel, twin, tol, describe
+    def __init__(self, kernel, twin, tol: float, describe, rel=None):
+        self.kernel, self.twin, self.tol, self.describe, self.rel = kernel, twin, tol, describe, rel
         self.armed, self.result, self.peak, self.worst = False, None, 0, 0.0
         self.calls = None
 
@@ -827,8 +872,12 @@ class _GraphSiteCheck:
             ref = self.twin(*args, **kw)
             err = (out.float() - ref.float()).abs().max().item()
             ok = torch.allclose(out.float(), ref.float(), rtol=self.tol, atol=self.tol)
-            self.result = (ok, err, f"max|twin| {ref.float().abs().max().item():.4f}; "
-                           + self.describe(*args, **kw))
+            about = f"max|twin| {ref.float().abs().max().item():.4f}; "
+            if self.rel is not None:
+                rel = _rel_l2(out, ref)
+                ok = ok and (out.dtype == torch.float32 or rel <= self.rel)
+                about = f"relative L2 {rel:.3e} (limit {self.rel:g}), " + about
+            self.result = (ok, err, about + self.describe(*args, **kw))
             self.worst = max(self.worst, err)
             del ref
             torch.cuda.reset_peak_memory_stats()
@@ -887,7 +936,7 @@ def replay_times(label: str, calls, kernel, twin, library, peak: str, name: str,
     b = bound(nbytes, ops, peak, exps)
     print(f"replay of {label}: {len(calls)} calls, kernel {t_k:.4f} ms, twin {t_p:.4f} ms, library "
           + (f"{t_l:.4f} ms" if t_l is not None else f"none ({sum(map(bool, libs))} of {len(calls)} calls have one)")
-          + f", bound {b['bound_ms']:.4f} ms ({b['bound_by']}; {nbytes / 1e9:.4f} GB, {ops / 1e9:.2f} G ops) [{name}]")
+          + f", bound {b['bound_ms']:.4f} ms ({b['bound_op']}; {nbytes / 1e9:.4f} GB, {ops / 1e9:.2f} G ops) [{name}]")
     return {"ms": t_k, "plain_ms": t_p, "library_ms": t_l, **b}
 
 
@@ -929,7 +978,7 @@ def site_report(label: str, calls, kernel, twin, library, cost, plan_of, tol: fl
               f"max|twin| {top:.3f} ({'rtol=atol' if close else 'tol'} {tol:g}) {'ok' if ok else 'FAIL'}, second call "
               f"bit-equal: {same}; kernel {t_k:.4f} ms"
               + (f" (earlier variant {t_e:.4f} ms)" if t_e is not None else "")
-              + f", twin {t_p:.4f} ms, library {t_l:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}) [{name}]")
+              + f", twin {t_p:.4f} ms, library {t_l:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_op']}) [{name}]")
         if not ok or not same:
             raise SystemExit(f"{label} at {key}: the kernel disagrees with its twin, or with itself on a second call")
         out[key] = {"calls": len(group), "ms": t_k, "plain_ms": t_p, "library_ms": t_l, "variant": plan_of(*args, **kw),
@@ -1023,7 +1072,7 @@ def _site_times(label, name, kernel, twin, library, cost, peak="bf16"):
     t_k, t_p, t_l = device_ms_per_call(kernel), device_ms(twin, iters=3, warmup=1), device_ms_per_call(library)
     b = bound(*cost, peak)
     print(f"time bf16 {label}: kernel {t_k:.4f} ms, twin {t_p:.4f} ms, library {t_l:.4f} ms, "
-          f"bound {b['bound_ms']:.4f} ms ({b['bound_by']})  [{name}]")
+          f"bound {b['bound_ms']:.4f} ms ({b['bound_op']})  [{name}]")
     return {"ms": t_k, "plain_ms": t_p, "library_ms": t_l, **b}
 
 
@@ -1686,7 +1735,8 @@ class _FlashSites(_GraphSiteCheck):
 
     def __init__(self, kernel, twin, tol):
         super().__init__(kernel, twin, tol,
-                         lambda q, k, v, heads, **kw: f"q {tuple(q.shape)} heads {heads}, {_packed_variant(q, k, v, heads)}")
+                         lambda q, k, v, heads, **kw: f"q {tuple(q.shape)} heads {heads}, {_packed_variant(q, k, v, heads)}",
+                         rel=FLASH_REL_L2)
         self.head_dims, self.variants = [], []
 
     def __call__(self, q, k, v, heads, **kw):

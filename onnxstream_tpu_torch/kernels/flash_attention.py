@@ -199,24 +199,21 @@ def _mask_staged(mask_ptr: int, mask_dtype: torch.dtype, mask_strides, n: int) -
 
 
 def _variant(dtype: torch.dtype, d: int, dv: int, ptrs, strides, mask_ptr: Optional[int],
-             mask_dtype: Optional[torch.dtype], n: int, wgmma: bool = True) -> str:
+             mask_dtype: Optional[torch.dtype], n: int) -> str:
     """The kernel of ``csrc/flash_attention.cu`` that a launch takes, as its
     dispatcher (``dispatch_all``) decides from the dtype, head dims, mask,
-    strides and pointers; ``wgmma=False`` leaves the wgmma variants out, as
-    the C entry's argument of that name does."""
+    strides and pointers."""
     k_by_rows = strides[6] == 1
     aligned = _rows_aligned16(ptrs, strides, k_by_rows)
     kd = max(d, dv)
     if dtype != torch.float32 and aligned:
-        if wgmma and k_by_rows and kd <= 128 and (mask_ptr is None or _mask_staged(
+        if k_by_rows and kd <= 128 and (mask_ptr is None or _mask_staged(
                 mask_ptr, mask_dtype, strides[13:], n)):
             return "wgmma"
-        if wgmma and k_by_rows and mask_ptr is None and 256 < kd <= 512:
+        if k_by_rows and mask_ptr is None and 256 < kd <= 512:
             return "wgmma_wide"
         if kd <= 128:
             return "mma"
-        if mask_ptr is None and 256 < kd <= 512:
-            return "mma_wide"
     return "fma"
 
 
@@ -341,9 +338,8 @@ def flash_variant(q, k, v, mask=None, k_transposed: bool = False, form: str = "h
         no mask;
       * ``"mma"``: bf16 / fp16, head dims up to 128, aligned rows (a K given
         transposed, a mask whose rows are not 16-byte granular);
-      * ``"mma_wide"``: bf16 / fp16 head dims 257..512 without a mask, K
-        given transposed;
-      * ``"fma"``: everything else (float32, misaligned rows)."""
+      * ``"fma"``: everything else (float32, misaligned rows, a K given
+        transposed at head dims 257..512)."""
     if form not in ("head_major", "packed"):
         raise ValueError(f"flash_variant: form is 'head_major' or 'packed', not {form!r}")
     if form == "packed" and (mask is not None or k_transposed):
