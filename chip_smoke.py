@@ -6,9 +6,10 @@ Phases (any failure exits non-zero and prints no result line):
   1. device: require CUDA; print the card, its power limit, the CUDA and nvcc
      versions and the precision flags in effect;
   2. build: compile every kernel source of the checkout (flash_attention.cu,
-     qmatmul.cu, qlinear.cu, gn_conv.cu, matmul.cu; the last two of the list's
-     wgmma pipelines share gemm_sm90.cuh), one nvcc each, all started
-     together;
+     qmatmul.cu, qlinear.cu, gn_conv.cu, matmul.cu; their wgmma pipelines share
+     gemm_sm90.cuh), one nvcc each, all started together; a ptxas note C7514 /
+     C7515 (a serialized wgmma pipeline) naming kernel 6's or kernel 8's wgmma
+     kernel fails the run;
   3. kernel vs twin: every wrapper of a CUDA kernel against its plain PyTorch
      twin, fp32 (TF32 off) and bf16:
        - flash_attention_packed at the two SD1.5 UNet site shapes and the
@@ -25,7 +26,12 @@ Phases (any failure exits non-zero and prints no result line):
          (exactly 0) and D = 128 / 256, each case's variant printed, the
          site's time beside the mma variant's;
        - w8a8_dyn_matmul at every TinyLlama MatMul shape (M 1 / 128 / 512 /
-         1024) and w8_matmul at ragged shapes, per-tensor and per-channel;
+         1024) with the (K, N) weight, and with the K-major (N, K) weight the
+         int8 route uploads (M 1 / 16 / 17 / 128 / 512 / 1024: the GEMV and
+         the s8 wgmma pipeline, split along K or not) bit for bit with the
+         twin, a second call and the (K, N) weight, timed beside the (K, N)
+         weight's variant; w8_matmul at ragged shapes, per-tensor and
+         per-channel;
        - qmatmul and qconv (the calibrated W8A8 kernels) at ragged shapes,
          both weight layouts ((K, N) on the mma.sync kernel, (N, K) on the
          wgmma pipeline, a second call's bits), strides / dilations / pads,
@@ -36,7 +42,10 @@ Phases (any failure exits non-zero and prints no result line):
        - gn_silu, gn_silu_conv and matmul (with conv3x3_im2col) at the JAX
          suite's ragged cases (C/G = 5 and 10, H W = 35, 5 x 7 borders, no
          bias, O != C, batch 2) in float32 / bfloat16 / float16, and at the
-         sites of the GroupNorm and small-conv routes; matmul also at the
+         sites of the GroupNorm and small-conv routes; gn_silu_conv also at
+         C % 64 != 0, O = 3 / 4 and 512 x 512, every call twice for equal
+         bits, each bf16 case also on the mma.sync variant (a misaligned
+         weight) and the sites timed beside it; matmul also at the
          edges of its wgmma pipeline (a ragged last K split, M off the tile,
          K off the k-tile, one 8-column strip, a misaligned view that must
          take the masked kernel), every call twice for equal bits;
@@ -63,11 +72,14 @@ Phases (any failure exits non-zero and prints no result line):
      held against its twin on the graph's operands; the VAE_SD decoder
      decodes one 64 x 64 latent to 512 x 512 under fuse_groupnorm (30 gn_silu
      launches) and under config A, each image within one level on average of
-     the default decode; device busy and wall time of a UNet run (also under
+     the default decode (config A's float output also within 5e-2 *
+     max|out|); device busy and wall time of a UNet run (also under
      fuse_groupnorm alone) and a decode under every config, in turns; one
-     run's kernel calls replayed against the twins and the library calls,
-     and matmul at every shape of the run on the graph's operands: the
-     variant and plan taken, the twin, a second call's bits, the times;
+     run's kernel calls replayed against the twins and the library calls
+     (gn_silu_conv over a config-A UNet run's 45 and a config-A decode's 29
+     calls, also beside its mma.sync variant), and matmul and gn_silu_conv
+     at every shape of the run on the graph's operands: the variant and plan
+     taken, the twin, a second call's bits, the times;
   5. SD slice, uint8 weights: the same UNet through the port's
      quantize_graph_weights (per-tensor uint8[scale,zp], the converter's
      exclusions): TINY in fp32 on the card against the CPU, then SD1.5 in
@@ -122,14 +134,16 @@ Phases (any failure exits non-zero and prints no result line):
      requests with w8a8_dyn_matmul on all 155 weight MatMuls of every graph
      run and 22 flash_attention launches per request, the first
      w8a8_dyn_matmul launch of each held against the twin on the graph's
-     operands; int8 against bf16 last logits (nrms < 0.15 on TinyLlama cut
+     operands, bit for bit; int8 against bf16 last logits (nrms < 0.15 on TinyLlama cut
      to the 2 layers the bound was set on; printed at full depth, beside both
      against the float32 model); on-device decode
      equals the host loop; host syncs do not grow with the tokens; prefill,
      decode, device busy time, peak memory, device weight bytes and the host
      quantization time are printed; one prefill's and one decode step's calls
-     are replayed, the prefill's beside torch._int_mm over the calls it takes
-     and cuBLAS bf16 on bf16 copies of the weights.
+     are recorded: every call on a K-major form (s8 wgmma / GEMV), bit for
+     bit with the twin and with the (K, N) weight's variant; both replayed
+     beside that variant, the prefill's beside torch._int_mm over the calls
+     it takes, both beside cuBLAS bf16 on bf16 copies of the weights.
 
 Each path's launch counts are set to 0 just before it and read just after;
 launches made to compare a kernel with its twin come after the read. The
@@ -203,20 +217,39 @@ def device_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     # The first launches of a window can be missed while the tracer starts
     # (windows came back a few launches short, or empty): one warm-up step of
     # the profiler's schedule is traced and dropped. An empty window is taken
-    # again; five empty ones fail the run, since no other clock here gives
-    # device time
+    # again, twice as long; after five empty ones the call is timed with CUDA
+    # events (which count the host's gaps between launches too) and the
+    # output says so
+    n = iters
     for _ in range(5):
-        sched = torch.profiler.schedule(wait=0, warmup=1, active=iters, repeat=1)
+        sched = torch.profiler.schedule(wait=0, warmup=1, active=n, repeat=1)
         with profile(activities=[ProfilerActivity.CUDA], schedule=sched) as prof:
-            for _ in range(iters + 1):
+            for _ in range(n + 1):
                 fn()
                 torch.cuda.synchronize()
                 prof.step()
-        ms = sum(r[0] for r in _device_rows(prof, iters))
+        ms = sum(r[0] for r in _device_rows(prof, n))
         if ms > 0:
             return ms
         print("device_ms: the profiler window holds no device events; profiling again")
-    raise SystemExit("device_ms: five profiler windows held no device events")
+        n *= 2
+    return _event_ms(fn, iters, "device_ms")
+
+
+def _event_ms(fn, iters: int, who: str) -> float:
+    """ms of one call of fn between CUDA events, each call ended by a
+    synchronize: the fallback where profiler windows keep coming back empty."""
+    total = 0.0
+    for _ in range(iters):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    print(f"{who}: five profiler windows held no device events; this call is timed with CUDA events "
+          f"({total / iters:.4f} ms, host gaps included)")
+    return total / iters
 
 
 def device_ms_per_call(fn, iters: int = 10, windows: int = 3) -> float:
@@ -246,7 +279,7 @@ def device_ms_per_call(fn, iters: int = 10, windows: int = 3) -> float:
             times.append(ms)
         if len(times) == windows:
             return float(np.median(times))
-    raise SystemExit("device_ms_per_call: the profiler windows held no device events")
+    return _event_ms(fn, iters, "device_ms_per_call")
 
 
 _EX2_RATE = []
@@ -318,6 +351,10 @@ def phase_device() -> str:
     return name
 
 
+# wgmma kernels whose pipeline ptxas must not serialize (notes C7514 / C7515 naming them fail the build phase)
+SERIAL_FREE = ("gn_conv_wgmma_kernel", "dyn_wgmma_kernel")
+
+
 def phase_build():
     from onnxstream_tpu_torch.kernels import build
 
@@ -325,10 +362,15 @@ def phase_build():
     with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
         paths = dict(zip(KERNEL_SOURCES, pool.map(build.build, KERNEL_SOURCES)))
     print(f"build: {len(paths)} sources in parallel in {time.perf_counter() - t0:.1f} s")
+    serialized = []
     for src, path in paths.items():
         print(f"  {src}.cu ({KERNEL_SOURCES[src]}) -> {path}")
-        print("\n".join(l for l in (path.parent / "build.log").read_text().splitlines()
-                        if "registers" in l or "spill" in l or "C751" in l))
+        lines = (path.parent / "build.log").read_text().splitlines()
+        print("\n".join(l for l in lines if "registers" in l or "spill" in l or "C751" in l))
+        serialized += [l for l in lines if ("C7514" in l or "C7515" in l) and any(k in l for k in SERIAL_FREE)]
+    print(f"ptxas C7514 / C7515 notes naming {', '.join(SERIAL_FREE)}: {len(serialized)}")
+    if serialized:
+        raise SystemExit("build: ptxas serialized the wgmma pipeline of " + "; ".join(serialized))
 
 
 def _sdpa_packed(q, k, v, heads):
@@ -810,9 +852,39 @@ def _int_mm_or_none(aq: torch.Tensor, w: torch.Tensor):
     return lambda: torch._int_mm(aq, w)
 
 
-def phase_kernel_q(name: str) -> None:
+def check_dyn_kmajor(shapes) -> None:
+    """w8a8_dyn_matmul on the K-major (N, K) weight (the GEMV up to M = 16,
+    the s8 wgmma pipeline above, split along K where its plan says) against
+    the twin and against the (K, N) weight's variants, bit for bit, f32 and
+    bf16 activations, per-tensor and per-channel scales; a second call the
+    same bits."""
+    from onnxstream_tpu_torch.kernels.qmatmul import dyn_plan, dyn_variant, w8a8_dyn_matmul, w8a8_dyn_matmul_reference
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    for m, k, n in shapes:
+        for dt in (torch.float32, torch.bfloat16):
+            for per_channel in (False, True):
+                a, w, ws = _dyn_case(gen, m, k, n, dt, per_channel)
+                w_nk = w.t().contiguous()
+                got = w8a8_dyn_matmul(a, w_nk, ws, weight_nk=True)
+                again = w8a8_dyn_matmul(a, w_nk, ws, weight_nk=True)
+                kn = w8a8_dyn_matmul(a, w, ws)
+                torch.cuda.synchronize()
+                ref = w8a8_dyn_matmul_reference(a, w_nk, ws, weight_nk=True)
+                ok = torch.equal(got, ref) and torch.equal(got, again) and torch.equal(got, kn)
+                variant = dyn_variant(m, k, n, True, w_nk.data_ptr())
+                plan = f", {dyn_plan(m, k, n)[2]} K splits" if variant == "wgmma" else ""
+                print(f"w8a8_dyn_matmul (N, K) weight vs twin ({m}, {k}) x ({n}, {k}) {str(dt)[6:]} "
+                      f"{'per-channel' if per_channel else 'per-tensor'} [{variant}{plan}]: max|diff| "
+                      f"{(got.float() - ref.float()).abs().max().item():.3e}, bit for bit with the twin, a second "
+                      f"call and the (K, N) weight: {'ok' if ok else 'FAIL'}")
+                if not ok or variant not in ("gemv_nk", "wgmma"):
+                    raise SystemExit(f"w8a8_dyn_matmul (N, K) disagrees with its twin at ({m}, {k}, {n}) {dt}")
+
+
+def phase_kernel_q(name: str) -> dict:
     from onnxstream_tpu_torch.kernels.qmatmul import (
-        w8_matmul, w8_matmul_reference, w8a8_dyn_matmul, w8a8_dyn_matmul_reference)
+        dyn_variant, w8_matmul, w8_matmul_reference, w8a8_dyn_matmul, w8a8_dyn_matmul_reference)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dyn_shapes = [(m, k, n) for m in (1, 128, 512, 1024) for k, n in LLAMA_KN]
@@ -820,27 +892,48 @@ def phase_kernel_q(name: str) -> None:
     dyn_shapes += [(77, 2048, 32003), (5, 100, 300), (16, 2048, 256), (17, 100, 300), (33, 130, 33)]
     check_qkernel("w8a8_dyn_matmul", w8a8_dyn_matmul, w8a8_dyn_matmul_reference, _dyn_case,
                   dyn_shapes, 1e-5, 1e-2)
+    # the K-major weight of the int8 route: every TinyLlama shape at M 1 / 16 / 17 / 128 / 512 / 1024,
+    # and ragged ones (K a multiple of 16 off the 128-byte k-tile, odd N, M off the tile)
+    check_dyn_kmajor([(m, k, n) for m in (1, 16, 17, 128, 512, 1024) for k, n in LLAMA_KN]
+                     + [(77, 2048, 32003), (5, 176, 33), (16, 2064, 256), (17, 176, 300), (33, 2064, 33)])
     # the SD15 graph's own shapes are checked in its phase; here the ragged ones
     w8_shapes = [(100, 130, 33), (77, 768, 320), (1, 320, 1280), (64, 2048, 32003), (17, 100, 300)]
     check_qkernel("w8_matmul", w8_matmul, w8_matmul_reference, _w8_case, w8_shapes, 1e-4, 2e-2)
 
-    # times at the TinyLlama shapes, bf16 activations, per-channel scales as the route has them;
+    # times at the TinyLlama shapes, bf16 activations, per-channel scales as the route has them, the K-major
+    # weight beside the (K, N) one on the variant it replaced, in turns, each call with its quantization;
     # the weight stays in L2 between launches here (the path's replays below read it cold)
     gen = torch.Generator(device="cuda").manual_seed(3)
+    out = {}
     for m in (1, 1024):
         for k, n in LLAMA_KN:
             a, w, ws = _dyn_case(gen, m, k, n, torch.bfloat16, True)
-            t_k = device_ms(lambda: w8a8_dyn_matmul(a, w, ws))
+            w_nk = w.t().contiguous()
+            # two copies of A in turn: the wgmma form quantizes an A once for consecutive calls on it
+            acts, turn = (a, a.clone()), [0]
+
+            def new():
+                turn[0] ^= 1
+                return w8a8_dyn_matmul(acts[turn[0]], w_nk, ws, weight_nk=True)
+
+            old = lambda: w8a8_dyn_matmul(a, w, ws)
+            t_k1, t_e1, t_e2, t_k2 = (device_ms(f) for f in (new, old, old, new))
+            t_k, t_e = min(t_k1, t_k2), min(t_e1, t_e2)
             t_p = device_ms(lambda: w8a8_dyn_matmul_reference(a, w, ws), iters=3)
             lib = _int_mm_or_none(_quantize_rows(a), w)
             t_l = device_ms(lib) if lib else None
             wb = w.to(torch.bfloat16)
             t_b = device_ms(lambda: a @ wb)
             b = bound(_nbytes(a, w, ws) + m * n * 2, 2 * m * k * n, "int8")
-            print(f"time w8a8_dyn_matmul bf16 ({m}, {k}) x ({k}, {n}): kernel {t_k:.4f} ms, twin {t_p:.4f} ms, "
-                  f"torch._int_mm " + (f"{t_l:.4f} ms" if t_l is not None else "none at this shape")
+            variant = dyn_variant(m, k, n, True, w_nk.data_ptr())
+            print(f"time w8a8_dyn_matmul bf16 ({m}, {k}) x ({k}, {n}): kernel {t_k:.4f} ms ({variant}, the (K, N) "
+                  f"weight's variant {t_e:.4f} ms), twin {t_p:.4f} ms, torch._int_mm "
+                  + (f"{t_l:.4f} ms" if t_l is not None else "none at this shape")
                   + f", bf16 matmul on a bf16 weight {t_b:.4f} ms, bound {b['bound_ms']:.4f} ms "
                   f"({b['bound_op']})  [{name}]")
+            out[f"{m}x{k}x{n}"] = {"variant": variant, "ms": t_k, "earlier_variant_ms": t_e, "plain_ms": t_p,
+                                   "library_ms": t_l, "bf16_matmul_ms": t_b, **b}
+    return out
 
 
 class _GraphSiteCheck:
@@ -906,38 +999,47 @@ def _about_qmm(a, w, scale, *rest, **kw) -> str:
             + (f", zero point {'(N,) vector' if isinstance(rest[0], torch.Tensor) else rest[0]}" if rest else ""))
 
 
-def _qmm_cost(a, w, *scales, out_dtype=None):
+def _qmm_cost(a, w, *scales, out_dtype=None, weight_nk=False):
     """(bytes, operations) of one quantized matmul: A, W and the scale
     vectors read once, the output written once; 2 M K N operations."""
     m = a.numel() // a.shape[-1]
-    k, n = w.shape
+    n, k = w.shape if weight_nk else w.shape[::-1]
     out_elt = torch.empty(0, dtype=out_dtype or a.dtype).element_size()
     return _nbytes(a, w, *scales) + m * n * out_elt, 2 * m * k * n
 
 
-def replay_times(label: str, calls, kernel, twin, library, peak: str, name: str, cost=None) -> dict:
+def replay_times(label: str, calls, kernel, twin, library, peak: str, name: str, cost=None, earlier=None) -> dict:
     """The recorded calls of one graph run replayed in order: the kernel,
     its twin and, where every call has one, the PyTorch yardstick (library
     maps a call to a no-argument function or None). The weights are the
     graph's resident ones, so they come from device memory as on the path.
     ``cost`` maps a call to its (bytes, operations); a quantized matmul's
-    by default."""
+    by default. ``earlier`` maps a call to a no-argument function that runs
+    it on the variant the kernel took before its redesign, replayed and
+    timed the same way."""
     nbytes = ops = exps = 0
     for args, kw in calls:
         b, o, *e = (cost or _qmm_cost)(*args, **kw)
         nbytes, ops, exps = nbytes + b, ops + o, exps + sum(e)
     run_all = lambda fn: [fn(*args, **kw) for args, kw in calls]
     t_k = device_ms(lambda: run_all(kernel), iters=5)
+    t_e = None
+    if earlier is not None:  # in turns: kernel, earlier, earlier, kernel; the better of each pair
+        olds = [earlier(*args, **kw) for args, kw in calls]
+        t_e = min(device_ms(lambda: [f() for f in olds], iters=5) for _ in range(2))
+        del olds
+        t_k = min(t_k, device_ms(lambda: run_all(kernel), iters=5))
     t_p = device_ms(lambda: run_all(twin), iters=2, warmup=1)
     libs = [library(*args, **kw) for args, kw in calls]
     t_l = None
     if all(libs):
         t_l = device_ms(lambda: [f() for f in libs], iters=5)
     b = bound(nbytes, ops, peak, exps)
-    print(f"replay of {label}: {len(calls)} calls, kernel {t_k:.4f} ms, twin {t_p:.4f} ms, library "
+    print(f"replay of {label}: {len(calls)} calls, kernel {t_k:.4f} ms"
+          + (f" (earlier variant {t_e:.4f} ms)" if t_e is not None else "") + f", twin {t_p:.4f} ms, library "
           + (f"{t_l:.4f} ms" if t_l is not None else f"none ({sum(map(bool, libs))} of {len(calls)} calls have one)")
           + f", bound {b['bound_ms']:.4f} ms ({b['bound_op']}; {nbytes / 1e9:.4f} GB, {ops / 1e9:.2f} G ops) [{name}]")
-    return {"ms": t_k, "plain_ms": t_p, "library_ms": t_l, **b}
+    return {"ms": t_k, "plain_ms": t_p, "library_ms": t_l, **b, **({"earlier_variant_ms": t_e} if t_e is not None else {})}
 
 
 def site_report(label: str, calls, kernel, twin, library, cost, plan_of, tol: float, name: str,
@@ -991,6 +1093,9 @@ GN_SITES = [(1, 320, 64, 64), (1, 960, 64, 64), (1, 128, 512, 512)]          # x
 GN_CONV_SITES = [(320, 64, 320), (2560, 16, 1280), (1280, 8, 1280)]          # (C, H = W, O) of gn_silu_conv
 MATMUL_SITES = [(64, 11520, 1280), (256, 23040, 1280), (1024, 5760, 640)]    # (M, K, N) of matmul
 CONFIG_A = dict(fuse_gn_conv=True, fuse_groupnorm=True)
+# the kernels one gn_silu_conv call launches on its wgmma variant (csrc/gn_conv.cu)
+GN_CONV_PASSES = ("gn_moments_kernel", "gn_finalize_kernel", "gn_apply_nhwc_kernel", "gn_conv_wgmma_kernel",
+                  "gn_conv_splitk_reduce")
 CONFIG_B = dict(use_pallas_smallconv=True, fuse_groupnorm=True)
 
 
@@ -1068,12 +1173,41 @@ def _matmul_cost(a, b, bias=None, *, out_dtype=None):
     return _nbytes(a, b, bias) + m * n * out_elt, 2 * m * k * n
 
 
-def _site_times(label, name, kernel, twin, library, cost, peak="bf16"):
+def _site_times(label, name, kernel, twin, library, cost, peak="bf16", earlier=None):
+    """Device ms of one call of kernel, twin and library (and of the same call
+    on the kernel's earlier variant, in turns with the kernel) beside the bound."""
     t_k, t_p, t_l = device_ms_per_call(kernel), device_ms(twin, iters=3, warmup=1), device_ms_per_call(library)
+    t_e = None
+    if earlier is not None:
+        t_e = min(device_ms_per_call(earlier) for _ in range(2))
+        t_k = min(t_k, device_ms_per_call(kernel))
     b = bound(*cost, peak)
-    print(f"time bf16 {label}: kernel {t_k:.4f} ms, twin {t_p:.4f} ms, library {t_l:.4f} ms, "
-          f"bound {b['bound_ms']:.4f} ms ({b['bound_op']})  [{name}]")
-    return {"ms": t_k, "plain_ms": t_p, "library_ms": t_l, **b}
+    print(f"time bf16 {label}: kernel {t_k:.4f} ms" + (f" (earlier variant {t_e:.4f} ms)" if t_e is not None else "")
+          + f", twin {t_p:.4f} ms, library {t_l:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_op']})  [{name}]")
+    return {"ms": t_k, "plain_ms": t_p, "library_ms": t_l, **b, **({"earlier_variant_ms": t_e} if t_e is not None else {})}
+
+
+def _misaligned(t: torch.Tensor) -> torch.Tensor:
+    """A copy of t as a view that starts one element past a 16-byte boundary:
+    what the variant predicates send to the masked kernels."""
+    flat = torch.empty(t.numel() + 16, dtype=t.dtype, device=t.device)
+    view = flat[1:1 + t.numel()].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def _gn_conv_plan_text(x, sg, sb, gamma, beta, w9, *rest, **kw) -> str:
+    """The convolution variant of csrc/gn_conv.cu the dispatcher takes for
+    this call and, for the wgmma pipeline, its tile and K split."""
+    from onnxstream_tpu_torch.kernels.gn_conv import gn_conv_plan, gn_conv_variant
+
+    n, c, h, w = x.shape
+    o = w9.shape[1]
+    variant = gn_conv_variant(x.dtype, c, w9.data_ptr())
+    if variant != "wgmma":
+        return {"mma": "mma.sync 64 x 128 patches", "fma": "float32 FMA patches"}[variant]
+    bm, splits = gn_conv_plan(n, c, h, w, o)
+    return f"wgmma {bm} x 128 tiles, {-(-o // bm) * -(-(n * h * w) // 128)} tiles x {splits} K splits"
 
 
 def phase_kernel_gn(name: str) -> dict:
@@ -1099,16 +1233,25 @@ def phase_kernel_gn(name: str) -> dict:
             _held(f"gn_silu {(n, c, h, w)} G{g} silu={silu} {str(dt)[6:]}", gn_silu(*args, g, 1e-5, silu),
                   gn_silu_reference(*args, g, 1e-5, silu), tol)
     # (n, c, groups, h, w, o, bias): 5 x 7 borders, no bias and O != C, C/G = 5, ragged everything, O = 4
+    # and for the wgmma variant: C % 64 != 0 (a k-tile past C), the VAE's conv_out (O = 3) and a 512 x 512 site
     conv_cases = [(2, 16, 4, 5, 7, 16, True), (1, 32, 8, 8, 8, 24, False), (1, 20, 4, 4, 4, 8, True),
-                  (2, 64, 8, 33, 17, 70, True), (1, 320, 32, 64, 64, 4, True)]
+                  (2, 64, 8, 33, 17, 70, True), (1, 320, 32, 64, 64, 4, True), (1, 72, 8, 9, 9, 40, True),
+                  (1, 128, 32, 512, 512, 3, True), (1, 128, 32, 512, 512, 128, True)]
     conv_cases += [(1, c, 32, hw, hw, o, True) for c, hw, o in GN_CONV_SITES]
     for n, c, g, h, w, o, bias in conv_cases:
         for dt, tol in tols(1e-4):
             args = _gn_operands(gen, n, c, h, w, g, dt)
             w9, bv = _w9_operands(gen, c, o, dt, bias)
-            _held(f"gn_silu_conv {(n, c, h, w)} G{g} -> {o} bias={bias} {str(dt)[6:]}",
-                  gn_silu_conv(*args, w9, bv, groups=g, eps=1e-5),
-                  gn_silu_conv_reference(*args, w9, bv, g, 1e-5), tol)
+            got = gn_silu_conv(*args, w9, bv, groups=g, eps=1e-5)
+            _held(f"gn_silu_conv {(n, c, h, w)} G{g} -> {o} bias={bias} {str(dt)[6:]} [{_gn_conv_plan_text(*args, w9)}]",
+                  got, gn_silu_conv_reference(*args, w9, bv, g, 1e-5), tol)
+            if not torch.equal(got, gn_silu_conv(*args, w9, bv, groups=g, eps=1e-5)):
+                raise SystemExit(f"gn_silu_conv {(n, c, h, w)} -> {o} {dt}: two calls gave different bits")
+            if dt == torch.bfloat16 and c % 8 == 0:  # the same call on the mma.sync variant, from the pointer
+                w9m = _misaligned(w9)
+                _held(f"gn_silu_conv {(n, c, h, w)} -> {o} bfloat16, w9 misaligned [{_gn_conv_plan_text(*args, w9m)}]",
+                      gn_silu_conv(*args, w9m, bv, groups=g, eps=1e-5), gn_silu_conv_reference(*args, w9, bv, g, 1e-5),
+                      tol)
     # the JAX suite's cases and a ragged one (the masked kernels), then the edges of the wgmma pipeline: a
     # ragged last K split (65 k-tiles in 13 splits of 5), M off the tile with N = 320, K % 64 != 0 with
     # N % 8 == 0 only, one short k-tile with one 8-column strip and 129 rows in 64-row tiles
@@ -1151,11 +1294,13 @@ def phase_kernel_gn(name: str) -> dict:
     for c, hw, o in GN_CONV_SITES:
         args = _gn_operands(gen, 1, c, hw, hw, 32, dt, plain_inorm=True)
         w9, bv = _w9_operands(gen, c, o, dt)
+        w9m = _misaligned(w9)
         kw = dict(groups=32, eps=1e-5)
         out["gn_silu_conv"][f"{c}x{hw}x{hw}->{o}"] = _site_times(
-            f"gn_silu_conv (1, {c}, {hw}, {hw}) -> {o}", name, lambda: gn_silu_conv(*args, w9, bv, **kw),
-            lambda: gn_silu_conv_reference(*args, w9, bv, 32, 1e-5), _gn_conv_library(*args, w9, bv, **kw),
-            _gn_conv_cost(*args, w9, bv, **kw))
+            f"gn_silu_conv (1, {c}, {hw}, {hw}) -> {o} [{_gn_conv_plan_text(*args, w9)}]", name,
+            lambda: gn_silu_conv(*args, w9, bv, **kw), lambda: gn_silu_conv_reference(*args, w9, bv, 32, 1e-5),
+            _gn_conv_library(*args, w9, bv, **kw), _gn_conv_cost(*args, w9, bv, **kw),
+            earlier=lambda: gn_silu_conv(*args, w9m, bv, **kw))
     for m, k, n in MATMUL_SITES:
         a = torch.randn(m, k, device="cuda", generator=gen).to(dt)
         b = (torch.randn(k, n, device="cuda", generator=gen) * 0.02).to(dt)
@@ -1309,7 +1454,7 @@ def phase_gn_routes(name: str, sd: dict) -> dict:
         # the VAE_SD decoder, one 64 x 64 latent -> 512 x 512
         vae = build_vae_decoder(dataclasses.replace(VAE_SD, sample=64), seed=2)
         z = np.random.default_rng(3).standard_normal((1, 4, 64, 64)).astype(np.float32)
-        images = {}
+        images, floats = {}, {}
         for label, cfg in (("default", {}), ("fuse_groupnorm", dict(fuse_groupnorm=True)), ("A", CONFIG_A)):
             s = sessions[f"vae_{label}"] = _session(vae.to_text(), vae.weights, "bfloat16", "cuda:0", **cfg)
             kinds = [op.op_type for op in s.graph.ops]
@@ -1324,7 +1469,7 @@ def phase_gn_routes(name: str, sd: dict) -> dict:
             got = {k: f.launches - before[k] for k, f in kernels.items()}
             if img_f.shape != (1, 3, 512, 512) or not bool(torch.isfinite(img_f).all()):
                 raise SystemExit(f"VAE decode, {label}: bad image {tuple(img_f.shape)}")
-            images[label] = image_to_uint8(img_f[0]).astype(np.int32)
+            images[label], floats[label] = image_to_uint8(img_f[0]).astype(np.int32), img_f
             print(f"VAE_SD decode, {label}: {len(s.graph.ops)} ops, {ms:.1f} ms, launches {got} (want {wantv}) [{name}]")
             if got != wantv or (label == "fuse_groupnorm" and wantv["gn_silu"] != 30):
                 raise SystemExit(f"VAE decode, {label}: launches {got}, want {wantv} (30 gn_silu under fuse_groupnorm)")
@@ -1337,6 +1482,12 @@ def phase_gn_routes(name: str, sd: dict) -> dict:
                       f"(bound: mean < 1)")
                 if not d.mean() < 1.0:
                     raise SystemExit(f"VAE decode, {label}: the image drifted from the default decode")
+                diff = (img_f.float() - floats["default"].float()).abs().max().item()
+                top = floats["default"].float().abs().max().item()
+                print(f"VAE_SD decode, {label} against the default, the float output: max|diff| {diff:.4e}, "
+                      f"max|out| {top:.4f}, ratio {diff / top:.4e}" + (" (bound 5e-2)" if label == "A" else ""))
+                if label == "A" and not diff <= 5e-2 * top:
+                    raise SystemExit("VAE decode, config A: far from the default decode's output")
         launches = {k: f.launches for k, f in kernels.items()}
         print(f"GroupNorm / small-conv route launches on the path: {launches}")
         # which bf16 decode lies nearer the float32 one (printed, not gated)
@@ -1349,7 +1500,7 @@ def phase_gn_routes(name: str, sd: dict) -> dict:
 
         # one run's calls recorded under each config (after the read of the counts)
         recorded = {}
-        for label in ("A", "B", "vae_fuse_groupnorm"):
+        for label in ("A", "B", "vae_fuse_groupnorm", "vae_A"):
             for site in sites.values():
                 site.calls = []
             sessions[label].run(device_outputs=True)
@@ -1388,7 +1539,16 @@ def phase_gn_routes(name: str, sd: dict) -> dict:
     for label in ("default", "fuse_groupnorm", "A", "A", "fuse_groupnorm", "default"):
         step = lambda s=sessions[f"vae_{label}"]: s.run(device_outputs=True)
         times.setdefault(f"vae_{label}", []).append(busy_and_wall(step, f"VAE_SD decode, config {label}", name))
-    profile_steps(sessions["A"].run, name, "SD15 step, config A")
+    # kernel 8's passes (moments, the channels-last slab, the product, the split's sum) in a config-A UNet
+    # run and decode: the slab pass is the write and read of the activated tensor that the TPU kernel keeps
+    # on chip
+    passes = {}
+    for label, step in (("A", sessions["A"].run), ("vae_A", lambda: sessions["vae_A"].run(device_outputs=True))):
+        rows = profile_steps(step, name, f"{'VAE_SD decode' if label == 'vae_A' else 'SD15 step'}, config A")
+        passes[label] = {k: sum(ms for ms, _, key in rows if k in key) for k in GN_CONV_PASSES}
+        print(f"kernel 8's passes per {'decode' if label == 'vae_A' else 'UNet run'}, config A: "
+              + ", ".join(f"{k} {ms:.4f} ms" for k, ms in passes[label].items())
+              + f" (the moments passes include gn_silu's launches of the run) [{name}]")
     around = {}
     for label in ("fuse_groupnorm", "B"):
         rows = profile_steps(sessions[label].run, name, f"SD15 step, config {label}")
@@ -1401,18 +1561,42 @@ def phase_gn_routes(name: str, sd: dict) -> dict:
     specs = {"gn_silu": (gn_silu, gn_silu_reference, _gn_library, _gn_cost),
              "gn_silu_conv": (gn_silu_conv, gn_silu_conv_reference, _gn_conv_library, _gn_conv_cost),
              "matmul": (matmul, matmul_reference, _matmul_library_call, _matmul_cost)}
+    # kernel 8's earlier variant (the mma.sync kernel): the same calls with misaligned copies of the weights
+    w9_copies = {}
+
+    def gn_conv_earlier(x, sg, sb, gamma, beta, w9, bias=None, **kw):
+        if w9.data_ptr() not in w9_copies:
+            w9_copies[w9.data_ptr()] = _misaligned(w9)
+        w9m = w9_copies[w9.data_ptr()]
+        return lambda: gn_silu_conv(x, sg, sb, gamma, beta, w9m, bias, **kw)
+
     for label, k in (("B", "gn_silu"), ("A", "gn_silu"), ("vae_fuse_groupnorm", "gn_silu"), ("A", "gn_silu_conv"),
-                     ("B", "matmul")):
+                     ("vae_A", "gn_silu_conv"), ("B", "matmul")):
         kernel, twin, library, cost = specs[k]
         replays[(label, k)] = replay_times(f"{k} over one run under config {label} (bf16)", recorded[label][k],
-                                           kernel, twin, library, "bf16", name, cost=cost)
+                                           kernel, twin, library, "bf16", name, cost=cost,
+                                           earlier=gn_conv_earlier if k == "gn_silu_conv" else None)
     mm_sites = site_report("matmul, config B", recorded["B"]["matmul"], matmul, matmul_reference, _matmul_library_call,
                            _matmul_cost, _matmul_plan_text, 2e-2, name)
+    # every gn_silu_conv shape of a config-A UNet run and of a config-A VAE decode, on the graph's operands
+    conv_key = lambda args, kw: (*args[0].shape, args[5].shape[1])
+    gn_conv_sites = {label: site_report(f"gn_silu_conv, {label}", recorded[label]["gn_silu_conv"], gn_silu_conv,
+                                        gn_silu_conv_reference, _gn_conv_library, _gn_conv_cost, _gn_conv_plan_text,
+                                        2e-2, name, earlier=gn_conv_earlier, key=conv_key)
+                     for label in ("A", "vae_A")}
+    del w9_copies
+    taken = {label: {site["variant"].split()[0] for site in sites.values()} for label, sites in gn_conv_sites.items()}
+    print(f"gn_silu_conv variants over the recorded calls: {taken}")
+    if taken != {"A": {"wgmma"}, "vae_A": {"wgmma"}}:
+        raise SystemExit("gn_silu_conv: a call of the UNet run or the VAE decode missed the wgmma variant")
     out = {}
     for k, main in (("gn_silu", "B"), ("gn_silu_conv", "A"), ("matmul", "B")):
         out[k] = {"launches": launches[k], "max_abs_err": sites[k].worst, **replays[(main, k)],
                   "launches_per_run": {label: want[label][k] for label in ("A", "B")}}
     out["gn_silu"]["ms_by_path"] = {label: replays[(label, "gn_silu")] for label in ("A", "vae_fuse_groupnorm")}
+    out["gn_silu_conv"]["vae_decode"] = replays[("vae_A", "gn_silu_conv")]
+    out["gn_silu_conv"]["passes_ms"] = passes
+    out["gn_silu_conv"]["sites_of_run"] = gn_conv_sites
     out["matmul"]["sites_of_run"] = mm_sites
     out["matmul"]["around_ms"] = around["B"] - around["fuse_groupnorm"]
     out["times"] = times
@@ -2228,7 +2412,7 @@ def _int8_vs_bf16_two_layers(prompt) -> float:
 def phase_llm_int8(name: str, llm: dict) -> dict:
     import onnxstream_tpu_torch.runtime.executor as executor_mod
     from onnxstream_tpu_torch.kernels.flash_attention import flash_attention
-    from onnxstream_tpu_torch.kernels.qmatmul import w8a8_dyn_matmul, w8a8_dyn_matmul_reference
+    from onnxstream_tpu_torch.kernels.qmatmul import dyn_variant, w8a8_dyn_matmul, w8a8_dyn_matmul_reference
     from onnxstream_tpu_torch.models.llm.llama import TINYLLAMA
     from onnxstream_tpu_torch.models.llm.pipeline import LlamaPipeline
     from onnxstream_tpu_torch.runtime.session import Session
@@ -2243,7 +2427,8 @@ def phase_llm_int8(name: str, llm: dict) -> dict:
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    site = _GraphSiteCheck(w8a8_dyn_matmul, w8a8_dyn_matmul_reference, 1e-2, _about_qmm)
+    # bit for bit on the graph's operands: the twin computes the kernel's arithmetic
+    site = _GraphSiteCheck(w8a8_dyn_matmul, w8a8_dyn_matmul_reference, 0.0, _about_qmm)
     graph_runs = [0]
     session_run = Session.run
 
@@ -2317,30 +2502,63 @@ def phase_llm_int8(name: str, llm: dict) -> dict:
     finally:
         executor_mod.w8a8_dyn_matmul = w8a8_dyn_matmul
 
-    def int_mm(a, w, ws, out_dtype=None):
-        return _int_mm_or_none(_quantize_rows(a), w)
+    # every recorded call: the variant the dispatcher took for the graph's K-major weight, bit for bit
+    # with the twin and with the (K, N) weight on the variant it replaced (copies made here, after the read
+    # of the counts)
+    kn = {}
+    for key, calls in recorded.items():
+        variants = {}
+        for args, kw in calls:
+            a, w = args[0], args[1]
+            m, (n, k) = a.numel() // a.shape[-1], w.shape
+            v = dyn_variant(m, k, n, kw.get("weight_nk", False), w.data_ptr())
+            variants[v] = variants.get(v, 0) + 1
+            if w.data_ptr() not in kn:
+                kn[w.data_ptr()] = w.t().contiguous()
+            w_kn = kn[w.data_ptr()]
+            got, ref = w8a8_dyn_matmul(*args, **kw), w8a8_dyn_matmul_reference(*args, **kw)
+            old = w8a8_dyn_matmul(a, w_kn, *args[2:], out_dtype=kw.get("out_dtype"))
+            if not (torch.equal(got, ref) and torch.equal(got, old)):
+                raise SystemExit(f"int8 {key}: w8a8_dyn_matmul differs from its twin on a recorded call "
+                                 f"({m}, {k}) x ({n}, {k})")
+        print(f"int8 {key}: {len(calls)} recorded calls, variants {variants}, every call bit for bit with the twin "
+              f"and with the (K, N) weight's variant")
+        if set(variants) != {"gemv_nk" if key == "decode" else "wgmma"}:
+            raise SystemExit(f"int8 {key}: the calls did not all take the K-major form")
+
+    def earlier(a, w, ws, out_dtype=None, weight_nk=False):
+        w_kn = kn[w.data_ptr()]
+        return lambda: w8a8_dyn_matmul(a, w_kn, ws, out_dtype=out_dtype)
+
+    def int_mm(a, w, ws, out_dtype=None, weight_nk=False):
+        return _int_mm_or_none(_quantize_rows(a), kn[w.data_ptr()])
 
     times = {k: replay_times(f"w8a8_dyn_matmul over one TinyLlama {k} run (bf16)", calls, w8a8_dyn_matmul,
-                             w8a8_dyn_matmul_reference, int_mm, "int8", name)
+                             w8a8_dyn_matmul_reference, int_mm, "int8", name, earlier=earlier)
              for k, calls in recorded.items()}
 
-    # the prefill's library yardsticks: torch._int_mm on the quantized
-    # operands over the calls it takes (the kernel timed over the same calls
-    # beside it), and cuBLAS bf16 on bf16 copies of the weights over all calls
+    # the library yardsticks: torch._int_mm on the quantized operands over the prefill's calls it takes
+    # (the kernel timed over the same calls beside it), and cuBLAS bf16 on bf16 copies of the weights over
+    # all calls of the prefill and of the decode step (a product without the activation quantization)
     pre = recorded["prefill"]
     libs = [int_mm(*a, **k) for a, k in pre]
     sub = [(c, f) for c, f in zip(pre, libs) if f is not None]
     t_sub = device_ms(lambda: [w8a8_dyn_matmul(*a, **k) for (a, k), _ in sub], iters=5)
     t_int = device_ms(lambda: [f() for _, f in sub], iters=5)
-    copies = {}
-    bf16 = [(a[0], copies.setdefault(a[1].data_ptr(), a[1].to(torch.bfloat16))) for a, _ in pre]
-    t_bf = device_ms(lambda: [torch.matmul(x, w) for x, w in bf16], iters=5)
-    del copies, bf16
+    copies = {p: w.to(torch.bfloat16) for p, w in kn.items()}
+    t_bf = {}
+    for key, calls in recorded.items():
+        bf16 = [(a[0], copies[a[1].data_ptr()]) for a, _ in calls]
+        t_bf[key] = device_ms(lambda: [torch.matmul(x, w) for x, w in bf16], iters=5)
+    del copies, bf16, kn
     print(f"w8a8_dyn_matmul, one TinyLlama prefill: torch._int_mm takes {len(sub)} of {len(pre)} calls: kernel "
           f"{t_sub:.4f} ms, torch._int_mm {t_int:.4f} ms over those; over all {len(pre)}: kernel "
-          f"{times['prefill']['ms']:.4f} ms, cuBLAS bf16 on bf16 copies of the weights {t_bf:.4f} ms [{name}]")
+          f"{times['prefill']['ms']:.4f} ms, cuBLAS bf16 on bf16 copies of the weights {t_bf['prefill']:.4f} ms; "
+          f"one decode step's {len(recorded['decode'])}: kernel {times['decode']['ms']:.4f} ms, cuBLAS bf16 on bf16 "
+          f"copies {t_bf['decode']:.4f} ms (no activation quantization) [{name}]")
     prefill = {**times["prefill"], "int_mm_calls": len(sub), "kernel_ms_on_int_mm_calls": t_sub, "int_mm_ms": t_int,
-               "bf16_matmul_ms": t_bf}
+               "bf16_matmul_ms": t_bf["prefill"]}
+    times["decode"]["bf16_matmul_ms"] = t_bf["decode"]
     return {"launches": launches, "max_abs_err": site.worst, **times["decode"], "prefill": prefill}
 
 
@@ -2350,7 +2568,7 @@ def main() -> int:
     phase_build()
     kernel = phase_kernel(name)
     kernel_hm = phase_kernel_head_major(name)
-    phase_kernel_q(name)
+    q_sites = phase_kernel_q(name)
     phase_kernel_qlinear(name)
     gn_sites = phase_kernel_gn(name)
     sd = phase_slice(name)
@@ -2384,7 +2602,8 @@ def main() -> int:
         {"name": "flash_attention", "route": "cuda", "source": fa_src,
          "replaces": "onnxstream_tpu/kernels/flash_attention.py:366", **kernel_hm, "launches": launches_llm,
          **llm["flash"]},
-        {"name": "w8a8_dyn_matmul", "route": "cuda", "source": q_src, "replaces": f"{q_py}:332", **llm_int8},
+        {"name": "w8a8_dyn_matmul", "route": "cuda", "source": q_src, "replaces": f"{q_py}:332", **llm_int8,
+         "ms_by_shape": q_sites},
         {"name": "w8_matmul", "route": "cuda", "source": q_src, "replaces": f"{q_py}:186", **sd_u8},
         {"name": "qmatmul", "route": "cuda", "source": ql_src, "replaces": f"{q_py}:73", **sd_image["qmatmul"]},
         {"name": "qconv", "route": "cuda", "source": ql_src, "replaces": "onnxstream_tpu/kernels/qconv.py:68",

@@ -1,7 +1,9 @@
 // Building blocks of the Hopper (sm_90a) matrix-product pipeline shared by
-// csrc/matmul.cu (kernel 9), csrc/qmatmul.cu (kernel 5, w8_matmul),
-// csrc/qlinear.cu (kernel 3, the u8 x u8 -> s32 form at the end of this file)
-// and csrc/flash_attention.cu (kernel 2's wgmma variant: the ring, barriers,
+// csrc/matmul.cu (kernel 9), csrc/qmatmul.cu (kernel 5, w8_matmul, and
+// kernel 6, the s8 form with both operands K-major at the end of this file),
+// csrc/qlinear.cu (kernel 3, the u8 x u8 -> s32 form), csrc/gn_conv.cu
+// (kernel 8, the 16-bit form with both operands K-major) and
+// csrc/flash_attention.cu (kernel 2's wgmma variant: the ring, barriers,
 // K-major tiles and the 16-bit wgmma forms with a K-major B or A in registers).
 //
 // Kernels 9 and 5 are a 16-bit product A (M, K) x B (K, N) with B contiguous
@@ -670,6 +672,41 @@ G90_DEV void consume_u8(int (&acc)[64], int (&rs)[4], int (&cs)[4], int nkt, uin
   fence_regs(acc);
   fence_regs(rs);
   fence_regs(cs);
+}
+
+// ---- both operands K-major: kernel 8 (16-bit) and kernel 6 (s8) -----------
+// D (64 x 128, s32) += A (64 x 32 s8, shared, K-major) x B (32 x 128 s8,
+// shared, K-major); D as wgmma_m64n8k16's
+G90_DEV void wgmma_m64n128k32_s8(int (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 " G90_D64 ", %64, %65, p;\n}\n"
+               : G90_ACC64(G90_R) : "l"(da), "l"(db), "r"(1));
+}
+
+// One consumer warpgroup's sweep over `nkt` k-tiles handed over through
+// full0 / empty0 (stage s at + s * stage_bytes of each address), both tiles
+// 128-byte K-major rows under the 128-byte swizzle: the A tile's 64 rows at
+// a0, the B tile at b0. A k-tile is 128 bytes deep, four k-steps of 32 bytes
+// (k16 of a 16-bit type, k32 of an 8-bit one); mma(acc, da, db) issues one
+// step's product. One group in flight while the next stage is awaited, and
+// nothing reads the accumulators in between.
+template <int STAGES, typename Acc, typename Mma>
+G90_DEV void consume_kmajor(Acc& acc, int nkt, uint32_t a0, uint32_t b0, uint32_t stage_bytes, uint32_t full0,
+                            uint32_t empty0, Mma mma) {
+  fence_regs(acc);
+  for (int it = 0; it < nkt; ++it) {
+    const int s = it % STAGES;
+    mbar_wait(full0 + 8 * s, (it / STAGES) & 1);
+    const uint32_t off = s * stage_bytes;
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) mma(acc, a_desc(a0 + off, ks), kmajor_desc(b0 + off, ks));
+    wgmma_commit();
+    wgmma_wait<1>();  // the previous tile's group has retired: its stage is free
+    if (it > 0) mbar_arrive(empty0 + 8 * ((it - 1) % STAGES));
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
 }
 
 }  // namespace gemm90

@@ -31,21 +31,48 @@
 //  3a. gn_apply_kernel: y = x A_c + B_c [SiLU] over the flat tensor with
 //     16-byte loads and stores: bound by bytes, x read twice (once per pass)
 //     and y written once. Keeping a group on chip where it fits is later work.
-//  3b. gn_conv_mma_kernel (bf16 / fp16) and gn_conv_fma_kernel (float32): an
-//     implicit GEMM in the TPU kernel's transposed form, y[o, p] = sum_t sum_c
-//     w9[t, o, c] act[c, p + off_t]. The tap slice (O, C) with C contiguous is
-//     the row-major A operand of mma.sync.m16n8k16 as it lies. A block owns 64
-//     output channels and a TH x TW patch of 128 output pixels; per chunk of
-//     32 input channels it stages the nine tap slices and ONE haloed
-//     (TH + 2) x (TW + 2) patch of activations, normalised, activated and
-//     rounded as it is staged, transposed to [pixel][channel] so that a B
-//     fragment is one 32-bit load; the nine taps then read the same patch at
-//     nine constant offsets. Positions outside the image are staged as zero,
-//     so neither row overflow nor column wrap needs a mask in the inner loop.
-//     The output is written NCHW. Ragged O, C, H and W are masked in the loads
-//     and stores. Bound by bf16 tensor-core throughput (2 * 9 C O H W
-//     operations at 989 TFLOP/s); without wgmma, TMA and a pipelined stage
-//     this reaches a fraction of it.
+//  3b. The convolution, an implicit GEMM in the TPU kernel's transposed form,
+//     y[o, p] = sum_t sum_c w9[t, o, c] act[p + off_t, c], bound by 16-bit
+//     tensor-core throughput (2 * 9 C O H W operations at 989 TFLOP/s) at the
+//     UNet's and the VAE's sites. Three variants, chosen from dtype, C and the
+//     weight's alignment alone (use_conv_wgmma below, mirrored by
+//     gn_conv_variant in kernels/gn_conv.py):
+//      - bf16 / fp16 with C % 8 == 0 and a 16-byte aligned w9: the wgmma
+//        pipeline of gemm_sm90.cuh. gn_apply_nhwc_kernel first writes the
+//        activated slab, rounded to x's dtype, channels-last (N, H, W, C) into
+//        a workspace (a transpose through shared memory: 16-byte reads along
+//        H W, 16-byte writes along C). This is the one place where the port
+//        writes the activated tensor to device memory, which the TPU kernel
+//        never does: at the UNet's sizes the slab (2.6 - 5.2 MB) stays in the
+//        50 MB L2; at the VAE's 512 x 512 sites it costs one write and one
+//        read of it. gn_conv_wgmma_kernel then runs the product with M =
+//        output channels and N = output pixels (flat over N H W), K ordered
+//        (tap, c) in k-tiles of 64 channels of one tap (ceil(C / 64) per tap,
+//        channels past C zero). Both operands are K-major 128-byte rows: the
+//        A tile is rows o of the tap's (O, C) slice as uploaded (t9oc), the B
+//        tile 128 pixels x 64 channels of the slab, each 16-byte piece (8
+//        channels of one tap of one pixel) one cp.async, zero-filled where the
+//        tap falls into the padding (which is exactly the activated tensor's
+//        zero padding) or past the pixels and channels. A loading warpgroup
+//        keeps a ring of four stages full, the hardware arrives on each
+//        stage's mbarrier, one or two consumer warpgroups run wgmma
+//        m64n128k16 with f32 accumulators. Without a split the bias is added,
+//        the tile rounded and it leaves through shared memory along NCHW's
+//        contiguous pixel axis, in 16-byte pieces where H W is a multiple of
+//        128. Where the tiles alone leave SMs idle (the 8 x 8, 16 x 16 and 32 x
+//        32 levels) the caller splits K (kernels/gn_conv.py gn_conv_plan, kernel
+//        9's split_plan): float32 partials go to a workspace and
+//        gn_conv_splitk_reduce adds them in split order, then the bias and the
+//        cast: the same bits on every run.
+//      - other bf16 / fp16 shapes: gn_conv_mma_kernel, mma.sync m16n8k16 on
+//        64 (O) x 128 (pixel) tiles; per chunk of 32 input channels it stages
+//        the nine tap slices and ONE haloed (TH + 2) x (TW + 2) patch of
+//        activations, normalised, activated and rounded as it is staged,
+//        transposed to [pixel][channel]; the nine taps read the patch at nine
+//        constant offsets. Positions outside the image are staged as zero.
+//      - float32: gn_conv_fma_kernel, the same patches on the CUDA cores in
+//        full float32 (the JAX kernel's HIGHEST; wgmma has no float32 form).
+//     Ragged O, C, H and W are masked in the loads and stores.
 //
 // SiLU is y / (1 + exp(-y)) with __expf and __fdividef: a few float32 ulps
 // from the plain version's y * sigmoid(y), far inside the tolerances stated
@@ -57,6 +84,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "gemm_sm90.cuh"
 
 namespace {
 
@@ -506,6 +535,239 @@ __global__ void __launch_bounds__(kThreads) gn_conv_fma_kernel(const ConvParams 
 }
 
 // ---------------------------------------------------------------------------
+// Pass 3b on the wgmma pipeline: the activated slab channels-last, then the
+// implicit GEMM over it
+// ---------------------------------------------------------------------------
+
+constexpr int kApTile = 64;  // channels and pixels of one transpose tile
+
+// slab[(n H W + p) C + c] = silu(x[n, c, p] A_c + B_c), rounded to T.
+// grid (ceil(HW / 64), ceil(C / 64), N); C % 8 == 0. A thread reads 8 pixels
+// of a channel pair (two 16-byte loads where VEC: HW % 8 == 0 and x 16-byte
+// aligned) and stores them as 8 channel-pair words, [pixel][pair] in shared
+// memory (a warp's 32 pairs: 32 banks); then 8 threads write one pixel's 64
+// channels as 16-byte pieces.
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(kThreads) gn_apply_nhwc_kernel(const T* __restrict__ x, T* __restrict__ slab,
+                                                                 const float2* __restrict__ ab, int C, int HW) {
+  constexpr int kPitch = kApTile / 2 + 4;  // words: 144-byte rows, 16-byte aligned
+  __shared__ __align__(16) uint32_t s[kApTile * kPitch];
+  const int tid = threadIdx.x;
+  const int p0 = blockIdx.x * kApTile, c0 = blockIdx.y * kApTile, n = blockIdx.z;
+  {
+    const int pair = tid % (kApTile / 2), pl = 8 * (tid / (kApTile / 2));
+    const int c = c0 + 2 * pair, p = p0 + pl;
+    if (c < C) {
+      float v[2][8];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const T* src = x + (static_cast<size_t>(n) * C + c + h) * HW + p;
+        alignas(16) T e[8];
+        if (VEC && p + 8 <= HW) {
+          *reinterpret_cast<uint4*>(e) = *reinterpret_cast<const uint4*>(src);
+        } else {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) e[j] = p + j < HW ? src[j] : from_f32<T>(0.f);
+        }
+        const float2 q = ab[static_cast<size_t>(n) * C + c + h];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) v[h][j] = silu(fmaf(to_f32(e[j]), q.x, q.y));
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) s[(pl + j) * kPitch + pair] = pack2(v[0][j], v[1][j], T());
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = tid; i < kApTile * 8; i += kThreads) {
+    const int pl = i / 8, piece = i % 8;
+    const int p = p0 + pl, c = c0 + 8 * piece;
+    if (p < HW && c < C)
+      *reinterpret_cast<uint4*>(slab + (static_cast<size_t>(n) * HW + p) * C + c) =
+          *reinterpret_cast<const uint4*>(s + pl * kPitch + 4 * piece);
+  }
+}
+
+struct WgConvParams {
+  const void* slab;   // (N, H, W, C) activated, in x's dtype
+  const void* w9;     // (9, O, C) in x's dtype, 16-byte aligned
+  const void* bias;   // (O,) in bias_dtype, or nullptr
+  int bias_dtype;
+  void* out;          // (N, O, H, W)
+  float* part;        // (splits, O, P) float32 partials, or nullptr without a split
+  int C, H, W, O, P;  // P = N H W output pixels
+  int cchunks;        // k-tiles per tap: ceil(C / 64)
+};
+
+template <int CWG>
+struct CvWgCfg {
+  static constexpr int kBM = 64 * CWG, kBN = 128;  // output channels x output pixels
+  static constexpr int kStages = 4;
+  static constexpr int kABytes = kBM * 128;       // kBM rows of one 64-channel k-tile
+  static constexpr int kStageBytes = kABytes + kBN * 128;
+  // the ring, the barriers, slack to reach a 1024-byte boundary
+  static constexpr int kSmemBytes = kStages * kStageBytes + 16 * kStages + 1024;
+  static constexpr int kThreadsWg = (CWG + 1) * gemm90::kWG;
+  static_assert(CWG * gemm90::OutTile<kBN, 2>::kBytes <= kStages * kStageBytes, "the output tiles reuse the ring");
+  static_assert(kSmemBytes <= 232448, "shared memory of a block");
+};
+
+// The loader: thread t copies piece t % 8 (channels 8 (t % 8) .. of the
+// k-tile) of pixel rows t / 8 + 16 r of the B tile; their coordinates are
+// computed once.
+template <typename T, int CWG>
+struct GnConvLoader {
+  static constexpr int kRows = CvWgCfg<CWG>::kBN * 8 / gemm90::kWG;
+  unsigned valid;       // bit r: pixel row t / 8 + 16 r lies below P
+  int pix[kRows];       // the row's pixel, flat over (n, y, x)
+  short y[kRows], x[kRows];
+  __device__ __forceinline__ GnConvLoader(const WgConvParams& p, int n0, int t) : valid(0u) {
+    const int hw = p.H * p.W;
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const int q = n0 + t / 8 + 16 * r;
+      const int rem = q % hw;
+      pix[r] = q;
+      y[r] = static_cast<short>(rem / p.W);
+      x[r] = static_cast<short>(rem % p.W);
+      if (q < p.P) valid |= 1u << r;
+    }
+  }
+  __device__ __forceinline__ void start(const WgConvParams& p, uint32_t stage, int o0, int kt, int t) const {
+    const int tap = kt / p.cchunks, c0 = (kt - tap * p.cchunks) * 64;
+    const int dy = tap / 3 - 1, dx = tap % 3 - 1;
+    const T* w9 = static_cast<const T*>(p.w9) + static_cast<size_t>(tap) * p.O * p.C;
+    gemm90::load_kmajor_tile<CvWgCfg<CWG>::kBM>(stage, w9, 2LL * p.C, o0, p.O, 2 * c0, 2 * p.C, t);
+    const int c = c0 + 8 * (t % 8);
+    const T* slab = static_cast<const T*>(p.slab);
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const int yy = y[r] + dy, xx = x[r] + dx;
+      const bool ok = ((valid >> r) & 1u) && c < p.C && static_cast<unsigned>(yy) < static_cast<unsigned>(p.H) &&
+                      static_cast<unsigned>(xx) < static_cast<unsigned>(p.W);
+      const T* src = ok ? slab + static_cast<size_t>(pix[r] + dy * p.W + dx) * p.C + c : slab;
+      gemm90::cp_async16(stage + CvWgCfg<CWG>::kABytes + gemm90::a_offset(t / 8 + 16 * r, t % 8), src, ok);
+    }
+  }
+};
+
+// Warpgroups 0 .. CWG - 1 consume (output channels 64 wg .. of the tile),
+// warpgroup CWG loads. blockIdx = (pixel tile, channel tile, K split);
+// kt_per_split k-tiles per split, the last may be short.
+template <typename T, int CWG>
+__global__ void __launch_bounds__(CvWgCfg<CWG>::kThreadsWg, 1)
+    gn_conv_wgmma_kernel(const WgConvParams p, int kt_per_split) {
+  using namespace gemm90;
+  using Cfg = CvWgCfg<CWG>;
+  using Out = OutTile<Cfg::kBN, 2>;
+  extern __shared__ __align__(16) uint8_t smem_cv_wg[];
+  const uint32_t stage0 = align1024(smem_u32(smem_cv_wg));
+  const uint32_t full0 = stage0 + Cfg::kStages * Cfg::kStageBytes, empty0 = full0 + 8 * Cfg::kStages;
+
+  const int tid = threadIdx.x, wg = tid / kWG, t = tid % kWG;
+  const int n0 = blockIdx.x * Cfg::kBN, o0 = blockIdx.y * Cfg::kBM;
+  if (tid == 0) {
+    init_barriers<Cfg::kStages>(full0, empty0, kWG, CWG * kWG);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int kt0 = blockIdx.z * kt_per_split;
+  const int nkt = min(kt_per_split, 9 * p.cchunks - kt0);
+  if (wg == CWG) {
+    const GnConvLoader<T, CWG> loader(p, n0, t);
+    produce<Cfg::kStages>(nkt, full0, empty0, [&](int it, int s) {
+      loader.start(p, stage0 + s * Cfg::kStageBytes, o0, kt0 + it, t);
+    });
+    return;
+  }
+
+  float acc[Cfg::kBN / 2];
+#pragma unroll
+  for (int i = 0; i < Cfg::kBN / 2; ++i) acc[i] = 0.f;
+  consume_kmajor<Cfg::kStages>(acc, nkt, stage0 + wg * 64 * 128, stage0 + Cfg::kABytes, Cfg::kStageBytes, full0,
+                               empty0, [](float(&d)[Cfg::kBN / 2], uint64_t da, uint64_t db) {
+                                 wgmma_ss<T, Cfg::kBN, 0>(d, da, db, 1);
+                               });
+
+  const int lrow = (t / 32) * 16 + (t % 32) / 4, lcol = 2 * (t % 4);  // within the warpgroup's tile
+  const int ob = o0 + 64 * wg;
+  if (gridDim.z > 1) {  // float32 partials, (split, O, P)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int o = ob + lrow + 8 * h;
+      if (o >= p.O) continue;
+      float* part = p.part + (static_cast<size_t>(blockIdx.z) * p.O + o) * p.P;
+#pragma unroll
+      for (int j = 0; j < Cfg::kBN / 8; ++j) {
+        const int q = n0 + lcol + 8 * j;
+        if (q + 1 < p.P && p.P % 2 == 0) {
+          *reinterpret_cast<float2*>(part + q) = make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+        } else {
+          if (q < p.P) part[q] = acc[4 * j + 2 * h];
+          if (q + 1 < p.P) part[q + 1] = acc[4 * j + 2 * h + 1];
+        }
+      }
+    }
+    return;
+  }
+  // every consumer is past its last wgmma: the ring is free for the output tiles
+  named_barrier(1, CWG * kWG);
+  const uint32_t tile = stage0 + wg * Out::kBytes;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int o = ob + lrow + 8 * h;
+    const float b = p.bias != nullptr && o < p.O ? load_any(p.bias, p.bias_dtype, o) : 0.f;
+#pragma unroll
+    for (int j = 0; j < Cfg::kBN / 8; ++j)
+      st_shared4(Out::at(tile, lrow + 8 * h, lcol + 8 * j),
+                 pack2(acc[4 * j + 2 * h] + b, acc[4 * j + 2 * h + 1] + b, T()));
+  }
+  named_barrier(2 + wg, kWG);
+  // rows are output channels, columns pixels: a row of the tile is a run of
+  // one channel plane of NCHW
+  const int hw = p.H * p.W;
+  T* out = static_cast<T*>(p.out);
+  const uint8_t* src = smem_cv_wg + (tile - smem_u32(smem_cv_wg));
+  if (hw % Cfg::kBN == 0) {  // the tile lies in one image: 16-byte pieces
+    constexpr int kPerRow = Cfg::kBN * 2 / 16;
+    const int img = n0 / hw, q0 = n0 - img * hw;
+#pragma unroll
+    for (int j = 0; j < 64 * kPerRow / kWG; ++j) {
+      const int i = t + kWG * j;
+      const int r = i / kPerRow, c = (i % kPerRow) * 8;
+      if (ob + r < p.O && n0 + c < p.P)
+        *reinterpret_cast<uint4*>(out + (static_cast<size_t>(img) * p.O + ob + r) * hw + q0 + c) =
+            *reinterpret_cast<const uint4*>(src + r * Out::kPitch + 2 * c);
+    }
+  } else {
+    for (int i = t; i < 64 * Cfg::kBN; i += kWG) {
+      const int r = i / Cfg::kBN, c = i % Cfg::kBN, q = n0 + c;
+      if (ob + r < p.O && q < p.P) {
+        const int img = q / hw;
+        out[(static_cast<size_t>(img) * p.O + ob + r) * hw + q - img * hw] =
+            *reinterpret_cast<const T*>(src + r * Out::kPitch + 2 * c);
+      }
+    }
+  }
+}
+
+// out = round(sum over splits, in split order, of the partials + bias), one
+// thread per (o, pixel)
+template <typename T>
+__global__ void __launch_bounds__(kThreads) gn_conv_splitk_reduce(const WgConvParams p, int splits) {
+  const size_t total = static_cast<size_t>(p.O) * p.P;
+  const size_t i = static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i >= total) return;
+  const int o = static_cast<int>(i / p.P), q = static_cast<int>(i % p.P);
+  float s = p.part[i];
+  for (int z = 1; z < splits; ++z) s += p.part[z * total + i];
+  if (p.bias != nullptr) s += load_any(p.bias, p.bias_dtype, o);
+  const int hw = p.H * p.W, img = q / hw;
+  static_cast<T*>(p.out)[(static_cast<size_t>(img) * p.O + o) * hw + q - img * hw] = from_f32<T>(s);
+}
+
+// ---------------------------------------------------------------------------
 // Launchers
 // ---------------------------------------------------------------------------
 
@@ -584,10 +846,60 @@ cudaError_t launch_conv(ConvParams p, cudaStream_t stream) {
   }
 }
 
+// the wgmma pipeline takes 16-bit x whose channels are whole 16-byte pieces
+// and a 16-byte aligned tap-major weight; mirrored by gn_conv_variant in
+// kernels/gn_conv.py
+bool use_conv_wgmma(int dtype, const ConvParams& p) {
+  return dtype != 0 && p.C % 8 == 0 && aligned(p.w9, 16);
+}
+
+template <typename T, int CWG>
+cudaError_t launch_conv_wgmma(const WgConvParams& p, int splits, cudaStream_t stream) {
+  using Cfg = CvWgCfg<CWG>;
+  static cudaError_t attr = cudaFuncSetAttribute(gn_conv_wgmma_kernel<T, CWG>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg::kSmemBytes);
+  if (attr != cudaSuccess) return attr;
+  const int nkt = 9 * p.cchunks;
+  const int per = (nkt + splits - 1) / splits;
+  if (splits < 1 || splits > 65535 || (splits - 1) * per >= nkt || (splits > 1 && p.part == nullptr))
+    return cudaErrorInvalidValue;
+  const dim3 grid((p.P + Cfg::kBN - 1) / Cfg::kBN, (p.O + Cfg::kBM - 1) / Cfg::kBM, splits);
+  gn_conv_wgmma_kernel<T, CWG><<<grid, Cfg::kThreadsWg, Cfg::kSmemBytes, stream>>>(p, per);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  const size_t total = static_cast<size_t>(p.O) * p.P;
+  gn_conv_splitk_reduce<T><<<static_cast<unsigned>((total + kThreads - 1) / kThreads), kThreads, 0, stream>>>(p, splits);
+  return cudaGetLastError();
+}
+
+// The wgmma variant: the activated slab channels-last into `slab`, then the
+// product (bm 64 or 128 output channels a tile, K split in `splits`).
 template <typename T>
-cudaError_t conv_all(const Moments& m, const NormParams& np, const ConvParams& p, cudaStream_t stream) {
+cudaError_t conv_wgmma(const ConvParams& cp, void* slab, int bm, int splits, float* part, cudaStream_t stream) {
+  const int HW = cp.H * cp.W;
+  const dim3 grid((HW + kApTile - 1) / kApTile, (cp.C + kApTile - 1) / kApTile, cp.N);
+  const T* x = static_cast<const T*>(cp.x);
+  if (HW % 8 == 0 && aligned(cp.x, 16))
+    gn_apply_nhwc_kernel<T, true><<<grid, kThreads, 0, stream>>>(x, static_cast<T*>(slab), cp.ab, cp.C, HW);
+  else
+    gn_apply_nhwc_kernel<T, false><<<grid, kThreads, 0, stream>>>(x, static_cast<T*>(slab), cp.ab, cp.C, HW);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const WgConvParams p{slab, cp.w9, cp.bias, cp.bias_dtype, cp.out, part, cp.C, cp.H, cp.W, cp.O, cp.N * HW,
+                       (cp.C + 63) / 64};
+  if (bm == 64) return launch_conv_wgmma<T, 1>(p, splits, stream);
+  if (bm == 128) return launch_conv_wgmma<T, 2>(p, splits, stream);
+  return cudaErrorInvalidValue;
+}
+
+template <typename T>
+cudaError_t conv_all(int dtype, const Moments& m, const NormParams& np, const ConvParams& p, void* slab, int bm,
+                     int splits, float* part, cudaStream_t stream) {
   cudaError_t err = launch_moments<T>(m, np, stream);
   if (err != cudaSuccess) return err;
+  if constexpr (!std::is_same<T, float>::value) {
+    if (use_conv_wgmma(dtype, p)) return conv_wgmma<T>(p, slab, bm, splits, part, stream);
+  }
   return launch_conv<T>(p, stream);
 }
 
@@ -627,10 +939,16 @@ extern "C" int ostt_gn_silu(int dtype, const void* x, void* out, const void* sg,
 
 // As above, then the 3x3 stride-1 pad-1 convolution: x (N, C, H, W), w9
 // (9, O, C) in x's dtype, bias (O,) in bias_dtype or null, out (N, O, H, W).
+// Where the wgmma variant takes the call (16-bit x, C % 8 == 0, w9 16-byte
+// aligned): slab is a 16-byte aligned workspace of N H W C elements of x's
+// dtype, bm (64 or 128 output channels a tile) and splits (the K split) the
+// caller's plan, part a float32 workspace of splits O N H W values (null when
+// splits == 1); the other variants ignore these four.
 extern "C" int ostt_gn_silu_conv(int dtype, const void* x, void* out, const void* sg, const void* sb,
                                  const void* gamma, const void* beta, int pdtype, const void* w9,
                                  const void* bias, int bias_dtype, void* partial, void* ab, int N, int C,
-                                 int H, int W, int O, int G, float eps, int chunk, void* stream) {
+                                 int H, int W, int O, int G, float eps, int chunk, void* slab, int bm,
+                                 int splits, void* part, void* stream) {
   const long long HW = static_cast<long long>(H) * W;
   if (H <= 0 || W <= 0 || O <= 0 || !norm_args_ok(pdtype, N, C, HW, G, chunk) || bias_dtype < 0 ||
       bias_dtype > 2 || (O + kCvBM - 1) / kCvBM > 65535)
@@ -643,11 +961,15 @@ extern "C" int ostt_gn_silu_conv(int dtype, const void* x, void* out, const void
   const Moments m{x, static_cast<float*>(partial), static_cast<float2*>(ab), L, chunk, static_cast<int>(S)};
   const NormParams np{sg, sb, gamma, beta, pdtype, N, C, G, static_cast<int>(S), static_cast<double>(L), eps};
   const ConvParams p{x, w9, bias, bias_dtype, out, static_cast<const float2*>(ab), N, C, H, W, O, 0, 0};
+  if (use_conv_wgmma(dtype, p) && (slab == nullptr || !aligned(slab, 16) || N > 65535 ||
+                                   static_cast<long long>(N) * HW > 2147483647LL))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* pt = static_cast<float*>(part);
   switch (dtype) {
-    case 0: return static_cast<int>(conv_all<float>(m, np, p, st));
-    case 1: return static_cast<int>(conv_all<__half>(m, np, p, st));
-    case 2: return static_cast<int>(conv_all<__nv_bfloat16>(m, np, p, st));
+    case 0: return static_cast<int>(conv_all<float>(dtype, m, np, p, slab, bm, splits, pt, st));
+    case 1: return static_cast<int>(conv_all<__half>(dtype, m, np, p, slab, bm, splits, pt, st));
+    case 2: return static_cast<int>(conv_all<__nv_bfloat16>(dtype, m, np, p, slab, bm, splits, pt, st));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

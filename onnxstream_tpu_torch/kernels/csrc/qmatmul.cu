@@ -19,22 +19,58 @@
 //
 // What bounds them on an H100, and what the design does about it:
 //
-//  * Decode (M <= 16) is a GEMV bound by the weight's bytes: 1 byte per weight
-//    at 3.35 TB/s. dyn_gemv_kernel gives each lane 4 neighbouring columns
-//    (a warp reads 128 contiguous bytes of a weight row) and splits K over
-//    the 8 warps of a block and, where the columns alone give too few blocks
-//    (N = 256), over blocks: the partial int32 sums of a K split meet in an
-//    int32 workspace through atomics (exact, so the order does not matter) and
-//    the last block of a column tile writes the output and zeroes the
-//    workspace again, so one launch serves one MatMul. Every block reads its
-//    rows of A whole for the row scales; at M = 1 that is a few KB from L2.
-//    Four rows of a lane's four columns are transposed in registers
-//    (byte_perm) so that one dp4a does four multiply-adds.
-//  * Larger M of w8a8_dyn_matmul is a product bound by int8 tensor-core
-//    throughput (2 M N K operations at 1979 TOP/s): mma.sync.m16n8k32 on
-//    64 x 128 tiles with the next tile prefetched into registers. The weight
-//    is N-contiguous and ldmatrix cannot transpose 8-bit elements, so each
-//    tile is transposed in 4 x 4 byte blocks while it is staged.
+//  * w8a8_dyn_matmul's weight comes in one of two layouts. The LLM route's
+//    weights are uploaded K-major, as (N, K) (the planner's "tnk" transform
+//    after the per-channel quantization, kernels/qmatmul.py weight_nk), since
+//    8-bit wgmma takes K-major operands only and a GEMV over K-major rows
+//    reads each output column's weights contiguously. Which kernel runs is a
+//    function of the layout, M, K and the weight's alignment (dyn_variant in
+//    kernels/qmatmul.py mirrors dyn_nk_dispatch and dyn_dispatch below):
+//      - (N, K), M <= 16 (decode): dyn_gemv_nk_kernel, bound by the weight's
+//        bytes (1 byte per weight at 3.35 TB/s) and, at a few MB a call, by
+//        the latency of a call. A block quantizes the M rows of A once into
+//        shared memory (one row: each thread keeps its pieces in registers
+//        from the row maximum to the s8 bytes), then walks column groups:
+//        each warp owns one output column at a time and reads its row along K
+//        in chunks of 16-byte loads (32 lanes, 512 contiguous bytes a load),
+//        the next chunk's loads in flight while it multiplies the current
+//        one, four dp4a per piece and row of A; the lanes' sums meet by warp
+//        shuffles. No K split over blocks, no atomics, no workspace. The grid
+//        is what the SMs hold at once, so A is quantized a few hundred times
+//        per call, not once per column group; the first chunk's loads are
+//        issued before the work on A.
+//      - (N, K), M > 16 (prefill): dyn_quant_rows_held_kernel (one block a
+//        row, the row in registers) quantizes A into an s8 scratch (skipped
+//        where the caller's previous call quantized the same, unchanged A:
+//        the q / k / v and gate / up projections read one activation), then
+//        dyn_wgmma_kernel runs the pipeline of gemm_sm90.cuh
+//        in its s8 form: a loading warpgroup keeps a ring of four stages (A
+//        and W tiles, 128-byte K-major rows, 16-byte cp.async copies, zero past
+//        the edges), one or two consumer warpgroups run wgmma
+//        m64n128k32.s32.s8.s8, bound by int8 tensor-core throughput (2 M N K
+//        operations at 1979 TOP/s) in principle and by the rate at which L2
+//        delivers the tiles in practice, so the tallest tile that fills the
+//        card is taken (64, 128 or 256 rows: one, two or four consumer
+//        warpgroups). No zero points, so no row or column sums.
+//        Where the tiles alone leave SMs idle (the k / v projections, N = 256)
+//        the caller splits K (kernels/qmatmul.py dyn_plan): int32 partials
+//        (exact in any order) go to a workspace and dyn_splitk_reduce adds
+//        them before the one epilogue. Without a split the tile leaves through
+//        shared memory in 16-byte pieces where N allows; the LM head's rows
+//        (N = 32003) are not 16-byte granular and leave element by element.
+//      - (K, N), M <= 16: dyn_gemv_kernel gives each lane 4 neighbouring
+//        columns (a warp reads 128 contiguous bytes of a weight row) and
+//        splits K over the 8 warps of a block and, where the columns alone
+//        give too few blocks (N = 256), over blocks: the partial int32 sums of
+//        a K split meet in an int32 workspace through atomics and the last
+//        block of a column tile writes the output and zeroes the workspace
+//        again. Four rows of a lane's four columns are transposed in
+//        registers (byte_perm) so that one dp4a does four multiply-adds.
+//      - (K, N), M > 16: dyn_mma_kernel, mma.sync.m16n8k32 on 64 x 128 tiles
+//        with the next tile prefetched into registers; the weight is
+//        N-contiguous and ldmatrix cannot transpose 8-bit elements, so each
+//        tile is transposed in 4 x 4 byte blocks while it is staged.
+//    A (K, N) weight is what a caller passes directly, or a tied one.
 //  * w8_matmul with 16-bit A is bound by bf16 tensor-core throughput at the
 //    UNet's sites (2 M N K operations at 989 TFLOP/s; the weight is 1 byte
 //    per value), by how often a weight tile is converted, and, at its 130
@@ -170,7 +206,7 @@ __device__ __forceinline__ uint32_t ld32(const void* p) { return *reinterpret_ca
 
 struct DynParams {
   const void* a;       // (M, K), row-major
-  const uint8_t* w;    // (K, N) int8, row-major
+  const uint8_t* w;    // (K, N) int8, row-major, or K-major (N, K)
   const float* ws;     // (N,) weight scales, or nullptr: ws_scalar
   float ws_scalar;
   void* out;           // (M, N) in A's dtype
@@ -178,6 +214,7 @@ struct DynParams {
   unsigned* count;     // M <= 16: per column tile arrival counts, zero on entry and on exit
   uint8_t* aq;         // M > 16: (M, K) int8 scratch, the quantized A
   float* sa;           // M > 16: (M,) scratch, the row scales
+  int* part;           // M > 16, (N, K) weight, split K: (splits, M, N) int32 partials, or nullptr
   int M, K, N;
 };
 
@@ -483,6 +520,345 @@ __global__ void __launch_bounds__(kThreads) dyn_mma_kernel(const DynParams p) {
       }
 }
 
+// ---- kernel 6 on a K-major (N, K) weight ----------------------------------
+
+// float(acc) * sa * ws in the twin's order, each product rounded (no FMA)
+template <typename T>
+__device__ __forceinline__ T dyn_out(int acc, float sa, float ws) {
+  return from_f32<T>(__fmul_rn(__fmul_rn(__int2float_rn(acc), sa), ws));
+}
+
+// eight consecutive elements of a row of A as floats (K % 16 == 0, so never
+// past K); VEC: the row is 16-byte aligned
+template <typename T, bool VEC>
+__device__ __forceinline__ void load8(const T* row, int k, float (&v)[8]) {
+  if constexpr (VEC && std::is_same<T, float>::value) {
+    const float4 lo = *reinterpret_cast<const float4*>(row + k), hi = *reinterpret_cast<const float4*>(row + k + 4);
+    v[0] = lo.x, v[1] = lo.y, v[2] = lo.z, v[3] = lo.w, v[4] = hi.x, v[5] = hi.y, v[6] = hi.z, v[7] = hi.w;
+  } else if constexpr (VEC) {
+    alignas(16) T e[8];
+    *reinterpret_cast<uint4*>(e) = *reinterpret_cast<const uint4*>(row + k);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) v[j] = to_f32(e[j]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) v[j] = to_f32(row[k + j]);
+  }
+}
+
+constexpr int kNkARegs = 3;  // pieces of 8 elements of a row of A a thread holds: K <= 6144
+
+// One row of A (K % 8 == 0, K <= 8 kThreads kNkARegs) quantized by a whole
+// block into dst (shared or device memory), the arithmetic of
+// dyn_quant_rows_kernel: each thread holds its pieces of 8 elements in
+// registers from the row maximum to the s8 bytes, every thread reduces the
+// warps' maxima itself (one read of A, one barrier). Returns sa. s_max: 8
+// floats of shared memory; the caller synchronizes before reading dst.
+template <typename T, bool AVEC>
+__device__ __forceinline__ float quantize_row_held(const T* row, int K, uint8_t* dst, float* s_max) {
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  float v[kNkARegs][8];
+  float mx = 0.f;
+#pragma unroll
+  for (int j = 0; j < kNkARegs; ++j) {
+    const int k = 8 * (tid + kThreads * j);
+    if (k < K) {
+      load8<T, AVEC>(row, k, v[j]);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) mx = fmaxf(mx, fabsf(v[j][e]));
+    }
+  }
+  mx = warp_max(mx);
+  if (lane == 0) s_max[warp] = mx;
+  __syncthreads();
+  mx = 0.f;
+#pragma unroll
+  for (int w = 0; w < kThreads / 32; ++w) mx = fmaxf(mx, s_max[w]);
+  const float sa = fmaxf(mx, 1e-12f) * kInv127;
+#pragma unroll
+  for (int j = 0; j < kNkARegs; ++j) {
+    const int k = 8 * (tid + kThreads * j);
+    if (k < K)
+      *reinterpret_cast<uint2*>(dst + k) = make_uint2(pack_s8(make_float4(v[j][0], v[j][1], v[j][2], v[j][3]), sa),
+                                                      pack_s8(make_float4(v[j][4], v[j][5], v[j][6], v[j][7]), sa));
+  }
+  return sa;
+}
+
+// The quantization in front of the wgmma form, one block a row (K % 16 == 0,
+// K <= 8 kThreads kNkARegs): quantize_row_held into the (M, K) s8 scratch.
+template <typename T, bool AVEC>
+__global__ void __launch_bounds__(kThreads) dyn_quant_rows_held_kernel(const DynParams p) {
+  __shared__ float s_max[kThreads / 32];
+  const int m = blockIdx.x;
+  const float sa = quantize_row_held<T, AVEC>(static_cast<const T*>(p.a) + static_cast<size_t>(m) * p.K, p.K,
+                                              p.aq + static_cast<size_t>(m) * p.K, s_max);
+  if (threadIdx.x == 0) p.sa[m] = sa;
+}
+
+constexpr int kNkCols = kThreads / 32;  // columns of a GEMV block at a time, one a warp
+constexpr int kNkPieces = 4;            // 16-byte weight pieces of a lane per chunk: 2 KB a warp
+
+// M <= MR rows, W (N, K) with K % 16 == 0 and W 16-byte aligned. Block b
+// takes column groups b, b + gridDim.x, ...; warp w column 8 g + w of group
+// g, read in chunks of 32 x kNkPieces 16-byte pieces along K. A warp walks
+// its chunks with the next one's loads in flight while it multiplies the
+// current one. Shared memory: the quantized rows of A (MR x K bytes), their
+// scales, the warps' row maxima.
+template <typename T, int MR, bool AVEC>
+__global__ void __launch_bounds__(kThreads) dyn_gemv_nk_kernel(const DynParams p) {
+  extern __shared__ uint4 gemv_nk_smem[];
+  const int M = p.M, K = p.K, N = p.N;
+  uint8_t* s_aq = reinterpret_cast<uint8_t*>(gemv_nk_smem);
+  float* s_sa = reinterpret_cast<float*>(s_aq + MR * K);
+  float* s_max = s_sa + MR;  // [warp][MR]
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const T* a = static_cast<const T*>(p.a);
+  const int kv = K / 16;                                       // 16-byte pieces of a weight row
+  const int cpc = (kv + 32 * kNkPieces - 1) / (32 * kNkPieces);  // chunks a column
+  const int groups = (N + kNkCols - 1) / kNkCols;
+  const int chunks = cpc * ((groups - static_cast<int>(blockIdx.x) + gridDim.x - 1) / gridDim.x);
+
+  // chunk c of this warp: column 8 (blockIdx.x + (c / cpc) gridDim.x) + warp, pieces from 32 kNkPieces (c % cpc)
+  auto load = [&](uint4 (&wv)[kNkPieces], int c) {
+    const int col = kNkCols * (blockIdx.x + (c / cpc) * gridDim.x) + warp, v0 = 32 * kNkPieces * (c % cpc);
+    const uint4* row = reinterpret_cast<const uint4*>(p.w + static_cast<size_t>(col) * K);
+#pragma unroll
+    for (int u = 0; u < kNkPieces; ++u) {
+      const int v = v0 + 32 * u + lane;
+      wv[u] = col < N && v < kv ? __ldg(row + v) : make_uint4(0, 0, 0, 0);
+    }
+  };
+  uint4 cur[kNkPieces], nxt[kNkPieces];
+  // the first chunk is in flight while A is quantized
+  load(cur, 0);
+
+  if (MR == 1 && K <= 8 * kThreads * kNkARegs) {
+    const float sa = quantize_row_held<T, AVEC>(a, K, s_aq, s_max);
+    if (tid == 0) s_sa[0] = sa;
+    __syncthreads();
+  } else {
+    // 1. row scales
+#pragma unroll
+    for (int m = 0; m < MR; ++m) {
+      if (m >= M) break;
+      float mx = 0.f;
+      for (int k = 8 * tid; k < K; k += 8 * kThreads) {
+        float v[8];
+        load8<T, AVEC>(a + static_cast<size_t>(m) * K, k, v);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) mx = fmaxf(mx, fabsf(v[j]));
+      }
+      mx = warp_max(mx);
+      if (lane == 0) s_max[warp * MR + m] = mx;
+    }
+    __syncthreads();
+    if (tid < M) {
+      float v = 0.f;
+#pragma unroll
+      for (int w = 0; w < kThreads / 32; ++w) v = fmaxf(v, s_max[w * MR + tid]);
+      s_sa[tid] = fmaxf(v, 1e-12f) * kInv127;
+    }
+    __syncthreads();
+    // 2. the rows of A, quantized, eight bytes a thread at a time
+#pragma unroll
+    for (int m = 0; m < MR; ++m) {
+      if (m >= M) break;
+      const float sa = s_sa[m];
+      for (int k = 8 * tid; k < K; k += 8 * kThreads) {
+        float v[8];
+        load8<T, AVEC>(a + static_cast<size_t>(m) * K, k, v);
+        const uint2 q = make_uint2(pack_s8(make_float4(v[0], v[1], v[2], v[3]), sa),
+                                   pack_s8(make_float4(v[4], v[5], v[6], v[7]), sa));
+        *reinterpret_cast<uint2*>(s_aq + static_cast<size_t>(m) * K + k) = q;
+      }
+    }
+    __syncthreads();
+  }
+
+  // 3. the chunks: 16 weight bytes x 16 bytes of each row of A, four dp4a;
+  // after a column's last chunk the lanes' sums meet by shuffles
+  int acc[MR];
+#pragma unroll
+  for (int m = 0; m < MR; ++m) acc[m] = 0;
+  for (int c = 0; c < chunks; ++c) {
+    if (c + 1 < chunks) load(nxt, c + 1);
+    const int v0 = 32 * kNkPieces * (c % cpc);
+#pragma unroll
+    for (int u = 0; u < kNkPieces; ++u) {
+      const int v = v0 + 32 * u + lane;
+      if (v < kv) {
+        const uint4 w = cur[u];
+#pragma unroll
+        for (int m = 0; m < MR; ++m) {
+          if (m < M) {
+            const uint4 q = *reinterpret_cast<const uint4*>(s_aq + static_cast<size_t>(m) * K + 16 * v);
+            int s = __dp4a(static_cast<int>(q.x), static_cast<int>(w.x), acc[m]);
+            s = __dp4a(static_cast<int>(q.y), static_cast<int>(w.y), s);
+            s = __dp4a(static_cast<int>(q.z), static_cast<int>(w.z), s);
+            acc[m] = __dp4a(static_cast<int>(q.w), static_cast<int>(w.w), s);
+          }
+        }
+      }
+    }
+    if (c + 1 < chunks) {
+#pragma unroll
+      for (int u = 0; u < kNkPieces; ++u) cur[u] = nxt[u];
+    }
+    if (c % cpc == cpc - 1) {
+      const int col = kNkCols * (blockIdx.x + (c / cpc) * gridDim.x) + warp;
+#pragma unroll
+      for (int m = 0; m < MR; ++m) {
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) acc[m] += __shfl_xor_sync(0xffffffffu, acc[m], o);
+      }
+      if (col < N) {
+        const float ws = col_scale(p.ws, p.ws_scalar, col);
+        T* out = static_cast<T*>(p.out);
+#pragma unroll
+        for (int m = 0; m < MR; ++m)
+          if (m < M && lane == m) out[static_cast<size_t>(m) * N + col] = dyn_out<T>(acc[m], s_sa[m], ws);
+      }
+#pragma unroll
+      for (int m = 0; m < MR; ++m) acc[m] = 0;
+    }
+  }
+}
+
+template <int CWG>
+struct DynWgCfg {
+  static constexpr int kBM = 64 * CWG, kBN = 128;
+  static constexpr int kStages = 4;
+  static constexpr int kABytes = kBM * gemm90::kBK8;  // kBM rows of one 128-byte k-tile
+  static constexpr int kStageBytes = kABytes + kBN * gemm90::kBK8;
+  // the ring, the tile's row and column scales, the barriers, slack to reach a 1024-byte boundary
+  static constexpr int kSmemBytes = kStages * kStageBytes + 4 * (kBM + kBN) + 16 * kStages + 1024;
+  static constexpr int kThreadsWg = (CWG + 1) * gemm90::kWG;
+  static_assert(CWG * gemm90::OutTile<kBN, 4>::kBytes <= kStages * kStageBytes, "the output tiles reuse the ring");
+  static_assert(kSmemBytes <= 232448, "shared memory of a block");
+};
+
+// two neighbouring outputs into the shared-memory output tile
+template <typename T>
+__device__ __forceinline__ void st_out2(uint32_t addr, T y0, T y1) {
+  if constexpr (std::is_same<T, float>::value) {
+    asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" ::"r"(addr), "f"(y0), "f"(y1) : "memory");
+  } else {
+    alignas(4) T pair[2] = {y0, y1};
+    gemm90::st_shared4(addr, *reinterpret_cast<const uint32_t*>(pair));
+  }
+}
+
+// blockIdx = (M tile, N tile, K split): the quantized A (aq, M x K s8) times
+// the (N, K) weight, warpgroups 0 .. CWG - 1 consume, warpgroup CWG loads.
+// With gridDim.z > 1 the int32 partials go to part (splits, M, N) and
+// dyn_splitk_reduce finishes; kt_per_split k-tiles per split.
+template <typename T, int CWG>
+__global__ void __launch_bounds__(DynWgCfg<CWG>::kThreadsWg, 1)
+    dyn_wgmma_kernel(const DynParams p, int kt_per_split) {
+  using namespace gemm90;
+  using Cfg = DynWgCfg<CWG>;
+  using Out = OutTile<Cfg::kBN, sizeof(T)>;
+  extern __shared__ __align__(16) uint8_t smem_dyn[];
+  const uint32_t stage0 = align1024(smem_u32(smem_dyn));
+  const uint32_t s_sa = stage0 + Cfg::kStages * Cfg::kStageBytes, s_ws = s_sa + 4 * Cfg::kBM;
+  const uint32_t full0 = s_ws + 4 * Cfg::kBN, empty0 = full0 + 8 * Cfg::kStages;
+
+  const int tid = threadIdx.x, wg = tid / kWG, t = tid % kWG;
+  const int M = p.M, K = p.K, N = p.N;
+  const int m0 = blockIdx.x * Cfg::kBM, n0 = blockIdx.y * Cfg::kBN;
+  if (tid == 0) {
+    init_barriers<Cfg::kStages>(full0, empty0, kWG, CWG * kWG);
+    mbar_init_fence();
+  }
+  if (tid < Cfg::kBM) st_shared4(s_sa + 4 * tid, __float_as_uint(m0 + tid < M ? p.sa[m0 + tid] : 0.f));
+  if (tid < Cfg::kBN) st_shared4(s_ws + 4 * tid, __float_as_uint(col_scale(p.ws, p.ws_scalar, min(n0 + tid, N - 1))));
+  __syncthreads();
+
+  const int kt0 = blockIdx.z * kt_per_split;
+  const int nkt = min(kt_per_split, (K + kBK8 - 1) / kBK8 - kt0);
+  if (wg == CWG) {
+    produce<Cfg::kStages>(nkt, full0, empty0, [&](int it, int s) {
+      const uint32_t sb = stage0 + s * Cfg::kStageBytes;
+      const int k0 = (kt0 + it) * kBK8;
+      load_kmajor_tile<Cfg::kBM>(sb, p.aq, K, m0, M, k0, K, t);
+      load_kmajor_tile<Cfg::kBN>(sb + Cfg::kABytes, p.w, K, n0, N, k0, K, t);
+    });
+    return;
+  }
+
+  int acc[Cfg::kBN / 2];
+#pragma unroll
+  for (int i = 0; i < Cfg::kBN / 2; ++i) acc[i] = 0;
+  consume_kmajor<Cfg::kStages>(acc, nkt, stage0 + wg * 64 * kBK8, stage0 + Cfg::kABytes, Cfg::kStageBytes, full0,
+                               empty0, [](int(&d)[Cfg::kBN / 2], uint64_t da, uint64_t db) {
+                                 wgmma_m64n128k32_s8(d, da, db);
+                               });
+
+  const int lrow = (t / 32) * 16 + (t % 32) / 4, lcol = 2 * (t % 4);  // within the warpgroup's tile
+  if (gridDim.z > 1) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + 64 * wg + lrow + 8 * h;
+      if (m >= M) continue;
+      int* part = p.part + (static_cast<size_t>(blockIdx.z) * M + m) * N;
+#pragma unroll
+      for (int j = 0; j < Cfg::kBN / 8; ++j) {
+        const int n = n0 + lcol + 8 * j;
+        if (n + 1 < N && N % 2 == 0) {
+          *reinterpret_cast<int2*>(part + n) = make_int2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+        } else {
+          if (n < N) part[n] = acc[4 * j + 2 * h];
+          if (n + 1 < N) part[n + 1] = acc[4 * j + 2 * h + 1];
+        }
+      }
+    }
+    return;
+  }
+  // every consumer is past its last wgmma: the ring is free for the output tiles
+  named_barrier(1, CWG * kWG);
+  const uint32_t tile = stage0 + wg * Out::kBytes;
+#pragma unroll
+  for (int j = 0; j < Cfg::kBN / 8; ++j) {
+    const int c = lcol + 8 * j;
+    float ws0, ws1;
+    asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n" : "=f"(ws0), "=f"(ws1) : "r"(s_ws + 4 * c));
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = lrow + 8 * h;
+      float sa;
+      asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(sa) : "r"(s_sa + 4 * (64 * wg + r)));
+      st_out2<T>(Out::at(tile, r, c), dyn_out<T>(acc[4 * j + 2 * h], sa, ws0),
+                 dyn_out<T>(acc[4 * j + 2 * h + 1], sa, ws1));
+    }
+  }
+  named_barrier(2 + wg, kWG);
+  const int mt = m0 + 64 * wg;
+  if ((static_cast<long long>(N) * sizeof(T)) % 16 == 0) {
+    Out::flush(tile, p.out, mt, n0, M, N, t);
+  } else {  // rows that are not whole 16-byte pieces (the LM head): element by element
+    const uint8_t* src = smem_dyn + (tile - smem_u32(smem_dyn));
+    T* out = static_cast<T*>(p.out);
+    for (int i = t; i < 64 * Cfg::kBN; i += kWG) {
+      const int r = i / Cfg::kBN, c = i % Cfg::kBN;
+      if (mt + r < M && n0 + c < N)
+        out[static_cast<size_t>(mt + r) * N + n0 + c] = *reinterpret_cast<const T*>(src + r * Out::kPitch + c * sizeof(T));
+    }
+  }
+}
+
+// out = the epilogue of the sum of the int32 partials (exact), one thread an output
+template <typename T>
+__global__ void __launch_bounds__(kThreads) dyn_splitk_reduce(const DynParams p, int splits) {
+  const size_t total = static_cast<size_t>(p.M) * p.N;
+  const size_t i = static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i >= total) return;
+  int s = p.part[i];
+  for (int z = 1; z < splits; ++z) s += p.part[z * total + i];
+  const int m = static_cast<int>(i / p.N), n = static_cast<int>(i % p.N);
+  static_cast<T*>(p.out)[i] = dyn_out<T>(s, p.sa[m], col_scale(p.ws, p.ws_scalar, n));
+}
+
 // K split of the GEMV: enough blocks for ~4 per SM, chunks of at least 128
 // and at most kGemvMaxChunk rows (a multiple of 32: 8 warps x 4 rows)
 void gemv_geometry(int K, int N, int* ksplit, int* kchunk) {
@@ -536,6 +912,84 @@ cudaError_t dyn_dispatch(const DynParams& p, cudaStream_t stream) {
     return wvec ? launch_gemv<T, kGemvMaxM, true>(p, stream) : launch_gemv<T, kGemvMaxM, false>(p, stream);
   }
   return wvec ? launch_dyn_mma<T, true>(p, stream) : launch_dyn_mma<T, false>(p, stream);
+}
+
+// SMs of the current device, asked once
+int sm_count() {
+  static int sms = [] {
+    int dev = 0, n = 132;
+    if (cudaGetDevice(&dev) == cudaSuccess) cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    return n;
+  }();
+  return sms;
+}
+
+template <typename T, int MR>
+cudaError_t launch_gemv_nk(const DynParams& p, cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(MR) * p.K + 4 * MR + 4 * (kThreads / 32) * MR;
+  const bool avec = aligned(p.a, 16);
+  auto kernel = avec ? dyn_gemv_nk_kernel<T, MR, true> : dyn_gemv_nk_kernel<T, MR, false>;
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  // at most the blocks an SM holds at once: each quantizes A once and walks column groups
+  int per_sm = 0;
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
+  if (err != cudaSuccess) return err;
+  const int groups = (p.N + kNkCols - 1) / kNkCols;
+  const int blocks = min(groups, max(1, per_sm) * sm_count());
+  kernel<<<blocks, kThreads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// quantize == 0: the scratch already holds this A's s8 rows and row scales
+// (the caller's previous call read the same, unchanged A), so only the
+// product is launched
+template <typename T, int CWG>
+cudaError_t launch_dyn_wgmma(const DynParams& p, int splits, bool quantize, cudaStream_t stream) {
+  using Cfg = DynWgCfg<CWG>;
+  static cudaError_t attr = cudaFuncSetAttribute(dyn_wgmma_kernel<T, CWG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 Cfg::kSmemBytes);
+  if (attr != cudaSuccess) return attr;
+  const int nkt = (p.K + gemm90::kBK8 - 1) / gemm90::kBK8;
+  const int per = (nkt + splits - 1) / splits;
+  if (splits < 1 || splits > 65535 || (splits - 1) * per >= nkt || (splits > 1 && p.part == nullptr))
+    return cudaErrorInvalidValue;
+  if (quantize) {
+    const bool avec = aligned(p.a, 16);  // K % 16 == 0 and aq is 16-byte aligned
+    if (p.K > 8 * kThreads * kNkARegs) {  // rows longer than the registers hold: read twice
+      if (avec) dyn_quant_rows_kernel<T, true><<<p.M, kThreads, 0, stream>>>(p);
+      else dyn_quant_rows_kernel<T, false><<<p.M, kThreads, 0, stream>>>(p);
+    } else if (avec) {
+      dyn_quant_rows_held_kernel<T, true><<<p.M, kThreads, 0, stream>>>(p);
+    } else {
+      dyn_quant_rows_held_kernel<T, false><<<p.M, kThreads, 0, stream>>>(p);
+    }
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.M + Cfg::kBM - 1) / Cfg::kBM, (p.N + Cfg::kBN - 1) / Cfg::kBN, splits);
+  if (grid.y > 65535) return cudaErrorInvalidValue;
+  dyn_wgmma_kernel<T, CWG><<<grid, Cfg::kThreadsWg, Cfg::kSmemBytes, stream>>>(p, per);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  const size_t total = static_cast<size_t>(p.M) * p.N;
+  dyn_splitk_reduce<T><<<static_cast<unsigned>((total + kThreads - 1) / kThreads), kThreads, 0, stream>>>(p, splits);
+  return cudaGetLastError();
+}
+
+// the K-major forms take an (N, K) weight whose rows are whole 16-byte
+// pieces: mirrored by dyn_variant in kernels/qmatmul.py
+bool dyn_nk_ok(const DynParams& p) { return p.K % 16 == 0 && aligned(p.w, 16); }
+
+template <typename T>
+cudaError_t dyn_nk_dispatch(const DynParams& p, int bm, int splits, bool quantize, cudaStream_t stream) {
+  if (p.M <= kGemvMaxM) return p.M == 1 ? launch_gemv_nk<T, 1>(p, stream) : launch_gemv_nk<T, kGemvMaxM>(p, stream);
+  if (bm == 64) return launch_dyn_wgmma<T, 1>(p, splits, quantize, stream);
+  if (bm == 128) return launch_dyn_wgmma<T, 2>(p, splits, quantize, stream);
+  if (bm == 256) return launch_dyn_wgmma<T, 4>(p, splits, quantize, stream);
+  return cudaErrorInvalidValue;
 }
 
 // ---------------------------------------------------------------------------
@@ -1042,29 +1496,42 @@ cudaError_t w8_dispatch(const W8Params& p, cudaStream_t stream) {
 }  // namespace
 
 // dtype of A and of the output: 0 = float32, 1 = float16, 2 = bfloat16.
-// A is (M, K) and W (K, N), both row-major and contiguous. ws: (N,) float32
-// scales or null (then ws_scalar). workspace, for M <= 16: ceil(N / 128)
-// zeroed counters followed by M * N zeroed int32, left zeroed; for M > 16: a
-// scratch of M * K bytes (16-byte aligned) followed by M floats.
-// Returns a cudaError_t: 0 when the launches were accepted.
+// A is (M, K), row-major and contiguous; W (K, N) row-major, or with w_nk
+// != 0 K-major as (N, K) (K % 16 == 0 and W 16-byte aligned: refused
+// otherwise). ws: (N,) float32 scales or null (then ws_scalar). workspace:
+// for a (K, N) weight and M <= 16, ceil(N / 128) zeroed counters followed by
+// M * N zeroed int32, left zeroed; for M > 16, a scratch of M * K bytes
+// (16-byte aligned) followed by M floats, A quantized (the s8 rows, the row
+// scales); for w_nk and M <= 16 none (null). bm (64, 128 or 256 rows a tile),
+// splits and part (splits * M * N int32, the K split's partials; null when
+// splits == 1) are the caller's plan for the wgmma form (w_nk, M > 16), and
+// quantize == 0 tells it that the workspace already holds this A quantized;
+// the other forms ignore all four. Returns a cudaError_t: 0 when the
+// launches were accepted.
 extern "C" int ostt_w8a8_dyn_matmul(int dtype, const void* a, const void* w, const void* ws,
                                     float ws_scalar, void* out, void* workspace, int M, int K,
-                                    int N, void* stream) {
-  if (M <= 0 || K <= 0 || N <= 0 || workspace == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+                                    int N, int w_nk, int bm, int splits, void* part, int quantize, void* stream) {
+  if (M <= 0 || K <= 0 || N <= 0) return static_cast<int>(cudaErrorInvalidValue);
   DynParams p{a, static_cast<const uint8_t*>(w), static_cast<const float*>(ws), ws_scalar, out,
-              nullptr, nullptr, nullptr, nullptr, M, K, N};
-  if (M <= kGemvMaxM) {
+              nullptr, nullptr, nullptr, nullptr, static_cast<int*>(part), M, K, N};
+  if (w_nk && !dyn_nk_ok(p)) return static_cast<int>(cudaErrorInvalidValue);
+  if (M <= kGemvMaxM && !w_nk) {
+    if (workspace == nullptr) return static_cast<int>(cudaErrorInvalidValue);
     p.count = static_cast<unsigned*>(workspace);
     p.acc = reinterpret_cast<int*>(p.count + (N + kGemvCols - 1) / kGemvCols);
-  } else {
+  } else if (M > kGemvMaxM) {
+    if (workspace == nullptr) return static_cast<int>(cudaErrorInvalidValue);
     p.aq = static_cast<uint8_t*>(workspace);
     p.sa = reinterpret_cast<float*>(p.aq + (static_cast<size_t>(M) * K + 15) / 16 * 16);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool q = quantize != 0;
   switch (dtype) {
-    case 0: return static_cast<int>(dyn_dispatch<float>(p, st));
-    case 1: return static_cast<int>(dyn_dispatch<__half>(p, st));
-    case 2: return static_cast<int>(dyn_dispatch<__nv_bfloat16>(p, st));
+    case 0: return static_cast<int>(w_nk ? dyn_nk_dispatch<float>(p, bm, splits, q, st) : dyn_dispatch<float>(p, st));
+    case 1: return static_cast<int>(w_nk ? dyn_nk_dispatch<__half>(p, bm, splits, q, st) : dyn_dispatch<__half>(p, st));
+    case 2:
+      return static_cast<int>(w_nk ? dyn_nk_dispatch<__nv_bfloat16>(p, bm, splits, q, st)
+                                   : dyn_dispatch<__nv_bfloat16>(p, st));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -44,9 +44,9 @@ _ARGTYPES = {
     # dtype, x, out, sg, sb, gamma, beta, pdtype, partial, ab, N, C, HW, G, eps, silu, chunk, stream
     "ostt_gn_silu": [_I, _P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _L, _I, _F, _I, _I, _P],
     # dtype, x, out, sg, sb, gamma, beta, pdtype, w9, bias, bias_dtype, partial, ab, N, C, H, W, O, G,
-    # eps, chunk, stream
+    # eps, chunk, slab, bm, splits, part, stream
     "ostt_gn_silu_conv": [_I, _P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I,
-                          _F, _I, _P],
+                          _F, _I, _P, _I, _I, _P, _P],
 }
 
 

@@ -70,17 +70,17 @@ def matmul_supported(m: int, k: int, n: int) -> bool:
     return k % 128 == 0 and n % 128 == 0 and (m % 16 == 0 or (m % 8 == 0 and m <= 1024))
 
 
-def split_plan(m: int, k: int, n: int, bn: int) -> Tuple[int, int]:
+def split_plan(m: int, k: int, n: int, bn: int, tile_k: int = TILE_K) -> Tuple[int, int]:
     """(bm, splits) of the wgmma pipeline for an (M, K) x (K, N) product with
-    ``bn``-wide tiles: 64 or 128 rows per tile and the number of K splits,
-    from the shape alone. A split is taken only where the tiles leave SMs
-    idle, never so many that the blocks exceed the SMs, and never finer than
-    4 k-tiles a split. 128-row tiles (a B tile staged once serves twice the
+    ``bn``-wide tiles and ``tile_k``-deep k-tiles: 64 or 128 rows per tile and
+    the number of K splits, from the shape alone. A split is taken only where
+    the tiles leave SMs idle, never so many that the blocks exceed the SMs,
+    and never finer than 4 k-tiles a split. 128-row tiles (a B tile staged once serves twice the
     rows, which halves the traffic from L2) are taken where they alone occupy
     three quarters of the SMs; else the height whose blocks keep the larger
     share of the SMs busy over their waves wins, on a tie again the taller
     one, though it splits further."""
-    nkt = -(-k // TILE_K)
+    nkt = -(-k // tile_k)
     best = None
     for bm in (128, 64):
         if bm == 128 and m <= 64:

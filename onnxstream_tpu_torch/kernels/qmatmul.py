@@ -23,7 +23,14 @@
     A is quantized per row inside the launch (``sa = max(amax, 1e-12) / 127``,
     round half to even, clip to +-127), the dot runs s8 x s8 -> s32 and the
     epilogue is ``acc * sa * w_scale``. The int8 TinyLlama route runs every
-    weight MatMul through it;
+    weight MatMul through it, its weights uploaded K-major as (N, K)
+    (``weight_nk``; the planner's ``tnk`` transform after the per-channel
+    quantization): a GEMV over the weight's rows for M <= 16 and the s8
+    ``wgmma`` pipeline for larger M, tiled and split along K by ``dyn_plan``
+    (``dyn_variant``); that form quantizes an activation once for the
+    consecutive calls that read it unchanged. A (K, N) weight (tied, or
+    passed directly) keeps the GEMV with a K split over blocks and the
+    ``mma.sync`` tiles;
   * ``w8_matmul`` (the ``_w8mm_kernel`` pallas_call): float (..., M, K) x
     uint8 (K, N) -> ``w_scale * (a @ w - w_zero * rowsum(a))``, the uint8
     weight converted in shared memory and never copied to a float tensor in
@@ -59,11 +66,13 @@ import numpy as np
 import torch
 
 from onnxstream_tpu_torch.kernels import build
-from onnxstream_tpu_torch.kernels.matmul import split_plan
+from onnxstream_tpu_torch.kernels.matmul import SMS, split_plan
 
 _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 GEMV_MAX_M = 16  # rows up to which w8a8_dyn_matmul runs as a GEMV (csrc kGemvMaxM)
-GEMV_COLS = 128  # columns per GEMV block (csrc kGemvCols)
+GEMV_COLS = 128  # columns per GEMV block of a (K, N) weight (csrc kGemvCols)
+DYN_TILE_N = 128  # output tile width of w8a8_dyn_matmul's wgmma pipeline (csrc DynWgCfg::kBN)
+DYN_TILE_K = 128  # its k-tile: 128 s8 values, one 128-byte row (csrc gemm90::kBK8)
 W8_TILE_N = 160  # output tile width of w8_matmul's wgmma pipeline (csrc W8Cfg::kBN)
 
 Scale = Union[float, torch.Tensor, np.ndarray]
@@ -71,13 +80,18 @@ Scale = Union[float, torch.Tensor, np.ndarray]
 # device -> zeroed int32 workspace of the dynamic GEMV's K split (M <= 16);
 # every launch leaves it zeroed again. Launches are ordered on one stream.
 _WORKSPACE: Dict[torch.device, torch.Tensor] = {}
+# device -> (A, its version counter, the scratch holding A quantized): the
+# last A that w8a8_dyn_matmul's wgmma form quantized. A call on the same
+# tensor, unchanged since (the q / k / v and the gate / up projections read
+# one activation), reuses the scratch and launches only the product.
+_QUANTIZED_A: Dict[torch.device, Tuple[torch.Tensor, int, torch.Tensor]] = {}
 _FUNCS: Dict[str, object] = {}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
     # a, w, bias, out, out_kind, M, K, N, za, zw, alpha, beta, conv, w_nk, za16, stream
     "ostt_qgemm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P, _I, _P, _P],
-    # dtype, a, w, ws, ws_scalar, out, workspace, M, K, N, stream
-    "ostt_w8a8_dyn_matmul": [_I, _P, _P, _P, _F, _P, _P, _I, _I, _I, _P],
+    # dtype, a, w, ws, ws_scalar, out, workspace, M, K, N, w_nk, bm, splits, part, quantize, stream
+    "ostt_w8a8_dyn_matmul": [_I, _P, _P, _P, _F, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _P],
     # dtype, a, w, sw, zw, sw_scalar, zw_scalar, out, M, K, N, bm, splits, workspace, stream
     "ostt_w8_matmul": [_I, _P, _P, _P, _P, _F, _F, _P, _I, _I, _I, _I, _I, _P, _P],
 }
@@ -100,27 +114,37 @@ def _per_channel(s: Scale, n: int, device: torch.device) -> Union[float, torch.T
     return t.to(device=device, dtype=torch.float32)
 
 
-def _flatten(a: torch.Tensor, w: torch.Tensor, wdtype: torch.dtype, name: str) -> Tuple[torch.Tensor, int, int]:
+def _flatten(a: torch.Tensor, w: torch.Tensor, wdtype: torch.dtype, name: str,
+             weight_nk: bool = False) -> Tuple[torch.Tensor, int, int]:
     if w.dtype != wdtype or w.ndim != 2:
         raise TypeError(f"{name}: the weight must be a 2-D {wdtype} tensor, got {w.dtype} {tuple(w.shape)}")
     if a.dtype not in _DTYPE_CODE:
         raise TypeError(f"{name}: unsupported activation dtype {a.dtype}")
-    k, n = w.shape
+    n, k = w.shape if weight_nk else w.shape[::-1]
     if a.ndim < 1 or a.shape[-1] != k:
         raise ValueError(f"{name}: shapes {tuple(a.shape)} x {tuple(w.shape)} do not chain")
     return a.reshape(-1, k), k, n
 
 
 # --------------------------------------------------------------------- twins
+def dyn_takes_kmajor(k: int) -> bool:
+    """Whether an int8 weight of K rows may be given K-major, as (N, K): the
+    GEMV and the wgmma pipeline read 16-byte pieces of its rows, so K must be
+    a multiple of 16. The planner uploads the int8 MatMul weights so where
+    this holds."""
+    return k % 16 == 0
+
+
 def w8a8_dyn_matmul_reference(a: torch.Tensor, w_s8: torch.Tensor, w_scale: Scale,
-                              out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                              out_dtype: Optional[torch.dtype] = None, weight_nk: bool = False) -> torch.Tensor:
     """Plain twin of the dynamic int8 kernel: per-row symmetric s8 quant of
-    A, exact integer dot, ``acc * sa * w_scale`` in float32."""
-    a2, k, n = _flatten(a, w_s8, torch.int8, "w8a8_dyn_matmul")
+    A, exact integer dot, ``acc * sa * w_scale`` in float32. The weight is
+    (K, N), or (N, K) with ``weight_nk``: the same bits either way."""
+    a2, k, n = _flatten(a, w_s8, torch.int8, "w8a8_dyn_matmul", weight_nk)
     x = a2.float()
     sa = x.abs().amax(dim=1, keepdim=True).clamp_min(1e-12) * (1.0 / 127.0)
     aq = torch.round(x / sa).clamp_(-127, 127)
-    acc = (aq.double() @ w_s8.double()).float()
+    acc = (aq.double() @ (w_s8.t() if weight_nk else w_s8).double()).float()
     out = acc * sa * _per_channel(w_scale, n, a.device)
     return out.to(out_dtype or a.dtype).reshape(*a.shape[:-1], n)
 
@@ -168,40 +192,104 @@ def _workspace(device: torch.device, ints: int) -> torch.Tensor:
     return ws
 
 
+def dyn_plan(m: int, k: int, n: int) -> Tuple[int, int, int]:
+    """(bm, bn, splits): the output tile and the K split ``w8a8_dyn_matmul``
+    gives its wgmma pipeline (a K-major weight, M > 16) for this shape. The
+    product reads its tiles from L2 at about the rate L2 delivers them, so
+    the tallest tile that still fills the card wins: 256 rows where such
+    tiles alone make two waves (the LM head of a 1024-token prefill), 128
+    where they occupy three quarters of the SMs, else 64. The int32 partials
+    of a K split cost more than they save unless the 64-row tiles leave half
+    the SMs idle (the k / v projections: 32 tiles x 4 splits at M = 1024);
+    then kernel 9's ``split_plan`` rule sizes it. The split's workspace is
+    splits * M * N int32."""
+    tiles = lambda bm: -(-m // bm) * -(-n // DYN_TILE_N)
+    if tiles(256) >= 2 * SMS:
+        return 256, DYN_TILE_N, 1
+    if 4 * tiles(128) >= 3 * SMS:
+        return 128, DYN_TILE_N, 1
+    if 2 * tiles(64) >= SMS:
+        return 64, DYN_TILE_N, 1
+    nkt = -(-k // DYN_TILE_K)
+    splits = max(1, min(SMS // tiles(64), nkt // 4))
+    return 64, DYN_TILE_N, -(-nkt // -(-nkt // splits))  # no empty split
+
+
+def _quant_bytes(m: int, k: int) -> int:
+    """Bytes of the quantized A scratch: M x K s8 (16-byte padded), then the
+    row scales (M float32, padded to 4)."""
+    return -(-m * k // 16) * 16 + 16 * -(-m // 4)
+
+
+def dyn_variant(m: int, k: int, n: int, weight_nk: bool = False, w_ptr: int = 0) -> str:
+    """Which kernel of ``csrc/qmatmul.cu`` a ``w8a8_dyn_matmul`` call runs
+    on, as its dispatcher decides from the weight's layout, M, K and the
+    weight's alignment (``dyn_nk_ok`` there): for a K-major (N, K) weight
+    with ``dyn_takes_kmajor(k)`` and 16-byte aligned rows, ``"gemv_nk"`` (M
+    <= 16) or ``"wgmma"``; an (N, K) weight that misses that is
+    ``"refused"``; a (K, N) weight takes ``"gemv"`` (M <= 16, K split over
+    blocks) or ``"mma"``."""
+    if weight_nk:
+        if not (dyn_takes_kmajor(k) and w_ptr % 16 == 0):
+            return "refused"
+        return "gemv_nk" if m <= GEMV_MAX_M else "wgmma"
+    return "gemv" if m <= GEMV_MAX_M else "mma"
+
+
 def w8a8_dyn_matmul(a: torch.Tensor, w_s8: torch.Tensor, w_scale: Scale,
-                    out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                    out_dtype: Optional[torch.dtype] = None, weight_nk: bool = False) -> torch.Tensor:
     """float (..., M, K) x int8 (K, N) -> (..., M, N), per-row dynamic s8
     activations; ``w_scale`` a number or an (N,) vector. Output in
-    ``out_dtype`` (default A's dtype).
+    ``out_dtype`` (default A's dtype). With ``weight_nk`` the weight is given
+    K-major as (N, K), the form the executor uploads for the int8 route; it
+    then needs K a multiple of 16 on either device (``dyn_takes_kmajor``),
+    and on the card 16-byte aligned rows (``dyn_variant``).
 
     On CUDA tensors it launches the kernel on the current stream, or raises;
     on CPU tensors it computes the plain twin. Every launch adds one to
     ``w8a8_dyn_matmul.launches``."""
+    a2, k, n = _flatten(a, w_s8, torch.int8, "w8a8_dyn_matmul", weight_nk)
+    if weight_nk and not dyn_takes_kmajor(k):
+        raise ValueError(f"w8a8_dyn_matmul: an (N, K) weight needs K % 16 == 0, got K = {k}")
     if not a.is_cuda:
         if a.device.type == "cpu":
-            return w8a8_dyn_matmul_reference(a, w_s8, w_scale, out_dtype)
+            return w8a8_dyn_matmul_reference(a, w_s8, w_scale, out_dtype, weight_nk)
         raise ValueError(f"w8a8_dyn_matmul runs on CUDA or CPU tensors, not {a.device}")
-    a2, k, n = _flatten(a, w_s8, torch.int8, "w8a8_dyn_matmul")
     ws = _per_channel(w_scale, n, a.device)
     _check_cuda("w8a8_dyn_matmul", a2, w_s8, *([ws] if isinstance(ws, torch.Tensor) else []))
     a2 = a2.contiguous()
     w_s8 = w_s8.contiguous()
     m = a2.shape[0]
+    variant = dyn_variant(m, k, n, weight_nk, w_s8.data_ptr())
+    if variant == "refused":
+        raise ValueError(f"w8a8_dyn_matmul: an (N, K) weight needs 16-byte aligned rows (W at "
+                         f"{w_s8.data_ptr() % 16} mod 16)")
     out = torch.empty((m, n), dtype=a.dtype, device=a.device)
     if out.numel():
-        if m <= GEMV_MAX_M:
+        bm, splits, work, part, quantize = 0, 1, None, None, True
+        if variant == "gemv":
             work = _workspace(a.device, -(-n // GEMV_COLS) + m * n)
-        else:
-            # the quantized A and its row scales
-            work = torch.empty(-(-m * k // 16) * 16 + 4 * m, dtype=torch.uint8, device=a.device)
+        elif variant in ("mma", "wgmma"):
+            last = _QUANTIZED_A.get(a.device)
+            if variant == "wgmma" and last is not None and last[0] is a and last[1] == a._version:
+                work, quantize = last[2], False
+            else:  # the quantized A and its row scales
+                work = torch.empty(_quant_bytes(m, k), dtype=torch.uint8, device=a.device)
+            if variant == "wgmma":
+                bm, _, splits = dyn_plan(m, k, n)
+                if splits > 1:
+                    part = torch.empty(splits * m * n, dtype=torch.int32, device=a.device)
         ws_ptr, ws_scalar = _ptr_or_scalar(ws)
         fn = _func("ostt_w8a8_dyn_matmul")
         with torch.cuda.device(a.device):
             stream = torch.cuda.current_stream(a.device).cuda_stream
             rc = fn(_DTYPE_CODE[a.dtype], a2.data_ptr(), w_s8.data_ptr(), ws_ptr, ws_scalar,
-                    out.data_ptr(), work.data_ptr(), m, k, n, stream)
+                    out.data_ptr(), None if work is None else work.data_ptr(), m, k, n, int(weight_nk),
+                    bm, splits, None if part is None else part.data_ptr(), int(quantize), stream)
         if rc != 0:
             raise RuntimeError(f"w8a8_dyn_matmul: kernel launch failed with CUDA error {rc}")
+        if variant == "wgmma":
+            _QUANTIZED_A[a.device] = (a, a._version, work)
         w8a8_dyn_matmul.launches += 1
     out = out.reshape(*a.shape[:-1], n)
     return out if out_dtype in (None, a.dtype) else out.to(out_dtype)

@@ -35,7 +35,9 @@ the host at first fetch (symmetric per-channel int8 with
 scales and zero points go to the device with it, once. A MatMul whose weight
 is 2-D and quantized runs through a hand-written kernel of
 ``kernels/qmatmul.py``: ``w8a8_dyn_matmul`` for symmetric int8 weights
-(``use_w8a8_dyn_matmul``), ``w8_matmul`` for uint8 weights, from the file
+(``use_w8a8_dyn_matmul``; the planner uploads such a weight K-major, as
+(N, K) through ``WEIGHT_TRANSFORMS["tnk"]``, quantized before the
+relayout), ``w8_matmul`` for uint8 weights, from the file
 (``uint8[scale,zp]``) or forced (``use_w8_matmul``); the activation is cast
 to the compute dtype first. Every other quantized weight is dequantized on
 read, per-channel scales broadcasting on the last axis.
@@ -308,15 +310,14 @@ class Executor:
         GroupNorm + SiLU + conv kernel) -> upload dtype on the host (quantized
         for force_uint8_storage_set) -> pinned -> device."""
         host = self.provider.get(w.name, w.file_dtype, w.file_shape or w.shape)
+        # quantized in the file layout first (per output channel), then
+        # relayouted: kernel 6's int8 weights (tnk) take both steps
+        conv = self._maybe_force_quant(w, host)
+        if conv is None:
+            conv = host
         if w.transform:
-            # the fusion passes leave forced-quantized weights alone, so a
-            # transformed weight is a float one or a uint8 one from the file
-            # (tnk) and skips _maybe_force_quant
-            conv = WEIGHT_TRANSFORMS[w.transform](host).to(w.upload_dtype)
-        else:
-            conv = self._maybe_force_quant(w, host)
-            if conv is None:
-                conv = host.to(w.upload_dtype)
+            conv = WEIGHT_TRANSFORMS[w.transform](conv)
+        conv = conv.to(w.upload_dtype)
         if self.device.type != "cuda":
             return conv.to(self.device)
         return conv.pin_memory().to(self.device, non_blocking=True)
@@ -426,7 +427,8 @@ class Executor:
             a = a.to(cdt)
         scale, zero = w.quant
         if route == "w8a8_dyn_matmul":
-            return w8a8_dyn_matmul(a, weights_env[w.name], scale, out_dtype=cdt)
+            # the planner uploads the weight as (N, K) where kernel 6's K-major forms take it
+            return w8a8_dyn_matmul(a, weights_env[w.name], scale, out_dtype=cdt, weight_nk=w.transform == "tnk")
         return w8_matmul(a, weights_env[w.name], scale, zero, out_dtype=cdt)
 
     def _eval_qlinear(self, mode: str, op: OpNode, env: Dict[str, Any],

@@ -30,7 +30,7 @@ import torch
 from onnxstream_tpu_torch.dtypes import DType, to_numpy, to_torch, torch_dtype
 from onnxstream_tpu_torch.ir import Graph, OpNode, TensorSpec
 from onnxstream_tpu_torch.kernels.matmul import oihw_to_w9co
-from onnxstream_tpu_torch.kernels.qmatmul import qconv_takes_nhwc, qgemm_takes_kmajor
+from onnxstream_tpu_torch.kernels.qmatmul import dyn_takes_kmajor, qconv_takes_nhwc, qgemm_takes_kmajor
 from onnxstream_tpu_torch.ops import Ctx, StaticRequired, get_impl
 from onnxstream_tpu_torch.runtime.config import SessionConfig
 
@@ -91,8 +91,9 @@ def _t9co(a: torch.Tensor) -> torch.Tensor:
 def _tnk(a: torch.Tensor) -> torch.Tensor:
     """(K, N) MatMul weight -> (N, K): the K-major B operand of kernel 3's u8
     wgmma pipeline (kernels/qmatmul.py qmatmul with ``weight_nk``), which has
-    no transpose for 8-bit operands. The relayout happens once on the host at
-    upload."""
+    no transpose for 8-bit operands, and of kernel 6's s8 pipeline and GEMV
+    (``w8a8_dyn_matmul`` with ``weight_nk``; the executor quantizes that
+    weight first). The relayout happens once on the host at upload."""
     return a.t().contiguous()
 
 
@@ -245,13 +246,30 @@ class _Planner:
                 and qgemm_takes_kmajor(spec.shape[0]) and not spec.transform
                 and self._wuse.get(spec.name, 0) == 1)
 
+    def _dyn_kmajor(self, op: OpNode, i: int) -> bool:
+        """Whether input i of op is the weight of a MatMul that the executor
+        runs through kernel 6 (``w8a8_dyn_matmul``; its ``_quant_route``): a
+        2-D float weight in ``force_uint8_storage_set`` stored as symmetric
+        int8 (``int8_symmetric_storage``) with ``use_w8a8_dyn_matmul``, the
+        MatMul not run in float32 (``requires_upcast``), K as the K-major
+        forms take it (``dyn_takes_kmajor``), read by this op alone (a tied
+        weight keeps the file layout). Such a weight uploads K-major, as (N,
+        K) through WEIGHT_TRANSFORMS["tnk"], quantized before the relayout."""
+        spec, cfg = op.inputs[i], self.config
+        return (i == 1 and op.op_type == "MatMul" and len(op.inputs) == 2 and len(spec.shape) == 2
+                and _upload_dtype(spec, cfg) == torch.int8 and cfg.use_w8a8_dyn_matmul
+                and dyn_takes_kmajor(spec.shape[0]) and not spec.transform
+                and self._wuse.get(spec.name, 0) == 1
+                and not (cfg.requires_upcast is not None and cfg.requires_upcast(op.op_type, op.name)))
+
     def _relayout(self, op: OpNode, i: int) -> Optional[str]:
-        """The upload transform that input i of op gets for kernel 3 or 4's
-        wgmma pipeline, or None: ``"tnk"`` for a calibrated W8A8 MatMul's
-        weight (``_kmajor``); ``"ohwi"`` for a calibrated W8A8 Conv's 4-D
+        """The upload transform that input i of op gets for kernel 3, 4 or 6's
+        K-major forms, or None: ``"tnk"`` for a calibrated W8A8 MatMul's
+        weight (``_kmajor``) and for an int8 MatMul weight of kernel 6
+        (``_dyn_kmajor``); ``"ohwi"`` for a calibrated W8A8 Conv's 4-D
         weight that the pipeline takes (``qconv_takes_nhwc``), read by this op
         alone. The executor then quantizes that conv's input channels-last."""
-        if self._kmajor(op, i):
+        if self._kmajor(op, i) or self._dyn_kmajor(op, i):
             return "tnk"
         spec = op.inputs[i]
         if (i == 1 and qlinear_mode(op, self.config) == "conv" and len(spec.shape) == 4

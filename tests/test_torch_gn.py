@@ -17,8 +17,9 @@ on the CPU, inputs made from a seed with numpy:
     kernel's VMEM block picker.
 
 The CUDA kernels themselves are held against the twins by the ``gpu``-marked
-tests (skipped without a card) and by ``chip_smoke.py``. Session-level parity
-is in ``tests/test_torch_session.py``.
+tests of tests/test_torch_gn_card.py (skipped without a card), which also holds
+the operands and cases shared with this module, and by ``chip_smoke.py``.
+Session-level parity is in ``tests/test_torch_session.py``.
 """
 
 import jax.numpy as jnp
@@ -40,7 +41,9 @@ from onnxstream_tpu.runtime.weights import DictWeightsProvider as JaxDict
 from onnxstream_tpu_torch import Session, SessionConfig
 from onnxstream_tpu_torch.ir import parse_model_txt
 from onnxstream_tpu_torch.kernels.gn_conv import (
+    gn_conv_plan,
     gn_conv_problem,
+    gn_conv_variant,
     gn_silu_conv,
     gn_silu_conv_reference,
     oihw_to_w9,
@@ -50,6 +53,7 @@ from onnxstream_tpu_torch.kernels.gn_silu import gn_silu, gn_silu_problem, gn_si
 from onnxstream_tpu_torch.runtime import fusion
 from onnxstream_tpu_torch.runtime.planner import WEIGHT_TRANSFORMS
 from onnxstream_tpu_torch.runtime.weights import DictWeightsProvider, params_from_numpy
+from test_torch_gn_card import GN_CASES, GN_CONV_CASES, _conv_inputs, _gn_inputs
 
 CPU = torch.device("cpu")
 T = torch.from_numpy
@@ -60,29 +64,10 @@ def _bf16(a: np.ndarray) -> torch.Tensor:
 
 
 # ------------------------------------------------------------- kernel 7's twin
-def _gn_inputs(n, c, h, w, groups, seed=0):
-    """The operands of tests/test_gn_silu.py ``_mk``."""
-    rng = np.random.RandomState(seed)
-    x = rng.randn(n, c, h, w).astype(np.float32)
-    sg = (1.0 + 0.1 * rng.randn(groups)).astype(np.float32)
-    sb = (0.05 * rng.randn(groups)).astype(np.float32)
-    gamma = (1.0 + 0.2 * rng.randn(c)).astype(np.float32)
-    beta = (0.1 * rng.randn(c)).astype(np.float32)
-    return x, sg, sb, gamma, beta
-
-
 def _jax_gn_silu(oracle, args, groups, silu):
     if oracle == "pallas":
         return jax_gn_silu.gn_silu_pallas(*args, groups=groups, eps=1e-5, silu=silu, interpret=True)
     return jax_gn_silu.gn_silu_reference(*args, groups, 1e-5, silu)
-
-
-GN_CASES = [
-    (1, 64, 8, 8, 32, True),     # C/G = 2, tiny spatial
-    (1, 320, 16, 16, 32, True),  # the SD1.5 channel count, C/G = 10
-    (2, 40, 4, 4, 8, False),     # batch 2, no SiLU, C/G = 5
-    (1, 24, 5, 7, 4, True),      # H W = 35
-]
 
 
 @pytest.mark.parametrize("oracle", ["pallas", "reference"])
@@ -127,26 +112,6 @@ def test_gn_silu_problem(shape, groups, dtype, ok):
 
 
 # ------------------------------------------------------------- kernel 8's twin
-def _conv_inputs(n, c, g, h, w, o, bias):
-    """The operands of tests/test_gn_conv.py ``test_kernel_matches_oracle``."""
-    rng = np.random.RandomState(0)
-    x = rng.randn(n, c, h, w).astype(np.float32)
-    sg = rng.rand(g).astype(np.float32) + 0.5
-    sb = rng.randn(g).astype(np.float32)
-    gamma = rng.rand(c).astype(np.float32) + 0.5
-    beta = rng.randn(c).astype(np.float32)
-    wt = 0.1 * rng.randn(o, c, 3, 3).astype(np.float32)
-    bv = rng.randn(o).astype(np.float32) if bias else None
-    return x, sg, sb, gamma, beta, wt, bv
-
-
-GN_CONV_CASES = [
-    (2, 16, 4, 5, 7, 16, True),   # odd spatial: border masks on every edge
-    (1, 32, 8, 8, 8, 24, False),  # no bias, O != C
-    (1, 20, 4, 4, 4, 8, True),    # C/G = 5
-]
-
-
 @pytest.mark.parametrize("oracle", ["pallas", "reference"])
 @pytest.mark.parametrize("n,c,g,h,w,o,bias", GN_CONV_CASES)
 def test_gn_silu_conv_twin_matches_jax(n, c, g, h, w, o, bias, oracle):
@@ -373,41 +338,48 @@ def test_gn_conv_problem(c, o, h, w, dtype, ok):
     assert (gn_conv_problem(c, o, h, w, dtype) is None) == ok
 
 
-# ------------------------------------------------------- the kernels on a card
-def _card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
-    return torch.device("cuda")
+# ------------------------------------------- kernel 8's variants at the SD sites
+def _fused_conv_sites(gb):
+    """(N, C, H, W, O) of every ostpu.gn_silu_conv that fuse_gn_conv makes
+    of a full-width graph (weights left lazy: only shapes are read)."""
+    raw = parse_model_txt(gb.to_text())
+    cfg = SessionConfig(device=CPU, fuse_gn_conv=True, fuse_groupnorm=True)
+    g = fusion.fuse_gn_conv(raw, cfg, lambda name, dt, shape: np.asarray(gb.weights[name]))
+    return [(*op.inputs[0].shape, op.outputs[0].shape[1]) for op in g.ops if op.op_type == "ostpu.gn_silu_conv"]
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2), (torch.float16, 2e-2)])
-@pytest.mark.parametrize("n,c,h,w,groups,silu", GN_CASES + [(1, 320, 64, 64, 32, True), (1, 128, 256, 256, 32, False)])
-def test_gn_silu_kernel_matches_twin_on_card(n, c, h, w, groups, silu, dtype, tol):
-    dev = _card()
-    x, *rest = _gn_inputs(n, c, h, w, groups)
-    args = [T(x).to(dev, dtype)] + [T(a).to(dev, dtype) for a in rest]
-    before = gn_silu.launches
-    got = gn_silu(*args, groups, 1e-5, silu)
-    torch.cuda.synchronize()
-    assert gn_silu.launches == before + 1
-    want = gn_silu_reference(*args, groups, 1e-5, silu)
-    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+@pytest.mark.parametrize("model,count", [("SD15", 45), ("VAE_SD", 29)])
+def test_every_sd_gn_conv_site_takes_the_wgmma_variant(model, count):
+    """All 45 chains of the SD1.5 UNet and all 29 of the SD VAE decoder fuse,
+    and every one takes the wgmma variant in 16 bits (C a multiple of 64:
+    whole k-tiles) with a plan that splits K only where the tiles leave SMs
+    idle, never into an empty split; float32 keeps the FMA kernel."""
+    from onnxstream_tpu_torch.kernels.matmul import SMS
+    from onnxstream_tpu_torch.models.sd.unet import SD15, build_unet
+    from onnxstream_tpu_torch.models.sd.vae import VAE_SD, build_vae_decoder
+
+    gb = build_unet(SD15, lazy_weights=True) if model == "SD15" else build_vae_decoder(VAE_SD, lazy_weights=True)
+    sites = _fused_conv_sites(gb)
+    assert len(sites) == count
+    for n, c, h, w, o in sites:
+        assert c % 64 == 0 and gn_conv_problem(c, o, h, w, torch.bfloat16, 32, n) is None
+        assert gn_conv_variant(torch.bfloat16, c, 0) == gn_conv_variant(torch.float16, c, 256) == "wgmma"
+        assert gn_conv_variant(torch.float32, c, 0) == "fma"
+        bm, splits = gn_conv_plan(n, c, h, w, o)
+        nkt, tiles = 9 * c // 64, -(-o // bm) * -(-(n * h * w) // 128)
+        per = -(-nkt // splits)
+        assert bm in (64, 128) and (splits - 1) * per < nkt
+        assert splits == 1 or (tiles * splits <= SMS and per >= 4)
+        # split: the UNet's 32 x 32 and smaller levels and its conv_out (O = 4); never the VAE's
+        assert (splits > 1) == (model == "SD15" and (h * w <= 32 * 32 or o < 64))
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2), (torch.float16, 2e-2)])
-@pytest.mark.parametrize("n,c,g,h,w,o,bias", GN_CONV_CASES + [(1, 320, 32, 64, 64, 320, True), (1, 320, 32, 64, 64, 4, True),
-                                                             (2, 64, 8, 33, 17, 70, False)])
-def test_gn_silu_conv_kernel_matches_twin_on_card(n, c, g, h, w, o, bias, dtype, tol):
-    dev = _card()
-    x, sg, sb, gamma, beta, wt, bv = _conv_inputs(n, c, g, h, w, o, bias)
-    args = [T(a).to(dev, dtype) for a in (x, sg, sb, gamma, beta, oihw_to_w9(wt))]
-    b = None if bv is None else T(bv).to(dev, dtype)
-    before = gn_silu_conv.launches
-    torch.backends.cudnn.allow_tf32 = False
-    got = gn_silu_conv(*args, b, groups=g, eps=1e-5)
-    torch.cuda.synchronize()
-    assert gn_silu_conv.launches == before + 1
-    want = gn_silu_conv_reference(*args, b, g, 1e-5)
-    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol * max(1.0, want.float().abs().max().item()))
+@pytest.mark.parametrize("dtype,c,w9_ptr,want", [
+    (torch.bfloat16, 320, 0, "wgmma"),
+    (torch.float16, 72, 4096, "wgmma"),   # C % 64 != 0: the last k-tile of a tap is zero past C
+    (torch.bfloat16, 20, 0, "mma"),       # C % 8 != 0: a channel run is not whole 16-byte pieces
+    (torch.bfloat16, 320, 2, "mma"),      # w9 off a 16-byte boundary
+    (torch.float32, 320, 0, "fma"),       # full float32: wgmma has no float32 form
+])
+def test_gn_conv_variant_cases(dtype, c, w9_ptr, want):
+    assert gn_conv_variant(dtype, c, w9_ptr) == want

@@ -351,6 +351,28 @@ def test_int8_pipeline_matches_jax(jax_int8_ref):
         assert len(ex.quant_routes) == routes and set(ex.quant_routes.values()) == {"w8a8_dyn_matmul"}, key
 
 
+def test_int8_pipeline_uploads_its_matmul_weights_kmajor():
+    """Every weight that kernel 6 reads is uploaded K-major ('tnk', (N, K)),
+    quantized per output channel first: the device copy is the transposed
+    file-layout quantization, in every bucket session; the float weights
+    (norms, the embedding) keep their layout."""
+    from onnxstream_tpu_torch.runtime.quantization import quantize_weight_symmetric_per_channel
+
+    p = _port(int8_weights=True)
+    p.forward(PROMPT)
+    p.decode_on_device(7, 2)
+    for key, s in p._sessions.items():
+        ex = next(iter(s._executors.values()))
+        args = {w.name: w for w in ex.plan.arg_weights}
+        tagged = {n for n, w in args.items() if w.transform == "tnk"}
+        assert tagged == {n for n, w in args.items() if w.symmetric}, key
+        assert len(tagged) == 7 * LLAMA_TINY.layers + 1 and "lm_head.weight.bin" in tagged
+        for n in tagged:
+            dev = (ex._resident.get(n) or p._shared_dev_weights.get((n, args[n].shape, "torch.int8", "tnk")))[0]
+            q, _ = quantize_weight_symmetric_per_channel(np.asarray(p._weight_bank[n], np.float32))
+            assert np.array_equal(dev.numpy(), q.T), n
+
+
 def test_int8_bucket_sessions_share_weights_with_their_scales():
     """The bucket sessions share one upload of every weight of at least 1 MiB
     (here the embedding and the 64 x 16384 int8 LM head); a session that
@@ -368,6 +390,8 @@ def test_int8_bucket_sessions_share_weights_with_their_scales():
     assert len(forced) == 7 * cfg.layers + 1 and "lm_head.weight.bin" in forced
     for n in forced:
         w0, w1 = args[0][n], args[1][n]
-        assert isinstance(w1.quant[0], torch.Tensor) and tuple(w1.quant[0].shape) == (w1.shape[1],)
+        # uploaded K-major for kernel 6 (tnk): the device shape is (N, K), the scales (N,)
+        assert w0.transform == w1.transform == "tnk" and w1.shape == w1.file_shape[::-1]
+        assert isinstance(w1.quant[0], torch.Tensor) and tuple(w1.quant[0].shape) == (w1.shape[0],)
         assert w1.quant[1] == 0.0 and torch.equal(w0.quant[0], w1.quant[0])
     assert args[1]["lm_head.weight.bin"].quant[0] is args[0]["lm_head.weight.bin"].quant[0]

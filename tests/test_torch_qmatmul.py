@@ -6,9 +6,12 @@ CPU (``interpret=True``) and against ``w8a8_dyn_matmul_xla``, the form the JAX
 executor dispatches to; the quantization copies must give the JAX package's
 arrays bit for bit; single-MatMul sessions with int8 and uint8 weights must
 agree with the JAX sessions and take the quantized route; ``w8_plan`` and
-``w8_variant`` at the uint8 UNet step's shapes. The CUDA kernels
-themselves are held against the twins by the ``gpu``-marked tests (skipped
-without a card) and by ``chip_smoke.py``.
+``w8_variant`` at the uint8 UNet step's shapes; the K-major int8 weight of
+kernel 6 (``weight_nk``: the twin's bits on (N, K) and (K, N), the planner's
+``tnk`` tag, ``dyn_variant`` and ``dyn_plan`` at the TinyLlama shapes). The
+CUDA kernels themselves are held against the twins by the ``gpu``-marked
+tests of tests/test_torch_qmatmul_card.py (skipped without a card) and by
+``chip_smoke.py``.
 """
 
 import numpy as np
@@ -29,6 +32,8 @@ from onnxstream_tpu_torch.convert import quantize as convert_quantize
 from onnxstream_tpu_torch.kernels import qmatmul
 from onnxstream_tpu_torch.kernels.matmul import SMS, TILE_K
 from onnxstream_tpu_torch.kernels.qmatmul import (
+    dyn_plan,
+    dyn_variant,
     w8_matmul,
     w8_matmul_reference,
     w8_plan,
@@ -38,9 +43,9 @@ from onnxstream_tpu_torch.kernels.qmatmul import (
 )
 from onnxstream_tpu_torch.runtime import quantization
 from onnxstream_tpu_torch.runtime.weights import DictWeightsProvider
+from test_torch_qmatmul_card import LLAMA_KN, TORCH_DTYPE
 
 CPU = torch.device("cpu")
-TORCH_DTYPE = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 JAX_DTYPE = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 
 
@@ -388,83 +393,116 @@ def test_w8_variant_is_a_function_of_dtype_shape_and_alignment(dtype, m, k, n, a
     assert w8_variant(dtype, m, k, n, a_ptr, w_ptr) == want
 
 
-# ------------------------------------------------------- the kernels on a card
-def _card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    return torch.device("cuda")
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("m,k,n", [(1, 2048, 256), (1, 2048, 32003), (5, 100, 300), (77, 320, 1280),
-                                   (130, 5632, 2048)])
+# ------------------------------------------- kernel 6: the K-major weight
+@pytest.mark.parametrize("form", ["pallas_interpret", "xla"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_dyn_kernel_matches_twin_on_card(m, k, n, dtype):
-    dev = _card()
-    gen = torch.Generator(device=dev).manual_seed(0)
-    a = torch.randn(m, k, device=dev, generator=gen).to(TORCH_DTYPE[dtype])
-    w = torch.randint(-127, 128, (k, n), device=dev, generator=gen, dtype=torch.int8)
-    ws = torch.rand(n, device=dev, generator=gen) * 0.02 + 0.001
-    out = w8a8_dyn_matmul(a, w, ws)
-    torch.cuda.synchronize()
-    ref = w8a8_dyn_matmul_reference(a, w, ws)
-    if dtype == "float32":
-        assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+@pytest.mark.parametrize("m,k,n", [(1, 176, 33), (16, 96, 257), (17, 176, 33), (77, 2064, 31)])
+def test_dyn_twin_kmajor_matches_jax_and_the_kn_twin(m, k, n, dtype, form):
+    """The twin on the (N, K) weight gives the (K, N) twin's bits (M on both
+    sides of the GEMV limit, odd N, K off the 128-byte k-tile) and the JAX
+    kernel's output on the (K, N) weight within the JAX bar."""
+    a = np.random.RandomState(m).randn(m, k).astype(np.float32)
+    rng = np.random.RandomState(k)
+    w = rng.randint(-127, 128, (k, n)).astype(np.int8)
+    ws = rng.rand(n).astype(np.float32) * 0.02 + 0.001
+    ta = torch.from_numpy(a).to(TORCH_DTYPE[dtype])
+    w_nk = torch.from_numpy(np.ascontiguousarray(w.T))
+    got = w8a8_dyn_matmul(ta, w_nk, torch.from_numpy(ws), weight_nk=True)
+    assert torch.equal(got, w8a8_dyn_matmul_reference(ta, torch.from_numpy(w), torch.from_numpy(ws)))
+    assert torch.equal(got, w8a8_dyn_matmul_reference(ta, w_nk, torch.from_numpy(ws), weight_nk=True))
+    ja = jnp.asarray(a, JAX_DTYPE[dtype])
+    if form == "xla":
+        want = w8a8_dyn_matmul_xla(ja, jnp.asarray(w), ws)
     else:
-        torch.testing.assert_close(out.float(), ref.float(), rtol=1e-2, atol=1e-2)
+        want = jax_dyn_matmul(ja, jnp.asarray(w), ws, interpret=True)
+    assert _rel(_port_out(got), want) <= (2e-5 if dtype == "float32" else 1e-2)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("m,k,n", [
-    (64, 320, 320), (77, 768, 320), (100, 130, 33), (1024, 1280, 10240),
-    (4096, 320, 2560),     # 128-row tiles, 160-wide, no split
-    (256, 1280, 1280),     # 4 splits of 5 k-tiles
-    (256, 1344, 1280),     # 21 k-tiles in 4 splits of 6: a ragged last split
-    (1, 1280, 1280),       # one row in a 64-row tile, split K
-    (200, 1000, 336),      # M not a multiple of the tile, K % 64 != 0, N % 160 != 0
-    (130, 16, 16),         # one short k-tile, one 16-column strip
+def test_dyn_kmajor_needs_k_a_multiple_of_16():
+    a, w = torch.randn(2, 40), torch.zeros(8, 40, dtype=torch.int8)
+    with pytest.raises(ValueError, match="K % 16"):
+        w8a8_dyn_matmul(a, w, 0.1, weight_nk=True)
+
+
+@pytest.mark.parametrize("m", [1, 16, 17, 128, 512, 1024])
+@pytest.mark.parametrize("k,n", LLAMA_KN)
+def test_dyn_variant_and_plan_at_the_tinyllama_shapes(m, k, n):
+    """Every TinyLlama MatMul takes a K-major form: the GEMV up to M = 16, the
+    s8 wgmma pipeline above, its K split never empty, never beyond the SMs,
+    never finer than 4 k-tiles and only on 64-row tiles that leave half the
+    SMs idle; a (K, N) weight keeps the earlier pair."""
+    assert dyn_variant(m, k, n, True, 0) == ("gemv_nk" if m <= 16 else "wgmma")
+    assert dyn_variant(m, k, n, False, 0) == ("gemv" if m <= 16 else "mma")
+    bm, bn, splits = dyn_plan(m, k, n)
+    nkt, tiles = -(-k // 128), -(-m // bm) * -(-n // bn)
+    per = -(-nkt // splits)
+    assert bm in (64, 128, 256) and bn == 128 and (splits - 1) * per < nkt
+    assert splits == 1 or (bm == 64 and 2 * tiles < SMS and tiles * splits <= SMS and per >= 4)
+
+
+@pytest.mark.parametrize("m,k,n,weight_nk,w_ptr,want", [
+    (1, 2048, 256, True, 0, "gemv_nk"),
+    (16, 2048, 32003, True, 4096, "gemv_nk"),
+    (17, 2048, 32003, True, 0, "wgmma"),
+    (1, 2056, 256, True, 0, "refused"),     # K % 16 != 0: rows are not whole 16-byte pieces
+    (1024, 2048, 256, True, 8, "refused"),  # a misaligned (N, K) view
+    (1024, 2056, 256, False, 8, "mma"),     # a (K, N) weight takes any K and pointer
+    (3, 100, 300, False, 1, "gemv"),
 ])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
-def test_w8_kernel_matches_twin_on_card(m, k, n, dtype):
-    dev = _card()
-    gen = torch.Generator(device=dev).manual_seed(0)
-    a = torch.randn(m, k, device=dev, generator=gen).to(TORCH_DTYPE[dtype])
-    w = torch.randint(0, 256, (k, n), device=dev, generator=gen, dtype=torch.uint8)
-    out = w8_matmul(a, w, 0.013, 117)
-    torch.cuda.synchronize()
-    ref = w8_matmul_reference(a, w, 0.013, 117)
-    tol = 1e-4 if dtype == "float32" else 2e-2
-    assert (out.float() - ref.float()).abs().max().item() <= tol * ref.float().abs().max().item()
+def test_dyn_variant_cases(m, k, n, weight_nk, w_ptr, want):
+    assert dyn_variant(m, k, n, weight_nk, w_ptr) == want
 
 
-@pytest.mark.gpu
-def test_w8_misaligned_view_takes_the_masked_kernel_on_card():
-    """A weight view that starts 4 bytes off a 16-byte boundary cannot feed
-    cp.async: the dispatcher picks the masked mma.sync kernel from the
-    pointer, and the result still agrees with the twin."""
-    dev = _card()
-    gen = torch.Generator(device=dev).manual_seed(1)
-    m, k, n = 64, 320, 320
-    a = torch.randn(m, k, device=dev, generator=gen).to(torch.bfloat16)
-    flat = torch.randint(0, 256, (k * n + 16,), device=dev, generator=gen, dtype=torch.uint8)
-    w = flat[4:4 + k * n].view(k, n)
-    assert w.is_contiguous() and w.data_ptr() % 16 != 0
-    assert w8_variant(torch.bfloat16, m, k, n, a.data_ptr(), w.data_ptr()) == "mma"
-    out = w8_matmul(a, w, 0.013, 117)
-    torch.cuda.synchronize()
-    ref = w8_matmul_reference(a, w, 0.013, 117)
-    assert (out.float() - ref.float()).abs().max().item() <= 2e-2 * ref.float().abs().max().item()
+@pytest.mark.parametrize("m,k,n,want", [
+    (1024, 2048, 256, (64, 128, 4)),      # k / v projections: 32 tiles x 4 splits of 4 k-tiles
+    (1024, 2048, 2048, (128, 128, 1)),    # 128 tiles fill the card
+    (1024, 2048, 32003, (256, 128, 1)),   # the LM head: 1004 tiles of 256 rows
+    (512, 2048, 2048, (64, 128, 1)),      # 128 tiles of 64 rows: no split
+    (128, 5632, 2048, (64, 128, 4)),      # a 100-token prompt's down projection: 32 tiles x 4 splits
+])
+def test_dyn_plan_cases(m, k, n, want):
+    assert dyn_plan(m, k, n) == want
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("m,k,n", [(256, 1280, 1280), (1, 1280, 1280)])
-def test_w8_split_k_sum_gives_the_same_bits_twice_on_card(m, k, n):
-    dev = _card()
-    assert w8_plan(m, k, n)[2] > 1
-    gen = torch.Generator(device=dev).manual_seed(2)
-    a = torch.randn(m, k, device=dev, generator=gen).to(torch.bfloat16)
-    w = torch.randint(0, 256, (k, n), device=dev, generator=gen, dtype=torch.uint8)
-    first, second = w8_matmul(a, w, 0.013, 117), w8_matmul(a, w, 0.013, 117)
-    torch.cuda.synchronize()
-    assert torch.equal(first, second)
+def _tied_s8_net():
+    """x -> mm1 (w1) -> mm2 (w2) -> mm3 (w2 again: tied), float weights
+    forced to symmetric s8; K of mm1 is 48 (a multiple of 16)."""
+    rng = np.random.RandomState(7)
+    weights = {"w1.bin": rng.randn(48, 32).astype(np.float32), "w2.bin": rng.randn(32, 32).astype(np.float32)}
+    x = rng.randn(1, 5, 48).astype(np.float32)
+    model = ("mm1:MatMul*input:x(1,5,48);w1.bin(float32:48,32)*output:h(1,5,32)\n"
+             "mm2:MatMul*input:h(1,5,32);w2.bin(float32:32,32)*output:g(1,5,32)\n"
+             "mm3:MatMul*input:g(1,5,32);w2.bin(float32:32,32)*output:y(1,5,32)\n")
+    return model, weights, x
+
+
+@pytest.mark.parametrize("cfg,tagged", [
+    (dict(use_w8a8_dyn_matmul=True), True),
+    (dict(use_w8a8_dyn_matmul=False), False),          # dequantized on read: the file layout
+    (dict(use_w8a8_dyn_matmul=True, requires_upcast=lambda t, n: n == "mm1"), False),  # run in float32
+])
+def test_planner_tags_the_int8_matmul_weights(cfg, tagged):
+    """The int8 weights kernel 6 reads upload K-major as (N, K) ('tnk'),
+    quantized per output channel before the relayout (the scales stay (N,));
+    a tied weight (w2, read by two MatMuls) keeps the file layout; the
+    session still equals the JAX package's."""
+    model, weights, x = _tied_s8_net()
+    common = dict(force_uint8_storage_set={"w1.bin", "w2.bin"}, int8_symmetric_storage=True)
+    ps = Session(SessionConfig(device=CPU, **common, **cfg),
+                 weights_provider=DictWeightsProvider({k: torch.from_numpy(v.copy()) for k, v in weights.items()}))
+    jcfg = {k: v for k, v in cfg.items() if k != "requires_upcast"}
+    js = JaxSession(JaxConfig(**common, **jcfg), weights_provider=JaxDict({k: v.copy() for k, v in weights.items()}))
+    for s in (ps, js):
+        s.read_string(model)
+        s.add_tensor("x", x)
+    got, want = ps.run()["y"], np.asarray(js.run()["y"], np.float32)
+    ex = ps._executor()
+    args = {w.name: w for w in ex.plan.arg_weights}
+    assert (args["w1.bin"].transform, args["w1.bin"].shape) == (("tnk", (32, 48)) if tagged else (None, (48, 32)))
+    assert (args["w2.bin"].transform, args["w2.bin"].shape) == (None, (32, 32))
+    assert tuple(args["w1.bin"].quant[0].shape) == (32,)
+    if "requires_upcast" not in cfg:
+        assert _rel(got, want) <= 1e-5
+    dev = ex._resident["w1.bin"][0]
+    q, _ = quantization.quantize_weight_symmetric_per_channel(weights["w1.bin"])
+    assert np.array_equal(dev.numpy(), q.T if tagged else q)
