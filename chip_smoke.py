@@ -42,7 +42,13 @@ Phases (any failure exits non-zero and prints no result line):
        - gn_silu, gn_silu_conv and matmul (with conv3x3_im2col) at the JAX
          suite's ragged cases (C/G = 5 and 10, H W = 35, 5 x 7 borders, no
          bias, O != C, batch 2) in float32 / bfloat16 / float16, and at the
-         sites of the GroupNorm and small-conv routes; gn_silu_conv also at
+         sites of the GroupNorm and small-conv routes; gn_silu also with
+         K = 2 clusters over groups that start off 16-byte boundaries (alone
+         and in batch 2) and at the VAE's 2 and 4 MB groups (K = 8, part of
+         each piece streamed), every call twice for equal bits, its plan
+         printed (K, resident bytes, clusters the card holds at once) and
+         exactly one launch of gn_silu_cluster_kernel a call, read from the
+         profiler's kernel names; gn_silu_conv also at
          C % 64 != 0, O = 3 / 4 and 512 x 512, every call twice for equal
          bits, each bf16 case also on the mma.sync variant (a misaligned
          weight) and the sites timed beside it; matmul also at the
@@ -79,7 +85,10 @@ Phases (any failure exits non-zero and prints no result line):
      (gn_silu_conv over a config-A UNet run's 45 and a config-A decode's 29
      calls, also beside its mma.sync variant), and matmul and gn_silu_conv
      at every shape of the run on the graph's operands: the variant and plan
-     taken, the twin, a second call's bits, the times;
+     taken, the twin, a second call's bits, the times; gn_silu the same at
+     every shape of a config-B run and of a fuse_groupnorm decode, each
+     shape and each run's replay launching gn_silu_cluster_kernel once a
+     call and nothing else;
   5. SD slice, uint8 weights: the same UNet through the port's
      quantize_graph_weights (per-tensor uint8[scale,zp], the converter's
      exclusions): TINY in fp32 on the card against the CPU, then SD1.5 in
@@ -1089,7 +1098,10 @@ def site_report(label: str, calls, kernel, twin, library, cost, plan_of, tol: fl
 
 
 # --------------------------------- the GroupNorm and small-conv routes: kernels 7, 8 and 9
-GN_SITES = [(1, 320, 64, 64), (1, 960, 64, 64), (1, 128, 512, 512)]          # x of gn_silu
+# x of gn_silu: UNet sites (the second without SiLU), the VAE's 2 MB groups (128 x 512^2, 512 x 256^2) and its
+# 4 MB groups (256 x 512^2): at K = 8 each CTA streams part of its piece
+GN_SITES = [(1, 320, 64, 64), (1, 960, 64, 64), (1, 128, 512, 512), (1, 512, 256, 256), (1, 256, 512, 512)]
+GN_KERNEL = "gn_silu_cluster_kernel"  # the one kernel a gn_silu call launches (csrc/gn_conv.cu)
 GN_CONV_SITES = [(320, 64, 320), (2560, 16, 1280), (1280, 8, 1280)]          # (C, H = W, O) of gn_silu_conv
 MATMUL_SITES = [(64, 11520, 1280), (256, 23040, 1280), (1024, 5760, 640)]    # (M, K, N) of matmul
 CONFIG_A = dict(fuse_gn_conv=True, fuse_groupnorm=True)
@@ -1137,6 +1149,56 @@ def _gn_library(x, sg, sb, gamma, beta, groups, eps, silu):
     if silu:
         return lambda: F.silu(F.group_norm(x, groups, g, b, eps))
     return lambda: F.group_norm(x, groups, g, b, eps)
+
+
+def _gn_plan_text(x, sg, sb, gamma, beta, groups, eps, silu) -> str:
+    """Kernel 7's plan for this call: K, the resident bytes of a CTA, the
+    clusters the card holds at once, and whether the pieces stream."""
+    from onnxstream_tpu_torch.kernels.gn_silu import active_clusters, gn_silu_pieces, gn_silu_plan
+
+    n, c = x.shape[0], x.shape[1]
+    hw = x.numel() // (n * c)
+    plan = gn_silu_plan(n, c, hw, groups, x.dtype)
+    pieces = gn_silu_pieces(plan, c // groups * hw, 0, x.element_size())
+    streams = any(res * 16 < (e - b) * x.element_size() - 32 for b, e, res in pieces)
+    return (f"K {plan.cluster}, {plan.resident * 16} B resident a CTA ({plan.smem_bytes} B of shared memory), "
+            f"{active_clusters(plan, x.dtype, silu)} clusters at once"
+            + (", streams part of each piece" if streams else ""))
+
+
+def _kernels_of(label: str, fn, calls: int, want: str, copies: int = 0) -> None:
+    """The device kernels that fn launches, by name from torch.profiler over
+    four calls of fn: `calls` launches a call of kernels whose names hold
+    `want` (any instantiation), `copies` of PyTorch's copy kernel (a wrapper
+    making a strided operand contiguous) and nothing else, or the run fails.
+    As in device_ms, a warm-up step of the profiler's schedule is traced and
+    dropped (the tracer can miss the first launches of a window); a window
+    that still comes back short is taken again, up to five times."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    want_got = {"kernel": calls, "copy": copies, "other": 0}
+    for _ in range(5):
+        sched = torch.profiler.schedule(wait=0, warmup=1, active=4, repeat=1)
+        with profile(activities=[ProfilerActivity.CUDA], schedule=sched) as prof:
+            for _ in range(5):
+                fn()
+                torch.cuda.synchronize()
+                prof.step()
+        names = {e.key: e.count for e in prof.key_averages() if str(getattr(e, "device_type", "")).endswith("CUDA")
+                 and getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0)) > 0}
+        got = {"kernel": -(-sum(v for k, v in names.items() if want in k) // 4),
+               "copy": -(-sum(v for k, v in names.items() if want not in k and "copy" in k) // 4),
+               "other": -(-sum(v for k, v in names.items() if want not in k and "copy" not in k) // 4)}
+        if got == want_got:
+            break
+        print(f"  launches a call of {label}: {got} in this profiler window; profiling again")
+    ok = got == want_got
+    print(f"  launches a call of {label}: {got['kernel']} x {want}, {got['copy']} contiguous copies, {got['other']} "
+          f"other ({'ok' if ok else f'FAIL: want {calls}, {copies} and 0'})")
+    if not ok:
+        raise SystemExit(f"{label}: a call launched {names}")
 
 
 def _gn_conv_library(x, sg, sb, gamma, beta, w9, bias=None, *, groups, eps):
@@ -1224,14 +1286,20 @@ def phase_kernel_gn(name: str) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(5)
     tols = lambda f32: ((torch.float32, f32), (torch.bfloat16, 2e-2), (torch.float16, 2e-2))
-    # (n, c, h, w, groups, silu): C/G = 2, 10, 5, 6 with H W = 35; batch 2; the route's sites
+    # (n, c, h, w, groups, silu): C/G = 2, 10, 5, 6 with H W = 35; batch 2; K = 2 with groups off 16-byte
+    # boundaries, alone and in batch 2; the route's sites. Every call twice for equal bits, and one kernel a call
     gn_cases = [(1, 64, 8, 8, 32, True), (1, 320, 16, 16, 32, True), (2, 40, 4, 4, 8, False),
-                (1, 24, 5, 7, 4, True)] + [(*site, 32, i != 1) for i, site in enumerate(GN_SITES)]
+                (1, 24, 5, 7, 4, True), (1, 1892, 5, 7, 4, True), (2, 104, 37, 35, 8, False)]
+    gn_cases += [(*site, 32, i != 1) for i, site in enumerate(GN_SITES)]
     for n, c, h, w, g, silu in gn_cases:
         for dt, tol in tols(2e-5):
-            args = _gn_operands(gen, n, c, h, w, g, dt)
-            _held(f"gn_silu {(n, c, h, w)} G{g} silu={silu} {str(dt)[6:]}", gn_silu(*args, g, 1e-5, silu),
-                  gn_silu_reference(*args, g, 1e-5, silu), tol)
+            args = (*_gn_operands(gen, n, c, h, w, g, dt), g, 1e-5, silu)
+            got = gn_silu(*args)
+            _held(f"gn_silu {(n, c, h, w)} G{g} silu={silu} {str(dt)[6:]} [{_gn_plan_text(*args)}]", got,
+                  gn_silu_reference(*args), tol)
+            if not torch.equal(got, gn_silu(*args)):
+                raise SystemExit(f"gn_silu {(n, c, h, w)} {dt}: two calls gave different bits")
+            _kernels_of(f"gn_silu {(n, c, h, w)} {str(dt)[6:]}", lambda: gn_silu(*args), 1, GN_KERNEL)
     # (n, c, groups, h, w, o, bias): 5 x 7 borders, no bias and O != C, C/G = 5, ragged everything, O = 4
     # and for the wgmma variant: C % 64 != 0 (a k-tile past C), the VAE's conv_out (O = 3) and a 512 x 512 site
     conv_cases = [(2, 16, 4, 5, 7, 16, True), (1, 32, 8, 8, 8, 24, False), (1, 20, 4, 4, 4, 8, True),
@@ -1288,9 +1356,10 @@ def phase_kernel_gn(name: str) -> dict:
     dt, out = torch.bfloat16, {"gn_silu": {}, "gn_silu_conv": {}, "matmul": {}}
     for i, (n, c, h, w) in enumerate(GN_SITES):
         args = (*_gn_operands(gen, n, c, h, w, 32, dt, plain_inorm=True), 32, 1e-5, i != 1)
-        out["gn_silu"][f"{c}x{h}x{w}"] = _site_times(
-            f"gn_silu {(n, c, h, w)} silu={i != 1}", name, lambda: gn_silu(*args),
-            lambda: gn_silu_reference(*args), _gn_library(*args), _gn_cost(*args))
+        plan = _gn_plan_text(*args)
+        out["gn_silu"][f"{c}x{h}x{w}"] = {**_site_times(
+            f"gn_silu {(n, c, h, w)} silu={i != 1} [{plan}]", name, lambda: gn_silu(*args),
+            lambda: gn_silu_reference(*args), _gn_library(*args), _gn_cost(*args)), "plan": plan}
     for c, hw, o in GN_CONV_SITES:
         args = _gn_operands(gen, 1, c, hw, hw, 32, dt, plain_inorm=True)
         w9, bv = _w9_operands(gen, c, o, dt)
@@ -1548,7 +1617,7 @@ def phase_gn_routes(name: str, sd: dict) -> dict:
         passes[label] = {k: sum(ms for ms, _, key in rows if k in key) for k in GN_CONV_PASSES}
         print(f"kernel 8's passes per {'decode' if label == 'vae_A' else 'UNet run'}, config A: "
               + ", ".join(f"{k} {ms:.4f} ms" for k, ms in passes[label].items())
-              + f" (the moments passes include gn_silu's launches of the run) [{name}]")
+              + f" [{name}]")
     around = {}
     for label in ("fuse_groupnorm", "B"):
         rows = profile_steps(sessions[label].run, name, f"SD15 step, config {label}")
@@ -1585,6 +1654,26 @@ def phase_gn_routes(name: str, sd: dict) -> dict:
                                         2e-2, name, earlier=gn_conv_earlier, key=conv_key)
                      for label in ("A", "vae_A")}
     del w9_copies
+    # every gn_silu shape of a config-B UNet run and of a fuse_groupnorm decode, on the graph's operands: one
+    # launch of the cluster kernel a call (a whole run's replay too), its plan, the twin, a second call's bits
+    gn_key = lambda args, kw: (*args[0].shape, args[7])
+    gn_silu_sites = {}
+    for label, per_run in (("B", 61), ("vae_fuse_groupnorm", 30)):
+        # an x that arrives strided (config B's small-conv outputs are channels-last views) is made
+        # contiguous by the wrapper first: one copy beside the one kernel
+        calls = recorded[label]["gn_silu"]
+        strided = lambda args: int(not args[0].is_contiguous() or args[0].data_ptr() % 16 != 0)
+        _kernels_of(f"gn_silu, one run's {len(calls)} calls under {label}",
+                    lambda: [gn_silu(*args, **kw) for args, kw in calls], per_run, GN_KERNEL,
+                    sum(strided(args) for args, _ in calls))
+        shapes = {}
+        for args, kw in calls:
+            shapes.setdefault((*gn_key(args, kw), strided(args)), (args, kw))
+        for key, (args, kw) in sorted(shapes.items()):
+            _kernels_of(f"gn_silu {key[:-1]}{' strided' if key[-1] else ''}, {label}", lambda: gn_silu(*args, **kw), 1,
+                        GN_KERNEL, key[-1])
+        gn_silu_sites[label] = site_report(f"gn_silu, {label}", calls, gn_silu, gn_silu_reference, _gn_library,
+                                           _gn_cost, _gn_plan_text, 2e-2, name, key=gn_key)
     taken = {label: {site["variant"].split()[0] for site in sites.values()} for label, sites in gn_conv_sites.items()}
     print(f"gn_silu_conv variants over the recorded calls: {taken}")
     if taken != {"A": {"wgmma"}, "vae_A": {"wgmma"}}:
@@ -1594,6 +1683,7 @@ def phase_gn_routes(name: str, sd: dict) -> dict:
         out[k] = {"launches": launches[k], "max_abs_err": sites[k].worst, **replays[(main, k)],
                   "launches_per_run": {label: want[label][k] for label in ("A", "B")}}
     out["gn_silu"]["ms_by_path"] = {label: replays[(label, "gn_silu")] for label in ("A", "vae_fuse_groupnorm")}
+    out["gn_silu"]["sites_of_run"] = gn_silu_sites
     out["gn_silu_conv"]["vae_decode"] = replays[("vae_A", "gn_silu_conv")]
     out["gn_silu_conv"]["passes_ms"] = passes
     out["gn_silu_conv"]["sites_of_run"] = gn_conv_sites

@@ -14,24 +14,45 @@
 //    activated tensor), float32 accumulation, + bias, cast. The weight arrives
 //    tap-major, w9 (9, O, C).
 //
-// The TPU kernels hold a whole (C, H W) slab in fast memory. A block here has
-// 227 KB of shared memory and the VAE's groups hold 2 MB, so the work is split
-// into passes that one C call launches back to back on one stream:
+// The TPU kernels hold a whole (C, H W) slab in fast memory. A group here is
+// one contiguous span of C/G * H W elements in NCHW (it need not start on a
+// 16-byte boundary: H W = 35), and a block has 227 KB of shared memory.
 //
-//  1. gn_moments_kernel: a group is one contiguous span of C/G * H W elements
-//     in NCHW. It is cut into chunks of `chunk` elements, one block each,
-//     read with 16-byte loads between a scalar head and tail (a span need not
-//     start on a 16-byte boundary: H W = 35). Each thread sums its elements in
-//     float32, then the warp (shuffles) and the block (shared memory, fixed
-//     order) reduce: no running scalar over a whole group. One (sum, sum of
-//     squares) pair per chunk goes to a workspace; no float atomics, so the
-//     result does not change from run to run.
+// Kernel 7 is one launch, gn_silu_cluster_kernel. Its bound is bytes: x read
+// once and y written once (chip_smoke.py _gn_cost), no operation rate near
+// its own. Each (n, group) gets a thread-block cluster of K CTAs, K a pure
+// function of the shape (kernels/gn_silu.py gn_silu_plan): 1 for a group of
+// at most 24 KB (the UNet's 8 x 8 and 16 x 16 levels, where the latency of
+// one CTA's load, sum and store is the cost), else the most CTAs, up to 16 (a
+// non-portable cluster size, which the card places), whose pieces keep at
+// least 4 KB. Each CTA brings up to 32 KB of its piece into shared memory
+// with one 1-D bulk copy (cp.async.bulk, no tensor map) that completes on an
+// mbarrier, and sums the rest of the piece from global memory while the
+// copy lands. The K (sum, sum of squares) pairs meet through distributed
+// shared memory, added in rank order in every CTA: the same mean and rstd
+// everywhere, the same bits on every run, no atomics, no workspace. Each CTA
+// then applies y = x A_c + B_c [SiLU] from shared memory and writes y with
+// 16-byte stores. So the UNet's groups (5 to 240 KB) cross HBM once, where
+// the three passes before it (moments, finalize, a flat apply) read x twice
+// and launched three kernels. The VAE's 1 to 4 MB groups need 64 to 256 KB a
+// CTA at K = 16: the part past 32 KB is read again for the apply, mostly
+// from the 50 MB L2. Keeping 224 KB resident instead leaves one CTA an SM
+// and is slower on the H100 (PERF.md, kernel 7), so residency is capped and
+// several CTAs share an SM.
+//
+// Kernel 8 keeps three passes that one C call launches back to back on one
+// stream:
+//
+//  1. gn_moments_kernel: the span is cut into chunks of `chunk` elements, one
+//     block each, read with 16-byte loads between a scalar head and tail.
+//     Each thread sums its elements in float32, then the warp (shuffles) and
+//     the block (shared memory, fixed order) reduce: no running scalar over a
+//     whole group. One (sum, sum of squares) pair per chunk goes to a
+//     workspace; no float atomics, so the result does not change from run
+//     to run.
 //  2. gn_finalize_kernel: one thread per (n, c) adds its group's chunk sums
 //     in order (in double) and writes (A_c, B_c) as float32.
-//  3a. gn_apply_kernel: y = x A_c + B_c [SiLU] over the flat tensor with
-//     16-byte loads and stores: bound by bytes, x read twice (once per pass)
-//     and y written once. Keeping a group on chip where it fits is later work.
-//  3b. The convolution, an implicit GEMM in the TPU kernel's transposed form,
+//  3. The convolution, an implicit GEMM in the TPU kernel's transposed form,
 //     y[o, p] = sum_t sum_c w9[t, o, c] act[p + off_t, c], bound by 16-bit
 //     tensor-core throughput (2 * 9 C O H W operations at 989 TFLOP/s) at the
 //     UNet's and the VAE's sites. Three variants, chosen from dtype, C and the
@@ -116,7 +137,7 @@ __device__ __forceinline__ float silu(float y) { return __fdividef(y, 1.0f + __e
 constexpr int kThreads = 256;
 
 // ---------------------------------------------------------------------------
-// Pass 1: chunk sums of x and x^2
+// Kernel 8, pass 1: chunk sums of x and x^2
 // ---------------------------------------------------------------------------
 
 // grid (N G, S): block (ng, s) sums elements [s chunk, (s + 1) chunk) of group
@@ -180,7 +201,7 @@ __global__ void __launch_bounds__(kThreads) gn_moments_kernel(const T* __restric
 }
 
 // ---------------------------------------------------------------------------
-// Pass 2: (A_c, B_c) per (n, c)
+// Kernel 8, pass 2: (A_c, B_c) per (n, c)
 // ---------------------------------------------------------------------------
 
 struct NormParams {
@@ -215,50 +236,238 @@ __global__ void __launch_bounds__(kThreads) gn_finalize_kernel(const NormParams 
 }
 
 // ---------------------------------------------------------------------------
-// Pass 3a: y = x A_c + B_c [SiLU] over the flat tensor
+// Kernel 7: GroupNorm + affine [+ SiLU], one cluster of K CTAs per (n, group)
 // ---------------------------------------------------------------------------
 
-template <typename T, bool SILU>
-__global__ void __launch_bounds__(kThreads) gn_apply_kernel(const T* __restrict__ x, T* __restrict__ out,
-                                                            const float2* __restrict__ ab,
-                                                            long long total, int HW, int vec_ok) {
+constexpr int kGnThreads = 256;
+constexpr int kGnResidentBytes = 229376;  // dynamic shared memory of a CTA at most: resident piece + channel table
+constexpr int kGnMaxCluster = 16;         // above 8 a non-portable cluster size
+constexpr int kGnMaxGroupChannels = 4096; // the (A_c, B_c) table of a group: 32 KB at most
+
+struct GnClusterParams {
+  const void* x;                      // (N, C, HW), 16-byte aligned
+  void* out;                          // the same, 16-byte aligned
+  const void *sg, *sb, *gamma, *beta; // (G,), (G,), (C,), (C,) in pdtype
+  int pdtype;
+  long long L;                        // elements of a group: Cg HW < 2^31
+  int HW, Cg, G;
+  int K;                              // CTAs of a cluster
+  int resident;                       // 16-byte vectors of its piece a CTA keeps in shared memory
+  float eps;
+};
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() { asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory"); }
+
+// the float2 at `local` in the shared memory of the cluster's CTA `rank`
+__device__ __forceinline__ float2 ld_cluster_f2(const float2* local, uint32_t rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(gemm90::smem_u32(local)), "r"(rank));
+  float2 v;
+  asm volatile("ld.shared::cluster.v2.f32 {%0, %1}, [%2];\n" : "=f"(v.x), "=f"(v.y) : "r"(remote) : "memory");
+  return v;
+}
+
+// `bytes` (a multiple of 16) from global `src` to shared `dst`, both 16-byte
+// aligned; the mbarrier at `bar` counts them as they land
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint32_t bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+               ::"r"(gemm90::smem_u32(dst)), "l"(src), "r"(bytes), "r"(bar) : "memory");
+}
+
+template <typename T>
+__device__ __forceinline__ void accumulate(const uint4& u, float& s1, float& s2) {
   constexpr int V = 16 / sizeof(T);
-  const long long i = (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) * V;
-  if (i >= total) return;
-  long long r = i / HW;  // the (n, c) row of element i
-  int pos = static_cast<int>(i - r * HW);
-  float2 q = ab[r];
-  const int count = static_cast<int>(min(static_cast<long long>(V), total - i));
-  alignas(16) T in[V];
-  alignas(16) T res[V];
-  if (vec_ok && count == V) {
-    *reinterpret_cast<uint4*>(in) = *reinterpret_cast<const uint4*>(x + i);
-  } else {
-    for (int j = 0; j < count; ++j) in[j] = x[i + j];
-  }
+  const T* el = reinterpret_cast<const T*>(&u);
+  float a1 = 0.f, a2 = 0.f;
 #pragma unroll
   for (int j = 0; j < V; ++j) {
-    if (j < count) {
-      if (pos == HW) {  // the next row starts inside this vector
-        pos = 0;
-        ++r;
-        q = ab[r];
-      }
-      float y = fmaf(to_f32(in[j]), q.x, q.y);
-      if (SILU) y = silu(y);
-      res[j] = from_f32<T>(y);
-      ++pos;
+    const float v = to_f32(el[j]);
+    a1 += v;
+    a2 += v * v;
+  }
+  s1 += a1;
+  s2 += a2;
+}
+
+// y = x A_c + B_c [SiLU] of the V elements of u, the first of which is element
+// li of its group; tab holds the group's (A_c, B_c)
+template <typename T, bool SILU>
+__device__ __forceinline__ uint4 apply_vec(const uint4& u, int li, int HW, const float2* tab) {
+  constexpr int V = 16 / sizeof(T);
+  int cg = li / HW, pos = li - cg * HW;
+  float2 q = tab[cg];
+  const T* el = reinterpret_cast<const T*>(&u);
+  uint4 r;
+  T* o = reinterpret_cast<T*>(&r);
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    if (pos == HW) {  // the next channel starts inside this vector
+      pos = 0;
+      q = tab[++cg];
+    }
+    float y = fmaf(to_f32(el[j]), q.x, q.y);
+    if (SILU) y = silu(y);
+    o[j] = from_f32<T>(y);
+    ++pos;
+  }
+  return r;
+}
+
+template <typename T, bool SILU>
+__device__ __forceinline__ T apply_one(T v, int li, int HW, const float2* tab) {
+  const float2 q = tab[li / HW];
+  float y = fmaf(to_f32(v), q.x, q.y);
+  if (SILU) y = silu(y);
+  return from_f32<T>(y);
+}
+
+// grid N G K, clusters of K along x: cluster ng = blockIdx.x / K normalises
+// group ng, a contiguous span of L elements. Its 16-byte body is cut into K
+// runs of whole vectors, one a CTA (rank 0 also takes the group's ragged
+// head, rank K - 1 its tail). A CTA bulk-copies the first `resident` vectors
+// of its run into shared memory on an mbarrier and sums what it reads from
+// global memory (head, tail, the run past the resident part) while they
+// land, then the resident part. The CTAs exchange their (sum, sum of
+// squares) through distributed shared memory and every one adds the K pairs
+// in rank order, so all of them find the same mean and rstd, in the same
+// bits on every run. The resident part is then applied from shared memory;
+// only the rest is read from global memory again (from L2, where it still
+// is).
+template <typename T, bool SILU>
+__global__ void __launch_bounds__(kGnThreads) gn_silu_cluster_kernel(const GnClusterParams p) {
+  constexpr int V = 16 / sizeof(T);
+  extern __shared__ __align__(16) uint4 smem_gn[];
+  __shared__ __align__(8) uint64_t s_bar;  // the bulk copy lands on it
+  __shared__ float s_red[2][kGnThreads / 32];
+  __shared__ float2 s_part;  // this CTA's (sum, sum of squares): the cluster reads it
+  __shared__ float2 s_coef;  // the group's rstd sg and sb - mean rstd sg
+  uint4* s_x = smem_gn;
+  float2* s_tab = reinterpret_cast<float2*>(smem_gn + p.resident);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int K = p.K, rank = blockIdx.x % K;
+  const long long ng = blockIdx.x / K;
+  const int g = static_cast<int>(ng % p.G);
+  const T* x = static_cast<const T*>(p.x);
+  T* out = static_cast<T*>(p.out);
+  // the group [g0, g1), its body of whole vectors [gb, ge), this CTA's run of
+  // it [vb, ve) (resident up to rb) and its piece [b, e)
+  const long long g0 = ng * p.L, g1 = g0 + p.L;
+  const long long gb = min(g1, (g0 + V - 1) / V * V);
+  const long long ge = max(gb, g1 / V * V);
+  const long long nv = (ge - gb) / V;
+  const long long vb = gb + nv * rank / K * V, ve = gb + nv * (rank + 1) / K * V;
+  const long long b = rank == 0 ? g0 : vb, e = rank == K - 1 ? g1 : ve;
+  const int nres = static_cast<int>(min(static_cast<long long>(p.resident), (ve - vb) / V));
+  const long long rb = vb + static_cast<long long>(nres) * V;
+  const uint32_t bar = gemm90::smem_u32(&s_bar);
+
+  if (tid == 0 && nres > 0) {
+    gemm90::mbar_init(bar, 1);
+    gemm90::mbar_init_fence();
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(16 * nres) : "memory");
+    bulk_load(s_x, x + vb, 16 * nres, bar);
+  }
+  // the group's parameters, read while the copies land
+  float sgv = 0.f, sbv = 0.f, gam0 = 0.f, bet0 = 0.f;
+  if (tid == 0) {
+    sgv = load_any(p.sg, p.pdtype, g);
+    sbv = load_any(p.sb, p.pdtype, g);
+  }
+  if (tid < p.Cg) {
+    gam0 = load_any(p.gamma, p.pdtype, static_cast<size_t>(g) * p.Cg + tid);
+    bet0 = load_any(p.beta, p.pdtype, static_cast<size_t>(g) * p.Cg + tid);
+  }
+  float s1 = 0.f, s2 = 0.f;
+  for (long long i = b + tid; i < vb; i += kGnThreads) {
+    const float v = to_f32(x[i]);
+    s1 += v;
+    s2 += v * v;
+  }
+  for (long long i = ve + tid; i < e; i += kGnThreads) {
+    const float v = to_f32(x[i]);
+    s1 += v;
+    s2 += v * v;
+  }
+#pragma unroll 4
+  for (long long i = rb + static_cast<long long>(tid) * V; i < ve; i += kGnThreads * V)
+    accumulate<T>(*reinterpret_cast<const uint4*>(x + i), s1, s2);
+  __syncthreads();  // the mbarrier is initialised before anyone waits on it
+  if (nres > 0) gemm90::mbar_wait(bar, 0);
+  for (int j = tid; j < nres; j += kGnThreads) accumulate<T>(s_x[j], s1, s2);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    s1 += __shfl_xor_sync(0xffffffffu, s1, o);
+    s2 += __shfl_xor_sync(0xffffffffu, s2, o);
+  }
+  if (lane == 0) {
+    s_red[0][warp] = s1;
+    s_red[1][warp] = s2;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    float a1 = 0.f, a2 = 0.f;
+#pragma unroll
+    for (int w = 0; w < kGnThreads / 32; ++w) {
+      a1 += s_red[0][w];
+      a2 += s_red[1][w];
+    }
+    s_part = make_float2(a1, a2);
+  }
+  if (K > 1) {  // every CTA's pair is written
+    cluster_arrive();
+    cluster_wait();
+  } else {
+    __syncthreads();
+  }
+  if (warp == 0) {
+    float2 v = s_part;  // K == 1: this CTA's own pair
+    if (K > 1) v = lane < K ? ld_cluster_f2(&s_part, lane) : make_float2(0.f, 0.f);
+    double t1 = 0.0, t2 = 0.0;
+    for (int r = 0; r < K; ++r) {  // rank order, in every CTA of the cluster
+      t1 += static_cast<double>(__shfl_sync(0xffffffffu, v.x, r));
+      t2 += static_cast<double>(__shfl_sync(0xffffffffu, v.y, r));
+    }
+    if (lane == 0) {
+      const float mean = static_cast<float>(t1 / static_cast<double>(p.L));
+      const float mean2 = static_cast<float>(t2 / static_cast<double>(p.L));
+      const float var = fmaxf(mean2 - mean * mean, 0.f);
+      const float rstd = 1.0f / sqrtf(var + p.eps);
+      const float ag = rstd * sgv;
+      s_coef = make_float2(ag, sbv - mean * ag);
     }
   }
-  if (vec_ok && count == V) {
-    *reinterpret_cast<uint4*>(out + i) = *reinterpret_cast<const uint4*>(res);
-  } else {
-    for (int j = 0; j < count; ++j) out[i + j] = res[j];
+  __syncthreads();
+  if (K > 1) cluster_arrive();  // this CTA has read its neighbours' pairs; their wait is at the end
+  const float2 cf = s_coef;
+  for (int cg = tid; cg < p.Cg; cg += kGnThreads) {
+    const size_t c = static_cast<size_t>(g) * p.Cg + cg;
+    const float gam = cg == tid ? gam0 : load_any(p.gamma, p.pdtype, c);
+    const float bet = cg == tid ? bet0 : load_any(p.beta, p.pdtype, c);
+    s_tab[cg] = make_float2(cf.x * gam, cf.y * gam + bet);
   }
+  __syncthreads();
+
+  const int HW = p.HW;
+  const int lv = static_cast<int>(vb - g0);
+  for (int j = tid; j < nres; j += kGnThreads)
+    *reinterpret_cast<uint4*>(out + vb + static_cast<long long>(j) * V) =
+        apply_vec<T, SILU>(s_x[j], lv + j * V, HW, s_tab);
+#pragma unroll 4
+  for (long long i = rb + static_cast<long long>(tid) * V; i < ve; i += kGnThreads * V)
+    *reinterpret_cast<uint4*>(out + i) =
+        apply_vec<T, SILU>(*reinterpret_cast<const uint4*>(x + i), static_cast<int>(i - g0), HW, s_tab);
+  for (long long i = b + tid; i < vb; i += kGnThreads)
+    out[i] = apply_one<T, SILU>(x[i], static_cast<int>(i - g0), HW, s_tab);
+  for (long long i = ve + tid; i < e; i += kGnThreads)
+    out[i] = apply_one<T, SILU>(x[i], static_cast<int>(i - g0), HW, s_tab);
+  if (K > 1) cluster_wait();  // no CTA leaves while a neighbour may still read its pair
 }
 
 // ---------------------------------------------------------------------------
-// Pass 3b: the 3x3 convolution of the activated slab
+// Kernel 8, pass 3: the 3x3 convolution of the activated slab
 // ---------------------------------------------------------------------------
 
 struct ConvParams {
@@ -535,7 +744,7 @@ __global__ void __launch_bounds__(kThreads) gn_conv_fma_kernel(const ConvParams 
 }
 
 // ---------------------------------------------------------------------------
-// Pass 3b on the wgmma pipeline: the activated slab channels-last, then the
+// Pass 3 on the wgmma pipeline: the activated slab channels-last, then the
 // implicit GEMM over it
 // ---------------------------------------------------------------------------
 
@@ -795,23 +1004,70 @@ cudaError_t launch_moments(const Moments& m, const NormParams& np, cudaStream_t 
   return cudaGetLastError();
 }
 
+// the kernel may take 224 KB of dynamic shared memory and clusters of 16
+template <typename T, bool SILU>
+cudaError_t gn_cluster_attributes() {
+  static const cudaError_t attr = [] {
+    cudaError_t e = cudaFuncSetAttribute(gn_silu_cluster_kernel<T, SILU>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kGnResidentBytes);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(gn_silu_cluster_kernel<T, SILU>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    return e;
+  }();
+  return attr;
+}
+
+cudaLaunchAttribute cluster_dim(int K) {
+  cudaLaunchAttribute a = {};
+  a.id = cudaLaunchAttributeClusterDimension;
+  a.val.clusterDim.x = static_cast<unsigned>(K);
+  a.val.clusterDim.y = 1;
+  a.val.clusterDim.z = 1;
+  return a;
+}
+
+template <typename T, bool SILU>
+cudaError_t launch_gn_cluster(const GnClusterParams& p, unsigned groups, cudaStream_t stream) {
+  auto kernel = gn_silu_cluster_kernel<T, SILU>;
+  const cudaError_t attr = gn_cluster_attributes<T, SILU>();
+  if (attr != cudaSuccess) return attr;
+  const size_t smem = 16 * static_cast<size_t>(p.resident) + (static_cast<size_t>(p.Cg) * 8 + 15) / 16 * 16;
+  const unsigned blocks = groups * static_cast<unsigned>(p.K);
+  if (p.K == 1) {
+    kernel<<<blocks, kGnThreads, smem, stream>>>(p);
+    return cudaGetLastError();
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(kGnThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute cluster[1] = {cluster_dim(p.K)};
+  cfg.attrs = cluster;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, p);  // a cluster the card cannot place is refused here
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
 template <typename T>
-cudaError_t launch_apply(const Moments& m, const NormParams& np, void* out, int HW, int do_silu,
-                         cudaStream_t stream) {
-  cudaError_t err = launch_moments<T>(m, np, stream);
-  if (err != cudaSuccess) return err;
-  constexpr int V = 16 / sizeof(T);
-  const long long total = static_cast<long long>(np.N) * np.C * HW;
-  const long long blocks = (total + static_cast<long long>(kThreads) * V - 1) / (kThreads * V);
-  if (blocks > 2147483647LL) return cudaErrorInvalidValue;
-  const int vec_ok = aligned(m.x, 16) && aligned(out, 16) ? 1 : 0;
-  const T* x = static_cast<const T*>(m.x);
-  T* o = static_cast<T*>(out);
-  if (do_silu)
-    gn_apply_kernel<T, true><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(x, o, m.ab, total, HW, vec_ok);
-  else
-    gn_apply_kernel<T, false><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(x, o, m.ab, total, HW, vec_ok);
-  return cudaGetLastError();
+cudaError_t gn_cluster(const GnClusterParams& p, unsigned groups, int do_silu, cudaStream_t stream) {
+  return do_silu ? launch_gn_cluster<T, true>(p, groups, stream) : launch_gn_cluster<T, false>(p, groups, stream);
+}
+
+// clusters of K CTAs with smem bytes of dynamic shared memory each that the
+// card can hold at once (cudaOccupancyMaxActiveClusters), or -1
+template <typename T, bool SILU>
+int active_clusters(int K, int smem) {
+  if (gn_cluster_attributes<T, SILU>() != cudaSuccess) return -1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(K));
+  cfg.blockDim = dim3(kGnThreads);
+  cfg.dynamicSmemBytes = static_cast<size_t>(smem);
+  cudaLaunchAttribute cluster[1] = {cluster_dim(K)};
+  cfg.attrs = cluster;
+  cfg.numAttrs = 1;
+  int n = 0;
+  return cudaOccupancyMaxActiveClusters(&n, gn_silu_cluster_kernel<T, SILU>, &cfg) == cudaSuccess ? n : -1;
 }
 
 template <typename T, int TW, bool AVEC>
@@ -911,29 +1167,49 @@ bool norm_args_ok(int pdtype, int N, int C, long long HW, int G, int chunk) {
 
 }  // namespace
 
-// dtype of x and out, pdtype of sg / sb (G,) and gamma / beta (C,):
-// 0 = float32, 1 = float16, 2 = bfloat16. x, out (N, C, HW) contiguous.
-// partial: workspace of N G ceil(C/G HW / chunk) 2 floats; ab: workspace of
-// N C 2 floats (8-byte aligned). chunk: elements per block of the moments
-// pass, a multiple of 8. Returns a cudaError_t: 0 when every launch was
-// accepted.
+// Kernel 7 in one launch. dtype of x and out, pdtype of sg / sb (G,) and
+// gamma / beta (C,): 0 = float32, 1 = float16, 2 = bfloat16. x, out (N, C, HW)
+// contiguous, both 16-byte aligned. cluster (K, the CTAs of a group) and
+// resident (16-byte vectors of its piece a CTA keeps in shared memory) are
+// the caller's plan (kernels/gn_silu.py gn_silu_plan); refused when C / G >
+// 4096, a group holds 2^31 elements or more, K is outside 1..16, a piece
+// would be empty, or the resident vectors and the group's (A_c, B_c) table
+// exceed 224 KB. Returns a cudaError_t: 0 when the launch was accepted.
 extern "C" int ostt_gn_silu(int dtype, const void* x, void* out, const void* sg, const void* sb,
-                            const void* gamma, const void* beta, int pdtype, void* partial, void* ab,
-                            int N, int C, long long HW, int G, float eps, int do_silu, int chunk,
-                            void* stream) {
-  if (!norm_args_ok(pdtype, N, C, HW, G, chunk)) return static_cast<int>(cudaErrorInvalidValue);
-  const long long L = static_cast<long long>(C / G) * HW;
-  const long long S = (L + chunk - 1) / chunk;
-  if (S > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  const Moments m{x, static_cast<float*>(partial), static_cast<float2*>(ab), L, chunk, static_cast<int>(S)};
-  const NormParams np{sg, sb, gamma, beta, pdtype, N, C, G, static_cast<int>(S), static_cast<double>(L), eps};
+                            const void* gamma, const void* beta, int pdtype, int N, int C, long long HW, int G,
+                            float eps, int do_silu, int cluster, int resident, void* stream) {
+  if (dtype < 0 || dtype > 2 || pdtype < 0 || pdtype > 2 || N <= 0 || C <= 0 || HW <= 0 || G <= 0 || C % G != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int Cg = C / G;
+  const long long L = static_cast<long long>(Cg) * HW, V = dtype == 0 ? 4 : 8;
+  const long long groups = static_cast<long long>(N) * G;
+  const long long table = (static_cast<long long>(Cg) * 8 + 15) / 16 * 16;
+  if (Cg > kGnMaxGroupChannels || L > 2147483647LL || cluster < 1 || cluster > kGnMaxCluster ||
+      groups * cluster > 2147483647LL || resident < 0 || 16LL * resident + table > kGnResidentBytes ||
+      (cluster > 1 && L / V - 1 < cluster) || !aligned(x, 16) || !aligned(out, 16))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const GnClusterParams p{x, out, sg, sb, gamma, beta, pdtype, L, static_cast<int>(HW), Cg, G, cluster, resident, eps};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int hw = static_cast<int>(HW);
+  const unsigned ng = static_cast<unsigned>(groups);
   switch (dtype) {
-    case 0: return static_cast<int>(launch_apply<float>(m, np, out, hw, do_silu, st));
-    case 1: return static_cast<int>(launch_apply<__half>(m, np, out, hw, do_silu, st));
-    case 2: return static_cast<int>(launch_apply<__nv_bfloat16>(m, np, out, hw, do_silu, st));
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    case 0: return static_cast<int>(gn_cluster<float>(p, ng, do_silu, st));
+    case 1: return static_cast<int>(gn_cluster<__half>(p, ng, do_silu, st));
+    default: return static_cast<int>(gn_cluster<__nv_bfloat16>(p, ng, do_silu, st));
+  }
+}
+
+// How many clusters of `cluster` CTAs, each with smem_bytes of dynamic
+// shared memory, the card holds at once for kernel 7 in this dtype; -1 when
+// the query fails or the arguments are out of range.
+extern "C" int ostt_gn_silu_active_clusters(int dtype, int do_silu, int cluster, int smem_bytes) {
+  if (dtype < 0 || dtype > 2 || cluster < 1 || cluster > kGnMaxCluster || smem_bytes < 0 ||
+      smem_bytes > kGnResidentBytes)
+    return -1;
+  const int K = cluster, b = smem_bytes;
+  switch (dtype) {
+    case 0: return do_silu ? active_clusters<float, true>(K, b) : active_clusters<float, false>(K, b);
+    case 1: return do_silu ? active_clusters<__half, true>(K, b) : active_clusters<__half, false>(K, b);
+    default: return do_silu ? active_clusters<__nv_bfloat16, true>(K, b) : active_clusters<__nv_bfloat16, false>(K, b);
   }
 }
 

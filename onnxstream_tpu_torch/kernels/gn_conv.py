@@ -49,20 +49,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from onnxstream_tpu_torch.kernels.gn_silu import (
-    DTYPE_CODE,
-    MOMENT_CHUNK,
-    func,
-    gn_silu_problem,
-    gn_silu_reference,
-    norm_operands,
-    workspaces,
-)
+from onnxstream_tpu_torch.kernels.gn_silu import DTYPE_CODE, func, gn_silu_reference, norm_operands, norm_problem
 from onnxstream_tpu_torch.kernels.matmul import split_plan
 
 CONV_BLOCK_O = 64  # output channels per block of the mma.sync variant (csrc/gn_conv.cu kCvBM)
 CONV_TILE_PIXELS = 128  # output pixels per tile of the wgmma variant (csrc/gn_conv.cu CvWgCfg::kBN)
 CONV_TILE_C = 64  # input channels per k-tile of the wgmma variant, one tap's
+# elements a block of the moments pass sums (csrc/gn_conv.cu: a multiple of 8)
+MOMENT_CHUNK = 8192
 
 # device -> the wgmma variant's channels-last slab workspace (bytes), grown as needed
 _SLAB: Dict[torch.device, torch.Tensor] = {}
@@ -88,9 +82,11 @@ def gn_conv_problem(c: int, o: int, h: int, w: int, dtype: torch.dtype, groups: 
     in this dtype, or None. Ragged O, C, H and W are masked inside the
     kernels, so only the dtype and the sizes of their 32-bit indices and grids
     refuse."""
-    problem = gn_silu_problem((n, c, h, w), groups, dtype)
+    problem = norm_problem((n, c, h, w), groups, dtype)
     if problem is not None:
         return problem
+    if -(-(c // groups) * h * w // MOMENT_CHUNK) > 65535:
+        return f"groups of {(c // groups) * h * w} elements"
     if o <= 0 or -(-o // CONV_BLOCK_O) > 65535 or n * o >= 2**31:
         return f"{o} output channels"
     if n * (-(-h // 4)) * (-(-w // 8)) >= 2**31:
@@ -121,6 +117,16 @@ def gn_conv_plan(n: int, c: int, h: int, w: int, o: int) -> Tuple[int, int]:
     splits it where the tiles leave SMs idle. The split's workspace is splits
     * O * N H W float32 values."""
     return split_plan(o, 9 * -(-c // CONV_TILE_C) * CONV_TILE_C, n * h * w, CONV_TILE_PIXELS)
+
+
+def workspaces(x: torch.Tensor, groups: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(chunk sums, (A_c, B_c) pairs) scratch of the moments passes of one
+    launch, float32."""
+    n, c = x.shape[0], x.shape[1]
+    span = (c // groups) * (x.numel() // (n * c))
+    splits = -(-span // MOMENT_CHUNK)
+    return (torch.empty(n * groups * splits * 2, dtype=torch.float32, device=x.device),
+            torch.empty(n * c * 2, dtype=torch.float32, device=x.device))
 
 
 def _slab(x: torch.Tensor) -> torch.Tensor:

@@ -14,7 +14,12 @@ on the CPU, inputs made from a seed with numpy:
     passes' selectivity (1 x 1, stride 2, a tied weight, an extra output
     inside a chain, a forced-uint8 weight stay decomposed);
   * ``gn_conv_problem``, the predicate that takes the place of the TPU
-    kernel's VMEM block picker.
+    kernel's VMEM block picker;
+  * kernel 7's ``gn_silu_problem`` and ``gn_silu_plan`` (K, the CTAs of a
+    group's cluster, and what a CTA keeps resident): the pieces cover every
+    group exactly at every ``ostpu.gn_silu`` site of the full-width SD1.5
+    UNet (config B, config A) and VAE_SD (``fuse_groupnorm``, config A) and
+    at the card tests' cases, which reach K = 1, 2, 4 and 8.
 
 The CUDA kernels themselves are held against the twins by the ``gpu``-marked
 tests of tests/test_torch_gn_card.py (skipped without a card), which also holds
@@ -49,11 +54,20 @@ from onnxstream_tpu_torch.kernels.gn_conv import (
     oihw_to_w9,
     w9_to_oihw,
 )
-from onnxstream_tpu_torch.kernels.gn_silu import gn_silu, gn_silu_problem, gn_silu_reference
+from onnxstream_tpu_torch.kernels.gn_silu import (
+    CLUSTER_MAX,
+    PIECE_RESIDENT_BYTES,
+    RESIDENT_BYTES,
+    gn_silu,
+    gn_silu_pieces,
+    gn_silu_plan,
+    gn_silu_problem,
+    gn_silu_reference,
+)
 from onnxstream_tpu_torch.runtime import fusion
 from onnxstream_tpu_torch.runtime.planner import WEIGHT_TRANSFORMS
 from onnxstream_tpu_torch.runtime.weights import DictWeightsProvider, params_from_numpy
-from test_torch_gn_card import GN_CASES, GN_CONV_CASES, _conv_inputs, _gn_inputs
+from test_torch_gn_card import GN_CASES, GN_CLUSTER_CASES, GN_CONV_CASES, GN_SITE_CASES, _conv_inputs, _gn_inputs
 
 CPU = torch.device("cpu")
 T = torch.from_numpy
@@ -103,12 +117,100 @@ def test_gn_silu_twin_takes_the_graphs_affine_shape():
     ((1, 320, 64, 64), 32, torch.bfloat16, True),
     ((1, 128, 512, 512), 32, torch.float16, True),
     ((2, 24, 5, 7), 4, torch.float32, True),
+    ((1, 1, 32768, 32768), 1, torch.bfloat16, True),  # a 2^30-element group: past the moments pass's 65535 chunks
+    ((1, 4096, 2, 2), 1, torch.float32, True),         # 4096 channels a group: the largest (A_c, B_c) table
+    ((1, 8192, 2, 2), 1, torch.float32, False),        # 8192: the table would not fit beside the piece
+    ((1, 2, 65536, 32768), 1, torch.bfloat16, False),  # a group of 2^32 elements: past 32-bit offsets
     ((1, 30, 8, 8), 4, torch.float32, False),      # C % G != 0
     ((1, 32, 8, 8), 8, torch.float64, False),      # no float64 kernel
     ((4, 32), 8, torch.float32, False),            # no spatial axis
 ])
 def test_gn_silu_problem(shape, groups, dtype, ok):
     assert (gn_silu_problem(shape, groups, dtype) is None) == ok
+
+
+def _assert_plan_covers(n, c, hw, groups, dtype):
+    """The plan's pieces cover every group of x exactly, in rank order, none
+    empty, and a CTA's shared memory stays within 227 KB; returns the plan."""
+    plan = gn_silu_plan(n, c, hw, groups, dtype)
+    itemsize = torch.empty(0, dtype=dtype).element_size()
+    length = c // groups * hw
+    assert 1 <= plan.cluster <= CLUSTER_MAX == 16 and plan.cluster & (plan.cluster - 1) == 0
+    assert plan.smem_bytes == plan.resident * 16 + -(-c // groups * 8 // 16) * 16
+    assert plan.smem_bytes <= RESIDENT_BYTES <= 227 * 1024 and plan.resident * 16 <= PIECE_RESIDENT_BYTES
+    for ng in range(n * groups):
+        pieces = gn_silu_pieces(plan, length, ng * length, itemsize)
+        assert len(pieces) == plan.cluster and pieces[0][0] == ng * length and pieces[-1][1] == (ng + 1) * length
+        for (b, e, res), nxt in zip(pieces, pieces[1:] + [((ng + 1) * length,)]):
+            assert b < e == nxt[0] and 0 <= res <= plan.resident and res * 16 <= (e - b) * itemsize
+    return plan
+
+
+def _streams(plan, n, c, hw, groups, dtype):
+    itemsize = torch.empty(0, dtype=dtype).element_size()
+    return any(res * 16 < (e - b) * itemsize - 32 for b, e, res in gn_silu_pieces(plan, c // groups * hw, 0, itemsize))
+
+
+def test_gn_silu_card_cases_reach_every_cluster_size():
+    """The card tests' cases (tests/test_torch_gn_card.py) reach K = 1, 4, 8
+    and 16 through the plan (K = 2 only through the forced plans of
+    test_gn_silu_kernel_takes_every_cluster_size_on_card), a group that
+    streams part of each piece, and K > 1 where groups start off a 16-byte
+    boundary; every case's pieces cover its groups."""
+    seen, streamed, ragged = set(), False, False
+    for n, c, h, w, groups, _ in GN_CASES + GN_SITE_CASES + GN_CLUSTER_CASES:
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
+            plan = _assert_plan_covers(n, c, h * w, groups, dtype)
+            seen.add(plan.cluster)
+            streamed |= _streams(plan, n, c, h * w, groups, dtype)
+            ragged |= plan.cluster > 1 and (c // groups * h * w * torch.empty(0, dtype=dtype).element_size()) % 16 != 0
+    assert seen == {1, 4, 8, 16} and streamed and ragged
+
+
+@pytest.mark.parametrize("n,c,h,w,groups", [(1, 24, 5, 7, 4), (3, 6, 1, 1, 3), (1, 2, 3, 5, 1), (2, 64, 17, 19, 32),
+                                            (1, 4096, 1, 1, 1), (1, 9, 1024, 1024, 3), (1, 32, 4, 4, 32)])
+def test_gn_silu_plan_covers_ragged_groups(n, c, h, w, groups):
+    for dtype in (torch.float32, torch.bfloat16):
+        _assert_plan_covers(n, c, h * w, groups, dtype)
+
+
+def _fused_gn_sites(gb, routes):
+    """(N, C, H, W, groups) of every ostpu.gn_silu of a full-width graph
+    under these routes, the passes run in the session's order (weights left
+    lazy: only shapes are read)."""
+    raw = parse_model_txt(gb.to_text())
+    cfg = SessionConfig(device=CPU, **routes)
+    load = lambda name, dt, shape: np.asarray(gb.weights[name])
+    g = fusion.fuse_groupnorm(fusion.rewrite_smallconv(fusion.fuse_gn_conv(raw, cfg, load), cfg, load), cfg, load)
+    return [(*op.inputs[0].shape, int(op.attrs["groups"])) for op in g.ops if op.op_type == "ostpu.gn_silu"]
+
+
+@pytest.mark.parametrize("model,routes,count", [
+    ("SD15", dict(use_pallas_smallconv=True, fuse_groupnorm=True), 61),  # config B
+    ("SD15", dict(fuse_gn_conv=True, fuse_groupnorm=True), 16),          # config A
+    ("VAE_SD", dict(fuse_groupnorm=True), 30),
+    ("VAE_SD", dict(fuse_gn_conv=True, fuse_groupnorm=True), 1),
+])
+def test_every_sd_gn_silu_site_has_a_plan(model, routes, count):
+    """Every ostpu.gn_silu of the SD1.5 UNet and the SD VAE decoder at full
+    width: the kernel takes it in bf16, and the plan's pieces cover each group
+    exactly with a CTA's shared memory within 227 KB and K within the
+    cluster limit; the UNet's 8 x 8 level keeps one CTA a group, the VAE's 1
+    to 4 MB groups take 16, each CTA streaming the part of its piece past 32
+    KB."""
+    from onnxstream_tpu_torch.models.sd.unet import SD15, build_unet
+    from onnxstream_tpu_torch.models.sd.vae import VAE_SD, build_vae_decoder
+
+    gb = build_unet(SD15, lazy_weights=True) if model == "SD15" else build_vae_decoder(VAE_SD, lazy_weights=True)
+    sites = _fused_gn_sites(gb, routes)
+    assert len(sites) == count
+    for n, c, h, w, groups in sites:
+        assert gn_silu_problem((n, c, h, w), groups, torch.bfloat16) is None
+        plan = _assert_plan_covers(n, c, h * w, groups, torch.bfloat16)
+        if h * w <= 8 * 8:
+            assert plan.cluster == 1
+        if c // groups * h * w * 2 >= 2**20:
+            assert plan.cluster == CLUSTER_MAX and _streams(plan, n, c, h * w, groups, torch.bfloat16)
 
 
 # ------------------------------------------------------------- kernel 8's twin

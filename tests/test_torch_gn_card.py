@@ -18,7 +18,7 @@ from onnxstream_tpu_torch.kernels.gn_conv import (
     gn_silu_conv_reference,
     oihw_to_w9,
 )
-from onnxstream_tpu_torch.kernels.gn_silu import gn_silu, gn_silu_reference
+from onnxstream_tpu_torch.kernels.gn_silu import GnSiluPlan, gn_silu, gn_silu_plan, gn_silu_reference, launch
 
 T = torch.from_numpy
 
@@ -39,6 +39,18 @@ GN_CASES = [
     (1, 320, 16, 16, 32, True),  # the SD1.5 channel count, C/G = 10
     (2, 40, 4, 4, 8, False),     # batch 2, no SiLU, C/G = 5
     (1, 24, 5, 7, 4, True),      # H W = 35
+]
+# the cluster form's plans (gn_silu_plan, bf16 / float32; tests/test_torch_gn.py
+# holds which K each case reaches): a UNet site, K = 16 / 16, and the VAE's
+# 512 KB groups, K = 16 / 16, float32's streaming
+GN_SITE_CASES = [(1, 320, 64, 64, 32, True), (1, 128, 256, 256, 32, False)]
+GN_CLUSTER_CASES = [
+    (1, 1920, 16, 16, 32, True),     # the UNet's 30 KB groups: K = 4 / 16, the whole piece resident
+    (1, 640, 32, 32, 32, True),      # K = 8 / 16, the whole piece resident
+    (1, 256, 256, 256, 32, True),    # K = 16, a 1 MB group: each CTA streams part of its piece
+    (1, 128, 512, 512, 32, True),    # K = 16, a 2 MB group: each CTA streams most of its piece
+    (1, 1892, 5, 7, 4, True),        # H W = 35, K = 8 / 16: groups start off 16-byte boundaries
+    (2, 104, 37, 35, 8, False),      # batch 2, K = 8 / 16, groups off 16-byte boundaries
 ]
 
 
@@ -94,7 +106,7 @@ def _close(got, want, tol):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2), (torch.float16, 2e-2)])
-@pytest.mark.parametrize("n,c,h,w,groups,silu", GN_CASES + [(1, 320, 64, 64, 32, True), (1, 128, 256, 256, 32, False)])
+@pytest.mark.parametrize("n,c,h,w,groups,silu", GN_CASES + GN_SITE_CASES + GN_CLUSTER_CASES)
 def test_gn_silu_kernel_matches_twin_on_card(n, c, h, w, groups, silu, dtype, tol):
     dev = _card()
     x, *rest = _gn_inputs(n, c, h, w, groups)
@@ -105,6 +117,43 @@ def test_gn_silu_kernel_matches_twin_on_card(n, c, h, w, groups, silu, dtype, to
     assert gn_silu.launches == before + 1
     want = gn_silu_reference(*args, groups, 1e-5, silu)
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2), (torch.float16, 2e-2)])
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("resident", ["whole", "half", "none"])
+def test_gn_silu_kernel_takes_every_cluster_size_on_card(cluster, resident, dtype, tol):
+    """Any K from 1 to 16 and any resident share of a piece, forced through
+    ``launch`` (the wrapper's plan takes only some of them): the whole piece
+    in shared memory, half of it (the rest streamed and read again), none of
+    it. H W = 35, so the groups start off 16-byte boundaries."""
+    dev = _card()
+    n, c, h, w, groups, silu = 1, 1892, 5, 7, 4, True
+    vectors = (c // groups) * h * w * torch.empty(0, dtype=dtype).element_size() // 16
+    whole = -(-vectors // cluster)
+    r = {"whole": whole, "half": whole // 2, "none": 0}[resident]
+    x, *rest = _gn_inputs(n, c, h, w, groups, seed=5)
+    args = [T(x).to(dev, dtype)] + [T(a).to(dev, dtype) for a in rest]
+    got = launch(*args, groups, 1e-5, silu, GnSiluPlan(cluster, r, r * 16 + -(-(c // groups) * 8 // 16) * 16))
+    torch.cuda.synchronize()
+    want = gn_silu_reference(*args, groups, 1e-5, silu)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,c,h,w,groups,silu", GN_CLUSTER_CASES)
+def test_gn_silu_cluster_gives_the_same_bits_twice_on_card(n, c, h, w, groups, silu):
+    """Every CTA of a cluster adds the K partial sums in rank order: no
+    atomics, so two calls agree bit for bit."""
+    dev = _card()
+    assert gn_silu_plan(n, c, h * w, groups, torch.bfloat16).cluster > 1
+    x, *rest = _gn_inputs(n, c, h, w, groups, seed=4)
+    args = [T(x).to(dev, torch.bfloat16)] + [T(a).to(dev, torch.bfloat16) for a in rest]
+    first = gn_silu(*args, groups, 1e-5, silu)
+    second = gn_silu(*args, groups, 1e-5, silu)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 @pytest.mark.gpu
