@@ -123,6 +123,32 @@ Phases (any failure exits non-zero and prints no result line):
      the mma.sync kernel), which of the 35 convs take which variant, and the
      decoder rebuilt with every conv on the NCHW route: the same bits, and
      both decodes' device profiles (the channels-last quantization's cost);
+  6b. SDXL: TINY SDXL in fp32 on the card against the CPU (batch-2 UNet,
+     and Turbo), then SDXL base at 1024 x 1024 in bf16 at full width with
+     its weights synthesized on the card (CLIP-L + CLIP-bigG, the SDXL UNet
+     at batch 2, VAE_SD at the 128 x 128 latent and its 64 x 64 tile
+     decoder; plan and synthesis seconds, device weight bytes, peak memory):
+     a 10-step euler_a image on the device loop, one batch-2 UNet run a step
+     (the CFG pair, row 0 cond, row 1 uncond), with 70 packed flash launches
+     a run (10 at 4096 tokens, 60 at 1024; d = 64), the first launch of each
+     site shape held against the twin on the graph's operands; its decode
+     whole (one launch at 16384 tokens, d = 512) and tiled (9 tiles), their
+     gap printed; 2 steps on the host loop against the device loop; one
+     batch-2 run with flash off against on, and each of its rows against a
+     batch-1 run of the same weights (within 5e-2 * max|out|); SDXL Turbo
+     (the batch-2 build freed first): one step through a batch-1 UNet with
+     no uncond branch (70 launches), host loop against device loop; device
+     busy and wall of a UNet run at batch 1 and 2, the 10-step loop and the
+     decodes; one batch-2 run's 70 flash calls replayed beside SDPA and the
+     bound, and every site shape (batch 1 and 2, the two VAE sites) on the
+     graph's operands;
+  6c. SD1.5 generate_batch at full width, bf16, weights synthesized on the
+     card: 4 prompts through a batch-4 UNet for 2 euler_a steps (44 flash
+     launches, the first of each shape held against the twin), the batch-4
+     run's rows against batch-1 runs within 5e-2 * max|out|, device busy and
+     wall at batch 4 and 1; then in float32 each image's latents against a
+     sequential generate with its seed within 1e-3 * max|lat| (bf16's gap,
+     CFG-amplified rounding of the batch's other library kernels, printed);
   7. LLM slice: LLAMA_TINY in fp32 on the card against the CPU (tokens equal,
      logits within 1e-4 * max), then TinyLlama 1.1B at full width (random
      weights from seed 0) in bf16 through LlamaPipeline answers three chat
@@ -1990,14 +2016,14 @@ def phase_kernel_qlinear(name: str) -> None:
 
 def _decode_image(pipe, lat, tiled: bool = False):
     """The decoder's float image (finite, checked before the cast) and the
-    uint8 image, (512, 512, 3)."""
+    uint8 image, (8 h, 8 w, 3) for an (h, w) latent."""
     from onnxstream_tpu_torch.models.sd.pipeline import image_to_uint8
 
     img_f = pipe.decode_to_float(lat, tiled=tiled)
     if not bool(torch.isfinite(img_f).all()):
         raise SystemExit("the decoder gave a non-finite image")
     img = image_to_uint8(img_f)
-    if img.shape != (512, 512, 3) or img.dtype != np.uint8:
+    if img.shape != (8 * pipe.lath, 8 * pipe.latw, 3) or img.dtype != np.uint8:
         raise SystemExit(f"bad image {img.shape} {img.dtype}")
     return img
 
@@ -2284,6 +2310,440 @@ def phase_sd_image(name: str) -> dict:
     out["qconv"]["variants"] = {k: len(v) for k, v in by_variant.items()}
     out["w8a8_decode_busy_ms"] = busy
     out["flash_launches"] = launches["flash_attention_packed"]
+    return out
+
+
+# ------------------------------------------------------------ SDXL, SDXL Turbo, generate_batch
+SDXL_FLASH_PER_RUN = 70  # self-attention sites a UNet run: 10 at 4096 tokens (10 heads), 60 at 1024 (20 heads), d = 64
+SD15_FLASH_PER_RUN = 10  # the SD15 UNet's: 5 at 4096 tokens (d = 40), 5 at 1024 (d = 80)
+SDXL_PROMPT = "a photo of an astronaut riding a horse on mars"
+SDXL_NEG = "blurry, low quality"
+
+
+class _FlashShapes(_FlashSites):
+    """_FlashSites that holds the first call of every distinct shape against
+    the twin on the graph's operands, as the graph made it (``seen``: shape
+    -> (ok, max|diff|, about)); ``reset`` starts a new run."""
+
+    def __init__(self, kernel, twin, tol):
+        super().__init__(kernel, twin, tol)
+        self.seen = {}
+
+    def reset(self):
+        self.seen = {}
+
+    def __call__(self, q, k, v, heads, **kw):
+        key = (tuple(q.shape), tuple(k.shape), heads)
+        first = key not in self.seen
+        if first:
+            self.arm()
+        out = super().__call__(q, k, v, heads, **kw)
+        if first:
+            self.seen[key] = self.result
+        return out
+
+    def check_shapes(self, label: str, want: int) -> None:
+        for (qs, ks, h), (ok, err, about) in sorted(self.seen.items()):
+            print(f"  {label}: first launch at q {qs} heads {h} vs twin on the graph's operands: max|diff| "
+                  f"{err:.3e} {'ok' if ok else 'FAIL'}; {about}")
+        if len(self.seen) != want or not all(r[0] for r in self.seen.values()):
+            raise SystemExit(f"{label}: {len(self.seen)} site shapes checked (want {want}), or one disagrees")
+
+
+def _packed_cost(q, k, v, heads, scale=None, causal=False):
+    """(bytes, operations, exponentials) of one packed call: q, k, v read
+    once, the output written once; QK^T and PV at 2 operations a
+    multiply-add; one exp2 a score."""
+    b, m, hd = q.shape
+    n = k.shape[1]
+    return _nbytes(q, k, v) + _nbytes(q), 4 * b * m * n * hd, b * heads * m * n
+
+
+def _packed_library(q, k, v, heads, scale=None, causal=False):
+    return lambda: _sdpa_packed(q, k, v, heads)
+
+
+def _about_packed(q, k, v, heads, **kw) -> str:
+    return f"q {tuple(q.shape)} heads {heads} ({_packed_variant(q, k, v, heads)})"
+
+
+def _weights_of(sessions) -> int:
+    """Bytes of the distinct resident device weights of the sessions."""
+    seen = {}
+    for s in sessions:
+        for ex in s._executors.values():
+            for t in ex.device_weights():
+                seen[t.data_ptr()] = t.numel() * t.element_size()
+    return sum(seen.values())
+
+
+def _plan_and_synthesize(label: str, sess, inputs: dict) -> tuple:
+    """Plan sess for these inputs, then make its weights (synthesized on the
+    card): (plan s, synthesis s)."""
+    sess.clear_tensors()
+    for k, v in inputs.items():
+        sess.add_tensor(k, v)
+    t0 = time.perf_counter()
+    ex = sess._executor()
+    t1 = time.perf_counter()
+    for seg in ex.segments:
+        ex._fetch_segment_weights(seg)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    print(f"  {label}: {len(sess.graph.ops)} ops, plan {t1 - t0:.2f} s, weights synthesized on the card in "
+          f"{t2 - t1:.2f} s ({ex.weight_bytes() / 2**30:.3f} GiB)")
+    return t1 - t0, t2 - t1
+
+
+def _xl_unet_inputs(pipe, x: np.ndarray, t: float, branch) -> dict:
+    """The SDXL UNet's inputs for one run: the sample tiled to the branch's
+    rows, its context, pooled embeds and time ids."""
+    from onnxstream_tpu_torch.models.sd.pipeline import SDXL_TIME_IDS
+
+    names = pipe._unet_input_names()
+    rows = branch["context"].shape[0]
+    return {names["sample"]: np.repeat(x[None], rows, axis=0), names["timestep"]: np.array([t], np.float32),
+            names["context"]: branch["context"], names["text_embeds"]: branch["pooled"],
+            names["time_ids"]: np.tile(SDXL_TIME_IDS, (rows, 1))}
+
+
+def _run_unet(sess, inputs: dict) -> np.ndarray:
+    sess.clear_tensors()
+    for k, v in inputs.items():
+        sess.add_tensor(k, v)
+    return next(v for v in sess.run().values() if v.ndim == 4)
+
+
+def _tiny_xl_card_vs_cpu() -> None:
+    """TINY SDXL in fp32 (the builders' weights, not synthesized: the card's
+    and the CPU's generators differ) with a batch-2 UNet on the card against
+    the CPU: the device loop's latents within 1e-4 * max, and Turbo's."""
+    from onnxstream_tpu_torch.models.sd.pipeline import StableDiffusionPipeline
+
+    for turbo, batch in ((False, 2), (True, 1)):
+        lats = {}
+        for dev in ("cpu", "cuda:0"):
+            pipe = StableDiffusionPipeline.from_synthetic(tiny=True, xl=True, turbo=turbo, batch=batch,
+                                                          device=torch.device(dev))
+            lats[dev] = pipe.generate_on_device("a photo of a cat", "dog", steps=3, seed=7, decode=False).latents
+        err = float(np.abs(lats["cuda:0"] - lats["cpu"]).max())
+        bound_ = 1e-4 * float(np.abs(lats["cpu"]).max())
+        print(f"TINY SDXL{' Turbo' if turbo else ''} (UNet batch {batch}) fp32 card vs CPU: latents max|diff| "
+              f"{err:.3e} (bound {bound_:.3e})")
+        if not err <= bound_:
+            raise SystemExit("the TINY SDXL pipeline on the card disagrees with the CPU run")
+
+
+def _levels(a: np.ndarray, b: np.ndarray) -> tuple:
+    d = np.abs(a.astype(np.int32) - b.astype(np.int32))
+    return float(d.mean()), int(d.max())
+
+
+def phase_sdxl(name: str) -> dict:
+    """SDXL base at 1024 x 1024 in bf16 at full width with weights
+    synthesized on the card: CLIP-L + CLIP-bigG, the SDXL UNet at batch 2
+    (the CFG pair as one run), VAE_SD at the 128 x 128 latent and its 64 x 64
+    tile decoder; then SDXL Turbo (batch-1 UNet, no uncond branch)."""
+    import onnxstream_tpu_torch.ops.attention as attention_op
+    from onnxstream_tpu_torch.kernels.flash_attention import (flash_attention_packed,
+                                                              flash_attention_packed_reference)
+    from onnxstream_tpu_torch.models.sd import scheduler as sched
+    from onnxstream_tpu_torch.models.sd.pipeline import StableDiffusionPipeline
+
+    _tiny_xl_card_vs_cpu()
+    cuda = torch.device("cuda:0")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pipe = StableDiffusionPipeline.from_synthetic(tiny=False, xl=True, batch=2, on_device=True,
+                                                  compute_dtype="bfloat16", device=cuda)
+    print(f"SDXL pipeline (CLIP-L, CLIP-bigG, SDXL UNet at batch 2, VAE at 128 x 128 + 64 x 64 tiles; lazy "
+          f"weights) built in {time.perf_counter() - t0:.1f} s")
+    names = pipe._unet_input_names()
+    spec = pipe.unet.graph.inputs
+    toks = np.zeros((1, pipe._clip_seq), np.int64)
+    cond = {"context": np.zeros(spec[names["context"]].shape[1:], np.float32),
+            "pooled": np.zeros((1, spec[names["text_embeds"]].shape[1]), np.float32)}
+    both = pipe._stack_branches(cond, cond)
+    z = np.zeros((1, 4, pipe.lath, pipe.latw), np.float32)
+    tile = pipe._tile_size
+    plan_s = synth_s = 0.0
+    for label, sess, inputs in (
+            ("CLIP-L", pipe.text_encoder, {"tokens": toks}),
+            ("CLIP-bigG", pipe.text_encoder_2, {"tokens": toks}),
+            ("SDXL UNet, batch 2", pipe.unet, _xl_unet_inputs(pipe, z[0], 999.0, both)),
+            (f"VAE decoder, {pipe.lath} x {pipe.latw} latent", pipe.vae_decoder, {"latent": z}),
+            (f"VAE tile decoder, {tile} x {tile} latent", pipe.vae_tile_session, {"latent": z[:, :, :tile, :tile]})):
+        p, s_ = _plan_and_synthesize(label, sess, inputs)
+        plan_s, synth_s = plan_s + p, synth_s + s_
+    sessions = [pipe.text_encoder, pipe.text_encoder_2, pipe.unet, pipe.vae_decoder, pipe.vae_tile_session]
+    wbytes = _weights_of(sessions)
+    print(f"SDXL: plan {plan_s:.2f} s, weight synthesis {synth_s:.2f} s, device weight bytes {wbytes / 1e9:.3f} GB, "
+          f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{name}]")
+
+    flash = _FlashShapes(flash_attention_packed, flash_attention_packed_reference, 2e-2)
+    ms, res = {}, {}
+    # the path: the requests below; the count is zeroed just before it
+    flash_attention_packed.launches = 0
+    attention_op.flash_attention_packed = flash
+    try:
+        # 1. a 10-step euler_a image on the device loop: one batch-2 UNet run a step
+        flash.reset()
+        res["a"], ms["a"] = _timed(lambda: pipe.generate_on_device(SDXL_PROMPT, SDXL_NEG, steps=10, seed=42,
+                                                                    decode=False))
+        n1 = flash_attention_packed.launches
+        lat = res["a"].latents
+        print(f"SDXL request (a) euler_a, 10 steps, device loop, UNet batch 2: latents {lat.shape} finite="
+              f"{np.isfinite(lat).all()} max|lat| {np.abs(lat).max():.3f}, {ms['a']:.1f} ms (the twin's checks "
+              f"included), flash_attention_packed launches {n1} (want {10 * SDXL_FLASH_PER_RUN}) [{name}]")
+        if lat.shape != (4, pipe.lath, pipe.latw) or not np.isfinite(lat).all() or n1 != 10 * SDXL_FLASH_PER_RUN:
+            raise SystemExit(f"SDXL request (a): bad latents or {n1} flash launches")
+        flash.check_shapes("SDXL UNet batch 2", 2)
+        # the decodes of (a): whole (one launch at 16384 tokens) and tiled (9 tiles, one each at 4096)
+        n0 = flash_attention_packed.launches
+        flash.reset()
+        img, ms["decode"] = _timed(lambda: _decode_image(pipe, lat))
+        n_whole = flash_attention_packed.launches - n0
+        img_tiled, ms["tiled"] = _timed(lambda: _decode_image(pipe, lat, tiled=True))
+        n_tiled = flash_attention_packed.launches - n0 - n_whole
+        gap = _levels(img, img_tiled)
+        print(f"SDXL decode of (a): whole {img.shape} {ms['decode']:.1f} ms ({n_whole} flash launch, want 1), tiled "
+              f"{ms['tiled']:.1f} ms ({n_tiled} launches, want 9); tiled vs whole: mean {gap[0]:.3f}, max {gap[1]} "
+              f"levels [{name}]")
+        if img_tiled.shape != img.shape or n_whole != 1 or n_tiled != 9:
+            raise SystemExit("SDXL decode: bad image or flash launches")
+        flash.check_shapes("SDXL VAE decodes", 2)
+        # 2. the same prompt, 2 steps, host loop (generate: _denoise_cfg2) against the device loop
+        n0 = flash_attention_packed.launches
+        res["host"], ms["host2"] = _timed(lambda: pipe.generate(SDXL_PROMPT, SDXL_NEG, steps=2, seed=42, decode=False))
+        res["dev"], ms["dev2"] = _timed(lambda: pipe.generate_on_device(SDXL_PROMPT, SDXL_NEG, steps=2, seed=42,
+                                                                        decode=False))
+        n2 = flash_attention_packed.launches - n0
+        a, b = res["dev"].latents, res["host"].latents
+        err, top = float(np.abs(a - b).max()), float(np.abs(b).max())
+        print(f"SDXL 2 steps, host loop {ms['host2']:.1f} ms vs device loop {ms['dev2']:.1f} ms: latents max|diff| "
+              f"{err:.4e}, max|lat| {top:.3f}, ratio {err / top:.3e} (bound 5e-2); flash launches {n2} "
+              f"(want {4 * SDXL_FLASH_PER_RUN})")
+        if not (np.isfinite(a).all() and err <= 5e-2 * top) or n2 != 4 * SDXL_FLASH_PER_RUN:
+            raise SystemExit("SDXL: the host loop and the device loop disagree")
+    finally:
+        attention_op.flash_attention_packed = flash_attention_packed
+    launches = flash_attention_packed.launches
+    flash.check_variants("SDXL path")
+    peak = max(flash.peak, torch.cuda.max_memory_allocated())
+    print(f"SDXL path launches: flash_attention_packed {launches}; peak device memory {peak / 2**30:.2f} GiB [{name}]")
+
+    # one batch-2 UNet run of step 0 of (a): flash on against off, its 70 calls recorded
+    cb, ub = pipe.encode_prompt_xl(SDXL_PROMPT), pipe.encode_prompt_xl(SDXL_NEG)
+    pair = pipe._stack_branches(cb, ub)
+    sigma0 = float(sched.sigma_schedule(10)[0])
+    from onnxstream_tpu_torch.models.sd.rng import randn_4_w_h
+
+    x0 = np.asarray(randn_4_w_h(42, pipe.latw, pipe.lath) * sigma0 * sched.get_scalings(sigma0)[0], np.float32)
+    t_0 = sched.sigma_to_t(sigma0)
+    inputs2 = _xl_unet_inputs(pipe, x0, t_0, pair)
+    flash.calls = []
+    attention_op.flash_attention_packed = flash
+    try:
+        out2 = _run_unet(pipe.unet, inputs2)
+    finally:
+        attention_op.flash_attention_packed = flash_attention_packed
+    calls, flash.calls = flash.calls, None
+    pipe.unet.config.use_flash_attention = False
+    try:
+        off = _run_unet(pipe.unet, inputs2)
+    finally:
+        pipe.unet.config.use_flash_attention = True
+    diff, top = float(np.abs(off - out2).max()), float(np.abs(out2).max())
+    print(f"SDXL UNet batch 2, flash on vs off: max|diff| {diff:.4e}, max|out| {top:.4f}, ratio {diff / top:.4e} "
+          f"(bound 5e-2); {len(calls)} flash calls recorded (want {SDXL_FLASH_PER_RUN})")
+    if not (np.isfinite(out2).all() and diff <= 5e-2 * top) or len(calls) != SDXL_FLASH_PER_RUN:
+        raise SystemExit("SDXL UNet: flash on and off disagree, or the run made another number of flash calls")
+    unet_ms = {"batch2": busy_and_wall(lambda: pipe.unet.run(device_outputs=True), "SDXL UNet run, batch 2", name)}
+    _, ms["loop10"] = _timed(lambda: pipe.generate_on_device(SDXL_PROMPT, SDXL_NEG, steps=10, seed=42, decode=False))
+    _, ms["decode_warm"] = _timed(lambda: _decode_image(pipe, lat))
+    _, ms["tiled_warm"] = _timed(lambda: _decode_image(pipe, lat, tiled=True))
+    print(f"SDXL warm [{name}]: 10-step euler_a image loop {ms['loop10']:.1f} ms, decode whole "
+          f"{ms['decode_warm']:.1f} ms, tiled {ms['tiled_warm']:.1f} ms")
+    # kernel 1 over the run's 70 calls and at each of its shapes, then the VAE's sites
+    fa = replay_times("flash_attention_packed over one SDXL UNet run's calls (batch 2)", calls,
+                      flash_attention_packed, flash_attention_packed_reference, _packed_library, "bf16", name,
+                      cost=_packed_cost)
+    close = lambda got, ref: _flash_agrees(got, ref, 2e-2)[0]
+    sites = site_report("flash_attention_packed, SDXL UNet batch 2", calls, flash_attention_packed,
+                        flash_attention_packed_reference, _packed_library, _packed_cost, _about_packed, 2e-2, name,
+                        close=close, key=lambda a, k: (*a[0].shape, a[3]))
+    del calls
+    vae_calls = []
+    flash.calls = vae_calls
+    attention_op.flash_attention_packed = flash
+    try:
+        _decode_image(pipe, lat)
+        _decode_image(pipe, lat, tiled=True)
+    finally:
+        attention_op.flash_attention_packed = flash_attention_packed
+        flash.calls = None
+    sites.update(site_report("flash_attention_packed, SDXL VAE decodes", vae_calls[:2], flash_attention_packed,
+                             flash_attention_packed_reference, _packed_library, _packed_cost, _about_packed, 2e-2,
+                             name, close=close, key=lambda a, k: (*a[0].shape, a[3])))
+    del vae_calls
+    del pipe, flash
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # SDXL Turbo: a batch-1 UNet, no uncond branch; its UNet also runs each row of the batch-2 run
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    turbo = StableDiffusionPipeline.from_synthetic(tiny=False, xl=True, turbo=True, on_device=True,
+                                                   compute_dtype="bfloat16", device=cuda)
+    flash = _FlashShapes(flash_attention_packed, flash_attention_packed_reference, 2e-2)
+    flash_attention_packed.launches = 0
+    attention_op.flash_attention_packed = flash
+    try:
+        res["turbo"], ms["turbo"] = _timed(lambda: turbo.generate_on_device(SDXL_PROMPT, SDXL_NEG, steps=1, seed=42,
+                                                                             decode=False))
+        n_t = flash_attention_packed.launches
+        flash.check_shapes("SDXL Turbo UNet batch 1", 2)
+        host1 = turbo.generate(SDXL_PROMPT, "", steps=1, seed=42, decode=False).latents
+    finally:
+        attention_op.flash_attention_packed = flash_attention_packed
+    turbo_launches = flash_attention_packed.launches
+    lt = res["turbo"].latents
+    err, top = float(np.abs(lt - host1).max()), float(np.abs(host1).max())
+    print(f"SDXL Turbo 1 step, device loop: latents {lt.shape} finite={np.isfinite(lt).all()}, {ms['turbo']:.1f} ms "
+          f"incl. build, plan and synthesis {time.perf_counter() - t0:.1f} s since the build began; flash launches "
+          f"{n_t} (want {SDXL_FLASH_PER_RUN}: no uncond branch); host loop vs device loop max|diff| {err:.4e} of "
+          f"max|lat| {top:.3f} (bound 5e-2) [{name}]")
+    if not np.isfinite(lt).all() or n_t != SDXL_FLASH_PER_RUN or not err <= 5e-2 * top:
+        raise SystemExit("SDXL Turbo: bad latents, flash launches, or host and device loops disagree")
+    _decode_image(turbo, lt)
+    # the batch-2 run against two batch-1 runs of the same weights (same seeds, same plan order)
+    names = turbo._unet_input_names()
+    for row in (0, 1):
+        one = {k: (v[row:row + 1] if k != names["timestep"] else v) for k, v in inputs2.items()}
+        o1 = _run_unet(turbo.unet, one)
+        diff, top = float(np.abs(o1[0] - out2[row]).max()), float(np.abs(o1).max())
+        print(f"SDXL UNet batch 2 row {row} ({'cond' if row == 0 else 'uncond'}) vs a batch-1 run: max|diff| "
+              f"{diff:.4e}, max|out| {top:.4f}, ratio {diff / top:.4e} (bound 5e-2)")
+        if not diff <= 5e-2 * top:
+            raise SystemExit(f"SDXL UNet: row {row} of the batch-2 run disagrees with its batch-1 run")
+    turbo.unet.clear_tensors()
+    for k, v in inputs2.items():
+        turbo.unet.add_tensor(k, v[:1] if k != names["timestep"] else v)
+    unet_ms["batch1"] = busy_and_wall(lambda: turbo.unet.run(device_outputs=True), "SDXL UNet run, batch 1", name)
+    calls1 = []
+    flash.calls = calls1
+    attention_op.flash_attention_packed = flash
+    try:
+        turbo.unet.run(device_outputs=True)
+    finally:
+        attention_op.flash_attention_packed = flash_attention_packed
+        flash.calls = None
+    sites.update(site_report("flash_attention_packed, SDXL UNet batch 1", calls1, flash_attention_packed,
+                             flash_attention_packed_reference, _packed_library, _packed_cost, _about_packed, 2e-2,
+                             name, close=close, key=lambda a, k: (*a[0].shape, a[3])))
+    del calls1, turbo, flash
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches + turbo_launches, "replay": fa, "ms_by_shape": sites, "unet": unet_ms, "ms": ms,
+            "device_weight_bytes": wbytes}
+
+
+def _sd15_unet_inputs(pipe, prompts, seeds, steps: int) -> dict:
+    """The SD15 UNet's inputs for the cond branch of step 0 of each prompt,
+    stacked: each row as generate would give it."""
+    from onnxstream_tpu_torch.models.sd import scheduler as sched
+    from onnxstream_tpu_torch.models.sd.rng import randn_4_w_h
+
+    sigma0 = float(sched.sigma_schedule(steps)[0])
+    c_in = np.float32(sched.get_scalings(sigma0)[0])
+    names = pipe._unet_input_names()
+    return {names["sample"]: np.stack([np.asarray(randn_4_w_h(s % 1000, pipe.latw, pipe.lath) * sigma0, np.float32)
+                                       * c_in for s in seeds]),
+            names["timestep"]: np.array([sched.sigma_to_t(sigma0)], np.float32),
+            names["context"]: np.stack([pipe.encode_prompt(p) for p in prompts]).astype(np.float32)}
+
+
+def phase_sd_batch(name: str) -> dict:
+    """SD1.5 generate_batch at full width: 4 prompts through a batch-4 UNet,
+    2 euler_a steps, bf16, weights synthesized on the card. The batch-4 run
+    against four batch-1 runs of the same weights; then, in float32 (where a
+    batch changes nothing but the order of sums), each image against a
+    sequential generate with the same seed."""
+    import onnxstream_tpu_torch.ops.attention as attention_op
+    from onnxstream_tpu_torch.kernels.flash_attention import (flash_attention_packed,
+                                                              flash_attention_packed_reference)
+    from onnxstream_tpu_torch.models.sd.pipeline import StableDiffusionPipeline
+
+    cuda = torch.device("cuda:0")
+    prompts = SD_PROMPTS + ["a red bicycle leaning on a wall"]
+    seeds = [3, 5, 7, 11]
+    out = {}
+    for dtype in ("bfloat16", "float32"):
+        t0 = time.perf_counter()
+        bat = StableDiffusionPipeline.from_synthetic(tiny=False, batch=4, on_device=True, compute_dtype=dtype,
+                                                     device=cuda)
+        seq = StableDiffusionPipeline.from_synthetic(tiny=False, on_device=True, compute_dtype=dtype, device=cuda)
+        print(f"SD1.5 pipelines, {dtype} (UNet batch 4 and batch 1, weights synthesized on the card) built in "
+              f"{time.perf_counter() - t0:.1f} s")
+        if dtype == "bfloat16":
+            # the path: the count is zeroed just before it and read just after
+            flash = _FlashShapes(flash_attention_packed, flash_attention_packed_reference, 2e-2)
+            flash_attention_packed.launches = 0
+            attention_op.flash_attention_packed = flash
+            try:
+                res, ms = _timed(lambda: bat.generate_batch(prompts, steps=2, seeds=seeds))
+            finally:
+                attention_op.flash_attention_packed = flash_attention_packed
+            launches = flash_attention_packed.launches
+            want = 4 * SD15_FLASH_PER_RUN + 4
+            print(f"SD1.5 generate_batch, 4 prompts, 2 euler_a steps, UNet batch 4, bf16: {ms:.1f} ms incl. plan and "
+                  f"synthesis, flash_attention_packed launches {launches} (want {want}: {SD15_FLASH_PER_RUN} a "
+                  f"UNet run x 2 runs x 2 steps + 1 a decode x 4) [{name}]")
+            if launches != want or any(not np.isfinite(r.latents).all() for r in res):
+                raise SystemExit(f"generate_batch: {launches} flash launches, or non-finite latents")
+            flash.check_shapes("SD15 generate_batch (UNet batch 4, VAE)", 3)
+            flash.check_variants("SD15 generate_batch")
+            if len({r.image.tobytes() for r in res}) != 4:
+                raise SystemExit("generate_batch gave equal images for distinct prompts")
+            # the batch-4 run against four batch-1 runs on the same inputs
+            inputs = _sd15_unet_inputs(bat, prompts, seeds, 2)
+            four = _run_unet(bat.unet, inputs)
+            tname = bat._unet_input_names()["timestep"]
+            for j in range(4):
+                one = _run_unet(seq.unet, {k: (v if k == tname else v[j:j + 1]) for k, v in inputs.items()})
+                diff, top = float(np.abs(one[0] - four[j]).max()), float(np.abs(one).max())
+                print(f"  SD15 UNet batch 4 row {j} vs a batch-1 run: max|diff| {diff:.4e}, max|out| {top:.4f}, "
+                      f"ratio {diff / top:.4e} (bound 5e-2)")
+                if not diff <= 5e-2 * top:
+                    raise SystemExit(f"generate_batch: row {j} of the batch-4 UNet run disagrees with its batch-1 run")
+            _, ms_warm = _timed(lambda: bat.generate_batch(prompts, steps=2, seeds=seeds, decode=False))
+            print(f"SD1.5 generate_batch warm, 4 images x 2 steps without decode: {ms_warm:.1f} ms [{name}]")
+            out = {"launches": launches, "warm_ms": ms_warm,
+                   "unet_batch4": busy_and_wall(lambda: bat.unet.run(device_outputs=True),
+                                                "SD1.5 UNet run, batch 4, bf16", name)}
+            seq.unet.clear_tensors()
+            for k, v in inputs.items():
+                seq.unet.add_tensor(k, v if k == tname else v[:1])
+            out["unet_batch1"] = busy_and_wall(lambda: seq.unet.run(device_outputs=True),
+                                               "SD1.5 UNet run, batch 1, bf16", name)
+        else:
+            res = bat.generate_batch(prompts, steps=2, seeds=seeds, decode=False)
+        # each image against a sequential generate with the same seed; in
+        # bf16 the batch's other library kernels round differently, which
+        # CFG at scale 7 amplifies to ~5e-2 of the latents in 2 steps
+        # (measured on an NVIDIA H100 80GB HBM3): printed. Bounded in
+        # float32, where the same gap measured ~1.5e-5
+        for j, (p, s) in enumerate(zip(prompts, seeds)):
+            r = seq.generate(p, steps=2, seed=s, decode=False)
+            err, top = float(np.abs(res[j].latents - r.latents).max()), float(np.abs(r.latents).max())
+            print(f"  {dtype} image {j} (seed {s}) vs sequential generate: latents max|diff| {err:.4e} of max|lat| "
+                  f"{top:.3f}, ratio {err / top:.3e}" + (" (bound 1e-3)" if dtype == "float32" else ""))
+            if dtype == "float32" and not (np.isfinite(res[j].latents).all() and err <= 1e-3 * top):
+                raise SystemExit(f"generate_batch image {j} disagrees with the sequential generate")
+        del bat, seq, res
+        gc.collect()
+        torch.cuda.empty_cache()
     return out
 
 
@@ -2673,6 +3133,8 @@ def main() -> int:
     sd_image = phase_sd_image(name)
     gc.collect()
     torch.cuda.empty_cache()
+    sdxl = phase_sdxl(name)
+    sd_batch = phase_sd_batch(name)
     llm = phase_llm(name)
     launches_llm = llm["launches"]
     gc.collect()
@@ -2687,8 +3149,12 @@ def main() -> int:
     print(json.dumps({"kernels": [
         {"name": "flash_attention_packed", "route": "cuda", "source": fa_src,
          "replaces": "onnxstream_tpu/kernels/flash_attention.py:260", **kernel,
-         "launches": sd_image["flash_launches"],
-         "launches_by_path": {"sd15_step": launches_sd, "sd15_image": sd_image["flash_launches"]}},
+         "launches": sd_image["flash_launches"] + sdxl["launches"] + sd_batch["launches"],
+         "launches_by_path": {"sd15_step": launches_sd, "sd15_image": sd_image["flash_launches"],
+                              "sdxl_image_and_turbo": sdxl["launches"], "sd15_generate_batch4": sd_batch["launches"]},
+         "sdxl": {"unet_run_replay": sdxl["replay"], "ms_by_shape": sdxl["ms_by_shape"], "unet": sdxl["unet"],
+                  "device_weight_bytes": sdxl["device_weight_bytes"]},
+         "sd15_batch4": sd_batch},
         {"name": "flash_attention", "route": "cuda", "source": fa_src,
          "replaces": "onnxstream_tpu/kernels/flash_attention.py:366", **kernel_hm, "launches": launches_llm,
          **llm["flash"]},

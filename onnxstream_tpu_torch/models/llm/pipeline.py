@@ -48,8 +48,10 @@ def _next_bucket(n: int, buckets: List[int]) -> int:
 
 def _host_tensor(arr) -> torch.Tensor:
     """A host weight as a torch tensor, sharing a writable numpy array's
-    memory: the multi-GB model weights are not copied a second time."""
-    if isinstance(arr, torch.Tensor):
+    memory: the multi-GB model weights are not copied a second time. A
+    ``LazyArray`` placeholder stays one (``DictWeightsProvider``
+    materializes it if the host asks for it)."""
+    if isinstance(arr, torch.Tensor) or hasattr(arr, "materialize"):
         return arr
     if isinstance(arr, np.ndarray) and arr.flags.writeable and dtype_name(arr.dtype) != "bfloat16":
         return torch.from_numpy(arr)
@@ -75,10 +77,6 @@ class LlamaPipeline:
         mesh=None,
         device: Optional[torch.device] = None,
     ):
-        if synthetic_on_device:
-            raise NotImplementedError(
-                "synthetic_on_device needs device-side weight synthesis "
-                "(ROADMAP Queue 1 item 1)")
         if mesh is not None:
             raise NotImplementedError(
                 "a mesh (tensor-parallel decode) needs torch.distributed sharding "
@@ -92,6 +90,10 @@ class LlamaPipeline:
         # MatMuls run through kernels/qmatmul.w8a8_dyn_matmul: decode reads 1
         # byte per weight instead of 2
         self.int8_weights = int8_weights
+        # timing runs: the builder emits LazyArray placeholders and every
+        # session generates the big weights on the device
+        # (SessionConfig.synthetic_device_weights): no host materialization
+        # and no upload. Numerically meaningless
         self.synthetic_on_device = synthetic_on_device
         self.mesh = mesh
         self.tokenizer = tokenizer
@@ -121,6 +123,8 @@ class LlamaPipeline:
             shared_device_weight_cache=self._shared_dev_weights,
             requires_upcast=_upcast_rmsnorm,
             device=self.device,
+            synthetic_device_weights=self.synthetic_on_device,
+            synthetic_seed=self.seed,
         )
 
     def _session(self, L: int, P: int) -> Session:
@@ -128,7 +132,7 @@ class LlamaPipeline:
         s = self._sessions.get(key)
         if s is None:
             g = build_llama(self.cfg, new_len=L, past=P, seed=self.seed,
-                            weight_bank=self._weight_bank)
+                            weight_bank=self._weight_bank, lazy_weights=self.synthetic_on_device)
             weights = dict(self._ext_weights) if self._ext_weights else {}
             # graph-aux tensors (masks, shape consts, rope tables) are
             # generated by the builder; model weights may come from outside

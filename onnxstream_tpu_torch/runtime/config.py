@@ -41,7 +41,6 @@ _NOT_IMPLEMENTED = {
     "flash_packed_nopad": False,  # head-major flash route (TPU kernel flash_attention)
     "force_fp16_storage": False,
     "use_nhwc_layout": False,  # channel-last graph rewrite
-    "synthetic_device_weights": False,  # weights generated on the device
 }
 
 
@@ -123,11 +122,24 @@ class SessionConfig:
     # option name is kept
     use_pallas_smallconv: bool = False
 
+    # --- synthetic weights (timing runs, numerically meaningless) -----------
+    # big float weights (and symmetric int8 / file-quantized uint8 ones) are
+    # generated on the device at fetch time instead of fetched from the
+    # provider and uploaded (executor._synthesize); with the builder's
+    # lazy_weights the host never materializes them either. NOT for accuracy
+    # runs
+    synthetic_device_weights: bool = False
+    # smallest weight (in elements) that is synthesized; smaller tensors stay
+    # real (they may steer control structure)
+    synthetic_min_elements: int = 1 << 18
+    # each synthesized weight's stream is seeded from (this seed, its index
+    # among the plan's weights)
+    synthetic_seed: int = 0
+
     # not implemented yet: must keep their defaults (see _NOT_IMPLEMENTED)
     flash_packed_nopad: bool = False
     force_fp16_storage: bool = False
     use_nhwc_layout: bool = False
-    synthetic_device_weights: bool = False
 
     def __post_init__(self) -> None:
         self.torch_compute_dtype  # validates compute_dtype

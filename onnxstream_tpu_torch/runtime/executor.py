@@ -59,19 +59,33 @@ excepted, as the reference does. ``run_eager`` with ``range_data_calibrate``
 records per-op ranges (graph inputs under their tensor names, op outputs
 before QDQ) into ``Executor.range_data``; the percentiles are taken on the
 device.
+
+Synthetic weights (JAX ``_synth_kind``, ``_synthesize_missing``): with
+``synthetic_device_weights`` a weight of at least ``synthetic_min_elements``
+elements is generated on the device in its upload dtype and shape (after any
+relayout) instead of being fetched and uploaded: N(0, ``SYNTH_SCALE``) for a
+float weight, uniform s8 in [-127, 127] with a flat per-channel scale for a
+force-quantized symmetric int8 weight, uniform u8 for a uint8 weight from
+the file (its (scale, zero point) are the file's). Each weight's stream comes
+from one ``torch.Generator`` on the device, seeded from
+(``synthetic_seed``, the weight's index among the plan's weights), so the
+same graph gives the same weights on every fetch and in every session; the
+values are not ``jax.random``'s. Smaller weights stay real. Synthesized
+weights are cached like uploaded ones.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 import time
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
-from onnxstream_tpu_torch.dtypes import to_torch
+from onnxstream_tpu_torch.dtypes import DType, to_torch
 from onnxstream_tpu_torch.ir import OpNode
 from onnxstream_tpu_torch.kernels.qconv import qconv
 from onnxstream_tpu_torch.kernels.qmatmul import qmatmul, quantize_activation, w8_matmul, w8a8_dyn_matmul
@@ -91,6 +105,8 @@ from onnxstream_tpu_torch.runtime.weights import WeightsProvider
 # builder constants (shape vectors) may reuse a name with other contents
 # across bucket graphs, model weights never do.
 SHARED_CACHE_MIN_BYTES = 1 << 20
+
+SYNTH_SCALE = 0.02  # N(0, SYNTH_SCALE) float weights; the s8 scale derives from it
 
 
 def upload_bytes(w: WeightArg) -> int:
@@ -211,6 +227,27 @@ def percentiles(t: torch.Tensor) -> tuple:
     return min(ends), max(ends)
 
 
+def synth_kind(w: WeightArg, config) -> Optional[str]:
+    """The kind of device generation that stands in for w under
+    ``synthetic_device_weights`` (JAX ``Executor._synth_kind``): ``"normal"``
+    for a big float weight, ``"s8"`` for a big force-quantized symmetric int8
+    weight, ``"u8"`` for a big uint8 weight from the file; None for the rest
+    (small tensors, index tables, masks), which stay real. The size gate is
+    on elements, so a weight stored at 1 byte gates as its float form does.
+    Unlike JAX, a relayouted weight (``transform``) is synthesized too,
+    directly in its upload shape."""
+    if math.prod(w.shape) < config.synthetic_min_elements:
+        return None
+    dt = w.upload_dtype
+    if w.quant is None and dt.is_floating_point and w.file_dtype.is_float:
+        return "normal"
+    if w.symmetric and dt == torch.int8 and w.name in config.force_uint8_storage_set:
+        return "s8"
+    if w.quant is not None and not w.symmetric and dt == torch.uint8 and w.file_dtype == DType.uint8:
+        return "u8"
+    return None
+
+
 def _to_host(v) -> np.ndarray:
     """Fetched output -> numpy: floats as float32 (converted on the device
     first), signed integers as int64 (the wire integer dtype)."""
@@ -249,6 +286,7 @@ class Executor:
         self._upcast = frozenset() if upcast is None else frozenset(
             i for i, op in enumerate(self.graph.ops) if upcast(op.op_type, op.name))
         self._arg_by_name = {w.name: w for w in plan.arg_weights}
+        self._arg_index = {w.name: i for i, w in enumerate(plan.arg_weights)}
         # calibration ranges recorded by run_eager (range_data_calibrate)
         self.range_data = RangeData()
         # tensor name -> producing op name: a W8A8 op quantizes its input with
@@ -304,11 +342,38 @@ class Executor:
                         for v in quant)
         return torch.from_numpy(q)
 
+    def _synthesize(self, w: WeightArg, kind: str) -> torch.Tensor:
+        """Generate w on the device in its upload dtype and shape (JAX
+        ``_synth_generate``): one generator seeded from (synthetic_seed, w's
+        index in the plan). An s8 weight gets a flat per-channel scale on
+        the file layout's last axis (JAX ``_stamp_s8_quant``)."""
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(self.config.synthetic_seed * 1_000_003 + self._arg_index[w.name])
+        shape, dev = tuple(w.shape), self.device
+        if kind == "s8":
+            out = torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8)
+            n = (w.file_shape or w.shape)[-1]
+            w.quant = (torch.full((n,), SYNTH_SCALE / 127.0, dtype=torch.float32, device=dev), 0.0)
+            w.symmetric = True
+        elif kind == "u8":
+            out = torch.randint(0, 256, shape, generator=gen, device=dev, dtype=torch.uint8)
+        else:
+            out = torch.randn(shape, generator=gen, device=dev, dtype=torch.float32).mul_(SYNTH_SCALE)
+            out = out.to(w.upload_dtype)
+        if w.transform == "ohwi":  # the memory layout the relayout gives
+            out = out.contiguous(memory_format=torch.channels_last)
+        return out
+
     def _upload(self, w: WeightArg) -> torch.Tensor:
-        """Provider fetch in file layout -> the WeightArg's relayout
-        (WEIGHT_TRANSFORMS, e.g. (O, C, 3, 3) -> (9, O, C) for the fused
-        GroupNorm + SiLU + conv kernel) -> upload dtype on the host (quantized
-        for force_uint8_storage_set) -> pinned -> device."""
+        """A synthesized weight (``synth_kind``) under
+        synthetic_device_weights; otherwise provider fetch in file layout ->
+        the WeightArg's relayout (WEIGHT_TRANSFORMS, e.g. (O, C, 3, 3) -> (9,
+        O, C) for the fused GroupNorm + SiLU + conv kernel) -> upload dtype on
+        the host (quantized for force_uint8_storage_set) -> pinned -> device."""
+        if self.config.synthetic_device_weights:
+            kind = synth_kind(w, self.config)
+            if kind is not None:
+                return self._synthesize(w, kind)
         host = self.provider.get(w.name, w.file_dtype, w.file_shape or w.shape)
         # quantized in the file layout first (per output channel), then
         # relayouted: kernel 6's int8 weights (tnk) take both steps

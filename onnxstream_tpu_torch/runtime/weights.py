@@ -13,7 +13,11 @@ but ``get`` returns a host (CPU) ``torch.Tensor``. The executor converts it
 to the upload dtype, pins it and copies it to the card.
 
 ``params_from_numpy`` turns the JAX package's numpy parameters
-(``GraphBuilder.weights``) into the port's tensors.
+(``GraphBuilder.weights``) into the port's tensors. ``LazyArray``
+placeholders (``GraphBuilder(lazy_weights=True)``) stay placeholders: a
+``DictWeightsProvider`` materializes one only when the host asks for its
+values, which under ``SessionConfig.synthetic_device_weights`` is never the
+case for a big weight.
 """
 
 from __future__ import annotations
@@ -59,16 +63,16 @@ def _read_bin(path: str, dtype: DType, shape: Tuple[int, ...]) -> torch.Tensor:
     return t.view(torch.bfloat16) if dtype == DType.bfloat16 else t
 
 
-def params_from_numpy(weights: Dict[str, object]) -> Dict[str, torch.Tensor]:
+def _is_lazy(arr) -> bool:
+    return hasattr(arr, "materialize")
+
+
+def params_from_numpy(weights: Dict[str, object]) -> Dict[str, object]:
     """numpy parameters of the JAX package (``GraphBuilder.weights``) -> host
-    torch tensors with the same bits. ``LazyArray`` placeholders are
-    materialized; ``ml_dtypes.bfloat16`` arrays go through a uint16 view."""
-    out: Dict[str, torch.Tensor] = {}
-    for name, arr in weights.items():
-        if hasattr(arr, "materialize"):
-            arr = arr.materialize()
-        out[name] = to_torch(arr)
-    return out
+    torch tensors with the same bits; ``ml_dtypes.bfloat16`` arrays go
+    through a uint16 view. ``LazyArray`` placeholders are carried as they
+    are, unmaterialized."""
+    return {name: arr if _is_lazy(arr) else to_torch(arr) for name, arr in weights.items()}
 
 
 class DiskNoCacheWeightsProvider(WeightsProvider):
@@ -214,13 +218,16 @@ class RamWeightsProvider(WeightsProvider):
 
 class DictWeightsProvider(WeightsProvider):
     """In-memory provider: host tensors supplied by the caller (for example
-    ``params_from_numpy(GraphBuilder.weights)``)."""
+    ``params_from_numpy(GraphBuilder.weights)``). A ``LazyArray`` placeholder
+    is materialized when it is first asked for, and kept as a tensor."""
 
-    def __init__(self, weights: Optional[Dict[str, torch.Tensor]] = None) -> None:
-        self.weights: Dict[str, torch.Tensor] = dict(weights or {})
+    def __init__(self, weights: Optional[Dict[str, object]] = None) -> None:
+        self.weights: Dict[str, object] = dict(weights or {})
 
     def get(self, name, dtype, shape):
         t = self.weights[name]
+        if _is_lazy(t):
+            t = self.weights[name] = to_torch(t.materialize())
         if not isinstance(t, torch.Tensor):
             raise TypeError(
                 f"{name}: DictWeightsProvider holds torch tensors "

@@ -20,7 +20,8 @@ from onnxstream_tpu.convert.builder import GraphBuilder as JaxBuilder
 from onnxstream_tpu.models.sd.unet import TINY as JAX_TINY
 from onnxstream_tpu.models.sd.unet import build_unet as jax_build_unet
 from onnxstream_tpu_torch.models.sd.unet import TINY, build_unet, param_count
-from onnxstream_tpu_torch.runtime.weights import params_from_numpy
+from onnxstream_tpu_torch.dtypes import DType
+from onnxstream_tpu_torch.runtime.weights import DictWeightsProvider, params_from_numpy
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -74,11 +75,16 @@ def test_params_from_numpy_is_bit_exact(dtype):
 
 
 def test_params_from_numpy_materializes_lazy_weights():
+    """A LazyArray placeholder crosses unmaterialized (a big weight may be
+    synthesized on the device instead); the provider materializes it when
+    the host asks for the weight, with the builder's bits."""
     jb = JaxBuilder(seed=1, lazy_weights=True)
     jb.gen_weight("w", lambda: jb.randn(4, 6), shape=(4, 6))
     lazy = jb.weights["w.bin"]
     assert not isinstance(lazy, np.ndarray)
-    t = params_from_numpy(jb.weights)["w.bin"]
+    p = params_from_numpy(jb.weights)["w.bin"]
+    assert p is lazy and lazy._arr is None
+    t = DictWeightsProvider({"w.bin": p}).get("w.bin", DType.float32, (4, 6))
     np.testing.assert_array_equal(t.numpy(), lazy.materialize())
 
 

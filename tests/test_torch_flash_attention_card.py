@@ -174,9 +174,12 @@ def test_wgmma_variant_matches_twin_on_card(case, dtype):
 
 # the packed entry on the wgmma variants: the SD1.5 UNet's head dims 40 and 80
 # (the 4096-token site cut to 1024 tokens), ragged M and N, GQA, causal with M
-# > N (rows of exact zeros), d = 64 / 32 on the generic widths, and the VAE's d
-# = 512 on the wide variant with its keys split over blocks (the split's
-# partials meet in a fixed order: a second call gives the same bits)
+# > N (rows of exact zeros), d = 64 / 32 on the generic widths, the SDXL UNet's
+# d = 64 sites (10 heads at 4096 tokens, 20 at 1024) at batch 1 and 2 (the
+# CFG pair as one run), and the VAE's d = 512 on the wide variant with its keys
+# split over blocks (the split's partials meet in a fixed order: a second call
+# gives the same bits), at 4096 tokens (512 x 512 images) and 16384 (SDXL's
+# 1024 x 1024)
 PACKED_WGMMA_CASES = [
     # name, b, m, n, heads, kv heads, d, causal, variant
     ("d40_sd15", 1, 1024, 1024, 8, 8, 40, False, "wgmma"),
@@ -185,7 +188,12 @@ PACKED_WGMMA_CASES = [
     ("d80_causal_m_gt_n", 1, 200, 150, 2, 2, 80, True, "wgmma"),
     ("d64_gqa_causal", 2, 300, 700, 8, 2, 64, True, "wgmma"),
     ("d32_causal_m_gt_n", 1, 80, 24, 4, 4, 32, True, "wgmma"),
+    ("d64_sdxl_4096_b1", 1, 4096, 4096, 10, 10, 64, False, "wgmma"),
+    ("d64_sdxl_4096_b2", 2, 4096, 4096, 10, 10, 64, False, "wgmma"),
+    ("d64_sdxl_1024_b1", 1, 1024, 1024, 20, 20, 64, False, "wgmma"),
+    ("d64_sdxl_1024_b2", 2, 1024, 1024, 20, 20, 64, False, "wgmma"),
     ("d512_vae", 1, 4096, 4096, 1, 1, 512, False, "wgmma_wide"),
+    ("d512_vae_sdxl", 1, 16384, 16384, 1, 1, 512, False, "wgmma_wide"),
     ("d512_ragged", 2, 77, 300, 1, 1, 512, False, "wgmma_wide"),
     ("d512_causal_m_gt_n_gqa", 1, 100, 40, 2, 1, 512, True, "wgmma_wide"),
 ]

@@ -239,9 +239,11 @@ def test_unported_options_raise(option):
             with pytest.raises(RuntimeError, match="no CUDA device"):
                 LlamaPipeline(LLAMA_TINY)
         return
-    if option == "int8_weights":
-        # ported: the int8 route runs (test_int8_pipeline_matches_jax holds it against JAX)
-        p = LlamaPipeline(LLAMA_TINY, buckets=list(BUCKETS), device=CPU, int8_weights=True)
+    if option in ("int8_weights", "synthetic_on_device"):
+        # ported: the int8 route runs (test_int8_pipeline_matches_jax holds it
+        # against JAX), and so do weights synthesized on the device
+        # (tests/test_torch_synthetic.py)
+        p = LlamaPipeline(LLAMA_TINY, buckets=list(BUCKETS), device=CPU, **{option: True})
         assert 0 <= p.forward(PROMPT)[0] < LLAMA_TINY.vocab_size
         return
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -419,7 +419,7 @@ def test_config_options():
     for opt in ("fuse_groupnorm", "fuse_gn_conv", "use_pallas_smallconv"):
         cfg.set_option(opt, True)
         assert getattr(cfg, opt) is True
-    for opt in ("flash_packed_nopad", "force_fp16_storage", "use_nhwc_layout", "synthetic_device_weights"):
+    for opt in ("flash_packed_nopad", "force_fp16_storage", "use_nhwc_layout"):
         with pytest.raises(NotImplementedError):
             SessionConfig(device=CPU, **{opt: True})
 

@@ -86,15 +86,6 @@ def test_generate_on_device_refuses_other_samplers(pipes):
         pipes[0].generate_on_device("a", sampler="heun")
 
 
-def test_later_slices_raise(pipes):
-    with pytest.raises(NotImplementedError):
-        StableDiffusionPipeline.from_synthetic(tiny=True, xl=True, device=CPU)
-    with pytest.raises(NotImplementedError):
-        StableDiffusionPipeline.from_synthetic(tiny=True, turbo=True, device=CPU)
-    with pytest.raises(NotImplementedError):
-        pipes[0].generate_batch(["a", "b"])
-
-
 # --------------------------------------------------------------------- decode
 def _latent(seed=0):
     return np.random.RandomState(seed).randn(4, 16, 16).astype(np.float32)
@@ -238,7 +229,7 @@ def test_sd_cli_decode_latents_and_calibrate(tmp_path, monkeypatch):
     assert "latent" in ranges and len(ranges) > 5
 
 
-@pytest.mark.parametrize("flag", ["--xl", "--turbo", "--download"])
+@pytest.mark.parametrize("flag", ["--download"])
 def test_sd_cli_refuses_later_slices(flag):
     from onnxstream_tpu_torch.cli.sd_main import main
 

@@ -99,8 +99,7 @@ def test_strict_shapes_plan_error():
     np.testing.assert_array_equal(s.run()["y"], np.full((2, 3), 2.0, np.float32))
 
 
-@pytest.mark.parametrize("name", ["flash_packed_nopad", "force_fp16_storage", "use_nhwc_layout",
-                                  "synthetic_device_weights"])
+@pytest.mark.parametrize("name", ["flash_packed_nopad", "force_fp16_storage", "use_nhwc_layout"])
 def test_unimplemented_options_raise(name):
     with pytest.raises(NotImplementedError):
         SessionConfig(device=CPU, **{name: True})
