@@ -36,7 +36,7 @@ from onnxstream_tpu_torch.models.llm.llama import LlamaConfig, build_llama
 from onnxstream_tpu_torch.models.llm.tokenizer import SentencePieceBPE, chat_template
 from onnxstream_tpu_torch.runtime.config import SessionConfig, default_device
 from onnxstream_tpu_torch.runtime.session import Session
-from onnxstream_tpu_torch.runtime.weights import DictWeightsProvider
+from onnxstream_tpu_torch.runtime.weights import DictWeightsProvider, is_lazy
 
 
 def _next_bucket(n: int, buckets: List[int]) -> int:
@@ -51,7 +51,7 @@ def _host_tensor(arr) -> torch.Tensor:
     memory: the multi-GB model weights are not copied a second time. A
     ``LazyArray`` placeholder stays one (``DictWeightsProvider``
     materializes it if the host asks for it)."""
-    if isinstance(arr, torch.Tensor) or hasattr(arr, "materialize"):
+    if isinstance(arr, torch.Tensor) or is_lazy(arr):
         return arr
     if isinstance(arr, np.ndarray) and arr.flags.writeable and dtype_name(arr.dtype) != "bfloat16":
         return torch.from_numpy(arr)
@@ -124,7 +124,6 @@ class LlamaPipeline:
             requires_upcast=_upcast_rmsnorm,
             device=self.device,
             synthetic_device_weights=self.synthetic_on_device,
-            synthetic_seed=self.seed,
         )
 
     def _session(self, L: int, P: int) -> Session:

@@ -132,9 +132,6 @@ class SessionConfig:
     # smallest weight (in elements) that is synthesized; smaller tensors stay
     # real (they may steer control structure)
     synthetic_min_elements: int = 1 << 18
-    # each synthesized weight's stream is seeded from (this seed, its index
-    # among the plan's weights)
-    synthetic_seed: int = 0
 
     # not implemented yet: must keep their defaults (see _NOT_IMPLEMENTED)
     flash_packed_nopad: bool = False

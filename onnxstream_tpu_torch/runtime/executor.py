@@ -67,8 +67,8 @@ relayout) instead of being fetched and uploaded: N(0, ``SYNTH_SCALE``) for a
 float weight, uniform s8 in [-127, 127] with a flat per-channel scale for a
 force-quantized symmetric int8 weight, uniform u8 for a uint8 weight from
 the file (its (scale, zero point) are the file's). Each weight's stream comes
-from one ``torch.Generator`` on the device, seeded from
-(``synthetic_seed``, the weight's index among the plan's weights), so the
+from one ``torch.Generator`` on the device, seeded from the weight's index
+among the plan's weights (JAX folds the index into a fixed key), so the
 same graph gives the same weights on every fetch and in every session; the
 values are not ``jax.random``'s. Smaller weights stay real. Synthesized
 weights are cached like uploaded ones.
@@ -344,11 +344,11 @@ class Executor:
 
     def _synthesize(self, w: WeightArg, kind: str) -> torch.Tensor:
         """Generate w on the device in its upload dtype and shape (JAX
-        ``_synth_generate``): one generator seeded from (synthetic_seed, w's
-        index in the plan). An s8 weight gets a flat per-channel scale on
+        ``_synth_generate``): one generator seeded from w's index in the
+        plan. An s8 weight gets a flat per-channel scale on
         the file layout's last axis (JAX ``_stamp_s8_quant``)."""
         gen = torch.Generator(device=self.device)
-        gen.manual_seed(self.config.synthetic_seed * 1_000_003 + self._arg_index[w.name])
+        gen.manual_seed(self._arg_index[w.name])
         shape, dev = tuple(w.shape), self.device
         if kind == "s8":
             out = torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8)

@@ -63,7 +63,8 @@ def _read_bin(path: str, dtype: DType, shape: Tuple[int, ...]) -> torch.Tensor:
     return t.view(torch.bfloat16) if dtype == DType.bfloat16 else t
 
 
-def _is_lazy(arr) -> bool:
+def is_lazy(arr) -> bool:
+    """Whether arr is a builder's ``LazyArray`` placeholder (made on demand)."""
     return hasattr(arr, "materialize")
 
 
@@ -72,7 +73,7 @@ def params_from_numpy(weights: Dict[str, object]) -> Dict[str, object]:
     torch tensors with the same bits; ``ml_dtypes.bfloat16`` arrays go
     through a uint16 view. ``LazyArray`` placeholders are carried as they
     are, unmaterialized."""
-    return {name: arr if _is_lazy(arr) else to_torch(arr) for name, arr in weights.items()}
+    return {name: arr if is_lazy(arr) else to_torch(arr) for name, arr in weights.items()}
 
 
 class DiskNoCacheWeightsProvider(WeightsProvider):
@@ -226,7 +227,7 @@ class DictWeightsProvider(WeightsProvider):
 
     def get(self, name, dtype, shape):
         t = self.weights[name]
-        if _is_lazy(t):
+        if is_lazy(t):
             t = self.weights[name] = to_torch(t.materialize())
         if not isinstance(t, torch.Tensor):
             raise TypeError(
