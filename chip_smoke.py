@@ -178,7 +178,33 @@ Phases (any failure exits non-zero and prints no result line):
      are recorded: every call on a K-major form (s8 wgmma / GEMV), bit for
      bit with the twin and with the (K, N) weight's variant; both replayed
      beside that variant, the prefill's beside torch._int_mm over the calls
-     it takes, both beside cuBLAS bf16 on bf16 copies of the weights.
+     it takes, both beside cuBLAS bf16 on bf16 copies of the weights;
+  9. Whisper (phase_whisper): WHISPER_TINY_TEST in fp32 on the card against
+     the CPU (cross K / V within 1e-4 * max, equal tokens for noise, a 300 Hz
+     tone and silence), then WHISPER_BASE at full width (random host weights
+     from seed 0) through WhisperPipeline with device=None, in bf16 and in
+     float32: three 30 s windows from a seed (noise, a chirp, 8 s of tone
+     then silence), 32 greedy tokens each, each request launching kernel 1
+     exactly 6 times at (1, 1500, 8 x 64) (the encoder's sites; the
+     decoder's 4- and 1-query sites take the reference path), the first held
+     against the twin on the graph's operands (bf16 also within
+     FLASH_REL_L2, every bf16 launch on a wgmma variant); one bf16 request
+     with the weights synthesized on the card; one encoder plan and two
+     decoder sessions (L = 4, L = 1) of one plan each; float32 card vs CPU
+     encoder outputs and first-step logits within 1e-3 * max; bf16 flash on
+     vs off cross K / V within 5e-2 * max; host syncs a token not growing;
+     tokens, encoder / prefill / decode-step wall and device busy, peak
+     memory and device weight bytes, the bf16 vs fp32 logits nrms, and one
+     encoder run's 6 calls at the site beside SDPA, the twin and the bound;
+ 10. op library (phase_ops): every case of tests/test_torch_ops_card.py (the
+     ONNX op types of the Whisper / YOLO slice and Conv of rank 3) on the
+     card against the CPU, float32 within 1e-5 and bf16 within 1e-2 of
+     max|out|, integer and bool results equal;
+ 11. YOLO (phase_yolo): YoloPipeline.detect at 640 x 640 RGBA on the card
+     (device=None) around tests/yolo_standin.py's stand-in head, which has
+     YOLOv8n's I/O contract and is not YOLOv8n, against the CPU: boxes
+     within rtol = atol = 1e-3, NMS indices equal; detect and session wall
+     and busy.
 
 Each path's launch counts are set to 0 just before it and read just after;
 launches made to compare a kernel with its twin come after the read. The
@@ -3112,6 +3138,348 @@ def phase_llm_int8(name: str, llm: dict) -> dict:
     return {"launches": launches, "max_abs_err": site.worst, **times["decode"], "prefill": prefill}
 
 
+
+# ------------------------------------------------------------------ Whisper base: kernel 1 at the encoder's sites
+WHISPER_FLASH_PER_REQUEST = 6  # the encoder's self-attention sites: 8 heads of 64 over 1500 tokens
+WHISPER_SR = 16000
+
+
+def _whisper_audio(kind: str, seed: int, seconds: float = 30.0) -> np.ndarray:
+    """A 16 kHz window from a seed: noise, a chirp, or 8 s of a tone then
+    silence (the tone at a frequency from the seed)."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(WHISPER_SR * seconds)) / WHISPER_SR
+    if kind == "noise":
+        return (rng.standard_normal(t.size) * 0.1).astype(np.float32)
+    if kind == "chirp":
+        return (0.3 * np.sin(2 * np.pi * (100 + 60 * t) * t)).astype(np.float32)
+    f = 200 + 400 * rng.random()
+    return np.where(t < 8.0, 0.5 * np.sin(2 * np.pi * f * t), 0.0).astype(np.float32)
+
+
+WHISPER_REQUESTS = [("noise", 0), ("chirp", 1), ("tone_then_silence", 2)]
+
+
+def _tiny_whisper_card_vs_cpu() -> None:
+    """WHISPER_TINY_TEST in fp32 on the card against the port on the CPU: the
+    encoder's cross K / V within 1e-4 * max, and equal tokens for noise, a
+    300 Hz tone and silence."""
+    from onnxstream_tpu_torch.models.whisper import WHISPER_TINY_TEST, WhisperPipeline
+
+    pipes = {dev: WhisperPipeline.from_synthetic(WHISPER_TINY_TEST, device=torch.device(dev))
+             for dev in ("cpu", "cuda:0")}
+    t = np.arange(WHISPER_SR) / WHISPER_SR
+    audio = [np.random.default_rng(0).standard_normal(WHISPER_SR).astype(np.float32) * 0.1,
+             (0.5 * np.sin(2 * np.pi * 300 * t)).astype(np.float32), np.zeros(WHISPER_SR, np.float32)]
+    worst, toks = 0.0, {}
+    for a in audio:
+        kv = {dev: [x.float().cpu().numpy() for x in p.encode(a)] for dev, p in pipes.items()}
+        for got, ref in zip(kv["cuda:0"], kv["cpu"]):
+            worst = max(worst, float(np.abs(got - ref).max() / np.abs(ref).max()))
+        for dev, p in pipes.items():
+            toks.setdefault(dev, []).append(p.transcribe(a, max_tokens=8))
+    print(f"TINY Whisper fp32 card vs CPU: cross K/V max|diff|/max {worst:.3e} (bound 1e-4); tokens card "
+          f"{toks['cuda:0']} cpu {toks['cpu']}")
+    if not worst <= 1e-4 or toks["cuda:0"] != toks["cpu"]:
+        raise SystemExit("TINY Whisper on the card disagrees with the CPU run")
+
+
+def _decoder_step(pipe, L: int, offset: int, kv: list, ck, cv):
+    """One decoder run on device tensors (the pipeline's loop body): (logits
+    tensor, the new self K / V)."""
+    from onnxstream_tpu_torch.models.whisper.model import mangle
+
+    s = pipe._decoder(L)
+    s.clear_tensors()
+    tok = list(pipe.cfg.sot_sequence) if L > 1 else [220]
+    s.add_tensor(mangle("tokens"), np.asarray([tok[:L]], np.int64))
+    s.add_tensor(mangle("offset"), np.asarray([offset], np.int64))
+    s.add_tensor(mangle("in_n_layer_self_k_cache"), kv[0])
+    s.add_tensor(mangle("in_n_layer_self_v_cache"), kv[1])
+    s.add_tensor(mangle("n_layer_cross_k"), ck)
+    s.add_tensor(mangle("n_layer_cross_v"), cv)
+    out = s.run(device_outputs=True)
+    return (out[mangle("logits")], [out[mangle("out_n_layer_self_k_cache")],
+                                    out[mangle("out_n_layer_self_v_cache")]])
+
+
+def _zero_kv(pipe, ck) -> list:
+    """Empty self K / V buffers, as transcribe starts them."""
+    cfg = pipe.cfg
+    shape = (cfg.n_text_layer, 1, cfg.n_text_ctx, cfg.n_text_state)
+    return [torch.zeros(shape, dtype=ck.dtype, device=ck.device) for _ in range(2)]
+
+
+def _first_step(pipe, audio):
+    """Encoder outputs and the first decoder step's last logits, as float32
+    numpy, for one window."""
+    ck, cv = pipe.encode(audio)
+    logits, _ = _decoder_step(pipe, 4, 0, _zero_kv(pipe, ck), ck, cv)
+    return [x.float().cpu().numpy() for x in (ck, cv, logits[0, -1])]
+
+
+def _whisper_requests(pipe, label: str, site, name: str) -> list:
+    """The three 30 s requests through transcribe: each must launch kernel 1
+    exactly WHISPER_FLASH_PER_REQUEST times, the first held to the twin."""
+    from onnxstream_tpu_torch.kernels.flash_attention import flash_attention_packed
+
+    outs = []
+    for kind, seed in WHISPER_REQUESTS:
+        before = flash_attention_packed.launches
+        site.arm()
+        toks, ms = _timed(lambda: pipe.transcribe(_whisper_audio(kind, seed), max_tokens=32))
+        n = flash_attention_packed.launches - before
+        print(f"Whisper base {label}, request {kind} (seed {seed}, 30 s): {len(toks)} tokens {toks} in {ms:.1f} ms "
+              f"(the twin's check included), flash_attention_packed launches {n} (want {WHISPER_FLASH_PER_REQUEST}) "
+              f"[{name}]")
+        if not toks or not all(0 <= t < pipe.cfg.n_vocab for t in toks) or n != WHISPER_FLASH_PER_REQUEST:
+            raise SystemExit(f"Whisper base {label}, request {kind}: bad tokens or {n} flash launches")
+        site.check(f"Whisper base {label}, request {kind}")
+        outs.append(toks)
+    return outs
+
+
+def _whisper_sessions_check(pipe, label: str) -> None:
+    """One encoder plan and two decoder Sessions (L = 4 and L = 1) of one plan
+    each, however far the offset went."""
+    plans = {L: len(s._executors) for L, s in pipe._decoders.items()}
+    print(f"Whisper base {label}: encoder plans {len(pipe.encoder._executors)}, decoder sessions by L {plans}")
+    if len(pipe.encoder._executors) != 1 or plans != {4: 1, 1: 1}:
+        raise SystemExit(f"Whisper base {label}: want one encoder plan and decoder sessions {{4: 1, 1: 1}}")
+
+
+def _whisper_times(pipe, label: str, name: str, audio) -> dict:
+    """The host's log-mel features (ms), then the encoder run, the prefill
+    (L = 4) and a decode step (L = 1, offset 4 .. 35): wall and device busy
+    ms."""
+    from onnxstream_tpu_torch.models.whisper.mel import log_mel_spectrogram
+    from onnxstream_tpu_torch.models.whisper.model import mangle
+
+    cfg = pipe.cfg
+    mel, mel_ms = _timed(lambda: log_mel_spectrogram(audio, n_mels=cfg.n_mels, pad_to=2 * cfg.n_audio_ctx))
+    enc = pipe.encoder
+    enc.clear_tensors()
+    enc.add_tensor(mangle("mel"), mel)
+    out = {"mel_host_ms": mel_ms,
+           "encoder": busy_and_wall(lambda: enc.run(device_outputs=True),
+                                    f"Whisper base {label} encoder run (30 s window; log-mel on the host "
+                                    f"{mel_ms:.2f} ms before it)", name)}
+    ck, cv = pipe.encode(audio)
+    zeros = _zero_kv(pipe, ck)
+    out["prefill"] = busy_and_wall(lambda: _decoder_step(pipe, 4, 0, zeros, ck, cv),
+                                   f"Whisper base {label} prefill (4 tokens)", name)
+    _, kv = _decoder_step(pipe, 4, 0, zeros, ck, cv)
+    state = {"kv": kv, "offset": 4}
+
+    def step():
+        _, state["kv"] = _decoder_step(pipe, 1, state["offset"], state["kv"], ck, cv)
+        state["offset"] = 4 + (state["offset"] - 3) % 32
+
+    out["decode_step"] = busy_and_wall(step, f"Whisper base {label} decode step (1 token)", name, steps=5)
+    return out
+
+
+def phase_whisper(name: str) -> dict:
+    """Whisper base at full width: TINY card vs CPU, then WHISPER_BASE with
+    host weights from seed 0 in bf16 and float32 through WhisperPipeline with
+    device=None (three 30 s requests each, 32 tokens), and one bf16 request
+    with weights synthesized on the card."""
+    import onnxstream_tpu_torch.ops.attention as attention_op
+    from onnxstream_tpu_torch.kernels.flash_attention import (flash_attention_packed,
+                                                              flash_attention_packed_reference)
+    from onnxstream_tpu_torch.models.whisper import WHISPER_BASE, WhisperPipeline
+
+    _tiny_whisper_card_vs_cpu()
+    cfg = WHISPER_BASE
+    pipes, t_build = {}, {}
+    for dt in ("bfloat16", "float32"):
+        t0 = time.perf_counter()
+        pipes[dt] = WhisperPipeline.from_synthetic(cfg, seed=0, compute_dtype=dt)  # device=None: cuda:0
+        t_build[dt] = time.perf_counter() - t0
+    if pipes["bfloat16"].device != torch.device("cuda", 0):
+        raise SystemExit(f"WhisperPipeline(device=None) runs on {pipes['bfloat16'].device}, want cuda:0")
+    sites = {"bfloat16": _FlashSites(flash_attention_packed, flash_attention_packed_reference, 2e-2),
+             "float32": _FlashSites(flash_attention_packed, flash_attention_packed_reference, 1e-4)}
+    toks, t_on_device = {}, {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # the path: three requests in each precision and one on synthesized weights; counts zeroed just before
+    flash_attention_packed.launches = 0
+    try:
+        for dt, pipe in pipes.items():
+            attention_op.flash_attention_packed = sites[dt]
+            toks[dt] = _whisper_requests(pipe, dt, sites[dt], name)
+        t0 = time.perf_counter()
+        synth = WhisperPipeline.from_synthetic(cfg, seed=0, compute_dtype="bfloat16", on_device=True)
+        t_on_device["build_s"] = time.perf_counter() - t0
+        attention_op.flash_attention_packed = sites["bfloat16"]
+        before = flash_attention_packed.launches
+        kind, seed = WHISPER_REQUESTS[0]
+        sites["bfloat16"].arm()
+        synth_toks, t_on_device["first_request_ms"] = _timed(
+            lambda: synth.transcribe(_whisper_audio(kind, seed), max_tokens=32))
+        sites["bfloat16"].check("Whisper base, weights synthesized on the card")
+        n_synth = flash_attention_packed.launches - before
+    finally:
+        attention_op.flash_attention_packed = flash_attention_packed
+    launches = flash_attention_packed.launches
+    print(f"Whisper base, weights synthesized on the card (bf16): built in {t_on_device['build_s']:.1f} s, "
+          f"request {kind}: {len(synth_toks)} tokens in {t_on_device['first_request_ms']:.1f} ms (first run: plans "
+          f"and synthesis included), {n_synth} flash launches (want {WHISPER_FLASH_PER_REQUEST}) [{name}]")
+    if n_synth != WHISPER_FLASH_PER_REQUEST or not synth_toks:
+        raise SystemExit("Whisper base on synthesized weights: bad tokens or flash launches")
+    t_on_device["encoder"] = busy_and_wall(lambda: synth.encode(_whisper_audio(kind, seed)),
+                                           "Whisper base bf16 encoder on synthesized weights", name)
+    sites["bfloat16"].check_variants("Whisper base bf16 encoder")
+    print(f"Whisper base fp32 encoder: flash_attention_packed variants {sorted(set(sites['float32'].variants))}")
+    peak = max(s.peak for s in sites.values())
+    peak = max(peak, torch.cuda.max_memory_allocated())
+    wbytes = {dt: _weights_of([p.encoder, *p._decoders.values()]) for dt, p in pipes.items()}
+    print(f"Whisper base path: flash_attention_packed launches {launches} (3 requests x 2 precisions + 1 on "
+          f"synthesized weights, {WHISPER_FLASH_PER_REQUEST} each); pipelines built in "
+          f"{t_build['bfloat16']:.1f} s (bf16) and {t_build['float32']:.1f} s (fp32) (host weights from seed 0); "
+          f"peak device memory {peak / 2**20:.1f} MB; device weight bytes bf16 {wbytes['bfloat16'] / 1e6:.1f} MB, "
+          f"fp32 {wbytes['float32'] / 1e6:.1f} MB [{name}]")
+    if launches != 7 * WHISPER_FLASH_PER_REQUEST:
+        raise SystemExit(f"Whisper base path: {launches} flash launches, want {7 * WHISPER_FLASH_PER_REQUEST}")
+    for dt, pipe in pipes.items():
+        _whisper_sessions_check(pipe, dt)
+    del synth
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # float32 on the card against the port on the CPU: encoder outputs and first-step logits
+    audio = _whisper_audio(*WHISPER_REQUESTS[1])
+    cpu = WhisperPipeline.from_synthetic(cfg, seed=0, compute_dtype="float32", device=torch.device("cpu"))
+    ref = _first_step(cpu, audio)
+    del cpu
+    got = _first_step(pipes["float32"], audio)
+    errs = [float(np.abs(g - r).max() / np.abs(r).max()) for g, r in zip(got, ref)]
+    print(f"Whisper base fp32 card vs CPU: cross K {errs[0]:.3e}, cross V {errs[1]:.3e}, first-step logits "
+          f"{errs[2]:.3e} (max|diff| / max, bound 1e-3)")
+    if not max(errs) <= 1e-3:
+        raise SystemExit("Whisper base fp32 on the card disagrees with the CPU run")
+    b16 = _first_step(pipes["bfloat16"], audio)
+    nrms = _nrms(b16[2], got[2])
+    print(f"Whisper base bf16 vs fp32 first-step logits on the card: nrms {nrms:.4e} (printed, not gated: "
+          f"random weights)")
+    # flash on against off, the bf16 encoder's cross K / V
+    enc = pipes["bfloat16"].encoder
+    on = [x.float() for x in pipes["bfloat16"].encode(audio)]
+    enc.config.use_flash_attention = False
+    try:
+        off = [x.float() for x in pipes["bfloat16"].encode(audio)]
+    finally:
+        enc.config.use_flash_attention = True
+    ratio = max(((a - b).abs().max() / b.abs().max()).item() for a, b in zip(on, off))
+    print(f"Whisper base bf16 encoder, flash on vs off: cross K / V max|diff| / max|out| {ratio:.4e} (bound 5e-2)")
+    if not ratio <= 5e-2:
+        raise SystemExit("Whisper base: the flash-on and flash-off encoders disagree")
+    del on, off
+    # host syncs per token: a 32-token budget against an 8-token one, on a request that made 32 tokens
+    pipe = pipes["bfloat16"]
+    full = [req for req, t in zip(WHISPER_REQUESTS, toks["bfloat16"]) if len(t) == 32]
+    if not full:
+        raise SystemExit("Whisper base bf16: no request ran to its 32-token budget; host syncs not measured")
+    a = _whisper_audio(*full[0])
+    n8, n32 = len(pipe.transcribe(a, max_tokens=8)), len(pipe.transcribe(a, max_tokens=32))
+    s8 = _syncs_in(lambda: pipe.transcribe(a, max_tokens=8))
+    s32 = _syncs_in(lambda: pipe.transcribe(a, max_tokens=32))
+    per8, per_more = s8 / n8, (s32 - s8) / max(n32 - n8, 1)
+    print(f"Whisper base bf16 host syncs reported in transcribe: {s8} for {n8} tokens, {s32} for {n32} tokens; "
+          f"{per8:.2f} a token over the first {n8}, {per_more:.2f} a token after them")
+    if n32 <= n8 or per_more > per8:
+        raise SystemExit("Whisper base: host syncs a token grow with the tokens")
+
+    times = {}
+    for dt in ("bfloat16", "float32", "float32", "bfloat16"):  # in turns: the host's clock drifts
+        times.setdefault(dt, []).append(_whisper_times(pipes[dt], dt, name, audio))
+    profile_steps(lambda: pipes["bfloat16"].encode(audio), name, "Whisper base bf16 encoder")
+
+    # kernel 1 at the encoder's sites, on the graph's operands: one encoder run's 6 calls in each precision
+    out = {"launches": launches, "tokens": toks, "times": times, "peak_bytes": peak, "device_weight_bytes": wbytes,
+           "bf16_vs_fp32_logits_nrms": nrms, "on_device": t_on_device}
+    for dt, tol, peak_op in (("bfloat16", 2e-2, "bf16"), ("float32", 1e-4, "f32")):
+        site = sites[dt]
+        site.calls = []
+        attention_op.flash_attention_packed = site
+        try:
+            pipes[dt].encode(audio)
+        finally:
+            attention_op.flash_attention_packed = flash_attention_packed
+        calls, site.calls = site.calls, None
+        if len(calls) != WHISPER_FLASH_PER_REQUEST:
+            raise SystemExit(f"Whisper base {dt} encoder: {len(calls)} flash calls recorded")
+        out[f"sites_{dt}"] = site_report(
+            f"flash_attention_packed, Whisper base encoder {dt}", calls, flash_attention_packed,
+            flash_attention_packed_reference, _packed_library, _packed_cost, _about_packed, tol, name, peak=peak_op,
+            close=lambda g, r, tol=tol: _flash_agrees(g, r, tol)[0], key=lambda a, k: (*a[0].shape, a[3]))
+        out[f"replay_{dt}"] = replay_times(
+            f"flash_attention_packed over one Whisper base encoder run's 6 calls ({dt})", calls,
+            flash_attention_packed, flash_attention_packed_reference, _packed_library, peak_op, name,
+            cost=_packed_cost)
+        del calls
+    del pipes
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+# ------------------------------------------------------------------ the op library's ONNX ops on the card
+def phase_ops(name: str) -> dict:
+    """Every case of tests/test_torch_ops_card.py (the op types converted ONNX
+    graphs need, Conv of rank 3) on the card against the port on the CPU, in
+    float32 and bf16: floats within 1e-5 / 1e-2 of max|out|, integers and
+    bools equal."""
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from test_torch_ops_card import OP_CASES, card_agrees, run_case
+
+    worst, bad = {}, []
+    for key in sorted(OP_CASES):
+        for dt in ("float32", "bfloat16"):
+            ok, err = card_agrees(run_case(OP_CASES[key], dt, "cuda:0"), run_case(OP_CASES[key], dt, "cpu"), dt)
+            worst[dt] = max(worst.get(dt, 0.0), err)
+            if not ok:
+                bad.append(f"{key} {dt} ({err:.3e})")
+    print(f"op cases on the card vs the CPU: {len(OP_CASES)} cases x 2 dtypes, worst relative error float32 "
+          f"{worst['float32']:.3e} (bound 1e-5), bfloat16 {worst['bfloat16']:.3e} (bound 1e-2); failing: "
+          f"{bad or 'none'} [{name}]")
+    if bad:
+        raise SystemExit("op cases disagree on the card: " + ", ".join(bad))
+    return {"cases": len(OP_CASES), "worst_rel_err": worst}
+
+
+# ------------------------------------------------------------------ the YOLO pipeline around a stand-in head
+def phase_yolo(name: str) -> dict:
+    """YoloPipeline.detect at 640 x 640 RGBA on the card (device=None) around
+    tests/yolo_standin.py's stand-in head (YOLOv8n's I/O contract, not
+    YOLOv8n: the converted model is not in the repository), against the
+    port on the CPU: boxes within rtol = atol = 1e-3, NMS indices equal."""
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from onnxstream_tpu_torch.models.yolo import YoloPipeline
+    from yolo_standin import anchors, standin_image, write_standin
+
+    model = write_standin(os.path.join(REPO, ".cache", "yolo_standin640"), size=640, seed=0)
+    img = standin_image(640, seed=1)
+    card = YoloPipeline.from_model_txt(model)  # device=None: cuda:0
+    cpu = YoloPipeline.from_model_txt(model, device=torch.device("cpu"))
+    got, ms_first = _timed(lambda: card.detect(img))
+    want = cpu.detect(img)
+    err = float(np.abs(got.boxes - want.boxes).max())
+    excess = float((np.abs(got.boxes - want.boxes) / (1e-3 + 1e-3 * np.abs(want.boxes))).max())
+    print(f"YOLO pipeline around a STAND-IN head (not YOLOv8n; images (1, 3, 640, 640) -> output0 (1, 84, "
+          f"{anchors(640)})), 640 x 640 RGBA: {len(got.indices)} detections after NMS, card vs CPU boxes "
+          f"max|diff| {err:.3e} px, {excess:.3f} of the bound rtol = atol = 1e-3, indices equal "
+          f"{got.indices == want.indices}; first detect {ms_first:.1f} ms (plan included) [{name}]")
+    if (got.boxes.shape != (anchors(640), 4) or not np.isfinite(got.boxes).all()
+            or not np.allclose(got.boxes, want.boxes, rtol=1e-3, atol=1e-3)
+            or got.indices != want.indices or not got.indices):
+        raise SystemExit("YOLO pipeline: the card disagrees with the CPU run")
+    times = busy_and_wall(lambda: card.detect(img), "YOLO stand-in detect (pre-ops, head, post-ops, host NMS)", name)
+    times["session"] = busy_and_wall(lambda: card.session.run(), "YOLO stand-in session run (no NMS)", name)
+    return {"detections": len(got.indices), "boxes_max_abs_err": err, **times}
+
+
 def main() -> int:
     sys.path.insert(0, REPO)
     name = phase_device()
@@ -3140,6 +3508,13 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     llm_int8 = phase_llm_int8(name, llm)
+    gc.collect()
+    torch.cuda.empty_cache()
+    whisper = phase_whisper(name)
+    ops = phase_ops(name)
+    yolo = phase_yolo(name)
+    print(f"whisper: {json.dumps({k: v for k, v in whisper.items() if k.startswith(('tokens', 'peak', 'device_w', 'bf16'))})}")
+    print(f"op cases: {json.dumps(ops)}; yolo stand-in: {json.dumps(yolo)}")
     print(f"card: {name}")
     fa_src = "onnxstream_tpu_torch/kernels/csrc/flash_attention.cu"
     q_src = "onnxstream_tpu_torch/kernels/csrc/qmatmul.cu"
@@ -3149,9 +3524,12 @@ def main() -> int:
     print(json.dumps({"kernels": [
         {"name": "flash_attention_packed", "route": "cuda", "source": fa_src,
          "replaces": "onnxstream_tpu/kernels/flash_attention.py:260", **kernel,
-         "launches": sd_image["flash_launches"] + sdxl["launches"] + sd_batch["launches"],
+         "launches": sd_image["flash_launches"] + sdxl["launches"] + sd_batch["launches"] + whisper["launches"],
          "launches_by_path": {"sd15_step": launches_sd, "sd15_image": sd_image["flash_launches"],
-                              "sdxl_image_and_turbo": sdxl["launches"], "sd15_generate_batch4": sd_batch["launches"]},
+                              "sdxl_image_and_turbo": sdxl["launches"], "sd15_generate_batch4": sd_batch["launches"],
+                              "whisper": whisper["launches"]},
+         "whisper": {k: whisper[k] for k in ("sites_bfloat16", "replay_bfloat16", "sites_float32", "replay_float32",
+                                             "times", "on_device")},
          "sdxl": {"unet_run_replay": sdxl["replay"], "ms_by_shape": sdxl["ms_by_shape"], "unet": sdxl["unet"],
                   "device_weight_bytes": sdxl["device_weight_bytes"]},
          "sd15_batch4": sd_batch},

@@ -72,7 +72,7 @@ def _suffixed(path: str, suffix: str) -> str:
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.download:
-        raise NotImplementedError("--download is not ported (ROADMAP Queue 1 item 8)")
+        raise NotImplementedError("--download is not ported (ROADMAP Queue 1 item 9)")
 
     import torch
 

@@ -80,7 +80,7 @@ class LlamaPipeline:
         if mesh is not None:
             raise NotImplementedError(
                 "a mesh (tensor-parallel decode) needs torch.distributed sharding "
-                "(ROADMAP Queue 1 item 10)")
+                "(ROADMAP Queue 1 item 11)")
         self.cfg = cfg
         self.compute_dtype = compute_dtype
         # None: the first CUDA card (raises without one); the CPU only when asked

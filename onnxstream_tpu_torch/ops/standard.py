@@ -1,14 +1,17 @@
-"""The standard operator library (the UNet and TinyLlama slices).
+"""The standard operator library.
 
-Counterpart of ``onnxstream_tpu/ops/standard.py`` for the op types of the
-fused SD UNet graph: Add, Concat, Conv, Cos, Div, Erf, InstanceNormalization,
-MatMul, Mul, Pow, ReduceMean, Reshape, Resize, Sigmoid, Sin, Split, Sqrt, Sub,
-Transpose, Unsqueeze; of the fused llama graph beyond those: ArgMax, Expand,
-Gather, Identity, Less, Neg, ScatterND, Where (this file); the fused
-GroupNorm ops ``ostpu.gn_silu`` and ``ostpu.gn_silu_conv`` (this file, through
-the kernels of ``kernels/gn_silu.py`` and ``kernels/gn_conv.py``); and
-``ostpu.sdpa`` (``ops/attention.py``). Any other op type raises
-``NotImplementedError`` from the registry.
+Counterpart of ``onnxstream_tpu/ops/standard.py``: every op type of the JAX
+registry but the two that only the channel-last layout pass emits
+(``ostpu.groupnorm``, ``ostpu.reshape``; ROADMAP Queue 1 item 7), with the
+same attribute defaults, float32 islands and refusals. It holds the op types
+of the fused SD UNet, llama, Whisper and YOLO graphs and of converted ONNX
+graphs (elementwise, shape and index math, reductions, normalisation, Gemm,
+Conv of rank 3 and 4, pooling, Resize); the fused GroupNorm ops
+``ostpu.gn_silu`` and ``ostpu.gn_silu_conv`` (through the kernels of
+``kernels/gn_silu.py`` and ``kernels/gn_conv.py``); the small-conv rewrite's
+``ostpu.conv3x3_im2col``; and ``ostpu.sdpa`` (``ops/attention.py``). Any other
+op type raises ``NotImplementedError`` from the registry, and an op carrying
+``layout:NHWC`` raises it here until the layout pass is ported.
 
 Device integers are 32-bit, as in the JAX package: int64 graph inputs arrive
 as int32 and ``_align_binary`` narrows int64 in device ops. torch's indexing
@@ -135,6 +138,12 @@ register("Add", host=True)(_binary(lambda a, b: a + b))
 register("Sub", host=True)(_binary(lambda a, b: a - b))
 register("Div", host=True)(_binary(_div))
 register("Less", host=True)(_binary(lambda a, b: a < b))
+register("Greater", host=True)(_binary(lambda a, b: a > b))
+register("Equal", host=True)(_binary(lambda a, b: a == b))
+register("And", host=True)(_binary(lambda a, b: a.bool() & b.bool()))
+register("Or", host=True)(_binary(lambda a, b: a.bool() | b.bool()))
+register("Min", host=True)(_binary(torch.minimum))
+register("Max", host=True)(_binary(torch.maximum))
 
 
 @register("Pow", host=True)
@@ -165,6 +174,53 @@ register("Cos", host=True)(_unary(torch.cos))
 register("Sin", host=True)(_unary(torch.sin))
 register("Sigmoid")(_unary(torch.sigmoid))
 register("Erf")(_unary(lambda x: _f32_island(x, torch.erf)))
+register("Exp")(_unary(torch.exp))
+register("Log")(_unary(torch.log))
+register("Abs", host=True)(_unary(torch.abs))
+register("Tanh")(_unary(torch.tanh))
+register("Relu")(_unary(lambda x: torch.clamp_min(x, 0)))
+register("Not", host=True)(_unary(lambda x: ~x.bool()))
+# integers are their own floor and ceiling, as in numpy
+register("Floor", host=True)(_unary(lambda x: torch.floor(x) if x.is_floating_point() else x))
+register("Ceil", host=True)(_unary(lambda x: torch.ceil(x) if x.is_floating_point() else x))
+
+
+def _scalar(x: torch.Tensor, v: float) -> torch.Tensor:
+    """An attribute constant in x's dtype (rounded to it first, as
+    ``jnp.asarray(v, x.dtype)``)."""
+    return torch.tensor(v, dtype=x.dtype, device=x.device)
+
+
+@register("LeakyRelu")
+def _leaky_relu(ctx: Ctx, op, ins):
+    x = _tensor(ctx, ins[0])
+    return [torch.where(x >= 0, x, x * _scalar(x, op.attr_float("alpha", 0.01)))]
+
+
+@register("Gelu")
+def _gelu(ctx: Ctx, op, ins):
+    approx = "tanh" if op.attr("approximate", "none") == "tanh" else "none"
+    return [_f32_island(_tensor(ctx, ins[0]), lambda v: F.gelu(v, approximate=approx))]
+
+
+@register("HardSigmoid")
+def _hard_sigmoid(ctx: Ctx, op, ins):
+    x = _tensor(ctx, ins[0])
+    y = x * _scalar(x, op.attr_float("alpha", 0.2)) + _scalar(x, op.attr_float("beta", 0.5))
+    return [torch.clamp(y, 0, 1)]
+
+
+@register("Clip")
+def _clip(ctx: Ctx, op, ins):
+    """min and max are optional inputs (opset >= 11), each in x's dtype."""
+    x = _tensor(ctx, ins[0])
+    lo = ins[1] if len(ins) > 1 and ins[1] is not None else None
+    hi = ins[2] if len(ins) > 2 and ins[2] is not None else None
+    if lo is not None:
+        x = torch.maximum(x, _astype(ctx, lo, x.dtype))
+    if hi is not None:
+        x = torch.minimum(x, _astype(ctx, hi, x.dtype))
+    return [x]
 
 
 # ---------------------------------------------------------------------------
@@ -188,6 +244,56 @@ def _unsqueeze(ctx: Ctx, op, ins):
     out_rank = x.ndim + len(axes)
     for a in sorted(a % out_rank for a in axes):
         x = x.unsqueeze(a)
+    return [x]
+
+
+@register("Squeeze", host=True)
+def _squeeze(ctx: Ctx, op, ins):
+    x = _tensor(ctx, ins[0])
+    axes = _axes_from(ctx, op, ins, 1)
+    if axes is None:
+        return [x.squeeze()]
+    return [x.squeeze(tuple(a % x.ndim for a in axes))]
+
+
+@register("Flatten", host=True)
+def _flatten(ctx: Ctx, op, ins):
+    x = _tensor(ctx, ins[0])
+    axis = op.attr_int("axis", 1)
+    if axis < 0:
+        axis += x.ndim  # axis in [-r, r]; -1 is the last axis
+    if not 0 <= axis <= x.ndim:
+        raise ValueError(f"Flatten: axis {op.attr_int('axis', 1)} out of range for rank {x.ndim}")
+    lead = int(np.prod(x.shape[:axis])) if axis > 0 else 1
+    return [x.reshape(lead, -1)]
+
+
+@register("Slice", host=True)
+def _slice(ctx: Ctx, op, ins):
+    """numpy's slice semantics, as the JAX op: negative starts and ends wrap,
+    ends beyond the dim (INT64_MAX) clamp, steps may be negative; starts,
+    ends, axes and steps are static inputs."""
+    x = _tensor(ctx, ins[0])
+    starts = [int(v) for v in ctx.static(ins, 1, "Slice.starts").reshape(-1)]
+    ends = [int(v) for v in ctx.static(ins, 2, "Slice.ends").reshape(-1)]
+    axes = None
+    if len(ins) > 3 and ins[3] is not None:
+        axes = [int(v) for v in ctx.static(ins, 3, "Slice.axes").reshape(-1)]
+    steps = None
+    if len(ins) > 4 and ins[4] is not None:
+        steps = [int(v) for v in ctx.static(ins, 4, "Slice.steps").reshape(-1)]
+    if axes is None:
+        axes = list(range(len(starts)))
+    if steps is None:
+        steps = [1] * len(starts)
+    for st, en, ax, sp in zip(starts, ends, axes, steps):
+        ax = ax % x.ndim
+        dim = x.shape[ax]
+        r = range(dim)[slice(min(st, dim), min(en, dim), sp)]
+        if sp > 0:
+            x = x[(slice(None),) * ax + (slice(r.start, r.stop, r.step),)]
+        else:  # torch slices take no negative step: gather the indices numpy's slice picks
+            x = torch.index_select(x, ax, ctx.derived(np.asarray(r, np.int64)))
     return [x]
 
 
@@ -286,6 +392,88 @@ def _where(ctx: Ctx, op, ins):
     return [torch.where(cond, a, b)]
 
 
+def shape_slice(shape, op):
+    """opset-15 start/end attrs: a [start:end) window of the shape vector,
+    negative values wrapping on the rank (spec Shape-15). The planner folds
+    Shape with it from the input's shape, device tensors included."""
+    r = len(shape)
+    start = op.attr_int("start", 0)
+    end = op.attr_int("end", r)
+    if start < 0:
+        start += r
+    if end < 0:
+        end += r
+    start = min(max(start, 0), r)
+    end = min(max(end, 0), r)
+    return tuple(shape)[start:max(start, end)]
+
+
+@register("Shape", host=True)
+def _shape(ctx: Ctx, op, ins):
+    return [torch.tensor(shape_slice(tuple(ins[0].shape), op), dtype=torch.int64)]
+
+
+@register("Trilu", host=True)
+def _trilu(ctx: Ctx, op, ins):
+    x = _tensor(ctx, ins[0])
+    k = 0
+    if len(ins) > 1 and ins[1] is not None:
+        k = int(ctx.static(ins, 1, "Trilu.k").reshape(-1)[0])
+    return [torch.triu(x, k) if op.attr_int("upper", 1) else torch.tril(x, k)]
+
+
+def _made_on_host(ctx: Ctx, arr: np.ndarray) -> torch.Tensor:
+    """An op's result made with numpy from static operands: a CPU tensor when
+    folded, and on the op's device when the planner had to pin a weight or an
+    input for it (a device op), where integers are 32-bit."""
+    if ctx.mode == "host":
+        return torch.from_numpy(arr)
+    return ctx.derived(arr.astype(np.int32) if arr.dtype == np.int64 else arr)
+
+
+@register("ConstantOfShape", host=True)
+def _constant_of_shape(ctx: Ctx, op, ins):
+    """The value attribute as the converter writes it, with its dtype
+    ("int64:0", "float32:0.0"); a bare scalar (reference-converted models)
+    is float32 whatever its spelling, as the reference's std::stof."""
+    shape = [int(v) for v in ctx.static(ins, 0, "ConstantOfShape.shape").reshape(-1)]
+    value = op.attr("value", "0")
+    dtype, sep, scalar = value.partition(":")
+    if sep and dtype in ("float32", "float16", "int64", "int32", "uint8", "bool"):
+        dt = np.dtype(dtype)
+        arr = np.full(shape, dt.type(float(scalar) if dt.kind == "f" else int(scalar)))
+    else:
+        arr = np.full(shape, float(value), dtype=np.float32)
+    return [_made_on_host(ctx, arr)]
+
+
+@register("Range", host=True)
+def _range(ctx: Ctx, op, ins):
+    start = ctx.static(ins, 0, "Range.start").reshape(-1)[0]
+    limit = ctx.static(ins, 1, "Range.limit").reshape(-1)[0]
+    delta = ctx.static(ins, 2, "Range.delta").reshape(-1)[0]
+    return [_made_on_host(ctx, np.arange(start, limit, delta))]
+
+
+# ONNX TensorProto.DataType ids
+_CAST_TO = {1: torch.float32, 2: torch.uint8, 3: torch.int8, 6: torch.int32, 7: torch.int64, 9: torch.bool,
+            10: torch.float16, 11: torch.float64, 16: torch.bfloat16}
+
+
+@register("Cast", host=True)
+def _cast(ctx: Ctx, op, ins):
+    to = op.attr_int("to")
+    if to not in _CAST_TO:
+        raise NotImplementedError(f"Cast to={to} not supported")
+    dt = _CAST_TO[to]
+    if ctx.mode == "device" and dt == torch.int64:
+        dt = torch.int32  # device integers are 32-bit
+    x = _tensor(ctx, ins[0])
+    if x.dtype != torch.bool and dt == torch.bool:
+        return [x != 0]
+    return [x.to(dt)]
+
+
 @register("ScatterND")
 def _scatternd(ctx: Ctx, op, ins):
     """Out of place, as ``.at[].set`` in the JAX package: the data operand
@@ -309,6 +497,32 @@ def _reduce_mean(ctx: Ctx, op, ins):
     keepdims = bool(op.attr_int("keepdims", 1))
     ax = tuple(a % x.ndim for a in axes) if axes else tuple(range(x.ndim))
     return [_f32_island(x, lambda v: v.mean(dim=ax, keepdim=keepdims))]
+
+
+@register("ReduceSum", host=True)
+def _reduce_sum(ctx: Ctx, op, ins):
+    """An integer sum keeps its dtype, as jnp.sum (torch.sum widens to int64)."""
+    x = _tensor(ctx, ins[0])
+    axes = _axes_from(ctx, op, ins, 1)
+    keepdims = bool(op.attr_int("keepdims", 1))
+    ax = tuple(a % x.ndim for a in axes) if axes else tuple(range(x.ndim))
+    out = _f32_island(x, lambda v: v.sum(dim=ax, keepdim=keepdims))
+    return [out if x.is_floating_point() or x.dtype == torch.bool else out.to(x.dtype)]
+
+
+@register("ReduceMax", host=True)
+def _reduce_max(ctx: Ctx, op, ins):
+    x = _tensor(ctx, ins[0])
+    axes = _axes_from(ctx, op, ins, 1)
+    keepdims = bool(op.attr_int("keepdims", 1))
+    ax = tuple(a % x.ndim for a in axes) if axes else tuple(range(x.ndim))
+    return [torch.amax(x, dim=ax, keepdim=keepdims)]
+
+
+@register("Softmax")
+def _softmax(ctx: Ctx, op, ins):
+    axis = op.attr_int("axis", -1)
+    return [_f32_island(_tensor(ctx, ins[0]), lambda v: torch.softmax(v, dim=axis))]
 
 
 @register("ArgMax", host=True)
@@ -339,6 +553,24 @@ def _instance_norm(ctx: Ctx, op, ins):
     norm = (xf - mean) * torch.rsqrt(var + eps)
     sh = (1, -1) + (1,) * (x.ndim - 2)
     out = norm * scale.float().reshape(sh) + bias.float().reshape(sh)
+    return [out.to(x.dtype)]
+
+
+@register("LayerNormalization")
+def _layer_norm(ctx: Ctx, op, ins):
+    x = _tensor(ctx, ins[0])
+    scale = _tensor(ctx, ins[1])
+    bias = _tensor(ctx, ins[2]) if len(ins) > 2 and ins[2] is not None else None
+    axis = op.attr_int("axis", -1)
+    eps = op.attr_float("epsilon", 1e-5)
+    xf = x.float()
+    red = tuple(range(axis % x.ndim, x.ndim))
+    # one-pass E[x] / E[x^2] statistics, as InstanceNormalization
+    mean = xf.mean(dim=red, keepdim=True)
+    var = torch.clamp((xf * xf).mean(dim=red, keepdim=True) - mean * mean, min=0.0)
+    out = (xf - mean) * torch.rsqrt(var + eps) * scale.float()
+    if bias is not None:
+        out = out + bias.float()
     return [out.to(x.dtype)]
 
 
@@ -392,7 +624,7 @@ def _conv3x3_im2col_op(ctx: Ctx, op, ins):
 
 
 # ---------------------------------------------------------------------------
-# matmul & convolution
+# matmul family & convolution
 # ---------------------------------------------------------------------------
 
 
@@ -405,16 +637,64 @@ def _matmul(ctx: Ctx, op, ins):
     return [torch.matmul(a, b)]
 
 
+@register("Gemm")
+def _gemm(ctx: Ctx, op, ins):
+    a, b = _tensor(ctx, ins[0]), _tensor(ctx, ins[1])
+    c = ins[2] if len(ins) > 2 and ins[2] is not None else None
+    alpha = op.attr_float("alpha", 1.0)
+    beta = op.attr_float("beta", 1.0)
+    if op.attr_int("transA", 0):
+        a = a.T
+    if op.attr_int("transB", 0):
+        b = b.T
+    a, b = _align_binary(ctx, a, b)
+    y = torch.matmul(a, b)
+    if alpha != 1.0:
+        y = y * _scalar(y, alpha)
+    if c is not None:
+        cc, _ = _align_binary(ctx, c, y)
+        if beta != 1.0:
+            cc = cc * _scalar(cc, beta)
+        y = y + cc
+    return [y]
+
+
+def _refuse_nhwc(op) -> None:
+    """Ops the channel-last layout pass rewrote carry ``layout:NHWC``; the
+    port has no such pass yet."""
+    if op.attr("layout") == "NHWC":
+        raise NotImplementedError(
+            f"{op.op_type} with layout:NHWC (runtime/layout.py, use_nhwc_layout) is not ported "
+            "(ROADMAP Queue 1 item 7)")
+
+
 @register("Conv")
 def _conv(ctx: Ctx, op, ins):
+    """NCHW Conv of rank 4, and of rank 3 (Conv1D) as the JAX op runs it: the
+    input gains a trailing unit dim, a (O, I, k) weight becomes (O, I, k, 1)
+    (the converter's own promotion), and strides, dilations and pads gain
+    that dim's 1 / 1 / 0."""
+    _refuse_nhwc(op)
     x, w = _tensor(ctx, ins[0]), ins[1]
     b = ins[2] if len(ins) > 2 and ins[2] is not None else None
-    if x.ndim != 4:
-        raise NotImplementedError(f"Conv of rank {x.ndim} is not ported (2-D NCHW only)")
+    if x.ndim not in (3, 4):
+        raise NotImplementedError(f"Conv of rank {x.ndim} is not ported (NCHW Conv1D and Conv2D only)")
+    conv1d = x.ndim == 3
+    if conv1d:
+        x = x[..., None]
+        if w.ndim == 3:
+            w = w[..., None]
+    n_spatial = 1 if conv1d else 2
     group = op.attr_int("group", 1)
-    strides = list(op.attr_ints("strides", [1, 1]))
-    dilations = list(op.attr_ints("dilations", [1, 1]))
-    pt, pl, pb, pr = op.attr_ints("pads", [0, 0, 0, 0])
+    strides = list(op.attr_ints("strides", [1] * n_spatial))
+    dilations = list(op.attr_ints("dilations", [1] * n_spatial))
+    pads = list(op.attr_ints("pads", [0] * (2 * n_spatial)))
+    if conv1d:
+        strides = strides + [1] if len(strides) < 2 else strides
+        dilations = dilations + [1] if len(dilations) < 2 else dilations
+        if len(pads) == 2:
+            pads = [pads[0], 0, pads[1], 0]
+    pt, pl, pb, pr = pads
     x, w = _align_binary(ctx, x, w)
     if (pt, pl) == (pb, pr):
         padding = (pt, pl)
@@ -422,7 +702,85 @@ def _conv(ctx: Ctx, op, ins):
         x = F.pad(x, (pl, pr, pt, pb))
         padding = (0, 0)
     bb = None if b is None else _astype(ctx, b, x.dtype)
-    return [F.conv2d(x, w, bb, stride=strides, padding=padding, dilation=dilations, groups=group)]
+    out = F.conv2d(x, w, bb, stride=strides, padding=padding, dilation=dilations, groups=group)
+    return [out[..., 0] if conv1d else out]
+
+
+# ---------------------------------------------------------------------------
+# pooling: explicit pads (ceil_mode adds the JAX op's extra high pad), then
+# every window of the padded tensor as a strided view, reduced
+# ---------------------------------------------------------------------------
+
+
+def _pool_pads(op, x, kernel, strides):
+    """[(lo, hi)] per spatial dim: the pads attribute, and with ceil_mode the
+    extra high pad that lets the last (partial) window fit, as the JAX op
+    computes it."""
+    n = len(kernel)
+    pads = list(op.attr_ints("pads", [0] * (2 * n)))
+    out = []
+    for i in range(n):
+        lo, hi = pads[i], pads[i + n]
+        if op.attr_int("ceil_mode", 0):
+            size = x.shape[2 + i] + lo + hi
+            out_dim = -(-(size - kernel[i]) // strides[i]) + 1
+            hi += max(0, (out_dim - 1) * strides[i] + kernel[i] - size)
+        out.append((lo, hi))
+    return out
+
+
+def _windows(x: torch.Tensor, kernel, strides, padding, value) -> torch.Tensor:
+    """x (N, C, *spatial) padded with `value` -> (N, C, *out, *kernel): each
+    output position's window, as a view of the padded tensor."""
+    flat = [p for lo_hi in reversed(padding) for p in lo_hi]  # F.pad wants the last dim first
+    if any(flat):
+        x = F.pad(x, flat, value=value)
+    for i, (k, s) in enumerate(zip(kernel, strides)):
+        x = x.unfold(2 + i, k, s)
+    return x
+
+
+@register("MaxPool")
+def _maxpool(ctx: Ctx, op, ins):
+    _refuse_nhwc(op)
+    x = _tensor(ctx, ins[0])
+    kernel = list(op.attr_ints("kernel_shape"))
+    n = len(kernel)
+    strides = list(op.attr_ints("strides", [1] * n))
+    if any(d != 1 for d in op.attr_ints("dilations", [1] * n)):
+        raise NotImplementedError("MaxPool dilations != 1")
+    low = -math.inf if x.is_floating_point() else torch.iinfo(x.dtype).min
+    win = _windows(x, kernel, strides, _pool_pads(op, x, kernel, strides), low)
+    return [torch.amax(win, dim=tuple(range(-n, 0)))]
+
+
+@register("AveragePool")
+def _avgpool(ctx: Ctx, op, ins):
+    """Window sums in float32 over the count of elements inside the input
+    (count_include_pad=0: pads and ceil_mode's extra pad excluded) or over
+    the kernel size (count_include_pad=1)."""
+    _refuse_nhwc(op)
+    x = _tensor(ctx, ins[0])
+    kernel = list(op.attr_ints("kernel_shape"))
+    n = len(kernel)
+    strides = list(op.attr_ints("strides", [1] * n))
+    padding = _pool_pads(op, x, kernel, strides)
+    red = tuple(range(-n, 0))
+    s = _windows(x.float(), kernel, strides, padding, 0.0).sum(dim=red)
+    if op.attr_int("count_include_pad", 0):
+        out = s / float(np.prod(kernel))
+    else:
+        ones = torch.ones((1, 1) + tuple(x.shape[2:]), dtype=torch.float32, device=x.device)
+        out = s / _windows(ones, kernel, strides, padding, 0.0).sum(dim=red)
+    return [out.to(x.dtype)]
+
+
+@register("GlobalAveragePool")
+def _global_avgpool(ctx: Ctx, op, ins):
+    _refuse_nhwc(op)
+    x = _tensor(ctx, ins[0])
+    red = tuple(range(2, x.ndim))
+    return [_f32_island(x, lambda v: v.mean(dim=red, keepdim=True))]
 
 
 # ---------------------------------------------------------------------------
@@ -463,6 +821,7 @@ def _resize(ctx: Ctx, op, ins):
     mode = op.attr("mode", "nearest")
     coord = op.attr("coordinate_transformation_mode", "half_pixel")
     nearest_mode = op.attr("nearest_mode", "round_prefer_floor")
+    _refuse_nhwc(op)
 
     in_shape = list(x.shape)
     if sizes is not None:

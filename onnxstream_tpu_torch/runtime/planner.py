@@ -32,6 +32,7 @@ from onnxstream_tpu_torch.ir import Graph, OpNode, TensorSpec
 from onnxstream_tpu_torch.kernels.matmul import oihw_to_w9co
 from onnxstream_tpu_torch.kernels.qmatmul import dyn_takes_kmajor, qconv_takes_nhwc, qgemm_takes_kmajor
 from onnxstream_tpu_torch.ops import Ctx, StaticRequired, get_impl
+from onnxstream_tpu_torch.ops.standard import shape_slice
 from onnxstream_tpu_torch.runtime.config import SessionConfig
 
 _META = torch.device("meta")
@@ -309,6 +310,16 @@ class _Planner:
     def plan_op(self, op: OpNode) -> None:
         impl = get_impl(op.op_type)
         resolved = [self._resolve(t) for t in op.inputs]
+
+        # Shape folds from metadata, device tensors and weights included
+        if op.op_type == "Shape":
+            kind, val = resolved[0]
+            if kind == "none":
+                raise PlanError(f"{op.name}: Shape of missing input")
+            shape = op.inputs[0].shape if kind == "weight" else tuple(val.shape)
+            self.op_modes.append("host")
+            self._check_and_store(op, [np.asarray(shape_slice(shape, op), dtype=np.int64)], device=False)
+            return
 
         # Host folding: all inputs static (undecided weights block folding
         # unless the op itself later demands them static).

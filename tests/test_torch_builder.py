@@ -99,6 +99,9 @@ def test_import_pulls_in_neither_jax_nor_ml_dtypes():
         "import onnxstream_tpu_torch.models.sd.pipeline, onnxstream_tpu_torch.cli.sd_main\n"
         "import onnxstream_tpu_torch.kernels.qconv, onnxstream_tpu_torch.models.sd.clip\n"
         "import onnxstream_tpu_torch.models.sd.vae, onnxstream_tpu_torch.models.sd.samplers\n"
+        "import onnxstream_tpu_torch.models.whisper, onnxstream_tpu_torch.models.whisper.hf\n"
+        "import onnxstream_tpu_torch.models.yolo, onnxstream_tpu_torch.cli.whisper_main\n"
+        "import onnxstream_tpu_torch.cli.yolo_main\n"
         "bad = [m for m in ('jax', 'ml_dtypes', 'onnxstream_tpu') if m in sys.modules]\n"
         "assert not bad, bad\n"
     )

@@ -3,7 +3,10 @@
 Each case is a one-op model.txt graph run through the JAX Session and the
 port's Session, both on the CPU, with the same seeded inputs and weights.
 Tolerances: float32 rtol = atol = 1e-5; bfloat16 rtol = atol = 1e-2 (the two
-frameworks round bf16 at different points).
+frameworks round bf16 at different points). The cases of the op types that
+converted ONNX graphs need (and Conv of rank 3) come from the JAX-free
+tests/test_torch_ops_card.py, which also runs them on the card; a key names
+its op type, and a second case of one op type its variant in brackets.
 """
 
 import math
@@ -12,8 +15,6 @@ import numpy as np
 import pytest
 import torch
 
-from onnxstream_tpu.dtypes import DType
-from onnxstream_tpu.ir import Graph, OpNode, TensorSpec
 from onnxstream_tpu.runtime.config import SessionConfig as JaxConfig
 from onnxstream_tpu.runtime.session import Session as JaxSession
 from onnxstream_tpu.runtime.weights import DictWeightsProvider as JaxDict
@@ -21,31 +22,10 @@ from onnxstream_tpu_torch import Session, SessionConfig
 from onnxstream_tpu_torch.ops import registered_ops
 from onnxstream_tpu_torch.runtime.weights import DictWeightsProvider, params_from_numpy
 
-
-def _rng(seed=0):
-    return np.random.default_rng(seed)
-
-
-def _rand(*shape, seed=0):
-    return _rng(seed).standard_normal(shape, dtype=np.float32)
-
-
-def _case(op_type, inputs, weights, outs, attrs=None, order=None):
-    """inputs: name -> array (graph inputs); weights: name -> array;
-    outs: list of output shapes; order: input names in op order."""
-    specs = []
-    for name in order or list(inputs) + list(weights):
-        if not name:  # absent optional input
-            specs.append(TensorSpec(name=""))
-        elif name in weights:
-            arr = weights[name]
-            specs.append(TensorSpec(name=name, shape=arr.shape, dtype=DType.from_np(arr.dtype)))
-        else:
-            specs.append(TensorSpec(name=name, shape=inputs[name].shape))
-    op = OpNode(name=f"t/{op_type}", op_type=op_type, inputs=specs,
-                outputs=[TensorSpec(name=f"y{i}", shape=tuple(s)) for i, s in enumerate(outs)],
-                attrs={k: str(v) for k, v in (attrs or {}).items()})
-    return Graph(ops=[op]).to_text(), inputs, weights
+from test_torch_ops_card import OP_CASES, op_type_of
+from test_torch_ops_card import op_case as _case
+from test_torch_ops_card import rand as _rand
+from test_torch_ops_card import rng as _rng
 
 
 def _cases():
@@ -126,6 +106,7 @@ def _cases():
         "ostpu.conv3x3_im2col", {"x": xc},
         {"w9co": np.ascontiguousarray(wc.transpose(2, 3, 1, 0).reshape(72, 6)), "bias": bc}, [(2, 6, 4, 4)]),
         jax_text, jax_weights)
+    c.update(OP_CASES)
     return c
 
 
@@ -133,7 +114,32 @@ CASES = _cases()
 
 
 def test_cases_cover_exactly_the_ported_ops():
-    assert sorted(CASES) == registered_ops()
+    assert sorted({op_type_of(k) for k in CASES}) == registered_ops()
+
+
+def test_layout_pass_ops_are_refused():
+    """The two op types only the channel-last layout pass emits, and any op
+    that pass rewrote (layout:NHWC), raise until the pass is ported."""
+    for op_type in ("ostpu.groupnorm", "ostpu.reshape"):
+        assert op_type not in registered_ops()
+    for key, attrs in (("MaxPool", {"kernel_shape": "2,2", "layout": "NHWC"}),
+                       ("GlobalAveragePool", {"layout": "NHWC"})):
+        text, inputs, _ = _case(key, {"a": _rand(1, 4, 4, 2)}, {}, [(1, 2, 2, 2)], attrs)
+        ps = Session(SessionConfig(device=torch.device("cpu")), weights_provider=DictWeightsProvider({}))
+        ps.read_string(text)
+        ps.add_tensor("a", _rand(1, 4, 4, 2))
+        with pytest.raises(Exception, match="Queue 1 item 7"):
+            ps.run()
+
+
+def test_maxpool_dilations_are_refused_as_in_jax():
+    text, inputs, _ = _case("MaxPool", {"a": _rand(1, 2, 6, 6)}, {}, [(1, 2, 2, 2)],
+                            {"kernel_shape": "3,3", "strides": "2,2", "dilations": "2,2"})
+    ps = Session(SessionConfig(device=torch.device("cpu")), weights_provider=DictWeightsProvider({}))
+    ps.read_string(text)
+    ps.add_tensor("a", inputs["a"])
+    with pytest.raises(Exception, match="dilations"):
+        ps.run()
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

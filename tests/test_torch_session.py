@@ -150,9 +150,9 @@ def test_quantized_weights_and_unported_ops_raise():
     np.testing.assert_allclose(s.run()["y"], a @ ((w.numpy().astype(np.float32) - 3) * 0.5), rtol=1e-6)
     assert s._executor().quant_routes == {"t/mm": "w8_matmul"}
     s = Session(SessionConfig(device=CPU))
-    s.read_string("t/sm:Softmax*input:a(2,3)*output:y(2,3)*axis:-1")
-    s.add_tensor("a", np.ones((2, 3), np.float32))
-    with pytest.raises(PlanError, match="Softmax"):
+    s.read_string("t/gn:ostpu.groupnorm*input:a(1,2,2,4)*output:y(1,2,2,4)*groups:2")
+    s.add_tensor("a", np.ones((1, 2, 2, 4), np.float32))
+    with pytest.raises(PlanError, match="ostpu.groupnorm"):
         s.run()
 
 
