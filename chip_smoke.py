@@ -205,6 +205,26 @@ Phases (any failure exits non-zero and prints no result line):
      YOLOv8n's I/O contract and is not YOLOv8n, against the CPU: boxes
      within rtol = atol = 1e-3, NMS indices equal; detect and session wall
      and busy.
+ 12. weight streaming (phase_streamed): the reference's SD1.5 folder written
+     to a temporary directory by the port's GraphBuilder.save (CLIP-L fp32,
+     the SD15 UNet as unet_fp16/ with float16 .bin files, VAE_SD fp16,
+     random weights from seeds); the bf16 UNet read from unet_fp16/ by a
+     Session under ram+prefetch and the native prefetch at hbm_budget_bytes
+     0, 512 MiB and 128 MiB, three requests each: segments, streamed bytes,
+     wall, the allocator's peak within Executor.hbm_accounting()'s bound +
+     PEAK_SLACK, no host conversion on a warm ram+prefetch run, 10 flash
+     launches a run (the first streamed one held to the twin), every output
+     bit for bit with the first resident run; one warm streamed run per
+     budget profiled: kernels and host-to-device copies by stream, the
+     copies' share under kernels, device busy and idle share; then a 4-step
+     512 x 512 euler_a image through StableDiffusionPipeline.from_dir at
+     hbm_budget_bytes 256 MiB, bit for bit with the resident image;
+ 13. the model server (phase_serve): cli/serve_main.py in a thread on the
+     card, unet_fp16/ loaded over HTTP (wp=prefetch, read_file), three /run
+     requests read back as little-endian f32, bit for bit with the
+     in-process resident session, 10 flash launches each, each request's
+     latency; then tests/data/capi_smoke.c built with gcc against
+     libonnxstream_tpu_torch.so (runtime/native.py) and run on the card.
 
 Each path's launch counts are set to 0 just before it and read just after;
 launches made to compare a kernel with its twin come after the read. The
@@ -218,8 +238,10 @@ import dataclasses
 import gc
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -3480,6 +3502,316 @@ def phase_yolo(name: str) -> dict:
     return {"detections": len(got.indices), "boxes_max_abs_err": err, **times}
 
 
+# --------------------------------------------- weight streaming from disk, and the model server
+STREAM_BUDGETS = (512 << 20, 128 << 20)  # hbm_budget_bytes of the streamed UNet runs
+IMAGE_BUDGET = 256 << 20  # hbm_budget_bytes of the streamed image pipeline
+# device memory a run may take above Executor.hbm_accounting()'s bound: the
+# scratch inside an op that the bound does not count (cuDNN workspaces, fp32
+# upcasts inside an op, a flash launch's split partials), set before the
+# first streamed run on the card
+PEAK_SLACK = 256 << 20
+# from_synthetic's tiny test vocabulary, as the folder's tokenizer/vocab.json
+SD_VOCAB = {**{chr(ord("a") + i) + "</w>": 10 + i for i in range(26)},
+            **{w + "</w>": 40 + i for i, w in enumerate(["cat", "dog", "photo", "of", "fluffy", "horse", "astronaut",
+                                                          "riding", "mars", "on", "the", "an"])}, ",</w>": 267}
+
+
+def write_sd15_folder(root: str) -> str:
+    """The reference's SD1.5 folder at full width, random weights from
+    seeds: text_encoder_fp32/ (CLIP-L, seed 0), unet_fp16/ (SD15, seed 0,
+    float16 .bin files, 1.72 GB), vae_decoder_fp16/ (VAE_SD at the 64 x 64
+    latent, seed 2) and tokenizer/vocab.json, written by the port's
+    GraphBuilder.save (no JAX)."""
+    from onnxstream_tpu_torch.models.sd.clip import CLIP_L, build_text_encoder
+    from onnxstream_tpu_torch.models.sd.unet import SD15, build_unet, param_count
+    from onnxstream_tpu_torch.models.sd.vae import VAE_SD, build_vae_decoder
+
+    t0 = time.perf_counter()
+    for sub, build, half in (("text_encoder_fp32", lambda: build_text_encoder(CLIP_L, seed=0), False),
+                             ("unet_fp16", lambda: build_unet(SD15, seed=0), True),
+                             ("vae_decoder_fp16", lambda: build_vae_decoder(
+                                 dataclasses.replace(VAE_SD, sample=64), seed=2), True)):
+        b = build()
+        b.save(os.path.join(root, sub), float16=half)
+        if sub == "unet_fp16":
+            print(f"unet_fp16: {param_count(b) / 1e6:.1f} M params")
+        del b
+        gc.collect()
+    os.makedirs(os.path.join(root, "tokenizer"))
+    with open(os.path.join(root, "tokenizer", "vocab.json"), "w") as f:
+        json.dump(SD_VOCAB, f)
+    size = sum(os.path.getsize(os.path.join(d, n)) for d, _, files in os.walk(root) for n in files)
+    unet = sum(os.path.getsize(os.path.join(d, n)) for d, _, files in os.walk(os.path.join(root, "unet_fp16"))
+               for n in files)
+    print(f"SD1.5 folder written in {time.perf_counter() - t0:.1f} s: {size / 1e9:.3f} GB, unet_fp16 "
+          f"{unet / 1e9:.3f} GB -> {root}")
+    return os.path.join(root, "unet_fp16", "model.txt")
+
+
+def _merged(intervals) -> list:
+    out = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def _overlap(a: float, b: float, merged) -> float:
+    return sum(max(0.0, min(b, y) - max(a, x)) for x, y in merged if y > a and x < b)
+
+
+def copy_overlap(run, label: str, name: str) -> dict:
+    """One warm call of run under torch.profiler (CPU and CUDA); from the
+    exported trace: the kernels by stream, the host-to-device copies by
+    stream, how much of the copies off the compute stream (the one most
+    kernels ran on) lies under a kernel, the device busy time (the union of
+    kernels and copies) and the idle share of the host wall time."""
+    import tempfile
+    from collections import Counter
+
+    from torch.profiler import ProfilerActivity, profile
+
+    path = os.path.join(tempfile.gettempdir(), f"ostt_trace_{os.getpid()}.json")
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        os.remove(path)
+        kern = [e for e in events if e.get("cat") == "kernel"]
+        if kern:
+            break
+        print("copy_overlap: the trace holds no kernel events; profiling again")
+    else:
+        raise SystemExit(f"{label}: three profiles without device events")
+    h2d = [e for e in events if e.get("cat") == "gpu_memcpy" and "HtoD" in e.get("name", "")]
+    compute = Counter(e["args"].get("stream") for e in kern).most_common(1)[0][0]
+    kmerged = _merged((e["ts"], e["ts"] + e["dur"]) for e in kern)
+    off = [e for e in h2d if e["args"].get("stream") != compute]
+    on = [e for e in h2d if e["args"].get("stream") == compute]
+    off_us = sum(e["dur"] for e in off)
+    under = sum(_overlap(e["ts"], e["ts"] + e["dur"], kmerged) for e in off)
+    off_bytes = sum(e["args"].get("bytes", 0) for e in off)
+    busy = sum(b - a for a, b in _merged((e["ts"], e["ts"] + e["dur"]) for e in kern + h2d)) / 1e3
+    k_ms = sum(e["dur"] for e in kern) / 1e3
+    out = {"wall_ms": wall, "kernel_ms": k_ms, "device_busy_ms": busy, "idle_share": 1 - busy / wall,
+           "h2d_copy_stream_ms": off_us / 1e3, "h2d_copy_stream_bytes": off_bytes,
+           "h2d_copy_stream_gb_s": off_bytes / off_us / 1e3 if off_us else 0.0,
+           "h2d_compute_stream_ms": sum(e["dur"] for e in on) / 1e3,
+           "copy_under_kernels_share": under / off_us if off_us else 0.0,
+           "copy_streams": sorted({str(e["args"].get("stream")) for e in off}), "compute_stream": str(compute)}
+    print(f"  profile of {label} (profiler on) [{name}]: wall {wall:.1f} ms, kernels {k_ms:.2f} ms on stream "
+          f"{compute}, device busy {busy:.2f} ms (kernels and copies), idle {100 * out['idle_share']:.1f}% of wall; "
+          f"host-to-device on stream(s) {out['copy_streams']}: {len(off)} copies, {off_bytes / 1e6:.1f} MB in "
+          f"{off_us / 1e3:.2f} ms ({out['h2d_copy_stream_gb_s']:.1f} GB/s), {100 * out['copy_under_kernels_share']:.1f}% "
+          f"of it under a kernel; on the compute stream {len(on)} copies, {out['h2d_compute_stream_ms']:.3f} ms")
+    return out
+
+
+def phase_streamed(name: str, model: str) -> dict:
+    """The SD1.5 UNet (bf16) read from the folder's unet_fp16/ by a Session
+    under ram+prefetch and the native prefetch, at hbm_budget_bytes 0 and
+    STREAM_BUDGETS, three requests each: every output bit for bit with the
+    first resident run, the allocator's peak within hbm_accounting()'s bound
+    + PEAK_SLACK, warm ram+prefetch runs converting nothing on the host, 10
+    flash launches a run (the first streamed launch held to the twin), the
+    weight copies on a stream of their own and their share under kernels.
+    Then a 4-step 512 x 512 euler_a image from the folder by from_dir under
+    IMAGE_BUDGET against the resident one."""
+    import onnxstream_tpu_torch.ops.attention as attention_op
+    from onnxstream_tpu_torch import Session, SessionConfig
+    from onnxstream_tpu_torch.kernels.flash_attention import (flash_attention_packed,
+                                                              flash_attention_packed_reference)
+    from onnxstream_tpu_torch.models.sd.pipeline import StableDiffusionPipeline
+    from onnxstream_tpu_torch.models.sd.unet import SD15
+
+    reqs = _requests(SD15, 0)
+    flash = _FlashSites(flash_attention_packed, flash_attention_packed_reference, 2e-2)
+    resident, sessions, armed = None, {}, False
+    flash_attention_packed.launches = 0
+    attention_op.flash_attention_packed = flash
+    try:
+        for wp in ("ram+prefetch", "prefetch"):
+            for budget in (0, *STREAM_BUDGETS):
+                label = f"{wp} at hbm_budget_bytes {budget >> 20} MiB"
+                s = Session(SessionConfig(compute_dtype="bfloat16", hbm_budget_bytes=budget,
+                                          device=torch.device("cuda:0")), weights_provider_name=wp)
+                s.read_file(model)
+                row = {"walls_ms": [], "peaks": [], "conversions": []}
+                outs = []
+                for i, req in enumerate(reqs):
+                    for k, v in req.items():
+                        s.add_tensor(k, v)
+                    ex = s._executor()
+                    acc = ex.hbm_accounting()
+                    if budget and not armed:
+                        flash.arm()
+                    gc.collect()
+                    torch.cuda.synchronize()
+                    base, n0, c0 = torch.cuda.memory_allocated(), flash_attention_packed.launches, ex.host_conversions
+                    torch.cuda.reset_peak_memory_stats()
+                    flash.peak = 0
+                    out, ms = _timed(lambda: s.run()["out_sample"])
+                    peak = max(flash.peak, torch.cuda.max_memory_allocated()) - base
+                    n, conv = flash_attention_packed.launches - n0, ex.host_conversions - c0
+                    row["walls_ms"].append(ms)
+                    row["peaks"].append(peak)
+                    row["conversions"].append(conv)
+                    outs.append(out)
+                    print(f"{label}, request {i}: {ms:.1f} ms, {len(ex.segments)} segments, "
+                          f"{acc['weight_bytes'] / 1e6 if budget else 0:.1f} MB streamed, flash launches {n}, "
+                          f"host conversions {conv}, peak {peak / 2**20:.1f} MiB above the run's start (bound "
+                          f"{acc['peak_bytes'] / 2**20:.1f} + slack {PEAK_SLACK >> 20} MiB) [{name}]")
+                    if out.shape != (1, 4, 64, 64) or not np.isfinite(out).all() or n != 10:
+                        raise SystemExit(f"{label}, request {i}: bad output or {n} flash launches (want 10)")
+                    if peak > acc["peak_bytes"] + PEAK_SLACK:
+                        raise SystemExit(f"{label}, request {i}: peak {peak} B above the accounting bound + slack")
+                    if wp == "ram+prefetch" and i > 0 and conv:
+                        raise SystemExit(f"{label}, request {i}: {conv} host conversions on a warm run")
+                    if budget and not armed:
+                        armed = True
+                        flash.check(f"{label}, request {i}")
+                if resident is None:
+                    resident = outs
+                same = [np.array_equal(o, r) for o, r in zip(outs, resident)]
+                print(f"{label}: outputs bit for bit with the first resident run: {same}")
+                if not all(same):
+                    diff = max(float(np.abs(o - r).max()) for o, r in zip(outs, resident))
+                    raise SystemExit(f"{label}: outputs differ from the resident run (max|diff| {diff:.3e})")
+                row.update(segments=len(ex.segments), streamed_bytes=acc["weight_bytes"] if budget else 0,
+                           accounting_peak_bytes=acc["peak_bytes"], hbm_stats_peak=s.hbm_stats()["peak_bytes_in_use"])
+                if budget:
+                    row["profile"] = copy_overlap(lambda: s.run(), label, name)
+                    prof = row["profile"]
+                    if not prof["copy_streams"] or prof["h2d_copy_stream_bytes"] < 0.9 * acc["weight_bytes"]:
+                        raise SystemExit(f"{label}: the weights did not cross on a copy stream")
+                sessions[f"{wp}@{budget >> 20}MiB"] = row
+                s.close()
+                del s, ex
+                gc.collect()
+                torch.cuda.empty_cache()
+        flash.check_variants("SD15 streamed UNet path")
+        images = {}
+        for budget in (0, IMAGE_BUDGET):
+            pipe = StableDiffusionPipeline.from_dir(os.path.dirname(os.path.dirname(model)),
+                                                    hbm_budget_bytes=budget, device=torch.device("cuda:0"))
+            n0 = flash_attention_packed.launches
+            res, ms = _timed(lambda: pipe.generate(SD_PROMPTS[0], "", steps=4, seed=42, sampler="euler_a"))
+            n = flash_attention_packed.launches - n0
+            images[budget] = res
+            print(f"from_dir image at hbm_budget_bytes {budget >> 20} MiB: {res.image.shape} {res.image.dtype}, "
+                  f"4 euler_a steps, {ms:.1f} ms (plan and first upload included), flash launches {n} "
+                  f"(want 81: 8 UNet runs and the decoder's one) [{name}]")
+            if res.image.shape != (512, 512, 3) or n != 81:
+                raise SystemExit(f"from_dir image at {budget >> 20} MiB: bad image or {n} flash launches")
+            del pipe
+            gc.collect()
+            torch.cuda.empty_cache()
+        a, b = images[0], images[IMAGE_BUDGET]
+        lat_same, img_same = np.array_equal(a.latents, b.latents), np.array_equal(a.image, b.image)
+        print(f"streamed image against resident: latents bit for bit {lat_same}, image bit for bit {img_same}")
+        if not (lat_same and img_same):
+            raise SystemExit("the streamed image differs from the resident one")
+    finally:
+        attention_op.flash_attention_packed = flash_attention_packed
+    return {"launches": flash_attention_packed.launches, "sessions": sessions, "resident": resident}
+
+
+def phase_serve(name: str, model: str, resident: list) -> dict:
+    """The port's HTTP server in a thread on the card: unet_fp16/ loaded over
+    HTTP (wp=prefetch, read_file enabled, use_bf16_arithmetic), three /run
+    requests, each output read back as little-endian f32 and held bit for
+    bit to the in-process resident Session's; then tests/data/capi_smoke.c
+    compiled with gcc against libonnxstream_tpu_torch.so and run (rc 0)."""
+    import struct
+    import sysconfig
+    import tempfile
+    import threading
+    import urllib.request
+
+    from onnxstream_tpu_torch.cli.serve_main import serve
+    from onnxstream_tpu_torch.kernels.flash_attention import flash_attention_packed
+    from onnxstream_tpu_torch.models.sd.unet import SD15
+    from onnxstream_tpu_torch.runtime.native import exports_library
+
+    def req(method, path, body=None):
+        r = urllib.request.Request(url + path, data=body, method=method)
+        with urllib.request.urlopen(r, timeout=600) as resp:
+            return resp.read()
+
+    srv = serve("127.0.0.1", 0, allow_read_file=True, device="cuda")
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    latencies = []
+    try:
+        h = json.loads(req("POST", "/models?wp=prefetch"))["handle"]
+        req("POST", f"/models/{h}/options?name=use_bf16_arithmetic&value=1")
+        err = json.loads(req("POST", f"/models/{h}/read_file", model.encode()))
+        if err:
+            raise SystemExit(f"serve: read_file failed: {err}")
+        flash_attention_packed.launches = 0
+        for i, r in enumerate(_requests(SD15, 0)):
+            t0 = time.perf_counter()
+            for k, v in r.items():
+                dims = ",".join(str(d) for d in v.shape)
+                req("PUT", f"/models/{h}/tensors/{k}?type=float32&dims={dims}", v.astype(np.float32).tobytes())
+            t1 = time.perf_counter()
+            err = json.loads(req("POST", f"/models/{h}/run"))
+            t2 = time.perf_counter()
+            body = req("GET", f"/models/{h}/tensors/out_sample")
+            t3 = time.perf_counter()
+            latencies.append((t3 - t0) * 1e3)
+            parts = f"{len(r)} PUTs {(t1 - t0) * 1e3:.1f} ms, run {(t2 - t1) * 1e3:.1f}, GET {(t3 - t2) * 1e3:.1f}"
+            if err:
+                raise SystemExit(f"serve: request {i}: {err}")
+            nd = struct.unpack_from("<I", body)[0]
+            dims = struct.unpack_from(f"<{nd}I", body, 4)
+            out = np.frombuffer(body, "<f4", offset=4 + 4 * nd).reshape(dims)
+            same = np.array_equal(out, resident[i])
+            print(f"served request {i}: {latencies[-1]:.1f} ms ({parts}"
+                  f"{'; plan and weight upload included' if i == 0 else ''}), output {tuple(dims)} bit for bit "
+                  f"with the in-process session {same}, flash launches so far {flash_attention_packed.launches} "
+                  f"[{name}]")
+            if not same or flash_attention_packed.launches != 10 * (i + 1):
+                raise SystemExit(f"serve: request {i} disagrees with the in-process session or launched "
+                                 f"{flash_attention_packed.launches} flash kernels")
+        launches = flash_attention_packed.launches
+        req("DELETE", f"/models/{h}")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        th.join(timeout=30)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    lib = exports_library()
+    with tempfile.TemporaryDirectory() as tmp:
+        exe = os.path.join(tmp, "capi_smoke")
+        cc = subprocess.run(["gcc", "-O1", "-Wall", "-Werror", "-pthread",
+                             os.path.join(REPO, "tests", "data", "capi_smoke.c"), "-o", exe, f"-L{lib.parent}",
+                             "-lonnxstream_tpu_torch", f"-Wl,-rpath,{lib.parent}"],
+                            capture_output=True, text=True, timeout=300)
+        if cc.returncode != 0:
+            raise SystemExit(f"capi_smoke.c did not compile:\n{cc.stderr}")
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join([REPO, sysconfig.get_paths()["purelib"]]))
+        env.pop("PYTHONHOME", None)
+        t0 = time.perf_counter()
+        run = subprocess.run([exe], capture_output=True, text=True, timeout=300, env=env)
+    print(f"capi_smoke.c against {lib.name} on the card: rc {run.returncode} in {time.perf_counter() - t0:.1f} s, "
+          f"{run.stdout.strip()}")
+    if run.returncode != 0 or "CAPI_C_SMOKE_OK" not in run.stdout:
+        raise SystemExit(f"capi_smoke.c failed:\n{run.stdout}\n{run.stderr[-3000:]}")
+    return {"launches": launches, "latency_ms": latencies}
+
+
 def main() -> int:
     sys.path.insert(0, REPO)
     name = phase_device()
@@ -3513,6 +3845,17 @@ def main() -> int:
     whisper = phase_whisper(name)
     ops = phase_ops(name)
     yolo = phase_yolo(name)
+    gc.collect()
+    torch.cuda.empty_cache()
+    folder = tempfile.mkdtemp(prefix="ostt_sd15_")
+    try:
+        model = write_sd15_folder(folder)
+        streamed = phase_streamed(name, model)
+        served = phase_serve(name, model, streamed.pop("resident"))
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+    print(f"streaming: {json.dumps(streamed['sessions'])}")
+    print(f"serving: {json.dumps(served)}")
     print(f"whisper: {json.dumps({k: v for k, v in whisper.items() if k.startswith(('tokens', 'peak', 'device_w', 'bf16'))})}")
     print(f"op cases: {json.dumps(ops)}; yolo stand-in: {json.dumps(yolo)}")
     print(f"card: {name}")
@@ -3524,10 +3867,12 @@ def main() -> int:
     print(json.dumps({"kernels": [
         {"name": "flash_attention_packed", "route": "cuda", "source": fa_src,
          "replaces": "onnxstream_tpu/kernels/flash_attention.py:260", **kernel,
-         "launches": sd_image["flash_launches"] + sdxl["launches"] + sd_batch["launches"] + whisper["launches"],
+         "launches": (sd_image["flash_launches"] + sdxl["launches"] + sd_batch["launches"] + whisper["launches"]
+                      + streamed["launches"] + served["launches"]),
          "launches_by_path": {"sd15_step": launches_sd, "sd15_image": sd_image["flash_launches"],
                               "sdxl_image_and_turbo": sdxl["launches"], "sd15_generate_batch4": sd_batch["launches"],
-                              "whisper": whisper["launches"]},
+                              "whisper": whisper["launches"], "sd15_streamed": streamed["launches"],
+                              "sd15_served": served["launches"]},
          "whisper": {k: whisper[k] for k in ("sites_bfloat16", "replay_bfloat16", "sites_float32", "replay_float32",
                                              "times", "on_device")},
          "sdxl": {"unet_run_replay": sdxl["replay"], "ms_by_shape": sdxl["ms_by_shape"], "unet": sdxl["unet"],

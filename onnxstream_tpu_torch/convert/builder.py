@@ -191,17 +191,29 @@ class GraphBuilder:
     def to_text(self) -> str:
         return self.graph().to_text()
 
-    def save(self, directory: str) -> None:
-        """Write model.txt + .bin weight files (the converter's disk layout)."""
+    def save(self, directory: str, float16: bool = False) -> None:
+        """Write model.txt + .bin weight files (the converter's disk layout).
+        A weight name that holds '/' lands in subfolders, as the reference's
+        converted folders have them. With ``float16`` the float32 weights
+        are written as float16 and model.txt declares them so (the
+        reference's ``*_fp16`` folders, e.g. ``unet_fp16``). LazyArray
+        placeholders are materialized."""
         import os
 
         os.makedirs(directory, exist_ok=True)
-        with open(os.path.join(directory, "model.txt"), "w") as f:
-            f.write(self.to_text())
         for name, arr in self.weights.items():
-            # materialize LazyArray placeholders (lazy_weights=True) via
-            # __array__ instead of crashing on a missing .tofile
-            np.asarray(arr).tofile(os.path.join(directory, name))
+            a = np.asarray(arr)
+            if float16 and a.dtype == np.float32:
+                a = a.astype(np.float16)
+            path = os.path.join(directory, name)
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            a.tofile(path)
+        graph = self.graph()
+        if float16:
+            half = lambda t: dataclasses.replace(t, dtype=DType.float16) if t.dtype == DType.float32 else t
+            graph = Graph(ops=[dataclasses.replace(op, inputs=[half(t) for t in op.inputs]) for op in graph.ops])
+        with open(os.path.join(directory, "model.txt"), "w") as f:
+            f.write(graph.to_text())
 
     # ---------------------------------------------------------- primitives
     def conv(

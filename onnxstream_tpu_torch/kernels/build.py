@@ -17,7 +17,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict
+from typing import Callable, Dict, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 CACHE_DIR = Path(__file__).resolve().parents[2] / ".cache" / "onnxstream_tpu_torch"
@@ -54,22 +54,30 @@ def library_path(name: str) -> Path:
     return CACHE_DIR / f"{name}-{digest}" / f"lib{name}.so"
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless its build is present; return the
-    library path. The compiler's report (registers, shared memory, spills)
-    is kept beside it as ``build.log``."""
-    out = library_path(name)
+def compile_once(out: Path, command: Callable[[Path], List[str]], what: str) -> Path:
+    """Run ``command(tmp)`` (a compiler writing ``tmp``) unless ``out`` is
+    present, then move its output to ``out``; return ``out``. The
+    compiler's report is kept beside it as ``build.log``; a failure raises
+    with it, naming ``what``."""
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, f"-I{CSRC}", "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    proc = subprocess.run(command(tmp), capture_output=True, text=True)
     (out.parent / "build.log").write_text(proc.stdout + proc.stderr)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu (rc={proc.returncode}):\n{proc.stderr}")
+        raise RuntimeError(f"{what} (rc={proc.returncode}):\n{proc.stderr}")
     os.replace(tmp, out)  # atomic: concurrent builders never load a partial file
     return out
+
+
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless its build is present; return the
+    library path. The compiler's report (registers, shared memory, spills)
+    is kept beside it as ``build.log``."""
+    return compile_once(library_path(name),
+                        lambda tmp: [nvcc(), *NVCC_FLAGS, f"-I{CSRC}", "-o", str(tmp), str(CSRC / f"{name}.cu")],
+                        f"nvcc failed for {name}.cu")
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -41,6 +41,10 @@ _NOT_IMPLEMENTED = {
     "flash_packed_nopad": False,  # head-major flash route (TPU kernel flash_attention)
     "force_fp16_storage": False,
     "use_nhwc_layout": False,  # channel-last graph rewrite
+    # the reference's operator caches: the port always keeps its executors
+    # (per shape bucket), their weights and constants between runs
+    "use_ops_cache": True,
+    "use_next_op_cache": True,
 }
 
 
@@ -137,6 +141,8 @@ class SessionConfig:
     flash_packed_nopad: bool = False
     force_fp16_storage: bool = False
     use_nhwc_layout: bool = False
+    use_ops_cache: bool = True
+    use_next_op_cache: bool = True
 
     def __post_init__(self) -> None:
         self.torch_compute_dtype  # validates compute_dtype

@@ -6,11 +6,33 @@ run op by op on ``SessionConfig.device``:
   * the device ops are partitioned into **segments**, contiguous runs whose
     streamed weights fit ``config.hbm_budget_bytes`` (0 = one segment, weights
     stay resident on the device after the first run);
-  * each segment's weights come through the WeightsProvider chain, are
-    converted once on the host to the upload dtype, pinned, and copied to the
-    device; segments run one after another (overlapping segment k+1's upload
-    with segment k is later work);
-  * intermediates are freed after their last use inside a segment.
+  * each segment's weights come through the WeightsProvider chain and are
+    converted on the host to the upload dtype; a float weight converted so
+    goes back to the provider (``update``), so that a caching provider
+    converts it once (JAX ``_fetch_segment_weights``). In a streamed run, a
+    provider that keeps no converted copy (``keeps_updates`` False: nocache,
+    the prefetchers) hands over the file's bytes, which are converted on
+    the card after the copy instead;
+  * streamed runs (``hbm_budget_bytes > 0``) are double-buffered, the
+    counterpart of the JAX executor's loop: while segment k's ops are
+    dispatched, segment k+1's weights are fetched (in ``stream_entries``
+    order, spread over segment k's ops, all before its last op) into one of
+    two reused host staging buffers (pinned on CUDA; the native prefetcher
+    writes into them directly) and copied to the device on a copy stream of
+    their own; the compute stream waits on that copy's event before segment
+    k+1's first op. Segment k's weights are released once its last op is
+    enqueued (JAX donates them); each was ``record_stream``-ed onto the
+    compute stream, and segment k+1's first upload waits until the device
+    has finished segment k-1, so at most two segments' weights are alive and
+    a staging buffer is never overwritten before its copy ended. On the CPU
+    the same schedule runs without streams or events;
+  * intermediates are freed after their last use; boundary activations
+    after the segment that reads them last.
+
+``hbm_accounting()`` is the counterpart of the JAX executor's: per segment
+the weight bytes and the peak bytes of its live activations (from the
+plan's shapes), and the streamed bound max_k (activations_k + weights_k +
+weights_k+1).
 
 Both runs pin the backend's precision flags to the JAX package's numerics:
 float32 products and convolutions in full float32 (no TF32), and bf16/fp16
@@ -259,6 +281,101 @@ def _to_host(v) -> np.ndarray:
     return t.cpu().numpy()
 
 
+STAGING_ALIGN = 256  # bytes: each weight's slice of a staging buffer starts on this
+
+
+def _file_bytes(w: WeightArg) -> int:
+    return math.prod(w.file_shape or w.shape) * w.file_dtype.itemsize
+
+
+def _staged_bytes(w: WeightArg) -> int:
+    """w's slice of a staging buffer: its file bytes or its upload bytes,
+    whichever cross (the larger), aligned."""
+    return -(-max(upload_bytes(w), _file_bytes(w)) // STAGING_ALIGN) * STAGING_ALIGN
+
+
+class _SegmentFetch:
+    """One segment's weights on their way to the device in a streamed run:
+    fetched in order into staging buffer ``slot`` and copied on the copy
+    stream (CUDA) or into fresh tensors (CPU). ``advance(n)`` fetches up to
+    the n-th weight; the first call first waits until the device has
+    finished the segment before the one now running (``after``), whose
+    weights are then free, as is this slot's staging buffer. ``take()``
+    completes the fetch, makes the compute stream wait for its copies and
+    hands the weights over."""
+
+    def __init__(self, ex: "Executor", si: int, slot: int, after=None):
+        self.ex, self.si, self.slot, self.after = ex, si, slot, after
+        # the stream the weights are read on (the fetch runs under the copy stream)
+        self.compute = torch.cuda.current_stream(ex.device) if ex._copy_stream is not None else None
+        self.args = ex.segments[si].weight_args
+        self.weights: Dict[str, torch.Tensor] = {}
+        self.done = 0
+        self.offset = 0
+        self.ready = None
+
+    def advance(self, n: int) -> None:
+        ex = self.ex
+        if self.done >= n:
+            return
+        if self.done == 0:
+            if self.after is not None:
+                self.after.synchronize()
+            if ex._staging_free[self.slot] is not None:
+                ex._staging_free[self.slot].synchronize()
+        stream = ex._copy_stream
+        ctx = torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext()
+        with ctx:
+            for w in self.args[self.done:n]:
+                self.weights[w.name] = self._fetch(w)
+        self.done = n
+
+    def _fetch(self, w: WeightArg) -> torch.Tensor:
+        ex = self.ex
+        kind = ex._synth_kind(w)
+        if kind is not None:
+            return self._stream_ordered(w, ex._synthesize(w, kind))
+        buf = ex._staging[self.slot][self.offset:]
+        self.offset += _staged_bytes(w)
+        if (w.transform is None and w.name not in ex.config.force_uint8_storage_set
+                and (w.file_dtype.torch == w.upload_dtype or not ex.provider.keeps_updates)):
+            # the file's bytes cross as they are: the provider writes them
+            # into the staging buffer (the native prefetcher with no second
+            # host copy). A float weight that no provider keeps converted is
+            # converted on the card, on the copy stream
+            host = buf[:_file_bytes(w)].view(w.file_dtype.torch).view(w.shape)
+            ex.provider.get_into(w.name, w.file_dtype, w.shape, host)
+        else:
+            conv = ex._host_weight(w)
+            # the host tensor's layout (channels-last for ohwi) is kept
+            host = buf[:upload_bytes(w)].view(w.upload_dtype).as_strided(conv.shape, conv.stride())
+            host.copy_(conv)
+        dev = torch.empty_strided(host.shape, host.stride(), dtype=host.dtype, device=ex.device)
+        dev.copy_(host, non_blocking=True)
+        return self._stream_ordered(w, dev.to(w.upload_dtype))
+
+    def _stream_ordered(self, w: WeightArg, dev: torch.Tensor) -> torch.Tensor:
+        if self.compute is not None:
+            # allocated on the copy stream, read on the compute stream: the
+            # allocator must not hand its block out again before the compute
+            # stream is done with it
+            for t in (dev, *(w.quant or ())):
+                if isinstance(t, torch.Tensor) and t.device.type == "cuda":
+                    t.record_stream(self.compute)
+        return dev
+
+    def take(self) -> Dict[str, torch.Tensor]:
+        self.advance(len(self.args))
+        ex = self.ex
+        if self.compute is not None:
+            self.ready = torch.cuda.Event()
+            self.ready.record(ex._copy_stream)
+            self.compute.wait_event(self.ready)
+        ex._staging_free[self.slot] = self.ready
+        weights, self.weights = self.weights, {}
+        return weights
+
+
 class Executor:
     def __init__(self, plan: Plan, provider: WeightsProvider):
         self.plan = plan
@@ -312,6 +429,14 @@ class Executor:
                         and (r := self._quant_route(i, op))}
         # host seconds spent quantizing force_uint8_storage_set weights
         self.quantize_seconds = 0.0
+        # weights converted to their upload dtype on the host (_host_weight)
+        self.host_conversions = 0
+        # streamed runs: the two staging buffers and the copy stream
+        self._staging: List[Optional[torch.Tensor]] = [None, None]
+        self._staging_free: List[Any] = [None, None]
+        self._copy_stream = None
+        # per segment: activations read by a later segment, dropped after it
+        self._drop_after = self._boundary_lifetimes()
         provider.on_init(plan.stream_entries())
         self._first_run_done = False
 
@@ -364,25 +489,40 @@ class Executor:
             out = out.contiguous(memory_format=torch.channels_last)
         return out
 
-    def _upload(self, w: WeightArg) -> torch.Tensor:
-        """A synthesized weight (``synth_kind``) under
-        synthetic_device_weights; otherwise provider fetch in file layout ->
-        the WeightArg's relayout (WEIGHT_TRANSFORMS, e.g. (O, C, 3, 3) -> (9,
-        O, C) for the fused GroupNorm + SiLU + conv kernel) -> upload dtype on
-        the host (quantized for force_uint8_storage_set) -> pinned -> device."""
-        if self.config.synthetic_device_weights:
-            kind = synth_kind(w, self.config)
-            if kind is not None:
-                return self._synthesize(w, kind)
+    def _synth_kind(self, w: WeightArg) -> Optional[str]:
+        return synth_kind(w, self.config) if self.config.synthetic_device_weights else None
+
+    def _host_weight(self, w: WeightArg) -> torch.Tensor:
+        """Provider fetch in file layout -> quantized for
+        force_uint8_storage_set -> the WeightArg's relayout
+        (WEIGHT_TRANSFORMS, e.g. (O, C, 3, 3) -> (9, O, C) for the fused
+        GroupNorm + SiLU + conv kernel) -> upload dtype, on the host. A
+        float weight converted to its upload dtype with no relayout goes
+        back through ``provider.update`` (JAX executor.py:531-537), so a
+        caching provider hands the converted tensor out from then on."""
         host = self.provider.get(w.name, w.file_dtype, w.file_shape or w.shape)
         # quantized in the file layout first (per output channel), then
         # relayouted: kernel 6's int8 weights (tnk) take both steps
-        conv = self._maybe_force_quant(w, host)
-        if conv is None:
-            conv = host
+        q = self._maybe_force_quant(w, host)
+        conv = host if q is None else q
         if w.transform:
             conv = WEIGHT_TRANSFORMS[w.transform](conv)
-        conv = conv.to(w.upload_dtype)
+        if conv.dtype != w.upload_dtype:
+            conv = conv.to(w.upload_dtype)
+            self.host_conversions += 1
+            if q is None and w.transform is None:
+                self.provider.update(w.name, conv)
+        return conv
+
+    def _upload(self, w: WeightArg) -> torch.Tensor:
+        """A synthesized weight (``synth_kind``) under
+        synthetic_device_weights; otherwise ``_host_weight`` -> pinned ->
+        device (resident weights and run_eager; streamed runs go through
+        ``_SegmentFetch``)."""
+        kind = self._synth_kind(w)
+        if kind is not None:
+            return self._synthesize(w, kind)
+        conv = self._host_weight(w)
         if self.device.type != "cuda":
             return conv.to(self.device)
         return conv.pin_memory().to(self.device, non_blocking=True)
@@ -624,9 +764,17 @@ class Executor:
         return outs
 
     def _run_segment(self, seg: Segment, weights: Dict[str, torch.Tensor],
-                     env: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+                     env: Dict[str, torch.Tensor],
+                     nxt: Optional[_SegmentFetch] = None) -> Dict[str, torch.Tensor]:
+        """Dispatch seg's ops. With ``nxt`` (a streamed run), the next
+        segment's weights are fetched between the ops, spread evenly, the
+        last of them before seg's last op; seg's weights are released once
+        its last op is enqueued."""
         keep = set(seg.out_names)
-        for oi in seg.op_indices:
+        n = len(seg.op_indices)
+        for j, oi in enumerate(seg.op_indices):
+            if nxt is not None:
+                nxt.advance(len(nxt.args) if n == 1 else -(-j * len(nxt.args) // (n - 1)))
             op = self.graph.ops[oi]
             for spec, val in zip(op.outputs, self._maybe_qdq(op, self._eval_op(oi, op, env, weights))):
                 if spec.name:
@@ -634,6 +782,7 @@ class Executor:
             for t in op.inputs:
                 if t.name and not t.is_weight and self._last_use.get(t.name) == oi and t.name not in keep:
                     env.pop(t.name, None)
+        weights.clear()
         return {n: env[n] for n in seg.out_names}
 
     # ------------------------------------------------------------------ runs
@@ -657,26 +806,133 @@ class Executor:
             out[name] = v if device_outputs else _to_host(v)
         return out
 
+    @property
+    def streamed(self) -> bool:
+        return self.config.hbm_budget_bytes > 0
+
+    def _boundary_lifetimes(self) -> List[set]:
+        """Per segment, the boundary activations it reads last: a streamed
+        run drops them once it has run (fetched outputs excepted)."""
+        last: Dict[str, int] = {}
+        for si, seg in enumerate(self.segments):
+            for n in seg.in_names:
+                last[n] = si
+        fetched = set(self.plan.fetch_names)
+        drop: List[set] = [set() for _ in self.segments]
+        for n, si in last.items():
+            if n not in fetched and n not in self.plan.input_avals:
+                drop[si].add(n)
+        return drop
+
+    def _start_streaming(self) -> None:
+        """The copy stream (CUDA) and the two staging buffers, each as large
+        as the largest segment's staged weights; pinned on CUDA."""
+        if self._staging[0] is not None:
+            return
+        if self.device.type == "cuda":
+            self._copy_stream = torch.cuda.Stream(self.device)
+        size = max((sum(_staged_bytes(w) for w in seg.weight_args if self._synth_kind(w) is None)
+                    for seg in self.segments), default=0)
+        pin = self.device.type == "cuda"
+        self._staging = [torch.empty(max(size, 1), dtype=torch.uint8, pin_memory=pin) for _ in range(2)]
+
+    def _segment_env(self, si: int, acts, results) -> Dict[str, Any]:
+        env = {n: (acts[n] if n in acts else results[n]) for n in self.segments[si].in_names}
+        # all graph inputs flow through the first segment's env too
+        return {**acts, **env} if si == 0 else env
+
     def run(self, inputs: Dict[str, Any], device_outputs: bool = False) -> Dict[str, Any]:
-        """Segmented run. Returns float outputs as float32 numpy and integers
-        as int64 numpy; with ``device_outputs`` the device tensors as they
-        are (outputs folded on the host stay numpy)."""
+        """Segmented run, double-buffered when streamed (see the module
+        docstring). Returns float outputs as float32 numpy and integers as
+        int64 numpy; with ``device_outputs`` the device tensors as they are
+        (outputs folded on the host stay numpy)."""
         if self._first_run_done:
             self.provider.on_restart()
         with reference_precision():
             acts = self._prepare_inputs(inputs)
             results: Dict[str, torch.Tensor] = {}
-            for si, seg in enumerate(self.segments):
-                weights = self._fetch_segment_weights(seg)
-                env = {n: (acts[n] if n in acts else results[n]) for n in seg.in_names}
-                # all graph inputs flow through the first segment's env too
-                if si == 0:
-                    env = {**acts, **env}
-                results.update(self._run_segment(seg, weights, env))
-                del weights
+            if not self.streamed:
+                for si, seg in enumerate(self.segments):
+                    weights = self._fetch_segment_weights(seg)
+                    results.update(self._run_segment(seg, weights, self._segment_env(si, acts, results)))
+            elif self.segments:
+                self._run_streamed(acts, results)
             out = self._outputs(results, device_outputs)
         self._first_run_done = True
         return out
+
+    def _run_streamed(self, acts, results) -> None:
+        self._start_streaming()
+        cuda = self._copy_stream is not None
+        fetch, done = _SegmentFetch(self, 0, 0), None
+        try:
+            for si, seg in enumerate(self.segments):
+                weights = fetch.take()
+                nxt = (_SegmentFetch(self, si + 1, (si + 1) % 2, after=done)
+                       if si + 1 < len(self.segments) else None)
+                results.update(self._run_segment(seg, weights, self._segment_env(si, acts, results), nxt))
+                for n in self._drop_after[si]:
+                    results.pop(n, None)
+                if cuda:
+                    done = torch.cuda.Event()
+                    done.record(torch.cuda.current_stream(self.device))
+                fetch = nxt
+        except BaseException:
+            # a fetch cut short may leave copies in flight from a staging
+            # buffer whose free event was never recorded
+            if cuda:
+                self._copy_stream.synchronize()
+            raise
+
+    def _activation_peaks(self) -> List[int]:
+        """Per segment, the most bytes of activations alive at once while
+        it runs, from the plan's shapes and dtypes: the graph inputs, the
+        boundary activations held for later segments, and the segment's own
+        intermediates from their op until their last reader (both an op's
+        inputs and its outputs count at that op). Scratch inside an op is
+        not counted."""
+        avals, ins = self.plan.avals, self.plan.input_avals
+
+        def nbytes(name: str) -> int:
+            a = avals.get(name) or ins.get(name)
+            return math.prod(a.shape) * a.dtype.itemsize if a is not None else 0
+
+        held = {n: nbytes(n) for n in ins}  # graph inputs and boundary results
+        peaks = []
+        for si, seg in enumerate(self.segments):
+            keep = set(seg.out_names)
+            live = dict(held)
+            total = peak = sum(live.values())
+            for oi in seg.op_indices:
+                op = self.graph.ops[oi]
+                for t in op.outputs:
+                    if t.name and t.name not in live:
+                        live[t.name] = nbytes(t.name)
+                        total += live[t.name]
+                peak = max(peak, total)
+                for t in op.inputs:
+                    if (t.name and not t.is_weight and self._last_use.get(t.name) == oi and t.name not in keep
+                            and t.name not in ins and t.name in live):
+                        total -= live.pop(t.name)
+            peaks.append(peak)
+            held.update({n: nbytes(n) for n in seg.out_names})
+            for n in self._drop_after[si]:
+                held.pop(n, None)
+        return peaks
+
+    def hbm_accounting(self) -> Dict[str, Any]:
+        """Device-memory estimate of a run (JAX ``Executor.hbm_accounting``):
+        per segment its weight bytes and its activation peak
+        (``_activation_peaks``); ``peak_bytes`` is one segment's weights and
+        activations when resident, and max_k (activations_k + weights_k +
+        weights_k+1) when streamed, the double buffer holding segment k+1's
+        weights while segment k runs."""
+        wb = [seg.weight_bytes for seg in self.segments]
+        act = self._activation_peaks()
+        nxt = wb[1:] + [0] if self.streamed else [0] * len(wb)
+        return {"mode": "streamed" if self.streamed else "resident", "segments": len(wb),
+                "weight_bytes": sum(wb), "segment_weight_bytes": wb, "segment_activation_bytes": act,
+                "peak_bytes": max((a + w + n for a, w, n in zip(act, wb, nxt)), default=0)}
 
     def run_eager(self, inputs: Dict[str, Any]) -> Dict[str, np.ndarray]:
         """Per-op interpreter over every device op with all weights fetched

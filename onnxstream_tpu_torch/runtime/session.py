@@ -14,18 +14,19 @@ asked to (``torch.device("cpu")``).
 from __future__ import annotations
 
 import os
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from onnxstream_tpu_torch.dtypes import DType, dtype_name
 from onnxstream_tpu_torch.ir import Graph, parse_model_txt
+from onnxstream_tpu_torch.ops import registered_ops
 from onnxstream_tpu_torch.runtime.config import SessionConfig, default_device
 from onnxstream_tpu_torch.runtime.executor import Executor
 from onnxstream_tpu_torch.runtime.fusion import fuse_attention, fuse_gn_conv, fuse_groupnorm, rewrite_smallconv
 from onnxstream_tpu_torch.runtime.planner import ShapeDtype, plan_graph
-from onnxstream_tpu_torch.runtime.weights import WeightsProvider, make_provider
+from onnxstream_tpu_torch.runtime.weights import CollectNamesWeightsProvider, WeightsProvider, make_provider
 
 
 class Session:
@@ -117,6 +118,17 @@ class Session:
             return self.tensors[name]
         raise KeyError(f"tensor {name!r} not found (run() first?)")
 
+    def get_all_tensor_names(self) -> List[str]:
+        return list(self._last_outputs) + [k for k in self.tensors if k not in self._last_outputs]
+
+    def get_weights_names(self) -> str:
+        """Manifest `type:name|...` (reference model_get_weights_names,
+        src/exports.cpp:111-148). Graph metadata only: nothing is loaded."""
+        assert self.graph is not None, "read a model first"
+        c = CollectNamesWeightsProvider()
+        c.on_init([(t.name, t.dtype, t.shape) for t in self.graph.weights.values()])
+        return c.manifest()
+
     # ------------------------------------------------------------------- run
     def _bucket_key(self) -> Tuple:
         assert self.graph is not None, "read a model first"
@@ -166,11 +178,16 @@ class Session:
         return outs
 
     # ------------------------------------------------------------- telemetry
-    def hbm_stats(self) -> Dict[str, int]:
-        """Device memory: bytes of resident weights over the cached executors
-        and, on a CUDA device, the caching allocator's current and peak bytes
-        (``torch.cuda.max_memory_allocated``)."""
-        out = {"weight_bytes": max((ex.weight_bytes() for ex in self._executors.values()), default=0)}
+    def hbm_stats(self) -> Dict[str, Any]:
+        """Device memory: bytes of weights over the cached executors, the
+        largest executor's ``hbm_accounting()`` (its estimate, resident or
+        streamed) and, on a CUDA device, the caching allocator's current and
+        peak bytes (``torch.cuda.max_memory_allocated``) beside it."""
+        out: Dict[str, Any] = {
+            "weight_bytes": max((ex.weight_bytes() for ex in self._executors.values()), default=0)}
+        accounts = [ex.hbm_accounting() for ex in self._executors.values()]
+        if accounts:
+            out["accounting"] = max(accounts, key=lambda a: a["peak_bytes"])
         dev = torch.device(self.config.device)
         if dev.type == "cuda":
             out["bytes_in_use"] = torch.cuda.memory_allocated(dev)
@@ -186,3 +203,8 @@ class Session:
 
     def __exit__(self, *exc):
         self.close()
+
+
+def supported_ops() -> List[str]:
+    """The op types the port runs (JAX ``session.supported_ops``)."""
+    return registered_ops()

@@ -102,8 +102,32 @@ def test_import_pulls_in_neither_jax_nor_ml_dtypes():
         "import onnxstream_tpu_torch.models.whisper, onnxstream_tpu_torch.models.whisper.hf\n"
         "import onnxstream_tpu_torch.models.yolo, onnxstream_tpu_torch.cli.whisper_main\n"
         "import onnxstream_tpu_torch.cli.yolo_main\n"
+        "import onnxstream_tpu_torch.api.capi, onnxstream_tpu_torch.api.bindings\n"
+        "import onnxstream_tpu_torch.cli.serve_main, onnxstream_tpu_torch.cli.compare_main\n"
+        "import onnxstream_tpu_torch.runtime.weights, onnxstream_tpu_torch.runtime.native\n"
         "bad = [m for m in ('jax', 'ml_dtypes', 'onnxstream_tpu') if m in sys.modules]\n"
         "assert not bad, bad\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, check=True, timeout=120)
+
+
+def test_save_writes_subfolders_and_float16(tmp_path):
+    """GraphBuilder.save: names holding '/' land in subfolders, and with
+    float16 the float32 weights are written (and declared in model.txt) as
+    float16, the reference's unet_fp16 layout; other dtypes stay."""
+    from onnxstream_tpu_torch.ir import parse_model_txt
+
+    g = build_unet(TINY, seed=3)
+    g.save(str(tmp_path), float16=True)
+    text = (tmp_path / "model.txt").read_text()
+    want = parse_model_txt(g.to_text())
+    got = parse_model_txt(text)
+    assert any("/" in n for n in g.weights) and len(got.ops) == len(want.ops)
+    for name, spec in want.weights.items():
+        arr = np.asarray(g.weights[name])
+        half = arr.dtype == np.float32
+        assert got.weights[name].dtype == (DType.float16 if half else spec.dtype)
+        assert got.weights[name].shape == spec.shape
+        saved = np.fromfile(str(tmp_path / name), dtype=np.float16 if half else arr.dtype)
+        np.testing.assert_array_equal(saved, (arr.astype(np.float16) if half else arr).reshape(-1))

@@ -81,7 +81,10 @@ def test_run_eager_matches_run_and_segments(tiny):
     np.testing.assert_allclose(streamed.run()["out_sample"], out, rtol=1e-6, atol=1e-6)
     assert len(streamed._executor().segments) > 1 == len(s._executor().segments)
     # on the CPU there is no CUDA allocator to read: only the weight bytes
-    assert set(s.hbm_stats()) == {"weight_bytes"} and s.hbm_stats()["weight_bytes"] > 0
+    # and the executors' accounting
+    assert set(s.hbm_stats()) == {"weight_bytes", "accounting"} and s.hbm_stats()["weight_bytes"] > 0
+    assert s.hbm_stats()["accounting"]["mode"] == "resident"
+    assert streamed.hbm_stats()["accounting"]["segments"] == len(streamed._executor().segments)
 
 
 def test_strict_shapes_plan_error():
