@@ -337,8 +337,7 @@ class _SegmentFetch:
             return self._stream_ordered(w, ex._synthesize(w, kind))
         buf = ex._staging[self.slot][self.offset:]
         self.offset += _staged_bytes(w)
-        if (w.transform is None and w.name not in ex.config.force_uint8_storage_set
-                and (w.file_dtype.torch == w.upload_dtype or not ex.provider.keeps_updates)):
+        if ex._crosses_as_file_bytes(w):
             # the file's bytes cross as they are: the provider writes them
             # into the staging buffer (the native prefetcher with no second
             # host copy). A float weight that no provider keeps converted is
@@ -836,6 +835,13 @@ class Executor:
         pin = self.device.type == "cuda"
         self._staging = [torch.empty(max(size, 1), dtype=torch.uint8, pin_memory=pin) for _ in range(2)]
 
+    def _crosses_as_file_bytes(self, w: WeightArg) -> bool:
+        """Whether a streamed run copies w's file bytes to the card as they
+        are (converted there when the dtypes differ) rather than a tensor
+        prepared on the host (``_host_weight``)."""
+        return (w.transform is None and w.name not in self.config.force_uint8_storage_set
+                and (w.file_dtype.torch == w.upload_dtype or not self.provider.keeps_updates))
+
     def _segment_env(self, si: int, acts, results) -> Dict[str, Any]:
         env = {n: (acts[n] if n in acts else results[n]) for n in self.segments[si].in_names}
         # all graph inputs flow through the first segment's env too
@@ -925,11 +931,16 @@ class Executor:
         per segment its weight bytes and its activation peak
         (``_activation_peaks``); ``peak_bytes`` is one segment's weights and
         activations when resident, and max_k (activations_k + weights_k +
-        weights_k+1) when streamed, the double buffer holding segment k+1's
-        weights while segment k runs."""
+        weights_k+1 + converted_k+1) when streamed, the double buffer holding
+        segment k+1's weights while segment k runs, converted_k+1 the file
+        bytes of the largest of them converted on the card (alive until its
+        conversion)."""
         wb = [seg.weight_bytes for seg in self.segments]
         act = self._activation_peaks()
-        nxt = wb[1:] + [0] if self.streamed else [0] * len(wb)
+        conv = [max((_file_bytes(w) for w in seg.weight_args if self._synth_kind(w) is None
+                     and self._crosses_as_file_bytes(w) and w.file_dtype.torch != w.upload_dtype), default=0)
+                for seg in self.segments]
+        nxt = [w + c for w, c in zip(wb[1:], conv[1:])] + [0] if self.streamed else [0] * len(wb)
         return {"mode": "streamed" if self.streamed else "resident", "segments": len(wb),
                 "weight_bytes": sum(wb), "segment_weight_bytes": wb, "segment_activation_bytes": act,
                 "peak_bytes": max((a + w + n for a, w, n in zip(act, wb, nxt)), default=0)}

@@ -209,15 +209,22 @@ def test_fetch_order_and_double_buffer(models, model, provider, monkeypatch):
     assert any(len(a) == 2 for a in spy.alive_at_op)  # the double buffer did overlap
 
 
-def test_hbm_accounting_bound(models):
-    """The streamed bound is activations + segment k's and k+1's weights;
-    the resident one holds every weight."""
+@pytest.mark.parametrize("provider", ["ram+prefetch", "prefetch"])
+def test_hbm_accounting_bound(models, provider):
+    """The streamed bound is activations + segment k's and k+1's weights
+    (+ the largest of k+1's converted on the device, in its file dtype, for a
+    provider that keeps no converted copy); the resident one holds every
+    weight."""
     model_txt, inputs = models["unet"]
-    ex = _port(model_txt, inputs, hbm_budget_bytes=BUDGETS["unet"][1])._executor()
+    ex = _port(model_txt, inputs, provider, compute_dtype="bfloat16",
+               hbm_budget_bytes=BUDGETS["unet"][1])._executor()
     acc = ex.hbm_accounting()
     wb, act = acc["segment_weight_bytes"], acc["segment_activation_bytes"]
     assert acc["mode"] == "streamed" and len(act) == len(wb) == acc["segments"]
-    assert acc["peak_bytes"] == max(a + w + n for a, w, n in zip(act, wb, wb[1:] + [0]))
+    # float32 files, bf16 uploads: a weight converted on the device crosses at 2x its upload bytes
+    conv = [max(2 * executor_mod.upload_bytes(w) for w in seg.weight_args) if provider == "prefetch" else 0
+            for seg in ex.segments]
+    assert acc["peak_bytes"] == max(a + w + n + c for a, w, n, c in zip(act, wb, wb[1:] + [0], conv[1:] + [0]))
     assert min(act) > 0 and acc["peak_bytes"] < acc["weight_bytes"]
     res = _port(model_txt, inputs)._executor().hbm_accounting()
     assert res["mode"] == "resident" and res["segments"] == 1
