@@ -225,6 +225,48 @@ Phases (any failure exits non-zero and prints no result line):
      in-process resident session, 10 flash launches each, each request's
      latency; then tests/data/capi_smoke.c built with gcc against
      libonnxstream_tpu_torch.so (runtime/native.py) and run on the card.
+ 14. channel-last (phase_layout, after phase_gn_routes on its model): the
+     TINY UNet with use_nhwc_layout in fp32 on the card against the CPU; the
+     SD15 UNet (seed 0, bf16) NCHW and channel-last in turns, three requests
+     each, 10 kernel-1 launches a run (every launch on a wgmma variant, the
+     first channel-last one held to the twin), channel-last within 5e-2 *
+     max|out| of NCHW, a float32 pair within 1e-3; the VAE_SD decode at
+     512 x 512 both ways (float output within 5e-2 * max, the image within
+     one level on average, one kernel-1 launch each); config A with the
+     pass (its fused ops behind the pass's NCHW fallback): 16 gn_silu and 45
+     gn_silu_conv launches, the first of each held to its twin, the output
+     within 5e-2 * max of config A's NCHW run; per run the graph's
+     ostpu.groupnorm / ostpu.reshape / Transpose counts, device busy and
+     wall, and the launches and ms of cuDNN's layout-conversion kernels
+     (names holding nchwToNhwc / nhwcToNchw), NCHW and channel-last in turns;
+     sd15_nhwc counts kernel 1 in the channel-last runs only (10 a UNet run,
+     1 a decode);
+ 15. flash_packed_nopad (phase_nopad): the SD15 UNet in bf16, three
+     requests, kernel 2 at the 10 packed sites a run (head-major views of the
+     packed operands) and kernel 1 at none, kernel 2's first launch at
+     d = 40 and d = 80 held to its twin (relative L2 <= 1e-2), the output
+     within 5e-2 * max|out| of the default run; kernel 2 at d = 160 (the 16 x
+     16 level's shape, which the size predicate keeps off the path) against
+     its twin; per shape kernel 2, the whole route (its output copy
+     included), kernel 1, SDPA, the twin and the bound; a run's busy and wall
+     beside the default's, in turns; kernel 1's sd15_nopad is the sum of its
+     launches in those runs (0);
+ 16. force_fp16_storage (phase_fp16_storage): the SD15 UNet in float32
+     compute with float16-resident weights, three requests, 10 kernel-1
+     launches a run (fma, the first held to the twin), within 1e-4 * max|out|
+     of float32 storage of the float16-rounded weights; resident weight bytes
+     (hbm_accounting and the allocator) 0.45-0.55 of that run's; peaks within
+     the bound + PEAK_SLACK; the same streamed at 512 MiB (segments, bytes,
+     peak, 10 kernel-1 launches, request 0's output within 1e-4 * max|out|
+     of both resident runs' request 0); busy and wall of both in turns;
+     sd15_fp16_storage counts kernel 1 in the float16-storage runs only;
+ 17. the converter (phase_convert, before phase_streamed): tools/
+     torch_sd_unet.py SDUNet(width=1.0) (seed 0, 860 M params) exported in
+     float16 on the card (opset 17, 1.72 GB), converted by the port's
+     onnx2txt, run through Session(SessionConfig(compute_dtype="float32"))
+     on the card, twice with equal bits, and held to the same module with its
+     float16-rounded weights in float32 within rel 5e-3; export, conversion
+     and run times, op counts and the ostpu.sdpa sites after fusion.
 
 Each path's launch counts are set to 0 just before it and read just after;
 launches made to compare a kernel with its twin come after the read. The
@@ -2079,7 +2121,10 @@ def _decode_image(pipe, lat, tiled: bool = False):
 class _FlashSites(_GraphSiteCheck):
     """The packed flash wrapper as ops/attention.py calls it: each call's
     head dim and variant are recorded, and the armed call is held against
-    the twin."""
+    the twin. A call's ``nopad=False`` (the default, which ops/attention.py
+    passes) is dropped, so the recorded calls replay on the twin and the
+    yardsticks too; a nopad route runs kernel 2, whose stand-in is
+    _HeadMajorShapes."""
 
     def __init__(self, kernel, twin, tol):
         super().__init__(kernel, twin, tol,
@@ -2088,6 +2133,8 @@ class _FlashSites(_GraphSiteCheck):
         self.head_dims, self.variants = [], []
 
     def __call__(self, q, k, v, heads, **kw):
+        if kw.get("nopad") is False:
+            del kw["nopad"]
         self.head_dims.append(q.shape[-1] // heads)
         self.variants.append(_packed_variant(q, k, v, heads))
         return super().__call__(q, k, v, heads, **kw)
@@ -3812,6 +3859,559 @@ def phase_serve(name: str, model: str, resident: list) -> dict:
     return {"launches": launches, "latency_ms": latencies}
 
 
+# ------------------------------------------------------------------------------------------------
+# the channel-last layout pass, flash_packed_nopad, force_fp16_storage, the ONNX converter
+# ------------------------------------------------------------------------------------------------
+LAYOUT_CONVERSIONS = ("nchwToNhwc", "nhwcToNchw")  # cuDNN's own layout-conversion kernels, by name
+SD15_FLASH_PER_RUN = 10  # kernel 1's packed sites a SD15 UNet run at the 64 x 64 latent (d = 40 x 5, d = 80 x 5)
+
+
+def _graph_counts(s) -> dict:
+    kinds = [op.op_type for op in s.graph.ops]
+    return {"ops": len(kinds), "ostpu.groupnorm": kinds.count("ostpu.groupnorm"),
+            "ostpu.reshape": kinds.count("ostpu.reshape"), "Transpose": kinds.count("Transpose"),
+            "nhwc_convs": sum(op.op_type == "Conv" and op.attr("layout") == "NHWC" for op in s.graph.ops)}
+
+
+def _layout_profile(step, label: str, name: str) -> dict:
+    """One profiled pair of warm calls: device busy a call, its kernel and copy launches, and the launches
+    and ms of cuDNN's layout conversion kernels among them."""
+    rows = profile_steps(step, name, label)
+    conv = [(ms, n) for ms, n, key in rows if any(c in key for c in LAYOUT_CONVERSIONS)]
+    out = {"busy_ms": sum(r[0] for r in rows), "launches": sum(r[1] for r in rows),
+           "conversions": sum(n for _, n in conv), "conversion_ms": sum(ms for ms, _ in conv)}
+    print(f"  {label}: device busy {out['busy_ms']:.3f} ms over {out['launches']} kernel and copy launches, cuDNN "
+          f"layout conversions {out['conversions']} launches {out['conversion_ms']:.3f} ms [{name}]")
+    return out
+
+
+def _close(label: str, out, ref, rel: float) -> float:
+    """max|out - ref| <= rel * max|ref|, printed; returns the ratio."""
+    out, ref = np.asarray(out, np.float32), np.asarray(ref, np.float32)
+    ratio = float(np.abs(out - ref).max() / max(float(np.abs(ref).max()), 1e-30))
+    print(f"  {label}: max|diff| / max|ref| {ratio:.4e} (bound {rel:g})")
+    if not (out.shape == ref.shape and np.isfinite(out).all() and ratio <= rel):
+        raise SystemExit(f"{label}: outside the bound")
+    return ratio
+
+
+def phase_layout(name: str, sd: dict) -> dict:
+    """use_nhwc_layout on the SD15 UNet and the VAE_SD decoder at full width (module docstring, 14)."""
+    import onnxstream_tpu_torch.ops.attention as attention_op
+    import onnxstream_tpu_torch.ops.standard as standard
+    from onnxstream_tpu_torch.kernels.flash_attention import (flash_attention_packed,
+                                                              flash_attention_packed_reference)
+    from onnxstream_tpu_torch.kernels.gn_conv import gn_silu_conv, gn_silu_conv_reference
+    from onnxstream_tpu_torch.kernels.gn_silu import gn_silu, gn_silu_reference
+    from onnxstream_tpu_torch.models.sd.pipeline import image_to_uint8
+    from onnxstream_tpu_torch.models.sd.unet import SD15, TINY, build_unet
+    from onnxstream_tpu_torch.models.sd.vae import VAE_SD, build_vae_decoder
+
+    gt = build_unet(TINY)
+    _tiny_unet_card_vs_cpu("TINY UNet, channel-last,", gt.to_text(), gt.weights, _requests(TINY, 1)[1],
+                           use_nhwc_layout=True)
+    g, text, reqs = sd["graph"], sd["graph"].to_text(), _requests(SD15, 0)
+    out: dict = {"graph": {}, "unet": {}, "vae": {}}
+    sess = {"nchw": _session(text, g.weights, "bfloat16", "cuda:0"),
+            "nhwc": _session(text, g.weights, "bfloat16", "cuda:0", use_nhwc_layout=True)}
+    for label, s in sess.items():
+        out["graph"][label] = _graph_counts(s)
+        print(f"SD15 UNet graph, {label}: {out['graph'][label]}")
+    if out["graph"]["nhwc"]["nhwc_convs"] != sum(op.op_type == "Conv" for op in sess["nchw"].graph.ops):
+        raise SystemExit("channel-last UNet: a Conv kept its NCHW form")
+    flash = _FlashSites(flash_attention_packed, flash_attention_packed_reference, 2e-2)
+    # the path: three requests under each layout in turns, the float32 pair, the VAE decodes, config A;
+    # kernel 1's count is zeroed just before it, and ``nhwc`` adds up its launches in the channel-last runs only
+    flash_attention_packed.launches = 0
+    attention_op.flash_attention_packed = flash
+    outs, nhwc = {}, 0
+    try:
+        for i, req in enumerate(reqs):
+            for label in (("nchw", "nhwc") if i % 2 == 0 else ("nhwc", "nchw")):
+                s = sess[label]
+                for k, v in req.items():
+                    s.add_tensor(k, v)
+                if label == "nhwc" and i == 0:
+                    flash.arm()
+                f0 = flash_attention_packed.launches
+                o, ms = _timed(lambda: s.run()["out_sample"])
+                outs[(label, i)] = o
+                n = flash_attention_packed.launches - f0
+                nhwc += n if label == "nhwc" else 0
+                print(f"request {i}, {label}: {o.shape} finite={np.isfinite(o).all()} {ms:.1f} ms, kernel 1 launches {n}")
+                if n != SD15_FLASH_PER_RUN or o.shape != (1, 4, 64, 64) or not np.isfinite(o).all():
+                    raise SystemExit(f"request {i}, {label}: bad output or {n} kernel 1 launches")
+                if label == "nhwc" and i == 0:
+                    flash.check("channel-last request 0")
+            _close(f"request {i}, channel-last vs NCHW (bf16)", outs[("nhwc", i)], outs[("nchw", i)], 5e-2)
+        flash.check_variants("channel-last SD15 UNet")
+        s32 = {label: _session(text, g.weights, "float32", "cuda:0", use_nhwc_layout=label == "nhwc")
+               for label in ("nchw", "nhwc")}
+        o32 = {}
+        for label, s in s32.items():
+            for k, v in reqs[0].items():
+                s.add_tensor(k, v)
+            f0 = flash_attention_packed.launches
+            o32[label] = s.run()["out_sample"]
+            n = flash_attention_packed.launches - f0
+            nhwc += n if label == "nhwc" else 0
+            if n != SD15_FLASH_PER_RUN:
+                raise SystemExit(f"float32 {label}: {n} kernel 1 launches")
+        out["float32_ratio"] = _close("request 0, channel-last vs NCHW (float32)", o32["nhwc"], o32["nchw"], 1e-3)
+        del s32, o32
+        # the VAE_SD decoder, one 64 x 64 latent -> 512 x 512, as phase_gn_routes decodes it
+        vae = build_vae_decoder(dataclasses.replace(VAE_SD, sample=64), seed=2)
+        z = np.random.default_rng(3).standard_normal((1, 4, 64, 64)).astype(np.float32)
+        vsess, vouts = {}, {}
+        for label in ("nchw", "nhwc"):
+            s = vsess[label] = _session(vae.to_text(), vae.weights, "bfloat16", "cuda:0", use_nhwc_layout=label == "nhwc")
+            s.add_tensor("latent", z)
+            f0 = flash_attention_packed.launches
+            vouts[label] = next(iter(s.run(device_outputs=True).values()))
+            n = flash_attention_packed.launches - f0
+            nhwc += n if label == "nhwc" else 0
+            out["graph"][f"vae_{label}"] = _graph_counts(s)
+            print(f"VAE_SD decode, {label}: graph {out['graph'][f'vae_{label}']}, kernel 1 launches {n}")
+            if n != 1:
+                raise SystemExit(f"VAE decode, {label}: kernel 1 did not run at the mid-block site")
+        _close("VAE_SD decode, channel-last vs NCHW (bf16, the float output)", vouts["nhwc"].float().cpu(),
+               vouts["nchw"].float().cpu(), 5e-2)
+        d = np.abs(image_to_uint8(vouts["nhwc"][0]).astype(np.int32) - image_to_uint8(vouts["nchw"][0]).astype(np.int32))
+        print(f"  VAE_SD image, channel-last vs NCHW: mean |diff| {d.mean():.4f}, max {d.max()} levels (bound: mean < 1)")
+        if not d.mean() < 1.0:
+            raise SystemExit("VAE decode: the channel-last image drifted from the NCHW one")
+        # config A with the layout pass: its fused ops take NCHW through the pass's fallback
+        a_nchw = _session(text, g.weights, "bfloat16", "cuda:0", **CONFIG_A)
+        for k, v in reqs[0].items():
+            a_nchw.add_tensor(k, v)
+        want_a = a_nchw.run()["out_sample"]
+        a_nhwc = _session(text, g.weights, "bfloat16", "cuda:0", use_nhwc_layout=True, **CONFIG_A)
+        out["graph"]["nhwc_config_a"] = _graph_counts(a_nhwc)
+        kinds = [op.op_type for op in a_nhwc.graph.ops]
+        want_gn = {"gn_silu": kinds.count("ostpu.gn_silu"), "gn_silu_conv": kinds.count("ostpu.gn_silu_conv")}
+        for k, v in reqs[0].items():
+            a_nhwc.add_tensor(k, v)
+        sites = {"gn_silu": _GraphSiteCheck(gn_silu, gn_silu_reference, 2e-2,
+                                            lambda x, *r, **kw: f"x {tuple(x.shape)} strides {x.stride()}"),
+                 "gn_silu_conv": _GraphSiteCheck(gn_silu_conv, gn_silu_conv_reference, 2e-2,
+                                                 lambda x, *r, **kw: f"x {tuple(x.shape)} strides {x.stride()}")}
+        standard.gn_silu, standard.gn_silu_conv = sites["gn_silu"], sites["gn_silu_conv"]
+        gn_silu.launches = gn_silu_conv.launches = 0
+        for site in sites.values():
+            site.arm()
+        f0 = flash_attention_packed.launches
+        o = a_nhwc.run()["out_sample"]
+        n = flash_attention_packed.launches - f0
+        nhwc += n
+        if n != SD15_FLASH_PER_RUN:
+            raise SystemExit(f"channel-last config A: {n} kernel 1 launches")
+        got_gn = {"gn_silu": gn_silu.launches, "gn_silu_conv": gn_silu_conv.launches}
+        print(f"SD15 UNet, channel-last under config A: graph {out['graph']['nhwc_config_a']}, launches {got_gn} "
+              f"(want {want_gn}: 16 and 45)")
+        if got_gn != want_gn or want_gn != {"gn_silu": 16, "gn_silu_conv": 45}:
+            raise SystemExit(f"channel-last config A: launches {got_gn}, want 16 and 45")
+        for k, site in sites.items():
+            site.check(f"channel-last config A, {k}")
+        _close("channel-last config A vs NCHW config A (bf16)", o, want_a, 5e-2)
+        out["config_a_launches"] = got_gn
+        out["launches"] = nhwc
+        print(f"channel-last runs: kernel 1 launches {nhwc} (NCHW runs in the same window "
+              f"{flash_attention_packed.launches - nhwc}), kernels 7 / 8 under config A {got_gn}")
+        # one channel-last run's calls of kernel 1 and of kernels 7 / 8 under config A (after the read)
+        flash.calls = []
+        sess["nhwc"].run()
+        recorded = {"flash": flash.calls}
+        flash.calls = None
+        for site in sites.values():
+            site.calls = []
+        a_nhwc.run()
+        for k, site in sites.items():
+            recorded[k], site.calls = site.calls, None
+    finally:
+        attention_op.flash_attention_packed = flash_attention_packed
+        standard.gn_silu, standard.gn_silu_conv = gn_silu, gn_silu_conv
+    out["replay"] = {
+        "flash_attention_packed": replay_times(
+            "flash_attention_packed over one channel-last UNet run (bf16)", recorded["flash"], flash_attention_packed,
+            flash_attention_packed_reference, _packed_library, "bf16", name, cost=_packed_cost),
+        "gn_silu": replay_times("gn_silu over one channel-last config-A run (bf16)", recorded["gn_silu"], gn_silu,
+                                gn_silu_reference, _gn_library, "bf16", name, cost=_gn_cost),
+        "gn_silu_conv": replay_times("gn_silu_conv over one channel-last config-A run (bf16)",
+                                     recorded["gn_silu_conv"], gn_silu_conv, gn_silu_conv_reference,
+                                     _gn_conv_library, "bf16", name, cost=_gn_conv_cost)}
+    # device busy, wall and cuDNN's conversions per run, in turns (after the read of the counts)
+    for label in ("nchw", "nhwc", "nhwc", "nchw"):
+        bw = busy_and_wall(sess[label].run, f"SD15 UNet run, {label}", name, steps=5)
+        prof = _layout_profile(sess[label].run, f"SD15 UNet run, {label}", name)
+        out["unet"].setdefault(label, []).append({**bw, **prof})
+    for label in ("nchw", "nhwc", "nhwc", "nchw"):
+        step = lambda s=vsess[label]: s.run(device_outputs=True)
+        bw = busy_and_wall(step, f"VAE_SD decode, {label}", name)
+        prof = _layout_profile(step, f"VAE_SD decode, {label}", name)
+        out["vae"].setdefault(label, []).append({**bw, **prof})
+    for label, s in (("nchw_config_a", a_nchw), ("nhwc_config_a", a_nhwc), ("nhwc_config_a", a_nhwc),
+                     ("nchw_config_a", a_nchw)):
+        bw = busy_and_wall(s.run, f"SD15 UNet run, {label}", name, steps=5)
+        out["unet"].setdefault(label, []).append({**bw, **_layout_profile(s.run, f"SD15 UNet run, {label}", name)})
+    return out
+
+
+class _HeadMajorShapes(_GraphSiteCheck):
+    """Stands in for kernels/flash_attention.py's flash_attention, which the
+    nopad route calls: the first call at every (shape, head dim) is held
+    against the twin on the operands the route passed (head-major views of
+    the packed tensors); ``seen`` maps the shape to (ok, max|diff|, about)."""
+
+    def __init__(self, kernel, twin):
+        # the twin returns a fresh tensor where the route passes ``out``
+        super().__init__(kernel, lambda *a, out=None, **kw: twin(*a, **kw), 2e-2,
+                         lambda *a, out=None, **kw: _about_flash(*a, **kw), rel=FLASH_REL_L2)
+        self.seen = {}
+
+    def __call__(self, q, k, v, *args, **kw):
+        key = (tuple(q.shape), tuple(k.shape))
+        first = key not in self.seen
+        if first:
+            self.arm()
+        out = super().__call__(q, k, v, *args, **kw)
+        if first:
+            self.seen[key] = self.result
+        return out
+
+
+def _nopad_times(label: str, qh, kh, vh, kw: dict, name: str) -> dict:
+    """Kernel 2 on head-major views, the whole nopad route (with its output
+    copy), kernel 1 on the packed operands, SDPA, the twin and the bound, at
+    one shape."""
+    from onnxstream_tpu_torch.kernels import flash_attention as fa
+
+    heads = qh.shape[1]
+    kw = {k: v for k, v in kw.items() if k != "out"}  # each call below makes its own output
+    q, k, v = (t.transpose(1, 2).flatten(2) for t in (qh, kh, vh))  # the packed tensors the views came from
+    calls = {"kernel2_ms": lambda: fa.flash_attention(qh, kh, vh, **kw),
+             "route_ms": lambda: fa.flash_attention_packed(q, k, v, heads, nopad=True, **kw),
+             "kernel1_ms": lambda: fa.flash_attention_packed(q, k, v, heads, **kw),
+             "sdpa_ms": lambda: _sdpa_packed(q, k, v, heads)}
+    # one or two kernels a call: per-kernel mean durations (device_ms_per_call), in turns, the lower of two
+    t = {}
+    for key in list(calls) + list(reversed(calls)):
+        ms = device_ms_per_call(calls[key])
+        t[key] = min(t.get(key, ms), ms)
+    t["plain_ms"] = device_ms(lambda: fa.flash_attention_reference(qh, kh, vh, **kw), iters=2, warmup=1)
+    nbytes, ops, exps = _packed_cost(q, k, v, heads)
+    t.update(bound(nbytes, ops, "bf16", exps))
+    t["variant"] = fa.flash_variant(qh, kh, vh)
+    print(f"  {label} {tuple(qh.shape)} ({t['variant']}): kernel 2 {t['kernel2_ms']:.4f} ms, the nopad route "
+          f"{t['route_ms']:.4f}, kernel 1 {t['kernel1_ms']:.4f}, SDPA {t['sdpa_ms']:.4f}, twin {t['plain_ms']:.4f}, "
+          f"bound {t['bound_ms']:.4f} ({t['bound_op']}) [{name}]")
+    return t
+
+
+def phase_nopad(name: str, sd: dict) -> dict:
+    """flash_packed_nopad on the SD15 UNet, bf16 (module docstring, 15)."""
+    from onnxstream_tpu_torch.kernels import flash_attention as fa
+    from onnxstream_tpu_torch.models.sd.unet import SD15
+
+    g, text, reqs = sd["graph"], sd["graph"].to_text(), _requests(SD15, 0)
+    s = _session(text, g.weights, "bfloat16", "cuda:0", flash_packed_nopad=True)
+    kernel2 = fa.flash_attention
+    site = _HeadMajorShapes(kernel2, fa.flash_attention_reference)
+    # the path: three requests; both flash counts zeroed just before it
+    fa.flash_attention_packed.launches = 0
+    kernel2.launches = 0
+    fa.flash_attention = site
+    packed = 0
+    try:
+        for i, req in enumerate(reqs):
+            for k, v in req.items():
+                s.add_tensor(k, v)
+            k1, k2 = fa.flash_attention_packed.launches, kernel2.launches
+            o, ms = _timed(lambda: s.run()["out_sample"])
+            d1, d2 = fa.flash_attention_packed.launches - k1, kernel2.launches - k2
+            packed += d1
+            print(f"request {i}, flash_packed_nopad: {ms:.1f} ms, kernel 2 launches {d2}, kernel 1 launches {d1}")
+            if (d1, d2) != (0, SD15_FLASH_PER_RUN):
+                raise SystemExit(f"request {i}: kernel 1 / kernel 2 launches {d1} / {d2}, want 0 / 10")
+            _close(f"request {i}, nopad vs the default run", o, sd["outs"][i], 5e-2)
+        launches = kernel2.launches
+        site.calls = []
+        s.run()
+        calls = site.calls
+        site.calls = None
+    finally:
+        fa.flash_attention = kernel2
+    for (qs, ks), (ok, err, about) in sorted(site.seen.items()):
+        print(f"  kernel 2, first launch at q {qs} vs twin on the route's operands: max|diff| {err:.3e} "
+              f"{'ok' if ok else 'FAIL'}; {about}")
+    dims = sorted({qs[-1] for qs, _ in site.seen})
+    if dims != [40, 80] or not all(r[0] for r in site.seen.values()):
+        raise SystemExit(f"nopad path: kernel 2 met head dims {dims} (want 40, 80), or disagreed with its twin")
+    out = {"launches": launches, "packed_launches": packed, "max_abs_err": max(r[1] for r in site.seen.values()),
+           "by_shape": {}}
+    shapes = {}
+    for args, kw in calls:
+        shapes.setdefault(tuple(args[0].shape), (args, kw))
+    for shape, (args, kw) in sorted(shapes.items()):
+        out["by_shape"][f"d{shape[-1]}"] = _nopad_times("nopad site", *args[:3], kw, name)
+    # d = 160: the UNet's 16 x 16 level (256 tokens) is below the flash size predicate's 512 keys, so the
+    # path does not reach it; kernel 2 at that site's shape on head-major views of packed operands
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    q, k, v = (torch.randn(1, 256, 8 * 160, device="cuda", generator=gen).to(torch.bfloat16) for _ in range(3))
+    qh, kh, vh = (t.unflatten(-1, (8, 160)).transpose(1, 2) for t in (q, k, v))
+    got = kernel2(qh, kh, vh)
+    ok, err, rel = _flash_agrees(got, fa.flash_attention_reference(qh, kh, vh), 2e-2)
+    print(f"  kernel 2 at (1, 8, 256, 160) on head-major views ({fa.flash_variant(qh, kh, vh)}; not on the path): "
+          f"max|diff| {err:.3e}, relative L2 {rel:.3e} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("kernel 2 at d = 160 disagrees with its twin")
+    out["max_abs_err"] = max(out["max_abs_err"], err)
+    out["by_shape"]["d160"] = _nopad_times("d = 160 (not on the path)", qh, kh, vh, {}, name)
+    default = _session(text, g.weights, "bfloat16", "cuda:0")
+    for k, v in reqs[0].items():
+        default.add_tensor(k, v)
+    out["unet"] = {}
+    for label, sess in (("default", default), ("nopad", s), ("nopad", s), ("default", default)):
+        out["unet"].setdefault(label, []).append(busy_and_wall(sess.run, f"SD15 UNet run, {label}", name, steps=5))
+    return out
+
+
+def phase_fp16_storage(name: str, sd: dict) -> dict:
+    """force_fp16_storage on the SD15 UNet in float32 compute (module docstring, 16)."""
+    import onnxstream_tpu_torch.ops.attention as attention_op
+    from onnxstream_tpu_torch.kernels.flash_attention import (flash_attention_packed,
+                                                              flash_attention_packed_reference)
+    from onnxstream_tpu_torch.models.sd.unet import SD15
+
+    g, text, reqs = sd["graph"], sd["graph"].to_text(), _requests(SD15, 0)
+    out: dict = {}
+    flash = _FlashSites(flash_attention_packed, flash_attention_packed_reference, 1e-4)
+    # the path: three requests with float16 storage, then three on the pre-rounded float32 weights, then the
+    # streamed run; kernel 1's count is zeroed just before it, and out["launches"] adds up its launches in the
+    # float16-storage runs only
+    flash_attention_packed.launches = 0
+    out["launches"] = 0
+    attention_op.flash_attention_packed = flash
+    try:
+        runs = {}
+        for label, opts in (("fp16_storage", dict(force_fp16_storage=True)), ("float32_rounded", {})):
+            weights = g.weights
+            if label == "float32_rounded":
+                # the weights the float16 session stores rounded: its streamed arguments (a scalar that a
+                # fusion pass folds into an op's attributes stays float32 in both)
+                args = {w.name for w in runs["fp16_storage"]["session"]._executor().plan.arg_weights}
+                weights = {k: (v.astype(np.float16).astype(np.float32) if k in args and v.dtype == np.float32
+                               else v) for k, v in g.weights.items()}
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            a0 = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            flash.peak = 0
+            s = _session(text, weights, "float32", "cuda:0", **opts)
+            res = []
+            for i, req in enumerate(reqs):
+                for k, v in req.items():
+                    s.add_tensor(k, v)
+                if i == 0:
+                    flash.arm()
+                f0 = flash_attention_packed.launches
+                o, ms = _timed(lambda: s.run()["out_sample"])
+                res.append(o)
+                n = flash_attention_packed.launches - f0
+                out["launches"] += n if label == "fp16_storage" else 0
+                print(f"request {i}, {label}: {ms:.1f} ms, kernel 1 launches {n}")
+                if n != SD15_FLASH_PER_RUN or not np.isfinite(o).all():
+                    raise SystemExit(f"{label} request {i}: bad output or kernel 1 launch count")
+                if i == 0:
+                    flash.check(f"{label} request 0")
+            acc = s._executor().hbm_accounting()
+            peak = max(flash.peak, torch.cuda.max_memory_allocated()) - a0
+            runs[label] = {"session": s, "outs": res, "allocated": torch.cuda.memory_allocated() - a0,
+                           "weight_bytes": acc["weight_bytes"], "peak": peak, "bound": acc["peak_bytes"]}
+            print(f"{label}: resident weight bytes {acc['weight_bytes'] / 1e9:.4f} GB (hbm_accounting), allocator "
+                  f"{runs[label]['allocated'] / 1e9:.4f} GB held after the runs, peak {peak / 2**20:.1f} MiB vs bound "
+                  f"{acc['peak_bytes'] / 2**20:.1f} MiB + {PEAK_SLACK >> 20} [{name}]")
+            if peak > acc["peak_bytes"] + PEAK_SLACK:
+                raise SystemExit(f"{label}: peak above hbm_accounting()'s bound")
+        # one run's 10 calls of kernel 1 (its float32 fma form), after the read of the count
+        flash.calls = []
+        runs["fp16_storage"]["session"].run()
+        calls, flash.calls = flash.calls, None
+    finally:
+        attention_op.flash_attention_packed = flash_attention_packed
+    out["replay"] = replay_times("flash_attention_packed over one float32 run with fp16 storage", calls,
+                                 flash_attention_packed, flash_attention_packed_reference, _packed_library, "f32",
+                                 name, cost=_packed_cost)
+    for i in range(len(reqs)):
+        _close(f"request {i}, fp16 storage vs float32 storage of float16-rounded weights",
+               runs["fp16_storage"]["outs"][i], runs["float32_rounded"]["outs"][i], 1e-4)
+    for key in ("weight_bytes", "allocated"):
+        r = runs["fp16_storage"][key] / runs["float32_rounded"][key]
+        print(f"  {key}: fp16 storage / float32 storage = {r:.4f} (bound 0.45-0.55)")
+        if not 0.45 <= r <= 0.55:
+            raise SystemExit(f"fp16 storage: {key} not about half of float32 storage's")
+        out[f"{key}_ratio"] = r
+    out.update({k: {kk: v for kk, v in runs[k].items() if kk not in ("session", "outs")} for k in runs})
+    s32 = runs["float32_rounded"].pop("session")
+    # request 0's outputs: the streamed run below takes request 0's inputs
+    want0 = {k: runs[k]["outs"][0] for k in ("fp16_storage", "float32_rounded")}
+    del runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the streamed run at 512 MiB: segments, bytes, peak against the bound
+    a0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    st = _session(text, g.weights, "float32", "cuda:0", force_fp16_storage=True, hbm_budget_bytes=STREAM_BUDGETS[0])
+    for k, v in reqs[0].items():
+        st.add_tensor(k, v)
+    flash_attention_packed.launches = 0
+    o = st.run()["out_sample"]
+    n = flash_attention_packed.launches
+    out["launches"] += n
+    if n != SD15_FLASH_PER_RUN:
+        raise SystemExit(f"fp16 storage streamed: {n} kernel 1 launches")
+    acc = st._executor().hbm_accounting()
+    peak = torch.cuda.max_memory_allocated() - a0
+    print(f"fp16 storage streamed at {STREAM_BUDGETS[0] >> 20} MiB: {acc['segments']} segments, "
+          f"{acc['weight_bytes'] / 1e9:.4f} GB a run, peak {peak / 2**20:.1f} MiB vs bound "
+          f"{acc['peak_bytes'] / 2**20:.1f} MiB + {PEAK_SLACK >> 20} [{name}]")
+    if acc["segments"] < 2 or peak > acc["peak_bytes"] + PEAK_SLACK:
+        raise SystemExit("fp16 storage streamed: one segment, or the peak above the bound")
+    _close("streamed fp16 storage vs the resident one, request 0", o, want0["fp16_storage"], 1e-4)
+    _close("streamed fp16 storage vs float32 storage of float16-rounded weights, request 0", o,
+           want0["float32_rounded"], 1e-4)
+    print(f"fp16 storage path: kernel 1 launches {out['launches']} (3 resident requests and the streamed run)")
+    out["streamed"] = {"segments": acc["segments"], "weight_bytes": acc["weight_bytes"], "peak": peak,
+                       "bound": acc["peak_bytes"]}
+    s16 = _session(text, g.weights, "float32", "cuda:0", force_fp16_storage=True)
+    for k, v in reqs[0].items():
+        s16.add_tensor(k, v)
+        s32.add_tensor(k, v)
+    out["times"] = {}
+    for label, sess in (("float32_rounded", s32), ("fp16_storage", s16), ("fp16_storage", s16),
+                        ("float32_rounded", s32), ("fp16_storage_streamed", st)):
+        out["times"].setdefault(label, []).append(busy_and_wall(sess.run, f"SD15 UNet run float32, {label}", name))
+    return out
+
+
+def _export_onnx_fp16(model, lat: int = 64, ctx_len: int = 77, ctx_d: int = 768) -> bytes:
+    """torch.onnx.export (TorchScript exporter) of a float16 module on its
+    device, to bytes: the 860 M UNet's 1.72 GB stays under protobuf's 2 GiB,
+    where float32's 3.44 GB does not. Opset 17, so that LayerNorm exports as
+    LayerNormalization: at opset 14 the exporter casts a float16 LayerNorm's
+    input to float64, a dtype both converters refuse. The exporter's last
+    step adds onnxscript functions through the `onnx` package; the model has
+    none, so that step is made the identity where the exporter's module is
+    found."""
+    import importlib
+    import importlib.util
+    import io
+
+    for parent in ("torch.onnx._internal.torchscript_exporter", "torch.onnx._internal"):
+        if importlib.util.find_spec(parent) is not None and importlib.util.find_spec(parent + ".onnx_proto_utils"):
+            importlib.import_module(parent + ".onnx_proto_utils")._add_onnxscript_fn = lambda b, _opsets: b
+            break
+    p = next(model.parameters())
+    sample = torch.zeros(1, 4, lat, lat, device=p.device, dtype=p.dtype)
+    timestep = torch.zeros(1, device=p.device, dtype=p.dtype)
+    context = torch.zeros(1, ctx_len, ctx_d, device=p.device, dtype=p.dtype)
+    buf = io.BytesIO()
+    torch.onnx.export(model.eval(), (sample, timestep, context), buf,
+                      input_names=["sample", "timestep", "encoder_hidden_states"],
+                      output_names=["out_sample"], opset_version=17, dynamo=False)
+    return buf.getvalue()
+
+
+def _device_time_embedding(model) -> None:
+    """SDUNet's sinusoidal embedding made on the timestep's device, its
+    frequencies rounded to float16 as the float16 export holds them: the
+    exported graph and the float32 oracle then compute the same function."""
+    import math
+
+    half = model.ch[0] // 2
+
+    def time_embedding(t):
+        freqs = torch.exp(-math.log(10000.0) * torch.arange(half, dtype=torch.float32, device=t.device) / half)
+        ang = t[:, None] * freqs.half().to(t.dtype)[None]
+        return torch.cat([torch.cos(ang), torch.sin(ang)], dim=-1)
+
+    model.time_embedding = time_embedding
+
+
+def phase_convert(name: str) -> dict:
+    """tools/torch_sd_unet.py SDUNet(width=1.0) exported in float16 on the card, converted by the port's
+    onnx2txt, run through the port's Session in float32 (module docstring, 17)."""
+    from onnxstream_tpu_torch import Session, SessionConfig
+    from onnxstream_tpu_torch.convert.onnx2txt import convert, mangle_name
+    from onnxstream_tpu_torch.kernels.flash_attention import flash_attention_packed
+    from onnxstream_tpu_torch.runtime.executor import reference_precision
+
+    sys.path.insert(0, os.path.join(REPO, "tools"))
+    from torch_sd_unet import SDUNet, param_count
+
+    out: dict = {}
+    t0 = time.perf_counter()
+    torch.manual_seed(0)
+    model = SDUNet(width=1.0).eval()
+    out["params_m"] = param_count(model) / 1e6
+    model = model.half().cuda()
+    _device_time_embedding(model)
+    out["build_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        onnx_bytes = _export_onnx_fp16(model)
+    out["export_s"], out["onnx_bytes"] = time.perf_counter() - t0, len(onnx_bytes)
+    print(f"SDUNet {out['params_m']:.1f} M params (built in {out['build_s']:.1f} s): float16 export on the card "
+          f"{out['export_s']:.1f} s, {out['onnx_bytes'] / 1e9:.3f} GB [{name}]")
+    folder = tempfile.mkdtemp(prefix="ostt_convert_")
+    try:
+        t0 = time.perf_counter()
+        text = convert(onnx_bytes, os.path.join(folder, "unet"))
+        out["convert_s"] = time.perf_counter() - t0
+        del onnx_bytes
+        out["model_txt_ops"] = len(text.splitlines())
+        print(f"converted by the port's onnx2txt in {out['convert_s']:.1f} s: {out['model_txt_ops']} ops")
+        s = Session(SessionConfig(compute_dtype="float32"), weights_provider_name="ram+prefetch")
+        s.read_file(os.path.join(folder, "unet", "model.txt"))
+        kinds = [op.op_type for op in s.graph.ops]
+        out["fused_ops"], out["sdpa"] = len(kinds), kinds.count("ostpu.sdpa")
+        out["softmax_left"] = kinds.count("Softmax")
+        print(f"  Session graph: {out['fused_ops']} ops after fusion, {out['sdpa']} ostpu.sdpa, "
+              f"{out['softmax_left']} Softmax left unfused")
+        rng = np.random.RandomState(1)
+        inputs = {"sample": rng.randn(1, 4, 64, 64).astype(np.float32), "timestep": np.array([500.0], np.float32),
+                  "encoder_hidden_states": rng.randn(1, 77, 768).astype(np.float32)}
+        for k, v in inputs.items():
+            s.add_tensor(mangle_name(k), v)
+        flash_attention_packed.launches = 0
+        ours, ms1 = _timed(lambda: s.run()[mangle_name("out_sample")])
+        ours2, ms2 = _timed(lambda: s.run()[mangle_name("out_sample")])
+        out["launches"] = flash_attention_packed.launches
+        out["first_run_ms"], out["second_run_ms"] = ms1, ms2
+        print(f"  first run (plan, weights read and uploaded) {ms1:.0f} ms, second {ms2:.1f} ms, kernel 1 launches "
+              f"{out['launches']} [{name}]")
+        if not np.array_equal(ours, ours2):
+            raise SystemExit("converted UNet: two runs disagree")
+        s.close()
+        del s
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+    # the oracle: the same module, its float16-rounded weights in float32, on the card, TF32 off
+    model = model.float()
+    with torch.no_grad(), reference_precision():
+        ref = model(*(torch.from_numpy(v).cuda() for v in inputs.values())).cpu().numpy()
+    del model
+    rel = float(np.abs(ours - ref).max() / np.abs(ref).max())
+    out["rel"] = rel
+    print(f"  converted 860 M UNet vs the torch oracle: max|diff| {np.abs(ours - ref).max():.4e}, max|ref| "
+          f"{np.abs(ref).max():.4f}, rel {rel:.4e} (bound 5e-3) [{name}]")
+    if not (ours.shape == (1, 4, 64, 64) and np.isfinite(ours).all() and rel < 5e-3):
+        raise SystemExit("converted UNet: outside the bound of the torch oracle")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     sys.path.insert(0, REPO)
     name = phase_device()
@@ -3826,6 +4426,17 @@ def main() -> int:
     gn = phase_gn_routes(name, sd)
     gc.collect()
     torch.cuda.empty_cache()
+    t_new = time.perf_counter()
+    layout = phase_layout(name, sd)
+    gc.collect()
+    torch.cuda.empty_cache()
+    nopad = phase_nopad(name, sd)
+    gc.collect()
+    torch.cuda.empty_cache()
+    fp16 = phase_fp16_storage(name, sd)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase_layout, phase_nopad, phase_fp16_storage: {time.perf_counter() - t_new:.1f} s")
     sd_u8 = phase_sd_u8(name, sd)
     del sd
     gc.collect()
@@ -3847,6 +4458,9 @@ def main() -> int:
     yolo = phase_yolo(name)
     gc.collect()
     torch.cuda.empty_cache()
+    t_new = time.perf_counter()
+    convert = phase_convert(name)
+    print(f"phase_convert: {time.perf_counter() - t_new:.1f} s")
     folder = tempfile.mkdtemp(prefix="ostt_sd15_")
     try:
         model = write_sd15_folder(folder)
@@ -3858,6 +4472,9 @@ def main() -> int:
     print(f"serving: {json.dumps(served)}")
     print(f"whisper: {json.dumps({k: v for k, v in whisper.items() if k.startswith(('tokens', 'peak', 'device_w', 'bf16'))})}")
     print(f"op cases: {json.dumps(ops)}; yolo stand-in: {json.dumps(yolo)}")
+    print(f"channel-last: {json.dumps({k: layout[k] for k in ('graph', 'unet', 'vae', 'float32_ratio')})}")
+    print(f"fp16 storage: {json.dumps({k: v for k, v in fp16.items() if k not in ('launches', 'replay')})}")
+    print(f"converted 860 M UNet: {json.dumps(convert)}")
     print(f"card: {name}")
     fa_src = "onnxstream_tpu_torch/kernels/csrc/flash_attention.cu"
     q_src = "onnxstream_tpu_torch/kernels/csrc/qmatmul.cu"
@@ -3868,19 +4485,25 @@ def main() -> int:
         {"name": "flash_attention_packed", "route": "cuda", "source": fa_src,
          "replaces": "onnxstream_tpu/kernels/flash_attention.py:260", **kernel,
          "launches": (sd_image["flash_launches"] + sdxl["launches"] + sd_batch["launches"] + whisper["launches"]
-                      + streamed["launches"] + served["launches"]),
+                      + streamed["launches"] + served["launches"] + layout["launches"] + fp16["launches"]
+                      + nopad["packed_launches"] + convert["launches"]),
          "launches_by_path": {"sd15_step": launches_sd, "sd15_image": sd_image["flash_launches"],
                               "sdxl_image_and_turbo": sdxl["launches"], "sd15_generate_batch4": sd_batch["launches"],
                               "whisper": whisper["launches"], "sd15_streamed": streamed["launches"],
-                              "sd15_served": served["launches"]},
+                              "sd15_served": served["launches"], "sd15_nhwc": layout["launches"],
+                              "sd15_fp16_storage": fp16["launches"], "sd15_nopad": nopad["packed_launches"],
+                              "sd15_converted": convert["launches"]},
          "whisper": {k: whisper[k] for k in ("sites_bfloat16", "replay_bfloat16", "sites_float32", "replay_float32",
                                              "times", "on_device")},
          "sdxl": {"unet_run_replay": sdxl["replay"], "ms_by_shape": sdxl["ms_by_shape"], "unet": sdxl["unet"],
                   "device_weight_bytes": sdxl["device_weight_bytes"]},
-         "sd15_batch4": sd_batch},
+         "sd15_batch4": sd_batch, "sd15_nhwc_replay": layout["replay"]["flash_attention_packed"],
+         "sd15_fp16_storage_replay": fp16["replay"]},
         {"name": "flash_attention", "route": "cuda", "source": fa_src,
-         "replaces": "onnxstream_tpu/kernels/flash_attention.py:366", **kernel_hm, "launches": launches_llm,
-         **llm["flash"]},
+         "replaces": "onnxstream_tpu/kernels/flash_attention.py:366", **kernel_hm,
+         "launches": launches_llm + nopad["launches"],
+         "launches_by_path": {"tinyllama": launches_llm, "sd15_nopad": nopad["launches"]},
+         "sd15_nopad": {k: nopad[k] for k in ("by_shape", "unet", "max_abs_err")}, **llm["flash"]},
         {"name": "w8a8_dyn_matmul", "route": "cuda", "source": q_src, "replaces": f"{q_py}:332", **llm_int8,
          "ms_by_shape": q_sites},
         {"name": "w8_matmul", "route": "cuda", "source": q_src, "replaces": f"{q_py}:186", **sd_u8},
@@ -3888,10 +4511,18 @@ def main() -> int:
         {"name": "qconv", "route": "cuda", "source": ql_src, "replaces": "onnxstream_tpu/kernels/qconv.py:68",
          **sd_image["qconv"]},
         {"name": "gn_silu", "route": "cuda", "source": gn_src, "replaces": "onnxstream_tpu/kernels/gn_silu.py:121",
-         **gn["gn_silu"], "ms_by_shape": gn_sites["gn_silu"]},
+         **gn["gn_silu"], "ms_by_shape": gn_sites["gn_silu"],
+         "launches": gn["gn_silu"]["launches"] + layout["config_a_launches"]["gn_silu"],
+         "sd15_nhwc_config_a_replay": layout["replay"]["gn_silu"],
+         "launches_by_path": {"gn_routes": gn["gn_silu"]["launches"],
+                              "sd15_nhwc_config_a": layout["config_a_launches"]["gn_silu"]}},
         {"name": "gn_silu_conv", "route": "cuda", "source": gn_src,
          "replaces": "onnxstream_tpu/kernels/gn_conv.py:178", **gn["gn_silu_conv"],
-         "ms_by_shape": gn_sites["gn_silu_conv"]},
+         "ms_by_shape": gn_sites["gn_silu_conv"],
+         "launches": gn["gn_silu_conv"]["launches"] + layout["config_a_launches"]["gn_silu_conv"],
+         "sd15_nhwc_config_a_replay": layout["replay"]["gn_silu_conv"],
+         "launches_by_path": {"gn_routes": gn["gn_silu_conv"]["launches"],
+                              "sd15_nhwc_config_a": layout["config_a_launches"]["gn_silu_conv"]}},
         {"name": "matmul", "route": "cuda", "source": "onnxstream_tpu_torch/kernels/csrc/matmul.cu",
          "replaces": "onnxstream_tpu/kernels/matmul.py:74", **gn["matmul"], "ms_by_shape": gn_sites["matmul"]},
     ]}))

@@ -30,14 +30,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--ops-printf", action="store_true",
                    help="accepted for parity with the JAX CLI, which does not read it either; no effect")
     p.add_argument("--download", action="store_true",
-                   help="fetch the model from HF into --models-path if missing (not in the port: refused)")
+                   help="fetch the model from HF into --models-path if missing (reference llm.cpp:137-200)")
     return p
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.download:
-        raise NotImplementedError("--download is not ported (ROADMAP Queue 1 item 9)")
 
     import torch
 
@@ -86,6 +84,11 @@ def main(argv=None) -> int:
 
         import numpy as np
 
+        if args.download:
+            from onnxstream_tpu_torch.utils.download import download_model
+
+            name = "TinyLlama-1.1B-Chat-v0.3-fp16" if is_tiny else "Mistral-7B-Instruct-v0.2-fp16"
+            download_model(name, args.models_path)
         cfg = TINYLLAMA if is_tiny else MISTRAL
         tok = SentencePieceBPE.from_file(os.path.join(args.models_path, "vocab.txt"), is_tiny=is_tiny)
         weights = {}

@@ -6,8 +6,9 @@ the model folder, ``--xl`` / ``--turbo``, latents save / decode, previews,
 tiled or full decode, N images, embedded parameters, ops tracing, and
 ``--decoder-calibrate`` (writes ``range_data.txt`` from the decode, the input
 of a ``vae_decoder_qu8`` folder). ``--device`` is ``cuda`` (the default: the
-first card, an error without one) or ``cpu``. ``--download`` is refused: the
-port fetches nothing.
+first card, an error without one) or ``cpu``. ``--download`` fetches the
+catalog model into ``--models-path`` first, as the JAX CLI does
+(``utils/download.py``).
 
     python -m onnxstream_tpu_torch.cli.sd_main --synthetic tiny --device cpu --steps 2 -o out.png
     python -m onnxstream_tpu_torch.cli.sd_main --synthetic tiny --device cpu --xl --steps 2 -o xl.png
@@ -53,7 +54,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--hbm-budget-mb", type=int, default=0, help="stream weights within this device budget")
     p.add_argument("--synthetic", choices=["tiny", "sd15"], default="", help="run random-weight models")
     p.add_argument("--download", action="store_true",
-                   help="fetch the model from HF into --models-path (not in the port: refused)")
+                   help="fetch the model from HF into --models-path if missing (reference sd.cpp:3101-3199)")
     p.add_argument("--decoder-calibrate", action="store_true",
                    help="record the decoder's activation ranges into range_data.txt")
     p.add_argument("--host-loop", action="store_true",
@@ -71,8 +72,6 @@ def _suffixed(path: str, suffix: str) -> str:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.download:
-        raise NotImplementedError("--download is not ported (ROADMAP Queue 1 item 9)")
 
     import torch
 
@@ -88,6 +87,13 @@ def main(argv=None) -> int:
         pipe = StableDiffusionPipeline.from_synthetic(tiny=args.synthetic == "tiny", compute_dtype=args.compute_dtype,
                                                       device=device, xl=args.xl, turbo=args.turbo)
     elif args.models_path:
+        if args.download:
+            from onnxstream_tpu_torch.utils.download import download_model
+
+            name = ("stable-diffusion-xl-turbo-1.0" if args.turbo
+                    else "stable-diffusion-xl-base-1.0" if args.xl
+                    else "stable-diffusion-1.5")
+            download_model(name, args.models_path)
         pipe = StableDiffusionPipeline.from_dir(args.models_path, xl=args.xl, turbo=args.turbo,
                                                 compute_dtype=args.compute_dtype, res=(w, h),
                                                 hbm_budget_bytes=args.hbm_budget_mb << 20, device=device)

@@ -4,7 +4,9 @@ One kernel, ``csrc/flash_attention.cu``, replaces both TPU flash kernels of
 ``onnxstream_tpu/kernels/flash_attention.py``:
 
   * ``flash_attention_packed`` (``_flash_call_packed`` -> ``_fa_kernel``):
-    heads packed in the last dim, ``(B, L, H*D)``, no mask;
+    heads packed in the last dim, ``(B, L, H*D)``, no mask; with ``nopad``
+    a head dim that is not a multiple of 128 goes to ``flash_attention`` on
+    head-major views instead, as the JAX wrapper's ``nopad`` does;
   * ``flash_attention`` (``_flash_call`` -> ``_fa_kernel``): head-major
     ``(B, H, M, D)`` with an additive mask that broadcasts over batch and
     heads, K optionally given transposed.
@@ -278,19 +280,48 @@ def _split_workspace(variant: str, dims, device: torch.device):
     return splits, torch.empty(splits * b * h * m * (dv + 2), dtype=torch.float32, device=device)
 
 
+def _packed_on_head_major(q, k, v, heads: int, d: int, hkv: int, dv: int, scale: float,
+                          causal: bool) -> torch.Tensor:
+    """The packed call through ``flash_attention`` (kernel 2) on head-major
+    views of the packed operands: (B, L, H*D) seen as (B, H, L, D) with head
+    stride D and row stride H*D, no copy. Raises with kernel 2's reason
+    (``head_major_problem``) where it cannot take them. Kernel 2 writes the
+    packed (B, M, H*Dv) output through a head-major view of it (``out``)."""
+    b, m, _ = q.shape
+    qh = q.unflatten(-1, (heads, d)).transpose(1, 2)
+    kh = k.unflatten(-1, (hkv, d)).transpose(1, 2)
+    vh = v.unflatten(-1, (hkv, dv)).transpose(1, 2)
+    problem = head_major_problem(qh, kh, vh)
+    if problem is not None:
+        raise ValueError(f"flash_attention_packed(nopad=True): the head-major kernel cannot take "
+                         f"head dims {d}, {dv}: {problem}")
+    out = torch.empty((b, m, heads * dv), dtype=q.dtype, device=q.device)
+    flash_attention(qh, kh, vh, scale=scale, causal=causal, out=out.unflatten(-1, (heads, dv)).transpose(1, 2))
+    return out
+
+
 def flash_attention_packed(q, k, v, heads: int, scale: Optional[float] = None,
-                           causal: bool = False) -> torch.Tensor:
+                           causal: bool = False, nopad: bool = False) -> torch.Tensor:
     """Flash SDPA over packed projections: q (B, M, H*D), k (B, N, Hkv*D),
     v (B, N, Hkv*Dv) -> (B, M, H*Dv) in q's dtype. Also accepts 2-D (L, H*D).
+
+    ``nopad`` (``SessionConfig.flash_packed_nopad``, the JAX wrapper's
+    option): where a head dim is not a multiple of 128 (the SD1.5 UNet's
+    d = 40 and 80), the call runs ``flash_attention`` (kernel 2) on
+    head-major views of the operands instead of this kernel, and raises where
+    kernel 2 cannot take them; other head dims keep this kernel.
 
     On CUDA tensors it launches the kernel on the current stream, or raises;
     on CPU tensors it computes the plain twin. Every launch adds one to
     ``flash_attention_packed.launches``."""
     if q.ndim == 2:
-        return flash_attention_packed(q[None], k[None], v[None], heads, scale=scale, causal=causal)[0]
+        return flash_attention_packed(q[None], k[None], v[None], heads, scale=scale, causal=causal,
+                                      nopad=nopad)[0]
     d, hkv, dv = _check_packed(q, k, v, heads)
     if scale is None:
         scale = 1.0 / math.sqrt(d)
+    if nopad and (d % 128 or dv % 128):
+        return _packed_on_head_major(q, k, v, heads, d, hkv, dv, scale, causal)
     if q.device.type == "cpu":
         return flash_attention_packed_reference(q, k, v, heads, scale=scale, causal=causal)
     if q.device.type != "cuda":
@@ -309,9 +340,10 @@ def flash_attention_packed(q, k, v, heads: int, scale: Optional[float] = None,
     return out
 
 
-def _head_major_launch(q, k, v, mask, k_transposed: bool):
+def _head_major_launch(q, k, v, mask, k_transposed: bool, out_strides=None):
     """(dims, strides, the mask as a (B, H, M, N) view) of a head-major launch
-    whose output is a fresh contiguous (B, H, M, Dv) tensor."""
+    whose output is a fresh contiguous (B, H, M, Dv) tensor, or has the
+    (B, H, M) strides ``out_strides`` and a unit last stride."""
     b, h, m, d = q.shape
     hkv, dv = k.shape[1], v.shape[-1]
     n = k.shape[3] if k_transposed else k.shape[2]
@@ -319,7 +351,7 @@ def _head_major_launch(q, k, v, mask, k_transposed: bool):
     # a broadcast view has stride 0 on the dims the mask does not have
     m4 = None if mask is None else _lift_mask(mask).expand(b, h, m, n)
     strides = (q.stride(0), q.stride(1), q.stride(2), k.stride(0), k.stride(1), skn, skd,
-               v.stride(0), v.stride(1), v.stride(2), h * m * dv, m * dv, dv,
+               v.stride(0), v.stride(1), v.stride(2), *(out_strides or (h * m * dv, m * dv, dv)),
                *((0, 0, 0, 0) if m4 is None else m4.stride()))
     return (b, m, n, h, hkv, d, dv), strides, m4
 
@@ -353,39 +385,52 @@ def flash_variant(q, k, v, mask=None, k_transposed: bool = False, form: str = "h
 
 
 def flash_attention(q, k, v, mask=None, scale: Optional[float] = None,
-                    k_transposed: bool = False, causal: bool = False) -> torch.Tensor:
+                    k_transposed: bool = False, causal: bool = False,
+                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Flash SDPA, head-major: q (B, H, M, D), k (B, Hkv, N, D) (or
     (B, Hkv, D, N) with ``k_transposed``), v (B, Hkv, N, Dv) -> (B, H, M, Dv)
     in q's dtype. Rank-3 (H, L, D) inputs are lifted to batch 1. ``mask`` is
     an additive mask that broadcasts to (B, H, M, N) after lifting: (M, N),
     (B, M, N) as (B, 1, M, N), (1|B, 1|H, M, N), ...; GQA when H != Hkv.
-    Which kernel variant runs is ``flash_variant``'s answer.
+    ``out``, where given, is the (B, H, M, Dv) tensor written and returned:
+    q's dtype and device, any strides with a unit last one (the nopad route
+    passes a head-major view of its packed output). Which kernel variant
+    runs is ``flash_variant``'s answer.
 
     On CUDA tensors it launches the kernel on the current stream, or raises;
     on CPU tensors it computes the plain twin. Every launch adds one to
     ``flash_attention.launches``."""
     if q.ndim == 3:
-        return flash_attention(q[None], k[None], v[None], mask=mask, scale=scale,
-                               k_transposed=k_transposed, causal=causal)[0]
+        return flash_attention(q[None], k[None], v[None], mask=mask, scale=scale, k_transposed=k_transposed,
+                               causal=causal, out=None if out is None else out[None])[0]
     problem = head_major_problem(q, k, v, mask, k_transposed)
     if problem is not None:
         raise ValueError(f"flash_attention: {problem}")
+    want = (q.shape[0], q.shape[1], q.shape[2], v.shape[-1])
+    if out is not None and (tuple(out.shape) != want or out.dtype != q.dtype or out.device != q.device
+                            or out.stride(-1) != 1):
+        raise ValueError(f"flash_attention: out must be {want} in {q.dtype} on {q.device} with a unit last "
+                         f"stride, got {tuple(out.shape)} {out.dtype} strides {out.stride()}")
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, mask=mask, scale=scale,
-                                         k_transposed=k_transposed, causal=causal)
+        ref = flash_attention_reference(q, k, v, mask=mask, scale=scale, k_transposed=k_transposed, causal=causal)
+        return ref if out is None else out.copy_(ref)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on CUDA or CPU tensors, not {q.device}")
-    dims, strides, m4 = _head_major_launch(q, k, v, mask, k_transposed)
+    dims, strides, m4 = _head_major_launch(q, k, v, mask, k_transposed,
+                                           None if out is None else out.stride()[:3])
     b, m, _, h, _, _, dv = dims
-    out = torch.empty((b, h, m, dv), dtype=q.dtype, device=q.device)
+    if out is None:
+        out = torch.empty((b, h, m, dv), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
     _launch(q, k, v, out, m4, dims, strides, scale, causal)
-    flash_attention.launches += 1
+    _flash_attention_counted.launches += 1
     return out
 
 
 flash_attention_packed.launches = 0
 flash_attention.launches = 0
+# the count stays on the function defined here when something else is bound to the module's name for it
+_flash_attention_counted = flash_attention

@@ -6,7 +6,9 @@ Counterpart of ``onnxstream_tpu/ops/attention.py``. The graph fusion pass
 UNet) and head-major with an additive mask (the llama graphs), through the
 hand-written CUDA flash kernel (``kernels/flash_attention.py``) at the sites
 the size predicates pick, and through the torch reference paths everywhere
-else.
+else. Under ``flash_packed_nopad`` a packed site whose head dim is not a
+multiple of 128 runs the head-major kernel on head-major views (the JAX
+package's route).
 
 Canonical signature:
     inputs:  Q (..., H, M, D), K (..., Hkv, N, D), V (..., Hkv, N, Dv), mask?
@@ -159,7 +161,8 @@ def _sdpa(ctx: Ctx, op, ins):
         if scale is None:
             scale = 1.0 / math.sqrt(q.shape[-1] // heads)
         if mask is None and _use_flash_packed(ctx.config, heads, q, k, v):
-            return [flash_attention_packed(q, k, v, heads, scale=scale, causal=causal)]
+            nopad = bool(getattr(ctx.config, "flash_packed_nopad", False))
+            return [flash_attention_packed(q, k, v, heads, scale=scale, causal=causal, nopad=nopad)]
         return [sdpa_reference_packed(q, k, v, heads, mask=mask, scale=scale, causal=causal)]
     if _use_flash(ctx.config, q, k, v, mask, k_transposed):
         return [flash_attention(q, k, v, mask=mask, scale=scale, k_transposed=k_transposed,

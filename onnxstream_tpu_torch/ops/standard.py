@@ -1,17 +1,18 @@
 """The standard operator library.
 
 Counterpart of ``onnxstream_tpu/ops/standard.py``: every op type of the JAX
-registry but the two that only the channel-last layout pass emits
-(``ostpu.groupnorm``, ``ostpu.reshape``; ROADMAP Queue 1 item 7), with the
-same attribute defaults, float32 islands and refusals. It holds the op types
-of the fused SD UNet, llama, Whisper and YOLO graphs and of converted ONNX
-graphs (elementwise, shape and index math, reductions, normalisation, Gemm,
-Conv of rank 3 and 4, pooling, Resize); the fused GroupNorm ops
-``ostpu.gn_silu`` and ``ostpu.gn_silu_conv`` (through the kernels of
-``kernels/gn_silu.py`` and ``kernels/gn_conv.py``); the small-conv rewrite's
-``ostpu.conv3x3_im2col``; and ``ostpu.sdpa`` (``ops/attention.py``). Any other
-op type raises ``NotImplementedError`` from the registry, and an op carrying
-``layout:NHWC`` raises it here until the layout pass is ported.
+registry, with the same attribute defaults, float32 islands and refusals. It
+holds the op types of the fused SD UNet, llama, Whisper and YOLO graphs and
+of converted ONNX graphs (elementwise, shape and index math, reductions,
+normalisation, Gemm, Conv of rank 3 and 4, pooling, Resize); the fused
+GroupNorm ops ``ostpu.gn_silu`` and ``ostpu.gn_silu_conv`` (through the
+kernels of ``kernels/gn_silu.py`` and ``kernels/gn_conv.py``); the small-conv
+rewrite's ``ostpu.conv3x3_im2col``; ``ostpu.sdpa`` (``ops/attention.py``); and
+what the channel-last layout pass (``runtime/layout.py``) emits: the
+``layout:NHWC`` forms of Conv, MaxPool, AveragePool, GlobalAveragePool and
+Resize, ``ostpu.groupnorm`` and ``ostpu.reshape``. An NHWC activation is a
+contiguous (N, H, W, C) tensor. Any other op type raises
+``NotImplementedError`` from the registry.
 
 Device integers are 32-bit, as in the JAX package: int64 graph inputs arrive
 as int32 and ``_align_binary`` narrows int64 in device ops. torch's indexing
@@ -556,6 +557,44 @@ def _instance_norm(ctx: Ctx, op, ins):
     return [out.to(x.dtype)]
 
 
+@register("ostpu.groupnorm")
+def _ostpu_groupnorm(ctx: Ctx, op, ins):
+    """Channel-last GroupNorm, the layout pass's form of the converter's
+    Reshape(N,G,-1) > InstanceNormalization > Reshape chain: x (N, H, W, C),
+    per-group scale and bias (G,) (the InstanceNormalization affine). The
+    statistics are per-channel sums first, then the group fold on the small
+    (N, G, C/G) sums, all in float32 (the JAX op's order)."""
+    x, scale, bias = (_tensor(ctx, v) for v in ins[:3])
+    g = op.attr_int("groups")
+    eps = op.attr_float("epsilon", 1e-5)
+    if x.ndim != 4 or g <= 0 or x.shape[3] % g:
+        raise ValueError(f"ostpu.groupnorm takes (N, H, W, C) with C a multiple of groups={g}, "
+                         f"got {tuple(x.shape)}")
+    n, h, w, c = x.shape
+    cg = c // g
+    xf = x.float().reshape(n, h * w, c)
+    s1 = xf.sum(dim=1)  # (n, c)
+    s2 = (xf * xf).sum(dim=1)
+    cnt = float(h * w * cg)
+    mean = s1.reshape(n, g, cg).sum(dim=2) / cnt  # (n, g)
+    mean2 = s2.reshape(n, g, cg).sum(dim=2) / cnt
+    var = torch.clamp(mean2 - mean * mean, min=0.0)
+    inv = torch.rsqrt(var + eps) * scale.float()
+    shift = bias.float() - mean * inv
+    mul_c = inv.repeat_interleave(cg, dim=1)[:, None, :]  # (n, 1, c)
+    add_c = shift.repeat_interleave(cg, dim=1)[:, None, :]
+    return [(xf * mul_c + add_c).reshape(n, h, w, c).to(x.dtype)]
+
+
+@register("ostpu.reshape", host=True)
+def _ostpu_reshape(ctx: Ctx, op, ins):
+    """Reshape to the ``shape`` attribute (no shape-constant input): what the
+    layout pass emits where a Reshape's target changes. A view where the
+    strides allow it."""
+    shape = [int(v) for v in op.attr("shape").split(",")]
+    return [torch.reshape(_tensor(ctx, ins[0]), shape)]
+
+
 @register("LayerNormalization")
 def _layer_norm(ctx: Ctx, op, ins):
     x = _tensor(ctx, ins[0])
@@ -659,13 +698,8 @@ def _gemm(ctx: Ctx, op, ins):
     return [y]
 
 
-def _refuse_nhwc(op) -> None:
-    """Ops the channel-last layout pass rewrote carry ``layout:NHWC``; the
-    port has no such pass yet."""
-    if op.attr("layout") == "NHWC":
-        raise NotImplementedError(
-            f"{op.op_type} with layout:NHWC (runtime/layout.py, use_nhwc_layout) is not ported "
-            "(ROADMAP Queue 1 item 7)")
+def _nhwc(op) -> bool:
+    return op.attr("layout") == "NHWC"
 
 
 @register("Conv")
@@ -673,10 +707,20 @@ def _conv(ctx: Ctx, op, ins):
     """NCHW Conv of rank 4, and of rank 3 (Conv1D) as the JAX op runs it: the
     input gains a trailing unit dim, a (O, I, k) weight becomes (O, I, k, 1)
     (the converter's own promotion), and strides, dilations and pads gain
-    that dim's 1 / 1 / 0."""
-    _refuse_nhwc(op)
+    that dim's 1 / 1 / 0.
+
+    ``layout:NHWC`` (the layout pass): x is (N, H, W, C) and is read as the
+    ``torch.channels_last`` NCHW view ``x.permute(0, 3, 1, 2)``; the planner
+    uploads the weight channels-last (``"ohwi"``), so cuDNN runs NHWC with no
+    layout conversion and its channels-last output, permuted back, is a
+    contiguous (N, H, W, O) tensor."""
     x, w = _tensor(ctx, ins[0]), ins[1]
     b = ins[2] if len(ins) > 2 and ins[2] is not None else None
+    nhwc = _nhwc(op)
+    if nhwc:
+        if x.ndim != 4:
+            raise ValueError(f"Conv with layout:NHWC takes a 4-D (N, H, W, C) input, got {tuple(x.shape)}")
+        x = x.permute(0, 3, 1, 2)
     if x.ndim not in (3, 4):
         raise NotImplementedError(f"Conv of rank {x.ndim} is not ported (NCHW Conv1D and Conv2D only)")
     conv1d = x.ndim == 3
@@ -703,16 +747,29 @@ def _conv(ctx: Ctx, op, ins):
         padding = (0, 0)
     bb = None if b is None else _astype(ctx, b, x.dtype)
     out = F.conv2d(x, w, bb, stride=strides, padding=padding, dilation=dilations, groups=group)
+    if nhwc:
+        return [out.permute(0, 2, 3, 1)]
     return [out[..., 0] if conv1d else out]
 
 
 # ---------------------------------------------------------------------------
 # pooling: explicit pads (ceil_mode adds the JAX op's extra high pad), then
-# every window of the padded tensor as a strided view, reduced
+# every window of the padded tensor as a strided view, reduced. The spatial
+# dims start at 2 (NCHW) or at 1 (layout:NHWC, channels last).
 # ---------------------------------------------------------------------------
 
 
-def _pool_pads(op, x, kernel, strides):
+def _spatial0(op, x) -> int:
+    """The first spatial dim of a pooling input: 1 under layout:NHWC, where
+    the input must be 4-D (N, H, W, C), else 2."""
+    if not _nhwc(op):
+        return 2
+    if x.ndim != 4:
+        raise ValueError(f"{op.op_type} with layout:NHWC takes a 4-D (N, H, W, C) input, got {tuple(x.shape)}")
+    return 1
+
+
+def _pool_pads(op, x, kernel, strides, first: int = 2):
     """[(lo, hi)] per spatial dim: the pads attribute, and with ceil_mode the
     extra high pad that lets the last (partial) window fit, as the JAX op
     computes it."""
@@ -722,35 +779,39 @@ def _pool_pads(op, x, kernel, strides):
     for i in range(n):
         lo, hi = pads[i], pads[i + n]
         if op.attr_int("ceil_mode", 0):
-            size = x.shape[2 + i] + lo + hi
+            size = x.shape[first + i] + lo + hi
             out_dim = -(-(size - kernel[i]) // strides[i]) + 1
             hi += max(0, (out_dim - 1) * strides[i] + kernel[i] - size)
         out.append((lo, hi))
     return out
 
 
-def _windows(x: torch.Tensor, kernel, strides, padding, value) -> torch.Tensor:
-    """x (N, C, *spatial) padded with `value` -> (N, C, *out, *kernel): each
-    output position's window, as a view of the padded tensor."""
+def _windows(x: torch.Tensor, kernel, strides, padding, value, first: int = 2) -> torch.Tensor:
+    """x with its spatial dims from ``first`` on, padded with `value` -> the
+    same with each spatial dim replaced by the output positions and the
+    window dims appended: (N, C, *out, *kernel) for NCHW, (N, *out, C,
+    *kernel) for NHWC, as a view of the padded tensor."""
     flat = [p for lo_hi in reversed(padding) for p in lo_hi]  # F.pad wants the last dim first
+    if first == 1:
+        flat = [0, 0] + flat  # the channel dim is last
     if any(flat):
         x = F.pad(x, flat, value=value)
     for i, (k, s) in enumerate(zip(kernel, strides)):
-        x = x.unfold(2 + i, k, s)
+        x = x.unfold(first + i, k, s)
     return x
 
 
 @register("MaxPool")
 def _maxpool(ctx: Ctx, op, ins):
-    _refuse_nhwc(op)
     x = _tensor(ctx, ins[0])
+    first = _spatial0(op, x)
     kernel = list(op.attr_ints("kernel_shape"))
     n = len(kernel)
     strides = list(op.attr_ints("strides", [1] * n))
     if any(d != 1 for d in op.attr_ints("dilations", [1] * n)):
         raise NotImplementedError("MaxPool dilations != 1")
     low = -math.inf if x.is_floating_point() else torch.iinfo(x.dtype).min
-    win = _windows(x, kernel, strides, _pool_pads(op, x, kernel, strides), low)
+    win = _windows(x, kernel, strides, _pool_pads(op, x, kernel, strides, first), low, first)
     return [torch.amax(win, dim=tuple(range(-n, 0)))]
 
 
@@ -759,27 +820,28 @@ def _avgpool(ctx: Ctx, op, ins):
     """Window sums in float32 over the count of elements inside the input
     (count_include_pad=0: pads and ceil_mode's extra pad excluded) or over
     the kernel size (count_include_pad=1)."""
-    _refuse_nhwc(op)
     x = _tensor(ctx, ins[0])
+    first = _spatial0(op, x)
     kernel = list(op.attr_ints("kernel_shape"))
     n = len(kernel)
     strides = list(op.attr_ints("strides", [1] * n))
-    padding = _pool_pads(op, x, kernel, strides)
+    padding = _pool_pads(op, x, kernel, strides, first)
     red = tuple(range(-n, 0))
-    s = _windows(x.float(), kernel, strides, padding, 0.0).sum(dim=red)
+    s = _windows(x.float(), kernel, strides, padding, 0.0, first).sum(dim=red)
     if op.attr_int("count_include_pad", 0):
         out = s / float(np.prod(kernel))
     else:
-        ones = torch.ones((1, 1) + tuple(x.shape[2:]), dtype=torch.float32, device=x.device)
-        out = s / _windows(ones, kernel, strides, padding, 0.0).sum(dim=red)
+        spatial = tuple(x.shape[first:first + n])
+        ones = torch.ones((1, 1) + spatial if first == 2 else (1,) + spatial + (1,),
+                          dtype=torch.float32, device=x.device)
+        out = s / _windows(ones, kernel, strides, padding, 0.0, first).sum(dim=red)
     return [out.to(x.dtype)]
 
 
 @register("GlobalAveragePool")
 def _global_avgpool(ctx: Ctx, op, ins):
-    _refuse_nhwc(op)
     x = _tensor(ctx, ins[0])
-    red = tuple(range(2, x.ndim))
+    red = (1, 2) if _spatial0(op, x) == 1 else tuple(range(2, x.ndim))
     return [_f32_island(x, lambda v: v.mean(dim=red, keepdim=True))]
 
 
@@ -821,7 +883,14 @@ def _resize(ctx: Ctx, op, ins):
     mode = op.attr("mode", "nearest")
     coord = op.attr("coordinate_transformation_mode", "half_pixel")
     nearest_mode = op.attr("nearest_mode", "round_prefer_floor")
-    _refuse_nhwc(op)
+    if _nhwc(op) and x.ndim == 4:
+        # scales / sizes come in NCHW axis order (the model's constants);
+        # the tensor is channel-last (runtime/layout.py)
+        perm = (0, 2, 3, 1)
+        if scales is not None:
+            scales = [scales[p] for p in perm]
+        if sizes is not None:
+            sizes = [sizes[p] for p in perm]
 
     in_shape = list(x.shape)
     if sizes is not None:

@@ -7,10 +7,11 @@ W8A8 options and the GroupNorm / small-conv kernel routes among them) and the
 The TPU-only knobs (AUTO weight layouts, meshes, pipeline stages, XLA
 compiler options, Pallas interpret mode) have no counterpart here.
 
-Options the port does not implement yet are kept as fields so that code
-written for the JAX package keeps its spelling, but setting one to a
-non-default value raises ``NotImplementedError``: nothing is ignored
-silently.
+Every option of the JAX package that the graph or the executor reads is
+taken. ``use_ops_cache`` and ``use_next_op_cache`` (the reference's operator
+caches) are accepted at either value and change nothing, as in the JAX
+package: the port always keeps its executors (per shape bucket), their
+weights and constants between runs.
 
 ``device=None`` means the first CUDA card (``default_device``); with no card
 that raises, so nothing runs on the CPU unless the caller asks for it.
@@ -33,19 +34,6 @@ def default_device() -> torch.device:
             "no CUDA device: onnxstream_tpu_torch runs on an NVIDIA GPU card unless the caller "
             "asks for the CPU (device=torch.device('cpu'), or --device cpu)")
     return torch.device("cuda", 0)
-
-
-# name -> default value of options that exist in the JAX package but are not
-# implemented in the port yet
-_NOT_IMPLEMENTED = {
-    "flash_packed_nopad": False,  # head-major flash route (TPU kernel flash_attention)
-    "force_fp16_storage": False,
-    "use_nhwc_layout": False,  # channel-last graph rewrite
-    # the reference's operator caches: the port always keeps its executors
-    # (per shape bucket), their weights and constants between runs
-    "use_ops_cache": True,
-    "use_next_op_cache": True,
-}
 
 
 @dataclasses.dataclass
@@ -137,24 +125,23 @@ class SessionConfig:
     # real (they may steer control structure)
     synthetic_min_elements: int = 1 << 18
 
-    # not implemented yet: must keep their defaults (see _NOT_IMPLEMENTED)
+    # packed flash attention with a head dim that is not a multiple of 128
+    # (the SD1.5 UNet's d = 40, 80): run the head-major kernel
+    # (kernels/flash_attention.py flash_attention, kernel 2) on head-major
+    # views of the packed operands instead of the packed kernel (kernel 1)
     flash_packed_nopad: bool = False
+    # float weights resident in float16 under float32 compute (reference
+    # onnxstream.cpp:3764); the executor casts each to float32 at its read
     force_fp16_storage: bool = False
+    # channel-last graph rewrite (runtime/layout.py): 4-D activations flow
+    # NHWC from the first Conv to the last
     use_nhwc_layout: bool = False
+    # the reference's operator caches: accepted at either value, no effect
     use_ops_cache: bool = True
     use_next_op_cache: bool = True
 
     def __post_init__(self) -> None:
         self.torch_compute_dtype  # validates compute_dtype
-        self.check_implemented()
-
-    def check_implemented(self) -> None:
-        """Raise NotImplementedError for any option the port lacks."""
-        for name, default in _NOT_IMPLEMENTED.items():
-            if getattr(self, name) != default:
-                raise NotImplementedError(
-                    f"SessionConfig.{name}={getattr(self, name)!r} is not implemented "
-                    "in onnxstream_tpu_torch yet")
 
     @property
     def torch_compute_dtype(self) -> torch.dtype:
@@ -184,13 +171,12 @@ class SessionConfig:
             "fuse_groupnorm": lambda v: setattr(self, "fuse_groupnorm", v),
             "fuse_gn_conv": lambda v: setattr(self, "fuse_gn_conv", v),
             "use_pallas_smallconv": lambda v: setattr(self, "use_pallas_smallconv", v),
+            "flash_packed_nopad": lambda v: setattr(self, "flash_packed_nopad", v),
+            "force_fp16_storage": lambda v: setattr(self, "force_fp16_storage", v),
+            "use_nhwc_layout": lambda v: setattr(self, "use_nhwc_layout", v),
+            "use_ops_cache": lambda v: setattr(self, "use_ops_cache", v),
+            "use_next_op_cache": lambda v: setattr(self, "use_next_op_cache", v),
         }
-        value = bool(value)
-        if name in _NOT_IMPLEMENTED:
-            if value != _NOT_IMPLEMENTED[name]:
-                raise NotImplementedError(
-                    f"option {name!r} is not implemented in onnxstream_tpu_torch yet")
-            return
         if name not in mapping:
             raise ValueError(f"unknown option {name!r}")
-        mapping[name](value)
+        mapping[name](bool(value))

@@ -739,11 +739,16 @@ class Executor:
                 v = self.plan.static_weights.get(t.name)
                 if v is None:
                     v = weights_env[t.name]
-                    quant = self._arg_by_name[t.name].quant
-                    if quant is not None:
+                    w = self._arg_by_name[t.name]
+                    if w.quant is not None:
                         # dequantize on read (reference src/onnxstream.cpp:2885-2909)
-                        scale, zero = quant
+                        scale, zero = w.quant
                         v = ((v.float() - zero) * scale).to(self.config.torch_compute_dtype)
+                    elif w.read_dtype is not None:
+                        # float16 storage under float32 compute: one transient
+                        # float32 copy a use (torch does not promote a mixed
+                        # product as jnp does)
+                        v = v.to(w.read_dtype)
                 ins.append(v)
             elif t.name in self.plan.static_env:
                 ins.append(self.plan.static_env[t.name])
@@ -926,17 +931,32 @@ class Executor:
                 held.pop(n, None)
         return peaks
 
+    def _cast_peaks(self) -> List[int]:
+        """Per segment, the most bytes of transient read-dtype copies alive at
+        once: the float32 copies of one op's float16-stored weights
+        (``WeightArg.read_dtype``, force_fp16_storage), made at the op's read
+        and freed after it."""
+        peaks = []
+        for seg in self.segments:
+            peak = 0
+            for oi in seg.op_indices:
+                ws = {t.name for t in self.graph.ops[oi].inputs if t.is_weight and t.name in self._arg_by_name}
+                peak = max(peak, sum(math.prod(w.shape) * w.read_dtype.itemsize
+                                     for w in map(self._arg_by_name.get, ws) if w.read_dtype is not None))
+            peaks.append(peak)
+        return peaks
+
     def hbm_accounting(self) -> Dict[str, Any]:
         """Device-memory estimate of a run (JAX ``Executor.hbm_accounting``):
         per segment its weight bytes and its activation peak
-        (``_activation_peaks``); ``peak_bytes`` is one segment's weights and
-        activations when resident, and max_k (activations_k + weights_k +
-        weights_k+1 + converted_k+1) when streamed, the double buffer holding
-        segment k+1's weights while segment k runs, converted_k+1 the file
-        bytes of the largest of them converted on the card (alive until its
-        conversion)."""
+        (``_activation_peaks``, plus the transient copies of ``_cast_peaks``);
+        ``peak_bytes`` is one segment's weights and activations when
+        resident, and max_k (activations_k + weights_k + weights_k+1 +
+        converted_k+1) when streamed, the double buffer holding segment k+1's
+        weights while segment k runs, converted_k+1 the file bytes of the
+        largest of them converted on the card (alive until its conversion)."""
         wb = [seg.weight_bytes for seg in self.segments]
-        act = self._activation_peaks()
+        act = [a + c for a, c in zip(self._activation_peaks(), self._cast_peaks())]
         conv = [max((_file_bytes(w) for w in seg.weight_args if self._synth_kind(w) is None
                      and self._crosses_as_file_bytes(w) and w.file_dtype.torch != w.upload_dtype), default=0)
                 for seg in self.segments]

@@ -71,6 +71,10 @@ class WeightArg:
     # WEIGHT_TRANSFORMS entry applied in between
     transform: Optional[str] = None
     file_shape: Optional[Tuple[int, ...]] = None
+    # the dtype the ops read it in where that is not the upload dtype: the
+    # compute dtype of a float weight stored in float16 (force_fp16_storage
+    # under float32 compute), cast by the executor at each read
+    read_dtype: Optional[torch.dtype] = None
 
 
 def _t9oc(a: torch.Tensor) -> torch.Tensor:
@@ -153,7 +157,9 @@ class Plan:
 
 def _upload_dtype(spec: TensorSpec, config: SessionConfig) -> torch.dtype:
     """The dtype a weight is uploaded in: float weights travel in the compute
-    dtype (converted once on the host), uint8 weights stay uint8, weights in
+    dtype (converted once on the host), or in float16 under
+    ``force_fp16_storage`` with float32 compute (reference
+    onnxstream.cpp:3764); uint8 weights stay uint8, weights in
     ``force_uint8_storage_set`` are quantized at first fetch to int8 (2-D,
     ``int8_symmetric_storage``) or uint8, everything else keeps its file
     dtype (JAX ``planner._upload_dtype``)."""
@@ -162,6 +168,8 @@ def _upload_dtype(spec: TensorSpec, config: SessionConfig) -> torch.dtype:
             return torch.int8
         return torch.uint8
     if spec.dtype.is_float:
+        if config.force_fp16_storage and config.compute_dtype == "float32":
+            return torch.float16
         return config.torch_compute_dtype
     return spec.dtype.torch
 
@@ -213,7 +221,7 @@ class _Planner:
                 return ("static", self.static_weights[spec.name])
             if spec.name in self._arg_set:
                 w = self._arg_set[spec.name]
-                dt = self.config.torch_compute_dtype if w.quant else w.upload_dtype
+                dt = self.config.torch_compute_dtype if w.quant else (w.read_dtype or w.upload_dtype)
                 return ("sym", ShapeDtype(w.shape, dt))
             # undecided weight: int64 weights are shape math -> always static
             if spec.dtype == DType.int64:
@@ -269,14 +277,17 @@ class _Planner:
         weight (``_kmajor``) and for an int8 MatMul weight of kernel 6
         (``_dyn_kmajor``); ``"ohwi"`` for a calibrated W8A8 Conv's 4-D
         weight that the pipeline takes (``qconv_takes_nhwc``), read by this op
-        alone. The executor then quantizes that conv's input channels-last."""
+        alone (the executor then quantizes that conv's input channels-last),
+        and for the 4-D weight of a ``layout:NHWC`` Conv read by it alone, so
+        that cuDNN gets both operands channels-last."""
         if self._kmajor(op, i) or self._dyn_kmajor(op, i):
             return "tnk"
         spec = op.inputs[i]
-        if (i == 1 and qlinear_mode(op, self.config) == "conv" and len(spec.shape) == 4
-                and qconv_takes_nhwc(spec.shape[1]) and not spec.transform
-                and self._wuse.get(spec.name, 0) == 1):
+        alone = i == 1 and len(spec.shape) == 4 and not spec.transform and self._wuse.get(spec.name, 0) == 1
+        if alone and qlinear_mode(op, self.config) == "conv" and qconv_takes_nhwc(spec.shape[1]):
             return "ohwi"
+        if alone and op.op_type == "Conv" and op.attr("layout") == "NHWC":
+            return "ohwi"  # the channel-last Conv of the layout pass reads it so (ops/standard.py)
         return None
 
     def _promote_weight_to_arg(self, spec: TensorSpec, relayout: Optional[str] = None) -> WeightArg:
@@ -292,15 +303,18 @@ class _Planner:
             if quant is None and spec.name in self.config.force_uint8_storage_set and spec.dtype.is_float:
                 quant = (0.0, 0)  # placeholder; the executor sets the real ones at first fetch
                 symmetric = self.config.int8_symmetric_storage and len(spec.shape) == 2
+            upload = _upload_dtype(spec, self.config)
+            cdt = self.config.torch_compute_dtype
             w = WeightArg(
                 name=spec.name,
                 file_dtype=spec.dtype,
-                upload_dtype=_upload_dtype(spec, self.config),
+                upload_dtype=upload,
                 shape=shape,
                 quant=quant,
                 symmetric=symmetric,
                 transform=transform,
                 file_shape=file_shape,
+                read_dtype=cdt if quant is None and upload.is_floating_point and upload != cdt else None,
             )
             self._arg_set[spec.name] = w
             self.arg_weights.append(w)

@@ -25,6 +25,7 @@ from onnxstream_tpu_torch.ops import registered_ops
 from onnxstream_tpu_torch.runtime.config import SessionConfig, default_device
 from onnxstream_tpu_torch.runtime.executor import Executor
 from onnxstream_tpu_torch.runtime.fusion import fuse_attention, fuse_gn_conv, fuse_groupnorm, rewrite_smallconv
+from onnxstream_tpu_torch.runtime.layout import rewrite_nhwc
 from onnxstream_tpu_torch.runtime.planner import ShapeDtype, plan_graph
 from onnxstream_tpu_torch.runtime.weights import CollectNamesWeightsProvider, WeightsProvider, make_provider
 
@@ -65,14 +66,17 @@ class Session:
         self._rebuild_graph()
 
     def _rebuild_graph(self) -> None:
-        """Graph-level rewrites from the raw parse: attention fusion, then the
-        GroupNorm fusions and the small-conv rewrite. Re-run whenever options or extra outputs change:
-        the passes read the config."""
+        """Graph-level rewrites from the raw parse: attention fusion, the
+        GroupNorm fusions and the small-conv rewrite, then the channel-last
+        layout pass (runtime/layout.py), in the JAX package's order. Re-run
+        whenever options or extra outputs change: the passes read the config,
+        and the layout pass keeps every extra output fetchable in NCHW."""
         self.graph = fuse_attention(self._raw_graph, self.config, self._loader)
         # the conv-absorbing fusion first: fuse_groupnorm takes what it leaves
         self.graph = fuse_gn_conv(self.graph, self.config, self._loader)
         self.graph = rewrite_smallconv(self.graph, self.config, self._loader)
         self.graph = fuse_groupnorm(self.graph, self.config, self._loader)
+        self.graph = rewrite_nhwc(self.graph, self.config, keep_names=self.config.extra_outputs)
         self._executors.clear()
 
     @property

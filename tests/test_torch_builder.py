@@ -105,6 +105,9 @@ def test_import_pulls_in_neither_jax_nor_ml_dtypes():
         "import onnxstream_tpu_torch.api.capi, onnxstream_tpu_torch.api.bindings\n"
         "import onnxstream_tpu_torch.cli.serve_main, onnxstream_tpu_torch.cli.compare_main\n"
         "import onnxstream_tpu_torch.runtime.weights, onnxstream_tpu_torch.runtime.native\n"
+        "import onnxstream_tpu_torch.runtime.layout, onnxstream_tpu_torch.convert.onnx2txt\n"
+        "import onnxstream_tpu_torch.convert.onnxproto, onnxstream_tpu_torch.cli.onnx2txt_main\n"
+        "import onnxstream_tpu_torch.utils.download, onnxstream_tpu_torch.models.sd.hf\n"
         "bad = [m for m in ('jax', 'ml_dtypes', 'onnxstream_tpu') if m in sys.modules]\n"
         "assert not bad, bad\n"
     )

@@ -408,3 +408,75 @@ def test_flash_variant_packed_form_takes_no_mask():
         flash_variant(q, k, v, mask, form="packed_heads")
 
 
+
+
+# ------------------------------------------- flash_packed_nopad: kernel 2's route
+NOPAD_CASES = [  # name, b, h, hkv, m, n, d, causal: the SD1.5 UNet's unaligned head dims
+    ("d40", 1, 2, 2, 128, 256, 40, False),
+    ("d80", 1, 2, 2, 96, 200, 80, False),
+    ("d40_gqa_causal", 1, 4, 2, 64, 64, 40, True),
+]
+
+
+@pytest.mark.parametrize("case", NOPAD_CASES, ids=[c[0] for c in NOPAD_CASES])
+def test_nopad_route_matches_jax_interpret_kernel(case):
+    """flash_attention_packed(nopad=True) on CPU tensors: the head-major
+    twin on head-major views, held to JAX's nopad route (the unpadded
+    head-major Pallas kernel in interpret mode) at 1e-4; kernel 1's and
+    kernel 2's launch counters do not move."""
+    _, b, h, hkv, m, n, d, causal = case
+    rng = np.random.default_rng(11)
+    q = rng.standard_normal((b, m, h * d), dtype=np.float32)
+    k = rng.standard_normal((b, n, hkv * d), dtype=np.float32)
+    v = rng.standard_normal((b, n, hkv * d), dtype=np.float32)
+    want = np.asarray(jax_flash_packed(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), h, causal=causal,
+                                       block_m=64, block_n=128, interpret=True, nopad=True))
+    before = (flash_attention_packed.launches, flash_attention.launches)
+    got = flash_attention_packed(_t(q), _t(k), _t(v), h, causal=causal, nopad=True)
+    assert (flash_attention_packed.launches, flash_attention.launches) == before
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    np.testing.assert_allclose(got.numpy(), flash_attention_packed_reference(_t(q), _t(k), _t(v), h,
+                                                                             causal=causal).numpy(), **TOL)
+
+
+def test_nopad_keeps_kernel_1_at_aligned_head_dims_and_raises_where_kernel_2_refuses():
+    """d % 128 == 0 keeps the packed form; a head dim above kernel 2's 256
+    that kernel 1 takes (264) raises with kernel 2's reason instead of
+    quietly keeping kernel 1."""
+    q = torch.zeros(1, 16, 2 * 128)
+    torch.testing.assert_close(flash_attention_packed(q, q, q, 2, nopad=True),
+                               flash_attention_packed_reference(q, q, q, 2))
+    q = torch.zeros(1, 16, 264)
+    flash_attention_packed(q, q, q, 1)  # kernel 1's twin takes it
+    with pytest.raises(ValueError, match="head-major kernel cannot take"):
+        flash_attention_packed(q, q, q, 1, nopad=True)
+
+
+def test_nopad_views_are_what_kernel_2_takes():
+    """The head-major views of packed operands at the SD1.5 UNet's sites
+    (d = 40, 80, 160): unit last stride, kernel 2's predicate admits them,
+    and its dispatcher sends d = 40 and 80 to the wgmma variant."""
+    for m, h, d in ((4096, 8, 40), (1024, 8, 80), (256, 8, 160)):
+        q = torch.empty(1, m, h * d, dtype=torch.bfloat16)
+        qh = q.unflatten(-1, (h, d)).transpose(1, 2)
+        assert qh.stride() == (m * h * d, d, h * d, 1)
+        assert head_major_problem(qh, qh, qh) is None
+        want = "wgmma" if d <= 128 else "fma"
+        assert flash_variant(qh, qh, qh) == want
+
+
+def test_head_major_out_takes_a_packed_view_and_checks_it():
+    """flash_attention(out=...) writes into a head-major view of a packed
+    (B, M, H*Dv) tensor (what the nopad route passes) and returns it; an out
+    of another shape or dtype, or without a unit last stride, raises."""
+    rng = np.random.default_rng(4)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 2, 24, 40), dtype=np.float32)) for _ in range(3))
+    packed = torch.empty(1, 24, 80)
+    view = packed.unflatten(-1, (2, 40)).transpose(1, 2)
+    got = flash_attention(q, k, v, out=view)
+    assert got.data_ptr() == packed.data_ptr()
+    torch.testing.assert_close(packed, flash_attention_reference(q, k, v).transpose(1, 2).reshape(1, 24, 80))
+    for bad in (torch.empty(1, 2, 24, 48), torch.empty(1, 2, 24, 40, dtype=torch.float64),
+                torch.empty(1, 2, 40, 24).transpose(2, 3)):
+        with pytest.raises(ValueError, match="out must be"):
+            flash_attention(q, k, v, out=bad)

@@ -218,3 +218,39 @@ def test_packed_wgmma_variants_match_twin_on_card(case, dtype):
     assert torch.equal(out, again)
     if causal and m > n:
         assert out[:, : m - n].abs().max().item() == 0.0
+
+
+# ------------------------------------- flash_packed_nopad: kernel 2 on packed operands
+NOPAD_CASES = [
+    # name, b, m, n, heads, d, variant kernel 2 takes: the SD1.5 UNet's self-attention sites
+    # (d = 40 at 4096 tokens, 80 at 1024, 160 at 256), unmasked and non-causal
+    ("d40_sd15", 1, 4096, 4096, 8, 40, "wgmma"),
+    ("d80_sd15", 1, 1024, 1024, 8, 80, "wgmma"),
+    ("d160_sd15", 1, 256, 256, 8, 160, "fma"),
+    ("d40_ragged_b2", 2, 77, 300, 8, 40, "wgmma"),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", NOPAD_CASES, ids=[c[0] for c in NOPAD_CASES])
+def test_nopad_route_matches_twin_on_card(case, dtype):
+    """flash_attention_packed(nopad=True) at head dims off 128: one launch of
+    kernel 2 on head-major views (the packed kernel's counter stays), held to
+    the packed twin; a second call gives the same bits."""
+    _card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    name, b, m, n, h, d, want = case
+    rng = np.random.default_rng(9)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s, dtype=np.float32)).cuda().to(dtype)
+               for s in ((b, m, h * d), (b, n, h * d), (b, n, h * d)))
+    heads = lambda t: t.unflatten(-1, (h, d)).transpose(1, 2)
+    assert flash_variant(heads(q), heads(k), heads(v)) == (want if dtype != torch.float32 else "fma")
+    before = (flash_attention_packed.launches, flash_attention.launches)
+    out = flash_attention_packed(q, k, v, h, nopad=True)
+    again = flash_attention_packed(q, k, v, h, nopad=True)
+    torch.cuda.synchronize()
+    assert (flash_attention_packed.launches, flash_attention.launches) == (before[0], before[1] + 2)
+    ref = flash_attention_packed_reference(q, k, v, h)
+    _assert_matches_twin(out, ref, 1e-4 if dtype == torch.float32 else 2e-2)
+    assert torch.equal(out, again)

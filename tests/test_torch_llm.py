@@ -321,10 +321,43 @@ def test_requires_upcast_is_asked_once_per_op_not_per_run():
     assert len(calls) == len(s.graph.ops) and any("input_layernorm" in n for n in calls)
 
 
-@pytest.mark.parametrize("source", [["--synthetic", "tiny"], ["--hf-path", "no-such-checkpoint"]])
-def test_cli_refuses_download_whatever_the_source(source):
-    with pytest.raises(NotImplementedError, match="--download"):
-        port_cli(source + ["--download", "--device", "cpu", "--prompt", "hi"])
+@pytest.mark.parametrize("source", [["--model", "tinyllama"], ["--model", "mistral"]])
+def test_cli_refuses_download_whatever_the_source(source, tmp_path, monkeypatch, capsys):
+    """--download is no longer refused: with --models-path the CLI fetches
+    the model's catalog entry first, as the JAX CLI does. The catalog entry
+    points at a file:// folder holding LLAMA_TINY in the reference's layout
+    (vocab.txt, model.txt, one .bin a weight), and the full-size config is
+    swapped for LLAMA_TINY; the chat from the fetched folder prints what a
+    chat from the source folder prints."""
+    from onnxstream_tpu_torch.models.llm import llama as port_llama
+    from onnxstream_tpu_torch.utils.download import MODEL_CATALOG
+
+    src, dst = tmp_path / "src", tmp_path / "dst"
+    src.mkdir()
+    # the model's parameters, one .bin each, declared in model.txt (the builder's shape
+    # constants depend on the bucket and stay out, as the pipeline builds them itself)
+    b = port_llama.build_llama(port_llama.LLAMA_TINY, 8, 0)
+    params = {n: np.asarray(a) for n, a in b.weights.items() if n.startswith(("model.", "lm_head"))}
+    lines = []
+    for i, (n, a) in enumerate(params.items()):
+        a.tofile(str(src / n))
+        dims = ",".join(map(str, a.shape))
+        lines.append(f"p{i}:Identity*input:{n}(float32:{dims})*output:o{i}({dims})")
+    (src / "model.txt").write_text("\n".join(lines) + "\n")
+    (src / "vocab.txt").write_text("".join(f"0,<0x{i:02X}>\n" for i in range(256)))
+    name = "TinyLlama-1.1B-Chat-v0.3-fp16" if source[1] == "tinyllama" else "Mistral-7B-Instruct-v0.2-fp16"
+    monkeypatch.setitem(MODEL_CATALOG, name, {**MODEL_CATALOG[name], "url": f"file://{src}/"})
+    monkeypatch.setattr(port_llama, "TINYLLAMA", port_llama.LLAMA_TINY)
+    monkeypatch.setattr(port_llama, "MISTRAL", port_llama.LLAMA_TINY)
+    argv = source + ["--device", "cpu", "--compute-dtype", "float32", "--prompt", "hi", "--max-new-tokens", "4"]
+    assert port_cli(argv + ["--models-path", str(src)]) == 0
+    want = capsys.readouterr().out
+    assert port_cli(argv + ["--models-path", str(dst), "--download"]) == 0
+    got = capsys.readouterr().out
+    assert "done!" in want and got.replace("Downloading weights", "") .count("done!") >= 1
+    assert got.splitlines()[-2:] == want.splitlines()[-2:]
+    fetched = {p.name for p in dst.iterdir()}
+    assert fetched == {p.name for p in src.iterdir()} and len(fetched) == len(params) + 2 > 20
 
 
 @pytest.fixture(scope="module")

@@ -118,18 +118,25 @@ def test_cases_cover_exactly_the_ported_ops():
 
 
 def test_layout_pass_ops_are_refused():
-    """The two op types only the channel-last layout pass emits, and any op
-    that pass rewrote (layout:NHWC), raise until the pass is ported."""
+    """Nothing of the layout pass is refused any more: the two op types only
+    the channel-last layout pass emits are registered, and an op that pass
+    rewrote (layout:NHWC) computes on (N, H, W, C) what its NCHW form
+    computes on the transposed tensor (float32, up to the order of the
+    mean's sum)."""
     for op_type in ("ostpu.groupnorm", "ostpu.reshape"):
-        assert op_type not in registered_ops()
-    for key, attrs in (("MaxPool", {"kernel_shape": "2,2", "layout": "NHWC"}),
-                       ("GlobalAveragePool", {"layout": "NHWC"})):
-        text, inputs, _ = _case(key, {"a": _rand(1, 4, 4, 2)}, {}, [(1, 2, 2, 2)], attrs)
-        ps = Session(SessionConfig(device=torch.device("cpu")), weights_provider=DictWeightsProvider({}))
-        ps.read_string(text)
-        ps.add_tensor("a", _rand(1, 4, 4, 2))
-        with pytest.raises(Exception, match="Queue 1 item 7"):
-            ps.run()
+        assert op_type in registered_ops()
+    a = _rand(1, 4, 4, 2)
+    for key, attrs, out in (("MaxPool", {"kernel_shape": "2,2"}, (1, 2, 3, 3)),
+                            ("GlobalAveragePool", {}, (1, 2, 1, 1))):
+        outs = []
+        for layout, x in (("NHWC", a), ("NCHW", a.transpose(0, 3, 1, 2))):
+            shape = out if layout == "NCHW" else (out[0], out[2], out[3], out[1])
+            text, _, _ = _case(key, {"a": x}, {}, [shape], {**attrs, **({"layout": "NHWC"} if layout == "NHWC" else {})})
+            ps = Session(SessionConfig(device=torch.device("cpu")), weights_provider=DictWeightsProvider({}))
+            ps.read_string(text)
+            ps.add_tensor("a", x)
+            outs.append(ps.run()["y0"])
+        np.testing.assert_allclose(outs[0].transpose(0, 3, 1, 2), outs[1], rtol=1e-6, atol=1e-7)
 
 
 def test_maxpool_dilations_are_refused_as_in_jax():

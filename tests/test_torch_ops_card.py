@@ -4,7 +4,9 @@ This module imports neither JAX nor the JAX package, so it runs where only
 PyTorch and a card are (``python -m pytest --noconftest -m gpu`` there). It
 holds ``OP_CASES``: one-op model.txt graphs with seeded inputs and weights for
 the op types the port took from the JAX registry with the Whisper and YOLO
-slice, and Conv of rank 3. ``tests/test_torch_ops.py`` runs each of them
+slice, Conv of rank 3, and what the channel-last layout pass emits (the
+``layout:NHWC`` forms of Conv, the pools and Resize, ``ostpu.groupnorm``,
+``ostpu.reshape``). ``tests/test_torch_ops.py`` runs each of them
 through the JAX Session and the port's Session on the CPU; the test here runs
 the port's Session on the card against the port's on the CPU, and
 ``chip_smoke.py`` (``phase_ops``) does the same. Keys are op types; a second
@@ -139,6 +141,33 @@ def _op_cases():
         "Conv", {"x": rand(1, 4, 10, seed=19)},
         {"w": rand(6, 4, 3, seed=20) / math.sqrt(12), "b": rand(6, seed=21)}, [(1, 6, 5)],
         {"dilations": "1", "group": 1, "kernel_shape": "3", "pads": "1,1", "strides": "2"})
+    # what the channel-last layout pass (runtime/layout.py) emits: the layout:NHWC forms on
+    # (N, H, W, C) activations (the Conv weight stays OIHW), ostpu.groupnorm and ostpu.reshape
+    xn = rand(2, 8, 8, 6, seed=40)
+    c["Conv[nhwc]"] = op_case(
+        "Conv", {"x": xn}, {"w": rand(4, 6, 3, 3, seed=41) / math.sqrt(54), "b": rand(4, seed=42)}, [(2, 4, 4, 4)],
+        {"dilations": "1,1", "group": 1, "kernel_shape": "3,3", "pads": "1,1,1,1", "strides": "2,2",
+         "layout": "NHWC"})
+    c["MaxPool[nhwc]"] = op_case("MaxPool", {"a": xn}, {}, [(2, 4, 4, 6)],
+                                 {"kernel_shape": "3,3", "strides": "2,2", "pads": "0,0,0,0", "ceil_mode": 1,
+                                  "layout": "NHWC"})
+    c["AveragePool[nhwc]"] = op_case("AveragePool", {"a": xn}, {}, [(2, 5, 5, 6)],
+                                     {"kernel_shape": "3,3", "strides": "2,2", "pads": "1,1,1,1", "ceil_mode": 1,
+                                      "layout": "NHWC"})
+    c["GlobalAveragePool[nhwc]"] = op_case("GlobalAveragePool", {"a": xn}, {}, [(2, 1, 1, 6)], {"layout": "NHWC"})
+    c["Resize[nhwc]"] = op_case(
+        "Resize", {"x": xn}, {"scales": np.array([1, 1, 2, 2], np.float32)}, [(2, 16, 16, 6)],
+        {"coordinate_transformation_mode": "asymmetric", "mode": "nearest", "nearest_mode": "floor",
+         "layout": "NHWC"}, order=["x", "", "scales"])
+    c["Resize[nhwc_linear]"] = op_case(
+        "Resize", {"x": xn}, {"scales": np.array([1, 1, 1.5, 2], np.float32)}, [(2, 12, 16, 6)],
+        {"coordinate_transformation_mode": "half_pixel", "mode": "linear", "layout": "NHWC"},
+        order=["x", "", "scales"])
+    c["ostpu.groupnorm"] = op_case(
+        "ostpu.groupnorm", {"x": rand(2, 4, 5, 8, seed=43) * 2 + 0.5},
+        {"s": 1 + 0.1 * rand(2, seed=44), "b": 0.1 * rand(2, seed=45)}, [(2, 4, 5, 8)],
+        {"groups": 2, "epsilon": 1e-5, "layout": "NHWC"})
+    c["ostpu.reshape"] = op_case("ostpu.reshape", {"a": xn}, {}, [(2, 64, 6)], {"shape": "2,64,6"})
     return c
 
 

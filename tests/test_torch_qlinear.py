@@ -411,7 +411,9 @@ def test_planner_leaves_the_weights_alone_without_the_w8a8_route():
 
 def test_config_options():
     """The calibrated options are taken, and so are the GroupNorm and
-    small-conv routes; the options still unported raise."""
+    small-conv routes and the options ported last (no option of the JAX
+    config that the port keeps raises); the layout pass stays off under the
+    uint8 modes, whose calibration keys the NCHW op stream."""
     cfg = SessionConfig(device=CPU, use_uint8_arithmetic=True, use_uint8_qdq=True)
     cfg.set_option("use_uint8_arithmetic", False)
     cfg.set_option("use_uint8_qdq", False)
@@ -420,8 +422,16 @@ def test_config_options():
         cfg.set_option(opt, True)
         assert getattr(cfg, opt) is True
     for opt in ("flash_packed_nopad", "force_fp16_storage", "use_nhwc_layout"):
-        with pytest.raises(NotImplementedError):
-            SessionConfig(device=CPU, **{opt: True})
+        assert getattr(SessionConfig(device=CPU, **{opt: True}), opt) is True
+        cfg.set_option(opt, True)
+        assert getattr(cfg, opt) is True
+    from onnxstream_tpu_torch.ir import parse_model_txt
+    from onnxstream_tpu_torch.runtime.layout import rewrite_nhwc
+
+    g = parse_model_txt("c:Conv*input:x(1,2,4,4);w.bin(float32:3,2,1,1)*output:y(1,3,4,4)")
+    for mode in ("use_uint8_arithmetic", "use_uint8_qdq", "range_data_calibrate"):
+        assert rewrite_nhwc(g, SessionConfig(device=CPU, use_nhwc_layout=True, **{mode: True})) is g
+    assert rewrite_nhwc(g, SessionConfig(device=CPU, use_nhwc_layout=True)) is not g
 
 
 # ------------------------------------- kernel 4's channels-last wgmma route

@@ -230,11 +230,58 @@ def test_sd_cli_decode_latents_and_calibrate(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flag", ["--download"])
-def test_sd_cli_refuses_later_slices(flag):
+def test_sd_cli_refuses_later_slices(flag, tmp_path, monkeypatch):
+    """--download is no longer refused: with --models-path the CLI fetches
+    the stable-diffusion-1.5 catalog entry first, as the JAX CLI does. The
+    entry points at a file:// folder in the reference's layout written from
+    the TINY graphs (tokenizer, text_encoder_fp32, unet_fp16, vae_decoder_fp16,
+    vae_decoder_qu8 with its range_data.txt); every file arrives, and a
+    decode from the fetched folder writes the bytes a decode from the source
+    folder writes."""
     from onnxstream_tpu_torch.cli.sd_main import main
+    from onnxstream_tpu_torch.convert.quantize import quantize_graph_weights
+    from onnxstream_tpu_torch.models.sd.clip import CLIP_TINY, build_text_encoder
+    from onnxstream_tpu_torch.models.sd.unet import TINY, build_unet
+    from onnxstream_tpu_torch.utils.download import MODEL_CATALOG
 
-    with pytest.raises(NotImplementedError):
-        main(["--synthetic", "tiny", "--device", "cpu", flag])
+    src, dst = tmp_path / "src", tmp_path / "dst"
+    build_text_encoder(CLIP_TINY, seed=0).save(str(src / "text_encoder_fp32"))
+    build_unet(TINY, seed=1).save(str(src / "unet_fp16"), float16=True)
+    vae = build_vae_decoder(dataclasses.replace(VAE_TINY, sample=16), seed=2)
+    vae.save(str(src / "vae_decoder_fp16"), float16=True)
+    text, weights = quantize_graph_weights(vae.to_text(), vae.weights)
+    qdir = src / "vae_decoder_qu8"
+    qdir.mkdir()
+    (qdir / "model.txt").write_text(text)
+    for name, arr in weights.items():
+        os.makedirs(os.path.dirname(str(qdir / name)), exist_ok=True)
+        np.asarray(arr).tofile(str(qdir / name))
+    ranges = RangeData()
+    ranges.update("latent", -3.0, 3.0)
+    ranges.write(str(qdir / "range_data.txt"))
+    (src / "tokenizer").mkdir()
+    (src / "tokenizer" / "vocab.txt").write_text("".join(chr(ord("a") + i) + "</w>\n" for i in range(26)))
+    (src / "tokenizer" / "merges.txt").write_text("#version: 0.2\n")
+    # the converter writes each Conv weight twice, *_nchw.bin and its (0, 2, 3, 1) *_nhwc.bin companion,
+    # which the reference's folders hold and the downloader fetches
+    from onnxstream_tpu_torch.ir import parse_model_txt
+
+    for folder in ("text_encoder_fp32", "unet_fp16", "vae_decoder_fp16", "vae_decoder_qu8"):
+        for t in parse_model_txt((src / folder / "model.txt").read_text()).weights.values():
+            if t.name.endswith("_nchw.bin"):
+                a = np.fromfile(str(src / folder / t.name), t.dtype.storage_np).reshape(t.shape)
+                np.ascontiguousarray(a.transpose(0, 2, 3, 1)).tofile(str(src / folder / (t.name[:-9] + "_nhwc.bin")))
+    name = "stable-diffusion-1.5"
+    monkeypatch.setitem(MODEL_CATALOG, name, {**MODEL_CATALOG[name], "url": f"file://{src}/"})
+    lat = str(tmp_path / "l.bin")
+    _latent().astype(np.float32).tofile(lat)
+    argv = ["--device", "cpu", "--res", "128x128", "--decode-latents", lat, "--compute-dtype", "float32",
+            "--not-tiled"]
+    assert main(argv + ["--models-path", str(src), "--output", str(tmp_path / "want.png")]) == 0
+    assert main(argv + ["--models-path", str(dst), flag, "--output", str(tmp_path / "got.png")]) == 0
+    rel = lambda root: sorted(os.path.relpath(os.path.join(d, f), root) for d, _, fs in os.walk(root) for f in fs)
+    assert rel(str(dst)) == rel(str(src)) and len(rel(str(src))) > 100
+    assert (tmp_path / "got.png").read_bytes() == (tmp_path / "want.png").read_bytes()
 
 
 # ------------------------------------------------- the copied numpy modules

@@ -102,14 +102,108 @@ def test_strict_shapes_plan_error():
     np.testing.assert_array_equal(s.run()["y"], np.full((2, 3), 2.0, np.float32))
 
 
-@pytest.mark.parametrize("name", ["flash_packed_nopad", "force_fp16_storage", "use_nhwc_layout"])
+@pytest.mark.parametrize("name", ["flash_packed_nopad", "force_fp16_storage", "use_nhwc_layout",
+                                  "use_ops_cache", "use_next_op_cache"])
 def test_unimplemented_options_raise(name):
-    with pytest.raises(NotImplementedError):
-        SessionConfig(device=CPU, **{name: True})
-    s = Session(SessionConfig(device=CPU))
-    with pytest.raises(NotImplementedError):
-        s.set_option(name, True)
-    s.set_option(name, False)  # the default is accepted
+    """The options the port used to refuse are taken now, at both values, by
+    the config and by set_option, which re-plans: the loaded graph is
+    rewritten from the raw parse (the layout pass only under
+    use_nhwc_layout) and the executors are dropped. The reference's cache
+    options are accepted and change nothing, as in the JAX package."""
+    default = getattr(SessionConfig(device=CPU), name)
+    assert getattr(JaxConfig(), name) is default
+    assert getattr(SessionConfig(device=CPU, **{name: not default}), name) is (not default)
+    g = build_unet(TINY)
+    s = Session(SessionConfig(device=CPU), weights_provider=DictWeightsProvider(params_from_numpy(g.weights)))
+    s.read_string(g.to_text())
+    before = [op.op_type for op in s.graph.ops]
+    s._executors[("bucket",)] = None
+    s.set_option(name, not default)
+    assert getattr(s.config, name) is (not default) and not s._executors
+    after = [op.op_type for op in s.graph.ops]
+    assert (after != before) == (name == "use_nhwc_layout")
+    s.set_option(name, default)
+    assert [op.op_type for op in s.graph.ops] == before
+
+
+def test_jax_configs_with_the_cache_options_off_run_the_same(tiny):
+    """use_ops_cache=False / use_next_op_cache=False, accepted by the JAX
+    config as no-ops, run in the port too and give the same output."""
+    g, inputs = tiny
+    want = _port(g, inputs).run()["out_sample"]
+    got = _port(g, inputs, use_ops_cache=False, use_next_op_cache=False).run()["out_sample"]
+    np.testing.assert_array_equal(got, want)
+
+
+def test_fp16_storage_upload_dtypes_match_jax(tiny):
+    """force_fp16_storage: the port's _upload_dtype equals JAX's for every
+    weight of the TINY UNet, under float32 compute (float16 residency) and
+    bfloat16 compute (no effect)."""
+    from onnxstream_tpu.ir import parse_model_txt as jax_parse
+    from onnxstream_tpu.runtime.planner import _upload_dtype as jax_upload_dtype
+    from onnxstream_tpu_torch.ir import parse_model_txt
+    from onnxstream_tpu_torch.runtime.planner import _upload_dtype
+
+    g, _ = tiny
+    ours, theirs = parse_model_txt(g.to_text()), jax_parse(g.to_text())
+    assert len(ours.weights) == len(theirs.weights) > 100
+    for compute in ("float32", "bfloat16"):
+        cfg = SessionConfig(device=CPU, compute_dtype=compute, force_fp16_storage=True)
+        jcfg = JaxConfig(compute_dtype=compute, force_fp16_storage=True)
+        for name, spec in ours.weights.items():
+            want = np.dtype(jax_upload_dtype(theirs.weights[name], jcfg)).name
+            assert str(_upload_dtype(spec, cfg)).replace("torch.", "") == want, name
+
+
+def test_fp16_storage_matches_jax_and_halves_the_weights(tiny):
+    """float32 compute with float16-resident float weights: the output
+    matches the JAX session under the same config to 1e-4, the resident
+    weight bytes are half the float32 run's, each weight is read as a float32
+    copy (the accounting counts the largest op's copies), and a streamed run
+    gives the resident run's bits."""
+    g, inputs = tiny
+    ps = _port(g, inputs, force_fp16_storage=True)
+    got = ps.run()["out_sample"]
+    want = _jax(g, inputs, force_fp16_storage=True).run()["out_sample"]
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+    full = _port(g, inputs)
+    full.run()
+    ex, ex32 = ps._executor(), full._executor()
+    floats = [w for w in ex.plan.arg_weights if w.file_dtype.is_float]
+    assert floats and all(w.upload_dtype == torch.float16 and w.read_dtype == torch.float32 for w in floats)
+    assert ex.weight_bytes() * 2 == ex32.weight_bytes()
+    acc, acc32 = ex.hbm_accounting(), ex32.hbm_accounting()
+    assert acc["weight_bytes"] * 2 == acc32["weight_bytes"]
+    assert acc["segment_activation_bytes"][0] > acc32["segment_activation_bytes"][0]
+    streamed = _port(g, inputs, force_fp16_storage=True, hbm_budget_bytes=64 << 10)
+    np.testing.assert_array_equal(streamed.run()["out_sample"], got)
+    assert len(streamed._executor().segments) > 1
+
+
+def test_tiny_unet_with_flash_packed_nopad_matches_jax(tiny):
+    """flash_packed_nopad taken in both packages: the TINY UNet's output
+    matches the JAX session under the same option (the CPU takes the
+    reference paths in both)."""
+    g, inputs = tiny
+    got = _port(g, inputs, flash_packed_nopad=True).run()["out_sample"]
+    want = _jax(g, inputs, flash_packed_nopad=True).run()["out_sample"]
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_tiny_unet_channel_last_matches_jax(tiny, dtype):
+    """use_nhwc_layout in both Sessions: float32 within 1e-4, bfloat16
+    within 5e-2 * max|jax|, and the channel-last graph equals JAX's op for
+    op in its types."""
+    g, inputs = tiny
+    ps = _port(g, inputs, compute_dtype=dtype, use_nhwc_layout=True)
+    js = _jax(g, inputs, compute_dtype=dtype, use_nhwc_layout=True)
+    assert [op.op_type for op in ps.graph.ops] == [op.op_type for op in js.graph.ops]
+    got, want = ps.run()["out_sample"], js.run()["out_sample"]
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+    else:
+        assert float(np.abs(got - want).max() / np.abs(want).max()) <= 5e-2
 
 
 @pytest.mark.parametrize("name", ["fuse_gn_conv", "fuse_groupnorm", "use_pallas_smallconv"])
@@ -153,9 +247,9 @@ def test_quantized_weights_and_unported_ops_raise():
     np.testing.assert_allclose(s.run()["y"], a @ ((w.numpy().astype(np.float32) - 3) * 0.5), rtol=1e-6)
     assert s._executor().quant_routes == {"t/mm": "w8_matmul"}
     s = Session(SessionConfig(device=CPU))
-    s.read_string("t/gn:ostpu.groupnorm*input:a(1,2,2,4)*output:y(1,2,2,4)*groups:2")
+    s.read_string("t/nms:NonMaxSuppression*input:a(1,2,2,4)*output:y(1,2,2,4)")
     s.add_tensor("a", np.ones((1, 2, 2, 4), np.float32))
-    with pytest.raises(PlanError, match="ostpu.groupnorm"):
+    with pytest.raises(PlanError, match="NonMaxSuppression"):
         s.run()
 
 

@@ -309,5 +309,5 @@ def test_names_api_matches_jax(models):
 def test_supported_ops_differ_from_jax_only_by_the_pinned_set():
     ours, theirs = set(supported_ops()), set(jax_registered_ops())
     assert ours - theirs == {"ostpu.conv3x3_im2col"}
-    # refused until the layout rewrite is ported (ROADMAP Queue 1 item 7)
-    assert theirs - ours == {"ostpu.groupnorm", "ostpu.reshape"}
+    # the layout pass's two op types are ported too: the JAX registry has no op the port lacks
+    assert theirs - ours == set()
