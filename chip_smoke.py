@@ -267,6 +267,30 @@ Phases (any failure exits non-zero and prints no result line):
      on the card, twice with equal bits, and held to the same module with its
      float16-rounded weights in float32 within rel 5e-3; export, conversion
      and run times, op counts and the ostpu.sdpa sites after fusion.
+ 18. the sharded serving path (phase_parallel, after phase_llm_int8):
+     parallel.launch.spawn starts two gloo ranks on the one card (NCCL
+     refuses two ranks on one device): TinyLlama 1.1B at full width under
+     make_mesh(2, dp=1, tp=2) with its weights synthesized on the card, a
+     700-token prefill (bucket 1024) and 32 greedy tokens, in float32
+     (logits within 1e-4 * max|logits| of the one-rank pipeline on the same
+     seeds, the same 32 tokens) and bf16 (within 5e-2 * max, token agreement
+     printed); in both, 8 decode steps fed the one-rank float32 run's tokens,
+     each step's logits within the same bound of the one-rank run's (printed
+     beside both runs' gap to the float32 model); kernel 2 launched 22 times
+     a prefill at (1, 16, 1024, 64) on
+     each rank, every call held to its twin; the SD15 UNet at batch 2 (the
+     CFG pair, bf16, synthesized weights) under make_mesh(2, dp=2) and
+     make_mesh(2, tp=2), each within 5e-2 * max|out| of the one-rank batch-2
+     run, kernel 1's every call held to its twin at the local shapes; per
+     rank the device weight bytes beside the one-rank run's, prefill ms,
+     decode ms/token, gathers (calls, bytes, ms) a token or a run and device
+     busy. Two ranks on one card show the sharded path's overhead, not a
+     tensor-parallel speedup. Then a one-rank NCCL mesh (make_mesh(1): a
+     gather on the card, the UNet bit for bit with the run without a mesh)
+     and pp_devices=[cuda:0, cuda:0] at 512 MiB (two contiguous stages,
+     nothing uploaded again on the second run, bit for bit with the
+     resident run). The ranks report their launch counts: tp2_llm (kernel
+     2), dp2_unet and tp2_unet (kernel 1) under launches_by_path.
 
 Each path's launch counts are set to 0 just before it and read just after;
 launches made to compare a kernel with its twin come after the read. The
@@ -4412,6 +4436,351 @@ def phase_convert(name: str) -> dict:
     return out
 
 
+# --------------------------------------------------------------- phase_parallel
+PARALLEL_TOKENS = 32  # greedy tokens after the TinyLlama prefill
+PARALLEL_FORCED = 8  # decode steps fed the one-rank float32 run's tokens, logits compared step by step
+
+
+def _forced_logits(pipe, prompt, tokens) -> list:
+    """Last logits of the prefill and of PARALLEL_FORCED decode steps fed
+    ``tokens`` (the one-rank float32 run's, in both dtypes): the gap step by
+    step, free of the divergence a flipped greedy token starts."""
+    pipe.reset()
+    out = [pipe.forward(prompt)[1]]
+    for t in tokens[:PARALLEL_FORCED]:
+        out.append(pipe.forward([t])[1])
+    return out
+
+
+class _EveryCall:
+    """Stands in for a flash wrapper inside a rank: every call's kernel
+    output is held against the twin on the graph's operands at their local
+    shapes; the kernel's launch count is the wrapper's own."""
+
+    def __init__(self, kernel, twin, tol: float):
+        self.kernel, self.twin, self.tol = kernel, twin, tol
+        self.calls, self.bad, self.worst, self.shapes = 0, 0, 0.0, {}
+
+    def __call__(self, *args, **kw):
+        out = self.kernel(*args, **kw)
+        kw_twin = {k: v for k, v in kw.items() if k != "nopad"}
+        ok, err, _ = _flash_agrees(out, self.twin(*args, **kw_twin), self.tol)
+        self.calls += 1
+        self.bad += not ok
+        self.worst = max(self.worst, err)
+        key = str(tuple(args[0].shape)) + (f" heads {args[3]}" if len(args) > 3 else "")
+        self.shapes[key] = self.shapes.get(key, 0) + 1
+        return out
+
+    def summary(self) -> dict:
+        return {"calls": self.calls, "disagree": self.bad, "max_abs_err": self.worst, "shapes": self.shapes}
+
+
+def _rank_busy(step, steps: int = 1) -> dict:
+    """Wall and device busy ms of `steps` calls of step in one profiler
+    window, the same count on every rank (a collective inside step must be
+    reached by all)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / steps
+    busy = sum(r[0] for r in _device_rows(prof, steps))
+    return {"wall_ms": wall, "device_busy_ms": busy if busy > 0 else None}
+
+
+def _gathers(stats: dict, per: int = 1) -> dict:
+    return {dim: {"calls": s["calls"] / per, "bytes": s["bytes"] / per, "ms": s["seconds"] * 1e3 / per}
+            for dim, s in stats.items()}
+
+
+def _rank_llm(rank, device, dtype: str, prompt, ref_tokens) -> dict:
+    """TinyLlama at full width, tp = 2, weights synthesized on the card: the
+    prefill of `prompt` (its 22 kernel-2 launches, every call held to the
+    twin), PARALLEL_TOKENS greedy tokens, times, gathers, weight bytes."""
+    import onnxstream_tpu_torch.ops.attention as attention_op
+    from onnxstream_tpu_torch.kernels.flash_attention import flash_attention, flash_attention_reference
+    from onnxstream_tpu_torch.models.llm.llama import TINYLLAMA
+    from onnxstream_tpu_torch.models.llm.pipeline import LlamaPipeline
+    from onnxstream_tpu_torch.parallel import comm
+    from onnxstream_tpu_torch.parallel.sharding import make_mesh
+
+    pipe = LlamaPipeline(TINYLLAMA, compute_dtype=dtype, mesh=make_mesh(2, dp=1, tp=2), device=device,
+                         synthetic_on_device=True)
+    pipe.forward(prompt, want_logits=False)  # plans the bucket, synthesizes the weights
+    pipe.reset()
+    site = _EveryCall(flash_attention, flash_attention_reference, 1e-4 if dtype == "float32" else 2e-2)
+    attention_op.flash_attention = site
+    flash_attention.launches = 0
+    try:
+        first, logits = pipe.forward(prompt)
+    finally:
+        attention_op.flash_attention = flash_attention
+    launches = flash_attention.launches
+    tokens = pipe.decode_on_device(first, PARALLEL_TOKENS)
+    pipe.reset()
+    comm.STATS.reset()
+    _, prefill_ms = _timed(lambda: pipe.forward(prompt, want_logits=False))
+    prefill_gathers = _gathers(comm.STATS.snapshot())
+    comm.STATS.reset()
+    _, decode_ms = _timed(lambda: pipe.decode_on_device(first, PARALLEL_TOKENS))
+    decode_gathers = _gathers(comm.STATS.snapshot(), PARALLEL_TOKENS)
+    busy = _rank_busy(lambda: pipe.decode_on_device(first, 4))
+    forced = _forced_logits(pipe, prompt, ref_tokens)
+    return {"logits": logits, "tokens": tokens, "forced": forced, "launches": launches, "sites": site.summary(),
+            "kv_shape": tuple(pipe.kv[0].shape), "weight_bytes": pipe.device_weight_bytes(),
+            "prefill_ms": prefill_ms, "prefill_gathers": prefill_gathers,
+            "decode_ms_per_token": decode_ms / PARALLEL_TOKENS, "decode_gathers_per_token": decode_gathers,
+            "decode_4_tokens": busy}
+
+
+def _sd15_batch2_session(device, **config):
+    """The SD15 UNet at batch 2 (the CFG pair), bf16, its weights synthesized
+    on the card from the plan's seeds (seed 0 graph, lazy host weights)."""
+    from onnxstream_tpu_torch import Session, SessionConfig
+    from onnxstream_tpu_torch.models.sd.unet import SD15, build_unet
+    from onnxstream_tpu_torch.runtime.weights import DictWeightsProvider, params_from_numpy
+
+    g = build_unet(SD15, batch=2, seed=0, lazy_weights=True)
+    s = Session(SessionConfig(compute_dtype="bfloat16", device=torch.device(device), fuse_attention_heads=True,
+                              synthetic_device_weights=True, **config),
+                weights_provider=DictWeightsProvider(params_from_numpy(g.weights)))
+    s.read_string(g.to_text())
+    return s
+
+
+def _sd15_batch2_inputs() -> dict:
+    from onnxstream_tpu_torch.models.sd.unet import SD15
+
+    req = _requests(SD15, 0)[1]
+    ctx = np.random.default_rng(7).standard_normal(req["encoder_hidden_states"].shape).astype(np.float32)
+    return {"sample": np.repeat(req["sample"], 2, axis=0), "timestep": req["timestep"],
+            "encoder_hidden_states": np.concatenate([req["encoder_hidden_states"], ctx])}
+
+
+def _unet_run(s, inputs) -> np.ndarray:
+    for k, v in inputs.items():
+        s.add_tensor(k, v)
+    return s.run()["out_sample"]
+
+
+def _rank_unet(rank, device, mesh: dict) -> dict:
+    """The SD15 UNet at batch 2 under make_mesh(2, **mesh): one run with
+    kernel 1's every call held to its twin at the local shapes, then a timed
+    run, its gathers and device busy."""
+    import onnxstream_tpu_torch.ops.attention as attention_op
+    from onnxstream_tpu_torch.kernels.flash_attention import (flash_attention_packed,
+                                                              flash_attention_packed_reference)
+    from onnxstream_tpu_torch.parallel import comm
+    from onnxstream_tpu_torch.parallel.sharding import make_mesh
+
+    s = _sd15_batch2_session(device, mesh=make_mesh(2, **mesh))
+    inputs = _sd15_batch2_inputs()
+    _unet_run(s, inputs)  # plan, synthesis
+    site = _EveryCall(flash_attention_packed, flash_attention_packed_reference, 2e-2)
+    attention_op.flash_attention_packed = site
+    flash_attention_packed.launches = 0
+    try:
+        out = _unet_run(s, inputs)
+    finally:
+        attention_op.flash_attention_packed = flash_attention_packed
+    launches = flash_attention_packed.launches
+    comm.STATS.reset()
+    _, wall = _timed(lambda: _unet_run(s, inputs))
+    gathers = _gathers(comm.STATS.snapshot())
+    busy = _rank_busy(lambda: _unet_run(s, inputs))
+    acc = s.hbm_stats()["accounting"]
+    return {"out": out, "launches": launches, "sites": site.summary(), "wall_ms": wall, "gathers": gathers,
+            "busy": busy, "weight_bytes": acc["weight_bytes"],
+            "one_device_weight_bytes": acc["one_device_weight_bytes"]}
+
+
+def _rank_nccl(rank, device) -> dict:
+    """A one-rank NCCL mesh: a gather on the card (the identity over one
+    rank) and the SD15 UNet at batch 2 with and without the mesh."""
+    from onnxstream_tpu_torch.parallel import comm
+    from onnxstream_tpu_torch.parallel.sharding import make_mesh
+
+    mesh = make_mesh(1)
+    x = torch.arange(24, dtype=torch.bfloat16, device=device).reshape(2, 3, 4)
+    gathered = comm.all_gather(x, 1, mesh.get_group("tp"), "tp")
+    inputs = _sd15_batch2_inputs()
+    plain = _unet_run(_sd15_batch2_session(device), inputs)
+    torch.cuda.empty_cache()
+    meshed = _unet_run(_sd15_batch2_session(device, mesh=mesh), inputs)
+    return {"gather_identity": bool(torch.equal(gathered, x)), "backend": torch.distributed.get_backend(),
+            "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)), "bit_equal": bool(np.array_equal(plain, meshed))}
+
+
+def _parallel_rank(rank, device, cases) -> dict:
+    """The spawned ranks' function: each case in turn, device memory freed
+    between them."""
+    fns = {"llm": _rank_llm, "unet": _rank_unet, "nccl": _rank_nccl}
+    out = {}
+    for label, kind, kw in cases:
+        out[label] = fns[kind](rank, device, **kw)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _one_rank_llm(dtype: str, prompt, forced_tokens=None) -> dict:
+    from onnxstream_tpu_torch.models.llm.llama import TINYLLAMA
+    from onnxstream_tpu_torch.models.llm.pipeline import LlamaPipeline
+
+    pipe = LlamaPipeline(TINYLLAMA, compute_dtype=dtype, device=torch.device("cuda:0"), synthetic_on_device=True)
+    first, logits = pipe.forward(prompt)
+    tokens = pipe.decode_on_device(first, PARALLEL_TOKENS)
+    pipe.reset()
+    _, prefill_ms = _timed(lambda: pipe.forward(prompt, want_logits=False))
+    _, decode_ms = _timed(lambda: pipe.decode_on_device(first, PARALLEL_TOKENS))
+    out = {"logits": logits, "tokens": tokens, "weight_bytes": pipe.device_weight_bytes(), "prefill_ms": prefill_ms,
+           "decode_ms_per_token": decode_ms / PARALLEL_TOKENS,
+           "forced": _forced_logits(pipe, prompt, forced_tokens or tokens)}
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_parallel(name: str) -> dict:
+    """The sharded serving path (parallel/*): two gloo ranks sharing the card
+    (NCCL refuses two ranks on one device) and a one-rank NCCL mesh,
+    through parallel.launch.spawn, and pipeline stages in this process (see
+    the module docstring, 18). Two ranks on one card show the overhead of
+    the sharded path, not a tensor-parallel speedup."""
+    from onnxstream_tpu_torch.models.llm.llama import TINYLLAMA
+    from onnxstream_tpu_torch.parallel.launch import spawn
+
+    t_phase = time.perf_counter()
+    prompt = np.random.default_rng(0).integers(3, TINYLLAMA.vocab_size, 700).tolist()
+    ref = {"float32": _one_rank_llm("float32", prompt)}
+    forced_tokens = ref["float32"]["tokens"]
+    ref["bfloat16"] = _one_rank_llm("bfloat16", prompt, forced_tokens)
+    s_ref = _sd15_batch2_session("cuda:0")
+    inputs = _sd15_batch2_inputs()
+    unet_ref = _unet_run(s_ref, inputs)
+    _, unet_ref_ms = _timed(lambda: _unet_run(s_ref, inputs))
+    unet_ref_bytes = s_ref.hbm_stats()["weight_bytes"]
+    del s_ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase_parallel one-rank references: TinyLlama fp32 / bf16 prefill {ref['float32']['prefill_ms']:.1f} / "
+          f"{ref['bfloat16']['prefill_ms']:.1f} ms, decode {ref['float32']['decode_ms_per_token']:.2f} / "
+          f"{ref['bfloat16']['decode_ms_per_token']:.2f} ms/token; SD15 UNet batch 2 bf16 {unet_ref_ms:.1f} ms [{name}]")
+
+    cases = [("llm_float32", "llm", dict(dtype="float32", prompt=prompt, ref_tokens=forced_tokens)),
+             ("llm_bfloat16", "llm", dict(dtype="bfloat16", prompt=prompt, ref_tokens=forced_tokens)),
+             ("unet_dp2", "unet", dict(mesh=dict(dp=2))),
+             ("unet_tp2", "unet", dict(mesh=dict(dp=1, tp=2)))]
+    t0 = time.perf_counter()
+    ranks = spawn(_parallel_rank, 2, "gloo", "cuda:0", 400, args=(cases,))
+    print(f"two gloo ranks on cuda:0: {time.perf_counter() - t0:.1f} s (start, plans, weight synthesis, runs)")
+    out: dict = {"llm": {}, "unet": {}}
+    for dt, rel in (("float32", 1e-4), ("bfloat16", 5e-2)):
+        r0 = ref[dt]
+        scale = float(np.abs(r0["logits"]).max())
+        per_rank = []
+        for rank, res in enumerate(ranks):
+            got = res[f"llm_{dt}"]
+            err = float(np.abs(got["logits"] - r0["logits"]).max())
+            same = sum(a == b for a, b in zip(got["tokens"], r0["tokens"]))
+            # fed the same tokens: each step's logits gap to the one-rank run
+            # of this dtype and its argmax; in bf16 also both runs' gap to the
+            # float32 model, the size of bf16's own rounding on this model
+            forced = [float(np.abs(a - b).max()) / scale for a, b in zip(got["forced"], r0["forced"])]
+            argmax = sum(int(np.argmax(a) == np.argmax(b)) for a, b in zip(got["forced"], r0["forced"]))
+            f32 = ref["float32"]["forced"]
+            to_f32 = {who: max(float(np.abs(a - b).max()) / scale for a, b in zip(run["forced"], f32))
+                      for who, run in (("tp", got), ("one rank", r0))}
+            print(f"TinyLlama {dt} tp=2 rank {rank}: prefill logits max|diff| {err:.4e} / max|logits| {scale:.4f} "
+                  f"= {err / scale:.3e} (bound {rel:g}); tokens equal {same}/{PARALLEL_TOKENS}; kv shard "
+                  f"{got['kv_shape']}; kernel 2 launches in the prefill {got['launches']} (want 22), every call vs "
+                  f"twin {got['sites']} [{name}]")
+            print(f"  rank {rank}: device weights {got['weight_bytes'] / 2**20:.1f} MB vs one rank "
+                  f"{r0['weight_bytes'] / 2**20:.1f} MB; prefill {got['prefill_ms']:.1f} ms (one rank "
+                  f"{r0['prefill_ms']:.1f}); decode {got['decode_ms_per_token']:.2f} ms/token (one rank "
+                  f"{r0['decode_ms_per_token']:.2f}); fed the one-rank tokens, max|diff| / max|logits| a step "
+                  f"{[float(f'{x:.3e}') for x in forced]} and argmax equal {argmax}/{len(forced)}, the most either "
+                  f"run lies from the float32 model over those steps {to_f32}; gathers a token "
+                  f"{got['decode_gathers_per_token']}; gathers a "
+                  f"prefill {got['prefill_gathers']}; 4-token decode {got['decode_4_tokens']} [{name}]")
+            if not (err <= rel * scale and max(forced) <= rel):
+                raise SystemExit(f"TinyLlama {dt} tp=2 rank {rank}: prefill or fed decode logits outside {rel:g} * max "
+                                 f"of the one-rank run")
+            if dt == "float32" and got["tokens"] != r0["tokens"]:
+                raise SystemExit(f"TinyLlama float32 tp=2 rank {rank}: tokens differ from the one-rank run")
+            if got["launches"] != 22 or got["sites"]["calls"] != 22 or got["sites"]["disagree"]:
+                raise SystemExit(f"TinyLlama {dt} tp=2 rank {rank}: kernel 2 launched {got['launches']} times "
+                                 f"or disagreed with its twin: {got['sites']}")
+            if list(got["sites"]["shapes"]) != ["(1, 16, 1024, 64)"]:
+                raise SystemExit(f"TinyLlama {dt} tp=2 rank {rank}: kernel 2 at {got['sites']['shapes']}")
+            per_rank.append({k: got[k] for k in ("launches", "sites", "kv_shape", "weight_bytes", "prefill_ms",
+                                                 "prefill_gathers", "decode_ms_per_token",
+                                                 "decode_gathers_per_token", "decode_4_tokens")}
+                            | {"rel_err": err / scale, "tokens_equal": same, "forced_rel_err": forced,
+                               "forced_argmax_equal": argmax, "forced_rel_err_to_float32": to_f32})
+        out["llm"][dt] = {"ranks": per_rank, "one_rank": {k: r0[k] for k in ("weight_bytes", "prefill_ms",
+                                                                             "decode_ms_per_token")}}
+    scale = float(np.abs(unet_ref).max())
+    for label in ("unet_dp2", "unet_tp2"):
+        per_rank = []
+        for rank, res in enumerate(ranks):
+            got = res[label]
+            err = float(np.abs(got["out"] - unet_ref).max())
+            print(f"SD15 UNet batch 2 bf16 {label} rank {rank}: max|diff| {err:.4e} / max|out| {scale:.4f} = "
+                  f"{err / scale:.3e} (bound 5e-2); kernel 1 launches a run {got['launches']} (one rank: 10), every "
+                  f"call vs twin {got['sites']}; weights {got['weight_bytes'] / 2**20:.1f} MB (one rank "
+                  f"{unet_ref_bytes / 2**20:.1f}); run {got['wall_ms']:.1f} ms (one rank {unet_ref_ms:.1f}); gathers "
+                  f"a run {got['gathers']}; busy {got['busy']} [{name}]")
+            if got["out"].shape != (2, 4, 64, 64) or not np.isfinite(got["out"]).all() or not err <= 5e-2 * scale:
+                raise SystemExit(f"{label} rank {rank}: output outside 5e-2 * max of the one-rank run")
+            if got["launches"] == 0 or got["sites"]["disagree"] or got["sites"]["calls"] != got["launches"]:
+                raise SystemExit(f"{label} rank {rank}: kernel 1 {got['launches']} launches, {got['sites']}")
+            per_rank.append({k: got[k] for k in ("launches", "sites", "wall_ms", "gathers", "busy", "weight_bytes")}
+                            | {"rel_err": err / scale})
+        out["unet"][label] = {"ranks": per_rank, "one_rank": {"wall_ms": unet_ref_ms, "weight_bytes": unet_ref_bytes}}
+
+    t0 = time.perf_counter()
+    nccl = spawn(_parallel_rank, 1, "nccl", "cuda:0", 300, args=([("nccl", "nccl", {})],))[0]["nccl"]
+    print(f"one-rank NCCL mesh {nccl['mesh']} ({nccl['backend']}): a gather on the card equal to its input "
+          f"{nccl['gather_identity']}, SD15 UNet with the mesh bit for bit with the run without "
+          f"{nccl['bit_equal']} ({time.perf_counter() - t0:.1f} s) [{name}]")
+    if not (nccl["gather_identity"] and nccl["bit_equal"] and nccl["backend"] == "nccl"):
+        raise SystemExit("one-rank NCCL mesh: the gather or the UNet run differs")
+    out["nccl"] = nccl
+
+    # pipeline stages: two on one card, the boundary activations copied
+    s = _sd15_batch2_session("cuda:0", hbm_budget_bytes=512 << 20, pp_devices=[torch.device("cuda:0")] * 2)
+    pp = _unet_run(s, inputs)
+    ex = s._executor()
+    stages = [ex.seg_stage(i) for i in range(len(ex.segments))]
+    uploads = [0]
+    upload = ex._upload
+    ex._upload = lambda w, device=None: (uploads.__setitem__(0, uploads[0] + 1), upload(w, device))[1]
+    pp2, pp_ms = _timed(lambda: _unet_run(s, inputs))
+    acc = ex.hbm_accounting()
+    print(f"pp_devices [cuda:0, cuda:0] at 512 MiB: {len(stages)} segments on stages {stages}, stage weights "
+          f"{[round(b / 2**20, 1) for b in acc['stage_weight_bytes']]} MB, second run uploads {uploads[0]}, bit for "
+          f"bit with the resident run {np.array_equal(pp, unet_ref)} and {np.array_equal(pp2, unet_ref)}, "
+          f"run {pp_ms:.1f} ms (resident {unet_ref_ms:.1f}) [{name}]")
+    if (stages != sorted(stages) or len(set(stages)) != 2 or uploads[0] or not np.array_equal(pp, unet_ref)
+            or not np.array_equal(pp2, unet_ref)):
+        raise SystemExit("pipeline stages: not two contiguous stages, weights fetched again, or outputs differ")
+    out["pp"] = {"segments": len(stages), "stages": stages, "stage_weight_bytes": acc["stage_weight_bytes"],
+                 "ms": pp_ms}
+    del s, ex
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase_parallel: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     sys.path.insert(0, REPO)
     name = phase_device()
@@ -4453,6 +4822,9 @@ def main() -> int:
     llm_int8 = phase_llm_int8(name, llm)
     gc.collect()
     torch.cuda.empty_cache()
+    parallel = phase_parallel(name)
+    llm_tp2 = sum(r["launches"] for dt in parallel["llm"].values() for r in dt["ranks"])
+    unet_dp2, unet_tp2 = (sum(r["launches"] for r in parallel["unet"][k]["ranks"]) for k in ("unet_dp2", "unet_tp2"))
     whisper = phase_whisper(name)
     ops = phase_ops(name)
     yolo = phase_yolo(name)
@@ -4475,6 +4847,7 @@ def main() -> int:
     print(f"channel-last: {json.dumps({k: layout[k] for k in ('graph', 'unet', 'vae', 'float32_ratio')})}")
     print(f"fp16 storage: {json.dumps({k: v for k, v in fp16.items() if k not in ('launches', 'replay')})}")
     print(f"converted 860 M UNet: {json.dumps(convert)}")
+    print(f"parallel: {json.dumps({k: parallel[k] for k in ('nccl', 'pp', 'seconds')})}")
     print(f"card: {name}")
     fa_src = "onnxstream_tpu_torch/kernels/csrc/flash_attention.cu"
     q_src = "onnxstream_tpu_torch/kernels/csrc/qmatmul.cu"
@@ -4486,13 +4859,15 @@ def main() -> int:
          "replaces": "onnxstream_tpu/kernels/flash_attention.py:260", **kernel,
          "launches": (sd_image["flash_launches"] + sdxl["launches"] + sd_batch["launches"] + whisper["launches"]
                       + streamed["launches"] + served["launches"] + layout["launches"] + fp16["launches"]
-                      + nopad["packed_launches"] + convert["launches"]),
+                      + nopad["packed_launches"] + convert["launches"] + unet_dp2 + unet_tp2),
          "launches_by_path": {"sd15_step": launches_sd, "sd15_image": sd_image["flash_launches"],
                               "sdxl_image_and_turbo": sdxl["launches"], "sd15_generate_batch4": sd_batch["launches"],
                               "whisper": whisper["launches"], "sd15_streamed": streamed["launches"],
                               "sd15_served": served["launches"], "sd15_nhwc": layout["launches"],
                               "sd15_fp16_storage": fp16["launches"], "sd15_nopad": nopad["packed_launches"],
-                              "sd15_converted": convert["launches"]},
+                              "sd15_converted": convert["launches"], "dp2_unet": unet_dp2,
+                              "tp2_unet": unet_tp2},
+         "parallel": parallel["unet"],
          "whisper": {k: whisper[k] for k in ("sites_bfloat16", "replay_bfloat16", "sites_float32", "replay_float32",
                                              "times", "on_device")},
          "sdxl": {"unet_run_replay": sdxl["replay"], "ms_by_shape": sdxl["ms_by_shape"], "unet": sdxl["unet"],
@@ -4501,8 +4876,9 @@ def main() -> int:
          "sd15_fp16_storage_replay": fp16["replay"]},
         {"name": "flash_attention", "route": "cuda", "source": fa_src,
          "replaces": "onnxstream_tpu/kernels/flash_attention.py:366", **kernel_hm,
-         "launches": launches_llm + nopad["launches"],
-         "launches_by_path": {"tinyllama": launches_llm, "sd15_nopad": nopad["launches"]},
+         "launches": launches_llm + nopad["launches"] + llm_tp2,
+         "launches_by_path": {"tinyllama": launches_llm, "sd15_nopad": nopad["launches"], "tp2_llm": llm_tp2},
+         "parallel": parallel["llm"],
          "sd15_nopad": {k: nopad[k] for k in ("by_shape", "unet", "max_abs_err")}, **llm["flash"]},
         {"name": "w8a8_dyn_matmul", "route": "cuda", "source": q_src, "replaces": f"{q_py}:332", **llm_int8,
          "ms_by_shape": q_sites},

@@ -46,6 +46,10 @@ class TensorSpec:
     # the provider stores; `shape` above is the transformed device shape.
     transform: Optional[str] = None
     file_shape: Optional[Tuple[int, ...]] = None
+    # this rank's slice of a weight placed on a mesh, ((axis, start, stop),
+    # ...) of ``file_shape`` (set by parallel/spmd.py, never by the parser);
+    # ``shape`` is then the local shape
+    shard: Optional[Tuple[Tuple[int, int, int], ...]] = None
 
     @property
     def is_weight(self) -> bool:

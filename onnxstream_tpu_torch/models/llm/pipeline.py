@@ -21,6 +21,14 @@ Python loop over the (L=1, P) executor whose inputs are all device tensors
 (the in-graph ``next_token``, a device position counter), so the host never
 waits for the card inside the loop; only the final (n,) ids cross to the
 host.
+
+With ``mesh=`` (``parallel.sharding.make_mesh``; one process a rank, e.g.
+under ``parallel.launch.spawn``) every session runs tensor-parallel: the
+q / k / v / o and MLP projections shard over "tp" and the KV cache over its
+head axis (``tp_kv_head_inputs``), so ``kv[i]`` is this rank's (1,
+kv_heads / tp, P, head_dim) shard, fed back as a ``LocalShard``. Every rank
+runs the same calls: the next token comes from gathered logits, equal on
+every rank.
 """
 
 from __future__ import annotations
@@ -34,6 +42,7 @@ import torch.nn.functional as F
 from onnxstream_tpu_torch.dtypes import dtype_name, to_torch
 from onnxstream_tpu_torch.models.llm.llama import LlamaConfig, build_llama
 from onnxstream_tpu_torch.models.llm.tokenizer import SentencePieceBPE, chat_template
+from onnxstream_tpu_torch.parallel import LocalShard
 from onnxstream_tpu_torch.runtime.config import SessionConfig, default_device
 from onnxstream_tpu_torch.runtime.session import Session
 from onnxstream_tpu_torch.runtime.weights import DictWeightsProvider, is_lazy
@@ -77,10 +86,10 @@ class LlamaPipeline:
         mesh=None,
         device: Optional[torch.device] = None,
     ):
-        if mesh is not None:
+        if mesh is not None and int8_weights:
             raise NotImplementedError(
-                "a mesh (tensor-parallel decode) needs torch.distributed sharding "
-                "(ROADMAP Queue 1 item 11)")
+                "int8_weights with a mesh is not ported yet (ROADMAP.md Queue 1 item 11: mesh with "
+                "streaming and with quantized storage)")
         self.cfg = cfg
         self.compute_dtype = compute_dtype
         # None: the first CUDA card (raises without one); the CPU only when asked
@@ -124,6 +133,9 @@ class LlamaPipeline:
             requires_upcast=_upcast_rmsnorm,
             device=self.device,
             synthetic_device_weights=self.synthetic_on_device,
+            mesh=self.mesh,
+            tp_kv_head_inputs=frozenset(
+                f"pkv{i}" for i in range(2 * self.cfg.layers)) if self.mesh is not None else frozenset(),
         )
 
     def _session(self, L: int, P: int) -> Session:
@@ -186,6 +198,13 @@ class LlamaPipeline:
     def reset(self) -> None:
         self.kv = None
         self.cache_len = 0
+
+    def _kv_input(self, arr: torch.Tensor):
+        """A cache tensor as a graph input: under a mesh this rank's shard
+        with the cache's whole shape."""
+        if self.mesh is None:
+            return arr
+        return LocalShard(arr, (1, self.cfg.kv_heads, arr.shape[2], self.cfg.head_dim))
 
     def _pad_kv(self, P: int) -> int:
         """Pad the device KV cache up to bucket P (on the device); returns
@@ -256,7 +275,7 @@ class LlamaPipeline:
             sess.add_tensor("cache_5F_len", np.array([self.cache_len], np.int64))
             sess.add_tensor("last_5F_pos", np.array([L - 1], np.int64))
             for i, arr in enumerate(self.kv):
-                sess.add_tensor(f"pkv{i}", arr)
+                sess.add_tensor(f"pkv{i}", self._kv_input(arr))
             out = sess.run(device_outputs=True)
             self.kv = [out[f"opkv{i}"] for i in range(2 * self.cfg.layers)]
             self.cache_len += L
@@ -293,7 +312,7 @@ class LlamaPipeline:
             sess.add_tensor("cache_5F_len", cl)
             sess.add_tensor("last_5F_pos", last)
             for i, arr in enumerate(kv):
-                sess.add_tensor(f"pkv{i}", arr)
+                sess.add_tensor(f"pkv{i}", self._kv_input(arr))
             out = sess.run(device_outputs=True)
             kv = [out[f"opkv{i}"] for i in range(2 * self.cfg.layers)]
             tok = out["next_token"].reshape(1, 1).to(torch.int64)

@@ -38,14 +38,17 @@ class StaticRequired(Exception):
 class OpImpl:
     fn: Callable
     host: bool = False  # foldable on host when all inputs are static
+    # put in by the sharding pass (parallel/spmd.py), never read from a
+    # model.txt: left out of registered_ops()
+    internal: bool = False
 
 
 _REGISTRY: Dict[str, OpImpl] = {}
 
 
-def register(op_type: str, host: bool = False):
+def register(op_type: str, host: bool = False, internal: bool = False):
     def deco(fn):
-        _REGISTRY[op_type] = OpImpl(fn=fn, host=host)
+        _REGISTRY[op_type] = OpImpl(fn=fn, host=host, internal=internal)
         return fn
 
     return deco
@@ -59,7 +62,8 @@ def get_impl(op_type: str) -> OpImpl:
 
 
 def registered_ops() -> List[str]:
-    return sorted(_REGISTRY)
+    """The op types a model.txt may hold."""
+    return sorted(k for k, v in _REGISTRY.items() if not v.internal)
 
 
 class Ctx:
@@ -120,3 +124,4 @@ class Ctx:
 # Importing the op modules installs all builtin ops into the registry.
 from onnxstream_tpu_torch.ops import standard as _standard  # noqa: E402,F401
 from onnxstream_tpu_torch.ops import attention as _attention  # noqa: E402,F401
+from onnxstream_tpu_torch.ops import collective as _collective  # noqa: E402,F401

@@ -1,0 +1,33 @@
+"""The ops the sharding pass (``parallel/spmd.py``) puts into a rank's graph.
+
+``ostpu.all_gather`` concatenates the shards of its operand along ``axis``
+over the mesh dim ``dim`` (``parts`` ranks) through ``parallel/comm.py``;
+``ostpu.shard_slice`` keeps this rank's [start, stop) of a replicated
+operand along ``axis`` (a local copy, no traffic). While the planner works on
+``meta`` tensors the gather only scales the axis. Both carry rank-specific
+attributes and are no model.txt op: ``registered_ops()`` leaves them out.
+"""
+
+from __future__ import annotations
+
+from onnxstream_tpu_torch.ops import Ctx, register
+from onnxstream_tpu_torch.parallel import comm
+
+
+@register("ostpu.all_gather", internal=True)
+def _all_gather(ctx: Ctx, op, ins):
+    x = ctx.tensor(ins[0])
+    axis, parts = op.attr_int("axis"), op.attr_int("parts")
+    if x.device.type == "meta":
+        shape = list(x.shape)
+        shape[axis] *= parts
+        return [x.new_empty(shape)]
+    dim = op.attr("dim")
+    return [comm.all_gather(x, axis, ctx.config.mesh.get_group(dim), dim)]
+
+
+@register("ostpu.shard_slice", internal=True)
+def _shard_slice(ctx: Ctx, op, ins):
+    x = ctx.tensor(ins[0])
+    start = op.attr_int("start")
+    return [x.narrow(op.attr_int("axis"), start, op.attr_int("stop") - start).contiguous()]

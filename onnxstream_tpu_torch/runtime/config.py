@@ -4,8 +4,11 @@ Counterpart of ``onnxstream_tpu/runtime/config.py``. It keeps the reference
 option flags the UNet, TinyLlama and SD1.5 image slices read (the calibrated
 W8A8 options and the GroupNorm / small-conv kernel routes among them) and the
 ``set_option`` names that apply.
-The TPU-only knobs (AUTO weight layouts, meshes, pipeline stages, XLA
-compiler options, Pallas interpret mode) have no counterpart here.
+``mesh`` (a ``torch.distributed`` device mesh from ``parallel.sharding
+.make_mesh``) runs the graph over the ranks of a process group, each rank on
+its own shards (``parallel/spmd.py``); ``pp_devices`` places the segments on
+pipeline stages in one process. XLA's AUTO weight layouts and compiler
+options and Pallas's interpret mode have no counterpart here.
 
 Every option of the JAX package that the graph or the executor reads is
 taken. ``use_ops_cache`` and ``use_next_op_cache`` (the reference's operator
@@ -140,8 +143,44 @@ class SessionConfig:
     use_ops_cache: bool = True
     use_next_op_cache: bool = True
 
+    # --- multi-device ------------------------------------------------------
+    # a torch.distributed DeviceMesh (parallel.sharding.make_mesh): weights
+    # shard over "tp", activations over "dp" / "sp", and each rank runs the
+    # graph on its shards with the gathers the sharding pass puts in
+    mesh: Optional[object] = None
+    # the JAX package's field: None only (it reads no rules either)
+    sharding_rules: Optional[object] = None
+    # graph inputs whose axis 1 is a KV-head axis to shard over "tp" (the LLM
+    # bucketed KV cache, (1, kv_heads, P, head_dim)); LlamaPipeline(mesh=...)
+    # sets them (parallel.sharding.kv_head_sharding)
+    tp_kv_head_inputs: frozenset = frozenset()
+    # pipeline stages: with hbm_budget_bytes > 0 the segments go to these
+    # devices in contiguous blocks (repeats allowed), each stage's weights
+    # resident on it, boundary activations copied between stages
+    pp_devices: Optional[List[torch.device]] = None
+
     def __post_init__(self) -> None:
         self.torch_compute_dtype  # validates compute_dtype
+        if self.sharding_rules is not None:
+            raise ValueError("sharding_rules: only None is taken (the rules are parallel/sharding.py's)")
+
+    def check_mesh(self) -> None:
+        """Raise for what a mesh does not run with yet: weight streaming,
+        pipeline stages and quantized storage (the per-channel quantization
+        of a sharded weight is its own piece of work)."""
+        if self.mesh is None:
+            return
+        refused = [name for name, on in (
+            ("hbm_budget_bytes > 0", self.hbm_budget_bytes > 0),
+            ("pp_devices", bool(self.pp_devices)),
+            ("force_uint8_storage_set (int8_weights)", bool(self.force_uint8_storage_set)),
+            ("use_uint8_arithmetic", self.use_uint8_arithmetic),
+            ("use_uint8_qdq", self.use_uint8_qdq),
+            ("range_data_calibrate", self.range_data_calibrate)) if on]
+        if refused:
+            raise NotImplementedError(
+                f"a mesh with {', '.join(refused)} is not ported yet (ROADMAP.md Queue 1 item 11: "
+                f"mesh with streaming and with quantized storage)")
 
     @property
     def torch_compute_dtype(self) -> torch.dtype:

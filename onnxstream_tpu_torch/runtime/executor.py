@@ -38,6 +38,15 @@ Both runs pin the backend's precision flags to the JAX package's numerics:
 float32 products and convolutions in full float32 (no TF32), and bf16/fp16
 GEMM reductions in float32.
 
+Under ``SessionConfig.mesh`` the plan is this rank's (``parallel/spmd.py``):
+its weights are sliced at upload (``WeightArg.shard``; synthesized ones
+generated whole, then sliced), its inputs sliced before they cross
+(``Plan.mesh_info``), its sharded outputs read from their gathered tensors.
+With ``pp_devices`` each segment runs on its stage's device (contiguous
+blocks, ``seg_stage``), every stage's weights resident there, a weight of
+two stages copied device to device, boundary activations moved to the
+stage; nothing is streamed.
+
 ``run_eager`` is the per-op interpreter with ops_printf / ops_times_printf;
 it holds every weight at once and serves as the oracle for ``run``.
 
@@ -257,8 +266,9 @@ def synth_kind(w: WeightArg, config) -> Optional[str]:
     (small tensors, index tables, masks), which stay real. The size gate is
     on elements, so a weight stored at 1 byte gates as its float form does.
     Unlike JAX, a relayouted weight (``transform``) is synthesized too,
-    directly in its upload shape."""
-    if math.prod(w.shape) < config.synthetic_min_elements:
+    directly in its upload shape. The gate counts the whole weight, also
+    where a rank holds a slice of it."""
+    if math.prod(w.file_shape or w.shape) < config.synthetic_min_elements:
         return None
     dt = w.upload_dtype
     if w.quant is None and dt.is_floating_point and w.file_dtype.is_float:
@@ -279,6 +289,13 @@ def _to_host(v) -> np.ndarray:
     elif t.dtype in (torch.int8, torch.int16, torch.int32):
         t = t.long()
     return t.cpu().numpy()
+
+
+def _take_shard(t: torch.Tensor, shard) -> torch.Tensor:
+    """The slice ((axis, start, stop), ...) of t, a view."""
+    for axis, start, stop in shard:
+        t = t.narrow(axis, start, stop - start)
+    return t
 
 
 STAGING_ALIGN = 256  # bytes: each weight's slice of a staging buffer starts on this
@@ -382,7 +399,11 @@ class Executor:
         self.config = plan.config
         self.device = torch.device(self.config.device)
         self.provider = provider
-        self.segments = build_segments(plan, plan.fetch_names)
+        # under a mesh a sharded output is fetched from its gathered tensor
+        self.mesh_info = plan.mesh_info
+        alias = self.mesh_info.fetch_alias if self.mesh_info is not None else {}
+        self._fetch = {name: alias.get(name, name) for name in plan.fetch_names}
+        self.segments = build_segments(plan, list(self._fetch.values()))
         self._resident: Dict[str, torch.Tensor] = {}
         # id(plan constant) -> [array, device copy]: see Ctx.tensor
         self._consts: Dict[int, list] = {
@@ -397,10 +418,12 @@ class Executor:
                     last_use[t.name] = i
         self._last_use = last_use
         # ops run with fp32 inputs and outputs: the predicate is asked once
-        # per op here, not on every run
+        # per op here, not on every run. The sharding pass's gathers and
+        # slices move data in its own dtype, whatever their names hold
         upcast = self.config.requires_upcast
         self._upcast = frozenset() if upcast is None else frozenset(
-            i for i, op in enumerate(self.graph.ops) if upcast(op.op_type, op.name))
+            i for i, op in enumerate(self.graph.ops)
+            if upcast(op.op_type, op.name) and not get_impl(op.op_type).internal)
         self._arg_by_name = {w.name: w for w in plan.arg_weights}
         self._arg_index = {w.name: i for i, w in enumerate(plan.arg_weights)}
         # calibration ranges recorded by run_eager (range_data_calibrate)
@@ -436,6 +459,8 @@ class Executor:
         self._copy_stream = None
         # per segment: activations read by a later segment, dropped after it
         self._drop_after = self._boundary_lifetimes()
+        # plan constants on the other pipeline stages' devices (see _eval_op)
+        self._stage_consts: Dict[str, Dict[int, list]] = {}
         provider.on_init(plan.stream_entries())
         self._first_run_done = False
 
@@ -466,14 +491,17 @@ class Executor:
                         for v in quant)
         return torch.from_numpy(q)
 
-    def _synthesize(self, w: WeightArg, kind: str) -> torch.Tensor:
+    def _synthesize(self, w: WeightArg, kind: str, device: Optional[torch.device] = None) -> torch.Tensor:
         """Generate w on the device in its upload dtype and shape (JAX
         ``_synth_generate``): one generator seeded from w's index in the
         plan. An s8 weight gets a flat per-channel scale on
-        the file layout's last axis (JAX ``_stamp_s8_quant``)."""
-        gen = torch.Generator(device=self.device)
+        the file layout's last axis (JAX ``_stamp_s8_quant``). A weight
+        sharded over a mesh is generated whole and this rank keeps its slice,
+        so the shards equal the one-device weights."""
+        dev = self.device if device is None else device
+        gen = torch.Generator(device=dev)
         gen.manual_seed(self._arg_index[w.name])
-        shape, dev = tuple(w.shape), self.device
+        shape = tuple(w.file_shape) if w.shard else tuple(w.shape)
         if kind == "s8":
             out = torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8)
             n = (w.file_shape or w.shape)[-1]
@@ -486,6 +514,8 @@ class Executor:
             out = out.to(w.upload_dtype)
         if w.transform == "ohwi":  # the memory layout the relayout gives
             out = out.contiguous(memory_format=torch.channels_last)
+        if w.shard:
+            out = _take_shard(out, w.shard).clone()
         return out
 
     def _synth_kind(self, w: WeightArg) -> Optional[str]:
@@ -500,6 +530,8 @@ class Executor:
         back through ``provider.update`` (JAX executor.py:531-537), so a
         caching provider hands the converted tensor out from then on."""
         host = self.provider.get(w.name, w.file_dtype, w.file_shape or w.shape)
+        if w.shard:  # this rank's slice, copied: the provider keeps the whole weight
+            return _take_shard(host, w.shard).to(w.upload_dtype, copy=True).contiguous()
         # quantized in the file layout first (per output channel), then
         # relayouted: kernel 6's int8 weights (tnk) take both steps
         q = self._maybe_force_quant(w, host)
@@ -513,35 +545,71 @@ class Executor:
                 self.provider.update(w.name, conv)
         return conv
 
-    def _upload(self, w: WeightArg) -> torch.Tensor:
+    def _upload(self, w: WeightArg, device: Optional[torch.device] = None) -> torch.Tensor:
         """A synthesized weight (``synth_kind``) under
         synthetic_device_weights; otherwise ``_host_weight`` -> pinned ->
         device (resident weights and run_eager; streamed runs go through
         ``_SegmentFetch``)."""
+        device = self.device if device is None else device
         kind = self._synth_kind(w)
         if kind is not None:
-            return self._synthesize(w, kind)
+            return self._synthesize(w, kind, device)
         conv = self._host_weight(w)
-        if self.device.type != "cuda":
-            return conv.to(self.device)
-        return conv.pin_memory().to(self.device, non_blocking=True)
+        if device.type != "cuda":
+            return conv.to(device)
+        return conv.pin_memory().to(device, non_blocking=True)
 
-    def _cache_slot(self, w: WeightArg):
-        """(cache, key) holding w's resident device copy: the shared cache
-        for big weights when the config gives one, else this executor's."""
+    def _cache_slot(self, w: WeightArg, stage: int = 0):
+        """(cache, key) holding w's resident device copy: with pipeline
+        stages this executor's, per stage; else the shared cache for big
+        weights when the config gives one, else this executor's."""
+        if self.config.pp_devices:
+            return self._resident, (stage, w.name)
         shared = self.config.shared_device_weight_cache
-        if shared is not None and upload_bytes(w) >= SHARED_CACHE_MIN_BYTES:
-            return shared, (w.name, w.shape, str(w.upload_dtype), w.transform)
+        # the whole weight's bytes decide, also for a rank's slice of it: the
+        # graphs that share a weight then share its slice too (a synthesized
+        # one is seeded by its index in the plan that made it first)
+        whole = math.prod(w.file_shape or w.shape) * w.upload_dtype.itemsize
+        if shared is not None and whole >= SHARED_CACHE_MIN_BYTES:
+            return shared, (w.name, w.shape, str(w.upload_dtype), w.transform, w.shard)
         return self._resident, w.name
 
-    def _fetch_segment_weights(self, seg: Segment) -> Dict[str, torch.Tensor]:
-        resident = self.config.hbm_budget_bytes == 0
+    # ------------------------------------------------------ pipeline stages
+    def seg_stage(self, si: int) -> int:
+        """Segment si's pipeline stage: contiguous blocks (stage = si *
+        stages // segments), so a linear graph's boundary activations change
+        stage stages - 1 times (JAX ``_seg_device``). Stage identity is the
+        index: two stages may share one device."""
+        pp = self.config.pp_devices
+        return min(si * len(pp) // len(self.segments), len(pp) - 1) if pp else 0
+
+    def seg_device(self, si: int) -> torch.device:
+        pp = self.config.pp_devices
+        return torch.device(pp[self.seg_stage(si)]) if pp else self.device
+
+    def _stage_copy(self, w: WeightArg, stage: int):
+        """A weight a segment of another stage holds already (a tied
+        weight): copied device to device, as the provider may have released
+        its host copy (JAX executor.py:505-515)."""
+        for (s, name), hit in self._resident.items():
+            if name == w.name and s != stage:
+                dev, quant, symmetric = hit
+                return dev.to(torch.device(self.config.pp_devices[stage]), copy=True), quant, symmetric
+        return None
+
+    def _fetch_segment_weights(self, seg: Segment, si: int = 0) -> Dict[str, torch.Tensor]:
+        resident = self.config.hbm_budget_bytes == 0 or bool(self.config.pp_devices)
+        stage, device = self.seg_stage(si), self.seg_device(si)
         out: Dict[str, torch.Tensor] = {}
         for w in seg.weight_args:
-            cache, key = self._cache_slot(w)
+            cache, key = self._cache_slot(w, stage)
             hit = cache.get(key)
+            if hit is None and self.config.pp_devices:
+                hit = self._stage_copy(w, stage)
+                if hit is not None:
+                    cache[key] = hit
             if hit is None:
-                dev = self._upload(w)
+                dev = self._upload(w, device)
                 if resident:
                     cache[key] = (dev, w.quant, w.symmetric)
                     # the device copy owns the weight now (reference
@@ -563,15 +631,17 @@ class Executor:
 
     def device_weights(self) -> List[torch.Tensor]:
         """The resident device weights this executor uses (shared ones
-        included) and their per-channel scales and zero points, for counting
-        device memory across sessions."""
+        included, every stage's copy) and their per-channel scales and zero
+        points, for counting device memory across sessions."""
         out = []
+        stages = range(len(self.config.pp_devices)) if self.config.pp_devices else (0,)
         for w in self.plan.arg_weights:
-            cache, key = self._cache_slot(w)
-            if key in cache:
-                dev, quant, _ = cache[key]
-                out.append(dev)
-                out.extend(v for v in quant or () if isinstance(v, torch.Tensor))
+            for stage in stages:
+                cache, key = self._cache_slot(w, stage)
+                if key in cache:
+                    dev, quant, _ = cache[key]
+                    out.append(dev)
+                    out.extend(v for v in quant or () if isinstance(v, torch.Tensor))
         return out
 
     @property
@@ -620,12 +690,12 @@ class Executor:
 
     # --------------------------------------------------------------- op eval
     def _eval_qmatmul(self, route: str, op: OpNode, env: Dict[str, Any],
-                      weights_env: Dict[str, Any]) -> torch.Tensor:
+                      weights_env: Dict[str, Any], device: torch.device) -> torch.Tensor:
         w = self._arg_by_name[op.inputs[1].name]
         aname = op.inputs[0].name
         a = self.plan.static_env.get(aname, env.get(aname))
         if not isinstance(a, torch.Tensor):
-            a = Ctx("device", self.config, op.name, device=self.device, consts=self._consts).tensor(a)
+            a = self._ctx(op.name, device).tensor(a)
         cdt = self.config.torch_compute_dtype
         if a.is_floating_point() and a.dtype != cdt:
             a = a.to(cdt)
@@ -636,13 +706,13 @@ class Executor:
         return w8_matmul(a, weights_env[w.name], scale, zero, out_dtype=cdt)
 
     def _eval_qlinear(self, mode: str, op: OpNode, env: Dict[str, Any],
-                      weights_env: Dict[str, Any]) -> torch.Tensor:
+                      weights_env: Dict[str, Any], device: torch.device) -> torch.Tensor:
         """Quantize the input activation, run kernel 3 (integer products,
         zero-point corrections and dequantization in one launch) and return
         the float result in the compute dtype. Requantizing the output to the
         op's range is left to the QDQ stage (JAX ``_eval_qlinear``)."""
         cdt = self.config.torch_compute_dtype
-        ctx = Ctx("device", self.config, op.name, device=self.device, consts=self._consts)
+        ctx = self._ctx(op.name, device)
         aname = op.inputs[0].name
         a = ctx.tensor(self.plan.static_env.get(aname, env.get(aname)))
         w = self._arg_by_name[op.inputs[1].name]
@@ -724,13 +794,22 @@ class Executor:
             res.append(o)
         return res
 
-    def _eval_op(self, oi: int, op: OpNode, env: Dict[str, Any], weights_env: Dict[str, Any]):
+    def _ctx(self, op_name: str, device: torch.device) -> Ctx:
+        """The context of a device op: plan constants cross once per device
+        (a pipeline stage on another device keeps its own copies)."""
+        consts = self._consts if device == self.device else self._stage_consts.setdefault(str(device), {
+            k: [v[0], None] for k, v in self._consts.items() if isinstance(k, int)})
+        return Ctx("device", self.config, op_name, device=device, consts=consts)
+
+    def _eval_op(self, oi: int, op: OpNode, env: Dict[str, Any], weights_env: Dict[str, Any],
+                 device: Optional[torch.device] = None):
+        device = self.device if device is None else device
         qmode = self._qlinear.get(oi)
         if qmode is not None:
-            return [self._eval_qlinear(qmode, op, env, weights_env)]
+            return [self._eval_qlinear(qmode, op, env, weights_env, device)]
         route = self._qroute.get(oi)
         if route is not None:
-            return [self._eval_qmatmul(route, op, env, weights_env)]
+            return [self._eval_qmatmul(route, op, env, weights_env, device)]
         ins: List[Any] = []
         for t in op.inputs:
             if not t.name:
@@ -759,8 +838,7 @@ class Executor:
             # device values only: static numpy operands keep their dtype
             ins = [v.float() if isinstance(v, torch.Tensor) and v.is_floating_point() else v
                    for v in ins]
-        ctx = Ctx("device", self.config, op.name, device=self.device, consts=self._consts)
-        outs = get_impl(op.op_type).fn(ctx, op, ins)
+        outs = get_impl(op.op_type).fn(self._ctx(op.name, device), op, ins)
         if upcast:
             cdt = self.config.torch_compute_dtype
             outs = [o.to(cdt) if isinstance(o, torch.Tensor) and o.is_floating_point() else o
@@ -769,7 +847,8 @@ class Executor:
 
     def _run_segment(self, seg: Segment, weights: Dict[str, torch.Tensor],
                      env: Dict[str, torch.Tensor],
-                     nxt: Optional[_SegmentFetch] = None) -> Dict[str, torch.Tensor]:
+                     nxt: Optional[_SegmentFetch] = None,
+                     device: Optional[torch.device] = None) -> Dict[str, torch.Tensor]:
         """Dispatch seg's ops. With ``nxt`` (a streamed run), the next
         segment's weights are fetched between the ops, spread evenly, the
         last of them before seg's last op; seg's weights are released once
@@ -780,7 +859,8 @@ class Executor:
             if nxt is not None:
                 nxt.advance(len(nxt.args) if n == 1 else -(-j * len(nxt.args) // (n - 1)))
             op = self.graph.ops[oi]
-            for spec, val in zip(op.outputs, self._maybe_qdq(op, self._eval_op(oi, op, env, weights))):
+            outs = self._eval_op(oi, op, env, weights, device)
+            for spec, val in zip(op.outputs, self._maybe_qdq(op, outs)):
                 if spec.name:
                     env[spec.name] = val
             for t in op.inputs:
@@ -791,18 +871,41 @@ class Executor:
 
     # ------------------------------------------------------------------ runs
     def _prepare_inputs(self, inputs: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        """Inputs on the device in their plan dtypes; under a mesh this
+        rank's slice of each (a ``LocalShard`` of the local shape is taken as
+        it is). With pipeline stages they go to the first stage's device."""
+        device = self.seg_device(0) if self.segments else self.device
         prepared = {}
         for k, aval in self.plan.input_avals.items():
             if k not in inputs:
                 raise KeyError(f"missing graph input {k!r}")
-            prepared[k] = to_torch(inputs[k]).to(self.device, aval.dtype)
+            v = inputs[k]
+            if self.mesh_info is not None:
+                v = self._local_input(k, v, tuple(aval.shape))
+            prepared[k] = to_torch(v).to(device, aval.dtype)
         return prepared
+
+    def _local_input(self, name: str, v, local: tuple):
+        """This rank's slice of a graph input: a pushed ``LocalShard``
+        already is one (or holds the whole tensor, then sliced); a whole
+        array or tensor is sliced here, before it is copied to the device."""
+        v = getattr(v, "tensor", v)
+        if tuple(v.shape) == local:
+            return v
+        if tuple(v.shape) != self.mesh_info.input_shapes[name]:
+            raise ValueError(f"input {name!r}: shape {tuple(v.shape)} is neither this rank's {local} nor the "
+                             f"whole {self.mesh_info.input_shapes[name]}")
+        if isinstance(v, np.ndarray):
+            for axis, start, stop in self.mesh_info.input_slices[name]:
+                v = np.take(v, np.arange(start, stop), axis=axis)
+            return v
+        return _take_shard(v, self.mesh_info.input_slices[name])
 
     def _outputs(self, results: Dict[str, Any], device_outputs: bool = False) -> Dict[str, Any]:
         out: Dict[str, Any] = {}
-        for name in self.plan.fetch_names:
-            if name in results:
-                v = results[name]
+        for name, fetched in self._fetch.items():
+            if fetched in results:
+                v = results[fetched]
             elif name in self.plan.static_env:
                 v = self.plan.static_env[name]
             else:
@@ -812,7 +915,9 @@ class Executor:
 
     @property
     def streamed(self) -> bool:
-        return self.config.hbm_budget_bytes > 0
+        """Weights streamed a segment at a time (pipeline stages keep theirs
+        resident)."""
+        return self.config.hbm_budget_bytes > 0 and not self.config.pp_devices
 
     def _boundary_lifetimes(self) -> List[set]:
         """Per segment, the boundary activations it reads last: a streamed
@@ -821,7 +926,7 @@ class Executor:
         for si, seg in enumerate(self.segments):
             for n in seg.in_names:
                 last[n] = si
-        fetched = set(self.plan.fetch_names)
+        fetched = set(self._fetch.values())
         drop: List[set] = [set() for _ in self.segments]
         for n, si in last.items():
             if n not in fetched and n not in self.plan.input_avals:
@@ -864,8 +969,14 @@ class Executor:
             results: Dict[str, torch.Tensor] = {}
             if not self.streamed:
                 for si, seg in enumerate(self.segments):
-                    weights = self._fetch_segment_weights(seg)
-                    results.update(self._run_segment(seg, weights, self._segment_env(si, acts, results)))
+                    weights = self._fetch_segment_weights(seg, si)
+                    env = self._segment_env(si, acts, results)
+                    device = None
+                    if self.config.pp_devices:
+                        # boundary activations hop onto this segment's stage
+                        device = self.seg_device(si)
+                        env = {k: v.to(device) if isinstance(v, torch.Tensor) else v for k, v in env.items()}
+                    results.update(self._run_segment(seg, weights, env, device=device))
             elif self.segments:
                 self._run_streamed(acts, results)
             out = self._outputs(results, device_outputs)
@@ -961,9 +1072,26 @@ class Executor:
                      and self._crosses_as_file_bytes(w) and w.file_dtype.torch != w.upload_dtype), default=0)
                 for seg in self.segments]
         nxt = [w + c for w, c in zip(wb[1:], conv[1:])] + [0] if self.streamed else [0] * len(wb)
-        return {"mode": "streamed" if self.streamed else "resident", "segments": len(wb),
-                "weight_bytes": sum(wb), "segment_weight_bytes": wb, "segment_activation_bytes": act,
-                "peak_bytes": max((a + w + n for a, w, n in zip(act, wb, nxt)), default=0)}
+        out = {"mode": "streamed" if self.streamed else "resident", "segments": len(wb),
+               "weight_bytes": sum(wb), "segment_weight_bytes": wb, "segment_activation_bytes": act,
+               "peak_bytes": max((a + w + n for a, w, n in zip(act, wb, nxt)), default=0)}
+        if self.config.pp_devices:
+            # every stage holds its segments' weights (a tied weight once a
+            # stage) while one segment's activations are alive
+            stages = len(self.config.pp_devices)
+            names = [dict() for _ in range(stages)]
+            for si, seg in enumerate(self.segments):
+                names[self.seg_stage(si)].update({w.name: upload_bytes(w) for w in seg.weight_args})
+            sw = [sum(n.values()) for n in names]
+            out.update(mode="pipeline", stage_weight_bytes=sw,
+                       peak_bytes=max((a + sw[self.seg_stage(si)] for si, a in enumerate(act)), default=0))
+        if self.mesh_info is not None:
+            # this rank's bytes: the replicated weights whole, the sharded
+            # ones as the slices it holds, beside what one device would hold
+            sharded = sum(upload_bytes(w) for w in self.plan.arg_weights if w.shard)
+            out.update(replicated_weight_bytes=self.weight_bytes() - sharded, sharded_weight_bytes=sharded,
+                       one_device_weight_bytes=self.mesh_info.global_weight_bytes)
+        return out
 
     def run_eager(self, inputs: Dict[str, Any]) -> Dict[str, np.ndarray]:
         """Per-op interpreter over every device op with all weights fetched
@@ -973,7 +1101,7 @@ class Executor:
             self.provider.on_restart()
         timed = self.config.ops_times_printf
         calibrate = self.config.range_data_calibrate
-        fetched = set(self.plan.fetch_names)
+        fetched = set(self._fetch.values())
         with reference_precision():
             env: Dict[str, Any] = self._prepare_inputs(inputs)
             if calibrate:

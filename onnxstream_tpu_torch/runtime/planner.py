@@ -75,6 +75,9 @@ class WeightArg:
     # compute dtype of a float weight stored in float16 (force_fp16_storage
     # under float32 compute), cast by the executor at each read
     read_dtype: Optional[torch.dtype] = None
+    # under a mesh: this rank's slice ((axis, start, stop), ...) of the
+    # weight's ``file_shape``, taken at upload; ``shape`` is the local shape
+    shard: Optional[Tuple[Tuple[int, int, int], ...]] = None
 
 
 def _t9oc(a: torch.Tensor) -> torch.Tensor:
@@ -149,6 +152,9 @@ class Plan:
     # graph inputs pinned as host constants because an op demanded them
     # statically; the session re-plans when their values change
     pinned_inputs: Dict[str, np.ndarray] = dataclasses.field(default_factory=dict)
+    # under a mesh: this rank's placements (parallel/spmd.py MeshInfo);
+    # input_avals and avals are then local
+    mesh_info: Any = None
 
     def stream_entries(self):
         """(name, dtype, shape) in stream order, for WeightsProvider.on_init."""
@@ -176,7 +182,7 @@ def _upload_dtype(spec: TensorSpec, config: SessionConfig) -> torch.dtype:
 
 class _Planner:
     def __init__(self, graph: Graph, config: SessionConfig, input_avals, weight_loader,
-                 input_values=None):
+                 input_values=None, static_env=None, static_weights=None):
         self.graph = graph
         self.config = config
         cdt = config.torch_compute_dtype
@@ -196,8 +202,10 @@ class _Planner:
             k: ShapeDtype(tuple(v.shape), in_dtype(v.dtype)) for k, v in input_avals.items()
         }
         self.load_weight = weight_loader  # (name, DType, shape) -> host tensor
-        self.static_env: Dict[str, np.ndarray] = {}
-        self.static_weights: Dict[str, np.ndarray] = {}
+        # a rank's plan starts from the whole graph's host folds and static
+        # weights (parallel/spmd.py): its host ops are not folded again
+        self.static_env: Dict[str, np.ndarray] = dict(static_env or {})
+        self.static_weights: Dict[str, np.ndarray] = dict(static_weights or {})
         self.arg_weights: List[WeightArg] = []
         self._arg_set: Dict[str, WeightArg] = {}
         self.avals: Dict[str, ShapeDtype] = {}
@@ -237,7 +245,9 @@ class _Planner:
         raise PlanError(f"tensor {spec.name!r} consumed before being produced")
 
     def _pin_static_weight(self, spec: TensorSpec) -> None:
-        arr = to_numpy(self.load_weight(spec.name, spec.dtype, spec.shape))
+        arr = to_numpy(self.load_weight(spec.name, spec.dtype, spec.file_shape or spec.shape))
+        for axis, start, stop in spec.shard or ():
+            arr = np.take(arr, np.arange(start, stop), axis=axis)
         if spec.dtype == DType.uint8:
             arr = ((arr.astype(np.float32) - spec.zero_point) * spec.scale).astype(np.float32)
         self.static_weights[spec.name] = arr
@@ -315,6 +325,7 @@ class _Planner:
                 transform=transform,
                 file_shape=file_shape,
                 read_dtype=cdt if quant is None and upload.is_floating_point and upload != cdt else None,
+                shard=spec.shard,
             )
             self._arg_set[spec.name] = w
             self.arg_weights.append(w)
@@ -323,6 +334,9 @@ class _Planner:
     # -- per-op planning -------------------------------------------------------
     def plan_op(self, op: OpNode) -> None:
         impl = get_impl(op.op_type)
+        if op.outputs and all(t.name in self.static_env for t in op.outputs if t.name):
+            self.op_modes.append("host")  # folded already (a rank's plan)
+            return
         resolved = [self._resolve(t) for t in op.inputs]
 
         # Shape folds from metadata, device tensors and weights included
@@ -445,6 +459,16 @@ def plan_graph(
     fetch_names: Optional[Sequence[str]] = None,
     input_values: Optional[Dict[str, np.ndarray]] = None,
 ) -> Plan:
+    config.check_mesh()
     if fetch_names is None:
         fetch_names = graph.output_names() + [n for n in config.extra_outputs if n not in graph.output_names()]
-    return _Planner(graph, config, input_avals, weight_loader, input_values).plan(list(fetch_names))
+    plan = _Planner(graph, config, input_avals, weight_loader, input_values).plan(list(fetch_names))
+    if config.mesh is None:
+        return plan
+    from onnxstream_tpu_torch.parallel.spmd import shard_plan
+
+    def replan(local_graph, local_inputs, loader, static_env, static_weights, fetch):
+        return _Planner(local_graph, config, local_inputs, loader, static_env=static_env,
+                        static_weights=static_weights).plan(list(fetch))
+
+    return shard_plan(plan, weight_loader, replan)

@@ -8,7 +8,10 @@ Executor per input-shape bucket; repeated shapes reuse the cached executor
 
 ``SessionConfig.device`` names the device; left at None it is the first CUDA
 card, and with no card the Session raises: it runs on the CPU only when
-asked to (``torch.device("cpu")``).
+asked to (``torch.device("cpu")``). Under ``SessionConfig.mesh`` a Session
+is one rank's: its plans are this rank's share (``parallel/spmd.py``), keyed
+by the mesh's shape and the rank's coordinates beside the input shapes, and
+an input may be pushed as this rank's ``LocalShard``.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import torch
 from onnxstream_tpu_torch.dtypes import DType, dtype_name
 from onnxstream_tpu_torch.ir import Graph, parse_model_txt
 from onnxstream_tpu_torch.ops import registered_ops
+from onnxstream_tpu_torch.parallel import LocalShard
 from onnxstream_tpu_torch.runtime.config import SessionConfig, default_device
 from onnxstream_tpu_torch.runtime.executor import Executor
 from onnxstream_tpu_torch.runtime.fusion import fuse_attention, fuse_gn_conv, fuse_groupnorm, rewrite_smallconv
@@ -93,8 +97,9 @@ class Session:
     # --------------------------------------------------------------- tensors
     def add_tensor(self, name: str, data) -> None:
         """Push a graph input: a numpy array, or a torch tensor (kept as is,
-        e.g. a device tensor fed back from an earlier run)."""
-        self.tensors[name] = data if isinstance(data, torch.Tensor) else np.asarray(data)
+        e.g. a device tensor fed back from an earlier run), or under a mesh a
+        ``LocalShard`` (this rank's shard of the input and its whole shape)."""
+        self.tensors[name] = data if isinstance(data, (torch.Tensor, LocalShard)) else np.asarray(data)
 
     def clear_tensors(self) -> None:
         self.tensors.clear()
@@ -142,6 +147,10 @@ class Session:
                 raise KeyError(f"graph input {name!r} has not been pushed (add_tensor)")
             v = self.tensors[name]
             items.append((name, tuple(v.shape), dtype_name(v.dtype)))
+        mesh = self.config.mesh
+        if mesh is not None:
+            # a rank's plan holds its own slices and constants
+            items.append(("mesh", tuple(mesh.shape), tuple(mesh.get_coordinate())))
         return tuple(items)
 
     def _executor(self) -> Executor:
@@ -156,7 +165,7 @@ class Session:
                 for n, v in ex.plan.pinned_inputs.items()
             ):
                 return ex
-        input_avals = {name: ShapeDtype(shape, dtype) for name, shape, dtype in skey}
+        input_avals = {name: ShapeDtype(shape, dtype) for name, shape, dtype in skey if name != "mesh"}
         values = {name: v for name, v in self.tensors.items() if isinstance(v, np.ndarray)}
         plan = plan_graph(self.graph, self.config, input_avals, self._loader, input_values=values)
         ex = Executor(plan, self.provider)

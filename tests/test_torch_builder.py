@@ -108,6 +108,9 @@ def test_import_pulls_in_neither_jax_nor_ml_dtypes():
         "import onnxstream_tpu_torch.runtime.layout, onnxstream_tpu_torch.convert.onnx2txt\n"
         "import onnxstream_tpu_torch.convert.onnxproto, onnxstream_tpu_torch.cli.onnx2txt_main\n"
         "import onnxstream_tpu_torch.utils.download, onnxstream_tpu_torch.models.sd.hf\n"
+        "import onnxstream_tpu_torch.parallel, onnxstream_tpu_torch.parallel.sharding\n"
+        "import onnxstream_tpu_torch.parallel.spmd, onnxstream_tpu_torch.parallel.launch\n"
+        "import onnxstream_tpu_torch.parallel.dryrun, onnxstream_tpu_torch.parallel.comm\n"
         "bad = [m for m in ('jax', 'ml_dtypes', 'onnxstream_tpu') if m in sys.modules]\n"
         "assert not bad, bad\n"
     )

@@ -246,8 +246,10 @@ def test_unported_options_raise(option):
         p = LlamaPipeline(LLAMA_TINY, buckets=list(BUCKETS), device=CPU, **{option: True})
         assert 0 <= p.forward(PROMPT)[0] < LLAMA_TINY.vocab_size
         return
+    # the mesh is ported (tests/test_torch_sharded.py runs it on spawned
+    # ranks); with int8 weights it is not yet
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LlamaPipeline(LLAMA_TINY, device=CPU, **{option: object() if option == "mesh" else True})
+        LlamaPipeline(LLAMA_TINY, device=CPU, mesh=object(), int8_weights=True)
 
 
 def test_out_of_vocab_ids_raise_before_reaching_the_device():

@@ -1,0 +1,348 @@
+"""The port's mesh rules and sharding pass, without starting ranks.
+
+``parallel/sharding.py``'s rules are held to the JAX package's on the same
+shapes: ``shard_weight_spec`` on every weight of the TINY UNet and
+LLAMA_TINY at tp 1 / 2 / 4 / 8, ``activation_sharding`` and
+``kv_head_sharding`` (indivisible shapes included) on the conftest's eight
+virtual devices, and ``make_mesh``'s factorizations and errors. The sharding
+pass (``parallel/spmd.py``) is run by the planner for one rank of a mesh
+(``_RankMesh``: the attributes of a DeviceMesh the pass and the rules read,
+so a plan can be made without a process group; nothing runs): every tensor
+of the LLAMA_TINY prefill and decode graphs gets a placement at tp = 2 and
+no ``ostpu.all_gather`` lies between the q / k / v projections and
+attention. The runs over spawned gloo ranks are ``tests/test_torch_sharded.py``.
+"""
+
+import dataclasses
+import re
+from typing import Tuple
+
+import numpy as np
+import pytest
+import torch
+from torch.distributed.tensor import Replicate, Shard
+
+from onnxstream_tpu.models.llm.llama import LLAMA_TINY as JAX_LLAMA_TINY
+from onnxstream_tpu.models.llm.llama import build_llama as jax_build_llama
+from onnxstream_tpu.models.sd.unet import TINY as JAX_TINY
+from onnxstream_tpu.models.sd.unet import build_unet as jax_build_unet
+from onnxstream_tpu.parallel import sharding as jax_sharding
+from onnxstream_tpu_torch.models.llm.llama import LLAMA_TINY
+from onnxstream_tpu_torch.models.llm.pipeline import LlamaPipeline
+from onnxstream_tpu_torch.parallel import LocalShard
+from onnxstream_tpu_torch.parallel import sharding
+from onnxstream_tpu_torch.parallel.dryrun import run_session, tiny_unet, tiny_unet_inputs
+from test_torch_ops_card import op_case, rand
+
+CPU = torch.device("cpu")
+
+
+@dataclasses.dataclass
+class _RankMesh:
+    """One rank's view of a mesh, as the rules and the pass read it."""
+
+    mesh_dim_names: Tuple[str, ...]
+    shape: Tuple[int, ...]
+    coordinate: Tuple[int, ...]
+
+    def get_coordinate(self):
+        return list(self.coordinate)
+
+
+def _rank_mesh(coordinate=None, **sizes) -> _RankMesh:
+    names = tuple(n for n in ("dp", "tp", "sp") if n in sizes)
+    return _RankMesh(names, tuple(sizes[n] for n in names), tuple(coordinate or (0,) * len(names)))
+
+
+def _jax_axes(spec, ndim: int) -> tuple:
+    return tuple(spec) + (None,) * (ndim - len(tuple(spec)))
+
+
+def _port_axes(placements, names, ndim: int) -> tuple:
+    out = [None] * ndim
+    for name, p in zip(names, placements):
+        if isinstance(p, Shard):
+            out[p.dim] = name
+        else:
+            assert isinstance(p, Replicate)
+    return tuple(out)
+
+
+def _weight_shapes(model: str):
+    if model == "unet":
+        return [np.shape(w) for w in jax_build_unet(JAX_TINY).weights.values()]
+    return [np.shape(w) for w in jax_build_llama(JAX_LLAMA_TINY, new_len=8, past=16).weights.values()]
+
+
+@pytest.mark.parametrize("tp", [1, 2, 4, 8])
+@pytest.mark.parametrize("model", ["unet", "llama"])
+def test_shard_weight_spec_matches_jax(model, tp):
+    shapes = _weight_shapes(model)
+    assert len(shapes) > 20
+    sharded = 0
+    for shape in shapes:
+        want = _jax_axes(jax_sharding.shard_weight_spec(shape, tp), len(shape))
+        p = sharding.shard_weight_spec(shape, tp)
+        got = _port_axes([p], ("tp",), len(shape))
+        assert got == want, (shape, got, want)
+        sharded += isinstance(p, Shard)
+    assert sharded > 0 or tp == 8 and model == "llama"
+
+
+MESHES = {"dp2tp4": dict(dp=2, tp=4), "dp8": dict(dp=8, tp=1), "tp2": dict(dp=1, tp=2),
+          "dp2tp2sp2": dict(dp=2, tp=2, sp=2), "dp1tp4sp2": dict(dp=1, tp=4, sp=2)}
+SHAPES = [(2, 4, 16, 16), (2, 7, 32), (2, 64, 32), (4, 16, 8), (1, 2, 16, 16), (1, 3, 16, 8), (1, 8),
+          (8,), (2, 4, 16, 8), (3, 16, 16)]
+
+
+def _jax_mesh(sizes):
+    n = int(np.prod(list(sizes.values())))
+    return jax_sharding.make_mesh(n, **sizes)
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+@pytest.mark.parametrize("rule", ["activation_sharding", "kv_head_sharding"])
+def test_activation_and_kv_rules_match_jax(rule, mesh):
+    sizes = MESHES[mesh]
+    jmesh = _jax_mesh(sizes)
+    pmesh = _rank_mesh(**sizes)
+    for shape in SHAPES:
+        want = _jax_axes(getattr(jax_sharding, rule)(jmesh, shape).spec, len(shape))
+        got = _port_axes(getattr(sharding, rule)(pmesh, shape), pmesh.mesh_dim_names, len(shape))
+        assert got == want, (rule, mesh, shape, got, want)
+
+
+FACTORS = [(8, None, None, 1), (8, 2, None, 1), (8, None, 2, 1), (8, 4, 2, 1), (8, 1, 8, 1), (4, None, None, 1),
+           (2, 1, 2, 1), (6, None, None, 1), (1, None, None, 1), (8, 2, 2, 2), (8, None, None, 2),
+           (8, 2, None, 2), (8, None, 4, 2)]
+
+
+@pytest.mark.parametrize("n,dp,tp,sp", FACTORS)
+def test_make_mesh_factorization_matches_jax(n, dp, tp, sp):
+    jmesh = jax_sharding.make_mesh(n, dp=dp, tp=tp, sp=sp)
+    want = (jmesh.shape["dp"], jmesh.shape["tp"])
+    assert sharding._factor(n, dp, tp, sp) == want
+
+
+ERRORS = [(8, 3, None, 1, "dp=3 does not divide"), (8, None, 3, 1, "tp=3 does not divide"),
+          (8, None, None, 3, "sp=3 does not divide"), (8, 4, None, 4, "does not divide"),
+          (8, 2, 2, 1, "!= n_devices"), (8, 2, 3, 2, "!= n_devices")]
+
+
+@pytest.mark.parametrize("n,dp,tp,sp,match", ERRORS)
+def test_make_mesh_errors_match_jax(n, dp, tp, sp, match):
+    with pytest.raises(ValueError, match=re.escape(match)):
+        jax_sharding.make_mesh(n, dp=dp, tp=tp, sp=sp)
+    with pytest.raises(ValueError, match=re.escape(match)):
+        sharding.make_mesh(n, dp=dp, tp=tp, sp=sp)
+
+
+def test_make_mesh_needs_a_process_group_and_train_step_is_not_ported():
+    """No group: the error names the launchers (JAX names XLA_FLAGS); the
+    port never makes a CPU mesh by itself."""
+    assert not torch.distributed.is_initialized()
+    with pytest.raises(RuntimeError, match="torchrun"):
+        sharding.make_mesh(2)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        sharding.make_train_step(None, "out", None)
+
+
+def _planned_llama(L: int, P: int, coordinate: int):
+    """One rank's plan of an LLAMA_TINY (L, P) graph at tp = 2."""
+    mesh = _rank_mesh(coordinate=(0, coordinate), dp=1, tp=2)
+    pipe = LlamaPipeline(LLAMA_TINY, buckets=[8, 16, 32], mesh=mesh, device=CPU)
+    s = pipe._session(L, P)
+    s.add_tensor("input_5F_ids", np.zeros((1, L), np.int64))
+    s.add_tensor("position_5F_ids", np.zeros((1, L), np.int64))
+    s.add_tensor("last_5F_pos", np.zeros(1, np.int64))
+    if P:
+        s.add_tensor("cache_5F_len", np.array([4], np.int64))
+        hd = LLAMA_TINY.head_dim
+        for i in range(2 * LLAMA_TINY.layers):
+            local = torch.zeros(1, LLAMA_TINY.kv_heads // 2, P, hd)
+            s.add_tensor(f"pkv{i}", LocalShard(local, (1, LLAMA_TINY.kv_heads, P, hd)))
+    return s._executor()
+
+
+def _ancestors(graph, names):
+    producer = {t.name: op for op in graph.ops for t in op.outputs if t.name}
+    seen, todo = set(), list(names)
+    while todo:
+        n = todo.pop()
+        if n in seen:
+            continue
+        seen.add(n)
+        op = producer.get(n)
+        if op is not None:
+            todo.extend(t.name for t in op.inputs if t.name and not t.is_weight)
+    return seen
+
+
+@pytest.mark.parametrize("coordinate", [0, 1])
+@pytest.mark.parametrize("L,P", [(8, 0), (1, 16)])
+def test_llama_tp2_placements_and_no_gather_before_attention(L, P, coordinate):
+    ex = _planned_llama(L, P, coordinate)
+    info, graph, plan = ex.mesh_info, ex.graph, ex.plan
+    # every device tensor of the whole graph has a placement, and its local
+    # shape is the global one divided on the sharded axis
+    device_outs = [t.name for op in graph.ops if not op.op_type.startswith("ostpu.")
+                   for t in op.outputs if t.name and t.name in info.global_avals]
+    assert device_outs
+    for name in device_outs:
+        pmap = info.placements[name]
+        want = list(info.global_avals[name].shape)
+        for axis, dim in pmap.items():
+            assert dim == "tp"
+            want[axis] //= 2
+        assert tuple(plan.avals[name].shape) == tuple(want), name
+    ops = {op.name: op for op in graph.ops}
+    for layer in range(LLAMA_TINY.layers):
+        nm = f"model.layers.{layer}"
+        for proj in ("q_proj", "k_proj", "v_proj"):
+            assert info.placements[f"{nm}.self_attn.{proj}/MatMul_out"] == {2: "tp"}
+            w = next(w for w in plan.arg_weights if w.name == f"{nm}.self_attn.{proj}.weight.bin")
+            n = w.file_shape[1] // 2
+            assert w.shard == ((1, coordinate * n, (coordinate + 1) * n),)
+        sdpa = ops[f"{nm}/pv_sdpa"]
+        for t in sdpa.inputs[:3]:
+            assert info.placements[t.name] == {1: "tp"}, t.name
+        assert info.placements[sdpa.outputs[0].name] == {1: "tp"}
+        # no gather between the projections and attention
+        proj_outs = {f"{nm}.self_attn.{p}/MatMul_out" for p in ("q_proj", "k_proj", "v_proj")}
+        feeding = _ancestors(graph, [t.name for t in sdpa.inputs if t.name])
+        gathers = [op.name for op in graph.ops if op.op_type == "ostpu.all_gather"
+                   and op.outputs[0].name in feeding and _ancestors(graph, [op.inputs[0].name]) & proj_outs]
+        assert gathers == []
+        # the cache leaves as this rank's head shard
+        assert info.local_outputs[f"opkv{2 * layer}"] == {1: "tp"}
+        assert tuple(plan.avals[f"opkv{2 * layer}"].shape) == (1, 1, P or L, LLAMA_TINY.head_dim)
+    if P:
+        # the KV write's indices: this rank's rows, its head block's offset taken off
+        scat = ops["model.layers.0/scatk"]
+        assert scat.inputs[1].name != "kvw/indices_out"
+        assert info.placements["model.layers.0/scatk_out"] == {0: "tp"}
+    for name in plan.fetch_names:  # everything else leaves whole
+        if not name.startswith("opkv"):
+            assert not info.placements.get(name) or name in info.fetch_alias, name
+
+
+def test_packed_attention_heads_become_local():
+    """The TINY UNet at tp = 2: the packed sdpa sites take their local head
+    count and q / k / v arrive sharded on their last axis; the rank holds
+    the replicated weights and half of the sharded ones."""
+    text, weights = tiny_unet(2)
+    s = _session_planned(text, weights, _rank_mesh(coordinate=(0, 1), dp=1, tp=2))
+    ex = s._executor()
+    sdpa = [op for op in ex.graph.ops if op.op_type == "ostpu.sdpa"]
+    assert sdpa and all(op.attr_int("heads") == 1 for op in sdpa)
+    for op in sdpa:
+        for t in op.inputs[:3]:
+            assert ex.mesh_info.placements.get(t.name) == {2: "tp"}, (op.name, t.name)
+    acc = ex.hbm_accounting()
+    assert acc["replicated_weight_bytes"] + 2 * acc["sharded_weight_bytes"] == acc["one_device_weight_bytes"]
+
+
+def _session_planned(text, weights, mesh, **config):
+    from onnxstream_tpu_torch import Session, SessionConfig
+    from onnxstream_tpu_torch.runtime.weights import DictWeightsProvider, params_from_numpy
+
+    s = Session(SessionConfig(device=CPU, mesh=mesh, **config),
+                weights_provider=DictWeightsProvider(params_from_numpy(weights)))
+    s.read_string(text)
+    for k, v in tiny_unet_inputs(2).items():
+        s.add_tensor(k, v)
+    return s
+
+
+REFUSED = [dict(hbm_budget_bytes=1 << 20), dict(force_uint8_storage_set={"conv_in.weight_nchw.bin"}),
+           dict(use_uint8_arithmetic=True), dict(use_uint8_qdq=True), dict(range_data_calibrate=True),
+           dict(hbm_budget_bytes=1 << 20, pp_devices=[CPU, CPU])]
+
+
+@pytest.mark.parametrize("options", REFUSED, ids=lambda o: "+".join(o))
+def test_mesh_refuses_streaming_stages_and_quantized_storage(options):
+    text, weights = tiny_unet(2)
+    s = _session_planned(text, weights, _rank_mesh(dp=1, tp=2), **options)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 11"):
+        s.run()
+
+
+def test_llm_int8_weights_with_a_mesh_raise():
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 11"):
+        LlamaPipeline(LLAMA_TINY, int8_weights=True, mesh=_rank_mesh(dp=1, tp=2), device=CPU)
+
+
+def test_one_rank_mesh_is_the_unsharded_run():
+    """make_mesh(1)'s shape: the pass places nothing and puts in no gather;
+    the output equals the run without a mesh bit for bit."""
+    text, weights = tiny_unet(2)
+    y0, _ = run_session(text, weights, tiny_unet_inputs(2), CPU)
+    s = _session_planned(text, weights, _rank_mesh(dp=1, tp=1))
+    y1 = s.run()["out_sample"]
+    ex = s._executor()
+    assert not any(op.op_type.startswith("ostpu.all_gather") for op in ex.graph.ops)
+    assert not any(ex.mesh_info.placements.values())
+    np.testing.assert_array_equal(y0, y1)
+
+
+def _sdpa_case(shape, causal, heads=0, seed=0):
+    qkv = {n: rand(*shape, seed=seed + i) for i, n in enumerate("qkv")}
+    attrs = {"causal": int(causal)}
+    if heads:
+        attrs["heads"] = heads
+    return op_case("ostpu.sdpa", qkv, {}, [shape], attrs=attrs)
+
+
+# attention over inputs that sp = 2 shards on their rows (axis 1, 16 >= 2 * 8):
+# packed (B, M, H*D) and head-major (H, M, D) with its heads over dp
+SDPA_SP_CASES = {"packed_causal": _sdpa_case((2, 16, 32), True, heads=2),
+                 "packed": _sdpa_case((2, 16, 32), False, heads=2),
+                 "headmajor_causal": _sdpa_case((2, 16, 8), True, seed=3)}
+
+
+@pytest.mark.parametrize("coordinate", [(0, 0, 0), (1, 1, 1)])
+@pytest.mark.parametrize("case", list(SDPA_SP_CASES))
+def test_sdpa_keeps_causal_query_rows_whole_under_sp(case, coordinate):
+    """q arrives sharded on its rows over sp. Without a causal mask each rank
+    attends its own rows to the gathered keys; a causal mask counts rows from
+    the first, so q is gathered over sp first and the result is whole on its
+    rows."""
+    from onnxstream_tpu_torch import Session, SessionConfig
+
+    text, inputs, _ = SDPA_SP_CASES[case]
+    s = Session(SessionConfig(device=CPU, mesh=_rank_mesh(coordinate=coordinate, dp=2, tp=2, sp=2)))
+    s.read_string(text)
+    for k, v in inputs.items():
+        s.add_tensor(k, v)
+    ex = s._executor()
+    info = ex.mesh_info
+    assert info.placements["q"].get(1) == "sp"
+    sdpa = next(op for op in ex.graph.ops if op.op_type == "ostpu.sdpa")
+    q_in, k_in = sdpa.inputs[0].name, sdpa.inputs[1].name
+    assert info.placements.get(k_in, {}).get(1) is None, "keys are whole on their rows"
+    gathered_sp = [op for op in ex.graph.ops if op.op_type == "ostpu.all_gather" and op.attr("dim") == "sp"]
+    assert gathered_sp
+    rows = info.placements.get(q_in, {}).get(1)
+    out_rows = info.placements[sdpa.outputs[0].name].get(1)
+    if "causal" in case:
+        assert rows is None and out_rows is None
+    else:
+        assert rows == "sp" and out_rows == "sp"
+
+
+def test_dry_run_and_spawn_default_to_the_card():
+    """The dry run drives a card a rank over NCCL unless the CPU and gloo
+    are asked for; ``spawn`` takes its backend and device from the caller."""
+    import inspect
+
+    from onnxstream_tpu_torch.parallel import dryrun, launch
+
+    params = inspect.signature(dryrun.dryrun_multichip).parameters
+    assert (params["device"].default, params["backend"].default) == ("cuda", "nccl")
+    params = inspect.signature(launch.spawn).parameters
+    assert params["backend"].default is params["device"].default is inspect.Parameter.empty
+    with pytest.raises(ValueError, match="nccl needs CUDA devices"):
+        dryrun.main(["2", "--device", "cpu"])
+    if torch.cuda.device_count() < 2:
+        with pytest.raises(ValueError, match="--backend gloo"):
+            dryrun.dryrun_multichip(2)

@@ -1,0 +1,369 @@
+"""The port's sharded serving paths on spawned gloo groups, on the CPU.
+
+Counterpart of the JAX package's mesh tests (tests/test_models.py
+``test_session_mesh_sharded_inference_matches_single``,
+``test_sequence_parallel_mesh``, ``test_mesh_synthetic_weights_are_sharded``;
+tests/test_session.py's pipeline-stage tests; tests/test_llm_sharded.py).
+Two process groups are started once for the module (``parallel.launch
+.spawn``, each with a 120 s timeout, so a deadlock fails its tests and not the
+suite), and run every case of ``parallel.dryrun.rank_cases``:
+
+  * eight ranks: the TINY UNet (batch 2) under ``make_mesh(8, dp=2, tp=4)``
+    and, with a 16-token context that sp shards, ``make_mesh(8, dp=2, tp=2,
+    sp=2)``; one-op attention graphs, causal or not, whose rows sp shards,
+    under the same mesh; the TINY UNet with weights
+    synthesized under ``make_mesh(8, dp=1, tp=8)``; LLAMA_TINY at tp = 4
+    (``make_mesh(8, dp=2, tp=4)``: 2 kv heads do not divide, the cache is
+    replicated); ``make_mesh``'s default and its errors;
+  * two ranks: LLAMA_TINY at ``make_mesh(2, dp=1, tp=2)``, the cache sharded
+    on its heads.
+
+While they run, this process makes the references: the port's one-device
+runs and the JAX package's sharded runs on the conftest's eight virtual
+devices. Bars: the JAX suite's, rtol 2e-4 / atol 1e-5 on the UNet output,
+2e-4 on logits, tokens equal. The pipeline stages (``pp_devices``, one
+process) run here over [cpu] * 4.
+"""
+
+import dataclasses
+from collections import Counter
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+import pytest
+import torch
+
+from onnxstream_tpu.models.llm.llama import LLAMA_TINY as JAX_LLAMA_TINY
+from onnxstream_tpu_torch.models.llm.llama import LlamaConfig
+from onnxstream_tpu.models.llm.pipeline import LlamaPipeline as JaxPipeline
+from onnxstream_tpu.models.sd.unet import TINY as JAX_TINY
+from onnxstream_tpu.models.sd.unet import build_unet as jax_build_unet
+from onnxstream_tpu.parallel.sharding import make_mesh as jax_make_mesh
+from onnxstream_tpu.runtime.config import SessionConfig as JaxConfig
+from onnxstream_tpu.runtime.session import Session as JaxSession
+from onnxstream_tpu.runtime.weights import DictWeightsProvider as JaxDict
+from onnxstream_tpu_torch import Session, SessionConfig
+from onnxstream_tpu_torch.parallel.dryrun import LLM_BUCKETS, LLM_PROMPT, llm_single, rank_cases, run_session
+from onnxstream_tpu_torch.parallel.launch import spawn
+from onnxstream_tpu_torch.runtime.weights import DictWeightsProvider, params_from_numpy
+from test_torch_ops_card import OP_CASES
+from test_torch_parallel import SDPA_SP_CASES
+
+CPU = torch.device("cpu")
+GROUP_TIMEOUT_S = 120
+SYNTH = dict(synthetic_device_weights=True, synthetic_min_elements=1 << 8)
+# weights big enough to be synthesized (>= 2^18 elements) and shared across
+# the bucket graphs whole (>= 1 MiB), but not as a tp = 2 slice
+SYNTH_LLAMA = LlamaConfig(vocab_size=503, dim=512, layers=2, heads=8, kv_heads=4, intermediate=1024, max_pos=64)
+
+
+def _inputs(batch, context_len=7):
+    rng = np.random.RandomState(0)
+    return {"sample": rng.rand(batch, 4, 16, 16).astype(np.float32), "timestep": np.array([500.0], np.float32),
+            "encoder_hidden_states": rng.rand(batch, context_len, 32).astype(np.float32)}
+
+
+def _jax_unet(g, inputs, mesh=None):
+    s = JaxSession(config=JaxConfig(mesh=mesh), weights_provider=JaxDict(g.weights))
+    s.read_string(g.to_text())
+    for k, v in inputs.items():
+        s.add_tensor(k, v)
+    return np.asarray(s.run()["out_sample"], np.float32)
+
+
+def _jax_llm(tp):
+    """The JAX pipeline's prefill, five decode steps and on-device decode."""
+    mesh = jax_make_mesh(n_devices=tp, dp=1, tp=tp) if tp > 1 else None
+    pipe = JaxPipeline(JAX_LLAMA_TINY, buckets=list(LLM_BUCKETS), mesh=mesh)
+    steps = [pipe.forward(list(LLM_PROMPT))]
+    for _ in range(5):
+        steps.append(pipe.forward([steps[-1][0]]))
+    pipe.reset()
+    return {"steps": steps, "generated": pipe.generate_on_device(list(LLM_PROMPT), max_new_tokens=6)}
+
+
+@pytest.fixture(scope="module")
+def runs():
+    """Both groups' results, the references made while they run."""
+    g2, g1 = jax_build_unet(JAX_TINY, batch=2), jax_build_unet(JAX_TINY, batch=1)
+    g2sp = jax_build_unet(dataclasses.replace(JAX_TINY, context_len=16), batch=2)
+    text2, w2, text1, w1 = g2.to_text(), dict(g2.weights), g1.to_text(), dict(g1.weights)
+    text_sp, w_sp = g2sp.to_text(), dict(g2sp.weights)
+    cases8 = [("dp2tp4", "unet", dict(text=text2, weights=w2, inputs=_inputs(2), mesh=dict(dp=2, tp=4))),
+              ("sp", "unet", dict(text=text_sp, weights=w_sp, inputs=_inputs(2, 16), mesh=dict(dp=2, tp=2, sp=2))),
+              ("sdpa_sp", "graphs", dict(graphs=[(k, text, {}, inputs)
+                                                 for k, (text, inputs, _) in SDPA_SP_CASES.items()],
+                                         mesh=dict(dp=2, tp=2, sp=2))),
+              ("synth", "unet", dict(text=text1, weights=w1, inputs=_inputs(1), mesh=dict(dp=1, tp=8),
+                                     return_weights=True, **SYNTH)),
+              ("llm_tp4", "llm", dict(mesh=dict(dp=2, tp=4))),
+              ("mesh", "mesh", {})]
+    cases2 = [("llm_tp2", "llm", dict(mesh=dict(dp=1, tp=2))),
+              ("llm_tp2_bf16", "llm", dict(mesh=dict(dp=1, tp=2), compute_dtype="bfloat16")),
+              ("llm_tp2_synth", "llm", dict(mesh=dict(dp=1, tp=2), cfg=SYNTH_LLAMA, synthetic_on_device=True)),
+              ("ops_dp2", "graphs", dict(graphs=[(k, text, weights, inputs)
+                                                 for k, (text, inputs, weights) in OP_CASES.items()],
+                                         mesh=dict(dp=2))),
+              ("mesh", "mesh", {})]
+    with ThreadPoolExecutor(2) as pool:
+        f8 = pool.submit(spawn, rank_cases, 8, "gloo", "cpu", GROUP_TIMEOUT_S, (cases8,))
+        f2 = pool.submit(spawn, rank_cases, 2, "gloo", "cpu", GROUP_TIMEOUT_S, (cases2,))
+        ref = {"port_dp2tp4": run_session(text2, w2, _inputs(2), CPU)[0],
+               "jax_dp2tp4": _jax_unet(g2, _inputs(2), jax_make_mesh(8, dp=2, tp=4)),
+               "port_sp": run_session(text_sp, w_sp, _inputs(2, 16), CPU)[0],
+               "jax_sp": _jax_unet(g2sp, _inputs(2, 16), jax_make_mesh(8, dp=2, tp=2, sp=2)),
+               "port_synth": run_session(text1, w1, _inputs(1), CPU, **SYNTH),
+               "port_llm": llm_single(CPU), "jax_llm_tp2": _jax_llm(2), "jax_llm_tp4": _jax_llm(4),
+               "port_llm_synth": llm_single(CPU, cfg=SYNTH_LLAMA, synthetic_on_device=True)}
+        return {"ref": ref, 8: f8.result(), 2: f2.result()}
+
+
+@pytest.mark.parametrize("case", ["dp2tp4", "sp"])
+def test_sharded_unet_matches_single_device_and_jax(runs, case):
+    """Under sp the context arrives split over sp, so the cross-attention's
+    keys and values are gathered over it."""
+    ref = runs["ref"]
+    for rank, r in enumerate(runs[8]):
+        y = r[case]["out"]
+        np.testing.assert_allclose(y, ref[f"port_{case}"], rtol=2e-4, atol=1e-5, err_msg=f"rank {rank}")
+        np.testing.assert_allclose(y, ref[f"jax_{case}"], rtol=2e-4, atol=1e-5, err_msg=f"rank {rank}")
+        assert r[case]["gathers"]["tp"]["calls"] > 0
+        if case == "sp":
+            assert r[case]["gathers"]["sp"]["calls"] > 0
+
+
+@pytest.mark.parametrize("case", list(SDPA_SP_CASES))
+def test_attention_with_rows_over_sp_matches_one_device(runs, case):
+    """Attention whose query rows sp shards, causal or not, on every rank of
+    make_mesh(8, dp=2, tp=2, sp=2): the one-device output (float32 within
+    1e-5 * max|out|, the op suite's bar), with keys gathered over sp."""
+    text, inputs, _ = SDPA_SP_CASES[case]
+    want = _one_device(text, inputs, {})["y0"]
+    for rank, r in enumerate(runs[8]):
+        got = r["sdpa_sp"][case]
+        np.testing.assert_allclose(got["out"]["y0"], want, rtol=0, atol=1e-5 * np.abs(want).max(),
+                                   err_msg=f"rank {rank}")
+        assert got["gathers"]["sp"]["calls"] > 0
+
+
+def test_rank_holds_replicated_weights_and_a_quarter_of_the_sharded(runs):
+    """make_mesh(8, dp=2, tp=4): replicated + sharded / 4 == one device's
+    bytes, and hbm_stats() reports the rank's share."""
+    for r in runs[8]:
+        hbm = r["dp2tp4"]["hbm"]
+        assert r["dp2tp4"]["mesh"] == {"dp": 2, "tp": 4}
+        assert hbm["weight_bytes"] == hbm["replicated_weight_bytes"] + hbm["sharded_weight_bytes"]
+        assert hbm["replicated_weight_bytes"] + 4 * hbm["sharded_weight_bytes"] == hbm["one_device_weight_bytes"]
+        assert hbm["weight_bytes"] < hbm["one_device_weight_bytes"] / 3
+    sp = runs[8][0]["sp"]
+    assert sp["mesh"] == {"dp": 2, "tp": 2, "sp": 2}
+    assert sp["hbm"]["replicated_weight_bytes"] + 2 * sp["hbm"]["sharded_weight_bytes"] == \
+        sp["hbm"]["one_device_weight_bytes"]
+
+
+def test_mesh_synthetic_weights_are_sharded_slices_of_the_one_device_weights(runs):
+    """synthetic_device_weights under a mesh: each rank generates the whole
+    weight from its seed and keeps its slice, so the shards are the
+    one-device weights' and the output is the one-device output."""
+    y0, s0 = runs["ref"]["port_synth"]
+    ex0 = s0._executor()
+    whole = {name: t.float().numpy() for name, t in ex0._fetch_segment_weights(ex0.segments[0]).items()}
+    n_sharded = 0
+    for r in runs[8]:
+        case = r["synth"]
+        np.testing.assert_allclose(case["out"], y0, rtol=2e-4, atol=1e-5)
+        for name, local in case["weights"].items():
+            shard = case["weight_shards"][name]
+            want = whole[name]
+            for axis, start, stop in shard or ():
+                want = np.take(want, np.arange(start, stop), axis=axis)
+            np.testing.assert_array_equal(local, want, err_msg=name)
+            n_sharded += shard is not None
+    assert n_sharded > 0, "no weight ended up tp-sharded"
+
+
+def _check_llm(got, ref, tag):
+    for step, (a, b) in enumerate(zip(ref["steps"], got["steps"])):
+        assert a[0] == b[0], f"{tag}: tokens diverge at step {step}"
+        dev = float(np.abs(a[1] - b[1]).max())
+        assert dev < 2e-4, f"{tag}: step {step} logits max dev {dev}"
+    assert got["generated"] == ref["generated"], tag
+
+
+def test_tp2_llm_prefill_decode_and_on_device_decode(runs):
+    """make_mesh(2, dp=1, tp=2): every rank's logits and tokens are the
+    one-device pipeline's and the JAX sharded pipeline's; the cache is a
+    (1, 1, P, 16) head shard; five decode steps cross bucket 8 -> 16."""
+    for r in runs[2]:
+        got = r["llm_tp2"]
+        assert got["mesh"] == {"dp": 1, "tp": 2}
+        assert got["kv_shape"] == (1, 1, 8, 16)
+        assert got["cache_len"] == len(LLM_PROMPT) + 5
+        _check_llm(got, runs["ref"]["port_llm"], "port one-device")
+        _check_llm(got, runs["ref"]["jax_llm_tp2"], "jax tp=2")
+        assert got["generated_cache_len"] == runs["ref"]["port_llm"]["generated_cache_len"]
+        assert got["weight_bytes"] < runs["ref"]["port_llm"]["weight_bytes"]
+
+
+def test_tp2_llm_on_synthesized_weights_matches_one_device(runs):
+    """Weights synthesized on the device under a mesh: every bucket graph
+    (prefill, decode at 8 and 16) reads the same slices, the prefill's, as
+    the one-device pipeline's graphs read the same weights. A slice below the
+    shared cache's size would otherwise be made again by each graph, seeded
+    by its index in that graph's plan: other weights."""
+    for r in runs[2]:
+        _check_llm(r["llm_tp2_synth"], runs["ref"]["port_llm_synth"], "synthesized, tp=2")
+
+
+def test_gathers_move_the_compute_dtype(runs):
+    """The same gathers in bf16 move half the bytes of float32: the
+    RMSNorm's float32 upcast (requires_upcast, by op name) does not reach
+    the gathers the pass puts before its ops."""
+    for r in runs[2]:
+        f32, bf16 = r["llm_tp2"]["gathers"]["tp"], r["llm_tp2_bf16"]["gathers"]["tp"]
+        assert f32["calls"] == bf16["calls"] > 0
+        assert f32["bytes"] == 2 * bf16["bytes"]
+
+
+def _one_device(text, inputs, weights):
+    s = Session(SessionConfig(device=CPU), weights_provider=DictWeightsProvider(params_from_numpy(weights)))
+    s.read_string(text)
+    for k, v in inputs.items():
+        s.add_tensor(k, v)
+    return s.run()
+
+
+def test_every_op_case_under_dp2_matches_one_device(runs):
+    """Each one-op graph of tests/test_torch_ops_card.py on the two ranks of
+    make_mesh(2, dp=2): inputs with an even batch axis arrive split over dp,
+    so every op type's rule (or its gather) runs; the gathered outputs equal
+    the one-device run's (float32 within 1e-5 * max|out|, the op suite's bar;
+    integer and bool results equal)."""
+    split = [k for k, (_, inputs, _) in OP_CASES.items()
+             if any(np.ndim(v) >= 1 and np.shape(v)[0] % 2 == 0 for v in inputs.values())]
+    assert len(split) > len(OP_CASES) // 2
+    for key, (text, inputs, weights) in OP_CASES.items():
+        want = _one_device(text, inputs, weights)
+        for rank, r in enumerate(runs[2]):
+            got = r["ops_dp2"][key]["out"]
+            assert set(got) == set(want), key
+            for name, w in want.items():
+                g = got[name]
+                assert g.shape == w.shape and g.dtype == w.dtype, (key, name, rank)
+                if np.issubdtype(w.dtype, np.floating):
+                    np.testing.assert_allclose(g, w, rtol=0, atol=1e-5 * max(np.abs(w).max(), 1e-30),
+                                               err_msg=f"{key} {name} rank {rank}")
+                else:
+                    np.testing.assert_array_equal(g, w, err_msg=f"{key} {name} rank {rank}")
+
+
+def test_tp4_llm_with_indivisible_kv_heads_replicates_the_cache(runs):
+    for r in runs[8]:
+        got = r["llm_tp4"]
+        assert got["kv_shape"] == (1, 2, 8, 16)
+        _check_llm(got, runs["ref"]["port_llm"], "port one-device")
+        _check_llm(got, runs["ref"]["jax_llm_tp4"], "jax tp=4")
+
+
+@pytest.mark.parametrize("group", [8, 2])
+def test_make_mesh_over_a_group(runs, group):
+    """The default factorization (tp first: 8 -> 1 x 8, 2 -> 1 x 2), rank
+    coordinates row-major, and a world size that is not the group's raises
+    naming the launcher."""
+    for rank, r in enumerate(runs[group]):
+        m = r["mesh"]
+        assert m["default"] == {"dp": 1, "tp": group}
+        assert m["coordinate"] == [0, rank]
+        assert len(m["errors"]) == 2 and all("torchrun" in e for e in m["errors"])
+
+
+# --------------------------------------------------------- pipeline stages
+
+
+def _pp_session(text, weights, stages, budget, **kw):
+    s = Session(SessionConfig(device=CPU, hbm_budget_bytes=budget, pp_devices=[CPU] * stages, **kw),
+                weights_provider=DictWeightsProvider(params_from_numpy(weights)))
+    s.read_string(text)
+    return s
+
+
+def test_pp_unet_matches_single_device_and_keeps_stage_weights(monkeypatch):
+    g = jax_build_unet(JAX_TINY)
+    ins = _inputs(1)
+    base = run_session(g.to_text(), dict(g.weights), ins, CPU)[0]
+    jax_base = _jax_unet(g, ins)
+    s = _pp_session(g.to_text(), dict(g.weights), 4, 1 << 20)
+    for k, v in ins.items():
+        s.add_tensor(k, v)
+    y = s.run()["out_sample"]
+    ex = s._executor()
+    stages = [ex.seg_stage(i) for i in range(len(ex.segments))]
+    assert len(ex.segments) > 1 and len(set(stages)) > 1 and stages == sorted(stages)
+    np.testing.assert_array_equal(y, base)
+    np.testing.assert_allclose(y, jax_base, rtol=2e-4, atol=1e-5)
+    uploads = []
+    monkeypatch.setattr(ex, "_upload", lambda w, device=None: uploads.append(w.name))
+    np.testing.assert_array_equal(s.run()["out_sample"], base)
+    assert uploads == [], "stage weights are resident: a second run uploads nothing"
+    acc = ex.hbm_accounting()
+    assert acc["mode"] == "pipeline" and len(acc["stage_weight_bytes"]) == 4
+
+
+def _chain(n, tied_last=False, k=64, seed=0):
+    rng = np.random.RandomState(seed)
+    lines, weights = [], {}
+    for i in range(n):
+        src = "x" if i == 0 else f"t{i - 1}"
+        wname = "w0.bin" if tied_last and i == n - 1 else f"w{i}.bin"
+        lines.append(f"mm{i}:MatMul*input:{src}(1,{k});{wname}(float32:{k},{k})*output:t{i}(1,{k})")
+        weights.setdefault(wname, (rng.randn(k, k) / np.sqrt(k)).astype(np.float32))
+    return "\n".join(lines) + "\n", weights, rng.randn(1, k).astype(np.float32)
+
+
+def test_pp_contiguous_placement_minimal_hops():
+    """12 single-weight segments over 4 stages: contiguous blocks, balanced
+    within one segment, hops == stages - 1."""
+    text, weights, x = _chain(12)
+    s = _pp_session(text, weights, 4, 64 * 64 * 4 + 1)
+    s.add_tensor("x", x)
+    y = s.run()["t11"]
+    ex = s._executor()
+    assign = [ex.seg_stage(si) for si in range(len(ex.segments))]
+    assert len(assign) == 12 and len(set(assign)) == 4
+    assert sum(a != b for a, b in zip(assign, assign[1:])) == 3
+    counts = Counter(assign).values()
+    assert max(counts) - min(counts) <= 1
+    ref = x
+    for i in range(12):
+        ref = ref @ weights[f"w{i}.bin"]
+    np.testing.assert_allclose(y, ref, rtol=2e-4, atol=1e-5)
+
+
+def test_pp_weight_shared_across_stages_is_copied_between_devices():
+    """A weight of segments on two stages: the second stage's copy comes from
+    the first stage's device copy (the provider released the host copy)."""
+    text, weights, x = _chain(4, tied_last=True)
+    s = _pp_session(text, weights, 2, 64 * 64 * 4 + 1)
+    s.add_tensor("x", x)
+    y = s.run()["t3"]
+    ex = s._executor()
+    assert [ex.seg_stage(i) for i in range(4)] == [0, 0, 1, 1]
+    assert {(0, "w0.bin"), (1, "w0.bin")} <= set(ex._resident)
+    assert ex._resident[(0, "w0.bin")][0] is not ex._resident[(1, "w0.bin")][0]
+    ref = x @ weights["w0.bin"] @ weights["w1.bin"] @ weights["w2.bin"] @ weights["w0.bin"]
+    np.testing.assert_allclose(y, ref, rtol=2e-4, atol=2e-4)
+
+
+def test_pp_runs_do_not_release_stage_weights():
+    """Stage weights are resident, never released by a run (no donation):
+    two runs of one session agree and hold the same device tensors."""
+    text, weights, x = _chain(3, k=256)
+    s = _pp_session(text, weights, 2, 256 * 256 * 4 + 1)
+    s.add_tensor("x", x)
+    y1 = s.run()["t2"]
+    ex = s._executor()
+    held = {k: v[0] for k, v in ex._resident.items()}
+    y2 = s.run()["t2"]
+    np.testing.assert_array_equal(y1, y2)
+    assert all(ex._resident[k][0] is t for k, t in held.items())
+    assert all(t.numel() for t in held.values())

@@ -175,10 +175,10 @@ class _Spy:
             spy.refs.append((self_.si, weakref.ref(dev)))
             return dev
 
-        def _eval_op(self_, oi, op, env, weights_env):
+        def _eval_op(self_, oi, op, env, weights_env, device=None):
             spy.events.append(("op", seg_of[oi], oi))
             spy.alive_at_op.append({si for si, r in spy.refs if r() is not None})
-            return eval_op(self_, oi, op, env, weights_env)
+            return eval_op(self_, oi, op, env, weights_env, device)
 
         monkeypatch.setattr(executor_mod._SegmentFetch, "_fetch", _fetch)
         monkeypatch.setattr(executor_mod.Executor, "_eval_op", _eval_op)
