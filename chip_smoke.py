@@ -291,6 +291,31 @@ Phases (any failure exits non-zero and prints no result line):
      nothing uploaded again on the second run, bit for bit with the
      resident run). The ranks report their launch counts: tp2_llm (kernel
      2), dp2_unet and tp2_unet (kernel 1) under launches_by_path.
+ 19. 8-bit weights under the mesh (in phase_parallel's spawn): TinyLlama
+     int8 (bf16, s8 slices synthesized on the card) at tp = 2 against the
+     one-rank int8 run (prefill logits and 8 steps fed the one-rank tokens
+     within 5e-2 * max, the same argmax at each), every kernel-2 and
+     kernel-6 call of the prefill and the 32 tokens held to its twin
+     (kernel 6 bit for bit), decode ms a token a rank; the SD15 UNet with its
+     linear weights quantized at fetch to per-channel uint8 (each rank its
+     column slices) at tp = 2 against the one-rank run (5e-2 * max), every
+     kernel-5 and kernel-1 call held to its twin; rank 0 replays kernel 6's
+     prefill and decode calls and kernel 5's calls at the local shapes
+     (kernel, twin, bound, library: tp2_llm_int8 / tp2_unet_uint8 under
+     launches_by_path, "tp2" in the kernels line);
+ 20. entry() (phase_entry, after phase_slice): onnxstream_tpu_torch.entry's
+     fn(weights, acts) of the SD15 UNet in bf16 bit for bit with Session.run,
+     10 kernel-1 launches a call (sd15_entry), every call held to its twin;
+     busy and wall of a call;
+ 21. the train step (phase_train_reference before phase_parallel, its ranks
+     in phase_parallel's spawn, phase_dryrun after): one AdamW step of the
+     SD15 UNet (860 M, float32, batch 1, weights made on the card, flash off)
+     on one rank, its gradients written to a temporary file, then under
+     make_mesh(2, dp=1, tp=2) on the two gloo ranks: the loss within rtol
+     1e-5 of the one-rank step's, every gradient slice within 1e-3 * max|g|
+     of its tensor, NaN on the same Pow exponents, no kernel counter moved;
+     per rank the step's busy and wall and peak MB; then
+     dryrun_multichip(2, cuda:0, gloo) with its train-step line.
 
 Each path's launch counts are set to 0 just before it and read just after;
 launches made to compare a kernel with its twin come after the read. The
@@ -309,6 +334,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import zlib
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -1923,13 +1949,9 @@ def phase_sd_u8(name: str, sd: dict) -> dict:
     print(f"w8_matmul shapes of the SD15 step (M, K, N): {shapes}")
     check_qkernel("w8_matmul", w8_matmul, w8_matmul_reference, _w8_case, shapes, 1e-4, 2e-2)
 
-    def dequantized_matmul(a, w, sw, zw, out_dtype=None):
-        wd = ((w.float() - zw) * sw).to(a.dtype)
-        return lambda: torch.matmul(a, wd)
-
     times = replay_times("w8_matmul over one SD15 step (bf16)", calls, w8_matmul, w8_matmul_reference,
-                         dequantized_matmul, "bf16", name)
-    sites = site_report("w8_matmul, uint8 step", calls, w8_matmul, w8_matmul_reference, dequantized_matmul,
+                         _dequantized_matmul, "bf16", name)
+    sites = site_report("w8_matmul, uint8 step", calls, w8_matmul, w8_matmul_reference, _dequantized_matmul,
                         _qmm_cost, _w8_plan_text, 2e-2, name)
     return {"launches": launches, "max_abs_err": site.worst, **times, "sites_of_step": sites}
 
@@ -4453,27 +4475,66 @@ def _forced_logits(pipe, prompt, tokens) -> list:
 
 
 class _EveryCall:
-    """Stands in for a flash wrapper inside a rank: every call's kernel
-    output is held against the twin on the graph's operands at their local
-    shapes; the kernel's launch count is the wrapper's own."""
+    """Stands in for a kernel's wrapper inside a rank: every call's output is
+    held against the twin on the graph's operands at their local shapes by
+    ``agrees(out, ref) -> (ok, err)`` and counted by ``key(args)``; with
+    ``keep`` the calls are kept in order for a replay at the local shapes.
+    The kernel's launch count is the wrapper's own."""
 
-    def __init__(self, kernel, twin, tol: float):
-        self.kernel, self.twin, self.tol = kernel, twin, tol
+    def __init__(self, kernel, twin, agrees, key, keep: bool = False):
+        self.kernel, self.twin, self.agrees, self.key = kernel, twin, agrees, key
         self.calls, self.bad, self.worst, self.shapes = 0, 0, 0.0, {}
+        self.kept = [] if keep else None
 
     def __call__(self, *args, **kw):
         out = self.kernel(*args, **kw)
-        kw_twin = {k: v for k, v in kw.items() if k != "nopad"}
-        ok, err, _ = _flash_agrees(out, self.twin(*args, **kw_twin), self.tol)
+        ok, err = self.agrees(out, self.twin(*args, **kw))
         self.calls += 1
         self.bad += not ok
         self.worst = max(self.worst, err)
-        key = str(tuple(args[0].shape)) + (f" heads {args[3]}" if len(args) > 3 else "")
+        key = self.key(args)
         self.shapes[key] = self.shapes.get(key, 0) + 1
+        if self.kept is not None:
+            self.kept.append((args, kw))
         return out
 
     def summary(self) -> dict:
         return {"calls": self.calls, "disagree": self.bad, "max_abs_err": self.worst, "shapes": self.shapes}
+
+
+def _every_flash_call(kernel, twin, tol: float) -> _EveryCall:
+    """Kernel 1 or 2: relative L2 within tol (``_flash_agrees``), keyed by
+    the query's shape and the head count."""
+    return _EveryCall(kernel, lambda *a, nopad=None, **kw: twin(*a, **kw),
+                      lambda out, ref: _flash_agrees(out, ref, tol)[:2],
+                      lambda a: str(tuple(a[0].shape)) + (f" heads {a[3]}" if len(a) > 3 else ""))
+
+
+def _every_q_call(kernel, twin, tol: float) -> _EveryCall:
+    """Kernel 5 or 6: bit for bit for tol 0, else max|diff| <= tol *
+    max(1, max|twin|), keyed by M x K x N; the calls kept for a replay."""
+    def agrees(out, ref):
+        err = (out.float() - ref.float()).abs().max().item()
+        return (torch.equal(out, ref) if tol == 0 else err <= tol * max(1.0, ref.float().abs().max().item())), err
+
+    return _EveryCall(kernel, twin, agrees,
+                      lambda a: f"{a[0].numel() // a[0].shape[-1]}x" + "x".join(map(str, a[1].shape)), keep=True)
+
+
+def _on_rank0(rank, fn):
+    """fn() on rank 0 alone (a timing the other rank would disturb), the
+    other rank waiting at a barrier; its result on rank 0, None elsewhere."""
+    import torch.distributed as dist
+
+    out = fn() if rank == 0 else None
+    dist.barrier()
+    return out
+
+
+def _dequantized_matmul(a, w, sw, zw, out_dtype=None):
+    """Kernel 5's library yardstick: cuBLAS on the dequantized weight."""
+    wd = ((w.float() - zw) * sw).to(a.dtype)
+    return lambda: torch.matmul(a, wd)
 
 
 def _rank_busy(step, steps: int = 1) -> dict:
@@ -4498,30 +4559,41 @@ def _gathers(stats: dict, per: int = 1) -> dict:
             for dim, s in stats.items()}
 
 
-def _rank_llm(rank, device, dtype: str, prompt, ref_tokens) -> dict:
+def _rank_llm(rank, device, dtype: str, prompt, ref_tokens, int8_weights: bool = False, name: str = "") -> dict:
     """TinyLlama at full width, tp = 2, weights synthesized on the card: the
     prefill of `prompt` (its 22 kernel-2 launches, every call held to the
-    twin), PARALLEL_TOKENS greedy tokens, times, gathers, weight bytes."""
+    twin), PARALLEL_TOKENS greedy tokens, times, gathers, weight bytes. With
+    int8_weights (s8 slices synthesized on the card) every kernel-6 call of
+    the prefill and the tokens is held to its twin bit for bit, and rank 0
+    replays one prefill's and one decode step's calls at the local shapes."""
     import onnxstream_tpu_torch.ops.attention as attention_op
+    import onnxstream_tpu_torch.runtime.executor as executor_mod
     from onnxstream_tpu_torch.kernels.flash_attention import flash_attention, flash_attention_reference
+    from onnxstream_tpu_torch.kernels.qmatmul import w8a8_dyn_matmul, w8a8_dyn_matmul_reference
     from onnxstream_tpu_torch.models.llm.llama import TINYLLAMA
     from onnxstream_tpu_torch.models.llm.pipeline import LlamaPipeline
     from onnxstream_tpu_torch.parallel import comm
     from onnxstream_tpu_torch.parallel.sharding import make_mesh
 
     pipe = LlamaPipeline(TINYLLAMA, compute_dtype=dtype, mesh=make_mesh(2, dp=1, tp=2), device=device,
-                         synthetic_on_device=True)
+                         synthetic_on_device=True, int8_weights=int8_weights)
     pipe.forward(prompt, want_logits=False)  # plans the bucket, synthesizes the weights
     pipe.reset()
-    site = _EveryCall(flash_attention, flash_attention_reference, 1e-4 if dtype == "float32" else 2e-2)
+    site = _every_flash_call(flash_attention, flash_attention_reference, 1e-4 if dtype == "float32" else 2e-2)
+    q6 = _every_q_call(w8a8_dyn_matmul, w8a8_dyn_matmul_reference, 0.0)
     attention_op.flash_attention = site
-    flash_attention.launches = 0
+    if int8_weights:
+        executor_mod.w8a8_dyn_matmul = q6
+    flash_attention.launches = w8a8_dyn_matmul.launches = 0
     try:
         first, logits = pipe.forward(prompt)
+        attention_op.flash_attention = flash_attention
+        launches = flash_attention.launches
+        tokens = pipe.decode_on_device(first, PARALLEL_TOKENS)
     finally:
         attention_op.flash_attention = flash_attention
-    launches = flash_attention.launches
-    tokens = pipe.decode_on_device(first, PARALLEL_TOKENS)
+        executor_mod.w8a8_dyn_matmul = w8a8_dyn_matmul
+    launches6 = w8a8_dyn_matmul.launches
     pipe.reset()
     comm.STATS.reset()
     _, prefill_ms = _timed(lambda: pipe.forward(prompt, want_logits=False))
@@ -4531,11 +4603,54 @@ def _rank_llm(rank, device, dtype: str, prompt, ref_tokens) -> dict:
     decode_gathers = _gathers(comm.STATS.snapshot(), PARALLEL_TOKENS)
     busy = _rank_busy(lambda: pipe.decode_on_device(first, 4))
     forced = _forced_logits(pipe, prompt, ref_tokens)
-    return {"logits": logits, "tokens": tokens, "forced": forced, "launches": launches, "sites": site.summary(),
-            "kv_shape": tuple(pipe.kv[0].shape), "weight_bytes": pipe.device_weight_bytes(),
-            "prefill_ms": prefill_ms, "prefill_gathers": prefill_gathers,
-            "decode_ms_per_token": decode_ms / PARALLEL_TOKENS, "decode_gathers_per_token": decode_gathers,
-            "decode_4_tokens": busy}
+    out = {"logits": logits, "tokens": tokens, "forced": forced, "launches": launches, "sites": site.summary(),
+           "kv_shape": tuple(pipe.kv[0].shape), "weight_bytes": pipe.device_weight_bytes(),
+           "prefill_ms": prefill_ms, "prefill_gathers": prefill_gathers,
+           "decode_ms_per_token": decode_ms / PARALLEL_TOKENS, "decode_gathers_per_token": decode_gathers,
+           "decode_4_tokens": busy}
+    if int8_weights:
+        per_run = 7 * TINYLLAMA.layers + 1
+        calls = q6.kept
+        out.update(launches6=launches6, sites6=q6.summary(), kernel6_per_run=per_run,
+                   kernel6_tp2=_on_rank0(rank, lambda: _kernel6_local_times(calls[:per_run],
+                                                                            calls[per_run:2 * per_run], name)))
+    return out
+
+
+def _kernel6_local_times(prefill, decode, name: str) -> dict:
+    """Kernel 6 over one prefill's and one decode step's recorded calls at a
+    rank's local shapes (N / 2): kernel, twin, bound, and the library call
+    (prefill: torch._int_mm on the quantized operands where it takes every
+    call; decode: cuBLAS bf16 on bf16 copies of the weights, a product
+    without the activation quantization)."""
+    from onnxstream_tpu_torch.kernels.qmatmul import w8a8_dyn_matmul, w8a8_dyn_matmul_reference
+
+    kn = {}
+    for args, _ in prefill + decode:
+        w = args[1]
+        if w.data_ptr() not in kn:
+            kn[w.data_ptr()] = w.t().contiguous()
+
+    def int_mm(a, w, ws, out_dtype=None, weight_nk=False):
+        return _int_mm_or_none(_quantize_rows(a), kn[w.data_ptr()])
+
+    def bf16(a, w, ws, out_dtype=None, weight_nk=False):
+        wb = kn[w.data_ptr()].to(a.dtype)
+        return lambda: torch.matmul(a, wb)
+
+    out = {"prefill": replay_times("w8a8_dyn_matmul over one TinyLlama prefill at tp = 2 (rank 0, local N)", prefill,
+                                   w8a8_dyn_matmul, w8a8_dyn_matmul_reference, int_mm, "int8", name),
+           "decode": replay_times("w8a8_dyn_matmul over one TinyLlama decode step at tp = 2 (rank 0, local N)",
+                                  decode, w8a8_dyn_matmul, w8a8_dyn_matmul_reference, bf16, "int8", name)}
+    # torch._int_mm refuses the LM head's odd N: kernel and library over the calls it takes
+    sub = [(c, f) for c, f in ((c, int_mm(*c[0], **c[1])) for c in prefill) if f is not None]
+    t_sub = device_ms(lambda: [w8a8_dyn_matmul(*a, **k) for (a, k), _ in sub], iters=5)
+    t_int = device_ms(lambda: [f() for _, f in sub], iters=5)
+    print(f"w8a8_dyn_matmul, one TinyLlama prefill at tp = 2: torch._int_mm takes {len(sub)} of {len(prefill)} "
+          f"calls: kernel {t_sub:.4f} ms, torch._int_mm {t_int:.4f} ms over those [{name}]")
+    out["prefill"].update(int_mm_calls=len(sub), kernel_ms_on_int_mm_calls=t_sub, int_mm_ms=t_int)
+    out["decode"]["library"] = "cuBLAS bf16 on bf16 copies of the weights (no activation quantization)"
+    return out
 
 
 def _sd15_batch2_session(device, **config):
@@ -4581,7 +4696,7 @@ def _rank_unet(rank, device, mesh: dict) -> dict:
     s = _sd15_batch2_session(device, mesh=make_mesh(2, **mesh))
     inputs = _sd15_batch2_inputs()
     _unet_run(s, inputs)  # plan, synthesis
-    site = _EveryCall(flash_attention_packed, flash_attention_packed_reference, 2e-2)
+    site = _every_flash_call(flash_attention_packed, flash_attention_packed_reference, 2e-2)
     attention_op.flash_attention_packed = site
     flash_attention_packed.launches = 0
     try:
@@ -4616,10 +4731,81 @@ def _rank_nccl(rank, device) -> dict:
             "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)), "bit_equal": bool(np.array_equal(plain, meshed))}
 
 
+def _named_normal(name: str, shape) -> np.ndarray:
+    """N(0, 0.02) float32 weights seeded by a CRC-32 of the name: the same
+    array in every process."""
+    return np.random.default_rng(zlib.crc32(name.encode())).standard_normal(shape, dtype=np.float32) * np.float32(0.02)
+
+
+def _sd15_u8_session(device, **config):
+    """The SD15 UNet at batch 1, bf16, its 2-D (linear) weights made on the
+    host by name (``_named_normal``) and quantized at first fetch to
+    per-channel uint8 (force_uint8_storage_set, kernel 5's route), every
+    other big weight synthesized on the card."""
+    from onnxstream_tpu_torch import Session, SessionConfig
+    from onnxstream_tpu_torch.convert.builder import LazyArray
+    from onnxstream_tpu_torch.models.sd.unet import SD15, build_unet
+    from onnxstream_tpu_torch.runtime.weights import DictWeightsProvider, params_from_numpy
+
+    g = build_unet(SD15, batch=1, seed=0, lazy_weights=True)
+    weights = dict(g.weights)
+    forced = {n for n, v in weights.items() if len(v.shape) == 2}
+    for n in forced:
+        if isinstance(weights[n], LazyArray):
+            weights[n] = _named_normal(n, weights[n].shape)
+    s = Session(SessionConfig(compute_dtype="bfloat16", device=torch.device(device), fuse_attention_heads=True,
+                              synthetic_device_weights=True, force_uint8_storage_set=forced, uint8_per_channel=True,
+                              **config),
+                weights_provider=DictWeightsProvider(params_from_numpy(weights)))
+    s.read_string(g.to_text())
+    return s
+
+
+def _rank_unet_u8(rank, device, name: str = "") -> dict:
+    """The uint8 SD15 UNet (``_sd15_u8_session``) under make_mesh(2, dp=1,
+    tp=2): each rank quantizes its column slices, kernel 5 runs at the local
+    N; one run with every kernel-5 and kernel-1 call held to its twin, then a
+    timed run, its busy, and rank 0's replay of kernel 5's calls."""
+    import onnxstream_tpu_torch.ops.attention as attention_op
+    import onnxstream_tpu_torch.runtime.executor as executor_mod
+    from onnxstream_tpu_torch.kernels.flash_attention import (flash_attention_packed,
+                                                              flash_attention_packed_reference)
+    from onnxstream_tpu_torch.kernels.qmatmul import w8_matmul, w8_matmul_reference
+    from onnxstream_tpu_torch.models.sd.unet import SD15
+    from onnxstream_tpu_torch.parallel.sharding import make_mesh
+
+    s = _sd15_u8_session(device, mesh=make_mesh(2, dp=1, tp=2))
+    inputs = _requests(SD15, 0)[0]
+    t0 = time.perf_counter()
+    _unet_run(s, inputs)  # plan, host quantization of the rank's slices, synthesis
+    first_s = time.perf_counter() - t0
+    q5 = _every_q_call(w8_matmul, w8_matmul_reference, 2e-2)
+    site = _every_flash_call(flash_attention_packed, flash_attention_packed_reference, 2e-2)
+    executor_mod.w8_matmul, attention_op.flash_attention_packed = q5, site
+    w8_matmul.launches = flash_attention_packed.launches = 0
+    try:
+        out = _unet_run(s, inputs)
+    finally:
+        executor_mod.w8_matmul, attention_op.flash_attention_packed = w8_matmul, flash_attention_packed
+    launches5, launches1 = w8_matmul.launches, flash_attention_packed.launches
+    _, wall = _timed(lambda: _unet_run(s, inputs))
+    busy = _rank_busy(lambda: _unet_run(s, inputs))
+    ex = s._executor()
+    calls = q5.kept
+    times = _on_rank0(rank, lambda: replay_times(
+        "w8_matmul over one SD15 UNet run at tp = 2 (bf16, rank 0, local N)", calls, w8_matmul,
+        w8_matmul_reference, _dequantized_matmul, "bf16", name))
+    return {"out": out, "launches": launches5, "sites": q5.summary(), "launches1": launches1,
+            "sites1": site.summary(), "wall_ms": wall, "busy": busy, "first_run_s": first_s,
+            "quantize_s": ex.quantize_seconds, "weight_bytes": s.hbm_stats()["accounting"]["weight_bytes"],
+            "kernel5_tp2": times}
+
+
 def _parallel_rank(rank, device, cases) -> dict:
     """The spawned ranks' function: each case in turn, device memory freed
     between them."""
-    fns = {"llm": _rank_llm, "unet": _rank_unet, "nccl": _rank_nccl}
+    fns = {"llm": _rank_llm, "unet": _rank_unet, "nccl": _rank_nccl, "unet_u8": _rank_unet_u8,
+           "train": _rank_train}
     out = {}
     for label, kind, kw in cases:
         out[label] = fns[kind](rank, device, **kw)
@@ -4628,11 +4814,12 @@ def _parallel_rank(rank, device, cases) -> dict:
     return out
 
 
-def _one_rank_llm(dtype: str, prompt, forced_tokens=None) -> dict:
+def _one_rank_llm(dtype: str, prompt, forced_tokens=None, int8_weights: bool = False) -> dict:
     from onnxstream_tpu_torch.models.llm.llama import TINYLLAMA
     from onnxstream_tpu_torch.models.llm.pipeline import LlamaPipeline
 
-    pipe = LlamaPipeline(TINYLLAMA, compute_dtype=dtype, device=torch.device("cuda:0"), synthetic_on_device=True)
+    pipe = LlamaPipeline(TINYLLAMA, compute_dtype=dtype, device=torch.device("cuda:0"), synthetic_on_device=True,
+                         int8_weights=int8_weights)
     first, logits = pipe.forward(prompt)
     tokens = pipe.decode_on_device(first, PARALLEL_TOKENS)
     pipe.reset()
@@ -4647,13 +4834,77 @@ def _one_rank_llm(dtype: str, prompt, forced_tokens=None) -> dict:
     return out
 
 
-def phase_parallel(name: str) -> dict:
+def _report_llm_int8(name: str, r0: dict, ranks: list) -> dict:
+    """The int8 TinyLlama tp = 2 ranks against the one-rank int8 run: the
+    prefill's logits and 8 decode steps fed the one-rank tokens within 5e-2
+    * max (the bf16 bar of PR 15) with the same argmax at every step;
+    kernel 2's 22 calls and every kernel-6 call on the path held to their
+    twins (kernel 6 bit for bit) at the local shapes."""
+    scale = float(np.abs(r0["logits"]).max())
+    per_rank = []
+    for rank, res in enumerate(ranks):
+        got = res["llm_int8"]
+        err = float(np.abs(got["logits"] - r0["logits"]).max())
+        forced = [float(np.abs(a - b).max()) / scale for a, b in zip(got["forced"], r0["forced"])]
+        argmax = sum(int(np.argmax(a) == np.argmax(b)) for a, b in zip(got["forced"], r0["forced"]))
+        same = sum(a == b for a, b in zip(got["tokens"], r0["tokens"]))
+        print(f"TinyLlama int8 (bf16) tp=2 rank {rank}: prefill logits max|diff| / max|logits| {err / scale:.3e} "
+              f"(bound 5e-2), fed the one-rank tokens a step {[float(f'{x:.3e}') for x in forced]}, argmax equal "
+              f"{argmax}/{len(forced)}; greedy tokens equal {same}/{PARALLEL_TOKENS}; kernel 2 {got['launches']} "
+              f"launches in the prefill, vs twin {got['sites']}; kernel 6 {got['launches6']} launches (prefill and "
+              f"{PARALLEL_TOKENS} tokens), every call vs twin {got['sites6']}; weights {got['weight_bytes'] / 2**20:.1f} "
+              f"MB (one rank {r0['weight_bytes'] / 2**20:.1f}); prefill {got['prefill_ms']:.1f} ms (one rank "
+              f"{r0['prefill_ms']:.1f}); decode {got['decode_ms_per_token']:.2f} ms/token (one rank "
+              f"{r0['decode_ms_per_token']:.2f}); 4-token decode {got['decode_4_tokens']} [{name}]")
+        s6 = got["sites6"]
+        if not (err <= 5e-2 * scale and max(forced) <= 5e-2 and argmax == len(forced)):
+            raise SystemExit(f"TinyLlama int8 tp=2 rank {rank}: logits outside 5e-2 * max or another argmax")
+        if got["launches"] != 22 or got["sites"]["disagree"] or s6["disagree"] or s6["calls"] != got["launches6"] \
+                or got["launches6"] < 2 * got["kernel6_per_run"]:
+            raise SystemExit(f"TinyLlama int8 tp=2 rank {rank}: kernel 2 / 6 launches or twin checks failed")
+        per_rank.append({k: got[k] for k in ("launches", "launches6", "sites6", "weight_bytes", "prefill_ms",
+                                             "decode_ms_per_token", "decode_4_tokens", "prefill_gathers",
+                                             "decode_gathers_per_token")}
+                        | {"rel_err": err / scale, "forced_rel_err": forced, "forced_argmax_equal": argmax,
+                           "tokens_equal": same})
+    return {"ranks": per_rank, "kernel6_tp2": ranks[0]["llm_int8"]["kernel6_tp2"],
+            "one_rank": {k: r0[k] for k in ("weight_bytes", "prefill_ms", "decode_ms_per_token")}}
+
+
+def _report_unet_u8(name: str, ref: np.ndarray, ref_ms: float, ref_bytes: int, ranks: list) -> dict:
+    """The uint8 SD15 UNet tp = 2 ranks against the one-rank run: the output
+    within 5e-2 * max|out|, every kernel-5 and kernel-1 call held to its
+    twin at the local shapes."""
+    scale = float(np.abs(ref).max())
+    per_rank = []
+    for rank, res in enumerate(ranks):
+        got = res["unet_u8"]
+        err = float(np.abs(got["out"] - ref).max())
+        print(f"SD15 UNet uint8 tp=2 rank {rank}: max|diff| / max|out| {err / scale:.3e} (bound 5e-2); kernel 5 "
+              f"{got['launches']} launches, every call vs twin {got['sites']}; kernel 1 {got['launches1']}, vs twin "
+              f"{got['sites1']}; weights {got['weight_bytes'] / 2**20:.1f} MB (one rank {ref_bytes / 2**20:.1f}); "
+              f"first run {got['first_run_s']:.1f} s ({got['quantize_s']:.1f} s of host quantization of the rank's "
+              f"slices); a run {got['wall_ms']:.1f} ms (one rank {ref_ms:.1f}), busy {got['busy']} [{name}]")
+        if got["out"].shape != (1, 4, 64, 64) or not np.isfinite(got["out"]).all() or not err <= 5e-2 * scale:
+            raise SystemExit(f"SD15 uint8 tp=2 rank {rank}: output outside 5e-2 * max of the one-rank run")
+        if (got["launches"] == 0 or got["sites"]["disagree"] or got["sites"]["calls"] != got["launches"]
+                or got["launches1"] != 10 or got["sites1"]["disagree"]):
+            raise SystemExit(f"SD15 uint8 tp=2 rank {rank}: kernel 5 / 1 launches or twin checks failed")
+        per_rank.append({k: got[k] for k in ("launches", "sites", "launches1", "wall_ms", "busy", "weight_bytes",
+                                             "quantize_s")} | {"rel_err": err / scale})
+    return {"ranks": per_rank, "kernel5_tp2": ranks[0]["unet_u8"]["kernel5_tp2"],
+            "one_rank": {"wall_ms": ref_ms, "weight_bytes": ref_bytes}}
+
+
+def phase_parallel(name: str, train: dict) -> dict:
     """The sharded serving path (parallel/*): two gloo ranks sharing the card
     (NCCL refuses two ranks on one device) and a one-rank NCCL mesh,
     through parallel.launch.spawn, and pipeline stages in this process (see
-    the module docstring, 18). Two ranks on one card show the overhead of
-    the sharded path, not a tensor-parallel speedup."""
+    the module docstring, 18-19); the ranks also run the train step held to
+    ``train`` (phase_train_reference). Two ranks on one card show the
+    overhead of the sharded path, not a tensor-parallel speedup."""
     from onnxstream_tpu_torch.models.llm.llama import TINYLLAMA
+    from onnxstream_tpu_torch.models.sd.unet import SD15
     from onnxstream_tpu_torch.parallel.launch import spawn
 
     t_phase = time.perf_counter()
@@ -4661,6 +4912,18 @@ def phase_parallel(name: str) -> dict:
     ref = {"float32": _one_rank_llm("float32", prompt)}
     forced_tokens = ref["float32"]["tokens"]
     ref["bfloat16"] = _one_rank_llm("bfloat16", prompt, forced_tokens)
+    ref["int8"] = _one_rank_llm("bfloat16", prompt, int8_weights=True)
+    t0 = time.perf_counter()
+    s_u8 = _sd15_u8_session("cuda:0")
+    u8_req = _requests(SD15, 0)[0]
+    u8_ref = _unet_run(s_u8, u8_req)
+    u8_first_s = time.perf_counter() - t0
+    _, u8_ref_ms = _timed(lambda: _unet_run(s_u8, u8_req))
+    u8_ref_q = s_u8._executor().quantize_seconds
+    u8_ref_bytes = s_u8.hbm_stats()["weight_bytes"]
+    del s_u8
+    gc.collect()
+    torch.cuda.empty_cache()
     s_ref = _sd15_batch2_session("cuda:0")
     inputs = _sd15_batch2_inputs()
     unet_ref = _unet_run(s_ref, inputs)
@@ -4673,12 +4936,20 @@ def phase_parallel(name: str) -> dict:
           f"{ref['bfloat16']['prefill_ms']:.1f} ms, decode {ref['float32']['decode_ms_per_token']:.2f} / "
           f"{ref['bfloat16']['decode_ms_per_token']:.2f} ms/token; SD15 UNet batch 2 bf16 {unet_ref_ms:.1f} ms [{name}]")
 
-    cases = [("llm_float32", "llm", dict(dtype="float32", prompt=prompt, ref_tokens=forced_tokens)),
+    print(f"phase_parallel one-rank references: TinyLlama int8 (bf16) prefill {ref['int8']['prefill_ms']:.1f} ms, "
+          f"decode {ref['int8']['decode_ms_per_token']:.2f} ms/token; SD15 UNet uint8 (per-channel, batch 1) "
+          f"{u8_ref_ms:.1f} ms a run, first run {u8_first_s:.1f} s ({u8_ref_q:.1f} s of host quantization) [{name}]")
+
+    cases = [("train", "train", dict(ref_path=train["path"])),
+             ("llm_float32", "llm", dict(dtype="float32", prompt=prompt, ref_tokens=forced_tokens)),
              ("llm_bfloat16", "llm", dict(dtype="bfloat16", prompt=prompt, ref_tokens=forced_tokens)),
+             ("llm_int8", "llm", dict(dtype="bfloat16", prompt=prompt, ref_tokens=ref["int8"]["tokens"],
+                                      int8_weights=True, name=name)),
              ("unet_dp2", "unet", dict(mesh=dict(dp=2))),
-             ("unet_tp2", "unet", dict(mesh=dict(dp=1, tp=2)))]
+             ("unet_tp2", "unet", dict(mesh=dict(dp=1, tp=2))),
+             ("unet_u8", "unet_u8", dict(name=name))]
     t0 = time.perf_counter()
-    ranks = spawn(_parallel_rank, 2, "gloo", "cuda:0", 400, args=(cases,))
+    ranks = spawn(_parallel_rank, 2, "gloo", "cuda:0", 700, args=(cases,))
     print(f"two gloo ranks on cuda:0: {time.perf_counter() - t0:.1f} s (start, plans, weight synthesis, runs)")
     out: dict = {"llm": {}, "unet": {}}
     for dt, rel in (("float32", 1e-4), ("bfloat16", 5e-2)):
@@ -4745,6 +5016,10 @@ def phase_parallel(name: str) -> dict:
                             | {"rel_err": err / scale})
         out["unet"][label] = {"ranks": per_rank, "one_rank": {"wall_ms": unet_ref_ms, "weight_bytes": unet_ref_bytes}}
 
+    out["train"] = phase_train_report(name, train, ranks)
+    out["llm_int8"] = _report_llm_int8(name, ref["int8"], ranks)
+    out["unet_u8"] = _report_unet_u8(name, u8_ref, u8_ref_ms, u8_ref_bytes, ranks)
+
     t0 = time.perf_counter()
     nccl = spawn(_parallel_rank, 1, "nccl", "cuda:0", 300, args=([("nccl", "nccl", {})],))[0]["nccl"]
     print(f"one-rank NCCL mesh {nccl['mesh']} ({nccl['backend']}): a gather on the card equal to its input "
@@ -4781,6 +5056,285 @@ def phase_parallel(name: str) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ entry() and the train step
+def phase_entry(name: str, sd: dict) -> dict:
+    """``onnxstream_tpu_torch.entry``'s forward of the SD15 UNet (bf16,
+    flash on) on cuda:0, built from phase_slice's graph (``build_session``
+    then ``session_entry``, which ``entry("sd15")`` chains after building
+    the same graph): ``fn(weights, acts)`` bit for bit with ``Session.run``
+    of the session, kernel 1 launched as often as by one run (10), every
+    call held to its twin; a call's device busy and wall."""
+    import onnxstream_tpu_torch.ops.attention as attention_op
+    from onnxstream_tpu_torch.entry import build_session, session_entry
+    from onnxstream_tpu_torch.kernels.flash_attention import (flash_attention_packed,
+                                                              flash_attention_packed_reference)
+
+    t0 = time.perf_counter()
+    s, inputs = build_session("sd15", device=torch.device("cuda:0"), graph=sd["graph"])
+    fn, (weights, acts) = session_entry(s, inputs)
+    ready = time.perf_counter() - t0
+    flash_attention_packed.launches = 0
+    ref = s.run()["out_sample"]
+    by_run = flash_attention_packed.launches
+    site = _every_flash_call(flash_attention_packed, flash_attention_packed_reference, 2e-2)
+    # the path: one call of fn; the count is zeroed just before it
+    flash_attention_packed.launches = 0
+    attention_op.flash_attention_packed = site
+    try:
+        out = fn(weights, acts)["out_sample"]
+    finally:
+        attention_op.flash_attention_packed = flash_attention_packed
+    launches = flash_attention_packed.launches
+    got = out.float().cpu().numpy()
+    equal = bool(np.array_equal(got, ref))
+    times = busy_and_wall(lambda: fn(weights, acts), "entry('sd15') fn(weights, acts), SD15 UNet bf16", name)
+    print(f"entry: {len(weights)} weights ({sum(w.numel() for w in weights) / 1e6:.1f} M, "
+          f"{sorted({str(w.dtype)[6:] for w in weights})}) on the card in {ready:.1f} s; fn(weights, acts) "
+          f"{got.shape} bit for bit with Session.run: {equal}; kernel 1 launches a call {launches} (Session.run "
+          f"{by_run}), every call vs twin {site.summary()} [{name}]")
+    if not equal or launches != by_run or launches != 10 or site.bad or not np.isfinite(got).all():
+        raise SystemExit("entry: fn differs from Session.run, or kernel 1 was launched otherwise")
+    del s, fn, weights, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "session_run_launches": by_run, "bit_equal": equal, **times,
+            "max_abs_err": site.worst}
+
+
+KERNEL_COUNTERS = ("flash_attention_packed", "flash_attention", "w8a8_dyn_matmul", "w8_matmul", "qmatmul", "qconv",
+                   "gn_silu", "gn_silu_conv", "matmul")
+
+
+def _launch_counts() -> dict:
+    """Every kernel wrapper's launch count."""
+    from onnxstream_tpu_torch.kernels import flash_attention, gn_conv, gn_silu, matmul, qconv, qmatmul
+
+    mods = {"flash_attention_packed": flash_attention, "flash_attention": flash_attention, "w8a8_dyn_matmul": qmatmul,
+            "w8_matmul": qmatmul, "qmatmul": qmatmul, "qconv": qconv, "gn_silu": gn_silu,
+            "gn_silu_conv": gn_conv, "matmul": matmul}
+    return {k: getattr(mods[k], k).launches for k in KERNEL_COUNTERS}
+
+
+TRAIN_SEED = 11  # the train step's target
+
+
+def _one_element_grads64(text: str, weights, inputs, target, device, names, params) -> dict:
+    """The one-element weights' gradients of the one-rank step's loss with
+    every op in float64, on the same float32 weights (a SessionConfig whose
+    compute dtype is float64; flash off, as the step runs): the witness of
+    how far a float32 step's own value is off where the gradient is a sum
+    over a whole activation (a scalar constant such as the GELU's sqrt(2))."""
+    from onnxstream_tpu_torch import Session, SessionConfig
+    from onnxstream_tpu_torch.runtime.executor import reference_precision
+    from onnxstream_tpu_torch.runtime.weights import DictWeightsProvider, params_from_numpy
+
+    class Float64(SessionConfig):
+        @property
+        def torch_compute_dtype(self) -> torch.dtype:
+            return torch.float64
+
+    s = Session(Float64(compute_dtype="float32", device=torch.device(device), use_flash_attention=False,
+                        synthetic_device_weights=True),
+                weights_provider=DictWeightsProvider(params_from_numpy(weights)))
+    s.read_string(text)
+    for k, v in inputs.items():
+        s.add_tensor(k, v)
+    ex = s._executor()
+    if [w.name for w in ex.plan.arg_weights] != names:
+        raise SystemExit("train step, float64 witness: the plan's weights differ from the float32 step's")
+    ws = [p.detach().double().requires_grad_(p.numel() == 1) for p in params]
+    with reference_precision():
+        out = ex.segment_fn(0)(ws, inputs)["out_sample"]
+        if out.dtype != torch.float64:
+            raise SystemExit(f"train step, float64 witness: the output came out in {out.dtype}")
+        loss = (out - torch.as_tensor(target, dtype=torch.float64, device=out.device)).square().mean()
+        loss.backward()
+    grads = {n: float(w.grad) for n, w in zip(names, ws) if w.requires_grad}
+    loss = float(loss.detach())
+    del ws, out, ex, s
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"loss": loss, "grads": grads}
+
+
+def _sd15_train(device, mesh=None):
+    """One AdamW step (make_train_step) of the SD15 UNet at full width,
+    float32, batch 1, weights synthesized on the card (flash off: no kernel
+    has a backward): the loss, the gradients on the card, the step's times
+    and peak memory, and the kernel counts that moved. On one rank also the
+    one-element weights' gradients in float64 (``_one_element_grads64``)."""
+    from onnxstream_tpu_torch import Session, SessionConfig
+    from onnxstream_tpu_torch.models.sd.unet import SD15, build_unet
+    from onnxstream_tpu_torch.parallel import comm
+    from onnxstream_tpu_torch.parallel.sharding import make_train_step
+    from onnxstream_tpu_torch.runtime.weights import DictWeightsProvider, params_from_numpy
+
+    g = build_unet(SD15, batch=1, seed=0, lazy_weights=True)
+    s = Session(SessionConfig(compute_dtype="float32", device=torch.device(device), use_flash_attention=False,
+                              synthetic_device_weights=True, mesh=mesh),
+                weights_provider=DictWeightsProvider(params_from_numpy(g.weights)))
+    s.read_string(g.to_text())
+    inputs = _requests(SD15, 0)[0]
+    hw = SD15.sample_size
+    target = np.random.default_rng(TRAIN_SEED).standard_normal((1, SD15.out_channels, hw, hw)).astype(np.float32)
+    for k, v in inputs.items():
+        s.add_tensor(k, v)
+    t0 = time.perf_counter()
+    ex = s._executor()
+    held = ex._fetch_segment_weights(ex.segments[0])  # synthesized on the card: this rank's slices
+    step, init, placements = make_train_step(ex, "out_sample", mesh)
+    params, opt = init(held)
+    held.clear()
+    ex._resident.clear()
+    setup_s = time.perf_counter() - t0
+    witness = None
+    if mesh is None:
+        t64 = time.perf_counter()
+        witness = _one_element_grads64(g.to_text(), g.weights, inputs, target, device,
+                                       [w.name for w in ex.plan.arg_weights], params)
+        witness["seconds"] = time.perf_counter() - t64
+    before = _launch_counts()
+    comm.STATS.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    (params, opt, loss), first_ms = _timed(lambda: step(params, opt, inputs, target))
+    peak = torch.cuda.max_memory_allocated()
+    moved = {k: v - before[k] for k, v in _launch_counts().items() if v != before[k]}
+    comm_first = _gathers(comm.STATS.snapshot())
+    grads = {w.name: p.grad.detach().clone() for w, p in zip(ex.plan.arg_weights, params)}
+    shards = {w.name: w.shard for w in ex.plan.arg_weights}
+    pows = {op.inputs[1].name for op in ex.graph.ops if op.op_type == "Pow"}
+    busy = _rank_busy(lambda: step(params, opt, inputs, target))  # a second step, timed
+    n_params = sum(p.numel() for p in params)
+    del params, opt, step, init, ex, s
+    gc.collect()
+    return {"loss": float(loss), "grads": grads, "shards": shards, "pow_exponents": pows, "setup_s": setup_s,
+            "float64": witness,
+            "first_step_ms": first_ms, "step": busy, "peak_mb": peak / 2**20, "launches_moved": moved,
+            "comm": comm_first, "params": n_params,
+            "tp_sharded": sum(any(not p.is_replicate() for p in pl) for pl in placements)}
+
+
+def _rank_train(rank, device, ref_path: str) -> dict:
+    """The SD15 train step under make_mesh(2, dp=1, tp=2): this rank's loss
+    and every gradient slice held to the one-rank step's (read from
+    ref_path): per tensor the largest gap over the tensor's max|g|, and the
+    NaN places; each one-element weight's gradient also against its float64
+    value."""
+    from onnxstream_tpu_torch.parallel.sharding import make_mesh
+
+    r = _sd15_train(device, make_mesh(2, dp=1, tp=2))
+    ref = torch.load(ref_path, mmap=True)
+    gaps, off64, nan_names, nan_mismatch = {}, {}, set(), []
+    for name, g in r.pop("grads").items():
+        want = ref["grads"][name]
+        for axis, start, stop in r["shards"][name] or ():
+            want = want.narrow(axis, start, stop - start)
+        want = want.to(g.device)
+        gn, wn = torch.isnan(g), torch.isnan(want)
+        if gn.any() or wn.any():
+            nan_names.add(name)
+            if not torch.equal(gn, wn):
+                nan_mismatch.append(name)
+        top = ref["max"][name]
+        gap = (torch.nan_to_num(g) - torch.nan_to_num(want)).abs().max().item()
+        gaps[name] = (gap / top if top > 0 else gap, ref["grads"][name].numel() == 1)
+        g64 = ref["float64"].get(name, float("nan"))
+        if not np.isnan(g64):
+            off64[name] = abs(float(g) - g64) / abs(g64) if g64 else abs(float(g))
+    worst = {kind: max(((v, n) for n, (v, one) in gaps.items() if one == (kind == "one_element")),
+                       default=(0.0, None)) for kind in ("tensors", "one_element")}
+    r.update(worst=worst, top5=sorted(((v, n) for n, (v, _) in gaps.items()), reverse=True)[:5],
+             off_float64=sorted(((v, n) for n, v in off64.items()), reverse=True)[:3],
+             one_element_over_1e3=sum(one and v > 1e-3 for v, one in gaps.values()),
+             nan_names=sorted(nan_names), nan_mismatch=nan_mismatch, compared=len(gaps),
+             one_element=sum(one for _, one in gaps.values()))
+    return r
+
+
+def phase_train_reference(name: str, folder: str) -> dict:
+    """The SD15 train step on one rank (no mesh); its gradients written to
+    ``folder`` for the tp ranks (read back memory-mapped)."""
+    r = _sd15_train("cuda:0")
+    grads = {k: v.cpu() for k, v in r.pop("grads").items()}
+    path = os.path.join(folder, "sd15_train_grads.pt")
+    t0 = time.perf_counter()
+    w64 = r.pop("float64")
+    torch.save({"grads": grads, "max": {k: float(torch.nan_to_num(v).abs().max()) for k, v in grads.items()},
+                "float64": w64["grads"]}, path)
+    nan = sorted(k for k, v in grads.items() if torch.isnan(v).any())
+    off64 = {k: abs(float(grads[k]) - g) / abs(g) if g else abs(float(grads[k])) for k, g in w64["grads"].items()
+             if not np.isnan(g)}
+    r.update(path=path, nan_names=nan, save_s=time.perf_counter() - t0, loss64=w64["loss"],
+             off_float64=sorted(((v, k) for k, v in off64.items()), reverse=True)[:3], float64_s=w64["seconds"],
+             float64_nan=sorted(k for k, g in w64["grads"].items() if np.isnan(g)))
+    del grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"SD15 UNet train step (float32, batch 1, AdamW, weights made on the card), one rank: loss "
+          f"{r['loss']:.6f}, {r['params'] / 1e6:.1f} M params, setup {r['setup_s']:.1f} s, first step "
+          f"{r['first_step_ms']:.1f} ms, a step {r['step']} , peak {r['peak_mb']:.1f} MB; NaN gradients on "
+          f"{len(nan)} weights (Pow exponents: {set(nan) <= r['pow_exponents']}); kernel counts moved "
+          f"{r['launches_moved']}; gradients saved in {r['save_s']:.1f} s [{name}]")
+    print(f"SD15 UNet train step, one rank, float64 witness ({r['float64_s']:.1f} s): loss {r['loss64']:.9f} "
+          f"(float32 {r['loss']:.9f}); the one-element weights' float32 gradients off their float64 values by, "
+          f"largest three, {[(n, float(f'{v:.3e}')) for v, n in r['off_float64']]} * |g64|; NaN in float64 on "
+          f"{len(r['float64_nan'])} one-element weights [{name}]")
+    if not np.isfinite(r["loss"]) or r["launches_moved"] or not set(nan) <= r["pow_exponents"]:
+        raise SystemExit("train step, one rank: loss not finite, a kernel launched, or a NaN off the Pow exponents")
+    return r
+
+
+def phase_train_report(name: str, one: dict, ranks: list) -> dict:
+    """The tp = 2 ranks' train step against the one-rank step: loss within
+    rtol 1e-5; every gradient of a weight of several elements within 1e-3 *
+    max|g| of its tensor; a one-element weight's gradient (a scalar constant
+    such as the GELU's sqrt(2), whose gradient is a sum over a whole
+    activation, 1.3 M terms that cancel, taken in another order by each
+    rank's share and the sum of the two) within 3e-3 of itself, just above
+    the worst read (1.386e-3), the float64 witness printed beside it; NaN in
+    the same places on the same weights; no kernel launched."""
+    per_rank = []
+    for rank, res in enumerate(ranks):
+        r = res["train"]
+        rel = abs(r["loss"] - one["loss"]) / abs(one["loss"])
+        (w_t, n_t), (w_1, n_1) = r["worst"]["tensors"], r["worst"]["one_element"]
+        print(f"SD15 UNet train step tp=2 rank {rank}: loss {r['loss']:.6f} (one rank {one['loss']:.6f}, rel "
+              f"{rel:.2e}, bound 1e-5); {r['compared']} gradients: worst gap {w_t:.3e} * max|g| on {n_t} over the "
+              f"weights of several elements (bound 1e-3), {w_1:.3e} * |g| on {n_1} over the {r['one_element']} "
+              f"one-element weights (bound 3e-3; {r['one_element_over_1e3']} over 1e-3), off their float64 values "
+              f"by, largest three, {[(n, float(f'{v:.3e}')) for v, n in r['off_float64']]} * |g64| (one rank "
+              f"{[(n, float(f'{v:.3e}')) for v, n in one['off_float64']]}); the largest five "
+              f"{[(n, float(f'{v:.3e}')) for v, n in r['top5']]}; NaN on {len(r['nan_names'])} weights (one rank "
+              f"{len(one['nan_names'])}), mismatched {r['nan_mismatch']}; {r['tp_sharded']} tp-sharded weights; "
+              f"setup {r['setup_s']:.1f} s, first step {r['first_step_ms']:.1f} ms, a step {r['step']}, peak "
+              f"{r['peak_mb']:.1f} MB (one rank {one['peak_mb']:.1f}); collectives of a step {r['comm']}; kernel "
+              f"counts moved {r['launches_moved']} [{name}]")
+        if not (rel <= 1e-5 and w_t <= 1e-3 and w_1 <= 3e-3 and r["nan_names"] == one["nan_names"]
+                and not r["nan_mismatch"] and not r["launches_moved"]):
+            raise SystemExit(f"train step tp=2 rank {rank}: loss, gradients or NaN places differ from one rank, "
+                             f"or a kernel launched")
+        per_rank.append({k: r[k] for k in ("loss", "worst", "top5", "off_float64", "one_element_over_1e3",
+                                           "tp_sharded", "setup_s",
+                                           "first_step_ms", "step", "peak_mb", "comm")} | {"loss_rel": rel})
+    return {"one_rank": {k: one[k] for k in ("loss", "setup_s", "first_step_ms", "step", "peak_mb", "params",
+                                             "loss64", "off_float64", "float64_s")}
+            | {"nan_weights": len(one["nan_names"])}, "ranks": per_rank}
+
+
+def phase_dryrun(name: str) -> dict:
+    """``dryrun_multichip(2)`` on two gloo ranks sharing cuda:0: the train
+    step, sharded inference, pipeline stages and tp = 2 decoding of the
+    tiny models, each held to one device (its own lines)."""
+    from onnxstream_tpu_torch.entry import dryrun_multichip
+
+    t0 = time.perf_counter()
+    out = dryrun_multichip(2, device="cuda:0", backend="gloo", timeout_s=300)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"dryrun_multichip(2, cuda:0, gloo): {out} [{name}]")
+    return out
+
+
 def main() -> int:
     sys.path.insert(0, REPO)
     name = phase_device()
@@ -4792,6 +5346,9 @@ def main() -> int:
     gn_sites = phase_kernel_gn(name)
     sd = phase_slice(name)
     launches_sd = sd["launches"]
+    t_new = time.perf_counter()
+    entry = phase_entry(name, sd)
+    print(f"phase_entry: {time.perf_counter() - t_new:.1f} s")
     gn = phase_gn_routes(name, sd)
     gc.collect()
     torch.cuda.empty_cache()
@@ -4822,9 +5379,23 @@ def main() -> int:
     llm_int8 = phase_llm_int8(name, llm)
     gc.collect()
     torch.cuda.empty_cache()
-    parallel = phase_parallel(name)
+    train_dir = tempfile.mkdtemp(prefix="ostt_train_")
+    try:
+        t_new = time.perf_counter()
+        train = phase_train_reference(name, train_dir)
+        print(f"phase_train_reference: {time.perf_counter() - t_new:.1f} s")
+        parallel = phase_parallel(name, train)
+    finally:
+        shutil.rmtree(train_dir, ignore_errors=True)
+    t_new = time.perf_counter()
+    dry = phase_dryrun(name)
+    print(f"phase_dryrun: {time.perf_counter() - t_new:.1f} s")
     llm_tp2 = sum(r["launches"] for dt in parallel["llm"].values() for r in dt["ranks"])
     unet_dp2, unet_tp2 = (sum(r["launches"] for r in parallel["unet"][k]["ranks"]) for k in ("unet_dp2", "unet_tp2"))
+    int8_tp2_k2 = sum(r["launches"] for r in parallel["llm_int8"]["ranks"])
+    int8_tp2_k6 = sum(r["launches6"] for r in parallel["llm_int8"]["ranks"])
+    u8_tp2_k5 = sum(r["launches"] for r in parallel["unet_u8"]["ranks"])
+    u8_tp2_k1 = sum(r["launches1"] for r in parallel["unet_u8"]["ranks"])
     whisper = phase_whisper(name)
     ops = phase_ops(name)
     yolo = phase_yolo(name)
@@ -4848,6 +5419,8 @@ def main() -> int:
     print(f"fp16 storage: {json.dumps({k: v for k, v in fp16.items() if k not in ('launches', 'replay')})}")
     print(f"converted 860 M UNet: {json.dumps(convert)}")
     print(f"parallel: {json.dumps({k: parallel[k] for k in ('nccl', 'pp', 'seconds')})}")
+    print(f"entry: {json.dumps(entry)}; dry run: {json.dumps(dry)}")
+    print(f"train step: {json.dumps(parallel['train'])}")
     print(f"card: {name}")
     fa_src = "onnxstream_tpu_torch/kernels/csrc/flash_attention.cu"
     q_src = "onnxstream_tpu_torch/kernels/csrc/qmatmul.cu"
@@ -4859,14 +5432,16 @@ def main() -> int:
          "replaces": "onnxstream_tpu/kernels/flash_attention.py:260", **kernel,
          "launches": (sd_image["flash_launches"] + sdxl["launches"] + sd_batch["launches"] + whisper["launches"]
                       + streamed["launches"] + served["launches"] + layout["launches"] + fp16["launches"]
-                      + nopad["packed_launches"] + convert["launches"] + unet_dp2 + unet_tp2),
+                      + nopad["packed_launches"] + convert["launches"] + unet_dp2 + unet_tp2 + entry["launches"]
+                      + u8_tp2_k1),
          "launches_by_path": {"sd15_step": launches_sd, "sd15_image": sd_image["flash_launches"],
                               "sdxl_image_and_turbo": sdxl["launches"], "sd15_generate_batch4": sd_batch["launches"],
                               "whisper": whisper["launches"], "sd15_streamed": streamed["launches"],
                               "sd15_served": served["launches"], "sd15_nhwc": layout["launches"],
                               "sd15_fp16_storage": fp16["launches"], "sd15_nopad": nopad["packed_launches"],
                               "sd15_converted": convert["launches"], "dp2_unet": unet_dp2,
-                              "tp2_unet": unet_tp2},
+                              "tp2_unet": unet_tp2, "sd15_entry": entry["launches"], "tp2_unet_uint8": u8_tp2_k1},
+         "entry": entry,
          "parallel": parallel["unet"],
          "whisper": {k: whisper[k] for k in ("sites_bfloat16", "replay_bfloat16", "sites_float32", "replay_float32",
                                              "times", "on_device")},
@@ -4876,13 +5451,19 @@ def main() -> int:
          "sd15_fp16_storage_replay": fp16["replay"]},
         {"name": "flash_attention", "route": "cuda", "source": fa_src,
          "replaces": "onnxstream_tpu/kernels/flash_attention.py:366", **kernel_hm,
-         "launches": launches_llm + nopad["launches"] + llm_tp2,
-         "launches_by_path": {"tinyllama": launches_llm, "sd15_nopad": nopad["launches"], "tp2_llm": llm_tp2},
+         "launches": launches_llm + nopad["launches"] + llm_tp2 + int8_tp2_k2,
+         "launches_by_path": {"tinyllama": launches_llm, "sd15_nopad": nopad["launches"], "tp2_llm": llm_tp2,
+                              "tp2_llm_int8": int8_tp2_k2},
          "parallel": parallel["llm"],
          "sd15_nopad": {k: nopad[k] for k in ("by_shape", "unet", "max_abs_err")}, **llm["flash"]},
         {"name": "w8a8_dyn_matmul", "route": "cuda", "source": q_src, "replaces": f"{q_py}:332", **llm_int8,
-         "ms_by_shape": q_sites},
-        {"name": "w8_matmul", "route": "cuda", "source": q_src, "replaces": f"{q_py}:186", **sd_u8},
+         "ms_by_shape": q_sites, "launches": llm_int8["launches"] + int8_tp2_k6,
+         "launches_by_path": {"tinyllama_int8": llm_int8["launches"], "tp2_llm_int8": int8_tp2_k6},
+         "tp2": parallel["llm_int8"]},
+        {"name": "w8_matmul", "route": "cuda", "source": q_src, "replaces": f"{q_py}:186", **sd_u8,
+         "launches": sd_u8["launches"] + u8_tp2_k5,
+         "launches_by_path": {"sd15_uint8": sd_u8["launches"], "tp2_unet_uint8": u8_tp2_k5},
+         "tp2": parallel["unet_u8"]},
         {"name": "qmatmul", "route": "cuda", "source": ql_src, "replaces": f"{q_py}:73", **sd_image["qmatmul"]},
         {"name": "qconv", "route": "cuda", "source": ql_src, "replaces": "onnxstream_tpu/kernels/qconv.py:68",
          **sd_image["qconv"]},

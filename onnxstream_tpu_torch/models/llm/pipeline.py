@@ -28,7 +28,9 @@ q / k / v / o and MLP projections shard over "tp" and the KV cache over its
 head axis (``tp_kv_head_inputs``), so ``kv[i]`` is this rank's (1,
 kv_heads / tp, P, head_dim) shard, fed back as a ``LocalShard``. Every rank
 runs the same calls: the next token comes from gathered logits, equal on
-every rank.
+every rank. With ``int8_weights`` too, a rank's int8 weights are its
+column slices of the one-device quantization (``runtime/executor.py``), and
+kernel 6 runs at the local N.
 """
 
 from __future__ import annotations
@@ -86,10 +88,6 @@ class LlamaPipeline:
         mesh=None,
         device: Optional[torch.device] = None,
     ):
-        if mesh is not None and int8_weights:
-            raise NotImplementedError(
-                "int8_weights with a mesh is not ported yet (ROADMAP.md Queue 1 item 11: mesh with "
-                "streaming and with quantized storage)")
         self.cfg = cfg
         self.compute_dtype = compute_dtype
         # None: the first CUDA card (raises without one); the CPU only when asked

@@ -1,8 +1,12 @@
-"""The multi-rank dry run: the sharded serving paths against one device.
+"""The multi-rank dry run: the train step and the sharded serving paths
+against one device.
 
-Counterpart of ``__graft_entry__.py dryrun_multichip`` without its train
-step (not ported yet). On n ranks (``launch.spawn``):
+Counterpart of ``__graft_entry__.py dryrun_multichip``. On n ranks
+(``launch.spawn``):
 
+  * one AdamW step of the TINY UNet (float32, batch max(2, n // 2),
+    ``use_flash_attention=False``) under ``make_mesh(n, dp=2)``
+    (``sharding.make_train_step``): tp-sharded weights, the batch over dp;
   * the TINY UNet (float32, batch max(2, n // 2)) through ``Session`` under
     ``make_mesh(n, dp=2[, sp=2])``: tp-sharded weights, the batch over dp,
     with sp a 16-token context over sp;
@@ -49,9 +53,7 @@ def tiny_unet(batch: int, context_len: int = 7) -> Tuple[str, Dict[str, np.ndarr
     return g.to_text(), dict(g.weights)
 
 
-def run_session(text: str, weights, inputs: Dict[str, np.ndarray], device, **config) -> Tuple[np.ndarray, Any]:
-    """One run of a graph through the port's Session: its first output as
-    float32 numpy and the session."""
+def _session(text: str, weights, inputs, device, **config):
     from onnxstream_tpu_torch.runtime.config import SessionConfig
     from onnxstream_tpu_torch.runtime.session import Session
     from onnxstream_tpu_torch.runtime.weights import DictWeightsProvider, params_from_numpy
@@ -61,6 +63,13 @@ def run_session(text: str, weights, inputs: Dict[str, np.ndarray], device, **con
     s.read_string(text)
     for k, v in inputs.items():
         s.add_tensor(k, v)
+    return s
+
+
+def run_session(text: str, weights, inputs: Dict[str, np.ndarray], device, **config) -> Tuple[np.ndarray, Any]:
+    """One run of a graph through the port's Session: its first output as
+    float32 numpy and the session."""
+    s = _session(text, weights, inputs, device, **config)
     out = s.run()
     return next(iter(out.values())), s
 
@@ -88,7 +97,89 @@ def unet_case(rank: int, device, text: str, weights, inputs, mesh: Dict[str, int
     if return_weights:
         held = ex._fetch_segment_weights(ex.segments[0])  # resident: the weights of the run
         out["weights"] = {name: t.float().cpu().numpy() for name, t in held.items()}
+        # the quantized ones' (scale, zero): per channel as float32 numpy
+        out["quant"] = {w.name: tuple(v.cpu().numpy() if isinstance(v, torch.Tensor) else v for v in w.quant)
+                        for w in ex.plan.arg_weights if w.quant is not None}
     return out
+
+
+def train_case(rank, device, text: str, weights, inputs, mesh: Optional[Dict[str, int]], target=None,
+               **config) -> Dict[str, Any]:
+    """One ``make_train_step`` step of a graph's "out_sample" (MSE against
+    ``target``, zeros by default) under ``make_mesh(world, **mesh)``, or on
+    one device for ``mesh=None``: the loss, and per weight this rank's
+    gradient, updated weight and AdamW moments (float32 numpy), its shard
+    and whether tp slices it."""
+    import torch.distributed as dist
+
+    from onnxstream_tpu_torch.parallel import comm
+    from onnxstream_tpu_torch.parallel.sharding import make_mesh, make_train_step
+
+    m = make_mesh(dist.get_world_size(), **mesh) if mesh is not None else None
+    s = _session(text, weights, inputs, device, mesh=m, use_flash_attention=False, **config)
+    ex = s._executor()
+    step, init, placements = make_train_step(ex, "out_sample", m)
+    params, opt = init(weights)
+    if target is None:
+        target = np.zeros(ex.mesh_info.global_avals["out_sample"].shape if m else ex.plan.avals["out_sample"].shape,
+                          np.float32)
+    comm.STATS.reset()
+    params, opt, loss = step(params, opt, inputs, target)
+    names = [w.name for w in ex.plan.arg_weights]
+
+    def host(t):
+        return t.detach().float().cpu().numpy()
+
+    tp = m.mesh_dim_names.index("tp") if m is not None else None
+    return {"loss": float(loss), "names": names,
+            "grads": {n: host(p.grad) for n, p in zip(names, params)},
+            "weights": {n: host(p) for n, p in zip(names, params)},
+            "exp_avg": {n: host(opt.state[p]["exp_avg"]) for n, p in zip(names, params)},
+            "exp_avg_sq": {n: host(opt.state[p]["exp_avg_sq"]) for n, p in zip(names, params)},
+            "weight_shards": {w.name: w.shard for w in ex.plan.arg_weights},
+            "tp_sharded": sum(not pl[tp].is_replicate() for pl in placements) if tp is not None else 0,
+            "comm": comm.STATS.snapshot(), "mesh": dict(zip(m.mesh_dim_names, m.shape)) if m is not None else {}}
+
+
+def collective_grad_case(rank, device, broken: bool = False) -> Dict[str, Any]:
+    """The chain rule through the pass's collectives on a tp group, as the
+    train step uses them: a weight W sharded on its columns (this rank's
+    W_r), h_r = x @ W_r gathered into y = x @ W; a replicated weight V used
+    whole (a = y @ V, replicated) and through this rank's column slice
+    (e_r = y @ V[:, r], sharded); the global loss sum(a^2) + sum(e). Each
+    rank's loss is its share (a counted once over the group), the gradient
+    of V is summed over the group. Returns this rank's gradients of W_r and
+    V. ``broken``: the gather's backward keeps this rank's block of its own
+    gradient instead of the reduce-scatter (gradients then come out wrong)."""
+    import torch.distributed as dist
+
+    from onnxstream_tpu_torch.ops import collective
+    from onnxstream_tpu_torch.parallel import comm
+
+    group, r, n = dist.group.WORLD, dist.get_rank(), dist.get_world_size()
+    x, W, V = collective_grad_operands()
+    cols, vcols = W.shape[1] // n, V.shape[1] // n
+    w_r = W[:, r * cols:(r + 1) * cols].clone().to(device).requires_grad_(True)
+    v = V.clone().to(device).requires_grad_(True)
+    reduce_scatter = comm.reduce_scatter
+    if broken:
+        comm.reduce_scatter = lambda g, axis, group, dim="tp": g.narrow(axis, r * g.shape[axis] // n,
+                                                                     g.shape[axis] // n)
+    try:
+        y = collective._Gather.apply(x.to(device) @ w_r, 1, group, "tp")
+        a = y @ v
+        e_r = y @ v.narrow(1, r * vcols, vcols)
+        (a.square().sum() / n + e_r.sum()).backward()
+    finally:
+        comm.reduce_scatter = reduce_scatter
+    gv = comm.all_reduce(v.grad, group, "tp")
+    return {"grad_w": w_r.grad.cpu().numpy(), "grad_v": gv.cpu().numpy()}
+
+
+def collective_grad_operands():
+    """x, W, V of ``collective_grad_case`` (seeded)."""
+    rng = np.random.RandomState(3)
+    return tuple(torch.from_numpy(rng.randn(*shape).astype(np.float32)) for shape in ((4, 8), (8, 6), (6, 4)))
 
 
 def _graph_weight_bytes(pipe) -> int:
@@ -99,7 +190,7 @@ def _graph_weight_bytes(pipe) -> int:
 
 def llm_case(rank: int, device, mesh: Dict[str, int], decode_steps: int = 5, new_tokens: int = 6,
              compute_dtype: str = "float32", prompt: Sequence[int] = LLM_PROMPT, cfg=None,
-             synthetic_on_device: bool = False) -> Dict[str, Any]:
+             synthetic_on_device: bool = False, int8_weights: bool = False) -> Dict[str, Any]:
     """LLAMA_TINY (or ``cfg``; seed 0, buckets [8, 16, 32]) under
     ``make_mesh(world, **mesh)``: prefill, ``decode_steps`` stepwise decodes
     (the cache crosses bucket 8 -> 16), then ``generate_on_device`` after a
@@ -113,7 +204,8 @@ def llm_case(rank: int, device, mesh: Dict[str, int], decode_steps: int = 5, new
 
     m = make_mesh(dist.get_world_size(), **mesh)
     pipe = LlamaPipeline(cfg or LLAMA_TINY, buckets=list(LLM_BUCKETS), compute_dtype=compute_dtype, mesh=m,
-                         device=torch.device(device), synthetic_on_device=synthetic_on_device)
+                         device=torch.device(device), synthetic_on_device=synthetic_on_device,
+                         int8_weights=int8_weights)
     comm.STATS.reset()
     steps = [pipe.forward(list(prompt))]
     kv_shape = tuple(pipe.kv[0].shape)
@@ -129,13 +221,15 @@ def llm_case(rank: int, device, mesh: Dict[str, int], decode_steps: int = 5, new
 
 
 def llm_single(device, decode_steps: int = 5, new_tokens: int = 6, compute_dtype: str = "float32",
-               prompt: Sequence[int] = LLM_PROMPT, cfg=None, synthetic_on_device: bool = False) -> Dict[str, Any]:
+               prompt: Sequence[int] = LLM_PROMPT, cfg=None, synthetic_on_device: bool = False,
+               int8_weights: bool = False) -> Dict[str, Any]:
     """``llm_case`` on one device, no mesh."""
     from onnxstream_tpu_torch.models.llm.llama import LLAMA_TINY
     from onnxstream_tpu_torch.models.llm.pipeline import LlamaPipeline
 
     pipe = LlamaPipeline(cfg or LLAMA_TINY, buckets=list(LLM_BUCKETS), compute_dtype=compute_dtype,
-                         device=torch.device(device), synthetic_on_device=synthetic_on_device)
+                         device=torch.device(device), synthetic_on_device=synthetic_on_device,
+                         int8_weights=int8_weights)
     steps = [pipe.forward(list(prompt))]
     for _ in range(decode_steps):
         steps.append(pipe.forward([steps[-1][0]]))
@@ -192,7 +286,8 @@ def mesh_case(rank: int, device) -> Dict[str, Any]:
             "errors": errors}
 
 
-CASES = {"unet": unet_case, "llm": llm_case, "graphs": graphs_case, "mesh": mesh_case}
+CASES = {"unet": unet_case, "llm": llm_case, "graphs": graphs_case, "mesh": mesh_case, "train": train_case,
+         "collective_grad": collective_grad_case}
 
 
 def rank_cases(rank: int, device, cases: List[Tuple[str, str, Dict[str, Any]]]) -> Dict[str, Any]:
@@ -203,10 +298,11 @@ def rank_cases(rank: int, device, cases: List[Tuple[str, str, Dict[str, Any]]]) 
 
 def dryrun_multichip(n_devices: int = 8, device: str = "cuda", backend: str = "nccl",
                      timeout_s: float = 300.0) -> Dict[str, float]:
-    """Run the three paths on n ranks against one device and print a line
+    """Run the four paths on n ranks against one device and print a line
     for each; raise if one deviates (float32: only reassociation of the
-    gathered products is tolerated, 1e-3 as the JAX dry run). By default
-    each rank drives a card of its own over NCCL."""
+    gathered products is tolerated, 1e-3 as the JAX dry run; the train
+    step's loss within 1e-5 of one rank's). By default each rank drives a
+    card of its own over NCCL."""
     from onnxstream_tpu_torch.parallel.launch import spawn
 
     if backend == "nccl":
@@ -225,9 +321,20 @@ def dryrun_multichip(n_devices: int = 8, device: str = "cuda", backend: str = "n
     inputs = tiny_unet_inputs(batch, context_len)
     y0, _ = run_session(text, weights, inputs, device)
     tp_llm = 2 if n_devices % 2 == 0 else 1
-    cases = [("unet", "unet", dict(text=text, weights=weights, inputs=inputs, mesh=mesh)),
+    # the train step: JAX's mesh and its 7-token context
+    text7, weights7 = (text, weights) if context_len == 7 else tiny_unet(batch)
+    inputs7 = tiny_unet_inputs(batch)
+    cases = [("train", "train", dict(text=text7, weights=weights7, inputs=inputs7, mesh=dict(dp=dp))),
+             ("unet", "unet", dict(text=text, weights=weights, inputs=inputs, mesh=mesh)),
              ("llm", "llm", dict(mesh=dict(tp=tp_llm)))]
     ranks = spawn(rank_cases, n_devices, backend, device, timeout_s, args=(cases,))
+    one = train_case(0, device, text7, weights7, inputs7, None)
+    t0 = ranks[0]["train"]
+    losses = [r["train"]["loss"] for r in ranks]
+    print(f"dryrun_multichip: train step mesh={t0['mesh']} loss={t0['loss']:.6f} (one rank {one['loss']:.6f}) "
+          f"tp-sharded weights: {t0['tp_sharded']}/{len(t0['names'])} dp batch={batch}")
+    if not (np.isfinite(losses).all() and max(abs(x - one["loss"]) for x in losses) <= 1e-5 * abs(one["loss"])):
+        raise AssertionError(f"train step: losses {losses} against one rank's {one['loss']}")
     r0 = ranks[0]["unet"]
     dev_sharded = max(float(np.abs(r["unet"]["out"] - y0).max()) for r in ranks)
     print(f"dryrun_multichip: sharded inference mesh={r0['mesh']} out={r0['out'].shape} "
@@ -259,7 +366,7 @@ def dryrun_multichip(n_devices: int = 8, device: str = "cuda", backend: str = "n
           f"tokens {'equal' if same else 'DIFFER'}, on-device decode {got['generated']}")
     if not (same and dev_llm < 2e-4):
         raise AssertionError(f"tensor-parallel LLM deviates from single-device: {dev_llm}, tokens equal {same}")
-    return {"sharded": dev_sharded, "pp": dev_pp, "llm": dev_llm}
+    return {"train_loss": t0["loss"], "sharded": dev_sharded, "pp": dev_pp, "llm": dev_llm}
 
 
 def main(argv: Optional[List[str]] = None) -> int:

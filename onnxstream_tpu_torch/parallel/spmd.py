@@ -138,7 +138,10 @@ class ShardingPass:
             sw = self.plan.static_weights.get(spec.name)
             if sw is not None:
                 return _Val(spec, "static", tuple(np.shape(sw)), sw)
-            return _Val(spec, "weight", tuple(self.args[spec.name].shape))
+            w = self.args[spec.name]
+            # a K-major int8 weight (tnk) is placed by its file layout, the
+            # MatMul's operand; it is relayouted after it is sliced
+            return _Val(spec, "weight", tuple(w.file_shape if w.transform == "tnk" else w.shape))
         if spec.name in self.plan.static_env:
             v = self.plan.static_env[spec.name]
             return _Val(spec, "static", tuple(np.shape(v)), v)

@@ -166,21 +166,22 @@ class SessionConfig:
 
     def check_mesh(self) -> None:
         """Raise for what a mesh does not run with yet: weight streaming,
-        pipeline stages and quantized storage (the per-channel quantization
-        of a sharded weight is its own piece of work)."""
+        pipeline stages and the calibrated W8A8 routes (activation ranges
+        and QDQ over a rank's shards are their own piece of work). Weights
+        quantized at fetch (``force_uint8_storage_set``) are sliced from the
+        one-device quantization."""
         if self.mesh is None:
             return
         refused = [name for name, on in (
             ("hbm_budget_bytes > 0", self.hbm_budget_bytes > 0),
             ("pp_devices", bool(self.pp_devices)),
-            ("force_uint8_storage_set (int8_weights)", bool(self.force_uint8_storage_set)),
             ("use_uint8_arithmetic", self.use_uint8_arithmetic),
             ("use_uint8_qdq", self.use_uint8_qdq),
             ("range_data_calibrate", self.range_data_calibrate)) if on]
         if refused:
             raise NotImplementedError(
-                f"a mesh with {', '.join(refused)} is not ported yet (ROADMAP.md Queue 1 item 11: "
-                f"mesh with streaming and with quantized storage)")
+                f"a mesh with {', '.join(refused)} is not ported yet (ROADMAP.md: a mesh with weight "
+                f"streaming, and calibrated W8A8 under a mesh)")
 
     @property
     def torch_compute_dtype(self) -> torch.dtype:

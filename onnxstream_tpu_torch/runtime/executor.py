@@ -98,11 +98,24 @@ relayout) instead of being fetched and uploaded: N(0, ``SYNTH_SCALE``) for a
 float weight, uniform s8 in [-127, 127] with a flat per-channel scale for a
 force-quantized symmetric int8 weight, uniform u8 for a uint8 weight from
 the file (its (scale, zero point) are the file's). Each weight's stream comes
-from one ``torch.Generator`` on the device, seeded from the weight's index
-among the plan's weights (JAX folds the index into a fixed key), so the
-same graph gives the same weights on every fetch and in every session; the
-values are not ``jax.random``'s. Smaller weights stay real. Synthesized
-weights are cached like uploaded ones.
+from one ``torch.Generator`` on the device, seeded from a CRC-32 of the
+weight's name (JAX folds its index among the plan's weights into a fixed
+key), so a weight is the same on every fetch, in every session, in every
+bucket graph that reads it and on every rank; the values are not
+``jax.random``'s. Smaller weights stay real. Synthesized weights are cached
+like uploaded ones.
+
+Under a mesh a force-quantized weight is quantized as one device would
+quantize it and this rank keeps its slice, bit for bit, its per-channel
+scale and zero vectors sliced with it: a per-column scale (symmetric s8,
+per-channel u8) over a slice of columns is exact on the slice alone, which
+is quantized; a scale over the whole tensor needs the whole weight, which is
+quantized first. A K-major relayout (``tnk``) comes after the slice.
+
+``segment_fn(si)`` is the counterpart of JAX's ``_segment_fn``: the
+segment's ops as a function of its weights and inputs, which autograd can
+differentiate where no op runs a hand-written kernel (the train step of
+``parallel/sharding.py``).
 """
 
 from __future__ import annotations
@@ -111,6 +124,7 @@ import contextlib
 import dataclasses
 import math
 import time
+import zlib
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -298,6 +312,25 @@ def _take_shard(t: torch.Tensor, shard) -> torch.Tensor:
     return t
 
 
+def _upload_layout(w: WeightArg) -> tuple:
+    """The whole weight's shape in its upload layout and its shard's axes
+    mapped there: a K-major weight (``tnk``) is the transpose of its file
+    layout, the other relayouts of a sharded weight keep its axes."""
+    whole = tuple(w.file_shape or w.shape)
+    shard = tuple(w.shard or ())
+    if w.transform == "tnk":
+        return whole[::-1], tuple((1 - axis, start, stop) for axis, start, stop in shard)
+    if shard and w.transform not in (None, "ohwi"):
+        raise NotImplementedError(f"{w.name}: a {w.transform} weight is not sliced under a mesh")
+    return (whole if shard else tuple(w.shape)), shard
+
+
+def synth_seed(name: str) -> int:
+    """The generator seed of a synthesized weight: a CRC-32 of its name, the
+    same in every process (``hash()`` is salted per process)."""
+    return zlib.crc32(name.encode())
+
+
 STAGING_ALIGN = 256  # bytes: each weight's slice of a staging buffer starts on this
 
 
@@ -425,7 +458,6 @@ class Executor:
             i for i, op in enumerate(self.graph.ops)
             if upcast(op.op_type, op.name) and not get_impl(op.op_type).internal)
         self._arg_by_name = {w.name: w for w in plan.arg_weights}
-        self._arg_index = {w.name: i for i, w in enumerate(plan.arg_weights)}
         # calibration ranges recorded by run_eager (range_data_calibrate)
         self.range_data = RangeData()
         # tensor name -> producing op name: a W8A8 op quantizes its input with
@@ -470,12 +502,19 @@ class Executor:
         fetch time and return it (None for any other weight); its (scale,
         zero point) land on the WeightArg, vectors on the device (reference
         storage demotion, src/onnxstream.cpp:3764-3808; JAX
-        ``Executor._maybe_force_quant``)."""
+        ``Executor._maybe_force_quant``). ``host`` is the whole weight in its
+        file layout; a sharded weight comes back as this rank's slice of the
+        one-device quantization (see the module docstring)."""
         if (w.name not in self.config.force_uint8_storage_set or not w.file_dtype.is_float
                 or host.dtype in (torch.uint8, torch.int8)):
             return None
         t0 = time.perf_counter()
-        a32 = host.float().numpy()
+        shard = tuple(w.shard or ())
+        last = host.ndim - 1
+        per_column = w.symmetric or (self.config.uint8_per_channel and host.ndim == 2)
+        # a per-column scale over a slice of columns: the slice alone
+        sliced = per_column and all(axis == last for axis, _, _ in shard)
+        a32 = (_take_shard(host, shard) if sliced else host).float().numpy()
         if w.symmetric:
             # symmetric per-channel s8, the storage form of w8a8_dyn_matmul
             q, scale = quantize_weight_symmetric_per_channel(a32)
@@ -486,25 +525,36 @@ class Executor:
         else:
             q, scale, zero = quantize_weight_percentile(a32)
             quant = (scale, zero)
+        q = torch.from_numpy(q)
+        if shard and not sliced:
+            q = _take_shard(q, shard)
+            cols = [(start, stop) for axis, start, stop in shard if axis == last]
+            if cols:
+                quant = tuple(v[cols[0][0]:cols[0][1]] if isinstance(v, np.ndarray) else v for v in quant)
         self.quantize_seconds += time.perf_counter() - t0
-        w.quant = tuple(torch.from_numpy(v).to(self.device) if isinstance(v, np.ndarray) else v
-                        for v in quant)
-        return torch.from_numpy(q)
+        w.quant = tuple(torch.from_numpy(np.ascontiguousarray(v)).to(self.device) if isinstance(v, np.ndarray)
+                        else v for v in quant)
+        return q
 
     def _synthesize(self, w: WeightArg, kind: str, device: Optional[torch.device] = None) -> torch.Tensor:
         """Generate w on the device in its upload dtype and shape (JAX
-        ``_synth_generate``): one generator seeded from w's index in the
-        plan. An s8 weight gets a flat per-channel scale on
+        ``_synth_generate``): one generator seeded from w's name
+        (``synth_seed``). An s8 weight gets a flat per-channel scale on
         the file layout's last axis (JAX ``_stamp_s8_quant``). A weight
-        sharded over a mesh is generated whole and this rank keeps its slice,
-        so the shards equal the one-device weights."""
+        sharded over a mesh is generated whole in its upload layout and this
+        rank keeps its slice (and its scale's), so the shards equal the
+        one-device weights."""
         dev = self.device if device is None else device
         gen = torch.Generator(device=dev)
-        gen.manual_seed(self._arg_index[w.name])
-        shape = tuple(w.file_shape) if w.shard else tuple(w.shape)
+        gen.manual_seed(synth_seed(w.name))
+        shape, shard = _upload_layout(w)
         if kind == "s8":
             out = torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8)
-            n = (w.file_shape or w.shape)[-1]
+            file_shape = w.file_shape or w.shape
+            n, last = file_shape[-1], len(file_shape) - 1
+            for axis, start, stop in w.shard or ():
+                if axis == last:
+                    n = stop - start
             w.quant = (torch.full((n,), SYNTH_SCALE / 127.0, dtype=torch.float32, device=dev), 0.0)
             w.symmetric = True
         elif kind == "u8":
@@ -514,8 +564,8 @@ class Executor:
             out = out.to(w.upload_dtype)
         if w.transform == "ohwi":  # the memory layout the relayout gives
             out = out.contiguous(memory_format=torch.channels_last)
-        if w.shard:
-            out = _take_shard(out, w.shard).clone()
+        if shard:
+            out = _take_shard(out, shard).clone()
         return out
 
     def _synth_kind(self, w: WeightArg) -> Optional[str]:
@@ -530,11 +580,16 @@ class Executor:
         back through ``provider.update`` (JAX executor.py:531-537), so a
         caching provider hands the converted tensor out from then on."""
         host = self.provider.get(w.name, w.file_dtype, w.file_shape or w.shape)
-        if w.shard:  # this rank's slice, copied: the provider keeps the whole weight
-            return _take_shard(host, w.shard).to(w.upload_dtype, copy=True).contiguous()
         # quantized in the file layout first (per output channel), then
         # relayouted: kernel 6's int8 weights (tnk) take both steps
         q = self._maybe_force_quant(w, host)
+        if w.shard:
+            # this rank's slice, then its relayout, copied: the provider
+            # keeps the whole weight
+            conv = _take_shard(host, w.shard) if q is None else q
+            if w.transform:
+                conv = WEIGHT_TRANSFORMS[w.transform](conv)
+            return conv.to(w.upload_dtype, copy=True).contiguous()
         conv = host if q is None else q
         if w.transform:
             conv = WEIGHT_TRANSFORMS[w.transform](conv)
@@ -567,8 +622,7 @@ class Executor:
             return self._resident, (stage, w.name)
         shared = self.config.shared_device_weight_cache
         # the whole weight's bytes decide, also for a rank's slice of it: the
-        # graphs that share a weight then share its slice too (a synthesized
-        # one is seeded by its index in the plan that made it first)
+        # graphs that share a weight then share its slice too
         whole = math.prod(w.file_shape or w.shape) * w.upload_dtype.itemsize
         if shared is not None and whole >= SHARED_CACHE_MIN_BYTES:
             return shared, (w.name, w.shape, str(w.upload_dtype), w.transform, w.shard)
@@ -848,12 +902,14 @@ class Executor:
     def _run_segment(self, seg: Segment, weights: Dict[str, torch.Tensor],
                      env: Dict[str, torch.Tensor],
                      nxt: Optional[_SegmentFetch] = None,
-                     device: Optional[torch.device] = None) -> Dict[str, torch.Tensor]:
+                     device: Optional[torch.device] = None,
+                     also: Sequence[str] = ()) -> Dict[str, torch.Tensor]:
         """Dispatch seg's ops. With ``nxt`` (a streamed run), the next
         segment's weights are fetched between the ops, spread evenly, the
         last of them before seg's last op; seg's weights are released once
-        its last op is enqueued."""
-        keep = set(seg.out_names)
+        its last op is enqueued. ``also``: tensors returned beside the
+        segment's outputs (kept past their last reader)."""
+        keep = set(seg.out_names) | set(also)
         n = len(seg.op_indices)
         for j, oi in enumerate(seg.op_indices):
             if nxt is not None:
@@ -867,7 +923,36 @@ class Executor:
                 if t.name and not t.is_weight and self._last_use.get(t.name) == oi and t.name not in keep:
                     env.pop(t.name, None)
         weights.clear()
-        return {n: env[n] for n in seg.out_names}
+        return {n: env[n] for n in keep}
+
+    def segment_fn(self, si: int = 0, also: Sequence[str] = ()):
+        """Segment si as a function (JAX ``Executor._segment_fn``):
+        ``fn(weights, acts) -> {output: tensor}``, weights in the segment's
+        ``weight_args`` order (a single-segment plan's ``plan.arg_weights``;
+        a rank's slices under a mesh) in their upload dtypes, acts the graph
+        inputs (segment 0; sliced to this rank's share under a mesh) or the
+        segment's boundary inputs. The outputs are the graph's fetched
+        outputs that the segment makes, gathered under a mesh, and the
+        tensors named in ``also`` as this rank holds them. The ops run as
+        ``run`` dispatches them, under ``reference_precision``; a caller
+        that differentiates the result runs the backward under it too."""
+        seg = self.segments[si]
+        args = seg.weight_args
+        fetched = {name: f for name, f in self._fetch.items() if f in seg.out_names}
+
+        def fn(weights: Sequence[torch.Tensor], acts: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+            if len(weights) != len(args):
+                raise ValueError(f"segment {si} takes {len(args)} weights, got {len(weights)}")
+            with reference_precision():
+                if si == 0:
+                    env = self._prepare_inputs(acts)
+                else:
+                    env = {n: to_torch(acts[n]).to(self.seg_device(si)) for n in seg.in_names}
+                # _run_segment clears the weight dict it is given
+                out = self._run_segment(seg, {w.name: t for w, t in zip(args, weights)}, env, also=also)
+            return {**{name: out[f] for name, f in fetched.items()}, **{n: out[n] for n in also}}
+
+        return fn
 
     # ------------------------------------------------------------------ runs
     def _prepare_inputs(self, inputs: Dict[str, Any]) -> Dict[str, torch.Tensor]:

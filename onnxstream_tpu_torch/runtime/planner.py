@@ -305,7 +305,8 @@ class _Planner:
         if w is None:
             shape, transform, file_shape = spec.shape, spec.transform, spec.file_shape
             if relayout == "tnk":
-                shape, transform, file_shape = (spec.shape[1], spec.shape[0]), "tnk", spec.shape
+                # a rank's slice keeps the whole weight's file shape
+                shape, transform, file_shape = (spec.shape[1], spec.shape[0]), "tnk", spec.file_shape or spec.shape
             elif relayout == "ohwi":
                 transform, file_shape = "ohwi", spec.shape
             quant = (spec.scale, spec.zero_point) if spec.dtype == DType.uint8 else None

@@ -111,6 +111,7 @@ def test_import_pulls_in_neither_jax_nor_ml_dtypes():
         "import onnxstream_tpu_torch.parallel, onnxstream_tpu_torch.parallel.sharding\n"
         "import onnxstream_tpu_torch.parallel.spmd, onnxstream_tpu_torch.parallel.launch\n"
         "import onnxstream_tpu_torch.parallel.dryrun, onnxstream_tpu_torch.parallel.comm\n"
+        "import onnxstream_tpu_torch.entry, onnxstream_tpu_torch.ops.collective\n"
         "bad = [m for m in ('jax', 'ml_dtypes', 'onnxstream_tpu') if m in sys.modules]\n"
         "assert not bad, bad\n"
     )

@@ -246,10 +246,10 @@ def test_unported_options_raise(option):
         p = LlamaPipeline(LLAMA_TINY, buckets=list(BUCKETS), device=CPU, **{option: True})
         assert 0 <= p.forward(PROMPT)[0] < LLAMA_TINY.vocab_size
         return
-    # the mesh is ported (tests/test_torch_sharded.py runs it on spawned
-    # ranks); with int8 weights it is not yet
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LlamaPipeline(LLAMA_TINY, device=CPU, mesh=object(), int8_weights=True)
+    # the mesh is ported, with int8 weights too (tests/test_torch_sharded.py
+    # runs both on spawned ranks): the pipeline takes them together
+    p = LlamaPipeline(LLAMA_TINY, device=CPU, mesh=object(), int8_weights=True)
+    assert p.int8_weights and p.mesh is not None
 
 
 def test_out_of_vocab_ids_raise_before_reaching_the_device():

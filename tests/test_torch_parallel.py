@@ -139,12 +139,16 @@ def test_make_mesh_errors_match_jax(n, dp, tp, sp, match):
 
 def test_make_mesh_needs_a_process_group_and_train_step_is_not_ported():
     """No group: the error names the launchers (JAX names XLA_FLAGS); the
-    port never makes a CPU mesh by itself."""
+    port never makes a CPU mesh by itself. The train step is ported: it
+    takes an executor planned under the mesh it is given (or none), and
+    refuses one planned otherwise, naming SessionConfig(mesh=...)."""
     assert not torch.distributed.is_initialized()
     with pytest.raises(RuntimeError, match="torchrun"):
         sharding.make_mesh(2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sharding.make_train_step(None, "out", None)
+    text, weights = tiny_unet(2)
+    s = _session_planned(text, weights, None, use_flash_attention=False)
+    with pytest.raises(ValueError, match=re.escape("SessionConfig(mesh=mesh)")):
+        sharding.make_train_step(s._executor(), "out_sample", _rank_mesh(dp=1, tp=2))
 
 
 def _planned_llama(L: int, P: int, coordinate: int):
@@ -254,22 +258,98 @@ def _session_planned(text, weights, mesh, **config):
     return s
 
 
-REFUSED = [dict(hbm_budget_bytes=1 << 20), dict(force_uint8_storage_set={"conv_in.weight_nchw.bin"}),
-           dict(use_uint8_arithmetic=True), dict(use_uint8_qdq=True), dict(range_data_calibrate=True),
-           dict(hbm_budget_bytes=1 << 20, pp_devices=[CPU, CPU])]
+REFUSED = [dict(hbm_budget_bytes=1 << 20), dict(use_uint8_arithmetic=True), dict(use_uint8_qdq=True),
+           dict(range_data_calibrate=True), dict(hbm_budget_bytes=1 << 20, pp_devices=[CPU, CPU])]
 
 
 @pytest.mark.parametrize("options", REFUSED, ids=lambda o: "+".join(o))
 def test_mesh_refuses_streaming_stages_and_quantized_storage(options):
+    """A budget, pipeline stages and the calibrated W8A8 options are
+    refused under a mesh, naming the work left (weights quantized at fetch
+    are taken: ``test_mesh_takes_weights_quantized_at_fetch``)."""
     text, weights = tiny_unet(2)
     s = _session_planned(text, weights, _rank_mesh(dp=1, tp=2), **options)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 11"):
+    with pytest.raises(NotImplementedError, match="calibrated W8A8 under a mesh"):
         s.run()
 
 
 def test_llm_int8_weights_with_a_mesh_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 11"):
-        LlamaPipeline(LLAMA_TINY, int8_weights=True, mesh=_rank_mesh(dp=1, tp=2), device=CPU)
+    """They no longer raise: under tp = 2 every int8 MatMul weight of the
+    LLAMA_TINY prefill takes Shard(1) on its file layout's N, uploads
+    K-major as this rank's (N / 2, K) slice of the whole (K, N), and the
+    quantized MatMul's activation stays whole on K, so kernel 6 quantizes
+    its rows over the whole K."""
+    mesh = _rank_mesh(coordinate=(0, 1), dp=1, tp=2)
+    pipe = LlamaPipeline(LLAMA_TINY, buckets=[8, 16, 32], int8_weights=True, mesh=mesh, device=CPU)
+    s = pipe._session(8, 0)
+    s.add_tensor("input_5F_ids", np.zeros((1, 8), np.int64))
+    s.add_tensor("position_5F_ids", np.zeros((1, 8), np.int64))
+    s.add_tensor("last_5F_pos", np.zeros(1, np.int64))
+    ex = s._executor()
+    routes = ex.quant_routes
+    assert routes and set(routes.values()) == {"w8a8_dyn_matmul"}
+    sharded = 0
+    for op in ex.graph.ops:
+        if op.name not in routes:
+            continue
+        w = ex._arg_by_name[op.inputs[1].name]
+        k, n = w.file_shape
+        assert w.transform == "tnk" and w.upload_dtype == torch.int8
+        assert ex.mesh_info.placements.get(op.inputs[0].name, {}).get(len(op.inputs[0].shape) - 1) is None
+        if w.shard:
+            assert ex.mesh_info.weight_placements[w.name] == {1: "tp"}
+            assert w.shard == ((1, n // 2, n),) and w.shape == (n // 2, k)
+            sharded += 1
+        else:
+            assert w.shape == (n, k)
+    assert sharded >= 4 * LLAMA_TINY.layers
+
+
+def test_mesh_takes_weights_quantized_at_fetch():
+    """force_uint8_storage_set under tp = 2: a rank's quantized weights are
+    the slices of the one-device ones, bit for bit, with their scale and
+    zero vectors: symmetric s8 and per-channel u8 2-D weights on their
+    columns (quantized as slices), a per-tensor u8 4-D conv kernel on its
+    output channels (quantized whole, then sliced), each weight quantized
+    once."""
+    from onnxstream_tpu_torch import SessionConfig
+    from onnxstream_tpu_torch.dtypes import DType
+    from onnxstream_tpu_torch.runtime.executor import Executor
+    from onnxstream_tpu_torch.runtime.planner import WeightArg
+    from onnxstream_tpu_torch.runtime.weights import DictWeightsProvider
+
+    rng = np.random.RandomState(5)
+    arrays = {"mm": rng.randn(96, 64).astype(np.float32), "conv": rng.randn(32, 8, 3, 3).astype(np.float32)}
+    forms = [("mm", "s8", dict(int8_symmetric_storage=True)), ("mm", "u8c", dict(uint8_per_channel=True)),
+             ("conv", "u8", {})]
+    for name, form, cfg in forms:
+        whole_shape = arrays[name].shape
+        axis = 1 if name == "mm" else 0
+        n = whole_shape[axis]
+
+        def quantized(shard):
+            ex = Executor.__new__(Executor)
+            ex.config = SessionConfig(device=CPU, force_uint8_storage_set={name}, **cfg)
+            ex.device, ex.quantize_seconds, ex.host_conversions = CPU, 0.0, 0
+            ex.provider = DictWeightsProvider({name: torch.from_numpy(arrays[name])})
+            symmetric = form == "s8"
+            local = tuple(n // 2 if a == axis and shard else d for a, d in enumerate(whole_shape))
+            w = WeightArg(name, DType.float32, torch.int8 if symmetric else torch.uint8, local, quant=(0.0, 0),
+                          symmetric=symmetric, file_shape=whole_shape if shard else None, shard=shard)
+            return ex._host_weight(w), w.quant
+
+        q0, (s0, z0) = quantized(None)
+        for r in range(2):
+            q, (scale, zero) = quantized(((axis, r * n // 2, (r + 1) * n // 2),))
+            block = slice(r * n // 2, (r + 1) * n // 2)
+            want = q0[:, block] if axis == 1 else q0[block]
+            assert torch.equal(q, want), (name, form, r)
+            if form == "u8":
+                assert (scale, zero) == (s0, z0)
+            else:
+                assert torch.equal(scale, s0[block]), (name, form, r)
+                if form == "u8c":
+                    assert torch.equal(zero, z0[block]), (name, form, r)
 
 
 def test_one_rank_mesh_is_the_unsharded_run():

@@ -16,13 +16,21 @@ suite), and run every case of ``parallel.dryrun.rank_cases``:
     (``make_mesh(8, dp=2, tp=4)``: 2 kv heads do not divide, the cache is
     replicated); ``make_mesh``'s default and its errors;
   * two ranks: LLAMA_TINY at ``make_mesh(2, dp=1, tp=2)``, the cache sharded
-    on its heads.
+    on its heads, in float32, bf16, on synthesized weights and with
+    ``int8_weights``; the TINY UNet with ``force_uint8_storage_set`` at tp =
+    2; the chain rule through a gather and a local slice
+    (``dryrun.collective_grad_case``), and with the gather's backward broken;
+  * the train step (``sharding.make_train_step``, one AdamW step of the TINY
+    UNet) under ``make_mesh(8, dp=2)`` and ``make_mesh(8, dp=2, tp=2,
+    sp=2)`` on the eight ranks.
 
 While they run, this process makes the references: the port's one-device
 runs and the JAX package's sharded runs on the conftest's eight virtual
-devices. Bars: the JAX suite's, rtol 2e-4 / atol 1e-5 on the UNet output,
-2e-4 on logits, tokens equal. The pipeline stages (``pp_devices``, one
-process) run here over [cpu] * 4.
+devices (JAX's ``make_train_step`` on the same meshes). Bars: the JAX
+suite's, rtol 2e-4 / atol 1e-5 on the UNet output, 2e-4 on logits, tokens
+equal; the train step's loss within rtol 1e-6 of JAX's, each gradient within
+5e-4 * max|g| of its tensor, NaN on the same 21 Pow exponents. The pipeline
+stages (``pp_devices``, one process) run here over [cpu] * 4.
 """
 
 import dataclasses
@@ -38,16 +46,20 @@ from onnxstream_tpu_torch.models.llm.llama import LlamaConfig
 from onnxstream_tpu.models.llm.pipeline import LlamaPipeline as JaxPipeline
 from onnxstream_tpu.models.sd.unet import TINY as JAX_TINY
 from onnxstream_tpu.models.sd.unet import build_unet as jax_build_unet
+from onnxstream_tpu.parallel.sharding import activation_sharding as jax_activation_sharding
 from onnxstream_tpu.parallel.sharding import make_mesh as jax_make_mesh
+from onnxstream_tpu.parallel.sharding import make_train_step as jax_make_train_step
 from onnxstream_tpu.runtime.config import SessionConfig as JaxConfig
 from onnxstream_tpu.runtime.session import Session as JaxSession
 from onnxstream_tpu.runtime.weights import DictWeightsProvider as JaxDict
 from onnxstream_tpu_torch import Session, SessionConfig
-from onnxstream_tpu_torch.parallel.dryrun import LLM_BUCKETS, LLM_PROMPT, llm_single, rank_cases, run_session
+from onnxstream_tpu_torch.parallel.dryrun import (LLM_BUCKETS, LLM_PROMPT, collective_grad_operands, llm_single,
+                                                  rank_cases, run_session)
 from onnxstream_tpu_torch.parallel.launch import spawn
 from onnxstream_tpu_torch.runtime.weights import DictWeightsProvider, params_from_numpy
 from test_torch_ops_card import OP_CASES
 from test_torch_parallel import SDPA_SP_CASES
+from test_torch_train import POW_EXPONENTS, assert_updated_weights_close
 
 CPU = torch.device("cpu")
 GROUP_TIMEOUT_S = 120
@@ -71,15 +83,47 @@ def _jax_unet(g, inputs, mesh=None):
     return np.asarray(s.run()["out_sample"], np.float32)
 
 
-def _jax_llm(tp):
+def _jax_llm(tp, int8_weights=False):
     """The JAX pipeline's prefill, five decode steps and on-device decode."""
     mesh = jax_make_mesh(n_devices=tp, dp=1, tp=tp) if tp > 1 else None
-    pipe = JaxPipeline(JAX_LLAMA_TINY, buckets=list(LLM_BUCKETS), mesh=mesh)
+    pipe = JaxPipeline(JAX_LLAMA_TINY, buckets=list(LLM_BUCKETS), mesh=mesh, int8_weights=int8_weights)
     steps = [pipe.forward(list(LLM_PROMPT))]
     for _ in range(5):
         steps.append(pipe.forward([steps[-1][0]]))
     pipe.reset()
     return {"steps": steps, "generated": pipe.generate_on_device(list(LLM_PROMPT), max_new_tokens=6)}
+
+
+def _jax_train(g, inputs, mesh):
+    """One step of JAX's make_train_step (zero target): the loss, and per
+    weight the updated value and optax's first and second moments."""
+    s = JaxSession(config=JaxConfig(compute_dtype="float32"), weights_provider=JaxDict(g.weights))
+    s.read_string(g.to_text())
+    for k, v in inputs.items():
+        s.add_tensor(k, v)
+    ex = s._executor()
+    step, init, _ = jax_make_train_step(ex, "out_sample", mesh)
+    shape = (inputs["sample"].shape[0], 4, 16, 16)
+    import jax
+
+    with mesh:
+        weights, state = init([np.asarray(ex.provider.get(w.name, w.file_dtype, w.shape))
+                               for w in ex.plan.arg_weights])
+        acts = {k: jax.device_put(np.asarray(v), jax_activation_sharding(mesh, np.shape(v)))
+                for k, v in inputs.items()}
+        target = jax.device_put(np.zeros(shape, np.float32), jax_activation_sharding(mesh, shape))
+        weights, state, loss = step(weights, state, acts, target)
+    names = [w.name for w in ex.plan.arg_weights]
+    adam = state[0]
+    return {"loss": float(loss), "names": names, "weights": dict(zip(names, map(np.asarray, weights))),
+            "mu": dict(zip(names, map(np.asarray, adam.mu))), "nu": dict(zip(names, map(np.asarray, adam.nu)))}
+
+
+def _u8_set(weights):
+    """The TINY UNet's weights that force_uint8_storage_set quantizes at
+    fetch: every 2-D one (per-channel u8, kernel 5's route) and every conv
+    kernel (per tensor, dequantized on read)."""
+    return {n for n, v in weights.items() if np.ndim(v) in (2, 4)}
 
 
 @pytest.fixture(scope="module")
@@ -97,8 +141,17 @@ def runs():
               ("synth", "unet", dict(text=text1, weights=w1, inputs=_inputs(1), mesh=dict(dp=1, tp=8),
                                      return_weights=True, **SYNTH)),
               ("llm_tp4", "llm", dict(mesh=dict(dp=2, tp=4))),
+              ("train_dp2", "train", dict(text=text2, weights=w2, inputs=_inputs(2), mesh=dict(dp=2))),
+              ("train_sp", "train", dict(text=text_sp, weights=w_sp, inputs=_inputs(2, 16),
+                                         mesh=dict(dp=2, tp=2, sp=2))),
               ("mesh", "mesh", {})]
+    u8 = dict(force_uint8_storage_set=_u8_set(w1), uint8_per_channel=True)
     cases2 = [("llm_tp2", "llm", dict(mesh=dict(dp=1, tp=2))),
+              ("llm_tp2_int8", "llm", dict(mesh=dict(dp=1, tp=2), int8_weights=True)),
+              ("unet_u8", "unet", dict(text=text1, weights=w1, inputs=_inputs(1), mesh=dict(dp=1, tp=2),
+                                       return_weights=True, **u8)),
+              ("grad", "collective_grad", {}),
+              ("grad_broken", "collective_grad", dict(broken=True)),
               ("llm_tp2_bf16", "llm", dict(mesh=dict(dp=1, tp=2), compute_dtype="bfloat16")),
               ("llm_tp2_synth", "llm", dict(mesh=dict(dp=1, tp=2), cfg=SYNTH_LLAMA, synthetic_on_device=True)),
               ("ops_dp2", "graphs", dict(graphs=[(k, text, weights, inputs)
@@ -114,7 +167,11 @@ def runs():
                "jax_sp": _jax_unet(g2sp, _inputs(2, 16), jax_make_mesh(8, dp=2, tp=2, sp=2)),
                "port_synth": run_session(text1, w1, _inputs(1), CPU, **SYNTH),
                "port_llm": llm_single(CPU), "jax_llm_tp2": _jax_llm(2), "jax_llm_tp4": _jax_llm(4),
-               "port_llm_synth": llm_single(CPU, cfg=SYNTH_LLAMA, synthetic_on_device=True)}
+               "port_llm_synth": llm_single(CPU, cfg=SYNTH_LLAMA, synthetic_on_device=True),
+               "port_llm_int8": llm_single(CPU, int8_weights=True), "jax_llm_int8": _jax_llm(1, int8_weights=True),
+               "port_unet_u8": run_session(text1, w1, _inputs(1), CPU, **u8),
+               "jax_train_dp2": _jax_train(g2, _inputs(2), jax_make_mesh(8, dp=2)),
+               "jax_train_sp": _jax_train(g2sp, _inputs(2, 16), jax_make_mesh(8, dp=2, tp=2, sp=2))}
         return {"ref": ref, 8: f8.result(), 2: f2.result()}
 
 
@@ -213,6 +270,118 @@ def test_tp2_llm_on_synthesized_weights_matches_one_device(runs):
     by its index in that graph's plan: other weights."""
     for r in runs[2]:
         _check_llm(r["llm_tp2_synth"], runs["ref"]["port_llm_synth"], "synthesized, tp=2")
+
+
+def test_tp2_int8_llm_matches_one_device_int8(runs):
+    """int8_weights under make_mesh(2, dp=1, tp=2): each rank quantizes its
+    column slices of the MatMul weights as one device would and kernel 6
+    runs at the local N (its activation rows quantized over the whole K):
+    the logits within 2e-4 and the tokens of the one-device int8 pipeline,
+    through prefill, decode and generate_on_device, whose tokens are JAX's
+    one-device int8 pipeline's."""
+    ref = runs["ref"]
+    _check_llm(ref["port_llm_int8"], ref["jax_llm_int8"], "port vs jax, one device int8")
+    for r in runs[2]:
+        got = r["llm_tp2_int8"]
+        assert got["kv_shape"] == (1, 1, 8, 16)
+        _check_llm(got, ref["port_llm_int8"], "int8, tp=2")
+        assert got["weight_bytes"] < ref["port_llm_int8"]["weight_bytes"]
+
+
+def test_tp2_unet_with_weights_quantized_at_fetch_matches_one_device(runs):
+    """force_uint8_storage_set under tp = 2 (per-channel u8 2-D weights, per
+    tensor u8 conv kernels): the output is the one-device run's, and each
+    rank's quantized weights, scales and zero points are the slices of the
+    one device's, bit for bit."""
+    y0, s0 = runs["ref"]["port_unet_u8"]
+    ex0 = s0._executor()
+    whole = {name: t.float().numpy() for name, t in ex0._fetch_segment_weights(ex0.segments[0]).items()}
+    quant0 = {w.name: tuple(v.numpy() if isinstance(v, torch.Tensor) else v for v in w.quant)
+              for w in ex0.plan.arg_weights if w.quant is not None}
+    assert len(quant0) > 20
+    for r in runs[2]:
+        case = r["unet_u8"]
+        np.testing.assert_allclose(case["out"], y0, rtol=2e-4, atol=1e-5)
+        sliced = 0
+        for name, local in case["weights"].items():
+            shard = case["weight_shards"][name]
+            np.testing.assert_array_equal(local, _take(whole[name], shard), err_msg=name)
+            if name not in quant0:
+                continue
+            cols = [(a, b) for axis, a, b in shard or () if axis == np.ndim(whole[name]) - 1]
+            for got, want in zip(case["quant"][name], quant0[name]):
+                if isinstance(want, np.ndarray) and cols:
+                    want = want[cols[0][0]:cols[0][1]]
+                np.testing.assert_array_equal(got, want, err_msg=name)
+            sliced += shard is not None
+        assert sliced > 10, "few quantized weights ended up sliced"
+
+
+def _take(a, shard):
+    for axis, start, stop in shard or ():
+        a = np.take(a, np.arange(start, stop), axis=axis)
+    return a
+
+
+@pytest.mark.parametrize("case", ["dp2", "sp"])
+def test_train_step_matches_jax(runs, case):
+    """One AdamW step under make_mesh(8, dp=2) (tp = 4) and make_mesh(8,
+    dp=2, tp=2, sp=2) against JAX's make_train_step on the same mesh: the
+    loss; the gradients themselves, each rank's slice against the slice of
+    JAX's (read from optax's first moment, (1 - b1) g after one step: an
+    update alone would not show a gradient tp times too large, Adam's first
+    step being lr g / (|g| + eps)); the updated weights; each rank's AdamW
+    exp_avg / exp_avg_sq against the slice of optax's mu / nu. The step went
+    through the gathers' backward and the replicated weights' reduction."""
+    want = runs["ref"][f"jax_train_{case}"]
+    for rank, r in enumerate(runs[8]):
+        got = r[f"train_{case}"]
+        assert got["mesh"] == ({"dp": 2, "tp": 4} if case == "dp2" else {"dp": 2, "tp": 2, "sp": 2})
+        np.testing.assert_allclose(got["loss"], want["loss"], rtol=1e-6, err_msg=f"rank {rank}")
+        assert sorted(got["names"]) == sorted(want["names"])
+        nan = set()
+        for name in got["names"]:
+            shard = got["weight_shards"][name]
+            mu, nu = want["mu"][name], want["nu"][name]
+            for label, g, w, bar in (("grad", got["grads"][name], mu / 0.1, 5e-4),
+                                     ("exp_avg", got["exp_avg"][name], mu, 5e-4),
+                                     ("exp_avg_sq", got["exp_avg_sq"][name], nu, 1e-3)):
+                scale = np.nanmax(np.abs(w)) if not np.isnan(w).all() else 0.0
+                w = _take(w, shard)
+                np.testing.assert_array_equal(np.isnan(g), np.isnan(w), err_msg=f"{name} {label} rank {rank}")
+                np.testing.assert_allclose(np.nan_to_num(g), np.nan_to_num(w), rtol=0, atol=bar * scale,
+                                           err_msg=f"{name} {label} rank {rank}")
+            if np.isnan(mu).any():
+                nan.add(name)
+            assert_updated_weights_close(name, got["weights"][name], _take(want["weights"][name], shard),
+                                         _take(mu / 0.1, shard))
+        assert len(nan) == POW_EXPONENTS
+        assert got["tp_sharded"] > 0
+        assert got["comm"]["tp.reduce_scatter"]["calls"] > 0 and got["comm"]["tp.all_reduce"]["calls"] > 0
+        assert got["comm"]["dp.all_reduce"]["calls"] > 0
+        if case == "sp":
+            assert got["comm"]["sp.reduce_scatter"]["calls"] > 0
+
+
+def test_gradients_through_a_gather_and_a_local_slice(runs):
+    """dryrun.collective_grad_case on two ranks: with the gather's backward
+    a reduce-scatter, each rank's gradient of its column slice of W and the
+    summed gradient of the replicated V (used whole and through its column
+    slice) are the one-device gradients; with a plain slice as the gather's
+    backward they are not."""
+    x, W, V = collective_grad_operands()
+    W.requires_grad_(True)
+    V.requires_grad_(True)
+    y = x @ W
+    ((y @ V).square().sum() + (y @ V).sum()).backward()
+    for r, res in enumerate(runs[2]):
+        cols = W.shape[1] // 2
+        np.testing.assert_allclose(res["grad"]["grad_w"], W.grad[:, r * cols:(r + 1) * cols].numpy(), rtol=1e-5,
+                                   atol=1e-5, err_msg=f"rank {r}")
+        np.testing.assert_allclose(res["grad"]["grad_v"], V.grad.numpy(), rtol=1e-5, atol=1e-5, err_msg=f"rank {r}")
+    broken = [res["grad_broken"] for res in runs[2]]
+    assert not all(np.allclose(b["grad_w"], W.grad[:, r * 3:(r + 1) * 3].numpy(), rtol=1e-3)
+                   for r, b in enumerate(broken))
 
 
 def test_gathers_move_the_compute_dtype(runs):

@@ -9,6 +9,7 @@ executor's ``_synth_kind`` on the same planned weights.
 """
 
 import dataclasses
+import math
 
 import numpy as np
 import pytest
@@ -280,3 +281,31 @@ def test_llama_synthetic_on_device_answers(cfg_name, int8, dtype):
     assert len(big) == (0 if cfg_name == "LLAMA_TINY" else 8)
     routes = {r for s in p._sessions.values() for ex in s._executors.values() for r in ex.quant_routes.values()}
     assert routes == ({"w8a8_dyn_matmul"} if int8 else set())
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bfloat16", "int8_weights"])
+def test_small_synthesized_weights_are_the_same_in_every_bucket_graph(int8):
+    """A synthesized weight under the shared cache's 1 MiB is made by each
+    bucket graph itself: seeded by its name, the prefill (8, 0) and decode
+    (1, 8) graphs of one LlamaPipeline make the same one (an s8 weight with
+    the same scale), as every rank does under a mesh."""
+    from onnxstream_tpu_torch.models.llm.llama import LLAMA_TINY
+    from onnxstream_tpu_torch.models.llm.pipeline import LlamaPipeline
+    from onnxstream_tpu_torch.runtime.executor import SHARED_CACHE_MIN_BYTES
+
+    cfg = dataclasses.replace(LLAMA_TINY, vocab_size=503, dim=512, layers=2, heads=8, kv_heads=4, intermediate=1024,
+                              max_pos=64)
+    p = LlamaPipeline(cfg, buckets=[8, 16, 32], device=CPU, synthetic_on_device=True, int8_weights=int8,
+                      compute_dtype="bfloat16")
+    tok, _ = p.forward([1, 5, 7, 9])
+    p.forward([tok])
+    prefill, decode = (next(iter(p._sessions[k]._executors.values())) for k in ((8, 0), (1, 8)))
+    small = [w for w in prefill.plan.arg_weights if synth_kind(w, prefill.config) is not None
+             and math.prod(w.file_shape or w.shape) * w.upload_dtype.itemsize < SHARED_CACHE_MIN_BYTES]
+    assert len(small) >= 2 * cfg.layers
+    for w in small:
+        a, qa, _ = prefill._resident[w.name]
+        b, qb, _ = decode._resident[w.name]
+        assert torch.equal(a, b), w.name
+        if int8:
+            assert torch.equal(qa[0], qb[0]) and qa[1] == qb[1], w.name
