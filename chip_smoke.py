@@ -80,7 +80,8 @@ Phases (any failure exits non-zero and prints no result line):
      launches) and under config A, each image within one level on average of
      the default decode (config A's float output also within 5e-2 *
      max|out|); device busy and wall time of a UNet run (also under
-     fuse_groupnorm alone) and a decode under every config, in turns; one
+     fuse_groupnorm alone) and a decode under every config, one after the
+     other (in turns, twice each, until PR 17); one
      run's kernel calls replayed against the twins and the library calls
      (gn_silu_conv over a config-A UNet run's 45 and a config-A decode's 29
      calls, also beside its mma.sync variant), and matmul and gn_silu_conv
@@ -238,7 +239,7 @@ Phases (any failure exits non-zero and prints no result line):
      within 5e-2 * max of config A's NCHW run; per run the graph's
      ostpu.groupnorm / ostpu.reshape / Transpose counts, device busy and
      wall, and the launches and ms of cuDNN's layout-conversion kernels
-     (names holding nchwToNhwc / nhwcToNchw), NCHW and channel-last in turns;
+     (names holding nchwToNhwc / nhwcToNchw), NCHW then channel-last;
      sd15_nhwc counts kernel 1 in the channel-last runs only (10 a UNet run,
      1 a decode);
  15. flash_packed_nopad (phase_nopad): the SD15 UNet in bf16, three
@@ -249,7 +250,7 @@ Phases (any failure exits non-zero and prints no result line):
      16 level's shape, which the size predicate keeps off the path) against
      its twin; per shape kernel 2, the whole route (its output copy
      included), kernel 1, SDPA, the twin and the bound; a run's busy and wall
-     beside the default's, in turns; kernel 1's sd15_nopad is the sum of its
+     beside the default's; kernel 1's sd15_nopad is the sum of its
      launches in those runs (0);
  16. force_fp16_storage (phase_fp16_storage): the SD15 UNet in float32
      compute with float16-resident weights, three requests, 10 kernel-1
@@ -258,7 +259,7 @@ Phases (any failure exits non-zero and prints no result line):
      (hbm_accounting and the allocator) 0.45-0.55 of that run's; peaks within
      the bound + PEAK_SLACK; the same streamed at 512 MiB (segments, bytes,
      peak, 10 kernel-1 launches, request 0's output within 1e-4 * max|out|
-     of both resident runs' request 0); busy and wall of both in turns;
+     of both resident runs' request 0); busy and wall of each;
      sd15_fp16_storage counts kernel 1 in the float16-storage runs only;
  17. the converter (phase_convert, before phase_streamed): tools/
      torch_sd_unet.py SDUNet(width=1.0) (seed 0, 860 M params) exported in
@@ -271,9 +272,9 @@ Phases (any failure exits non-zero and prints no result line):
      parallel.launch.spawn starts two gloo ranks on the one card (NCCL
      refuses two ranks on one device): TinyLlama 1.1B at full width under
      make_mesh(2, dp=1, tp=2) with its weights synthesized on the card, a
-     700-token prefill (bucket 1024) and 32 greedy tokens, in float32
+     700-token prefill (bucket 1024) and 8 greedy tokens, in float32
      (logits within 1e-4 * max|logits| of the one-rank pipeline on the same
-     seeds, the same 32 tokens) and bf16 (within 5e-2 * max, token agreement
+     seeds, the same 8 tokens) and bf16 (within 5e-2 * max, token agreement
      printed); in both, 8 decode steps fed the one-rank float32 run's tokens,
      each step's logits within the same bound of the one-rank run's (printed
      beside both runs' gap to the float32 model); kernel 2 launched 22 times
@@ -295,7 +296,7 @@ Phases (any failure exits non-zero and prints no result line):
      int8 (bf16, s8 slices synthesized on the card) at tp = 2 against the
      one-rank int8 run (prefill logits and 8 steps fed the one-rank tokens
      within 5e-2 * max, the same argmax at each), every kernel-2 and
-     kernel-6 call of the prefill and the 32 tokens held to its twin
+     kernel-6 call of the prefill and the 8 tokens held to its twin
      (kernel 6 bit for bit), decode ms a token a rank; the SD15 UNet with its
      linear weights quantized at fetch to per-channel uint8 (each rank its
      column slices) at tp = 2 against the one-rank run (5e-2 * max), every
@@ -316,6 +317,23 @@ Phases (any failure exits non-zero and prints no result line):
      of its tensor, NaN on the same Pow exponents, no kernel counter moved;
      per rank the step's busy and wall and peak MB; then
      dryrun_multichip(2, cuda:0, gloo) with its train-step line.
+ 22. the options a mesh once refused (phase_parallel's spawn, its one-rank
+     NCCL mesh, and phase_streamed_tp2 beside phase_streamed): the VAE_SD
+     decoder at full width (a 512 x 512 image) under make_mesh(2, dp=1,
+     tp=2): calibration in float32 (the same keys as one rank's, none with
+     "@", each end within 1e-5 of the range's width), the W8A8 decode in bf16
+     with the one-rank ranges (within 5e-2 * max of one rank's; kernel 4 35,
+     kernel 3's own 4 and kernel 1 1 launches a rank, every kernel-3 / 4
+     call bit for bit with its twin at the tp-local shapes, rank 0 replaying
+     them beside twin, bound and cuDNN / cuBLAS on the dequantized operands:
+     tp2_vae_w8a8), the same with use_uint8_qdq with the ranges and with none
+     (each within 5e-2 * max of one rank's: tp2_vae_qdq); the SD15 UNet at
+     batch 2 in bf16 from the folder's unet_fp16/ at tp = 2, streamed at 512
+     MiB a rank by the native prefetch, bit for bit with the resident tp = 2
+     run (segments, bytes crossed beside the rank's slices, the copy
+     stream's GB/s, peak against hbm_accounting(), wall and busy:
+     sd15_streamed_tp2); pp_devices [cuda:0] x 2 beside a one-rank NCCL mesh
+     bit for bit with the same stages without a mesh.
 
 Each path's launch counts are set to 0 just before it and read just after;
 launches made to compare a kernel with its twin come after the read. The
@@ -1755,7 +1773,7 @@ def phase_gn_routes(name: str, sd: dict) -> dict:
     finally:
         patched(False)
 
-    # device busy and wall time of a run under every config, in turns within this process
+    # device busy and wall time of a run under every config, one after the other within this process
     # (fuse_groupnorm alone joins here, after the read of the counts, held to the default like A and B)
     for label, cfg in (("default", {}), ("fuse_groupnorm", dict(fuse_groupnorm=True))):
         sessions[label] = _session(text, g.weights, "bfloat16", "cuda:0", **cfg)
@@ -1768,10 +1786,10 @@ def phase_gn_routes(name: str, sd: dict) -> dict:
           f"(bound 5e-2); fused graph {len(sessions['fuse_groupnorm'].graph.ops)} ops")
     if not diff <= 5e-2 * top:
         raise SystemExit("config fuse_groupnorm: far from the default config's output")
-    for label in ("default", "fuse_groupnorm", "A", "B", "B", "A", "fuse_groupnorm", "default"):
+    for label in ("default", "fuse_groupnorm", "A", "B"):
         times.setdefault(label, []).append(
             busy_and_wall(sessions[label].run, f"SD15 UNet run, config {label}", name, steps=5))
-    for label in ("default", "fuse_groupnorm", "A", "A", "fuse_groupnorm", "default"):
+    for label in ("default", "fuse_groupnorm", "A"):
         step = lambda s=sessions[f"vae_{label}"]: s.run(device_outputs=True)
         times.setdefault(f"vae_{label}", []).append(busy_and_wall(step, f"VAE_SD decode, config {label}", name))
     # kernel 8's passes (moments, the channels-last slab, the product, the split's sum) in a config-A UNet
@@ -3628,6 +3646,7 @@ def write_sd15_folder(root: str) -> str:
         b.save(os.path.join(root, sub), float16=half)
         if sub == "unet_fp16":
             print(f"unet_fp16: {param_count(b) / 1e6:.1f} M params")
+            write_batch2_graph(os.path.join(root, sub))
         del b
         gc.collect()
     os.makedirs(os.path.join(root, "tokenizer"))
@@ -3639,6 +3658,39 @@ def write_sd15_folder(root: str) -> str:
     print(f"SD1.5 folder written in {time.perf_counter() - t0:.1f} s: {size / 1e9:.3f} GB, unet_fp16 "
           f"{unet / 1e9:.3f} GB -> {root}")
     return os.path.join(root, "unet_fp16", "model.txt")
+
+
+def write_batch2_graph(folder: str) -> str:
+    """model_batch2.txt beside a unet_fp16/ model.txt: the SD15 UNet's graph
+    at batch 2 (the CFG pair) over the same float16 .bin files, declared as
+    GraphBuilder.save declares them; the host constants whose values the
+    batch changes (shape vectors) written under batch2/."""
+    from onnxstream_tpu_torch.dtypes import DType
+    from onnxstream_tpu_torch.ir import Graph
+    from onnxstream_tpu_torch.models.sd.unet import SD15, build_unet
+    from onnxstream_tpu_torch.runtime.weights import is_lazy
+
+    one = build_unet(SD15, batch=1, seed=0, lazy_weights=True)
+    two = build_unet(SD15, batch=2, seed=0, lazy_weights=True)
+    own = {}
+    for name, arr in two.weights.items():
+        if is_lazy(arr) or np.array_equal(np.asarray(arr), np.asarray(one.weights[name])):
+            continue
+        own[name] = "batch2/" + name
+        a = np.asarray(arr)
+        path = os.path.join(folder, own[name])
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        (a.astype(np.float16) if a.dtype == np.float32 else a).tofile(path)
+
+    def spec(t):
+        t = dataclasses.replace(t, name=own[t.name]) if t.is_weight and t.name in own else t
+        return dataclasses.replace(t, dtype=DType.float16) if t.dtype == DType.float32 else t
+
+    graph = Graph(ops=[dataclasses.replace(op, inputs=[spec(t) for t in op.inputs]) for op in two.graph().ops])
+    path = os.path.join(folder, "model_batch2.txt")
+    with open(path, "w") as f:
+        f.write(graph.to_text())
+    return path
 
 
 def _merged(intervals) -> list:
@@ -3655,19 +3707,23 @@ def _overlap(a: float, b: float, merged) -> float:
     return sum(max(0.0, min(b, y) - max(a, x)) for x, y in merged if y > a and x < b)
 
 
-def copy_overlap(run, label: str, name: str) -> dict:
+def copy_overlap(run, label: str, name: str, attempts: int = 3, agree=None):
     """One warm call of run under torch.profiler (CPU and CUDA); from the
     exported trace: the kernels by stream, the host-to-device copies by
     stream, how much of the copies off the compute stream (the one most
     kernels ran on) lies under a kernel, the device busy time (the union of
-    kernels and copies) and the idle share of the host wall time."""
+    kernels and copies) and the idle share of the host wall time. A trace
+    without kernel events is taken again, up to ``attempts`` calls, and
+    none in ``attempts`` fails. On ranks, ``agree(ok)`` is True when every
+    rank's trace held kernel events (``_every_rank``): a rank profiles again
+    when any rank must, so that all make the same calls."""
     import tempfile
     from collections import Counter
 
     from torch.profiler import ProfilerActivity, profile
 
     path = os.path.join(tempfile.gettempdir(), f"ostt_trace_{os.getpid()}.json")
-    for _ in range(3):
+    for _ in range(attempts):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -3679,11 +3735,11 @@ def copy_overlap(run, label: str, name: str) -> dict:
             events = json.load(f)["traceEvents"]
         os.remove(path)
         kern = [e for e in events if e.get("cat") == "kernel"]
-        if kern:
+        if (agree(bool(kern)) if agree is not None else kern):
             break
-        print("copy_overlap: the trace holds no kernel events; profiling again")
+        print(f"copy_overlap: a trace of {label} holds no kernel events; profiling again")
     else:
-        raise SystemExit(f"{label}: three profiles without device events")
+        raise SystemExit(f"{label}: {attempts} profiles without device events")
     h2d = [e for e in events if e.get("cat") == "gpu_memcpy" and "HtoD" in e.get("name", "")]
     compute = Counter(e["args"].get("stream") for e in kern).most_common(1)[0][0]
     kmerged = _merged((e["ts"], e["ts"] + e["dur"]) for e in kern)
@@ -4085,18 +4141,17 @@ def phase_layout(name: str, sd: dict) -> dict:
         "gn_silu_conv": replay_times("gn_silu_conv over one channel-last config-A run (bf16)",
                                      recorded["gn_silu_conv"], gn_silu_conv, gn_silu_conv_reference,
                                      _gn_conv_library, "bf16", name, cost=_gn_conv_cost)}
-    # device busy, wall and cuDNN's conversions per run, in turns (after the read of the counts)
-    for label in ("nchw", "nhwc", "nhwc", "nchw"):
+    # device busy, wall and cuDNN's conversions per run, one after the other (after the read of the counts)
+    for label in ("nchw", "nhwc"):
         bw = busy_and_wall(sess[label].run, f"SD15 UNet run, {label}", name, steps=5)
         prof = _layout_profile(sess[label].run, f"SD15 UNet run, {label}", name)
         out["unet"].setdefault(label, []).append({**bw, **prof})
-    for label in ("nchw", "nhwc", "nhwc", "nchw"):
+    for label in ("nchw", "nhwc"):
         step = lambda s=vsess[label]: s.run(device_outputs=True)
         bw = busy_and_wall(step, f"VAE_SD decode, {label}", name)
         prof = _layout_profile(step, f"VAE_SD decode, {label}", name)
         out["vae"].setdefault(label, []).append({**bw, **prof})
-    for label, s in (("nchw_config_a", a_nchw), ("nhwc_config_a", a_nhwc), ("nhwc_config_a", a_nhwc),
-                     ("nchw_config_a", a_nchw)):
+    for label, s in (("nchw_config_a", a_nchw), ("nhwc_config_a", a_nhwc)):
         bw = busy_and_wall(s.run, f"SD15 UNet run, {label}", name, steps=5)
         out["unet"].setdefault(label, []).append({**bw, **_layout_profile(s.run, f"SD15 UNet run, {label}", name)})
     return out
@@ -4216,7 +4271,7 @@ def phase_nopad(name: str, sd: dict) -> dict:
     for k, v in reqs[0].items():
         default.add_tensor(k, v)
     out["unet"] = {}
-    for label, sess in (("default", default), ("nopad", s), ("nopad", s), ("default", default)):
+    for label, sess in (("default", default), ("nopad", s)):
         out["unet"].setdefault(label, []).append(busy_and_wall(sess.run, f"SD15 UNet run, {label}", name, steps=5))
     return out
 
@@ -4334,8 +4389,7 @@ def phase_fp16_storage(name: str, sd: dict) -> dict:
         s16.add_tensor(k, v)
         s32.add_tensor(k, v)
     out["times"] = {}
-    for label, sess in (("float32_rounded", s32), ("fp16_storage", s16), ("fp16_storage", s16),
-                        ("float32_rounded", s32), ("fp16_storage_streamed", st)):
+    for label, sess in (("float32_rounded", s32), ("fp16_storage", s16), ("fp16_storage_streamed", st)):
         out["times"].setdefault(label, []).append(busy_and_wall(sess.run, f"SD15 UNet run float32, {label}", name))
     return out
 
@@ -4459,7 +4513,9 @@ def phase_convert(name: str) -> dict:
 
 
 # --------------------------------------------------------------- phase_parallel
-PARALLEL_TOKENS = 32  # greedy tokens after the TinyLlama prefill
+# greedy tokens after the TinyLlama prefill on the two ranks (few: every
+# token a rank crosses host memory 132 times, and the script has a time limit)
+PARALLEL_TOKENS = 8
 PARALLEL_FORCED = 8  # decode steps fed the one-rank float32 run's tokens, logits compared step by step
 
 
@@ -4529,6 +4585,15 @@ def _on_rank0(rank, fn):
     out = fn() if rank == 0 else None
     dist.barrier()
     return out
+
+
+def _every_rank(ok: bool) -> bool:
+    """True on every rank when ok is True on every rank."""
+    import torch.distributed as dist
+
+    flag = torch.tensor([int(ok)])
+    dist.all_reduce(flag, op=dist.ReduceOp.MIN)
+    return bool(flag.item())
 
 
 def _dequantized_matmul(a, w, sw, zw, out_dtype=None):
@@ -4727,8 +4792,27 @@ def _rank_nccl(rank, device) -> dict:
     plain = _unet_run(_sd15_batch2_session(device), inputs)
     torch.cuda.empty_cache()
     meshed = _unet_run(_sd15_batch2_session(device, mesh=mesh), inputs)
+    torch.cuda.empty_cache()
+    pp = _pp_mesh(rank, device, inputs)
     return {"gather_identity": bool(torch.equal(gathered, x)), "backend": torch.distributed.get_backend(),
-            "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)), "bit_equal": bool(np.array_equal(plain, meshed))}
+            "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)), "bit_equal": bool(np.array_equal(plain, meshed)),
+            "pp_mesh": pp}
+
+
+def _pp_mesh(rank, device, inputs) -> dict:
+    """pp_devices [cuda:0] x 2 at 512 MiB beside the one-rank mesh
+    (``dryrun.pp_mesh_case``): the SD15 UNet at batch 2 with and without the
+    mesh, bit for bit, the sharding pass not run."""
+    from onnxstream_tpu_torch.models.sd.unet import SD15, build_unet
+    from onnxstream_tpu_torch.parallel.dryrun import pp_mesh_case
+
+    g = build_unet(SD15, batch=2, seed=0, lazy_weights=True)
+    t0 = time.perf_counter()
+    got = pp_mesh_case(rank, device, g.to_text(), g.weights, inputs, dict(dp=1, tp=1), 512 << 20,
+                       2, compute_dtype="bfloat16", fuse_attention_heads=True, synthetic_device_weights=True)
+    return {"bit_equal": bool(np.array_equal(got["out"], got["plain"])), "sharded": got["sharded"],
+            "stages": got["stages"], "gathers": got["gathers"], "seconds": time.perf_counter() - t0,
+            "finite": bool(np.isfinite(got["out"]).all())}
 
 
 def _named_normal(name: str, shape) -> np.ndarray:
@@ -4803,14 +4887,16 @@ def _rank_unet_u8(rank, device, name: str = "") -> dict:
 
 def _parallel_rank(rank, device, cases) -> dict:
     """The spawned ranks' function: each case in turn, device memory freed
-    between them."""
+    between them, its seconds printed."""
     fns = {"llm": _rank_llm, "unet": _rank_unet, "nccl": _rank_nccl, "unet_u8": _rank_unet_u8,
-           "train": _rank_train}
+           "train": _rank_train, "w8a8_vae": _rank_w8a8_vae, "unet_streamed": _rank_unet_streamed}
     out = {}
     for label, kind, kw in cases:
+        t0 = time.perf_counter()
         out[label] = fns[kind](rank, device, **kw)
         gc.collect()
         torch.cuda.empty_cache()
+        print(f"rank {rank}: {label} {time.perf_counter() - t0:.1f} s", flush=True)
     return out
 
 
@@ -4896,6 +4982,397 @@ def _report_unet_u8(name: str, ref: np.ndarray, ref_ms: float, ref_bytes: int, r
             "one_rank": {"wall_ms": ref_ms, "weight_bytes": ref_bytes}}
 
 
+# ------------------------------------------------ the options a mesh once refused: W8A8, QDQ, calibration
+VAE_TP2_SEED = 5  # the latent of the tp = 2 VAE cases
+
+
+def _vae_sd_graphs() -> tuple:
+    """VAE_SD's decoder at the 64 x 64 latent (seed 2, the SD image path's):
+    its model.txt and float weights, and its W8A8 form as qu8_decoder makes
+    it (quantize_graph_weights); and the fixed latent."""
+    from onnxstream_tpu_torch.convert.quantize import quantize_graph_weights
+    from onnxstream_tpu_torch.models.sd.vae import VAE_SD, build_vae_decoder
+
+    g = build_vae_decoder(dataclasses.replace(VAE_SD, sample=64), seed=2)
+    text, weights = g.to_text(), dict(g.weights)
+    qtext, qweights = quantize_graph_weights(text, weights)
+    z = np.random.default_rng(VAE_TP2_SEED).standard_normal((1, 4, 64, 64)).astype(np.float32)
+    return text, weights, qtext, qweights, {"latent": z}
+
+
+VAE_FLOAT32 = dict(compute_dtype="float32", fuse_ops_in_attention=True)
+VAE_BF16 = dict(compute_dtype="bfloat16", fuse_ops_in_attention=True)
+
+
+def _vae_configs(ranges: dict) -> dict:
+    """The decodes of the tp = 2 VAE cases: W8A8 with the ranges, the same
+    with QDQ, and QDQ with no ranges (no W8A8 route then: the uint8 weights
+    dequantized on read, each range taken at run time)."""
+    w8a8 = dict(use_uint8_arithmetic=True, range_data=dict(ranges), **VAE_BF16)
+    return {"w8a8": w8a8, "qdq": dict(use_uint8_qdq=True, **w8a8), "qdq_no_ranges": dict(use_uint8_qdq=True, **VAE_BF16)}
+
+
+def _gather_whole(x: torch.Tensor, pmap: dict, mesh) -> torch.Tensor:
+    """The whole tensor of which x is this rank's block ({axis: mesh dim}),
+    as float32 on the host, gathered with torch.distributed alone."""
+    import torch.distributed as dist
+
+    x = x.float().cpu()
+    for axis, dim in sorted(pmap.items()):
+        group = mesh.get_group(dim)
+        parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, x.contiguous(), group=group)
+        x = torch.cat(parts, axis)
+    return x
+
+
+def _one_device_sample(x: torch.Tensor) -> torch.Tensor:
+    """One device's QDQ sample of a tensor without a range, written out
+    again: the strided subsample of at most 2^20 values of the flattened
+    tensor (``xf[::n // 2^20]``), sorted."""
+    xf = x.float().reshape(-1)
+    n = xf.numel()
+    if n > (1 << 20):
+        xf = xf[:: n // (1 << 20)]
+    return torch.sort(xf).values
+
+
+class _QdqRanges:
+    """Within the block, every (scale, zero) that ``Executor._qdq_range``
+    returns, by tensor name (the last run's); under a mesh, for each sharded
+    tensor whose range is taken at run time, the sample that
+    ``Executor._global_sample`` drew from the ranks' blocks against one
+    device's sample of the whole tensor gathered from the ranks
+    (``_one_device_sample``): the number of sorted positions that differ
+    (-1: the sizes differ); and how many of those tensors' scales, computed
+    from the same sample, differ between the host and the device."""
+
+    def __enter__(self):
+        from onnxstream_tpu_torch.runtime.executor import Executor
+
+        self.orig = Executor._qdq_range, Executor._global_sample
+        self.got, self.sample, self.host_scales = {}, {}, 0
+
+        def spy_range(ex, op, name, x):
+            self.got[name] = self.orig[0](ex, op, name, x)
+            return self.got[name]
+
+        def spy_sample(ex, name, x):
+            xs, m = self.orig[1](ex, name, x)
+            want = _one_device_sample(_gather_whole(x, ex.mesh_info.placements[name], ex.config.mesh).to(x.device))
+            self.sample[name] = (int((xs[:m] != want).sum()) + int((~torch.isnan(xs[m:])).sum())
+                                 if want.numel() == m <= xs.numel() else -1)
+            # the scale from the same ends on the host and on the device: a device tensor over a
+            # host scalar is a product by its reciprocal, a host one a division
+            k = int(want.numel() * 0.001)
+            ends = (want[k].clamp(max=0.0), want[-1 - k].clamp(min=0.0))
+            self.host_scales += float((ends[1] - ends[0]) / 255.0) != float((ends[1].cpu() - ends[0].cpu()) / 255.0)
+            return xs, m
+
+        Executor._qdq_range, Executor._global_sample = spy_range, spy_sample
+        return self
+
+    def __exit__(self, *exc):
+        from onnxstream_tpu_torch.runtime.executor import Executor
+
+        Executor._qdq_range, Executor._global_sample = self.orig
+
+    def ranges(self) -> dict:
+        return {k: (float(sc), float(z)) for k, (sc, z) in self.got.items()}
+
+    def sample_check(self) -> dict:
+        """The sharded run-time tensors: how many, and those whose sample
+        differs from one device's, with the positions that differ."""
+        return {"tensors": len(self.sample), "differ": {k: v for k, v in sorted(self.sample.items()) if v},
+                "host_device_scales_differ": self.host_scales}
+
+
+def _qdq_gap(got: dict, want: dict) -> dict:
+    """Two runs' QDQ (scale, zero) by tensor: whether the names agree, the
+    worst relative scale gap and the zero points that differ."""
+    same = sorted(got) == sorted(want)
+    return {"tensors": len(got), "same_names": same,
+            "scale_rel": max((abs(got[k][0] - want[k][0]) / want[k][0] for k in want), default=0.0) if same
+            else float("inf"),
+            "zeros_differ": sum(got[k][1] != want[k][1] for k in want) if same else len(want)}
+
+
+def _q_call_key(a) -> str:
+    return " * ".join(str(tuple(t.shape)) for t in a[:2])
+
+
+def _rank_w8a8_vae(rank, device, ranges: dict, name: str = "") -> dict:
+    """The VAE_SD decoder at full width under make_mesh(2, dp=1, tp=2):
+    its calibration in float32 (``dryrun.session_case``: every range the
+    whole tensor's), then its W8A8 decode (bf16) with the one-rank
+    ``ranges`` and the QDQ decodes, every kernel-3 / 4 call held to its twin
+    bit for bit and every kernel-1 call to its twin at the tp-local shapes,
+    the launches of each decode counted, the QDQ decodes' (scale, zero) by
+    tensor recorded and each sample taken at run time held to one device's
+    sample of the whole tensor (``_QdqRanges``), and a warm W8A8 decode
+    timed in the same session with the kernels alone; rank 0 replays the
+    W8A8 decode's kernel-3 and kernel-4 calls."""
+    import onnxstream_tpu_torch.ops.attention as attention_op
+    import onnxstream_tpu_torch.runtime.executor as executor_mod
+    from onnxstream_tpu_torch.kernels.flash_attention import (flash_attention_packed,
+                                                              flash_attention_packed_reference)
+    from onnxstream_tpu_torch.kernels.qconv import qconv, qconv_reference
+    from onnxstream_tpu_torch.kernels.qmatmul import qmatmul, qmatmul_reference
+    from onnxstream_tpu_torch.parallel import comm
+    from onnxstream_tpu_torch.parallel.dryrun import _session, session_case
+    from onnxstream_tpu_torch.parallel.sharding import make_mesh
+
+    text, weights, qtext, qweights, z = _vae_sd_graphs()
+    tp2 = dict(dp=1, tp=2)
+    t0 = time.perf_counter()
+    cal = session_case(rank, device, text, weights, z, tp2, range_data_calibrate=True, **VAE_FLOAT32)
+    cal_s = time.perf_counter() - t0
+    del weights
+    gc.collect()
+    torch.cuda.empty_cache()
+    exact = lambda out, ref: (torch.equal(out, ref), (out.float() - ref.float()).abs().max().item())
+    out = {"calibration": {"ranges": cal["ranges"], "seconds": cal_s, "gathers": _gathers(cal["gathers"])}}
+    mesh = make_mesh(2, **tp2)
+    for label, cfg in _vae_configs(ranges).items():
+        s = _session(qtext, qweights, z, device, mesh=mesh, **cfg)
+        q3 = _EveryCall(qmatmul, qmatmul_reference, exact, _q_call_key, keep=label == "w8a8")
+        q4 = _EveryCall(qconv, qconv_reference, exact, _q_call_key, keep=label == "w8a8")
+        k1 = _every_flash_call(flash_attention_packed, flash_attention_packed_reference, 2e-2)
+        executor_mod.qmatmul, executor_mod.qconv, attention_op.flash_attention_packed = q3, q4, k1
+        qmatmul.launches = qconv.launches = flash_attention_packed.launches = 0
+        comm.STATS.reset()
+        try:
+            with _QdqRanges() as qdq:
+                res = s.run()
+        finally:
+            executor_mod.qmatmul, executor_mod.qconv = qmatmul, qconv
+            attention_op.flash_attention_packed = flash_attention_packed
+        gathers = comm.STATS.snapshot()
+        launches = {"qconv": qconv.launches, "qmatmul": qmatmul.launches - qconv.launches,
+                    "flash_attention_packed": flash_attention_packed.launches}
+        # a warm W8A8 decode a rank, the twins off
+        warm = _timed(lambda: s.run())[1] if label == "w8a8" else None
+        acc = s._executor().hbm_accounting()
+        out[label] = {"out": next(iter(res.values())), "launches": launches,
+                      "routes": len(s._executor().quant_routes), "k3": q3.summary(), "k4": q4.summary(),
+                      "k1": k1.summary(), "warm_ms": warm, "gathers": _gathers(gathers), "qdq": qdq.ranges(),
+                      "sample": qdq.sample_check(),
+                      "weight_bytes": acc["weight_bytes"], "one_device_weight_bytes": acc["one_device_weight_bytes"]}
+        if label == "w8a8":
+            calls3, calls4 = q3.kept, q4.kept
+        s.close()
+        del s
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["kernels_tp2"] = _on_rank0(rank, lambda: {
+        "qmatmul": replay_times("qmatmul over the W8A8 decode's MatMuls at tp = 2 (rank 0, local N)", calls3, qmatmul,
+                                qmatmul_reference, _matmul_library, "int8", name, cost=_qmatmul_cost),
+        "qconv": replay_times("qconv over the W8A8 decode's convs at tp = 2 (rank 0, local O)", calls4, qconv,
+                              qconv_reference, _conv_library, "int8", name, cost=_qconv_cost),
+        "shapes": {"qmatmul": sorted({_q_call_key(a) for a, _ in calls3}),
+                   "qconv": sorted({_q_call_key(a) for a, _ in calls4})}})
+    return out
+
+
+def _vae_references(name: str) -> dict:
+    """The one-rank runs the tp = 2 VAE cases are held to: the float32
+    calibration's ranges and the decodes' outputs, warm times and QDQ
+    (scale, zero) by tensor."""
+    from onnxstream_tpu_torch.parallel.dryrun import run_session
+
+    text, weights, qtext, qweights, z = _vae_sd_graphs()
+    t0 = time.perf_counter()
+    _, s = run_session(text, weights, z, "cuda:0", range_data_calibrate=True, **VAE_FLOAT32)
+    ref = {"ranges": dict(s._executor().range_data.data), "calibration_s": time.perf_counter() - t0}
+    del s, weights
+    gc.collect()
+    torch.cuda.empty_cache()
+    for label, cfg in _vae_configs(ref["ranges"]).items():
+        with _QdqRanges() as qdq:
+            y, s = run_session(qtext, qweights, z, "cuda:0", **cfg)
+        _, ms = _timed(lambda: s.run())
+        ref[label] = {"out": y, "warm_ms": ms, "qdq": qdq.ranges()}
+        s.close()
+        del s
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"phase_parallel one-rank references: VAE_SD decoder calibration (float32, eager) {ref['calibration_s']:.1f} s, "
+          f"{len(ref['ranges'])} ranges; W8A8 / W8A8 + QDQ / QDQ without ranges decodes (bf16) "
+          + " / ".join(f"{ref[k]['warm_ms']:.1f}" for k in _vae_configs({})) + f" ms [{name}]")
+    return ref
+
+
+def _report_w8a8_vae(name: str, ref: dict, ranks: list) -> dict:
+    """The tp = 2 VAE ranks against the one-rank runs: calibration (the same
+    keys, none with "@", each end within 1e-5 of the range's width, the
+    same ranges on both ranks), the three decodes within 5e-2 * max|out|,
+    the launches (W8A8: kernel 4 35, kernel 3's own 4, kernel 1 1 a rank),
+    every kernel-3 / 4 call bit for bit with its twin, and QDQ without
+    ranges: every sharded tensor's sorted sample equal to one device's
+    sample of the whole tensor (the (scale, zero) gap to one rank's decode
+    is printed: upstream bf16 and quantization steps move the tensors
+    themselves)."""
+    want = ref["ranges"]
+    per_rank = []
+    cal0 = ranks[0]["w8a8_vae"]["calibration"]["ranges"]
+    for rank, res in enumerate(ranks):
+        got = res["w8a8_vae"]
+        cal = got["calibration"]["ranges"]
+        worst = max(max(abs(a - b) for a, b in zip(cal[k], want[k])) / max(want[k][1] - want[k][0], 1e-30)
+                    for k in want) if sorted(cal) == sorted(want) else float("inf")
+        at = [k for k in cal if "@" in k]
+        print(f"VAE_SD calibration (float32) tp=2 rank {rank}: {len(cal)} ranges (one rank {len(want)}), names with "
+              f"'@': {len(at)}, worst end / width {worst:.3e} (bound 1e-5), the same as rank 0's {cal == cal0}; "
+              f"{got['calibration']['seconds']:.1f} s (one rank {ref['calibration_s']:.1f} s), gathers "
+              f"{got['calibration']['gathers']} [{name}]")
+        if sorted(cal) != sorted(want) or at or not worst <= 1e-5 or cal != cal0:
+            raise SystemExit(f"VAE_SD calibration tp=2 rank {rank}: keys, names or ranges differ from one rank's")
+        row = {"calibration_worst_rel": worst, "calibration_s": got["calibration"]["seconds"]}
+        for label in _vae_configs({}):
+            g, r = got[label], ref[label]["out"]
+            scale = float(np.abs(r).max())
+            err = float(np.abs(g["out"] - r).max())
+            gap = _qdq_gap(g["qdq"], ref[label]["qdq"])
+            print(f"VAE_SD {label} decode (bf16) tp=2 rank {rank}: {g['out'].shape}, max|diff| / max|out| "
+                  f"{err / scale:.3e} (bound 5e-2); launches {g['launches']}; kernel 3 vs twin {g['k3']}, kernel 4 vs "
+                  f"twin {g['k4']}, kernel 1 vs twin {g['k1']}; {g['routes']} quantized ops; "
+                  + (f"warm {g['warm_ms']:.1f} ms " if g["warm_ms"] is not None else "warm not timed ")
+                  + f"(one rank {ref[label]['warm_ms']:.1f}); weights {g['weight_bytes'] / 2**20:.1f} MB of "
+                  f"{g['one_device_weight_bytes'] / 2**20:.1f}; gathers {g['gathers']} [{name}]")
+            print(f"  QDQ (scale, zero) by tensor against one rank's decode: {gap}; sharded tensors ranged at run "
+                  f"time {g['sample']['tensors']}, whose sample differs from one device's sample of the whole tensor "
+                  f"{g['sample']['differ']}, whose scale from the same sample differs between host and device "
+                  f"{g['sample']['host_device_scales_differ']}")
+            want_launches = ({"qconv": 35, "qmatmul": 4, "flash_attention_packed": 1} if label != "qdq_no_ranges"
+                             else {"qconv": 0, "qmatmul": 0, "flash_attention_packed": 1})
+            if g["out"].shape != (1, 3, 512, 512) or not np.isfinite(g["out"]).all() or not err <= 5e-2 * scale:
+                raise SystemExit(f"VAE_SD {label} tp=2 rank {rank}: output outside 5e-2 * max of the one-rank decode")
+            if (g["launches"] != want_launches or g["k3"]["disagree"] or g["k4"]["disagree"] or g["k1"]["disagree"]
+                    or g["k3"]["calls"] != g["launches"]["qmatmul"] or g["k4"]["calls"] != g["launches"]["qconv"]):
+                raise SystemExit(f"VAE_SD {label} tp=2 rank {rank}: launches {g['launches']} (want {want_launches}) "
+                                 f"or a kernel disagreed with its twin")
+            if not gap["same_names"] or g["sample"]["differ"] or (label == "qdq_no_ranges"
+                                                                   and not g["sample"]["tensors"]):
+                raise SystemExit(f"VAE_SD {label} tp=2 rank {rank}: QDQ tensors differ from one rank's, or a sample "
+                                 f"taken at run time is not one device's of the whole tensor: {g['sample']}")
+            row[label] = {k: g[k] for k in ("launches", "k3", "k4", "k1", "warm_ms", "gathers", "weight_bytes",
+                                            "sample")} | {"rel_err": err / scale, "qdq_gap": gap}
+        per_rank.append(row)
+    return {"ranks": per_rank, "kernels_tp2": ranks[0]["w8a8_vae"]["kernels_tp2"],
+            "one_rank": {"calibration_s": ref["calibration_s"],
+                         **{f"{k}_warm_ms": ref[k]["warm_ms"] for k in _vae_configs({})}}}
+
+
+def _rank_unet_streamed(rank, device, model: str, name: str = "") -> dict:
+    """The SD15 UNet at batch 2 (bf16) read from a unet_fp16/ folder's
+    batch-2 graph by the native prefetch under make_mesh(2, dp=1, tp=2):
+    resident, then streamed at STREAM_BUDGETS[0] a rank: a run with every
+    kernel-1 call held to its twin at the local shapes, a run whose peak the
+    allocator reads (against hbm_accounting()'s bound), both bit for bit
+    with the resident run, and a profiled run (the bytes that crossed on
+    the copy stream and its GB/s, wall and device busy); the rank's
+    segments and staged bytes beside its weights and one device's."""
+    import onnxstream_tpu_torch.ops.attention as attention_op
+    from onnxstream_tpu_torch import Session, SessionConfig
+    from onnxstream_tpu_torch.kernels.flash_attention import (flash_attention_packed,
+                                                              flash_attention_packed_reference)
+    from onnxstream_tpu_torch.parallel.sharding import make_mesh
+
+    mesh = make_mesh(2, dp=1, tp=2)
+    inputs = _sd15_batch2_inputs()
+
+    def session(budget):
+        s = Session(SessionConfig(compute_dtype="bfloat16", hbm_budget_bytes=budget, device=torch.device(device),
+                                  mesh=mesh), weights_provider_name="prefetch")
+        s.read_file(model)
+        return s
+
+    s = session(0)
+    resident, resident_ms = _timed(lambda: _unet_run(s, inputs))  # plan and upload included
+    s.close()
+    del s
+    gc.collect()
+    torch.cuda.empty_cache()
+    s = session(STREAM_BUDGETS[0])
+    site = _every_flash_call(flash_attention_packed, flash_attention_packed_reference, 2e-2)
+    attention_op.flash_attention_packed = site
+    flash_attention_packed.launches = 0
+    try:
+        outs, walls = [], []
+        out, ms = _timed(lambda: _unet_run(s, inputs))  # every kernel-1 call held to its twin
+    finally:
+        attention_op.flash_attention_packed = flash_attention_packed
+    outs.append(out)
+    walls.append(ms)
+    # the peak of a run without the twins' scratch
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out, ms = _timed(lambda: _unet_run(s, inputs))
+    peak = torch.cuda.max_memory_allocated() - base
+    outs.append(out)
+    walls.append(ms)
+    ex = s._executor()
+    acc = ex.hbm_accounting()
+    staged = sum(ex._staged_bytes(w) for w in ex.plan.arg_weights)
+    prof = copy_overlap(lambda: s.run(), f"SD15 UNet tp=2 streamed at {STREAM_BUDGETS[0] >> 20} MiB rank {rank}",
+                        name, agree=_every_rank)
+    launches = flash_attention_packed.launches
+    s.close()
+    return {"bit_equal": [bool(np.array_equal(o, resident)) for o in outs], "finite": bool(np.isfinite(resident).all()),
+            "shape": resident.shape, "launches": launches, "sites": site.summary(), "segments": len(ex.segments),
+            "staged_bytes": staged, "weight_bytes": acc["weight_bytes"], "one_device_weight_bytes":
+            acc["one_device_weight_bytes"], "sharded_weight_bytes": acc["sharded_weight_bytes"],
+            "peak_bytes": peak, "accounting_peak_bytes": acc["peak_bytes"], "walls_ms": walls,
+            "resident_ms": resident_ms, "profile": prof}
+
+
+def phase_streamed_tp2(name: str, model: str) -> dict:
+    """The SD15 UNet at batch 2 streamed from the folder's unet_fp16/ under
+    make_mesh(2, dp=1, tp=2) on two gloo ranks sharing the card
+    (``_rank_unet_streamed``): each rank streams its own slices, bit for bit
+    with the resident tp = 2 run. Two ranks on one card show the sharded
+    streaming's cost, not a speedup."""
+    from onnxstream_tpu_torch.parallel.launch import spawn
+
+    t0 = time.perf_counter()
+    model2 = os.path.join(os.path.dirname(model), "model_batch2.txt")
+    ranks = [r["unet_streamed"] for r in spawn(_parallel_rank, 2, "gloo", "cuda:0", 600, args=(
+        [("unet_streamed", "unet_streamed", dict(model=model2, name=name))],))]
+    out = []
+    for rank, got in enumerate(ranks):
+        prof = got["profile"]
+        crossed = prof["h2d_copy_stream_bytes"]
+        print(f"SD15 UNet batch 2 bf16 tp=2 streamed at {STREAM_BUDGETS[0] >> 20} MiB (native prefetch) rank {rank}: "
+              f"{got['segments']} segments, bit for bit with the resident tp=2 run {got['bit_equal']}; staged "
+              f"{got['staged_bytes'] / 1e6:.1f} MB a run (the rank's weights {got['weight_bytes'] / 1e6:.1f} MB, of which "
+              f"sharded slices {got['sharded_weight_bytes'] / 1e6:.1f} MB; one device {got['one_device_weight_bytes'] / 1e6:.1f}"
+              f" MB); profiled run: {crossed / 1e6:.1f} MB crossed on the copy stream at "
+              f"{prof['h2d_copy_stream_gb_s']:.1f} GB/s, wall {prof['wall_ms']:.1f} ms, device busy "
+              f"{prof['device_busy_ms']:.2f} ms, idle {100 * prof['idle_share']:.1f}%; "
+              f"peak {got['peak_bytes'] / 2**20:.1f} MiB (bound {got['accounting_peak_bytes'] / 2**20:.1f} + slack "
+              f"{PEAK_SLACK >> 20} MiB); runs {[round(w, 1) for w in got['walls_ms']]} ms (the resident run, plan "
+              f"and upload included, {got['resident_ms']:.1f}); kernel 1 {got['launches']} launches (3 runs), the first run's vs twin "
+              f"{got['sites']} [{name}]")
+        if not (all(got["bit_equal"]) and got["finite"] and got["shape"] == (2, 4, 64, 64)):
+            raise SystemExit(f"SD15 tp=2 streamed rank {rank}: outputs differ from the resident tp=2 run")
+        if got["launches"] != 30 or got["sites"]["disagree"] or got["sites"]["calls"] != 10 or got["segments"] < 2:
+            raise SystemExit(f"SD15 tp=2 streamed rank {rank}: {got['launches']} kernel-1 launches (want 30), "
+                             f"{got['segments']} segments, or a call disagreed with its twin")
+        if got["peak_bytes"] > got["accounting_peak_bytes"] + PEAK_SLACK:
+            raise SystemExit(f"SD15 tp=2 streamed rank {rank}: peak above the accounting bound + slack")
+        if not (got["staged_bytes"] < 0.6 * got["one_device_weight_bytes"]
+                and 0.9 * got["weight_bytes"] <= crossed < 0.6 * got["one_device_weight_bytes"]):
+            raise SystemExit(f"SD15 tp=2 streamed rank {rank}: the rank crossed more than its slices")
+        out.append({k: got[k] for k in ("segments", "staged_bytes", "weight_bytes", "one_device_weight_bytes",
+                                        "peak_bytes", "accounting_peak_bytes", "walls_ms", "resident_ms",
+                                        "launches", "sites")} | {"profile": got["profile"]})
+    seconds = time.perf_counter() - t0
+    print(f"phase_streamed_tp2: {seconds:.1f} s")
+    return {"ranks": out, "launches": sum(r["launches"] for r in ranks), "seconds": seconds}
+
+
 def phase_parallel(name: str, train: dict) -> dict:
     """The sharded serving path (parallel/*): two gloo ranks sharing the card
     (NCCL refuses two ranks on one device) and a one-rank NCCL mesh,
@@ -4939,6 +5416,7 @@ def phase_parallel(name: str, train: dict) -> dict:
     print(f"phase_parallel one-rank references: TinyLlama int8 (bf16) prefill {ref['int8']['prefill_ms']:.1f} ms, "
           f"decode {ref['int8']['decode_ms_per_token']:.2f} ms/token; SD15 UNet uint8 (per-channel, batch 1) "
           f"{u8_ref_ms:.1f} ms a run, first run {u8_first_s:.1f} s ({u8_ref_q:.1f} s of host quantization) [{name}]")
+    vae_ref = _vae_references(name)
 
     cases = [("train", "train", dict(ref_path=train["path"])),
              ("llm_float32", "llm", dict(dtype="float32", prompt=prompt, ref_tokens=forced_tokens)),
@@ -4947,9 +5425,10 @@ def phase_parallel(name: str, train: dict) -> dict:
                                       int8_weights=True, name=name)),
              ("unet_dp2", "unet", dict(mesh=dict(dp=2))),
              ("unet_tp2", "unet", dict(mesh=dict(dp=1, tp=2))),
-             ("unet_u8", "unet_u8", dict(name=name))]
+             ("unet_u8", "unet_u8", dict(name=name)),
+             ("w8a8_vae", "w8a8_vae", dict(ranges=vae_ref["ranges"], name=name))]
     t0 = time.perf_counter()
-    ranks = spawn(_parallel_rank, 2, "gloo", "cuda:0", 700, args=(cases,))
+    ranks = spawn(_parallel_rank, 2, "gloo", "cuda:0", 900, args=(cases,))
     print(f"two gloo ranks on cuda:0: {time.perf_counter() - t0:.1f} s (start, plans, weight synthesis, runs)")
     out: dict = {"llm": {}, "unet": {}}
     for dt, rel in (("float32", 1e-4), ("bfloat16", 5e-2)):
@@ -5019,6 +5498,7 @@ def phase_parallel(name: str, train: dict) -> dict:
     out["train"] = phase_train_report(name, train, ranks)
     out["llm_int8"] = _report_llm_int8(name, ref["int8"], ranks)
     out["unet_u8"] = _report_unet_u8(name, u8_ref, u8_ref_ms, u8_ref_bytes, ranks)
+    out["w8a8_vae"] = _report_w8a8_vae(name, vae_ref, ranks)
 
     t0 = time.perf_counter()
     nccl = spawn(_parallel_rank, 1, "nccl", "cuda:0", 300, args=([("nccl", "nccl", {})],))[0]["nccl"]
@@ -5027,6 +5507,12 @@ def phase_parallel(name: str, train: dict) -> dict:
           f"{nccl['bit_equal']} ({time.perf_counter() - t0:.1f} s) [{name}]")
     if not (nccl["gather_identity"] and nccl["bit_equal"] and nccl["backend"] == "nccl"):
         raise SystemExit("one-rank NCCL mesh: the gather or the UNet run differs")
+    pp = nccl["pp_mesh"]
+    print(f"pp_devices [cuda:0, cuda:0] at 512 MiB beside the one-rank NCCL mesh: sharding pass run {pp['sharded']}, "
+          f"stages {pp['stages']}, gathers {pp['gathers']}, bit for bit with the same stages without the mesh "
+          f"{pp['bit_equal']} ({pp['seconds']:.1f} s) [{name}]")
+    if pp["sharded"] or pp["gathers"] or not pp["bit_equal"] or not pp["finite"] or len(set(pp["stages"])) != 2:
+        raise SystemExit("mesh + pp_devices: the pass ran, or the output differs from the staged run without a mesh")
     out["nccl"] = nccl
 
     # pipeline stages: two on one card, the boundary activations copied
@@ -5337,46 +5823,63 @@ def phase_dryrun(name: str) -> dict:
 
 def main() -> int:
     sys.path.insert(0, REPO)
+    t_script = time.perf_counter()
+
+    def stamp(after: str) -> None:
+        print(f"chip_smoke at {time.perf_counter() - t_script:.1f} s, after {after}", flush=True)
+
     name = phase_device()
     phase_build()
+    stamp("phase_build")
     kernel = phase_kernel(name)
     kernel_hm = phase_kernel_head_major(name)
     q_sites = phase_kernel_q(name)
     phase_kernel_qlinear(name)
     gn_sites = phase_kernel_gn(name)
+    stamp("the kernel phases")
     sd = phase_slice(name)
+    stamp("phase_slice")
     launches_sd = sd["launches"]
     t_new = time.perf_counter()
     entry = phase_entry(name, sd)
     print(f"phase_entry: {time.perf_counter() - t_new:.1f} s")
     gn = phase_gn_routes(name, sd)
+    stamp("phase_slice, phase_entry, phase_gn_routes")
     gc.collect()
     torch.cuda.empty_cache()
     t_new = time.perf_counter()
     layout = phase_layout(name, sd)
     gc.collect()
     torch.cuda.empty_cache()
+    stamp("phase_layout")
     nopad = phase_nopad(name, sd)
     gc.collect()
     torch.cuda.empty_cache()
+    stamp("phase_nopad")
     fp16 = phase_fp16_storage(name, sd)
     gc.collect()
     torch.cuda.empty_cache()
     print(f"phase_layout, phase_nopad, phase_fp16_storage: {time.perf_counter() - t_new:.1f} s")
     sd_u8 = phase_sd_u8(name, sd)
+    stamp("phase_layout, phase_nopad, phase_fp16_storage, phase_sd_u8")
     del sd
     gc.collect()
     torch.cuda.empty_cache()
     sd_image = phase_sd_image(name)
     gc.collect()
     torch.cuda.empty_cache()
+    stamp("phase_sd_image")
     sdxl = phase_sdxl(name)
+    stamp("phase_sdxl")
     sd_batch = phase_sd_batch(name)
+    stamp("phase_sdxl, phase_sd_batch")
     llm = phase_llm(name)
+    stamp("phase_llm")
     launches_llm = llm["launches"]
     gc.collect()
     torch.cuda.empty_cache()
     llm_int8 = phase_llm_int8(name, llm)
+    stamp("phase_llm, phase_llm_int8")
     gc.collect()
     torch.cuda.empty_cache()
     train_dir = tempfile.mkdtemp(prefix="ostt_train_")
@@ -5396,9 +5899,15 @@ def main() -> int:
     int8_tp2_k6 = sum(r["launches6"] for r in parallel["llm_int8"]["ranks"])
     u8_tp2_k5 = sum(r["launches"] for r in parallel["unet_u8"]["ranks"])
     u8_tp2_k1 = sum(r["launches1"] for r in parallel["unet_u8"]["ranks"])
+    vae_tp2 = parallel["w8a8_vae"]
+    vae_tp2_launches = {k: {label: sum(r[label]["launches"][k] for r in vae_tp2["ranks"])
+                            for label in _vae_configs({})}
+                        for k in ("qmatmul", "qconv", "flash_attention_packed")}
+    stamp("phase_train_reference, phase_parallel, phase_dryrun")
     whisper = phase_whisper(name)
     ops = phase_ops(name)
     yolo = phase_yolo(name)
+    stamp("phase_whisper, phase_ops, phase_yolo")
     gc.collect()
     torch.cuda.empty_cache()
     t_new = time.perf_counter()
@@ -5407,8 +5916,15 @@ def main() -> int:
     folder = tempfile.mkdtemp(prefix="ostt_sd15_")
     try:
         model = write_sd15_folder(folder)
+        stamp("write_sd15_folder")
         streamed = phase_streamed(name, model)
+        stamp("phase_streamed")
         served = phase_serve(name, model, streamed.pop("resident"))
+        gc.collect()
+        torch.cuda.empty_cache()
+        stamp("phase_convert, phase_streamed, phase_serve")
+        streamed_tp2 = phase_streamed_tp2(name, model)
+        stamp("phase_streamed_tp2")
     finally:
         shutil.rmtree(folder, ignore_errors=True)
     print(f"streaming: {json.dumps(streamed['sessions'])}")
@@ -5433,14 +5949,20 @@ def main() -> int:
          "launches": (sd_image["flash_launches"] + sdxl["launches"] + sd_batch["launches"] + whisper["launches"]
                       + streamed["launches"] + served["launches"] + layout["launches"] + fp16["launches"]
                       + nopad["packed_launches"] + convert["launches"] + unet_dp2 + unet_tp2 + entry["launches"]
-                      + u8_tp2_k1),
+                      + u8_tp2_k1 + sum(vae_tp2_launches["flash_attention_packed"].values())
+                      + streamed_tp2["launches"]),
          "launches_by_path": {"sd15_step": launches_sd, "sd15_image": sd_image["flash_launches"],
                               "sdxl_image_and_turbo": sdxl["launches"], "sd15_generate_batch4": sd_batch["launches"],
                               "whisper": whisper["launches"], "sd15_streamed": streamed["launches"],
                               "sd15_served": served["launches"], "sd15_nhwc": layout["launches"],
                               "sd15_fp16_storage": fp16["launches"], "sd15_nopad": nopad["packed_launches"],
                               "sd15_converted": convert["launches"], "dp2_unet": unet_dp2,
-                              "tp2_unet": unet_tp2, "sd15_entry": entry["launches"], "tp2_unet_uint8": u8_tp2_k1},
+                              "tp2_unet": unet_tp2, "sd15_entry": entry["launches"], "tp2_unet_uint8": u8_tp2_k1,
+                              "tp2_vae_w8a8": vae_tp2_launches["flash_attention_packed"]["w8a8"],
+                              "tp2_vae_qdq": vae_tp2_launches["flash_attention_packed"]["qdq"]
+                              + vae_tp2_launches["flash_attention_packed"]["qdq_no_ranges"],
+                              "sd15_streamed_tp2": streamed_tp2["launches"]},
+         "sd15_streamed_tp2": streamed_tp2,
          "entry": entry,
          "parallel": parallel["unet"],
          "whisper": {k: whisper[k] for k in ("sites_bfloat16", "replay_bfloat16", "sites_float32", "replay_float32",
@@ -5464,9 +5986,20 @@ def main() -> int:
          "launches": sd_u8["launches"] + u8_tp2_k5,
          "launches_by_path": {"sd15_uint8": sd_u8["launches"], "tp2_unet_uint8": u8_tp2_k5},
          "tp2": parallel["unet_u8"]},
-        {"name": "qmatmul", "route": "cuda", "source": ql_src, "replaces": f"{q_py}:73", **sd_image["qmatmul"]},
+        {"name": "qmatmul", "route": "cuda", "source": ql_src, "replaces": f"{q_py}:73", **sd_image["qmatmul"],
+         "launches": sd_image["qmatmul"]["launches"] + sum(vae_tp2_launches["qmatmul"].values())
+         + sum(vae_tp2_launches["qconv"].values()),
+         "launches_by_path": {"sd15_image": sd_image["qmatmul"]["launches"],
+                              "tp2_vae_w8a8": vae_tp2_launches["qmatmul"]["w8a8"] + vae_tp2_launches["qconv"]["w8a8"],
+                              "tp2_vae_qdq": vae_tp2_launches["qmatmul"]["qdq"] + vae_tp2_launches["qconv"]["qdq"]},
+         "tp2": vae_tp2["kernels_tp2"]["qmatmul"]},
         {"name": "qconv", "route": "cuda", "source": ql_src, "replaces": "onnxstream_tpu/kernels/qconv.py:68",
-         **sd_image["qconv"]},
+         **sd_image["qconv"], "launches": sd_image["qconv"]["launches"] + sum(vae_tp2_launches["qconv"].values()),
+         "launches_by_path": {"sd15_image": sd_image["qconv"]["launches"],
+                              "tp2_vae_w8a8": vae_tp2_launches["qconv"]["w8a8"],
+                              "tp2_vae_qdq": vae_tp2_launches["qconv"]["qdq"]},
+         "tp2": vae_tp2["kernels_tp2"]["qconv"], "tp2_shapes": vae_tp2["kernels_tp2"]["shapes"],
+         "tp2_vae": {k: vae_tp2[k] for k in ("ranks", "one_rank")}},
         {"name": "gn_silu", "route": "cuda", "source": gn_src, "replaces": "onnxstream_tpu/kernels/gn_silu.py:121",
          **gn["gn_silu"], "ms_by_shape": gn_sites["gn_silu"],
          "launches": gn["gn_silu"]["launches"] + layout["config_a_launches"]["gn_silu"],

@@ -103,6 +103,76 @@ def unet_case(rank: int, device, text: str, weights, inputs, mesh: Dict[str, int
     return out
 
 
+def session_case(rank: int, device, text: str, weights, inputs, mesh: Dict[str, int], **config) -> Dict[str, Any]:
+    """One run of a graph under ``make_mesh(world, **mesh)`` with the
+    options in ``config`` (the calibrated W8A8 and QDQ routes, calibration,
+    a budget, pipeline stages): every output as float32 / int64 numpy, the
+    quantized ops' routes, the ranges a calibration recorded, the segments,
+    this rank's accounting, the run's gathers and whether the sharding pass
+    ran (pipeline stages take its place)."""
+    import torch.distributed as dist
+
+    from onnxstream_tpu_torch.parallel import comm
+    from onnxstream_tpu_torch.parallel.sharding import make_mesh
+
+    m = make_mesh(dist.get_world_size(), **mesh)
+    s = _session(text, weights, inputs, device, mesh=m, **config)
+    comm.STATS.reset()
+    out = s.run()
+    gathers = comm.STATS.snapshot()
+    ex = s._executor()
+    return {"out": out, "routes": ex.quant_routes, "ranges": dict(ex.range_data.data),
+            "segments": len(ex.segments), "sharded": ex.mesh_info is not None, "gathers": gathers,
+            "hbm": {k: v for k, v in ex.hbm_accounting().items() if not isinstance(v, list)}}
+
+
+def streamed_case(rank: int, device, text: str, weights, inputs, mesh: Dict[str, int], budget: int,
+                  **config) -> Dict[str, Any]:
+    """The graph under ``make_mesh(world, **mesh)`` resident, then streamed
+    at ``budget`` bytes a rank, twice (a second streamed run reads its
+    weights again): the three outputs, the streamed run's segments and
+    accounting, and per weight that crosses (not one made on the device)
+    this rank's shard, its staged and upload bytes and whether its file's
+    bytes cross as they are."""
+    import torch.distributed as dist
+
+    from onnxstream_tpu_torch.parallel.sharding import make_mesh
+    from onnxstream_tpu_torch.runtime.executor import upload_bytes
+
+    m = make_mesh(dist.get_world_size(), **mesh)
+    resident = run_session(text, weights, inputs, device, mesh=m, **config)[0]
+    s = _session(text, weights, inputs, device, mesh=m, hbm_budget_bytes=budget, **config)
+    first, second = s.run(), s.run()
+    ex = s._executor()
+    crossed = {w.name: {"shard": w.shard, "staged": ex._staged_bytes(w), "upload": upload_bytes(w),
+                        "file_bytes": ex._crosses_as_file_bytes(w)}
+               for w in ex.plan.arg_weights if ex._synth_kind(w) is None}
+    return {"resident": resident, "out": next(iter(first.values())), "again": next(iter(second.values())),
+            "segments": len(ex.segments), "crossed": crossed,
+            "hbm": {k: v for k, v in ex.hbm_accounting().items() if not isinstance(v, list)}}
+
+
+def pp_mesh_case(rank: int, device, text: str, weights, inputs, mesh: Dict[str, int], budget: int,
+                 stages: int, **config) -> Dict[str, Any]:
+    """The graph on ``stages`` pipeline stages of ``device`` at ``budget``
+    (and the options in ``config``), under ``make_mesh(world, **mesh)`` and
+    without a mesh, on this rank: both outputs, whether the sharding pass
+    ran, the segments' stages and the gathers of the meshed run."""
+    import torch.distributed as dist
+
+    from onnxstream_tpu_torch.parallel import comm
+    from onnxstream_tpu_torch.parallel.sharding import make_mesh
+
+    pp = [torch.device(device)] * stages
+    plain = run_session(text, weights, inputs, device, hbm_budget_bytes=budget, pp_devices=pp, **config)[0]
+    comm.STATS.reset()
+    out, s = run_session(text, weights, inputs, device, mesh=make_mesh(dist.get_world_size(), **mesh),
+                         hbm_budget_bytes=budget, pp_devices=pp, **config)
+    ex = s._executor()
+    return {"out": out, "plain": plain, "sharded": ex.mesh_info is not None, "gathers": comm.STATS.snapshot(),
+            "stages": [ex.seg_stage(i) for i in range(len(ex.segments))]}
+
+
 def train_case(rank, device, text: str, weights, inputs, mesh: Optional[Dict[str, int]], target=None,
                **config) -> Dict[str, Any]:
     """One ``make_train_step`` step of a graph's "out_sample" (MSE against
@@ -287,7 +357,8 @@ def mesh_case(rank: int, device) -> Dict[str, Any]:
 
 
 CASES = {"unet": unet_case, "llm": llm_case, "graphs": graphs_case, "mesh": mesh_case, "train": train_case,
-         "collective_grad": collective_grad_case}
+         "collective_grad": collective_grad_case, "session": session_case, "streamed": streamed_case,
+         "pp_mesh": pp_mesh_case}
 
 
 def rank_cases(rank: int, device, cases: List[Tuple[str, str, Dict[str, Any]]]) -> Dict[str, Any]:

@@ -102,6 +102,7 @@ class ShardingPass:
         self.wp: Dict[str, PMap] = {}  # weight -> placement, fixed at first use
         self.consts: Dict[str, np.ndarray] = {}  # local constants the pass made
         self.ops: List[OpNode] = []
+        self.made: set = set()  # names of the ops the pass put in
         self._cache: Dict[tuple, TensorSpec] = {}  # (name, placement) -> the tensor holding it
         self._n = 0
         self.producer = {t.name: op for op in self.graph.ops for t in op.outputs if t.name}
@@ -162,6 +163,7 @@ class ShardingPass:
     def _emit(self, op_type: str, name: str, inputs: List[TensorSpec], out_name: str, out_shape,
               attrs: Dict[str, str]) -> TensorSpec:
         out = TensorSpec(name=out_name, shape=tuple(out_shape))
+        self.made.add(name)
         self.ops.append(OpNode(name=name, op_type=op_type, inputs=inputs, outputs=[out], attrs=attrs))
         return out
 
@@ -666,6 +668,7 @@ def shard_plan(plan, weight_loader, replan):
     rewritten graph. The returned plan carries the placements the executor
     reads (``Plan.mesh_info``)."""
     from onnxstream_tpu_torch.runtime.planner import ShapeDtype
+    from onnxstream_tpu_torch.runtime.quantization import qdq_skip
 
     mesh = plan.config.mesh
     sp = ShardingPass(plan, mesh)
@@ -684,27 +687,49 @@ def shard_plan(plan, weight_loader, replan):
     local.pinned_inputs = plan.pinned_inputs
     local.mesh_info = MeshInfo(
         input_shapes={k: tuple(a.shape) for k, a in plan.input_avals.items()},
-        input_slices={k: sp.shard_slices(a.shape, sp.pm[k]) for k, a in plan.input_avals.items()},
         fetch_alias=alias, local_outputs=local_outputs,
         placements=dict(sp.pm), weight_placements=dict(sp.wp),
         global_avals=dict(plan.avals), global_weight_bytes=sum(
-            math.prod(w.shape) * w.upload_dtype.itemsize for w in plan.arg_weights))
+            math.prod(w.shape) * w.upload_dtype.itemsize for w in plan.arg_weights),
+        pass_ops=frozenset(sp.made), qdq_skip=frozenset(qdq_skip(plan.graph)), sizes=dict(sp.sizes),
+        coord=dict(sp.coord))
     return local
 
 
 @dataclasses.dataclass
 class MeshInfo:
     """What a rank's plan keeps of the pass: per graph input its global
-    shape and this rank's slice ((axis, start, stop), ...); the gathered
+    shape; the gathered
     tensor behind each sharded output; the outputs that stay local; every
     activation's and weight's placement ({axis: dim}); the global plan's
-    shapes and the weight bytes one device would hold."""
+    shapes and the weight bytes one device would hold; the ops the pass put
+    in (gathers, slices, index ops: none of them is the graph's, so none is
+    quantized or calibrated, and a W8A8 op looks through them for its
+    input's producer); one device's QDQ skip set (``quantization.qdq_skip`` of
+    the whole graph); the mesh's sizes and this rank's coordinates."""
 
     input_shapes: Dict[str, Tuple[int, ...]]
-    input_slices: Dict[str, Tuple[Tuple[int, int, int], ...]]
     fetch_alias: Dict[str, str]
     local_outputs: Dict[str, PMap]
     placements: Dict[str, PMap]
     weight_placements: Dict[str, PMap]
     global_avals: Dict[str, object]
     global_weight_bytes: int
+    pass_ops: frozenset = frozenset()
+    qdq_skip: frozenset = frozenset()
+    sizes: Dict[str, int] = dataclasses.field(default_factory=dict)
+    coord: Dict[str, int] = dataclasses.field(default_factory=dict)
+
+    def whole_shape(self, name: str) -> Tuple[int, ...]:
+        a = self.global_avals.get(name)
+        return tuple(a.shape) if a is not None else self.input_shapes[name]
+
+    def slices(self, name: str) -> Tuple[Tuple[int, int, int], ...]:
+        """This rank's block ((axis, start, stop), ...) of the whole tensor
+        (a graph input or a device tensor of the whole graph)."""
+        shape = self.whole_shape(name)
+        out = []
+        for a, d in sorted(self.placements.get(name, {}).items()):
+            n = shape[a] // self.sizes[d]
+            out.append((a, self.coord[d] * n, (self.coord[d] + 1) * n))
+        return tuple(out)

@@ -6,8 +6,11 @@ W8A8 options and the GroupNorm / small-conv kernel routes among them) and the
 ``set_option`` names that apply.
 ``mesh`` (a ``torch.distributed`` device mesh from ``parallel.sharding
 .make_mesh``) runs the graph over the ranks of a process group, each rank on
-its own shards (``parallel/spmd.py``); ``pp_devices`` places the segments on
-pipeline stages in one process. XLA's AUTO weight layouts and compiler
+its own shards (``parallel/spmd.py``), with every other option: a budget
+streams the rank's slices, and the calibrated W8A8, QDQ and calibration
+options keep the one-device ranges. ``pp_devices`` places the segments on
+pipeline stages in one process; beside a mesh the stages win and nothing is
+sharded (``runtime/executor.py``). XLA's AUTO weight layouts and compiler
 options and Pallas's interpret mode have no counterpart here.
 
 Every option of the JAX package that the graph or the executor reads is
@@ -163,25 +166,6 @@ class SessionConfig:
         self.torch_compute_dtype  # validates compute_dtype
         if self.sharding_rules is not None:
             raise ValueError("sharding_rules: only None is taken (the rules are parallel/sharding.py's)")
-
-    def check_mesh(self) -> None:
-        """Raise for what a mesh does not run with yet: weight streaming,
-        pipeline stages and the calibrated W8A8 routes (activation ranges
-        and QDQ over a rank's shards are their own piece of work). Weights
-        quantized at fetch (``force_uint8_storage_set``) are sliced from the
-        one-device quantization."""
-        if self.mesh is None:
-            return
-        refused = [name for name, on in (
-            ("hbm_budget_bytes > 0", self.hbm_budget_bytes > 0),
-            ("pp_devices", bool(self.pp_devices)),
-            ("use_uint8_arithmetic", self.use_uint8_arithmetic),
-            ("use_uint8_qdq", self.use_uint8_qdq),
-            ("range_data_calibrate", self.range_data_calibrate)) if on]
-        if refused:
-            raise NotImplementedError(
-                f"a mesh with {', '.join(refused)} is not ported yet (ROADMAP.md: a mesh with weight "
-                f"streaming, and calibrated W8A8 under a mesh)")
 
     @property
     def torch_compute_dtype(self) -> torch.dtype:

@@ -308,7 +308,8 @@ class _Planner:
                 # a rank's slice keeps the whole weight's file shape
                 shape, transform, file_shape = (spec.shape[1], spec.shape[0]), "tnk", spec.file_shape or spec.shape
             elif relayout == "ohwi":
-                transform, file_shape = "ohwi", spec.shape
+                # a rank's O slice keeps the whole weight's file shape too
+                transform, file_shape = "ohwi", spec.file_shape or spec.shape
             quant = (spec.scale, spec.zero_point) if spec.dtype == DType.uint8 else None
             symmetric = False
             if quant is None and spec.name in self.config.force_uint8_storage_set and spec.dtype.is_float:
@@ -460,11 +461,13 @@ def plan_graph(
     fetch_names: Optional[Sequence[str]] = None,
     input_values: Optional[Dict[str, np.ndarray]] = None,
 ) -> Plan:
-    config.check_mesh()
     if fetch_names is None:
         fetch_names = graph.output_names() + [n for n in config.extra_outputs if n not in graph.output_names()]
     plan = _Planner(graph, config, input_avals, weight_loader, input_values).plan(list(fetch_names))
-    if config.mesh is None:
+    if config.mesh is None or config.pp_devices:
+        # pipeline stages hold whole weights and move whole activations (the
+        # JAX package's stages win over its mesh): the rank runs the staged
+        # plan on its whole inputs, unsharded
         return plan
     from onnxstream_tpu_torch.parallel.spmd import shard_plan
 

@@ -7,10 +7,15 @@ LLAMA_TINY at tp 1 / 2 / 4 / 8, ``activation_sharding`` and
 virtual devices, and ``make_mesh``'s factorizations and errors. The sharding
 pass (``parallel/spmd.py``) is run by the planner for one rank of a mesh
 (``_RankMesh``: the attributes of a DeviceMesh the pass and the rules read,
-so a plan can be made without a process group; nothing runs): every tensor
-of the LLAMA_TINY prefill and decode graphs gets a placement at tp = 2 and
-no ``ostpu.all_gather`` lies between the q / k / v projections and
-attention. The runs over spawned gloo ranks are ``tests/test_torch_sharded.py``.
+so a plan can be made without a process group): every tensor of the
+LLAMA_TINY prefill and decode graphs gets a placement at tp = 2 and no
+``ostpu.all_gather`` lies between the q / k / v projections and attention.
+The options a mesh once refused plan and run on one rank (its own blocks
+standing in for the other rank's in a gather), and the pieces that make
+them right are held here: the W8A8 producer lookup through a gather, one
+device's QDQ skip set, the staged slices, no pass beside pipeline stages,
+QDQ's strided sample and calibration's percentiles of the whole tensor.
+The runs over spawned gloo ranks are ``tests/test_torch_sharded.py``.
 """
 
 import dataclasses
@@ -47,6 +52,11 @@ class _RankMesh:
 
     def get_coordinate(self):
         return list(self.coordinate)
+
+    def get_group(self, dim: str) -> str:
+        """No process group: a test that runs a plan stands in for the
+        gathers (``_own_blocks``)."""
+        return dim
 
 
 def _rank_mesh(coordinate=None, **sizes) -> _RankMesh:
@@ -258,19 +268,259 @@ def _session_planned(text, weights, mesh, **config):
     return s
 
 
-REFUSED = [dict(hbm_budget_bytes=1 << 20), dict(use_uint8_arithmetic=True), dict(use_uint8_qdq=True),
+OPTIONS = [dict(hbm_budget_bytes=1 << 20), dict(use_uint8_arithmetic=True), dict(use_uint8_qdq=True),
            dict(range_data_calibrate=True), dict(hbm_budget_bytes=1 << 20, pp_devices=[CPU, CPU])]
 
 
-@pytest.mark.parametrize("options", REFUSED, ids=lambda o: "+".join(o))
-def test_mesh_refuses_streaming_stages_and_quantized_storage(options):
-    """A budget, pipeline stages and the calibrated W8A8 options are
-    refused under a mesh, naming the work left (weights quantized at fetch
-    are taken: ``test_mesh_takes_weights_quantized_at_fetch``)."""
+def _own_blocks(x, axis, group, dim="tp"):
+    """A gather over a mesh dim of ``group`` ranks with no other rank: this
+    rank's block stands in for each of theirs."""
+    return torch.cat([x] * 2, axis)
+
+
+@pytest.mark.parametrize("options", OPTIONS, ids=lambda o: "+".join(o))
+def test_mesh_plans_and_runs_every_option(options, monkeypatch):
+    """A budget, pipeline stages, the calibrated W8A8 and QDQ options and
+    calibration plan and run under a mesh (one rank of make_mesh(2, dp=1,
+    tp=2), no process group: the other rank's blocks are this rank's own, so
+    the values are not checked here but on two ranks in
+    tests/test_torch_sharded.py). Nothing falls back to a one-device run: a
+    budget streams the rank's slices in several segments, QDQ's percentiles
+    and calibration gather the whole tensors, calibration records no name
+    the pass made, and pipeline stages take the sharding pass's place."""
+    from onnxstream_tpu_torch.parallel import comm
+
+    monkeypatch.setattr(comm, "all_gather", _own_blocks)
     text, weights = tiny_unet(2)
     s = _session_planned(text, weights, _rank_mesh(dp=1, tp=2), **options)
-    with pytest.raises(NotImplementedError, match="calibrated W8A8 under a mesh"):
-        s.run()
+    out = s.run()["out_sample"]
+    assert out.shape == (2, 4, 16, 16) and np.isfinite(out).all()
+    ex = s._executor()
+    if "pp_devices" in options:
+        assert ex.mesh_info is None and not any(op.op_type.startswith("ostpu.all_") for op in ex.graph.ops)
+        return
+    assert any(w.shard for w in ex.plan.arg_weights) and ex.mesh_info.pass_ops
+    if "hbm_budget_bytes" in options:
+        assert ex.streamed and len(ex.segments) > 1
+        assert ex.hbm_accounting()["weight_bytes"] < ex.mesh_info.global_weight_bytes
+    if "range_data_calibrate" in options:
+        names = {op.name for op in ex.graph.ops if op.name not in ex.mesh_info.pass_ops}
+        ranges = ex.range_data.data
+        assert "sample" in ranges and len(ranges) > 20
+        assert all("@" not in k and (k in names or k in ex.plan.input_avals) for k in ranges)
+
+
+def _planned_graph(text, weights, inputs, mesh, **config):
+    """A Session of the graph with its inputs pushed, under ``mesh``."""
+    from onnxstream_tpu_torch import Session, SessionConfig
+    from onnxstream_tpu_torch.runtime.weights import DictWeightsProvider, params_from_numpy
+
+    s = Session(SessionConfig(device=CPU, mesh=mesh, **config),
+                weights_provider=DictWeightsProvider(params_from_numpy(weights)))
+    s.read_string(text)
+    for k, v in inputs.items():
+        s.add_tensor(k, v)
+    return s
+
+
+@pytest.mark.parametrize("coordinate", [0, 1])
+def test_w8a8_conv_finds_its_producer_through_a_gather(coordinate):
+    """The two-conv net at widths tp = 2 shards (32, 16): c2's input is c1's
+    tp-sharded output gathered by the pass (a tensor named by the pass), yet
+    c2 quantizes it with the range of m1, the op of the graph that made it,
+    as one device does; c1's input, a graph input, with its own range. Both
+    convs take kernel 4 on this rank's O / 2 weight channels, c2's (C = 32)
+    uploaded channels-last (its slice relayouted, not made contiguous
+    again), c1's (C = 4) in the file layout."""
+    from onnxstream_tpu_torch.runtime.quantization import range_to_scale
+    from test_torch_qlinear import _two_conv_net
+
+    _, _, qmodel, qweights, x = _two_conv_net(32, 16)
+    ranges = {"x": (-3.0, 3.5), "c1": (-7.0, 6.0), "s1": (0.0, 1.0), "m1": (-0.3, 5.0), "c2": (-9.0, 8.0)}
+    s = _planned_graph(qmodel, qweights, {"x": x}, _rank_mesh(coordinate=(0, coordinate), dp=1, tp=2),
+                       use_uint8_arithmetic=True, range_data=ranges)
+    ex = s._executor()
+    ops = {op.name: op for op in ex.graph.ops}
+    gathered = ops["c2"].inputs[0].name
+    assert "@" in gathered and ex._origin[gathered] == "hm" and ex._producer_op["hm"] == "m1"
+    assert ex.quant_routes == {"c1": "qconv", "c2": "qconv"}
+    assert ex._activation_qparams(ops["c2"]) == range_to_scale(*ranges["m1"])
+    assert ex._activation_qparams(ops["c1"]) == range_to_scale(*ranges["x"])
+    for name, o, transform in (("w1.bin", 32, None), ("w2.bin", 16, "ohwi")):
+        w = ex._arg_by_name[name]
+        assert w.transform == transform and w.shape[0] == o // 2 and w.file_shape[0] == o
+        assert w.shard == ((0, coordinate * o // 2, (coordinate + 1) * o // 2),)
+    # the channels-last slice kernel 4's wgmma variant takes, the slice of the file's weight
+    up = ex._upload(ex._arg_by_name["w2.bin"])
+    assert up.is_contiguous(memory_format=torch.channels_last) and not up.is_contiguous()
+    assert torch.equal(up, torch.from_numpy(qweights["w2.bin"][coordinate * 8:(coordinate + 1) * 8]))
+
+
+def test_qdq_skip_set_is_one_devices():
+    """use_uint8_qdq on the TINY VAE decoder at tp = 2: the skip set is the
+    one-device executor's (the graph's own adjacency and reference counts),
+    not the one the rank's graph would give with the pass's gathers and
+    slices between producers and consumers."""
+    from onnxstream_tpu_torch.models.sd.vae import VAE_TINY, build_vae_decoder
+    from onnxstream_tpu_torch.runtime.quantization import qdq_skip
+
+    g = build_vae_decoder(VAE_TINY, seed=7)
+    z = {"latent": np.random.RandomState(42).randn(1, 4, 8, 8).astype(np.float32)}
+    one = _planned_graph(g.to_text(), g.weights, z, None, use_uint8_qdq=True)._executor()
+    ex = _planned_graph(g.to_text(), g.weights, z, _rank_mesh(dp=1, tp=2), use_uint8_qdq=True)._executor()
+    assert ex.mesh_info.pass_ops and len(one._qdq_skip) > 10
+    assert ex._qdq_skip == one._qdq_skip
+    assert qdq_skip(ex.graph) != one._qdq_skip
+
+
+def test_sharded_weights_stage_their_slices():
+    """The TINY UNet at a 1 MiB budget on one rank of tp = 2: a sharded
+    weight never crosses as the whole file's bytes; its part of a staging
+    buffer is its slice's upload bytes, half the whole weight's, so the
+    rank crosses about half of one device's bytes, in fewer segments (the
+    budget is per rank)."""
+    from onnxstream_tpu_torch.runtime.executor import STAGING_ALIGN, upload_bytes
+
+    text, weights = tiny_unet(2)
+    ex = _session_planned(text, weights, _rank_mesh(dp=1, tp=2), hbm_budget_bytes=1 << 20)._executor()
+    one = _session_planned(text, weights, None, hbm_budget_bytes=1 << 20)._executor()
+    sharded = [w for w in ex.plan.arg_weights if w.shard]
+    assert len(sharded) > 20
+    for w in sharded:
+        whole = int(np.prod(w.file_shape)) * w.upload_dtype.itemsize
+        assert not ex._crosses_as_file_bytes(w)
+        assert ex._staged_bytes(w) == -(-upload_bytes(w) // STAGING_ALIGN) * STAGING_ALIGN
+        assert 2 * upload_bytes(w) == whole
+    crossed = [sum(e._staged_bytes(w) for w in e.plan.arg_weights) for e in (ex, one)]
+    assert crossed[0] < 0.6 * crossed[1]
+    assert 1 < len(ex.segments) < len(one.segments)
+
+
+def test_mesh_beside_pipeline_stages_runs_no_sharding_pass():
+    """mesh + pp_devices: the stages hold whole weights, so the planner
+    skips the pass: no gather, no slice, no sharded weight, the graph of
+    the unsharded staged plan."""
+    text, weights = tiny_unet(2)
+    pp = dict(hbm_budget_bytes=1 << 20, pp_devices=[CPU, CPU])
+    ex = _session_planned(text, weights, _rank_mesh(coordinate=(0, 1), dp=1, tp=2), **pp)._executor()
+    one = _session_planned(text, weights, None, **pp)._executor()
+    assert ex.mesh_info is None and not any(w.shard for w in ex.plan.arg_weights)
+    assert [op.name for op in ex.graph.ops] == [op.name for op in one.graph.ops]
+    assert len({ex.seg_stage(i) for i in range(len(ex.segments))}) == 2
+
+
+# (whole shape, {axis: mesh dim}, mesh sizes): strides 3 and 2 over the flattening; then three of the
+# full-width VAE_SD decoder's channel- and feature-sharded activations at tp = 2 (strides 2, 32 and 2)
+SAMPLES = [((3200, 1000), {1: "tp"}, {"tp": 2}), ((2, 1600, 1000), {0: "dp", 2: "tp"}, {"dp": 2, "tp": 2}),
+           ((2, 8, 411, 333), {1: "tp"}, {"tp": 4}), ((64, 32), {1: "tp"}, {"tp": 2}),
+           ((1, 512, 64, 64), {1: "tp"}, {"tp": 2}), ((1, 128, 512, 512), {1: "tp"}, {"tp": 2}),
+           ((1, 4096, 512), {2: "tp"}, {"tp": 2})]
+
+
+@pytest.mark.parametrize("shape,pmap,sizes", SAMPLES)
+def test_global_sample_is_one_devices_strided_sample(shape, pmap, sizes, monkeypatch):
+    """QDQ's percentiles with no range under a mesh: each rank's padded
+    share of the strided subsample, gathered (here: every rank's share
+    concatenated), sorts to the strided subsample one device takes of the
+    whole tensor (``xf[::n // 2^20]``), NaN padding last."""
+    import itertools
+
+    from onnxstream_tpu_torch.parallel import comm
+    from onnxstream_tpu_torch.parallel.spmd import MeshInfo
+    from onnxstream_tpu_torch.runtime.executor import Executor
+
+    whole = torch.from_numpy(np.random.RandomState(1).randn(*shape).astype(np.float32))
+    names = tuple(sizes)
+    shares = []
+
+    class _Taken(Exception):
+        pass
+
+    def take(x, axis, group, dim="tp"):
+        shares.append(x)
+        raise _Taken
+
+    monkeypatch.setattr(comm, "all_gather", take)
+    for coord in itertools.product(*(range(sizes[d]) for d in names)):
+        ex = Executor.__new__(Executor)
+        ex.config = dataclasses.replace(_session_config(), mesh=_rank_mesh(coordinate=coord, **sizes))
+        ex.mesh_info = MeshInfo(input_shapes={"t": shape}, fetch_alias={}, local_outputs={},
+                                placements={"t": pmap}, weight_placements={}, global_avals={}, global_weight_bytes=0,
+                                sizes=dict(sizes), coord=dict(zip(names, coord)))
+        local = whole
+        for axis, start, stop in ex.mesh_info.slices("t"):
+            local = local.narrow(axis, start, stop - start)
+        with pytest.raises(_Taken):
+            ex._global_sample("t", local)
+    n = whole.numel()
+    want = torch.sort(whole.reshape(-1)[:: max(n // (1 << 20), 1)]).values
+    got = torch.sort(torch.cat(shares)).values
+    assert len({s.numel() for s in shares}) == 1
+    assert torch.equal(got[:want.numel()], want) and torch.isnan(got[want.numel():]).all()
+
+
+# (whole tensor, sharded axis, ranks): one rank holding every extreme; non-finite values; a tensor
+# of one finite value; a block with no finite value
+PERCENTILE_CASES = {
+    "tp2": (np.random.RandomState(2).randn(64, 3000).astype(np.float32), 1, 2),
+    "tp4_skewed": (np.concatenate([np.random.RandomState(3).randn(4, 500).astype(np.float32) * s
+                                   for s in (1, 1, 1, 1000)], 0), 0, 4),
+    "nonfinite": (np.where(np.random.RandomState(4).rand(8, 40) < 0.1, np.nan,
+                           np.random.RandomState(5).randn(8, 40)).astype(np.float32), 0, 2),
+    "one_finite": (np.array([[np.inf, np.nan], [np.nan, 2.5]], np.float32), 0, 2)}
+
+
+@pytest.mark.parametrize("case", list(PERCENTILE_CASES))
+def test_calibration_percentiles_are_the_whole_tensors(case, monkeypatch):
+    """Calibration under a mesh: each rank gathers its block's finite count
+    and its k + 1 smallest and largest finite values (``_percentiles``); the
+    ranks' results are ``percentiles`` of the whole tensor, exactly. The
+    ranks run in threads here, their gathers concatenating every rank's
+    operand in rank order."""
+    import threading
+
+    from onnxstream_tpu_torch.parallel import comm
+    from onnxstream_tpu_torch.parallel.spmd import MeshInfo
+    from onnxstream_tpu_torch.runtime.executor import Executor, percentiles
+
+    whole, axis, parts = PERCENTILE_CASES[case]
+    whole = torch.from_numpy(whole)
+    slots, barrier = [None] * parts, threading.Barrier(parts)
+    rank_of = {}
+
+    def gather(x, axis_, group, dim="tp"):
+        r = rank_of[threading.get_ident()]
+        slots[r] = x
+        barrier.wait()
+        out = torch.cat(list(slots), axis_)
+        barrier.wait()
+        return out
+
+    monkeypatch.setattr(comm, "all_gather", gather)
+    got = [None] * parts
+
+    def rank(r):
+        rank_of[threading.get_ident()] = r
+        ex = Executor.__new__(Executor)
+        ex.config = dataclasses.replace(_session_config(), mesh=_rank_mesh(coordinate=(r,), tp=parts))
+        ex.mesh_info = MeshInfo(input_shapes={"t": tuple(whole.shape)}, fetch_alias={}, local_outputs={},
+                                placements={"t": {axis: "tp"}}, weight_placements={}, global_avals={},
+                                global_weight_bytes=0, sizes={"tp": parts}, coord={"tp": r})
+        (_, start, stop), = ex.mesh_info.slices("t")
+        got[r] = ex._percentiles("t", whole.narrow(axis, start, stop - start))
+
+    threads = [threading.Thread(target=rank, args=(r,)) for r in range(parts)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert got == [percentiles(whole)] * parts
+
+
+def _session_config():
+    from onnxstream_tpu_torch import SessionConfig
+
+    return SessionConfig(device=CPU)
 
 
 def test_llm_int8_weights_with_a_mesh_raise():

@@ -213,28 +213,29 @@ def test_qconv_refuses_what_the_kernel_does_not_take(bad):
 
 
 # ------------------------------------------------------- the executor's paths
-def _two_conv_net():
+def _two_conv_net(c1: int = 8, c2: int = 4):
     """The JAX suite's calibrated two-conv net (tests/test_qconv.py:88-110):
-    Conv -> SiLU as Sigmoid * x -> Conv, float and uint8[scale,zp] weights."""
+    Conv -> SiLU as Sigmoid * x -> Conv, float and uint8[scale,zp] weights;
+    c1 and c2 output channels (wider nets are what a tp mesh shards)."""
     rng = np.random.RandomState(3)
-    w1 = (rng.randn(8, 4, 3, 3) * 0.3).astype(np.float32)
-    b1 = (rng.randn(8) * 0.1).astype(np.float32)
-    w2 = (rng.randn(4, 8, 3, 3) * 0.3).astype(np.float32)
-    b2 = (rng.randn(4) * 0.1).astype(np.float32)
+    w1 = (rng.randn(c1, 4, 3, 3) * 0.3).astype(np.float32)
+    b1 = (rng.randn(c1) * 0.1).astype(np.float32)
+    w2 = (rng.randn(c2, c1, 3, 3) * 0.3).astype(np.float32)
+    b2 = (rng.randn(c2) * 0.1).astype(np.float32)
     x = rng.randn(1, 4, 16, 16).astype(np.float32)
 
     def model(wspec1, wspec2):
         return (
-            f"c1:Conv*input:x(1,4,16,16);{wspec1};b1.bin(float32:8)*output:h(1,8,16,16)*pads:1,1,1,1\n"
-            "s1:Sigmoid*input:h(1,8,16,16)*output:hs(1,8,16,16)\n"
-            "m1:Mul*input:h(1,8,16,16);hs(1,8,16,16)*output:hm(1,8,16,16)\n"
-            f"c2:Conv*input:hm(1,8,16,16);{wspec2};b2.bin(float32:4)*output:y(1,4,16,16)*pads:1,1,1,1\n"
+            f"c1:Conv*input:x(1,4,16,16);{wspec1};b1.bin(float32:{c1})*output:h(1,{c1},16,16)*pads:1,1,1,1\n"
+            f"s1:Sigmoid*input:h(1,{c1},16,16)*output:hs(1,{c1},16,16)\n"
+            f"m1:Mul*input:h(1,{c1},16,16);hs(1,{c1},16,16)*output:hm(1,{c1},16,16)\n"
+            f"c2:Conv*input:hm(1,{c1},16,16);{wspec2};b2.bin(float32:{c2})*output:y(1,{c2},16,16)*pads:1,1,1,1\n"
         )
 
     q1, sc1, zp1 = quantize_weight_percentile(w1)
     q2, sc2, zp2 = quantize_weight_percentile(w2)
-    fmodel = model("w1.bin(float32:8,4,3,3)", "w2.bin(float32:4,8,3,3)")
-    qmodel = model(f"w1.bin(uint8[{sc1},{zp1}]:8,4,3,3)", f"w2.bin(uint8[{sc2},{zp2}]:4,8,3,3)")
+    fmodel = model(f"w1.bin(float32:{c1},4,3,3)", f"w2.bin(float32:{c2},{c1},3,3)")
+    qmodel = model(f"w1.bin(uint8[{sc1},{zp1}]:{c1},4,3,3)", f"w2.bin(uint8[{sc2},{zp2}]:{c2},{c1},3,3)")
     return (fmodel, {"w1.bin": w1, "b1.bin": b1, "w2.bin": w2, "b2.bin": b2},
             qmodel, {"w1.bin": q1, "b1.bin": b1, "w2.bin": q2, "b2.bin": b2}, x)
 

@@ -22,7 +22,14 @@ suite), and run every case of ``parallel.dryrun.rank_cases``:
     (``dryrun.collective_grad_case``), and with the gather's backward broken;
   * the train step (``sharding.make_train_step``, one AdamW step of the TINY
     UNet) under ``make_mesh(8, dp=2)`` and ``make_mesh(8, dp=2, tp=2,
-    sp=2)`` on the eight ranks.
+    sp=2)`` on the eight ranks;
+  * the options a mesh once refused (``dryrun.session_case``,
+    ``streamed_case``, ``pp_mesh_case``): calibrated W8A8 (kernels 3 and 4
+    at tp-local shapes), QDQ with and without ranges, calibration, a 1 MiB
+    budget and pipeline stages beside a mesh, on the two-conv net, a W8A8
+    MatMul, the TINY VAE decoder, a QDQ graph whose shards' percentiles are
+    not the whole tensor's and the TINY UNet (two ranks; the UNet streamed
+    and the QDQ graph also under ``make_mesh(8, dp=2, tp=4)``).
 
 While they run, this process makes the references: the port's one-device
 runs and the JAX package's sharded runs on the conftest's eight virtual
@@ -53,12 +60,17 @@ from onnxstream_tpu.runtime.config import SessionConfig as JaxConfig
 from onnxstream_tpu.runtime.session import Session as JaxSession
 from onnxstream_tpu.runtime.weights import DictWeightsProvider as JaxDict
 from onnxstream_tpu_torch import Session, SessionConfig
+from onnxstream_tpu.models.sd.vae import VAE_TINY as JAX_VAE_TINY
+from onnxstream_tpu.models.sd.vae import build_vae_decoder as jax_build_vae_decoder
+from onnxstream_tpu.convert.quantize import quantize_graph_weights as jax_quantize_graph_weights
 from onnxstream_tpu_torch.parallel.dryrun import (LLM_BUCKETS, LLM_PROMPT, collective_grad_operands, llm_single,
                                                   rank_cases, run_session)
+from onnxstream_tpu_torch.runtime.quantization import quantize_weight_percentile
 from onnxstream_tpu_torch.parallel.launch import spawn
 from onnxstream_tpu_torch.runtime.weights import DictWeightsProvider, params_from_numpy
 from test_torch_ops_card import OP_CASES
 from test_torch_parallel import SDPA_SP_CASES
+from test_torch_qlinear import _two_conv_net
 from test_torch_train import POW_EXPONENTS, assert_updated_weights_close
 
 CPU = torch.device("cpu")
@@ -75,12 +87,57 @@ def _inputs(batch, context_len=7):
             "encoder_hidden_states": rng.rand(batch, context_len, 32).astype(np.float32)}
 
 
-def _jax_unet(g, inputs, mesh=None):
-    s = JaxSession(config=JaxConfig(mesh=mesh), weights_provider=JaxDict(g.weights))
+def _jax_unet(g, inputs, mesh=None, **config):
+    s = JaxSession(config=JaxConfig(mesh=mesh, **config), weights_provider=JaxDict(g.weights))
     s.read_string(g.to_text())
     for k, v in inputs.items():
         s.add_tensor(k, v)
     return np.asarray(s.run()["out_sample"], np.float32)
+
+
+def _jax_session(text, weights, inputs, mesh=None, eager=False, **config):
+    """The JAX package's session of a graph: its outputs as float32 numpy
+    and its executor."""
+    s = JaxSession(config=JaxConfig(mesh=mesh, **config), weights_provider=JaxDict(dict(weights)))
+    s.read_string(text)
+    for k, v in inputs.items():
+        s.add_tensor(k, v)
+    return {k: np.asarray(v, np.float32) for k, v in s.run(eager=eager).items()}, s._executor()
+
+
+def _w8a8_matmul():
+    """A MatMul with a uint8 weight of 40 columns (tp = 2 slices them, the
+    rank's (20, 48) then K-major for kernel 3) and ranges for it and for its
+    input, a graph input."""
+    rng = np.random.RandomState(9)
+    wf = rng.randn(48, 40).astype(np.float32)
+    wq, scale, zero = quantize_weight_percentile(wf)
+    x = rng.randn(2, 6, 48).astype(np.float32)
+    model = f"mm:MatMul*input:x(2,6,48);w.bin(uint8[{scale},{zero}]:48,40)*output:y(2,6,40)\n"
+    return model, {"w.bin": wq}, {"x": x}, {"x": (float(x.min()), float(x.max())), "mm": (-5.0, 5.0)}
+
+
+def _halves(batch, rows, n):
+    """y = x @ w, then y + relu(y): y is read twice, so QDQ quantizes it.
+    w's last n / 2 columns are 85 times its first, so each tp shard of y
+    (its columns) has percentiles of its own, far from the whole tensor's.
+    x's rows are one-hot: y's rows are w's, small integers, exact in both
+    packages, and the whole tensor's range is [-255, 255], whose scale (2)
+    is exact however a package divides by 255. Big enough (rows x n past
+    2^21) that QDQ's sample is strided."""
+    rng = np.random.RandomState(4)
+    x = np.eye(64, dtype=np.float32)[rng.randint(0, 64, (batch, rows))]
+    w = rng.randint(-3, 4, (64, n)).astype(np.float32)
+    w[:, n // 2:] *= 85
+    model = (f"mm:MatMul*input:x({batch},{rows},64);w.bin(float32:64,{n})*output:y({batch},{rows},{n})\n"
+             f"r:Relu*input:y({batch},{rows},{n})*output:yr({batch},{rows},{n})\n"
+             f"o:Add*input:y({batch},{rows},{n});yr({batch},{rows},{n})*output:out({batch},{rows},{n})\n")
+    return model, {"w.bin": w}, {"x": x}
+
+
+HALVES = {"small": (1, 64, 32), "strided": (1, 3200, 1000), "strided_dp2tp4": (2, 1600, 1000)}
+VAE_IN = {"latent": np.random.RandomState(42).randn(1, 4, 8, 8).astype(np.float32)}
+BUDGET = 1 << 20
 
 
 def _jax_llm(tp, int8_weights=False):
@@ -146,6 +203,26 @@ def runs():
                                          mesh=dict(dp=2, tp=2, sp=2))),
               ("mesh", "mesh", {})]
     u8 = dict(force_uint8_storage_set=_u8_set(w1), uint8_per_channel=True)
+    fconv, fconv_w, qconv, qconv_w, conv_x = _two_conv_net(32, 16)
+    conv_ranges = run_session(fconv, fconv_w, {"x": conv_x}, CPU, range_data_calibrate=True)[1]._executor() \
+        .range_data.data
+    conv_cfg = {"w8a8": dict(use_uint8_arithmetic=True, range_data=dict(conv_ranges)),
+                "qdq": dict(use_uint8_qdq=True, range_data=dict(conv_ranges)), "qdq_no_ranges": dict(use_uint8_qdq=True)}
+    mm_text, mm_w, mm_in, mm_ranges = _w8a8_matmul()
+    vae = jax_build_vae_decoder(JAX_VAE_TINY, seed=7)
+    vae_text, vae_w = vae.to_text(), dict(vae.weights)
+    vae_ranges = run_session(vae_text, vae_w, VAE_IN, CPU, range_data_calibrate=True,
+                             fuse_ops_in_attention=True)[1]._executor().range_data.data
+    vae_qtext, vae_qw = jax_quantize_graph_weights(vae_text, vae_w)
+    vae_cfg = dict(fuse_ops_in_attention=True, use_uint8_arithmetic=True, range_data=dict(vae_ranges))
+    halves = {k: _halves(*v) for k, v in HALVES.items()}
+    tp2 = dict(dp=1, tp=2)
+    cases8 += [("unet_streamed", "streamed", dict(text=text2, weights=w2, inputs=_inputs(2), mesh=dict(dp=2, tp=4),
+                                                 budget=BUDGET)),
+               ("qdq_strided_dp2tp4", "session", dict(text=halves["strided_dp2tp4"][0],
+                                                      weights=halves["strided_dp2tp4"][1],
+                                                      inputs=halves["strided_dp2tp4"][2], mesh=dict(dp=2, tp=4),
+                                                      use_uint8_qdq=True))]
     cases2 = [("llm_tp2", "llm", dict(mesh=dict(dp=1, tp=2))),
               ("llm_tp2_int8", "llm", dict(mesh=dict(dp=1, tp=2), int8_weights=True)),
               ("unet_u8", "unet", dict(text=text1, weights=w1, inputs=_inputs(1), mesh=dict(dp=1, tp=2),
@@ -158,6 +235,23 @@ def runs():
                                                  for k, (text, inputs, weights) in OP_CASES.items()],
                                          mesh=dict(dp=2))),
               ("mesh", "mesh", {})]
+    cases2 += [(f"conv_{k}", "session", dict(text=qconv, weights=qconv_w, inputs={"x": conv_x}, mesh=tp2, **cfg))
+               for k, cfg in conv_cfg.items()]
+    cases2 += [("mm_w8a8", "session", dict(text=mm_text, weights=mm_w, inputs=mm_in, mesh=tp2,
+                                           use_uint8_arithmetic=True, range_data=mm_ranges)),
+               ("vae_calibration", "session", dict(text=vae_text, weights=vae_w, inputs=VAE_IN, mesh=tp2,
+                                                   range_data_calibrate=True, fuse_ops_in_attention=True)),
+               ("vae_w8a8", "session", dict(text=vae_qtext, weights=vae_qw, inputs=VAE_IN, mesh=tp2, **vae_cfg)),
+               ("unet_streamed_tp2", "streamed", dict(text=text2, weights=w2, inputs=_inputs(2), mesh=tp2,
+                                                      budget=BUDGET)),
+               ("unet_streamed_synth", "streamed", dict(text=text1, weights=w1, inputs=_inputs(1), mesh=tp2,
+                                                        budget=BUDGET, **SYNTH)),
+               ("unet_streamed_u8", "streamed", dict(text=text1, weights=w1, inputs=_inputs(1), mesh=tp2,
+                                                     budget=BUDGET // 4, **u8)),
+               ("pp_mesh", "pp_mesh", dict(text=text1, weights=w1, inputs=_inputs(1), mesh=tp2, budget=BUDGET,
+                                           stages=2))]
+    cases2 += [(f"qdq_{k}", "session", dict(text=halves[k][0], weights=halves[k][1], inputs=halves[k][2], mesh=tp2,
+                                            use_uint8_qdq=True)) for k in ("small", "strided")]
     with ThreadPoolExecutor(2) as pool:
         f8 = pool.submit(spawn, rank_cases, 8, "gloo", "cpu", GROUP_TIMEOUT_S, (cases8,))
         f2 = pool.submit(spawn, rank_cases, 2, "gloo", "cpu", GROUP_TIMEOUT_S, (cases2,))
@@ -172,6 +266,18 @@ def runs():
                "port_unet_u8": run_session(text1, w1, _inputs(1), CPU, **u8),
                "jax_train_dp2": _jax_train(g2, _inputs(2), jax_make_mesh(8, dp=2)),
                "jax_train_sp": _jax_train(g2sp, _inputs(2, 16), jax_make_mesh(8, dp=2, tp=2, sp=2))}
+        jtp2 = jax_make_mesh(2, dp=1, tp=2)
+        ref["jax_conv"] = {k: _jax_session(qconv, qconv_w, {"x": conv_x}, jtp2, **cfg)[0]["y"]
+                           for k, cfg in conv_cfg.items()}
+        ref["jax_mm"] = _jax_session(mm_text, mm_w, mm_in, jtp2, use_uint8_arithmetic=True, range_data=mm_ranges)[0]
+        ref["jax_vae_ranges"] = dict(_jax_session(vae_text, vae_w, VAE_IN, jtp2, eager=True, range_data_calibrate=True,
+                                                  fuse_ops_in_attention=True)[1].range_data.data)
+        ref["jax_vae_w8a8"] = _jax_session(vae_qtext, vae_qw, VAE_IN, jtp2, **vae_cfg)[0]
+        ref["jax_halves"] = {k: _jax_session(*halves[k], jax_make_mesh(8, dp=2, tp=4) if "dp2" in k else jtp2,
+                                             use_uint8_qdq=True)[0]["out"] for k in halves}
+        ref["jax_unet_streamed"] = {"tp2": _jax_unet(g2, _inputs(2), jtp2, hbm_budget_bytes=BUDGET),
+                                    "dp2tp4": _jax_unet(g2, _inputs(2), jax_make_mesh(8, dp=2, tp=4),
+                                                        hbm_budget_bytes=BUDGET)}
         return {"ref": ref, 8: f8.result(), 2: f2.result()}
 
 
@@ -536,3 +642,120 @@ def test_pp_runs_do_not_release_stage_weights():
     np.testing.assert_array_equal(y1, y2)
     assert all(ex._resident[k][0] is t for k, t in held.items())
     assert all(t.numel() for t in held.values())
+
+
+# ----------------------------------------------- the options a mesh once refused
+
+
+@pytest.mark.parametrize("case", ["w8a8", "qdq", "qdq_no_ranges"])
+def test_two_conv_net_at_tp2_matches_jax(runs, case):
+    """The two-conv net at widths tp = 2 shards (c1 32, c2 16 output
+    channels) on both ranks, calibrated W8A8 (kernel 4 at O / 2 a rank), QDQ
+    with the one-device ranges and QDQ with none (percentiles taken at run
+    time), within rel 1e-5 of JAX's sharded session on two virtual devices.
+    c2 reads c1's sharded output through the pass's gather: with the
+    producer looked up in the rank's graph (the gather's name, no range) it
+    quantizes with its own output range, and the W8A8 case fails."""
+    want = runs["ref"]["jax_conv"][case]
+    for rank, r in enumerate(runs[2]):
+        got = r[f"conv_{case}"]
+        assert _rel(got["out"]["y"], want) <= 1e-5, rank
+        assert got["routes"] == ({"c1": "qconv", "c2": "qconv"} if case == "w8a8" else {})
+        assert got["gathers"]["tp"]["calls"] > 0
+
+
+def test_w8a8_matmul_at_tp2_matches_jax(runs):
+    """A W8A8 MatMul on two ranks: each runs kernel 3's route on its (20, 48)
+    K-major slice of the (48, 40) weight (tnk after the slice), the output
+    gathered; within rel 1e-5 of JAX's sharded session."""
+    want = runs["ref"]["jax_mm"]["y"]
+    for r in runs[2]:
+        got = r["mm_w8a8"]
+        assert got["routes"] == {"mm": "qmatmul"}
+        assert got["hbm"]["sharded_weight_bytes"] == 20 * 48
+        assert _rel(got["out"]["y"], want) <= 1e-5
+
+
+def test_tiny_vae_calibration_at_tp2_is_the_whole_tensors(runs):
+    """Calibration of the TINY VAE decoder on two ranks records the whole
+    tensors' ranges (each sharded output gathered) under the graph's own op
+    and input names only, the same on both ranks, equal to JAX's (its
+    run_eager is mesh-blind) within rtol 1e-6."""
+    want = runs["ref"]["jax_vae_ranges"]
+    got = [r["vae_calibration"]["ranges"] for r in runs[2]]
+    assert got[0] == got[1]
+    assert sorted(got[0]) == sorted(want) and "latent" in want and len(want) > 20
+    assert not any("@" in k for k in got[0])
+    for k, (lo, hi) in want.items():
+        np.testing.assert_allclose(got[0][k], (lo, hi), rtol=1e-6, atol=1e-6 * max(abs(lo), abs(hi), 1.0), err_msg=k)
+
+
+def test_tiny_vae_w8a8_decode_at_tp2_matches_jax(runs):
+    """The TINY VAE decoder in W8A8 on two ranks with one device's ranges:
+    kernel 4 at O / 2 where tp slices a conv, the same routes as one device,
+    within rel 1e-5 of JAX's sharded session."""
+    want = runs["ref"]["jax_vae_w8a8"]
+    for r in runs[2]:
+        got = r["vae_w8a8"]
+        assert set(got["routes"].values()) == {"qconv", "qmatmul"} and len(got["routes"]) > 10
+        assert got["hbm"]["sharded_weight_bytes"] > 0
+        for k, w in want.items():
+            assert _rel(got["out"][k], w) <= 1e-5, k
+
+
+@pytest.mark.parametrize("case", list(HALVES))
+def test_qdq_percentiles_are_the_whole_tensors(runs, case):
+    """QDQ with no ranges where each shard's percentiles differ from the
+    whole tensor's (halves of the columns 64 times apart): every rank
+    quantizes its block with the whole tensor's (scale, zero), from the
+    strided subsample one device takes (stride 3 past 2^21 elements), so the
+    output equals JAX's sharded session's (exact integer arithmetic up to
+    the quantization); at tp = 2 and, batch split too, at dp = 2 x tp = 4."""
+    want = runs["ref"]["jax_halves"][case]
+    group = runs[8] if "dp2" in case else runs[2]
+    for rank, r in enumerate(group):
+        got = r[f"qdq_{case}"]["out"]["out"]
+        assert _rel(got, want) <= 1e-5, rank
+    _, weights, inputs = _halves(*HALVES[case])
+    y = inputs["x"] @ weights["w.bin"]
+    assert np.abs(want - (y + np.maximum(y, 0))).max() > 0, "the quantization changed nothing"
+
+
+@pytest.mark.parametrize("case", ["tp2", "dp2tp4", "synth", "u8"])
+def test_streamed_unet_under_a_mesh(runs, case):
+    """The TINY UNet at a 1 MiB budget a rank, under make_mesh(2, dp=1,
+    tp=2) and make_mesh(8, dp=2, tp=4), on weights synthesized on the device
+    and with weights quantized at fetch: two streamed runs bit for bit with
+    the resident run of the same mesh on the same rank (at 256 KiB for the
+    quantized weights, a quarter of the bytes); within the suite's
+    bar of JAX's mesh + budget session (of the port's one-device run for
+    the synthesized and quantized weights, which JAX does not make alike).
+    A sharded weight crosses as its slice, never as the whole file's bytes."""
+    group, label = (runs[8], "unet_streamed") if case == "dp2tp4" else (runs[2], f"unet_streamed_{case}")
+    want = {"tp2": runs["ref"]["jax_unet_streamed"]["tp2"], "dp2tp4": runs["ref"]["jax_unet_streamed"]["dp2tp4"],
+            "synth": runs["ref"]["port_synth"][0], "u8": runs["ref"]["port_unet_u8"][0]}[case]
+    for rank, r in enumerate(group):
+        got = r[label]
+        np.testing.assert_array_equal(got["out"], got["resident"], err_msg=f"rank {rank}")
+        np.testing.assert_array_equal(got["again"], got["resident"], err_msg=f"rank {rank}")
+        np.testing.assert_allclose(got["out"], want, rtol=2e-4, atol=1e-5, err_msg=f"rank {rank}")
+        assert got["segments"] > 1 and got["hbm"]["mode"] == "streamed"
+        sharded = [c for c in got["crossed"].values() if c["shard"]]
+        assert sharded and not any(c["file_bytes"] for c in sharded)
+        assert all(c["staged"] < c["upload"] + 256 for c in sharded)
+
+
+def test_mesh_beside_pipeline_stages_is_the_staged_run(runs):
+    """mesh + pp_devices on two ranks: the stages hold whole weights, so the
+    pass does not run and each rank's output is the unsharded staged run's,
+    bit for bit, with no gather."""
+    for r in runs[2]:
+        got = r["pp_mesh"]
+        assert not got["sharded"] and not got["gathers"]
+        assert sorted(set(got["stages"])) == [0, 1]
+        np.testing.assert_array_equal(got["out"], got["plain"])
+
+
+def _rel(got, want) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / (np.abs(want).max() + 1e-12))
