@@ -24,7 +24,15 @@ Phases (any failure exits non-zero and prints no result line):
          sites (1024 x 1024, 128 x 1024, 512 x 512) and at every mask group,
          k_transposed, GQA (Hkv < H on the wgmma variant too), causal M > N
          (exactly 0) and D = 128 / 256, each case's variant printed, the
-         site's time beside the mma variant's;
+         site's time beside the mma variant's; float32 operands take tf32x3
+         (three TF32 products on the tensor cores) wherever the 16-bit ones
+         take wgmma and fa_fma_kernel elsewhere (K given transposed, head
+         dims above 128), held to the twin at 1e-4; tf32x3 timed beside
+         fa_fma_kernel (wgmma=0), the twin and SDPA, with its 3-pass TF32
+         bound and the FMA bound, at the SD1.5 UNet's two sites (and one
+         float32 UNet run's 10 calls), Whisper base's (1, 1500, 8 x 64) and
+         the float32 TinyLlama prefill, whole (32 / 4 heads) and a rank's
+         share at tp = 2 (16 / 2), with a float32 mask;
        - w8a8_dyn_matmul at every TinyLlama MatMul shape (M 1 / 128 / 512 /
          1024) with the (K, N) weight, and with the K-major (N, K) weight the
          int8 route uploads (M 1 / 16 / 17 / 128 / 512 / 1024: the GEMV and
@@ -163,7 +171,10 @@ Phases (any failure exits non-zero and prints no result line):
      decode times, peak memory and weight bytes are printed; one prefill's 22
      flash calls are recorded: all on the wgmma variant, held against the
      twin on the graph's operands with a second call's bits, timed beside the
-     mma variant, SDPA and the twin, and replayed;
+     mma variant, SDPA and the twin, and replayed; the float32 model's
+     prefill (the bf16 logits' yardstick): its 22 calls all on tf32x3, each
+     held to the twin at 1e-4, then timed beside fa_fma_kernel, SDPA and
+     the twin with both bounds, and replayed;
   8. LLM slice, int8 weights: LLAMA_TINY int8 in fp32 on the card against the
      CPU (tokens equal, logits within 1e-3 * max), then TinyLlama with
      int8_weights=True on the same host weights answers the same three
@@ -196,7 +207,9 @@ Phases (any failure exits non-zero and prints no result line):
      vs off cross K / V within 5e-2 * max; host syncs a token not growing;
      tokens, encoder / prefill / decode-step wall and device busy, peak
      memory and device weight bytes, the bf16 vs fp32 logits nrms, and one
-     encoder run's 6 calls at the site beside SDPA, the twin and the bound;
+     encoder run's 6 calls at the site beside SDPA, the twin and the bound
+     (float32: every call on tf32x3, beside fa_fma_kernel and the FMA
+     bound);
  10. op library (phase_ops): every case of tests/test_torch_ops_card.py (the
      ONNX op types of the Whisper / YOLO slice and Conv of rank 3) on the
      card against the CPU, float32 within 1e-5 and bf16 within 1e-2 of
@@ -254,7 +267,9 @@ Phases (any failure exits non-zero and prints no result line):
      launches in those runs (0);
  16. force_fp16_storage (phase_fp16_storage): the SD15 UNet in float32
      compute with float16-resident weights, three requests, 10 kernel-1
-     launches a run (fma, the first held to the twin), within 1e-4 * max|out|
+     launches a run (tf32x3 every one, the first held to the twin; one run's
+     10 calls replayed beside fa_fma_kernel, SDPA and both bounds), within
+     1e-4 * max|out|
      of float32 storage of the float16-rounded weights; resident weight bytes
      (hbm_accounting and the allocator) 0.45-0.55 of that run's; peaks within
      the bound + PEAK_SLACK; the same streamed at 512 MiB (segments, bytes,
@@ -279,7 +294,8 @@ Phases (any failure exits non-zero and prints no result line):
      each step's logits within the same bound of the one-rank run's (printed
      beside both runs' gap to the float32 model); kernel 2 launched 22 times
      a prefill at (1, 16, 1024, 64) on
-     each rank, every call held to its twin; the SD15 UNet at batch 2 (the
+     each rank, every call held to its twin (float32 every call on tf32x3,
+     bf16 on wgmma); the SD15 UNet at batch 2 (the
      CFG pair, bf16, synthesized weights) under make_mesh(2, dp=2) and
      make_mesh(2, tp=2), each within 5e-2 * max|out| of the one-rank batch-2
      run, kernel 1's every call held to its twin at the local shapes; per
@@ -369,7 +385,9 @@ KERNEL_SOURCES = {"flash_attention": "flash_attention_packed, flash_attention",
 VAE_SITE = (4096, 512)  # (tokens, head dim) of the SD VAE mid-block attention at 512 x 512, 1 head
 # NVIDIA H100 SXM, dense rates (NVIDIA's data sheet), for the bounds
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+# "tf32x3": the dense TF32 rate over the three TF32 products that a float32
+# product takes on the tensor cores (csrc fa_tf32_kernel); "f32": CUDA-core FMAs
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12, "tf32x3": 495e12 / 3}
 EX2_PER_CLOCK_PER_SM = 16  # exp2 on Hopper's special-function units: 4 a clock per SM sub-partition
 # 16-bit flash outputs: ||out - twin||2 / ||twin||2 at most this. With randn
 # operands an output's rms is about sqrt(e / keys) (0.026 at 4096 keys), so
@@ -507,6 +525,13 @@ def bound(nbytes: float, ops: float, peak: str, exps: float = 0) -> dict:
     return {"bound_ms": t[op], "bound_by": "bytes" if op == "HBM" else "operations", "bound_op": op}
 
 
+def f32_bounds(nbytes: float, ops: float, exps: float = 0) -> dict:
+    """A float32 flash call's bound on its tensor-core route (tf32x3: three
+    TF32 products a product), with the CUDA-core FMA bound (f32) beside it
+    as ``f32_bound_ms``."""
+    return {**bound(nbytes, ops, "tf32x3", exps), "f32_bound_ms": bound(nbytes, ops, "f32", exps)["bound_ms"]}
+
+
 def _rel_l2(out, ref) -> float:
     """||out - ref||2 / ||ref||2 in float32."""
     r = ref.float()
@@ -610,6 +635,7 @@ def phase_kernel(name: str) -> dict:
     cases = [
         ("sd15_d40", 1, 4096, 4096, 8, 8, 40, False),
         ("sd15_d80", 1, 1024, 1024, 8, 8, 80, False),
+        ("whisper_site", 1, 1500, 1500, 8, 8, 64, False),  # Whisper base's encoder
         ("d40_ragged_gqa", 2, 77, 300, 8, 4, 40, False),
         ("d80_causal_m_gt_n", 1, 200, 150, 2, 2, 80, True),
         ("gqa_causal", 2, 300, 700, 8, 2, 64, True),
@@ -620,6 +646,8 @@ def phase_kernel(name: str) -> dict:
         ("d512_causal_m_gt_n", 1, 100, 40, 2, 1, 512, True),
     ]
     worst_bf16, bad = 0.0, []
+    # float32 takes tf32x3 (three TF32 products on the tensor cores) at head
+    # dims up to 128, fa_fma_kernel above
     for label, b, m, n, h, hkv, d, causal in cases:
         q32 = torch.randn(b, m, h * d, device="cuda", generator=gen)
         k32 = torch.randn(b, n, hkv * d, device="cuda", generator=gen)
@@ -645,6 +673,8 @@ def phase_kernel(name: str) -> dict:
                 worst_bf16 = max(worst_bf16, err)
                 if not variant.startswith("wgmma"):
                     raise SystemExit(f"{label}: the packed entry took the {variant} variant, not a wgmma one")
+            if dt == torch.float32 and variant != ("tf32x3" if d <= 128 else "fma"):
+                raise SystemExit(f"{label} float32: the packed entry took the {variant} variant")
             if m > n and causal:
                 zero_rows = out[:, : m - n]
                 if zero_rows.abs().max().item() != 0.0:
@@ -696,7 +726,42 @@ def phase_kernel(name: str) -> dict:
     by_shape[f"{m}x{d}_h1"] = {"ms": vae[0], "plain_ms": vae[1], "library_ms": vae[2],
                                "variant": _packed_variant(q, k, v, 1), **site}
     return {"max_abs_err": worst_bf16, "ms": per_run[0], "earlier_variant_ms": per_run[1], "plain_ms": per_run[2],
-            **run_bound, "library_ms": per_run[3], "ms_by_shape": by_shape}
+            **run_bound, "library_ms": per_run[3], "ms_by_shape": by_shape, "float32": _packed_f32_times(gen, name)}
+
+
+def _packed_f32_times(gen, name: str) -> dict:
+    """Kernel 1 in float32 (tf32x3) at the SD1.5 UNet's two site shapes (and
+    one UNet run's 10 calls) and Whisper base's encoder site, beside
+    fa_fma_kernel on the same operands (wgmma=0), the twin and SDPA, with
+    the 3-pass TF32 bound and the FMA bound."""
+    from onnxstream_tpu_torch.kernels.flash_attention import (
+        flash_attention_packed, flash_attention_packed_reference)
+
+    out, run, nbytes, ops, exps = {}, [0.0] * 4, 0, 0, 0
+    for label, m, h, d, per_run in (("sd15_d40", 4096, 8, 40, 5), ("sd15_d80", 1024, 8, 80, 5),
+                                    ("whisper", 1500, 8, 64, 0)):
+        q, k, v = (torch.randn(1, m, h * d, device="cuda", generator=gen) for _ in range(3))
+        variant = _packed_variant(q, k, v, h)
+        if variant != "tf32x3":
+            raise SystemExit(f"float32 {label}: the packed entry took the {variant} variant, not tf32x3")
+        fma, _ = _packed_earlier(q, k, v, h)
+        t = (device_ms(lambda: flash_attention_packed(q, k, v, h)), device_ms(fma, iters=3),
+             device_ms(lambda: flash_attention_packed_reference(q, k, v, h)), device_ms(lambda: _sdpa_packed(q, k, v, h)))
+        cost = (4 * _nbytes(q), 4 * m * m * h * d, h * m * m)
+        site = f32_bounds(*cost)
+        print(f"time float32 (1, {m}, {h * d}) h{h} d{d} ({label}): kernel {t[0]:.4f} ms ({variant}; fa_fma_kernel "
+              f"{t[1]:.4f} ms), twin {t[2]:.4f} ms, scaled_dot_product_attention {t[3]:.4f} ms, bound "
+              f"{site['bound_ms']:.4f} ms ({site['bound_op']}), FMA bound {site['f32_bound_ms']:.4f} ms  [{name}]")
+        out[label] = {"ms": t[0], "earlier_variant_ms": t[1], "plain_ms": t[2], "library_ms": t[3], "variant": variant,
+                      **site}
+        run = [a + per_run * b for a, b in zip(run, t)]
+        nbytes, ops, exps = nbytes + per_run * cost[0], ops + per_run * cost[1], exps + per_run * cost[2]
+    b = f32_bounds(nbytes, ops, exps)
+    print(f"one float32 UNet run's 10 sites: kernel {run[0]:.4f} ms, fa_fma_kernel {run[1]:.4f} ms, twin {run[2]:.4f} "
+          f"ms, scaled_dot_product_attention {run[3]:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_op']}), FMA bound "
+          f"{b['f32_bound_ms']:.4f} ms  [{name}]")
+    out["sd15_run"] = {"ms": run[0], "earlier_variant_ms": run[1], "plain_ms": run[2], "library_ms": run[3], **b}
+    return out
 
 
 def _session(text: str, weights, compute_dtype: str, device: str, **options):
@@ -957,10 +1022,14 @@ def phase_kernel_head_major(name: str) -> dict:
             ref = flash_attention_reference(q, k, v, mask=mask, k_transposed=kt, causal=causal)
             err = (out.float() - ref.float()).abs().max().item()
             ok = torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol)
-            print(f"head-major kernel vs twin {label} {str(dt)[6:]} ({flash_variant(q, k, v, mask, kt)}): "
+            variant = flash_variant(q, k, v, mask, kt)
+            print(f"head-major kernel vs twin {label} {str(dt)[6:]} ({variant}): "
                   f"max|diff| {err:.3e} (rtol=atol={tol}) {'ok' if ok else 'FAIL'}")
             if not ok:
                 raise SystemExit(f"head-major flash kernel disagrees with its twin on {label} {dt}")
+            # float32: tf32x3 but for K given transposed and head dims above 128 (fa_fma_kernel)
+            if dt == torch.float32 and variant != ("fma" if kt or d > 128 else "tf32x3"):
+                raise SystemExit(f"head-major {label} float32 took the {variant} variant")
             if label == "tinyllama_prefill" and dt == torch.bfloat16:
                 site_err = err
             if causal and m > n and out[:, :, : m - n].abs().max().item() != 0.0:
@@ -975,7 +1044,26 @@ def phase_kernel_head_major(name: str) -> dict:
     print(f"time bf16 (1, 32, {L}, {D}) with a (1, 1, {L}, {L}) bf16 mask: kernel {t_k:.4f} ms "
           f"({flash_variant(q, k, v, mask)}; the mma variant {t_e:.4f} ms), twin {t_p:.4f} ms, "
           f"scaled_dot_product_attention {t_l:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_op']})  [{name}]")
-    return {"max_abs_err": site_err, "ms": t_k, "earlier_variant_ms": t_e, "plain_ms": t_p, **b, "library_ms": t_l}
+    # float32: the TinyLlama prefill (32 query / 4 KV heads) and a rank's share of it at tp = 2 (16 / 2), each
+    # with its (1, 1, L, L) float32 mask, on tf32x3 beside fa_fma_kernel (wgmma=0), the twin and SDPA
+    f32 = {}
+    for label, h, hkv in (("tinyllama_prefill", 32, 4), ("tp2_prefill", 16, 2)):
+        q, k, v, mask = _hm_inputs(gen, 1, h, hkv, L, L, D, "causal", False, None)
+        variant = flash_variant(q, k, v, mask)
+        if variant != "tf32x3":
+            raise SystemExit(f"float32 {label}: the head-major entry took the {variant} variant, not tf32x3")
+        t = (device_ms(lambda: flash_attention(q, k, v, mask=mask)), device_ms(_flash_earlier(q, k, v, mask=mask)),
+             device_ms(lambda: flash_attention_reference(q, k, v, mask=mask)),
+             device_ms(_sdpa_library(q, k, v, mask=mask)))
+        fb = f32_bounds(*_flash_cost(q, k, v, mask))
+        print(f"time float32 (1, {h}, {L}, {D}), {hkv} KV heads, with a (1, 1, {L}, {L}) float32 mask ({label}): kernel "
+              f"{t[0]:.4f} ms ({variant}; fa_fma_kernel {t[1]:.4f} ms), twin {t[2]:.4f} ms, "
+              f"scaled_dot_product_attention {t[3]:.4f} ms, bound {fb['bound_ms']:.4f} ms ({fb['bound_op']}), FMA "
+              f"bound {fb['f32_bound_ms']:.4f} ms  [{name}]")
+        f32[label] = {"ms": t[0], "earlier_variant_ms": t[1], "plain_ms": t[2], "library_ms": t[3], "variant": variant,
+                      **fb}
+    return {"max_abs_err": site_err, "ms": t_k, "earlier_variant_ms": t_e, "plain_ms": t_p, **b, "library_ms": t_l,
+            "float32": f32}
 
 
 # ------------------------------------------------------ the quantized matmuls
@@ -1201,7 +1289,8 @@ def _qmm_cost(a, w, *scales, out_dtype=None, weight_nk=False):
     return _nbytes(a, w, *scales) + m * n * out_elt, 2 * m * k * n
 
 
-def replay_times(label: str, calls, kernel, twin, library, peak: str, name: str, cost=None, earlier=None) -> dict:
+def replay_times(label: str, calls, kernel, twin, library, peak: str, name: str, cost=None, earlier=None,
+                 also_peak=None) -> dict:
     """The recorded calls of one graph run replayed in order: the kernel,
     its twin and, where every call has one, the PyTorch yardstick (library
     maps a call to a no-argument function or None). The weights are the
@@ -1209,7 +1298,8 @@ def replay_times(label: str, calls, kernel, twin, library, peak: str, name: str,
     ``cost`` maps a call to its (bytes, operations); a quantized matmul's
     by default. ``earlier`` maps a call to a no-argument function that runs
     it on the variant the kernel took before its redesign, replayed and
-    timed the same way."""
+    timed the same way. ``also_peak`` names a second rate whose bound is
+    printed and returned beside the first (``<also_peak>_bound_ms``)."""
     nbytes = ops = exps = 0
     for args, kw in calls:
         b, o, *e = (cost or _qmm_cost)(*args, **kw)
@@ -1228,15 +1318,20 @@ def replay_times(label: str, calls, kernel, twin, library, peak: str, name: str,
     if all(libs):
         t_l = device_ms(lambda: [f() for f in libs], iters=5)
     b = bound(nbytes, ops, peak, exps)
+    also = ""
+    if also_peak:
+        b[f"{also_peak}_bound_ms"] = bound(nbytes, ops, also_peak, exps)["bound_ms"]
+        also = f", {also_peak} bound {b[f'{also_peak}_bound_ms']:.4f} ms"
     print(f"replay of {label}: {len(calls)} calls, kernel {t_k:.4f} ms"
           + (f" (earlier variant {t_e:.4f} ms)" if t_e is not None else "") + f", twin {t_p:.4f} ms, library "
           + (f"{t_l:.4f} ms" if t_l is not None else f"none ({sum(map(bool, libs))} of {len(calls)} calls have one)")
-          + f", bound {b['bound_ms']:.4f} ms ({b['bound_op']}; {nbytes / 1e9:.4f} GB, {ops / 1e9:.2f} G ops) [{name}]")
+          + f", bound {b['bound_ms']:.4f} ms ({b['bound_op']}; {nbytes / 1e9:.4f} GB, {ops / 1e9:.2f} G ops){also} "
+          f"[{name}]")
     return {"ms": t_k, "plain_ms": t_p, "library_ms": t_l, **b, **({"earlier_variant_ms": t_e} if t_e is not None else {})}
 
 
 def site_report(label: str, calls, kernel, twin, library, cost, plan_of, tol: float, name: str,
-                peak: str = "bf16", close=None, earlier=None, key=None) -> dict:
+                peak: str = "bf16", close=None, earlier=None, key=None, also_peak=None) -> dict:
     """Every distinct shape among the recorded calls of one graph run, on the
     graph's own operands: the variant and plan the dispatcher takes
     (``plan_of`` maps a call to that text), the kernel against its twin
@@ -1246,7 +1341,7 @@ def site_report(label: str, calls, kernel, twin, library, cost, plan_of, tol: fl
     beside the bound. ``earlier`` maps a call to a no-argument function that
     runs the same call on the variant the kernel took before its wgmma
     variant, timed beside it. ``key`` maps a call to its shape (default:
-    the rows of A and the shape of B)."""
+    the rows of A and the shape of B). ``also_peak`` as in replay_times."""
     by_shape = {}
     for args, kw in calls:
         a, b = args[0], args[1]
@@ -1268,12 +1363,17 @@ def site_report(label: str, calls, kernel, twin, library, cost, plan_of, tol: fl
         t_e = device_ms_per_call(earlier(*args, **kw)) if earlier else None
         nb, no, *ne = cost(*args, **kw)
         b = bound(nb, no, peak, sum(ne))
+        also = ""
+        if also_peak:
+            b[f"{also_peak}_bound_ms"] = bound(nb, no, also_peak, sum(ne))["bound_ms"]
+            also = f", {also_peak} bound {b[f'{also_peak}_bound_ms']:.4f} ms"
         key = "x".join(map(str, shape))
         print(f"site {label} {key} ({len(group)} calls a run): {plan_of(*args, **kw)}; max|diff| {err:.3e} of "
               f"max|twin| {top:.3f} ({'rtol=atol' if close else 'tol'} {tol:g}) {'ok' if ok else 'FAIL'}, second call "
               f"bit-equal: {same}; kernel {t_k:.4f} ms"
               + (f" (earlier variant {t_e:.4f} ms)" if t_e is not None else "")
-              + f", twin {t_p:.4f} ms, library {t_l:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_op']}) [{name}]")
+              + f", twin {t_p:.4f} ms, library {t_l:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_op']}){also} "
+              f"[{name}]")
         if not ok or not same:
             raise SystemExit(f"{label} at {key}: the kernel disagrees with its twin, or with itself on a second call")
         out[key] = {"calls": len(group), "ms": t_k, "plain_ms": t_p, "library_ms": t_l, "variant": plan_of(*args, **kw),
@@ -3061,7 +3161,17 @@ def phase_llm(name: str) -> dict:
     # which of the two bf16 runs is nearer the float32 model (same weights)
     p32 = LlamaPipeline(TINYLLAMA, compute_dtype="float32", device=torch.device("cuda:0"))
     p32._weight_bank = pipe._weight_bank  # the same host weights, not generated again
-    _, l32 = p32.forward(p1)
+    # kernel 2 in float32: every call of the prefill held to the twin at 1e-4 and kept for the replay below
+    site32 = _every_flash_call(flash_attention, flash_attention_reference, 1e-4, keep=True)
+    attention_op.flash_attention = site32
+    try:
+        _, l32 = p32.forward(p1)
+    finally:
+        attention_op.flash_attention = flash_attention
+    calls32, f32_sites = site32.kept, site32.summary()
+    print(f"TinyLlama float32 prefill: every kernel-2 call vs twin (rtol=atol=1e-4) {f32_sites} [{name}]")
+    if f32_sites["calls"] != 22 or f32_sites["disagree"] or f32_sites["variants"] != {"tf32x3": 22}:
+        raise SystemExit("TinyLlama float32 prefill: 22 kernel-2 calls on tf32x3 within 1e-4 of the twin wanted")
     del p32
     torch.cuda.empty_cache()
     scale = float(np.abs(l32).max())
@@ -3090,8 +3200,19 @@ def phase_llm(name: str) -> dict:
     replay = replay_times("flash_attention over one TinyLlama prefill's 22 calls (bf16)", calls, flash_attention,
                           flash_attention_reference, _sdpa_library, "bf16", name, cost=_flash_cost)
     del calls
+    # the float32 prefill's 22 calls: tf32x3 beside fa_fma_kernel (wgmma=0), the twin and SDPA, both bounds
+    sites32 = site_report("flash_attention, TinyLlama float32 prefill", calls32, flash_attention,
+                          flash_attention_reference, _sdpa_library, _flash_cost, _flash_variant_text, 1e-4, name,
+                          peak="tf32x3", close=lambda g, r: _flash_agrees(g, r, 1e-4)[0], earlier=_flash_earlier,
+                          also_peak="f32")
+    replay32 = replay_times("flash_attention over one TinyLlama prefill's 22 calls (float32)", calls32,
+                            flash_attention, flash_attention_reference, _sdpa_library, "tf32x3", name,
+                            cost=_flash_cost, earlier=_flash_earlier, also_peak="f32")
+    del calls32
     return {"launches": launches, "bank": pipe._weight_bank, "logits_p1": on, "logits_p1_f32": l32,
-            "prompts": prompts, "flash": {"sites_of_prefill": sites, "prefill_replay": replay}}
+            "prompts": prompts, "flash": {"sites_of_prefill": sites, "prefill_replay": replay,
+                                          "float32_prefill": {"calls": f32_sites, "sites": sites32,
+                                                              "replay": replay32}}}
 
 
 def _nrms(x: np.ndarray, ref: np.ndarray) -> float:
@@ -3465,6 +3586,8 @@ def phase_whisper(name: str) -> dict:
                                            "Whisper base bf16 encoder on synthesized weights", name)
     sites["bfloat16"].check_variants("Whisper base bf16 encoder")
     print(f"Whisper base fp32 encoder: flash_attention_packed variants {sorted(set(sites['float32'].variants))}")
+    if set(sites["float32"].variants) != {"tf32x3"}:
+        raise SystemExit("Whisper base fp32 encoder: a flash call took a variant other than tf32x3")
     peak = max(s.peak for s in sites.values())
     peak = max(peak, torch.cuda.max_memory_allocated())
     wbytes = {dt: _weights_of([p.encoder, *p._decoders.values()]) for dt, p in pipes.items()}
@@ -3532,7 +3655,7 @@ def phase_whisper(name: str) -> dict:
     # kernel 1 at the encoder's sites, on the graph's operands: one encoder run's 6 calls in each precision
     out = {"launches": launches, "tokens": toks, "times": times, "peak_bytes": peak, "device_weight_bytes": wbytes,
            "bf16_vs_fp32_logits_nrms": nrms, "on_device": t_on_device}
-    for dt, tol, peak_op in (("bfloat16", 2e-2, "bf16"), ("float32", 1e-4, "f32")):
+    for dt, tol, peak_op in (("bfloat16", 2e-2, "bf16"), ("float32", 1e-4, "tf32x3")):
         site = sites[dt]
         site.calls = []
         attention_op.flash_attention_packed = site
@@ -3543,14 +3666,18 @@ def phase_whisper(name: str) -> dict:
         calls, site.calls = site.calls, None
         if len(calls) != WHISPER_FLASH_PER_REQUEST:
             raise SystemExit(f"Whisper base {dt} encoder: {len(calls)} flash calls recorded")
+        # float32: tf32x3 beside fa_fma_kernel on the same operands, both bounds
+        fma = (lambda *a, **kw: _packed_earlier(*a, **kw)[0]) if dt == "float32" else None
+        also = "f32" if dt == "float32" else None
         out[f"sites_{dt}"] = site_report(
             f"flash_attention_packed, Whisper base encoder {dt}", calls, flash_attention_packed,
             flash_attention_packed_reference, _packed_library, _packed_cost, _about_packed, tol, name, peak=peak_op,
-            close=lambda g, r, tol=tol: _flash_agrees(g, r, tol)[0], key=lambda a, k: (*a[0].shape, a[3]))
+            close=lambda g, r, tol=tol: _flash_agrees(g, r, tol)[0], key=lambda a, k: (*a[0].shape, a[3]),
+            earlier=fma, also_peak=also)
         out[f"replay_{dt}"] = replay_times(
             f"flash_attention_packed over one Whisper base encoder run's 6 calls ({dt})", calls,
             flash_attention_packed, flash_attention_packed_reference, _packed_library, peak_op, name,
-            cost=_packed_cost)
+            cost=_packed_cost, earlier=fma, also_peak=also)
         del calls
     del pipes
     gc.collect()
@@ -4334,15 +4461,20 @@ def phase_fp16_storage(name: str, sd: dict) -> dict:
                   f"{acc['peak_bytes'] / 2**20:.1f} MiB + {PEAK_SLACK >> 20} [{name}]")
             if peak > acc["peak_bytes"] + PEAK_SLACK:
                 raise SystemExit(f"{label}: peak above hbm_accounting()'s bound")
-        # one run's 10 calls of kernel 1 (its float32 fma form), after the read of the count
+        # one run's 10 calls of kernel 1 (its float32 tf32x3 form), after the read of the count
         flash.calls = []
         runs["fp16_storage"]["session"].run()
         calls, flash.calls = flash.calls, None
     finally:
         attention_op.flash_attention_packed = flash_attention_packed
+    seen = {v: flash.variants.count(v) for v in set(flash.variants)}
+    print(f"fp16 storage (float32 compute): flash_attention_packed variants {seen}")
+    if set(seen) != {"tf32x3"}:
+        raise SystemExit("fp16 storage: a float32 flash call took a variant other than tf32x3")
     out["replay"] = replay_times("flash_attention_packed over one float32 run with fp16 storage", calls,
-                                 flash_attention_packed, flash_attention_packed_reference, _packed_library, "f32",
-                                 name, cost=_packed_cost)
+                                 flash_attention_packed, flash_attention_packed_reference, _packed_library, "tf32x3",
+                                 name, cost=_packed_cost, earlier=lambda *a, **kw: _packed_earlier(*a, **kw)[0],
+                                 also_peak="f32")
     for i in range(len(reqs)):
         _close(f"request {i}, fp16 storage vs float32 storage of float16-rounded weights",
                runs["fp16_storage"]["outs"][i], runs["float32_rounded"]["outs"][i], 1e-4)
@@ -4537,9 +4669,9 @@ class _EveryCall:
     ``keep`` the calls are kept in order for a replay at the local shapes.
     The kernel's launch count is the wrapper's own."""
 
-    def __init__(self, kernel, twin, agrees, key, keep: bool = False):
-        self.kernel, self.twin, self.agrees, self.key = kernel, twin, agrees, key
-        self.calls, self.bad, self.worst, self.shapes = 0, 0, 0.0, {}
+    def __init__(self, kernel, twin, agrees, key, keep: bool = False, variant=None):
+        self.kernel, self.twin, self.agrees, self.key, self.variant = kernel, twin, agrees, key, variant
+        self.calls, self.bad, self.worst, self.shapes, self.variants = 0, 0, 0.0, {}, {}
         self.kept = [] if keep else None
 
     def __call__(self, *args, **kw):
@@ -4550,20 +4682,36 @@ class _EveryCall:
         self.worst = max(self.worst, err)
         key = self.key(args)
         self.shapes[key] = self.shapes.get(key, 0) + 1
+        if self.variant is not None:
+            var = self.variant(*args, **kw)
+            self.variants[var] = self.variants.get(var, 0) + 1
         if self.kept is not None:
             self.kept.append((args, kw))
         return out
 
     def summary(self) -> dict:
-        return {"calls": self.calls, "disagree": self.bad, "max_abs_err": self.worst, "shapes": self.shapes}
+        return {"calls": self.calls, "disagree": self.bad, "max_abs_err": self.worst, "shapes": self.shapes,
+                **({"variants": self.variants} if self.variant is not None else {})}
 
 
-def _every_flash_call(kernel, twin, tol: float) -> _EveryCall:
+def _call_variant(q, k, v, *rest, mask=None, k_transposed=False, **kw) -> str:
+    """flash_variant's answer for a recorded call of kernel 1 (packed: a
+    head count after v) or kernel 2 (head-major)."""
+    from onnxstream_tpu_torch.kernels.flash_attention import flash_variant
+
+    if rest:
+        return _packed_variant(q, k, v, rest[0])
+    return flash_variant(q, k, v, mask, k_transposed=k_transposed)
+
+
+def _every_flash_call(kernel, twin, tol: float, keep: bool = False) -> _EveryCall:
     """Kernel 1 or 2: relative L2 within tol (``_flash_agrees``), keyed by
-    the query's shape and the head count."""
+    the query's shape and the head count, each call's variant counted; with
+    ``keep`` the calls are kept in order for a replay."""
     return _EveryCall(kernel, lambda *a, nopad=None, **kw: twin(*a, **kw),
                       lambda out, ref: _flash_agrees(out, ref, tol)[:2],
-                      lambda a: str(tuple(a[0].shape)) + (f" heads {a[3]}" if len(a) > 3 else ""))
+                      lambda a: str(tuple(a[0].shape)) + (f" heads {a[3]}" if len(a) > 3 else ""), keep=keep,
+                      variant=_call_variant)
 
 
 def _every_q_call(kernel, twin, tol: float) -> _EveryCall:
@@ -5467,6 +5615,10 @@ def phase_parallel(name: str, train: dict) -> dict:
             if got["launches"] != 22 or got["sites"]["calls"] != 22 or got["sites"]["disagree"]:
                 raise SystemExit(f"TinyLlama {dt} tp=2 rank {rank}: kernel 2 launched {got['launches']} times "
                                  f"or disagreed with its twin: {got['sites']}")
+            want_variant = "tf32x3" if dt == "float32" else "wgmma"
+            if got["sites"]["variants"] != {want_variant: 22}:
+                raise SystemExit(f"TinyLlama {dt} tp=2 rank {rank}: kernel 2 took {got['sites']['variants']}, "
+                                 f"want {want_variant} at every call")
             if list(got["sites"]["shapes"]) != ["(1, 16, 1024, 64)"]:
                 raise SystemExit(f"TinyLlama {dt} tp=2 rank {rank}: kernel 2 at {got['sites']['shapes']}")
             per_rank.append({k: got[k] for k in ("launches", "sites", "kv_shape", "weight_bytes", "prefill_ms",

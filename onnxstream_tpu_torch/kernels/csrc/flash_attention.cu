@@ -30,7 +30,7 @@
 // (the wide wgmma variant also splits the keys over CTAs). Both entries share
 // one dispatcher: the variant follows from dtype, head dims, mask and
 // alignment in dispatch_all(), never from the entry or from the strides'
-// meaning. Four variants:
+// meaning. Five variants:
 //
 //  * fa_wgmma_kernel (bf16 / fp16, head dims <= 128, 16-byte aligned Q/K/V/O
 //    rows, K read by rows, no mask or one whose rows are 16-byte granular):
@@ -42,6 +42,13 @@
 //    heads x 1024 x 64, a (1, 1, 1024, 1024) mask tile staged by 16-byte
 //    copies), where the softmax between the two products and the mask step
 //    hold it at about 8x its tensor bound;
+//  * fa_tf32_kernel (float32 with the operands fa_wgmma_kernel takes: head
+//    dims <= 128, 16-byte aligned rows, K read by rows, no mask or a staged
+//    one): fa_wgmma_kernel's pipeline with each product as three TF32 wgmma
+//    products of split operands (hi hi + hi lo + lo hi), the counterpart of
+//    the TPU kernel's Precision.HIGHEST; the float32 Whisper, SD1.5 and
+//    TinyLlama sites. TF32 wgmma reads K-major operands only, so a pre-pass
+//    writes Q, K and V^T split into a workspace; described at the kernel;
 //  * fa_wgmma_wide_kernel (bf16 / fp16, head dims 257..512, aligned rows, no
 //    mask): kernel 1 at the SD VAE's mid-block site (1 head of 512 x 4096
 //    tokens), O split by columns over two warpgroups, the keys over CTAs and
@@ -53,13 +60,13 @@
 //    never touches shared memory. The softmax scale is applied in float32
 //    (one FMA per score) instead of rounding a scaled Q to bf16. Taken for K
 //    given transposed or a mask whose rows are not 16-byte granular;
-//  * fa_fma_kernel (fp32, any head dim up to 512, up to 256 with a mask, any
-//    alignment; bf16 / fp16 where no variant above takes the operands, such
-//    as misaligned rows or K given transposed at head dims 257..512): CUDA-core
-//    FMAs on float32 tiles; each thread owns an
-//    RM x (BN/8) score tile and an RM x (KD/8) accumulator, the 8 threads
-//    sharing rows reduce with shuffles.
-//    float32 inputs keep full float32 products, the parity path.
+//  * fa_fma_kernel (any dtype, any head dim up to 512, up to 256 with a mask,
+//    any alignment, where no variant above takes the operands: float32 with
+//    misaligned rows, K given transposed, head dims 129..512 or a mask that
+//    is not staged; bf16 / fp16 with misaligned rows or K given transposed
+//    at head dims 257..512): CUDA-core FMAs on float32 tiles; each thread
+//    owns an RM x (BN/8) score tile and an RM x (KD/8) accumulator, the 8
+//    threads sharing rows reduce with shuffles; full float32 products.
 // The C entry's `wgmma` argument set to 0 keeps the wgmma variants out, so
 // that a caller can time the variants they replaced on the same operands.
 //
@@ -72,7 +79,10 @@
 // mma.sync and its unpipelined K / V^T staging (two barriers a tile, V
 // transposed element by element); its mask costs one scalar load per score.
 // The FMA variant is bound by the FMA rate and shared-memory loads (about 2.7
-// FMAs per shared load).
+// FMAs per shared load), at about 7 % of the FMA peak. The tf32x3 variant
+// does three tensor-core products for each one (495 / 3 TFLOP/s, 2.5x the 67
+// TFLOP/s of FMAs) and splits P into two TF32 parts on the CUDA cores; its
+// pre-pass moves three times each operand's bytes.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -331,6 +341,17 @@ __device__ __forceinline__ uint32_t pack2(float lo, float hi, __nv_bfloat16) {
 __device__ __forceinline__ uint32_t pack2(float lo, float hi, __half) {
   __half2 v = __floats2half2_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// two floats to neighbouring elements of a row (8- or 4-byte aligned)
+__device__ __forceinline__ void store_pair(float* at, float x, float y) {
+  *reinterpret_cast<float2*>(at) = make_float2(x, y);
+}
+__device__ __forceinline__ void store_pair(__half* at, float x, float y) {
+  *reinterpret_cast<uint32_t*>(at) = pack2(x, y, __half());
+}
+__device__ __forceinline__ void store_pair(__nv_bfloat16* at, float x, float y) {
+  *reinterpret_cast<uint32_t*>(at) = pack2(x, y, __nv_bfloat16());
 }
 
 template <typename T>
@@ -632,8 +653,7 @@ __device__ __forceinline__ void store_row(const Params& p, const float (&o)[NO],
 #pragma unroll
     for (int jt = 0; jt < NO / 4; ++jt) {
       const int col = col0 + 8 * jt + 2 * tq;
-      if (col < p.Dv)
-        *reinterpret_cast<uint32_t*>(out + col) = pack2(o[4 * jt + 2 * r] / denom, o[4 * jt + 2 * r + 1] / denom, T());
+      if (col < p.Dv) store_pair(out + col, o[4 * jt + 2 * r] / denom, o[4 * jt + 2 * r + 1] / denom);
     }
     return;
   }
@@ -666,6 +686,73 @@ __device__ __forceinline__ float2 mask_pair(const uint8_t* at, int dtype) {
   if (dtype == 0) return *reinterpret_cast<const float2*>(at);
   if (dtype == 1) return __half22float2(*reinterpret_cast<const __half2*>(at));
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(at));
+}
+
+// What a consumer thread's softmax needs of its rows: row0 and row0 + 8 of
+// the problem (lrow and lrow + 8 of the block's tile), its column pair 2 tq
+// of each n8 block, the causal offset N - M, the staged mask's row pitch and
+// element bytes, c = scale * log2(e) and cs (1 with a mask, whose scores are
+// moved to the log2 domain before the softmax; c without one, whose scale is
+// folded into the exp2 argument)
+struct SoftmaxRows {
+  int row0, lrow, tq, offset, mask_pitch, elt;
+  float c, cs;
+};
+
+// The mask and the online softmax of one key tile (keys n0 ..) of the wgmma
+// variants: S in s (the thread's part of a 64 x BN accumulator) becomes the
+// unnormalized P (float32); m_r, l_r are its two rows' running max and
+// partial sum, corr gets the rescale factor of O's two rows; mt is the
+// tile's staged mask.
+template <int BN, bool MASK>
+__device__ __forceinline__ void tile_softmax(const Params& p, const SoftmaxRows& w, float (&s)[BN / 2], int n0,
+                                             const uint8_t* mt, float (&m_r)[2], float (&l_r)[2], float (&corr)[2]) {
+  // without a mask only the tiles past N or across the diagonal need it
+  if (MASK || p.causal || n0 + BN > p.N)
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int row = w.row0 + 8 * hh, cl = 8 * j + 2 * w.tq;
+        float2 mv = make_float2(0.f, 0.f);
+        if constexpr (MASK) mv = mask_pair(mt + (w.lrow + 8 * hh) * w.mask_pitch + cl * w.elt, p.mask_dtype);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = n0 + cl + e;
+          const bool ok = col < p.N && (!p.causal || col <= row + w.offset);
+          float& x = s[4 * j + 2 * hh + e];
+          if constexpr (MASK) {
+            const float m = e ? mv.y : mv.x;
+            // log2-domain scores: scale*log2e * s + log2e * mask; -inf where masked
+            x = ok ? fmaf(x, w.c, kLog2e * m) : -INFINITY;
+          } else if (!ok) {
+            x = -INFINITY;
+          }
+        }
+      }
+  // rows row0 (elements 0, 1 of each n8 block) and row0 + 8 (2, 3)
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) mx = fmaxf(mx, fmaxf(s[4 * j + 2 * r], s[4 * j + 2 * r + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m_r[r], mx);
+    // a row with no valid key so far keeps p = 0, corr = 0 and l = 0
+    const float m_use = (m_new == -INFINITY) ? 0.f : m_new;
+    corr[r] = fast_exp2((m_r[r] - m_use) * w.cs);
+    const float mc = m_use * w.cs;
+    float rs = 0.f;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      s[4 * j + 2 * r] = fast_exp2(fmaf(s[4 * j + 2 * r], w.cs, -mc));
+      s[4 * j + 2 * r + 1] = fast_exp2(fmaf(s[4 * j + 2 * r + 1], w.cs, -mc));
+      rs += s[4 * j + 2 * r] + s[4 * j + 2 * r + 1];
+    }
+    l_r[r] = l_r[r] * corr[r] + rs;
+    m_r[r] = m_new;
+  }
 }
 
 template <int KD, bool MASK>
@@ -791,57 +878,11 @@ __global__ void __launch_bounds__(FaWgCfg<KD, MASK>::kThreads, 1)
                                  gemm90::kmajor_desc(kt + (ks / 4) * BN * 128, ks % 4), ks > 0);
     gemm90::wgmma_commit();
   };
-  // the mask and the online softmax of key tile `it`: S in s becomes the
-  // unnormalized P (float32); corr gets the rescale factor of O's two rows
+  // the mask and the online softmax of key tile `it` (tile_softmax)
+  const SoftmaxRows rows{row0, lrow, tq, offset, mask_pitch, elt, c, cs};
   auto softmax = [&](float (&s)[BN / 2], int it, float (&corr)[2]) {
-    const int n0 = (it0 + it) * BN;
-    const uint8_t* mt = fa_smem + (stage0 + (it % S) * stage_bytes + 2 * C::kKBytes - smem_base);
-    // without a mask only the tiles past N or across the diagonal need it
-    if (MASK || p.causal || n0 + BN > p.N)
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j)
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int row = row0 + 8 * hh, cl = 8 * j + 2 * tq;
-        float2 mv = make_float2(0.f, 0.f);
-        if constexpr (MASK) mv = mask_pair(mt + (lrow + 8 * hh) * mask_pitch + cl * elt, p.mask_dtype);
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int col = n0 + cl + e;
-          const bool ok = col < p.N && (!p.causal || col <= row + offset);
-          float& x = s[4 * j + 2 * hh + e];
-          if constexpr (MASK) {
-            const float m = e ? mv.y : mv.x;
-            // log2-domain scores: scale*log2e * s + log2e * mask; -inf where masked
-            x = ok ? fmaf(x, c, kLog2e * m) : -INFINITY;
-          } else if (!ok) {
-            x = -INFINITY;
-          }
-        }
-      }
-    // rows row0 (elements 0, 1 of each n8 block) and row0 + 8 (2, 3)
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < BN / 8; ++j) mx = fmaxf(mx, fmaxf(s[4 * j + 2 * r], s[4 * j + 2 * r + 1]));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m_r[r], mx);
-      // a row with no valid key so far keeps p = 0, corr = 0 and l = 0
-      const float m_use = (m_new == -INFINITY) ? 0.f : m_new;
-      corr[r] = fast_exp2((m_r[r] - m_use) * cs);
-      const float mc = m_use * cs;
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < BN / 8; ++j) {
-        s[4 * j + 2 * r] = fast_exp2(fmaf(s[4 * j + 2 * r], cs, -mc));
-        s[4 * j + 2 * r + 1] = fast_exp2(fmaf(s[4 * j + 2 * r + 1], cs, -mc));
-        rs += s[4 * j + 2 * r] + s[4 * j + 2 * r + 1];
-      }
-      l_r[r] = l_r[r] * corr[r] + rs;
-      m_r[r] = m_new;
-    }
+    tile_softmax<BN, MASK>(p, rows, s, (it0 + it) * BN,
+                           fa_smem + (stage0 + (it % S) * stage_bytes + 2 * C::kKBytes - smem_base), m_r, l_r, corr);
   };
   // P rounded to V's dtype straight from the score registers
   auto pack = [&](const float (&s)[BN / 2]) {
@@ -1154,7 +1195,7 @@ __global__ void fa_combine_kernel(const Params p, int splits, const float* part)
       a0 = fmaf(s_w[s], x.x, a0);
       a1 = fmaf(s_w[s], x.y, a1);
     }
-    *reinterpret_cast<uint32_t*>(out + col) = pack2(a0 / s_den, a1 / s_den, T());
+    store_pair(out + col, a0 / s_den, a1 / s_den);
   }
 }
 
@@ -1175,6 +1216,417 @@ cudaError_t launch_wgmma_wide(const Params& p, int splits, float* part, cudaStre
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// tf32x3 variant (float32: head dims <= 128, rows as the wgmma variant's)
+// ---------------------------------------------------------------------------
+//
+// fa_tf32_kernel is fa_wgmma_kernel's pipeline for float32 operands: a
+// loading warpgroup keeps a ring of K and V^T tiles full with cp.async
+// copies, consumer warpgroups of 64 query rows run S = Q K^T and O += P V as
+// wgmma on the tensor cores with the online softmax between them, and where
+// there are two consumer warpgroups they take turns on the tensor cores, with
+// a mask too (a tile's mask is read in the softmax after the other
+// warpgroup's turn, while its stage is still held: the turns and a third
+// stage took the float32 TinyLlama prefill site from 0.2066 to 0.1836-0.1874
+// ms on an H100). Each product is three TF32 products: every float32 operand x
+// is split into hi = tf32(x) and lo = tf32(x - hi) (cvt.rna, 10 mantissa bits
+// each) and the product is hi hi + hi lo + lo hi, summed in float32 (lo lo,
+// about 2^-22 of it, is dropped), which is what the TPU kernel's
+// Precision.HIGHEST products give. One TF32 product alone misses the float32
+// bar of 1e-4.
+//
+// TF32 wgmma reads both operands K-major only. S's are K-major as stored
+// (Q's and K's rows run along the head dim). For P V the B operand
+// is V^T, keys contiguous, so V is transposed once, before the kernel: a
+// pre-pass (fa_tf32_split_rows, fa_tf32_split_vt) writes Q's and K's hi and
+// lo planes and V^T's into a workspace the wrapper allocates, and the
+// loaders copy tiles of those planes (no conversion on the loading side).
+// P's hi and lo parts are made in registers from the score accumulator: the
+// accumulator gives a thread columns 2 t and 2 t + 1 of each n8 block, where
+// the register A operand of a k8 step holds columns t and t + 4
+// (wgmma_tf32_rs), so V^T's keys are stored permuted within each group of 8
+// (tf32_key_at) rather than P's registers moved between threads.
+//
+// Shared memory holds Q's two planes (kBM rows) and, a stage, K's and V^T's
+// two planes: 8 bytes an element of each operand, twice the 16-bit kernel's,
+// so the key tiles are 64 keys at head dims up to 64 and 32 above (and with
+// a mask, whose tile shares the stage), and head dims above 80 take one
+// consumer warpgroup. The pre-pass reads each operand once and writes twice
+// its bytes; the sites are bound by the tensor cores (three products) and
+// the softmax, not by bytes.
+
+// the key that position pos of V^T's group of 8 holds (within the group):
+// A register e of a k8 step holds columns t and t + 4 (e / 2), which are the
+// score accumulator's columns 2 t and 2 t + 1
+__host__ __device__ constexpr int tf32_key_at(int pos) { return pos < 4 ? 2 * pos : 2 * (pos - 4) + 1; }
+// the score register (of a thread's 4 in an n8 block: (g, 2 t), (g, 2 t + 1),
+// (g + 8, 2 t), (g + 8, 2 t + 1)) that goes to A register e of a k8 step
+// ((g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4) in V^T's key order)
+__host__ __device__ constexpr int tf32_frag(int e) { return e == 1 ? 2 : e == 2 ? 1 : e; }
+
+__device__ __forceinline__ void tf32_split(float x, float& hi, float& lo) {
+  hi = __uint_as_float(gemm90::tf32_rna(x));
+  lo = __uint_as_float(gemm90::tf32_rna(x - hi));
+}
+
+// The workspace of a tf32x3 launch, in floats: Q's planes [B][H][hi, lo][M][D],
+// then K's [B][Hkv][hi, lo][N][D], then V^T's [B][Hkv][hi, lo][Dv][Np], Np = N
+// rounded up to 64 (keys past N are 0). Mirrored by _tf32_workspace_floats in
+// kernels/flash_attention.py.
+struct TfPlanes {
+  long long q, k, v;
+  int np;
+};
+__host__ __device__ inline TfPlanes tf_planes(const Params& p) {
+  const long long k = 2LL * p.B * p.H * p.M * p.D;
+  return {0, k, k + 2LL * p.B * p.Hkv * p.N * p.D, (p.N + 63) / 64 * 64};
+}
+
+// x[b][h][row][:D] (element strides, unit column stride, 16-byte aligned rows)
+// -> out[b][h][hi, lo][row][:D]; 4 values a thread
+__global__ void fa_tf32_split_rows(const float* x, long long sb, long long sh, long long sr, int H, int L, int D,
+                                   float* out) {
+  const long long n = static_cast<long long>(L) * D;
+  const long long i = 4 * (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x);
+  if (i >= n) return;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int r = static_cast<int>(i / D), c = static_cast<int>(i % D);
+  const float4 v = *reinterpret_cast<const float4*>(x + b * sb + h * sh + r * sr + c);
+  float4 hi, lo;
+  tf32_split(v.x, hi.x, lo.x);
+  tf32_split(v.y, hi.y, lo.y);
+  tf32_split(v.z, hi.z, lo.z);
+  tf32_split(v.w, hi.w, lo.w);
+  float* o = out + (static_cast<long long>(b) * H + h) * 2 * n + i;
+  *reinterpret_cast<float4*>(o) = hi;
+  *reinterpret_cast<float4*>(o + n) = lo;
+}
+
+// v[b][h][key][:Dv] -> out[b][h][hi, lo][column][position]: a block moves 32
+// keys x 32 columns through shared memory (grid: Np / 32, H * cb, B with cb
+// 32-column blocks a head); position 8 j + pos of a row holds key 8 j +
+// tf32_key_at(pos), 0 past N
+__global__ void fa_tf32_split_vt(const float* v, long long sb, long long sh, long long sn, int H, int cb, int N,
+                                 int Dv, int Np, float* out) {
+  __shared__ float tile[32][33];
+  const int n0 = blockIdx.x * 32, h = blockIdx.y / cb, c0 = blockIdx.y % cb * 32, b = blockIdx.z;
+  const float* src = v + b * sb + h * sh;
+  for (int j = threadIdx.y; j < 32; j += 8) {
+    const int n = n0 + j, c = c0 + threadIdx.x;
+    tile[j][threadIdx.x] = n < N && c < Dv ? src[n * sn + c] : 0.f;
+  }
+  __syncthreads();
+  const long long plane = static_cast<long long>(Dv) * Np;
+  float* dst = out + (static_cast<long long>(b) * H + h) * 2 * plane + n0 + threadIdx.x;
+  const int key = threadIdx.x / 8 * 8 + tf32_key_at(threadIdx.x % 8);
+  for (int j = threadIdx.y; j < 32 && c0 + j < Dv; j += 8) {
+    float hi, lo;
+    tf32_split(tile[key][j], hi, lo);
+    dst[static_cast<long long>(c0 + j) * Np] = hi;
+    dst[plane + static_cast<long long>(c0 + j) * Np] = lo;
+  }
+}
+
+template <int DQ, int DV, bool MASK>
+struct FaTfCfg {
+  static constexpr int kNWG = DQ <= 80 ? 2 : 1;                 // consumer warpgroups of 64 query rows
+  static constexpr int kBM = 64 * kNWG;
+  static constexpr int kBN = MASK || DQ > 64 ? 32 : 64;         // keys per staged tile
+  static constexpr int kStages = DQ <= 40 || (MASK && DQ <= 64) ? 3 : 2;  // as many as fit
+  static constexpr int kQC = (DQ + 31) / 32;                    // 128-byte chunks (32 floats) of a Q / K row
+  static constexpr int kQPlane = kBM * kQC * 128;               // one plane (hi or lo) of the Q tile
+  static constexpr int kKPlane = kBN * kQC * 128;               // of the K tile
+  static constexpr int kVPlane = DV * kBN * 4;                  // of the V^T tile: kBN / 32 chunks of DV rows
+  static constexpr int kThreads = (kNWG + 1) * gemm90::kWG;
+  // the mask tile: kBM rows of kBN keys, 16 bytes of padding a row, rounded up to 1024 bytes
+  static constexpr int mask_bytes(int elt) { return elt ? (kBM * (kBN * elt + 16) + 1023) / 1024 * 1024 : 0; }
+  static constexpr int stage_bytes(int elt) { return 2 * (kKPlane + kVPlane) + mask_bytes(elt); }
+  static constexpr int smem_bytes(int elt) {
+    return 1024 + 2 * kQPlane + kStages * stage_bytes(elt) + 8 * (2 * kStages + 1);
+  }
+};
+static_assert(FaTfCfg<40, 40, false>::smem_bytes(0) <= 232448 && FaTfCfg<64, 64, false>::smem_bytes(0) <= 232448 &&
+                  FaTfCfg<80, 80, false>::smem_bytes(0) <= 232448 &&
+                  FaTfCfg<128, 128, false>::smem_bytes(0) <= 232448 && FaTfCfg<64, 64, true>::smem_bytes(4) <= 232448 &&
+                  FaTfCfg<128, 128, true>::smem_bytes(4) <= 232448,
+              "shared memory of a block");
+
+template <int DQ, int DV, bool MASK>
+__global__ void __launch_bounds__(FaTfCfg<DQ, DV, MASK>::kThreads, 1)
+    fa_tf32_kernel(const Params p, const float* ws, int stage_bytes, int mask_pitch, int splits, float* part) {
+  using C = FaTfCfg<DQ, DV, MASK>;
+  constexpr int NWG = C::kNWG, BM = C::kBM, BN = C::kBN, S = C::kStages, kWG = gemm90::kWG;
+  constexpr bool kTurns = NWG == 2;  // two consumer warpgroups take turns on the tensor cores
+  static_assert(DQ % 8 == 0 && DQ <= 128 && DV % 8 == 0 && DV <= 128, "tile widths");
+  extern __shared__ __align__(16) uint8_t fa_smem[];
+  const uint32_t smem_base = gemm90::smem_u32(fa_smem);
+  const uint32_t q_s = gemm90::align1024(smem_base);  // Q's hi plane, then its lo plane
+  const uint32_t stage0 = q_s + 2 * C::kQPlane;     // a stage: K hi, K lo, V^T hi, V^T lo, the mask tile
+  const uint32_t full0 = stage0 + S * stage_bytes, empty0 = full0 + 8 * S;
+  const uint32_t q_full = empty0 + 8 * S;
+
+  const int tid = threadIdx.x, wg = tid / kWG, t = tid % kWG;
+  const int m0 = blockIdx.x * BM;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z / splits, split = blockIdx.z % splits;
+  const int hk = h / (p.H / p.Hkv);
+  const int offset = p.N - p.M;
+  const int n_end = p.causal ? max(0, min(p.N, m0 + BM + offset)) : p.N;
+  const int tiles = (p.N + BN - 1) / BN, per = (tiles + splits - 1) / splits;
+  const int it0 = split * per;
+  const int ntiles = max(0, min(min(tiles, it0 + per), (n_end + BN - 1) / BN) - it0);
+  const int elt = p.mask_dtype == 0 ? 4 : 2;
+  const long long mbase = b * p.smb + h * p.smh;
+  if (tid == 0) {
+    gemm90::init_barriers<S>(full0, empty0, kWG, NWG * kWG / 32);  // empty: one arrival a consumer warp
+    gemm90::mbar_init(q_full, kWG);
+    gemm90::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == NWG) {  // loaders
+    if constexpr (kTurns) loader_regs();
+    const TfPlanes w = tf_planes(p);
+    const long long qn = static_cast<long long>(p.M) * p.D, kn = static_cast<long long>(p.N) * p.D;
+    const long long vn = static_cast<long long>(p.Dv) * w.np;
+    const float* qs = ws + w.q + (static_cast<long long>(b) * p.H + h) * 2 * qn;
+    const float* ks = ws + w.k + (static_cast<long long>(b) * p.Hkv + hk) * 2 * kn;
+    const float* vs = ws + w.v + (static_cast<long long>(b) * p.Hkv + hk) * 2 * vn;
+    const uint8_t* mask = MASK ? static_cast<const uint8_t*>(p.mask) + mbase * elt : nullptr;
+#pragma unroll
+    for (int pl = 0; pl < 2; ++pl)
+#pragma unroll
+      for (int kc = 0; kc < C::kQC; ++kc)
+        gemm90::load_kmajor_tile<BM>(q_s + pl * C::kQPlane + kc * BM * 128, qs + pl * qn, 4LL * p.D, m0, p.M,
+                                     128 * kc, 4 * p.D, t);
+    gemm90::cp_async_arrive(q_full);
+    gemm90::produce<S>(ntiles, full0, empty0, [&](int it, int s) {
+      const uint32_t sb = stage0 + s * stage_bytes;
+      const int n0 = (it0 + it) * BN;
+#pragma unroll
+      for (int pl = 0; pl < 2; ++pl) {
+#pragma unroll
+        for (int kc = 0; kc < C::kQC; ++kc)
+          gemm90::load_kmajor_tile<BN>(sb + pl * C::kKPlane + kc * BN * 128, ks + pl * kn, 4LL * p.D, n0, p.N,
+                                       128 * kc, 4 * p.D, t);
+        // V^T: DV rows of BN keys in chunks of 32 keys (the workspace holds
+        // whole tiles of keys), rows past Dv zero
+        const uint32_t vt = sb + 2 * C::kKPlane + pl * C::kVPlane;
+        for (int i = t; i < DV * BN / 4; i += kWG) {
+          const int c = i / (DV * 8), r = i / 8 % DV, pc = i % 8;
+          const bool ok = r < p.Dv;
+          const float* src = ok ? vs + pl * vn + static_cast<long long>(r) * w.np + n0 + 32 * c + 4 * pc : vs;
+          gemm90::cp_async16(vt + c * DV * 128 + gemm90::a_offset(r, pc), src, ok);
+        }
+      }
+      if constexpr (MASK) {
+        const int per_row = BN * elt / 16;  // 16-byte pieces of a mask row
+        const uint32_t mt = sb + 2 * (C::kKPlane + C::kVPlane);
+        for (int i = t; i < BM * per_row; i += kWG) {
+          const int r = i / per_row, c = i % per_row;
+          const int row = m0 + r, col = n0 + c * (16 / elt);
+          const bool ok = row < p.M && col < p.N;
+          const uint8_t* src = ok ? mask + (row * p.smm + col) * elt : mask;
+          gemm90::cp_async16(mt + r * mask_pitch + 16 * c, src, ok);
+        }
+      }
+    });
+    return;
+  }
+
+  if constexpr (kTurns) consumer_regs();
+  const int warp = t / 32, lane = t % 32, g = lane / 4, tq = lane % 4;
+  const int lrow = 64 * wg + 16 * warp + g;  // this thread's rows of the block's tile: lrow and lrow + 8
+  const int row0 = m0 + lrow;
+  const float c = p.scale_log2;
+  // with a mask the scores are moved to the log2 domain before the softmax;
+  // without one the scale is folded into the exp2 argument
+  const float cs = MASK ? 1.f : c;
+  auto release = [&](int it) {
+    if (lane == 0) gemm90::mbar_arrive(empty0 + 8 * (it % S));
+  };
+
+  float o[DV / 2];
+#pragma unroll
+  for (int i = 0; i < DV / 2; ++i) o[i] = 0.f;
+  float m_r[2] = {-INFINITY, -INFINITY};
+  float l_r[2] = {0.f, 0.f};  // per-thread partial row sums, reduced over the quad at the end
+  uint32_t ph[BN / 8][4], pl[BN / 8][4];  // P's hi and lo parts: the register A operands of the PV products
+
+  // S = Q K^T of key tile `it` into s, three TF32 products a k8 step: one commit group
+  auto issue_s = [&](float (&s)[BN / 2], int it) {
+    const uint32_t kt = stage0 + (it % S) * stage_bytes, qa = q_s + wg * 64 * 128;
+    gemm90::fence_regs(s);
+    gemm90::wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < DQ / 8; ++ks) {
+      const uint32_t qo = (ks / 4) * BM * 128, ko = (ks / 4) * BN * 128;
+      const uint64_t qh = gemm90::a_desc(qa + qo, ks % 4), ql = gemm90::a_desc(qa + C::kQPlane + qo, ks % 4);
+      const uint64_t kh = gemm90::kmajor_desc(kt + ko, ks % 4), kl = gemm90::kmajor_desc(kt + C::kKPlane + ko, ks % 4);
+      gemm90::wgmma_tf32_ss<BN>(s, qh, kl, ks > 0);
+      gemm90::wgmma_tf32_ss<BN>(s, ql, kh, 1);
+      gemm90::wgmma_tf32_ss<BN>(s, qh, kh, 1);
+    }
+    gemm90::wgmma_commit();
+  };
+  // the mask and the online softmax of key tile `it` (tile_softmax)
+  const SoftmaxRows rows{row0, lrow, tq, offset, mask_pitch, elt, c, cs};
+  auto softmax = [&](float (&s)[BN / 2], int it, float (&corr)[2]) {
+    tile_softmax<BN, MASK>(p, rows, s, (it0 + it) * BN,
+                           fa_smem + (stage0 + (it % S) * stage_bytes + 2 * (C::kKPlane + C::kVPlane) - smem_base),
+                           m_r, l_r, corr);
+  };
+  // P's hi and lo TF32 parts straight from the score registers
+  auto pack = [&](const float (&s)[BN / 2]) {
+#pragma unroll
+    for (int kk = 0; kk < BN / 8; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = s[4 * kk + tf32_frag(e)];
+        ph[kk][e] = gemm90::tf32_rna(x);
+        pl[kk][e] = gemm90::tf32_rna(x - __uint_as_float(ph[kk][e]));
+      }
+  };
+  auto rescale = [&](const float (&corr)[2]) {
+#pragma unroll
+    for (int jt = 0; jt < DV / 8; ++jt)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        o[4 * jt + 2 * r] *= corr[r];
+        o[4 * jt + 2 * r + 1] *= corr[r];
+      }
+  };
+  // O += P V of key tile `it`, three TF32 products a k8 step: one commit group
+  auto issue_pv = [&](int it) {
+    gemm90::fence_regs(o);
+#pragma unroll
+    for (int kk = 0; kk < BN / 8; ++kk) {
+      gemm90::fence_regs(ph[kk]);
+      gemm90::fence_regs(pl[kk]);
+    }
+    gemm90::wgmma_fence();
+    const uint32_t vt = stage0 + (it % S) * stage_bytes + 2 * C::kKPlane;
+#pragma unroll
+    for (int kk = 0; kk < BN / 8; ++kk) {
+      const uint32_t vo = (kk / 4) * DV * 128;
+      const uint64_t vh = gemm90::kmajor_desc(vt + vo, kk % 4), vl = gemm90::kmajor_desc(vt + C::kVPlane + vo, kk % 4);
+      gemm90::wgmma_tf32_rs<DV>(o, ph[kk], vl);
+      gemm90::wgmma_tf32_rs<DV>(o, pl[kk], vh);
+      gemm90::wgmma_tf32_rs<DV>(o, ph[kk], vh);
+    }
+    gemm90::wgmma_commit();
+  };
+
+  if (ntiles > 0) {
+    gemm90::mbar_wait(q_full, 0);
+    float s[BN / 2], corr[2];
+    if constexpr (!kTurns) {
+      for (int it = 0; it < ntiles; ++it) {
+        gemm90::mbar_wait(full0 + 8 * (it % S), (it / S) & 1);
+        issue_s(s, it);
+        gemm90::wgmma_wait<0>();  // S, and the previous tile's PV product, are done
+        gemm90::fence_regs(s);
+        gemm90::fence_regs(o);
+        if (it > 0) release(it - 1);
+        softmax(s, it, corr);
+        pack(s);
+        rescale(corr);
+        issue_pv(it);
+      }
+      gemm90::wgmma_wait<0>();
+    } else {
+      // turns as in fa_wgmma_kernel (named barriers 1 and 2, warpgroup 0 first)
+      gemm90::mbar_wait(full0, 0);
+      issue_s(s, 0);
+      gemm90::wgmma_wait<0>();
+      gemm90::fence_regs(s);
+      softmax(s, 0, corr);
+      pack(s);
+      if (wg == 1) gemm90::named_barrier_arrive(1, 2 * kWG);
+      for (int it = 0; it < ntiles; ++it) {
+        const bool next = it + 1 < ntiles;
+        rescale(corr);
+        if (next) gemm90::mbar_wait(full0 + 8 * ((it + 1) % S), ((it + 1) / S) & 1);
+        gemm90::named_barrier(1 + wg, 2 * kWG);  // this warpgroup's turn
+        if (next) issue_s(s, it + 1);
+        issue_pv(it);
+        gemm90::named_barrier_arrive(2 - wg, 2 * kWG);  // the other's turn
+        gemm90::wgmma_wait<0>();
+        gemm90::fence_regs(s);
+        gemm90::fence_regs(o);
+        release(it);
+        if (next) {
+          softmax(s, it + 1, corr);
+          pack(s);
+        }
+      }
+    }
+    gemm90::fence_regs(o);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float l = l_r[r];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const int row = row0 + 8 * r;
+    if (row < p.M) store_row<float>(p, o, r, b, h, row, 0, tq, l, m_r[r] * cs, splits, split, part, true);
+  }
+}
+
+// the pre-pass of a tf32x3 launch: Q's, K's and V^T's hi and lo planes into ws
+cudaError_t tf32_split(const Params& p, float* ws, cudaStream_t stream) {
+  const TfPlanes w = tf_planes(p);
+  const long long qn = static_cast<long long>(p.M) * p.D, kn = static_cast<long long>(p.N) * p.D;
+  if (qn > 0)
+    fa_tf32_split_rows<<<dim3(static_cast<unsigned>((qn / 4 + 255) / 256), p.H, p.B), 256, 0, stream>>>(
+        static_cast<const float*>(p.q), p.sqb, p.sqh, p.sqm, p.H, p.M, p.D, ws + w.q);
+  if (kn > 0)
+    fa_tf32_split_rows<<<dim3(static_cast<unsigned>((kn / 4 + 255) / 256), p.Hkv, p.B), 256, 0, stream>>>(
+        static_cast<const float*>(p.k), p.skb, p.skh, p.skn, p.Hkv, p.N, p.D, ws + w.k);
+  const int cb = (p.Dv + 31) / 32;
+  if (w.np > 0)
+    fa_tf32_split_vt<<<dim3(w.np / 32, p.Hkv * cb, p.B), dim3(32, 8), 0, stream>>>(
+        static_cast<const float*>(p.v), p.svb, p.svh, p.svn, p.Hkv, cb, p.N, p.Dv, w.np, ws + w.v);
+  return cudaGetLastError();
+}
+
+template <int DQ, int DV, bool MASK>
+cudaError_t launch_tf32(const Params& p, const float* ws, int splits, float* part, cudaStream_t stream) {
+  using C = FaTfCfg<DQ, DV, MASK>;
+  if (splits < 1 || splits > kMaxSplits || (splits > 1 && (MASK || part == nullptr)) ||
+      static_cast<long long>(p.B) * splits > 65535)
+    return cudaErrorInvalidValue;
+  auto kernel = fa_tf32_kernel<DQ, DV, MASK>;
+  static cudaError_t attr = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 C::smem_bytes(MASK ? 4 : 0));
+  if (attr != cudaSuccess) return attr;
+  const int elt = MASK ? (p.mask_dtype == 0 ? 4 : 2) : 0;
+  const dim3 grid((p.M + C::kBM - 1) / C::kBM, p.H, p.B * splits);
+  kernel<<<grid, C::kThreads, C::smem_bytes(elt), stream>>>(p, ws, C::stage_bytes(elt), C::kBN * elt + 16, splits,
+                                                            part);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  fa_combine_kernel<float><<<dim3(p.M, p.H, p.B), 128, 0, stream>>>(p, splits, part);
+  return cudaGetLastError();
+}
+
+// the pre-pass, then the kernel at the tile widths of the head dims: 40 and
+// 80 (the SD1.5 UNet) their own, others 64 or 128, zero past the real ones
+cudaError_t launch_tf32_for(const Params& p, float* ws, int splits, float* part, cudaStream_t stream) {
+  if (ws == nullptr) return cudaErrorInvalidValue;
+  const cudaError_t err = tf32_split(p, ws, stream);
+  if (err != cudaSuccess) return err;
+  const bool small = p.D <= 64 && p.Dv <= 64;
+  if (p.mask)
+    return small ? launch_tf32<64, 64, true>(p, ws, splits, part, stream)
+                 : launch_tf32<128, 128, true>(p, ws, splits, part, stream);
+  if (p.D == 40 && p.Dv == 40) return launch_tf32<40, 40, false>(p, ws, splits, part, stream);
+  if (p.D == 80 && p.Dv == 80) return launch_tf32<80, 80, false>(p, ws, splits, part, stream);
+  return small ? launch_tf32<64, 64, false>(p, ws, splits, part, stream)
+               : launch_tf32<128, 128, false>(p, ws, splits, part, stream);
+}
+
 template <typename T, int KD, bool MASK>
 cudaError_t launch_mma(const Params& p, cudaStream_t stream) {
   constexpr size_t smem = mma_smem_bytes<KD>();
@@ -1187,10 +1639,10 @@ cudaError_t launch_mma(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// 16-byte vector loads and 4-byte stores of whole head rows need every row
-// start aligned: base pointers to 16 bytes and strides to 8 elements. K only
-// when it is read by rows (unit column stride).
-bool rows_aligned16(const Params& p) {
+// 16-byte vector loads and pair stores of whole head rows need every row
+// start aligned: base pointers and strides (elt bytes an element) to 16
+// bytes. K only when it is read by rows (unit column stride).
+bool rows_aligned16(const Params& p, long long elt) {
   unsigned long long ptrs = reinterpret_cast<unsigned long long>(p.q) |
                             reinterpret_cast<unsigned long long>(p.v) |
                             reinterpret_cast<unsigned long long>(p.o);
@@ -1199,7 +1651,7 @@ bool rows_aligned16(const Params& p) {
     ptrs |= reinterpret_cast<unsigned long long>(p.k);
     strides |= p.skb | p.skh | p.skn;
   }
-  return ptrs % 16 == 0 && strides % 8 == 0;
+  return ptrs % 16 == 0 && strides * elt % 16 == 0;
 }
 
 template <typename T, int KD, int BM, int BN, bool MASK>
@@ -1225,7 +1677,7 @@ template <typename T, bool MASK>
 cudaError_t dispatch(const Params& p, cudaStream_t stream) {
   const int kd = p.D > p.Dv ? p.D : p.Dv;
   if constexpr (!std::is_same<T, float>::value) {
-    if (rows_aligned16(p)) {
+    if (rows_aligned16(p, 2)) {
       if (kd <= 64) return launch_mma<T, 64, MASK>(p, stream);
       if (kd <= 128) return launch_mma<T, 128, MASK>(p, stream);
     }
@@ -1245,22 +1697,22 @@ cudaError_t dispatch_mask(const Params& p, cudaStream_t stream) {
   return p.mask ? dispatch<T, true>(p, stream) : dispatch<T, false>(p, stream);
 }
 
-// the wgmma variants, for both entries: 16-bit operands whose rows are whole
-// 16-byte pieces, K read by rows, and head dims up to 128 with no mask or one
-// whose rows are 16-byte granular (staged by 16-byte copies), or head dims
-// 257..512 with no mask. Mirrored by flash_variant in
-// kernels/flash_attention.py.
+// the wgmma variants, for both entries: operands whose rows are whole 16-byte
+// pieces, K read by rows, and head dims up to 128 with no mask or one whose
+// rows are 16-byte granular (staged by 16-byte copies): fa_wgmma_kernel in 16
+// bits, fa_tf32_kernel in float32; or 16-bit head dims 257..512 with no mask.
+// Mirrored by flash_variant in kernels/flash_attention.py.
 bool mask_staged(const Params& p) {
   const long long elt = p.mask_dtype == 0 ? 4 : 2;
   return p.smn == 1 && reinterpret_cast<unsigned long long>(p.mask) % 16 == 0 && (p.smb * elt) % 16 == 0 &&
          (p.smh * elt) % 16 == 0 && (p.smm * elt) % 16 == 0 && (p.N * elt) % 16 == 0;
 }
-bool use_wgmma(const Params& p) {
-  return p.skd == 1 && rows_aligned16(p) && p.D <= 128 && p.Dv <= 128 && (p.mask == nullptr || mask_staged(p));
+bool use_wgmma(const Params& p, long long elt) {
+  return p.skd == 1 && rows_aligned16(p, elt) && p.D <= 128 && p.Dv <= 128 && (p.mask == nullptr || mask_staged(p));
 }
 bool use_wgmma_wide(const Params& p) {
   const int kd = p.D > p.Dv ? p.D : p.Dv;
-  return p.skd == 1 && rows_aligned16(p) && p.mask == nullptr && kd > 256 && kd <= 512;
+  return p.skd == 1 && rows_aligned16(p, 2) && p.mask == nullptr && kd > 256 && kd <= 512;
 }
 
 // the tile widths of a wgmma launch: the SD1.5 UNet's head dims 40 and 80
@@ -1281,9 +1733,11 @@ cudaError_t launch_wgmma_for(const Params& p, int splits, float* part, cudaStrea
 // the wgmma variants where they take the operands (wgmma != 0), else the
 // variants that came before them
 template <typename T>
-cudaError_t dispatch_all(const Params& p, int wgmma, int splits, float* part, cudaStream_t stream) {
-  if constexpr (!std::is_same<T, float>::value) {
-    if (wgmma && use_wgmma(p)) return launch_wgmma_for<T>(p, splits, part, stream);
+cudaError_t dispatch_all(const Params& p, int wgmma, int splits, float* part, float* ws, cudaStream_t stream) {
+  if constexpr (std::is_same<T, float>::value) {
+    if (wgmma && use_wgmma(p, 4)) return launch_tf32_for(p, ws, splits, part, stream);
+  } else {
+    if (wgmma && use_wgmma(p, 2)) return launch_wgmma_for<T>(p, splits, part, stream);
     if (wgmma && use_wgmma_wide(p)) return launch_wgmma_wide<T>(p, splits, part, stream);
   }
   return dispatch_mask<T>(p, stream);
@@ -1299,12 +1753,13 @@ cudaError_t dispatch_all(const Params& p, int wgmma, int splits, float* part, cu
 // head, row), o (batch, head, row), mask (batch, head, row, column). splits
 // and part: the key split of an unmasked wgmma launch and its float32
 // workspace of splits * B * H * M * (Dv + 2) values (null for one split).
-// Returns a cudaError_t: 0 when the launch was accepted.
+// ws: the float32 workspace of a tf32x3 launch (tf_planes; null for every
+// other variant). Returns a cudaError_t: 0 when the launch was accepted.
 extern "C" int ostt_flash_attention(int wgmma, int dtype, const void* q, const void* k, const void* v,
                                     void* o, const void* mask, int mask_dtype, int B, int M,
                                     int N, int H, int Hkv, int D, int Dv,
                                     const long long* strides, float scale_log2, int causal,
-                                    int splits, void* part, void* stream) {
+                                    int splits, void* part, void* ws, void* stream) {
   if (wgmma < 0 || wgmma > 1 || B <= 0 || M <= 0 || H <= 0 || Hkv <= 0 || H % Hkv || D % 8 || Dv % 8 ||
       D <= 0 || Dv <= 0 || mask_dtype < 0 || mask_dtype > 2 || splits < 1)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1314,11 +1769,12 @@ extern "C" int ostt_flash_attention(int wgmma, int dtype, const void* q, const v
                  s[8],  s[9],  s[10], s[11], s[12], s[13], s[14], s[15], s[16],     mask_dtype,
                  scale_log2, causal};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* ws = static_cast<float*>(part);
+  float* pt = static_cast<float*>(part);
+  float* tw = static_cast<float*>(ws);
   switch (dtype) {
-    case 0: return static_cast<int>(dispatch_mask<float>(p, st));
-    case 1: return static_cast<int>(dispatch_all<__half>(p, wgmma, splits, ws, st));
-    case 2: return static_cast<int>(dispatch_all<__nv_bfloat16>(p, wgmma, splits, ws, st));
+    case 0: return static_cast<int>(dispatch_all<float>(p, wgmma, splits, pt, tw, st));
+    case 1: return static_cast<int>(dispatch_all<__half>(p, wgmma, splits, pt, nullptr, st));
+    case 2: return static_cast<int>(dispatch_all<__nv_bfloat16>(p, wgmma, splits, pt, nullptr, st));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -3,8 +3,9 @@
 // kernel 6, the s8 form with both operands K-major at the end of this file),
 // csrc/qlinear.cu (kernel 3, the u8 x u8 -> s32 form), csrc/gn_conv.cu
 // (kernel 8, the 16-bit form with both operands K-major) and
-// csrc/flash_attention.cu (kernel 2's wgmma variant: the ring, barriers,
-// K-major tiles and the 16-bit wgmma forms with a K-major B or A in registers).
+// csrc/flash_attention.cu (kernels 1 and 2's wgmma variants: the ring,
+// barriers, K-major tiles, the 16-bit wgmma forms with a K-major B or A in
+// registers, and the TF32 forms of their float32 variant).
 //
 // Kernels 9 and 5 are a 16-bit product A (M, K) x B (K, N) with B contiguous
 // along N, summed in float32. One block is a loading warpgroup, for kernel 5 a
@@ -616,6 +617,51 @@ G90_DEV void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db) {
   else if constexpr (N == 128) G90_WG_RS(128, G90_D64, G90_ACC64, "64", "65", "66", "67", "68", "69", "bf16.bf16");
   else if constexpr (kHalf) G90_WG_RS(256, G90_D128, G90_ACC128, "128", "129", "130", "131", "132", "133", "f16.f16");
   else G90_WG_RS(256, G90_D128, G90_ACC128, "128", "129", "130", "131", "132", "133", "bf16.bf16");
+}
+
+// ---- TF32 wgmma (the float32 form of kernels 1 and 2) ---------------------
+// TF32 wgmma reads both operands K-major only: the transpose bits exist for
+// 16-bit types alone. A k-step is 8 values, 32 bytes, so a K-major TF32 tile
+// is byte for byte the 16-bit A tile above (a_desc / kmajor_desc, k-step ks
+// 32 bytes into the 128-byte rows).
+#define G90_TF_SS(N, DL, ACC, IA, IB, IP)                                                                 \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" IP ", 0;\n"                                           \
+               "wgmma.mma_async.sync.aligned.m64n" #N "k8.f32.tf32.tf32 " DL ", %" IA ", %" IB ", p, 1, 1;\n}\n" \
+               : ACC(G90_F) : "l"(da), "l"(db), "r"(acc))
+#define G90_TF_RS(N, DL, ACC, I0, I1, I2, I3, IB, IP)                                                   \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" IP ", 0;\n"                                         \
+               "wgmma.mma_async.sync.aligned.m64n" #N "k8.f32.tf32.tf32 " DL ", {%" I0 ", %" I1 ", %" I2 \
+               ", %" I3 "}, %" IB ", p, 1, 1;\n}\n"                                                      \
+               : ACC(G90_F) : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+
+// D (64 x N, f32) (+)= A (64 x 8 tf32, shared, K-major) x B (8 x N tf32,
+// shared, K-major, N rows); acc = 0 overwrites D. D as wgmma_m64n8k16's.
+template <int N>
+G90_DEV void wgmma_tf32_ss(float (&d)[N / 2], uint64_t da, uint64_t db, int acc) {
+  static_assert(N == 32 || N == 64, "tile width");
+  if constexpr (N == 32) G90_TF_SS(32, G90_D16, G90_ACC16, "16", "17", "18");
+  else G90_TF_SS(64, G90_D32, G90_ACC32N, "32", "33", "34");
+}
+
+// D (64 x N, f32) += A (64 x 8 tf32, registers) x B (8 x N tf32, shared,
+// K-major, N rows). Warp w holds rows 16 w .. 16 w + 15 of A as
+// mma.m16n8k8.tf32 holds its A: a[0] = (row g, column t), a[1] = (g + 8, t),
+// a[2] = (g, t + 4), a[3] = (g + 8, t + 4), g = lane / 4, t = lane % 4.
+template <int N>
+G90_DEV void wgmma_tf32_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db) {
+  static_assert(N == 40 || N == 64 || N == 80 || N == 128, "tile width");
+  if constexpr (N == 40) G90_TF_RS(40, G90_D20, G90_ACC20, "20", "21", "22", "23", "24", "25");
+  else if constexpr (N == 64) G90_TF_RS(64, G90_D32, G90_ACC32N, "32", "33", "34", "35", "36", "37");
+  else if constexpr (N == 80) G90_TF_RS(80, G90_D40, G90_ACC40, "40", "41", "42", "43", "44", "45");
+  else G90_TF_RS(128, G90_D64, G90_ACC64, "64", "65", "66", "67", "68", "69");
+}
+
+// x rounded to TF32 (10 mantissa bits, to nearest, ties away from zero), as
+// the bits of a float32
+G90_DEV uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
 }
 
 // ---- the u8 x u8 -> s32 product (kernel 3; kernel 4's gather next) --------

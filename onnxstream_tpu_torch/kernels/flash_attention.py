@@ -19,9 +19,11 @@ alignment (``flash_variant`` mirrors it): 16-bit operands with 16-byte
 aligned rows and K read by rows take the ``wgmma`` pipeline at head dims up
 to 128 (the SD1.5 UNet's packed 8 x 40 and 8 x 80 sites, the TinyLlama
 prefill) and the ``wgmma_wide`` one at 257..512 without a mask (the SD VAE's
-1 x 512 site); where a packed call's query tiles leave SMs idle, its keys
-are split over blocks (``flash_splits``) and the partials combined in a
-fixed order.
+1 x 512 site); float32 operands with such rows take ``tf32x3`` at head dims
+up to 128, the same pipeline with every product made of three TF32 products
+on split operands (the float32 Whisper, SD1.5 and TinyLlama sites); where a
+packed call's query tiles leave SMs idle, its keys are split over blocks
+(``flash_splits``) and the partials combined in a fixed order.
 See the source for the variants' design and what bounds them.
 
 ``flash_attention_reference`` is the plain PyTorch twin: the same function
@@ -176,19 +178,33 @@ def head_major_problem(q, k, v, mask=None, k_transposed: bool = False) -> Option
     return None
 
 
-# (query rows, keys) of a block's tiles: the wgmma variant by its widths
-# (csrc FaWgCfg: 64 keys above head dim 64), the wide one (FaWideCfg)
-WGMMA_TILES = {"wgmma": (128, 128), "wgmma_wide": (64, 32)}
+SPLIT_VARIANTS = ("wgmma", "wgmma_wide", "tf32x3")  # the variants whose unmasked launches split their keys
 MAX_SPLITS = 256  # csrc kMaxSplits
+TF32_KEY_PAD = 64  # csrc tf_planes: V^T's rows in the tf32x3 workspace hold N rounded up to this
 
 
-def _rows_aligned16(ptrs, strides, k_by_rows: bool) -> bool:
+def _block_tiles(variant: str, kd: int):
+    """(query rows, keys) of a block's tiles of an unmasked launch of one of
+    SPLIT_VARIANTS, by the larger head dim ``kd``: ``wgmma`` (csrc FaWgCfg:
+    64 keys above head dim 64), ``wgmma_wide`` (FaWideCfg), ``tf32x3``
+    (FaTfCfg: 64 keys up to head dim 64, 32 above; one consumer warpgroup of
+    64 rows above 80)."""
+    if variant == "wgmma":
+        return 128, (128 if kd <= 64 else 64)
+    if variant == "wgmma_wide":
+        return 64, 32
+    return (128, 64) if kd <= 64 else (128, 32) if kd == 80 else (64, 32)
+
+
+def _rows_aligned16(ptrs, strides, k_by_rows: bool, elt: int) -> bool:
     """csrc rows_aligned16: q, v, o (and k when read by rows) start at 16-byte
-    boundaries and every batch, head and row stride is a multiple of 8
-    elements. ``ptrs`` are q, k, v, o; ``strides`` the 17 of the launch."""
+    boundaries and every batch, head and row stride is a multiple of 16
+    bytes (``elt`` bytes an element). ``ptrs`` are q, k, v, o; ``strides``
+    the 17 of the launch."""
     q, k, v, o = ptrs
     rows = [strides[i] for i in (0, 1, 2, 7, 8, 9, 10, 11, 12)] + (list(strides[3:6]) if k_by_rows else [])
-    return all(p % 16 == 0 for p in (q, v, o, *((k,) if k_by_rows else ()))) and all(x % 8 == 0 for x in rows)
+    return (all(p % 16 == 0 for p in (q, v, o, *((k,) if k_by_rows else ())))
+            and all(x * elt % 16 == 0 for x in rows))
 
 
 def _mask_staged(mask_ptr: int, mask_dtype: torch.dtype, mask_strides, n: int) -> bool:
@@ -206,12 +222,12 @@ def _variant(dtype: torch.dtype, d: int, dv: int, ptrs, strides, mask_ptr: Optio
     dispatcher (``dispatch_all``) decides from the dtype, head dims, mask,
     strides and pointers."""
     k_by_rows = strides[6] == 1
-    aligned = _rows_aligned16(ptrs, strides, k_by_rows)
+    aligned = _rows_aligned16(ptrs, strides, k_by_rows, dtype.itemsize)
     kd = max(d, dv)
+    if aligned and k_by_rows and kd <= 128 and (mask_ptr is None or _mask_staged(
+            mask_ptr, mask_dtype, strides[13:], n)):
+        return "tf32x3" if dtype == torch.float32 else "wgmma"
     if dtype != torch.float32 and aligned:
-        if k_by_rows and kd <= 128 and (mask_ptr is None or _mask_staged(
-                mask_ptr, mask_dtype, strides[13:], n)):
-            return "wgmma"
         if k_by_rows and mask_ptr is None and 256 < kd <= 512:
             return "wgmma_wide"
         if kd <= 128:
@@ -220,30 +236,44 @@ def _variant(dtype: torch.dtype, d: int, dv: int, ptrs, strides, mask_ptr: Optio
 
 
 def flash_splits(variant: str, b: int, m: int, h: int, n: int, kd: int, sms: int) -> int:
-    """The key split of an unmasked ``wgmma`` or ``wgmma_wide`` launch: as
-    many splits as fill the card's ``sms`` SMs once with the variant's blocks
-    of query rows (one block an SM), at most one a key tile; 1 when the query
-    tiles fill the card alone, and for every other variant. ``kd`` is the
-    larger head dim."""
-    if variant not in WGMMA_TILES:
+    """The key split of an unmasked ``wgmma``, ``wgmma_wide`` or ``tf32x3``
+    launch: as many splits as fill the card's ``sms`` SMs once with the
+    variant's blocks of query rows (one block an SM), at most one a key
+    tile; 1 when the query tiles fill the card alone, and for every other
+    variant. ``kd`` is the larger head dim."""
+    if variant not in SPLIT_VARIANTS:
         return 1
-    bm, bn = WGMMA_TILES[variant]
-    if variant == "wgmma" and kd > 64:
-        bn = 64
+    bm, bn = _block_tiles(variant, kd)
     q_tiles = -(-m // bm) * h * b
     return max(1, min(sms // q_tiles, -(-n // bn), MAX_SPLITS, 65535 // b))
 
 
+def _tf32_workspace_floats(dims) -> int:
+    """Floats of a ``tf32x3`` launch's workspace (csrc tf_planes): the hi and
+    lo TF32 planes of Q (B, H, M, D), K (B, Hkv, N, D) and V transposed (B,
+    Hkv, Dv, N rounded up to TF32_KEY_PAD) that its pre-pass writes."""
+    b, m, n, h, hkv, d, dv = dims
+    return 2 * (b * h * m * d + b * hkv * n * d + b * hkv * dv * (-(-n // TF32_KEY_PAD) * TF32_KEY_PAD))
+
+
+def _tf32_workspace(variant: str, dims, device: torch.device) -> Optional[torch.Tensor]:
+    """The workspace of a ``tf32x3`` launch; None for every other variant."""
+    if variant != "tf32x3":
+        return None
+    return torch.empty(_tf32_workspace_floats(dims), dtype=torch.float32, device=device)
+
+
 def _launch(q, k, v, out, mask, dims, strides, scale: float, causal: bool, wgmma: bool = True,
-            splits: int = 1, part: Optional[torch.Tensor] = None) -> None:
+            splits: int = 1, part: Optional[torch.Tensor] = None, ws: Optional[torch.Tensor] = None) -> None:
     """One launch on the current stream; raises when CUDA refuses it.
-    ``wgmma=False`` keeps the wgmma variants out (timing side by side)."""
+    ``wgmma=False`` keeps the wgmma variants (``tf32x3`` among them) out
+    (timing side by side); ``ws`` is a ``tf32x3`` launch's workspace."""
     lib = build.load("flash_attention")
     fn = lib.ostt_flash_attention
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
                    + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                      ctypes.c_void_p, ctypes.c_void_p])
+                      ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
     arr = (ctypes.c_longlong * 17)(*[int(s) for s in strides])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -251,7 +281,7 @@ def _launch(q, k, v, out, mask, dims, strides, scale: float, causal: bool, wgmma
                 None if mask is None else mask.data_ptr(),
                 0 if mask is None else _DTYPE_CODE[mask.dtype], *dims, arr,
                 float(scale) * LOG2_E, int(bool(causal)), splits, None if part is None else part.data_ptr(),
-                stream)
+                None if ws is None else ws.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"flash attention: kernel launch failed with CUDA error {rc}")
 
@@ -270,7 +300,7 @@ def _packed_launch(q, k, v, heads: int, d: int, dv: int):
 def _split_workspace(variant: str, dims, device: torch.device):
     """(splits, float32 workspace or None) of an unmasked launch: the key
     split over the card's SMs (``flash_splits``) and its partials."""
-    if variant not in WGMMA_TILES:
+    if variant not in SPLIT_VARIANTS:
         return 1, None
     b, m, n, h, _, d, dv = dims
     splits = flash_splits(variant, b, m, h, n, max(d, dv),
@@ -335,7 +365,8 @@ def flash_attention_packed(q, k, v, heads: int, scale: Optional[float] = None,
     variant = _variant(q.dtype, d, dv, (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr()), strides,
                        None, None, dims[2])
     splits, part = _split_workspace(variant, dims, q.device)
-    _launch(q, k, v, out, None, dims, strides, scale, causal, splits=splits, part=part)
+    _launch(q, k, v, out, None, dims, strides, scale, causal, splits=splits, part=part,
+            ws=_tf32_workspace(variant, dims, q.device))
     flash_attention_packed.launches += 1
     return out
 
@@ -366,12 +397,23 @@ def flash_variant(q, k, v, mask=None, k_transposed: bool = False, form: str = "h
       * ``"wgmma"``: bf16 / fp16, head dims up to 128, K read by rows,
         16-byte aligned Q / K / V / O rows, and no mask or one whose rows are
         whole 16-byte pieces (staged by 16-byte copies);
+      * ``"tf32x3"``: float32 with the operands ``"wgmma"`` takes (head dims
+        up to 128, rows 16-byte aligned, i.e. head dims and strides multiples
+        of 4). The same pipeline, each product three TF32 products on the
+        tensor cores (hi hi + hi lo + lo hi of operands split into
+        hi = tf32(x) and lo = tf32(x - hi)), which keeps the float32 bar of
+        1e-4 where one TF32 product misses it. TF32 wgmma reads K-major
+        operands only, so a pre-pass in the same launch writes the split Q,
+        K and V transposed into a workspace; bound by the tensor cores
+        (three products) and the softmax's exponentials;
       * ``"wgmma_wide"``: bf16 / fp16 head dims 257..512 with those rows and
         no mask;
       * ``"mma"``: bf16 / fp16, head dims up to 128, aligned rows (a K given
         transposed, a mask whose rows are not 16-byte granular);
-      * ``"fma"``: everything else (float32, misaligned rows, a K given
-        transposed at head dims 257..512)."""
+      * ``"fma"``: everything else (float32 with misaligned rows, K given
+        transposed, head dims 129..512 or a mask whose rows are not 16-byte
+        granular; 16-bit misaligned rows or K given transposed at head dims
+        257..512): CUDA-core FMAs in float32."""
     if form not in ("head_major", "packed"):
         raise ValueError(f"flash_variant: form is 'head_major' or 'packed', not {form!r}")
     if form == "packed" and (mask is not None or k_transposed):
@@ -420,12 +462,14 @@ def flash_attention(q, k, v, mask=None, scale: Optional[float] = None,
         raise ValueError(f"flash_attention runs on CUDA or CPU tensors, not {q.device}")
     dims, strides, m4 = _head_major_launch(q, k, v, mask, k_transposed,
                                            None if out is None else out.stride()[:3])
-    b, m, _, h, _, _, dv = dims
+    b, m, n, h, _, d, dv = dims
     if out is None:
         out = torch.empty((b, h, m, dv), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    _launch(q, k, v, out, m4, dims, strides, scale, causal)
+    variant = _variant(q.dtype, d, dv, (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr()), strides,
+                       None if m4 is None else m4.data_ptr(), None if m4 is None else m4.dtype, n)
+    _launch(q, k, v, out, m4, dims, strides, scale, causal, ws=_tf32_workspace(variant, dims, q.device))
     _flash_attention_counted.launches += 1
     return out
 

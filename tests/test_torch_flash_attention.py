@@ -321,8 +321,13 @@ def _variant_site(case):
     TinyLlama prefill site unless the case says otherwise."""
     b, h, hkv, m, n, d = 1, 32, 32, 1024, 1024, 64
     dt, mdt, kt, form, mask_shape = torch.bfloat16, None, False, "head_major", (1, 1, m, n)
+    if case.endswith("_float32"):
+        dt = torch.float32
+        case = case[: -len("_float32")]
     if case == "gqa_4_kv_heads":
         hkv = 4
+    elif case == "tp2_prefill":  # a rank's heads of the TinyLlama prefill at tp = 2
+        h = hkv = 16
     elif case == "float32":
         dt = torch.float32
     elif case == "float16_f32_mask":
@@ -331,8 +336,9 @@ def _variant_site(case):
         d, mask_shape = 128, None
     elif case == "d256":
         d = 256
-    elif case == "ragged_mask_rows":  # 700 bf16 keys: mask rows of 1400 bytes
-        n, mask_shape = 700, (1, 1, m, 700)
+    elif case == "ragged_mask_rows":  # 700 bf16 keys: mask rows of 1400 bytes; 702 float32 keys: 2808
+        n = 700 if dt != torch.float32 else 702
+        mask_shape = (1, 1, m, n)
     elif case == "mask_broadcast_over_keys":
         mask_shape = (1, 1, m, 1)
     elif case == "k_transposed":
@@ -342,18 +348,18 @@ def _variant_site(case):
         # entry reads them: head stride D, row stride H * D
         form = "packed"
         mask_shape = None
-        d = {"packed_d512": 512, "packed_d80": 80}.get(case, 40)
+        d = {"packed_d512": 512, "packed_d80": 80, "packed_whisper": 64}.get(case, 40)
         h = hkv = 1 if d == 512 else 8
-        m = n = 4096 if d != 80 else 1024
-        dt = torch.float32 if case == "packed_d40_float32" else dt
+        m = n = {80: 1024, 64: 1500}.get(d, 4096)
         off = 4 if case == "packed_d40_rows_off_16_bytes" else 0
         packed = [torch.zeros(b, m, h * d + off, dtype=dt)[..., off:] for _ in range(3)]
         q, k, v = (t.view(b, m, h, d).transpose(1, 2) if off == 0 else t.unflatten(-1, (h, d)).transpose(1, 2)
                    for t in packed)
         return q, k, v, None, False, form
     q = torch.zeros(b, h, m, d, dtype=dt)
-    if case == "q_rows_off_16_bytes":
-        q = torch.zeros(b, h, m, d + 8, dtype=dt)[..., 4:4 + d]
+    if case == "q_rows_off_16_bytes":  # 8 bytes off
+        off = 8 // dt.itemsize
+        q = torch.zeros(b, h, m, d + 8, dtype=dt)[..., off:off + d]
     k = torch.zeros(b, hkv, d, n, dtype=dt) if kt else torch.zeros(b, hkv, n, d, dtype=dt)
     v = torch.zeros(b, hkv, n, d, dtype=dt)
     mask = None if mask_shape is None else torch.zeros(mask_shape, dtype=mdt or dt)
@@ -369,13 +375,20 @@ def _variant_site(case):
     ("mask_broadcast_over_keys", "mma"),
     ("k_transposed", "mma"),                 # K read by columns
     ("d256", "fma"),                         # head dims above 128
-    ("float32", "fma"),
+    ("float32", "tf32x3"),                   # the float32 TinyLlama prefill, its (1, 1, 1024, 1024) mask staged
     ("q_rows_off_16_bytes", "fma"),
     ("packed_d40", "wgmma"),                 # the SD1.5 UNet's 8 x 40 site, strided views of (1, 4096, 320)
     ("packed_d80", "wgmma"),                 # its 8 x 80 site, (1, 1024, 640)
     ("packed_d512", "wgmma_wide"),           # the SD VAE's 1 x 512 site, keys split over blocks
-    ("packed_d40_float32", "fma"),
+    ("packed_d40_float32", "tf32x3"),        # the float32 UNet's sites: three TF32 products a product
     ("packed_d40_rows_off_16_bytes", "fma"),
+    ("packed_d80_float32", "tf32x3"),
+    ("packed_whisper_float32", "tf32x3"),    # Whisper base's encoder site, (1, 1500, 8 x 64)
+    ("tp2_prefill_float32", "tf32x3"),       # a rank's (1, 16, 1024, 64) at tp = 2 with the float32 mask
+    ("ragged_mask_rows_float32", "fma"),     # float32 mask rows not 16-byte granular: not staged
+    ("k_transposed_float32", "fma"),         # TF32 wgmma reads K-major operands only; K given transposed is not
+    ("d256_float32", "fma"),
+    ("q_rows_off_16_bytes_float32", "fma"),
 ])
 def test_flash_variant(case, want):
     q, k, v, mask, kt, form = _variant_site(case)
@@ -395,9 +408,61 @@ def test_flash_variant(case, want):
     ("wgmma", 1, 4096, 8, 4096, 40, 132, 1),          # its d = 40 site: 256 blocks
     ("wgmma", 1, 80, 4, 24, 32, 132, 1),              # 4 blocks, one key tile of 128
     ("mma", 1, 1024, 8, 1024, 80, 132, 1),
+    ("tf32x3", 1, 4096, 8, 4096, 40, 132, 1),         # the float32 SD1.5 UNet's d = 40 site: 256 blocks of 128 rows
+    ("tf32x3", 1, 1024, 8, 1024, 80, 132, 2),         # its d = 80 site: 64 blocks, key tiles of 32
+    ("tf32x3", 1, 1500, 8, 1500, 64, 132, 1),         # Whisper base's encoder site: 96 blocks
+    ("tf32x3", 1, 256, 2, 512, 128, 132, 16),         # d = 128: blocks of 64 rows, 16 key tiles of 32
+    ("fma", 1, 1024, 8, 1024, 80, 132, 1),
 ])
 def test_flash_splits(variant, b, m, h, n, kd, sms, want):
     assert flash_splits(variant, b, m, h, n, kd, sms) == want
+
+
+def _tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """cvt.rna.tf32.f32: x rounded to 10 mantissa bits, to nearest with ties
+    away from zero, on an int32 view (half of the 13 dropped bits' weight
+    added to the magnitude, then those bits cleared)."""
+    return ((x.contiguous().view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_product(a: torch.Tensor, b: torch.Tensor, passes: int) -> torch.Tensor:
+    """a (..., M, K) @ b (..., K, N) as the tf32x3 kernel forms it: a k8 step
+    at a time into a float32 sum, each step hi lo + lo hi + hi hi of the
+    split operands (hi = tf32(x), lo = tf32(x - hi)); passes=1 keeps hi hi
+    alone, one TF32 product."""
+    ah, bh = _tf32_rna(a), _tf32_rna(b)
+    al, bl = _tf32_rna(a - ah), _tf32_rna(b - bh)
+    out = torch.zeros(*a.shape[:-1], b.shape[-1])
+    for k0 in range(0, a.shape[-1], 8):
+        ks = slice(k0, k0 + 8)
+        if passes == 3:
+            out += ah[..., ks] @ bl[..., ks, :]
+            out += al[..., ks] @ bh[..., ks, :]
+        out += ah[..., ks] @ bh[..., ks, :]
+    return out
+
+
+@pytest.mark.parametrize("d", [40, 64])
+def test_three_pass_tf32_split_meets_the_float32_bar(d):
+    """The tf32x3 variant's arithmetic emulated in torch on the CPU (the CUDA
+    kernel cannot run here): both products as three TF32 products on split
+    operands, the softmax in float32 between them, held to the float32 twin
+    at the float32 bar of 1e-4. The error of a single TF32 product is printed,
+    not asserted: it is why the variant takes three."""
+    b, h, m, n = 1, 2, 300, 260
+    rng = np.random.default_rng(18)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s, dtype=np.float32)) for s in ((b, h, m, d), (b, h, n, d),
+                                                                                    (b, h, n, d)))
+    twin = flash_attention_reference(q, k, v)
+    errs = {}
+    for passes in (3, 1):
+        s = _tf32_product(q, k.transpose(-1, -2), passes) * (d ** -0.5 * 1.4426950408889634)
+        p = torch.exp2(s - s.amax(dim=-1, keepdim=True))
+        out = _tf32_product(p, v, passes) / p.sum(dim=-1, keepdim=True)
+        errs[passes] = (out - twin).abs().max().item()
+        if passes == 3:
+            torch.testing.assert_close(out, twin, **TOL)
+    print(f"d = {d}: max|diff| from the float32 twin, three TF32 products {errs[3]:.3e}, one {errs[1]:.3e}")
 
 
 def test_flash_variant_packed_form_takes_no_mask():

@@ -16,6 +16,7 @@ from onnxstream_tpu_torch.kernels.flash_attention import (
     flash_attention_packed,
     flash_attention_packed_reference,
     flash_attention_reference,
+    flash_splits,
     flash_variant,
 )
 
@@ -245,7 +246,8 @@ def test_nopad_route_matches_twin_on_card(case, dtype):
     q, k, v = (torch.from_numpy(rng.standard_normal(s, dtype=np.float32)).cuda().to(dtype)
                for s in ((b, m, h * d), (b, n, h * d), (b, n, h * d)))
     heads = lambda t: t.unflatten(-1, (h, d)).transpose(1, 2)
-    assert flash_variant(heads(q), heads(k), heads(v)) == (want if dtype != torch.float32 else "fma")
+    assert flash_variant(heads(q), heads(k), heads(v)) == (want if dtype != torch.float32 else
+                                                           "tf32x3" if d <= 128 else "fma")
     before = (flash_attention_packed.launches, flash_attention.launches)
     out = flash_attention_packed(q, k, v, h, nopad=True)
     again = flash_attention_packed(q, k, v, h, nopad=True)
@@ -254,3 +256,112 @@ def test_nopad_route_matches_twin_on_card(case, dtype):
     ref = flash_attention_packed_reference(q, k, v, h)
     _assert_matches_twin(out, ref, 1e-4 if dtype == torch.float32 else 2e-2)
     assert torch.equal(out, again)
+
+
+# ------------------------------------------- tf32x3: the float32 form of both entries
+# float32 operands whose rows the wgmma variant would take run the same
+# pipeline with every product as three TF32 products of split operands: the
+# SD1.5 UNet's d = 40 and 80 (the d = 80 site's keys split over two blocks),
+# Whisper base's d = 64 site at 1500 tokens, d = 128 (keys split over 16
+# blocks), ragged M and N, GQA, causal with M > N (rows of exact zeros)
+PACKED_TF32_CASES = [
+    # name, b, m, n, heads, kv heads, d, causal
+    ("d40_sd15_1024", 1, 1024, 1024, 8, 8, 40, False),
+    ("d40_ragged_gqa", 2, 77, 300, 8, 4, 40, False),
+    ("d64_whisper", 1, 1500, 1500, 8, 8, 64, False),
+    ("d64_gqa_causal", 2, 300, 700, 8, 2, 64, True),
+    ("d80_sd15_split", 1, 1024, 1024, 8, 8, 80, False),
+    ("d80_causal_m_gt_n", 1, 200, 150, 2, 2, 80, True),
+    ("d128_split", 1, 256, 512, 2, 2, 128, False),
+    ("d128_causal_m_gt_n_gqa", 1, 100, 40, 4, 2, 128, True),
+    ("d32_causal_m_gt_n", 1, 80, 24, 4, 4, 32, True),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", PACKED_TF32_CASES, ids=[c[0] for c in PACKED_TF32_CASES])
+def test_packed_tf32x3_matches_twin_on_card(case):
+    _card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    name, b, m, n, h, hkv, d, causal = case
+    rng = np.random.default_rng(18)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s, dtype=np.float32)).cuda()
+               for s in ((b, m, h * d), (b, n, hkv * d), (b, n, hkv * d)))
+    heads = lambda t, hh: t.view(b, t.shape[1], hh, d).transpose(1, 2)
+    assert flash_variant(heads(q, h), heads(k, hkv), heads(v, hkv), form="packed") == "tf32x3"
+    if name.endswith("_split"):
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        assert flash_splits("tf32x3", b, m, h, n, d, sms) > 1
+    out = flash_attention_packed(q, k, v, h, causal=causal)
+    again = flash_attention_packed(q, k, v, h, causal=causal)
+    torch.cuda.synchronize()
+    _assert_matches_twin(out, flash_attention_packed_reference(q, k, v, h, causal=causal), 1e-4)
+    assert torch.equal(out, again)
+    if causal and m > n:
+        assert out[:, : m - n].abs().max().item() == 0.0
+
+
+HM_TF32_CASES = [
+    # name, b, h, hkv, m, n, d, mask shape (None: no mask), causal, mask dtype: the mask staged as the
+    # wgmma variant stages it, in float32 (TinyLlama's float32 graph) or bf16
+    ("d64_gqa_32_4_f32_mask", 1, 32, 4, 300, 1024, 64, "11mn", False, torch.float32),
+    ("d64_bf16_mask_ragged", 2, 4, 2, 130, 520, 64, "bmn", False, torch.bfloat16),
+    ("d40_f32_mask_causal_m_gt_n", 1, 4, 4, 80, 48, 40, "mn", True, torch.float32),
+    ("d80_bf16_mask_gqa", 1, 4, 2, 200, 600, 80, "b1mn", False, torch.bfloat16),
+    ("d128_f32_mask_gqa", 1, 8, 2, 256, 512, 128, "1hmn", False, torch.float32),
+    ("d64_no_mask_causal", 1, 4, 4, 300, 700, 64, None, True, None),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", HM_TF32_CASES, ids=[c[0] for c in HM_TF32_CASES])
+def test_head_major_tf32x3_matches_twin_on_card(case):
+    _card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    name, b, h, hkv, m, n, d, kind, causal, mdt = case
+    rng = np.random.default_rng(19)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s, dtype=np.float32)).cuda()
+               for s in ((b, h, m, d), (b, hkv, n, d), (b, hkv, n, d)))
+    mask = None
+    if kind is not None:
+        mk = np.where(rng.random(_mask_shape(kind, b, h, m, n)) > 0.3, 0.0, -1e9).astype(np.float32)
+        mk[..., 0] = 0.0
+        mk[..., 1, :] = -1e9
+        mask = torch.from_numpy(mk).cuda().to(mdt)
+    assert flash_variant(q, k, v, mask) == "tf32x3"
+    out = flash_attention(q, k, v, mask=mask, causal=causal)
+    torch.cuda.synchronize()
+    ref = flash_attention_reference(q, k, v, mask=mask, causal=causal)
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+    if causal and m > n:
+        assert out[:, :, : m - n].abs().max().item() == 0.0
+
+
+@pytest.mark.gpu
+def test_wgmma_off_keeps_float32_on_fa_fma_kernel():
+    """The C entry's wgmma = 0 keeps tf32x3 out, so fa_fma_kernel can be timed
+    beside it on the same operands: the kernels each launch runs, read from
+    the profiler, and both outputs against the twin."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from onnxstream_tpu_torch.kernels import flash_attention as fa
+
+    _card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(20)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 256, 2 * 64), dtype=np.float32)).cuda() for _ in range(3))
+    dims, strides = fa._packed_launch(q, k, v, 2, 64, 64)
+    ref = flash_attention_packed_reference(q, k, v, 2)
+    names = {}
+    for wgmma in (True, False):
+        out = torch.empty_like(q)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            if wgmma:
+                out = flash_attention_packed(q, k, v, 2)
+            else:
+                fa._launch(q, k, v, out, None, dims, strides, 0.125, False, wgmma=False)
+            torch.cuda.synchronize()
+        names[wgmma] = " ".join(e.key for e in prof.key_averages())
+        torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+    assert "fa_tf32_kernel" in names[True] and "fa_fma_kernel" not in names[True]
+    assert "fa_fma_kernel" in names[False] and "fa_tf32_kernel" not in names[False]
