@@ -287,10 +287,10 @@ Phases (any failure exits non-zero and prints no result line):
      parallel.launch.spawn starts two gloo ranks on the one card (NCCL
      refuses two ranks on one device): TinyLlama 1.1B at full width under
      make_mesh(2, dp=1, tp=2) with its weights synthesized on the card, a
-     700-token prefill (bucket 1024) and 8 greedy tokens, in float32
+     700-token prefill (bucket 1024) and 4 greedy tokens, in float32
      (logits within 1e-4 * max|logits| of the one-rank pipeline on the same
-     seeds, the same 8 tokens) and bf16 (within 5e-2 * max, token agreement
-     printed); in both, 8 decode steps fed the one-rank float32 run's tokens,
+     seeds, the same 4 tokens) and bf16 (within 5e-2 * max, token agreement
+     printed); in both, 4 decode steps fed the one-rank float32 run's tokens,
      each step's logits within the same bound of the one-rank run's (printed
      beside both runs' gap to the float32 model); kernel 2 launched 22 times
      a prefill at (1, 16, 1024, 64) on
@@ -310,9 +310,9 @@ Phases (any failure exits non-zero and prints no result line):
      2), dp2_unet and tp2_unet (kernel 1) under launches_by_path.
  19. 8-bit weights under the mesh (in phase_parallel's spawn): TinyLlama
      int8 (bf16, s8 slices synthesized on the card) at tp = 2 against the
-     one-rank int8 run (prefill logits and 8 steps fed the one-rank tokens
+     one-rank int8 run (prefill logits and 4 steps fed the one-rank tokens
      within 5e-2 * max, the same argmax at each), every kernel-2 and
-     kernel-6 call of the prefill and the 8 tokens held to its twin
+     kernel-6 call of the prefill and the 4 tokens held to its twin
      (kernel 6 bit for bit), decode ms a token a rank; the SD15 UNet with its
      linear weights quantized at fetch to per-channel uint8 (each rank its
      column slices) at tp = 2 against the one-rank run (5e-2 * max), every
@@ -350,6 +350,35 @@ Phases (any failure exits non-zero and prints no result line):
      stream's GB/s, peak against hbm_accounting(), wall and busy:
      sd15_streamed_tp2); pp_devices [cuda:0] x 2 beside a one-rank NCCL mesh
      bit for bit with the same stages without a mesh.
+ 23. captured segments (phase_capture, after phase_llm_int8, on the SD1.5
+     image path's and the two TinyLlama phases' pipelines): on one card a
+     resident executor's first run is eager, its second captures its segment
+     into a CUDA graph and later runs replay it. The SD15 UNet run (bf16)
+     replayed, 10 kernel-1 launches a replay, its capture seconds and
+     memory_analysis beside hbm_accounting() and the allocator's peak, wall
+     and busy beside an eager run's, the output bit for bit with the eager
+     run (else within 5e-2 * max); the 10-step euler_a image through
+     generate_on_device, its latents against the eager loop's and both
+     loops' wall; TinyLlama bf16 and int8: three 1024-bucket prefills (eager,
+     captured, replayed; kernel 2 22 times each, kernel 6 155), 32 greedy
+     tokens from the replayed decode graph, equal to the eager loop's, the
+     last prefill's logits against the eager run's, ms a token wall and
+     busy both ways, kernel 6 155 a token (sd15_capture, tinyllama_capture,
+     tinyllama_int8_capture under launches_by_path). What a replay launches
+     is measured twice: the executor holds the launches its wrappers counted
+     during the capture to the graph's own kernel nodes (its capture raises
+     on a difference), and a profiler window over replays counts each set of
+     entry kernels on the card (_launches_held: 10 kernel-1 launches a UNet
+     replay, 22 kernel-2 and 155 kernel-6 a prefill, 155 kernel-6 a token).
+     The eager references run inside Executor.eager() (_eager_executors), the
+     graphs kept. Every other phase runs as its sessions do: a session's
+     second and later runs replay, so the kernel-vs-twin checks and the
+     recorded calls come from each executor's first (eager) run, and a
+     replayed request prints that its check is the eager run's, passing only
+     where a graph holding the kernel replayed. Every profiler window that
+     holds replays must hold each kernel node the replayed graphs ran
+     (_window_short); one that does not is taken again, and after three its
+     busy figure is printed NOT VERIFIED and listed before the result.
 
 Each path's launch counts are set to 0 just before it and read just after;
 launches made to compare a kernel with its twin come after the read. The
@@ -359,6 +388,8 @@ second-to-last line is {"kernels": [...]}, the last line
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
 import gc
 import json
@@ -415,12 +446,46 @@ def _device_rows(prof, steps: int):
     return rows
 
 
-def device_ms(fn, iters: int = 10, warmup: int = 2) -> float:
+# profiler windows over graph replays that lacked kernels three times over:
+# their busy figures are printed "NOT VERIFIED" and listed before the result
+UNVERIFIED_WINDOWS = []
+WINDOW_ATTEMPTS = 3
+
+
+def _window_short(prof, nodes_before: dict) -> dict:
+    """The kernels of which a profiler window holds fewer launches than the
+    graph replays in it ran (kernels.replayed_nodes since nodes_before, the
+    replayed graphs' own kernel nodes): {name: (profiled, replayed)}. Empty
+    where the window holds every one; eager launches in the window only add.
+    Under replay the profiler can lose kernels (a window that read 0.887 ms
+    for 3.940), so a window is taken again while this is not empty."""
+    from onnxstream_tpu_torch import kernels
+
+    want = {k: n - nodes_before.get(k, 0) for k, n in kernels.replayed_nodes.items() if n > nodes_before.get(k, 0)}
+    if not want:
+        return {}
+    got = collections.Counter()
+    for e in prof.key_averages():
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            got[kernels.kernel_name(e.key)] += e.count
+    return {k: (got[k], n) for k, n in want.items() if got[k] < n}
+
+
+def _unverified(who: str, short: dict) -> None:
+    lost = sum(n - got for got, n in short.values())
+    print(f"{who}: NOT VERIFIED: after {WINDOW_ATTEMPTS} windows the profiler still lacks {lost} launches of "
+          f"{len(short)} replayed kernels (e.g. {dict(list(short.items())[:3])}); the busy figure is short")
+    UNVERIFIED_WINDOWS.append(who)
+
+
+def device_ms(fn, iters: int = 10, warmup: int = 2, who: str = "device_ms") -> float:
     """Device time of one call of fn: the summed durations of the kernels
     and copies it launches, from torch.profiler over `iters` calls. Host gaps
     between launches are left out, so a small kernel is not timed at the
     rate at which the host can enqueue it."""
     from torch.profiler import ProfilerActivity, profile
+
+    from onnxstream_tpu_torch import kernels
 
     for _ in range(warmup):
         fn()
@@ -430,21 +495,31 @@ def device_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     # the profiler's schedule is traced and dropped. An empty window is taken
     # again, twice as long; after five empty ones the call is timed with CUDA
     # events (which count the host's gaps between launches too) and the
-    # output says so
-    n = iters
-    for _ in range(5):
+    # output says so. A window that lacks launches of the graphs replayed in
+    # it (_window_short) is taken again, up to WINDOW_ATTEMPTS times
+    n, empty, short_windows = iters, 0, 0
+    while empty < 5:
         sched = torch.profiler.schedule(wait=0, warmup=1, active=n, repeat=1)
         with profile(activities=[ProfilerActivity.CUDA], schedule=sched) as prof:
-            for _ in range(n + 1):
+            for i in range(n + 1):
+                if i == 1:
+                    nodes = dict(kernels.replayed_nodes)
                 fn()
                 torch.cuda.synchronize()
                 prof.step()
         ms = sum(r[0] for r in _device_rows(prof, n))
         if ms > 0:
+            short = _window_short(prof, nodes)
+            if short:
+                short_windows += 1
+                if short_windows < WINDOW_ATTEMPTS:
+                    print(f"{who}: the profiler window lacks launches of the replayed graphs; profiling again")
+                    continue
+                _unverified(who, short)
             return ms
-        print("device_ms: the profiler window holds no device events; profiling again")
-        n *= 2
-    return _event_ms(fn, iters, "device_ms")
+        print(f"{who}: the profiler window holds no device events; profiling again")
+        empty, n = empty + 1, 2 * n
+    return _event_ms(fn, iters, who)
 
 
 def _event_ms(fn, iters: int, who: str) -> float:
@@ -786,26 +861,59 @@ def _requests(cfg, seed: int):
     ]
 
 
+def _traced(step, steps: int):
+    """A profiler window over `steps` calls of step, each ended by a
+    synchronize, after one traced call that is dropped (the tracer can miss
+    the first launches of a window while it starts): (the profile,
+    kernels.replayed_nodes at the window's start, wall ms a call). Device
+    activity only: the host's ops would add their tracing to the wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from onnxstream_tpu_torch import kernels
+
+    sched = torch.profiler.schedule(wait=0, warmup=1, active=steps, repeat=1)
+    with profile(activities=[ProfilerActivity.CUDA], schedule=sched) as prof:
+        step()
+        torch.cuda.synchronize()
+        prof.step()
+        nodes = dict(kernels.replayed_nodes)
+        t0 = time.perf_counter()
+        for i in range(steps):
+            step()
+            torch.cuda.synchronize()
+            if i == steps - 1:
+                wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+            prof.step()
+    return prof, nodes, wall_ms
+
+
 def profile_steps(step, name: str, label: str, steps: int = 2) -> list:
     """Device time per step by kernel, and the device's busy share of the
     wall time, from a torch.profiler window over warm steps. Returns the
     (ms per step, launches per step, kernel name) rows."""
-    from torch.profiler import ProfilerActivity, profile
-
+    # two warm-up steps: a session's first run is eager and its second
+    # captures its graph, so the window holds replays, as later runs are;
+    # a window that lacks launches of the replayed graphs is taken again
+    step()
+    step()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            step()
-        torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    for attempt in range(1, WINDOW_ATTEMPTS + 1):
+        prof, nodes, wall_ms = _traced(step, steps)
+        short = _window_short(prof, nodes)
+        if not short:
+            break
+        if attempt < WINDOW_ATTEMPTS:
+            print(f"profile of {label}: the window lacks launches of the replayed graphs; profiling again")
+        else:
+            _unverified(f"profile of {label}", short)
     rows = _device_rows(prof, steps)
     dev_ms = sum(r[0] for r in rows)
     if not rows:
         print("profile: the profiler recorded no device time (not measured)")
         return rows
     print(f"profile of {label} over {steps} warm steps [{name}]: wall {wall_ms:.2f} ms/step (profiler on), "
-          f"device busy {dev_ms:.2f} ms/step = {100 * dev_ms / wall_ms:.1f}% of wall")
+          f"device busy {dev_ms:.2f} ms/step = {100 * dev_ms / wall_ms:.1f}% of wall"
+          + (" NOT VERIFIED" if short else ""))
     for ms, n, key in sorted(rows, reverse=True)[:12]:
         print(f"  {ms:8.3f} ms/step  {n:5d}x  {key[:90]}")
     return rows
@@ -1226,17 +1334,41 @@ class _GraphSiteCheck:
     the peak before each check, and the allocator's peak is reset after it.
     While ``calls`` is a list, every call's operands are appended to it.
     ``rel``, where given, also bounds a 16-bit output's relative L2 distance
-    from the twin."""
+    from the twin. A call made while a CUDA graph is being captured (an
+    executor's second run) only passes on to the kernel: the capture
+    launches nothing, and its replays call no wrapper, so the checks and the
+    recorded calls come from eager runs (an executor's first), and a run
+    that replays a graph is held to its eager run by phase_capture. check()
+    takes a run that no call reached only where, since arm(), a capture
+    recorded a call or a graph holding launches of this kernel replayed
+    (``kernels.replayed``: launches held to the graph's nodes)."""
 
     def __init__(self, kernel, twin, tol: float, describe, rel=None):
+        from onnxstream_tpu_torch import kernels
+
         self.kernel, self.twin, self.tol, self.describe, self.rel = kernel, twin, tol, describe, rel
         self.armed, self.result, self.peak, self.worst = False, None, 0, 0.0
         self.calls = None
+        self.captured = 0  # calls that a capture recorded since arm()
+        self.counter = next((k for k, fn in kernels.counted().items() if fn is kernel), None)
+        self.replayed_at_arm = 0
+
+    def replayed(self) -> int:
+        """Launches of this kernel that graph replays made since arm()."""
+        from onnxstream_tpu_torch import kernels
+
+        return kernels.replayed[self.counter] - self.replayed_at_arm if self.counter else 0
 
     def arm(self):
-        self.armed, self.result = True, None
+        from onnxstream_tpu_torch import kernels
+
+        self.armed, self.result, self.captured = True, None, 0
+        self.replayed_at_arm = kernels.replayed[self.counter] if self.counter else 0
 
     def __call__(self, *args, **kw):
+        if torch.cuda.is_current_stream_capturing():
+            self.captured += 1
+            return self.kernel(*args, **kw)
         out = self.kernel(*args, **kw)
         if self.calls is not None:
             self.calls.append((args, kw))
@@ -1258,6 +1390,12 @@ class _GraphSiteCheck:
         return out
 
     def check(self, label: str) -> None:
+        if self.result is None and (self.captured or self.replayed()):
+            self.armed = False
+            print(f"  {label}: no eager call; the run " + (f"captured {self.captured} calls" if self.captured else
+                  f"replayed a graph: {self.replayed()} launches of {self.counter}")
+                  + " (the twin check is the eager first run's)")
+            return
         if self.result is None:
             raise SystemExit(f"{label}: no call reached the graph-site check")
         ok, err, about = self.result
@@ -1724,13 +1862,15 @@ class _LaunchForwardingSite(_GraphSiteCheck):
 
 def busy_and_wall(step, label: str, name: str, steps: int = 3) -> dict:
     """Warm wall ms (median of `steps` runs ended by a synchronize) and device
-    busy ms (the kernels' summed durations) of one call of step."""
+    busy ms (the kernels' summed durations) of one call of step. Two warm-up
+    calls: a session's first run is eager, its second captures its graph."""
+    step()
     step()
     walls = []
     for _ in range(steps):
         _, ms = _timed(step)
         walls.append(ms)
-    dev = device_ms(step, iters=steps, warmup=0)
+    dev = device_ms(step, iters=steps, warmup=0, who=label)
     print(f"{label}: wall median {np.median(walls):.2f} ms (min {min(walls):.2f}, {steps} runs), "
           f"device busy {dev:.3f} ms [{name}]")
     return {"wall_ms": float(np.median(walls)), "device_ms": dev}
@@ -1766,7 +1906,8 @@ def phase_gn_routes(name: str, sd: dict) -> dict:
         matmul_mod.matmul = sites["matmul"] if on else matmul
 
     g, reqs, text = sd["graph"], _requests(SD15, 0), sd["graph"].to_text()
-    sessions, want, times, replays = {}, {}, {}, {}
+    # each session's first (eager) run's calls, by config
+    sessions, want, times, replays, recorded = {}, {}, {}, {}, {}
     # the path: three requests under A, three under B, the VAE decodes; the counts are zeroed just before it
     for k in kernels.values():
         k.launches = 0
@@ -1787,7 +1928,13 @@ def phase_gn_routes(name: str, sd: dict) -> dict:
                 for k, n in want[label].items():
                     if n:
                         sites[k].arm()
+                for site in sites.values():  # the session's first (eager) run: its calls are recorded
+                    site.calls = [] if i == 0 else None
                 out, ms = _timed(lambda: s.run()["out_sample"])
+                if i == 0:
+                    recorded[label] = {k: site.calls for k, site in sites.items()}
+                    for site in sites.values():
+                        site.calls = None
                 got = {k: f.launches - before[k] for k, f in kernels.items()}
                 diff = float(np.abs(out - sd["outs"][i]).max())
                 top = float(np.abs(sd["outs"][i]).max())
@@ -1817,7 +1964,12 @@ def phase_gn_routes(name: str, sd: dict) -> dict:
             for k, n in wantv.items():
                 if n:
                     sites[k].arm()
+            for site in sites.values():  # the decoder's first (eager) run: its calls are recorded
+                site.calls = []
             img_f, ms = _timed(lambda: s.run(device_outputs=True))
+            recorded[f"vae_{label}"] = {k: site.calls for k, site in sites.items()}
+            for site in sites.values():
+                site.calls = None
             img_f = next(iter(img_f.values()))
             got = {k: f.launches - before[k] for k, f in kernels.items()}
             if img_f.shape != (1, 3, 512, 512) or not bool(torch.isfinite(img_f).all()):
@@ -1851,15 +2003,6 @@ def phase_gn_routes(name: str, sd: dict) -> dict:
         print("VAE_SD decode against the float32 decode, mean |diff| in levels: "
               + ", ".join(f"{label} {np.abs(img - img32).mean():.4f}" for label, img in images.items()))
 
-        # one run's calls recorded under each config (after the read of the counts)
-        recorded = {}
-        for label in ("A", "B", "vae_fuse_groupnorm", "vae_A"):
-            for site in sites.values():
-                site.calls = []
-            sessions[label].run(device_outputs=True)
-            recorded[label] = {k: site.calls for k, site in sites.items()}
-            for site in sites.values():
-                site.calls = None
         # no per-run weight relayout on the small-conv route: the B operand of every matmul call of a run
         # is the resident device copy of an uploaded (9 C, O) weight itself, not a tensor made during the run
         ex = next(iter(sessions["B"]._executors.values()))
@@ -2018,9 +2161,13 @@ def phase_sd_u8(name: str, sd: dict) -> dict:
                 s.add_tensor(k, v)
             b5, b1 = w8_matmul.launches, flash_attention_packed.launches
             site.arm()
+            # the first (eager) run's calls are recorded for the replays below
+            site.calls = [] if i == 0 else None
             t1 = time.perf_counter()
             out = s.run()["out_sample"]
             ms = (time.perf_counter() - t1) * 1e3
+            if i == 0:
+                calls, site.calls = site.calls, None
             n5, n1 = w8_matmul.launches - b5, flash_attention_packed.launches - b1
             results.append(out)
             print(f"uint8 request {i} (t={req['timestep'][0]:g}): {out.shape} finite={np.isfinite(out).all()} "
@@ -2054,15 +2201,8 @@ def phase_sd_u8(name: str, sd: dict) -> dict:
     print(f"peak device memory {peak / 2**20:.1f} MB, weights {stats['weight_bytes'] / 2**20:.1f} MB [{name}]")
     profile_steps(s.run, name, "SD15 step, uint8 weights")
 
-    # one step's calls recorded, then the kernel at each of the graph's shapes
+    # the first step's calls: the kernel at each of the graph's shapes
     # against its twin, and the step's calls replayed
-    site.calls = []
-    executor_mod.w8_matmul = site
-    try:
-        s.run()
-    finally:
-        executor_mod.w8_matmul = w8_matmul
-    calls, site.calls = site.calls, None
     shapes = sorted({(a.numel() // a.shape[-1], *w.shape) for (a, w, *_), _ in calls})
     print(f"w8_matmul shapes of the SD15 step (M, K, N): {shapes}")
     check_qkernel("w8_matmul", w8_matmul, w8_matmul_reference, _w8_case, shapes, 1e-4, 2e-2)
@@ -2418,14 +2558,25 @@ def phase_sd_image(name: str) -> dict:
         float_decoder = pipe.vae_decoder
         w8a8 = pipe.vae_decoder = qu8_decoder(vae.to_text(), vae.weights, ranges, "bfloat16",
                                               torch.device("cuda:0"))
-        images = {}
+        images, captured_dims = {}, None
         for key in ("a", "b", "c"):
             c0, f0 = qmatmul.launches, flash_attention_packed.launches
             d0 = len(flash.head_dims)
+            graph = next((ex._replay for ex in w8a8._executors.values()), None)  # (b)'s capture, from (c) on
             flash.arm(), qmm.arm(), qcv.arm()
+            # the first (eager) decode's calls are recorded: every call against the twin, then replayed
+            qmm.calls, qcv.calls = ([], []) if key == "a" else (None, None)
             images[key], ms[f"w8a8_{key}"] = _timed(lambda: _decode_image(pipe, res[key].latents))
+            if key == "a":
+                calls = {"qmatmul": qmm.calls, "qconv": qcv.calls}
+                qmm.calls = qcv.calls = None
             nq, nf = qmatmul.launches - c0, flash_attention_packed.launches - f0
             dims = flash.head_dims[d0:]
+            if flash.captured:  # the calls this capture recorded
+                captured_dims = (next(ex._replay for ex in w8a8._executors.values()), dims)
+            elif not dims and graph is not None and captured_dims and captured_dims[0] is graph:
+                # a replay calls no wrapper: its head dims are those its graph recorded when captured
+                dims = captured_dims[1]
             print(f"W8A8 decode of ({key}): {images[key].shape} {images[key].dtype}, {ms[f'w8a8_{key}']:.1f} ms, "
                   f"qmatmul launches {nq} (want 39: 4 MatMuls + 35 through qconv), flash launches {nf} at head "
                   f"dims {dims} (want one at 512) [{name}]")
@@ -2507,17 +2658,7 @@ def phase_sd_image(name: str) -> dict:
               f"{elementwise:.3f} ms (the activation quantization, its layout conversion included) [{name}]")
     del w8a8_nchw
 
-    # one W8A8 decode's calls recorded: every call against the twin, then replayed
-    qmm.calls, qcv.calls = [], []
-    executor_mod.qmatmul, executor_mod.qconv = qmm, qcv
-    try:
-        w8a8.clear_tensors()
-        w8a8.add_tensor("latent", z[None])
-        w8a8.run(device_outputs=True)
-    finally:
-        executor_mod.qmatmul, executor_mod.qconv = qmatmul, qconv
-    calls = {"qmatmul": qmm.calls, "qconv": qcv.calls}
-    qmm.calls = qcv.calls = None
+    # the first W8A8 decode's calls: every call against the twin, then replayed
     errs = {k: check_qlinear_calls(k, kern, twin, calls[k], "one W8A8 decode, the graph's own operands")
             for k, kern, twin in (("qmatmul", qmatmul, qmatmul_reference), ("qconv", qconv, qconv_reference))}
     ops_total = sum(_qmatmul_cost(*a, **k)[1] for a, k in calls["qmatmul"]) + \
@@ -2569,6 +2710,7 @@ def phase_sd_image(name: str) -> dict:
     out["qconv"]["variants"] = {k: len(v) for k, v in by_variant.items()}
     out["w8a8_decode_busy_ms"] = busy
     out["flash_launches"] = launches["flash_attention_packed"]
+    out["pipe"] = pipe  # phase_capture's SD1.5 pipeline
     return out
 
 
@@ -2593,7 +2735,7 @@ class _FlashShapes(_FlashSites):
 
     def __call__(self, q, k, v, heads, **kw):
         key = (tuple(q.shape), tuple(k.shape), heads)
-        first = key not in self.seen
+        first = key not in self.seen and not torch.cuda.is_current_stream_capturing()
         if first:
             self.arm()
         out = super().__call__(q, k, v, heads, **kw)
@@ -2746,10 +2888,13 @@ def phase_sdxl(name: str) -> dict:
     flash_attention_packed.launches = 0
     attention_op.flash_attention_packed = flash
     try:
-        # 1. a 10-step euler_a image on the device loop: one batch-2 UNet run a step
+        # 1. a 10-step euler_a image on the device loop: one batch-2 UNet run a step; step 0's run is the
+        # UNet's first (eager), and its 70 calls are recorded (later steps replay the graph step 1 captured)
         flash.reset()
+        flash.calls = []
         res["a"], ms["a"] = _timed(lambda: pipe.generate_on_device(SDXL_PROMPT, SDXL_NEG, steps=10, seed=42,
                                                                     decode=False))
+        calls, flash.calls = flash.calls, None
         n1 = flash_attention_packed.launches
         lat = res["a"].latents
         print(f"SDXL request (a) euler_a, 10 steps, device loop, UNet batch 2: latents {lat.shape} finite="
@@ -2761,9 +2906,12 @@ def phase_sdxl(name: str) -> dict:
         # the decodes of (a): whole (one launch at 16384 tokens) and tiled (9 tiles, one each at 4096)
         n0 = flash_attention_packed.launches
         flash.reset()
+        # the decoders' first (eager) runs: the whole decode's call and the first tile's are recorded
+        vae_calls = flash.calls = []
         img, ms["decode"] = _timed(lambda: _decode_image(pipe, lat))
         n_whole = flash_attention_packed.launches - n0
         img_tiled, ms["tiled"] = _timed(lambda: _decode_image(pipe, lat, tiled=True))
+        flash.calls = None
         n_tiled = flash_attention_packed.launches - n0 - n_whole
         gap = _levels(img, img_tiled)
         print(f"SDXL decode of (a): whole {img.shape} {ms['decode']:.1f} ms ({n_whole} flash launch, want 1), tiled "
@@ -2801,13 +2949,7 @@ def phase_sdxl(name: str) -> dict:
     x0 = np.asarray(randn_4_w_h(42, pipe.latw, pipe.lath) * sigma0 * sched.get_scalings(sigma0)[0], np.float32)
     t_0 = sched.sigma_to_t(sigma0)
     inputs2 = _xl_unet_inputs(pipe, x0, t_0, pair)
-    flash.calls = []
-    attention_op.flash_attention_packed = flash
-    try:
-        out2 = _run_unet(pipe.unet, inputs2)
-    finally:
-        attention_op.flash_attention_packed = flash_attention_packed
-    calls, flash.calls = flash.calls, None
+    out2 = _run_unet(pipe.unet, inputs2)
     pipe.unet.config.use_flash_attention = False
     try:
         off = _run_unet(pipe.unet, inputs2)
@@ -2833,15 +2975,6 @@ def phase_sdxl(name: str) -> dict:
                         flash_attention_packed_reference, _packed_library, _packed_cost, _about_packed, 2e-2, name,
                         close=close, key=lambda a, k: (*a[0].shape, a[3]))
     del calls
-    vae_calls = []
-    flash.calls = vae_calls
-    attention_op.flash_attention_packed = flash
-    try:
-        _decode_image(pipe, lat)
-        _decode_image(pipe, lat, tiled=True)
-    finally:
-        attention_op.flash_attention_packed = flash_attention_packed
-        flash.calls = None
     sites.update(site_report("flash_attention_packed, SDXL VAE decodes", vae_calls[:2], flash_attention_packed,
                              flash_attention_packed_reference, _packed_library, _packed_cost, _about_packed, 2e-2,
                              name, close=close, key=lambda a, k: (*a[0].shape, a[3])))
@@ -2859,8 +2992,11 @@ def phase_sdxl(name: str) -> dict:
     flash_attention_packed.launches = 0
     attention_op.flash_attention_packed = flash
     try:
+        # the Turbo UNet's first (eager) run: its calls are recorded
+        calls1 = flash.calls = []
         res["turbo"], ms["turbo"] = _timed(lambda: turbo.generate_on_device(SDXL_PROMPT, SDXL_NEG, steps=1, seed=42,
                                                                              decode=False))
+        flash.calls = None
         n_t = flash_attention_packed.launches
         flash.check_shapes("SDXL Turbo UNet batch 1", 2)
         host1 = turbo.generate(SDXL_PROMPT, "", steps=1, seed=42, decode=False).latents
@@ -2890,14 +3026,6 @@ def phase_sdxl(name: str) -> dict:
     for k, v in inputs2.items():
         turbo.unet.add_tensor(k, v[:1] if k != names["timestep"] else v)
     unet_ms["batch1"] = busy_and_wall(lambda: turbo.unet.run(device_outputs=True), "SDXL UNet run, batch 1", name)
-    calls1 = []
-    flash.calls = calls1
-    attention_op.flash_attention_packed = flash
-    try:
-        turbo.unet.run(device_outputs=True)
-    finally:
-        attention_op.flash_attention_packed = flash_attention_packed
-        flash.calls = None
     sites.update(site_report("flash_attention_packed, SDXL UNet batch 1", calls1, flash_attention_packed,
                              flash_attention_packed_reference, _packed_library, _packed_cost, _about_packed, 2e-2,
                              name, close=close, key=lambda a, k: (*a[0].shape, a[3])))
@@ -3152,7 +3280,14 @@ def phase_llm(name: str) -> dict:
     (_, off), ms_off = _timed(lambda: pipe.forward(p1))
     sess.set_option("use_flash_attention", True)
     pipe.reset()
-    pipe.forward(p1, want_logits=False)  # plans the bucket anew after set_option
+    # plans the bucket anew after set_option: its first (eager) run's calls are recorded for the checks below
+    site.calls = []
+    attention_op.flash_attention = site
+    try:
+        pipe.forward(p1, want_logits=False)
+    finally:
+        attention_op.flash_attention = flash_attention
+    calls, site.calls = site.calls, None
     diff, ref = float(np.abs(on - off).max()), float(np.abs(off).max())
     print(f"flash on vs off, request 1 last logits: max|diff| {diff:.4e}, max|logits| {ref:.4f}, "
           f"ratio {diff / ref:.4e} (bound 5e-2)")
@@ -3184,14 +3319,6 @@ def phase_llm(name: str) -> dict:
     # kernel 2 over one prefill's calls, on the graph's operands: the variant,
     # the kernel against its twin, a second call's bits, the times beside the
     # mma variant's, SDPA's and the twin's
-    site.calls = []
-    attention_op.flash_attention = site
-    try:
-        pipe.reset()
-        pipe.forward(p1, want_logits=False)
-    finally:
-        attention_op.flash_attention = flash_attention
-    calls, site.calls = site.calls, None
     if len(calls) != 22 or any(_flash_variant_text(*a, **k) != "variant wgmma" for a, k in calls):
         raise SystemExit(f"the prefill made {len(calls)} flash calls, or not all took the wgmma variant")
     sites = site_report("flash_attention, TinyLlama prefill", calls, flash_attention, flash_attention_reference,
@@ -3209,7 +3336,7 @@ def phase_llm(name: str) -> dict:
                             flash_attention, flash_attention_reference, _sdpa_library, "tf32x3", name,
                             cost=_flash_cost, earlier=_flash_earlier, also_peak="f32")
     del calls32
-    return {"launches": launches, "bank": pipe._weight_bank, "logits_p1": on, "logits_p1_f32": l32,
+    return {"launches": launches, "bank": pipe._weight_bank, "logits_p1": on, "logits_p1_f32": l32, "pipe": pipe,
             "prompts": prompts, "flash": {"sites_of_prefill": sites, "prefill_replay": replay,
                                           "float32_prefill": {"calls": f32_sites, "sites": sites32,
                                                               "replay": replay32}}}
@@ -3279,7 +3406,12 @@ def phase_llm_int8(name: str, llm: dict) -> dict:
                 pipe.reset()
             b6, b2, r0 = w8a8_dyn_matmul.launches, flash_attention.launches, graph_runs[0]
             site.arm()
+            # request 1: the prefill's and the first decode step's calls, both their graphs' first (eager)
+            # runs, are recorded for the replays below
+            site.calls = [] if not outs else None
             toks_i, ms = _timed(lambda: pipe.generate_on_device(ids, max_new_tokens=32))
+            if not outs:
+                first_calls, site.calls = site.calls, None
             n6, n2, runs = w8a8_dyn_matmul.launches - b6, flash_attention.launches - b2, graph_runs[0] - r0
             outs.append(toks_i)
             print(f"int8 {label}: {len(toks_i)} tokens in {ms:.1f} ms, {runs} graph runs, w8a8_dyn_matmul "
@@ -3319,18 +3451,10 @@ def phase_llm_int8(name: str, llm: dict) -> dict:
         raise SystemExit("int8 logits drifted from the bf16 pipeline's")
     _decode_measurements(pipe, name, "int8", p1)
 
-    # one decode step's and one prefill's calls recorded and replayed
-    recorded = {}
-    executor_mod.w8a8_dyn_matmul = site
-    try:
-        site.calls = []
-        pipe.reset()
-        first = pipe.forward(p1, want_logits=False)[0]
-        recorded["prefill"], site.calls = site.calls, []
-        pipe.decode_on_device(first, 1)
-        recorded["decode"], site.calls = site.calls, None
-    finally:
-        executor_mod.w8a8_dyn_matmul = w8a8_dyn_matmul
+    # one decode step's and one prefill's calls (request 1's eager runs) replayed
+    recorded = {"prefill": first_calls[:per_run], "decode": first_calls[per_run:]}
+    if len(first_calls) != 2 * per_run:
+        raise SystemExit(f"int8: request 1 recorded {len(first_calls)} calls, want a prefill's and a decode step's")
 
     # every recorded call: the variant the dispatcher took for the graph's K-major weight, bit for bit
     # with the twin and with the (K, N) weight on the variant it replaced (copies made here, after the read
@@ -3389,7 +3513,7 @@ def phase_llm_int8(name: str, llm: dict) -> dict:
     prefill = {**times["prefill"], "int_mm_calls": len(sub), "kernel_ms_on_int_mm_calls": t_sub, "int_mm_ms": t_int,
                "bf16_matmul_ms": t_bf["prefill"]}
     times["decode"]["bf16_matmul_ms"] = t_bf["decode"]
-    return {"launches": launches, "max_abs_err": site.worst, **times["decode"], "prefill": prefill}
+    return {"launches": launches, "max_abs_err": site.worst, **times["decode"], "prefill": prefill, "pipe": pipe}
 
 
 
@@ -3474,14 +3598,19 @@ def _first_step(pipe, audio):
 
 def _whisper_requests(pipe, label: str, site, name: str) -> list:
     """The three 30 s requests through transcribe: each must launch kernel 1
-    exactly WHISPER_FLASH_PER_REQUEST times, the first held to the twin."""
+    exactly WHISPER_FLASH_PER_REQUEST times, the first held to the twin.
+    Returns the tokens and the first request's flash calls (its encoder run
+    is the encoder's first, eager)."""
     from onnxstream_tpu_torch.kernels.flash_attention import flash_attention_packed
 
     outs = []
     for kind, seed in WHISPER_REQUESTS:
         before = flash_attention_packed.launches
         site.arm()
+        site.calls = [] if not outs else None
         toks, ms = _timed(lambda: pipe.transcribe(_whisper_audio(kind, seed), max_tokens=32))
+        if not outs:
+            calls, site.calls = site.calls, None
         n = flash_attention_packed.launches - before
         print(f"Whisper base {label}, request {kind} (seed {seed}, 30 s): {len(toks)} tokens {toks} in {ms:.1f} ms "
               f"(the twin's check included), flash_attention_packed launches {n} (want {WHISPER_FLASH_PER_REQUEST}) "
@@ -3490,7 +3619,7 @@ def _whisper_requests(pipe, label: str, site, name: str) -> list:
             raise SystemExit(f"Whisper base {label}, request {kind}: bad tokens or {n} flash launches")
         site.check(f"Whisper base {label}, request {kind}")
         outs.append(toks)
-    return outs
+    return outs, calls
 
 
 def _whisper_sessions_check(pipe, label: str) -> None:
@@ -3554,7 +3683,7 @@ def phase_whisper(name: str) -> dict:
         raise SystemExit(f"WhisperPipeline(device=None) runs on {pipes['bfloat16'].device}, want cuda:0")
     sites = {"bfloat16": _FlashSites(flash_attention_packed, flash_attention_packed_reference, 2e-2),
              "float32": _FlashSites(flash_attention_packed, flash_attention_packed_reference, 1e-4)}
-    toks, t_on_device = {}, {}
+    toks, t_on_device, enc_calls = {}, {}, {}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     # the path: three requests in each precision and one on synthesized weights; counts zeroed just before
@@ -3562,7 +3691,7 @@ def phase_whisper(name: str) -> dict:
     try:
         for dt, pipe in pipes.items():
             attention_op.flash_attention_packed = sites[dt]
-            toks[dt] = _whisper_requests(pipe, dt, sites[dt], name)
+            toks[dt], enc_calls[dt] = _whisper_requests(pipe, dt, sites[dt], name)
         t0 = time.perf_counter()
         synth = WhisperPipeline.from_synthetic(cfg, seed=0, compute_dtype="bfloat16", on_device=True)
         t_on_device["build_s"] = time.perf_counter() - t0
@@ -3656,14 +3785,7 @@ def phase_whisper(name: str) -> dict:
     out = {"launches": launches, "tokens": toks, "times": times, "peak_bytes": peak, "device_weight_bytes": wbytes,
            "bf16_vs_fp32_logits_nrms": nrms, "on_device": t_on_device}
     for dt, tol, peak_op in (("bfloat16", 2e-2, "bf16"), ("float32", 1e-4, "tf32x3")):
-        site = sites[dt]
-        site.calls = []
-        attention_op.flash_attention_packed = site
-        try:
-            pipes[dt].encode(audio)
-        finally:
-            attention_op.flash_attention_packed = flash_attention_packed
-        calls, site.calls = site.calls, None
+        calls = enc_calls.pop(dt)  # the first request's encoder run
         if len(calls) != WHISPER_FLASH_PER_REQUEST:
             raise SystemExit(f"Whisper base {dt} encoder: {len(calls)} flash calls recorded")
         # float32: tf32x3 beside fa_fma_kernel on the same operands, both bounds
@@ -4162,8 +4284,11 @@ def phase_layout(name: str, sd: dict) -> dict:
                     s.add_tensor(k, v)
                 if label == "nhwc" and i == 0:
                     flash.arm()
+                    flash.calls = []  # the channel-last session's first (eager) run: its calls are replayed below
                 f0 = flash_attention_packed.launches
                 o, ms = _timed(lambda: s.run()["out_sample"])
+                if label == "nhwc" and i == 0:
+                    recorded, flash.calls = {"flash": flash.calls}, None
                 outs[(label, i)] = o
                 n = flash_attention_packed.launches - f0
                 nhwc += n if label == "nhwc" else 0
@@ -4228,8 +4353,11 @@ def phase_layout(name: str, sd: dict) -> dict:
         gn_silu.launches = gn_silu_conv.launches = 0
         for site in sites.values():
             site.arm()
+            site.calls = []  # a_nhwc's first (eager) run: its calls are replayed below
         f0 = flash_attention_packed.launches
         o = a_nhwc.run()["out_sample"]
+        for k, site in sites.items():
+            recorded[k], site.calls = site.calls, None
         n = flash_attention_packed.launches - f0
         nhwc += n
         if n != SD15_FLASH_PER_RUN:
@@ -4246,16 +4374,6 @@ def phase_layout(name: str, sd: dict) -> dict:
         out["launches"] = nhwc
         print(f"channel-last runs: kernel 1 launches {nhwc} (NCHW runs in the same window "
               f"{flash_attention_packed.launches - nhwc}), kernels 7 / 8 under config A {got_gn}")
-        # one channel-last run's calls of kernel 1 and of kernels 7 / 8 under config A (after the read)
-        flash.calls = []
-        sess["nhwc"].run()
-        recorded = {"flash": flash.calls}
-        flash.calls = None
-        for site in sites.values():
-            site.calls = []
-        a_nhwc.run()
-        for k, site in sites.items():
-            recorded[k], site.calls = site.calls, None
     finally:
         attention_op.flash_attention_packed = flash_attention_packed
         standard.gn_silu, standard.gn_silu_conv = gn_silu, gn_silu_conv
@@ -4298,7 +4416,7 @@ class _HeadMajorShapes(_GraphSiteCheck):
 
     def __call__(self, q, k, v, *args, **kw):
         key = (tuple(q.shape), tuple(k.shape))
-        first = key not in self.seen
+        first = key not in self.seen and not torch.cuda.is_current_stream_capturing()
         if first:
             self.arm()
         out = super().__call__(q, k, v, *args, **kw)
@@ -4354,7 +4472,10 @@ def phase_nopad(name: str, sd: dict) -> dict:
             for k, v in req.items():
                 s.add_tensor(k, v)
             k1, k2 = fa.flash_attention_packed.launches, kernel2.launches
+            site.calls = [] if i == 0 else None  # the first (eager) run's calls are timed below
             o, ms = _timed(lambda: s.run()["out_sample"])
+            if i == 0:
+                calls, site.calls = site.calls, None
             d1, d2 = fa.flash_attention_packed.launches - k1, kernel2.launches - k2
             packed += d1
             print(f"request {i}, flash_packed_nopad: {ms:.1f} ms, kernel 2 launches {d2}, kernel 1 launches {d1}")
@@ -4362,10 +4483,6 @@ def phase_nopad(name: str, sd: dict) -> dict:
                 raise SystemExit(f"request {i}: kernel 1 / kernel 2 launches {d1} / {d2}, want 0 / 10")
             _close(f"request {i}, nopad vs the default run", o, sd["outs"][i], 5e-2)
         launches = kernel2.launches
-        site.calls = []
-        s.run()
-        calls = site.calls
-        site.calls = None
     finally:
         fa.flash_attention = kernel2
     for (qs, ks), (ok, err, about) in sorted(site.seen.items()):
@@ -4442,8 +4559,13 @@ def phase_fp16_storage(name: str, sd: dict) -> dict:
                     s.add_tensor(k, v)
                 if i == 0:
                     flash.arm()
+                # the float16-storage session's first (eager) run: its 10 calls are replayed below
+                record = i == 0 and label == "fp16_storage"
+                flash.calls = [] if record else None
                 f0 = flash_attention_packed.launches
                 o, ms = _timed(lambda: s.run()["out_sample"])
+                if record:
+                    calls, flash.calls = flash.calls, None
                 res.append(o)
                 n = flash_attention_packed.launches - f0
                 out["launches"] += n if label == "fp16_storage" else 0
@@ -4461,10 +4583,6 @@ def phase_fp16_storage(name: str, sd: dict) -> dict:
                   f"{acc['peak_bytes'] / 2**20:.1f} MiB + {PEAK_SLACK >> 20} [{name}]")
             if peak > acc["peak_bytes"] + PEAK_SLACK:
                 raise SystemExit(f"{label}: peak above hbm_accounting()'s bound")
-        # one run's 10 calls of kernel 1 (its float32 tf32x3 form), after the read of the count
-        flash.calls = []
-        runs["fp16_storage"]["session"].run()
-        calls, flash.calls = flash.calls, None
     finally:
         attention_op.flash_attention_packed = flash_attention_packed
     seen = {v: flash.variants.count(v) for v in set(flash.variants)}
@@ -4647,8 +4765,9 @@ def phase_convert(name: str) -> dict:
 # --------------------------------------------------------------- phase_parallel
 # greedy tokens after the TinyLlama prefill on the two ranks (few: every
 # token a rank crosses host memory 132 times, and the script has a time limit)
-PARALLEL_TOKENS = 8
-PARALLEL_FORCED = 8  # decode steps fed the one-rank float32 run's tokens, logits compared step by step
+# greedy tokens of the tp = 2 TinyLlama paths: a token takes ~0.4-0.5 s a rank, and the script has a time limit
+PARALLEL_TOKENS = 4
+PARALLEL_FORCED = 4  # decode steps fed the one-rank float32 run's tokens, logits compared step by step
 
 
 def _forced_logits(pipe, prompt, tokens) -> list:
@@ -4676,6 +4795,8 @@ class _EveryCall:
 
     def __call__(self, *args, **kw):
         out = self.kernel(*args, **kw)
+        if torch.cuda.is_current_stream_capturing():
+            raise SystemExit("_EveryCall: a CUDA graph capture reached a rank's per-call check")
         ok, err = self.agrees(out, self.twin(*args, **kw))
         self.calls += 1
         self.bad += not ok
@@ -5070,7 +5191,7 @@ def _one_rank_llm(dtype: str, prompt, forced_tokens=None, int8_weights: bool = F
 
 def _report_llm_int8(name: str, r0: dict, ranks: list) -> dict:
     """The int8 TinyLlama tp = 2 ranks against the one-rank int8 run: the
-    prefill's logits and 8 decode steps fed the one-rank tokens within 5e-2
+    prefill's logits and 4 decode steps fed the one-rank tokens within 5e-2
     * max (the bf16 bar of PR 15) with the same argmax at every step;
     kernel 2's 22 calls and every kernel-6 call on the path held to their
     twins (kernel 6 bit for bit) at the local shapes."""
@@ -5739,18 +5860,235 @@ def phase_entry(name: str, sd: dict) -> dict:
             "max_abs_err": site.worst}
 
 
-KERNEL_COUNTERS = ("flash_attention_packed", "flash_attention", "w8a8_dyn_matmul", "w8_matmul", "qmatmul", "qconv",
-                   "gn_silu", "gn_silu_conv", "matmul")
+# ------------------------------------------------------------ captured segments: replays against eager runs
+CAPTURE_PROMPTS = (700, 600, 900)  # prompt lengths of phase_capture's requests: every prefill at bucket 1024
+CAPTURE_TOKENS = 32  # decoded tokens held to the eager loop's
 
 
-def _launch_counts() -> dict:
-    """Every kernel wrapper's launch count."""
-    from onnxstream_tpu_torch.kernels import flash_attention, gn_conv, gn_silu, matmul, qconv, qmatmul
+@contextlib.contextmanager
+def _eager_executors(*sessions):
+    """The sessions' runs inside go op by op, as before captured segments
+    (``Executor.eager``): their graphs, weights and pools stay as they were,
+    so nothing is planned or uploaded again."""
+    with contextlib.ExitStack() as stack:
+        for sess in sessions:
+            for ex in sess._executors.values():
+                stack.enter_context(ex.eager())
+        yield
 
-    mods = {"flash_attention_packed": flash_attention, "flash_attention": flash_attention, "w8a8_dyn_matmul": qmatmul,
-            "w8_matmul": qmatmul, "qmatmul": qmatmul, "qconv": qconv, "gn_silu": gn_silu,
-            "gn_silu_conv": gn_conv, "matmul": matmul}
-    return {k: getattr(mods[k], k).launches for k in KERNEL_COUNTERS}
+
+def _rewarm(sess) -> None:
+    """Drop a session's graphs: its next run is a warm-up, as a new
+    executor's first run is, and the one after captures again."""
+    for ex in sess._executors.values():
+        ex.reset_graph()
+
+
+FLASH_FAMILY = "flash_attention_packed+flash_attention"  # kernels 1 and 2 launch the same functions
+
+
+def _replayed_on_card(step, calls: int, label: str):
+    """What `calls` calls of step launched on the card, by set of entry
+    kernels (kernels.entry_launches), from a profiler window (after one
+    dropped call, _traced) that holds every
+    kernel node of the graphs replayed in it; None where three windows did
+    not (printed NOT VERIFIED)."""
+    from onnxstream_tpu_torch import kernels
+
+    for attempt in range(1, WINDOW_ATTEMPTS + 1):
+        prof, nodes, _ = _traced(step, calls)
+        short = _window_short(prof, nodes)
+        if not short:
+            ran = collections.Counter()
+            for e in prof.key_averages():
+                if str(getattr(e, "device_type", "")).endswith("CUDA"):
+                    ran[kernels.kernel_name(e.key)] += e.count
+            return kernels.entry_launches(ran)
+        if attempt < WINDOW_ATTEMPTS:
+            print(f"{label}: the profiler window lacks launches of the replayed graphs; profiling again")
+    _unverified(label, short)
+    return None
+
+
+def _launches_held(label: str, ex, want: dict, step, calls: int) -> dict:
+    """A replayed executor's launches a replay, read from its graph's kernel
+    nodes and from the card over `calls` calls of step (each one replay),
+    against `want` (set of entry kernels -> launches a replay). Fails on a
+    difference."""
+    graph = ex.graph_launches()
+    card = _replayed_on_card(step, calls, f"{label}, launches on the card")
+    got_graph = {k: graph[k] for k in want}
+    got_card = None if card is None else {k: card[k] for k in want}
+    print(f"  {label}: launches a replay read from the graph's {graph['kernel_nodes']} kernel nodes {got_graph}, "
+          f"on the card over {calls} replays {got_card} (want {want} a replay)")
+    if got_graph != want or (got_card is not None and got_card != {k: calls * n for k, n in want.items()}):
+        raise SystemExit(f"{label}: the graph or the card launched another number of kernels than counted")
+    return {"graph": got_graph, "card": got_card, "calls": calls, "kernel_nodes": graph["kernel_nodes"]}
+
+
+def _held_to_eager(label: str, got, want, gate: float) -> dict:
+    """A replay's output against the eager run's: bit for bit, or else its
+    max|diff| within gate * max|eager| (the path's gate)."""
+    got, want = (np.asarray(x.float().cpu() if isinstance(x, torch.Tensor) else x, np.float64) for x in (got, want))
+    equal = bool(np.array_equal(got, want))
+    err, top = float(np.abs(got - want).max()), float(np.abs(want).max())
+    print(f"  {label}: replay vs eager bit for bit: {equal}" + ("" if equal else
+          f"; max|diff| {err:.4e} of max|eager| {top:.4f} (gate {gate:g} * max)"))
+    if not np.isfinite(got).all() or not (equal or err <= gate * top):
+        raise SystemExit(f"{label}: the replay disagrees with the eager run")
+    return {"bit_equal": equal, "max_abs_diff": err}
+
+
+def _capture_sd15(name: str, pipe) -> dict:
+    """The SD15 UNet run (bf16) and the SD1.5 10-step euler_a image through
+    generate_on_device, replayed against eager runs on the same inputs."""
+    from onnxstream_tpu_torch import kernels
+    from onnxstream_tpu_torch.models.sd.unet import SD15
+
+    unet, out, req = pipe.unet, {}, _requests(SD15, 0)[1]
+
+    def push():  # the request's inputs (the loops push their own)
+        unet.clear_tensors()
+        for k, v in req.items():
+            unet.add_tensor(k, v)
+
+    push()
+    # the path: one replayed UNet run and a 10-step image; the count is zeroed just before it
+    kernels.counted()["flash_attention_packed"].launches = 0
+    got = unet.run(device_outputs=True)["out_sample"]
+    per_run = kernels.launch_counts()["flash_attention_packed"]
+    ex = unet._executor()
+    (loop, ms_loop) = _timed(lambda: pipe.generate_on_device(SD_PROMPTS[0], "", steps=10, seed=42, decode=False))
+    launches = kernels.launch_counts()["flash_attention_packed"]
+    print(f"SD15 UNet run replayed: captured {ex.captured}, kernel 1 launches a replay {per_run} (want 10); the "
+          f"10-step euler_a loop {ms_loop:.1f} ms, {launches - per_run} kernel 1 launches (want 200) [{name}]")
+    if not ex.captured or per_run != SD15_FLASH_PER_RUN or launches - per_run != 20 * SD15_FLASH_PER_RUN:
+        raise SystemExit("SD15 UNet: not replayed, or kernel 1 launched another number of times")
+    mem, acc = ex.memory_analysis(), ex.hbm_accounting()
+    print(f"  capture {mem['capture_seconds']:.3f} s; memory_analysis: pool {mem['pool_bytes'] / 2**20:.1f} MiB "
+          f"({'shared with the pipeline' if mem['shared_pool'] else 'its own'}), static inputs "
+          f"{mem['input_bytes'] / 2**20:.2f} MiB, outputs {mem['output_bytes'] / 2**20:.3f} MiB, held workspaces "
+          f"{mem['workspace_bytes'] / 2**20:.2f} MiB; hbm_accounting peak {acc['peak_bytes'] / 2**20:.1f} MiB "
+          f"(activations {max(acc['segment_activation_bytes']) / 2**20:.1f}), graph_bytes "
+          f"{acc['graph_bytes'] / 2**20:.1f} MiB; allocator peak {torch.cuda.max_memory_allocated() / 2**20:.1f} "
+          f"MiB [{name}]")
+    push()
+    out["measured_launches"] = _launches_held("SD15 UNet run", ex, {FLASH_FAMILY: SD15_FLASH_PER_RUN},
+                                              lambda: unet.run(device_outputs=True), 3)
+    out["replay"] = busy_and_wall(lambda: unet.run(device_outputs=True), "SD15 UNet run, replayed", name, steps=5)
+    image = lambda: pipe.generate_on_device(SD_PROMPTS[0], "", steps=10, seed=42, decode=False)
+    (_, ms_warm) = _timed(image)
+    busy_warm = device_ms(image, iters=1, warmup=0, who="SD1.5 10-step loop, replayed")
+    with _eager_executors(pipe.unet, pipe.text_encoder):
+        push()
+        want = unet.run(device_outputs=True)["out_sample"]
+        out["eager"] = busy_and_wall(lambda: unet.run(device_outputs=True), "SD15 UNet run, eager", name)
+        (loop_e, ms_loop_e) = _timed(image)
+    out["unet"] = _held_to_eager("SD15 UNet run", got, want, 5e-2)
+    out["loop"] = _held_to_eager("SD1.5 10-step euler_a latents", loop.latents, loop_e.latents, 5e-2)
+    print(f"SD1.5 10-step euler_a loop (20 UNet runs): replayed {ms_warm:.1f} ms wall, {busy_warm:.1f} busy; eager "
+          f"{ms_loop_e:.1f} ms wall [{name}]")
+    out.update(launches=launches, capture=mem, loop_ms={"replayed": ms_warm, "eager": ms_loop_e},
+               loop_busy_ms=busy_warm,
+               hbm_accounting_peak_bytes=acc["peak_bytes"], graph_bytes=acc["graph_bytes"])
+    return out
+
+
+def _capture_llm(name: str, pipe, label: str) -> dict:
+    """TinyLlama 1.1B through LlamaPipeline: three 1024-bucket prefills (the
+    prefill graph eager on the first, captured on the second, replayed on the
+    third; kernel 2 22 times each), then CAPTURE_TOKENS greedy tokens from
+    the decode graph (captured in the pipeline's earlier phase, or at the
+    second token) against the eager loop's, ms a token wall and busy, and
+    the kernel launches a token."""
+    from onnxstream_tpu_torch import kernels
+
+    rng = np.random.default_rng(21)
+    prompts = [rng.integers(3, pipe.cfg.vocab_size, n).tolist() for n in CAPTURE_PROMPTS]
+    prefill = pipe._session(1024, 0)
+    _rewarm(prefill)  # the prefill graph warms up and captures anew on this path
+    per_token6 = 7 * pipe.cfg.layers + 1 if pipe.int8_weights else 0
+    # the path: three prefills and a decode; the counts are zeroed just before it and read just after
+    for k in ("flash_attention", "w8a8_dyn_matmul"):
+        kernels.counted()[k].launches = 0
+    rows, logits = [], None
+    for i, ids in enumerate(prompts):
+        pipe.reset()
+        before = kernels.launch_counts()
+        (first, logits), ms = _timed(lambda: pipe.forward(ids, want_logits=i == 2))
+        after = kernels.launch_counts()
+        n2, n6 = (after[k] - before[k] for k in ("flash_attention", "w8a8_dyn_matmul"))
+        replayed = prefill._executor().captured
+        rows.append({"ms": ms, "replayed": replayed, "kernel2": n2, "kernel6": n6})
+        print(f"{label} prefill {i + 1} ({len(ids)} tokens, bucket 1024): {ms:.1f} ms, "
+              f"{'replayed' if replayed else 'eager'}, kernel 2 launches {n2} (want 22), kernel 6 {n6} "
+              f"(want {per_token6}) [{name}]")
+        if n2 != 22 or n6 != per_token6 or replayed != (i > 0):
+            raise SystemExit(f"{label} prefill {i + 1}: not replayed as it should be, or other launch counts")
+    per_prefill = {FLASH_FAMILY: 22, "w8a8_dyn_matmul": per_token6}
+    measured = {"prefill": _launches_held(f"{label} prefill", prefill._executor(), per_prefill,
+                                          lambda: (pipe.reset(), pipe.forward(prompts[1], want_logits=False)), 2)}
+    pipe.reset()
+    first = pipe.forward(prompts[0], want_logits=False)[0]
+    before = kernels.launch_counts()
+    toks = pipe.decode_on_device(first, CAPTURE_TOKENS)
+    after = kernels.launch_counts()
+    launches = {k: after[k] for k in ("flash_attention", "w8a8_dyn_matmul")}
+    n6 = after["w8a8_dyn_matmul"] - before["w8a8_dyn_matmul"]
+    decode = pipe._session(1, pipe.kv[0].shape[2])
+    print(f"{label} decode of {CAPTURE_TOKENS} tokens: graph captured {decode._executor().captured}, kernel 6 "
+          f"launches {n6} (want {per_token6} x {CAPTURE_TOKENS}); path launches {launches}")
+    if not decode._executor().captured or n6 != per_token6 * CAPTURE_TOKENS:
+        raise SystemExit(f"{label} decode: not replayed, or kernel 6 launched another number of times")
+    pipe.reset()
+    f = pipe.forward(prompts[0], want_logits=False)[0]
+    measured["decode"] = _launches_held(f"{label} decode", decode._executor(),
+                                        {FLASH_FAMILY: 0, "w8a8_dyn_matmul": per_token6},
+                                        lambda: pipe.decode_on_device(f, 1), 4)
+
+    def wall(n: int) -> float:
+        pipe.reset()
+        f = pipe.forward(prompts[0], want_logits=False)[0]
+        pipe.decode_on_device(f, 4)  # warm
+        _, ms_ = _timed(lambda: pipe.decode_on_device(f, n))
+        return ms_ / n
+
+    def busy(n: int = 4, iters: int = 4) -> float:
+        pipe.reset()
+        f = pipe.forward(prompts[0], want_logits=False)[0]
+        return device_ms(lambda: pipe.decode_on_device(f, n), iters=iters, warmup=1) / n
+
+    out = {"prefills": rows, "launches": launches, "measured_launches": measured,
+           "replayed": {"wall_ms_per_token": wall(CAPTURE_TOKENS), "busy_ms_per_token": busy()}}
+    with _eager_executors(*pipe._sessions.values()):
+        pipe.reset()
+        logits_e = pipe.forward(prompts[2])[1]
+        pipe.reset()
+        f = pipe.forward(prompts[0], want_logits=False)[0]
+        toks_e, ms_e = _timed(lambda: pipe.decode_on_device(f, CAPTURE_TOKENS))
+        out["eager"] = {"wall_ms_per_token": ms_e / CAPTURE_TOKENS, "busy_ms_per_token": busy(2, 2)}
+    same = toks == toks_e
+    print(f"{label}: {CAPTURE_TOKENS} replayed tokens equal to the eager loop's: {same}; ms a token wall / busy: "
+          f"replayed {out['replayed']['wall_ms_per_token']:.3f} / {out['replayed']['busy_ms_per_token']:.3f}, eager "
+          f"{out['eager']['wall_ms_per_token']:.3f} / {out['eager']['busy_ms_per_token']:.3f} [{name}]")
+    if not same:
+        raise SystemExit(f"{label}: the replayed decode {toks} differs from the eager loop's {toks_e}")
+    out["prefill_logits"] = _held_to_eager(f"{label} prefill 3, last logits", logits, logits_e, 5e-2)
+    out["tokens_equal"] = same
+    return out
+
+
+def phase_capture(name: str, sd_pipe, llm_pipe, int8_pipe) -> dict:
+    """Captured segments at full width, each replay beside its eager run
+    (module docstring, 23)."""
+    t0 = time.perf_counter()
+    out = {"sd15": _capture_sd15(name, sd_pipe)}
+    print(f"phase_capture, SD1.5: {time.perf_counter() - t0:.1f} s")
+    for label, pipe in (("tinyllama_bf16", llm_pipe), ("tinyllama_int8", int8_pipe)):
+        t0 = time.perf_counter()
+        out[label] = _capture_llm(name, pipe, label)
+        print(f"phase_capture, {label}: {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 TRAIN_SEED = 11  # the train step's target
@@ -5801,7 +6139,7 @@ def _sd15_train(device, mesh=None):
     has a backward): the loss, the gradients on the card, the step's times
     and peak memory, and the kernel counts that moved. On one rank also the
     one-element weights' gradients in float64 (``_one_element_grads64``)."""
-    from onnxstream_tpu_torch import Session, SessionConfig
+    from onnxstream_tpu_torch import Session, SessionConfig, kernels
     from onnxstream_tpu_torch.models.sd.unet import SD15, build_unet
     from onnxstream_tpu_torch.parallel import comm
     from onnxstream_tpu_torch.parallel.sharding import make_train_step
@@ -5831,13 +6169,13 @@ def _sd15_train(device, mesh=None):
         witness = _one_element_grads64(g.to_text(), g.weights, inputs, target, device,
                                        [w.name for w in ex.plan.arg_weights], params)
         witness["seconds"] = time.perf_counter() - t64
-    before = _launch_counts()
+    before = kernels.launch_counts()
     comm.STATS.reset()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     (params, opt, loss), first_ms = _timed(lambda: step(params, opt, inputs, target))
     peak = torch.cuda.max_memory_allocated()
-    moved = {k: v - before[k] for k, v in _launch_counts().items() if v != before[k]}
+    moved = {k: v - before[k] for k, v in kernels.launch_counts().items() if v != before[k]}
     comm_first = _gathers(comm.STATS.snapshot())
     grads = {w.name: p.grad.detach().clone() for w, p in zip(ex.plan.arg_weights, params)}
     shards = {w.name: w.shard for w in ex.plan.arg_weights}
@@ -5981,6 +6319,20 @@ def main() -> int:
         print(f"chip_smoke at {time.perf_counter() - t_script:.1f} s, after {after}", flush=True)
 
     name = phase_device()
+    # the SD1.5 folder of the streamed phases is host work: it is written
+    # while nvcc builds the kernels, and removed at the end
+    folder = tempfile.mkdtemp(prefix="ostt_sd15_")
+    writer = ThreadPoolExecutor(1)
+    written = writer.submit(write_sd15_folder, folder)
+    try:
+        return _main(name, written, stamp)
+    finally:
+        writer.shutdown(wait=True)
+        shutil.rmtree(folder, ignore_errors=True)
+
+
+def _main(name: str, written, stamp) -> int:
+    """The phases after phase_device; `written` yields the SD1.5 folder's model.txt."""
     phase_build()
     stamp("phase_build")
     kernel = phase_kernel(name)
@@ -6032,6 +6384,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     llm_int8 = phase_llm_int8(name, llm)
     stamp("phase_llm, phase_llm_int8")
+    capture = phase_capture(name, sd_image.pop("pipe"), llm.pop("pipe"), llm_int8.pop("pipe"))
+    stamp("phase_capture")
     gc.collect()
     torch.cuda.empty_cache()
     train_dir = tempfile.mkdtemp(prefix="ostt_train_")
@@ -6065,20 +6419,16 @@ def main() -> int:
     t_new = time.perf_counter()
     convert = phase_convert(name)
     print(f"phase_convert: {time.perf_counter() - t_new:.1f} s")
-    folder = tempfile.mkdtemp(prefix="ostt_sd15_")
-    try:
-        model = write_sd15_folder(folder)
-        stamp("write_sd15_folder")
-        streamed = phase_streamed(name, model)
-        stamp("phase_streamed")
-        served = phase_serve(name, model, streamed.pop("resident"))
-        gc.collect()
-        torch.cuda.empty_cache()
-        stamp("phase_convert, phase_streamed, phase_serve")
-        streamed_tp2 = phase_streamed_tp2(name, model)
-        stamp("phase_streamed_tp2")
-    finally:
-        shutil.rmtree(folder, ignore_errors=True)
+    model = written.result()
+    stamp("write_sd15_folder (written during phase_build)")
+    streamed = phase_streamed(name, model)
+    stamp("phase_streamed")
+    served = phase_serve(name, model, streamed.pop("resident"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    stamp("phase_convert, phase_streamed, phase_serve")
+    streamed_tp2 = phase_streamed_tp2(name, model)
+    stamp("phase_streamed_tp2")
     print(f"streaming: {json.dumps(streamed['sessions'])}")
     print(f"serving: {json.dumps(served)}")
     print(f"whisper: {json.dumps({k: v for k, v in whisper.items() if k.startswith(('tokens', 'peak', 'device_w', 'bf16'))})}")
@@ -6089,7 +6439,11 @@ def main() -> int:
     print(f"parallel: {json.dumps({k: parallel[k] for k in ('nccl', 'pp', 'seconds')})}")
     print(f"entry: {json.dumps(entry)}; dry run: {json.dumps(dry)}")
     print(f"train step: {json.dumps(parallel['train'])}")
+    print(f"captured segments: {json.dumps(capture)}")
+    print(f"profiler windows over replays not verified (lacking kernels three times): {UNVERIFIED_WINDOWS}")
     print(f"card: {name}")
+    cap_k2 = {k: capture[k]["launches"]["flash_attention"] for k in ("tinyllama_bf16", "tinyllama_int8")}
+    cap_k6 = capture["tinyllama_int8"]["launches"]["w8a8_dyn_matmul"]
     fa_src = "onnxstream_tpu_torch/kernels/csrc/flash_attention.cu"
     q_src = "onnxstream_tpu_torch/kernels/csrc/qmatmul.cu"
     ql_src = "onnxstream_tpu_torch/kernels/csrc/qlinear.cu"
@@ -6102,7 +6456,7 @@ def main() -> int:
                       + streamed["launches"] + served["launches"] + layout["launches"] + fp16["launches"]
                       + nopad["packed_launches"] + convert["launches"] + unet_dp2 + unet_tp2 + entry["launches"]
                       + u8_tp2_k1 + sum(vae_tp2_launches["flash_attention_packed"].values())
-                      + streamed_tp2["launches"]),
+                      + streamed_tp2["launches"] + capture["sd15"]["launches"]),
          "launches_by_path": {"sd15_step": launches_sd, "sd15_image": sd_image["flash_launches"],
                               "sdxl_image_and_turbo": sdxl["launches"], "sd15_generate_batch4": sd_batch["launches"],
                               "whisper": whisper["launches"], "sd15_streamed": streamed["launches"],
@@ -6113,8 +6467,10 @@ def main() -> int:
                               "tp2_vae_w8a8": vae_tp2_launches["flash_attention_packed"]["w8a8"],
                               "tp2_vae_qdq": vae_tp2_launches["flash_attention_packed"]["qdq"]
                               + vae_tp2_launches["flash_attention_packed"]["qdq_no_ranges"],
-                              "sd15_streamed_tp2": streamed_tp2["launches"]},
+                              "sd15_streamed_tp2": streamed_tp2["launches"],
+                              "sd15_capture": capture["sd15"]["launches"]},
          "sd15_streamed_tp2": streamed_tp2,
+         "capture": capture["sd15"],
          "entry": entry,
          "parallel": parallel["unet"],
          "whisper": {k: whisper[k] for k in ("sites_bfloat16", "replay_bfloat16", "sites_float32", "replay_float32",
@@ -6125,14 +6481,18 @@ def main() -> int:
          "sd15_fp16_storage_replay": fp16["replay"]},
         {"name": "flash_attention", "route": "cuda", "source": fa_src,
          "replaces": "onnxstream_tpu/kernels/flash_attention.py:366", **kernel_hm,
-         "launches": launches_llm + nopad["launches"] + llm_tp2 + int8_tp2_k2,
+         "launches": launches_llm + nopad["launches"] + llm_tp2 + int8_tp2_k2 + cap_k2["tinyllama_bf16"]
+         + cap_k2["tinyllama_int8"],
          "launches_by_path": {"tinyllama": launches_llm, "sd15_nopad": nopad["launches"], "tp2_llm": llm_tp2,
-                              "tp2_llm_int8": int8_tp2_k2},
+                              "tp2_llm_int8": int8_tp2_k2, "tinyllama_capture": cap_k2["tinyllama_bf16"],
+                              "tinyllama_int8_capture": cap_k2["tinyllama_int8"]},
+         "capture": {k: capture[k] for k in ("tinyllama_bf16", "tinyllama_int8")},
          "parallel": parallel["llm"],
          "sd15_nopad": {k: nopad[k] for k in ("by_shape", "unet", "max_abs_err")}, **llm["flash"]},
         {"name": "w8a8_dyn_matmul", "route": "cuda", "source": q_src, "replaces": f"{q_py}:332", **llm_int8,
-         "ms_by_shape": q_sites, "launches": llm_int8["launches"] + int8_tp2_k6,
-         "launches_by_path": {"tinyllama_int8": llm_int8["launches"], "tp2_llm_int8": int8_tp2_k6},
+         "ms_by_shape": q_sites, "launches": llm_int8["launches"] + int8_tp2_k6 + cap_k6,
+         "launches_by_path": {"tinyllama_int8": llm_int8["launches"], "tp2_llm_int8": int8_tp2_k6,
+                              "tinyllama_int8_capture": cap_k6},
          "tp2": parallel["llm_int8"]},
         {"name": "w8_matmul", "route": "cuda", "source": q_src, "replaces": f"{q_py}:186", **sd_u8,
          "launches": sd_u8["launches"] + u8_tp2_k5,

@@ -41,7 +41,7 @@ from typing import Optional, Sequence
 
 import torch
 
-from onnxstream_tpu_torch.kernels import build
+from onnxstream_tpu_torch.kernels import build, register
 
 LOG2_E = 1.4426950408889634
 MAX_HEAD_DIM = 512  # largest head dim of the packed form (the SD VAE's 1 x 512)
@@ -474,7 +474,9 @@ def flash_attention(q, k, v, mask=None, scale: Optional[float] = None,
     return out
 
 
-flash_attention_packed.launches = 0
-flash_attention.launches = 0
+# both wrappers launch one of these a call (beside a pre-pass or a split's combine)
+_ENTRY_KERNELS = ("fa_wgmma_kernel", "fa_wgmma_wide_kernel", "fa_tf32_kernel", "fa_fma_kernel", "fa_mma_kernel")
+register("flash_attention_packed", flash_attention_packed, _ENTRY_KERNELS)
+register("flash_attention", flash_attention, _ENTRY_KERNELS)
 # the count stays on the function defined here when something else is bound to the module's name for it
 _flash_attention_counted = flash_attention

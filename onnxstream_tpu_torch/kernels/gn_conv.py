@@ -49,6 +49,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from onnxstream_tpu_torch.kernels import hold, register
 from onnxstream_tpu_torch.kernels.gn_silu import DTYPE_CODE, func, gn_silu_reference, norm_operands, norm_problem
 from onnxstream_tpu_torch.kernels.matmul import split_plan
 
@@ -136,7 +137,7 @@ def _slab(x: torch.Tensor) -> torch.Tensor:
     nbytes = x.numel() * x.element_size()
     if ws is None or ws.numel() < nbytes:
         ws = _SLAB[x.device] = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
-    return ws
+    return hold(ws)
 
 
 def gn_silu_conv_reference(x: torch.Tensor, sg: torch.Tensor, sb: torch.Tensor, gamma: torch.Tensor,
@@ -204,4 +205,6 @@ def gn_silu_conv(x: torch.Tensor, sg: torch.Tensor, sb: torch.Tensor, gamma: tor
     return out
 
 
-gn_silu_conv.launches = 0
+# one conv kernel a launch, after the moments passes (and the channels-last slab)
+register("gn_silu_conv", gn_silu_conv,
+         ("gn_conv_wgmma_kernel", "gn_conv_mma_kernel", "gn_conv_fma_kernel"))

@@ -39,7 +39,7 @@ from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
-from onnxstream_tpu_torch.kernels import build
+from onnxstream_tpu_torch.kernels import build, register
 
 DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 CLUSTER_MAX = 16           # CTAs of a group at most (above 8 a non-portable cluster size; csrc kGnMaxCluster)
@@ -250,4 +250,4 @@ def gn_silu(x: torch.Tensor, sg: torch.Tensor, sb: torch.Tensor, gamma: torch.Te
     return out
 
 
-gn_silu.launches = 0
+register("gn_silu", gn_silu, ("gn_silu_cluster_kernel",))

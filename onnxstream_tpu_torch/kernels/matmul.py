@@ -42,7 +42,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from onnxstream_tpu_torch.kernels import build
+from onnxstream_tpu_torch.kernels import build, register
 
 _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -185,7 +185,7 @@ def matmul(a: torch.Tensor, b: torch.Tensor, bias: Optional[torch.Tensor] = None
     return out
 
 
-matmul.launches = 0
+register("matmul", matmul, ("mm_wgmma_kernel", "mm_mma_kernel", "mm_fma_kernel"))
 
 
 def smallconv_eligible(x_shape, w_shape, group: int = 1, strides=(1, 1), dilations=(1, 1),

@@ -65,7 +65,7 @@ from typing import Dict, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from onnxstream_tpu_torch.kernels import build
+from onnxstream_tpu_torch.kernels import build, hold, register
 from onnxstream_tpu_torch.kernels.matmul import SMS, split_plan
 
 _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
@@ -83,7 +83,9 @@ _WORKSPACE: Dict[torch.device, torch.Tensor] = {}
 # device -> (A, its version counter, the scratch holding A quantized): the
 # last A that w8a8_dyn_matmul's wgmma form quantized. A call on the same
 # tensor, unchanged since (the q / k / v and the gate / up projections read
-# one activation), reuses the scratch and launches only the product.
+# one activation), reuses the scratch and launches only the product. A CUDA
+# graph capture starts and ends with it empty (``kernels.capturing``), so a
+# graph reuses only an A quantized inside it.
 _QUANTIZED_A: Dict[torch.device, Tuple[torch.Tensor, int, torch.Tensor]] = {}
 _FUNCS: Dict[str, object] = {}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -189,7 +191,7 @@ def _workspace(device: torch.device, ints: int) -> torch.Tensor:
     if ws is None or ws.numel() < ints:
         ws = torch.zeros(max(ints, 2 * (0 if ws is None else ws.numel())), dtype=torch.int32, device=device)
         _WORKSPACE[device] = ws
-    return ws
+    return hold(ws)
 
 
 def dyn_plan(m: int, k: int, n: int) -> Tuple[int, int, int]:
@@ -358,8 +360,10 @@ def w8_matmul(a: torch.Tensor, w_q: torch.Tensor, w_scale: Scale, w_zero: Scale,
     return out if out_dtype in (None, a.dtype) else out.to(out_dtype)
 
 
-w8a8_dyn_matmul.launches = 0
-w8_matmul.launches = 0
+# the product kernel of a launch (beside the rows' quantization and a split-K reduction)
+register("w8a8_dyn_matmul", w8a8_dyn_matmul,
+         ("dyn_gemv_kernel", "dyn_gemv_nk_kernel", "dyn_mma_kernel", "dyn_wgmma_kernel"))
+register("w8_matmul", w8_matmul, ("w8_wgmma_kernel", "w8_mma_kernel", "w8_fma_kernel"))
 
 
 # ------------------------------------------------------ calibrated W8A8 (kernel 3)
@@ -512,7 +516,7 @@ def _za_pieces(device: torch.device) -> torch.Tensor:
     t = _ZA_PIECES.get(device)
     if t is None:
         t = _ZA_PIECES[device] = torch.arange(256, dtype=torch.uint8, device=device).repeat_interleave(16)
-    return t
+    return hold(t)
 
 
 _ZA_PIECES: Dict[torch.device, torch.Tensor] = {}
@@ -582,4 +586,4 @@ def qmatmul(a_q: torch.Tensor, w_q: torch.Tensor, a_scale: float, a_zero: int, w
     return out.reshape(*a_q.shape[:-1], n)
 
 
-qmatmul.launches = 0
+register("qmatmul", qmatmul, ("qgemm_kernel", "qgemm_wgmma_kernel"))

@@ -14,7 +14,11 @@ executor) serves each (L, P) graph:
 Outputs ``opkv*`` are fed back as ``pkv*`` without leaving the device;
 padding up to a larger bucket happens on the device too. Every session shares
 one upload of the model weights (``SessionConfig.shared_device_weight_cache``)
-and the builder's host weights (``GraphBuilder.weight_bank``).
+and the graph builder's host weights (``GraphBuilder.weight_bank``). On a CUDA
+device each session's executor replays a captured CUDA graph from its second
+run on (``runtime/executor.py``): the prefill from the second request, the
+decode graph at every token after its first. Their graphs share one memory
+pool.
 
 ``decode_on_device`` takes the place of the JAX package's ``lax.scan``: a
 Python loop over the (L=1, P) executor whose inputs are all device tensors
@@ -115,6 +119,8 @@ class LlamaPipeline:
         # (L, P) graph build (GraphBuilder.weight_bank), and its torch view
         self._weight_bank: Dict[str, np.ndarray] = {}
         self._host_params: Dict[str, torch.Tensor] = {}
+        # one CUDA-graph memory pool for every (L, P) session's captured graph
+        self._graph_pool = torch.cuda.graph_pool_handle() if self.device.type == "cuda" else None
         # device-resident cache state
         self.kv: Optional[List[torch.Tensor]] = None  # 2*layers tensors (1, kv, P, hd), padded
         self.cache_len = 0
@@ -189,6 +195,7 @@ class LlamaPipeline:
             cfg = self._session_config()
             cfg.force_uint8_storage_set = force_u8
             s = Session(config=cfg, weights_provider=DictWeightsProvider(params))
+            s.graph_pool = self._graph_pool
             s.read_string(g.to_text())
             self._sessions[key] = s
         return s
@@ -416,9 +423,7 @@ class LlamaPipeline:
         stop_ids = [stop_id] if stop_id is not None else []
         if stream is None:
             # no streaming requested: decode the whole turn on the device, as
-            # the JAX package does. On an H100 this loop is not yet faster
-            # than the host loop (PERF.md); it stays for parity until the
-            # decode step is captured as a CUDA graph (ROADMAP Queue 1)
+            # the JAX package does; each step replays the decode graph
             toks = self.generate_on_device(ids, max_new_tokens, stop_ids=stop_ids)
         else:
             toks = self.generate(ids, max_new_tokens, stop_ids=stop_ids, stream=stream)

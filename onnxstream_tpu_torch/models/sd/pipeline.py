@@ -50,7 +50,7 @@ from onnxstream_tpu_torch.models.sd.rng import randn_4_w_h
 from onnxstream_tpu_torch.models.sd.tokenizer import ClipTokenizer, apply_multipliers
 from onnxstream_tpu_torch.runtime.config import SessionConfig
 from onnxstream_tpu_torch.runtime.quantization import RangeData
-from onnxstream_tpu_torch.runtime.session import Session
+from onnxstream_tpu_torch.runtime.session import Session, share_graph_pool
 from onnxstream_tpu_torch.runtime.weights import DictWeightsProvider, params_from_numpy
 
 SD_LATENT_RGB_PROJ = np.array(
@@ -146,6 +146,8 @@ class StableDiffusionPipeline:
         self.xl = xl
         self.vae_scale = VAE_SCALE_XL if xl else VAE_SCALE
         self.device = torch.device(unet.config.device) if device is None else torch.device(device)
+        # the sessions run one at a time: their captured graphs share one pool
+        share_graph_pool((text_encoder, text_encoder_2, unet, vae_decoder, vae_tile_session), self.device)
 
     # ----------------------------------------------------------- constructors
     @classmethod

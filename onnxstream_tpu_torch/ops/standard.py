@@ -188,8 +188,9 @@ register("Ceil", host=True)(_unary(lambda x: torch.ceil(x) if x.is_floating_poin
 
 def _scalar(x: torch.Tensor, v: float) -> torch.Tensor:
     """An attribute constant in x's dtype (rounded to it first, as
-    ``jnp.asarray(v, x.dtype)``)."""
-    return torch.tensor(v, dtype=x.dtype, device=x.device)
+    ``jnp.asarray(v, x.dtype)``), made by a fill on x's device: no
+    host-to-device copy, so a CUDA graph can capture it."""
+    return torch.full((), v, dtype=x.dtype, device=x.device)
 
 
 @register("LeakyRelu")

@@ -10,8 +10,12 @@ its own shards (``parallel/spmd.py``), with every other option: a budget
 streams the rank's slices, and the calibrated W8A8, QDQ and calibration
 options keep the one-device ranges. ``pp_devices`` places the segments on
 pipeline stages in one process; beside a mesh the stages win and nothing is
-sharded (``runtime/executor.py``). XLA's AUTO weight layouts and compiler
-options and Pallas's interpret mode have no counterpart here.
+sharded (``runtime/executor.py``). The JAX package's compiled segments have
+theirs in CUDA graphs: a resident run on one CUDA device is captured at its
+second run and replayed from then on, whatever the options (the executor's
+``capture_problem`` names the configurations that run op by op). XLA's AUTO
+weight layouts and compiler flags and Pallas's interpret mode have no
+counterpart here.
 
 Every option of the JAX package that the graph or the executor reads is
 taken. ``use_ops_cache`` and ``use_next_op_cache`` (the reference's operator

@@ -129,6 +129,27 @@ quantized first. A K-major relayout (``tnk``) comes after the slice.
 segment's ops as a function of its weights and inputs, which autograd can
 differentiate where no op runs a hand-written kernel (the train step of
 ``parallel/sharding.py``).
+
+Captured segments (JAX ``_compiled``, ``jax.jit`` of the segment function):
+on one CUDA device with its weights resident, ``run`` dispatches the segment
+op by op once (the warm-up: kernels built at first use, cuBLAS and cuDNN
+plans chosen, workspaces and constants sized), captures the segment's ops
+into a ``torch.cuda.CUDAGraph`` on the second run, and from then on copies
+the inputs into the graph's static buffers and replays it. The outputs are
+copies, as JAX's are fresh arrays, so a later replay never overwrites what a
+caller holds. ``capture_problem`` states why an executor is not captured
+(the CPU, streaming, a mesh, pipeline stages, the per-op interpreter, ranges
+taken from the data); those run op by op every time. A capture that fails
+raises, naming the op that was dispatching: nothing falls back. The graph
+holds the weights and the kernels' workspaces it reads
+(``kernels.capturing``). The launches the wrappers counted during the
+capture are held to the graph's kernel nodes (``kernels.held_to_graph``,
+``graph_launches``), and each replay adds them to the wrappers' counts.
+``memory_analysis`` gives the bytes of its memory pool. A change of a scalar
+config option (``use_flash_attention``, ...) drops the graph: the next run
+is a warm-up again; so does ``reset_graph``, and runs inside ``eager()`` go
+op by op and leave the graph as it was. Sessions whose runs never overlap
+may share one pool (``Session.graph_pool``).
 """
 
 from __future__ import annotations
@@ -143,6 +164,7 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from onnxstream_tpu_torch import kernels
 from onnxstream_tpu_torch.dtypes import DType, to_torch
 from onnxstream_tpu_torch.ir import OpNode
 from onnxstream_tpu_torch.kernels.qconv import qconv
@@ -440,8 +462,71 @@ class _SegmentFetch:
         return weights
 
 
+def capture_problem(ex: "Executor") -> Optional[str]:
+    """Why ``ex.run`` cannot capture its segment into a CUDA graph and
+    replay it, or None. Decided from the config and the plan alone: nothing
+    is asked of a card."""
+    config = ex.config
+    if ex.device.type != "cuda":
+        return f"runs on {ex.device}: CUDA graphs exist on CUDA devices only"
+    if ex.streamed:
+        return (f"streamed: weights cross to the card on every run (hbm_budget_bytes "
+                f"{config.hbm_budget_bytes}, {len(ex.segments)} segments)")
+    if config.mesh is not None:
+        return "runs under a mesh: its collectives are not captured (gloo gathers cross host memory)"
+    if config.pp_devices:
+        return f"pipeline stages on {len(config.pp_devices)} devices: activations hop between them"
+    for flag in ("ops_printf", "ops_times_printf", "range_data_calibrate"):
+        if getattr(config, flag):
+            return f"{flag}: Session.run takes the per-op interpreter (run_eager)"
+    if config.use_uint8_qdq:
+        missing = ex._qdq_sampled()
+        if missing:
+            return (f"use_uint8_qdq without calibrated ranges for {len(missing)} ops (e.g. {missing[0]!r}): "
+                    f"each run takes their ranges from its own values")
+    if not ex.segments:
+        return "no device ops"
+    return None
+
+
+# config fields that ops read at dispatch time: a captured graph holds the
+# values it was captured under (see Executor._dispatch_key)
+_SCALARS = (bool, int, float, str, type(None), torch.device)
+# device -> the side stream captures run on
+_CAPTURE_STREAMS: Dict[torch.device, Any] = {}
+
+
+@dataclasses.dataclass
+class _Replay:
+    """A captured segment: its graph, the static buffers its inputs are
+    copied into, its outputs (in the graph's pool), the weights and their
+    quantization vectors it reads (held as long as it lives), what the
+    capture recorded of the kernel wrappers (the workspaces it holds, the
+    launches one replay makes), the graph's kernel nodes by function name
+    and the launches they make by set of entry kernels
+    (``kernels.held_to_graph``), the config key it was captured under, and
+    its memory and seconds."""
+    graph: Any
+    inputs: Dict[str, torch.Tensor]
+    outputs: Dict[str, torch.Tensor]
+    weights: tuple
+    wrappers: kernels.Captured
+    nodes: Dict[str, int]
+    launches: Dict[str, int]
+    key: tuple
+    memory: Dict[str, Any]
+    seconds: float
+
+
+def _pool_bytes(pool) -> int:
+    """Bytes of the device memory segments of a CUDA-graph memory pool, from
+    the allocator's snapshot."""
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) == tuple(pool))
+
+
 class Executor:
-    def __init__(self, plan: Plan, provider: WeightsProvider):
+    def __init__(self, plan: Plan, provider: WeightsProvider, graph_pool=None):
         self.plan = plan
         self.graph = plan.graph
         self.config = plan.config
@@ -516,6 +601,16 @@ class Executor:
         self._stage_consts: Dict[str, Dict[int, list]] = {}
         provider.on_init(plan.stream_entries())
         self._first_run_done = False
+        # captured segments: the pool their graphs allocate from (None: a
+        # private one; Session.graph_pool shares one), the eager warm-up
+        # run's config key, and the replay once captured
+        self.graph_pool = graph_pool
+        self._warm_key: Optional[tuple] = None
+        self._replay: Optional[_Replay] = None
+        # the op being dispatched, named when a capture fails
+        self._dispatching: Optional[int] = None
+        # inside eager(): runs go op by op
+        self._eager_only = False
 
     # ------------------------------------------------------------- weights
     def _maybe_force_quant(self, w: WeightArg, host: torch.Tensor) -> Optional[torch.Tensor]:
@@ -1013,6 +1108,7 @@ class Executor:
             if nxt is not None:
                 nxt.advance(len(nxt.args) if n == 1 else -(-j * len(nxt.args) // (n - 1)))
             op = self.graph.ops[oi]
+            self._dispatching = oi
             outs = self._eval_op(oi, op, env, weights, device)
             for spec, val in zip(op.outputs, self._maybe_qdq(op, outs)):
                 if spec.name:
@@ -1150,15 +1246,25 @@ class Executor:
 
     def run(self, inputs: Dict[str, Any], device_outputs: bool = False) -> Dict[str, Any]:
         """Segmented run, double-buffered when streamed (see the module
-        docstring). Returns float outputs as float32 numpy and integers as
-        int64 numpy; with ``device_outputs`` the device tensors as they are
-        (outputs folded on the host stay numpy)."""
+        docstring); a captured graph's replay from the second run on where
+        ``capture_problem`` finds nothing in the way. Returns float outputs
+        as float32 numpy and integers as int64 numpy; with
+        ``device_outputs`` the device tensors in their compute dtypes, fresh
+        copies when replayed (outputs folded on the host stay numpy)."""
         if self._first_run_done:
             self.provider.on_restart()
+        key = self._dispatch_key()
+        if self._replay is not None and self._replay.key != key:
+            self._replay = None  # captured under other options: warm up again
         with reference_precision():
             acts = self._prepare_inputs(inputs)
             results: Dict[str, torch.Tensor] = {}
-            if not self.streamed:
+            if not self._eager_only and (
+                    self._replay is not None or (self._warm_key == key and capture_problem(self) is None)):
+                results = self._run_captured(acts, key)
+                if device_outputs:
+                    results = {n: t.clone() for n, t in results.items()}
+            elif not self.streamed:
                 for si, seg in enumerate(self.segments):
                     weights = self._fetch_segment_weights(seg, si)
                     env = self._segment_env(si, acts, results)
@@ -1172,7 +1278,124 @@ class Executor:
                 self._run_streamed(acts, results)
             out = self._outputs(results, device_outputs)
         self._first_run_done = True
+        self._warm_key = key
         return out
+
+    # ------------------------------------------------------ captured segments
+    def _dispatch_key(self) -> tuple:
+        """The config's scalar fields: ops read some of them at dispatch
+        time (``use_flash_attention``), so a graph is replayed only under the
+        values it was captured with."""
+        return tuple((f.name, v) for f in dataclasses.fields(self.config)
+                     if isinstance(v := getattr(self.config, f.name), _SCALARS))
+
+    def _qdq_sampled(self) -> List[str]:
+        """Under use_uint8_qdq, the ops whose pushed float outputs take their
+        range from the data (``_qdq_range``: no calibrated range, not a
+        Softmax)."""
+        fetched = set(self.plan.fetch_names)
+        rd = self.config.range_data
+        out = []
+        for oi, op in enumerate(self.graph.ops):
+            if self.plan.op_modes[oi] != "device" or op.op_type == "Softmax" or op.name in rd:
+                continue
+            if any(t.name and t.name not in self._qdq_skip and t.name not in fetched and t.name in self.plan.avals
+                   and self.plan.avals[t.name].dtype.is_floating_point for t in op.outputs):
+                out.append(op.name)
+        return out
+
+    def _run_captured(self, acts: Dict[str, torch.Tensor], key: tuple) -> Dict[str, torch.Tensor]:
+        """The segment's outputs from a replay of its graph, captured first
+        when there is none; the outputs live in the graph's pool until the
+        next replay."""
+        rep = self._replay
+        if rep is None:
+            rep = self._replay = self._capture(acts, key)
+        else:
+            for name, buf in rep.inputs.items():
+                buf.copy_(acts[name])
+        rep.graph.replay()
+        kernels.add_replay(rep.wrappers.launches, rep.nodes)
+        return rep.outputs
+
+    def _capture(self, acts: Dict[str, torch.Tensor], key: tuple) -> _Replay:
+        """Capture the one segment's ops into a CUDA graph on a side stream,
+        into ``graph_pool`` (or a private pool), under the precision flags
+        the warm-up ran with, and hold the launches the wrappers counted to
+        the graph's kernel nodes. Raises, naming the op that was dispatching,
+        when the capture fails, and when the graph launches other kernels
+        than the wrappers counted."""
+        t0 = time.perf_counter()
+        seg = self.segments[0]
+        weights = self._fetch_segment_weights(seg, 0)
+        static = {name: t.clone() for name, t in acts.items()}
+        graph = torch.cuda.CUDAGraph(keep_graph=True)  # its nodes are read below
+        stream = _CAPTURE_STREAMS.get(self.device)
+        if stream is None:
+            stream = _CAPTURE_STREAMS[self.device] = torch.cuda.Stream(self.device)
+        self._dispatching = None
+        try:
+            with kernels.capturing() as captured:
+                with torch.cuda.graph(graph, pool=self.graph_pool, stream=stream,
+                                      capture_error_mode="thread_local"):
+                    outputs = self._run_segment(seg, dict(weights), self._segment_env(0, static, {}))
+                    self._dispatching = None
+            graph.instantiate()
+        except Exception as e:
+            oi = self._dispatching
+            where = ("at the end of the capture" if oi is None else
+                     f"at op #{oi} {self.graph.ops[oi].op_type} ({self.graph.ops[oi].name})")
+            raise RuntimeError(f"CUDA graph capture of segment 0 failed {where}: {e}") from e
+        nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)
+        memory = {"pool_bytes": _pool_bytes(graph.pool()), "input_bytes": nbytes(static.values()),
+                  "output_bytes": nbytes(outputs.values()),
+                  "workspace_bytes": nbytes({id(t): t for t in captured.holds}.values()),
+                  "shared_pool": self.graph_pool is not None}
+        nodes = kernels.graph_kernels(graph)
+        launches = kernels.held_to_graph(captured.launches, nodes)
+        held = (weights, [w.quant for w in seg.weight_args])
+        return _Replay(graph, static, outputs, held, captured, nodes, launches, key, memory, time.perf_counter() - t0)
+
+    @property
+    def captured(self) -> bool:
+        """Whether ``run`` replays a captured graph."""
+        return self._replay is not None
+
+    def graph_launches(self) -> Optional[Dict[str, int]]:
+        """What one replay of the captured graph launches, read from its
+        kernel nodes: per set of entry kernels (``kernels.held_to_graph``),
+        and ``"kernel_nodes"``, every kernel node; None before the capture."""
+        if self._replay is None:
+            return None
+        return {**self._replay.launches, "kernel_nodes": sum(self._replay.nodes.values())}
+
+    def reset_graph(self) -> None:
+        """Drop the captured graph: the next run warms up op by op and the
+        one after captures again."""
+        self._replay, self._warm_key = None, None
+
+    @contextlib.contextmanager
+    def eager(self):
+        """Runs inside go op by op, as a first run does (a reference for
+        the replays): the captured graph, its weights, static buffers and
+        pool are left as they were, and replay again after."""
+        self._eager_only = True
+        try:
+            yield
+        finally:
+            self._eager_only = False
+
+    def memory_analysis(self, si: int = 0) -> Optional[Dict[str, Any]]:
+        """Segment si's captured graph (JAX ``Executor.memory_analysis``, the
+        compiled program's buffers): the bytes of its memory pool
+        (``pool_bytes``, the allocator's segments of that pool; a pool that
+        sessions share counts everything in it), of its static inputs, its
+        outputs and the kernel workspaces it holds, and the capture's
+        seconds; None before the capture and for a segment that is not
+        captured."""
+        if self._replay is None or si != 0:
+            return None
+        return {**self._replay.memory, "capture_seconds": self._replay.seconds}
 
     def _run_streamed(self, acts, results) -> None:
         self._start_streaming()
@@ -1279,6 +1502,10 @@ class Executor:
             sw = [sum(n.values()) for n in names]
             out.update(mode="pipeline", stage_weight_bytes=sw,
                        peak_bytes=max((a + sw[self.seg_stage(si)] for si, a in enumerate(act)), default=0))
+        graph = self.memory_analysis()
+        if graph is not None:
+            # the captured graph's pool and static input buffers, beside the estimate
+            out["graph_bytes"] = graph["pool_bytes"] + graph["input_bytes"]
         if self.mesh_info is not None:
             # this rank's bytes: the replicated weights whole, the sharded
             # ones as the slices it holds, beside what one device would hold

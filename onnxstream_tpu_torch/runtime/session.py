@@ -12,6 +12,13 @@ asked to (``torch.device("cpu")``). Under ``SessionConfig.mesh`` a Session
 is one rank's: its plans are this rank's share (``parallel/spmd.py``), keyed
 by the mesh's shape and the rank's coordinates beside the input shapes, and
 an input may be pushed as this rank's ``LocalShard``.
+
+On a CUDA device an executor's second ``run`` captures its segment into a
+CUDA graph and later runs replay it (``runtime/executor.py``, the
+counterpart of the JAX session's compiled segments); ``run(eager=True)``
+stays the per-op oracle. ``graph_pool`` is the memory pool the executors'
+graphs allocate from: None gives each its own, and the pipelines hand their
+sessions one pool (``share_graph_pool``), since their runs never overlap.
 """
 
 from __future__ import annotations
@@ -52,6 +59,8 @@ class Session:
         self.tensors: Dict[str, Any] = {}
         self._executors: Dict[Tuple, Executor] = {}
         self._last_outputs: Dict[str, Any] = {}
+        # CUDA-graph memory pool of this session's executors (None: each its own)
+        self.graph_pool = None
 
     # ------------------------------------------------------------------ load
     def read_file(self, path: str) -> None:
@@ -168,7 +177,7 @@ class Session:
         input_avals = {name: ShapeDtype(shape, dtype) for name, shape, dtype in skey if name != "mesh"}
         values = {name: v for name, v in self.tensors.items() if isinstance(v, np.ndarray)}
         plan = plan_graph(self.graph, self.config, input_avals, self._loader, input_values=values)
-        ex = Executor(plan, self.provider)
+        ex = Executor(plan, self.provider, graph_pool=self.graph_pool)
         pins = tuple(sorted((n, v.tobytes()) for n, v in plan.pinned_inputs.items()))
         self._executors[(skey, pins)] = ex
         return ex
@@ -194,13 +203,19 @@ class Session:
     def hbm_stats(self) -> Dict[str, Any]:
         """Device memory: bytes of weights over the cached executors, the
         largest executor's ``hbm_accounting()`` (its estimate, resident or
-        streamed) and, on a CUDA device, the caching allocator's current and
-        peak bytes (``torch.cuda.max_memory_allocated``) beside it."""
+        streamed), the captured graphs' bytes (``graph_bytes``: each memory
+        pool once, and every graph's static inputs) and, on a CUDA device,
+        the caching allocator's current and peak bytes
+        (``torch.cuda.max_memory_allocated``) beside it."""
         out: Dict[str, Any] = {
             "weight_bytes": max((ex.weight_bytes() for ex in self._executors.values()), default=0)}
         accounts = [ex.hbm_accounting() for ex in self._executors.values()]
         if accounts:
             out["accounting"] = max(accounts, key=lambda a: a["peak_bytes"])
+        graphs = [(ex._replay.graph.pool(), ex.memory_analysis()) for ex in self._executors.values() if ex.captured]
+        if graphs:
+            pools = {tuple(pool): m["pool_bytes"] for pool, m in graphs}
+            out["graph_bytes"] = sum(pools.values()) + sum(m["input_bytes"] for _, m in graphs)
         dev = torch.device(self.config.device)
         if dev.type == "cuda":
             out["bytes_in_use"] = torch.cuda.memory_allocated(dev)
@@ -216,6 +231,20 @@ class Session:
 
     def __exit__(self, *exc):
         self.close()
+
+
+def share_graph_pool(sessions, device) -> None:
+    """One CUDA-graph memory pool for sessions whose runs never overlap (the
+    sessions of one pipeline): their graphs' intermediates share memory
+    instead of each holding its own. Safe because a replay's outputs are
+    copied out before another graph of the pool replays. Nothing on a CPU
+    device."""
+    if torch.device(device).type != "cuda":
+        return
+    pool = torch.cuda.graph_pool_handle()
+    for s in sessions:
+        if s is not None:
+            s.graph_pool = pool
 
 
 def supported_ops() -> List[str]:

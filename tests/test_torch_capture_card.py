@@ -1,0 +1,291 @@
+"""Captured segments on the card: ``Executor.run`` captures a resident
+segment into a CUDA graph at its second run and replays it from then on.
+
+Each replay is held to the per-op oracle (``Session.run(eager=True)``) on
+the same inputs, bit for bit, and the kernel launch counts advance on every
+replay as they do on an eager run: the graph's own kernel nodes hold as
+many launches of each kernel as the eager run counted, and a capture whose
+wrappers counted a launch the graph does not hold raises (chip_smoke.py
+phase_capture also counts them on the card, in a profiler window). The graph keeps the workspaces it reads
+(kernel 8's slab grown by a larger later call), kernel 6's reuse of a
+quantized A holds across replays with new inputs, and an op that waits for
+the card makes the capture raise, naming the op.
+
+This module imports neither JAX nor the JAX package, so it runs where only
+PyTorch and a card are (``python -m pytest --noconftest -m gpu``). Every test
+carries the ``gpu`` marker and skips without a card. What the CPU can check
+(``capture_problem``, CPU runs against the JAX package) is in
+tests/test_torch_capture.py.
+"""
+
+import dataclasses
+import re
+
+import numpy as np
+import pytest
+import torch
+
+from onnxstream_tpu_torch import Session, SessionConfig, kernels
+from onnxstream_tpu_torch.models.llm.llama import LLAMA_TINY
+from onnxstream_tpu_torch.models.llm.pipeline import LlamaPipeline
+from onnxstream_tpu_torch.models.sd.unet import TINY, build_unet
+from onnxstream_tpu_torch.ops import _REGISTRY
+from onnxstream_tpu_torch.runtime.weights import DictWeightsProvider, params_from_numpy
+
+# the TINY UNet at a 64 x 64 latent: 4096 tokens at its first level, so its
+# attention takes kernel 1 (the size predicate wants 512 keys and 8 MB of scores)
+UNET_64 = dataclasses.replace(TINY, sample_size=64)
+# LLAMA_TINY with room for a 1024-token prefill, where kernel 2 runs
+LLAMA_1K = dataclasses.replace(LLAMA_TINY, max_pos=1024)
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA graphs are CUDA's)")
+    return torch.device("cuda", 0)
+
+
+def _unet(dev, dtype: str, **options) -> Session:
+    b = build_unet(UNET_64, seed=1)
+    s = Session(SessionConfig(device=dev, compute_dtype=dtype, **options),
+                weights_provider=DictWeightsProvider(params_from_numpy(b.weights)))
+    s.read_string(b.to_text())
+    return s
+
+
+def _unet_request(seed: int) -> dict:
+    rng = np.random.default_rng(seed)
+    return {"sample": rng.standard_normal((1, 4, 64, 64), dtype=np.float32),
+            "timestep": np.array([999.0 - 100 * seed], np.float32),
+            "encoder_hidden_states": rng.standard_normal((1, 7, 32), dtype=np.float32)}
+
+
+def _push(s: Session, req: dict) -> None:
+    for k, v in req.items():
+        s.add_tensor(k, v)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_unet_replays_equal_the_eager_run_and_count_launches(dtype):
+    dev = _card()
+    s = _unet(dev, dtype)
+    per_run = []
+    for i in range(4):
+        _push(s, _unet_request(i))
+        before = kernels.launch_counts()
+        got = s.run()["out_sample"]
+        per_run.append(kernels.launch_counts()["flash_attention_packed"] - before["flash_attention_packed"])
+        ex = s._executor()
+        assert ex.captured == (i > 0)
+        want = s.run(eager=True)["out_sample"]
+        assert np.isfinite(got).all()
+        np.testing.assert_array_equal(got, want)
+    assert per_run[0] > 0 and per_run == [per_run[0]] * 4, per_run
+    # what a replay launches, read from the graph's kernel nodes
+    graph = ex.graph_launches()
+    assert graph["flash_attention_packed+flash_attention"] == per_run[0] and graph["kernel_nodes"] > per_run[0]
+    mem = ex.memory_analysis()
+    assert mem["pool_bytes"] > 0 and mem["output_bytes"] == 4 * 64 * 64 * torch.empty(
+        0, dtype=getattr(torch, dtype)).element_size()
+    assert s.hbm_stats()["graph_bytes"] >= mem["pool_bytes"]
+    assert ex.hbm_accounting()["graph_bytes"] == mem["pool_bytes"] + mem["input_bytes"]
+
+
+@pytest.mark.gpu
+def test_a_launch_the_graph_does_not_hold_makes_the_capture_raise(monkeypatch):
+    """A wrapper that counts a launch it does not make: the capture's record
+    disagrees with the graph's nodes, and the capture raises."""
+    import onnxstream_tpu_torch.ops.attention as attention_op
+
+    dev = _card()
+    s = _unet(dev, "bfloat16")
+    _push(s, _unet_request(0))
+    s.run()
+    kernel = attention_op.flash_attention_packed
+
+    def counts_twice(*args, **kw):
+        kernels.counted()["flash_attention_packed"].launches += 1
+        return kernel(*args, **kw)
+
+    monkeypatch.setattr(attention_op, "flash_attention_packed", counts_twice)
+    with pytest.raises(RuntimeError, match=r"flash_attention_packed\+flash_attention: \d+ recorded, \d+ nodes"):
+        s.run()
+    assert not s._executor().captured
+
+
+@pytest.mark.gpu
+def test_eager_runs_leave_the_graph_and_reset_drops_it():
+    dev = _card()
+    s = _unet(dev, "bfloat16")
+    _push(s, _unet_request(0))
+    s.run()
+    first = s.run()["out_sample"]
+    ex = s._executor()
+    graph, replayed = ex._replay, kernels.replayed["flash_attention_packed"]
+    before = kernels.launch_counts()["flash_attention_packed"]
+    with ex.eager():
+        eager = s.run()["out_sample"]
+    assert ex._replay is graph and kernels.replayed["flash_attention_packed"] == replayed
+    assert kernels.launch_counts()["flash_attention_packed"] > before  # the wrappers ran
+    np.testing.assert_array_equal(eager, first)
+    np.testing.assert_array_equal(s.run()["out_sample"], first)
+    assert kernels.replayed["flash_attention_packed"] > replayed
+    ex.reset_graph()
+    s.run()
+    assert not ex.captured
+    s.run()
+    assert ex.captured and ex._replay is not graph
+
+
+@pytest.mark.gpu
+def test_held_device_outputs_survive_later_replays():
+    dev = _card()
+    s = _unet(dev, "bfloat16")
+    held = []
+    for i in range(4):
+        _push(s, _unet_request(i))
+        out = s.run(device_outputs=True)["out_sample"]
+        held.append((out, out.clone()))
+    torch.cuda.synchronize()
+    for out, copy in held:
+        assert torch.equal(out, copy)
+    assert not torch.equal(held[2][0], held[3][0])
+
+
+@pytest.mark.gpu
+def test_a_changed_option_drops_the_graph():
+    dev = _card()
+    s = _unet(dev, "bfloat16")
+    _push(s, _unet_request(0))
+    s.run()
+    on = s.run()
+    assert s._executor().captured
+    s.config.use_flash_attention = False
+    before = kernels.launch_counts()["flash_attention_packed"]
+    off = s.run()["out_sample"]
+    assert not s._executor().captured and kernels.launch_counts()["flash_attention_packed"] == before
+    np.testing.assert_array_equal(off, s.run(eager=True)["out_sample"])
+    s.config.use_flash_attention = True
+    s.run()
+    np.testing.assert_array_equal(s.run()["out_sample"], on["out_sample"])
+    assert s._executor().captured
+
+
+@pytest.mark.gpu
+def test_graph_survives_a_slab_grown_by_a_larger_call():
+    """Kernel 8 writes its channels-last slab into a per-device workspace
+    that a larger call replaces: the graph holds the one it captured."""
+    from onnxstream_tpu_torch.kernels import gn_conv
+
+    dev = _card()
+    s = _unet(dev, "bfloat16", fuse_gn_conv=True)
+    reqs = [_unet_request(i) for i in range(3)]
+    for req in reqs[:2]:
+        _push(s, req)
+        s.run()
+    assert s._executor().captured
+    slab = gn_conv._SLAB[dev]
+    c, h = 64, 256  # a slab larger than any of the UNet's
+    assert c * h * h * 2 > slab.numel()
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((1, c, h, h), generator=g, device=dev).bfloat16()
+    ones, zeros = torch.ones(c, device=dev), torch.zeros(c, device=dev)
+    w9 = torch.randn((9, 8, c), generator=g, device=dev).bfloat16() * 0.05
+    y = gn_conv.gn_silu_conv(x, ones[:8], zeros[:8], ones, zeros, w9, groups=8, eps=1e-5)
+    assert gn_conv._SLAB[dev] is not slab and torch.isfinite(y.float()).all()
+    del slab
+    torch.cuda.empty_cache()
+    junk = torch.full((64 << 20,), 7, dtype=torch.uint8, device=dev)  # takes freed memory if any
+    _push(s, reqs[2])
+    got = s.run()["out_sample"]
+    np.testing.assert_array_equal(got, s.run(eager=True)["out_sample"])
+    del junk
+
+
+def _checked_runs(monkeypatch, counts: list):
+    """Session.run that also runs each replayed call's inputs through the
+    per-op oracle and holds every output to it, bit for bit; ``counts``
+    gets each replay's kernel-6 and kernel-2 launches."""
+    run = Session.run
+
+    def checked(self, eager=False, device_outputs=False):
+        before = kernels.launch_counts()
+        out = run(self, eager=eager, device_outputs=device_outputs)
+        ex = self._executor()
+        if not eager and ex.captured:
+            after = kernels.launch_counts()
+            counts.append((ex.plan.input_avals["input_5F_ids"].shape[1],
+                           after["w8a8_dyn_matmul"] - before["w8a8_dyn_matmul"],
+                           after["flash_attention"] - before["flash_attention"]))
+            want = run(self, eager=True)
+            for name, v in out.items():
+                got = v.float().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+                np.testing.assert_array_equal(got, want[name], err_msg=name)
+        return out
+
+    monkeypatch.setattr(Session, "run", checked)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_llama_prefill_and_decode_replays_equal_eager(monkeypatch, int8):
+    """Three requests through one pipeline: the 1024-token prefill replays
+    from the second (kernel 2 inside), each decode step after the first
+    replays (kernel 6 on every MatMul on the int8 route, its prefill form
+    reusing one quantized A for the q / k / v and gate / up projections);
+    every replay equals the oracle on its own inputs."""
+    dev = _card()
+    counts = []
+    _checked_runs(monkeypatch, counts)
+    pipe = LlamaPipeline(LLAMA_1K, compute_dtype="bfloat16", buckets=[16, 1024], seed=3, int8_weights=int8,
+                         device=dev)
+    rng = np.random.default_rng(5)
+    toks = []
+    for n in (700, 600, 900):
+        pipe.reset()
+        toks.append(pipe.generate_on_device([int(t) for t in rng.integers(3, 500, n)], max_new_tokens=6))
+    assert all(len(t) == 6 for t in toks)
+    prefill = [c for c in counts if c[0] == 1024]
+    decode = [c for c in counts if c[0] == 1]
+    assert len(prefill) == 2 and len(decode) >= 10
+    layers = LLAMA_1K.layers
+    assert all(c[2] == layers for c in prefill), prefill
+    graphs = {key: s._executor().graph_launches() for key, s in pipe._sessions.items() if s._executor().captured}
+    assert graphs[(1024, 0)]["flash_attention_packed+flash_attention"] == layers, graphs
+    if int8:
+        per_prefill, per_token = prefill[0][1], decode[0][1]
+        assert per_prefill > 0 and per_token == per_prefill
+        assert all(c[1] == per_prefill for c in prefill + decode)
+        assert all(g["w8a8_dyn_matmul"] == per_token for g in graphs.values()), graphs
+    else:
+        assert all(c[1] == 0 for c in counts)
+
+
+@pytest.mark.gpu
+def test_an_op_that_waits_for_the_card_makes_the_capture_raise(monkeypatch):
+    dev = _card()
+    s = _unet(dev, "float32")
+    _push(s, _unet_request(0))
+    s.run()  # the warm-up is eager
+    ex = s._executor()
+    victim = next(op for i, op in enumerate(s.graph.ops)
+                  if op.op_type == "Sigmoid" and ex.plan.op_modes[i] == "device")
+    impl = _REGISTRY["Sigmoid"]
+    fn = impl.fn
+
+    def syncing(ctx, op, ins):
+        outs = fn(ctx, op, ins)
+        if op.name == victim.name:
+            outs[0].sum().item()  # the host waits for the value
+        return outs
+
+    monkeypatch.setattr(impl, "fn", syncing)
+    before = kernels.launch_counts()
+    want = rf"capture of segment 0 failed at op #\d+ Sigmoid \({re.escape(victim.name)}\)"
+    with pytest.raises(RuntimeError, match=want):
+        s.run()
+    assert kernels.launch_counts() == before and not s._executor().captured
+    monkeypatch.setattr(impl, "fn", fn)
+    out = s.run()["out_sample"]  # the card is usable, and the capture goes through now
+    assert s._executor().captured and np.isfinite(out).all()

@@ -355,12 +355,21 @@ def test_wgmma_off_keeps_float32_on_fa_fma_kernel():
     names = {}
     for wgmma in (True, False):
         out = torch.empty_like(q)
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+
+        def launch():
             if wgmma:
-                out = flash_attention_packed(q, k, v, 2)
-            else:
-                fa._launch(q, k, v, out, None, dims, strides, 0.125, False, wgmma=False)
-            torch.cuda.synchronize()
+                return flash_attention_packed(q, k, v, 2)
+            fa._launch(q, k, v, out, None, dims, strides, 0.125, False, wgmma=False)
+            return out
+
+        launch()  # the kernel's module loads here, outside the window
+        torch.cuda.synchronize()
+        for _ in range(3):  # a window the tracer left without any device event is taken again
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                out = launch()
+                torch.cuda.synchronize()
+            if any(str(e.device_type).endswith("CUDA") for e in prof.key_averages()):
+                break
         names[wgmma] = " ".join(e.key for e in prof.key_averages())
         torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
     assert "fa_tf32_kernel" in names[True] and "fa_fma_kernel" not in names[True]
