@@ -358,14 +358,14 @@ Phases (any failure exits non-zero and prints no result line):
      memory_analysis beside hbm_accounting() and the allocator's peak, wall
      and busy beside an eager run's, the output bit for bit with the eager
      run (else within 5e-2 * max); the 10-step euler_a image through
-     generate_on_device, its latents against the eager loop's and both
-     loops' wall; TinyLlama bf16 and int8: three 1024-bucket prefills (eager,
-     captured, replayed; kernel 2 22 times each, kernel 6 155), 32 greedy
-     tokens from the replayed decode graph, equal to the eager loop's, the
-     last prefill's logits against the eager run's, ms a token wall and
-     busy both ways, kernel 6 155 a token (sd15_capture, tinyllama_capture,
-     tinyllama_int8_capture under launches_by_path). What a replay launches
-     is measured twice: the executor holds the launches its wrappers counted
+     generate_on_device (one graph a step since item 24, its latents against
+     the eager loop's and both loops' wall and busy); TinyLlama bf16 and
+     int8: three 1024-bucket prefills (eager, captured, replayed; kernel 2 22
+     times each, kernel 6 155), 32 greedy tokens from the replayed decode
+     graph, equal to the eager loop's, the last prefill's logits against the
+     eager run's, ms a token wall and busy both ways, kernel 6 155 a token
+     (sd15_capture, tinyllama_capture, tinyllama_int8_capture under
+     launches_by_path). What a replay launches is measured twice: the executor holds the launches its wrappers counted
      during the capture to the graph's own kernel nodes (its capture raises
      on a difference), and a profiler window over replays counts each set of
      entry kernels on the card (_launches_held: 10 kernel-1 launches a UNet
@@ -379,6 +379,21 @@ Phases (any failure exits non-zero and prints no result line):
      holds replays must hold each kernel node the replayed graphs ran
      (_window_short); one that does not is taken again, and after three its
      busy figure is printed NOT VERIFIED and listed before the result.
+ 24. the SD pipelines' device programs (phase_capture's SD1.5 part and
+     phase_sdxl): generate_on_device's step (the UNet runs, CFG, the update,
+     read at a device step counter) is one CUDA graph captured at the
+     second step of a key's first call and replayed once a step; the tiled
+     decode (the tile grid, the blend, the uint8 mapping) one graph captured
+     at its second call. For the SD1.5 10-step euler_a loop (20 UNet runs),
+     the SDXL 1024 x 1024 10-step loop (10 batch-2 runs) and SDXL Turbo's
+     one step: the step graph captured once (capture seconds, kernel nodes,
+     pool and buffers; kernel 1 20, 70 and 70 a replay, read from the
+     graph's nodes), the loop's wall and verified busy beside the same step
+     run op by op (pipeline.eager()), every captured call's latents equal
+     to the eager loop's, bit for bit. The SD1.5 (9 tiles of 32 x 32) and
+     SDXL (9 of 64 x 64, kernel 1 once a tile) tiled decodes: the graph's
+     report, wall and verified busy, the image bit for bit with the grid run
+     op by op and with the per-tile loop of Session.run.
 
 Each path's launch counts are set to 0 just before it and read just after;
 launches made to compare a kernel with its twin come after the read. The
@@ -2844,7 +2859,10 @@ def phase_sdxl(name: str) -> dict:
     """SDXL base at 1024 x 1024 in bf16 at full width with weights
     synthesized on the card: CLIP-L + CLIP-bigG, the SDXL UNet at batch 2
     (the CFG pair as one run), VAE_SD at the 128 x 128 latent and its 64 x 64
-    tile decoder; then SDXL Turbo (batch-1 UNet, no uncond branch)."""
+    tile decoder; then SDXL Turbo (batch-1 UNet, no uncond branch). The
+    step graphs of the 10-step loop and of Turbo's step, and the tiled
+    decode's graph, against the same programs run op by op (module
+    docstring, 24)."""
     import onnxstream_tpu_torch.ops.attention as attention_op
     from onnxstream_tpu_torch.kernels.flash_attention import (flash_attention_packed,
                                                               flash_attention_packed_reference)
@@ -2961,11 +2979,20 @@ def phase_sdxl(name: str) -> dict:
     if not (np.isfinite(out2).all() and diff <= 5e-2 * top) or len(calls) != SDXL_FLASH_PER_RUN:
         raise SystemExit("SDXL UNet: flash on and off disagree, or the run made another number of flash calls")
     unet_ms = {"batch2": busy_and_wall(lambda: pipe.unet.run(device_outputs=True), "SDXL UNet run, batch 2", name)}
-    _, ms["loop10"] = _timed(lambda: pipe.generate_on_device(SDXL_PROMPT, SDXL_NEG, steps=10, seed=42, decode=False))
+    loop10 = lambda: pipe.generate_on_device(SDXL_PROMPT, SDXL_NEG, steps=10, seed=42, decode=False)
     _, ms["decode_warm"] = _timed(lambda: _decode_image(pipe, lat))
     _, ms["tiled_warm"] = _timed(lambda: _decode_image(pipe, lat, tiled=True))
-    print(f"SDXL warm [{name}]: 10-step euler_a image loop {ms['loop10']:.1f} ms, decode whole "
-          f"{ms['decode_warm']:.1f} ms, tiled {ms['tiled_warm']:.1f} ms")
+    print(f"SDXL warm [{name}]: decode whole {ms['decode_warm']:.1f} ms, tiled {ms['tiled_warm']:.1f} ms")
+    # the device programs: the step's graph (request (a) captured it at its step 1) and the tile grid's
+    programs = {"step_graph": _graph_report("SDXL euler_a step (one batch-2 UNet run, CFG, the update)",
+                                            _program(pipe, "gen", steps=10, cfg=7.0),
+                                            {FLASH_FAMILY: SDXL_FLASH_PER_RUN}, name)}
+    programs["loop10"] = _loop_against_eager("SDXL 1024 x 1024 10-step euler_a loop (10 batch-2 UNet runs)", pipe,
+                                             loop10, (pipe.text_encoder, pipe.text_encoder_2), name, 10, walls=2)
+    ms["loop10"] = programs["loop10"]["wall_ms"]
+    programs["tiled"] = _tiled_against_per_tile("SDXL tiled decode (9 tiles of 64 x 64 latents)", pipe, lat, 1, name)
+    if _program(pipe, "gen", steps=10, cfg=7.0).captures != 1:
+        raise SystemExit("SDXL loop: the step was captured again under one key")
     # kernel 1 over the run's 70 calls and at each of its shapes, then the VAE's sites
     fa = replay_times("flash_attention_packed over one SDXL UNet run's calls (batch 2)", calls,
                       flash_attention_packed, flash_attention_packed_reference, _packed_library, "bf16", name,
@@ -3026,6 +3053,13 @@ def phase_sdxl(name: str) -> dict:
     for k, v in inputs2.items():
         turbo.unet.add_tensor(k, v[:1] if k != names["timestep"] else v)
     unet_ms["batch1"] = busy_and_wall(lambda: turbo.unet.run(device_outputs=True), "SDXL UNet run, batch 1", name)
+    turbo1 = lambda: turbo.generate_on_device(SDXL_PROMPT, SDXL_NEG, steps=1, seed=42, decode=False)
+    turbo1()  # the first call warmed the step up: this one captures it
+    programs["turbo_graph"] = _graph_report("SDXL Turbo step (one batch-1 UNet run, the cond branch)",
+                                            _program(turbo, "gen", steps=1, cfg=7.0),
+                                            {FLASH_FAMILY: SDXL_FLASH_PER_RUN}, name)
+    programs["turbo"] = _loop_against_eager("SDXL Turbo, 1 step", turbo, turbo1,
+                                            (turbo.text_encoder, turbo.text_encoder_2), name, 1)
     sites.update(site_report("flash_attention_packed, SDXL UNet batch 1", calls1, flash_attention_packed,
                              flash_attention_packed_reference, _packed_library, _packed_cost, _about_packed, 2e-2,
                              name, close=close, key=lambda a, k: (*a[0].shape, a[3])))
@@ -3033,7 +3067,7 @@ def phase_sdxl(name: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return {"launches": launches + turbo_launches, "replay": fa, "ms_by_shape": sites, "unet": unet_ms, "ms": ms,
-            "device_weight_bytes": wbytes}
+            "device_weight_bytes": wbytes, "programs": programs}
 
 
 def _sd15_unet_inputs(pipe, prompts, seeds, steps: int) -> dict:
@@ -5939,9 +5973,110 @@ def _held_to_eager(label: str, got, want, gate: float) -> dict:
     return {"bit_equal": equal, "max_abs_diff": err}
 
 
+def _program(pipe, kind: str, **match):
+    """The pipeline's device program of `kind` ("gen": generate_on_device's
+    step, "tile": the tiled decode) whose key holds `match` (steps, lh)."""
+    at = {"gen": {"steps": 1, "cfg": 3}, "tile": {"lh": 5}}[kind]
+    progs = [p for k, p in pipe.device_programs.items()
+             if k[0] == kind and all(k[at[f]] == v for f, v in match.items())]
+    if len(progs) != 1:
+        raise SystemExit(f"{len(progs)} device programs of {kind} {match}, want one")
+    return progs[0]
+
+
+def _graph_report(label: str, prog, want: dict, name: str) -> dict:
+    """A device program's graph: captured once, its capture seconds, kernel
+    nodes, pool and buffers, and the launches a replay makes, read from its
+    kernel nodes, against `want`. Fails where it was captured another number
+    of times or launches another number of kernels."""
+    from onnxstream_tpu_torch.runtime.executor import graph_launches, memory_analysis
+
+    if prog.graph is None or prog.captures != 1:
+        raise SystemExit(f"{label}: {prog.captures} captures, want one")
+    mem, launches = memory_analysis(prog.graph), graph_launches(prog.graph)
+    got = {k: launches[k] for k in want}
+    print(f"  {label}, one graph ({prog.what}): captured {prog.captures} time in {mem['capture_seconds']:.3f} s, "
+          f"{launches['kernel_nodes']} kernel nodes, launches a replay read from them {got} (want {want}); pool "
+          f"{mem['pool_bytes'] / 2**20:.1f} MiB ({'shared with the pipeline' if mem['shared_pool'] else 'its own'}),"
+          f" static buffers {mem['input_bytes'] / 2**20:.2f} MiB, outputs {mem['output_bytes'] / 2**20:.2f} MiB "
+          f"[{name}]")
+    if got != want:
+        raise SystemExit(f"{label}: the graph launches another number of kernels than the eager program")
+    return {"captures": prog.captures, "capture_seconds": mem["capture_seconds"],
+            "kernel_nodes": launches["kernel_nodes"], "launches_per_replay": got,
+            **{k: mem[k] for k in ("pool_bytes", "input_bytes", "output_bytes")}}
+
+
+def _loop_against_eager(label: str, pipe, run, encoders, name: str, steps: int, walls: int = 3) -> dict:
+    """A captured generate_on_device loop: wall (median of `walls` calls),
+    verified busy (device_ms: the window must hold every replayed node) and
+    the host time before the first step (the prompts' encodings, the
+    per-step stack), beside the wall of the same program run op by op
+    (pipe.eager(), the encoders' executors eager too); every call's latents
+    equal the eager loop's, bit for bit."""
+    from onnxstream_tpu_torch.models.sd.pipeline import step_stack
+
+    lats, ms = [], []
+    for _ in range(walls):
+        res, t = _timed(run)
+        lats.append(res.latents)
+        ms.append(t)
+    busy = device_ms(run, iters=1, warmup=0, who=f"{label}, captured")
+    _, ms_encode = _timed(lambda: pipe._branches(SD_PROMPTS[0], SDXL_NEG))
+    t0 = time.perf_counter()
+    step_stack(steps, 42, "euler_a", pipe.turbo, pipe.latw, pipe.lath)
+    ms_stack = (time.perf_counter() - t0) * 1e3
+    with pipe.eager(), _eager_executors(*encoders):
+        ref, ms_e = _timed(run)
+    same = [bool(np.array_equal(lat, ref.latents)) for lat in lats]
+    print(f"{label}: captured wall median {np.median(ms):.1f} ms (min {min(ms):.1f}, {walls} calls), busy {busy:.1f} "
+          f"ms (host before step 0: encodings {ms_encode:.1f} ms, per-step stack {ms_stack:.1f} ms); op by op wall "
+          f"{ms_e:.1f} ms; latents bit for bit with the eager loop {same} [{name}]")
+    if not (all(same) and np.isfinite(ref.latents).all()):
+        raise SystemExit(f"{label}: the captured loop's latents differ from the eager loop's")
+    return {"wall_ms": float(np.median(ms)), "wall_min_ms": min(ms), "busy_ms": busy, "encode_ms": ms_encode,
+            "stack_ms": ms_stack, "eager_wall_ms": ms_e, "bit_equal": all(same)}
+
+
+def _tiled_against_per_tile(label: str, pipe, lat, flash_per_tile: int, name: str) -> dict:
+    """The tiled decode's graph (the tile grid, blend and uint8 mapping) on
+    `lat`: its report, wall and verified busy beside the whole decode; the
+    image bit for bit with the grid run op by op and with the per-tile loop
+    of Session.run (each tile the tile decoder's replayed segment)."""
+    from onnxstream_tpu_torch.models.sd import pipeline as sd_pipeline
+
+    decode = lambda: pipe.decode(lat, tiled=True)
+    imgs, ms = [], []
+    for _ in range(3):
+        img, t = _timed(decode)
+        imgs.append(img)
+        ms.append(t)
+    prog = _program(pipe, "tile", lh=lat.shape[1])
+    graph = _graph_report(label, prog, {FLASH_FAMILY: flash_per_tile * len(prog.static["factors"])}, name)
+    busy = device_ms(decode, iters=2, warmup=0, who=f"{label}, captured")
+    with pipe.eager():
+        eager = decode()
+    problem = sd_pipeline.segment_fn_problem
+    sd_pipeline.segment_fn_problem = lambda ex: "the per-tile loop, for reference"
+    try:
+        decode()  # the tile decoder's first run of its own is eager, its second captures
+        per_tile, ms_pt = _timed(decode)
+    finally:
+        sd_pipeline.segment_fn_problem = problem
+    same = [bool(np.array_equal(img, eager)) and bool(np.array_equal(img, per_tile)) for img in imgs]
+    print(f"{label}: captured wall median {np.median(ms):.1f} ms (min {min(ms):.1f}), busy {busy:.2f} ms; per-tile "
+          f"loop (replayed tiles) {ms_pt:.1f} ms; image bit for bit with the grid op by op and the per-tile loop "
+          f"{same} [{name}]")
+    if not all(same):
+        raise SystemExit(f"{label}: the tile graph's image differs from the eager grid's or the per-tile loop's")
+    return {**graph, "wall_ms": float(np.median(ms)), "busy_ms": busy, "per_tile_wall_ms": ms_pt, "bit_equal": True}
+
+
 def _capture_sd15(name: str, pipe) -> dict:
-    """The SD15 UNet run (bf16) and the SD1.5 10-step euler_a image through
-    generate_on_device, replayed against eager runs on the same inputs."""
+    """The SD15 UNet run (bf16) replayed against its eager run, and the SD1.5
+    10-step euler_a image through generate_on_device: one captured graph a
+    step, replayed against the same step op by op; then the tiled decode's
+    graph against the per-tile loop."""
     from onnxstream_tpu_torch import kernels
     from onnxstream_tpu_torch.models.sd.unet import SD15
 
@@ -5958,14 +6093,18 @@ def _capture_sd15(name: str, pipe) -> dict:
     got = unet.run(device_outputs=True)["out_sample"]
     per_run = kernels.launch_counts()["flash_attention_packed"]
     ex = unet._executor()
-    (loop, ms_loop) = _timed(lambda: pipe.generate_on_device(SD_PROMPTS[0], "", steps=10, seed=42, decode=False))
+    image = lambda: pipe.generate_on_device(SD_PROMPTS[0], "", steps=10, seed=42, decode=False)
+    (loop, ms_loop) = _timed(image)
     launches = kernels.launch_counts()["flash_attention_packed"]
     print(f"SD15 UNet run replayed: captured {ex.captured}, kernel 1 launches a replay {per_run} (want 10); the "
           f"10-step euler_a loop {ms_loop:.1f} ms, {launches - per_run} kernel 1 launches (want 200) [{name}]")
     if not ex.captured or per_run != SD15_FLASH_PER_RUN or launches - per_run != 20 * SD15_FLASH_PER_RUN:
         raise SystemExit("SD15 UNet: not replayed, or kernel 1 launched another number of times")
+    out["step_graph"] = _graph_report("SD1.5 euler_a step (two UNet runs, CFG, the update)",
+                                      _program(pipe, "gen", steps=10, cfg=7.0),
+                                      {FLASH_FAMILY: 2 * SD15_FLASH_PER_RUN}, name)
     mem, acc = ex.memory_analysis(), ex.hbm_accounting()
-    print(f"  capture {mem['capture_seconds']:.3f} s; memory_analysis: pool {mem['pool_bytes'] / 2**20:.1f} MiB "
+    print(f"  UNet capture {mem['capture_seconds']:.3f} s; memory_analysis: pool {mem['pool_bytes'] / 2**20:.1f} MiB "
           f"({'shared with the pipeline' if mem['shared_pool'] else 'its own'}), static inputs "
           f"{mem['input_bytes'] / 2**20:.2f} MiB, outputs {mem['output_bytes'] / 2**20:.3f} MiB, held workspaces "
           f"{mem['workspace_bytes'] / 2**20:.2f} MiB; hbm_accounting peak {acc['peak_bytes'] / 2**20:.1f} MiB "
@@ -5976,21 +6115,21 @@ def _capture_sd15(name: str, pipe) -> dict:
     out["measured_launches"] = _launches_held("SD15 UNet run", ex, {FLASH_FAMILY: SD15_FLASH_PER_RUN},
                                               lambda: unet.run(device_outputs=True), 3)
     out["replay"] = busy_and_wall(lambda: unet.run(device_outputs=True), "SD15 UNet run, replayed", name, steps=5)
-    image = lambda: pipe.generate_on_device(SD_PROMPTS[0], "", steps=10, seed=42, decode=False)
-    (_, ms_warm) = _timed(image)
-    busy_warm = device_ms(image, iters=1, warmup=0, who="SD1.5 10-step loop, replayed")
-    with _eager_executors(pipe.unet, pipe.text_encoder):
+    with _eager_executors(pipe.unet):
         push()
         want = unet.run(device_outputs=True)["out_sample"]
         out["eager"] = busy_and_wall(lambda: unet.run(device_outputs=True), "SD15 UNet run, eager", name)
-        (loop_e, ms_loop_e) = _timed(image)
     out["unet"] = _held_to_eager("SD15 UNet run", got, want, 5e-2)
-    out["loop"] = _held_to_eager("SD1.5 10-step euler_a latents", loop.latents, loop_e.latents, 5e-2)
-    print(f"SD1.5 10-step euler_a loop (20 UNet runs): replayed {ms_warm:.1f} ms wall, {busy_warm:.1f} busy; eager "
-          f"{ms_loop_e:.1f} ms wall [{name}]")
-    out.update(launches=launches, capture=mem, loop_ms={"replayed": ms_warm, "eager": ms_loop_e},
-               loop_busy_ms=busy_warm,
-               hbm_accounting_peak_bytes=acc["peak_bytes"], graph_bytes=acc["graph_bytes"])
+    out["loop"] = _loop_against_eager("SD1.5 10-step euler_a loop (20 UNet runs)", pipe, image, (pipe.text_encoder,),
+                                      name, 10)
+    captures = _program(pipe, "gen", steps=10, cfg=7.0).captures
+    print(f"  SD1.5 loop: {captures} capture of its step over every call under its key (want 1)")
+    if captures != 1:
+        raise SystemExit("SD1.5 loop: the step was captured again under one key")
+    out["tiled"] = _tiled_against_per_tile("SD1.5 tiled decode (9 tiles of 32 x 32 latents)", pipe, loop.latents, 0,
+                                           name)
+    out.update(launches=launches, capture=mem, hbm_accounting_peak_bytes=acc["peak_bytes"],
+               graph_bytes=acc["graph_bytes"])
     return out
 
 
@@ -6476,7 +6615,7 @@ def _main(name: str, written, stamp) -> int:
          "whisper": {k: whisper[k] for k in ("sites_bfloat16", "replay_bfloat16", "sites_float32", "replay_float32",
                                              "times", "on_device")},
          "sdxl": {"unet_run_replay": sdxl["replay"], "ms_by_shape": sdxl["ms_by_shape"], "unet": sdxl["unet"],
-                  "device_weight_bytes": sdxl["device_weight_bytes"]},
+                  "device_weight_bytes": sdxl["device_weight_bytes"], "programs": sdxl["programs"]},
          "sd15_batch4": sd_batch, "sd15_nhwc_replay": layout["replay"]["flash_attention_packed"],
          "sd15_fp16_storage_replay": fp16["replay"]},
         {"name": "flash_attention", "route": "cuda", "source": fa_src,

@@ -15,7 +15,12 @@ All three are verified against a g++-compiled oracle in
 tests/test_sd_rng.py.
 
 Counterpart of ``onnxstream_tpu/models/sd/rng.py``: the same code, carried
-here so the port needs nothing of the JAX package.
+here so the port needs nothing of the JAX package. ``randn_4_w_h`` itself
+calls libstdc++'s generators (``models/sd/csrc/randn.cpp``, built with g++
+at first use by ``runtime/native.py``): the Python polar method makes one
+ctypes ``logf`` call a value, which made the seeded noise the largest host
+cost of an image's device loop; the classes here give the same bits
+(tests/test_torch_sd_scan.py).
 """
 
 from __future__ import annotations
@@ -233,9 +238,21 @@ class NormalDistributionFloat:
         return out
 
 
+_RANDN = None
+
+
 def randn_4_w_h(seed: int, w: int, h: int) -> np.ndarray:
     """Reference randn_4_w_h (src/sd.cpp:1366-1385): mt19937(seed) filling a
-    (4, h, w) float32 normal tensor in channel-major order."""
-    gen = MT19937(seed)
-    dist = NormalDistributionFloat(gen)
-    return dist.fill(4 * w * h).reshape(4, h, w)
+    (4, h, w) float32 normal tensor in channel-major order, by libstdc++
+    (``NormalDistributionFloat(MT19937(seed)).fill(4 * w * h)``'s bits)."""
+    global _RANDN
+    if _RANDN is None:
+        from onnxstream_tpu_torch.runtime.native import randn_library
+
+        lib = ctypes.CDLL(str(randn_library()))
+        lib.ostt_randn.restype = None
+        lib.ostt_randn.argtypes = [ctypes.c_uint32, ctypes.c_int64, ctypes.POINTER(ctypes.c_float)]
+        _RANDN = lib.ostt_randn
+    out = np.empty(4 * w * h, np.float32)
+    _RANDN(seed & _U32, out.size, out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)))
+    return out.reshape(4, h, w)

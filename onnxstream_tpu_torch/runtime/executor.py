@@ -149,7 +149,11 @@ capture are held to the graph's kernel nodes (``kernels.held_to_graph``,
 config option (``use_flash_attention``, ...) drops the graph: the next run
 is a warm-up again; so does ``reset_graph``, and runs inside ``eager()`` go
 op by op and leave the graph as it was. Sessions whose runs never overlap
-may share one pool (``Session.graph_pool``).
+may share one pool (``Session.graph_pool``). ``capture_graph`` is the one
+capture of the port: the executor's segment and the SD pipeline's device
+programs (``models/sd/pipeline.py DeviceProgram``: a step of the denoising
+loop, the tiled decode), which call ``segment_fn(0)`` over the resident
+weights where ``segment_fn_problem`` finds nothing in the way.
 """
 
 from __future__ import annotations
@@ -462,13 +466,12 @@ class _SegmentFetch:
         return weights
 
 
-def capture_problem(ex: "Executor") -> Optional[str]:
-    """Why ``ex.run`` cannot capture its segment into a CUDA graph and
-    replay it, or None. Decided from the config and the plan alone: nothing
-    is asked of a card."""
+def segment_fn_problem(ex: "Executor") -> Optional[str]:
+    """Why ``ex.segment_fn(0)`` over the executor's resident weights cannot
+    stand for ``ex.run`` (a pipeline's device program calls it directly, as
+    JAX's programs call ``_segment_fn``), or None. Decided from the config
+    and the plan alone."""
     config = ex.config
-    if ex.device.type != "cuda":
-        return f"runs on {ex.device}: CUDA graphs exist on CUDA devices only"
     if ex.streamed:
         return (f"streamed: weights cross to the card on every run (hbm_budget_bytes "
                 f"{config.hbm_budget_bytes}, {len(ex.segments)} segments)")
@@ -479,13 +482,27 @@ def capture_problem(ex: "Executor") -> Optional[str]:
     for flag in ("ops_printf", "ops_times_printf", "range_data_calibrate"):
         if getattr(config, flag):
             return f"{flag}: Session.run takes the per-op interpreter (run_eager)"
+    if not ex.segments:
+        return "no device ops"
+    return None
+
+
+def capture_problem(ex: "Executor") -> Optional[str]:
+    """Why ``ex.run`` cannot capture its segment into a CUDA graph and
+    replay it, or None: a CPU device, ``segment_fn_problem``, or ranges
+    taken from the data. Decided from the config and the plan alone:
+    nothing is asked of a card."""
+    config = ex.config
+    if ex.device.type != "cuda":
+        return f"runs on {ex.device}: CUDA graphs exist on CUDA devices only"
+    problem = segment_fn_problem(ex)
+    if problem is not None:
+        return problem
     if config.use_uint8_qdq:
         missing = ex._qdq_sampled()
         if missing:
             return (f"use_uint8_qdq without calibrated ranges for {len(missing)} ops (e.g. {missing[0]!r}): "
                     f"each run takes their ranges from its own values")
-    if not ex.segments:
-        return "no device ops"
     return None
 
 
@@ -494,28 +511,104 @@ def capture_problem(ex: "Executor") -> Optional[str]:
 _SCALARS = (bool, int, float, str, type(None), torch.device)
 # device -> the side stream captures run on
 _CAPTURE_STREAMS: Dict[torch.device, Any] = {}
+# a shared pool that a failed capture left recording -> the pool that
+# captures naming it use from then on (capture_graph)
+_POOL_AFTER_FAILURE: Dict[tuple, Any] = {}
+
+
+@dataclasses.dataclass
+class CapturedGraph:
+    """A CUDA graph made by ``capture_graph``: the graph, what its body
+    returned (in the graph's pool: copied out before another graph of the
+    pool replays), what the capture recorded of the kernel wrappers (the
+    workspaces it holds, the launches one replay makes), its kernel nodes by
+    function name and the launches they make by set of entry kernels
+    (``kernels.held_to_graph``), anything else it reads (held as long as it
+    lives), its memory and the capture's seconds."""
+    graph: Any
+    outputs: Any
+    wrappers: kernels.Captured
+    nodes: Dict[str, int]
+    launches: Dict[str, int]
+    holds: tuple
+    memory: Dict[str, Any]
+    seconds: float
+
+    def replay(self) -> None:
+        """One replay; the wrappers' counts advance by the capture's record."""
+        self.graph.replay()
+        kernels.add_replay(self.wrappers.launches, self.nodes)
+
+
+def _nbytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in {id(t): t for t in tensors}.values())
+
+
+def capture_graph(body, device: torch.device, pool, what: str, failed_at, static=(), holds=()) -> CapturedGraph:
+    """Capture ``body()`` into a CUDA graph on ``device``'s side stream, into
+    ``pool`` (None: a private one), inside ``kernels.capturing()`` (the
+    wrappers' workspaces held, their launches recorded), and hold the
+    recorded launches to the graph's kernel nodes. ``static``: the buffers
+    the graph reads its inputs from; ``holds``: what else it reads (weights).
+    Raises RuntimeError naming ``what`` and ``failed_at()`` (where the body
+    was) when the capture fails, and when the graph launches other kernels
+    than the wrappers counted: nothing falls back."""
+    t0 = time.perf_counter()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)  # its nodes are read below
+    stream = _CAPTURE_STREAMS.get(device)
+    if stream is None:
+        stream = _CAPTURE_STREAMS[device] = torch.cuda.Stream(device)
+    current = torch.cuda.current_stream(device)
+    shared = None if pool is None else tuple(pool)
+    try:
+        with kernels.capturing() as captured:
+            with torch.cuda.graph(graph, pool=_POOL_AFTER_FAILURE.get(shared, pool), stream=stream,
+                                  capture_error_mode="thread_local"):
+                outputs = body()
+        graph.instantiate()
+    except Exception as e:
+        # an invalidated capture leaves its stream current, and its pool
+        # marked as recording in the allocator (CUDAGraph.capture_end raises
+        # before it ends either): the stream goes back, and later captures
+        # into a shared pool go to a fresh one in its place
+        torch.cuda.set_stream(current)
+        if shared is not None:
+            _POOL_AFTER_FAILURE[shared] = torch.cuda.graph_pool_handle()
+        raise RuntimeError(f"CUDA graph capture of {what} failed {failed_at()}: {e}") from e
+    outs = (outputs.values() if isinstance(outputs, dict) else
+            outputs if isinstance(outputs, (tuple, list)) else [outputs])
+    memory = {"pool_bytes": _pool_bytes(graph.pool()), "input_bytes": _nbytes(static),
+              "output_bytes": _nbytes(outs), "workspace_bytes": _nbytes(captured.holds),
+              "shared_pool": pool is not None}
+    nodes = kernels.graph_kernels(graph)
+    launches = kernels.held_to_graph(captured.launches, nodes)
+    return CapturedGraph(graph, outputs, captured, nodes, launches, tuple(holds), memory, time.perf_counter() - t0)
+
+
+def graph_launches(g: CapturedGraph) -> Dict[str, int]:
+    """What one replay of ``g`` launches, read from its kernel nodes: per set
+    of entry kernels, and ``"kernel_nodes"``, every kernel node."""
+    return {**g.launches, "kernel_nodes": sum(g.nodes.values())}
+
+
+def memory_analysis(g: CapturedGraph) -> Dict[str, Any]:
+    """``g``'s memory (JAX ``Executor.memory_analysis``, the compiled
+    program's buffers): the bytes of its memory pool (``pool_bytes``, the
+    allocator's segments of that pool; a pool that graphs share counts
+    everything in it), of its static inputs, its outputs and the kernel
+    workspaces it holds, and the capture's seconds."""
+    return {**g.memory, "capture_seconds": g.seconds}
 
 
 @dataclasses.dataclass
 class _Replay:
-    """A captured segment: its graph, the static buffers its inputs are
-    copied into, its outputs (in the graph's pool), the weights and their
-    quantization vectors it reads (held as long as it lives), what the
-    capture recorded of the kernel wrappers (the workspaces it holds, the
-    launches one replay makes), the graph's kernel nodes by function name
-    and the launches they make by set of entry kernels
-    (``kernels.held_to_graph``), the config key it was captured under, and
-    its memory and seconds."""
-    graph: Any
+    """A captured segment: its graph (``capture_graph``: the outputs, the
+    weights and their quantization vectors it reads, the wrappers' record),
+    the static buffers its inputs are copied into, and the config key it was
+    captured under."""
+    captured: CapturedGraph
     inputs: Dict[str, torch.Tensor]
-    outputs: Dict[str, torch.Tensor]
-    weights: tuple
-    wrappers: kernels.Captured
-    nodes: Dict[str, int]
-    launches: Dict[str, int]
     key: tuple
-    memory: Dict[str, Any]
-    seconds: float
 
 
 def _pool_bytes(pool) -> int:
@@ -1116,6 +1209,7 @@ class Executor:
             for t in op.inputs:
                 if t.name and not t.is_weight and self._last_use.get(t.name) == oi and t.name not in keep:
                     env.pop(t.name, None)
+        self._dispatching = None
         weights.clear()
         return {n: env[n] for n in keep}
 
@@ -1314,47 +1408,32 @@ class Executor:
         else:
             for name, buf in rep.inputs.items():
                 buf.copy_(acts[name])
-        rep.graph.replay()
-        kernels.add_replay(rep.wrappers.launches, rep.nodes)
-        return rep.outputs
+        rep.captured.replay()
+        return rep.captured.outputs
+
+    def dispatch_site(self) -> Optional[str]:
+        """The op a segment dispatch is at (a capture that failed names it),
+        or None between dispatches."""
+        oi = self._dispatching
+        return None if oi is None else f"at op #{oi} {self.graph.ops[oi].op_type} ({self.graph.ops[oi].name})"
 
     def _capture(self, acts: Dict[str, torch.Tensor], key: tuple) -> _Replay:
-        """Capture the one segment's ops into a CUDA graph on a side stream,
-        into ``graph_pool`` (or a private pool), under the precision flags
-        the warm-up ran with, and hold the launches the wrappers counted to
-        the graph's kernel nodes. Raises, naming the op that was dispatching,
-        when the capture fails, and when the graph launches other kernels
-        than the wrappers counted."""
-        t0 = time.perf_counter()
+        """Capture the one segment's ops into a CUDA graph (``capture_graph``)
+        under the precision flags the warm-up ran with. Raises, naming the op
+        that was dispatching, when the capture fails, and when the graph
+        launches other kernels than the wrappers counted."""
         seg = self.segments[0]
         weights = self._fetch_segment_weights(seg, 0)
         static = {name: t.clone() for name, t in acts.items()}
-        graph = torch.cuda.CUDAGraph(keep_graph=True)  # its nodes are read below
-        stream = _CAPTURE_STREAMS.get(self.device)
-        if stream is None:
-            stream = _CAPTURE_STREAMS[self.device] = torch.cuda.Stream(self.device)
+
+        def body():
+            return self._run_segment(seg, dict(weights), self._segment_env(0, static, {}))
+
         self._dispatching = None
-        try:
-            with kernels.capturing() as captured:
-                with torch.cuda.graph(graph, pool=self.graph_pool, stream=stream,
-                                      capture_error_mode="thread_local"):
-                    outputs = self._run_segment(seg, dict(weights), self._segment_env(0, static, {}))
-                    self._dispatching = None
-            graph.instantiate()
-        except Exception as e:
-            oi = self._dispatching
-            where = ("at the end of the capture" if oi is None else
-                     f"at op #{oi} {self.graph.ops[oi].op_type} ({self.graph.ops[oi].name})")
-            raise RuntimeError(f"CUDA graph capture of segment 0 failed {where}: {e}") from e
-        nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)
-        memory = {"pool_bytes": _pool_bytes(graph.pool()), "input_bytes": nbytes(static.values()),
-                  "output_bytes": nbytes(outputs.values()),
-                  "workspace_bytes": nbytes({id(t): t for t in captured.holds}.values()),
-                  "shared_pool": self.graph_pool is not None}
-        nodes = kernels.graph_kernels(graph)
-        launches = kernels.held_to_graph(captured.launches, nodes)
-        held = (weights, [w.quant for w in seg.weight_args])
-        return _Replay(graph, static, outputs, held, captured, nodes, launches, key, memory, time.perf_counter() - t0)
+        captured = capture_graph(body, self.device, self.graph_pool, "segment 0",
+                                 lambda: self.dispatch_site() or "at the end of the capture",
+                                 static=static.values(), holds=(weights, [w.quant for w in seg.weight_args]))
+        return _Replay(captured, static, key)
 
     @property
     def captured(self) -> bool:
@@ -1367,7 +1446,7 @@ class Executor:
         and ``"kernel_nodes"``, every kernel node; None before the capture."""
         if self._replay is None:
             return None
-        return {**self._replay.launches, "kernel_nodes": sum(self._replay.nodes.values())}
+        return graph_launches(self._replay.captured)
 
     def reset_graph(self) -> None:
         """Drop the captured graph: the next run warms up op by op and the
@@ -1395,7 +1474,7 @@ class Executor:
         captured."""
         if self._replay is None or si != 0:
             return None
-        return {**self._replay.memory, "capture_seconds": self._replay.seconds}
+        return memory_analysis(self._replay.captured)
 
     def _run_streamed(self, acts, results) -> None:
         self._start_streaming()

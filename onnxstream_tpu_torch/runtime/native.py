@@ -10,7 +10,10 @@ of the source and the flags:
   * ``api/csrc/exports.cpp`` -> ``libonnxstream_tpu_torch.so``, the
     15-function C ABI, which embeds CPython and forwards to
     ``onnxstream_tpu_torch.api.capi``. Its include and link flags come from
-    ``sysconfig``.
+    ``sysconfig``;
+  * ``models/sd/csrc/randn.cpp`` -> ``libostt_randn.so``, the reference's
+    seeded normal latents (``rng.randn_4_w_h``) from libstdc++'s own
+    ``std::mt19937`` and ``std::normal_distribution<float>``.
 
 A failed build raises with the compiler's output: nothing falls back to a
 Python implementation. Nothing here runs when the module is imported.
@@ -29,6 +32,7 @@ from onnxstream_tpu_torch.kernels.build import CACHE_DIR, compile_once
 PACKAGE = Path(__file__).resolve().parents[1]
 PREFETCH_SOURCE = PACKAGE / "runtime" / "csrc" / "prefetch.cpp"
 EXPORTS_SOURCE = PACKAGE / "api" / "csrc" / "exports.cpp"
+RANDN_SOURCE = PACKAGE / "models" / "sd" / "csrc" / "randn.cpp"
 CXX_FLAGS = ["-O3", "-std=c++17", "-Wall", "-shared", "-fPIC"]
 
 
@@ -52,6 +56,11 @@ def build_library(src: Path, name: str, flags: List[str]) -> Path:
 
 def prefetch_library() -> Path:
     return build_library(PREFETCH_SOURCE, "ostt_prefetch", ["-lpthread"])
+
+
+def randn_library() -> Path:
+    # no contraction into FMAs: the polar method's float arithmetic stays as written
+    return build_library(RANDN_SOURCE, "ostt_randn", ["-ffp-contract=off"])
 
 
 def python_flags() -> List[str]:

@@ -212,7 +212,8 @@ class Session:
         accounts = [ex.hbm_accounting() for ex in self._executors.values()]
         if accounts:
             out["accounting"] = max(accounts, key=lambda a: a["peak_bytes"])
-        graphs = [(ex._replay.graph.pool(), ex.memory_analysis()) for ex in self._executors.values() if ex.captured]
+        graphs = [(ex._replay.captured.graph.pool(), ex.memory_analysis())
+                  for ex in self._executors.values() if ex.captured]
         if graphs:
             pools = {tuple(pool): m["pool_bytes"] for pool, m in graphs}
             out["graph_bytes"] = sum(pools.values()) + sum(m["input_bytes"] for _, m in graphs)

@@ -11,6 +11,17 @@ phase_capture also counts them on the card, in a profiler window). The graph kee
 quantized A holds across replays with new inputs, and an op that waits for
 the card makes the capture raise, naming the op.
 
+The SD pipelines' device programs (``generate_on_device``'s step and the
+tiled decode, one CUDA graph each) are held the same way: every captured
+loop's latents and tiled image equal the same program run op by op
+(``pipeline.eager()``) bit for bit, for the TINY SD1.5 (batch-1 and batch-2
+UNet), SDXL and Turbo families with euler and euler_a at a 64 x 64 latent
+(where kernel 1 runs), three calls under one key make one capture, a step's
+kernel-1 launches are read from the graph's nodes, the tile graph equals the
+per-tile loop of Session.run, a streamed UNet names its reason and gives the
+resident loop's latents, and an op that waits for the card makes the step's
+capture raise, naming it.
+
 This module imports neither JAX nor the JAX package, so it runs where only
 PyTorch and a card are (``python -m pytest --noconftest -m gpu``). Every test
 carries the ``gpu`` marker and skips without a card. What the CPU can check
@@ -28,7 +39,10 @@ import torch
 from onnxstream_tpu_torch import Session, SessionConfig, kernels
 from onnxstream_tpu_torch.models.llm.llama import LLAMA_TINY
 from onnxstream_tpu_torch.models.llm.pipeline import LlamaPipeline
-from onnxstream_tpu_torch.models.sd.unet import TINY, build_unet
+from onnxstream_tpu_torch.models.sd import pipeline as sd_pipeline
+from onnxstream_tpu_torch.models.sd import unet as unet_module
+from onnxstream_tpu_torch.models.sd.pipeline import StableDiffusionPipeline
+from onnxstream_tpu_torch.models.sd.unet import TINY, TINY_XL, build_unet
 from onnxstream_tpu_torch.ops import _REGISTRY
 from onnxstream_tpu_torch.runtime.weights import DictWeightsProvider, params_from_numpy
 
@@ -179,6 +193,7 @@ def test_graph_survives_a_slab_grown_by_a_larger_call():
     from onnxstream_tpu_torch.kernels import gn_conv
 
     dev = _card()
+    gn_conv._SLAB.pop(dev, None)  # the UNet's own slab, not one a larger call of another test grew
     s = _unet(dev, "bfloat16", fuse_gn_conv=True)
     reqs = [_unet_request(i) for i in range(3)]
     for req in reqs[:2]:
@@ -289,3 +304,129 @@ def test_an_op_that_waits_for_the_card_makes_the_capture_raise(monkeypatch):
     monkeypatch.setattr(impl, "fn", fn)
     out = s.run()["out_sample"]  # the card is usable, and the capture goes through now
     assert s._executor().captured and np.isfinite(out).all()
+
+
+# ------------------------------------------------- the SD pipelines' device programs
+SD_FAMILIES = {"sd15": {}, "sd15_batch2": {"batch": 2}, "sdxl": {"xl": True},
+               "sdxl_batch2": {"xl": True, "batch": 2}, "turbo": {"xl": True, "turbo": True}}
+FLASH_FAMILY = "flash_attention_packed+flash_attention"  # kernels 1 and 2 launch the same functions
+
+
+def _sd_pipe(monkeypatch, dev, **kw) -> StableDiffusionPipeline:
+    """A TINY pipeline in bf16 with its UNet at a 64 x 64 latent (kernel 1
+    at the 4096-token sites), the VAE at 64 and its 32 x 32 tile decoder."""
+    monkeypatch.setattr(unet_module, "TINY", UNET_64)
+    monkeypatch.setattr(unet_module, "TINY_XL", dataclasses.replace(TINY_XL, sample_size=64))
+    return StableDiffusionPipeline.from_synthetic(tiny=True, device=dev, compute_dtype="bfloat16", **kw)
+
+
+def _program(pipe, kind: str):
+    (prog,) = [p for k, p in pipe.device_programs.items() if k[0] == kind]
+    return prog
+
+
+def _flash_launches(fn):
+    before = kernels.launch_counts()["flash_attention_packed"]
+    out = fn()
+    return out, kernels.launch_counts()["flash_attention_packed"] - before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sampler", ["euler", "euler_a"])
+@pytest.mark.parametrize("family", sorted(SD_FAMILIES))
+def test_sd_loop_replays_equal_the_eager_loop(monkeypatch, family, sampler):
+    """Three calls under one key: step 0 of the first runs op by op, step 1
+    captures the step, every later step replays it; each call's latents
+    equal the loop run op by op, bit for bit, with as many kernel-1 launches
+    as a step's graph holds nodes of it."""
+    dev = _card()
+    pipe = _sd_pipe(monkeypatch, dev, **SD_FAMILIES[family])
+    assert pipe.loop_capture_problem() is None
+    kw = dict(steps=3, sampler=sampler, decode=False)
+    calls = [(prompt, seed) for prompt, seed in (("a cat", 7), ("a photo of a dog", 8), ("a horse", 9))]
+    got = [_flash_launches(lambda: pipe.generate_on_device(p, "ugly", seed=s, **kw).latents) for p, s in calls]
+    prog = _program(pipe, "gen")
+    assert prog.captures == 1 and prog.graph is not None and int(prog.static["counter"][0]) == 3
+    per_step = prog.graph.launches[FLASH_FAMILY]
+    runs = 1 if family in ("turbo", "sd15_batch2", "sdxl_batch2") else 2
+    assert per_step > 0 and per_step % runs == 0 and sum(prog.graph.nodes.values()) > per_step
+    with pipe.eager():
+        want = [_flash_launches(lambda: pipe.generate_on_device(p, "ugly", seed=s, **kw).latents) for p, s in calls]
+    assert prog.captures == 1
+    for (lat, n), (ref, n_eager) in zip(got, want):
+        assert np.isfinite(lat).all() and n == n_eager == 3 * per_step
+        np.testing.assert_array_equal(lat, ref)
+    assert not np.array_equal(got[0][0], got[1][0])
+
+
+@pytest.mark.gpu
+def test_tiled_decode_graph_equals_the_per_tile_loop(monkeypatch):
+    """The tile grid (9 tiles of 32 over a 64 x 64 latent, the blend and the
+    uint8 mapping) as one graph: eager at the first call, captured at the
+    second, replayed after; every image equal, bit for bit, to the grid run
+    op by op and to the per-tile loop of Session.run (taken where the
+    decoder has a segment_fn_problem)."""
+    dev = _card()
+    pipe = _sd_pipe(monkeypatch, dev)
+    lats = [np.random.default_rng(i).standard_normal((4, 64, 64), dtype=np.float32) for i in range(3)]
+    imgs = [pipe.decode(lat, tiled=True) for lat in lats]
+    floats = [pipe.decode_to_float(lat, tiled=True).cpu() for lat in lats]
+    prog = _program(pipe, "tile")
+    assert prog.captures == 1 and prog.graph is not None and len(prog.static["factors"]) == 9
+    with pipe.eager():
+        eager = [pipe.decode(lat, tiled=True) for lat in lats]
+    monkeypatch.setattr(sd_pipeline, "segment_fn_problem", lambda ex: "the per-tile loop, for reference")
+    per_tile = [pipe.decode(lat, tiled=True) for lat in lats]
+    per_tile_f = [pipe.decode_to_float(lat, tiled=True).cpu() for lat in lats]
+    for i in range(3):
+        assert imgs[i].shape == (128, 128, 3) and imgs[i].dtype == np.uint8
+        np.testing.assert_array_equal(imgs[i], eager[i])
+        np.testing.assert_array_equal(imgs[i], per_tile[i])
+        assert torch.equal(floats[i], per_tile_f[i])
+    assert not np.array_equal(imgs[0], imgs[1])
+
+
+@pytest.mark.gpu
+def test_a_streamed_unet_loop_names_its_problem_and_matches(monkeypatch):
+    """A UNet streamed under a budget runs the same step through Session.run
+    op by op: its loop_capture_problem names the streaming, and its latents
+    are the resident captured loop's."""
+    dev = _card()
+    resident, streamed = _sd_pipe(monkeypatch, dev), _sd_pipe(monkeypatch, dev)
+    streamed.unet.config.hbm_budget_bytes = 256 << 10
+    assert resident.loop_capture_problem() is None and "streamed" in streamed.loop_capture_problem()
+    for seed in (3, 4, 5):
+        a = resident.generate_on_device("a cat", "dog", steps=2, seed=seed, decode=False).latents
+        b = streamed.generate_on_device("a cat", "dog", steps=2, seed=seed, decode=False).latents
+        np.testing.assert_array_equal(a, b)
+    assert _program(resident, "gen").captures == 1 and _program(streamed, "gen").graph is None
+
+
+@pytest.mark.gpu
+def test_an_op_that_waits_for_the_card_makes_the_step_capture_raise(monkeypatch):
+    dev = _card()
+    pipe = _sd_pipe(monkeypatch, dev)
+    kw = dict(steps=1, seed=3, decode=False)
+    want = pipe.generate_on_device("a cat", "dog", **kw).latents  # step 0: the warm-up, op by op
+    ex = pipe._loop_executor(1)
+    victim = next(op for i, op in enumerate(ex.graph.ops)
+                  if op.op_type == "Sigmoid" and ex.plan.op_modes[i] == "device")
+    impl = _REGISTRY["Sigmoid"]
+    fn = impl.fn
+
+    def syncing(ctx, op, ins):
+        outs = fn(ctx, op, ins)
+        if op.name == victim.name:
+            outs[0].sum().item()  # the host waits for the value
+        return outs
+
+    monkeypatch.setattr(impl, "fn", syncing)
+    before = kernels.launch_counts()
+    match = rf"capture of the SD step .* failed in the UNet at op #\d+ Sigmoid \({re.escape(victim.name)}\)"
+    with pytest.raises(RuntimeError, match=match):
+        pipe.generate_on_device("a cat", "dog", **kw)
+    assert kernels.launch_counts() == before and _program(pipe, "gen").graph is None
+    monkeypatch.setattr(impl, "fn", fn)
+    got = pipe.generate_on_device("a cat", "dog", **kw).latents  # the card is usable; the capture goes through
+    assert _program(pipe, "gen").captures == 1
+    np.testing.assert_array_equal(got, want)

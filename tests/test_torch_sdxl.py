@@ -11,6 +11,7 @@ same bar, and to the port's own batch-1 runs at the JAX suite's batch-vs-
 sequential bars (tests/test_cfg_batch.py, tests/test_sd_pipeline.py).
 """
 
+import contextlib
 import json
 import os
 
@@ -25,6 +26,7 @@ from onnxstream_tpu_torch.models.sd.pipeline import (
     VAE_SCALE_XL,
     StableDiffusionPipeline,
 )
+from onnxstream_tpu_torch.runtime.executor import Executor
 
 CPU = torch.device("cpu")
 PROMPT = "a photo of a fluffy cat riding a horse"
@@ -59,16 +61,24 @@ def _levels(a: np.ndarray, b: np.ndarray) -> int:
     return int(np.abs(a.astype(np.int32) - b.astype(np.int32)).max())
 
 
+@contextlib.contextmanager
 def _count_unet_runs(pipe):
-    """Wrap pipe.unet.run to count its calls and the batch of each."""
-    batches, run = [], pipe.unet.run
+    """Count the UNet's runs inside, and the batch of each: every run, through
+    Session.run or through the device loop's segment function, prepares its
+    inputs once (``Executor._prepare_inputs``)."""
+    batches, prepare = [], Executor._prepare_inputs
+    sample = pipe._unet_input_names()["sample"]
 
-    def counting(*a, **kw):
-        batches.append(pipe.unet.tensors[pipe._unet_input_names()["sample"]].shape[0])
-        return run(*a, **kw)
+    def counting(ex, inputs):
+        if any(e is ex for e in pipe.unet._executors.values()):
+            batches.append(inputs[sample].shape[0])
+        return prepare(ex, inputs)
 
-    pipe.unet.run = counting
-    return batches
+    Executor._prepare_inputs = counting
+    try:
+        yield batches
+    finally:
+        Executor._prepare_inputs = prepare
 
 
 # ------------------------------------------------------------ prompt encoding
@@ -113,13 +123,10 @@ def test_turbo_never_runs_the_uncond_branch(turbo, loop):
     """Turbo: one batch-1 UNet run a step, the negative prompt ignored, and
     the JAX package's latents."""
     port, jax = turbo
-    batches = _count_unet_runs(port)
-    try:
+    with _count_unet_runs(port) as batches:
         a = getattr(port, loop)("a cat", steps=2, seed=3, decode=False).latents
         assert batches == [1, 1]
         b = getattr(port, loop)("a cat", neg_prompt="ugly", steps=2, seed=3, decode=False).latents
-    finally:
-        del port.unet.run
     np.testing.assert_array_equal(a, b)
     _close(a, jax.generate("a cat", steps=2, seed=3, decode=False).latents)
 
@@ -151,14 +158,11 @@ def test_cfg2_runs_one_batch2_unet_run_a_step(xl, xl2, xl_):
         one, port, jax = _port(), _port(batch=2), JaxPipeline.from_synthetic(tiny=True, batch=2)
     assert port._unet_batch() == 2 and one._unet_batch() == 1
     kw = dict(steps=3, seed=7, sampler="euler_a", decode=False)
-    batches = _count_unet_runs(port)
-    try:
+    with _count_unet_runs(port) as batches:
         host = port.generate(PROMPT, "blurry", **kw).latents
         assert batches == [2, 2, 2]
         dev = port.generate_on_device(PROMPT, "blurry", **kw).latents
         assert batches == [2] * 6
-    finally:
-        del port.unet.run
     _close(host, jax.generate(PROMPT, "blurry", **kw).latents)
     _close(dev, host)
     seq = one.generate(PROMPT, "blurry", **kw).latents
