@@ -16,6 +16,16 @@ and ``held_to_graph`` holds the record to them: the wrappers that share entry
 kernels recorded as many launches as the graph has nodes running one. Each
 replay then adds the record to the wrappers' counts and to ``replayed``, and
 its graph's kernel nodes to ``replayed_nodes``.
+
+Each wrapper calls a ``KernelFunction`` (a ``torch.autograd.Function``)
+with a batching rule, the counterpart of the TPU kernels under ``jax.vmap``:
+under ``torch.func.vmap`` the rule folds the mapped axis into the kernel's
+own batch or row axis (``folded``), calls the function once more on the
+folded operands and splits its output back (``unfolded``), so a vmapped call
+is one launch at the folded size. Its forward is the module's ``*_impl``
+function, which launches the kernel (or computes the twin on CPU tensors)
+and counts the launch (``count``). Weights and scales are never mapped
+(``closed_over``): they are closed over, as in JAX.
 """
 from __future__ import annotations
 
@@ -52,6 +62,71 @@ def register(name: str, wrapper, entry: Sequence[str]) -> None:
     wrapper.launches = 0
     _COUNTED[name] = wrapper
     _ENTRY[name] = tuple(entry)
+
+
+def count(name: str) -> None:
+    """One launch of kernel ``name``, added to the wrapper registered for it
+    at import (a name rebound in the wrapper's module, such as a call
+    recorder standing in for it, does not take its count)."""
+    _COUNTED[name].launches += 1
+
+
+class KernelFunction(torch.autograd.Function):
+    """A kernel wrapper's batching rule: a subclass's ``forward`` calls the
+    implementation (``*_impl``) with the wrapper's arguments as they are,
+    its ``vmap`` is the rule. No backward: the kernels have none."""
+
+    generate_vmap_rule = False
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+
+def closed_over(name: str, in_dims: Sequence[Optional[int]], operands: Sequence[str]) -> None:
+    """Raises ValueError where one of the named operands (weights, scales)
+    is mapped: a batching rule folds activations only."""
+    mapped = [what for what, d in zip(operands, in_dims) if d is not None]
+    if mapped:
+        raise ValueError(f"{name} under vmap: {', '.join(mapped)} mapped; weights and scales are closed over")
+
+
+def folded(size: int, in_dims: Sequence[Optional[int]], *xs: Optional[torch.Tensor],
+           lift: bool = False) -> List[Optional[torch.Tensor]]:
+    """The activation operands of a vmapped call with the mapped axis folded
+    into their leading (batch or row) axis: (V, B, ...) -> (V B, ...), where
+    ``size`` is V. An unmapped operand (its dim None) is expanded to V first,
+    a stride-0 view (the reshape keeps it a view where B is 1; a wrapper whose
+    kernel takes no strides copies it as it copies any strided operand).
+    With ``lift`` the operands have no batch axis of their own (a 2-D packed
+    q) and the mapped axis becomes it: (V, ...). None stays None."""
+    out = []
+    for x, d in zip(xs, in_dims):
+        if x is not None:
+            x = x.expand(size, *x.shape) if d is None else x.movedim(d, 0)
+            if not lift:
+                x = x.reshape(size * x.shape[1], *x.shape[2:])
+        out.append(x)
+    return out
+
+
+def unfolded(out: torch.Tensor, size: int, lift: bool = False) -> Tuple[torch.Tensor, int]:
+    """A folded call's output split back, (V B, ...) -> (V, ...B...), and its
+    mapped dim (0): what a batching rule returns."""
+    return (out if lift else out.reshape(size, out.shape[0] // size, *out.shape[1:])), 0
+
+
+@contextlib.contextmanager
+def no_vmap_fallback() -> Iterator[None]:
+    """Inside, an op without a batching rule raises under ``torch.func.vmap``
+    and names itself, where functorch would otherwise run it once per
+    example; the setting is restored after."""
+    was = torch._C._functorch._is_vmap_fallback_enabled()
+    torch._C._functorch._set_vmap_fallback_enabled(False)
+    try:
+        yield
+    finally:
+        torch._C._functorch._set_vmap_fallback_enabled(was)
 
 
 def counted() -> Dict[str, object]:

@@ -11,6 +11,12 @@ One kernel, ``csrc/flash_attention.cu``, replaces both TPU flash kernels of
     ``(B, H, M, D)`` with an additive mask that broadcasts over batch and
     heads, K optionally given transposed.
 
+Both are ``kernels.KernelFunction``s (``_Packed``, ``_HeadMajor``) whose
+batching rules fold a ``torch.func.vmap``'s mapped axis into B: one launch at
+the folded batch (``kernels.folded``; a mask that is not mapped keeps its
+broadcast strides). ``flash_attention_packed_impl`` and
+``flash_attention_impl`` launch.
+
 The kernel reads every operand in place through strides, so unlike the TPU
 wrappers it makes no padded copy of Q, K, V or the mask (the TPU wrapper's
 lane padding and VMEM clamp have no meaning here). Both wrappers share one
@@ -41,7 +47,7 @@ from typing import Optional, Sequence
 
 import torch
 
-from onnxstream_tpu_torch.kernels import build, register
+from onnxstream_tpu_torch.kernels import KernelFunction, build, count, folded, register, unfolded
 
 LOG2_E = 1.4426950408889634
 MAX_HEAD_DIM = 512  # largest head dim of the packed form (the SD VAE's 1 x 512)
@@ -330,23 +336,16 @@ def _packed_on_head_major(q, k, v, heads: int, d: int, hkv: int, dv: int, scale:
     return out
 
 
-def flash_attention_packed(q, k, v, heads: int, scale: Optional[float] = None,
-                           causal: bool = False, nopad: bool = False) -> torch.Tensor:
-    """Flash SDPA over packed projections: q (B, M, H*D), k (B, N, Hkv*D),
-    v (B, N, Hkv*Dv) -> (B, M, H*Dv) in q's dtype. Also accepts 2-D (L, H*D).
-
-    ``nopad`` (``SessionConfig.flash_packed_nopad``, the JAX wrapper's
-    option): where a head dim is not a multiple of 128 (the SD1.5 UNet's
-    d = 40 and 80), the call runs ``flash_attention`` (kernel 2) on
-    head-major views of the operands instead of this kernel, and raises where
-    kernel 2 cannot take them; other head dims keep this kernel.
-
-    On CUDA tensors it launches the kernel on the current stream, or raises;
-    on CPU tensors it computes the plain twin. Every launch adds one to
-    ``flash_attention_packed.launches``."""
+def flash_attention_packed_impl(q, k, v, heads: int, scale: Optional[float] = None,
+                                causal: bool = False, nopad: bool = False) -> torch.Tensor:
+    """The implementation of ``flash_attention_packed`` (``_Packed``'s
+    forward) on real tensors (a 2-D call as batch 1)."""
     if q.ndim == 2:
-        return flash_attention_packed(q[None], k[None], v[None], heads, scale=scale, causal=causal,
-                                      nopad=nopad)[0]
+        return _packed(q[None], k[None], v[None], heads, scale, causal, nopad)[0]
+    return _packed(q, k, v, heads, scale, causal, nopad)
+
+
+def _packed(q, k, v, heads: int, scale: Optional[float], causal: bool, nopad: bool) -> torch.Tensor:
     d, hkv, dv = _check_packed(q, k, v, heads)
     if scale is None:
         scale = 1.0 / math.sqrt(d)
@@ -367,8 +366,43 @@ def flash_attention_packed(q, k, v, heads: int, scale: Optional[float] = None,
     splits, part = _split_workspace(variant, dims, q.device)
     _launch(q, k, v, out, None, dims, strides, scale, causal, splits=splits, part=part,
             ws=_tf32_workspace(variant, dims, q.device))
-    flash_attention_packed.launches += 1
+    count("flash_attention_packed")
     return out
+
+
+class _Packed(KernelFunction):
+    """``flash_attention_packed`` with a batching rule (``vmap``): the mapped
+    axis folded into B, (V, B, L, H*D) -> (V B, L, H*D); a 2-D example's
+    (V, L, H*D) is a batch-V call. ``nopad``'s kernel-2 call runs inside the
+    one folded call."""
+
+    @staticmethod
+    def forward(q, k, v, heads, scale, causal, nopad):
+        return flash_attention_packed_impl(q, k, v, heads, scale=scale, causal=causal, nopad=nopad)
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, heads, scale, causal, nopad):
+        lift = q.ndim - (in_dims[0] is not None) == 2
+        q, k, v = folded(info.batch_size, in_dims[:3], q, k, v, lift=lift)
+        return unfolded(_Packed.apply(q, k, v, heads, scale, causal, nopad), info.batch_size, lift)
+
+
+def flash_attention_packed(q, k, v, heads: int, scale: Optional[float] = None,
+                           causal: bool = False, nopad: bool = False) -> torch.Tensor:
+    """Flash SDPA over packed projections: q (B, M, H*D), k (B, N, Hkv*D),
+    v (B, N, Hkv*Dv) -> (B, M, H*Dv) in q's dtype. Also accepts 2-D (L, H*D).
+
+    ``nopad`` (``SessionConfig.flash_packed_nopad``, the JAX wrapper's
+    option): where a head dim is not a multiple of 128 (the SD1.5 UNet's
+    d = 40 and 80), the call runs ``flash_attention`` (kernel 2) on
+    head-major views of the operands instead of this kernel, and raises where
+    kernel 2 cannot take them; other head dims keep this kernel.
+
+    On CUDA tensors it launches the kernel on the current stream, or raises;
+    on CPU tensors it computes the plain twin. Every launch adds one to
+    ``flash_attention_packed.launches``. Under ``torch.func.vmap`` the
+    mapped axis folds into B: one launch a call."""
+    return _Packed.apply(q, k, v, heads, scale, causal, nopad)
 
 
 def _head_major_launch(q, k, v, mask, k_transposed: bool, out_strides=None):
@@ -426,25 +460,18 @@ def flash_variant(q, k, v, mask=None, k_transposed: bool = False, form: str = "h
                     None if m4 is None else m4.data_ptr(), None if m4 is None else m4.dtype, dims[2])
 
 
-def flash_attention(q, k, v, mask=None, scale: Optional[float] = None,
-                    k_transposed: bool = False, causal: bool = False,
-                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Flash SDPA, head-major: q (B, H, M, D), k (B, Hkv, N, D) (or
-    (B, Hkv, D, N) with ``k_transposed``), v (B, Hkv, N, Dv) -> (B, H, M, Dv)
-    in q's dtype. Rank-3 (H, L, D) inputs are lifted to batch 1. ``mask`` is
-    an additive mask that broadcasts to (B, H, M, N) after lifting: (M, N),
-    (B, M, N) as (B, 1, M, N), (1|B, 1|H, M, N), ...; GQA when H != Hkv.
-    ``out``, where given, is the (B, H, M, Dv) tensor written and returned:
-    q's dtype and device, any strides with a unit last one (the nopad route
-    passes a head-major view of its packed output). Which kernel variant
-    runs is ``flash_variant``'s answer.
-
-    On CUDA tensors it launches the kernel on the current stream, or raises;
-    on CPU tensors it computes the plain twin. Every launch adds one to
-    ``flash_attention.launches``."""
+def flash_attention_impl(q, k, v, mask=None, scale: Optional[float] = None, k_transposed: bool = False,
+                         causal: bool = False, out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The implementation of ``flash_attention`` (``_HeadMajor``'s forward)
+    on real tensors (rank-3 operands as batch 1)."""
     if q.ndim == 3:
-        return flash_attention(q[None], k[None], v[None], mask=mask, scale=scale, k_transposed=k_transposed,
-                               causal=causal, out=None if out is None else out[None])[0]
+        return _head_major(q[None], k[None], v[None], mask, scale, k_transposed, causal,
+                           None if out is None else out[None])[0]
+    return _head_major(q, k, v, mask, scale, k_transposed, causal, out)
+
+
+def _head_major(q, k, v, mask, scale: Optional[float], k_transposed: bool, causal: bool,
+                out: Optional[torch.Tensor]) -> torch.Tensor:
     problem = head_major_problem(q, k, v, mask, k_transposed)
     if problem is not None:
         raise ValueError(f"flash_attention: {problem}")
@@ -470,13 +497,71 @@ def flash_attention(q, k, v, mask=None, scale: Optional[float] = None,
     variant = _variant(q.dtype, d, dv, (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr()), strides,
                        None if m4 is None else m4.data_ptr(), None if m4 is None else m4.dtype, n)
     _launch(q, k, v, out, m4, dims, strides, scale, causal, ws=_tf32_workspace(variant, dims, q.device))
-    _flash_attention_counted.launches += 1
+    count("flash_attention")
     return out
+
+
+def _folded_mask(mask: torch.Tensor, dim: Optional[int], size: int, batch: int) -> torch.Tensor:
+    """A vmapped call's mask for the folded batch of ``size`` x ``batch``
+    examples: one that is not mapped and broadcasts over the batch as it is;
+    else (V, B, H, M, N), the example's batch axis lifted and broadcast,
+    folded to (V B, H, M, N)."""
+    if dim is None:
+        m = _lift_mask(mask)
+        if m.shape[0] == 1:
+            return mask
+        m = m.expand(size, *m.shape)
+    else:
+        m = mask.movedim(dim, 0)
+        m = m[:, None, None] if m.ndim == 3 else m[:, :, None] if m.ndim == 4 else m
+    m = m.expand(size, batch, *m.shape[2:])
+    return m.reshape(size * batch, *m.shape[2:])
+
+
+class _HeadMajor(KernelFunction):
+    """``flash_attention`` with a batching rule (``vmap``): the mapped axis
+    folded into B, (V, B, H, L, D) -> (V B, H, L, D); a rank-3 example's
+    (V, H, L, D) is a batch-V call; the mask follows (``_folded_mask``).
+    Causal and GQA are the example's."""
+
+    @staticmethod
+    def forward(q, k, v, mask, scale, k_transposed, causal):
+        return flash_attention_impl(q, k, v, mask=mask, scale=scale, k_transposed=k_transposed, causal=causal)
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, mask, scale, k_transposed, causal):
+        size = info.batch_size
+        lift = q.ndim - (in_dims[0] is not None) == 3
+        q, k, v = folded(size, in_dims[:3], q, k, v, lift=lift)
+        if mask is not None:
+            mask = _folded_mask(mask, in_dims[3], size, q.shape[0] // size)
+        return unfolded(_HeadMajor.apply(q, k, v, mask, scale, k_transposed, causal), size, lift)
+
+
+def flash_attention(q, k, v, mask=None, scale: Optional[float] = None,
+                    k_transposed: bool = False, causal: bool = False,
+                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Flash SDPA, head-major: q (B, H, M, D), k (B, Hkv, N, D) (or
+    (B, Hkv, D, N) with ``k_transposed``), v (B, Hkv, N, Dv) -> (B, H, M, Dv)
+    in q's dtype. Rank-3 (H, L, D) inputs are lifted to batch 1. ``mask`` is
+    an additive mask that broadcasts to (B, H, M, N) after lifting: (M, N),
+    (B, M, N) as (B, 1, M, N), (1|B, 1|H, M, N), ...; GQA when H != Hkv.
+    ``out``, where given, is the (B, H, M, Dv) tensor written and returned:
+    q's dtype and device, any strides with a unit last one (the nopad route
+    passes a head-major view of its packed output). Which kernel variant
+    runs is ``flash_variant``'s answer.
+
+    On CUDA tensors it launches the kernel on the current stream, or raises;
+    on CPU tensors it computes the plain twin. Every launch adds one to
+    ``flash_attention.launches``. Under ``torch.func.vmap`` the mapped axis
+    folds into B: one launch a call. A call with ``out`` writes it through
+    ``flash_attention_impl`` directly, outside vmap."""
+    if out is not None:
+        return flash_attention_impl(q, k, v, mask, scale, k_transposed, causal, out)
+    return _HeadMajor.apply(q, k, v, mask, scale, k_transposed, causal)
 
 
 # both wrappers launch one of these a call (beside a pre-pass or a split's combine)
 _ENTRY_KERNELS = ("fa_wgmma_kernel", "fa_wgmma_wide_kernel", "fa_tf32_kernel", "fa_fma_kernel", "fa_mma_kernel")
 register("flash_attention_packed", flash_attention_packed, _ENTRY_KERNELS)
 register("flash_attention", flash_attention, _ENTRY_KERNELS)
-# the count stays on the function defined here when something else is bound to the module's name for it
-_flash_attention_counted = flash_attention

@@ -49,7 +49,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from onnxstream_tpu_torch.kernels import hold, register
+from onnxstream_tpu_torch.kernels import KernelFunction, closed_over, count, folded, hold, register, unfolded
 from onnxstream_tpu_torch.kernels.gn_silu import DTYPE_CODE, func, gn_silu_reference, norm_operands, norm_problem
 from onnxstream_tpu_torch.kernels.matmul import split_plan
 
@@ -155,15 +155,11 @@ def gn_silu_conv_reference(x: torch.Tensor, sg: torch.Tensor, sb: torch.Tensor, 
     return out.to(x.dtype)
 
 
-def gn_silu_conv(x: torch.Tensor, sg: torch.Tensor, sb: torch.Tensor, gamma: torch.Tensor,
-                 beta: torch.Tensor, w9: torch.Tensor, bias: Optional[torch.Tensor] = None, *,
-                 groups: int, eps: float) -> torch.Tensor:
-    """x (N, C, H, W), w9 (9, O, C) in x's dtype, bias (O,) or None ->
-    (N, O, H, W) in x's dtype.
-
-    On CUDA tensors it launches the kernel on the current stream, or raises;
-    on CPU tensors it computes the plain twin. Every launch adds one to
-    ``gn_silu_conv.launches``."""
+def gn_silu_conv_impl(x: torch.Tensor, sg: torch.Tensor, sb: torch.Tensor, gamma: torch.Tensor,
+                      beta: torch.Tensor, w9: torch.Tensor, bias: Optional[torch.Tensor] = None, *,
+                      groups: int, eps: float) -> torch.Tensor:
+    """The implementation of ``gn_silu_conv`` (``_GnSiluConv``'s forward) on
+    real tensors."""
     if not x.is_cuda:
         if x.device.type == "cpu":
             return gn_silu_conv_reference(x, sg, sb, gamma, beta, w9, bias, groups, eps)
@@ -201,8 +197,38 @@ def gn_silu_conv(x: torch.Tensor, sg: torch.Tensor, sb: torch.Tensor, gamma: tor
                 bm, splits, None if part is None else part.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"gn_silu_conv: kernel launch failed with CUDA error {rc}")
-    gn_silu_conv.launches += 1
+    count("gn_silu_conv")
     return out
+
+
+class _GnSiluConv(KernelFunction):
+    """``gn_silu_conv`` with a batching rule (``vmap``): the mapped axis
+    folded into N, (V, N, C, H, W) -> (V N, C, H, W): exact, as the
+    statistics are per sample; the workspaces and the slab are sized by the
+    folded N. One launch."""
+
+    @staticmethod
+    def forward(x, sg, sb, gamma, beta, w9, bias, groups, eps):
+        return gn_silu_conv_impl(x, sg, sb, gamma, beta, w9, bias, groups=groups, eps=eps)
+
+    @staticmethod
+    def vmap(info, in_dims, x, sg, sb, gamma, beta, w9, bias, groups, eps):
+        closed_over("gn_silu_conv", in_dims[1:7], ("sg", "sb", "gamma", "beta", "w9", "the bias"))
+        (x,) = folded(info.batch_size, in_dims[:1], x)
+        return unfolded(_GnSiluConv.apply(x, sg, sb, gamma, beta, w9, bias, groups, eps), info.batch_size)
+
+
+def gn_silu_conv(x: torch.Tensor, sg: torch.Tensor, sb: torch.Tensor, gamma: torch.Tensor,
+                 beta: torch.Tensor, w9: torch.Tensor, bias: Optional[torch.Tensor] = None, *,
+                 groups: int, eps: float) -> torch.Tensor:
+    """x (N, C, H, W), w9 (9, O, C) in x's dtype, bias (O,) or None ->
+    (N, O, H, W) in x's dtype.
+
+    On CUDA tensors it launches the kernel on the current stream, or raises;
+    on CPU tensors it computes the plain twin. Every launch adds one to
+    ``gn_silu_conv.launches``. Under ``torch.func.vmap`` the mapped axis
+    folds into N, one launch a call."""
+    return _GnSiluConv.apply(x, sg, sb, gamma, beta, w9, bias, groups, eps)
 
 
 # one conv kernel a launch, after the moments passes (and the channels-last slab)

@@ -39,7 +39,7 @@ from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
-from onnxstream_tpu_torch.kernels import build, register
+from onnxstream_tpu_torch.kernels import KernelFunction, build, closed_over, count, folded, register, unfolded
 
 DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 CLUSTER_MAX = 16           # CTAs of a group at most (above 8 a non-portable cluster size; csrc kGnMaxCluster)
@@ -233,6 +233,35 @@ def launch(x: torch.Tensor, sg: torch.Tensor, sb: torch.Tensor, gamma: torch.Ten
     return out
 
 
+def gn_silu_impl(x: torch.Tensor, sg: torch.Tensor, sb: torch.Tensor, gamma: torch.Tensor,
+                 beta: torch.Tensor, groups: int, eps: float, silu: bool) -> torch.Tensor:
+    """The implementation of ``gn_silu`` (``_GnSilu``'s forward) on real
+    tensors."""
+    if not x.is_cuda:
+        if x.device.type == "cpu":
+            return gn_silu_reference(x, sg, sb, gamma, beta, groups, eps, silu)
+        raise ValueError(f"gn_silu runs on CUDA or CPU tensors, not {x.device}")
+    out = launch(x, sg, sb, gamma, beta, groups, eps, silu)
+    count("gn_silu")
+    return out
+
+
+class _GnSilu(KernelFunction):
+    """``gn_silu`` with a batching rule (``vmap``): the mapped axis folded
+    into N, (V, N, C, ...) -> (V N, C, ...): exact, as the statistics are per
+    sample; one launch."""
+
+    @staticmethod
+    def forward(x, sg, sb, gamma, beta, groups, eps, silu):
+        return gn_silu_impl(x, sg, sb, gamma, beta, groups, eps, silu)
+
+    @staticmethod
+    def vmap(info, in_dims, x, sg, sb, gamma, beta, groups, eps, silu):
+        closed_over("gn_silu", in_dims[1:5], ("sg", "sb", "gamma", "beta"))
+        (x,) = folded(info.batch_size, in_dims[:1], x)
+        return unfolded(_GnSilu.apply(x, sg, sb, gamma, beta, groups, eps, silu), info.batch_size)
+
+
 def gn_silu(x: torch.Tensor, sg: torch.Tensor, sb: torch.Tensor, gamma: torch.Tensor,
             beta: torch.Tensor, groups: int, eps: float, silu: bool) -> torch.Tensor:
     """x (N, C, *spatial), sg / sb (G,), gamma / beta C values -> x's shape and
@@ -240,14 +269,9 @@ def gn_silu(x: torch.Tensor, sg: torch.Tensor, sb: torch.Tensor, gamma: torch.Te
 
     On CUDA tensors it launches the kernel on the current stream under
     ``gn_silu_plan``, or raises; on CPU tensors it computes the plain twin.
-    Every launch adds one to ``gn_silu.launches``."""
-    if not x.is_cuda:
-        if x.device.type == "cpu":
-            return gn_silu_reference(x, sg, sb, gamma, beta, groups, eps, silu)
-        raise ValueError(f"gn_silu runs on CUDA or CPU tensors, not {x.device}")
-    out = launch(x, sg, sb, gamma, beta, groups, eps, silu)
-    gn_silu.launches += 1
-    return out
+    Every launch adds one to ``gn_silu.launches``. Under ``torch.func.vmap``
+    the mapped axis folds into N, one launch a call."""
+    return _GnSilu.apply(x, sg, sb, gamma, beta, groups, eps, silu)
 
 
 register("gn_silu", gn_silu, ("gn_silu_cluster_kernel",))

@@ -42,7 +42,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from onnxstream_tpu_torch.kernels import build, register
+from onnxstream_tpu_torch.kernels import KernelFunction, build, closed_over, count, folded, register, unfolded
 
 _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -137,13 +137,10 @@ def matmul_reference(a: torch.Tensor, b: torch.Tensor, bias: Optional[torch.Tens
     return acc.to(out_dtype or a.dtype)
 
 
-def matmul(a: torch.Tensor, b: torch.Tensor, bias: Optional[torch.Tensor] = None, *,
-           out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """A (M, K) @ B (K, N) + bias (N,) -> (M, N) in ``out_dtype`` (default A's).
-
-    On CUDA tensors it launches the kernel on the current stream, or raises;
-    on CPU tensors it computes the plain twin. Every launch adds one to
-    ``matmul.launches``."""
+def matmul_impl(a: torch.Tensor, b: torch.Tensor, bias: Optional[torch.Tensor] = None, *,
+                out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """The implementation of ``matmul`` (``_Matmul``'s forward) on real
+    tensors."""
     if not a.is_cuda:
         if a.device.type == "cpu":
             return matmul_reference(a, b, bias, out_dtype=out_dtype)
@@ -181,8 +178,34 @@ def matmul(a: torch.Tensor, b: torch.Tensor, bias: Optional[torch.Tensor] = None
                 None if work is None else work.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"matmul: kernel launch failed with CUDA error {rc}")
-    matmul.launches += 1
+    count("matmul")
     return out
+
+
+class _Matmul(KernelFunction):
+    """``matmul`` with a batching rule (``vmap``): the mapped axis folded
+    into M, (V, M, K) -> (V M, K); one launch."""
+
+    @staticmethod
+    def forward(a, b, bias, out_dtype):
+        return matmul_impl(a, b, bias, out_dtype=out_dtype)
+
+    @staticmethod
+    def vmap(info, in_dims, a, b, bias, out_dtype):
+        closed_over("matmul", in_dims[1:3], ("B", "the bias"))
+        (a,) = folded(info.batch_size, in_dims[:1], a)
+        return unfolded(_Matmul.apply(a, b, bias, out_dtype), info.batch_size)
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor, bias: Optional[torch.Tensor] = None, *,
+           out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """A (M, K) @ B (K, N) + bias (N,) -> (M, N) in ``out_dtype`` (default A's).
+
+    On CUDA tensors it launches the kernel on the current stream, or raises;
+    on CPU tensors it computes the plain twin. Every launch adds one to
+    ``matmul.launches``. Under ``torch.func.vmap`` the mapped axis folds
+    into M, one launch a call."""
+    return _Matmul.apply(a, b, bias, out_dtype)
 
 
 register("matmul", matmul, ("mm_wgmma_kernel", "mm_mma_kernel", "mm_fma_kernel"))
@@ -207,13 +230,10 @@ def oihw_to_w9co(w: torch.Tensor) -> torch.Tensor:
     return w.permute(2, 3, 1, 0).reshape(kh * kw * c, o).contiguous()
 
 
-def conv3x3_im2col(x_nhwc: torch.Tensor, w9co: torch.Tensor, bias: Optional[torch.Tensor] = None, *,
-                   out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """3x3 stride-1 pad-1 convolution as im2col + ``matmul``.
-
-    x: (N, H, W, C), w9co: (9 C, O) (``oihw_to_w9co`` of the OIHW weight),
-    bias: (O,) -> (N, H, W, O). The nine shifted windows concatenate along
-    the channel axis, tap-major like the weight's rows."""
+def conv3x3_im2col_impl(x_nhwc: torch.Tensor, w9co: torch.Tensor, bias: Optional[torch.Tensor] = None, *,
+                        out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """The implementation of ``conv3x3_im2col`` (``_Conv3x3Im2col``'s
+    forward) on real tensors."""
     n, h, w, c = x_nhwc.shape
     if w9co.ndim != 2 or w9co.shape[0] != 9 * c:
         raise ValueError(f"conv3x3_im2col: a (9 C, O) weight for C = {c}, got {tuple(w9co.shape)}")
@@ -223,3 +243,31 @@ def conv3x3_im2col(x_nhwc: torch.Tensor, w9co: torch.Tensor, bias: Optional[torc
     a2 = torch.cat(cols, dim=1)  # (M, 9 C)
     y = matmul(a2, w9co.to(a2.dtype), bias, out_dtype=out_dtype or x_nhwc.dtype)
     return y.reshape(n, h, w, o)
+
+
+class _Conv3x3Im2col(KernelFunction):
+    """``conv3x3_im2col`` with a batching rule (``vmap``): the mapped axis
+    folded into N before the im2col, (V, N, H, W, C) -> (V N, H, W, C): one
+    ``matmul`` launch over every example's rows."""
+
+    @staticmethod
+    def forward(x_nhwc, w9co, bias, out_dtype):
+        return conv3x3_im2col_impl(x_nhwc, w9co, bias, out_dtype=out_dtype)
+
+    @staticmethod
+    def vmap(info, in_dims, x_nhwc, w9co, bias, out_dtype):
+        closed_over("conv3x3_im2col", in_dims[1:3], ("the weight", "the bias"))
+        (x_nhwc,) = folded(info.batch_size, in_dims[:1], x_nhwc)
+        return unfolded(_Conv3x3Im2col.apply(x_nhwc, w9co, bias, out_dtype), info.batch_size)
+
+
+def conv3x3_im2col(x_nhwc: torch.Tensor, w9co: torch.Tensor, bias: Optional[torch.Tensor] = None, *,
+                   out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """3x3 stride-1 pad-1 convolution as im2col + ``matmul``.
+
+    x: (N, H, W, C), w9co: (9 C, O) (``oihw_to_w9co`` of the OIHW weight),
+    bias: (O,) -> (N, H, W, O). The nine shifted windows concatenate along
+    the channel axis, tap-major like the weight's rows. Under
+    ``torch.func.vmap`` the mapped axis folds into N before the im2col, one
+    ``matmul`` launch a call."""
+    return _Conv3x3Im2col.apply(x_nhwc, w9co, bias, out_dtype)

@@ -25,7 +25,11 @@ epilogue, so kernel and twin agree bit for bit.
 
 On CUDA tensors ``qconv`` launches the kernel, or raises; on CPU tensors it
 computes the twin. Every launch adds one to ``qconv.launches`` and, as the
-launch is kernel 3's, to ``kernels.qmatmul.qmatmul.launches``.
+launch is kernel 3's, to ``kernels.qmatmul.qmatmul.launches``. Under
+``torch.func.vmap`` its batching rule folds the mapped axis into N (a
+channels-last input stays channels-last): one launch a call. Like
+``qmatmul`` it is a ``torch.autograd.Function`` with a ``vmap`` rule;
+``qconv_impl`` launches.
 """
 
 from __future__ import annotations
@@ -35,7 +39,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from onnxstream_tpu_torch.kernels import register
+from onnxstream_tpu_torch.kernels import KernelFunction, closed_over, count, folded, register, unfolded
 from onnxstream_tpu_torch.kernels.qmatmul import _acc_bias, _check_k, _qepilogue, _qgemm, _scales, qgemm_variant
 
 
@@ -90,17 +94,11 @@ def qconv_reference(x_q: torch.Tensor, w_q: torch.Tensor, a_scale: float, a_zero
     return _qepilogue(acc, alpha, beta, out_scale is not None, out_dtype)
 
 
-def qconv(x_q: torch.Tensor, w_q: torch.Tensor, a_scale: float, a_zero: int, w_scale: float,
-          w_zero: int, bias=None, strides: Sequence[int] = (1, 1), pads: Sequence[int] = (0, 0, 0, 0),
-          dilations: Sequence[int] = (1, 1), out_scale: Optional[float] = None,
-          out_zero: Optional[int] = None, out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """u8 NCHW (B, C, H, W) x u8 OIHW (O, C, kh, kw) -> NCHW (B, O, Ho, Wo),
-    C kh kw at most ``kernels.qmatmul.QGEMM_MAX_K``: float in ``out_dtype``, or requantized
-    uint8 with ``out_scale`` / ``out_zero``. ``bias`` is the model's float (O,) vector.
-
-    On CUDA tensors it launches the kernel on the current stream, or raises;
-    on CPU tensors it computes the plain twin. Every launch adds one to
-    ``qconv.launches`` (and to ``qmatmul.launches``)."""
+def qconv_impl(x_q: torch.Tensor, w_q: torch.Tensor, a_scale: float, a_zero: int, w_scale: float,
+               w_zero: int, bias=None, strides: Sequence[int] = (1, 1), pads: Sequence[int] = (0, 0, 0, 0),
+               dilations: Sequence[int] = (1, 1), out_scale: Optional[float] = None,
+               out_zero: Optional[int] = None, out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``qconv`` on real tensors: the launch."""
     if not x_q.is_cuda:
         if x_q.device.type == "cpu":
             return qconv_reference(x_q, w_q, a_scale, a_zero, w_scale, w_zero, bias, strides, pads,
@@ -122,8 +120,40 @@ def qconv(x_q: torch.Tensor, w_q: torch.Tensor, a_scale: float, a_zero: int, w_s
         # (O, kh kw C) channels-last
         _qgemm(x_q, w_q, _conv_bias(bias, a_scale, w_scale, o, x_q.device), out,
                bsz * ho * wo, c * kh * kw, o, za, zw, alpha, beta, geo)
-        qconv.launches += 1
+        count("qconv")
     return out
+
+
+class _QConv(KernelFunction):
+    """``qconv`` with a batching rule (``vmap``): the mapped axis folded into
+    N, (V, N, C, H, W) -> (V N, C, H, W), a view that keeps a channels-last
+    input channels-last; one launch. No backward."""
+
+    @staticmethod
+    def forward(*args):
+        return qconv_impl(*args)
+
+    @staticmethod
+    def vmap(info, in_dims, x_q, w_q, *rest):
+        closed_over("qconv", (in_dims[1], in_dims[6]), ("the weight", "the bias"))
+        (x_q,) = folded(info.batch_size, in_dims[:1], x_q)
+        return unfolded(_QConv.apply(x_q, w_q, *rest), info.batch_size)
+
+
+def qconv(x_q: torch.Tensor, w_q: torch.Tensor, a_scale: float, a_zero: int, w_scale: float,
+          w_zero: int, bias=None, strides: Sequence[int] = (1, 1), pads: Sequence[int] = (0, 0, 0, 0),
+          dilations: Sequence[int] = (1, 1), out_scale: Optional[float] = None,
+          out_zero: Optional[int] = None, out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """u8 NCHW (B, C, H, W) x u8 OIHW (O, C, kh, kw) -> NCHW (B, O, Ho, Wo),
+    C kh kw at most ``kernels.qmatmul.QGEMM_MAX_K``: float in ``out_dtype``, or requantized
+    uint8 with ``out_scale`` / ``out_zero``. ``bias`` is the model's float (O,) vector.
+
+    On CUDA tensors it launches the kernel on the current stream, or raises;
+    on CPU tensors it computes the plain twin. Every launch adds one to
+    ``qconv.launches`` (and to ``qmatmul.launches``); under
+    ``torch.func.vmap``, one launch a call with the examples in N."""
+    return _QConv.apply(x_q, w_q, a_scale, a_zero, w_scale, w_zero, bias, strides, pads, dilations, out_scale,
+                        out_zero, out_dtype)
 
 
 def _channels_last(t: torch.Tensor) -> bool:

@@ -54,7 +54,12 @@ accumulates in float32 in another order.
 
 On CUDA tensors a wrapper launches its kernel on the current stream or
 raises; on CPU tensors it computes the twin. Every launch adds one to the
-wrapper's ``launches``.
+wrapper's ``launches``. Each wrapper's batching rule moves a
+``torch.func.vmap``'s mapped axis to the front of A's leading axes, whose
+rows the kernel flattens: one launch over the stacked rows (exact, as
+kernel 6 quantizes A per row). Each wrapper is a ``kernels.KernelFunction``
+(a ``torch.autograd.Function``) with a ``vmap`` rule; the ``*_impl``
+functions launch.
 """
 
 from __future__ import annotations
@@ -65,7 +70,7 @@ from typing import Dict, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from onnxstream_tpu_torch.kernels import build, hold, register
+from onnxstream_tpu_torch.kernels import KernelFunction, build, closed_over, count, hold, register
 from onnxstream_tpu_torch.kernels.matmul import SMS, split_plan
 
 _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
@@ -145,7 +150,7 @@ def w8a8_dyn_matmul_reference(a: torch.Tensor, w_s8: torch.Tensor, w_scale: Scal
     a2, k, n = _flatten(a, w_s8, torch.int8, "w8a8_dyn_matmul", weight_nk)
     x = a2.float()
     sa = x.abs().amax(dim=1, keepdim=True).clamp_min(1e-12) * (1.0 / 127.0)
-    aq = torch.round(x / sa).clamp_(-127, 127)
+    aq = torch.round(x / sa).clamp(-127, 127)
     acc = (aq.double() @ (w_s8.t() if weight_nk else w_s8).double()).float()
     out = acc * sa * _per_channel(w_scale, n, a.device)
     return out.to(out_dtype or a.dtype).reshape(*a.shape[:-1], n)
@@ -238,18 +243,9 @@ def dyn_variant(m: int, k: int, n: int, weight_nk: bool = False, w_ptr: int = 0)
     return "gemv" if m <= GEMV_MAX_M else "mma"
 
 
-def w8a8_dyn_matmul(a: torch.Tensor, w_s8: torch.Tensor, w_scale: Scale,
-                    out_dtype: Optional[torch.dtype] = None, weight_nk: bool = False) -> torch.Tensor:
-    """float (..., M, K) x int8 (K, N) -> (..., M, N), per-row dynamic s8
-    activations; ``w_scale`` a number or an (N,) vector. Output in
-    ``out_dtype`` (default A's dtype). With ``weight_nk`` the weight is given
-    K-major as (N, K), the form the executor uploads for the int8 route; it
-    then needs K a multiple of 16 on either device (``dyn_takes_kmajor``),
-    and on the card 16-byte aligned rows (``dyn_variant``).
-
-    On CUDA tensors it launches the kernel on the current stream, or raises;
-    on CPU tensors it computes the plain twin. Every launch adds one to
-    ``w8a8_dyn_matmul.launches``."""
+def w8a8_dyn_matmul_impl(a: torch.Tensor, w_s8: torch.Tensor, w_scale: Scale,
+                         out_dtype: Optional[torch.dtype] = None, weight_nk: bool = False) -> torch.Tensor:
+    """``w8a8_dyn_matmul`` on real tensors: the launch."""
     a2, k, n = _flatten(a, w_s8, torch.int8, "w8a8_dyn_matmul", weight_nk)
     if weight_nk and not dyn_takes_kmajor(k):
         raise ValueError(f"w8a8_dyn_matmul: an (N, K) weight needs K % 16 == 0, got K = {k}")
@@ -292,9 +288,39 @@ def w8a8_dyn_matmul(a: torch.Tensor, w_s8: torch.Tensor, w_scale: Scale,
             raise RuntimeError(f"w8a8_dyn_matmul: kernel launch failed with CUDA error {rc}")
         if variant == "wgmma":
             _QUANTIZED_A[a.device] = (a, a._version, work)
-        w8a8_dyn_matmul.launches += 1
+        count("w8a8_dyn_matmul")
     out = out.reshape(*a.shape[:-1], n)
     return out if out_dtype in (None, a.dtype) else out.to(out_dtype)
+
+
+class _DynMatmul(KernelFunction):
+    """``w8a8_dyn_matmul`` with a batching rule (``vmap``): the mapped axis
+    moves to the front of A, one launch over its rows. No backward."""
+
+    @staticmethod
+    def forward(a, w_s8, w_scale, out_dtype, weight_nk):
+        return w8a8_dyn_matmul_impl(a, w_s8, w_scale, out_dtype, weight_nk)
+
+    @staticmethod
+    def vmap(info, in_dims, a, w_s8, w_scale, out_dtype, weight_nk):
+        closed_over("w8a8_dyn_matmul", in_dims[1:3], ("the weight", "its scale"))
+        return _DynMatmul.apply(a.movedim(in_dims[0], 0), w_s8, w_scale, out_dtype, weight_nk), 0
+
+
+def w8a8_dyn_matmul(a: torch.Tensor, w_s8: torch.Tensor, w_scale: Scale,
+                    out_dtype: Optional[torch.dtype] = None, weight_nk: bool = False) -> torch.Tensor:
+    """float (..., M, K) x int8 (K, N) -> (..., M, N), per-row dynamic s8
+    activations; ``w_scale`` a number or an (N,) vector. Output in
+    ``out_dtype`` (default A's dtype). With ``weight_nk`` the weight is given
+    K-major as (N, K), the form the executor uploads for the int8 route; it
+    then needs K a multiple of 16 on either device (``dyn_takes_kmajor``),
+    and on the card 16-byte aligned rows (``dyn_variant``).
+
+    On CUDA tensors it launches the kernel on the current stream, or raises;
+    on CPU tensors it computes the plain twin. Every launch adds one to
+    ``w8a8_dyn_matmul.launches``; under ``torch.func.vmap``, one launch a
+    call over the examples' rows."""
+    return _DynMatmul.apply(a, w_s8, w_scale, out_dtype, weight_nk)
 
 
 def w8_plan(m: int, k: int, n: int) -> Tuple[int, int, int]:
@@ -318,15 +344,9 @@ def w8_variant(dtype: torch.dtype, m: int, k: int, n: int, a_ptr: int = 0, w_ptr
     return "mma"
 
 
-def w8_matmul(a: torch.Tensor, w_q: torch.Tensor, w_scale: Scale, w_zero: Scale,
-              out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """float (..., M, K) x uint8 (K, N) -> (..., M, N) = ``w_scale * (a @ w -
-    w_zero * rowsum(a))``; scale and zero point numbers or (N,) vectors.
-    Output in ``out_dtype`` (default A's dtype).
-
-    On CUDA tensors it launches the kernel on the current stream, or raises;
-    on CPU tensors it computes the plain twin. Every launch adds one to
-    ``w8_matmul.launches``."""
+def w8_matmul_impl(a: torch.Tensor, w_q: torch.Tensor, w_scale: Scale, w_zero: Scale,
+                   out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``w8_matmul`` on real tensors: the launch."""
     if not a.is_cuda:
         if a.device.type == "cpu":
             return w8_matmul_reference(a, w_q, w_scale, w_zero, out_dtype)
@@ -355,9 +375,36 @@ def w8_matmul(a: torch.Tensor, w_q: torch.Tensor, w_scale: Scale, w_zero: Scale,
                     None if work is None else work.data_ptr(), stream)
         if rc != 0:
             raise RuntimeError(f"w8_matmul: kernel launch failed with CUDA error {rc}")
-        w8_matmul.launches += 1
+        count("w8_matmul")
     out = out.reshape(*a.shape[:-1], n)
     return out if out_dtype in (None, a.dtype) else out.to(out_dtype)
+
+
+class _W8Matmul(KernelFunction):
+    """``w8_matmul`` with a batching rule (``vmap``): the mapped axis moves
+    to the front of A, one launch over its rows. No backward."""
+
+    @staticmethod
+    def forward(a, w_q, w_scale, w_zero, out_dtype):
+        return w8_matmul_impl(a, w_q, w_scale, w_zero, out_dtype)
+
+    @staticmethod
+    def vmap(info, in_dims, a, w_q, w_scale, w_zero, out_dtype):
+        closed_over("w8_matmul", in_dims[1:4], ("the weight", "its scale", "its zero point"))
+        return _W8Matmul.apply(a.movedim(in_dims[0], 0), w_q, w_scale, w_zero, out_dtype), 0
+
+
+def w8_matmul(a: torch.Tensor, w_q: torch.Tensor, w_scale: Scale, w_zero: Scale,
+              out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """float (..., M, K) x uint8 (K, N) -> (..., M, N) = ``w_scale * (a @ w -
+    w_zero * rowsum(a))``; scale and zero point numbers or (N,) vectors.
+    Output in ``out_dtype`` (default A's dtype).
+
+    On CUDA tensors it launches the kernel on the current stream, or raises;
+    on CPU tensors it computes the plain twin. Every launch adds one to
+    ``w8_matmul.launches``; under ``torch.func.vmap``, one launch a call
+    over the examples' rows."""
+    return _W8Matmul.apply(a, w_q, w_scale, w_zero, out_dtype)
 
 
 # the product kernel of a launch (beside the rows' quantization and a split-K reduction)
@@ -384,13 +431,17 @@ def quantize_activation(x: torch.Tensor, scale: float, zero: int, channels_last:
     (B, C, H, W) input comes out in ``torch.channels_last`` (the shape and
     the values unchanged), the layout of kernel 4's wgmma variant, laid out
     by the same conversion."""
-    fmt = torch.channels_last if channels_last else torch.contiguous_format
     s = torch.full((), float(scale), dtype=torch.float32, device=x.device)
-    # one pass for a 16-bit input; .to returns a float32 input as it is,
-    # whatever its strides, so .contiguous() lays that one out
-    xf = x.to(torch.float32, memory_format=fmt).contiguous(memory_format=fmt)
+    # channels-last as a permuted contiguous (B, H, W, C), which an example
+    # under vmap keeps too; one pass for a 16-bit input; .to returns a
+    # float32 input as it is, whatever its strides, so .contiguous() lays
+    # that one out
+    xf = x.permute(0, 2, 3, 1) if channels_last else x
+    xf = xf.to(torch.float32, memory_format=torch.contiguous_format).contiguous()
+    if channels_last:
+        xf = xf.permute(0, 3, 1, 2)
     q = torch.round(xf / s).add_(float(zero))
-    return q.clamp_(0, 255).to(torch.uint8)
+    return q.clamp(0, 255).to(torch.uint8)
 
 
 def _zero_point(z, what: str) -> int:
@@ -448,7 +499,7 @@ def _qepilogue(acc: torch.Tensor, alpha: float, beta: float, out_u8: bool,
     to even and clip for a uint8 output)."""
     y = acc.float() * alpha
     if out_u8:
-        return torch.round(y + beta).clamp_(0, 255).to(torch.uint8)
+        return torch.round(y + beta).clamp(0, 255).to(torch.uint8)
     return y.to(out_dtype)
 
 
@@ -542,27 +593,13 @@ def _qgemm(a: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor], out: 
                 None if geo is None else ctypes.addressof(geo), int(weight_nk), za16, stream)
     if rc != 0:
         raise RuntimeError(f"qmatmul: kernel launch failed with CUDA error {rc}")
-    qmatmul.launches += 1
+    count("qmatmul")
 
 
-def qmatmul(a_q: torch.Tensor, w_q: torch.Tensor, a_scale: float, a_zero: int, w_scale: float,
-            w_zero: int, out_scale: Optional[float] = None, out_zero: Optional[int] = None, bias=None,
-            out_dtype: torch.dtype = torch.float32, weight_nk: bool = False) -> torch.Tensor:
-    """Calibrated W8A8: uint8 (..., M, K) x uint8 (K, N) -> (..., M, N), K
-    at most ``QGEMM_MAX_K``. With ``weight_nk`` the weight is given K-major
-    as (N, K), the form the executor uploads for calibrated MatMuls
-    (``WEIGHT_TRANSFORMS["tnk"]``), and runs on the wgmma pipeline; it then
-    needs K a multiple of 16 on either device (``qgemm_takes_kmajor``), and
-    on the card 16-byte aligned rows (``qgemm_variant``).
-    Scales and zero points are per tensor (numbers). ``bias`` is an (N,)
-    vector in accumulator units (``b / (a_scale * w_scale)``), truncated
-    toward zero to int32 as ``qconv`` passes it. With ``out_scale``/
-    ``out_zero`` the output is requantized uint8, else float in
-    ``out_dtype``.
-
-    On CUDA tensors it launches the kernel on the current stream, or raises;
-    on CPU tensors it computes the plain twin. Every launch adds one to
-    ``qmatmul.launches``."""
+def qmatmul_impl(a_q: torch.Tensor, w_q: torch.Tensor, a_scale: float, a_zero: int, w_scale: float,
+                 w_zero: int, out_scale: Optional[float] = None, out_zero: Optional[int] = None, bias=None,
+                 out_dtype: torch.dtype = torch.float32, weight_nk: bool = False) -> torch.Tensor:
+    """``qmatmul`` on real tensors: the launch."""
     k, n, za, zw, alpha, beta = _qparams(a_q, w_q, a_scale, a_zero, w_scale, w_zero, out_scale, out_zero,
                                          weight_nk)
     if weight_nk and not qgemm_takes_kmajor(k):
@@ -584,6 +621,43 @@ def qmatmul(a_q: torch.Tensor, w_q: torch.Tensor, a_scale: float, a_zero: int, w
         _qgemm(a2, w2, _acc_bias(bias, n, a_q.device), out, m, k, n, za, zw, alpha, beta,
                weight_nk=weight_nk)
     return out.reshape(*a_q.shape[:-1], n)
+
+
+class _QMatmul(KernelFunction):
+    """``qmatmul`` with a batching rule (``vmap``): the mapped axis moves to
+    the front of A, one launch over its rows. No backward."""
+
+    @staticmethod
+    def forward(*args):
+        return qmatmul_impl(*args)
+
+    @staticmethod
+    def vmap(info, in_dims, a_q, w_q, *rest):
+        closed_over("qmatmul", (in_dims[1], in_dims[8]), ("the weight", "the bias"))
+        return _QMatmul.apply(a_q.movedim(in_dims[0], 0), w_q, *rest), 0
+
+
+def qmatmul(a_q: torch.Tensor, w_q: torch.Tensor, a_scale: float, a_zero: int, w_scale: float,
+            w_zero: int, out_scale: Optional[float] = None, out_zero: Optional[int] = None, bias=None,
+            out_dtype: torch.dtype = torch.float32, weight_nk: bool = False) -> torch.Tensor:
+    """Calibrated W8A8: uint8 (..., M, K) x uint8 (K, N) -> (..., M, N), K
+    at most ``QGEMM_MAX_K``. With ``weight_nk`` the weight is given K-major
+    as (N, K), the form the executor uploads for calibrated MatMuls
+    (``WEIGHT_TRANSFORMS["tnk"]``), and runs on the wgmma pipeline; it then
+    needs K a multiple of 16 on either device (``qgemm_takes_kmajor``), and
+    on the card 16-byte aligned rows (``qgemm_variant``).
+    Scales and zero points are per tensor (numbers). ``bias`` is an (N,)
+    vector in accumulator units (``b / (a_scale * w_scale)``), truncated
+    toward zero to int32 as ``qconv`` passes it. With ``out_scale``/
+    ``out_zero`` the output is requantized uint8, else float in
+    ``out_dtype``.
+
+    On CUDA tensors it launches the kernel on the current stream, or raises;
+    on CPU tensors it computes the plain twin. Every launch adds one to
+    ``qmatmul.launches``; under ``torch.func.vmap``, one launch a call over
+    the examples' rows."""
+    return _QMatmul.apply(a_q, w_q, a_scale, a_zero, w_scale, w_zero, out_scale, out_zero, bias, out_dtype,
+                          weight_nk)
 
 
 register("qmatmul", qmatmul, ("qgemm_kernel", "qgemm_wgmma_kernel"))

@@ -204,19 +204,24 @@ class DeviceProgram:
         return f"outside {self.segment}'s ops" if site is None else f"in {self.segment} {site}"
 
 
-def _segment_caller(ex: Executor) -> Tuple[Callable[[Dict[str, torch.Tensor]], torch.Tensor], tuple]:
+def _segment_caller(ex: Executor, in_dims: Optional[Dict[str, int]] = None
+                    ) -> Tuple[Callable[[Dict[str, torch.Tensor]], torch.Tensor], tuple]:
     """``acts -> the first 4-D output as float32``, through
     ``ex.segment_fn(0)`` over the executor's resident weights (uploaded
     here, on the first call): what ``Session.run(device_outputs=True)``
     computes for an executor without a ``segment_fn_problem``; and what a
-    graph of it reads (the weights, their quantization vectors)."""
-    fn = ex.segment_fn(0)
+    graph of it reads (the weights, their quantization vectors). With
+    ``in_dims`` the segment function is vmapped over those inputs
+    (``ex.vmap_segment_fn``, JAX's ``jax.vmap``): the examples' outputs come
+    stacked, (V, 1, C, H, W)."""
+    fn = ex.segment_fn(0) if in_dims is None else ex.vmap_segment_fn(in_dims)
+    rank = 4 if in_dims is None else 5
     seg = ex.segments[0]
     resident = ex._fetch_segment_weights(seg, 0)
     weights = [resident[w.name] for w in seg.weight_args]
 
     def call(acts: Dict[str, torch.Tensor]) -> torch.Tensor:
-        return _first4d(fn(weights, acts)).float()
+        return next(v for v in fn(weights, acts).values() if v.ndim == rank).float()
 
     return call, (weights, [w.quant for w in seg.weight_args])
 
@@ -597,12 +602,17 @@ class StableDiffusionPipeline:
         scalars and noise read from the per-step stack (``step_stack``, made
         on the host first and copied in once) at a device step counter, so no
         step waits for the host. A batch-2 UNet takes the CFG pair as one run,
-        row 0 cond and row 1 uncond; a batch-1 UNet runs twice (the
-        per-sample meaning of JAX's vmap); Turbo runs the cond branch alone.
-        On a card the step is captured into one CUDA graph and replayed once
-        a step (``loop_capture_problem``: where not); its programs are cached
-        under JAX's key, the UNet executor and the pair. The latents come back
-        to the host once, after the last step."""
+        row 0 cond and row 1 uncond; a batch-1 UNet runs once over the pair
+        as JAX's does, its segment function vmapped over the stacked contexts
+        (and SDXL's pooled embeds) with the latents, the timestep and the
+        time ids closed over (``Executor.vmap_segment_fn``); Turbo runs the
+        cond branch alone. Where the segment function cannot stand for
+        ``Session.run`` (``segment_fn_problem``: streamed, a mesh, stages,
+        the per-op interpreter) a batch-1 UNet runs twice a step. On a card
+        the step is captured into one CUDA graph and replayed once a step
+        (``loop_capture_problem``: where not); its programs are cached under
+        JAX's key, the UNet executor and the form. The latents come back to
+        the host once, after the last step."""
         if sampler not in ("euler", "euler_a"):
             raise ValueError(f"generate_on_device supports euler/euler_a, not {sampler!r}")
         cond, uncond, both = self._branches(prompt, neg_prompt)
@@ -644,9 +654,11 @@ class StableDiffusionPipeline:
         """The cached device programs by key: JAX's ``("gen", steps,
         no_uncond, cfg_scale)`` and ``(id(session), tile, stride, ramp, lh,
         lw)`` (the latter after ``"tile"``), each followed by the executor's
-        identity (and for the step, whether the UNet takes the CFG pair as
-        one run) and whether the body calls its segment function
-        (``segment_fn_problem`` None) or ``Session.run``."""
+        identity (and for the step, its form: ``"pair"``, a batch-2 UNet
+        over the CFG pair; ``"vmap"``, a batch-1 UNet vmapped over it;
+        ``"two runs"``; ``"cond"``) and whether the body calls its segment
+        function (``segment_fn_problem`` None; the tile grid's then vmapped
+        over the tiles) or ``Session.run``."""
         if self._programs is None:
             self._programs = {}
         return self._programs
@@ -701,12 +713,13 @@ class StableDiffusionPipeline:
         rows = 2 if pair else 1
         ex = self._loop_executor(rows)
         direct = segment_fn_problem(ex) is None
-        key = ("gen", steps, not has_uncond, cfg, id(ex), pair, direct)
-        return self._program(key, lambda: self._make_step_program(ex, steps, cfg, has_uncond, pair, direct))
+        form = "pair" if pair else "cond" if not has_uncond else "vmap" if direct else "two runs"
+        key = ("gen", steps, not has_uncond, cfg, id(ex), form, direct)
+        return self._program(key, lambda: self._make_step_program(ex, steps, cfg, form, direct))
 
-    def _make_step_program(self, ex: Executor, steps: int, cfg: float, has_uncond: bool, pair: bool,
-                           direct: bool) -> DeviceProgram:
+    def _make_step_program(self, ex: Executor, steps: int, cfg: float, form: str, direct: bool) -> DeviceProgram:
         names = self._unet_input_names()
+        pair = form == "pair"
         rows = 2 if pair else 1
         dev = self.device
         f32 = lambda *shape: torch.zeros(shape, dtype=torch.float32, device=dev)
@@ -714,27 +727,32 @@ class StableDiffusionPipeline:
              "counter": torch.zeros(1, dtype=torch.int64, device=dev)}
         for k in ("ts", "c_in", "c_out", "slope", "up"):
             b[k] = f32(steps)
-        branches = ("c", "u") if has_uncond and not pair else ("c",)
+        branches = ("c", "u") if form in ("vmap", "two runs") else ("c",)
         for k in branches:
             b["ctx_" + k] = f32(rows, self._clip_seq, self.context_dim)
             if "text_embeds" in names and self.xl:
                 b["pool_" + k] = f32(rows, self._pooled_dim())
         if "time_ids" in names:
             b["time_ids"] = torch.as_tensor(np.tile(SDXL_TIME_IDS, (rows, 1))).to(dev)
-        call, holds = _segment_caller(ex) if direct else (None, ())
+        ctx_name, pool_name = names["context"], names["text_embeds"] if "pool_c" in b else None
+        mapped = {ctx_name: 0, **({pool_name: 0} if pool_name else {})}
+        call, holds = _segment_caller(ex, mapped if form == "vmap" else None) if direct else (None, ())
 
-        def eps(sample: torch.Tensor, t: torch.Tensor, k: str) -> torch.Tensor:
-            ctx, pooled = b["ctx_" + k], b.get("pool_" + k)
+        def eps(sample: torch.Tensor, t: torch.Tensor, ctx: torch.Tensor,
+                pooled: Optional[torch.Tensor]) -> torch.Tensor:
             if call is None:  # streamed, a mesh, stages, the per-op interpreter: Session.run
                 self._feed(names, sample, t, ctx if pooled is None else {"context": ctx, "pooled": pooled},
                            b.get("time_ids"))
                 return _run_device(self.unet, dev)
-            acts = {names["sample"]: sample, names["timestep"]: t, names["context"]: ctx}
+            acts = {names["sample"]: sample, names["timestep"]: t, ctx_name: ctx}
             if "time_ids" in names:
                 acts[names["time_ids"]] = b["time_ids"]
             if pooled is not None:
-                acts[names["text_embeds"]] = pooled
+                acts[pool_name] = pooled
             return call(acts)
+
+        def branch(k: str, sample: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+            return eps(sample, t, b["ctx_" + k], b.get("pool_" + k))
 
         def step() -> torch.Tensor:
             i, x = b["counter"], b["x"]
@@ -742,20 +760,25 @@ class StableDiffusionPipeline:
             # float32 input: the executor casts it to the compute dtype at entry
             x_in = (x * c_in)[None]
             if pair:
-                den2 = eps(x_in.repeat(2, 1, 1, 1), t, "c") * c_out + x
+                den2 = branch("c", x_in.repeat(2, 1, 1, 1), t) * c_out + x
                 den = den2[1] + cfg * (den2[0] - den2[1])
-            elif not has_uncond:
-                den = eps(x_in, t, "c")[0] * c_out + x
+            elif form == "cond":
+                den = branch("c", x_in, t)[0] * c_out + x
             else:
-                den_c = eps(x_in, t, "c")[0] * c_out + x
-                den_u = eps(x_in, t, "u")[0] * c_out + x
-                den = den_u + cfg * (den_c - den_u)
+                if form == "vmap":  # one UNet call over the stacked pair (JAX: jax.vmap over ctxs, pools)
+                    pools = torch.stack([b["pool_c"], b["pool_u"]]) if pool_name else None
+                    eps_c, eps_u = eps(x_in, t, torch.stack([b["ctx_c"], b["ctx_u"]]), pools)[:, 0]
+                else:
+                    eps_c, eps_u = branch("c", x_in, t)[0], branch("u", x_in, t)[0]
+                den_u = eps_u * c_out + x
+                den = den_u + cfg * ((eps_c * c_out + x) - den_u)
             x.copy_(x + (x - den) * slope + b["noise"].index_select(0, i)[0] * up)
             i.add_(1)
             return x
 
-        form = "batch-2 UNet, the CFG pair" if pair else ("batch-1 UNet, two runs" if has_uncond else "cond only")
-        return DeviceProgram(f"the SD step ({steps} steps, {form}, cfg {cfg:g})", "the UNet", self.unet, ex, step, b,
+        what = {"pair": "batch-2 UNet, the CFG pair", "vmap": "batch-1 UNet vmapped over the CFG pair",
+                "two runs": "batch-1 UNet, two runs", "cond": "cond only"}[form]
+        return DeviceProgram(f"the SD step ({steps} steps, {what}, cfg {cfg:g})", "the UNet", self.unet, ex, step, b,
                              holds)
 
     # -------------------------------------------------------- batched generate
@@ -953,7 +976,8 @@ class StableDiffusionPipeline:
         mapping, both fresh tensors. Where the tile decoder has no
         ``segment_fn_problem``, the whole grid is one ``DeviceProgram`` (JAX
         jits it as one program): the tiles static slices of a latent buffer,
-        each through the decoder's segment function, the blend factors device
+        stacked and decoded by one call of the decoder's segment function
+        vmapped over them (JAX's ``jax.vmap``), the blend factors device
         constants, the blend and the uint8 mapping inside; on a card its
         second run captures it into one CUDA graph. Elsewhere (streamed, a
         mesh, stages, the per-op interpreter: JAX's segmented decoder) a tile
@@ -983,7 +1007,7 @@ class StableDiffusionPipeline:
             t = 0
             for sy in ys:
                 for sx in xs:
-                    img = decoded(sy, sx)
+                    img = decoded(t, sy, sx)
                     dy, dx = sy * scale, sx * scale
                     f = factors_t[t]
                     region = res[:, dy:dy + th, dx:dx + tw]
@@ -992,7 +1016,7 @@ class StableDiffusionPipeline:
             return res
 
         if not direct:
-            def run_tile(sy: int, sx: int) -> torch.Tensor:
+            def run_tile(t: int, sy: int, sx: int) -> torch.Tensor:
                 sess.clear_tensors()
                 sess.add_tensor(name, z[None, :, sy:sy + tile, sx:sx + tile].contiguous())
                 return _run_device(sess, z.device)[0]
@@ -1001,15 +1025,18 @@ class StableDiffusionPipeline:
             return res, _to_uint8(res)
 
         def make() -> DeviceProgram:
-            call, holds = _segment_caller(ex)
+            call, holds = _segment_caller(ex, {name: 0})
             b = {"z": torch.zeros((4, lh, lw), dtype=torch.float32, device=z.device), "factors": factors()}
-            decoded = lambda sy, sx: call({name: b["z"][None, :, sy:sy + tile, sx:sx + tile].contiguous()})[0]
 
             def grid() -> Tuple[torch.Tensor, torch.Tensor]:
-                res = blend(decoded, b["factors"])
+                # the tiles stacked, (T, 1, 4, tile, tile), through one vmapped decoder call (JAX: jax.vmap)
+                tiles = torch.stack([b["z"][None, :, sy:sy + tile, sx:sx + tile] for sy in ys for sx in xs])
+                imgs = call({name: tiles})[:, 0]
+                res = blend(lambda t, sy, sx: imgs[t], b["factors"])
                 return res, _to_uint8(res)
 
-            what = f"the tiled decode ({len(ys)} x {len(xs)} tiles of {tile} x {tile}, stride {stride}, ramp {ramp})"
+            what = (f"the tiled decode ({len(ys)} x {len(xs)} tiles of {tile} x {tile}, stride {stride}, ramp {ramp}, "
+                    f"one vmapped decoder call)")
             return DeviceProgram(what, "the tile decoder", sess, ex, grid, b, holds)
 
         prog = self._program(("tile", id(sess), tile, stride, ramp, lh, lw, id(ex), direct), make)

@@ -596,7 +596,10 @@ def memory_analysis(g: CapturedGraph) -> Dict[str, Any]:
     program's buffers): the bytes of its memory pool (``pool_bytes``, the
     allocator's segments of that pool; a pool that graphs share counts
     everything in it), of its static inputs, its outputs and the kernel
-    workspaces it holds, and the capture's seconds."""
+    workspaces it holds, and the capture's seconds. The bytes are the
+    allocator's, so a program that calls a vmapped segment function
+    (``Executor.vmap_segment_fn``) shows its activations at the mapped
+    size."""
     return {**g.memory, "capture_seconds": g.seconds}
 
 
@@ -1129,7 +1132,7 @@ class Executor:
                 # a tensor divisor keeps the division IEEE on the card
                 s = scale if isinstance(scale, torch.Tensor) else torch.full(
                     (), scale, dtype=torch.float32, device=o.device)
-                q = (torch.round(o.float() / s) + zero).clamp_(0, 255).to(torch.uint8)
+                q = (torch.round(o.float() / s) + zero).clamp(0, 255).to(torch.uint8)
                 o = ((q.float() - zero) * s).to(o.dtype)
             res.append(o)
         return res
@@ -1241,6 +1244,49 @@ class Executor:
             return {**{name: out[f] for name, f in fetched.items()}, **{n: out[n] for n in also}}
 
         return fn
+
+    def vmap_segment_fn(self, in_dims: Dict[str, int], si: int = 0, also: Sequence[str] = ()):
+        """``segment_fn(si)`` under ``torch.func.vmap``, the counterpart of
+        ``jax.vmap`` over JAX's ``_segment_fn``: ``fn(weights, acts) ->
+        {output: tensor}``, each output stacked along dim 0. ``in_dims``
+        maps the mapped inputs to their mapped dim; every other input is
+        closed over (the same for each example), as the weights always are.
+        An example is what ``segment_fn`` takes. The ops' batching rules run,
+        the kernel wrappers' among them (the mapped axis folded into the
+        kernel's batch: one launch a site); functorch's per-example fallback
+        is an error for the call's duration (``kernels.no_vmap_fallback``),
+        so an op without a rule raises and names itself, and nothing loops
+        per example. Under ``use_uint8_qdq`` a range taken from the data is
+        each example's own, as under JAX's vmap. ``hbm_accounting(mapped=,
+        size=)`` estimates such a call's device memory."""
+        fn = self.segment_fn(si, also)
+        names = tuple(n for n, d in in_dims.items() if d is not None)
+        inputs = self.plan.input_avals if si == 0 else self.segments[si].in_names
+        unknown = [n for n in names if n not in inputs]
+        if unknown or not names:
+            raise ValueError(f"vmap_segment_fn: segment {si} maps inputs of its own, got {unknown or 'none'}")
+        dims = tuple(in_dims[n] for n in names)
+
+        def vfn(weights: Sequence[torch.Tensor], acts: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+            fixed = {n: v for n, v in acts.items() if n not in names}
+
+            def example(*mapped):
+                return fn(weights, {**fixed, **dict(zip(names, mapped))})
+
+            mapped = [to_torch(acts[n]) for n in names]
+            with kernels.no_vmap_fallback():
+                return torch.func.vmap(example, in_dims=dims)(*mapped)
+
+        return vfn
+
+    def _mapped_names(self, inputs: Sequence[str]) -> set:
+        """The tensors that depend on the given inputs: each op's outputs
+        where one of its activation inputs does."""
+        mapped = set(inputs)
+        for op in self.graph.ops:
+            if any(t.name in mapped for t in op.inputs if t.name and not t.is_weight):
+                mapped.update(t.name for t in op.outputs if t.name)
+        return mapped
 
     # ------------------------------------------------------------------ runs
     def _prepare_inputs(self, inputs: Dict[str, Any]) -> Dict[str, torch.Tensor]:
@@ -1499,18 +1545,21 @@ class Executor:
                 self._copy_stream.synchronize()
             raise
 
-    def _activation_peaks(self) -> List[int]:
+    def _activation_peaks(self, mapped: Sequence[str] = (), size: int = 1) -> List[int]:
         """Per segment, the most bytes of activations alive at once while
         it runs, from the plan's shapes and dtypes: the graph inputs, the
         boundary activations held for later segments, and the segment's own
         intermediates from their op until their last reader (both an op's
         inputs and its outputs count at that op). Scratch inside an op is
-        not counted."""
+        not counted. A tensor that depends on one of the ``mapped`` inputs
+        counts ``size`` times (a call of ``vmap_segment_fn`` over them)."""
         avals, ins = self.plan.avals, self.plan.input_avals
+        mapped = self._mapped_names(mapped)
 
         def nbytes(name: str) -> int:
             a = avals.get(name) or ins.get(name)
-            return math.prod(a.shape) * a.dtype.itemsize if a is not None else 0
+            n = math.prod(a.shape) * a.dtype.itemsize if a is not None else 0
+            return n * size if name in mapped else n
 
         held = {n: nbytes(n) for n in ins}  # graph inputs and boundary results
         peaks = []
@@ -1550,7 +1599,7 @@ class Executor:
             peaks.append(peak)
         return peaks
 
-    def hbm_accounting(self) -> Dict[str, Any]:
+    def hbm_accounting(self, mapped: Sequence[str] = (), size: int = 1) -> Dict[str, Any]:
         """Device-memory estimate of a run (JAX ``Executor.hbm_accounting``):
         per segment its weight bytes and its activation peak
         (``_activation_peaks``, plus the transient copies of ``_cast_peaks``);
@@ -1561,9 +1610,11 @@ class Executor:
         largest of them converted on the card (alive until its conversion).
         Under a mesh every byte is this rank's: its slices of the sharded
         weights and its blocks of the activations (the plan's local
-        shapes), so the streamed bound is per rank."""
+        shapes), so the streamed bound is per rank. With ``mapped`` and
+        ``size``: a call of ``vmap_segment_fn`` over those inputs at that map
+        size, its activations that depend on them counted ``size`` times."""
         wb = [seg.weight_bytes for seg in self.segments]
-        act = [a + c for a, c in zip(self._activation_peaks(), self._cast_peaks())]
+        act = [a + c for a, c in zip(self._activation_peaks(mapped, size), self._cast_peaks())]
         conv = [max((_file_bytes(w) for w in seg.weight_args if self._synth_kind(w) is None
                      and self._crosses_as_file_bytes(w) and w.file_dtype.torch != w.upload_dtype), default=0)
                 for seg in self.segments]

@@ -17,13 +17,38 @@ Reproduces the reference's quantization math exactly:
     line (read_range_data/write_range_data, src/onnxstream.cpp:3436-3479);
   * the QDQ skip rule — which activations QDQ leaves alone
     (src/onnxstream.cpp:3009-3020).
+
+The per-channel forms quantize each column on its own, so a large weight is
+cut into column blocks quantized on the host's cores at once
+(``_by_columns``): the same bits as one pass.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import os
+from concurrent.futures import ThreadPoolExecutor
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
+
+PARALLEL_MIN_ELEMENTS = 1 << 20  # a per-channel weight this large is quantized in column blocks
+_POOL: Optional[ThreadPoolExecutor] = None
+
+
+def _by_columns(fn: Callable[[np.ndarray], tuple], a: np.ndarray) -> tuple:
+    """``fn`` of a 2-D weight whose outputs are per column ((K, N) arrays
+    and (N,) vectors), computed over blocks of its columns on the host's
+    cores (numpy releases the GIL in its loops) and joined: the same bits as
+    ``fn(a)``."""
+    global _POOL
+    workers = os.cpu_count() or 1
+    if a.size < PARALLEL_MIN_ELEMENTS or workers == 1:
+        return fn(a)
+    if _POOL is None:
+        _POOL = ThreadPoolExecutor(workers, thread_name_prefix="quantize")
+    step = -(-a.shape[1] // workers)
+    parts = list(_POOL.map(lambda j: fn(a[:, j:j + step]), range(0, a.shape[1], step)))
+    return tuple(np.concatenate([p[i] for p in parts], axis=-1) for i in range(len(parts[0])))
 
 
 def get_percentiles(arr: np.ndarray, from_left: float = 0.001, from_right: float = 0.001) -> Tuple[float, float]:
@@ -98,6 +123,10 @@ def quantize_weight_percentile_per_channel(
     if axis in (0, -2):
         qt, s, z = quantize_weight_percentile_per_channel(a.T, axis=-1)
         return qt.T, s, z
+    return _by_columns(_percentile_columns, a)
+
+
+def _percentile_columns(a: np.ndarray) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     k, n = a.shape
     # vectorized per-column percentiles (same index convention as
     # get_percentiles; weights are finite so the finite filter is skipped)
@@ -141,6 +170,10 @@ def quantize_weight_symmetric_per_channel(
     if axis in (0, -2):
         qt, s = quantize_weight_symmetric_per_channel(a.T, axis=-1)
         return qt.T, s
+    return _by_columns(_symmetric_columns, a)
+
+
+def _symmetric_columns(a: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     k, n = a.shape
     k_hi = max(k - 1 - int(k * 0.001), 0)
     amax = np.partition(np.abs(a), k_hi, axis=0)[k_hi]

@@ -226,11 +226,14 @@ def test_the_counters_are_the_wrappers_registered_at_import(monkeypatch):
     registry = kernels.counted()
     assert set(registry) == {"flash_attention_packed", "flash_attention", "w8a8_dyn_matmul", "w8_matmul", "qmatmul",
                              "qconv", "gn_silu", "gn_silu_conv", "matmul"}
-    wrapper = matmul.matmul
+    wrappers = matmul.matmul, flash_attention.flash_attention
     monkeypatch.setattr(matmul, "matmul", lambda *a, **k: None)
     monkeypatch.setattr(flash_attention, "flash_attention", lambda *a, **k: None)
-    assert kernels.counted()["matmul"] is wrapper
-    assert kernels.counted()["flash_attention"] is flash_attention._flash_attention_counted
+    assert (kernels.counted()["matmul"], kernels.counted()["flash_attention"]) == wrappers
+    before = kernels.launch_counts()["flash_attention"]
+    kernels.count("flash_attention")  # a launch counts on the registered wrapper, not on the name's new value
+    assert kernels.launch_counts()["flash_attention"] == before + 1
+    kernels.counted()["flash_attention"].launches -= 1
 
 
 # (a graph node's mangled name, the profiler's demangled one, the function's name)

@@ -17,10 +17,13 @@ loop's latents and tiled image equal the same program run op by op
 (``pipeline.eager()``) bit for bit, for the TINY SD1.5 (batch-1 and batch-2
 UNet), SDXL and Turbo families with euler and euler_a at a 64 x 64 latent
 (where kernel 1 runs), three calls under one key make one capture, a step's
-kernel-1 launches are read from the graph's nodes, the tile graph equals the
-per-tile loop of Session.run, a streamed UNet names its reason and gives the
-resident loop's latents, and an op that waits for the card makes the step's
-capture raise, naming it.
+kernel-1 launches are read from the graph's nodes, the tile graph with its
+decoder called once a tile equals the per-tile loop of Session.run, a
+streamed UNet names its reason and gives the resident loop's latents in the
+same form (two runs a step), and an op that waits for the card makes the
+step's capture raise, naming it. In float32 the vmapped tile decoder equals
+per-tile calls within 1e-5, and the loop vmapped over the CFG pair lies
+within PAIR_BAR of two runs a step, where swapped branches do not.
 
 This module imports neither JAX nor the JAX package, so it runs where only
 PyTorch and a card are (``python -m pytest --noconftest -m gpu``). Every test
@@ -312,12 +315,13 @@ SD_FAMILIES = {"sd15": {}, "sd15_batch2": {"batch": 2}, "sdxl": {"xl": True},
 FLASH_FAMILY = "flash_attention_packed+flash_attention"  # kernels 1 and 2 launch the same functions
 
 
-def _sd_pipe(monkeypatch, dev, **kw) -> StableDiffusionPipeline:
-    """A TINY pipeline in bf16 with its UNet at a 64 x 64 latent (kernel 1
-    at the 4096-token sites), the VAE at 64 and its 32 x 32 tile decoder."""
+def _sd_pipe(monkeypatch, dev, dtype: str = "bfloat16", **kw) -> StableDiffusionPipeline:
+    """A TINY pipeline (bf16 unless ``dtype``) with its UNet at a 64 x 64
+    latent (kernel 1 at the 4096-token sites), the VAE at 64 and its
+    32 x 32 tile decoder."""
     monkeypatch.setattr(unet_module, "TINY", UNET_64)
     monkeypatch.setattr(unet_module, "TINY_XL", dataclasses.replace(TINY_XL, sample_size=64))
-    return StableDiffusionPipeline.from_synthetic(tiny=True, device=dev, compute_dtype="bfloat16", **kw)
+    return StableDiffusionPipeline.from_synthetic(tiny=True, device=dev, compute_dtype=dtype, **kw)
 
 
 def _program(pipe, kind: str):
@@ -338,7 +342,9 @@ def test_sd_loop_replays_equal_the_eager_loop(monkeypatch, family, sampler):
     """Three calls under one key: step 0 of the first runs op by op, step 1
     captures the step, every later step replays it; each call's latents
     equal the loop run op by op, bit for bit, with as many kernel-1 launches
-    as a step's graph holds nodes of it."""
+    as a step's graph holds nodes of it. A batch-1 UNet with an uncond
+    branch runs vmapped over the CFG pair: one UNet call a step, as a
+    batch-2 UNet's and Turbo's."""
     dev = _card()
     pipe = _sd_pipe(monkeypatch, dev, **SD_FAMILIES[family])
     assert pipe.loop_capture_problem() is None
@@ -347,9 +353,11 @@ def test_sd_loop_replays_equal_the_eager_loop(monkeypatch, family, sampler):
     got = [_flash_launches(lambda: pipe.generate_on_device(p, "ugly", seed=s, **kw).latents) for p, s in calls]
     prog = _program(pipe, "gen")
     assert prog.captures == 1 and prog.graph is not None and int(prog.static["counter"][0]) == 3
+    (key,) = [k for k in pipe.device_programs if k[0] == "gen"]
+    assert key[5] == {"turbo": "cond", "sd15_batch2": "pair", "sdxl_batch2": "pair"}.get(family, "vmap")
+    # the kernel-1 launches a replay makes, read from the step graph's nodes: one UNet call's sites
     per_step = prog.graph.launches[FLASH_FAMILY]
-    runs = 1 if family in ("turbo", "sd15_batch2", "sdxl_batch2") else 2
-    assert per_step > 0 and per_step % runs == 0 and sum(prog.graph.nodes.values()) > per_step
+    assert per_step > 0 and sum(prog.graph.nodes.values()) > per_step
     with pipe.eager():
         want = [_flash_launches(lambda: pipe.generate_on_device(p, "ugly", seed=s, **kw).latents) for p, s in calls]
     assert prog.captures == 1
@@ -359,47 +367,137 @@ def test_sd_loop_replays_equal_the_eager_loop(monkeypatch, family, sampler):
     assert not np.array_equal(got[0][0], got[1][0])
 
 
+def _decoder_once_a_tile(pipe, monkeypatch) -> None:
+    """From here on the tile grid calls its decoder's segment function once
+    a tile and stacks the outputs, where it calls it once vmapped over the
+    tiles: the grid's slices, blend and uint8 mapping then run on the
+    per-tile loop's decoder outputs. The grid's program is made anew."""
+    real = sd_pipeline._segment_caller
+
+    def caller(ex, in_dims=None):
+        call, holds = real(ex)
+        if in_dims is None:
+            return call, holds
+        ((n, d),) = in_dims.items()
+        return (lambda acts: torch.stack([call({**acts, n: x}) for x in acts[n].unbind(d)])), holds
+
+    monkeypatch.setattr(sd_pipeline, "_segment_caller", caller)
+    for k in [k for k in pipe.device_programs if k[0] == "tile"]:
+        del pipe.device_programs[k]
+
+
 @pytest.mark.gpu
 def test_tiled_decode_graph_equals_the_per_tile_loop(monkeypatch):
-    """The tile grid (9 tiles of 32 over a 64 x 64 latent, the blend and the
-    uint8 mapping) as one graph: eager at the first call, captured at the
-    second, replayed after; every image equal, bit for bit, to the grid run
-    op by op and to the per-tile loop of Session.run (taken where the
-    decoder has a segment_fn_problem)."""
+    """The tile grid (9 tiles of 32 over a 64 x 64 latent, one decoder call
+    vmapped over them, the blend and the uint8 mapping) as one graph: eager
+    at the first call, captured at the second, replayed after; every image
+    equal, bit for bit, to the grid run op by op. With its decoder called
+    once a tile (``_decoder_once_a_tile``) the grid's graph gives, bit for
+    bit, the images and floats of the per-tile loop of Session.run (taken
+    where the decoder has a segment_fn_problem): its slices, blend and uint8
+    mapping are the loop's. The vmapped decoder itself is held to per-tile
+    calls in float32 (the next test): in bf16 its convolutions at batch 9
+    round apart from batch 1's."""
     dev = _card()
     pipe = _sd_pipe(monkeypatch, dev)
     lats = [np.random.default_rng(i).standard_normal((4, 64, 64), dtype=np.float32) for i in range(3)]
     imgs = [pipe.decode(lat, tiled=True) for lat in lats]
-    floats = [pipe.decode_to_float(lat, tiled=True).cpu() for lat in lats]
     prog = _program(pipe, "tile")
     assert prog.captures == 1 and prog.graph is not None and len(prog.static["factors"]) == 9
     with pipe.eager():
         eager = [pipe.decode(lat, tiled=True) for lat in lats]
+    for img, ref in zip(imgs, eager):
+        assert img.shape == (128, 128, 3) and img.dtype == np.uint8
+        np.testing.assert_array_equal(img, ref)
+    assert not np.array_equal(imgs[0], imgs[1])
+    _decoder_once_a_tile(pipe, monkeypatch)
+    once = [pipe.decode(lat, tiled=True) for lat in lats]
+    once_f = [pipe.decode_to_float(lat, tiled=True).cpu() for lat in lats]
+    assert _program(pipe, "tile").captures == 1
     monkeypatch.setattr(sd_pipeline, "segment_fn_problem", lambda ex: "the per-tile loop, for reference")
     per_tile = [pipe.decode(lat, tiled=True) for lat in lats]
     per_tile_f = [pipe.decode_to_float(lat, tiled=True).cpu() for lat in lats]
     for i in range(3):
-        assert imgs[i].shape == (128, 128, 3) and imgs[i].dtype == np.uint8
-        np.testing.assert_array_equal(imgs[i], eager[i])
-        np.testing.assert_array_equal(imgs[i], per_tile[i])
-        assert torch.equal(floats[i], per_tile_f[i])
-    assert not np.array_equal(imgs[0], imgs[1])
+        np.testing.assert_array_equal(once[i], per_tile[i])
+        assert torch.equal(once_f[i], per_tile_f[i])
+
+
+@pytest.mark.gpu
+def test_the_vmapped_tile_decoder_equals_per_tile_calls_in_float32(monkeypatch):
+    """The float32 tile decoder's segment function vmapped over the grid's 9
+    tiles, as the tiled decode calls it, against one call a tile: within
+    1e-5, as on the CPU (tests/test_torch_vmap.py)."""
+    dev = _card()
+    pipe = _sd_pipe(monkeypatch, dev, dtype="float32")
+    lat = np.random.default_rng(5).standard_normal((4, 64, 64), dtype=np.float32)
+    pipe.decode(lat, tiled=True)
+    prog = _program(pipe, "tile")
+    name = next(iter(prog.sess.graph.inputs))
+    z, tile = pipe._scaled(lat), pipe._tile_size
+    ys, xs = pipe._tile_grid(64, 64, tile, tile * 3 // 4)
+    tiles = torch.stack([z[None, :, y:y + tile, x:x + tile] for y in ys for x in xs])
+    vmapped, _ = sd_pipeline._segment_caller(prog.ex, {name: 0})
+    once, _ = sd_pipeline._segment_caller(prog.ex)
+    got = vmapped({name: tiles})
+    want = torch.stack([once({name: t}) for t in tiles])
+    print(f"vmapped tile decoder, float32, 9 tiles: max|diff| {(got - want).abs().max().item():.3e}, "
+          f"max|out| {want.abs().max().item():.4f}")
+    assert got.shape == want.shape and got.shape[:3] == (9, 1, 3)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.gpu
 def test_a_streamed_unet_loop_names_its_problem_and_matches(monkeypatch):
     """A UNet streamed under a budget runs the same step through Session.run
-    op by op: its loop_capture_problem names the streaming, and its latents
-    are the resident captured loop's."""
+    op by op, two runs a step: its loop_capture_problem names the streaming,
+    and its latents are, bit for bit, the resident UNet's in the same form
+    (its segment_fn_problem patched: two runs a step, op by op), whose own
+    form, one call vmapped over the CFG pair, is captured."""
     dev = _card()
     resident, streamed = _sd_pipe(monkeypatch, dev), _sd_pipe(monkeypatch, dev)
     streamed.unet.config.hbm_budget_bytes = 256 << 10
     assert resident.loop_capture_problem() is None and "streamed" in streamed.loop_capture_problem()
-    for seed in (3, 4, 5):
-        a = resident.generate_on_device("a cat", "dog", steps=2, seed=seed, decode=False).latents
-        b = streamed.generate_on_device("a cat", "dog", steps=2, seed=seed, decode=False).latents
-        np.testing.assert_array_equal(a, b)
-    assert _program(resident, "gen").captures == 1 and _program(streamed, "gen").graph is None
+    kw, seeds = dict(steps=2, decode=False), (3, 4, 5)
+    for seed in seeds:
+        resident.generate_on_device("a cat", "dog", seed=seed, **kw)
+    with resident.eager(), monkeypatch.context() as m:
+        m.setattr(sd_pipeline, "segment_fn_problem", lambda ex: "two runs, for reference")
+        want = [resident.generate_on_device("a cat", "dog", seed=seed, **kw).latents for seed in seeds]
+    for seed, ref in zip(seeds, want):
+        np.testing.assert_array_equal(streamed.generate_on_device("a cat", "dog", seed=seed, **kw).latents, ref)
+    forms = lambda pipe: {k[5]: p for k, p in pipe.device_programs.items() if k[0] == "gen"}
+    assert set(forms(resident)) == {"vmap", "two runs"} and forms(resident)["vmap"].captures == 1
+    assert set(forms(streamed)) == {"two runs"} and forms(streamed)["two runs"].graph is None
+
+
+# the float32 loop of a batch-1 UNet vmapped over the CFG pair against the same loop two runs a step:
+# max|diff| / max|latents| after 2 steps at cfg 7.5; read 7.16e-6 and 7.42e-6 on an H100 (the swapped
+# branches, the control, 1.60 and 1.74)
+PAIR_BAR = 3e-5
+
+
+@pytest.mark.gpu
+def test_the_vmapped_pair_matches_two_runs_a_step_in_float32(monkeypatch):
+    """In float32, the loop of a batch-1 UNet vmapped over the CFG pair
+    (captured at the first call's step 1) against the same loop two runs a
+    step (segment_fn_problem patched, op by op): within PAIR_BAR of
+    max|latents|; the control, the two runs with the prompts swapped (the
+    cond and uncond branches swapped), outside it."""
+    dev = _card()
+    pipe = _sd_pipe(monkeypatch, dev, dtype="float32")
+    kw, seeds = dict(steps=2, decode=False), (3, 4)
+    got = [pipe.generate_on_device("a cat", "dog", seed=seed, **kw).latents for seed in seeds]
+    with pipe.eager(), monkeypatch.context() as m:
+        m.setattr(sd_pipeline, "segment_fn_problem", lambda ex: "two runs, for reference")
+        want = [pipe.generate_on_device("a cat", "dog", seed=seed, **kw).latents for seed in seeds]
+        swapped = [pipe.generate_on_device("dog", "a cat", seed=seed, **kw).latents for seed in seeds]
+    for lat, ref, control in zip(got, want, swapped):
+        top = float(np.abs(ref).max())
+        gap, off = float(np.abs(lat - ref).max()) / top, float(np.abs(control - ref).max()) / top
+        print(f"float32 vmapped pair vs two runs: max|diff| / max|lat| {gap:.3e}; swapped branches {off:.3e}")
+        assert np.isfinite(lat).all() and gap <= PAIR_BAR < off
+    (key,) = [k for k, p in pipe.device_programs.items() if k[0] == "gen" and p.captures]
+    assert key[5] == "vmap"
 
 
 @pytest.mark.gpu

@@ -19,6 +19,7 @@ from onnxstream_tpu_torch.kernels.flash_attention import (
     flash_splits,
     flash_variant,
 )
+from torch_vmap_cases import case as vmap_case, run as vmap_run
 
 # name, b, h, hkv, m, n, d, mask shape (None: no mask), causal, k_transposed
 HM_CASES = [
@@ -374,3 +375,16 @@ def test_wgmma_off_keeps_float32_on_fa_fma_kernel():
         torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
     assert "fa_tf32_kernel" in names[True] and "fa_fma_kernel" not in names[True]
     assert "fa_fma_kernel" in names[False] and "fa_tf32_kernel" not in names[False]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["flash_attention_packed", "flash_attention"])
+def test_vmap_is_one_launch_at_the_folded_batch_on_card(name):
+    """The entry point under torch.func.vmap at a site's shapes (mapped and
+    unmapped operands, tests/torch_vmap_cases.py): one launch, bit for bit
+    with the entry point on the folded operands, within the kernel's bar of
+    its twin."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    got = vmap_run(vmap_case(name))
+    assert got["launches"] == 1 and got["bit_equal"] and got["within_bar"], got["max_abs_err"]

@@ -19,6 +19,7 @@ from onnxstream_tpu_torch.kernels.gn_conv import (
     oihw_to_w9,
 )
 from onnxstream_tpu_torch.kernels.gn_silu import GnSiluPlan, gn_silu, gn_silu_plan, gn_silu_reference, launch
+from torch_vmap_cases import case as vmap_case, run as vmap_run
 
 T = torch.from_numpy
 
@@ -204,3 +205,16 @@ def test_gn_silu_conv_mma_variant_takes_what_wgmma_refuses_on_card(case, w9_offs
     got, want, (_, w9, _) = _conv_on_card(dev, torch.bfloat16, n, c, g, h, w, o, bias, w9_offset)
     assert gn_conv_variant(torch.bfloat16, c, w9.data_ptr()) == "mma"
     _close(got, want, 2e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["gn_silu", "gn_silu_conv"])
+def test_vmap_is_one_launch_at_the_folded_batch_on_card(name):
+    """The entry point under torch.func.vmap at a site's shapes (mapped and
+    unmapped operands, tests/torch_vmap_cases.py): one launch, bit for bit
+    with the entry point on the folded operands, within the kernel's bar of
+    its twin."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    got = vmap_run(vmap_case(name))
+    assert got["launches"] == 1 and got["bit_equal"] and got["within_bar"], got["max_abs_err"]

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from onnxstream_tpu_torch.kernels.matmul import matmul, matmul_plan, matmul_reference, matmul_variant
+from torch_vmap_cases import case as vmap_case, run as vmap_run
 
 T = torch.from_numpy
 
@@ -94,3 +95,16 @@ def test_split_k_sum_gives_the_same_bits_twice_on_card(m, k, n):
     second = matmul(a, b, bv, out_dtype=torch.float32)
     torch.cuda.synchronize()
     assert torch.equal(first, second)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["matmul"])
+def test_vmap_is_one_launch_at_the_folded_batch_on_card(name):
+    """The entry point under torch.func.vmap at a site's shapes (mapped and
+    unmapped operands, tests/torch_vmap_cases.py): one launch, bit for bit
+    with the entry point on the folded operands, within the kernel's bar of
+    its twin."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    got = vmap_run(vmap_case(name))
+    assert got["launches"] == 1 and got["bit_equal"] and got["within_bar"], got["max_abs_err"]

@@ -13,6 +13,7 @@ import torch
 
 from onnxstream_tpu_torch.kernels.qconv import qconv, qconv_reference, qconv_variant
 from onnxstream_tpu_torch.kernels.qmatmul import qgemm_variant, qmatmul, qmatmul_reference
+from torch_vmap_cases import case as vmap_case, run as vmap_run
 
 SA, ZA, SW, ZW = 0.03, 120, 0.02, 128
 
@@ -144,3 +145,16 @@ def test_qconv_wgmma_variant_matches_twin_on_card(case, out):
     want = qconv_reference(x, w, SA, ZA, SW, ZW, **kw)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
     assert torch.equal(got, again) and torch.equal(got, mma)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["qmatmul", "qconv"])
+def test_vmap_is_one_launch_at_the_folded_batch_on_card(name):
+    """The entry point under torch.func.vmap at a site's shapes (mapped and
+    unmapped operands, tests/torch_vmap_cases.py): one launch, bit for bit
+    with the entry point on the folded operands, within the kernel's bar of
+    its twin."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    got = vmap_run(vmap_case(name))
+    assert got["launches"] == 1 and got["bit_equal"] and got["within_bar"], got["max_abs_err"]

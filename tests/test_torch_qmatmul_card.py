@@ -21,6 +21,7 @@ from onnxstream_tpu_torch.kernels.qmatmul import (
     w8a8_dyn_matmul,
     w8a8_dyn_matmul_reference,
 )
+from torch_vmap_cases import case as vmap_case, run as vmap_run
 
 TORCH_DTYPE = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 # (K, N) of the TinyLlama weight MatMuls: q / o, k / v, gate / up, down, the LM head
@@ -189,3 +190,16 @@ def test_w8_split_k_sum_gives_the_same_bits_twice_on_card(m, k, n):
     first, second = w8_matmul(a, w, 0.013, 117), w8_matmul(a, w, 0.013, 117)
     torch.cuda.synchronize()
     assert torch.equal(first, second)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["w8a8_dyn_matmul", "w8_matmul"])
+def test_vmap_is_one_launch_at_the_folded_batch_on_card(name):
+    """The entry point under torch.func.vmap at a site's shapes (mapped and
+    unmapped operands, tests/torch_vmap_cases.py): one launch, bit for bit
+    with the entry point on the folded operands, within the kernel's bar of
+    its twin."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    got = vmap_run(vmap_case(name))
+    assert got["launches"] == 1 and got["bit_equal"] and got["within_bar"], got["max_abs_err"]

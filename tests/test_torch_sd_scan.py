@@ -14,14 +14,16 @@ step without a graph (the code path the card captures, minus the capture):
     the Python polar method's and the JAX package's;
   * the loop's latents are within rtol = atol = 3e-4 of JAX's
     ``generate_on_device`` (the bar of tests/test_torch_sd_pipeline.py) for
-    SD1.5 with a batch-1 UNet (two runs a step) and a batch-2 UNet (the CFG
-    pair as one run; JAX vmaps a batch-1 UNet over the pair), SDXL and
-    Turbo, with euler and euler_a, and again over later calls under the same
-    key with other seeds, prompts and samplers (the buffers are refilled and
-    the counter zeroed);
-  * the tiled decode is within one level of JAX's ``_decode_tiled`` at
-    several (tile, stride, ramp) settings and for a latent smaller than the
-    tile;
+    SD1.5 and SDXL with a batch-1 UNet (its segment function vmapped over
+    the CFG pair, one call a step, as JAX's ``jax.vmap``), SD1.5 with a
+    batch-2 UNet (the CFG pair as one run; JAX vmaps a batch-1 UNet over the
+    pair) and Turbo, with euler and euler_a, and again over later calls
+    under the same key with other seeds, prompts and samplers (the buffers
+    are refilled and the counter zeroed);
+  * the tiled decode is within one level of JAX's vmapped ``_decode_tiled``
+    at several (tile, stride, ramp) settings, under the calibrated W8A8 and
+    the ``use_uint8_qdq`` tile decoders, and for a latent smaller than the
+    tile, the decoder's segment function called once a grid;
   * the warm-up / capture / replay rule, with the capture stood in for.
 
 The captures themselves run on the card: tests/test_torch_capture_card.py.
@@ -41,6 +43,7 @@ from onnxstream_tpu_torch import Session
 from onnxstream_tpu_torch.models.sd import pipeline as sd_pipeline
 from onnxstream_tpu_torch.models.sd import rng as sd_rng
 from onnxstream_tpu_torch.models.sd.pipeline import StableDiffusionPipeline, step_stack
+from onnxstream_tpu_torch.runtime import executor as executor_mod
 from onnxstream_tpu_torch.runtime.executor import capture_problem, segment_fn_problem
 
 CPU = torch.device("cpu")
@@ -109,6 +112,26 @@ def _step_programs(pipe):
     return {k: p for k, p in pipe.device_programs.items() if k[0] == "gen"}
 
 
+# family -> the step's form (key[5]) and the words of its program's name
+FORMS = {"sd15": ("vmap", "batch-1 UNet vmapped over the CFG pair"), "sd15_batch2": ("pair", "batch-2 UNet"),
+         "sdxl": ("vmap", "batch-1 UNet vmapped over the CFG pair"), "turbo": ("cond", "cond only")}
+
+
+@pytest.fixture
+def segment_runs(monkeypatch):
+    """The executors whose segment ran, one entry a run of a segment
+    function (a vmapped call is one run)."""
+    runs = []
+    run = executor_mod.Executor._run_segment
+
+    def spy(self, *a, **kw):
+        runs.append(self)
+        return run(self, *a, **kw)
+
+    monkeypatch.setattr(executor_mod.Executor, "_run_segment", spy)
+    return runs
+
+
 # -------------------------------------------------------------- the per-step stack
 def _jax_stack(steps, seed, sampler, turbo, latw, lath):
     """The per-step stack as JAX's generate_on_device builds it
@@ -172,14 +195,18 @@ def test_randn_from_libstdcxx_equals_the_polar_method_and_jax(seed, w, h):
 # ------------------------------------------------------------------ the step body
 @pytest.mark.parametrize("sampler", ["euler", "euler_a"])
 @pytest.mark.parametrize("family", sorted(FAMILIES))
-def test_step_body_matches_jax_generate_on_device(ports, jaxes, family, sampler):
+def test_step_body_matches_jax_generate_on_device(ports, jaxes, family, sampler, segment_runs):
     port, jax = _pair(ports, jaxes, family)
     kw = dict(steps=3, seed=7, sampler=sampler, decode=False)
     with _no_session_runs(port.unet):
         got = port.generate_on_device(PROMPT, "dog", **kw).latents
     _close(got, jax.generate_on_device(PROMPT, "dog", **kw).latents)
     (key, prog), = [(k, p) for k, p in _step_programs(port).items() if k[1] == 3]
-    assert key[:4] == ("gen", 3, family == "turbo", 7.0) and key[5] == (family == "sd15_batch2")
+    form, words = FORMS[family]
+    assert key[:4] == ("gen", 3, family == "turbo", 7.0) and key[5] == form and key[6] is True
+    assert words in prog.what
+    # one call of the UNet's segment function a step: the pair vmapped, batched or cond only
+    assert sum(ex is prog.ex for ex in segment_runs) == 3
     # the counter ran once a step; nothing was captured on the CPU
     assert int(prog.static["counter"][0]) == 3 and prog.graph is None and prog.captures == 0
     assert "runs on cpu" in port.loop_capture_problem()
@@ -277,7 +304,8 @@ def test_the_first_run_warms_up_the_second_captures_and_later_ones_replay(monkey
         _close(port.generate_on_device(PROMPT, "dog", **kw).latents, want)
         (prog,) = _step_programs(port).values()
         bodies.append(prog.graph.replays)
-    assert captures == [prog.what] and prog.captures == 1 and "SD step (3 steps, batch-1 UNet, two runs" in prog.what
+    assert captures == [prog.what] and prog.captures == 1
+    assert "SD step (3 steps, batch-1 UNet vmapped over the CFG pair" in prog.what
     assert bodies == [2, 5, 8]  # step 0 of the first call ran op by op
     with port.eager():
         _close(port.generate_on_device(PROMPT, "dog", **kw).latents, want)
@@ -295,11 +323,13 @@ def test_the_first_run_warms_up_the_second_captures_and_later_ones_replay(monkey
 
 # ------------------------------------------------------------------ the tile grid
 @pytest.mark.parametrize("tile,stride,ramp", [(8, 6, 4), (8, 5, 6), (8, 3, 16), (8, 8, 0), (None, None, None)])
-def test_tiled_decode_matches_jax(ports, jaxes, tile, stride, ramp):
+def test_tiled_decode_matches_jax(ports, jaxes, tile, stride, ramp, segment_runs):
     port, jax = _pair(ports, jaxes, "sd15")
     lat = np.random.RandomState(5).randn(4, 16, 16).astype(np.float32)
     with _no_session_runs(port.vae_tile_session):
         got = [port._decode_tiled(lat * s, tile=tile, stride=stride, ramp=ramp) for s in (1.0, 0.5)]
+    # the decoder's segment function once a grid (JAX's vmap over the tiles), not once a tile
+    assert len(segment_runs) == 2 and all(ex is port.vae_tile_session._executor() for ex in segment_runs)
     for s, img in zip((1.0, 0.5), got):
         assert img.shape == (32, 32, 3)
         assert _levels(img, jax._decode_tiled(lat * s, tile=tile, stride=stride, ramp=ramp)) <= 1
@@ -307,6 +337,63 @@ def test_tiled_decode_matches_jax(ports, jaxes, tile, stride, ramp):
     want = (8, stride or 6, 4 if ramp is None else ramp)  # (tile, stride, ramp), the defaults filled in
     keys = [k for k in port.device_programs if k[0] == "tile" and k[2:5] == want]
     assert len(keys) == 1 and keys[0][1] == id(port.vae_tile_session)
+
+
+def _qu8_tile_decoders(port, jax, lat):
+    """The calibrated W8A8 tile decoders of both packages: the TINY tile
+    decoder's graph calibrated by the JAX session on the tiles of the scaled
+    latent ``lat`` (``--decoder-calibrate`` on the latents it then decodes),
+    its weights quantized by each package's converter (as
+    ``vae_decoder_qu8`` holds them)."""
+    import dataclasses
+
+    from onnxstream_tpu.convert.quantize import quantize_graph_weights as jax_quantize
+    from onnxstream_tpu.models.sd.vae import VAE_TINY as JAX_VAE_TINY
+    from onnxstream_tpu.models.sd.vae import build_vae_decoder as jax_build_vae_decoder
+    from onnxstream_tpu.runtime.config import SessionConfig as JaxConfig
+    from onnxstream_tpu.runtime.session import Session as JaxSession
+    from onnxstream_tpu.runtime.weights import DictWeightsProvider as JaxDict
+    from onnxstream_tpu_torch.models.sd.pipeline import qu8_decoder
+    from onnxstream_tpu_torch.models.sd.vae import VAE_TINY, build_vae_decoder
+
+    g = build_vae_decoder(dataclasses.replace(VAE_TINY, sample=port._tile_size), seed=2)
+    jg = jax_build_vae_decoder(dataclasses.replace(JAX_VAE_TINY, sample=port._tile_size), seed=2)
+    jcal = JaxSession(JaxConfig(fuse_ops_in_attention=True, range_data_calibrate=True),
+                      weights_provider=JaxDict(dict(jg.weights)))
+    jcal.read_string(jg.to_text())
+    z, t = lat / np.float32(jax.vae_scale), port._tile_size
+    ys, xs = jax._tile_grid(z.shape[1], z.shape[2], t, t * 3 // 4)
+    for sy in ys:
+        for sx in xs:
+            jcal.add_tensor("latent", np.ascontiguousarray(z[None, :, sy:sy + t, sx:sx + t]))
+            jcal.run(eager=True)
+    ranges = dict(jcal._executor().range_data.data)
+    jtext, jweights = jax_quantize(jg.to_text(), jg.weights)
+    jq = JaxSession(JaxConfig(fuse_ops_in_attention=True, use_uint8_arithmetic=True, range_data=ranges),
+                    weights_provider=JaxDict(jweights))
+    jq.read_string(jtext)
+    return qu8_decoder(g.to_text(), g.weights, ranges, device=CPU), jq
+
+
+@pytest.mark.parametrize("decoder", ["w8a8", "uint8_qdq"])
+def test_tiled_decode_under_quantized_decoders_matches_jax(decoder, segment_runs):
+    """The calibrated W8A8 tile decoder (kernels 3 and 4 under the vmap, the
+    activations quantized per example's range) and QDQ without ranges (each
+    tile's percentiles its own, as under JAX's vmap): one decoder call a
+    grid, within one level of JAX's vmapped ``_decode_tiled``."""
+    port = StableDiffusionPipeline.from_synthetic(tiny=True, device=CPU)
+    jax = JaxPipeline.from_synthetic(tiny=True)
+    lat = np.random.RandomState(8).randn(4, 16, 16).astype(np.float32)
+    if decoder == "w8a8":
+        port.vae_tile_session, jax.vae_tile_session = _qu8_tile_decoders(port, jax, lat)
+    else:
+        port.vae_tile_session.config.use_uint8_qdq = jax.vae_tile_session.config.use_uint8_qdq = True
+    with _no_session_runs(port.vae_tile_session):
+        got = port._decode_tiled(lat)
+    assert len(segment_runs) == 1
+    routes = set(port.vae_tile_session._executor().quant_routes.values())
+    assert routes >= {"qconv", "qmatmul"} if decoder == "w8a8" else not routes
+    assert _levels(got, jax._decode_tiled(lat)) <= 1
 
 
 def test_a_latent_smaller_than_the_tile_decodes_as_one_clamped_tile(jaxes):
