@@ -1959,6 +1959,7 @@ def phase_gn_routes(name: str, sd: dict) -> dict:
     from onnxstream_tpu_torch.models.sd.unet import SD15, TINY, build_unet
     from onnxstream_tpu_torch.models.sd.vae import VAE_SD, build_vae_decoder
 
+    t_phase = time.perf_counter()
     gt = build_unet(TINY)
     for label, cfg in (("A", CONFIG_A), ("B", CONFIG_B)):
         _tiny_unet_card_vs_cpu(f"TINY UNet, config {label},", gt.to_text(), gt.weights, _requests(TINY, 1)[1], **cfg)
@@ -2064,14 +2065,8 @@ def phase_gn_routes(name: str, sd: dict) -> dict:
                 if label == "A" and not diff <= 5e-2 * top:
                     raise SystemExit("VAE decode, config A: far from the default decode's output")
         launches = {k: f.launches for k, f in kernels.items()}
-        print(f"GroupNorm / small-conv route launches on the path: {launches}")
-        # which bf16 decode lies nearer the float32 one (printed, not gated)
-        s32 = _session(vae.to_text(), vae.weights, "float32", "cuda:0")
-        s32.add_tensor("latent", z)
-        img32 = image_to_uint8(next(iter(s32.run(device_outputs=True).values()))[0]).astype(np.int32)
-        del s32
-        print("VAE_SD decode against the float32 decode, mean |diff| in levels: "
-              + ", ".join(f"{label} {np.abs(img - img32).mean():.4f}" for label, img in images.items()))
+        print(f"GroupNorm / small-conv route launches on the path: {launches}; phase_gn_routes at "
+              f"{time.perf_counter() - t_phase:.1f} s")
 
         # no per-run weight relayout on the small-conv route: the B operand of every matmul call of a run
         # is the resident device copy of an uploaded (9 C, O) weight itself, not a tensor made during the run
@@ -2101,7 +2096,7 @@ def phase_gn_routes(name: str, sd: dict) -> dict:
         raise SystemExit("config fuse_groupnorm: far from the default config's output")
     for label in ("default", "fuse_groupnorm", "A", "B"):
         times.setdefault(label, []).append(
-            busy_and_wall(sessions[label].run, f"SD15 UNet run, config {label}", name, steps=5))
+            busy_and_wall(sessions[label].run, f"SD15 UNet run, config {label}", name))
     for label in ("default", "fuse_groupnorm", "A"):
         step = lambda s=sessions[f"vae_{label}"]: s.run(device_outputs=True)
         times.setdefault(f"vae_{label}", []).append(busy_and_wall(step, f"VAE_SD decode, config {label}", name))
@@ -2123,6 +2118,7 @@ def phase_gn_routes(name: str, sd: dict) -> dict:
     # copy kernels is what the route's torch ops (the im2col concats; no weight relayout) cost a run
     print(f"elementwise and copy kernels per UNet run: config B {around['B']:.3f} ms, fuse_groupnorm "
           f"{around['fuse_groupnorm']:.3f} ms, the small-conv route's own {around['B'] - around['fuse_groupnorm']:.3f} ms [{name}]")
+    print(f"phase_gn_routes: busy, wall and profiles at {time.perf_counter() - t_phase:.1f} s")
 
     specs = {"gn_silu": (gn_silu, gn_silu_reference, _gn_library, _gn_cost),
              "gn_silu_conv": (gn_silu_conv, gn_silu_conv_reference, _gn_conv_library, _gn_conv_cost),
@@ -2163,12 +2159,6 @@ def phase_gn_routes(name: str, sd: dict) -> dict:
         _kernels_of(f"gn_silu, one run's {len(calls)} calls under {label}",
                     lambda: [gn_silu(*args, **kw) for args, kw in calls], per_run, GN_KERNEL,
                     sum(strided(args) for args, _ in calls))
-        shapes = {}
-        for args, kw in calls:
-            shapes.setdefault((*gn_key(args, kw), strided(args)), (args, kw))
-        for key, (args, kw) in sorted(shapes.items()):
-            _kernels_of(f"gn_silu {key[:-1]}{' strided' if key[-1] else ''}, {label}", lambda: gn_silu(*args, **kw), 1,
-                        GN_KERNEL, key[-1])
         gn_silu_sites[label] = site_report(f"gn_silu, {label}", calls, gn_silu, gn_silu_reference, _gn_library,
                                            _gn_cost, _gn_plan_text, 2e-2, name, key=gn_key)
     taken = {label: {site["variant"].split()[0] for site in sites.values()} for label, sites in gn_conv_sites.items()}
@@ -2187,6 +2177,7 @@ def phase_gn_routes(name: str, sd: dict) -> dict:
     out["matmul"]["sites_of_run"] = mm_sites
     out["matmul"]["around_ms"] = around["B"] - around["fuse_groupnorm"]
     out["times"] = times
+    print(f"phase_gn_routes: {time.perf_counter() - t_phase:.1f} s")
     return out
 
 
@@ -2644,7 +2635,7 @@ def phase_sd_image(name: str) -> dict:
         for key in ("a", "b", "c"):
             c0, f0 = qmatmul.launches, flash_attention_packed.launches
             d0 = len(flash.head_dims)
-            graph = next((ex._replay for ex in w8a8._executors.values()), None)  # (b)'s capture, from (c) on
+            graph = next((ex._replays for ex in w8a8._executors.values()), None)  # (b)'s capture, from (c) on
             flash.arm(), qmm.arm(), qcv.arm()
             # the first (eager) decode's calls are recorded: every call against the twin, then replayed
             qmm.calls, qcv.calls = ([], []) if key == "a" else (None, None)
@@ -2655,7 +2646,7 @@ def phase_sd_image(name: str) -> dict:
             nq, nf = qmatmul.launches - c0, flash_attention_packed.launches - f0
             dims = flash.head_dims[d0:]
             if flash.captured:  # the calls this capture recorded
-                captured_dims = (next(ex._replay for ex in w8a8._executors.values()), dims)
+                captured_dims = (next(ex._replays for ex in w8a8._executors.values()), dims)
             elif not dims and graph is not None and captured_dims and captured_dims[0] is graph:
                 # a replay calls no wrapper: its head dims are those its graph recorded when captured
                 dims = captured_dims[1]
@@ -4118,16 +4109,56 @@ def copy_overlap(run, label: str, name: str, attempts: int = 3, agree=None):
     return out
 
 
+def _host_split(s, run) -> dict:
+    """One run of a streamed session's ``run()``, ended by a synchronize,
+    and where its host time went: the provider's reads (``get`` /
+    ``get_into``), the rest of the weight fetches (the staging memcpy, host
+    conversions, the copies' enqueue: ``staging_ms``), the graphs' replay
+    calls, and the rest (op dispatch in an eager run)."""
+    from onnxstream_tpu_torch.runtime import executor as executor_mod
+
+    ex = s._executor()
+    spent = {"provider": 0.0, "fetch": 0.0, "replay": 0.0}
+    provider = ex.provider
+    originals = (executor_mod._SegmentFetch._fetch, executor_mod.CapturedGraph.replay)
+
+    def timed(key, fn):
+        def wrapper(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                spent[key] += time.perf_counter() - t0
+        return wrapper
+
+    executor_mod._SegmentFetch._fetch = timed("fetch", originals[0])
+    executor_mod.CapturedGraph.replay = timed("replay", originals[1])
+    provider.get, provider.get_into = timed("provider", provider.get), timed("provider", provider.get_into)
+    try:
+        out, wall = _timed(run)
+    finally:
+        executor_mod._SegmentFetch._fetch, executor_mod.CapturedGraph.replay = originals
+        del provider.get, provider.get_into
+    ms = {k: v * 1e3 for k, v in spent.items()}
+    return {"out": out, "wall_ms": wall, "provider_ms": ms["provider"], "staging_ms": ms["fetch"] - ms["provider"],
+            "replay_calls_ms": ms["replay"], "rest_ms": wall - ms["fetch"] - ms["replay"]}
+
+
 def phase_streamed(name: str, model: str) -> dict:
     """The SD1.5 UNet (bf16) read from the folder's unet_fp16/ by a Session
     under ram+prefetch and the native prefetch, at hbm_budget_bytes 0 and
-    STREAM_BUDGETS, three requests each: every output bit for bit with the
-    first resident run, the allocator's peak within hbm_accounting()'s bound
-    + PEAK_SLACK, warm ram+prefetch runs converting nothing on the host, 10
-    flash launches a run (the first streamed launch held to the twin), the
-    weight copies on a stream of their own and their share under kernels.
-    Then a 4-step 512 x 512 euler_a image from the folder by from_dir under
-    IMAGE_BUDGET against the resident one."""
+    STREAM_BUDGETS, three requests each (the first op by op, the second
+    captures a graph a segment, the third replays them): every output bit
+    for bit with the first resident run, the allocator's peak within
+    hbm_accounting()'s bound + PEAK_SLACK, warm ram+prefetch runs converting
+    nothing on the host, 10 flash launches a run (the first streamed launch
+    held to the twin; a replay's read from the graphs' nodes and the card),
+    the weight copies on a stream of their own and their share under
+    kernels. Under a budget, a replayed run beside an eager run of the same
+    session (``Executor.eager``, bit for bit): wall, host split
+    (``_host_split``), idle share (``copy_overlap``), and the capture's
+    seconds. Then a 4-step 512 x 512 euler_a image from the folder by
+    from_dir under IMAGE_BUDGET against the resident one."""
     import onnxstream_tpu_torch.ops.attention as attention_op
     from onnxstream_tpu_torch import Session, SessionConfig
     from onnxstream_tpu_torch.kernels.flash_attention import (flash_attention_packed,
@@ -4190,11 +4221,33 @@ def phase_streamed(name: str, model: str) -> dict:
                     raise SystemExit(f"{label}: outputs differ from the resident run (max|diff| {diff:.3e})")
                 row.update(segments=len(ex.segments), streamed_bytes=acc["weight_bytes"] if budget else 0,
                            accounting_peak_bytes=acc["peak_bytes"], hbm_stats_peak=s.hbm_stats()["peak_bytes_in_use"])
+                graphs = len(ex._replays) if ex.captured else 0
+                print(f"{label}: {graphs} segment graphs replayed from request 1, {len(ex.segments)} segments")
+                if graphs != len(ex.segments):
+                    raise SystemExit(f"{label}: {graphs} graphs for {len(ex.segments)} segments")
                 if budget:
-                    row["profile"] = copy_overlap(lambda: s.run(), label, name)
-                    prof = row["profile"]
-                    if not prof["copy_streams"] or prof["h2d_copy_stream_bytes"] < 0.9 * acc["weight_bytes"]:
-                        raise SystemExit(f"{label}: the weights did not cross on a copy stream")
+                    row["replay_launches"] = _launches_held(label, ex, {FLASH_FAMILY: 10}, lambda: s.run(), 1)
+                    row["capture_s"] = sum(ex.memory_analysis(si)["capture_seconds"] for si in range(graphs))
+                    row["replayed"] = _host_split(s, lambda: s.run()["out_sample"])
+                    with ex.eager():
+                        row["eager"] = _host_split(s, lambda: s.run()["out_sample"])
+                    for kind in ("replayed", "eager"):
+                        if not np.array_equal(row[kind].pop("out"), resident[-1]):
+                            raise SystemExit(f"{label}: the {kind} run differs from the resident run")
+                    row["profile"] = copy_overlap(lambda: s.run(), label + ", replayed", name)
+                    with ex.eager():
+                        row["profile_eager"] = copy_overlap(lambda: s.run(), label + ", eager", name)
+                    for prof in (row["profile"], row["profile_eager"]):
+                        if not prof["copy_streams"] or prof["h2d_copy_stream_bytes"] < 0.9 * acc["weight_bytes"]:
+                            raise SystemExit(f"{label}: the weights did not cross on a copy stream")
+                    rep, eag = row["replayed"], row["eager"]
+                    print(f"{label}: replayed {rep['wall_ms']:.1f} ms (idle {100 * row['profile']['idle_share']:.1f}%; "
+                          f"host: provider {rep['provider_ms']:.1f}, staging copy {rep['staging_ms']:.1f}, replay "
+                          f"calls {rep['replay_calls_ms']:.1f}, rest {rep['rest_ms']:.1f} ms) against eager "
+                          f"{eag['wall_ms']:.1f} ms (idle {100 * row['profile_eager']['idle_share']:.1f}%; provider "
+                          f"{eag['provider_ms']:.1f}, staging copy {eag['staging_ms']:.1f}, dispatch and the rest "
+                          f"{eag['rest_ms']:.1f} ms); {graphs} graphs captured in {row['capture_s']:.2f} s; both bit "
+                          f"for bit with the resident run [{name}]")
                 sessions[f"{wp}@{budget >> 20}MiB"] = row
                 s.close()
                 del s, ex
@@ -5551,7 +5604,9 @@ def _rank_w8a8_vae(rank, device, ranges: dict, name: str = "") -> dict:
 def _vae_references(name: str) -> dict:
     """The one-rank runs the tp = 2 VAE cases are held to: the float32
     calibration's ranges and the decodes' outputs, warm times and QDQ
-    (scale, zero) by tensor."""
+    (scale, zero) by tensor; the decode with QDQ without ranges, captured on
+    one device, replayed and held bit for bit to its eager first run."""
+    from onnxstream_tpu_torch.kernels.flash_attention import flash_attention_packed
     from onnxstream_tpu_torch.parallel.dryrun import run_session
 
     text, weights, qtext, qweights, z = _vae_sd_graphs()
@@ -5562,10 +5617,22 @@ def _vae_references(name: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     for label, cfg in _vae_configs(ref["ranges"]).items():
-        with _QdqRanges() as qdq:
+        f0 = flash_attention_packed.launches
+        with _QdqRanges() as qdq:  # the first run's ranges: the eager one, the only one that calls _qdq_range
             y, s = run_session(qtext, qweights, z, "cuda:0", **cfg)
         _, ms = _timed(lambda: s.run())
         ref[label] = {"out": y, "warm_ms": ms, "qdq": qdq.ranges()}
+        if label == "qdq_no_ranges":
+            # one device: the second run captured a graph (every range sorted on the card), later ones replay it
+            replayed, ms = _timed(lambda: next(iter(s.run().values())))
+            ex = s._executor()
+            same = np.array_equal(replayed, y)
+            ref[label].update(replayed_ms=ms, launches=flash_attention_packed.launches - f0)
+            print(f"phase_parallel one-rank QDQ without ranges: captured {ex.captured}, replayed decode {ms:.1f} ms "
+                  f"bit for bit with the eager first run {same}; kernel 1 launches {ref[label]['launches']} "
+                  f"(one a decode) [{name}]")
+            if not (ex.captured and same and ref[label]["launches"] == 3):
+                raise SystemExit("one-rank QDQ without ranges: not captured, or the replay differs from the eager run")
         s.close()
         del s
         gc.collect()
@@ -5760,6 +5827,7 @@ def phase_parallel(name: str, train: dict, start_beside) -> dict:
     sharded path, not a tensor-parallel speedup. ``start_beside()`` starts
     what runs beside the ranks (the dry run's process). The one-rank NCCL
     mesh is phase_nccl's."""
+    from onnxstream_tpu_torch.kernels.flash_attention import flash_attention_packed
     from onnxstream_tpu_torch.models.llm.llama import TINYLLAMA
     from onnxstream_tpu_torch.models.sd.unet import SD15
     from onnxstream_tpu_torch.parallel.launch import spawn
@@ -5892,8 +5960,11 @@ def phase_parallel(name: str, train: dict, start_beside) -> dict:
     out["llm_int8"] = _report_llm_int8(name, ref["int8"], ranks)
     out["unet_u8"] = _report_unet_u8(name, u8_ref, u8_ref_ms, u8_ref_bytes, ranks)
     out["w8a8_vae"] = _report_w8a8_vae(name, vae_ref, ranks)
+    out["one_rank_qdq_no_ranges"] = {k: vae_ref["qdq_no_ranges"][k] for k in ("launches", "warm_ms", "replayed_ms")}
 
-    # pipeline stages: two on one card, the boundary activations copied
+    # pipeline stages: two on one card, the boundary activations copied; the
+    # first run op by op, the second captures a graph a segment, later ones replay
+    f0 = flash_attention_packed.launches
     s = _sd15_batch2_session("cuda:0", hbm_budget_bytes=512 << 20, pp_devices=[torch.device("cuda:0")] * 2)
     pp = _unet_run(s, inputs)
     ex = s._executor()
@@ -5902,16 +5973,25 @@ def phase_parallel(name: str, train: dict, start_beside) -> dict:
     upload = ex._upload
     ex._upload = lambda w, device=None: (uploads.__setitem__(0, uploads[0] + 1), upload(w, device))[1]
     pp2, pp_ms = _timed(lambda: _unet_run(s, inputs))
+    pp3, pp3_ms = _timed(lambda: _unet_run(s, inputs))
+    with ex.eager():
+        pp_eager, pp_eager_ms = _timed(lambda: _unet_run(s, inputs))
     acc = ex.hbm_accounting()
+    graphs = len(ex._replays) if ex.captured else 0
+    same = [np.array_equal(o, unet_ref) for o in (pp, pp2, pp3, pp_eager)]
+    pp_launches = flash_attention_packed.launches - f0
     print(f"pp_devices [cuda:0, cuda:0] at 512 MiB: {len(stages)} segments on stages {stages}, stage weights "
-          f"{[round(b / 2**20, 1) for b in acc['stage_weight_bytes']]} MB, second run uploads {uploads[0]}, bit for "
-          f"bit with the resident run {np.array_equal(pp, unet_ref)} and {np.array_equal(pp2, unet_ref)}, "
-          f"run {pp_ms:.1f} ms (resident {unet_ref_ms:.1f}) [{name}]")
-    if (stages != sorted(stages) or len(set(stages)) != 2 or uploads[0] or not np.array_equal(pp, unet_ref)
-            or not np.array_equal(pp2, unet_ref)):
-        raise SystemExit("pipeline stages: not two contiguous stages, weights fetched again, or outputs differ")
+          f"{[round(b / 2**20, 1) for b in acc['stage_weight_bytes']]} MB, later runs' uploads {uploads[0]}, "
+          f"{graphs} segment graphs replayed from the second run; eager, captured, replayed and eager again bit for "
+          f"bit with the resident run {same}; capture run {pp_ms:.1f} ms, replayed {pp3_ms:.1f}, eager "
+          f"{pp_eager_ms:.1f} (resident {unet_ref_ms:.1f}); kernel 1 launches {pp_launches} (10 a run) [{name}]")
+    if (stages != sorted(stages) or len(set(stages)) != 2 or uploads[0] or not all(same)
+            or graphs != len(stages) or pp_launches != 40):
+        raise SystemExit("pipeline stages: not two contiguous stages, weights fetched again, outputs differ, "
+                         "or not a graph a segment")
     out["pp"] = {"segments": len(stages), "stages": stages, "stage_weight_bytes": acc["stage_weight_bytes"],
-                 "ms": pp_ms}
+                 "capture_run_ms": pp_ms, "replayed_ms": pp3_ms, "eager_ms": pp_eager_ms, "graphs": graphs,
+                 "launches": pp_launches}
     del s, ex
     gc.collect()
     torch.cuda.empty_cache()
@@ -6802,7 +6882,7 @@ def _main(name: str, written, stamp) -> int:
     print(f"channel-last: {json.dumps({k: layout[k] for k in ('graph', 'unet', 'vae', 'float32_ratio')})}")
     print(f"fp16 storage: {json.dumps({k: v for k, v in fp16.items() if k not in ('launches', 'replay')})}")
     print(f"converted 860 M UNet: {json.dumps(convert)}")
-    print(f"parallel: {json.dumps({k: parallel[k] for k in ('nccl', 'pp', 'seconds')})}")
+    print(f"parallel: {json.dumps({k: parallel[k] for k in ('nccl', 'pp', 'one_rank_qdq_no_ranges', 'seconds')})}")
     print(f"entry: {json.dumps(entry)}; dry run: {json.dumps(dry)}")
     print(f"train step: {json.dumps(parallel['train'])}")
     print(f"captured segments: {json.dumps(capture)}")
@@ -6822,7 +6902,8 @@ def _main(name: str, written, stamp) -> int:
                       + streamed["launches"] + served["launches"] + layout["launches"] + fp16["launches"]
                       + nopad["packed_launches"] + convert["launches"] + unet_dp2 + unet_tp2 + entry["launches"]
                       + u8_tp2_k1 + sum(vae_tp2_launches["flash_attention_packed"].values())
-                      + streamed_tp2["launches"] + capture["sd15"]["launches"]),
+                      + streamed_tp2["launches"] + capture["sd15"]["launches"] + parallel["pp"]["launches"]
+                      + parallel["one_rank_qdq_no_ranges"]["launches"]),
          "launches_by_path": {"sd15_step": launches_sd, "sd15_image": sd_image["flash_launches"],
                               "sdxl_image_and_turbo": sdxl["launches"], "sd15_generate_batch4": sd_batch["launches"],
                               "whisper": whisper["launches"], "sd15_streamed": streamed["launches"],
@@ -6834,7 +6915,9 @@ def _main(name: str, written, stamp) -> int:
                               "tp2_vae_qdq": vae_tp2_launches["flash_attention_packed"]["qdq"]
                               + vae_tp2_launches["flash_attention_packed"]["qdq_no_ranges"],
                               "sd15_streamed_tp2": streamed_tp2["launches"],
-                              "sd15_capture": capture["sd15"]["launches"]},
+                              "sd15_capture": capture["sd15"]["launches"],
+                              "sd15_pp_stages": parallel["pp"]["launches"],
+                              "vae_qdq_no_ranges_one_rank": parallel["one_rank_qdq_no_ranges"]["launches"]},
          "sd15_streamed_tp2": streamed_tp2,
          "capture": capture["sd15"],
          "entry": entry,

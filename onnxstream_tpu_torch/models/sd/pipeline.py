@@ -154,13 +154,23 @@ def step_stack(steps: int, seed: int, sampler: str, turbo: bool, latw: int,
     return x0, stack
 
 
+def program_problem(ex: Executor) -> Optional[str]:
+    """Why a device program whose body runs ``ex`` is not captured into one
+    CUDA graph, or None: ``capture_problem`` (the CPU, a mesh, the per-op
+    interpreter), then ``segment_fn_problem`` (streamed weights, pipeline
+    stages: the body then calls ``Session.run``, whose segment graphs a
+    graph around it cannot hold, and whose weights the host refills between
+    them)."""
+    return capture_problem(ex) or segment_fn_problem(ex)
+
+
 class DeviceProgram:
     """A pipeline's device program: ``body()`` over static device buffers,
     the counterpart of a JAX program jitted around ``Executor._segment_fn``
     (``generate_on_device``'s scan step, ``_decode_tiled``'s tile grid). It
     runs as an executor runs its segment: the first run goes op by op (the
     warm-up: kernels built, plans chosen, constants uploaded); where
-    ``capture_problem(ex)`` is None (``ex``: the executor whose segment
+    ``program_problem(ex)`` is None (``ex``: the executor whose segment
     function the body calls) the second captures the body into one CUDA
     graph (``capture_graph``, the pipeline's shared pool), and later runs
     replay it. A change of the executor's scalar options drops the graph, as
@@ -182,7 +192,7 @@ class DeviceProgram:
         key = self.ex._dispatch_key()
         if self.graph is not None and self._graph_key != key:
             self.graph = None  # captured under other options: warm up again
-        if not eager and self.graph is None and self._warm_key == key and capture_problem(self.ex) is None:
+        if not eager and self.graph is None and self._warm_key == key and program_problem(self.ex) is None:
             self.ex._dispatching = None
             self.graph = capture_graph(self.body, self.ex.device, self.ex.graph_pool, self.what, self._failed_at,
                                        static=self.static.values(), holds=self.holds)
@@ -608,8 +618,9 @@ class StableDiffusionPipeline:
         time ids closed over (``Executor.vmap_segment_fn``); Turbo runs the
         cond branch alone. Where the segment function cannot stand for
         ``Session.run`` (``segment_fn_problem``: streamed, a mesh, stages,
-        the per-op interpreter) a batch-1 UNet runs twice a step. On a card
-        the step is captured into one CUDA graph and replayed once a step
+        the per-op interpreter) a batch-1 UNet runs twice a step, through
+        the UNet's own segment graphs on a card. On a card the step is
+        captured into one CUDA graph and replayed once a step
         (``loop_capture_problem``: where not); its programs are cached under
         JAX's key, the UNet executor and the form. The latents come back to
         the host once, after the last step."""
@@ -695,12 +706,19 @@ class StableDiffusionPipeline:
 
     def loop_capture_problem(self) -> Optional[str]:
         """Why generate_on_device's step is not captured into a CUDA graph,
-        or None: ``capture_problem`` of the UNet executor the loop runs (a
-        CPU device, streamed weights, a mesh, pipeline stages, the per-op
-        interpreter, QDQ without ranges). There the same step runs op by op,
-        through ``Session.run`` where ``segment_fn_problem`` names a reason."""
+        or None: ``program_problem`` of the UNet executor the loop runs (a
+        CPU device, a mesh, the per-op interpreter; streamed weights,
+        pipeline stages). There the same step runs op by op, through
+        ``Session.run`` where ``segment_fn_problem`` names a reason, whose
+        segments replay graphs of their own on a card."""
         pair = not self.turbo and self._unet_batch() == 2
-        return capture_problem(self._loop_executor(2 if pair else 1))
+        return program_problem(self._loop_executor(2 if pair else 1))
+
+    def tile_capture_problem(self) -> Optional[str]:
+        """Why the tiled decode is not captured into one CUDA graph, or
+        None: ``program_problem`` of the tile decoder's executor at the
+        default tile size."""
+        return program_problem(self._tile_executor(self._tile_size)[1])
 
     def _step_program(self, steps: int, cfg: float, has_uncond: bool, pair: bool) -> DeviceProgram:
         """generate_on_device's step (JAX ``step`` in ``generate_on_device``)
@@ -962,6 +980,17 @@ class StableDiffusionPipeline:
             fx[0, : min(ramp, tw)] = np.arange(min(ramp, tw), dtype=np.float32) / ramp
         return fy * fx
 
+    def _tile_executor(self, tile: int, z: Optional[torch.Tensor] = None) -> Tuple[Session, Executor]:
+        """The tile decoder's session and its executor at the tile size,
+        planned for z's top-left tile (zeros on the pipeline's device where
+        z is None)."""
+        sess = self.vae_tile_session or self.vae_decoder
+        if z is None:
+            z = torch.zeros((4, tile, tile), dtype=torch.float32, device=self.device)
+        sess.clear_tensors()
+        sess.add_tensor(next(iter(sess.graph.inputs)), z[None, :, :tile, :tile].contiguous())
+        return sess, sess._executor()
+
     def _decode_tiled(self, latents: Latents, tile: Optional[int] = None, stride: Optional[int] = None,
                       ramp: Optional[int] = None) -> np.ndarray:
         """Tiled decode of (4, h, w) latents -> (8h, 8w, 3) uint8 (JAX
@@ -981,10 +1010,11 @@ class StableDiffusionPipeline:
         constants, the blend and the uint8 mapping inside; on a card its
         second run captures it into one CUDA graph. Elsewhere (streamed, a
         mesh, stages, the per-op interpreter: JAX's segmented decoder) a tile
-        is one ``Session.run``. A latent smaller than the tile decodes as one
-        clamped tile."""
+        is one ``Session.run``, whose segments replay graphs of their own on
+        a card (``tile_capture_problem``). A latent smaller than the tile
+        decodes as one clamped tile."""
         tile = min(tile or self._tile_size, z.shape[1], z.shape[2])
-        sess = self.vae_tile_session or self.vae_decoder
+        sess, ex = self._tile_executor(tile, z)
         # upscale factor from the tile model's declared output shape
         out_spec = sess.graph.produced[sess.graph.output_names()[0]]
         in_spec = next(iter(sess.graph.inputs.values()))
@@ -995,9 +1025,6 @@ class StableDiffusionPipeline:
         ys, xs = self._tile_grid(lh, lw, tile, stride)
         name = next(iter(sess.graph.inputs))
         th = tw = tile * scale
-        sess.clear_tensors()
-        sess.add_tensor(name, z[None, :, :tile, :tile].contiguous())
-        ex = sess._executor()
         direct = segment_fn_problem(ex) is None
         factors = lambda: torch.as_tensor(np.stack(
             [self._blend_factor(sy * scale, sx * scale, th, tw, ramp) for sy in ys for sx in xs])).to(z.device)

@@ -18,14 +18,18 @@ run op by op on ``SessionConfig.device``:
     dispatched, segment k+1's weights are fetched (in ``stream_entries``
     order, spread over segment k's ops, all before its last op) into one of
     two reused host staging buffers (pinned on CUDA; the native prefetcher
-    writes into them directly) and copied to the device on a copy stream of
-    their own; the compute stream waits on that copy's event before segment
-    k+1's first op. Segment k's weights are released once its last op is
-    enqueued (JAX donates them); each was ``record_stream``-ed onto the
-    compute stream, and segment k+1's first upload waits until the device
-    has finished segment k-1, so at most two segments' weights are alive and
-    a staging buffer is never overwritten before its copy ended. On the CPU
-    the same schedule runs without streams or events;
+    writes into them directly) and copied on a copy stream of their own into
+    one of two **weight slots**, device buffers allocated once, each as
+    large as the largest segment's upload bytes: segment k's weights are
+    views of slot k % 2 at offsets the plan fixes (``slot_offsets``), the
+    same on every run. File bytes converted on the card cross into one fixed
+    raw buffer and are converted into their view; synthesized weights are
+    generated and copied into theirs. The compute stream waits on the copy's
+    event before segment k+1's first op; the copy stream waits, before
+    filling a slot, for the end event of the last segment that read it
+    (segment k-1), and the host for the last copy out of a staging buffer
+    before refilling it. On the CPU the same schedule and the same slots
+    run without streams or events;
   * intermediates are freed after their last use; boundary activations
     after the segment that reads them last.
 
@@ -130,30 +134,43 @@ segment's ops as a function of its weights and inputs, which autograd can
 differentiate where no op runs a hand-written kernel (the train step of
 ``parallel/sharding.py``).
 
-Captured segments (JAX ``_compiled``, ``jax.jit`` of the segment function):
-on one CUDA device with its weights resident, ``run`` dispatches the segment
-op by op once (the warm-up: kernels built at first use, cuBLAS and cuDNN
-plans chosen, workspaces and constants sized), captures the segment's ops
-into a ``torch.cuda.CUDAGraph`` on the second run, and from then on copies
-the inputs into the graph's static buffers and replays it. The outputs are
-copies, as JAX's are fresh arrays, so a later replay never overwrites what a
-caller holds. ``capture_problem`` states why an executor is not captured
-(the CPU, streaming, a mesh, pipeline stages, the per-op interpreter, ranges
-taken from the data); those run op by op every time. A capture that fails
-raises, naming the op that was dispatching: nothing falls back. The graph
-holds the weights and the kernels' workspaces it reads
-(``kernels.capturing``). The launches the wrappers counted during the
-capture are held to the graph's kernel nodes (``kernels.held_to_graph``,
-``graph_launches``), and each replay adds them to the wrappers' counts.
-``memory_analysis`` gives the bytes of its memory pool. A change of a scalar
-config option (``use_flash_attention``, ...) drops the graph: the next run
-is a warm-up again; so does ``reset_graph``, and runs inside ``eager()`` go
-op by op and leave the graph as it was. Sessions whose runs never overlap
-may share one pool (``Session.graph_pool``). ``capture_graph`` is the one
-capture of the port: the executor's segment and the SD pipeline's device
-programs (``models/sd/pipeline.py DeviceProgram``: a step of the denoising
-loop, the tiled decode), which call ``segment_fn(0)`` over the resident
-weights where ``segment_fn_problem`` finds nothing in the way.
+Captured segments (JAX ``_compiled``, ``jax.jit`` of every segment
+function): on a CUDA device, ``run`` dispatches the segments op by op once
+(the warm-up: kernels built at first use, cuBLAS and cuDNN plans chosen,
+workspaces and constants sized); on the second run it captures each
+segment's ops into a ``torch.cuda.CUDAGraph`` of its own and replays it
+(a capture executes nothing), and from then on copies the graph inputs into
+static buffers and replays the segments' graphs in order. Every graph of an
+executor allocates from one pool (``Session.graph_pool``, or the
+executor's own), captured and replayed in run order, so a boundary
+activation dropped after its last reader (``_boundary_lifetimes``) leaves
+its memory to the later segments. Graph k+1 reads graph k's outputs where
+they lie. A streamed segment reads its weights from its slot's views, which
+the copy stream refills outside the graphs before each replay: from the
+third run on, the host replays segment k, records its end event and then
+fetches segment k+1 whole while the card runs k. Pipeline stages capture a
+graph a segment on their stage's device over its resident weights; a
+boundary activation that changes device is copied into a static buffer
+outside the graphs. The outputs are copies, as JAX's are fresh arrays, so a
+later replay never overwrites what a caller holds. ``capture_problem``
+states why an executor is not captured (the CPU, a mesh, the per-op
+interpreter); those run op by op every time. A capture that fails raises,
+naming the segment and the op that was dispatching: nothing falls back. A
+graph holds what it reads at fixed addresses: the weights (the slot views
+or the resident tensors) and their quantization vectors, and the kernels'
+workspaces (``kernels.capturing``). The launches the wrappers counted
+during a capture are held to the graph's kernel nodes
+(``kernels.held_to_graph``, ``graph_launches``), and each replay adds them
+to the wrappers' counts. ``memory_analysis(si)`` gives segment si's graph's
+bytes. A change of a scalar config option (``use_flash_attention``, ...)
+drops the graphs: the next run is a warm-up again; so does ``reset_graph``,
+and runs inside ``eager()`` go op by op and leave the graphs as they were.
+Sessions whose runs never overlap may share one pool
+(``Session.graph_pool``). ``capture_graph`` is the one capture of the port:
+the executor's segments and the SD pipeline's device programs
+(``models/sd/pipeline.py DeviceProgram``: a step of the denoising loop, the
+tiled decode), which call ``segment_fn(0)`` over the resident weights where
+``segment_fn_problem`` finds nothing in the way.
 """
 
 from __future__ import annotations
@@ -376,7 +393,11 @@ def synth_seed(name: str) -> int:
     return zlib.crc32(name.encode())
 
 
-STAGING_ALIGN = 256  # bytes: each weight's slice of a staging buffer starts on this
+STAGING_ALIGN = 256  # bytes: each weight's slice of a staging buffer or a slot starts on this
+
+
+def _aligned(n: int) -> int:
+    return -(-n // STAGING_ALIGN) * STAGING_ALIGN
 
 
 def _file_bytes(w: WeightArg) -> int:
@@ -385,36 +406,43 @@ def _file_bytes(w: WeightArg) -> int:
     return math.prod(w.shape) * w.file_dtype.itemsize
 
 
-class _SegmentFetch:
-    """One segment's weights on their way to the device in a streamed run:
-    fetched in order into staging buffer ``slot`` and copied on the copy
-    stream (CUDA) or into fresh tensors (CPU). ``advance(n)`` fetches up to
-    the n-th weight; the first call first waits until the device has
-    finished the segment before the one now running (``after``), whose
-    weights are then free, as is this slot's staging buffer. ``take()``
-    completes the fetch, makes the compute stream wait for its copies and
-    hands the weights over."""
+def _upload_strides(w: WeightArg) -> tuple:
+    """The strides of w's device tensor: channels-last for an ``ohwi``
+    weight (the relayout's memory format), contiguous for the rest."""
+    fmt = torch.channels_last if w.transform == "ohwi" else torch.contiguous_format
+    return torch.empty(w.shape, device="meta", memory_format=fmt).stride()
 
-    def __init__(self, ex: "Executor", si: int, slot: int, after=None):
-        self.ex, self.si, self.slot, self.after = ex, si, slot, after
+
+class _SegmentFetch:
+    """Segment si's weights on their way to its slot (si % 2) in a streamed
+    run: fetched in order into the staging buffer of the same index and
+    copied into the slot's views on the copy stream (CUDA; on the CPU the
+    same copies, in order). ``advance(n)`` fetches up to the n-th weight;
+    its first call makes the host wait until the last copy out of this
+    staging buffer has ended, and the copy stream until the compute stream
+    has finished the last segment that read this slot (``_slot_done``:
+    segment si - 2, or the run before's). ``take()`` completes the fetch,
+    makes the compute stream wait for its copies and hands the views over."""
+
+    def __init__(self, ex: "Executor", si: int):
+        self.ex, self.si, self.slot = ex, si, si % 2
         # the stream the weights are read on (the fetch runs under the copy stream)
         self.compute = torch.cuda.current_stream(ex.device) if ex._copy_stream is not None else None
         self.args = ex.segments[si].weight_args
         self.weights: Dict[str, torch.Tensor] = {}
         self.done = 0
         self.offset = 0
-        self.ready = None
 
     def advance(self, n: int) -> None:
         ex = self.ex
         if self.done >= n:
             return
+        stream = ex._copy_stream
         if self.done == 0:
-            if self.after is not None:
-                self.after.synchronize()
             if ex._staging_free[self.slot] is not None:
                 ex._staging_free[self.slot].synchronize()
-        stream = ex._copy_stream
+            if stream is not None and ex._slot_done[self.slot] is not None:
+                stream.wait_event(ex._slot_done[self.slot])
         ctx = torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext()
         with ctx:
             for w in self.args[self.done:n]:
@@ -423,62 +451,61 @@ class _SegmentFetch:
 
     def _fetch(self, w: WeightArg) -> torch.Tensor:
         ex = self.ex
+        view = ex.slot_view(self.si, w)
         kind = ex._synth_kind(w)
         if kind is not None:
-            return self._stream_ordered(w, ex._synthesize(w, kind))
+            view.copy_(ex._synthesize(w, kind))
+            return self._stream_ordered(w, view)
         buf = ex._staging[self.slot][self.offset:]
         self.offset += ex._staged_bytes(w)
         if ex._crosses_as_file_bytes(w):
             # the file's bytes cross as they are: the provider writes them
             # into the staging buffer (the native prefetcher with no second
-            # host copy). A float weight that no provider keeps converted is
-            # converted on the card, on the copy stream
+            # host copy). A float weight that no provider keeps converted
+            # crosses into the raw buffer and is converted into its view on
+            # the card, on the copy stream
             host = buf[:_file_bytes(w)].view(w.file_dtype.torch).view(w.shape)
             ex.provider.get_into(w.name, w.file_dtype, w.shape, host)
+            if host.dtype != view.dtype:
+                raw = ex._raw[:_file_bytes(w)].view(host.dtype).view(w.shape)
+                raw.copy_(host, non_blocking=True)
+                host = raw
         else:
-            conv = ex._host_weight(w)
-            # the host tensor's layout (channels-last for ohwi) is kept
-            host = buf[:upload_bytes(w)].view(w.upload_dtype).as_strided(conv.shape, conv.stride())
-            host.copy_(conv)
-        dev = torch.empty_strided(host.shape, host.stride(), dtype=host.dtype, device=ex.device)
-        dev.copy_(host, non_blocking=True)
-        return self._stream_ordered(w, dev.to(w.upload_dtype))
+            # staged in the view's layout (channels-last for ohwi), so the copy is one memcpy
+            host = buf[:upload_bytes(w)].view(w.upload_dtype).as_strided(view.shape, view.stride())
+            host.copy_(ex._host_weight(w))
+        view.copy_(host, non_blocking=True)
+        return self._stream_ordered(w, view)
 
-    def _stream_ordered(self, w: WeightArg, dev: torch.Tensor) -> torch.Tensor:
+    def _stream_ordered(self, w: WeightArg, view: torch.Tensor) -> torch.Tensor:
         if self.compute is not None:
-            # allocated on the copy stream, read on the compute stream: the
-            # allocator must not hand its block out again before the compute
-            # stream is done with it
-            for t in (dev, *(w.quant or ())):
+            # quantization vectors made on the copy stream and read on the
+            # compute stream: the allocator must not hand their blocks out
+            # again before the compute stream is done with them
+            for t in w.quant or ():
                 if isinstance(t, torch.Tensor) and t.device.type == "cuda":
                     t.record_stream(self.compute)
-        return dev
+        return view
 
     def take(self) -> Dict[str, torch.Tensor]:
         self.advance(len(self.args))
         ex = self.ex
+        ready = None
         if self.compute is not None:
-            self.ready = torch.cuda.Event()
-            self.ready.record(ex._copy_stream)
-            self.compute.wait_event(self.ready)
-        ex._staging_free[self.slot] = self.ready
+            ready = torch.cuda.Event()
+            ready.record(ex._copy_stream)
+            self.compute.wait_event(ready)
+        ex._staging_free[self.slot] = ready
         weights, self.weights = self.weights, {}
         return weights
 
 
-def segment_fn_problem(ex: "Executor") -> Optional[str]:
-    """Why ``ex.segment_fn(0)`` over the executor's resident weights cannot
-    stand for ``ex.run`` (a pipeline's device program calls it directly, as
-    JAX's programs call ``_segment_fn``), or None. Decided from the config
-    and the plan alone."""
+def _interpreter_problem(ex: "Executor") -> Optional[str]:
+    """What keeps a run of ex op by op on any device: a mesh (its
+    collectives), the per-op interpreter's flags, no device ops; or None."""
     config = ex.config
-    if ex.streamed:
-        return (f"streamed: weights cross to the card on every run (hbm_budget_bytes "
-                f"{config.hbm_budget_bytes}, {len(ex.segments)} segments)")
     if config.mesh is not None:
         return "runs under a mesh: its collectives are not captured (gloo gathers cross host memory)"
-    if config.pp_devices:
-        return f"pipeline stages on {len(config.pp_devices)} devices: activations hop between them"
     for flag in ("ops_printf", "ops_times_printf", "range_data_calibrate"):
         if getattr(config, flag):
             return f"{flag}: Session.run takes the per-op interpreter (run_eager)"
@@ -487,23 +514,31 @@ def segment_fn_problem(ex: "Executor") -> Optional[str]:
     return None
 
 
-def capture_problem(ex: "Executor") -> Optional[str]:
-    """Why ``ex.run`` cannot capture its segment into a CUDA graph and
-    replay it, or None: a CPU device, ``segment_fn_problem``, or ranges
-    taken from the data. Decided from the config and the plan alone:
-    nothing is asked of a card."""
+def segment_fn_problem(ex: "Executor") -> Optional[str]:
+    """Why ``ex.segment_fn(0)`` over the executor's resident weights cannot
+    stand for ``ex.run`` (a pipeline's device program calls it directly, as
+    JAX's programs call ``_segment_fn``), or None: streamed weights,
+    pipeline stages, or ``_interpreter_problem``. Decided from the config
+    and the plan alone."""
     config = ex.config
+    if ex.streamed:
+        return (f"streamed: weights cross to the card on every run (hbm_budget_bytes "
+                f"{config.hbm_budget_bytes}, {len(ex.segments)} segments)")
+    if config.pp_devices:
+        return f"pipeline stages on {len(config.pp_devices)} devices: activations hop between them"
+    return _interpreter_problem(ex)
+
+
+def capture_problem(ex: "Executor") -> Optional[str]:
+    """Why ``ex.run`` cannot capture its segments into CUDA graphs and
+    replay them, or None: a CPU device, or ``_interpreter_problem``.
+    Streamed segments, pipeline stages and QDQ ranges taken from the data
+    (sorted on the device, sized from shapes: nothing waits for the card)
+    are captured. Decided from the config and the plan alone: nothing is
+    asked of a card."""
     if ex.device.type != "cuda":
         return f"runs on {ex.device}: CUDA graphs exist on CUDA devices only"
-    problem = segment_fn_problem(ex)
-    if problem is not None:
-        return problem
-    if config.use_uint8_qdq:
-        missing = ex._qdq_sampled()
-        if missing:
-            return (f"use_uint8_qdq without calibrated ranges for {len(missing)} ops (e.g. {missing[0]!r}): "
-                    f"each run takes their ranges from its own values")
-    return None
+    return _interpreter_problem(ex)
 
 
 # config fields that ops read at dispatch time: a captured graph holds the
@@ -606,12 +641,12 @@ def memory_analysis(g: CapturedGraph) -> Dict[str, Any]:
 @dataclasses.dataclass
 class _Replay:
     """A captured segment: its graph (``capture_graph``: the outputs, the
-    weights and their quantization vectors it reads, the wrappers' record),
-    the static buffers its inputs are copied into, and the config key it was
-    captured under."""
+    weights and their quantization vectors it reads, the wrappers' record)
+    and, under pipeline stages, the boundary activations that change device:
+    (the producer's tensor, the static buffer on this stage) pairs, copied
+    before each replay."""
     captured: CapturedGraph
-    inputs: Dict[str, torch.Tensor]
-    key: tuple
+    hops: List[tuple]
 
 
 def _pool_bytes(pool) -> int:
@@ -687,22 +722,31 @@ class Executor:
         self.quantize_seconds = 0.0
         # weights converted to their upload dtype on the host (_host_weight)
         self.host_conversions = 0
-        # streamed runs: the two staging buffers and the copy stream
+        # streamed runs: the two staging buffers, the two weight slots and
+        # the raw buffer on the device, the copy stream, each staging
+        # buffer's last copy and each slot's last reader (events)
         self._staging: List[Optional[torch.Tensor]] = [None, None]
         self._staging_free: List[Any] = [None, None]
+        self._slots: List[Optional[torch.Tensor]] = [None, None]
+        self._raw: Optional[torch.Tensor] = None
+        self._slot_done: List[Any] = [None, None]
         self._copy_stream = None
+        self.slot_offsets = self._slot_offsets()
         # per segment: activations read by a later segment, dropped after it
         self._drop_after = self._boundary_lifetimes()
         # plan constants on the other pipeline stages' devices (see _eval_op)
         self._stage_consts: Dict[str, Dict[int, list]] = {}
         provider.on_init(plan.stream_entries())
         self._first_run_done = False
-        # captured segments: the pool their graphs allocate from (None: a
-        # private one; Session.graph_pool shares one), the eager warm-up
-        # run's config key, and the replay once captured
+        # captured segments: the pool their graphs allocate from (None: one
+        # of the executor's own; Session.graph_pool shares one), the eager
+        # warm-up run's config key, once captured a replay a segment, the
+        # static buffers of the graph inputs and the key of the capture
         self.graph_pool = graph_pool
         self._warm_key: Optional[tuple] = None
-        self._replay: Optional[_Replay] = None
+        self._replays: Optional[List[_Replay]] = None
+        self._static: Dict[str, torch.Tensor] = {}
+        self._replay_key: Optional[tuple] = None
         # the op being dispatched, named when a capture fails
         self._dispatching: Optional[int] = None
         # inside eager(): runs go op by op
@@ -1339,8 +1383,8 @@ class Executor:
         return self.config.hbm_budget_bytes > 0 and not self.config.pp_devices
 
     def _boundary_lifetimes(self) -> List[set]:
-        """Per segment, the boundary activations it reads last: a streamed
-        run drops them once it has run (fetched outputs excepted)."""
+        """Per segment, the boundary activations it reads last: a run drops
+        them once it has run (fetched outputs excepted)."""
         last: Dict[str, int] = {}
         for si, seg in enumerate(self.segments):
             for n in seg.in_names:
@@ -1352,17 +1396,45 @@ class Executor:
                 drop[si].add(n)
         return drop
 
+    def _slot_offsets(self) -> List[Dict[str, int]]:
+        """Per segment, each weight's byte offset in its slot (slot si % 2):
+        the segment's weights in ``weight_args`` order, each starting on
+        ``STAGING_ALIGN``; the same on every run."""
+        plans = []
+        for seg in self.segments:
+            offsets, end = {}, 0
+            for w in seg.weight_args:
+                offsets[w.name] = end
+                end += _aligned(upload_bytes(w))
+            plans.append(offsets)
+        return plans
+
+    def slot_view(self, si: int, w: WeightArg) -> torch.Tensor:
+        """Segment si's weight w in its slot: a fresh view in w's upload
+        dtype, shape and layout at the plan's offset (``slot_offsets``)."""
+        off = self.slot_offsets[si][w.name]
+        raw = self._slots[si % 2][off:off + upload_bytes(w)]
+        return raw.view(w.upload_dtype).as_strided(w.shape, _upload_strides(w))
+
     def _start_streaming(self) -> None:
-        """The copy stream (CUDA) and the two staging buffers, each as large
-        as the largest segment's staged weights; pinned on CUDA."""
+        """The copy stream (CUDA), the two staging buffers, each as large as
+        the largest segment's staged weights (pinned on CUDA), and on the
+        device the two weight slots, each as large as the largest segment's
+        upload bytes, and the raw buffer of the largest weight converted on
+        the card."""
         if self._staging[0] is not None:
             return
         if self.device.type == "cuda":
             self._copy_stream = torch.cuda.Stream(self.device)
-        size = max((sum(self._staged_bytes(w) for w in seg.weight_args if self._synth_kind(w) is None)
-                    for seg in self.segments), default=0)
+        real = [[w for w in seg.weight_args if self._synth_kind(w) is None] for seg in self.segments]
+        size = max((sum(self._staged_bytes(w) for w in ws) for ws in real), default=0)
         pin = self.device.type == "cuda"
         self._staging = [torch.empty(max(size, 1), dtype=torch.uint8, pin_memory=pin) for _ in range(2)]
+        slot = max((sum(_aligned(upload_bytes(w)) for w in seg.weight_args) for seg in self.segments), default=0)
+        self._slots = [torch.empty(max(slot, 1), dtype=torch.uint8, device=self.device) for _ in range(2)]
+        raw = max((_file_bytes(w) for ws in real for w in ws
+                   if self._crosses_as_file_bytes(w) and w.file_dtype.torch != w.upload_dtype), default=0)
+        self._raw = torch.empty(max(raw, 1), dtype=torch.uint8, device=self.device)
 
     def _crosses_as_file_bytes(self, w: WeightArg) -> bool:
         """Whether a streamed run copies w's file bytes to the card as they
@@ -1376,8 +1448,7 @@ class Executor:
         """w's part of a staging buffer: the bytes that cross, its file bytes
         (``_crosses_as_file_bytes``) or its upload bytes, aligned; under a
         mesh this rank's slice of them."""
-        n = _file_bytes(w) if self._crosses_as_file_bytes(w) else upload_bytes(w)
-        return -(-n // STAGING_ALIGN) * STAGING_ALIGN
+        return _aligned(_file_bytes(w) if self._crosses_as_file_bytes(w) else upload_bytes(w))
 
     def _segment_env(self, si: int, acts, results) -> Dict[str, Any]:
         env = {n: (acts[n] if n in acts else results[n]) for n in self.segments[si].in_names}
@@ -1386,36 +1457,27 @@ class Executor:
 
     def run(self, inputs: Dict[str, Any], device_outputs: bool = False) -> Dict[str, Any]:
         """Segmented run, double-buffered when streamed (see the module
-        docstring); a captured graph's replay from the second run on where
-        ``capture_problem`` finds nothing in the way. Returns float outputs
-        as float32 numpy and integers as int64 numpy; with
-        ``device_outputs`` the device tensors in their compute dtypes, fresh
-        copies when replayed (outputs folded on the host stay numpy)."""
+        docstring); from the second run on, each segment's graph captured
+        and replayed where ``capture_problem`` finds nothing in the way.
+        Returns float outputs as float32 numpy and integers as int64 numpy;
+        with ``device_outputs`` the device tensors in their compute dtypes,
+        fresh copies when replayed (outputs folded on the host stay
+        numpy)."""
         if self._first_run_done:
             self.provider.on_restart()
         key = self._dispatch_key()
-        if self._replay is not None and self._replay.key != key:
-            self._replay = None  # captured under other options: warm up again
+        if self._replays is not None and self._replay_key != key:
+            self.reset_graph()  # captured under other options: warm up again
         with reference_precision():
             acts = self._prepare_inputs(inputs)
             results: Dict[str, torch.Tensor] = {}
             if not self._eager_only and (
-                    self._replay is not None or (self._warm_key == key and capture_problem(self) is None)):
+                    self._replays is not None or (self._warm_key == key and capture_problem(self) is None)):
                 results = self._run_captured(acts, key)
                 if device_outputs:
                     results = {n: t.clone() for n, t in results.items()}
-            elif not self.streamed:
-                for si, seg in enumerate(self.segments):
-                    weights = self._fetch_segment_weights(seg, si)
-                    env = self._segment_env(si, acts, results)
-                    device = None
-                    if self.config.pp_devices:
-                        # boundary activations hop onto this segment's stage
-                        device = self.seg_device(si)
-                        env = {k: v.to(device) if isinstance(v, torch.Tensor) else v for k, v in env.items()}
-                    results.update(self._run_segment(seg, weights, env, device=device))
-            elif self.segments:
-                self._run_streamed(acts, results)
+            else:
+                results = self._run_segments(acts)
             out = self._outputs(results, device_outputs)
         self._first_run_done = True
         self._warm_key = key
@@ -1429,33 +1491,81 @@ class Executor:
         return tuple((f.name, v) for f in dataclasses.fields(self.config)
                      if isinstance(v := getattr(self.config, f.name), _SCALARS))
 
-    def _qdq_sampled(self) -> List[str]:
-        """Under use_uint8_qdq, the ops whose pushed float outputs take their
-        range from the data (``_qdq_range``: no calibrated range, not a
-        Softmax)."""
-        fetched = set(self.plan.fetch_names)
-        rd = self.config.range_data
-        out = []
-        for oi, op in enumerate(self.graph.ops):
-            if self.plan.op_modes[oi] != "device" or op.op_type == "Softmax" or op.name in rd:
-                continue
-            if any(t.name and t.name not in self._qdq_skip and t.name not in fetched and t.name in self.plan.avals
-                   and self.plan.avals[t.name].dtype.is_floating_point for t in op.outputs):
-                out.append(op.name)
-        return out
+    def _segment_done(self, si: int) -> None:
+        """Segment si is enqueued on the compute stream: its end event
+        guards its slot (``_SegmentFetch``) until the device has run it."""
+        if self._copy_stream is not None:
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(self.device))
+            self._slot_done[si % 2] = done
+
+    def _run_segments(self, acts: Dict[str, Any], graphs: Optional[List[_Replay]] = None,
+                      pool=None) -> Dict[str, torch.Tensor]:
+        """Every segment in order, op by op (``graphs`` None) or through its
+        graph, captured into ``pool`` first where ``graphs`` has none for it
+        yet; the outputs the later segments and the caller read. A streamed
+        run fetches segment k+1's weights into its slot while segment k
+        runs: spread over k's ops op by op, whole once k's graph is
+        enqueued. Under pipeline stages a boundary activation hops onto its
+        reader's stage. An activation past its last reader is dropped (from
+        its producer's graph outputs too: a later capture of the pool may
+        take its memory)."""
+        streamed = self.streamed and bool(self.segments)
+        if streamed:
+            self._start_streaming()
+            fetch = _SegmentFetch(self, 0)
+        results: Dict[str, torch.Tensor] = {}
+        try:
+            for si, seg in enumerate(self.segments):
+                weights = fetch.take() if streamed else self._fetch_segment_weights(seg, si)
+                nxt = _SegmentFetch(self, si + 1) if streamed and si + 1 < len(self.segments) else None
+                if graphs is None:
+                    env = self._segment_env(si, acts, results)
+                    device = self.seg_device(si) if self.config.pp_devices else None
+                    if device is not None:
+                        env = {k: v.to(device) if isinstance(v, torch.Tensor) else v for k, v in env.items()}
+                    results.update(self._run_segment(seg, weights, env, nxt, device))
+                else:
+                    # a replayed graph reads its inputs where they lay at its
+                    # capture: only a capture takes them from the results
+                    if len(graphs) == si:
+                        graphs.append(self._capture(si, weights, self._segment_env(si, acts, results), pool))
+                    for src, buf in graphs[si].hops:
+                        buf.copy_(src)
+                    with torch.cuda.device(self.seg_device(si)):
+                        graphs[si].captured.replay()
+                    if nxt is not None:
+                        nxt.advance(len(nxt.args))
+                    results.update(graphs[si].captured.outputs)
+                self._segment_done(si)
+                for name in self._drop_after[si]:
+                    results.pop(name, None)
+                    for rep in graphs or ():
+                        rep.captured.outputs.pop(name, None)
+                fetch = nxt
+        except BaseException:
+            # a fetch cut short may leave copies in flight from a staging
+            # buffer whose free event was never recorded
+            if self._copy_stream is not None:
+                self._copy_stream.synchronize()
+            raise
+        return results
 
     def _run_captured(self, acts: Dict[str, torch.Tensor], key: tuple) -> Dict[str, torch.Tensor]:
-        """The segment's outputs from a replay of its graph, captured first
-        when there is none; the outputs live in the graph's pool until the
-        next replay."""
-        rep = self._replay
-        if rep is None:
-            rep = self._replay = self._capture(acts, key)
-        else:
-            for name, buf in rep.inputs.items():
+        """The fetched outputs from a replay of every segment's graph
+        (``_run_segments``), each captured first on the run that has none,
+        over static copies of the graph inputs; they live in the graphs'
+        pool until the next replay."""
+        if self._replays is not None:
+            for name, buf in self._static.items():
                 buf.copy_(acts[name])
-        rep.captured.replay()
-        return rep.captured.outputs
+            return self._run_segments(self._static, self._replays)
+        self._static = {name: t.clone() for name, t in acts.items()}
+        graphs: List[_Replay] = []
+        pool = self.graph_pool if self.graph_pool is not None else torch.cuda.graph_pool_handle()
+        results = self._run_segments(self._static, graphs, pool)
+        self._replays, self._replay_key = graphs, key
+        return results
 
     def dispatch_site(self) -> Optional[str]:
         """The op a segment dispatch is at (a capture that failed names it),
@@ -1463,47 +1573,66 @@ class Executor:
         oi = self._dispatching
         return None if oi is None else f"at op #{oi} {self.graph.ops[oi].op_type} ({self.graph.ops[oi].name})"
 
-    def _capture(self, acts: Dict[str, torch.Tensor], key: tuple) -> _Replay:
-        """Capture the one segment's ops into a CUDA graph (``capture_graph``)
-        under the precision flags the warm-up ran with. Raises, naming the op
-        that was dispatching, when the capture fails, and when the graph
-        launches other kernels than the wrappers counted."""
-        seg = self.segments[0]
-        weights = self._fetch_segment_weights(seg, 0)
-        static = {name: t.clone() for name, t in acts.items()}
+    def _capture(self, si: int, weights: Dict[str, torch.Tensor], env: Dict[str, Any], pool) -> _Replay:
+        """Capture segment si's ops into a CUDA graph (``capture_graph``) on
+        its device, into ``pool``, under the precision flags the warm-up ran
+        with, over ``weights`` and ``env`` (the static graph inputs and the
+        earlier graphs' outputs, read where they lie; under pipeline stages
+        one that lies on another device is copied into a static buffer
+        here). Raises, naming the segment and the op that was dispatching,
+        when the capture fails, and when the graph launches other kernels
+        than the wrappers counted."""
+        seg = self.segments[si]
+        device = self.seg_device(si)
+        hops = []
+        if self.config.pp_devices:
+            for name, v in env.items():
+                if isinstance(v, torch.Tensor) and (moved := v.to(device)) is not v:
+                    hops.append((v, moved))
+                    env[name] = moved
+        stage = device if self.config.pp_devices else None
 
         def body():
-            return self._run_segment(seg, dict(weights), self._segment_env(0, static, {}))
+            return self._run_segment(seg, dict(weights), dict(env), device=stage)
 
         self._dispatching = None
-        captured = capture_graph(body, self.device, self.graph_pool, "segment 0",
+        captured = capture_graph(body, device, pool, f"segment {si}",
                                  lambda: self.dispatch_site() or "at the end of the capture",
-                                 static=static.values(), holds=(weights, [w.quant for w in seg.weight_args]))
-        return _Replay(captured, static, key)
+                                 static=[*(self._static.values() if si == 0 else ()), *(b for _, b in hops)],
+                                 holds=(weights, [w.quant for w in seg.weight_args], [src for src, _ in hops]))
+        captured.memory["shared_pool"] = self.graph_pool is not None  # else the executor's own
+        return _Replay(captured, hops)
 
     @property
     def captured(self) -> bool:
-        """Whether ``run`` replays a captured graph."""
-        return self._replay is not None
+        """Whether ``run`` replays captured graphs."""
+        return self._replays is not None
 
-    def graph_launches(self) -> Optional[Dict[str, int]]:
-        """What one replay of the captured graph launches, read from its
-        kernel nodes: per set of entry kernels (``kernels.held_to_graph``),
-        and ``"kernel_nodes"``, every kernel node; None before the capture."""
-        if self._replay is None:
+    def graph_launches(self, si: Optional[int] = None) -> Optional[Dict[str, int]]:
+        """What one replay of segment si's graph launches (every segment's,
+        summed, with si None: a run's), read from the kernel nodes: per set
+        of entry kernels (``kernels.held_to_graph``), and
+        ``"kernel_nodes"``, every kernel node; None before the capture."""
+        if self._replays is None:
             return None
-        return graph_launches(self._replay.captured)
+        if si is not None:
+            return graph_launches(self._replays[si].captured)
+        total: Dict[str, int] = {}
+        for rep in self._replays:
+            for k, n in graph_launches(rep.captured).items():
+                total[k] = total.get(k, 0) + n
+        return total
 
     def reset_graph(self) -> None:
-        """Drop the captured graph: the next run warms up op by op and the
+        """Drop the captured graphs: the next run warms up op by op and the
         one after captures again."""
-        self._replay, self._warm_key = None, None
+        self._replays, self._warm_key, self._replay_key, self._static = None, None, None, {}
 
     @contextlib.contextmanager
     def eager(self):
         """Runs inside go op by op, as a first run does (a reference for
-        the replays): the captured graph, its weights, static buffers and
-        pool are left as they were, and replay again after."""
+        the replays): the captured graphs, their weights, static buffers
+        and pool are left as they were, and replay again after."""
         self._eager_only = True
         try:
             yield
@@ -1511,39 +1640,25 @@ class Executor:
             self._eager_only = False
 
     def memory_analysis(self, si: int = 0) -> Optional[Dict[str, Any]]:
-        """Segment si's captured graph (JAX ``Executor.memory_analysis``, the
-        compiled program's buffers): the bytes of its memory pool
-        (``pool_bytes``, the allocator's segments of that pool; a pool that
-        sessions share counts everything in it), of its static inputs, its
-        outputs and the kernel workspaces it holds, and the capture's
-        seconds; None before the capture and for a segment that is not
-        captured."""
-        if self._replay is None or si != 0:
+        """Segment si's captured graph (JAX ``Executor.memory_analysis``, a
+        compiled segment's buffers): the bytes of its memory pool
+        (``pool_bytes``, the allocator's segments of that pool at its
+        capture; the pool is every segment's, and sessions may share it),
+        of its static inputs, its outputs and the kernel workspaces it
+        holds, and the capture's seconds; None before the capture."""
+        if self._replays is None:
             return None
-        return memory_analysis(self._replay.captured)
+        return memory_analysis(self._replays[si].captured)
 
-    def _run_streamed(self, acts, results) -> None:
-        self._start_streaming()
-        cuda = self._copy_stream is not None
-        fetch, done = _SegmentFetch(self, 0, 0), None
-        try:
-            for si, seg in enumerate(self.segments):
-                weights = fetch.take()
-                nxt = (_SegmentFetch(self, si + 1, (si + 1) % 2, after=done)
-                       if si + 1 < len(self.segments) else None)
-                results.update(self._run_segment(seg, weights, self._segment_env(si, acts, results), nxt))
-                for n in self._drop_after[si]:
-                    results.pop(n, None)
-                if cuda:
-                    done = torch.cuda.Event()
-                    done.record(torch.cuda.current_stream(self.device))
-                fetch = nxt
-        except BaseException:
-            # a fetch cut short may leave copies in flight from a staging
-            # buffer whose free event was never recorded
-            if cuda:
-                self._copy_stream.synchronize()
-            raise
+    def graph_memory(self) -> Optional[Dict[str, Any]]:
+        """The captured graphs' device memory: their pool (``pool``, its id;
+        ``pool_bytes``, its size once every segment was captured) and every
+        graph's static inputs (``input_bytes``); None before the capture."""
+        if self._replays is None:
+            return None
+        caps = [rep.captured for rep in self._replays]
+        return {"pool": tuple(caps[-1].graph.pool()), "pool_bytes": max(c.memory["pool_bytes"] for c in caps),
+                "input_bytes": sum(c.memory["input_bytes"] for c in caps)}
 
     def _activation_peaks(self, mapped: Sequence[str] = (), size: int = 1) -> List[int]:
         """Per segment, the most bytes of activations alive at once while
@@ -1632,9 +1747,9 @@ class Executor:
             sw = [sum(n.values()) for n in names]
             out.update(mode="pipeline", stage_weight_bytes=sw,
                        peak_bytes=max((a + sw[self.seg_stage(si)] for si, a in enumerate(act)), default=0))
-        graph = self.memory_analysis()
+        graph = self.graph_memory()
         if graph is not None:
-            # the captured graph's pool and static input buffers, beside the estimate
+            # the captured graphs' pool, once, and their static input buffers, beside the estimate
             out["graph_bytes"] = graph["pool_bytes"] + graph["input_bytes"]
         if self.mesh_info is not None:
             # this rank's bytes: the replicated weights whole, the sharded

@@ -13,12 +13,14 @@ is one rank's: its plans are this rank's share (``parallel/spmd.py``), keyed
 by the mesh's shape and the rank's coordinates beside the input shapes, and
 an input may be pushed as this rank's ``LocalShard``.
 
-On a CUDA device an executor's second ``run`` captures its segment into a
-CUDA graph and later runs replay it (``runtime/executor.py``, the
-counterpart of the JAX session's compiled segments); ``run(eager=True)``
-stays the per-op oracle. ``graph_pool`` is the memory pool the executors'
-graphs allocate from: None gives each its own, and the pipelines hand their
-sessions one pool (``share_graph_pool``), since their runs never overlap.
+On a CUDA device an executor's second ``run`` captures each of its segments
+into a CUDA graph, streamed and staged ones included, and later runs replay
+them (``runtime/executor.py``, the counterpart of the JAX session's
+compiled segments); ``run(eager=True)`` stays the per-op oracle.
+``graph_pool`` is the memory pool the executors' graphs allocate from: None
+gives each executor its own (one for all its segments), and the pipelines
+hand their sessions one pool (``share_graph_pool``), since their runs never
+overlap.
 """
 
 from __future__ import annotations
@@ -212,11 +214,10 @@ class Session:
         accounts = [ex.hbm_accounting() for ex in self._executors.values()]
         if accounts:
             out["accounting"] = max(accounts, key=lambda a: a["peak_bytes"])
-        graphs = [(ex._replay.captured.graph.pool(), ex.memory_analysis())
-                  for ex in self._executors.values() if ex.captured]
+        graphs = [m for ex in self._executors.values() if (m := ex.graph_memory()) is not None]
         if graphs:
-            pools = {tuple(pool): m["pool_bytes"] for pool, m in graphs}
-            out["graph_bytes"] = sum(pools.values()) + sum(m["input_bytes"] for _, m in graphs)
+            pools = {m["pool"]: m["pool_bytes"] for m in graphs}
+            out["graph_bytes"] = sum(pools.values()) + sum(m["input_bytes"] for m in graphs)
         dev = torch.device(self.config.device)
         if dev.type == "cuda":
             out["bytes_in_use"] = torch.cuda.memory_allocated(dev)

@@ -1,7 +1,12 @@
 """Captured segments, what the CPU can check: ``capture_problem`` names the
-reason for every configuration that runs op by op (and none for a resident
-plan on a CUDA device, decided without a card), runs on the CPU never
-capture and stay where they were against the JAX session, the bookkeeping
+reason for every configuration that runs op by op, and none, decided
+without a card, for a resident, streamed or staged plan on a CUDA device or
+one with QDQ ranges taken from the data (the SD programs around a streamed
+or staged model still name theirs); the captured run's segment loop with
+each graph stood in for by its body (resident, streamed, staged, QDQ
+without ranges) against eager runs and the JAX session; runs on the CPU
+never capture, report no graph memory for any segment and stay where they
+were against the JAX session, the bookkeeping
 that a capture does around the kernel wrappers (launch counts, held
 workspaces, kernel 6's quantized A), the registry of launch counters, how a
 captured graph's kernel nodes are read and held to the launches the
@@ -11,6 +16,7 @@ The captures themselves, and replays against the per-op oracle, run on the
 card: tests/test_torch_capture_card.py.
 """
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -29,7 +35,8 @@ from onnxstream_tpu_torch.models.llm.llama import LLAMA_TINY, build_llama
 from onnxstream_tpu_torch.models.llm.pipeline import LlamaPipeline
 from onnxstream_tpu_torch.models.sd.pipeline import StableDiffusionPipeline
 from onnxstream_tpu_torch.models.sd.unet import TINY, build_unet
-from onnxstream_tpu_torch.runtime.executor import capture_problem
+from onnxstream_tpu_torch.runtime import executor as executor_mod
+from onnxstream_tpu_torch.runtime.executor import capture_problem, segment_fn_problem
 from onnxstream_tpu_torch.runtime.weights import DictWeightsProvider, params_from_numpy
 
 CPU = torch.device("cpu")
@@ -86,14 +93,28 @@ def _session(model: str, **config) -> Session:
 # (config, words of the stated reason)
 INELIGIBLE = {
     "cpu": (dict(device=CPU), "runs on cpu"),
-    "streamed": (dict(device=CARD, hbm_budget_bytes=64 << 10), "streamed: weights cross"),
     "mesh": (dict(device=CARD, mesh=_RankMesh(("dp", "tp"), (1, 2))), "runs under a mesh"),
-    "pp_devices": (dict(device=CARD, hbm_budget_bytes=64 << 10, pp_devices=[CARD, CARD]), "pipeline stages on 2"),
     "ops_printf": (dict(device=CARD, ops_printf=True), "ops_printf: Session.run takes the per-op interpreter"),
     "ops_times_printf": (dict(device=CARD, ops_times_printf=True), "ops_times_printf"),
     "calibration": (dict(device=CARD, range_data_calibrate=True), "range_data_calibrate"),
-    "qdq_without_ranges": (dict(device=CARD, use_uint8_qdq=True), "use_uint8_qdq without calibrated ranges"),
 }
+
+# configurations captured a graph a segment on a card: (config, segments at least)
+CAPTURED = {
+    "streamed": (dict(device=CARD, hbm_budget_bytes=64 << 10), 3),
+    "pp_devices": (dict(device=CARD, hbm_budget_bytes=64 << 10, pp_devices=[CARD, CARD]), 3),
+    "qdq_without_ranges": (dict(device=CARD, use_uint8_qdq=True), 1),
+}
+
+
+def _no_card(monkeypatch) -> None:
+    """Planning for cuda:0 on a machine without one, and asking the
+    predicates, must call nothing of torch.cuda."""
+    def no_card(*args, **kw):
+        raise AssertionError("touched the card")
+
+    for name in ("is_available", "current_stream", "synchronize", "memory_reserved", "graph_pool_handle"):
+        monkeypatch.setattr(torch.cuda, name, no_card)
 
 
 @pytest.mark.parametrize("model", sorted(MODELS))
@@ -109,25 +130,131 @@ def test_capture_problem_states_each_reason(model, case):
 def test_a_resident_plan_on_a_card_is_captured_without_touching_it(model, monkeypatch):
     """The predicate reads the config and the plan only: planning for cuda:0
     on a machine without one, and asking, call nothing of torch.cuda."""
-    def no_card(*args, **kw):
-        raise AssertionError("touched the card")
-
-    for name in ("is_available", "current_stream", "synchronize", "memory_reserved", "graph_pool_handle"):
-        monkeypatch.setattr(torch.cuda, name, no_card)
+    _no_card(monkeypatch)
     ex = Session._executor(_session(model, device=CARD, compute_dtype="bfloat16"))
     assert capture_problem(ex) is None
     assert not ex.captured and ex.memory_analysis() is None
 
 
-def test_qdq_with_every_range_is_captured_and_a_missing_one_is_named():
-    s = _session("unet", device=CARD, use_uint8_qdq=True)
+@pytest.mark.parametrize("model", sorted(MODELS))
+@pytest.mark.parametrize("case", sorted(CAPTURED))
+def test_capture_problem_is_none_for_streamed_staged_and_qdq_runs(model, case, monkeypatch):
+    """Streamed segments, pipeline stages and QDQ ranges taken from the data
+    are captured, a graph a segment, planned for cuda:0 without touching
+    it; what a device program's segment function cannot stand for stays
+    named (segment_fn_problem)."""
+    _no_card(monkeypatch)
+    config, segments = CAPTURED[case]
+    ex = Session._executor(_session(model, **config))
+    assert capture_problem(ex) is None and len(ex.segments) >= segments
+    assert not ex.captured and ex.graph_launches() is None and ex.graph_memory() is None
+    words = {"streamed": "streamed: weights cross", "pp_devices": "pipeline stages on 2"}.get(case)
+    problem = segment_fn_problem(ex)
+    assert (problem is None) if words is None else (words in problem), problem
+
+
+class _GraphStandIn:
+    """A captured CUDA graph stood in for on the CPU: the tensors its body
+    made at the capture are its memory; a replay runs the body again and
+    writes the values into those same tensors, where the later graphs read
+    them at their capture, as graphs that share a pool do."""
+
+    def __init__(self, body):
+        self.body, self.memory = body, body()
+        self.outputs = dict(self.memory)
+
+    def replay(self):
+        for name, v in self.body().items():
+            self.memory[name].copy_(v)
+
+
+def _request(model: str, i: int) -> dict:
+    if model == "unet":
+        return _unet_inputs(i)
+    req = _llama_inputs()
+    req["input_5F_ids"] = np.random.default_rng(i).integers(3, 500, (1, 8)).astype(np.int64)
+    return req
+
+
+@pytest.mark.parametrize("model", sorted(MODELS))
+@pytest.mark.parametrize("case", ["resident", "streamed", "pp_devices", "qdq_without_ranges"])
+def test_the_segment_loop_with_its_graphs_stood_in_for(model, case, monkeypatch):
+    """The captured run's loop on the CPU, each graph stood in for by its
+    body (``_GraphStandIn``): the first run op by op, the second captures a
+    graph a segment and replays it, later ones replay, over the static
+    inputs, the slots refilled between the segments; every run's outputs
+    equal an eager run of the same inputs (``Executor.eager``) and the JAX
+    session's within the repo's float32 bars."""
+    captured = []
+
+    def stand_in(body, device, pool, what, failed_at, static=(), holds=()):
+        captured.append(what)
+        return _GraphStandIn(body)
+
+    monkeypatch.setattr(executor_mod, "capture_graph", stand_in)
+    monkeypatch.setattr(executor_mod, "capture_problem", lambda ex: None)
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    config = {"resident": {}, "streamed": dict(hbm_budget_bytes=64 << 10),
+              "pp_devices": dict(hbm_budget_bytes=64 << 10, pp_devices=[CPU, CPU]),
+              "qdq_without_ranges": dict(use_uint8_qdq=True)}[case]
+    s = _session(model, device=CPU, **config)
+    s.graph_pool = ("a pool",)  # the executors' graphs share it: no pool handle is asked of a card
+    g = MODELS[model][0]()
+    js = JaxSession(JaxConfig(**{k: v for k, v in config.items() if k != "pp_devices"}),
+                    weights_provider=JaxDict(dict(g.weights)))
+    js.read_string(g.to_text())
+    for i in range(4):
+        for k, v in _request(model, i).items():
+            s.add_tensor(k, v)
+            js.add_tensor(k, v)
+        ex = s._executor()
+        got = s.run()
+        assert ex.captured == (i > 0) and captured == [f"segment {si}" for si in range(len(ex.segments))] * (i > 0)
+        with ex.eager():
+            want = s.run()
+        for name, w in js.run().items():
+            np.testing.assert_array_equal(got[name], want[name])
+            if case != "qdq_without_ranges":
+                np.testing.assert_allclose(got[name], w, rtol=1e-4, atol=1e-4)
+    assert len(ex.segments) >= (1 if case in ("resident", "qdq_without_ranges") else 3)
+
+
+@pytest.mark.parametrize("model", sorted(MODELS))
+def test_memory_analysis_is_none_for_every_segment_on_the_cpu(model):
+    s = _session(model, device=CPU, hbm_budget_bytes=64 << 10)
+    for _ in range(3):
+        s.run()
     ex = s._executor()
-    missing = ex._qdq_sampled()
-    assert missing and all(ex.graph.ops[i].op_type != "Softmax" for i, op in enumerate(ex.graph.ops)
-                           if op.name in missing)
-    assert repr(missing[0]) in capture_problem(ex)
-    s.config.range_data = {name: (-1.0, 1.0) for name in missing}
-    assert capture_problem(ex) is None
+    assert len(ex.segments) >= 3 and not ex.captured
+    assert all(ex.memory_analysis(si) is None for si in range(len(ex.segments)))
+    assert ex.graph_memory() is None and ex.graph_launches() is None and "graph_bytes" not in ex.hbm_accounting()
+
+
+@pytest.mark.parametrize("case", ["streamed", "pp_devices"])
+def test_the_sd_programs_name_a_streamed_or_staged_model(case, monkeypatch):
+    """Planned for cuda:0 without touching it: a streamed or staged UNet
+    and tile decoder capture their own segments (capture_problem None), but
+    generate_on_device's step and the tiled decode, whose bodies then call
+    Session.run, stay op by op around it: loop_capture_problem and
+    tile_capture_problem name segment_fn_problem's reason, and nothing for
+    the resident models."""
+    port = StableDiffusionPipeline.from_synthetic(tiny=True, device=CPU)
+    _no_card(monkeypatch)
+    sessions = (port.unet, port.vae_tile_session)
+    for sess in sessions:
+        sess.config.device = CARD
+        sess._executors.clear()
+    assert port.loop_capture_problem() is None and port.tile_capture_problem() is None
+    config, words = {"streamed": (dict(hbm_budget_bytes=64 << 10), "streamed: weights cross"),
+                     "pp_devices": (dict(hbm_budget_bytes=64 << 10, pp_devices=[CARD, CARD]),
+                                    "pipeline stages on 2")}[case]
+    for sess in sessions:
+        for k, v in config.items():
+            setattr(sess.config, k, v)
+        sess._executors.clear()
+    assert words in port.loop_capture_problem() and words in port.tile_capture_problem()
+    for ex in (port._loop_executor(1), port._tile_executor(port._tile_size)[1]):
+        assert capture_problem(ex) is None and len(ex.segments) > 1
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

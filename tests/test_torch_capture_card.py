@@ -139,11 +139,11 @@ def test_eager_runs_leave_the_graph_and_reset_drops_it():
     s.run()
     first = s.run()["out_sample"]
     ex = s._executor()
-    graph, replayed = ex._replay, kernels.replayed["flash_attention_packed"]
+    graph, replayed = ex._replays, kernels.replayed["flash_attention_packed"]
     before = kernels.launch_counts()["flash_attention_packed"]
     with ex.eager():
         eager = s.run()["out_sample"]
-    assert ex._replay is graph and kernels.replayed["flash_attention_packed"] == replayed
+    assert ex._replays is graph and kernels.replayed["flash_attention_packed"] == replayed
     assert kernels.launch_counts()["flash_attention_packed"] > before  # the wrappers ran
     np.testing.assert_array_equal(eager, first)
     np.testing.assert_array_equal(s.run()["out_sample"], first)
@@ -152,7 +152,7 @@ def test_eager_runs_leave_the_graph_and_reset_drops_it():
     s.run()
     assert not ex.captured
     s.run()
-    assert ex.captured and ex._replay is not graph
+    assert ex.captured and ex._replays is not graph
 
 
 @pytest.mark.gpu
@@ -448,11 +448,12 @@ def test_the_vmapped_tile_decoder_equals_per_tile_calls_in_float32(monkeypatch):
 
 @pytest.mark.gpu
 def test_a_streamed_unet_loop_names_its_problem_and_matches(monkeypatch):
-    """A UNet streamed under a budget runs the same step through Session.run
-    op by op, two runs a step: its loop_capture_problem names the streaming,
-    and its latents are, bit for bit, the resident UNet's in the same form
-    (its segment_fn_problem patched: two runs a step, op by op), whose own
-    form, one call vmapped over the CFG pair, is captured."""
+    """A UNet streamed under a budget runs the same step op by op around
+    Session.run, two runs a step, whose segments replay graphs of their own
+    from the UNet's second run: its loop_capture_problem names the
+    streaming, and its latents are, bit for bit, the resident UNet's in the
+    same form (its segment_fn_problem patched: two runs a step, op by op),
+    whose own form, one call vmapped over the CFG pair, is captured."""
     dev = _card()
     resident, streamed = _sd_pipe(monkeypatch, dev), _sd_pipe(monkeypatch, dev)
     streamed.unet.config.hbm_budget_bytes = 256 << 10
@@ -468,6 +469,8 @@ def test_a_streamed_unet_loop_names_its_problem_and_matches(monkeypatch):
     forms = lambda pipe: {k[5]: p for k, p in pipe.device_programs.items() if k[0] == "gen"}
     assert set(forms(resident)) == {"vmap", "two runs"} and forms(resident)["vmap"].captures == 1
     assert set(forms(streamed)) == {"two runs"} and forms(streamed)["two runs"].graph is None
+    ex = streamed._loop_executor(1)
+    assert ex.streamed and ex.captured and len(ex._replays) == len(ex.segments) > 1
 
 
 # the float32 loop of a batch-1 UNet vmapped over the CFG pair against the same loop two runs a step:

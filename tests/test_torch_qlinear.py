@@ -286,6 +286,35 @@ def test_qdq_without_ranges_matches_jax():
     assert _rel(got["y"], want["y"]) <= 1e-5
 
 
+@pytest.mark.parametrize("net", ["two_conv", "vae_tiny"])
+def test_qdq_without_ranges_segment_fn_matches_jax(net):
+    """QDQ without calibrated ranges through ``segment_fn(0)``, what a
+    captured segment and a device program run (each range sorted on the
+    device from the tensor itself): bit for bit with the port's
+    Session.run, and within the repo's bars of the JAX session (1e-5
+    relative on the two-conv net, one image level on the TINY VAE)."""
+    if net == "two_conv":
+        _, _, model, weights, x = _two_conv_net()
+        inputs = {"x": x}
+    else:
+        g = build_vae_decoder(VAE_TINY, seed=7)
+        assert g.to_text() == jax_build_vae_decoder(JAX_VAE_TINY, seed=7).to_text()
+        model, weights = g.to_text(), dict(g.weights)
+        inputs = {"latent": np.random.RandomState(42).randn(1, 4, 8, 8).astype(np.float32)}
+    ps, got, _, want = _run_both(model, weights, inputs, use_uint8_qdq=True)
+    ex = ps._executor()
+    seg = ex.segments[0]
+    resident = ex._fetch_segment_weights(seg, 0)
+    out = ex.segment_fn(0)([resident[w.name] for w in seg.weight_args], inputs)
+    ((name, y),) = out.items()
+    np.testing.assert_array_equal(y.float().numpy(), got[name])
+    if net == "two_conv":
+        assert _rel(got[name], want[name]) <= 1e-5
+    else:
+        levels = lambda v: np.clip(np.round((v / 2 + 0.5) * 255), 0, 255).astype(int)
+        assert np.abs(levels(got[name]) - levels(want[name])).max() <= 1
+
+
 def test_w8a8_matmul_session_matches_jax():
     """A MatMul with a uint8 weight and a range for its input (a graph input:
     the range recorded under the tensor's name) runs through qmatmul."""

@@ -7,7 +7,8 @@ the reference's layout (model.txt and one .bin a weight) and read back from
 disk by both Sessions. Outputs are held to the port's resident run bit for
 bit, and to the JAX Session with the same ``hbm_budget_bytes`` within the
 repo's bars (``tests/test_torch_session.py``): rtol = atol = 1e-4 in float32,
-max|port - jax| <= 5e-2 * max|jax| in bfloat16.
+max|port - jax| <= 5e-2 * max|jax| in bfloat16. The streamed weights sit in
+two fixed slots, at offsets the plan fixes, the same on every run.
 """
 
 import os
@@ -157,6 +158,46 @@ def test_ram_prefetch_converts_each_weight_once(models, model):
         for name in out:
             np.testing.assert_array_equal(out[name], outs[0][name])
     assert s2._executor().host_conversions == 0
+
+
+@pytest.mark.parametrize("model", ["unet", "llama"])
+def test_streamed_weights_sit_in_two_fixed_slots(models, model, monkeypatch):
+    """A streamed run's weights are views of two slots allocated once, at
+    the plan's offsets: each weight's data_ptr() is the same in runs 2 and
+    3, segment si's in slot si % 2 (the segments alternate), no two weights
+    of a segment overlap; the outputs stay bit for bit with the resident run
+    and within the repo's bars of the JAX session."""
+    model_txt, inputs = models[model]
+    budget = BUDGETS[model][1]
+    resident = _port(model_txt, inputs).run()
+    s = _port(model_txt, inputs, "ram+prefetch", hbm_budget_bytes=budget)
+    ex = s._executor()
+    runs = []
+    take = executor_mod._SegmentFetch.take
+
+    def spy(self_):
+        weights = take(self_)
+        runs[-1].append((self_.si, {n: (t.data_ptr(), t.numel() * t.element_size()) for n, t in weights.items()}))
+        return weights
+
+    monkeypatch.setattr(executor_mod._SegmentFetch, "take", spy)
+    for _ in range(3):
+        runs.append([])
+        out = s.run()
+        for name in out:
+            np.testing.assert_array_equal(out[name], resident[name])
+    _held_to_jax(out, _jax_out(models, model, budget, "float32")[0], "float32")
+    assert runs[1] == runs[2] and [si for si, _ in runs[1]] == list(range(len(ex.segments)))
+    bases = [t.data_ptr() for t in ex._slots]
+    assert len(ex.segments) >= 6 and bases[0] != bases[1]
+    for si, ptrs in runs[1]:
+        slot = ex._slots[si % 2]
+        offsets = ex.slot_offsets[si]
+        assert sorted(ptrs) == sorted(w.name for w in ex.segments[si].weight_args)
+        assert all(ptr - bases[si % 2] == offsets[name] for name, (ptr, _) in ptrs.items())
+        spans = sorted((offsets[name], offsets[name] + n) for name, (_, n) in ptrs.items())
+        assert all(end <= start for (_, end), (start, _) in zip(spans, spans[1:]))
+        assert not spans or spans[-1][1] <= slot.numel()
 
 
 class _Spy:
