@@ -246,8 +246,18 @@ Phases (any failure exits non-zero and prints no result line):
      card, unet_fp16/ loaded over HTTP (wp=prefetch, read_file), three /run
      requests read back as little-endian f32, bit for bit with the
      in-process resident session, 10 flash launches each, each request's
-     latency; then tests/data/capi_smoke.c built with gcc against
-     libonnxstream_tpu_torch.so (runtime/native.py) and run on the card.
+     latency; then the client layer: one more request on the same server
+     through the port's api/client.js under the port's minijs (a fetch()
+     over urllib, tests/torch_js_fetch.py; create with wp=prefetch,
+     set_option, read_file, add_tensor, run, get_tensor, delete), bit for
+     bit with the in-process session, exactly 10 more flash launches, its
+     PUT / run / GET / JS-engine split beside the Python client's request 0;
+     tests/data/capi_smoke.c built with gcc against
+     libonnxstream_tpu_torch.so (runtime/native.py) and run on the card;
+     the 16 [DllImport] names of api/bindings.cs among the library's
+     defined symbols; api/interp.js under minijs on the conv net of
+     tests/torch_js_fetch.py within 2e-4 of the float32 Session on the
+     card; the client layer's seconds printed.
  14. channel-last (phase_layout, after phase_gn_routes on its model): the
      TINY UNet with use_nhwc_layout in fp32 on the card against the CPU; the
      SD15 UNet (seed 0, bf16) NCHW and channel-last in turns, three requests
@@ -4284,8 +4294,11 @@ def phase_serve(name: str, model: str, resident: list) -> dict:
     """The port's HTTP server in a thread on the card: unet_fp16/ loaded over
     HTTP (wp=prefetch, read_file enabled, use_bf16_arithmetic), three /run
     requests, each output read back as little-endian f32 and held bit for
-    bit to the in-process resident Session's; then tests/data/capi_smoke.c
-    compiled with gcc against libonnxstream_tpu_torch.so and run (rc 0)."""
+    bit to the in-process resident Session's; then one more request through
+    the port's api/client.js under the port's minijs (phase_client_js); then
+    tests/data/capi_smoke.c compiled with gcc against
+    libonnxstream_tpu_torch.so and run (rc 0), and every [DllImport] of the
+    port's api/bindings.cs found among the library's defined symbols."""
     import struct
     import sysconfig
     import tempfile
@@ -4306,7 +4319,7 @@ def phase_serve(name: str, model: str, resident: list) -> dict:
     th = threading.Thread(target=srv.serve_forever, daemon=True)
     th.start()
     url = f"http://127.0.0.1:{srv.server_address[1]}"
-    latencies = []
+    latencies, python_parts = [], []
     try:
         h = json.loads(req("POST", "/models?wp=prefetch"))["handle"]
         req("POST", f"/models/{h}/options?name=use_bf16_arithmetic&value=1")
@@ -4325,6 +4338,7 @@ def phase_serve(name: str, model: str, resident: list) -> dict:
             body = req("GET", f"/models/{h}/tensors/out_sample")
             t3 = time.perf_counter()
             latencies.append((t3 - t0) * 1e3)
+            python_parts.append({"puts": (t1 - t0) * 1e3, "run": (t2 - t1) * 1e3, "get": (t3 - t2) * 1e3})
             parts = f"{len(r)} PUTs {(t1 - t0) * 1e3:.1f} ms, run {(t2 - t1) * 1e3:.1f}, GET {(t3 - t2) * 1e3:.1f}"
             if err:
                 raise SystemExit(f"serve: request {i}: {err}")
@@ -4341,6 +4355,7 @@ def phase_serve(name: str, model: str, resident: list) -> dict:
                                  f"{flash_attention_packed.launches} flash kernels")
         launches = flash_attention_packed.launches
         req("DELETE", f"/models/{h}")
+        client_js = phase_client_js(name, url, model, resident[0], python_parts[0])
     finally:
         srv.shutdown()
         srv.server_close()
@@ -4349,7 +4364,13 @@ def phase_serve(name: str, model: str, resident: list) -> dict:
     torch.cuda.empty_cache()
 
     lib = exports_library()
-    with tempfile.TemporaryDirectory() as tmp:
+    t_cs = time.perf_counter()
+    client_js["bindings_cs"] = check_bindings_cs(lib)
+    added = client_js["seconds"] + time.perf_counter() - t_cs
+    # interp.js's engine is host work alone (seconds of Python): it runs in a thread beside capi_smoke.c's
+    # build and run, a process of its own; the card's Session it is held to runs after, in this thread
+    with ThreadPoolExecutor(1) as beside, tempfile.TemporaryDirectory() as tmp:
+        on_host = beside.submit(interp_js_on_host)
         exe = os.path.join(tmp, "capi_smoke")
         cc = subprocess.run(["gcc", "-O1", "-Wall", "-Werror", "-pthread",
                              os.path.join(REPO, "tests", "data", "capi_smoke.c"), "-o", exe, f"-L{lib.parent}",
@@ -4361,16 +4382,121 @@ def phase_serve(name: str, model: str, resident: list) -> dict:
         env.pop("PYTHONHOME", None)
         t0 = time.perf_counter()
         run = subprocess.run([exe], capture_output=True, text=True, timeout=300, env=env)
-    print(f"capi_smoke.c against {lib.name} on the card: rc {run.returncode} in {time.perf_counter() - t0:.1f} s, "
-          f"{run.stdout.strip()}")
+        capi_s = time.perf_counter() - t0
+        t_wait = time.perf_counter()
+        js = on_host.result()
+        added += time.perf_counter() - t_wait
+    print(f"capi_smoke.c against {lib.name} on the card: rc {run.returncode} in {capi_s:.1f} s, {run.stdout.strip()}")
     if run.returncode != 0 or "CAPI_C_SMOKE_OK" not in run.stdout:
         raise SystemExit(f"capi_smoke.c failed:\n{run.stdout}\n{run.stderr[-3000:]}")
-    return {"launches": launches, "latency_ms": latencies}
+    t_card = time.perf_counter()
+    client_js["interp_js"] = phase_interp_js(name, js)
+    new_s = added + time.perf_counter() - t_card
+    print(f"the client layer's steps (the client.js request, bindings.cs against the library, interp.js): "
+          f"{new_s:.1f} s added to the run (the client.js request {client_js['seconds']:.1f} s; interp.js's "
+          f"engine {js['ms'] / 1e3:.1f} s beside capi_smoke.c) [{name}]")
+    client_js["new_steps_s"] = new_s
+    return {"launches": launches, "latency_ms": latencies, "python_ms": python_parts, "client_js": client_js}
+
+
+def phase_client_js(name: str, url: str, model: str, want: np.ndarray, python0: dict) -> dict:
+    """One request of a fresh model through the port's api/client.js under
+    the port's minijs, the fetch() over urllib (tests/torch_js_fetch.py
+    client_request): create (wp=prefetch), set_option use_bf16_arithmetic,
+    read_file of unet_fp16/model.txt, add_tensor for the three inputs of
+    request 0, run, get_tensor("out_sample"), delete. The output must be bit
+    for bit the in-process resident session's for request 0, with exactly
+    10 more kernel-1 launches (the run is the new model's first, eager)."""
+    from onnxstream_tpu_torch.kernels.flash_attention import flash_attention_packed
+    from onnxstream_tpu_torch.models.sd.unet import SD15
+
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from torch_js_fetch import client_request
+
+    t0 = time.perf_counter()
+    n0 = flash_attention_packed.launches
+    out, ms = client_request(url, model, _requests(SD15, 0)[0], "out_sample")
+    n = flash_attention_packed.launches - n0
+    want = np.ascontiguousarray(want, np.float32)
+    same = out.shape == want.shape and out.tobytes() == want.tobytes()
+    seconds = time.perf_counter() - t0
+    print(f"client.js request (a fresh model: plan and weight upload in its run): {ms['request']:.1f} ms "
+          f"(3 PUTs {ms['puts']:.1f} ms, run {ms['run']:.1f}, GET {ms['get']:.1f}, the JS engine's own "
+          f"marshalling {ms['js']:.1f}; create, option and read_file {ms['setup']:.1f}, delete "
+          f"{ms['delete']:.1f}) beside the Python client's request 0 on the same server "
+          f"{sum(python0.values()):.1f} ms (3 PUTs {python0['puts']:.1f} ms, run {python0['run']:.1f}, GET "
+          f"{python0['get']:.1f}); output {out.shape} bit for bit with the in-process session {same}, "
+          f"flash launches {n} (want 10) [{name}]")
+    if not same or n != 10:
+        gap = float(np.abs(out - want).max()) if out.shape == want.shape else float("nan")
+        raise SystemExit(f"client.js: the output differs from the in-process session (max|diff| {gap:.3e}) "
+                         f"or {n} flash launches (want 10)")
+    return {"launches": n, "ms": ms, "seconds": seconds}
+
+
+def check_bindings_cs(lib) -> dict:
+    """Every [DllImport] name of the port's api/bindings.cs is a defined
+    dynamic symbol of the built libonnxstream_tpu_torch.so (nm -D
+    --defined-only; ctypes lookups in a fresh process where nm is missing),
+    16 of them."""
+    import re
+
+    with open(os.path.join(REPO, "onnxstream_tpu_torch", "api", "bindings.cs")) as f:
+        names = re.findall(r"\[DllImport[^\]]*\]\s*public static extern\s+\S+\s+(\w+)\s*\(", f.read())
+    if shutil.which("nm"):
+        out = subprocess.run(["nm", "-D", "--defined-only", str(lib)], capture_output=True, text=True,
+                             check=True).stdout
+        defined = {line.split()[-1] for line in out.splitlines() if line.strip()}
+        how = "nm -D --defined-only"
+    else:
+        probe = "import ctypes, sys; lib = ctypes.CDLL(sys.argv[1]); [getattr(lib, n) for n in sys.argv[2:]]"
+        rc = subprocess.run([sys.executable, "-c", probe, str(lib), *names], capture_output=True, text=True,
+                            timeout=120).returncode
+        defined, how = (set(names) if rc == 0 else set()), "ctypes lookups"
+    missing = sorted(set(names) - defined)
+    print(f"bindings.cs: {len(names)} [DllImport] names, defined in {lib.name} ({how}): {len(names) - len(missing)}"
+          f"{'; missing ' + ', '.join(missing) if missing else ''}")
+    if len(names) != 16 or missing:
+        raise SystemExit(f"bindings.cs: {len(names)} [DllImport] names (want 16), missing from {lib.name}: {missing}")
+    return {"dllimports": len(names), "defined": len(names) - len(missing), "how": how}
+
+
+def interp_js_on_host() -> dict:
+    """The port's api/interp.js under the port's minijs (no JAX, no JS host
+    on the card's machine) over tests/torch_js_fetch.py's conv net (Conv,
+    SiLU, MaxPool, grouped Conv, Resize, Concat, Reshape, Transpose, MatMul,
+    Softmax): the graph, the JS outputs and the engine's ms. Host work only."""
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from torch_js_fetch import conv_net, run_interp
+
+    t0 = time.perf_counter()
+    graph = conv_net()
+    return {"graph": graph, "outputs": run_interp(*graph), "ms": (time.perf_counter() - t0) * 1e3}
+
+
+def phase_interp_js(name: str, js: dict) -> dict:
+    """interp_js_on_host's outputs held within INTERP_JS_TOL of the port's
+    float32 Session on the card over the same graph. No kernel runs there."""
+    from onnxstream_tpu_torch.kernels.flash_attention import flash_attention_packed
+
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from torch_js_fetch import max_gap, run_session
+
+    n0 = flash_attention_packed.launches
+    outs = js["graph"][3]
+    gap = max_gap(js["outputs"], run_session(*js["graph"], device="cuda"))
+    print(f"interp.js conv net under minijs: {js['ms']:.1f} ms, outputs {[js['outputs'][n].shape for n in outs]}, "
+          f"max|interp.js - float32 Session on the card| {gap:.3e} (bound {INTERP_JS_TOL:g}), flash launches "
+          f"{flash_attention_packed.launches - n0} [{name}]")
+    if not gap < INTERP_JS_TOL or not all(np.isfinite(js["outputs"][n]).all() for n in outs):
+        raise SystemExit(f"interp.js: {gap:.3e} from the card's Session (bound {INTERP_JS_TOL:g})")
+    return {"max_abs_err": gap, "ms": js["ms"]}
 
 
 # ------------------------------------------------------------------------------------------------
 # the channel-last layout pass, flash_packed_nopad, force_fp16_storage, the ONNX converter
 # ------------------------------------------------------------------------------------------------
+INTERP_JS_TOL = 2e-4  # interp.js (float32, sequential) against the float32 Session: the JAX package's bar
 LAYOUT_CONVERSIONS = ("nchwToNhwc", "nhwcToNchw")  # cuDNN's own layout-conversion kernels, by name
 SD15_FLASH_PER_RUN = 10  # kernel 1's packed sites a SD15 UNet run at the 64 x 64 latent (d = 40 x 5, d = 80 x 5)
 
@@ -6899,15 +7025,16 @@ def _main(name: str, written, stamp) -> int:
         {"name": "flash_attention_packed", "route": "cuda", "source": fa_src,
          "replaces": "onnxstream_tpu/kernels/flash_attention.py:260", **kernel,
          "launches": (sd_image["flash_launches"] + sdxl["launches"] + sd_batch["launches"] + whisper["launches"]
-                      + streamed["launches"] + served["launches"] + layout["launches"] + fp16["launches"]
-                      + nopad["packed_launches"] + convert["launches"] + unet_dp2 + unet_tp2 + entry["launches"]
+                      + streamed["launches"] + served["launches"] + served["client_js"]["launches"] + layout["launches"]
+                      + fp16["launches"] + nopad["packed_launches"] + convert["launches"] + unet_dp2 + unet_tp2 + entry["launches"]
                       + u8_tp2_k1 + sum(vae_tp2_launches["flash_attention_packed"].values())
                       + streamed_tp2["launches"] + capture["sd15"]["launches"] + parallel["pp"]["launches"]
                       + parallel["one_rank_qdq_no_ranges"]["launches"]),
          "launches_by_path": {"sd15_step": launches_sd, "sd15_image": sd_image["flash_launches"],
                               "sdxl_image_and_turbo": sdxl["launches"], "sd15_generate_batch4": sd_batch["launches"],
                               "whisper": whisper["launches"], "sd15_streamed": streamed["launches"],
-                              "sd15_served": served["launches"], "sd15_nhwc": layout["launches"],
+                              "sd15_served": served["launches"],
+                              "sd15_served_client_js": served["client_js"]["launches"], "sd15_nhwc": layout["launches"],
                               "sd15_fp16_storage": fp16["launches"], "sd15_nopad": nopad["packed_launches"],
                               "sd15_converted": convert["launches"], "dp2_unet": unet_dp2,
                               "tp2_unet": unet_tp2, "sd15_entry": entry["launches"], "tp2_unet_uint8": u8_tp2_k1,

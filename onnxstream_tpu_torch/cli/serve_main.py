@@ -4,8 +4,9 @@ Counterpart of ``onnxstream_tpu/cli/serve_main.py``: the same endpoints,
 CORS and read-file gates, over ``onnxstream_tpu_torch.api.capi``. The
 reference runs models in the browser via WASM (reference src/wasm.js +
 examples/*_wasm); a GPU cannot live in a browser tab, so the client API
-shape stays (api/client.js of the JAX package mirrors the wasm.js Model
-surface) and execution moves server-side onto the card.
+shape stays (the port's api/client.js mirrors the wasm.js Model surface;
+api/interp.js runs the same IR in the tab itself) and execution moves
+server-side onto the card.
 
     python -m onnxstream_tpu_torch.cli.serve_main --device cuda --port 8080
 
